@@ -1,0 +1,90 @@
+"""The port's configuration, imports and device rule.
+
+  * every YAML under ``configs/`` parses to the same dict through the
+    port's own ``Hparams`` copy as through the JAX package's;
+  * no ``.py`` file of ``vae_gslm_tpu_torch/``, and not ``chip_smoke.py``,
+    imports ``jax``, ``flax`` or ``vae_gslm_tpu``;
+  * the builders and the sampler run on CUDA by default and raise on a
+    machine without it unless the caller passes ``device="cpu"``."""
+import ast
+import glob
+import os
+
+import pytest
+import torch
+
+from tests.test_models import HFG_HP
+from tests.test_torch_trunk import N_MELS, TINY_YAML
+from vae_gslm_tpu.hparams.hp import Hparams as JHparams
+from vae_gslm_tpu_torch.hparams.hp import Hparams
+from vae_gslm_tpu_torch.inference.speech.sampler import ARTRSampler
+from vae_gslm_tpu_torch.models.speech.lvtr import LVTR
+from vae_gslm_tpu_torch.models.vocoder.hfgan import Generator
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = sorted(
+    os.path.relpath(p, ROOT)
+    for p in glob.glob(os.path.join(ROOT, "configs", "**", "*.y*ml"),
+                       recursive=True))
+PORT_FILES = sorted(
+    [os.path.relpath(p, ROOT)
+     for p in glob.glob(os.path.join(ROOT, "vae_gslm_tpu_torch", "**",
+                                     "*.py"), recursive=True)]
+    + ["chip_smoke.py"])
+FORBIDDEN = ("jax", "flax", "vae_gslm_tpu")
+
+
+def test_configs_found():
+    assert len(CONFIGS) >= 5, CONFIGS
+    assert "configs/train/speech/vae-gslm.yaml" in CONFIGS
+
+
+@pytest.mark.parametrize("path", CONFIGS)
+def test_config_parses_like_jax(path):
+    full = os.path.join(ROOT, path)
+    ours = Hparams.from_yamlfile(full)
+    ref = JHparams.from_yamlfile(full)
+    assert ours.to_dict() == ref.to_dict()
+    assert Hparams.from_dict(ours.to_dict()) == ours
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_port_imports_no_jax(path):
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = sorted(set(_imported_roots(tree)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+def _tiny_lvtr(**kw):
+    return LVTR(Hparams.from_yaml(TINY_YAML), input_dim=N_MELS, **kw)
+
+
+@pytest.mark.parametrize("builder", ["lvtr", "generator", "sampler"])
+def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, builder):
+    cpu_model = _tiny_lvtr(device="cpu") if builder == "sampler" else None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    build = {
+        "lvtr": _tiny_lvtr,
+        "generator": lambda **kw: Generator(
+            Hparams.from_dict(HFG_HP.to_dict()), **kw),
+        "sampler": lambda **kw: ARTRSampler(cpu_model, **kw),
+    }[builder]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build(device="cuda")
+    built = build(device="cpu")
+    if builder != "sampler":
+        assert {p.device.type for p in built.parameters()} == {"cpu"}
+    else:
+        assert built.device == torch.device("cpu")

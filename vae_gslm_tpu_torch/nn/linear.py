@@ -1,0 +1,196 @@
+"""Dense layers, embeddings, FiLM and the Gaussian head (port of
+``vae_gslm_tpu/nn/linear.py``).
+
+Weights keep the reference's torch layout and state-dict names
+(``weight`` (out, in), ``bias``).  Matmuls run in the policy's compute
+dtype; distribution math (logstd, sampling) runs float32.  Random draws
+take an explicit ``torch.Generator`` where JAX takes a key.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.masked import Masked
+from ..core.precision import get_policy
+from .activations import identity
+
+
+def uniform_(t: torch.Tensor, bound: float, generator) -> None:
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=generator)
+
+
+class Dense(nn.Module):
+    """Linear layer with torch-style default init, policy-aware compute."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True):
+        super().__init__()
+        self.in_dim, self.out_dim = in_dim, out_dim
+        self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
+        self.bias = nn.Parameter(torch.empty(out_dim)) if bias else None
+
+    def reset_parameters(self, generator=None) -> None:
+        bound = 1.0 / math.sqrt(self.in_dim)
+        uniform_(self.weight, bound, generator)
+        if self.bias is not None:
+            uniform_(self.bias, bound, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = get_policy().compute_dtype
+        b = self.bias.to(dt) if self.bias is not None else None
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class Linear(nn.Module):
+    """Masked Linear with fused activation; the reference nests the
+    dense layer as ``.linear`` (state-dict key ``<name>.linear.weight``)."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
+                 activation: Callable = identity):
+        super().__init__()
+        self.linear = Dense(in_dim, out_dim, bias=bias)
+        self.activation = activation
+
+    def forward(self, x: Masked) -> Masked:
+        return dataclasses.replace(
+            x, value=self.activation(self.linear(x.value)))
+
+
+class Embedding(nn.Module):
+    """Token embedding that zeroes padded positions."""
+
+    def __init__(self, vocab_size: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(vocab_size, dim))
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            self.weight.normal_(generator=generator)
+
+    def lookup(self, ids: torch.Tensor) -> torch.Tensor:
+        dt = get_policy().compute_dtype
+        return self.weight.to(dt)[ids.long()]
+
+    def forward(self, ids: Masked) -> Masked:
+        return Masked(self.lookup(ids.value), ids.lengths, 1).apply_mask()
+
+
+class FiLM(nn.Module):
+    """Feature-wise linear modulation.  ``time_first`` (channel-last
+    input, the flow couplings) holds an ``nn.Linear``-layout weight;
+    otherwise a 1x1 ``Conv1d``-layout weight applied along channel
+    axis 1 (the NCW conv blocks), as the reference does."""
+
+    def __init__(self, dim: int, in_dim: Optional[int] = None,
+                 time_first: bool = True, bias: bool = True):
+        super().__init__()
+        in_dim = dim if in_dim is None else in_dim
+        self.dim = dim
+        self.time_first = time_first
+        if time_first:
+            self.linear = Dense(in_dim, 2 * dim, bias=bias)
+        else:
+            from .conv import Conv1d
+            self.linear = Conv1d(in_dim, 2 * dim, 1, bias=bias)
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        wb = self.linear(c)
+        axis = -1 if self.time_first else 1
+        weight, bias = wb.split(self.dim, dim=axis)
+        return weight * x + bias
+
+
+@dataclasses.dataclass
+class GaussianOutput:
+    mean: Masked
+    logstd: Masked
+    sample: Masked
+
+
+def truncated_normal(lo: float, hi: float, shape, generator,
+                     device) -> torch.Tensor:
+    """Standard normal truncated to [lo, hi], by the inverse CDF."""
+    cdf = lambda v: 0.5 * (1.0 + math.erf(v / math.sqrt(2.0)))  # noqa
+    a, b = cdf(lo), cdf(hi)
+    u = torch.rand(shape, generator=generator, device=device)
+    u = (a + (b - a) * u).clamp(min=1e-7, max=1.0 - 1e-7)
+    return torch.special.ndtri(u).clamp(lo, hi)
+
+
+class GaussianParameterize(nn.Module):
+    """Mean/logstd heads + reparameterised sampling (the VAE posterior
+    head q(z|x) and the AR prior head p(z_t|z_<t)).  The heads are
+    named ``mean``/``logstd`` like the reference's state dict;
+    ``fix_mean`` is the JAX package's fixed-``mean`` option."""
+
+    def __init__(self, in_dim: int, dim: int, bias: bool = True,
+                 std: Optional[float] = None,
+                 std_range: Optional[Tuple[float, float]] = None,
+                 truncated_norm: Optional[Tuple[float, float]] = None,
+                 total_std: Optional[float] = None,
+                 normalization: bool = False,
+                 fix_mean: Optional[float] = None):
+        super().__init__()
+        self.dim = dim
+        self.fix_mean = fix_mean
+        self.mean = Dense(in_dim, dim, bias=bias) if fix_mean is None \
+            else None
+        self.std = std
+        self.logstd = Dense(in_dim, dim, bias=bias) if std is None else None
+        if std_range is not None and (std is not None
+                                      or len(std_range) != 2):
+            raise ValueError("std_range needs two values and no fixed std")
+        if total_std is not None and (std is not None
+                                      or std_range is not None):
+            raise ValueError("total_std excludes std and std_range")
+        self.std_range = std_range
+        self.total_std = total_std
+        self.truncated_norm = truncated_norm
+        self.normalization = normalization
+
+    def _stats(self, xv: torch.Tensor):
+        if self.mean is not None:
+            mean = self.mean(xv).float()
+        else:
+            mean = torch.full(xv.shape[:-1] + (self.dim,), self.fix_mean,
+                              dtype=torch.float32, device=xv.device)
+        if self.normalization:
+            mean = mean / mean.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+        if self.logstd is not None:
+            logstd = self.logstd(xv).float()
+            if self.std_range is not None:
+                _max, _min = self.std_range
+                std = torch.sigmoid(logstd) * (_max - _min) + _min
+                logstd = torch.log(std)
+        else:
+            logstd = torch.full_like(mean, math.log(self.std))
+        if self.total_std is not None:
+            std = torch.exp(logstd)
+            std = std / std.sum(-1, keepdim=True)
+            std = std * self.total_std * std.shape[-1]
+            logstd = torch.log(std)
+        return mean, logstd
+
+    def forward(self, x: Masked, generator: Optional[torch.Generator],
+                temperature: float = 1.0,
+                truncated_norm: Optional[Tuple[float, float]] = None
+                ) -> GaussianOutput:
+        mean, logstd = self._stats(x.value)
+        tn = truncated_norm if truncated_norm is not None \
+            else self.truncated_norm
+        if tn is not None:
+            noise = truncated_normal(tn[0], tn[1], mean.shape, generator,
+                                     mean.device)
+        else:
+            noise = torch.randn(mean.shape, generator=generator,
+                                device=mean.device)
+        sample = mean + noise * torch.exp(logstd) * temperature
+        return GaussianOutput(mean=Masked(mean, x.lengths, 1),
+                              logstd=Masked(logstd, x.lengths, 1),
+                              sample=Masked(sample, x.lengths, 1))

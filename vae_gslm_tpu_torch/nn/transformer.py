@@ -1,0 +1,312 @@
+"""Transformer trunk on the hybrid serving path (port of
+``TransformerLayerStack`` from ``vae_gslm_tpu/nn/transformer.py``).
+
+What the slice runs:
+  * ``init_stacked_cache`` + ``decode_stacked`` prefill: the prompt runs
+    through all layers at once and fills a stacked int8 cache
+    ``(L, B, H, T, D)``; attention reads the dequantized bfloat16 cache,
+    as the JAX prefill does;
+  * ``hybrid_cache_from_prefill`` converts it to the cold/tail layout of
+    ``ops/fused_decode.py``;
+  * ``decode_hybrid`` runs one token through the layers with the K1
+    kernel as each layer's attention; all layers' new K/V rows are
+    written into the tail once, after the layer loop;
+  * ``flush_hybrid`` moves a full tail into the next cold block.
+The cache tensors are updated in place (the JAX functions return new
+arrays).  The per-layer and packed decode paths, the mega path, weight
+int8, training (``run``), cross-attention and T5/Rotary positions wait
+for later slices (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..hparams.hp import Hparams
+from ..ops.fused_decode import BLK, TAIL, fused_decode_attention
+from .activations import get_activation
+from .attention import (LayerKVCache, attend, merge_heads, quantize_i8,
+                        split_heads)
+from .linear import Dense
+from .norms import RMSNorm, get_norm
+from .positions import ALiBi
+
+
+class SelfAttention(nn.Module):
+    """The projections of one self-attention layer (state-dict names
+    ``in_proj``/``out_proj``); the stacked paths read their weights."""
+
+    def __init__(self, dim: int, hp: Hparams):
+        super().__init__()
+        hp.check_arg_in_hparams("nheads", "causal")
+        if dim % hp.nheads:
+            raise ValueError("dim must be a multiple of nheads")
+        self.nheads = hp.nheads
+        self.head_dim = dim // hp.nheads
+        bias = bool(hp.get("bias", None))
+        self.in_proj = Dense(dim, dim * 3, bias=bias)
+        self.out_proj = Dense(dim, dim, bias=bias)
+
+
+class TransformerLayer(nn.Module):
+    def __init__(self, hp: Hparams):
+        super().__init__()
+        hp.check_arg_in_hparams("ffd_size", "norm", "activation", "dim",
+                                "self_attn")
+        if hp.has("cross_attn"):
+            raise NotImplementedError(
+                "cross-attention is not ported yet (ROADMAP.md)")
+        self.preln = hp.get("preln", True)
+        self.self_attn = SelfAttention(hp.dim, hp.self_attn)
+        bias = hp.get("bias", True)
+        self.linear1 = Dense(hp.dim, hp.ffd_size, bias=bias)
+        self.linear2 = Dense(hp.ffd_size, hp.dim, bias=bias)
+        self.norm1 = get_norm(hp.dim, hp.norm)
+        self.norm3 = get_norm(hp.dim, hp.norm)
+        self.activation = get_activation(hp.activation)
+
+
+class TransformerLayerStack(nn.Module):
+    def __init__(self, hp: Hparams, input_dim: Optional[int] = None,
+                 output_dim: Optional[int] = None):
+        super().__init__()
+        hp.check_arg_in_hparams("num_layers", "layer")
+        self.hp = hp
+        self.layers = nn.ModuleList([TransformerLayer(hp.layer)
+                                     for _ in range(hp.num_layers)])
+        bias = hp.get("bias", True)
+        dim = hp.layer.dim
+        self.linear = (Dense(input_dim, dim, bias=bias)
+                       if input_dim is not None else None)
+        self.out = (Dense(dim, output_dim, bias=bias)
+                    if output_dim is not None else None)
+        self.final_norm = (get_norm(dim, hp.layer.norm)
+                           if hp.get("final_ln", True) else None)
+        self.first_norm = (get_norm(dim, hp.layer.norm)
+                           if hp.get("first_ln", False) else None)
+        self.rpe_id = hp.rpe.identifier if hp.get("rpe", False) else None
+        if self.rpe_id == "ALiBi":
+            self.rpe = ALiBi(hp.layer.self_attn.nheads,
+                             hp.rpe.get("maxpos", 10000))
+        elif self.rpe_id is None:
+            self.rpe = None
+        else:
+            raise NotImplementedError(
+                f"{self.rpe_id} positions are not ported yet (ROADMAP.md)")
+
+    @property
+    def dim(self) -> int:
+        return self.hp.layer.dim
+
+    # -- shared pieces of the stacked paths -----------------------------
+    def supports_stacked_decode(self) -> bool:
+        return all(la.preln and isinstance(la.norm1, RMSNorm)
+                   and isinstance(la.norm3, RMSNorm) for la in self.layers)
+
+    def build_stacked_decode(self) -> dict:
+        """Per-layer weights stacked on a leading L axis, ``w`` as
+        (L, in, out) in the compute dtype, ``x @ w`` like the JAX
+        package.  Build once per sampling call."""
+        from ..core.precision import get_policy
+
+        if not self.supports_stacked_decode():
+            raise NotImplementedError(
+                "the stacked decode needs pre-LN RMSNorm layers")
+        dt = get_policy().compute_dtype
+
+        def dense(getter):
+            mods = [getter(la) for la in self.layers]
+            entry = {"w": torch.stack([m.weight.t() for m in mods]).to(dt)}
+            if mods[0].bias is not None:
+                entry["b"] = torch.stack([m.bias for m in mods]).to(dt)
+            return entry
+
+        with torch.no_grad():
+            return {
+                "n1": torch.stack([la.norm1.scale for la in self.layers]),
+                "n3": torch.stack([la.norm3.scale for la in self.layers]),
+                "qkv": dense(lambda la: la.self_attn.in_proj),
+                "out": dense(lambda la: la.self_attn.out_proj),
+                "ffn1": dense(lambda la: la.linear1),
+                "ffn2": dense(lambda la: la.linear2),
+            }
+
+    def _rms(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        eps = self.layers[0].norm1.eps
+        return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+    @staticmethod
+    def _matmul(x: torch.Tensor, entry: dict, li: int) -> torch.Tensor:
+        y = x @ entry["w"][li]
+        if "b" in entry:
+            y = y + entry["b"][li]
+        return y
+
+    def _ffn(self, x: torch.Tensor, stacked: dict, li: int) -> torch.Tensor:
+        h2 = self._rms(x, stacked["n3"][li])
+        act = self.layers[0].activation
+        h = act(self._matmul(h2, stacked["ffn1"], li))
+        return x + self._matmul(h, stacked["ffn2"], li)
+
+    def _project_in(self, xv: torch.Tensor) -> torch.Tensor:
+        if self.linear is not None:
+            xv = self.linear(xv)
+        if self.first_norm is not None:
+            xv = self.first_norm(xv)
+        return xv
+
+    def _project_out(self, x: torch.Tensor) -> torch.Tensor:
+        if self.final_norm is not None:
+            x = self.final_norm(x)
+        if self.out is not None:
+            x = self.out(x)
+        return x
+
+    def _slopes(self, device) -> torch.Tensor:
+        if self.rpe_id == "ALiBi":
+            return self.rpe.slopes
+        return torch.zeros(self.layers[0].self_attn.nheads, device=device)
+
+    # -- stacked int8 cache and prefill ----------------------------------
+    def init_stacked_cache(self, batch: int, max_len: int,
+                           dtype=torch.int8) -> LayerKVCache:
+        """One int8 KV cache for the whole stack: ``(L, B, H, maxT, D)``."""
+        if dtype != torch.int8:
+            raise NotImplementedError(
+                "the port's stacked cache is int8 only (ROADMAP.md)")
+        la = self.layers[0].self_attn
+        dev = la.in_proj.weight.device
+        shape = (len(self.layers), batch, la.nheads, max_len, la.head_dim)
+        return LayerKVCache(
+            torch.zeros(shape, dtype=torch.int8, device=dev),
+            torch.zeros(shape, dtype=torch.int8, device=dev),
+            torch.zeros(shape[:-1], device=dev),
+            torch.zeros(shape[:-1], device=dev))
+
+    @torch.no_grad()
+    def decode_stacked(self, xv: torch.Tensor, stacked: dict,
+                       cache: LayerKVCache, pos: int):
+        """Prefill: frames ``xv`` (B, S, C) at positions [pos, pos+S)
+        through all layers, writing their int8 K/V rows into ``cache``.
+        Returns the final hidden (B, S, C) and the cache."""
+        xv = self._project_in(xv)
+        b, s, _ = xv.shape
+        if s == 1:
+            raise NotImplementedError(
+                "single-token stacked steps run through decode_hybrid; "
+                "the per-layer step waits for a later slice (ROADMAP.md)")
+        nheads = self.layers[0].self_attn.nheads
+        win = cache.k.shape[-2]
+        dev = xv.device
+        k_pos = torch.arange(win, device=dev)
+        q_pos = pos + torch.arange(s, device=dev)
+        mask = (k_pos[None, :] <= q_pos[:, None])[None, None]
+        mask = mask.expand(b, 1, s, win)
+        bias = self.rpe.bias(q_pos, k_pos) if self.rpe_id == "ALiBi" \
+            else None
+        x = xv
+        for li in range(len(self.layers)):
+            h = self._rms(x, stacked["n1"][li])
+            q, k, v = self._matmul(h, stacked["qkv"], li).chunk(3, dim=-1)
+            kh = split_heads(k, nheads).transpose(1, 2)    # (B, H, S, D)
+            vh = split_heads(v, nheads).transpose(1, 2)
+            for dst, sdst, new in ((cache.k, cache.k_scale, kh),
+                                   (cache.v, cache.v_scale, vh)):
+                q8, sc = quantize_i8(new)
+                dst[li, :, :, pos:pos + s] = q8
+                sdst[li, :, :, pos:pos + s] = sc
+            # bfloat16 like LayerKVCache.dense_kv in the JAX package
+            kd = (cache.k[li, :, :, :win].float()
+                  * cache.k_scale[li, :, :, :win, None]).to(torch.bfloat16)
+            vd = (cache.v[li, :, :, :win].float()
+                  * cache.v_scale[li, :, :, :win, None]).to(torch.bfloat16)
+            out = attend(split_heads(q, nheads), kd.transpose(1, 2),
+                         vd.transpose(1, 2), bias, mask)
+            x = x + self._matmul(merge_heads(out), stacked["out"], li)
+            x = self._ffn(x, stacked, li)
+        return self._project_out(x), cache
+
+    # -- hybrid cold/tail cache ------------------------------------------
+    @staticmethod
+    def hybrid_cache_from_prefill(cache: LayerKVCache, prompt_len: int,
+                                  total_len: int):
+        """Convert the filled stacked prefill cache (positions
+        [0, prompt_len)) into the cold/tail layout: the largest multiple
+        of 256 positions goes cold, block-major and time-minor; the rest
+        goes to the head-major 256-row tail.  Returns (cache, flushed)."""
+        nl, b, h, _, dh = cache.k.shape
+        dev = cache.k.device
+        flushed = (prompt_len // TAIL) * TAIL
+        nb = max((total_len // TAIL) * TAIL, BLK) // BLK
+        nb_f = flushed // BLK
+        n = prompt_len - flushed
+        out = {}
+        for name, src, scale in (("k", cache.k, cache.k_scale),
+                                 ("v", cache.v, cache.v_scale)):
+            cold = torch.zeros((nl, nb, b, h, dh, BLK), dtype=torch.int8,
+                               device=dev)
+            cold_s = torch.zeros((nl, nb, b, h, BLK), device=dev)
+            if flushed:
+                cold[:, :nb_f] = src[:, :, :, :flushed].reshape(
+                    nl, b, h, nb_f, BLK, dh).permute(0, 3, 1, 2, 5, 4)
+                cold_s[:, :nb_f] = scale[..., :flushed].reshape(
+                    nl, b, h, nb_f, BLK).permute(0, 3, 1, 2, 4)
+            tail = torch.zeros((nl, b, h, TAIL, dh), dtype=torch.int8,
+                               device=dev)
+            tail_s = torch.zeros((nl, b, h, TAIL), device=dev)
+            tail[:, :, :, :n] = src[:, :, :, flushed:prompt_len]
+            tail_s[..., :n] = scale[..., flushed:prompt_len]
+            out[f"{name}_cold"], out[f"{name}c_scale"] = cold, cold_s
+            out[f"{name}_tail"], out[f"{name}t_scale"] = tail, tail_s
+        return out, flushed
+
+    @staticmethod
+    def flush_hybrid(cache: dict, flushed_prev: int) -> dict:
+        """Move the full tail (one 256-position block) into cold block
+        ``flushed_prev // 256``, in place."""
+        nb = flushed_prev // BLK
+        cache["k_cold"][:, nb] = cache["k_tail"].transpose(3, 4)
+        cache["v_cold"][:, nb] = cache["v_tail"].transpose(3, 4)
+        cache["kc_scale"][:, nb] = cache["kt_scale"]
+        cache["vc_scale"][:, nb] = cache["vt_scale"]
+        return cache
+
+    @torch.no_grad()
+    def decode_hybrid(self, xv: torch.Tensor, stacked: dict, cache: dict,
+                      pos: int, flushed: int):
+        """One token (B, 1, C) at position ``pos`` through all layers,
+        with ``fused_decode_attention`` as each layer's attention.  The
+        layers' new K/V rows go into tail slot ``pos - flushed`` after
+        the loop.  Returns the final hidden (B, 1, C) and the cache."""
+        x = self._project_in(xv)
+        b, s, d = x.shape
+        if s != 1:
+            raise ValueError("decode_hybrid takes one token per row")
+        la0 = self.layers[0].self_attn
+        nheads, dh = la0.nheads, la0.head_dim
+        slopes = self._slopes(x.device)
+        k_rows, v_rows = [], []
+        for li in range(len(self.layers)):
+            h = self._rms(x, stacked["n1"][li])
+            qkv = self._matmul(h, stacked["qkv"], li)[:, 0]
+            qh, kh, vh = qkv.view(b, 3, nheads, dh).unbind(1)
+            out = fused_decode_attention(
+                qh, cache["k_cold"], cache["v_cold"], cache["kc_scale"],
+                cache["vc_scale"], cache["k_tail"], cache["v_tail"],
+                cache["kt_scale"], cache["vt_scale"], pos, li, slopes,
+                kh, vh, flushed)
+            out = out.to(x.dtype).reshape(b, 1, d)
+            x = x + self._matmul(out, stacked["out"], li)
+            x = self._ffn(x, stacked, li)
+            k_rows.append(kh)
+            v_rows.append(vh)
+        slot = pos - flushed
+        for name, rows in (("k", k_rows), ("v", v_rows)):
+            q8, sc = quantize_i8(torch.stack(rows))        # (L, B, H, D)
+            cache[f"{name}_tail"][:, :, :, slot] = q8
+            cache[f"{name}t_scale"][..., slot] = sc
+        return self._project_out(x), cache
