@@ -69,22 +69,29 @@ def _tiny_lvtr(**kw):
     return LVTR(Hparams.from_yaml(TINY_YAML), input_dim=N_MELS, **kw)
 
 
-@pytest.mark.parametrize("builder", ["lvtr", "generator", "sampler"])
+@pytest.mark.parametrize("builder", ["lvtr", "generator", "sampler",
+                                     "sampler_int8"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, builder):
-    cpu_model = _tiny_lvtr(device="cpu") if builder == "sampler" else None
+    sampler = builder.startswith("sampler")
+    cpu_model = _tiny_lvtr(device="cpu") if sampler else None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     build = {
         "lvtr": _tiny_lvtr,
         "generator": lambda **kw: Generator(
             Hparams.from_dict(HFG_HP.to_dict()), **kw),
         "sampler": lambda **kw: ARTRSampler(cpu_model, **kw),
+        "sampler_int8": lambda **kw: ARTRSampler(
+            cpu_model, quantize_weights=True, **kw),
     }[builder]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build(device="cuda")
     built = build(device="cpu")
-    if builder != "sampler":
+    if not sampler:
         assert {p.device.type for p in built.parameters()} == {"cpu"}
     else:
         assert built.device == torch.device("cpu")
+        int8 = cpu_model.transformer.layers[0].linear1.weight.dtype \
+            == torch.int8
+        assert int8 == (builder == "sampler_int8")

@@ -1,0 +1,298 @@
+"""K2, the whole-trunk mega step, and its cache upkeep: the port against
+the JAX package on the CPU, and, on a card, the CUDA kernel against its
+plain version.
+
+  * ``fused_trunk_step_plain`` against the JAX Pallas kernel in interpret
+    mode and against ``fused_trunk_step_reference``, on the weights, cache
+    and ``(flushed, pos)`` cases of ``tests/test_mega_step.py``, with and
+    without the s8 x s8 dense products, at rtol 2e-3 / atol 2e-4 (the
+    JAX test's band; the two agree to about 4e-7 here);
+  * ``quantize_int8``, ``build_mega_decode``, ``stage_append`` /
+    ``merge_stage`` / ``flush_mega`` and ``mega_cache_from_prefill``
+    exactly;
+  * the sampler's merge / flush cadence, driven with a stand-in step,
+    against JAX's ``_mega_scan_segments``, exactly.
+
+Also holds the mega-eligible tiny LVTR (``tests/test_torch_trunk.py``'s,
+widened to dim 256 / ffd 1024 like ``tests/test_lvtr_step_parity.py``'s
+``_mega_lvtr_hp``) that ``tests/test_torch_mega_sampler.py`` shares."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax import nnx
+
+from tests.test_mega_step import D, H, L, _cache, _stack
+from tests.test_torch_trunk import N_MELS, TINY_YAML
+from vae_gslm_tpu.hparams.hp import Hparams as JHparams
+from vae_gslm_tpu.inference.speech.sampler import _mega_scan_segments
+from vae_gslm_tpu.models.convert_torch import export_torch_lvtr
+from vae_gslm_tpu.models.speech.lvtr import LVTR as JLVTR
+from vae_gslm_tpu.nn.attention import LayerKVCache as JCache
+from vae_gslm_tpu.ops import mega_step as jmega
+from vae_gslm_tpu_torch.hparams.hp import Hparams
+from vae_gslm_tpu_torch.inference.speech.sampler import mega_scan_segments
+from vae_gslm_tpu_torch.models.convert import (load_reference_lvtr,
+                                               mega_weights_from_numpy)
+from vae_gslm_tpu_torch.models.speech.lvtr import LVTR
+from vae_gslm_tpu_torch.nn.attention import LayerKVCache
+from vae_gslm_tpu_torch.nn.transformer import TransformerLayerStack
+from vae_gslm_tpu_torch.ops import mega_step as tmega
+
+CASES = [(0, 0), (0, 5), (0, 40), (128, 140), (256, 300), (256, 384)]
+B = 8
+
+
+def mega_hp_dict():
+    d = JHparams.from_yaml(TINY_YAML).to_dict()
+    d["transformer"]["layer"]["dim"] = 256
+    d["transformer"]["layer"]["ffd_size"] = 1024
+    return d
+
+
+def mega_lvtr_pair(seed=0):
+    """A JAX LVTR that K2 can take once quantized (dim 256, 4 heads of
+    64, ffd 1024, ALiBi, RMSNorm, GELU, no bias) and the port's LVTR
+    loaded from its export, both float32 on the CPU."""
+    d = mega_hp_dict()
+    jm = JLVTR(JHparams.from_dict(d), input_dim=N_MELS, rngs=nnx.Rngs(seed))
+    tm = LVTR(Hparams.from_dict(d), input_dim=N_MELS, device="cpu")
+    load_reference_lvtr(tm, export_torch_lvtr(jm))
+    return jm, tm
+
+
+def t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def cache_to_torch(cache):
+    """A JAX mega cache dict as torch tensors (bf16 stays bf16)."""
+    out = {}
+    for k, v in cache.items():
+        if v.dtype == jnp.bfloat16:
+            out[k] = t(v.astype(jnp.float32)).to(torch.bfloat16)
+        else:
+            out[k] = t(v)
+    return out
+
+
+def assert_cache_equal(tc, jc):
+    assert sorted(tc) == sorted(jc)
+    for k in jc:
+        np.testing.assert_array_equal(tc[k].float().numpy(),
+                                      np.asarray(jc[k], np.float32),
+                                      err_msg=k)
+
+
+def _inputs():
+    m = _stack()
+    w = m.build_mega_decode()
+    cache = _cache(B, 2)
+    x = jnp.asarray(np.random.RandomState(3).randn(B, D) * 0.3, jnp.float32)
+    slopes = m.rpe.slopes[...]
+    return (x, w, cache, slopes), (t(x), mega_weights_from_numpy(w),
+                                   cache_to_torch(cache), t(slopes))
+
+
+@pytest.mark.parametrize("flushed,pos", CASES)
+@pytest.mark.parametrize("a8", [False, True])
+@pytest.mark.parametrize("oracle", ["interpret_kernel", "reference"])
+def test_plain_matches_jax(flushed, pos, a8, oracle):
+    (x, w, cache, slopes), targs = _inputs()
+    if oracle == "reference":
+        want = jmega.fused_trunk_step_reference(x, w, cache, pos, slopes,
+                                                flushed, a8=a8)
+    else:
+        want = jmega.fused_trunk_step(x, w, cache, jnp.asarray(pos), slopes,
+                                      flushed=flushed, interpret=True, a8=a8)
+    got = tmega.fused_trunk_step_plain(*targs[:3], pos, targs[3], flushed,
+                                       a8=a8)
+    for name, g, wnt in zip(("x", "k_new", "v_new"), got, want):
+        assert g.dtype == (torch.float32 if name == "x" else torch.bfloat16)
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(wnt, np.float32), rtol=2e-3,
+                                   atol=2e-4, err_msg=name)
+
+
+def test_wrapper_takes_plain_version_on_cpu():
+    _, (x, w, cache, slopes) = _inputs()
+    before = tmega.fused_trunk_step.launches
+    got = tmega.fused_trunk_step(x, w, cache, 140, slopes, 128, a8=True)
+    want = tmega.fused_trunk_step_plain(x, w, cache, 140, slopes, 128,
+                                        a8=True)
+    for g, wnt in zip(got, want):
+        np.testing.assert_array_equal(g.float().numpy(), wnt.float().numpy())
+    assert tmega.fused_trunk_step.launches == before   # no kernel launch
+
+
+def test_gelu_rational_matches_jax():
+    x = np.linspace(-6, 6, 4001, dtype=np.float32)
+    np.testing.assert_allclose(tmega.gelu_rational(t(x)).numpy(),
+                               np.asarray(jmega._gelu_exact(jnp.asarray(x))),
+                               rtol=1e-6, atol=1e-7)
+
+
+def test_quantize_and_build_mega_decode_match_jax():
+    jm, tm = mega_lvtr_pair(seed=4)
+    jst, tst = jm.transformer, tm.transformer
+    assert jst.build_mega_decode() is None and tst.build_mega_decode() is None
+    assert not tst.supports_mega_decode()
+    x = np.random.RandomState(0).randn(3, 16).astype(np.float32)
+    jst.quantize_weights_int8()
+    tst.quantize_weights_int8()
+    assert tst.supports_mega_decode()
+    pairs = [(jst.linear, tst.linear)]
+    for jl, tl in zip(jst.layers, tst.layers):
+        pairs += [(jl.self_attn.in_proj, tl.self_attn.in_proj),
+                  (jl.self_attn.out_proj, tl.self_attn.out_proj),
+                  (jl.linear1, tl.linear1), (jl.linear2, tl.linear2)]
+    for jd, td in pairs:
+        assert td.weight.dtype == torch.int8
+        np.testing.assert_array_equal(td.weight.t().numpy(),
+                                      np.asarray(jd.kernel[...]))
+        np.testing.assert_array_equal(td.weight_scale.t().numpy(),
+                                      np.asarray(jd.kernel_scale[...]))
+    # the int8 forward upconverts in the compute dtype, as JAX's does
+    np.testing.assert_allclose(tst.linear(t(x)).numpy(),
+                               np.asarray(jst.linear(jnp.asarray(x))),
+                               rtol=1e-6, atol=1e-6)
+    jw, tw = jst.build_mega_decode(), tst.build_mega_decode()
+    carried = mega_weights_from_numpy(jw)
+    assert sorted(tw) == sorted(jw) == sorted(carried)
+    for k in jw:
+        assert tw[k].dtype == carried[k].dtype, k
+        assert tw[k].is_contiguous(), k
+        np.testing.assert_array_equal(tw[k].numpy(), np.asarray(jw[k]),
+                                      err_msg=k)
+        np.testing.assert_array_equal(carried[k].numpy(), tw[k].numpy())
+    # the stacked prefill entries keep the int8 weight and its scale
+    js, ts = jst.build_stacked_decode(), tst.build_stacked_decode()
+    for name in ("qkv", "out", "ffn1", "ffn2"):
+        np.testing.assert_array_equal(ts[name]["w"].numpy(),
+                                      np.asarray(js[name]["w"]))
+        np.testing.assert_array_equal(ts[name]["scale"].numpy(),
+                                      np.asarray(js[name]["scale"]))
+
+
+def test_stage_merge_flush_roundtrip_matches_jax():
+    """The round trip of ``tests/test_mega_step.py``: 2 x 8 staged rows
+    merged into the last two tail groups, then a flush into cold block
+    1, in both packages."""
+    b, dh = 2, D // H
+    jc = _cache(b, 2, seed=7)
+    tc = cache_to_torch(jc)
+    flushed = 128
+    rows = jnp.asarray(np.random.RandomState(9).randn(
+        2 * jmega.STAGE, L, H, b, dh) * 0.5, jnp.bfloat16)
+    trows = t(rows.astype(jnp.float32)).to(torch.bfloat16)
+    pos0 = flushed + jmega.TAIL - 2 * jmega.STAGE
+    rel0 = pos0 - flushed
+    for j in range(2 * jmega.STAGE):
+        slot = (rel0 + j) % jmega.STAGE
+        jc = jmega.stage_append(jc, rows[j], -rows[j], slot)
+        tc = tmega.stage_append(tc, trows[j], -trows[j], slot)
+        if slot == jmega.STAGE - 1:
+            tail_slot = ((rel0 + j) // jmega.STAGE) * jmega.STAGE
+            jc = jmega.merge_stage(jc, tail_slot)
+            tc = tmega.merge_stage(tc, tail_slot)
+            assert_cache_equal(tc, jc)
+    jc = jmega.flush_mega(jc, flushed)
+    tc = tmega.flush_mega(tc, flushed)
+    assert_cache_equal(tc, jc)
+
+
+@pytest.mark.parametrize("prompt_len", [21, 136, 151])
+def test_mega_cache_from_prefill_matches_jax(prompt_len):
+    """Prompt lengths with stage rows only (21 = 16 tail + 5 stage), one
+    cold block plus a tail group (136), and one cold block plus tail and
+    stage rows (151)."""
+    rng = np.random.RandomState(prompt_len)
+    shape = (L, 2, H, prompt_len, D // H)
+    k, v = (rng.randint(-127, 128, shape).astype(np.int8) for _ in "kv")
+    ks, vs = ((rng.rand(*shape[:-1]) * 0.02).astype(np.float32)
+              for _ in "kv")
+    total = prompt_len + 40
+    jc, jf = _stack().mega_cache_from_prefill(
+        JCache(*map(jnp.asarray, (k, v, ks, vs))), prompt_len, total)
+    tc, tf = TransformerLayerStack.mega_cache_from_prefill(
+        LayerKVCache(*map(torch.from_numpy, (k, v, ks, vs))), prompt_len,
+        total)
+    assert tf == jf == prompt_len // 128 * 128
+    assert_cache_equal(tc, jc)
+
+
+def test_scan_cadence_matches_jax():
+    """The merge / flush cadence of the port's Python loop against JAX's
+    segmented scan.  A stand-in step appends rows that encode the
+    position to the stage and returns, as the next frame, integer sums
+    of the int8 tail and cold tiers it was handed; the frame streams are
+    equal only if both loops merged and flushed before the same steps.
+    From tail slot 123 (a partial group, then a flush at 256) over 150
+    steps (merges, a second flush at 384, a partial group at the end)."""
+    b, dh = 2, D // H
+    jc = _cache(b, 3, seed=11)
+    tc = cache_to_torch(jc)
+    flushed, pos0, length = 128, 251, 150
+    # integer rows with a row maximum of 127 quantize to themselves under
+    # any rounding of the scale (XLA may turn x / scale into a reciprocal
+    # multiply inside the jitted scan), so only the cadence is tested
+    pattern = np.random.RandomState(12).randint(0, 255, (L, H, b, dh))
+    jpat, tpat = jnp.asarray(pattern, jnp.int32), t(pattern)
+    names = ("k_tail", "v_tail", "k_cold", "v_cold")
+
+    def jstep(frame, cache, pos, flushed, key):
+        sums = jnp.stack([cache[n].astype(jnp.int32).sum() for n in names])
+        rows = ((jpat + pos) % 255 - 127).at[..., 0].set(127).astype(
+            jnp.bfloat16)
+        cache = jmega.stage_append(cache, rows, -rows,
+                                   jax.lax.rem(pos - flushed, jmega.STAGE))
+        return jnp.broadcast_to(sums.astype(jnp.float32), frame.shape), cache
+
+    def tstep(frame, cache, pos, flushed):
+        sums = torch.stack([cache[n].sum(dtype=torch.int64) for n in names])
+        rows = (tpat + pos) % 255 - 127
+        rows[..., 0] = 127
+        rows = rows.to(torch.bfloat16)
+        cache = tmega.stage_append(cache, rows, -rows,
+                                   (pos - flushed) % tmega.STAGE)
+        return sums.float().expand(frame.shape), cache
+
+    frame = np.zeros((b, 1, len(names)), np.float32)
+    jfr, jlast = _mega_scan_segments(
+        None, jnp.asarray(frame), jc, flushed, pos0, length,
+        jax.random.split(jax.random.PRNGKey(0), length), jstep)
+    tfr, tlast = mega_scan_segments(t(frame), tc, flushed, pos0, length,
+                                    tstep)
+    # two flushes, at 256 and 384
+    assert len(np.unique(np.asarray(jfr)[0, 1:, 2])) == 3
+    np.testing.assert_array_equal(tfr.numpy(), np.asarray(jfr))
+    np.testing.assert_array_equal(tlast.numpy(), np.asarray(jlast))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernel needs an NVIDIA GPU (sm_90a)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flushed,pos", CASES)
+@pytest.mark.parametrize("a8", [False, True])
+def test_cuda_kernel_matches_plain(cuda_device, flushed, pos, a8):
+    """The kernel and its plain version round the same float64 or int32
+    sums; the band is the JAX test's."""
+    _, (x, w, cache, slopes) = _inputs()
+    dev = cuda_device
+    w = {k: v.to(dev) for k, v in w.items()}
+    cache = {k: v.to(dev) for k, v in cache.items()}
+    args = (x.to(dev), w, cache, pos, slopes.to(dev), flushed)
+    got = tmega.fused_trunk_step(*args, a8=a8)
+    want = tmega.fused_trunk_step_plain(*args, a8=a8)
+    torch.cuda.synchronize()
+    for name, g, wnt in zip(("x", "k_new", "v_new"), got, want):
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   wnt.float().cpu().numpy(), rtol=2e-3,
+                                   atol=2e-4, err_msg=name)

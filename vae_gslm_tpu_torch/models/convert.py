@@ -9,15 +9,19 @@ a reference checkpoint's state dict); ``load_reference_generator``
 takes the reference HiFi-GAN generator's state dict in either
 weight-norm form (``weight_g``/``weight_v`` or
 ``parametrizations.weight.original0/1``) or with weight norm removed,
-and folds it.  Neither imports the JAX package.
+and folds it.  ``mega_weights_from_numpy`` carries the int8 K2 weights
+of a JAX ``build_mega_decode()`` dict across as they are.  None of them
+imports the JAX package.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
 from torch import nn
+
+from ..ops.mega_step import WEIGHT_KEYS
 
 # reference top-level prefix -> port attribute
 _LVTR_PREFIXES = (("encoder.0.", "encoder_net."),
@@ -75,3 +79,23 @@ def load_reference_generator(gen: nn.Module, sd: Mapping) -> None:
     if sd:
         raise KeyError(f"unexpected generator keys: {sorted(sd)}")
     gen.load_state_dict(out, strict=True)
+
+
+def mega_weights_from_numpy(d: Mapping,
+                            device: Union[str, torch.device] = "cpu"
+                            ) -> Dict[str, torch.Tensor]:
+    """The port's K2 weights dict from the arrays of a JAX
+    ``TransformerLayerStack.build_mega_decode()`` dict (numpy or array
+    likes): the same (L, din, dout) int8 weights and float32 vectors,
+    contiguous, with nothing requantized."""
+    extra = sorted(set(d) - set(WEIGHT_KEYS))
+    if extra:
+        raise KeyError(f"unexpected mega weight keys: {extra}")
+    out = {}
+    for key in WEIGHT_KEYS:
+        v = np.array(d[key])          # a writable, contiguous copy
+        want = np.int8 if key.startswith("w") else np.float32
+        if v.dtype != want:
+            raise TypeError(f"{key}: dtype {v.dtype}, expected {want}")
+        out[key] = torch.from_numpy(v).to(device)
+    return out

@@ -1,17 +1,18 @@
 """LVTR, the VAE-GSLM model, on the speech-continuation path (port of
 ``vae_gslm_tpu/models/speech/lvtr.py``).
 
-What the slice runs: ``encode`` (mel -> [token, latent] frames),
+What the port runs: ``encode`` (mel -> [token, latent] frames),
 ``step`` (the stacked prefill), ``step_hybrid`` (one AR step over the
-hybrid int8 cache) and ``decode`` (diffusion back to mels).  Training,
+hybrid int8 cache), ``step_mega`` (one AR step through K2 with int8
+weights) and ``decode`` (diffusion back to mels).  Training,
 ``likelihood``, the utterance encoder and the other encoders wait for a
 later slice (ROADMAP.md).
 
 Randomness comes from one ``torch.Generator`` that the caller passes
 and that is consumed in call order: ``encode`` draws the posterior
-noise; ``step``/``step_hybrid`` draw the prior noise, then the Gumbel
-noise of the token draw; ``decode`` draws the start noise, then one
-noise tensor per diffusion step.  Token ids ride as floats in channel
+noise; ``step``/``step_hybrid``/``step_mega`` draw the prior noise, then
+the Gumbel noise of the token draw; ``decode`` draws the start noise,
+then one noise tensor per diffusion step.  Token ids ride as floats in channel
 0 of the frames.
 """
 from __future__ import annotations
@@ -213,6 +214,21 @@ class LVTR(nn.Module):
         """One AR step over the hybrid cold/tail cache."""
         h, cache = self.transformer.decode_hybrid(
             self._fuse_frames(xv), stacked, cache, pos, flushed)
+        return self._sample_next(h, generator, temperature,
+                                 token_temperature, truncated_norm), cache
+
+    @torch.no_grad()
+    def step_mega(self, xv: torch.Tensor, weights: dict, cache: dict,
+                  pos: int, flushed: int,
+                  generator: Optional[torch.Generator],
+                  temperature: float = 1.0,
+                  token_temperature: float = 1.0,
+                  truncated_norm: Optional[Tuple[float, float]] = None,
+                  a8: Optional[bool] = None):
+        """One AR step with the whole trunk as one K2 call over the
+        three-tier mega cache (int8 weights)."""
+        h, cache = self.transformer.decode_mega(
+            self._fuse_frames(xv), weights, cache, pos, flushed, a8=a8)
         return self._sample_next(h, generator, temperature,
                                  token_temperature, truncated_norm), cache
 

@@ -27,13 +27,19 @@ def uniform_(t: torch.Tensor, bound: float, generator) -> None:
 
 
 class Dense(nn.Module):
-    """Linear layer with torch-style default init, policy-aware compute."""
+    """Linear layer with torch-style default init, policy-aware compute.
+
+    ``quantize_int8()`` converts the weight in place to int8 with one
+    float32 scale per output feature (``weight_scale`` (out, 1)), the
+    inference-only mode of the JAX package; the forward then upconverts
+    it in the compute dtype."""
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True):
         super().__init__()
         self.in_dim, self.out_dim = in_dim, out_dim
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim))
         self.bias = nn.Parameter(torch.empty(out_dim)) if bias else None
+        self.register_buffer("weight_scale", None)
 
     def reset_parameters(self, generator=None) -> None:
         bound = 1.0 / math.sqrt(self.in_dim)
@@ -41,10 +47,28 @@ class Dense(nn.Module):
         if self.bias is not None:
             uniform_(self.bias, bound, generator)
 
+    @torch.no_grad()
+    def quantize_int8(self) -> None:
+        """Symmetric int8 per output feature: the amax runs over the input
+        axis of the (out, in) weight (JAX's per-column scale of its
+        (in, out) kernel), ``round(w / scale)`` with scale
+        ``max(amax, 1e-8) / 127`` divided by a tensor."""
+        if self.weight.dtype == torch.int8:
+            return
+        w = self.weight.float()
+        amax = w.abs().amax(dim=1, keepdim=True)
+        scale = amax.clamp(min=1e-8) / torch.tensor(127.0, device=w.device)
+        self.weight = nn.Parameter(torch.round(w / scale).to(torch.int8),
+                                   requires_grad=False)
+        self.weight_scale = scale
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = get_policy().compute_dtype
         b = self.bias.to(dt) if self.bias is not None else None
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        w = self.weight.to(dt)
+        if self.weight.dtype == torch.int8:
+            w = w * self.weight_scale.to(dt)
+        return F.linear(x.to(dt), w, b)
 
 
 class Linear(nn.Module):

@@ -11,22 +11,33 @@ What the slice runs:
   * ``decode_hybrid`` runs one token through the layers with the K1
     kernel as each layer's attention; all layers' new K/V rows are
     written into the tail once, after the layer loop;
-  * ``flush_hybrid`` moves a full tail into the next cold block.
+  * ``flush_hybrid`` moves a full tail into the next cold block;
+  * with int8 weights (``quantize_weights_int8``) the stacked entries
+    hold the int8 weight and its scales, and ``_matmul`` upconverts them,
+    so an int8-weight model that the mega path cannot take serves
+    through the hybrid path, as in JAX;
+  * the mega path: ``build_mega_decode`` stacks the int8 weights for K2,
+    ``mega_cache_from_prefill`` converts the prefill cache to the
+    three-tier cold/tail/stage layout of ``ops/mega_step.py`` and
+    ``decode_mega`` runs one token through the whole trunk as one K2
+    call plus the stage append.
 The cache tensors are updated in place (the JAX functions return new
-arrays).  The per-layer and packed decode paths, the mega path, weight
-int8, training (``run``), cross-attention and T5/Rotary positions wait
-for later slices (ROADMAP.md).
+arrays).  The per-layer and packed decode paths, K2's w4 variant,
+training (``run``), cross-attention and T5/Rotary positions wait for
+later slices (ROADMAP.md).
 """
 from __future__ import annotations
 
+from operator import attrgetter
 from typing import Optional
 
 import torch
 from torch import nn
 
 from ..hparams.hp import Hparams
+from ..ops import mega_step as mega
 from ..ops.fused_decode import BLK, TAIL, fused_decode_attention
-from .activations import get_activation
+from .activations import gelu, get_activation
 from .attention import (LayerKVCache, attend, merge_heads, quantize_i8,
                         split_heads)
 from .linear import Dense
@@ -108,7 +119,8 @@ class TransformerLayerStack(nn.Module):
     def build_stacked_decode(self) -> dict:
         """Per-layer weights stacked on a leading L axis, ``w`` as
         (L, in, out) in the compute dtype, ``x @ w`` like the JAX
-        package.  Build once per sampling call."""
+        package; int8 weights stay int8 beside their ``scale`` (L, 1,
+        out) in the compute dtype.  Build once per sampling call."""
         from ..core.precision import get_policy
 
         if not self.supports_stacked_decode():
@@ -118,7 +130,12 @@ class TransformerLayerStack(nn.Module):
 
         def dense(getter):
             mods = [getter(la) for la in self.layers]
-            entry = {"w": torch.stack([m.weight.t() for m in mods]).to(dt)}
+            w = torch.stack([m.weight.t() for m in mods])
+            if w.dtype == torch.int8:
+                entry = {"w": w, "scale": torch.stack(
+                    [m.weight_scale.t() for m in mods]).to(dt)}
+            else:
+                entry = {"w": w.to(dt)}
             if mods[0].bias is not None:
                 entry["b"] = torch.stack([m.bias for m in mods]).to(dt)
             return entry
@@ -141,7 +158,10 @@ class TransformerLayerStack(nn.Module):
 
     @staticmethod
     def _matmul(x: torch.Tensor, entry: dict, li: int) -> torch.Tensor:
-        y = x @ entry["w"][li]
+        w = entry["w"][li]
+        if w.dtype == torch.int8:
+            w = w.to(x.dtype) * entry["scale"][li]
+        y = x @ w
         if "b" in entry:
             y = y + entry["b"][li]
         return y
@@ -310,3 +330,144 @@ class TransformerLayerStack(nn.Module):
             cache[f"{name}_tail"][:, :, :, slot] = q8
             cache[f"{name}t_scale"][..., slot] = sc
         return self._project_out(x), cache
+
+    # -- int8 weights and the mega path -----------------------------------
+    def quantize_weights_int8(self) -> None:
+        """Weight-only int8 (per output feature) for the stack's
+        projections, its FFN and its input/output ``linear``s.
+        Irreversible; inference only."""
+        for la in self.layers:
+            for m in (la.self_attn.in_proj, la.self_attn.out_proj,
+                      la.linear1, la.linear2):
+                m.quantize_int8()
+        for m in (self.linear, self.out):
+            if m is not None:
+                m.quantize_int8()
+
+    def supports_mega_decode(self) -> bool:
+        """JAX's eligibility checks for K2 (int8 projections, no other
+        norm than pre-LN RMSNorm with eps 1e-6, ALiBi, GELU, ffd = 4 dim,
+        dim a multiple of 256), plus the port kernel's head_dim of 64."""
+        if not self.supports_stacked_decode():
+            return False
+        d = self.dim
+        if self.rpe_id != "ALiBi" or d % 256:
+            return False
+        for la in self.layers:
+            mods = (la.self_attn.in_proj, la.self_attn.out_proj, la.linear1,
+                    la.linear2)
+            if any(m.weight.dtype != torch.int8 for m in mods):
+                return False
+            if la.linear1.out_dim != 4 * d or la.norm1.eps != 1e-6:
+                return False
+            if la.activation is not gelu:
+                return False
+            if la.self_attn.head_dim != mega.HEAD_DIM:
+                return False
+        return True
+
+    @torch.no_grad()
+    def build_mega_decode(self) -> Optional[dict]:
+        """The stacked weights of K2 (``ops/mega_step.py``): int8 ``wq/wo/
+        w1/w2`` in JAX's (L, din, dout) layout, float32 column scales
+        ``sq/so/s1/s2``, RMSNorm scales ``n1/n3`` and biases ``bq/bo/b1/
+        b2`` (zeros without biases).  None unless
+        ``supports_mega_decode()``."""
+        if not self.supports_mega_decode():
+            return None
+        d = self.dim
+        dev = self.layers[0].linear1.weight.device
+
+        def stack(get):
+            return torch.stack([get(la).weight.t() for la in self.layers]
+                               ).contiguous()
+
+        def scales(get):
+            return torch.stack([get(la).weight_scale.reshape(-1)
+                                for la in self.layers]).float()
+
+        def biases(get, n):
+            return torch.stack([
+                get(la).bias.float() if get(la).bias is not None
+                else torch.zeros(n, device=dev) for la in self.layers])
+
+        qkv, out, up, down = map(attrgetter, (
+            "self_attn.in_proj", "self_attn.out_proj", "linear1", "linear2"))
+        return {
+            "wq": stack(qkv), "wo": stack(out), "w1": stack(up),
+            "w2": stack(down),
+            "sq": scales(qkv), "so": scales(out), "s1": scales(up),
+            "s2": scales(down),
+            "n1": torch.stack([la.norm1.scale for la in self.layers]
+                              ).float(),
+            "n3": torch.stack([la.norm3.scale for la in self.layers]
+                              ).float(),
+            "bq": biases(qkv, 3 * d), "bo": biases(out, d),
+            "b1": biases(up, 4 * d), "b2": biases(down, d),
+        }
+
+    @staticmethod
+    def mega_cache_from_prefill(cache: LayerKVCache, prompt_len: int,
+                                total_len: int):
+        """Convert the filled stacked prefill cache (positions
+        [0, prompt_len)) into K2's three tiers: the largest multiple of
+        128 positions goes to block-major, time-minor cold blocks
+        (``total_len // 128 + 1`` of them), the largest multiple of 8
+        after it to the head-major int8 tail, and the rest, dequantized,
+        to the bfloat16 stage.  Returns (cache, flushed)."""
+        nl, b, h, _, dh = cache.k.shape
+        dev = cache.k.device
+        blk, stage_n = mega.BLK, mega.STAGE
+        flushed = (prompt_len // blk) * blk
+        nb = max(total_len // blk + 1, 1)
+        nb_f = flushed // blk
+        n_tail = (prompt_len - flushed) // stage_n * stage_n
+        mid = flushed + n_tail
+        out = {}
+        for name, src, scale in (("k", cache.k, cache.k_scale),
+                                 ("v", cache.v, cache.v_scale)):
+            cold = torch.zeros((nl, nb, h, b, dh, blk), dtype=torch.int8,
+                               device=dev)
+            cold_s = torch.zeros((nl, nb, h, b, blk), device=dev)
+            if flushed:
+                cold[:, :nb_f] = src[:, :, :, :flushed].reshape(
+                    nl, b, h, nb_f, blk, dh).permute(0, 3, 2, 1, 5, 4)
+                cold_s[:, :nb_f] = scale[..., :flushed].reshape(
+                    nl, b, h, nb_f, blk).permute(0, 3, 2, 1, 4)
+            tail = torch.zeros((nl, h, b, mega.TAIL, dh), dtype=torch.int8,
+                               device=dev)
+            tail_s = torch.zeros((nl, h, b, mega.TAIL), device=dev)
+            tail[:, :, :, :n_tail] = src[:, :, :, flushed:mid].transpose(1, 2)
+            tail_s[..., :n_tail] = scale[..., flushed:mid].transpose(1, 2)
+            stage = torch.zeros((nl, stage_n, h, b, dh),
+                                dtype=torch.bfloat16, device=dev)
+            rows = (src[:, :, :, mid:prompt_len].float()
+                    * scale[..., mid:prompt_len, None])
+            stage[:, :prompt_len - mid] = rows.permute(0, 3, 2, 1, 4).to(
+                torch.bfloat16)
+            out[f"{name}_cold"], out[f"{name}c_scale"] = cold, cold_s
+            out[f"{name}_tail"], out[f"{name}t_scale"] = tail, tail_s
+            out[f"{name}_stage"] = stage
+        return out, flushed
+
+    @torch.no_grad()
+    def decode_mega(self, xv: torch.Tensor, weights: dict, cache: dict,
+                    pos: int, flushed: int, a8: Optional[bool] = None):
+        """One token (B, 1, C) at position ``pos`` through the whole trunk
+        as one K2 call (``ops/mega_step.fused_trunk_step``), then the
+        step's bf16 K/V rows into stage slot ``(pos - flushed) % 8``.
+        ``a8`` (s8 x s8 dense products) defaults to B <= 8, JAX's batch
+        gate.  The caller owns the 8-step ``merge_stage`` and the 128-step
+        ``flush_mega``.  Returns the final hidden (B, 1, C) and the
+        cache."""
+        xv = self._project_in(xv)
+        b, s, _ = xv.shape
+        if s != 1:
+            raise ValueError("decode_mega takes one token per row")
+        if a8 is None:
+            a8 = b <= 8
+        xo, k_new, v_new = mega.fused_trunk_step(
+            xv[:, 0].float(), weights, cache, pos,
+            self._slopes(xv.device).float(), flushed, a8=a8)
+        mega.stage_append(cache, k_new, v_new, (pos - flushed) % mega.STAGE)
+        return self._project_out(xo[:, None].to(xv.dtype)), cache
