@@ -7,10 +7,10 @@ Phases (any failure ends the run with a non-zero exit, no result):
   1. device: the card's name and power limit; TF32 switched off for
      float32 matmuls and convolutions (the comparisons below are float32;
      the pipelines themselves run bfloat16);
-  2. build: every kernel of the port's speech-continuation paths, from
+  2. build: every kernel of the port's serving and training paths, from
      ``vae_gslm_tpu_torch/csrc`` with one nvcc per source, all started
-     together (K1 ``fused_decode.cu``, K2 ``mega_step.cu``), with nvcc's
-     register and spill lines;
+     together (K1 ``fused_decode.cu``, K2 ``mega_step.cu``, K3/K3b
+     ``flash_attention.cu``), with nvcc's register and spill lines;
   3. K1 against its plain PyTorch version at the flagship width (16
      layers, 16 heads, head_dim 64) at B = 8 and 32 over the cache
      states the 150 -> 650 rollout passes through; kernel and plain
@@ -20,16 +20,29 @@ Phases (any failure ends the run with a non-zero exit, no result):
      flagship width, B = 8 with s8 x s8 products and B = 32 with bf16
      products, over five (flushed, pos) cache states, at max |diff| <=
      2e-3 |want| + 2e-4; then its times at B = 8 as K1's;
-  5. agreement on a small input, twice: a small LVTR (head_dim 64)
+  5. K3 (packed ALiBi flash attention forward: o, lse) and K3b (its
+     backward: dq, dk, dv) against their plain versions at the training
+     shapes (B 8, T 640, 16 heads of 64, q/k/v views of one projection,
+     lengths down to 1), float32 and bfloat16, with ALiBi and without,
+     the bf16 outputs also element by element (2 ulps + a share of the
+     rms) and in relative L2; their bf16 times beside the plain
+     versions', SDPA's with a float mask (forward, forward+backward) and
+     the bound;
+  6. agreement on a small input, twice: a small LVTR (head_dim 64)
      continues a prompt by 300 frames on the card (through the kernels)
      and on the CPU (through the plain versions), float32, temperature 0,
      with bf16 weights through K1 across a 256-position flush, and with
      int8 weights through K2 (dim 256) across 8-step merges and two
      128-position flushes: the token streams agree until at least step
      150, the latents of the first 64 steps to 1e-2;
-  6. the main paths: a 3 s -> 10 s continuation at B = 8 at the full
+  7. one small training step (accumulation 2, utterance encoder) on the
+     card through K3/K3b and on the CPU through the plain versions, same
+     weights, batch and draws, float32: loss terms to 1e-4 relative,
+     every gradient leaf to 1e-3 of its max |g|;
+  8. the serving paths: a 3 s -> 10 s continuation at B = 8 at the full
      width of ``configs/train/speech/vae-gslm.yaml`` (weights from seed
-     0; the utterance encoder, not ported yet, left out), int8 KV cache,
+     0; without the utterance encoder, which the serving path does not
+     run), int8 KV cache,
      temperature 0.85, DDIM-100 at eta 0.5, then the HiFi-GAN of
      ``configs/train/vocoder/hfgan_16k_50hz_librispeech.yaml``; each run
      three times (stage times: median and range) with the kernels'
@@ -41,12 +54,20 @@ Phases (any failure ends the run with a non-zero exit, no result):
          K2 launches and no K1 launch per run; then one B = 64 run, two
          sequential B = 32 chunks with bf16 products, 1000 K2 launches;
      then, for each path, a profile of 64 AR steps: the device busy
-     share and the kernels that take it.
+     share and the kernels that take it;
+  9. the training path: ``LVTRTrainer`` on that config at full width with
+     its utterance encoder (16-mixed, AdamW, accumulation 2), synthetic
+     B = 8 x 640 batches from seed 0: one warm-up and five timed
+     ``run_step`` calls, each with exactly 32 K3 and 32 K3b launches
+     (counts set to 0 just before each step), the plain attention
+     versions refused; ms per step, tokens/s, peak memory, then one
+     profiled step.
 Output: one line per measurement, then the ``{"kernels": [...]}`` line,
 the nvidia-smi name/power line, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -94,23 +115,32 @@ def cuda_ms(fn, n: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, n: int) -> float:
+def device_ms(fn, n: int, only=(), tries: int = 4) -> float:
     """Mean device time per call of the kernels ``fn`` launches, from
     torch.profiler's CUDA activity (their own durations: host gaps
-    between launches are left out), after one warm-up call."""
+    between launches are left out), after one warm-up call.  With
+    ``only``, just the kernels whose names contain one of its strings.
+    A window in which the profiler recorded no kernel is profiled again,
+    up to ``tries`` windows in all; then the run fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            fn(i)
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    if us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return us / 1e3 / n
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(n):
+                fn(i)
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if not only or any(s in e.key for s in only))
+        if us > 0:
+            if attempt:
+                log(f"  (the profiler recorded no kernel in {attempt} "
+                    "window(s) before this one)")
+            return us / 1e3 / n
+    raise AssertionError(f"the profiler recorded no device time in {tries} "
+                         "windows")
 
 
 # ------------------------------------------------------------------ K1
@@ -349,6 +379,197 @@ def phase_k2(dev):
             "library_ms": None}
 
 
+# -------------------------------------------------------------- K3/K3b
+K3_B, K3_T = 8, 640               # the training micro-batch
+K3_KERNELS = ("k3_fwd", "k3b_dkv", "k3b_dq")   # kernel name prefixes
+K3_LENGTHS = [640, 320, 300, 640, 1, 639, 512, 64]
+
+
+def k3_inputs(dtype, dev, seed: int = 0, b: int = K3_B, t: int = K3_T,
+              h: int = H, lengths=K3_LENGTHS):
+    """q/k/v as views of one (B, T, 3 H D) projection, dO, lengths and
+    the port's ALiBi slopes."""
+    import torch
+
+    from vae_gslm_tpu_torch.nn.positions import alibi_slopes
+
+    g = torch.Generator(dev).manual_seed(seed)
+    qkv = torch.randn((b, t, 3 * h * D), generator=g, device=dev).to(dtype)
+    q, k, v = qkv.chunk(3, dim=-1)
+    do = torch.randn((b, t, h * D), generator=g, device=dev).to(dtype)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    slopes = -torch.tensor(alibi_slopes(h), device=dev)
+    return q, k, v, do, lengths, slopes
+
+
+def k3_bytes_ops(itemsize: int):
+    """Bytes and bf16 FLOPs of one K3 call and of K3b's two kernels (the
+    timed part: ``delta`` comes in computed) on the inputs of
+    ``k3_inputs``.  Bytes: each input read once, each output written
+    once, key and value rows only below each batch row's length (a row
+    of length 0 reads all T): K3 reads q, k, v and writes o, lse; K3b
+    reads q, k, v, dO, lse, delta and writes dq, dk, dv.  FLOPs: the
+    (query, key) pairs this run's causal and length masks leave, 2 D per
+    pair and product: 2 products forward (QK, PV), 5 backward (QK, dO V,
+    dS K, dS^T Q, P^T dO)."""
+    row = H * D * itemsize
+    n = K3_B * K3_T * row                    # one full (B, T, H D) tensor
+    n_kv = sum(ln if ln >= 1 else K3_T for ln in K3_LENGTHS) * row
+    stats = K3_B * H * K3_T * 4              # lse or delta, float32
+    small = K3_B * 4 + H * 4
+    rows = sum(sum(min(r + 1, ln) if ln >= 1 else K3_T
+                   for r in range(K3_T)) for ln in K3_LENGTHS)
+    pairs = H * rows
+    return ((2 * n + 2 * n_kv + stats + small, 2 * 2 * pairs * D),
+            (5 * n + 2 * n_kv + 2 * stats + small, 5 * 2 * pairs * D))
+
+
+def sdpa_mask(lengths, slopes, dtype, dev):
+    """The explicit float mask (ALiBi + causal + length) that makes
+    ``scaled_dot_product_attention`` compute K3's function."""
+    import torch
+
+    pos = torch.arange(K3_T, device=dev)
+    bias = slopes[:, None, None] * (pos[None, :] - pos[:, None]).abs()[None]
+    valid = ((pos[None, None, None, :] < lengths[:, None, None, None])
+             & (pos[None, :] <= pos[:, None])[None, None])
+    return torch.where(valid, bias[None], float("-inf")).to(dtype)
+
+
+def ulp_bf16(x):
+    """One bfloat16 unit in the last place of each |x| (0 where x is 0)."""
+    import torch
+
+    _, e = torch.frexp(x)
+    return torch.where(x == 0, torch.zeros_like(x),
+                       torch.ldexp(torch.ones_like(x), e - 8))
+
+
+def phase_k3(dev):
+    """K3 (o, lse) and K3b (dq, dk, dv) against their plain versions at
+    the training shapes (B 8, T 640, 16 heads of 64) and at T 200 (a
+    partial last tile), float32 and bfloat16, with ALiBi and without;
+    then their bf16 times beside the plain versions', SDPA's and the
+    bound.  Every output is held at max |diff| <= tol x max|ref| (tol
+    1e-5 on f32 o and lse, 1e-4 on f32 gradients, bf16: 1e-2 on o, 1e-5
+    on lse, 2e-2 on gradients).  A bf16 o, dq, dk or dv is also held
+    element by element, at |diff| <= 2 bf16 ulps of |ref| + tol x
+    rms(ref), and as a whole, at ||diff|| <= 1e-3 ||ref||: a length-1 row
+    makes one dv row the sum of all T dO rows, whose max |ref| alone
+    would let a wrong entry elsewhere through."""
+    import torch
+    import torch.nn.functional as F
+
+    from vae_gslm_tpu_torch.ops.flash_attention import (
+        flash_backward_packed as k3b, flash_backward_packed_plain as k3b_plain,
+        flash_forward_packed as k3, flash_forward_packed_plain as k3_plain)
+
+    worst_f, worst_b = 0.0, 0.0
+    shapes = ((K3_B, K3_T, H, K3_LENGTHS), (4, 200, 2, [200, 77, 1, 130]))
+    for (b, t, h, lengths), dtype in itertools.product(
+            shapes, (torch.float32, torch.bfloat16)):
+        bf16 = dtype == torch.bfloat16
+        q, k, v, do, lengths, slopes = k3_inputs(dtype, dev, 0, b, t, h,
+                                                 lengths)
+        for sl in (slopes, None):
+            o, lse = k3(q, k, v, lengths, sl, True, h)
+            o_ref, lse_ref = k3_plain(q, k, v, lengths, sl, True, h)
+            grads = k3b(q, k, v, o, do, lse, lengths, sl, True, h)
+            refs = k3b_plain(q, k, v, o, do, lse, lengths, sl, True, h)
+            torch.cuda.synchronize()
+            checks = [("o", o, o_ref, 1e-2 if bf16 else 1e-5,
+                       0.0 if bf16 else 1.0), ("lse", lse, lse_ref, 1e-5, 1.0)]
+            checks += [(n, g_, r_, 2e-2 if bf16 else 1e-4, 0.0)
+                       for n, g_, r_ in zip(("dq", "dk", "dv"), grads, refs)]
+            errs = []
+            for name, got, want, tol, floor in checks:
+                got, want = got.float(), want.float()
+                diff = (got - want).abs()
+                err = diff.max().item()
+                ref = max(floor, want.abs().max().item())
+                errs.append(f"{name} {err:.3e}")
+                where = f"({dtype}, T={t}, alibi={sl is not None})"
+                if not err <= tol * ref:
+                    raise AssertionError(
+                        f"K3/K3b {name} disagrees with its plain version: "
+                        f"max abs {err:.3e} > {tol} x {ref:.3e} {where}")
+                if bf16 and name != "lse":
+                    rms = want.pow(2).mean().sqrt().item()
+                    excess = (diff - 2 * ulp_bf16(want)).clamp_min(0).max(
+                    ).item() / rms
+                    rel = (diff.norm() / want.norm()).item()
+                    errs[-1] += f" ({excess:.1e} rms past 2 ulp, L2 {rel:.1e})"
+                    if not (excess <= tol and rel <= 1e-3):
+                        raise AssertionError(
+                            f"K3/K3b {name} disagrees with its plain "
+                            f"version: {excess:.3e} x rms(ref) past 2 bf16 "
+                            f"ulps (limit {tol}), relative L2 {rel:.3e} "
+                            f"(limit 1e-3) {where}")
+                if name in ("o", "lse"):
+                    worst_f = max(worst_f, err)
+                else:
+                    worst_b = max(worst_b, err)
+            log(f"K3/K3b check B={b} T={t} H={h} {str(dtype)[6:]} "
+                f"alibi={sl is not None}: max_abs_err " + ", ".join(errs))
+
+    # Times at the main path's type (bf16, ALiBi).
+    q, k, v, do, lengths, slopes = k3_inputs(torch.bfloat16, dev, seed=1)
+    o, lse = k3(q, k, v, lengths, slopes, True, H)
+
+    def fwd(i):
+        return k3(q, k, v, lengths, slopes, True, H)
+
+    def bwd(i):
+        return k3b(q, k, v, o, do, lse, lengths, slopes, True, H)
+
+    kf = device_ms(fwd, n=20, only=K3_KERNELS[:1])
+    kb = device_ms(bwd, n=20, only=K3_KERNELS[1:])
+    cf, cb = cuda_ms(fwd, n=20), cuda_ms(bwd, n=20)
+    pf = device_ms(lambda i: k3_plain(q, k, v, lengths, slopes, True, H), n=3)
+    pb = device_ms(lambda i: k3b_plain(q, k, v, o, do, lse, lengths, slopes,
+                                       True, H), n=3)
+    mask = sdpa_mask(lengths, slopes, torch.bfloat16, dev)
+    q4, k4, v4 = (x.view(K3_B, K3_T, H, D).transpose(1, 2).detach()
+                  .requires_grad_() for x in (q, k, v))
+    do4 = do.view(K3_B, K3_T, H, D).transpose(1, 2)
+
+    def sdpa_fwd(i):
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+    def sdpa_fwd_bwd(i):
+        F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask).backward(
+            do4)
+
+    lf = device_ms(sdpa_fwd, n=20)
+    lfb = device_ms(sdpa_fwd_bwd, n=10)
+    (fb, fo), (bb, bo) = k3_bytes_ops(2)
+    bound_f = max(fb / HBM_BYTES_PER_S, fo / BF16_FLOPS) * 1e3
+    bound_b = max(bb / HBM_BYTES_PER_S, bo / BF16_FLOPS) * 1e3
+    by_f = "bytes" if fb / HBM_BYTES_PER_S > fo / BF16_FLOPS else "operations"
+    by_b = "bytes" if bb / HBM_BYTES_PER_S > bo / BF16_FLOPS else "operations"
+    log(f"K3 time B={K3_B} T={K3_T} bf16: kernel {kf:.4f} ms, {cf:.4f} ms "
+        f"per call with the wrapper, plain {pf:.4f} ms, SDPA (float mask) "
+        f"forward {lf:.4f} ms, bound {bound_f:.4f} ms ({by_f}; "
+        f"{fb / 1e6:.1f} MB, {fo / 1e9:.2f} GFLOP)")
+    log(f"K3b time B={K3_B} T={K3_T} bf16: kernels {kb:.4f} ms, {cb:.4f} ms "
+        f"per call with the wrapper (delta included), plain {pb:.4f} ms, "
+        f"SDPA forward+backward {lfb:.4f} ms, bound of the kernels "
+        f"{bound_b:.4f} ms ({by_b}; {bb / 1e6:.1f} MB, {bo / 1e9:.2f} "
+        f"GFLOP)")
+    return (
+        {"name": "flash_forward_packed", "route": "cuda",
+         "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "vae_gslm_tpu/ops/flash_attention.py:230",
+         "launches": None, "max_abs_err": worst_f, "ms": kf, "plain_ms": pf,
+         "bound_ms": bound_f, "bound_by": by_f, "library_ms": lf},
+        {"name": "flash_backward_packed", "route": "cuda",
+         "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "vae_gslm_tpu/ops/flash_attention.py:359",
+         "launches": None, "max_abs_err": worst_b, "ms": kb, "plain_ms": pb,
+         "bound_ms": bound_b, "bound_by": by_b, "library_ms": lfb})
+
+
 # ----------------------------------------------------- small agreement
 SMALL_YAML = """
 tokens: {embedding_dim: 32, vocab_size: 50}
@@ -485,6 +706,289 @@ def phase_small(dev, quantize: bool):
     if first < 150 or not lat_err < 1e-2:
         raise AssertionError("the card and the CPU disagree on a small "
                              "input")
+
+
+# ------------------------------------------------------------ training
+VOCODER_YAML = os.path.join(ROOT, "configs", "train", "vocoder",
+                            "hfgan_16k_50hz_librispeech.yaml")
+TRAIN_YAML = os.path.join(ROOT, "configs", "train", "speech",
+                          "vae-gslm.yaml")
+TRAIN_T, TRAIN_B, TRAIN_ACCUM = 640, 8, 2
+TRAIN_LENGTHS = [640] * 6 + [400, 520]
+
+
+def vocoder_dir(tmp: str) -> str:
+    """A vocoder directory holding the 80-bin vocoder config as
+    ``hp.yaml``: the trainer reads the model's mel width from it."""
+    import shutil
+
+    shutil.copy(VOCODER_YAML, os.path.join(tmp, "hp.yaml"))
+    return tmp
+
+
+def train_batches(rng, b: int, t: int, lengths, t_utt: int, vocab: int):
+    """Two synthetic micro-batches stacked on the accumulation axis:
+    [token, 80-bin mel] frames of the given lengths and utterance mel
+    crops of 50 %-100 % of ``t_utt`` frames (numpy draws)."""
+    import numpy as np
+    import torch
+
+    from vae_gslm_tpu_torch.core.masked import Masked
+    from vae_gslm_tpu_torch.training.trainer import stack_batches
+
+    mbs = []
+    for _ in range(TRAIN_ACCUM):
+        ln = torch.tensor(lengths, dtype=torch.int32)
+        utt = torch.from_numpy(rng.randint(t_utt // 2, t_utt + 1, b)
+                               .astype(np.int32))
+        mbs.append({
+            "mel": Masked(torch.from_numpy(
+                rng.randn(b, t, 80).astype(np.float32)), ln),
+            "tokens": Masked(torch.from_numpy(
+                rng.randint(0, vocab, (b, t)).astype(np.int32)), ln),
+            "cropped_mel_utt": Masked(torch.from_numpy(
+                rng.randn(b, t_utt, 80).astype(np.float32)), utt)})
+    return stack_batches(mbs)
+
+
+def train_draws(rng, b: int, t: int, latent: int, nfeat: int, steps: int):
+    """One micro-batch's random draws of ``LVTR.forward`` (numpy), so that
+    the card and the CPU take the same ones."""
+    import numpy as np
+    import torch
+
+    f = (lambda a: torch.from_numpy(a.astype(np.float32)))
+    return {"posterior": f(rng.randn(b, t, latent)),
+            "initial": f(rng.uniform(-1, 1, (b, 1, nfeat))),
+            "prior": f(rng.randn(b, t, latent)),
+            "t": torch.from_numpy(rng.randint(0, steps, b)),
+            "noise": f(rng.randn(b, t, 80))}
+
+
+def small_train_hparams(vdir: str):
+    """SMALL_YAML's LVTR (dim 128, two heads of 64: the kernels' head_dim)
+    with a two-layer strided utterance encoder, under the flagship's
+    training block with float32 compute, clipping and accumulation 2."""
+    import yaml
+
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+
+    with open(TRAIN_YAML) as f:
+        cfg = yaml.safe_load(f)
+    model = yaml.safe_load(SMALL_YAML)
+    model["utterance_encoder"] = {
+        "embedding_dim": 16, "num_layers": 2, "init_channel": 16,
+        "out_channels": [16, 32], "resample_rates": [-2, -2],
+        "resample_ksize": [4, 4],
+        "layer": cfg["model"]["utterance_encoder"]["layer"]}
+    cfg["model"] = model
+    cfg["vocoder"]["path"] = vdir
+    cfg["trainer"]["precision"] = "32"
+    cfg["training"]["gradient_clip_val"] = 1.0
+    return Hparams.from_dict(cfg)
+
+
+def phase_train_small(dev):
+    """One optimizer step (accumulation 2) of a small LVTR on the card
+    (K3/K3b) and on the CPU (plain versions) from the same weights,
+    batch and draws, float32: loss terms within 1e-4 relative, every
+    gradient leaf within 1e-3 x its max |g|."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vae_gslm_tpu_torch.ops.flash_attention import (
+        flash_backward_packed, flash_forward_packed)
+    from vae_gslm_tpu_torch.trainers.speech.lvtr import LVTRTrainer
+
+    b, t = 3, 100
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = small_train_hparams(vocoder_dir(tmp))
+        cpu = LVTRTrainer(hp, seed=3, device="cpu")
+        gpu = LVTRTrainer(small_train_hparams(tmp), seed=3, device=dev)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    rng = np.random.RandomState(2)
+    batch = train_batches(rng, b, t, [100, 61, 1], 40, 50)
+    draws = [train_draws(rng, b, t, 4, 32, cpu.model.decoder.num_timesteps)
+             for _ in range(TRAIN_ACCUM)]
+    cpu.global_step = gpu.global_step = 40000    # past the KLD warm-up
+    want = cpu.run_step(batch, draws=draws)
+    flash_forward_packed.launches = flash_backward_packed.launches = 0
+    got = gpu.run_step(batch, draws=draws)
+    torch.cuda.synchronize()
+    launches = (flash_forward_packed.launches, flash_backward_packed.launches)
+    n_layers = len(gpu.model.transformer.layers)
+    if launches != (n_layers * TRAIN_ACCUM,) * 2:
+        raise AssertionError(f"small step: K3/K3b launches {launches}")
+    worst_m = 0.0
+    for k in ("rec_loss", "kld", "token_kld", "log_p", "log_q"):
+        g, w = float(got[k]), float(want[k])
+        worst_m = max(worst_m, abs(g - w) / max(abs(w), 1e-12))
+    worst_g = 0.0
+    for name, pg, pc in zip(gpu.names, gpu.params, cpu.params):
+        gg, gc = pg.grad.double().cpu(), pc.grad.double()
+        err = (gg - gc).abs().max().item()
+        scale = gc.abs().max().item()
+        if not err <= 1e-3 * scale + 1e-30:
+            raise AssertionError(f"small step: gradient of {name} differs "
+                                 f"by {err:.3e} (max |g| {scale:.3e})")
+        worst_g = max(worst_g, err / max(scale, 1e-30))
+    log(f"small train step (card K3/K3b vs CPU plain, accumulation 2, "
+        f"float32): loss terms max rel err {worst_m:.2e}, gradients max "
+        f"err {worst_g:.2e} x max|g| over {len(gpu.params)} leaves; "
+        f"K3/K3b launches {launches}")
+    if not worst_m <= 1e-4:
+        raise AssertionError("small step: the card's loss differs from "
+                             "the CPU's")
+
+
+def phase_train(dev, gpu: str, seed: int = 0):
+    """The full-width LVTR training step of ``configs/train/speech/
+    vae-gslm.yaml`` (16-mixed, AdamW, accumulation 2, utterance encoder):
+    one warm-up and five timed ``run_step`` calls on synthetic B = 8 x 640
+    batches, each with the kernels' counts set to 0 just before and read
+    just after (exactly 32 K3 and 32 K3b launches; the plain attention
+    versions and the dense ``attend`` raise if reached); then one
+    profiled step.  Returns the K3 and K3b counts of the last step."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.nn import attention as attn_mod
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+    from vae_gslm_tpu_torch.trainers.speech.lvtr import LVTRTrainer
+
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = Hparams.from_yamlfile(TRAIN_YAML)
+        hp.vocoder.path = vocoder_dir(tmp)
+        t0 = time.perf_counter()
+        trainer = LVTRTrainer(hp, seed=seed, device=dev)
+    nparams = sum(p.numel() for p in trainer.params)
+    torch.cuda.synchronize()
+    log(f"train: LVTR {nparams / 1e6:.1f} M parameters (float32, bf16 "
+        f"compute, utterance encoder on) and AdamW state built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(seed)
+    batch = trainer.prepare_batch(train_batches(
+        rng, TRAIN_B, TRAIN_T, TRAIN_LENGTHS, 200,
+        hp.model.tokens.vocab_size))
+    tokens = TRAIN_B * TRAIN_ACCUM * TRAIN_T
+    want = 16 * TRAIN_ACCUM
+
+    def refuse(what):
+        def fn(*a, **k):
+            raise AssertionError(f"the training path reached {what} on "
+                                 "the card")
+        return fn
+
+    saved = (fa.flash_forward_packed_plain, fa.flash_backward_packed_plain,
+             attn_mod.attend)
+    fa.flash_forward_packed_plain = refuse("the plain K3")
+    fa.flash_backward_packed_plain = refuse("the plain K3b")
+    attn_mod.attend = refuse("the dense attention")
+    opt_step, opt_s = trainer.opt.step, []
+
+    def timed_opt_step(grads):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt_step(grads)
+        torch.cuda.synchronize()
+        opt_s.append(time.perf_counter() - t1)
+
+    trainer.opt.step = timed_opt_step
+    watch = {n: p for n, p in zip(trainer.names, trainer.params)
+             if n in ("transformer.layers.0.self_attn.in_proj.weight",
+                      "transformer.layers.15.linear2.weight",
+                      "encoder_net.layers.0.conv1.weight",
+                      "utterance_net.layers.0.conv.weight",
+                      "decoder.model.unet.layers.5.conv2.weight")}
+    before = {n: p.detach().clone() for n, p in watch.items()}
+    steps, counts = [], None
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(6):
+            fa.flash_forward_packed.launches = 0
+            fa.flash_backward_packed.launches = 0
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            metrics = trainer.run_step(batch)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t1
+            counts = (fa.flash_forward_packed.launches,
+                      fa.flash_backward_packed.launches)
+            trainer.global_step += 1
+            loss_terms = {k: float(metrics[k]) for k in
+                          ("rec_loss", "kld", "token_kld", "grad_norm")}
+            log(f"train step {i}{' (warm-up)' if i == 0 else ''}: "
+                f"{sec * 1e3:.1f} ms, optimizer {opt_s[-1] * 1e3:.1f} ms; "
+                f"K3 {counts[0]}, K3b {counts[1]} launches; " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in loss_terms.items()))
+            if counts != (want, want):
+                raise AssertionError(f"K3/K3b launches {counts} per step, "
+                                     f"expected ({want}, {want})")
+            if not all(math.isfinite(v) for v in loss_terms.values()):
+                raise AssertionError(f"non-finite training metrics "
+                                     f"{loss_terms}")
+            if i:
+                steps.append(sec)
+        peak = torch.cuda.max_memory_allocated()
+        moved = {n: (watch[n].detach() - before[n]).abs().max().item()
+                 for n in watch}
+        if len(watch) != 5 or not all(v > 0 for v in moved.values()):
+            raise AssertionError(f"parameters did not move: {moved}")
+        s = sorted(steps)
+        med = statistics.median(s)
+        opt_med = statistics.median(opt_s[1:])
+        log(f"train step B={TRAIN_B} x accumulation {TRAIN_ACCUM} x "
+            f"T={TRAIN_T} (16-mixed): median {med * 1e3:.1f} ms, range "
+            f"{s[0] * 1e3:.1f}-{s[-1] * 1e3:.1f} ms over {len(s)} steps; "
+            f"{tokens / med:.0f} tokens/s; forward+backward "
+            f"{(med - opt_med) * 1e3:.1f} ms, optimizer {opt_med * 1e3:.1f} "
+            f"ms; peak memory {peak / 2 ** 30:.2f} GiB ({gpu})")
+        # model FLOPs: 6 per parameter per frame for the weights the
+        # frames pass through (the utterance encoder's strided crops
+        # counted as full frames: an overestimate of <1 %), plus causal
+        # attention's 3 x 2 products of 2 D FLOPs per (query, key) pair
+        # of every layer and head
+        pairs = sum(sum(min(r + 1, ln) for r in range(TRAIN_T))
+                    for ln in TRAIN_LENGTHS) * TRAIN_ACCUM * L * H
+        flops = 6 * nparams * tokens + 3 * 2 * 2 * D * pairs
+        rate = flops / med
+        log(f"train model FLOPs per step ~{flops / 1e12:.1f} TFLOP: "
+            f"{rate / 1e12:.1f} TFLOP/s, MFU {rate / BF16_FLOPS:.1%} of the "
+            f"bf16 dense peak ({gpu})")
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            trainer.run_step(batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+        trainer.global_step += 1
+    finally:
+        (fa.flash_forward_packed_plain, fa.flash_backward_packed_plain,
+         attn_mod.attend) = saved
+        trainer.opt.step = opt_step
+    kernels = [(e.self_device_time_total / 1e3, e.count, e.key)
+               for e in prof.key_averages() if e.self_device_time_total > 0]
+    if not kernels:
+        log("train step profile: device time not measured (the profiler "
+            "recorded no kernel)")
+        return counts
+    busy = sum(k[0] for k in kernels)
+    attn = sum(k[0] for k in kernels if any(s in k[2] for s in K3_KERNELS))
+    h2d = sum(k[1] for k in kernels if "HtoD" in k[2])
+    log(f"train step profile (profiler on): wall {wall_ms:.1f} ms, device "
+        f"busy {busy:.1f} ms ({busy / wall_ms:.1%}), K3+K3b {attn:.1f} ms "
+        f"({attn / busy:.1%} of busy), {sum(k[1] for k in kernels)} device "
+        f"ops of which {h2d} host-to-device copies ({gpu})")
+    for ms, n, name in sorted(kernels, reverse=True)[:10]:
+        log(f"  {ms:.3f} ms, {n}x: {name[:90]}")
+    return counts
 
 
 # --------------------------------------------------------- main paths
@@ -707,6 +1211,9 @@ def profile_ar_loop(sampler, prior, dev, gpu: str, kw: dict, path: str,
 
 
 def main() -> int:
+    # keep CUPTI set up between profiler windows (torch's own workaround
+    # for its re-initialisation, which has left windows with no kernel)
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
     import torch
 
     if not torch.cuda.is_available():
@@ -727,7 +1234,7 @@ def main() -> int:
     from concurrent.futures import ThreadPoolExecutor
 
     from vae_gslm_tpu_torch.ops import build
-    names = ("fused_decode", "mega_step")
+    names = ("fused_decode", "mega_step", "flash_attention")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(build.load, names))
@@ -740,12 +1247,15 @@ def main() -> int:
 
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
+    k3, k3b = phase_k3(dev)
     phase_small(dev, quantize=False)
     phase_small(dev, quantize=True)
+    phase_train_small(dev)
     k1["launches"] = phase_pipeline(dev, gpu, quantize=False)
     k2["launches"] = phase_pipeline(dev, gpu, quantize=True)
+    k3["launches"], k3b["launches"] = phase_train(dev, gpu)
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k3b]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

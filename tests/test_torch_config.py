@@ -4,8 +4,9 @@
     port's own ``Hparams`` copy as through the JAX package's;
   * no ``.py`` file of ``vae_gslm_tpu_torch/``, and not ``chip_smoke.py``,
     imports ``jax``, ``flax`` or ``vae_gslm_tpu``;
-  * the builders and the sampler run on CUDA by default and raise on a
-    machine without it unless the caller passes ``device="cpu"``."""
+  * the builders, the sampler and the trainer run on CUDA by default
+    and raise on a machine without it unless the caller passes
+    ``device="cpu"``."""
 import ast
 import glob
 import os
@@ -13,6 +14,7 @@ import os
 import pytest
 import torch
 
+from tests.test_e2e_lvtr import TRAIN_HP, VOCODER_HP
 from tests.test_models import HFG_HP
 from tests.test_torch_trunk import N_MELS, TINY_YAML
 from vae_gslm_tpu.hparams.hp import Hparams as JHparams
@@ -20,6 +22,7 @@ from vae_gslm_tpu_torch.hparams.hp import Hparams
 from vae_gslm_tpu_torch.inference.speech.sampler import ARTRSampler
 from vae_gslm_tpu_torch.models.speech.lvtr import LVTR
 from vae_gslm_tpu_torch.models.vocoder.hfgan import Generator
+from vae_gslm_tpu_torch.trainers.speech.lvtr import LVTRTrainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(
@@ -69,9 +72,18 @@ def _tiny_lvtr(**kw):
     return LVTR(Hparams.from_yaml(TINY_YAML), input_dim=N_MELS, **kw)
 
 
+def _train_hp(tmp_path):
+    """``tests/test_e2e_lvtr.py``'s training config; its vocoder
+    directory holds only the ``hp.yaml`` the port's trainer reads."""
+    (tmp_path / "hp.yaml").write_text(VOCODER_HP)
+    return Hparams.from_yaml(TRAIN_HP.format(
+        log_dir=tmp_path, vocoder_dir=tmp_path, corpus=tmp_path))
+
+
 @pytest.mark.parametrize("builder", ["lvtr", "generator", "sampler",
-                                     "sampler_int8"])
-def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, builder):
+                                     "sampler_int8", "trainer"])
+def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path,
+                                                     builder):
     sampler = builder.startswith("sampler")
     cpu_model = _tiny_lvtr(device="cpu") if sampler else None
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -82,13 +94,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, builder):
         "sampler": lambda **kw: ARTRSampler(cpu_model, **kw),
         "sampler_int8": lambda **kw: ARTRSampler(
             cpu_model, quantize_weights=True, **kw),
+        "trainer": lambda **kw: LVTRTrainer(_train_hp(tmp_path), **kw),
     }[builder]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build(device="cuda")
     built = build(device="cpu")
-    if not sampler:
+    if builder == "trainer":
+        assert {p.device.type for p in built.params} == {"cpu"}
+    elif not sampler:
         assert {p.device.type for p in built.parameters()} == {"cpu"}
     else:
         assert built.device == torch.device("cpu")

@@ -182,7 +182,129 @@ def case_generator():
     return [(to.value, jo.value, 1e-5, 0.0)]
 
 
+def _dense_from_jax(td, jd):
+    td.weight.data = t(np.asarray(jd.kernel[...]).T)
+    if jd.bias is not None:
+        td.bias.data = t(jd.bias[...])
+
+
+def case_self_attention():
+    """Both branches: fused (causal, ALiBi or none: the plain K3 on the
+    CPU) and dense (not causal)."""
+    from vae_gslm_tpu.nn.attention import SelfAttention as JSelfAttention
+    from vae_gslm_tpu_torch.nn.attention import SelfAttention
+
+    x = RNG(7).randn(2, 9, 16).astype(np.float32)
+    jx, tx = masked_pair(x, [9, 5])
+    out = []
+    for causal, alibi in ((True, True), (True, False), (False, True)):
+        jm = JSelfAttention(16, JHparams(nheads=4, causal=causal),
+                            rngs=nnx.Rngs(8))
+        tm = SelfAttention(16, Hparams(nheads=4, causal=causal))
+        _dense_from_jax(tm.in_proj, jm.in_proj)
+        _dense_from_jax(tm.out_proj, jm.out_proj)
+        pair = ("ALiBi", jpositions.ALiBi(4)) if alibi else None
+        out.append((tm(tx, positions.ALiBi(4) if alibi else None).value,
+                    jm(jx, rpe_pair=pair)["output"].value))
+    return out
+
+
+def case_transformer_run():
+    jm, tm = lvtr_pair(seed=9)
+    x = RNG(8).randn(2, 13, 16).astype(np.float32)
+    jx, tx = masked_pair(x, [13, 6])
+    jo, to = jm.transformer.run(jx), tm.transformer.run(tx)
+    return ([(to["output"].value, jo["output"].value)]
+            + [(a.value, b.value) for a, b in zip(to["layers"],
+                                                  jo["layers"])])
+
+
+def case_coupling_forward():
+    from vae_gslm_tpu.nn.flow import TensorLogdet as JTensorLogdet
+    from vae_gslm_tpu_torch.nn.flow import TensorLogdet
+
+    jm, tm = lvtr_pair(seed=10)
+    rng = RNG(9)
+    z = rng.randn(2, 7, 4).astype(np.float32)
+    c = rng.randn(2, 7, 32).astype(np.float32)
+    jz, tz = masked_pair(z, [7, 4])
+    jc, tc = masked_pair(c, [7, 4])
+    jo = jm.transformer_flow.forward(JTensorLogdet(jz, 0.0), c=jc)
+    to = tm.transformer_flow(TensorLogdet(tz, 0.0), c=tc)
+    return [(to.tensor.value, jo.tensor.value), (to.logdet, jo.logdet)]
+
+
+def case_cnn_stack():
+    from vae_gslm_tpu.models.convert_torch import _x_cnnstack
+    from vae_gslm_tpu.nn.conv import CNNStack as JCNNStack
+    from vae_gslm_tpu_torch.nn.conv import CNNStack
+
+    hp = dict(embedding_dim=6, num_layers=2, init_channel=8,
+              out_channels=[8, 12], resample_rates=[-2, -2],
+              resample_ksize=[4, 4],
+              layer=dict(norm=dict(identifier="InstanceNorm", eps=1e-6),
+                         activation=dict(identifier="ReLU")))
+    jm = JCNNStack(JHparams.from_dict(hp), input_dim=N_MELS, output_dim=6,
+                   rngs=nnx.Rngs(11))
+    tm = CNNStack(Hparams.from_dict(hp), input_dim=N_MELS, output_dim=6)
+    sd = {}
+    _x_cnnstack(sd, jm, "net")
+    tm.load_state_dict({k[4:]: t(v) for k, v in sd.items()}, strict=True)
+    x = RNG(10).randn(2, 15, N_MELS).astype(np.float32)
+    jx, tx = masked_pair(x, [15, 9])
+    jo, to = jm(jx), tm(tx)
+    np.testing.assert_array_equal(to.lengths.numpy(), np.asarray(jo.lengths))
+    return [(to.value, jo.value),
+            (to.time_mean(), jlinear.TimeAggregation()(jo))]
+
+
+def case_diffusion_loss():
+    jm, tm = lvtr_pair(seed=12)
+    rng = RNG(11)
+    x = rng.randn(2, 10, N_MELS).astype(np.float32)
+    cond = rng.randn(2, 10, 16).astype(np.float32)
+    jx, tx = masked_pair(x, [10, 7])
+    jc, tc = masked_pair(cond, [10, 7])
+    key = jax.random.PRNGKey(3)
+    kt, kn = jax.random.split(key)
+    steps = jax.random.randint(kt, (2,), 0, jm.decoder.num_timesteps)
+    noise = jax.random.normal(kn, x.shape, jnp.float32)
+    return [(tm.decoder(tx, tc, None, t=t(steps), noise=t(noise)),
+             jm.decoder(jx, jc, key))]
+
+
+def case_losses():
+    from vae_gslm_tpu.core import losses as jlosses
+    from vae_gslm_tpu_torch.core import losses
+
+    rng = RNG(12)
+    a = rng.randn(3, 6, 5).astype(np.float32)
+    b = rng.randn(3, 6, 5).astype(np.float32)
+    ids = rng.randint(0, 5, (3, 6))
+    (ja, ta), (jb, tb) = masked_pair(a, [6, 4, 1]), masked_pair(b, [6, 4, 1])
+    jl, tl = masked_pair(ids, [6, 4, 1])
+    out = [(losses.masked_ce_loss(ta, tl, reduction=r),
+            jlosses.masked_ce_loss(ja, jl, reduction=r))
+           for r in ("sum", "mean")]
+    for fn in ("masked_l1_loss", "masked_l2_loss"):
+        for tr, br in ((False, False), (True, False), (False, True),
+                       (True, True)):
+            kw = dict(time_reduction=tr, batch_reduction=br)
+            out.append((getattr(losses, fn)(ta, tb, **kw),
+                        getattr(jlosses, fn)(ja, jb, **kw)))
+    out.append((ta.mean(), ja.mean()))
+    out.append((ta.shift_right(t(b[:, :2])).value,
+                ja.shift_right(jnp.asarray(b[:, :2])).value))
+    return out
+
+
 CASES = {
+    "self_attention": case_self_attention,
+    "transformer_run": case_transformer_run,
+    "coupling_forward": case_coupling_forward,
+    "cnn_stack_time_pool": case_cnn_stack,
+    "diffusion_loss": case_diffusion_loss,
+    "losses_and_masked": case_losses,
     "norms": case_norms,
     "dense_embedding_gaussian": case_dense_embedding_gaussian,
     "alibi": case_alibi,

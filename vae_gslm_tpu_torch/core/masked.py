@@ -4,11 +4,13 @@ A padded batch ``value`` with an int32 per-example ``lengths`` vector;
 the bool mask is built on demand.  ``time_axis=1`` is ``(B, T, ...)``
 (the layout at every public function) and ``time_axis=2`` is
 ``(B, C, T)`` (inside the convolution stacks, which run NCW).
+Stacked micro-batches (``stack``/``micro``) carry a leading
+accumulation axis on both ``value`` and ``lengths``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Sequence, Tuple, Union
 
 import torch
 
@@ -76,9 +78,55 @@ class Masked:
         return (Masked(self.value[..., :n], self.lengths, self.time_axis),
                 Masked(self.value[..., n:], self.lengths, self.time_axis))
 
+    def flatten(self) -> "Masked":
+        """Trailing feature axes into one: ``(B, T, -1)``."""
+        b, t = self.value.shape[:2]
+        return Masked(self.value.reshape(b, t, -1), self.lengths, 1)
+
+    def expand_dim(self) -> "Masked":
+        return Masked(self.value[..., None], self.lengths, self.time_axis)
+
+    def shift_right(self, init: Tensor) -> "Masked":
+        """Prepend ``init`` (B, n, C) along time and drop the last n
+        frames; lengths unchanged (AR teacher forcing)."""
+        n = init.shape[1]
+        value = torch.cat([init.to(self.value.dtype), self.value[:, :-n]],
+                          dim=1)
+        return Masked(value, self.lengths, 1)
+
+    def mean(self) -> Tensor:
+        """Masked mean over (batch, time), averaged over channels: the
+        masked sum, divided by the channel count, then by the total
+        valid length."""
+        x = self.flatten().apply_mask()
+        return x.value.sum() / x.value.shape[-1] / self.lengths.sum()
+
+    def time_mean(self) -> Tensor:
+        """Per-example masked mean over time: ``(B, C)``."""
+        x = self.flatten().apply_mask()
+        return x.value.sum(1) / self.lengths[:, None]
+
+    def abs(self) -> "Masked":
+        return dataclasses.replace(self, value=self.value.abs())
+
     def __add__(self, other):
         o = other.value if isinstance(other, Masked) else other
         return dataclasses.replace(self, value=self.value + o)
+
+    def __mul__(self, other):
+        o = other.value if isinstance(other, Masked) else other
+        return dataclasses.replace(self, value=self.value * o)
+
+    # -- stacked micro-batches: (A, B, ...) values, (A, B) lengths ---------
+    @classmethod
+    def stack(cls, items: Sequence["Masked"]) -> "Masked":
+        return cls(torch.stack([m.value for m in items]),
+                   torch.stack([m.lengths for m in items]),
+                   items[0].time_axis)
+
+    def micro(self, i: int) -> "Masked":
+        """Micro-batch ``i`` of a stacked batch."""
+        return Masked(self.value[i], self.lengths[i], self.time_axis)
 
 
 def resize_length(lengths: Tensor, ratio: float) -> Tensor:

@@ -1,0 +1,966 @@
+// K3 / K3b: causal, length-masked ALiBi self-attention over the packed
+// (B, T, H*D) projection layout, forward and backward, for sm_90a.
+//
+// Replaces the Pallas kernels of vae_gslm_tpu/ops/flash_attention.py:
+//   K3  _flash_forward_full_packed (:230, body _fwd_full_packed_kernel :189)
+//   K3b _flash_backward_packed     (:359, body _bwd_full_packed_kernel :272)
+//
+// Numerics (the plain versions in ops/flash_attention.py):
+//   s   = (q . k) * scale + slope * |k - q|, masked to -1e30 where the key
+//         is at or past lengths[b] or (causal) after the query;
+//   fwd: m = max s, l = sum exp(s - m), p = exp(s - m) / l rounded to V's
+//        dtype, o = p . v (float32 sums) in q's dtype, lse = m + log l;
+//   bwd: p = exp(s - lse), dp = dO . v, ds = p (dp - delta) rounded to q's
+//        dtype, dq = (ds . k) * scale, dv = round(p)^T . dO,
+//        dk = (ds^T . q) * scale, with delta = rowsum(dO * O) given.
+// All arithmetic is float32; elements are float32 or bfloat16.
+//
+// Design.  The TPU kernels keep a whole (T, T) float32 tile per
+// (batch, head) in VMEM; at T = 640 that is 1.6 MB against the 227 KB of
+// shared memory an H100 block can use, so these kernels are tiled 64 x 64.
+// q/k/v/dO are read straight from the packed projection output by row
+// stride (views into the fused qkv tensor need no copy).
+//   * forward: one block per (64-query tile, head, batch).  Pass 1 walks
+//     the key tiles for the row max and sum (online); pass 2 recomputes
+//     the logits, forms the normalized, rounded p and accumulates p . v.
+//     The probabilities are normalized before P.V, as the TPU kernel does.
+//   * backward: two launches and no atomics, so runs agree bit for bit:
+//     one block per key tile walks the query tiles for dk and dv, one per
+//     query tile walks the key tiles for dq.
+// Key tiles past the causal edge or at or past lengths[b] add exact zeros
+// and are skipped, but only when lengths[b] >= 1: a row of length 0 is
+// uniform over all T keys, as in the reference.
+//
+// Two element types, two product routes.  bfloat16 (the training path
+// under 16-mixed) multiplies on the tensor cores with mma.sync
+// (m16n8k16, float32 accumulators): exact bf16 products, float32 sums in
+// the hardware's order.  float32 multiplies with scalar FMAs out of
+// shared memory (4 x 4 outputs per thread, float4 operand loads), since
+// the tensor cores would round its operands to TF32.
+//
+// What bounds it: at the training shapes (B 8, T 640, H 16, D 64, the
+// lengths of chip_smoke.py) the ~34 / ~66 MB the forward / backward
+// must move over HBM bandwidth (10 / 20 us on an H100 SXM) bound it more
+// than their causal, length-masked products (4.7 / 11.8 GFLOP at the
+// bf16 peak).
+// Both routes run far from that bound: fragments are loaded from shared
+// memory by plain loads (no ldmatrix, no TMA, no pipelining of the next
+// tile's loads), and every key tile is read twice in the forward (the
+// two passes) and every (query, key) pair recomputed in both backward
+// launches.  wgmma/TMA pipelines are later work.
+//
+// Each launch function returns cudaGetLastError() after its launches.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int HD = 64;          // head_dim (the wrapper checks)
+constexpr int TILE = 64;        // query and key rows per tile
+constexpr int NT = 256;         // threads per block: 16 x 16, 4 x 4 each
+constexpr int LD = TILE + 4;    // padded row of a transposed (d-major) tile
+constexpr float NEG_INF = -1e30f;
+
+constexpr int TT = HD * LD;     // floats in a transposed tile
+constexpr int TR = TILE * HD;   // floats in a row-major tile
+constexpr int FWD_SMEM = (3 * TT + TR) * 4;
+constexpr int DKV_SMEM = (6 * TT + 2 * TR) * 4;
+constexpr int DQ_SMEM = (5 * TT + TR) * 4;
+
+struct Seq {          // one packed (B, T, H*D) operand: element strides
+  long long bs, rs;   // batch and row; the feature axis is contiguous
+};
+
+// Rows [r0, r0 + 64) of head h of one batch row into shared memory,
+// d-major (dst[d * LD + r]) or row-major (dst[r * HD + d]); rows at or
+// past T read as 0.
+__device__ void load_t(float* dst, const float* src, long long rs, int r0,
+                       int t_len) {
+  for (int idx = threadIdx.x; idx < TILE * HD; idx += NT) {
+    int r = idx / HD, d = idx % HD, t = r0 + r;
+    dst[d * LD + r] = t < t_len ? src[t * rs + d] : 0.f;
+  }
+}
+__device__ void load_r(float* dst, const float* src, long long rs, int r0,
+                       int t_len) {
+  for (int idx = threadIdx.x; idx < TILE * HD; idx += NT) {
+    int r = idx / HD, d = idx % HD, t = r0 + r;
+    dst[r * HD + d] = t < t_len ? src[t * rs + d] : 0.f;
+  }
+}
+
+// acc[i][j] += sum_k X[k][ty*4 + i] * Y[k][tx*4 + j] over 64 k.
+__device__ __forceinline__ void outer(const float* X, int ldx,
+                                      const float* Y, int ldy,
+                                      float acc[4][4], int ty, int tx) {
+#pragma unroll 8
+  for (int k = 0; k < TILE; ++k) {
+    float4 a = *reinterpret_cast<const float4*>(X + k * ldx + ty * 4);
+    float4 b = *reinterpret_cast<const float4*>(Y + k * ldy + tx * 4);
+    float av[4] = {a.x, a.y, a.z, a.w};
+    float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+__device__ __forceinline__ void zero(float a[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
+}
+
+// Scaled, ALiBi-biased, masked logit of query row r and key c.
+__device__ __forceinline__ float logit(float dot, int r, int c, int len,
+                                       int causal, int use_alibi,
+                                       float slope, float scale) {
+  float x = __fmul_rn(dot, scale);
+  if (use_alibi) x = __fadd_rn(x, __fmul_rn(slope, (float)abs(c - r)));
+  bool valid = c < len && (!causal || c <= r);
+  return valid ? x : NEG_INF;
+}
+
+// Reductions over the 16 threads (tx) that share a row: lanes 0-15 or
+// 16-31 of a warp.  The butterfly gives every lane the same value.
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Key tiles [0, end) that can hold a nonzero probability for query tile
+// qt: all of them for a row set of length 0.
+__device__ __forceinline__ int key_tiles(int qt, int len, int t_len,
+                                         int causal) {
+  int end = (t_len + TILE - 1) / TILE;
+  if (len >= 1) {
+    end = min(end, (len + TILE - 1) / TILE);
+    if (causal) end = min(end, qt + 1);
+  }
+  return end;
+}
+
+__global__ void __launch_bounds__(NT)
+    k3_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, const int* __restrict__ lengths,
+                  const float* __restrict__ slopes, Seq sq, Seq sk, Seq sv,
+                  Seq so, int t_len, int nheads, int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  float* Qt = reinterpret_cast<float*>(smem4);
+  float* Kt = Qt + TT;
+  float* Pt = Kt + TT;
+  float* Vs = Pt + TT;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * TILE, ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int len = lengths[b];
+  const int use_alibi = slopes != nullptr;
+  const float slope = use_alibi ? slopes[h] : 0.f;
+  const float* qb = q + b * sq.bs + h * HD;
+  const float* kb = k + b * sk.bs + h * HD;
+  const float* vb = v + b * sv.bs + h * HD;
+  const int kt_end = key_tiles(qt, len, t_len, causal);
+
+  load_t(Qt, qb, sq.rs, q0, t_len);
+  float m[4], l[4], s[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
+
+  // pass 1: row max and sum of exp, online over the key tiles
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * TILE;
+    __syncthreads();
+    load_t(Kt, kb, sk.rs, k0, t_len);
+    __syncthreads();
+    zero(s);
+    outer(Qt, LD, Kt, LD, s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + ty * 4 + i;
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = k0 + tx * 4 + j;
+        s[i][j] = c < t_len ? logit(s[i][j], r, c, len, causal, use_alibi,
+                                    slope, scale)
+                            : -INFINITY;
+        tmax = fmaxf(tmax, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(tmax));
+      float e = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) e += expf(s[i][j] - m_new);
+      l[i] = l[i] * expf(m[i] - m_new) + row_sum(e);
+      m[i] = m_new;
+    }
+  }
+
+  // pass 2: normalized probabilities times V
+  float acc[4][4];
+  zero(acc);
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * TILE;
+    __syncthreads();
+    load_t(Kt, kb, sk.rs, k0, t_len);
+    load_r(Vs, vb, sv.rs, k0, t_len);
+    __syncthreads();
+    zero(s);
+    outer(Qt, LD, Kt, LD, s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = k0 + tx * 4 + j;
+        float p = 0.f;
+        if (c < t_len) {
+          const float x = logit(s[i][j], r, c, len, causal, use_alibi,
+                                slope, scale);
+          p = __fdiv_rn(expf(x - m[i]), l[i]);
+        }
+        Pt[(tx * 4 + j) * LD + ty * 4 + i] = p;
+      }
+    }
+    __syncthreads();
+    outer(Pt, LD, Vs, HD, acc, ty, tx);
+  }
+
+  float* ob = o + b * so.bs + h * HD;
+  float* lb = lse + ((long long)b * nheads + h) * t_len;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty * 4 + i;
+    if (r >= t_len) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ob[r * so.rs + tx * 4 + j] = acc[i][j];
+    if (tx == 0) lb[r] = m[i] + logf(l[i]);
+  }
+}
+
+// p and ds of one (query tile, key tile) pair from the logits s and
+// dp = dO . v; zero outside [0, T).
+__device__ __forceinline__ void probs(float s[4][4], float dp[4][4],
+                                      const float lse_r[4],
+                                      const float delta_r[4], int q0,
+                                      int k0, int t_len, int len,
+                                      int causal, int use_alibi,
+                                      float slope, float scale) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + (threadIdx.x >> 4) * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = k0 + (threadIdx.x & 15) * 4 + j;
+      float p = 0.f, ds = 0.f;
+      if (r < t_len && c < t_len) {
+        const float x = logit(s[i][j], r, c, len, causal, use_alibi, slope,
+                              scale);
+        p = expf(x - lse_r[i]);
+        ds = __fmul_rn(p, __fsub_rn(dp[i][j], delta_r[i]));
+      }
+      s[i][j] = p;       // s now holds p, dp holds ds
+      dp[i][j] = ds;
+    }
+  }
+}
+
+__device__ __forceinline__ void row_stats(float lse_r[4], float delta_r[4],
+                                          const float* lb, const float* db,
+                                          int q0, int t_len) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + (threadIdx.x >> 4) * 4 + i;
+    lse_r[i] = r < t_len ? lb[r] : 0.f;
+    delta_r[i] = r < t_len ? db[r] : 0.f;
+  }
+}
+
+// dk, dv of one key tile, walking the query tiles that see it.
+__global__ void __launch_bounds__(NT)
+    k3b_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ g,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta,
+                   const int* __restrict__ lengths,
+                   const float* __restrict__ slopes, float* __restrict__ dk,
+                   float* __restrict__ dv, Seq sq, Seq sk, Seq sv, Seq sg,
+                   Seq sdk,
+                   Seq sdv, int t_len, int nheads, int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  float* Kt = reinterpret_cast<float*>(smem4);
+  float* Vt = Kt + TT;
+  float* Qt = Vt + TT;
+  float* Gt = Qt + TT;
+  float* Ps = Gt + TT;     // p  [r][c]
+  float* Ss = Ps + TT;     // ds [r][c]
+  float* Qs = Ss + TT;
+  float* Gs = Qs + TR;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = kt * TILE, ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int len = lengths[b];
+  const int use_alibi = slopes != nullptr;
+  const float slope = use_alibi ? slopes[h] : 0.f;
+  const float* qb = q + b * sq.bs + h * HD;
+  const float* gb = g + b * sg.bs + h * HD;
+  const long long bh = (long long)b * nheads + h;
+  const float* lb = lse + bh * t_len;
+  const float* db = delta + bh * t_len;
+  const int nq = (t_len + TILE - 1) / TILE;
+  int qt_begin = 0;
+  if (len >= 1) {
+    if (k0 >= len) qt_begin = nq;          // every p of this tile is 0
+    else if (causal) qt_begin = kt;
+  }
+  float acc_k[4][4], acc_v[4][4], s[4][4], dp[4][4], lse_r[4], delta_r[4];
+  zero(acc_k);
+  zero(acc_v);
+  if (qt_begin < nq) {
+    load_t(Kt, k + b * sk.bs + h * HD, sk.rs, k0, t_len);
+    load_t(Vt, v + b * sv.bs + h * HD, sv.rs, k0, t_len);
+  }
+  for (int qt = qt_begin; qt < nq; ++qt) {
+    const int q0 = qt * TILE;
+    __syncthreads();
+    load_t(Qt, qb, sq.rs, q0, t_len);
+    load_r(Qs, qb, sq.rs, q0, t_len);
+    load_t(Gt, gb, sg.rs, q0, t_len);
+    load_r(Gs, gb, sg.rs, q0, t_len);
+    __syncthreads();
+    zero(s);
+    zero(dp);
+    outer(Qt, LD, Kt, LD, s, ty, tx);
+    outer(Gt, LD, Vt, LD, dp, ty, tx);
+    row_stats(lse_r, delta_r, lb, db, q0, t_len);
+    probs(s, dp, lse_r, delta_r, q0, k0, t_len, len, causal, use_alibi,
+          slope, scale);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        Ps[(ty * 4 + i) * LD + tx * 4 + j] = s[i][j];
+        Ss[(ty * 4 + i) * LD + tx * 4 + j] = dp[i][j];
+      }
+    __syncthreads();
+    outer(Ps, LD, Gs, HD, acc_v, ty, tx);   // rows: keys ty*4+i
+    outer(Ss, LD, Qs, HD, acc_k, ty, tx);
+  }
+  float* dkb = dk + b * sdk.bs + h * HD;
+  float* dvb = dv + b * sdv.bs + h * HD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = k0 + ty * 4 + i;
+    if (c >= t_len) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      dkb[c * sdk.rs + tx * 4 + j] = __fmul_rn(acc_k[i][j], scale);
+      dvb[c * sdv.rs + tx * 4 + j] = acc_v[i][j];
+    }
+  }
+}
+
+// dq of one query tile, walking the key tiles it sees.
+__global__ void __launch_bounds__(NT)
+    k3b_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ g,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta,
+                  const int* __restrict__ lengths,
+                  const float* __restrict__ slopes, float* __restrict__ dq,
+                  Seq sq,
+                  Seq sk, Seq sv, Seq sg, Seq sdq, int t_len, int nheads,
+                  int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  float* Qt = reinterpret_cast<float*>(smem4);
+  float* Gt = Qt + TT;
+  float* Kt = Gt + TT;
+  float* Vt = Kt + TT;
+  float* St = Vt + TT;     // ds [c][r]
+  float* Ks = St + TT;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * TILE, ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int len = lengths[b];
+  const int use_alibi = slopes != nullptr;
+  const float slope = use_alibi ? slopes[h] : 0.f;
+  const float* qb = q + b * sq.bs + h * HD;
+  const float* kb = k + b * sk.bs + h * HD;
+  const float* vb = v + b * sv.bs + h * HD;
+  const long long bh = (long long)b * nheads + h;
+  const int kt_end = key_tiles(qt, len, t_len, causal);
+  float acc[4][4], s[4][4], dp[4][4], lse_r[4], delta_r[4];
+  zero(acc);
+  load_t(Qt, qb, sq.rs, q0, t_len);
+  load_t(Gt, g + b * sg.bs + h * HD, sg.rs, q0, t_len);
+  row_stats(lse_r, delta_r, lse + bh * t_len, delta + bh * t_len, q0,
+            t_len);
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * TILE;
+    __syncthreads();
+    load_t(Kt, kb, sk.rs, k0, t_len);
+    load_t(Vt, vb, sv.rs, k0, t_len);
+    load_r(Ks, kb, sk.rs, k0, t_len);
+    __syncthreads();
+    zero(s);
+    zero(dp);
+    outer(Qt, LD, Kt, LD, s, ty, tx);
+    outer(Gt, LD, Vt, LD, dp, ty, tx);
+    probs(s, dp, lse_r, delta_r, q0, k0, t_len, len, causal, use_alibi,
+          slope, scale);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) St[(tx * 4 + j) * LD + ty * 4 + i] = dp[i][j];
+    __syncthreads();
+    outer(St, LD, Ks, HD, acc, ty, tx);
+  }
+  float* dqb = dq + b * sdq.bs + h * HD;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty * 4 + i;
+    if (r >= t_len) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      dqb[r * sdq.rs + tx * 4 + j] = __fmul_rn(acc[i][j], scale);
+  }
+}
+
+// ------------------------------------------------------------------
+// bfloat16: the same math with the products on the tensor cores
+// (mma.sync m16n8k16, bf16 x bf16 -> float32).  Four warps per block,
+// each owning 16 rows of the 64-row tile; a product's accumulator
+// fragment is reused, rounded to bf16, as the next product's A operand
+// (p before P.V, p and ds in the backward): exactly the roundings of the
+// plain version.  Tiles sit in shared memory as bf16, row-major or
+// transposed as each product's B operand needs (pitch 72: conflict-free
+// fragment loads).
+// ------------------------------------------------------------------
+typedef __nv_bfloat16 bf16;
+constexpr int MW = 4;                   // warps per block
+constexpr int MT = MW * 32;             // threads per block
+constexpr int LH = HD + 8;              // bf16 pitch of a shared tile
+constexpr int SH = TILE * LH;           // bf16 elements per shared tile
+constexpr int FWD_MMA_SMEM = 3 * SH * 2;
+constexpr int DKV_MMA_SMEM = 4 * SH * 2 + 2 * TILE * 4;
+constexpr int DQ_MMA_SMEM = 3 * SH * 2;
+
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Rows [r0, r0 + 64) of one head into shared bf16, row-major (dst[r][d])
+// and/or transposed (dst_t[d][r]); rows at or past T read as 0.  Global
+// rows are read 16 bytes at a time (the wrapper checks the alignment).
+__device__ void load_bf16(bf16* dst, bf16* dst_t, const bf16* src,
+                          long long rs, int r0, int t_len) {
+  for (int idx = threadIdx.x; idx < TILE * HD / 8; idx += MT) {
+    const int r = idx / (HD / 8), d = idx % (HD / 8) * 8, t = r0 + r;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (t < t_len) v = *reinterpret_cast<const uint4*>(src + t * rs + d);
+    if (dst) *reinterpret_cast<uint4*>(dst + r * LH + d) = v;
+    if (dst_t) {
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) dst_t[(d + i) * LH + r] = e[i];
+    }
+  }
+}
+
+// A fragments (16 rows x 64) of rows [row0, row0 + 16) of a row-major
+// shared tile: a[k-step][4].
+__device__ __forceinline__ void a_frags(uint32_t a[4][4], const bf16* s,
+                                        int row0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    const bf16* p = s + (row0 + g) * LH + ks * 16 + 2 * t;
+    a[ks][0] = ld32(p);
+    a[ks][1] = ld32(p + 8 * LH);
+    a[ks][2] = ld32(p + 8);
+    a[ks][3] = ld32(p + 8 * LH + 8);
+  }
+}
+
+// acc[nt] (16 x 8 each, 8 tiles) += A (16 x 64) . B, where B[k][n] is
+// read from a shared tile stored n-major: bt[n * LH + k].
+__device__ __forceinline__ void mma_rows(float acc[8][4],
+                                         const uint32_t a[4][4],
+                                         const bf16* bt) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const bf16* p = bt + (nt * 8 + g) * LH + ks * 16 + 2 * t;
+      mma16816(acc[nt], a[ks], ld32(p), ld32(p + 8));
+    }
+}
+
+__device__ __forceinline__ void zero8(float a[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
+}
+
+// The A fragments of a 16 x 64 accumulator (8 column tiles), rounded to
+// bf16: the operand of the next product over those 64 columns.
+__device__ __forceinline__ void acc_to_a(uint32_t a[4][4],
+                                         const float c[8][4]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    a[ks][0] = pack(c[2 * ks][0], c[2 * ks][1]);
+    a[ks][1] = pack(c[2 * ks][2], c[2 * ks][3]);
+    a[ks][2] = pack(c[2 * ks + 1][0], c[2 * ks + 1][1]);
+    a[ks][3] = pack(c[2 * ks + 1][2], c[2 * ks + 1][3]);
+  }
+}
+
+// Accumulator element e (0..3) of column tile nt: its row within the
+// warp's 16 and its column within the tile's 64.
+__device__ __forceinline__ int frag_row(int e) {
+  return ((threadIdx.x & 31) >> 2) + (e >> 1) * 8;
+}
+__device__ __forceinline__ int frag_col(int nt, int e) {
+  return nt * 8 + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// Row reductions over the 4 threads (a quad) that share an accumulator
+// row; the butterfly gives all four the same value.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+__global__ void __launch_bounds__(MT)
+    k3_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o,
+                      float* __restrict__ lse,
+                      const int* __restrict__ lengths,
+                      const float* __restrict__ slopes, Seq sq, Seq sk,
+                      Seq sv, Seq so, int t_len, int nheads, int causal,
+                      float scale) {
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* Ks = Qs + SH;      // [key][d]: B of S = Q K^T
+  bf16* Vt = Ks + SH;      // [d][key]: B of O = P V
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int w = threadIdx.x >> 5, q0 = qt * TILE, row0 = q0 + w * 16;
+  const int len = lengths[b];
+  const int use_alibi = slopes != nullptr;
+  const float slope = use_alibi ? slopes[h] : 0.f;
+  const bf16* kb = k + b * sk.bs + h * HD;
+  const bf16* vb = v + b * sv.bs + h * HD;
+  const int kt_end = key_tiles(qt, len, t_len, causal);
+
+  load_bf16(Qs, nullptr, q + b * sq.bs + h * HD, sq.rs, q0, t_len);
+  __syncthreads();
+  uint32_t qa[4][4], pa[4][4];
+  a_frags(qa, Qs, w * 16);
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, s[8][4];
+
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * TILE;
+    __syncthreads();
+    load_bf16(Ks, nullptr, kb, sk.rs, k0, t_len);
+    __syncthreads();
+    zero8(s);
+    mma_rows(s, qa, Ks);
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + frag_row(e), c = k0 + frag_col(nt, e);
+        s[nt][e] = c < t_len ? logit(s[nt][e], r, c, len, causal,
+                                     use_alibi, slope, scale)
+                             : -INFINITY;
+        tmax[e >> 1] = fmaxf(tmax[e >> 1], s[nt][e]);
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float m_new = fmaxf(m[hr], quad_max(tmax[hr]));
+      float e_sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        e_sum += expf(s[nt][2 * hr] - m_new) + expf(s[nt][2 * hr + 1] - m_new);
+      l[hr] = l[hr] * expf(m[hr] - m_new) + quad_sum(e_sum);
+      m[hr] = m_new;
+    }
+  }
+
+  float acc[8][4];
+  zero8(acc);
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * TILE;
+    __syncthreads();
+    load_bf16(Ks, nullptr, kb, sk.rs, k0, t_len);
+    load_bf16(nullptr, Vt, vb, sv.rs, k0, t_len);
+    __syncthreads();
+    zero8(s);
+    mma_rows(s, qa, Ks);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + frag_row(e), c = k0 + frag_col(nt, e);
+        float p = 0.f;
+        if (c < t_len) {
+          const float x = logit(s[nt][e], r, c, len, causal, use_alibi,
+                                slope, scale);
+          p = __fdiv_rn(expf(x - m[e >> 1]), l[e >> 1]);
+        }
+        s[nt][e] = p;
+      }
+    acc_to_a(pa, s);
+    mma_rows(acc, pa, Vt);
+  }
+
+  bf16* ob = o + b * so.bs + h * HD;
+  float* lb = lse + ((long long)b * nheads + h) * t_len;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row0 + frag_row(2 * hr);
+    if (r >= t_len) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<uint32_t*>(ob + r * so.rs + frag_col(nt, 0)) =
+          pack(acc[nt][2 * hr], acc[nt][2 * hr + 1]);
+    if ((threadIdx.x & 3) == 0) lb[r] = m[hr] + logf(l[hr]);
+  }
+}
+
+// dk, dv of one 64-key tile, each warp 16 keys, in the transposed
+// orientation (rows = keys, columns = queries) so that p^T and ds^T feed
+// the dv and dk products straight from their accumulators.
+__global__ void __launch_bounds__(MT)
+    k3b_dkv_mma_kernel(const bf16* __restrict__ q,
+                       const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ g,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       const int* __restrict__ lengths,
+                       const float* __restrict__ slopes,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, Seq sq,
+                       Seq sk, Seq sv, Seq sg, Seq sdk, Seq sdv, int t_len,
+                       int nheads, int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [q][d]: B of S^T = K Q^T
+  bf16* Qt = Qs + SH;                         // [d][q]: B of dK += dS^T Q
+  bf16* Gs = Qt + SH;                         // [q][d]: B of dP^T = V dO^T
+  bf16* Gt = Gs + SH;                         // [d][q]: B of dV += P^T dO
+  float* lse_s = reinterpret_cast<float*>(Gt + SH);
+  float* delta_s = lse_s + TILE;
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int w = threadIdx.x >> 5, k0 = kt * TILE, key0 = k0 + w * 16;
+  const int len = lengths[b];
+  const int use_alibi = slopes != nullptr;
+  const float slope = use_alibi ? slopes[h] : 0.f;
+  const bf16* qb = q + b * sq.bs + h * HD;
+  const bf16* gb = g + b * sg.bs + h * HD;
+  const long long bh = (long long)b * nheads + h;
+  const int nq = (t_len + TILE - 1) / TILE;
+  int qt_begin = 0;
+  if (len >= 1) {
+    if (k0 >= len) qt_begin = nq;          // every p of this tile is 0
+    else if (causal) qt_begin = kt;
+  }
+  uint32_t ka[4][4], va[4][4], pa[4][4], sa[4][4];
+  float acc_k[8][4], acc_v[8][4], s[8][4], dp[8][4];
+  zero8(acc_k);
+  zero8(acc_v);
+  if (qt_begin < nq) {   // the warp's K and V rows as A fragments
+    load_bf16(Qs, nullptr, k + b * sk.bs + h * HD, sk.rs, k0, t_len);
+    load_bf16(Gs, nullptr, v + b * sv.bs + h * HD, sv.rs, k0, t_len);
+    __syncthreads();
+    a_frags(ka, Qs, w * 16);
+    a_frags(va, Gs, w * 16);
+  }
+  for (int qt = qt_begin; qt < nq; ++qt) {
+    const int q0 = qt * TILE;
+    __syncthreads();
+    load_bf16(Qs, Qt, qb, sq.rs, q0, t_len);
+    load_bf16(Gs, Gt, gb, sg.rs, q0, t_len);
+    for (int i = threadIdx.x; i < TILE; i += MT) {
+      const int r = q0 + i;
+      lse_s[i] = r < t_len ? lse[bh * t_len + r] : 0.f;
+      delta_s[i] = r < t_len ? delta[bh * t_len + r] : 0.f;
+    }
+    __syncthreads();
+    zero8(s);
+    zero8(dp);
+    mma_rows(s, ka, Qs);
+    mma_rows(dp, va, Gs);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = key0 + frag_row(e), ri = frag_col(nt, e), r = q0 + ri;
+        float p = 0.f, ds = 0.f;
+        if (r < t_len && c < t_len) {
+          const float x = logit(s[nt][e], r, c, len, causal, use_alibi,
+                                slope, scale);
+          p = expf(x - lse_s[ri]);
+          ds = __fmul_rn(p, __fsub_rn(dp[nt][e], delta_s[ri]));
+        }
+        s[nt][e] = p;
+        dp[nt][e] = ds;
+      }
+    acc_to_a(pa, s);      // p^T rounded to dO's type
+    acc_to_a(sa, dp);     // ds^T rounded to q's type
+    mma_rows(acc_v, pa, Gt);
+    mma_rows(acc_k, sa, Qt);
+  }
+  bf16* dkb = dk + b * sdk.bs + h * HD;
+  bf16* dvb = dv + b * sdv.bs + h * HD;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int c = key0 + frag_row(2 * hr);
+    if (c >= t_len) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int d = frag_col(nt, 0);
+      *reinterpret_cast<uint32_t*>(dkb + c * sdk.rs + d) =
+          pack(__fmul_rn(acc_k[nt][2 * hr], scale),
+               __fmul_rn(acc_k[nt][2 * hr + 1], scale));
+      *reinterpret_cast<uint32_t*>(dvb + c * sdv.rs + d) =
+          pack(acc_v[nt][2 * hr], acc_v[nt][2 * hr + 1]);
+    }
+  }
+}
+
+// dq of one 64-query tile, each warp 16 queries.
+__global__ void __launch_bounds__(MT)
+    k3b_dq_mma_kernel(const bf16* __restrict__ q,
+                      const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const bf16* __restrict__ g,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const int* __restrict__ lengths,
+                      const float* __restrict__ slopes,
+                      bf16* __restrict__ dq, Seq sq, Seq sk, Seq sv, Seq sg,
+                      Seq sdq, int t_len, int nheads, int causal,
+                      float scale) {
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);  // [key][d]: B of S = Q K^T
+  bf16* Vs = Ks + SH;                         // [key][d]: B of dP = dO V^T
+  bf16* Kt = Vs + SH;                         // [d][key]: B of dQ += dS K
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int w = threadIdx.x >> 5, q0 = qt * TILE, row0 = q0 + w * 16;
+  const int len = lengths[b];
+  const int use_alibi = slopes != nullptr;
+  const float slope = use_alibi ? slopes[h] : 0.f;
+  const bf16* kb = k + b * sk.bs + h * HD;
+  const bf16* vb = v + b * sv.bs + h * HD;
+  const long long bh = (long long)b * nheads + h;
+  const int kt_end = key_tiles(qt, len, t_len, causal);
+  uint32_t qa[4][4], ga[4][4], sa[4][4];
+  load_bf16(Ks, nullptr, q + b * sq.bs + h * HD, sq.rs, q0, t_len);
+  load_bf16(Vs, nullptr, g + b * sg.bs + h * HD, sg.rs, q0, t_len);
+  __syncthreads();
+  a_frags(qa, Ks, w * 16);
+  a_frags(ga, Vs, w * 16);
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row0 + frag_row(2 * hr);
+    lse_r[hr] = r < t_len ? lse[bh * t_len + r] : 0.f;
+    delta_r[hr] = r < t_len ? delta[bh * t_len + r] : 0.f;
+  }
+  float acc[8][4], s[8][4], dp[8][4];
+  zero8(acc);
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * TILE;
+    __syncthreads();
+    load_bf16(Ks, Kt, kb, sk.rs, k0, t_len);
+    load_bf16(Vs, nullptr, vb, sv.rs, k0, t_len);
+    __syncthreads();
+    zero8(s);
+    zero8(dp);
+    mma_rows(s, qa, Ks);
+    mma_rows(dp, ga, Vs);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + frag_row(e), c = k0 + frag_col(nt, e);
+        float ds = 0.f;
+        if (r < t_len && c < t_len) {
+          const float x = logit(s[nt][e], r, c, len, causal, use_alibi,
+                                slope, scale);
+          const float p = expf(x - lse_r[e >> 1]);
+          ds = __fmul_rn(p, __fsub_rn(dp[nt][e], delta_r[e >> 1]));
+        }
+        dp[nt][e] = ds;
+      }
+    acc_to_a(sa, dp);
+    mma_rows(acc, sa, Kt);
+  }
+  bf16* dqb = dq + b * sdq.bs + h * HD;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row0 + frag_row(2 * hr);
+    if (r >= t_len) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<uint32_t*>(dqb + r * sdq.rs + frag_col(nt, 0)) =
+          pack(__fmul_rn(acc[nt][2 * hr], scale),
+               __fmul_rn(acc[nt][2 * hr + 1], scale));
+  }
+}
+
+int launch_fwd_mma(const void* q, const void* k, const void* v, void* o,
+                   float* lse, const int* lengths, const float* slopes,
+                   Seq sq, Seq sk, Seq sv, Seq so, int B, int T_, int H,
+                   int causal, float scale, cudaStream_t stream) {
+  dim3 grid((T_ + TILE - 1) / TILE, H, B);
+  k3_fwd_mma_kernel<<<grid, MT, FWD_MMA_SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse,
+      lengths, slopes, sq, sk, sv, so, T_, H, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd_mma(const void* q, const void* k, const void* v,
+                   const void* g, const float* lse, const float* delta,
+                   const int* lengths, const float* slopes, void* dq,
+                   void* dk, void* dv, Seq sq, Seq sk, Seq sv, Seq sg,
+                   Seq sdq, Seq sdk, Seq sdv, int B, int T_, int H,
+                   int causal, float scale, cudaStream_t stream) {
+  dim3 grid((T_ + TILE - 1) / TILE, H, B);
+  k3b_dkv_mma_kernel<<<grid, MT, DKV_MMA_SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, lse,
+      delta, lengths, slopes, (bf16*)dk, (bf16*)dv, sq, sk, sv, sg, sdk,
+      sdv, T_, H, causal, scale);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  k3b_dq_mma_kernel<<<grid, MT, DQ_MMA_SMEM, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, lse,
+      delta, lengths, slopes, (bf16*)dq, sq, sk, sv, sg, sdq, T_, H, causal,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_fwd(const void* q, const void* k, const void* v, void* o,
+               float* lse, const int* lengths, const float* slopes, Seq sq,
+               Seq sk, Seq sv, Seq so, int B, int T_, int H, int causal,
+               float scale, cudaStream_t stream) {
+  static bool attr = false;
+  if (!attr) {
+    cudaFuncSetAttribute(k3_fwd_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         FWD_SMEM);
+    attr = true;
+  }
+  dim3 grid((T_ + TILE - 1) / TILE, H, B);
+  k3_fwd_kernel<<<grid, NT, FWD_SMEM, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
+      lengths, slopes, sq, sk, sv, so, T_, H, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_bwd(const void* q, const void* k, const void* v, const void* g,
+               const float* lse, const float* delta, const int* lengths,
+               const float* slopes, void* dq, void* dk, void* dv, Seq sq,
+               Seq sk, Seq sv, Seq sg, Seq sdq, Seq sdk, Seq sdv, int B,
+               int T_, int H, int causal, float scale,
+               cudaStream_t stream) {
+  static bool attr = false;
+  if (!attr) {
+    cudaFuncSetAttribute(k3b_dkv_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         DKV_SMEM);
+    cudaFuncSetAttribute(k3b_dq_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         DQ_SMEM);
+    attr = true;
+  }
+  dim3 grid((T_ + TILE - 1) / TILE, H, B);
+  k3b_dkv_kernel<<<grid, NT, DKV_SMEM, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)g,
+      lse, delta, lengths, slopes, (float*)dk, (float*)dv, sq, sk, sv, sg,
+      sdk, sdv, T_, H, causal, scale);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  k3b_dq_kernel<<<grid, NT, DQ_SMEM, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)g,
+      lse, delta, lengths, slopes, (float*)dq, sq, sk, sv, sg, sdq, T_, H,
+      causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Strides are in elements: (batch, row) of each packed operand.
+int flash_fwd_packed_launch(const void* q, const void* k, const void* v,
+                            void* o, float* lse, const int* lengths,
+                            const float* slopes, long long q_bs,
+                            long long q_rs, long long k_bs, long long k_rs,
+                            long long v_bs, long long v_rs, long long o_bs,
+                            long long o_rs, int B, int T_, int H, int bf16,
+                            int causal, float scale, void* stream) {
+  Seq sq{q_bs, q_rs}, sk{k_bs, k_rs}, sv{v_bs, v_rs}, so{o_bs, o_rs};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    return launch_fwd_mma(q, k, v, o, lse, lengths, slopes, sq, sk, sv, so,
+                          B, T_, H, causal, scale, st);
+  return launch_fwd(q, k, v, o, lse, lengths, slopes, sq, sk, sv, so, B,
+                    T_, H, causal, scale, st);
+}
+
+int flash_bwd_packed_launch(const void* q, const void* k, const void* v,
+                            const void* g, const float* lse,
+                            const float* delta, const int* lengths,
+                            const float* slopes, void* dq, void* dk,
+                            void* dv, long long q_bs, long long q_rs,
+                            long long k_bs, long long k_rs, long long v_bs,
+                            long long v_rs, long long g_bs, long long g_rs,
+                            long long dq_bs, long long dq_rs,
+                            long long dk_bs, long long dk_rs,
+                            long long dv_bs, long long dv_rs, int B, int T_,
+                            int H, int bf16, int causal, float scale,
+                            void* stream) {
+  Seq sq{q_bs, q_rs}, sk{k_bs, k_rs}, sv{v_bs, v_rs}, sg{g_bs, g_rs};
+  Seq sdq{dq_bs, dq_rs}, sdk{dk_bs, dk_rs}, sdv{dv_bs, dv_rs};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    return launch_bwd_mma(q, k, v, g, lse, delta, lengths, slopes, dq, dk,
+                          dv, sq, sk, sv, sg, sdq, sdk, sdv, B, T_, H, causal,
+                          scale, st);
+  return launch_bwd(q, k, v, g, lse, delta, lengths, slopes, dq, dk, dv,
+                    sq, sk, sv, sg, sdq, sdk, sdv, B, T_, H, causal, scale,
+                    st);
+}
+
+}  // extern "C"

@@ -27,7 +27,8 @@ from ..ops.mega_step import WEIGHT_KEYS
 _LVTR_PREFIXES = (("encoder.0.", "encoder_net."),
                   ("encoder.1.", "encoder_head."),
                   ("transformer.0.", "transformer."),
-                  ("transformer.1.", "prior_head."))
+                  ("transformer.1.", "prior_head."),
+                  ("utterance_encoder.0.", "utterance_net."))
 
 
 def _tensor(v) -> torch.Tensor:

@@ -1,38 +1,47 @@
-"""LVTR, the VAE-GSLM model, on the speech-continuation path (port of
+"""LVTR, the VAE-GSLM model (port of
 ``vae_gslm_tpu/models/speech/lvtr.py``).
 
-What the port runs: ``encode`` (mel -> [token, latent] frames),
+What the port runs: the training forward (``forward``, JAX's
+``__call__``: posterior, teacher-forced trunk, prior head through the
+flow, token CE, diffusion loss with the utterance embedding),
+``encode`` (mel -> [token, latent] frames), ``encode_utterance``,
 ``step`` (the stacked prefill), ``step_hybrid`` (one AR step over the
 hybrid int8 cache), ``step_mega`` (one AR step through K2 with int8
-weights) and ``decode`` (diffusion back to mels).  Training,
-``likelihood``, the utterance encoder and the other encoders wait for a
-later slice (ROADMAP.md).
+weights) and ``decode`` (diffusion back to mels).  ``likelihood`` and
+the other encoders wait for a later slice (ROADMAP.md).
 
 Randomness comes from one ``torch.Generator`` that the caller passes
-and that is consumed in call order: ``encode`` draws the posterior
-noise; ``step``/``step_hybrid``/``step_mega`` draw the prior noise, then
-the Gumbel noise of the token draw; ``decode`` draws the start noise,
-then one noise tensor per diffusion step.  Token ids ride as floats in channel
-0 of the frames.
+and that is consumed in call order: ``forward`` draws the posterior
+noise, the initial state, the prior noise, (with ``diff_input`` that
+input's posterior noise,) then the diffusion step ``t`` and noise;
+``encode`` draws the posterior noise; ``step``/``step_hybrid``/
+``step_mega`` draw the prior noise, then the Gumbel noise of the token
+draw; ``decode`` draws the start noise, then one noise tensor per
+diffusion step.  Token ids ride as floats in channel 0 of the frames.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+import math
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ...core.device import resolve_device
+from ...core.losses import masked_ce_loss
 from ...core.masked import Masked, resize_length
 from ...hparams.hp import Hparams
-from ...nn.conv import BottleNeckResNet
+from ...nn.conv import BottleNeckResNet, CNNStack
 from ...nn.diffusion import GaussianDiffusion1D
-from ...nn.flow import CouplingStack
-from ...nn.linear import Embedding, GaussianParameterize, Linear
+from ...nn.flow import CouplingStack, TensorLogdet
+from ...nn.linear import (Embedding, GaussianParameterize, Linear,
+                          TimeAggregation)
 from ...nn.transformer import TransformerLayerStack
 from ...nn.unet import ConditionalBottleNeckUNet
+
+LOG_2PI = math.log(2.0 * math.pi)
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
@@ -65,9 +74,6 @@ class LVTR(nn.Module):
         dev = resolve_device(device)
         hp.check_arg_in_hparams("encoder", "decoder", "transformer",
                                 "latent_dim")
-        if hp.has("utterance_encoder"):
-            raise NotImplementedError(
-                "the utterance encoder is not ported yet (ROADMAP.md)")
         with torch.device(dev):
             self._build(hp, input_dim)
         if generator is None:
@@ -108,6 +114,8 @@ class LVTR(nn.Module):
             self.q_spliter = Linear(tr_dim, tr_dim, activation=F.relu)
         diff_cond_dim = (self.tokens_hp.embedding_dim if self.use_tokens
                          else hp.latent_dim)
+        if hp.has("utterance_encoder"):
+            diff_cond_dim += hp.utterance_encoder.embedding_dim
         dec_id = hp.decoder.diffusion.get("identifier", "ConditionalUNet")
         if dec_id != "ConditionalBottleNeckUNet":
             raise NotImplementedError(
@@ -133,6 +141,13 @@ class LVTR(nn.Module):
             tr_dim, hp.latent_dim, std=hp.transformer.get("fix_std", None),
             std_range=hp.transformer.get("std_range", None),
             fix_mean=hp.transformer.get("fix_mean", None))
+        if hp.has("utterance_encoder"):
+            self.utterance_net = CNNStack(
+                hp.utterance_encoder, input_dim=input_dim,
+                output_dim=hp.utterance_encoder.embedding_dim)
+            self.utterance_pool = TimeAggregation()
+        else:
+            self.utterance_net = None
 
     @property
     def sample_ratio(self) -> float:
@@ -155,6 +170,105 @@ class LVTR(nn.Module):
             raise NotImplementedError(
                 "the per-layer cache is not ported yet (ROADMAP.md)")
         return self.transformer.init_stacked_cache(batch, max_len, dtype)
+
+    def forward(self, x: Masked, generator: Optional[torch.Generator],
+                c: Optional[Masked] = None,
+                utterance: Optional[Masked] = None,
+                diff_input: Optional[Masked] = None,
+                draws: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict[str, Any]:
+        """Training forward (JAX ``__call__``): the loss terms and
+        statistics of [token, mel] frames ``x``.  ``draws`` may replace
+        any of the generator's draws with given tensors: ``posterior``,
+        ``initial`` (B, 1, C) uniform(-1, 1), ``prior``,
+        ``diff_posterior``, ``t`` and ``noise``."""
+        if c is not None:
+            raise NotImplementedError(
+                "the trunk's cross-attention memory is not ported yet "
+                "(ROADMAP.md)")
+        draws = draws or {}
+        tokens = token_ids = None
+        if self.use_tokens:
+            tokens_id, x = x.split(1)
+            token_ids = Masked(tokens_id.value[..., 0].long(),
+                               tokens_id.lengths, 1)
+            tokens = self.token_embedding(token_ids)
+        q_z = self.encoder_head(self.encoder_net(x), generator,
+                                noise=draws.get("posterior"))
+        sample_q = q_z.sample.apply_mask()
+        log_q = Masked(-q_z.logstd.value - 0.5 - 0.5 * LOG_2PI,
+                       q_z.logstd.lengths, 1)
+
+        init = draws.get("initial")
+        if init is None:
+            init = self.initial_state(generator, x.value.shape[0])
+        shifted = sample_q
+        if self.use_tokens:
+            shifted = tokens + self.token_fuser(shifted)
+        shifted = shifted.shift_right(init.to(x.value.device)).apply_mask()
+
+        trunk = self.transformer(shifted)
+        q_split = self.q_spliter(trunk) if self.use_tokens else trunk
+        z_given = self.prior_head(q_split, generator,
+                                  noise=draws.get("prior"))
+        mean, logstd = z_given.mean.value, z_given.logstd.value
+        if self.transformer_flow is None:
+            log_p = (-logstd - 0.5 * LOG_2PI - 0.5 * torch.exp(-2.0 * logstd)
+                     * (sample_q.value.float() - mean).square())
+        else:
+            p_z = self.transformer_flow(TensorLogdet(sample_q, 0.0),
+                                        c=q_split)
+            log_p = p_z.logdet.sum(-1)[..., None] / self.latent_dim
+            log_p = (log_p - logstd - 0.5 * LOG_2PI
+                     - 0.5 * torch.exp(-2.0 * logstd)
+                     * (p_z.tensor.value - mean).square())
+        log_p = Masked(log_p, z_given.logstd.lengths, 1)
+
+        ce_loss = None
+        if self.use_tokens:
+            pred_tokens = self.token_predictor(self.token_spliter(trunk))
+            ce_loss = masked_ce_loss(pred_tokens, token_ids)
+
+        if diff_input is None:
+            diffusion_input, xi = sample_q, x
+        else:
+            diffusion_input = self.encoder_head(
+                self.encoder_net(diff_input), generator,
+                noise=draws.get("diff_posterior")).sample
+            xi = diff_input
+        if self.use_tokens:
+            diffusion_input = tokens + self.token_fuser(diffusion_input)
+        u_c = None
+        if self.utterance_net is not None:
+            u_c = self.utterance_pool(self.utterance_net(utterance))
+            diffusion_input = diffusion_input.cat(u_c[:, None].expand(
+                -1, diffusion_input.value.shape[1], -1))
+        rec_loss = self.decoder(
+            dataclasses.replace(xi, value=xi.value / self.diff_scaling),
+            diffusion_input, generator, t=draws.get("t"),
+            noise=draws.get("noise"))
+        return {
+            "log_p": log_p.apply_mask(),
+            "log_q": log_q.apply_mask(),
+            "rec_loss": rec_loss,
+            "sample_q": sample_q,
+            "transformer_latent": trunk,
+            "logstd": z_given.logstd.mean(),
+            "mean": z_given.mean.mean(),
+            "q_logstd": q_z.logstd.mean(),
+            "q_mean": q_z.mean.mean(),
+            "q_mean_abs": q_z.mean.abs().mean(),
+            "q_z": q_z,
+            "u_c": u_c,
+            "ce_loss": ce_loss,
+        }
+
+    def encode_utterance(self, utterance: Masked) -> torch.Tensor:
+        """The (B, embedding_dim) utterance embedding of [token, mel] or
+        mel frames."""
+        if self.use_tokens:
+            _, utterance = utterance.split(1)
+        return self.utterance_pool(self.utterance_net(utterance))
 
     def _fuse_frames(self, xv: torch.Tensor) -> torch.Tensor:
         if not self.use_tokens:
@@ -256,9 +370,12 @@ class LVTR(nn.Module):
 
     @torch.no_grad()
     def decode(self, x: Masked, generator: Optional[torch.Generator],
-               start: Optional[Masked] = None) -> Masked:
-        """Diffusion-decode [token, latent] frames to mels.  ``start``
-        replaces the drawn start noise (tests share one start)."""
+               start: Optional[Masked] = None,
+               u_c: Optional[torch.Tensor] = None) -> Masked:
+        """Diffusion-decode [token, latent] frames to mels, conditioned
+        on the utterance embedding ``u_c`` (B, E) where the model has an
+        utterance encoder.  ``start`` replaces the drawn start noise
+        (tests share one start)."""
         if start is None:
             out_len = int(x.value.shape[1] * (1.0 / self.sample_ratio))
             noise = torch.randn((x.value.shape[0], out_len, self.input_dim),
@@ -266,6 +383,8 @@ class LVTR(nn.Module):
             start = Masked.from_lengths(
                 noise, resize_length(x.lengths, 1.0 / self.sample_ratio)
             ).apply_mask()
-        out = self.decoder.sample(start, self.cond_frames(x).apply_mask(),
-                                  generator)
+        cond = self.cond_frames(x)
+        if u_c is not None:
+            cond = cond.cat(u_c[:, None].expand(-1, cond.value.shape[1], -1))
+        out = self.decoder.sample(start, cond.apply_mask(), generator)
         return dataclasses.replace(out, value=out.value * self.diff_scaling)

@@ -1,9 +1,11 @@
-"""Attention pieces on the hybrid decode path (port of the int8 cache
-and the attention core of ``vae_gslm_tpu/nn/attention.py``).
+"""Self-attention (port of ``vae_gslm_tpu/nn/attention.py``): the int8
+cache of the stacked decode paths, the dense attention core, and the
+``SelfAttention`` module's full-sequence (training) call.
 
-The per-layer ``SelfAttention`` module (training, per-layer decode)
-waits for a later slice: the stacked prefill and the hybrid step in
-``nn/transformer.py`` read the projections' weights directly.
+The stacked prefill and the hybrid and mega steps in
+``nn/transformer.py`` read ``SelfAttention``'s projection weights
+directly; its per-layer decode step and ``CrossAttention`` wait for a
+later slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -12,8 +14,14 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch import nn
 
+from ..core.masked import Masked
 from ..core.precision import get_policy
+from ..hparams.hp import Hparams
+from ..ops.flash_attention import flash_attention_packed
+from .linear import Dense
+from .positions import ALiBi
 
 NEG_INF = -1e30
 
@@ -73,3 +81,51 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(dt).float(),
                        v.to(dt).float())
     return out.to(dt)
+
+
+class SelfAttention(nn.Module):
+    """Masked (optionally causal) self-attention with a fused qkv
+    projection (state-dict names ``in_proj``/``out_proj``).
+
+    The full-sequence call takes the fused branch, as JAX does, when the
+    layer is causal and uses ALiBi or no position bias (and
+    ``use_flash`` is not switched off): ``flash_attention_packed`` over
+    views of the packed projection, K3/K3b on the card.  Otherwise the
+    dense ``attend`` with the ALiBi bias and masks."""
+
+    def __init__(self, dim: int, hp: Hparams):
+        super().__init__()
+        hp.check_arg_in_hparams("nheads", "causal")
+        if dim % hp.nheads:
+            raise ValueError("dim must be a multiple of nheads")
+        self.nheads = hp.nheads
+        self.dim = dim
+        self.head_dim = dim // hp.nheads
+        self.causal = hp.causal
+        self.use_flash = bool(hp.get("use_flash", True))
+        bias = bool(hp.get("bias", None))
+        self.in_proj = Dense(dim, dim * 3, bias=bias)
+        self.out_proj = Dense(dim, dim, bias=bias)
+
+    def forward(self, x: Masked, rpe: Optional[ALiBi] = None) -> Masked:
+        """x: (B, T, C) frames; ``rpe`` the stack's shared ALiBi or None.
+        Returns the masked output (B, T, C)."""
+        q, k, v = self.in_proj(x.value).chunk(3, dim=-1)
+        if self.use_flash and self.causal:
+            slopes = rpe.slopes if rpe is not None else None
+            out = flash_attention_packed(q, k, v, x.lengths, slopes, True,
+                                         self.nheads)
+        else:
+            t = q.shape[1]
+            pos = torch.arange(t, device=q.device)
+            mask = (pos[None, :] < x.lengths[:, None])[:, None, None, :]
+            if self.causal:
+                mask = mask & (pos[None, :] <= pos[:, None])[None, None]
+            else:
+                mask = mask.expand(q.shape[0], 1, t, t)
+            bias = rpe.bias(pos, pos) if rpe is not None else None
+            out = merge_heads(attend(split_heads(q, self.nheads),
+                                     split_heads(k, self.nheads),
+                                     split_heads(v, self.nheads), bias,
+                                     mask))
+        return Masked(self.out_proj(out), x.lengths, 1).apply_mask()

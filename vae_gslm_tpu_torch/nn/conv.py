@@ -1,4 +1,6 @@
-"""1-D convolution stacks (port of ``vae_gslm_tpu/nn/conv.py``).
+"""1-D convolution stacks (port of ``vae_gslm_tpu/nn/conv.py``): the
+residual-block family, ``BottleNeckResNet`` and the conv-norm-act
+``CNNStack``.
 
 The JAX package runs NWC (``(B, T, C)``).  PyTorch's convolutions are
 NCW, so the stacks transpose once at their edges: ``BottleNeckResNet``
@@ -123,7 +125,8 @@ class LayerScale(nn.Module):
 class ResidualBlock(nn.Module):
     """Depthwise-separable residual block on NCW values:
     h = layer_scale(conv3(act(conv2(norm(conv1(x)))))) + shortcut(x).
-    Dropout is the identity at inference and is not ported."""
+    JAX's dropout here is deterministic (the identity) and is not
+    ported."""
 
     def __init__(self, hp: Hparams):
         super().__init__()
@@ -387,6 +390,87 @@ class BottleNeckResNet(nn.Module):
             records.append(x)
         if self.final_norm is not None:
             x = dataclasses.replace(x, value=self.final_norm(x.value, dim=1))
+        x = x.transpose()
+        if self.out_linear is not None:
+            x = Masked(self.out_linear(x.value), x.lengths, 1)
+        return x.apply_mask()
+
+    @property
+    def sample_ratio(self) -> float:
+        return _sample_ratio(self.hp.resample_rates)
+
+
+class ConvNormAct(nn.Module):
+    """conv | transposed conv -> norm -> act on NCW values (reference
+    ``conv/layers.py:543-607``).  ``stride < 0``: strided downsampling
+    conv; ``stride > 1``: transposed-conv upsampling; lengths follow
+    through ``resize_length``.  JAX's dropout here is deterministic
+    (the identity) and is not ported."""
+
+    def __init__(self, hp: Hparams):
+        super().__init__()
+        hp.check_arg_in_hparams("in_channels", "out_channels", "kernel_size",
+                                "stride", "norm", "activation")
+        padding = get_padding(hp.kernel_size,
+                              causal=hp.get("causal_padding", False),
+                              future=hp.get("future_padding", False))
+        self.norm = get_norm(hp.out_channels, hp.norm)
+        self.act = get_activation(hp.activation)
+        if hp.stride < 0 or hp.stride == 1:
+            stride = -hp.stride if hp.stride < 0 else hp.stride
+            self.conv = Conv1d(hp.in_channels, hp.out_channels,
+                               hp.kernel_size, stride=stride,
+                               padding=padding)
+            self.stride_ratio = 1.0 / float(stride)
+        else:
+            self.conv = ConvTranspose1d(hp.in_channels, hp.out_channels,
+                                        hp.kernel_size, stride=hp.stride,
+                                        padding=padding)
+            self.stride_ratio = float(hp.stride)
+
+    def forward(self, x: Masked) -> Masked:
+        h = self.act(self.norm(self.conv(x.value), dim=1))
+        if self.stride_ratio != 1.0:
+            return Masked(h, resize_length(x.lengths, self.stride_ratio), 2)
+        return dataclasses.replace(x, value=h)
+
+
+class CNNStack(nn.Module):
+    """Conv-norm-act pyramid (reference ``conv/layers.py:610-652``; the
+    utterance encoder).  Takes and returns ``(B, T, C)``; runs NCW
+    inside, unmasked between layers as in JAX."""
+
+    def __init__(self, hp: Hparams, input_dim: Optional[int] = None,
+                 output_dim: Optional[int] = None):
+        super().__init__()
+        hp.check_arg_in_hparams("num_layers", "layer", "init_channel",
+                                "out_channels", "resample_rates",
+                                "resample_ksize")
+        self.hp = hp
+        n = hp.num_layers
+        in_channels = ([hp.init_channel] + list(hp.out_channels))[:-1]
+        if len(hp.resample_rates) != n:
+            raise ValueError("resample_rates must have num_layers entries")
+        layers = []
+        for i in range(n):
+            c_layer = hp.layer
+            c_layer.in_channels = in_channels[i]
+            c_layer.out_channels = hp.out_channels[i]
+            c_layer.kernel_size = hp.resample_ksize[i]
+            c_layer.stride = hp.resample_rates[i]
+            layers.append(ConvNormAct(c_layer))
+        self.layers = nn.ModuleList(layers)
+        self.linear = (Dense(input_dim, hp.init_channel)
+                       if input_dim is not None else None)
+        self.out_linear = (Dense(hp.out_channels[-1], output_dim)
+                           if output_dim is not None else None)
+
+    def forward(self, x: Masked) -> Masked:
+        if self.linear is not None:
+            x = Masked(self.linear(x.value), x.lengths, 1).apply_mask()
+        x = x.transpose()                      # (B, C, T) from here on
+        for layer in self.layers:
+            x = layer(x)
         x = x.transpose()
         if self.out_linear is not None:
             x = Masked(self.out_linear(x.value), x.lengths, 1)

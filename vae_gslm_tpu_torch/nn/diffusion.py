@@ -1,12 +1,12 @@
-"""Gaussian diffusion decoder, sampling side (port of
-``vae_gslm_tpu/nn/diffusion.py``).
+"""Gaussian diffusion decoder (port of ``vae_gslm_tpu/nn/diffusion.py``):
+the training loss and the samplers.
 
 Schedules are computed in float64 with numpy and stored float32, as in
 the JAX package.  The JAX ``lax.scan`` samplers become Python loops;
 the per-step DDIM coefficients are computed on the host in float32.
 Noise comes from an explicit ``torch.Generator``: one ``randn`` of the
-image shape per step, drawn even where eta makes it unused.  Training
-(``p_losses``) waits for a later slice.
+image shape per sampling step, drawn even where eta makes it unused;
+the training loss draws the step ``t`` per example, then the noise.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.losses import masked_l1_loss, masked_l2_loss
 from ..core.masked import Masked
 from ..hparams.hp import Hparams
 
@@ -51,6 +52,8 @@ def _schedule(betas: np.ndarray) -> dict:
     post_var = betas * (1.0 - ac_prev) / (1.0 - ac)
     return {k: v.astype(np.float32) for k, v in dict(
         alphas_cumprod=ac,
+        sqrt_alphas_cumprod=np.sqrt(ac),
+        sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - ac),
         sqrt_recip_alphas_cumprod=np.sqrt(1.0 / ac),
         sqrt_recipm1_alphas_cumprod=np.sqrt(1.0 / ac - 1.0),
         posterior_log_variance_clipped=np.log(np.clip(post_var, 1e-20,
@@ -73,6 +76,7 @@ class GaussianDiffusion1D(nn.Module):
         super().__init__()
         self.model = model
         self.objective = hp.get("objective", "pred_noise")
+        self.loss_type = hp.get("loss_type", "l1")
         self.clamp_range = hp.get("clamp_range", [-1, 1])
         self.ddim_sampling_eta = hp.get("ddim_sampling_eta", 1.0)
         ident = hp.beta_schedule.identifier
@@ -128,6 +132,51 @@ class GaussianDiffusion1D(nn.Module):
         mk = lambda v: Masked(v, out.lengths, 1).apply_mask()  # noqa: E731
         return mk(pred_noise), mk(x_start)
 
+    # -- training ----------------------------------------------------------
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        nd = x_start.dim()
+        return (_extract(self.sqrt_alphas_cumprod, t, nd) * x_start
+                + _extract(self.sqrt_one_minus_alphas_cumprod, t, nd)
+                * noise)
+
+    @property
+    def loss_fn(self):
+        if self.loss_type == "l1":
+            return masked_l1_loss
+        if self.loss_type == "l2":
+            return masked_l2_loss
+        raise ValueError(f"invalid loss type {self.loss_type}")
+
+    def p_losses(self, x_start: Masked, t: torch.Tensor, cond: Masked,
+                 noise: torch.Tensor) -> torch.Tensor:
+        x = self.q_sample(x_start.value.float(), t, noise)
+        x = Masked(x, x_start.lengths, 1).apply_mask()
+        model_out = self.model(x, t, cond)
+        if self.objective == "pred_noise":
+            target = Masked(noise, x_start.lengths, 1).apply_mask()
+        else:
+            target = x_start
+        return self.loss_fn(model_out, target)
+
+    def forward(self, img: Masked, cond: Masked,
+                generator: Optional[torch.Generator],
+                t: Optional[torch.Tensor] = None,
+                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The summed masked training loss at a uniform random step per
+        example.  ``t`` (B,) and ``noise`` (the image's shape) replace
+        the draws from ``generator``, which are taken in that order."""
+        dev = img.value.device
+        b = img.value.shape[0]
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (b,),
+                              generator=generator, device=dev)
+        if noise is None:
+            noise = torch.randn(img.value.shape, generator=generator,
+                                device=dev)
+        return self.p_losses(img, t.to(dev), cond, noise.to(dev).float())
+
+    # -- sampling ----------------------------------------------------------
     def _clamp(self, x: torch.Tensor) -> torch.Tensor:
         return x.clamp(self.clamp_range[0], self.clamp_range[1])
 

@@ -1,14 +1,15 @@
-"""Coupling flow on the sampling path (port of ``LinearCoupling`` and
-``CouplingStack`` from ``vae_gslm_tpu/nn/flow.py``).
+"""Affine coupling flow (port of ``TensorLogdet``, ``LinearCoupling``
+and ``CouplingStack`` from ``vae_gslm_tpu/nn/flow.py``).
 
-Only ``reverse`` is ported: the AR sampler maps prior samples through
-the flow backwards.  ``forward`` (training, likelihood) and the conv
-and spline couplings wait for a later slice (ROADMAP.md).  The
-reference's ``_max, _min = scale_range`` unpack order is preserved.
+``forward`` (training) maps latents through the couplings and sums
+their masked log-scales into the log-determinant; ``reverse`` (the AR
+sampler) maps prior samples back.  The conv and spline couplings wait
+for a later slice (ROADMAP.md).  The reference's
+``_max, _min = scale_range`` unpack order is preserved.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 from torch import nn
@@ -18,6 +19,11 @@ from ..hparams.hp import Hparams
 from .activations import get_activation
 from .linear import Dense, FiLM
 from .norms import get_norm
+
+
+class TensorLogdet(NamedTuple):
+    tensor: Masked
+    logdet: Union[float, torch.Tensor]
 
 
 def _bounded_logscale(logs: torch.Tensor, scale_range) -> torch.Tensor:
@@ -43,6 +49,7 @@ class LinearCoupling(nn.Module):
         self.activation = get_activation(hp.activation)
         self.flip = flip
         self.scale_range = hp.get("scale_range", None)
+        self.detach_coupling = hp.get("detach_coupling", False)
         self.half = dim // 2
 
     def _stats(self, x0: torch.Tensor, c: Optional[torch.Tensor]):
@@ -57,6 +64,22 @@ class LinearCoupling(nn.Module):
             logs = _bounded_logscale(logs, self.scale_range)
         return m, logs
 
+    def forward(self, x: TensorLogdet,
+                c: Optional[Masked] = None) -> TensorLogdet:
+        xm = x.tensor
+        x0 = xm.value[..., :self.half]
+        x1 = xm.value[..., self.half:]
+        if self.flip:
+            x0, x1 = x1, x0
+        inp = x0.detach() if self.detach_coupling else x0
+        m, logs = self._stats(inp, c.value if c is not None else None)
+        x1 = m + x1.float() * torch.exp(logs)
+        ret = torch.cat([x0.float(), x1], dim=-1)
+        logs_masked = torch.where(xm.expanded_mask(), logs,
+                                  torch.zeros((), device=logs.device))
+        return TensorLogdet(Masked(ret, xm.lengths, xm.time_axis),
+                            x.logdet + logs_masked)
+
     def reverse(self, x: Masked, c: Optional[Masked] = None) -> Masked:
         x0 = x.value[..., :self.half]
         x1 = x.value[..., self.half:]
@@ -69,7 +92,9 @@ class LinearCoupling(nn.Module):
 
 
 class CouplingStack(nn.Module):
-    """Stack of couplings, all flipped; ``reverse`` runs them backwards."""
+    """Stack of couplings, all flipped; ``forward`` runs them in order
+    and accumulates the log-determinant, ``reverse`` runs them
+    backwards."""
 
     def __init__(self, dim: int, hp: Hparams,
                  condition_dim: Optional[int] = None):
@@ -84,6 +109,12 @@ class CouplingStack(nn.Module):
         self.layers = nn.ModuleList([
             LinearCoupling(dim, True, hp.layer, condition_dim=condition_dim)
             for _ in range(hp.num_layers)])
+
+    def forward(self, x: TensorLogdet,
+                c: Optional[Masked] = None) -> TensorLogdet:
+        for layer in self.layers:
+            x = layer(x, c=c)
+        return x
 
     def reverse(self, x: Masked, c: Optional[Masked] = None) -> Masked:
         for layer in reversed(self.layers):

@@ -1,5 +1,5 @@
-"""Dense layers, embeddings, FiLM and the Gaussian head (port of
-``vae_gslm_tpu/nn/linear.py``).
+"""Dense layers, embeddings, FiLM, the time pool and the Gaussian head
+(port of ``vae_gslm_tpu/nn/linear.py``).
 
 Weights keep the reference's torch layout and state-dict names
 (``weight`` (out, in), ``bias``).  Matmuls run in the policy's compute
@@ -130,6 +130,13 @@ class FiLM(nn.Module):
         return weight * x + bias
 
 
+class TimeAggregation(nn.Module):
+    """Masked mean-pool over time: (B, T, C) -> (B, C)."""
+
+    def forward(self, x: Masked) -> torch.Tensor:
+        return x.time_mean()
+
+
 @dataclasses.dataclass
 class GaussianOutput:
     mean: Masked
@@ -203,12 +210,16 @@ class GaussianParameterize(nn.Module):
 
     def forward(self, x: Masked, generator: Optional[torch.Generator],
                 temperature: float = 1.0,
-                truncated_norm: Optional[Tuple[float, float]] = None
-                ) -> GaussianOutput:
+                truncated_norm: Optional[Tuple[float, float]] = None,
+                noise: Optional[torch.Tensor] = None) -> GaussianOutput:
+        """``noise`` replaces the draw from ``generator`` (the tests hand
+        both packages the same standard-normal tensor)."""
         mean, logstd = self._stats(x.value)
         tn = truncated_norm if truncated_norm is not None \
             else self.truncated_norm
-        if tn is not None:
+        if noise is not None:
+            noise = noise.to(mean.device, torch.float32)
+        elif tn is not None:
             noise = truncated_normal(tn[0], tn[1], mean.shape, generator,
                                      mean.device)
         else:

@@ -1,7 +1,11 @@
-"""Transformer trunk on the hybrid serving path (port of
+"""Transformer trunk (port of ``TransformerLayer`` and
 ``TransformerLayerStack`` from ``vae_gslm_tpu/nn/transformer.py``).
 
-What the slice runs:
+Training: ``TransformerLayerStack.run`` / ``forward`` takes masked
+frames through pre-LN or post-LN layers (self-attention through K3/K3b
+on the card, then the FFN), with optional per-layer rematerialization.
+
+Serving:
   * ``init_stacked_cache`` + ``decode_stacked`` prefill: the prompt runs
     through all layers at once and fills a stacked int8 cache
     ``(L, B, H, T, D)``; attention reads the dequantized bfloat16 cache,
@@ -23,8 +27,8 @@ What the slice runs:
     call plus the stage append.
 The cache tensors are updated in place (the JAX functions return new
 arrays).  The per-layer and packed decode paths, K2's w4 variant,
-training (``run``), cross-attention and T5/Rotary positions wait for
-later slices (ROADMAP.md).
+cross-attention and T5/Rotary positions wait for later slices
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -32,33 +36,19 @@ from operator import attrgetter
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
+from ..core.masked import Masked
 from ..hparams.hp import Hparams
 from ..ops import mega_step as mega
 from ..ops.fused_decode import BLK, TAIL, fused_decode_attention
 from .activations import gelu, get_activation
-from .attention import (LayerKVCache, attend, merge_heads, quantize_i8,
-                        split_heads)
+from .attention import (LayerKVCache, SelfAttention, attend, merge_heads,
+                        quantize_i8, split_heads)
 from .linear import Dense
 from .norms import RMSNorm, get_norm
 from .positions import ALiBi
-
-
-class SelfAttention(nn.Module):
-    """The projections of one self-attention layer (state-dict names
-    ``in_proj``/``out_proj``); the stacked paths read their weights."""
-
-    def __init__(self, dim: int, hp: Hparams):
-        super().__init__()
-        hp.check_arg_in_hparams("nheads", "causal")
-        if dim % hp.nheads:
-            raise ValueError("dim must be a multiple of nheads")
-        self.nheads = hp.nheads
-        self.head_dim = dim // hp.nheads
-        bias = bool(hp.get("bias", None))
-        self.in_proj = Dense(dim, dim * 3, bias=bias)
-        self.out_proj = Dense(dim, dim, bias=bias)
 
 
 class TransformerLayer(nn.Module):
@@ -77,6 +67,22 @@ class TransformerLayer(nn.Module):
         self.norm1 = get_norm(hp.dim, hp.norm)
         self.norm3 = get_norm(hp.dim, hp.norm)
         self.activation = get_activation(hp.activation)
+
+    def forward(self, tgt: Masked, rpe: Optional[ALiBi] = None) -> Masked:
+        """Pre-LN (default) or post-LN: self-attention, then the FFN."""
+        lengths = tgt.lengths
+        if self.preln:
+            n_tgt = Masked(self.norm1(tgt.value), lengths, 1).apply_mask()
+        else:
+            n_tgt = tgt
+        x = tgt.value + self.self_attn(n_tgt, rpe).value
+        if not self.preln:
+            x = self.norm1(x)
+        n_x = self.norm3(x) if self.preln else x
+        x = x + self.linear2(self.activation(self.linear1(n_x)))
+        if not self.preln:
+            x = self.norm3(x)
+        return Masked(x, lengths, 1).apply_mask()
 
 
 class TransformerLayerStack(nn.Module):
@@ -106,10 +112,50 @@ class TransformerLayerStack(nn.Module):
         else:
             raise NotImplementedError(
                 f"{self.rpe_id} positions are not ported yet (ROADMAP.md)")
+        self.remat = bool(hp.get("remat", False))
 
     @property
     def dim(self) -> int:
         return self.hp.layer.dim
+
+    def set_uniform(self, std: float, generator=None) -> None:
+        """JAX re-draws a learned T5 bias table here; ALiBi and no
+        position bias (the port's choices) hold no parameters."""
+
+    # -- full-sequence (training) call -----------------------------------
+    def run(self, tgt: Masked) -> dict:
+        """All layers over (B, T, C) frames: ``{"output": Masked,
+        "layers": [per-layer outputs, then the final norm's]}``.  With
+        ``remat: true`` each layer's activations are recomputed in the
+        backward (``torch.utils.checkpoint``, as JAX's
+        ``jax.checkpoint``)."""
+        lengths = tgt.lengths
+        out = tgt
+        if self.linear is not None:
+            out = Masked(self.linear(out.value), lengths, 1).apply_mask()
+        if self.first_norm is not None:
+            out = Masked(self.first_norm(out.value), lengths,
+                         1).apply_mask()
+        layers = []
+        for layer in self.layers:
+            if self.remat and torch.is_grad_enabled():
+                value = torch.utils.checkpoint.checkpoint(
+                    lambda v, la=layer: la(Masked(v, lengths, 1),
+                                           self.rpe).value,
+                    out.value, use_reentrant=False)
+                out = Masked(value, lengths, 1)
+            else:
+                out = layer(out, self.rpe)
+            layers.append(out)
+        if self.final_norm is not None:
+            out = Masked(self.final_norm(out.value), lengths, 1)
+            layers.append(out)
+        if self.out is not None:
+            out = Masked(self.out(out.value), lengths, 1).apply_mask()
+        return {"output": out, "layers": layers}
+
+    def forward(self, tgt: Masked) -> Masked:
+        return self.run(tgt)["output"]
 
     # -- shared pieces of the stacked paths -----------------------------
     def supports_stacked_decode(self) -> bool:
