@@ -7,10 +7,11 @@ Phases (any failure ends the run with a non-zero exit, no result):
   1. device: the card's name and power limit; TF32 switched off for
      float32 matmuls and convolutions (the comparisons below are float32;
      the pipelines themselves run bfloat16);
-  2. build: every kernel of the port's serving and training paths, from
-     ``vae_gslm_tpu_torch/csrc`` with one nvcc per source, all started
-     together (K1 ``fused_decode.cu``, K2 ``mega_step.cu``, K3/K3b
-     ``flash_attention.cu``), with nvcc's register and spill lines;
+  2. build: every kernel of the port's serving, training and scoring
+     paths, from ``vae_gslm_tpu_torch/csrc`` with one nvcc per source,
+     all started together (K1 ``fused_decode.cu``, K2 ``mega_step.cu``,
+     K3/K3b/K4/K5 ``flash_attention.cu``), with nvcc's register and spill
+     lines, and beside them the g++ build of ``native/dataio.cc``;
   3. K1 against its plain PyTorch version at the flagship width (16
      layers, 16 heads, head_dim 64) at B = 8 and 32 over the cache
      states the 150 -> 650 rollout passes through; kernel and plain
@@ -25,9 +26,18 @@ Phases (any failure ends the run with a non-zero exit, no result):
      shapes (B 8, T 640, 16 heads of 64, q/k/v views of one projection,
      lengths down to 1), float32 and bfloat16, with ALiBi and without,
      the bf16 outputs also element by element (2 ulps + a share of the
-     rms) and in relative L2; their bf16 times beside the plain
-     versions', SDPA's with a float mask (forward, forward+backward) and
-     the bound;
+     rms) and in relative L2; K3 float32 at the scoring path's call (B
+     64, the short batch's padded length and lengths) and its time
+     beside the bound; K3/K3b's bf16 times beside the plain versions',
+     SDPA's with a float mask (forward, forward+backward) and the bound;
+  5b. K5 (the q-tiled forward) at B 8, 16 heads of 64, T 1750, lengths
+     down to 0 and 1, and Tq 96 x Tk 256 non-causal, and K4 (the (B, H,
+     T, D) full forward) at B 8, T 640, 15 heads, against their plain
+     versions, float32 and bfloat16, with ALiBi and without, at K3's
+     tolerances; K5 float32 at the scoring path's calls (B 64, T 1750,
+     each long batch's lengths) and its time there beside the bound;
+     their float32 times at B 8 beside the plain versions', SDPA's
+     (float mask) and the bound;
   6. agreement on a small input, twice: a small LVTR (head_dim 64)
      continues a prompt by 300 frames on the card (through the kernels)
      and on the CPU (through the plain versions), float32, temperature 0,
@@ -39,6 +49,10 @@ Phases (any failure ends the run with a non-zero exit, no result):
      card through K3/K3b and on the CPU through the plain versions, same
      weights, batch and draws, float32: loss terms to 1e-4 relative,
      every gradient leaf to 1e-3 of its max |g|;
+  7b. ``LVTR.likelihood`` of a small float32 LVTR with three heads of 64
+     (no packed head grouping) on the card and on the CPU, pinned initial
+     state: at T = 300 through K4 and at T = 1100 through K5, scores to
+     1e-4 relative;
   8. the serving paths: a 3 s -> 10 s continuation at B = 8 at the full
      width of ``configs/train/speech/vae-gslm.yaml`` (weights from seed
      0; without the utterance encoder, which the serving path does not
@@ -61,7 +75,18 @@ Phases (any failure ends the run with a non-zero exit, no result):
      ``run_step`` calls, each with exactly 32 K3 and 32 K3b launches
      (counts set to 0 just before each step), the plain attention
      versions refused; ms per step, tokens/s, peak memory, then one
-     profiled step.
+     profiled step;
+  10. the scoring path: ``LikelihoodEstimator`` at the full width of that
+     config (weights from seed 0 written by ``save_compact``, read back
+     strictly), float32, over 192 synthetic WAVs from seed 0 with the
+     infer config's data settings (batch 64) and a uniform length mix
+     made to run both routes: 64 utterances of 5-20 s (one batch <= 1024
+     frames: 16 K3 launches) and 128 of 5-35 s (two batches padded to
+     1750 frames: 16 K5 launches each), no K4 launch and no plain
+     version, each batch's lengths those phases 5 and 5b held K3 and K5
+     at; utterances/s, seconds of audio scored per wall second, model
+     and data time, peak memory, one profiled batch, and the device time
+     of one loader pass alone.
 Output: one line per measurement, then the ``{"kernels": [...]}`` line,
 the nvidia-smi name/power line, and ``{"ok": true, "device": ...}``.
 """
@@ -402,8 +427,9 @@ def k3_inputs(dtype, dev, seed: int = 0, b: int = K3_B, t: int = K3_T,
     return q, k, v, do, lengths, slopes
 
 
-def k3_bytes_ops(itemsize: int):
-    """Bytes and bf16 FLOPs of one K3 call and of K3b's two kernels (the
+def k3_bytes_ops(itemsize: int, b: int = K3_B, t: int = K3_T,
+                 lengths=K3_LENGTHS):
+    """Bytes and FLOPs of one K3 call and of K3b's two kernels (the
     timed part: ``delta`` comes in computed) on the inputs of
     ``k3_inputs``.  Bytes: each input read once, each output written
     once, key and value rows only below each batch row's length (a row
@@ -413,26 +439,31 @@ def k3_bytes_ops(itemsize: int):
     pair and product: 2 products forward (QK, PV), 5 backward (QK, dO V,
     dS K, dS^T Q, P^T dO)."""
     row = H * D * itemsize
-    n = K3_B * K3_T * row                    # one full (B, T, H D) tensor
-    n_kv = sum(ln if ln >= 1 else K3_T for ln in K3_LENGTHS) * row
-    stats = K3_B * H * K3_T * 4              # lse or delta, float32
-    small = K3_B * 4 + H * 4
-    rows = sum(sum(min(r + 1, ln) if ln >= 1 else K3_T
-                   for r in range(K3_T)) for ln in K3_LENGTHS)
+    n = b * t * row                          # one full (B, T, H D) tensor
+    n_kv = sum(ln if ln >= 1 else t for ln in lengths) * row
+    stats = b * H * t * 4                    # lse or delta, float32
+    small = b * 4 + H * 4
+    rows = sum(sum(min(r + 1, ln) if ln >= 1 else t
+                   for r in range(t)) for ln in lengths)
     pairs = H * rows
     return ((2 * n + 2 * n_kv + stats + small, 2 * 2 * pairs * D),
             (5 * n + 2 * n_kv + 2 * stats + small, 5 * 2 * pairs * D))
 
 
-def sdpa_mask(lengths, slopes, dtype, dev):
-    """The explicit float mask (ALiBi + causal + length) that makes
-    ``scaled_dot_product_attention`` compute K3's function."""
+def sdpa_mask(lengths, slopes, dtype, dev, tq: int = K3_T, tk: int = K3_T,
+              causal: bool = True):
+    """The explicit float mask (ALiBi + length, causal or not) that makes
+    ``scaled_dot_product_attention`` compute the flash kernels'
+    function."""
     import torch
 
-    pos = torch.arange(K3_T, device=dev)
-    bias = slopes[:, None, None] * (pos[None, :] - pos[:, None]).abs()[None]
-    valid = ((pos[None, None, None, :] < lengths[:, None, None, None])
-             & (pos[None, :] <= pos[:, None])[None, None])
+    q_pos = torch.arange(tq, device=dev)
+    k_pos = torch.arange(tk, device=dev)
+    bias = slopes[:, None, None] * (k_pos[None, :]
+                                    - q_pos[:, None]).abs()[None]
+    valid = k_pos[None, None, None, :] < lengths[:, None, None, None]
+    if causal:
+        valid = valid & (k_pos[None, :] <= q_pos[:, None])[None, None]
     return torch.where(valid, bias[None], float("-inf")).to(dtype)
 
 
@@ -445,18 +476,59 @@ def ulp_bf16(x):
                        torch.ldexp(torch.ones_like(x), e - 8))
 
 
+def hold(where: str, name: str, got, want, tol: float, floor: float,
+         bf16: bool):
+    """Fails unless max |diff| <= tol x max(floor, max|ref|) and, for a
+    bf16 output other than lse, |diff| <= 2 bf16 ulps of |ref| + tol x
+    rms(ref) element by element and ||diff|| <= 1e-3 ||ref||: a length-1
+    row makes one dv row the sum of all T dO rows, whose max |ref| alone
+    would let a wrong entry elsewhere through.  Returns the max |diff|
+    and its log text."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    err = diff.max().item()
+    ref = max(floor, want.abs().max().item())
+    text = f"{name} {err:.3e}"
+    if not err <= tol * ref:
+        raise AssertionError(f"{name} disagrees with its plain version: max "
+                             f"abs {err:.3e} > {tol} x {ref:.3e} ({where})")
+    if bf16 and name != "lse":
+        rms = want.pow(2).mean().sqrt().item()
+        excess = (diff - 2 * ulp_bf16(want)).clamp_min(0).max().item() / rms
+        rel = (diff.norm() / want.norm()).item()
+        text += f" ({excess:.1e} rms past 2 ulp, L2 {rel:.1e})"
+        if not (excess <= tol and rel <= 1e-3):
+            raise AssertionError(
+                f"{name} disagrees with its plain version: {excess:.3e} x "
+                f"rms(ref) past 2 bf16 ulps (limit {tol}), relative L2 "
+                f"{rel:.3e} (limit 1e-3) ({where})")
+    return err, text
+
+
+def in_chunks(fn, b: int, step: int):
+    """``fn(rows)`` over slices of ``step`` batch rows, the outputs joined
+    along the batch (tuples element by element): the plain versions'
+    (B, H, T, T) logits at the scoring batch of 64 would take tens of
+    GB at once."""
+    import torch
+
+    outs = [fn(slice(i, i + step)) for i in range(0, b, step)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
 def phase_k3(dev):
     """K3 (o, lse) and K3b (dq, dk, dv) against their plain versions at
     the training shapes (B 8, T 640, 16 heads of 64) and at T 200 (a
     partial last tile), float32 and bfloat16, with ALiBi and without;
-    then their bf16 times beside the plain versions', SDPA's and the
-    bound.  Every output is held at max |diff| <= tol x max|ref| (tol
-    1e-5 on f32 o and lse, 1e-4 on f32 gradients, bf16: 1e-2 on o, 1e-5
-    on lse, 2e-2 on gradients).  A bf16 o, dq, dk or dv is also held
-    element by element, at |diff| <= 2 bf16 ulps of |ref| + tol x
-    rms(ref), and as a whole, at ||diff|| <= 1e-3 ||ref||: a length-1 row
-    makes one dv row the sum of all T dO rows, whose max |ref| alone
-    would let a wrong entry elsewhere through."""
+    K3 float32 at the scoring path's shape (B 64, the short batch's
+    padded length and lengths) and its time there beside the bound; then
+    K3/K3b's bf16 times beside the plain versions', SDPA's and the
+    bound.  Every output is held by ``hold`` at tol x max|ref| (tol 1e-5
+    on f32 o and lse, 1e-4 on f32 gradients, bf16: 1e-2 on o, 1e-5 on
+    lse, 2e-2 on gradients), a bf16 o, dq, dk or dv also element by
+    element and in relative L2."""
     import torch
     import torch.nn.functional as F
 
@@ -483,28 +555,9 @@ def phase_k3(dev):
                        for n, g_, r_ in zip(("dq", "dk", "dv"), grads, refs)]
             errs = []
             for name, got, want, tol, floor in checks:
-                got, want = got.float(), want.float()
-                diff = (got - want).abs()
-                err = diff.max().item()
-                ref = max(floor, want.abs().max().item())
-                errs.append(f"{name} {err:.3e}")
-                where = f"({dtype}, T={t}, alibi={sl is not None})"
-                if not err <= tol * ref:
-                    raise AssertionError(
-                        f"K3/K3b {name} disagrees with its plain version: "
-                        f"max abs {err:.3e} > {tol} x {ref:.3e} {where}")
-                if bf16 and name != "lse":
-                    rms = want.pow(2).mean().sqrt().item()
-                    excess = (diff - 2 * ulp_bf16(want)).clamp_min(0).max(
-                    ).item() / rms
-                    rel = (diff.norm() / want.norm()).item()
-                    errs[-1] += f" ({excess:.1e} rms past 2 ulp, L2 {rel:.1e})"
-                    if not (excess <= tol and rel <= 1e-3):
-                        raise AssertionError(
-                            f"K3/K3b {name} disagrees with its plain "
-                            f"version: {excess:.3e} x rms(ref) past 2 bf16 "
-                            f"ulps (limit {tol}), relative L2 {rel:.3e} "
-                            f"(limit 1e-3) {where}")
+                where = f"K3/K3b, {dtype}, T={t}, alibi={sl is not None}"
+                err, text = hold(where, name, got, want, tol, floor, bf16)
+                errs.append(text)
                 if name in ("o", "lse"):
                     worst_f = max(worst_f, err)
                 else:
@@ -512,7 +565,44 @@ def phase_k3(dev):
             log(f"K3/K3b check B={b} T={t} H={h} {str(dtype)[6:]} "
                 f"alibi={sl is not None}: max_abs_err " + ", ".join(errs))
 
-    # Times at the main path's type (bf16, ALiBi).
+    # The scoring path's K3 call: float32, B 64, the short batch's padded
+    # length and lengths; the plain version in chunks of 16 rows.
+    lens = scoring_batches()[0]
+    ts = max(lens)
+    q, k, v, _, lengths, slopes = k3_inputs(torch.float32, dev, 2,
+                                            SCORE_BATCH, ts, H, lens)
+
+    def plain_s(i):
+        return in_chunks(lambda s: k3_plain(q[s], k[s], v[s], lengths[s],
+                                            slopes, True, H), SCORE_BATCH, 16)
+
+    o, lse = k3(q, k, v, lengths, slopes, True, H)
+    o_ref, lse_ref = plain_s(0)
+    torch.cuda.synchronize()
+    where = f"K3 at the scoring shape, float32, B={SCORE_BATCH}, T={ts}"
+    errs = []
+    for name, got, want in (("o", o, o_ref), ("lse", lse, lse_ref)):
+        err, text = hold(where, name, got, want, 1e-5, 1.0, False)
+        worst_f = max(worst_f, err)
+        errs.append(text)
+    log(f"K3 check B={SCORE_BATCH} T={ts} H={H} float32 alibi=True (the "
+        f"scoring corpus's short batch, lengths {min(lens)}-{max(lens)}): "
+        f"max_abs_err " + ", ".join(errs))
+    del o, lse, o_ref, lse_ref
+    ks = device_ms(lambda i: k3(q, k, v, lengths, slopes, True, H), n=10,
+                   only=K3_KERNELS[:1])
+    cs = cuda_ms(lambda i: k3(q, k, v, lengths, slopes, True, H), n=10)
+    ps = device_ms(plain_s, n=2)
+    (sb, so), _ = k3_bytes_ops(4, SCORE_BATCH, ts, lens)
+    bound_s = max(sb / HBM_BYTES_PER_S, so / F32_FLOPS) * 1e3
+    by_s = "bytes" if sb / HBM_BYTES_PER_S > so / F32_FLOPS else "operations"
+    log(f"K3 time B={SCORE_BATCH} T={ts} float32 (the scoring path's call): "
+        f"kernel {ks:.4f} ms, {cs:.4f} ms per call with the wrapper, plain "
+        f"{ps:.4f} ms (16-row chunks), bound {bound_s:.4f} ms ({by_s}; "
+        f"{sb / 1e6:.1f} MB, {so / 1e9:.2f} GFLOP at the float32 FMA rate)")
+    del q, k, v
+
+    # Times at the training path's type (bf16, ALiBi).
     q, k, v, do, lengths, slopes = k3_inputs(torch.bfloat16, dev, seed=1)
     o, lse = k3(q, k, v, lengths, slopes, True, H)
 
@@ -568,6 +658,194 @@ def phase_k3(dev):
          "replaces": "vae_gslm_tpu/ops/flash_attention.py:359",
          "launches": None, "max_abs_err": worst_b, "ms": kb, "plain_ms": pb,
          "bound_ms": bound_b, "bound_by": by_b, "library_ms": lfb})
+
+
+# --------------------------------------------------------------- K4/K5
+K5_B, K5_T = 8, 1750              # a scoring batch padded to 35 s
+K5_LENGTHS = [1750, 1000, 1, 0, 1749, 64, 1700, 900]
+K4_B, K4_T, K4_H = 8, 640, 15     # 15 heads: no packed head grouping
+K4_LENGTHS = [640, 320, 300, 640, 1, 639, 0, 64]
+F32_FLOPS = 67e12                 # H100 SXM float32 FMA units (data sheet)
+
+
+def bhtd_inputs(dtype, dev, b: int, tq: int, tk: int, h: int, seed: int):
+    """q (B, H, Tq, D) and k, v (B, H, Tk, D) as strided views of packed
+    (B, T, H D) projections, as the scoring path hands them over."""
+    import torch
+
+    g = torch.Generator(dev).manual_seed(seed)
+    xq = torch.randn((b, tq, h * D), generator=g, device=dev).to(dtype)
+    xkv = torch.randn((b, tk, 2 * h * D), generator=g, device=dev).to(dtype)
+    q = xq.view(b, tq, h, D).transpose(1, 2)
+    k, v = (x.view(b, tk, h, D).transpose(1, 2)
+            for x in xkv.chunk(2, dim=-1))
+    return q, k, v
+
+
+def bhtd_bytes_ops(b: int, tq: int, tk: int, h: int, lengths, causal: bool,
+                   itemsize: int):
+    """Bytes and FLOPs of one K4/K5 forward on these inputs: q read and o
+    written once, key and value rows only below each length (a row of
+    length 0 reads all Tk), no lse; the (query, key) pairs the causal and
+    length masks leave (all Tk for a row of length 0), 2 products of 2 D
+    FLOPs each."""
+    row = h * D * itemsize
+    kv_rows = sum(ln if ln >= 1 else tk for ln in lengths)
+    nbytes = 2 * b * tq * row + 2 * kv_rows * row + b * 4 + h * 4
+
+    def keys(r, ln):
+        if ln < 1:
+            return tk
+        return min(r + 1, ln) if causal else min(ln, tk)
+
+    pairs = h * sum(sum(keys(r, ln) for r in range(tq)) for ln in lengths)
+    return nbytes, 2 * 2 * D * pairs
+
+
+def phase_k45(dev):
+    """K5 (the q-tiled forward) at the scoring shapes (B 8, 16 heads of
+    64, Tq = Tk = 1750, lengths down to 0 and 1; and Tq 96 x Tk 256,
+    non-causal) and K4 (the (B, H, T, D) full forward, with and without
+    lse) at B 8, T 640, 15 heads, against their plain versions, float32
+    and bfloat16, with ALiBi and without, at K3's tolerances (f32 1e-5 x
+    max(1, max|ref|); bf16 o 1e-2 x max|ref| and element by element 2
+    ulps + 1e-2 x rms, relative L2 1e-3; lse 1e-5 x max(1, max|ref|));
+    K5 float32 at the scoring path's shape (B 64, T 1750, each long
+    batch's lengths) and its time there beside the bound.  Then their
+    float32 times (the scoring path's type) at B 8 beside the plain
+    versions', SDPA's with a float mask (forward) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vae_gslm_tpu_torch.nn.positions import alibi_slopes
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+
+    worst = {"K4": 0.0, "K5": 0.0}
+    cases = (("K5", K5_B, K5_T, K5_T, H, K5_LENGTHS, True),
+             ("K5", 3, 96, 256, H, [256, 0, 131], False),
+             ("K4", K4_B, K4_T, K4_T, K4_H, K4_LENGTHS, True))
+    for (name, b, tq, tk, h, lens, causal), dtype in itertools.product(
+            cases, (torch.float32, torch.bfloat16)):
+        bf16 = dtype == torch.bfloat16
+        q, k, v = bhtd_inputs(dtype, dev, b, tq, tk, h, seed=tq)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        slopes = -torch.tensor(alibi_slopes(h), device=dev)
+        for sl in (slopes, None):
+            where = (f"{name} B={b} Tq={tq} Tk={tk} H={h} {str(dtype)[6:]} "
+                     f"causal={causal} alibi={sl is not None}")
+            errs = []
+            if name == "K5":
+                got = fa.flash_forward_tiled(q, k, v, lengths, sl, causal)
+                want = fa.flash_forward_tiled_plain(q, k, v, lengths, sl,
+                                                    causal)
+                pairs = [("o", got, want)]
+            else:
+                got, lse = fa.flash_forward_full(q, k, v, lengths, sl, causal,
+                                                 with_stats=True)
+                want, lse_ref = fa.flash_forward_full_plain(
+                    q, k, v, lengths, sl, causal, with_stats=True)
+                pairs = [("o", got, want), ("lse", lse, lse_ref)]
+            torch.cuda.synchronize()
+            for n, g_, r_ in pairs:
+                tol = 1e-2 if bf16 and n == "o" else 1e-5
+                floor = 0.0 if bf16 and n == "o" else 1.0
+                err, text = hold(where, n, g_, r_, tol, floor, bf16)
+                errs.append(text)
+                if n == "o":
+                    worst[name] = max(worst[name], err)
+            log(f"{name} check {where}: max_abs_err " + ", ".join(errs))
+
+    # The scoring path's K5 calls: float32, B 64, each long batch's padded
+    # length and lengths, q/k/v the (B, H, T, D) views of one packed
+    # projection that flash_attention_packed hands over; the plain
+    # version in chunks of 8 rows.  The last batch's call is timed.
+    slopes = -torch.tensor(alibi_slopes(H), device=dev)
+    for bi, lens in enumerate(scoring_batches()[1:], 1):
+        ts = max(lens)
+        qp, kp, vp, _, lengths, _ = k3_inputs(torch.float32, dev, 10 + bi,
+                                              SCORE_BATCH, ts, H, lens)
+        q, k, v = (fa._heads(x, H) for x in (qp, kp, vp))
+
+        def plain_s(i):
+            return in_chunks(lambda s: fa.flash_forward_tiled_plain(
+                q[s], k[s], v[s], lengths[s], slopes, True), SCORE_BATCH, 8)
+
+        got = fa.flash_forward_tiled(q, k, v, lengths, slopes, True)
+        want = plain_s(0)
+        torch.cuda.synchronize()
+        where = (f"K5 at the scoring shape, float32, batch {bi}, "
+                 f"B={SCORE_BATCH}, T={ts}")
+        err, text = hold(where, "o", got, want, 1e-5, 1.0, False)
+        worst["K5"] = max(worst["K5"], err)
+        log(f"K5 check B={SCORE_BATCH} Tq=Tk={ts} H={H} float32 causal=True "
+            f"alibi=True (the scoring corpus's batch {bi}, lengths "
+            f"{min(lens)}-{max(lens)}): max_abs_err {text}")
+        del got, want
+    ks = device_ms(lambda i: fa.flash_forward_tiled(q, k, v, lengths, slopes,
+                                                    True), n=5,
+                   only=("k5_fwd",))
+    cs = cuda_ms(lambda i: fa.flash_forward_tiled(q, k, v, lengths, slopes,
+                                                  True), n=5)
+    ps = device_ms(plain_s, n=1)
+    nbytes, flops = bhtd_bytes_ops(SCORE_BATCH, ts, ts, H, lens, True, 4)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / F32_FLOPS \
+        else "operations"
+    log(f"K5 time B={SCORE_BATCH} T={ts} H={H} float32 (the scoring path's "
+        f"call, batch {bi}): kernel {ks:.4f} ms, {cs:.4f} ms per call with "
+        f"the wrapper, plain {ps:.4f} ms (8-row chunks), bound {bound:.4f} "
+        f"ms ({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the "
+        f"float32 FMA rate)")
+    del q, k, v, qp, kp, vp
+
+    out = {}
+    for name, b, tq, h, lens, only in (
+            ("K5", K5_B, K5_T, H, K5_LENGTHS, ("k5_fwd",)),
+            ("K4", K4_B, K4_T, K4_H, K4_LENGTHS, ("k4_fwd",))):
+        fn = fa.flash_forward_tiled if name == "K5" else fa.flash_forward_full
+        plain = (fa.flash_forward_tiled_plain if name == "K5"
+                 else fa.flash_forward_full_plain)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        slopes = -torch.tensor(alibi_slopes(h), device=dev)
+        times = {}
+        for dtype in (torch.bfloat16, torch.float32):   # float32 last: the
+            # plain version and SDPA below take its q, k, v
+            q, k, v = bhtd_inputs(dtype, dev, b, tq, tq, h, seed=1)
+            times[dtype] = (
+                device_ms(lambda i: fn(q, k, v, lengths, slopes, True), n=10,
+                          only=only),
+                cuda_ms(lambda i: fn(q, k, v, lengths, slopes, True), n=10))
+        kf, cf = times[torch.float32]
+        pf = device_ms(lambda i: plain(q, k, v, lengths, slopes, True), n=2)
+        mask = sdpa_mask(lengths, slopes, torch.float32, dev, tq, tq, True)
+
+        def sdpa(i):
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+        lf = device_ms(sdpa, n=5)
+        del mask
+        nbytes, flops = bhtd_bytes_ops(b, tq, tq, h, lens, True, 4)
+        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+        by = ("bytes" if nbytes / HBM_BYTES_PER_S > flops / F32_FLOPS
+              else "operations")
+        log(f"{name} time B={b} T={tq} H={h} float32: kernel {kf:.4f} ms, "
+            f"{cf:.4f} ms per call with the wrapper, plain {pf:.4f} ms, SDPA "
+            f"(float mask) forward {lf:.4f} ms, bound {bound:.4f} ms ({by}; "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the float32 "
+            f"FMA rate); bf16 kernel {times[torch.bfloat16][0]:.4f} ms, "
+            f"{times[torch.bfloat16][1]:.4f} ms with the wrapper")
+        out[name] = {
+            "name": "flash_forward_tiled" if name == "K5"
+            else "flash_forward_full",
+            "route": "cuda",
+            "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "vae_gslm_tpu/ops/flash_attention.py:"
+            + ("443" if name == "K5" else "406"),
+            "launches": None, "max_abs_err": worst[name], "ms": kf,
+            "plain_ms": pf, "bound_ms": bound, "bound_by": by,
+            "library_ms": lf}
+    return out["K4"], out["K5"]
 
 
 # ----------------------------------------------------- small agreement
@@ -1210,6 +1488,335 @@ def profile_ar_loop(sampler, prior, dev, gpu: str, kw: dict, path: str,
         log(f"  {ms:.4f} ms/step, {n:.0f}/step: {name[:90]}")
 
 
+# ------------------------------------------------------------- scoring
+def phase_likelihood_small(dev) -> int:
+    """``LVTR.likelihood`` of a small float32 LVTR with an unpackable head
+    layout (dim 192, three heads of 64, 2 layers, tokens + flow) on the
+    card (through the kernels) and on the CPU (through the plain
+    versions), same weights, batch and pinned initial state: at T = 300
+    (K4 in both layers, no K3/K5) and T = 1100 (K5), scores to 1e-4
+    relative.  Returns the K4 launches of the T = 300 run."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.core.masked import Masked
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.models.speech.lvtr import LVTR
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+
+    d = yaml.safe_load(SMALL_YAML)
+    d["transformer"]["layer"].update(dim=192, ffd_size=768)
+    d["transformer"]["layer"]["self_attn"]["nheads"] = 3
+    d["transformer"]["rpe"]["maxpos"] = 2048
+    hp = Hparams.from_dict(d)
+    rng = np.random.RandomState(4)
+    k4_launches = None
+    with precision.policy_scope(precision.Policy()):
+        cpu = LVTR(hp, input_dim=80, device="cpu",
+                   generator=torch.Generator("cpu").manual_seed(5))
+        gpu = LVTR(hp, input_dim=80, device=dev)
+        gpu.load_state_dict(cpu.state_dict())
+        for t, lens, want in ((300, [300, 1, 211], (0, 2, 0)),
+                              (1100, [1100, 1030, 2], (0, 0, 2))):
+            b = len(lens)
+            x = np.concatenate([rng.randint(0, 50, (b, t, 1)),
+                                rng.randn(b, t, 80)], -1).astype(np.float32)
+            init = torch.from_numpy(
+                (rng.rand(b, 1, 32) * 2 - 1).astype(np.float32))
+            scores = []
+            for model, where in ((cpu, "cpu"), (gpu, dev)):
+                model.initial_state = (lambda generator, bsize, nfeat=None,
+                                       where=where: init.to(where))
+                xm = Masked.from_lengths(torch.from_numpy(x).to(where), lens)
+                fa.flash_forward_packed.launches = 0
+                fa.flash_forward_full.launches = 0
+                fa.flash_forward_tiled.launches = 0
+                with torch.no_grad():
+                    scores.append(model.likelihood(xm, None).cpu().double())
+                counts = (fa.flash_forward_packed.launches,
+                          fa.flash_forward_full.launches,
+                          fa.flash_forward_tiled.launches)
+            torch.cuda.synchronize()
+            rel = ((scores[1] - scores[0]).abs()
+                   / scores[0].abs().clamp_min(1e-12)).max().item()
+            log(f"small likelihood (dim 192, 3 heads, card vs CPU plain, "
+                f"float32) T={t}: scores {scores[1].tolist()}, max rel err "
+                f"{rel:.2e}; card launches (K3, K4, K5) {counts}")
+            if counts != want:
+                raise AssertionError(f"small likelihood T={t}: launches "
+                                     f"(K3, K4, K5) {counts}, expected "
+                                     f"{want}")
+            if not rel <= 1e-4 or not bool(torch.isfinite(scores[1]).all()):
+                raise AssertionError(f"small likelihood T={t}: the card and "
+                                     "the CPU disagree")
+            if t == 300:
+                k4_launches = counts[1]
+    return k4_launches
+
+
+SCORE_SHORT, SCORE_LONG = 64, 128   # utterances of 5-20 s, then 5-35 s
+SCORE_BATCH = 64                    # the infer config's batch_size
+
+
+def scoring_frames(rng):
+    """The synthetic corpus's lengths in 50 Hz frames, drawn uniformly
+    (a length mix made to run both attention routes, not a measured
+    corpus's): 64 of 250-1000 (5-20 s), then 128 of 250-1750 (5-35 s),
+    each long batch holding one of exactly 1750."""
+    import numpy as np
+
+    frames = np.concatenate([rng.randint(250, 1001, SCORE_SHORT),
+                             rng.randint(250, 1751, SCORE_LONG)])
+    frames[SCORE_SHORT] = frames[SCORE_SHORT + SCORE_BATCH] = 1750
+    return frames
+
+
+def scoring_batches(seed: int = 0):
+    """The frame lengths of each batch the scoring path reads from the
+    corpus of ``seed`` (sequential sampler, no utterance filtered out)."""
+    import numpy as np
+
+    frames = [int(f) for f in scoring_frames(np.random.RandomState(seed))]
+    return [frames[i:i + SCORE_BATCH]
+            for i in range(0, len(frames), SCORE_BATCH)]
+
+
+def write_scoring_corpus(root: str, seed: int = 0) -> float:
+    """192 WAVs (16 kHz, 16-bit) from ``seed`` and a ``tokens.txt`` of
+    random token ids at 50 Hz, of the lengths ``scoring_frames`` draws.
+    Every duration is a whole number of 20 ms frames, so an utterance's
+    mel frames equal its tokens.  Returns the seconds of audio."""
+    import numpy as np
+
+    from vae_gslm_tpu_torch.data import audio
+
+    rng = np.random.RandomState(seed)
+    frames = scoring_frames(rng)
+    lines = []
+    for i, nf in enumerate(frames):
+        n = int(nf) * 320
+        t = np.arange(n, dtype=np.float32) / 16000.0
+        f0 = rng.uniform(90, 250)
+        wave = sum(rng.uniform(0.02, 0.1) / h
+                   * np.sin(2 * np.pi * h * f0 * t + rng.uniform(0, 6.3))
+                   for h in range(1, 6))
+        wave = (wave * (0.6 + 0.4 * np.sin(2 * np.pi * 3.1 * t))
+                + 0.01 * rng.randn(n)).astype(np.float32)
+        name = f"utt{i:03d}.wav"
+        audio.save_wav(os.path.join(root, name), wave, 16000)
+        lines.append(f"{name}|{' '.join(map(str, rng.randint(0, 200, nf)))}")
+    with open(os.path.join(root, "tokens.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return float(frames.sum()) / 50.0
+
+
+SCORE_INFER_YAML = """
+identifier: "inference.speech.likelihood.LikelihoodEstimator"
+ckpt_path: "{ckpt}"
+model: {{identifier: "models.speech.lvtr.LVTR"}}
+data:
+    path: "{corpus}/tokens.txt"
+    wavdir: "{corpus}"
+    sample_rate: 16000
+    with_text: false
+    with_tokens: true
+    batch_size: 64
+    num_workers: 8
+    min_audio_length: 5.0
+    bits_per_second: 32000
+    pad: {{multiple_of: 320, mode: "constant"}}
+    sampler: {{type: "standard", shuffle: false}}
+trainer: {{distributed: false}}
+"""
+
+
+def phase_score(dev, gpu: str, seed: int = 0) -> int:
+    """The scoring path at full width: ``LikelihoodEstimator`` on the
+    LVTR of ``configs/train/speech/vae-gslm.yaml`` (weights from seed 0,
+    saved by the port's ``save_compact`` with the train config as
+    ``hp.yaml``) and the 80-bin vocoder directory, over a synthetic
+    corpus of 192 WAVs with the infer config's data settings (batch 64,
+    ``min_audio_length`` 5.0, padding to a multiple of 320 samples;
+    ``bits_per_second`` 32000, the rate of 16-bit 16 kHz WAV), float32
+    with TF32 off.  One warm-up batch, then the whole corpus with the
+    kernels' counts set to 0 just before each batch and read just after:
+    exactly 16 K3 launches per batch padded to <= 1024 frames, exactly
+    16 K5 launches per batch past it, no K4 launch and no plain version
+    (both refused); finite scores, all <= 0.  Then one profiled batch
+    past 1024 frames.  Returns the K5 launches of the scored corpus."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.inference.speech.likelihood import \
+        LikelihoodEstimator
+    from vae_gslm_tpu_torch.models.speech.lvtr import LVTR
+    from vae_gslm_tpu_torch.models.vocoder.vocoder import HiFiGAN
+    from vae_gslm_tpu_torch.nn import attention as attn_mod
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+    from vae_gslm_tpu_torch.training.checkpoint import save_compact
+
+    tmp = tempfile.mkdtemp(prefix="score_")
+    saved = (fa.flash_forward_packed_plain, fa.flash_forward_tiled_plain,
+             fa.flash_forward_full_plain, fa.flash_forward_full,
+             fa.attention_reference, attn_mod.attend)
+
+    def refuse(what):
+        def fn(*a, **k):
+            raise AssertionError(f"the scoring path reached {what} on the "
+                                 "card")
+        return fn
+
+    try:
+        with precision.policy_scope(precision.Policy()):
+            corpus, voc, ckpt = (os.path.join(tmp, n)
+                                 for n in ("corpus", "voc", "ckpt"))
+            for dname in (corpus, ckpt):
+                os.makedirs(dname)
+            t0 = time.perf_counter()
+            audio_s = write_scoring_corpus(corpus, seed)
+            t1 = time.perf_counter()
+            HiFiGAN(Hparams.from_yamlfile(VOCODER_YAML), device=dev,
+                    generator=torch.Generator(dev).manual_seed(1)
+                    ).save_pretrained(voc)
+            hp = Hparams.from_yamlfile(TRAIN_YAML)
+            hp.vocoder.path = voc
+            model = LVTR(hp.model, input_dim=80, device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed))
+            nparams = sum(p.numel() for p in model.parameters())
+            save_compact(model, os.path.join(ckpt, "last-cpt.npz"))
+            hp.save(os.path.join(ckpt, "hp.yaml"))
+            del model
+            t2 = time.perf_counter()
+            est = LikelihoodEstimator(Hparams.from_yaml(SCORE_INFER_YAML.format(
+                ckpt=ckpt, corpus=corpus)), device=dev)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            log(f"score: corpus of {SCORE_SHORT + SCORE_LONG} WAVs "
+                f"({audio_s:.1f} s of audio) written in {t1 - t0:.1f} s; "
+                f"LVTR {nparams / 1e6:.1f} M parameters saved with "
+                f"save_compact in {t2 - t1:.1f} s; LikelihoodEstimator "
+                f"(checkpoint and vocoder loaded strictly) built in "
+                f"{t3 - t2:.1f} s")
+            (fa.flash_forward_packed_plain, fa.flash_forward_tiled_plain,
+             fa.flash_forward_full_plain, fa.flash_forward_full,
+             fa.attention_reference, attn_mod.attend) = (
+                refuse("the plain K3"), refuse("the plain K5"),
+                refuse("the plain K4"), refuse("K4"),
+                refuse("the dense attention reference"),
+                refuse("the dense attention"))
+            step, per_batch = est.test_step, []
+
+            def counted(batch, generator):
+                fa.flash_forward_packed.launches = 0
+                fa.flash_forward_tiled.launches = 0
+                out = step(batch, generator)
+                per_batch.append((int(batch["tokens"].value.shape[1]),
+                                  fa.flash_forward_packed.launches,
+                                  fa.flash_forward_tiled.launches,
+                                  batch["tokens"].lengths.tolist()))
+                return out
+
+            est.test_step = counted
+            est.run(seed=seed, max_batches=1)          # warm-up
+            per_batch.clear()
+            torch.cuda.reset_peak_memory_stats()
+            timings = {}
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            scores = est.run(seed=seed, timings=timings)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t4
+            peak = torch.cuda.max_memory_allocated()
+            for i, (t, k3n, k5n, _) in enumerate(per_batch):
+                log(f"score batch {i}: padded to {t} frames, K3 launches "
+                    f"{k3n}, K5 launches {k5n}")
+                want = (16, 0) if t <= 1024 else (0, 16)
+                if (k3n, k5n) != want:
+                    raise AssertionError(f"batch {i} ({t} frames): (K3, K5) "
+                                         f"launches {(k3n, k5n)}, expected "
+                                         f"{want}")
+            batches = scoring_batches(seed)
+            if [(t, lens) for t, _, _, lens in per_batch] != [
+                    (max(lens), lens) for lens in batches] \
+                    or not any(max(lens) > 1024 for lens in batches):
+                raise AssertionError(
+                    f"batches padded to {[b[0] for b in per_batch]} frames: "
+                    "expected the padded lengths and lengths that phases 5 "
+                    f"and 5b hold K3 and K5 at ({[max(x) for x in batches]}"
+                    "), one past 1024 frames or more")
+            n = SCORE_SHORT + SCORE_LONG
+            if scores.shape != (n,) or not np.isfinite(scores).all() \
+                    or not (scores <= 0).all():
+                raise AssertionError(f"scores: shape {scores.shape}, finite "
+                                     f"{np.isfinite(scores).all()}, max "
+                                     f"{scores.max()}")
+            log(f"score: {n} utterances ({audio_s:.1f} s of audio) in "
+                f"{wall:.3f} s: {n / wall:.2f} utterances/s, "
+                f"{audio_s / wall:.1f} s of audio scored per wall second; "
+                f"model {timings['model']:.3f} s, data (waiting for the "
+                f"loader) {timings['data']:.3f} s; peak memory "
+                f"{peak / 2 ** 30:.2f} GiB ({gpu}); scores mean "
+                f"{scores.mean():.4f}, range {scores.min():.4f} to "
+                f"{scores.max():.4f}")
+            k5_launches = sum(b[2] for b in per_batch)
+
+            batches = iter(est.test_dataloader())
+            next(batches)
+            long_batch = next(batches)
+            batches.close()
+            g = torch.Generator(dev).manual_seed(seed)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t5 = time.perf_counter()
+                step(long_batch, g)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t5) * 1e3
+            # The loader's threads issue the mel kernels on the stream the
+            # model uses, so kernels of prefetched batches fall inside the
+            # model time; one loader pass alone says how much they are.
+            with profile(activities=[ProfilerActivity.CUDA]) as dprof:
+                t6 = time.perf_counter()
+                for _ in est.test_dataloader():
+                    pass
+                torch.cuda.synchronize()
+                data_wall = time.perf_counter() - t6
+    finally:
+        (fa.flash_forward_packed_plain, fa.flash_forward_tiled_plain,
+         fa.flash_forward_full_plain, fa.flash_forward_full,
+         fa.attention_reference, attn_mod.attend) = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    data_busy = sum(e.self_device_time_total
+                    for e in dprof.key_averages()) / 1e3
+    log(f"score data path alone (one loader pass over the corpus, no model, "
+        f"profiler on): wall {data_wall:.3f} s, device busy {data_busy:.1f} "
+        f"ms, the most of the model time above that is mel work of "
+        f"prefetched batches ({gpu})")
+    kernels = [(e.self_device_time_total / 1e3, e.count, e.key)
+               for e in prof.key_averages() if e.self_device_time_total > 0]
+    if not kernels:
+        log("score batch profile: device time not measured (the profiler "
+            "recorded no kernel)")
+        return k5_launches
+    busy = sum(k[0] for k in kernels)
+    k5 = sum(k[0] for k in kernels if "k5_fwd" in k[2])
+    log(f"score batch profile (B=64, {long_batch['tokens'].value.shape[1]} "
+        f"frames, profiler on): wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms ({busy / wall_ms:.1%}), K5 {k5:.1f} ms "
+        f"({k5 / busy:.1%} of busy), {sum(k[1] for k in kernels)} device "
+        f"ops ({gpu})")
+    for ms, cnt, name in sorted(kernels, reverse=True)[:10]:
+        log(f"  {ms:.3f} ms, {cnt}x: {name[:90]}")
+    return k5_launches
+
+
 def main() -> int:
     # keep CUPTI set up between profiler windows (torch's own workaround
     # for its re-initialisation, which has left windows with no kernel)
@@ -1233,12 +1840,17 @@ def main() -> int:
 
     from concurrent.futures import ThreadPoolExecutor
 
+    from vae_gslm_tpu_torch.data import native
     from vae_gslm_tpu_torch.ops import build
     names = ("fused_decode", "mega_step", "flash_attention")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
-        list(pool.map(build.load, names))
-    log(f"build: {', '.join(n + '.cu' for n in names)} in "
+    with ThreadPoolExecutor(len(names) + 1) as pool:   # one nvcc per source
+        jobs = [pool.submit(build.load, n) for n in names]
+        jobs.append(pool.submit(native.get_lib))   # g++ of native/dataio.cc
+        for job in jobs:
+            job.result()
+    log(f"build: {', '.join(n + '.cu' for n in names)} (K1, K2, "
+        f"K3/K3b/K4/K5) and native/dataio.cc in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, (sec, text) in build.BUILD_LOG.items():
         log(f"nvcc {name} ({sec:.1f} s): "
@@ -1248,14 +1860,17 @@ def main() -> int:
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
     k3, k3b = phase_k3(dev)
+    k4, k5 = phase_k45(dev)
     phase_small(dev, quantize=False)
     phase_small(dev, quantize=True)
     phase_train_small(dev)
+    k4["launches"] = phase_likelihood_small(dev)
     k1["launches"] = phase_pipeline(dev, gpu, quantize=False)
     k2["launches"] = phase_pipeline(dev, gpu, quantize=True)
     k3["launches"], k3b["launches"] = phase_train(dev, gpu)
+    k5["launches"] = phase_score(dev, gpu)
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3, k3b]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k3b, k4, k5]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

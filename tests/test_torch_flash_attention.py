@@ -1,15 +1,18 @@
-"""The port's packed flash attention (K3/K3b) against the JAX package.
+"""The port's flash attention (K3/K3b, K4, K5) against the JAX package.
 
 On the CPU the port runs its plain versions; the JAX
-``flash_attention_packed`` runs its off-TPU route
-(``_attention_reference`` forward, ``jax.vjp`` of it backward).  q/k/v
-are non-contiguous views of one qkv projection, as the model hands them
-over.  Tolerances: float32 forward 1e-6 absolute; bfloat16 inputs within
-one bfloat16 ulp of the output; the log-sum-exp to 1e-5; the backward
-rtol 1e-4 / atol 1e-5 (the port's K3b formula from the saved O and LSE
-against autograd of the dense reference: the same math in another
-order).  The ``cuda`` cases hold the kernels against the plain versions
-on a card and skip without one."""
+``flash_attention_packed`` and ``flash_attention`` run their off-TPU
+route (``_attention_reference`` forward, ``jax.vjp`` of it backward),
+which is also the oracle of the Pallas kernels K4 ``_flash_forward_full``
+and K5 ``_flash_forward``.  q/k/v are non-contiguous views of one qkv
+projection, as the model hands them over.  Tolerances: float32 forward
+1e-6 absolute (2e-6 at T = 1100, where a row sums more terms); bfloat16
+inputs within one bfloat16 ulp of the output; the log-sum-exp to 1e-5;
+the backward rtol 1e-4 / atol 1e-5 (the port's K3b formula from the
+saved O and LSE, or autograd of the port's dense reference, against
+``jax.vjp`` of JAX's: the same math in another order).  The ``cuda``
+cases hold the kernels against the plain versions on a card and skip
+without one."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,12 +21,15 @@ import torch
 from jax.scipy.special import logsumexp
 
 from vae_gslm_tpu.ops.flash_attention import (
+    _attention_reference as jax_reference)
+from vae_gslm_tpu.ops.flash_attention import (
     flash_attention_packed as jax_flash_packed)
 from vae_gslm_tpu_torch.nn.positions import alibi_slopes
 from vae_gslm_tpu_torch.ops.flash_attention import (
     FlashAttentionPacked, flash_attention_packed, flash_backward_packed,
-    flash_backward_packed_plain, flash_forward_packed,
-    flash_forward_packed_plain)
+    flash_backward_packed_plain, flash_forward_full, flash_forward_full_plain,
+    flash_forward_packed, flash_forward_packed_plain, flash_forward_tiled,
+    flash_forward_tiled_plain, packed_eligible)
 
 LENGTHS = [37, 20, 1]
 SHAPES = {"d16": (3, 37, 4, 16), "d64": (3, 37, 2, 64)}
@@ -127,13 +133,10 @@ def test_plain_backward_matches_jax_vjp(shape, alibi):
                                    atol=1e-5, err_msg=name)
 
 
-@pytest.mark.parametrize("alibi", [True, False])
-def test_autograd_function_gradcheck(alibi):
-    """float64, T = 9: the K3b formula is the exact gradient of K3."""
-    b, t, h, d = 3, 9, 2, 4
-    rng = np.random.RandomState(4)
+def _gradcheck(b, t, h, d, lengths, alibi, seed):
+    rng = np.random.RandomState(seed)
     qkv = torch.from_numpy(rng.randn(b, t, 3 * h * d)).requires_grad_()
-    lengths = torch.tensor([9, 5, 1], dtype=torch.int32)
+    lengths = torch.tensor(lengths, dtype=torch.int32)
     slopes = (-torch.tensor(alibi_slopes(h), dtype=torch.float32)
               if alibi else None)
 
@@ -141,7 +144,24 @@ def test_autograd_function_gradcheck(alibi):
         q, k, v = x.chunk(3, dim=-1)
         return FlashAttentionPacked.apply(q, k, v, lengths, slopes, True, h)
 
-    assert torch.autograd.gradcheck(fn, (qkv,), eps=1e-6, atol=1e-7)
+    return torch.autograd.gradcheck(fn, (qkv,), eps=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("alibi", [True, False])
+def test_autograd_function_gradcheck(alibi):
+    """float64, T = 9, two heads of 64 (inside the packed envelope): the
+    K3b formula is the exact gradient of K3."""
+    assert packed_eligible(torch.zeros(2, 9, 128), torch.zeros(2, 9, 128), 2)
+    assert _gradcheck(2, 9, 2, 64, [9, 1], alibi, seed=4)
+
+
+@pytest.mark.parametrize("alibi", [True, False])
+def test_dense_backward_gradcheck(alibi):
+    """float64, T = 9, two heads of 4 (no 128-lane grouping: off the
+    packed envelope): the recomputed dense backward is the exact gradient
+    of the K4 forward."""
+    assert not packed_eligible(torch.zeros(3, 9, 8), torch.zeros(3, 9, 8), 2)
+    assert _gradcheck(3, 9, 2, 4, [9, 5, 1], alibi, seed=8)
 
 
 def test_wrapper_takes_plain_version_on_cpu():
@@ -164,11 +184,139 @@ def test_wrapper_takes_plain_version_on_cpu():
             flash_backward_packed.launches) == before
 
 
+def _bhtd(rng, b, h, t, d):
+    return rng.randn(b, h, t, d).astype(np.float32)
+
+
+def _jax_ref(q, k, v, lengths, slopes, causal):
+    return np.asarray(jax_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        jnp.asarray(slopes) if slopes is not None else None, causal))
+
+
+def _t(x):
+    return torch.from_numpy(x) if x is not None else None
+
+
+K5_CASES = {   # name: (B, H, Tq, Tk, D, lengths, causal)
+    "self_1100": (4, 2, 1100, 1100, 16, [1100, 0, 1, 777], True),
+    "cross_96x256": (3, 2, 96, 256, 16, [256, 0, 131], False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+@pytest.mark.parametrize("alibi", [True, False])
+def test_k5_plain_matches_jax_reference(case, alibi):
+    """K5's plain version against JAX's ``_attention_reference`` (the
+    oracle of ``_flash_forward``): causal self-attention past the 1024
+    envelope with rows of length 0 (uniform over all keys) and 1, and a
+    Tq != Tk non-causal case, as JAX's own test runs it."""
+    b, h, tq, tk, d, lengths, causal = K5_CASES[case]
+    rng = np.random.RandomState(10)
+    q, k, v = _bhtd(rng, b, h, tq, d), _bhtd(rng, b, h, tk, d), \
+        _bhtd(rng, b, h, tk, d)
+    slopes = -np.asarray(alibi_slopes(h), np.float32) if alibi else None
+    lengths = np.asarray(lengths, np.int32)
+    want = _jax_ref(q, k, v, lengths, slopes, causal)
+    got = flash_forward_tiled_plain(_t(q), _t(k), _t(v), _t(lengths),
+                                    _t(slopes), causal)
+    assert got.shape == (b, h, tq, d) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6)
+    # the length-0 row is uniform over all Tk keys
+    np.testing.assert_allclose(got[1].numpy(),
+                               np.broadcast_to(v[1].mean(1, keepdims=True),
+                                               (h, tq, d)), atol=1e-5)
+    wrapped = flash_forward_tiled(_t(q), _t(k), _t(v), _t(lengths),
+                                  _t(slopes), causal)
+    np.testing.assert_array_equal(wrapped.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("alibi", [True, False])
+def test_k4_plain_matches_jax_reference(alibi):
+    """K4's plain version at T = 300 (three heads: no packed grouping)
+    against ``_attention_reference``; its lse against JAX's logsumexp of
+    the masked logits."""
+    b, h, t, d = 3, 3, 300, 16
+    rng = np.random.RandomState(11)
+    q, k, v = (_bhtd(rng, b, h, t, d) for _ in range(3))
+    slopes = -np.asarray(alibi_slopes(h), np.float32) if alibi else None
+    lengths = np.asarray([300, 1, 0], np.int32)
+    want = _jax_ref(q, k, v, lengths, slopes, True)
+    got, lse = flash_forward_full_plain(_t(q), _t(k), _t(v), _t(lengths),
+                                        _t(slopes), True, with_stats=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    logits = jnp.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(d)
+    pos = jnp.arange(t)
+    if alibi:
+        logits = logits + (jnp.asarray(slopes)[:, None, None]
+                           * jnp.abs(pos[None, :] - pos[:, None])[None])
+    mask = ((pos[None, None, None, :] < jnp.asarray(lengths)[:, None, None,
+                                                             None])
+            & (pos[None, :] <= pos[:, None])[None, None])
+    want_lse = np.asarray(logsumexp(jnp.where(mask, logits, -1e30), axis=-1))
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(
+        flash_forward_full(_t(q), _t(k), _t(v), _t(lengths), _t(slopes),
+                           True).numpy(), got.numpy())
+
+
+OFF_ENVELOPE = {   # name: (B, T, H, D, lengths): K5 past 1024, K4 odd heads
+    "k5_T1100": (2, 1100, 2, 16, [1100, 1]),
+    "k4_3heads": (3, 300, 3, 64, [300, 0, 149]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OFF_ENVELOPE))
+@pytest.mark.parametrize("alibi", [True, False])
+def test_off_envelope_packed_matches_jax_vjp(case, alibi):
+    """``flash_attention_packed`` off the packed envelope (T = 1100, or
+    three heads of 64 at T = 300): the K5/K4 forward and the recomputed
+    dense backward against JAX's ``flash_attention_packed`` and its
+    ``jax.vjp``."""
+    b, t, h, d, lengths = OFF_ENVELOPE[case]
+    qkv, g, slopes = _inputs((b, t, h, d), seed=12)
+    lengths = np.asarray(lengths, np.int32)
+    jslopes = jnp.asarray(slopes) if alibi else None
+    jq, jk, jv = _jax_split(qkv)
+    want, vjp = jax.vjp(lambda q, k, v: jax_flash_packed(
+        q, k, v, jnp.asarray(lengths), jslopes, True, h), jq, jk, jv)
+    want_grads = vjp(jnp.asarray(g))
+    x = torch.from_numpy(qkv).requires_grad_()
+    q, k, v = x.chunk(3, dim=-1)
+    assert not packed_eligible(q, k, h)
+    before = (flash_forward_packed.launches, flash_forward_full.launches,
+              flash_forward_tiled.launches)
+    out = flash_attention_packed(q, k, v, torch.from_numpy(lengths),
+                                 torch.from_numpy(slopes) if alibi else None,
+                                 True, h)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=2e-6)
+    out.backward(torch.from_numpy(g))
+    got = x.grad.chunk(3, dim=-1)
+    for name, gt, wt in zip(("dq", "dk", "dv"), got, want_grads):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(wt), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+    assert (flash_forward_packed.launches, flash_forward_full.launches,
+            flash_forward_tiled.launches) == before
+
+
+def test_packed_eligible_matches_jax():
+    from vae_gslm_tpu.ops.flash_attention import _packed_eligible
+
+    for t, hd, h in ((640, 1024, 16), (1024, 1024, 16), (1025, 1024, 16),
+                     (300, 192, 3), (37, 64, 4), (37, 128, 2), (9, 256, 1)):
+        x = np.zeros((1, t, hd), np.float32)
+        assert packed_eligible(torch.from_numpy(x), torch.from_numpy(x),
+                               h) == _packed_eligible(jnp.asarray(x),
+                                                      jnp.asarray(x), h)
+
+
 # ----------------------------------------------------------------- card
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("the K3/K3b CUDA kernels need an NVIDIA GPU (sm_90a)")
+        pytest.skip("the flash attention CUDA kernels need an NVIDIA GPU "
+                    "(sm_90a)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -227,3 +375,75 @@ def test_cuda_raises_outside_the_envelope(cuda_device):
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=cuda_device)
     with pytest.raises(NotImplementedError, match="K4"):
         flash_attention_packed(q, k, v, lengths, None, True, 4)
+
+
+def _close_bhtd(got, want, bf16):
+    """f32: 1e-5 max(1, max|ref|); bf16: 1e-2 max|ref|, element by element
+    2 bf16 ulps + 1e-2 rms(ref), relative L2 1e-3."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    tol = 1e-2 if bf16 else 1e-5
+    assert diff.max().item() <= tol * max(0.0 if bf16 else 1.0,
+                                          want.abs().max().item())
+    if bf16:
+        _, e = torch.frexp(want)
+        ulp = torch.where(want == 0, torch.zeros_like(want),
+                          torch.ldexp(torch.ones_like(want), e - 8))
+        assert (diff <= 2 * ulp + tol * want.pow(2).mean().sqrt()).all()
+        assert diff.norm() <= 1e-3 * want.norm()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k4", "k5_self", "k5_cross"])
+@pytest.mark.parametrize("alibi", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_k4_k5_match_plain(cuda_device, case, alibi, dtype):
+    """K4 at T = 300 and K5 at T = 1100 and 96 x 256 (non-causal), from
+    strided views of a packed projection, against their plain versions;
+    lengths down to 0 and 1."""
+    b, h, d = 3, 3, 64
+    tq, tk, causal, fn = {"k4": (300, 300, True, flash_forward_full),
+                          "k5_self": (1100, 1100, True, flash_forward_tiled),
+                          "k5_cross": (96, 256, False, flash_forward_tiled)
+                          }[case]
+    g = torch.Generator(cuda_device).manual_seed(9)
+    xq = torch.randn((b, tq, h * d), generator=g, device=cuda_device)
+    xkv = torch.randn((b, tk, 2 * h * d), generator=g, device=cuda_device)
+    q = xq.to(dtype).view(b, tq, h, d).transpose(1, 2)
+    k, v = (x.view(b, tk, h, d).transpose(1, 2)
+            for x in xkv.to(dtype).chunk(2, dim=-1))
+    lengths = torch.tensor([tk, 1, 0], dtype=torch.int32, device=cuda_device)
+    slopes = (-torch.tensor(alibi_slopes(h), device=cuda_device)
+              if alibi else None)
+    plain = (flash_forward_full_plain if fn is flash_forward_full
+             else flash_forward_tiled_plain)
+    before = fn.launches
+    got = fn(q, k, v, lengths, slopes, causal)
+    want = plain(q, k, v, lengths, slopes, causal)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and got.shape == want.shape
+    _close_bhtd(got, want, dtype == torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_packed_past_1024_launches_k5(cuda_device):
+    """On CUDA ``flash_attention_packed`` no longer raises for T > 1024 at
+    head_dim 64: K5 forward, dense backward, both against the CPU."""
+    b, t, h, d = 2, 1100, 2, 64
+    qkv, g, slopes = _inputs((b, t, h, d), seed=13)
+    lengths = torch.tensor([1100, 1], dtype=torch.int32)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        x = torch.from_numpy(qkv).to(dev).requires_grad_()
+        out = flash_attention_packed(*x.chunk(3, dim=-1), lengths.to(dev),
+                                     torch.from_numpy(slopes).to(dev), True,
+                                     h)
+        out.backward(torch.from_numpy(g).to(dev))
+        runs.append((out.detach().cpu(), x.grad.cpu()))
+    before = flash_forward_tiled.launches
+    x = torch.from_numpy(qkv).to(cuda_device)
+    flash_attention_packed(*x.chunk(3, dim=-1), lengths.to(cuda_device),
+                           None, True, h)
+    assert flash_forward_tiled.launches == before + 1
+    torch.testing.assert_close(runs[1][0], runs[0][0], rtol=0, atol=1e-5)
+    torch.testing.assert_close(runs[1][1], runs[0][1], rtol=1e-4, atol=1e-5)

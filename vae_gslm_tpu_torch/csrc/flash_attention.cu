@@ -1,9 +1,22 @@
-// K3 / K3b: causal, length-masked ALiBi self-attention over the packed
-// (B, T, H*D) projection layout, forward and backward, for sm_90a.
+// K3 / K3b / K4 / K5: length-masked ALiBi attention, forward and backward,
+// for sm_90a.
 //
 // Replaces the Pallas kernels of vae_gslm_tpu/ops/flash_attention.py:
 //   K3  _flash_forward_full_packed (:230, body _fwd_full_packed_kernel :189)
 //   K3b _flash_backward_packed     (:359, body _bwd_full_packed_kernel :272)
+//   K4  _flash_forward_full        (:406, body _fwd_full_kernel :111)
+//   K5  _flash_forward             (:443, body _flash_kernel :69)
+// K3/K3b take causal self-attention over the packed (B, T, H*D)
+// projection layout, T <= 1024.  K4 (Tq = Tk <= 1024, optional lse) and
+// K5 (any Tq, Tk up to 8192, no lse) are the (B, H, T, D) forwards that
+// JAX runs off the packed envelope: an unpackable head layout, or T past
+// 1024.  All three forwards are one tiled body (below) with an entry
+// point and kernel symbols of their own (k3_/k4_/k5_fwd[_mma]_kernel), so
+// a profile tells them apart.  Every operand is read through (batch,
+// head, row) element strides with a contiguous feature axis, so packed
+// projection views and (B, H, T, D) tensors both go in without a copy.
+// The query and key positions both count from 0 (the ALiBi distance and
+// the causal test of _flash_kernel :90-99 for Tq != Tk).
 //
 // Numerics (the plain versions in ops/flash_attention.py):
 //   s   = (q . k) * scale + slope * |k - q|, masked to -1e30 where the key
@@ -42,7 +55,10 @@
 // lengths of chip_smoke.py) the ~34 / ~66 MB the forward / backward
 // must move over HBM bandwidth (10 / 20 us on an H100 SXM) bound it more
 // than their causal, length-masked products (4.7 / 11.8 GFLOP at the
-// bf16 peak).
+// bf16 peak).  K5 at the scoring shapes (B 8, T 1750, float32) is bound
+// by its products instead: ~50 GFLOP of causal pairs at the 67 TFLOP/s
+// float32 rate of the FMA units (~0.75 ms) against ~0.2 GB of HBM
+// traffic (~0.07 ms).
 // Both routes run far from that bound: fragments are loaded from shared
 // memory by plain loads (no ldmatrix, no TMA, no pipelining of the next
 // tile's loads), and every key tile is read twice in the forward (the
@@ -70,8 +86,8 @@ constexpr int FWD_SMEM = (3 * TT + TR) * 4;
 constexpr int DKV_SMEM = (6 * TT + 2 * TR) * 4;
 constexpr int DQ_SMEM = (5 * TT + TR) * 4;
 
-struct Seq {          // one packed (B, T, H*D) operand: element strides
-  long long bs, rs;   // batch and row; the feature axis is contiguous
+struct Seq {             // one operand's element strides: batch, head and
+  long long bs, hs, rs;  // row; the feature axis is contiguous
 };
 
 // Rows [r0, r0 + 64) of head h of one batch row into shared memory,
@@ -141,10 +157,10 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // Key tiles [0, end) that can hold a nonzero probability for query tile
-// qt: all of them for a row set of length 0.
-__device__ __forceinline__ int key_tiles(int qt, int len, int t_len,
+// qt over tk keys: all of them for a row set of length 0.
+__device__ __forceinline__ int key_tiles(int qt, int len, int tk,
                                          int causal) {
-  int end = (t_len + TILE - 1) / TILE;
+  int end = (tk + TILE - 1) / TILE;
   if (len >= 1) {
     end = min(end, (len + TILE - 1) / TILE);
     if (causal) end = min(end, qt + 1);
@@ -152,12 +168,14 @@ __device__ __forceinline__ int key_tiles(int qt, int len, int t_len,
   return end;
 }
 
-__global__ void __launch_bounds__(NT)
-    k3_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o,
-                  float* __restrict__ lse, const int* __restrict__ lengths,
-                  const float* __restrict__ slopes, Seq sq, Seq sk, Seq sv,
-                  Seq so, int t_len, int nheads, int causal, float scale) {
+// The float32 forward of one (64-query tile, head, batch): tq queries
+// against tk keys; lse (B, H, tq) is written unless it is null.
+__device__ __forceinline__ void fwd_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, const int* __restrict__ lengths,
+    const float* __restrict__ slopes, Seq sq, Seq sk, Seq sv, Seq so,
+    int tq, int tk, int nheads, int causal, float scale) {
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);
   float* Kt = Qt + TT;
@@ -168,12 +186,12 @@ __global__ void __launch_bounds__(NT)
   const int len = lengths[b];
   const int use_alibi = slopes != nullptr;
   const float slope = use_alibi ? slopes[h] : 0.f;
-  const float* qb = q + b * sq.bs + h * HD;
-  const float* kb = k + b * sk.bs + h * HD;
-  const float* vb = v + b * sv.bs + h * HD;
-  const int kt_end = key_tiles(qt, len, t_len, causal);
+  const float* qb = q + b * sq.bs + h * sq.hs;
+  const float* kb = k + b * sk.bs + h * sk.hs;
+  const float* vb = v + b * sv.bs + h * sv.hs;
+  const int kt_end = key_tiles(qt, len, tk, causal);
 
-  load_t(Qt, qb, sq.rs, q0, t_len);
+  load_t(Qt, qb, sq.rs, q0, tq);
   float m[4], l[4], s[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
@@ -182,7 +200,7 @@ __global__ void __launch_bounds__(NT)
   for (int kt = 0; kt < kt_end; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();
-    load_t(Kt, kb, sk.rs, k0, t_len);
+    load_t(Kt, kb, sk.rs, k0, tk);
     __syncthreads();
     zero(s);
     outer(Qt, LD, Kt, LD, s, ty, tx);
@@ -193,9 +211,9 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = k0 + tx * 4 + j;
-        s[i][j] = c < t_len ? logit(s[i][j], r, c, len, causal, use_alibi,
-                                    slope, scale)
-                            : -INFINITY;
+        s[i][j] = c < tk ? logit(s[i][j], r, c, len, causal, use_alibi,
+                                 slope, scale)
+                         : -INFINITY;
         tmax = fmaxf(tmax, s[i][j]);
       }
       const float m_new = fmaxf(m[i], row_max(tmax));
@@ -213,8 +231,8 @@ __global__ void __launch_bounds__(NT)
   for (int kt = 0; kt < kt_end; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();
-    load_t(Kt, kb, sk.rs, k0, t_len);
-    load_r(Vs, vb, sv.rs, k0, t_len);
+    load_t(Kt, kb, sk.rs, k0, tk);
+    load_r(Vs, vb, sv.rs, k0, tk);
     __syncthreads();
     zero(s);
     outer(Qt, LD, Kt, LD, s, ty, tx);
@@ -225,7 +243,7 @@ __global__ void __launch_bounds__(NT)
       for (int j = 0; j < 4; ++j) {
         const int c = k0 + tx * 4 + j;
         float p = 0.f;
-        if (c < t_len) {
+        if (c < tk) {
           const float x = logit(s[i][j], r, c, len, causal, use_alibi,
                                 slope, scale);
           p = __fdiv_rn(expf(x - m[i]), l[i]);
@@ -237,16 +255,36 @@ __global__ void __launch_bounds__(NT)
     outer(Pt, LD, Vs, HD, acc, ty, tx);
   }
 
-  float* ob = o + b * so.bs + h * HD;
-  float* lb = lse + ((long long)b * nheads + h) * t_len;
+  float* ob = o + b * so.bs + h * so.hs;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
-    if (r >= t_len) continue;
+    if (r >= tq) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) ob[r * so.rs + tx * 4 + j] = acc[i][j];
-    if (tx == 0) lb[r] = m[i] + logf(l[i]);
+    if (lse && tx == 0)
+      lse[((long long)b * nheads + h) * tq + r] = m[i] + logf(l[i]);
   }
+}
+
+#define FWD_F32_ARGS                                                      \
+  const float *__restrict__ q, const float *__restrict__ k,               \
+      const float *__restrict__ v, float *__restrict__ o,                 \
+      float *__restrict__ lse, const int *__restrict__ lengths,           \
+      const float *__restrict__ slopes, Seq sq, Seq sk, Seq sv, Seq so,   \
+      int tq, int tk, int nheads, int causal, float scale
+#define FWD_PASS q, k, v, o, lse, lengths, slopes, sq, sk, sv, so, tq, tk, \
+                 nheads, causal, scale
+
+// One symbol per TPU kernel replaced (K3 packed, K4 full, K5 q-tiled).
+__global__ void __launch_bounds__(NT) k3_fwd_kernel(FWD_F32_ARGS) {
+  fwd_f32(FWD_PASS);
+}
+__global__ void __launch_bounds__(NT) k4_fwd_kernel(FWD_F32_ARGS) {
+  fwd_f32(FWD_PASS);
+}
+__global__ void __launch_bounds__(NT) k5_fwd_kernel(FWD_F32_ARGS) {
+  fwd_f32(FWD_PASS);
 }
 
 // p and ds of one (query tile, key tile) pair from the logits s and
@@ -560,14 +598,13 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-__global__ void __launch_bounds__(MT)
-    k3_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse,
-                      const int* __restrict__ lengths,
-                      const float* __restrict__ slopes, Seq sq, Seq sk,
-                      Seq sv, Seq so, int t_len, int nheads, int causal,
-                      float scale) {
+// The bfloat16 forward of one (64-query tile, head, batch), as fwd_f32.
+__device__ __forceinline__ void fwd_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o,
+    float* __restrict__ lse, const int* __restrict__ lengths,
+    const float* __restrict__ slopes, Seq sq, Seq sk, Seq sv, Seq so,
+    int tq, int tk, int nheads, int causal, float scale) {
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);
   bf16* Ks = Qs + SH;      // [key][d]: B of S = Q K^T
@@ -577,11 +614,11 @@ __global__ void __launch_bounds__(MT)
   const int len = lengths[b];
   const int use_alibi = slopes != nullptr;
   const float slope = use_alibi ? slopes[h] : 0.f;
-  const bf16* kb = k + b * sk.bs + h * HD;
-  const bf16* vb = v + b * sv.bs + h * HD;
-  const int kt_end = key_tiles(qt, len, t_len, causal);
+  const bf16* kb = k + b * sk.bs + h * sk.hs;
+  const bf16* vb = v + b * sv.bs + h * sv.hs;
+  const int kt_end = key_tiles(qt, len, tk, causal);
 
-  load_bf16(Qs, nullptr, q + b * sq.bs + h * HD, sq.rs, q0, t_len);
+  load_bf16(Qs, nullptr, q + b * sq.bs + h * sq.hs, sq.rs, q0, tq);
   __syncthreads();
   uint32_t qa[4][4], pa[4][4];
   a_frags(qa, Qs, w * 16);
@@ -590,7 +627,7 @@ __global__ void __launch_bounds__(MT)
   for (int kt = 0; kt < kt_end; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();
-    load_bf16(Ks, nullptr, kb, sk.rs, k0, t_len);
+    load_bf16(Ks, nullptr, kb, sk.rs, k0, tk);
     __syncthreads();
     zero8(s);
     mma_rows(s, qa, Ks);
@@ -600,9 +637,9 @@ __global__ void __launch_bounds__(MT)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = row0 + frag_row(e), c = k0 + frag_col(nt, e);
-        s[nt][e] = c < t_len ? logit(s[nt][e], r, c, len, causal,
-                                     use_alibi, slope, scale)
-                             : -INFINITY;
+        s[nt][e] = c < tk ? logit(s[nt][e], r, c, len, causal, use_alibi,
+                                  slope, scale)
+                          : -INFINITY;
         tmax[e >> 1] = fmaxf(tmax[e >> 1], s[nt][e]);
       }
 #pragma unroll
@@ -622,8 +659,8 @@ __global__ void __launch_bounds__(MT)
   for (int kt = 0; kt < kt_end; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();
-    load_bf16(Ks, nullptr, kb, sk.rs, k0, t_len);
-    load_bf16(nullptr, Vt, vb, sv.rs, k0, t_len);
+    load_bf16(Ks, nullptr, kb, sk.rs, k0, tk);
+    load_bf16(nullptr, Vt, vb, sv.rs, k0, tk);
     __syncthreads();
     zero8(s);
     mma_rows(s, qa, Ks);
@@ -633,7 +670,7 @@ __global__ void __launch_bounds__(MT)
       for (int e = 0; e < 4; ++e) {
         const int r = row0 + frag_row(e), c = k0 + frag_col(nt, e);
         float p = 0.f;
-        if (c < t_len) {
+        if (c < tk) {
           const float x = logit(s[nt][e], r, c, len, causal, use_alibi,
                                 slope, scale);
           p = __fdiv_rn(expf(x - m[e >> 1]), l[e >> 1]);
@@ -644,18 +681,35 @@ __global__ void __launch_bounds__(MT)
     mma_rows(acc, pa, Vt);
   }
 
-  bf16* ob = o + b * so.bs + h * HD;
-  float* lb = lse + ((long long)b * nheads + h) * t_len;
+  bf16* ob = o + b * so.bs + h * so.hs;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int r = row0 + frag_row(2 * hr);
-    if (r >= t_len) continue;
+    if (r >= tq) continue;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
       *reinterpret_cast<uint32_t*>(ob + r * so.rs + frag_col(nt, 0)) =
           pack(acc[nt][2 * hr], acc[nt][2 * hr + 1]);
-    if ((threadIdx.x & 3) == 0) lb[r] = m[hr] + logf(l[hr]);
+    if (lse && (threadIdx.x & 3) == 0)
+      lse[((long long)b * nheads + h) * tq + r] = m[hr] + logf(l[hr]);
   }
+}
+
+#define FWD_MMA_ARGS                                                      \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k,                 \
+      const bf16 *__restrict__ v, bf16 *__restrict__ o,                   \
+      float *__restrict__ lse, const int *__restrict__ lengths,           \
+      const float *__restrict__ slopes, Seq sq, Seq sk, Seq sv, Seq so,   \
+      int tq, int tk, int nheads, int causal, float scale
+
+__global__ void __launch_bounds__(MT) k3_fwd_mma_kernel(FWD_MMA_ARGS) {
+  fwd_mma(FWD_PASS);
+}
+__global__ void __launch_bounds__(MT) k4_fwd_mma_kernel(FWD_MMA_ARGS) {
+  fwd_mma(FWD_PASS);
+}
+__global__ void __launch_bounds__(MT) k5_fwd_mma_kernel(FWD_MMA_ARGS) {
+  fwd_mma(FWD_PASS);
 }
 
 // dk, dv of one 64-key tile, each warp 16 keys, in the transposed
@@ -839,14 +893,36 @@ __global__ void __launch_bounds__(MT)
   }
 }
 
-int launch_fwd_mma(const void* q, const void* k, const void* v, void* o,
-                   float* lse, const int* lengths, const float* slopes,
-                   Seq sq, Seq sk, Seq sv, Seq so, int B, int T_, int H,
-                   int causal, float scale, cudaStream_t stream) {
-  dim3 grid((T_ + TILE - 1) / TILE, H, B);
-  k3_fwd_mma_kernel<<<grid, MT, FWD_MMA_SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse,
-      lengths, slopes, sq, sk, sv, so, T_, H, causal, scale);
+typedef void (*FwdF32)(FWD_F32_ARGS);
+typedef void (*FwdMma)(FWD_MMA_ARGS);
+constexpr FwdF32 FWD_F32[3] = {k3_fwd_kernel, k4_fwd_kernel, k5_fwd_kernel};
+constexpr FwdMma FWD_MMA[3] = {k3_fwd_mma_kernel, k4_fwd_mma_kernel,
+                               k5_fwd_mma_kernel};
+
+// One forward launch of entry point `kid` (0: K3, 1: K4, 2: K5): one block
+// per (64-query tile, head, batch); lse may be null.
+int launch_fwd(int kid, int use_mma, const void* q, const void* k,
+               const void* v, void* o, float* lse, const int* lengths,
+               const float* slopes, Seq sq, Seq sk, Seq sv, Seq so, int B,
+               int tq, int tk, int H, int causal, float scale,
+               cudaStream_t stream) {
+  dim3 grid((tq + TILE - 1) / TILE, H, B);
+  if (use_mma) {
+    FWD_MMA[kid]<<<grid, MT, FWD_MMA_SMEM, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse,
+        lengths, slopes, sq, sk, sv, so, tq, tk, H, causal, scale);
+    return (int)cudaGetLastError();
+  }
+  static bool attr[3] = {false, false, false};
+  if (!attr[kid]) {
+    cudaFuncSetAttribute(FWD_F32[kid],
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         FWD_SMEM);
+    attr[kid] = true;
+  }
+  FWD_F32[kid]<<<grid, NT, FWD_SMEM, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
+      lengths, slopes, sq, sk, sv, so, tq, tk, H, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -867,24 +943,6 @@ int launch_bwd_mma(const void* q, const void* k, const void* v,
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, lse,
       delta, lengths, slopes, (bf16*)dq, sq, sk, sv, sg, sdq, T_, H, causal,
       scale);
-  return (int)cudaGetLastError();
-}
-
-int launch_fwd(const void* q, const void* k, const void* v, void* o,
-               float* lse, const int* lengths, const float* slopes, Seq sq,
-               Seq sk, Seq sv, Seq so, int B, int T_, int H, int causal,
-               float scale, cudaStream_t stream) {
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(k3_fwd_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         FWD_SMEM);
-    attr = true;
-  }
-  dim3 grid((T_ + TILE - 1) / TILE, H, B);
-  k3_fwd_kernel<<<grid, NT, FWD_SMEM, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
-      lengths, slopes, sq, sk, sv, so, T_, H, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -922,7 +980,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g,
 
 extern "C" {
 
-// Strides are in elements: (batch, row) of each packed operand.
+// Strides are in elements: (batch, row) of each packed operand (K3/K3b:
+// the head stride is head_dim), (batch, head, row) of each operand of K4
+// and K5.
 int flash_fwd_packed_launch(const void* q, const void* k, const void* v,
                             void* o, float* lse, const int* lengths,
                             const float* slopes, long long q_bs,
@@ -930,13 +990,42 @@ int flash_fwd_packed_launch(const void* q, const void* k, const void* v,
                             long long v_bs, long long v_rs, long long o_bs,
                             long long o_rs, int B, int T_, int H, int bf16,
                             int causal, float scale, void* stream) {
-  Seq sq{q_bs, q_rs}, sk{k_bs, k_rs}, sv{v_bs, v_rs}, so{o_bs, o_rs};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return launch_fwd_mma(q, k, v, o, lse, lengths, slopes, sq, sk, sv, so,
-                          B, T_, H, causal, scale, st);
-  return launch_fwd(q, k, v, o, lse, lengths, slopes, sq, sk, sv, so, B,
-                    T_, H, causal, scale, st);
+  Seq sq{q_bs, HD, q_rs}, sk{k_bs, HD, k_rs}, sv{v_bs, HD, v_rs};
+  Seq so{o_bs, HD, o_rs};
+  return launch_fwd(0, bf16, q, k, v, o, lse, lengths, slopes, sq, sk, sv,
+                    so, B, T_, T_, H, causal, scale, (cudaStream_t)stream);
+}
+
+// K4: Tq = Tk = T_ (<= 1024 on its path); lse (B, H, T) or null.
+int flash_fwd_full_launch(const void* q, const void* k, const void* v,
+                          void* o, float* lse, const int* lengths,
+                          const float* slopes, long long q_bs,
+                          long long q_hs, long long q_rs, long long k_bs,
+                          long long k_hs, long long k_rs, long long v_bs,
+                          long long v_hs, long long v_rs, long long o_bs,
+                          long long o_hs, long long o_rs, int B, int T_,
+                          int H, int bf16, int causal, float scale,
+                          void* stream) {
+  Seq sq{q_bs, q_hs, q_rs}, sk{k_bs, k_hs, k_rs}, sv{v_bs, v_hs, v_rs};
+  Seq so{o_bs, o_hs, o_rs};
+  return launch_fwd(1, bf16, q, k, v, o, lse, lengths, slopes, sq, sk, sv,
+                    so, B, T_, T_, H, causal, scale, (cudaStream_t)stream);
+}
+
+// K5: Tq queries against Tk keys, no lse.
+int flash_fwd_tiled_launch(const void* q, const void* k, const void* v,
+                           void* o, const int* lengths, const float* slopes,
+                           long long q_bs, long long q_hs, long long q_rs,
+                           long long k_bs, long long k_hs, long long k_rs,
+                           long long v_bs, long long v_hs, long long v_rs,
+                           long long o_bs, long long o_hs, long long o_rs,
+                           int B, int Tq, int Tk, int H, int bf16,
+                           int causal, float scale, void* stream) {
+  Seq sq{q_bs, q_hs, q_rs}, sk{k_bs, k_hs, k_rs}, sv{v_bs, v_hs, v_rs};
+  Seq so{o_bs, o_hs, o_rs};
+  return launch_fwd(2, bf16, q, k, v, o, nullptr, lengths, slopes, sq, sk,
+                    sv, so, B, Tq, Tk, H, causal, scale,
+                    (cudaStream_t)stream);
 }
 
 int flash_bwd_packed_launch(const void* q, const void* k, const void* v,
@@ -951,8 +1040,9 @@ int flash_bwd_packed_launch(const void* q, const void* k, const void* v,
                             long long dv_bs, long long dv_rs, int B, int T_,
                             int H, int bf16, int causal, float scale,
                             void* stream) {
-  Seq sq{q_bs, q_rs}, sk{k_bs, k_rs}, sv{v_bs, v_rs}, sg{g_bs, g_rs};
-  Seq sdq{dq_bs, dq_rs}, sdk{dk_bs, dk_rs}, sdv{dv_bs, dv_rs};
+  Seq sq{q_bs, HD, q_rs}, sk{k_bs, HD, k_rs}, sv{v_bs, HD, v_rs};
+  Seq sg{g_bs, HD, g_rs};
+  Seq sdq{dq_bs, HD, dq_rs}, sdk{dk_bs, HD, dk_rs}, sdv{dv_bs, HD, dv_rs};
   cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
     return launch_bwd_mma(q, k, v, g, lse, delta, lengths, slopes, dq, dk,

@@ -1,0 +1,94 @@
+"""Prefetching data loader (port of ``vae_gslm_tpu/data/loader.py``).
+
+A thread pool builds the batches ahead of the consumer (``prefetch``
+batches staged), overlapping file IO and feature extraction with the
+model; a dataset whose features run on the card issues its device work
+from these threads, asynchronously.  ``get_dataloader`` builds the
+standard sampler's loader for one process.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, Iterator, Optional
+
+from ..hparams.hp import Hparams
+from .sampler import Sampler, standard_sampler
+
+
+class DataLoader:
+    def __init__(self, dataset, sampler: Sampler,
+                 collate_fn: Optional[Callable] = None,
+                 num_workers: int = 4, prefetch: int = 4):
+        self.dataset = dataset
+        self.sampler = sampler
+        self.collate_fn = collate_fn or dataset.seq_collate
+        self.num_workers = max(1, num_workers)
+        self.prefetch = prefetch
+
+    def _make_batch(self, indices) -> Dict[str, Any]:
+        return self.collate_fn([self.dataset[i] for i in indices])
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        batch_indices = list(iter(self.sampler))
+        if not batch_indices:
+            return
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def producer():
+            # a failed batch ends the stream and is re-raised to the
+            # consumer (a dead producer would leave it waiting forever)
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    futures = [pool.submit(self._make_batch, b)
+                               for b in batch_indices]
+                    for fut in futures:
+                        if stop.is_set():
+                            for f in futures:
+                                f.cancel()
+                            return
+                        q.put(fut.result())
+                q.put(None)
+            except Exception as e:  # noqa: BLE001 (handed to the consumer)
+                q.put(e)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+    def __len__(self) -> int:
+        try:
+            return len(self.sampler)
+        except TypeError:
+            return sum(1 for _ in iter(self.sampler))
+
+
+def get_dataloader(hp: Hparams, dataset, distributed: bool = False
+                   ) -> DataLoader:
+    """The ``standard`` branch of the JAX sampler dispatch for one
+    process.  ``distributed`` and the ``bucket`` and ``concat`` samplers
+    raise until the parallel-modes and training slices port them
+    (ROADMAP.md)."""
+    hp.check_arg_in_hparams("num_workers", "sampler", "batch_size")
+    if distributed:
+        raise NotImplementedError("distributed data loading is not ported "
+                                  "yet (ROADMAP.md, parallel modes)")
+    if hp.sampler.type != "standard":
+        raise NotImplementedError(f"the {hp.sampler.type!r} sampler is not "
+                                  "ported yet (ROADMAP.md); the port has "
+                                  "the 'standard' one")
+    sampler = standard_sampler(
+        len(dataset), hp.batch_size, shuffle=hp.sampler.shuffle,
+        drop_last=hp.sampler.get("drop_last", True))
+    return DataLoader(dataset, sampler, num_workers=hp.num_workers)

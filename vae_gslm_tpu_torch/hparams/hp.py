@@ -57,6 +57,10 @@ class Hparams:
     def to_dict(self) -> dict:
         return _unwrap(self)
 
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            yaml.dump(self.to_dict(), f)
+
     # -- dunder plumbing ---------------------------------------------------
     def __setattr__(self, key: str, value: Any) -> None:
         object.__setattr__(self, key, _wrap(value))

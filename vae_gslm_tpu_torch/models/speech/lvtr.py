@@ -7,8 +7,9 @@ flow, token CE, diffusion loss with the utterance embedding),
 ``encode`` (mel -> [token, latent] frames), ``encode_utterance``,
 ``step`` (the stacked prefill), ``step_hybrid`` (one AR step over the
 hybrid int8 cache), ``step_mega`` (one AR step through K2 with int8
-weights) and ``decode`` (diffusion back to mels).  ``likelihood`` and
-the other encoders wait for a later slice (ROADMAP.md).
+weights), ``decode`` (diffusion back to mels) and ``likelihood`` (the
+per-utterance pseudo-likelihood of the scoring path).  The other
+encoders wait for a later slice (ROADMAP.md).
 
 Randomness comes from one ``torch.Generator`` that the caller passes
 and that is consumed in call order: ``forward`` draws the posterior
@@ -17,7 +18,8 @@ input's posterior noise,) then the diffusion step ``t`` and noise;
 ``encode`` draws the posterior noise; ``step``/``step_hybrid``/
 ``step_mega`` draw the prior noise, then the Gumbel noise of the token
 draw; ``decode`` draws the start noise, then one noise tensor per
-diffusion step.  Token ids ride as floats in channel 0 of the frames.
+diffusion step; ``likelihood`` at temperature 0 draws the initial state
+only.  Token ids ride as floats in channel 0 of the frames.
 """
 from __future__ import annotations
 
@@ -262,6 +264,52 @@ class LVTR(nn.Module):
             "u_c": u_c,
             "ce_loss": ce_loss,
         }
+
+    def likelihood(self, x: Masked, generator: Optional[torch.Generator],
+                   temperature: float = 0.0) -> torch.Tensor:
+        """Per-utterance pseudo-likelihood (B,) of [token, mel] (or mel)
+        frames ``x``: the token log-prob per frame with tokens, else the
+        latent log-density per frame (flow-corrected with a flow).  The
+        initial AR state is the one draw from ``generator``; at
+        ``temperature`` 0 the posterior sample is its mean and no noise
+        is drawn (the prior head's sample is never used)."""
+        token_ids = None
+        if self.use_tokens:
+            tokens_id, x = x.split(1)
+            token_ids = Masked(tokens_id.value[..., 0].long(),
+                               tokens_id.lengths, 1)
+            tokens = self.token_embedding(token_ids)
+        zero = torch.zeros((), device=x.value.device)
+        q = self.encoder_head(self.encoder_net(x), generator,
+                              temperature=temperature,
+                              noise=None if temperature else zero).sample
+        shift_q = tokens + self.token_fuser(q) if self.use_tokens else q
+        init = self.initial_state(generator, x.value.shape[0])
+        shift_q = shift_q.shift_right(init.to(x.value.device)).apply_mask()
+        trunk = self.transformer(shift_q)
+        if self.use_tokens:
+            # JAX computes the latent log-density here too and discards
+            # it; the score is the token log-prob alone
+            logits = self.token_predictor(self.token_spliter(trunk))
+            logprobs = torch.log_softmax(logits.value.float(), dim=-1)
+            lp = logprobs.gather(-1, token_ids.value[..., None])[..., 0]
+            lp = torch.where(logits.mask(), lp, torch.zeros_like(lp))
+            return lp.sum(-1) / logits.lengths
+        z_given = self.prior_head(trunk, generator, noise=zero)
+        mean, logstd = z_given.mean.value, z_given.logstd.value
+        if self.transformer_flow is not None:
+            p_z = self.transformer_flow(TensorLogdet(q, 0.0), c=trunk)
+            log_p = p_z.logdet.sum(-1)[..., None] / self.latent_dim
+            log_p = (log_p - logstd - 0.5 * LOG_2PI
+                     - 0.5 * torch.exp(-2.0 * logstd)
+                     * (p_z.tensor.value - mean).square())
+            log_p = Masked(log_p, p_z.tensor.lengths, 1)
+        else:
+            log_p = Masked(-logstd - 0.5 * LOG_2PI
+                           - 0.5 * torch.exp(-2.0 * logstd)
+                           * (q.value.float() - mean).square(),
+                           z_given.mean.lengths, 1)
+        return log_p.apply_mask().value.mean(-1).sum(1) / log_p.lengths
 
     def encode_utterance(self, utterance: Masked) -> torch.Tensor:
         """The (B, embedding_dim) utterance embedding of [token, mel] or

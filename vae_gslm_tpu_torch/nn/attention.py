@@ -90,8 +90,10 @@ class SelfAttention(nn.Module):
     The full-sequence call takes the fused branch, as JAX does, when the
     layer is causal and uses ALiBi or no position bias (and
     ``use_flash`` is not switched off): ``flash_attention_packed`` over
-    views of the packed projection, K3/K3b on the card.  Otherwise the
-    dense ``attend`` with the ALiBi bias and masks."""
+    views of the packed projection, on the card K3/K3b inside the packed
+    envelope and K4 (T <= 1024, unpackable heads) or K5 (T > 1024)
+    outside it.  Otherwise the dense ``attend`` with the ALiBi bias and
+    masks."""
 
     def __init__(self, dim: int, hp: Hparams):
         super().__init__()

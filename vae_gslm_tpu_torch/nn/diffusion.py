@@ -45,13 +45,18 @@ def cosine_beta_schedule(timesteps: int, hp: Hparams) -> np.ndarray:
 
 
 def _schedule(betas: np.ndarray) -> dict:
-    """float32 schedule buffers (reference ``ddpm.py:186-218``)."""
+    """float32 schedule buffers (reference ``ddpm.py:186-218``): all
+    eleven of the JAX package's ``DiffusionSchedule``, whose sorted stack
+    is its checkpoint's ``schedule`` variable."""
     alphas = 1.0 - betas
     ac = np.cumprod(alphas)
     ac_prev = np.concatenate([[1.0], ac[:-1]])
     post_var = betas * (1.0 - ac_prev) / (1.0 - ac)
     return {k: v.astype(np.float32) for k, v in dict(
+        betas=betas,
         alphas_cumprod=ac,
+        alphas_cumprod_prev=ac_prev,
+        posterior_variance=post_var,
         sqrt_alphas_cumprod=np.sqrt(ac),
         sqrt_one_minus_alphas_cumprod=np.sqrt(1.0 - ac),
         sqrt_recip_alphas_cumprod=np.sqrt(1.0 / ac),

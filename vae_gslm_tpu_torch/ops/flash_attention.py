@@ -1,28 +1,46 @@
-"""Packed causal ALiBi self-attention for training (port of
-``flash_attention_packed`` in ``vae_gslm_tpu/ops/flash_attention.py``).
+"""Flash attention (port of ``vae_gslm_tpu/ops/flash_attention.py``).
 
-q, k, v: ``(B, T, H*D)`` in the projection's packed layout (views into
-the fused qkv projection are fine: the last axis must be contiguous);
-lengths ``(B,)`` valid key counts; slopes ``(H,)`` negative ALiBi
-slopes or None.  The TPU kernels this replaces are K3
-``_flash_forward_full_packed`` (:230) and K3b ``_flash_backward_packed``
-(:359); on the card ``csrc/flash_attention.cu`` computes them, tiled.
+Three forwards and one backward, each a CUDA kernel on the card
+(``csrc/flash_attention.cu``) with its plain PyTorch version beside it:
 
-Numerics (JAX's ``_attention_reference`` and the TPU kernels):
-``s = (q . k) / sqrt(D) + slope * |k - q|`` in float32, ``-1e30`` where
-the key is at or past ``lengths[b]`` or after the query; the softmax is
-normalized before P.V and rounded to V's dtype; the forward also returns
-``lse = m + log(sum exp(s - m))`` as ``(B, H, T)`` float32 (the port's
-own layout).  The backward recomputes ``p = exp(s - lse)``; with
-``delta = rowsum(dO * O)``: ``ds = p (dO.v - delta)`` rounded to q's
-dtype, ``dq = (ds . k) / sqrt(D)``, ``dv = round(p)^T . dO``,
-``dk = (ds^T . q) / sqrt(D)``.  The plain versions compute in float32
-(float64 for float64 inputs, for ``gradcheck``).
+- K3 ``flash_forward_packed`` (JAX ``_flash_forward_full_packed`` :230)
+  and K3b ``flash_backward_packed`` (``_flash_backward_packed`` :359):
+  causal self-attention over the packed ``(B, T, H*D)`` projection
+  layout (views into the fused qkv projection are fine: the last axis
+  must be contiguous), forward with ``lse``;
+- K4 ``flash_forward_full`` (``_flash_forward_full`` :406): the
+  ``(B, H, T, D)`` forward for Tq = Tk <= 1024, ``lse`` optional;
+- K5 ``flash_forward_tiled`` (``_flash_forward`` :443): the q-tiled
+  ``(B, H, T, D)`` forward for any Tq and Tk (up to 8192 keys on the
+  card), no ``lse``.
 
-``flash_attention_packed`` is a ``torch.autograd.Function``.  On CPU
-tensors it runs the plain versions; on CUDA tensors it always launches
-the kernels, and raises outside their envelope (T <= 1024, head_dim 64,
-float32 or bfloat16): those shapes are K4/K5's, not ported yet.
+lengths ``(B,)`` are valid key counts; slopes ``(H,)`` negative ALiBi
+slopes or None.
+
+Numerics (JAX's ``_attention_reference`` :43 and the TPU kernels):
+``s = (q . k) / sqrt(D) + slope * |k - q|`` in float32 (query and key
+positions both from 0), ``-1e30`` where the key is at or past
+``lengths[b]`` or (causal) after the query; the softmax is normalized
+before P.V and rounded to V's dtype; ``lse = m + log(sum exp(s - m))``
+as ``(B, H, Tq)`` float32 (the port's own layout).  A row of length 0 is
+uniform over all Tk keys.  The K3b backward recomputes
+``p = exp(s - lse)``; with ``delta = rowsum(dO * O)``:
+``ds = p (dO.v - delta)`` rounded to q's dtype, ``dq = (ds . k) /
+sqrt(D)``, ``dv = round(p)^T . dO``, ``dk = (ds^T . q) / sqrt(D)``.  The
+plain versions compute in float32 (float64 for float64 inputs, for
+``gradcheck``).
+
+``flash_attention_packed`` is a ``torch.autograd.Function`` that
+dispatches as JAX does.  Inside the packed envelope (JAX's
+``_packed_eligible``: a 128-lane head grouping, self-attention, T <=
+1024) it runs K3 and K3b.  Outside it the forward is K4 (Tq = Tk <=
+1024) or K5, read straight from the packed projection through strides
+(JAX relayouts to ``(B, H, T, D)``; the values are the same), and the
+backward recomputes the dense reference from q, k, v and differentiates
+it, as JAX's ``_bwd_packed`` takes ``jax.vjp`` of ``_attention_reference``
+(:936-943): no ``(B, H, T, T)`` tensor is kept from the forward.  On CPU
+tensors every wrapper runs its plain version; on CUDA tensors it launches
+its kernel or raises (head_dim 64, float32/bfloat16 only).
 """
 from __future__ import annotations
 
@@ -33,7 +51,8 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
-MAX_T = 1024
+MAX_T = 1024          # K3/K4 envelope (JAX's _FWD_FULL_MAX_T)
+MAX_TK = 8192         # K5's key walk (JAX's _BWD_BLOCKWISE_MAX_TK)
 HEAD_DIM = 64
 
 
@@ -41,10 +60,12 @@ def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
-def _heads(x: torch.Tensor, nheads: int, dt: torch.dtype) -> torch.Tensor:
-    """(B, T, H*D) -> (B, H, T, D) in ``dt``."""
+def _heads(x: torch.Tensor, nheads: int, dt: Optional[torch.dtype] = None
+           ) -> torch.Tensor:
+    """(B, T, H*D) -> (B, H, T, D) (a view unless ``dt`` converts)."""
     b, t, hd = x.shape
-    return x.reshape(b, t, nheads, hd // nheads).transpose(1, 2).to(dt)
+    x = x.reshape(b, t, nheads, hd // nheads).transpose(1, 2)
+    return x if dt is None else x.to(dt)
 
 
 def _packed(x: torch.Tensor) -> torch.Tensor:
@@ -52,22 +73,35 @@ def _packed(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, t, h * d)
 
 
-def _logits(q, k, lengths, slopes, causal: bool, nheads: int):
-    """Masked logits (B, H, T, T) and the accumulation dtype."""
-    dt = _acc_dtype(q)
-    qh, kh = _heads(q, nheads, dt), _heads(k, nheads, dt)
-    t, d = qh.shape[2], qh.shape[3]
-    s = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * (1.0 / math.sqrt(d))
-    pos = torch.arange(t, device=q.device)
+def _logits(qh, kh, lengths, slopes, causal: bool):
+    """Masked logits (B, H, Tq, Tk) of (B, H, T, D) operands and the
+    accumulation dtype."""
+    dt = _acc_dtype(qh)
+    tq, tk, d = qh.shape[2], kh.shape[2], qh.shape[3]
+    s = torch.einsum("bhqd,bhkd->bhqk", qh.to(dt), kh.to(dt)) * (
+        1.0 / math.sqrt(d))
+    q_pos = torch.arange(tq, device=qh.device)
+    k_pos = torch.arange(tk, device=qh.device)
     if slopes is not None:
-        dist = (pos[None, :] - pos[:, None]).abs().to(dt)
+        dist = (k_pos[None, :] - q_pos[:, None]).abs().to(dt)
         s = s + slopes.to(dt)[:, None, None] * dist[None]
-    mask = pos[None, None, None, :] < lengths.to(q.device)[:, None, None,
-                                                           None]
+    mask = k_pos[None, None, None, :] < lengths.to(qh.device)[:, None, None,
+                                                              None]
     if causal:
-        mask = mask & (pos[None, :] <= pos[:, None])[None, None]
+        mask = mask & (k_pos[None, :] <= q_pos[:, None])[None, None]
     return torch.where(mask, s, torch.tensor(NEG_INF, dtype=dt,
-                                             device=q.device)), dt
+                                             device=qh.device)), dt
+
+
+def attention_reference(q, k, v, lengths, slopes, causal: bool
+                        ) -> torch.Tensor:
+    """JAX's ``_attention_reference`` (:43) on (B, H, T, D) operands:
+    float32 logits and softmax, the probabilities rounded to V's dtype,
+    the output in q's dtype.  Differentiable: the dense backward off the
+    packed envelope takes autograd of it."""
+    s, dt = _logits(q, k, lengths, slopes, causal)
+    w = torch.softmax(s, dim=-1).to(v.dtype).to(dt)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.to(dt)).to(q.dtype)
 
 
 def flash_forward_packed_plain(q, k, v, lengths, slopes, causal: bool,
@@ -75,7 +109,8 @@ def flash_forward_packed_plain(q, k, v, lengths, slopes, causal: bool,
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3's function in plain PyTorch: (o (B, T, H*D) in q's dtype,
     lse (B, H, T) in the accumulation dtype)."""
-    s, dt = _logits(q, k, lengths, slopes, causal, nheads)
+    s, dt = _logits(_heads(q, nheads), _heads(k, nheads), lengths, slopes,
+                    causal)
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     denom = e.sum(dim=-1, keepdim=True)
@@ -98,7 +133,8 @@ def flash_backward_packed_plain(q, k, v, o, g, lse, lengths, slopes,
     """K3b's function in plain PyTorch, from the saved ``o`` and ``lse``
     (not autograd of the forward: delta comes from the rounded O).
     Returns dq, dk, dv in packed layout and the inputs' dtypes."""
-    s, dt = _logits(q, k, lengths, slopes, causal, nheads)
+    s, dt = _logits(_heads(q, nheads), _heads(k, nheads), lengths, slopes,
+                    causal)
     d = q.shape[-1] // nheads
     scale = 1.0 / math.sqrt(d)
     p = torch.exp(s - lse.to(dt)[..., None])
@@ -112,69 +148,74 @@ def flash_backward_packed_plain(q, k, v, o, g, lse, lengths, slopes,
             _packed(dv).to(v.dtype))
 
 
+def flash_forward_full_plain(q, k, v, lengths, slopes, causal: bool,
+                             with_stats: bool = False):
+    """K4's function in plain PyTorch: o (B, H, T, D) in q's dtype and,
+    with ``with_stats``, lse (B, H, T) in the accumulation dtype."""
+    o = attention_reference(q, k, v, lengths, slopes, causal)
+    if not with_stats:
+        return o
+    s, _ = _logits(q, k, lengths, slopes, causal)
+    return o, torch.logsumexp(s, dim=-1)
+
+
+def flash_forward_tiled_plain(q, k, v, lengths, slopes, causal: bool
+                              ) -> torch.Tensor:
+    """K5's function in plain PyTorch: o (B, H, Tq, D) in q's dtype."""
+    return attention_reference(q, k, v, lengths, slopes, causal)
+
+
 # ------------------------------------------------------------- kernels
-_FWD = None
-_BWD = None
+_LIB = None
 
 
 def _launchers():
-    global _FWD, _BWD
-    if _FWD is None:
+    """The four launch functions of ``csrc/flash_attention.cu``, built
+    and bound at first use."""
+    global _LIB
+    if _LIB is None:
         from .build import load
 
         lib = load("flash_attention")
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fwd = lib.flash_fwd_packed_launch
-        fwd.argtypes = [p] * 7 + [ll] * 8 + [i] * 5 + [ctypes.c_float, p]
-        fwd.restype = i
-        bwd = lib.flash_bwd_packed_launch
-        bwd.argtypes = ([p] * 11 + [ll] * 14 + [i] * 5
-                        + [ctypes.c_float, p])
-        bwd.restype = i
-        _FWD, _BWD = fwd, bwd
-    return _FWD, _BWD
+        p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_float)
+        lib.flash_fwd_packed_launch.argtypes = [p] * 7 + [ll] * 8 + [i] * 5 \
+            + [f, p]
+        lib.flash_bwd_packed_launch.argtypes = [p] * 11 + [ll] * 14 \
+            + [i] * 5 + [f, p]
+        lib.flash_fwd_full_launch.argtypes = [p] * 7 + [ll] * 12 + [i] * 5 \
+            + [f, p]
+        lib.flash_fwd_tiled_launch.argtypes = [p] * 6 + [ll] * 12 \
+            + [i] * 6 + [f, p]
+        for fn in (lib.flash_fwd_packed_launch, lib.flash_bwd_packed_launch,
+                   lib.flash_fwd_full_launch, lib.flash_fwd_tiled_launch):
+            fn.restype = i
+        _LIB = lib
+    return _LIB
 
 
-def kernel_supports(q: torch.Tensor, k: torch.Tensor, nheads: int) -> bool:
-    """JAX's ``_packed_eligible`` (a 128-lane head grouping, T <= 1024,
-    self-attention) and the CUDA kernels' head_dim 64 and dtypes."""
+def packed_eligible(q: torch.Tensor, k: torch.Tensor, nheads: int) -> bool:
+    """JAX's ``_packed_eligible``: a 128-lane head grouping (``hpb``),
+    self-attention, T <= 1024.  Outside it JAX (and the port) take the
+    (B, H, T, D) forwards K4/K5 and the dense backward."""
     b, t, hd = q.shape
     if hd % nheads:
         return False
     d = hd // nheads
     hpb = 1 if d % 128 == 0 else (128 // d if 128 % d == 0
                                   and hd % 128 == 0 else 0)
-    return (hpb > 0 and nheads % hpb == 0 and k.shape[1] == t
-            and t <= MAX_T and d == HEAD_DIM
-            and q.dtype in (torch.float32, torch.bfloat16))
+    return hpb > 0 and nheads % hpb == 0 and k.shape[1] == t and t <= MAX_T
 
 
-def _seq(name: str, x: torch.Tensor, shape, dtype, device):
-    """(batch stride, row stride) of a packed operand; raises unless the
-    kernel can read it."""
-    if x.shape != shape or x.dtype != dtype or x.device != device:
-        raise ValueError(f"{name}: {tuple(x.shape)} {x.dtype} on "
-                         f"{x.device}, expected {tuple(shape)} {dtype} on "
-                         f"{device}")
-    if x.stride(2) != 1:
-        raise ValueError(f"{name}: the feature axis must be contiguous "
-                         f"(strides {x.stride()})")
-    if dtype == torch.bfloat16 and (x.data_ptr() % 16 or x.stride(0) % 8
-                                    or x.stride(1) % 8):
-        raise ValueError(f"{name}: the bf16 kernels read rows 16 bytes at "
-                         f"a time; data_ptr {x.data_ptr()} and strides "
-                         f"{x.stride()} are not 16-byte aligned")
-    return x.stride(0), x.stride(1)
-
-
-def _check_cuda(q, k, v, lengths, slopes, nheads: int):
-    if not kernel_supports(q, k, nheads):
+def _check_kernel(what: str, q, lengths, slopes, nheads: int) -> None:
+    """The kernels' head_dim and dtypes, and the lengths/slopes they
+    read; raises naming what is missing."""
+    d = q.shape[-1] if q.dim() == 4 else q.shape[-1] // nheads
+    if d != HEAD_DIM or q.dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
-            f"flash_attention_packed on CUDA takes T <= {MAX_T}, head_dim "
-            f"{HEAD_DIM}, float32/bfloat16 packed self-attention; got q "
-            f"{tuple(q.shape)} {q.dtype} with {nheads} heads, k "
-            f"{tuple(k.shape)}.  Other shapes run through the BHTD (K4) or "
-            "q-tiled (K5) kernels, which are not ported yet (ROADMAP.md)")
+            f"{what} on CUDA takes head_dim {HEAD_DIM} and float32/bfloat16; "
+            f"got head_dim {d} in {q.dtype} (q {tuple(q.shape)}, {nheads} "
+            "heads).  Other head widths are not ported (ROADMAP.md)")
     if lengths.dtype != torch.int32 or lengths.shape != (q.shape[0],) \
             or lengths.device != q.device or not lengths.is_contiguous():
         raise ValueError("lengths must be a contiguous (B,) int32 tensor on "
@@ -187,6 +228,36 @@ def _check_cuda(q, k, v, lengths, slopes, nheads: int):
                          "on q's device")
 
 
+def _strides(name: str, x: torch.Tensor, shape, dtype, device):
+    """The element strides of an operand but its last (contiguous) axis;
+    raises unless the kernels can read it."""
+    if x.shape != shape or x.dtype != dtype or x.device != device:
+        raise ValueError(f"{name}: {tuple(x.shape)} {x.dtype} on "
+                         f"{x.device}, expected {tuple(shape)} {dtype} on "
+                         f"{device}")
+    if x.stride(-1) != 1:
+        raise ValueError(f"{name}: the feature axis must be contiguous "
+                         f"(strides {x.stride()})")
+    st = x.stride()[:-1]
+    if dtype == torch.bfloat16 and (x.data_ptr() % 16
+                                    or any(s % 8 for s in st)):
+        raise ValueError(f"{name}: the bf16 kernels read rows 16 bytes at "
+                         f"a time; data_ptr {x.data_ptr()} and strides "
+                         f"{x.stride()} are not 16-byte aligned")
+    return st
+
+
+def _check_packed(q, k, v, lengths, slopes, nheads: int):
+    if not packed_eligible(q, k, nheads):
+        raise ValueError(
+            f"K3/K3b take packed causal self-attention with a 128-lane head "
+            f"grouping and T <= {MAX_T}; got q {tuple(q.shape)} with "
+            f"{nheads} heads, k {tuple(k.shape)} (flash_attention_packed "
+            "takes K4/K5 there)")
+    _check_kernel("K3/K3b (packed flash attention)", q, lengths, slopes,
+                  nheads)
+
+
 def flash_forward_packed(q, k, v, lengths, slopes, causal: bool,
                          nheads: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: (o, lse).  CPU tensors take the plain version; CUDA tensors
@@ -196,21 +267,21 @@ def flash_forward_packed(q, k, v, lengths, slopes, causal: bool,
                                           nheads)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for {q.device}")
-    _check_cuda(q, k, v, lengths, slopes, nheads)
+    _check_packed(q, k, v, lengths, slopes, nheads)
     b, t, hd = q.shape
     dev = q.device
-    seqs = [_seq(n, x, q.shape, q.dtype, dev)
+    seqs = [_strides(n, x, q.shape, q.dtype, dev)
             for n, x in (("q", q), ("k", k), ("v", v))]
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, nheads, t), dtype=torch.float32, device=dev)
-    fwd, _ = _launchers()
-    err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-              lse.data_ptr(), lengths.data_ptr(),
-              slopes.data_ptr() if slopes is not None else None,
-              *seqs[0], *seqs[1], *seqs[2], *o.stride()[:2],
-              b, t, nheads, int(q.dtype == torch.bfloat16), int(causal),
-              1.0 / math.sqrt(hd // nheads),
-              torch.cuda.current_stream(dev).cuda_stream)
+    err = _launchers().flash_fwd_packed_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), lengths.data_ptr(),
+        slopes.data_ptr() if slopes is not None else None,
+        *seqs[0], *seqs[1], *seqs[2], *o.stride()[:2],
+        b, t, nheads, int(q.dtype == torch.bfloat16), int(causal),
+        1.0 / math.sqrt(hd // nheads),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention forward launch failed: CUDA "
                            f"error {err}")
@@ -232,28 +303,28 @@ def flash_backward_packed(q, k, v, o, g, lse, lengths, slopes,
                                            slopes, causal, nheads)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for {q.device}")
-    _check_cuda(q, k, v, lengths, slopes, nheads)
+    _check_packed(q, k, v, lengths, slopes, nheads)
     b, t, hd = q.shape
     dev = q.device
-    seqs = [_seq(n, x, q.shape, q.dtype, dev)
+    seqs = [_strides(n, x, q.shape, q.dtype, dev)
             for n, x in (("q", q), ("k", k), ("v", v), ("dO", g))]
-    _seq("o", o, q.shape, q.dtype, dev)
+    _strides("o", o, q.shape, q.dtype, dev)
     if lse.shape != (b, nheads, t) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError("lse must be a contiguous (B, H, T) float32 tensor")
     delta = _delta(g, o, nheads)
     grads = [torch.empty(q.shape, dtype=q.dtype, device=dev)
              for _ in range(3)]
-    _, bwd = _launchers()
-    err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-              lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
-              slopes.data_ptr() if slopes is not None else None,
-              *(x.data_ptr() for x in grads),
-              *seqs[0], *seqs[1], *seqs[2], *seqs[3],
-              *(s for x in grads for s in x.stride()[:2]),
-              b, t, nheads, int(q.dtype == torch.bfloat16), int(causal),
-              1.0 / math.sqrt(hd // nheads),
-              torch.cuda.current_stream(dev).cuda_stream)
+    err = _launchers().flash_bwd_packed_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), lengths.data_ptr(),
+        slopes.data_ptr() if slopes is not None else None,
+        *(x.data_ptr() for x in grads),
+        *seqs[0], *seqs[1], *seqs[2], *seqs[3],
+        *(s for x in grads for s in x.stride()[:2]),
+        b, t, nheads, int(q.dtype == torch.bfloat16), int(causal),
+        1.0 / math.sqrt(hd // nheads),
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward launch failed: CUDA "
                            f"error {err}")
@@ -264,19 +335,128 @@ def flash_backward_packed(q, k, v, o, g, lse, lengths, slopes,
 flash_backward_packed.launches = 0
 
 
+def _bhtd_launch(kind: str, q, k, v, lengths, slopes, causal: bool,
+                 with_stats: bool = False):
+    """Launch K4 (``kind`` "full") or K5 ("tiled") on (B, H, T, D)
+    operands of any (batch, head, row) strides.  The output is allocated
+    in the packed (B, Tq, H, D) memory order and returned as its
+    (B, H, Tq, D) view, so the packed caller reshapes it for free."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    dev = q.device
+    what = ("K4 (the (B, H, T, D) full forward)" if kind == "full" else
+            "K5 (the q-tiled (B, H, T, D) forward)")
+    _check_kernel(what, q, lengths, slopes, h)
+    kshape = (b, h, tk, d)
+    st = [_strides("q", q, q.shape, q.dtype, dev),
+          _strides("k", k, kshape, q.dtype, dev),
+          _strides("v", v, kshape, q.dtype, dev)]
+    o = torch.empty((b, tq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    st.append(o.stride()[:3])
+    lse = (torch.empty((b, h, tq), dtype=torch.float32, device=dev)
+           if with_stats else None)
+    lib = _launchers()
+    common = (*st[0], *st[1], *st[2], *st[3])
+    tail = (int(q.dtype == torch.bfloat16), int(causal), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(dev).cuda_stream)
+    slope_ptr = slopes.data_ptr() if slopes is not None else None
+    if kind == "full":
+        err = lib.flash_fwd_full_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if lse is not None else None, lengths.data_ptr(),
+            slope_ptr, *common, b, tq, h, *tail)
+    else:
+        err = lib.flash_fwd_tiled_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lengths.data_ptr(), slope_ptr, *common, b, tq, tk, h, *tail)
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+    return (o, lse) if with_stats else o
+
+
+def flash_forward_full(q, k, v, lengths, slopes, causal: bool,
+                       with_stats: bool = False):
+    """K4: o (B, H, T, D) and, with ``with_stats``, lse (B, H, T), for
+    Tq = Tk <= 1024.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    if q.device.type == "cpu":
+        return flash_forward_full_plain(q, k, v, lengths, slopes, causal,
+                                        with_stats)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention for {q.device}")
+    if q.shape[2] != k.shape[2] or k.shape[2] > MAX_T:
+        raise ValueError(f"K4 takes Tq = Tk <= {MAX_T}; got Tq {q.shape[2]},"
+                         f" Tk {k.shape[2]} (flash_forward_tiled takes the "
+                         "rest)")
+    out = _bhtd_launch("full", q, k, v, lengths, slopes, causal, with_stats)
+    flash_forward_full.launches += 1
+    return out
+
+
+flash_forward_full.launches = 0
+
+
+def flash_forward_tiled(q, k, v, lengths, slopes, causal: bool
+                        ) -> torch.Tensor:
+    """K5: o (B, H, Tq, D) for any Tq and Tk (Tk <= 8192 on the card).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise."""
+    if q.device.type == "cpu":
+        return flash_forward_tiled_plain(q, k, v, lengths, slopes, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention for {q.device}")
+    if k.shape[2] > MAX_TK:
+        raise NotImplementedError(
+            f"K5 on CUDA walks at most {MAX_TK} keys (JAX's "
+            f"_BWD_BLOCKWISE_MAX_TK); got Tk {k.shape[2]}")
+    out = _bhtd_launch("tiled", q, k, v, lengths, slopes, causal)
+    flash_forward_tiled.launches += 1
+    return out
+
+
+flash_forward_tiled.launches = 0
+
+
+def flash_attention(q, k, v, lengths, slopes, causal: bool) -> torch.Tensor:
+    """JAX's ``_dispatch`` (:787) on (B, H, T, D) operands: K4 for
+    self-attention at T <= 1024, K5 otherwise."""
+    if q.shape[2] == k.shape[2] and k.shape[2] <= MAX_T:
+        return flash_forward_full(q, k, v, lengths, slopes, causal)
+    return flash_forward_tiled(q, k, v, lengths, slopes, causal)
+
+
 class FlashAttentionPacked(torch.autograd.Function):
-    """Saves q, k, v, o, lse, lengths and slopes; the backward is K3b."""
+    """Inside the packed envelope K3 forward (saving o and lse) and K3b
+    backward; outside it K4/K5 forward and the dense recomputed
+    backward (saving only the inputs)."""
 
     @staticmethod
     def forward(ctx, q, k, v, lengths, slopes, causal, nheads):
+        ctx.causal, ctx.nheads = causal, nheads
+        ctx.dense = not packed_eligible(q, k, nheads)
+        if ctx.dense:
+            o = _packed(flash_attention(_heads(q, nheads), _heads(k, nheads),
+                                        _heads(v, nheads), lengths, slopes,
+                                        causal))
+            ctx.save_for_backward(q, k, v, lengths, slopes)
+            return o
         o, lse = flash_forward_packed(q, k, v, lengths, slopes, causal,
                                       nheads)
         ctx.save_for_backward(q, k, v, o, lse, lengths, slopes)
-        ctx.causal, ctx.nheads = causal, nheads
         return o
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.dense:
+            q, k, v, lengths, slopes = ctx.saved_tensors
+            h = ctx.nheads
+            with torch.enable_grad():
+                ins = [x.detach().requires_grad_() for x in (q, k, v)]
+                out = _packed(attention_reference(
+                    *(_heads(x, h) for x in ins), lengths, slopes,
+                    ctx.causal))
+                dq, dk, dv = torch.autograd.grad(out, ins, g.to(out.dtype))
+            return dq, dk, dv, None, None, None, None
         q, k, v, o, lse, lengths, slopes = ctx.saved_tensors
         g = g.contiguous()
         dq, dk, dv = flash_backward_packed(q, k, v, o, g.to(q.dtype), lse,
