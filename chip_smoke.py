@@ -10,8 +10,9 @@ Phases (any failure ends the run with a non-zero exit, no result):
   2. build: every kernel of the port's serving, training and scoring
      paths, from ``vae_gslm_tpu_torch/csrc`` with one nvcc per source,
      all started together (K1 ``fused_decode.cu``, K2 ``mega_step.cu``,
-     K3/K3b/K4/K5 ``flash_attention.cu``), with nvcc's register and spill
-     lines, and beside them the g++ build of ``native/dataio.cc``;
+     K3/K3b/K4/K4b/K5/K5b ``flash_attention.cu``), with nvcc's register
+     and spill lines, and beside them the g++ build of
+     ``native/dataio.cc``;
   3. K1 against its plain PyTorch version at the flagship width (16
      layers, 16 heads, head_dim 64) at B = 8 and 32 over the cache
      states the 150 -> 650 rollout passes through; kernel and plain
@@ -32,12 +33,25 @@ Phases (any failure ends the run with a non-zero exit, no result):
      SDPA's with a float mask (forward, forward+backward) and the bound;
   5b. K5 (the q-tiled forward) at B 8, 16 heads of 64, T 1750, lengths
      down to 0 and 1, and Tq 96 x Tk 256 non-causal, and K4 (the (B, H,
-     T, D) full forward) at B 8, T 640, 15 heads, against their plain
-     versions, float32 and bfloat16, with ALiBi and without, at K3's
-     tolerances; K5 float32 at the scoring path's calls (B 64, T 1750,
-     each long batch's lengths) and its time there beside the bound;
-     their float32 times at B 8 beside the plain versions', SDPA's
-     (float mask) and the bound;
+     T, D) full forward with lse) at B 8, T 640 with 15 heads (no packed
+     head grouping), against their plain versions, float32 and bfloat16,
+     with ALiBi and without, at K3's tolerances; K5 float32 at the
+     scoring path's calls (B 64, T 1750, each long batch's lengths) and
+     its time there beside the bound; its float32 time at B 8 beside the
+     plain version's, SDPA's (float mask) and the bound;
+  5c. K4 (with lse) and K4b (the (B, H, T, D) full backward from K4's
+     lse) at the data-parallel training call (B 8, T 640, 16 heads,
+     lengths down to 0 and 1; K4's o and lse at K3's forward
+     tolerances) and K5b (the blockwise backward) at B 2, T 1536
+     (lengths 1536 and 1) and Tq 96 x Tk 256 non-causal (lengths 256, 0,
+     1), float32 and bfloat16, against their plain versions, K4b/K5b at
+     K3b's tolerances (f32 1e-4 x max|ref|; bf16 2e-2 x max|ref|,
+     element by element 2 bf16 ulps + 2e-2 rms(ref), relative L2 1e-3:
+     dk and dv sum every query row's share in float32 in another order
+     than the plain einsum, and a ds one ulp apart rounds to another
+     bf16 value); their bf16 times (K4 and K4b at the training call)
+     beside the plain versions', SDPA's with a float mask (forward for
+     K4, forward+backward for K4b/K5b) and the bound;
   6. agreement on a small input, twice: a small LVTR (head_dim 64)
      continues a prompt by 300 frames on the card (through the kernels)
      and on the CPU (through the plain versions), float32, temperature 0,
@@ -53,6 +67,14 @@ Phases (any failure ends the run with a non-zero exit, no result):
      (no packed head grouping) on the card and on the CPU, pinned initial
      state: at T = 300 through K4 and at T = 1100 through K5, scores to
      1e-4 relative;
+  7c. two ranks of the small training step on the card: two processes
+     of this script (worker mode, ``--dp-worker``) join a gloo process
+     group through JAX's launch variables and share the one card; each
+     takes its half of a global batch with pinned draws through K4/K4b
+     (the data-mesh route); against the single-process step over the
+     whole batch on the card (K3/K3b): metrics to 1e-4 relative, the
+     summed gradients to 1e-3 x max|g|, the ranks' parameters bitwise
+     equal, 4 K4 and 4 K4b launches per rank and no K3/K3b;
   8. the serving paths: a 3 s -> 10 s continuation at B = 8 at the full
      width of ``configs/train/speech/vae-gslm.yaml`` (weights from seed
      0; without the utterance encoder, which the serving path does not
@@ -76,6 +98,21 @@ Phases (any failure ends the run with a non-zero exit, no result):
      (counts set to 0 just before each step), the plain attention
      versions refused; ms per step, tokens/s, peak memory, then one
      profiled step;
+  9b. the data-parallel training path: two ranks sharing the card (gloo)
+     run ``scripts/train.py`` -> ``LVTRTrainer.fit`` on the shipped
+     config, its data paths pointed at a synthetic corpus written from
+     seed 0 (96 WAVs of 13-20 s, their token ids and preprocessed mels):
+     8 rows per rank x accumulation 2 x 640 frames, 16-mixed, three
+     optimizer steps, each with its counts set to 0 just before and read
+     just after (exactly 32 K4 and 32 K4b launches per rank and no other
+     attention kernel; the plain versions refused), the ranks'
+     parameters bitwise equal and their logged metrics equal, rank 0's
+     ``last-cpt.npz`` read back strictly and equal to them; ms per step,
+     tokens/s per rank, the all-reduce's share and peak memory per rank
+     (two ranks on one card: no scaling claim); then one step past 1024
+     frames (``token_segment_size`` 1536 and its post-padding, the only
+     changes, 2 rows per rank, accumulation 1, 4 WAVs of 31-35 s):
+     exactly 16 K5 and 16 K5b launches per rank;
   10. the scoring path: ``LikelihoodEstimator`` at the full width of that
      config (weights from seed 0 written by ``save_compact``, read back
      strictly), float32, over 192 synthetic WAVs from seed 0 with the
@@ -92,6 +129,7 @@ the nvidia-smi name/power line, and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import math
@@ -140,32 +178,64 @@ def cuda_ms(fn, n: int, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, n: int, only=(), tries: int = 4) -> float:
+def _profiled(fn, n: int, only=()):
+    """(name, device microseconds, launches) of each device operation
+    that torch.profiler's CUDA activity records over ``n`` calls of
+    ``fn``: with ``only``, just the kernels whose names contain one of
+    its strings.  The runtime calls that the activity also records
+    (launches, synchronizes) are host events and are left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    return [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and (not only or any(s in e.key for s in only))]
+
+
+def device_ms(fn, n: int, only=(), per_call: int = 0, tries: int = 4
+              ) -> float:
     """Mean device time per call of the kernels ``fn`` launches, from
     torch.profiler's CUDA activity (their own durations: host gaps
     between launches are left out), after one warm-up call.  With
     ``only``, just the kernels whose names contain one of its strings.
-    A window in which the profiler recorded no kernel is profiled again,
-    up to ``tries`` windows in all; then the run fails."""
+    On the H100 a window has recorded as few as 6 of 10 launches of one
+    kernel, so a window's total over ``n`` can read low.  With
+    ``per_call`` (the port's kernels: that many kernels per call, each
+    launched once under a name of its own) the time per call is the sum
+    of each name's mean recorded duration, and a window must record
+    every name, else it is profiled again, up to ``tries`` windows; then
+    the run fails.  Without it (plain versions, library calls and K2:
+    many launches of few names, of which windows have lost a few in
+    thousands or, once, 5 %), the fuller of two windows' total over
+    ``n``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn(0)
     torch.cuda.synchronize()
-    for attempt in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(n):
-                fn(i)
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if not only or any(s in e.key for s in only))
-        if us > 0:
-            if attempt:
-                log(f"  (the profiler recorded no kernel in {attempt} "
-                    "window(s) before this one)")
-            return us / 1e3 / n
-    raise AssertionError(f"the profiler recorded no device time in {tries} "
-                         "windows")
+    if not per_call:
+        evs = max((_profiled(fn, n, only) for _ in range(2)),
+                  key=lambda w: sum(c for _, _, c in w))
+        if not evs:
+            raise AssertionError("the profiler recorded no device operation")
+        return sum(us for _, us, _ in evs) / 1e3 / n
+    seen = []
+    for _ in range(tries):
+        evs = _profiled(fn, n, only)
+        seen.append([c for _, _, c in evs])
+        if len(evs) == per_call:
+            got = sum(c for _, _, c in evs)
+            if got != n * per_call or len(seen) > 1:
+                log(f"  (profiler windows recorded {seen} launches per "
+                    f"kernel name of {n} calls; the time is the mean of "
+                    "the recorded launches)")
+            return sum(us / c for _, us, c in evs) / 1e3
+    raise AssertionError(f"the profiler windows recorded {seen} launches per "
+                         f"kernel name, {per_call} names expected")
 
 
 # ------------------------------------------------------------------ K1
@@ -246,7 +316,8 @@ def phase_k1(dev):
         def kernel(i):
             return k1(q, *cache, pos, i % L, slopes, k, v, flushed)
 
-        ks.append(device_ms(kernel, n=200))
+        ks.append(device_ms(kernel, n=200, only=("fused_decode_kernel",),
+                            per_call=1))
         calls.append(cuda_ms(kernel, n=200))
         ps.append(device_ms(lambda i: plain(q, *cache, pos, i % L, slopes, k,
                                             v, flushed), n=10))
@@ -590,7 +661,7 @@ def phase_k3(dev):
         f"max_abs_err " + ", ".join(errs))
     del o, lse, o_ref, lse_ref
     ks = device_ms(lambda i: k3(q, k, v, lengths, slopes, True, H), n=10,
-                   only=K3_KERNELS[:1])
+                   only=K3_KERNELS[:1], per_call=1)
     cs = cuda_ms(lambda i: k3(q, k, v, lengths, slopes, True, H), n=10)
     ps = device_ms(plain_s, n=2)
     (sb, so), _ = k3_bytes_ops(4, SCORE_BATCH, ts, lens)
@@ -612,8 +683,8 @@ def phase_k3(dev):
     def bwd(i):
         return k3b(q, k, v, o, do, lse, lengths, slopes, True, H)
 
-    kf = device_ms(fwd, n=20, only=K3_KERNELS[:1])
-    kb = device_ms(bwd, n=20, only=K3_KERNELS[1:])
+    kf = device_ms(fwd, n=20, only=K3_KERNELS[:1], per_call=1)
+    kb = device_ms(bwd, n=20, only=K3_KERNELS[1:], per_call=2)
     cf, cb = cuda_ms(fwd, n=20), cuda_ms(bwd, n=20)
     pf = device_ms(lambda i: k3_plain(q, k, v, lengths, slopes, True, H), n=3)
     pb = device_ms(lambda i: k3b_plain(q, k, v, o, do, lse, lengths, slopes,
@@ -705,15 +776,17 @@ def bhtd_bytes_ops(b: int, tq: int, tk: int, h: int, lengths, causal: bool,
 def phase_k45(dev):
     """K5 (the q-tiled forward) at the scoring shapes (B 8, 16 heads of
     64, Tq = Tk = 1750, lengths down to 0 and 1; and Tq 96 x Tk 256,
-    non-causal) and K4 (the (B, H, T, D) full forward, with and without
-    lse) at B 8, T 640, 15 heads, against their plain versions, float32
-    and bfloat16, with ALiBi and without, at K3's tolerances (f32 1e-5 x
-    max(1, max|ref|); bf16 o 1e-2 x max|ref| and element by element 2
-    ulps + 1e-2 x rms, relative L2 1e-3; lse 1e-5 x max(1, max|ref|));
-    K5 float32 at the scoring path's shape (B 64, T 1750, each long
-    batch's lengths) and its time there beside the bound.  Then their
-    float32 times (the scoring path's type) at B 8 beside the plain
-    versions', SDPA's with a float mask (forward) and the bound."""
+    non-causal) and K4 (the (B, H, T, D) full forward with lse) at B 8,
+    T 640 with 15 heads (the odd-head case; phase_k45b holds it at the
+    training call), against their plain versions, float32 and bfloat16,
+    with ALiBi and without, at K3's tolerances (f32 1e-5 x max(1,
+    max|ref|); bf16 o 1e-2 x max|ref| and element by element 2 ulps +
+    1e-2 x rms, relative L2 1e-3; lse 1e-5 x max(1, max|ref|)); K5
+    float32 at the scoring path's shape (B 64, T 1750, each long batch's
+    lengths) and its time there beside the bound.  Then K5's float32
+    time (the scoring path's type) at B 8 beside the plain version's,
+    SDPA's with a float mask (forward) and the bound.  Returns K4's
+    worst error and K5's entry."""
     import torch
     import torch.nn.functional as F
 
@@ -783,7 +856,7 @@ def phase_k45(dev):
         del got, want
     ks = device_ms(lambda i: fa.flash_forward_tiled(q, k, v, lengths, slopes,
                                                     True), n=5,
-                   only=("k5_fwd",))
+                   only=("k5_fwd",), per_call=1)
     cs = cuda_ms(lambda i: fa.flash_forward_tiled(q, k, v, lengths, slopes,
                                                   True), n=5)
     ps = device_ms(plain_s, n=1)
@@ -798,54 +871,45 @@ def phase_k45(dev):
         f"float32 FMA rate)")
     del q, k, v, qp, kp, vp
 
-    out = {}
-    for name, b, tq, h, lens, only in (
-            ("K5", K5_B, K5_T, H, K5_LENGTHS, ("k5_fwd",)),
-            ("K4", K4_B, K4_T, K4_H, K4_LENGTHS, ("k4_fwd",))):
-        fn = fa.flash_forward_tiled if name == "K5" else fa.flash_forward_full
-        plain = (fa.flash_forward_tiled_plain if name == "K5"
-                 else fa.flash_forward_full_plain)
-        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        slopes = -torch.tensor(alibi_slopes(h), device=dev)
-        times = {}
-        for dtype in (torch.bfloat16, torch.float32):   # float32 last: the
-            # plain version and SDPA below take its q, k, v
-            q, k, v = bhtd_inputs(dtype, dev, b, tq, tq, h, seed=1)
-            times[dtype] = (
-                device_ms(lambda i: fn(q, k, v, lengths, slopes, True), n=10,
-                          only=only),
-                cuda_ms(lambda i: fn(q, k, v, lengths, slopes, True), n=10))
-        kf, cf = times[torch.float32]
-        pf = device_ms(lambda i: plain(q, k, v, lengths, slopes, True), n=2)
-        mask = sdpa_mask(lengths, slopes, torch.float32, dev, tq, tq, True)
+    b, tq, h, lens = K5_B, K5_T, H, K5_LENGTHS
+    fn, plain = fa.flash_forward_tiled, fa.flash_forward_tiled_plain
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    slopes = -torch.tensor(alibi_slopes(h), device=dev)
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):   # float32 last: the
+        # plain version and SDPA below take its q, k, v
+        q, k, v = bhtd_inputs(dtype, dev, b, tq, tq, h, seed=1)
+        times[dtype] = (
+            device_ms(lambda i: fn(q, k, v, lengths, slopes, True), n=10,
+                      only=("k5_fwd",), per_call=1),
+            cuda_ms(lambda i: fn(q, k, v, lengths, slopes, True), n=10))
+    kf, cf = times[torch.float32]
+    pf = device_ms(lambda i: plain(q, k, v, lengths, slopes, True), n=2)
+    mask = sdpa_mask(lengths, slopes, torch.float32, dev, tq, tq, True)
 
-        def sdpa(i):
-            with torch.no_grad():
-                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    def sdpa(i):
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
-        lf = device_ms(sdpa, n=5)
-        del mask
-        nbytes, flops = bhtd_bytes_ops(b, tq, tq, h, lens, True, 4)
-        bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-        by = ("bytes" if nbytes / HBM_BYTES_PER_S > flops / F32_FLOPS
-              else "operations")
-        log(f"{name} time B={b} T={tq} H={h} float32: kernel {kf:.4f} ms, "
-            f"{cf:.4f} ms per call with the wrapper, plain {pf:.4f} ms, SDPA "
-            f"(float mask) forward {lf:.4f} ms, bound {bound:.4f} ms ({by}; "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the float32 "
-            f"FMA rate); bf16 kernel {times[torch.bfloat16][0]:.4f} ms, "
-            f"{times[torch.bfloat16][1]:.4f} ms with the wrapper")
-        out[name] = {
-            "name": "flash_forward_tiled" if name == "K5"
-            else "flash_forward_full",
-            "route": "cuda",
-            "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "vae_gslm_tpu/ops/flash_attention.py:"
-            + ("443" if name == "K5" else "406"),
-            "launches": None, "max_abs_err": worst[name], "ms": kf,
-            "plain_ms": pf, "bound_ms": bound, "bound_by": by,
-            "library_ms": lf}
-    return out["K4"], out["K5"]
+    lf = device_ms(sdpa, n=5)
+    del mask
+    nbytes, flops = bhtd_bytes_ops(b, tq, tq, h, lens, True, 4)
+    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+    by = ("bytes" if nbytes / HBM_BYTES_PER_S > flops / F32_FLOPS
+          else "operations")
+    log(f"K5 time B={b} T={tq} H={h} float32: kernel {kf:.4f} ms, "
+        f"{cf:.4f} ms per call with the wrapper, plain {pf:.4f} ms, SDPA "
+        f"(float mask) forward {lf:.4f} ms, bound {bound:.4f} ms ({by}; "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the float32 "
+        f"FMA rate); bf16 kernel {times[torch.bfloat16][0]:.4f} ms, "
+        f"{times[torch.bfloat16][1]:.4f} ms with the wrapper")
+    return worst["K4"], {
+        "name": "flash_forward_tiled", "route": "cuda",
+        "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "vae_gslm_tpu/ops/flash_attention.py:443",
+        "launches": None, "max_abs_err": worst["K5"], "ms": kf,
+        "plain_ms": pf, "bound_ms": bound, "bound_by": by,
+        "library_ms": lf}
 
 
 # ----------------------------------------------------- small agreement
@@ -1727,6 +1791,14 @@ def phase_score(dev, gpu: str, seed: int = 0) -> int:
             est.test_step = counted
             est.run(seed=seed, max_batches=1)          # warm-up
             per_batch.clear()
+            # reference cycles of earlier phases can still hold device
+            # tensors here; collect them so that the peak is this path's
+            before = torch.cuda.memory_allocated()
+            gc.collect()
+            resident = torch.cuda.memory_allocated()
+            log(f"score: {resident / 2 ** 30:.2f} GiB allocated before the "
+                f"timed run, {(before - resident) / 2 ** 30:.2f} GiB more "
+                "before collecting earlier phases' garbage")
             torch.cuda.reset_peak_memory_stats()
             timings = {}
             torch.cuda.synchronize()
@@ -1817,6 +1889,710 @@ def phase_score(dev, gpu: str, seed: int = 0) -> int:
     return k5_launches
 
 
+# --------------------------------------------------------------- K4b/K5b
+K4B_LENGTHS = [640, 320, 300, 640, 1, 639, 0, 64]
+K5B_T, K5B_LENGTHS = 1536, [1536, 1]
+
+
+def bhtd_grad(dtype, dev, b: int, tq: int, h: int, seed: int):
+    """dO (B, H, Tq, D) as a strided view of a packed (B, Tq, H D) tensor,
+    as the backward of the packed output hands it over."""
+    import torch
+
+    g = torch.Generator(dev).manual_seed(seed)
+    x = torch.randn((b, tq, h * D), generator=g, device=dev).to(dtype)
+    return x.view(b, tq, h, D).transpose(1, 2)
+
+
+def bwd_bytes_ops(b: int, tq: int, tk: int, h: int, lengths, causal: bool,
+                  itemsize: int, n_stats: int):
+    """Bytes and FLOPs of one K4b/K5b call's kernels on these inputs
+    (``delta`` comes in computed, as K3b's): q and dO read and dq
+    written (B x Tq rows), k and v read below each length (all Tk for a
+    row of length 0), dk and dv written (B x Tk rows), ``n_stats``
+    float32 (B, H, Tq) rows read (delta, and K4b's lse); the 5 products
+    (QK, dO V, dS K, dS^T Q, P^T dO) of 2 D FLOPs over the (query, key)
+    pairs the causal and length masks leave."""
+    row = h * D * itemsize
+    kv = sum(ln if ln >= 1 else tk for ln in lengths) * row
+    nbytes = (3 * b * tq + 2 * b * tk) * row + 2 * kv \
+        + n_stats * b * h * tq * 4 + b * 4 + h * 4
+
+    def keys(r, ln):
+        if ln < 1:
+            return tk
+        return min(r + 1, ln) if causal else min(ln, tk)
+
+    pairs = h * sum(sum(keys(r, ln) for r in range(tq)) for ln in lengths)
+    return nbytes, 5 * 2 * D * pairs
+
+
+def phase_k45b(dev, k4_worst: float):
+    """K4 (the (B, H, T, D) full forward with lse) and K4b (its backward
+    from that lse) at the data-parallel training call (B 8, 16 heads of
+    64, T 640, causal, lengths down to 0 and 1), and K5b (the blockwise
+    backward) at the long-segment call (B 2, T 1536, lengths 1536 and 1)
+    and at Tq 96 x Tk 256 (non-causal, lengths 256, 0, 1), float32 and
+    bfloat16, ALiBi, from strided views of packed projections with o
+    from K4/K5, against their plain versions: K4's o and lse at
+    phase_k45's tolerances; K4b and K5b at K3b's, float32 1e-4 x
+    max|ref|, bf16 2e-2 x max|ref| and element by element 2 bf16 ulps +
+    2e-2 rms(ref), relative L2 1e-3 (dk and dv sum every query row's
+    share in float32 in another order than the plain einsum, and a ds
+    one ulp apart rounds to another bf16 value).  Then their bf16 times
+    (the 16-mixed path's type), K4 and K4b at the training call, K5b at
+    the long-segment one: kernels (profiler, every launch of the window
+    counted), per call with the wrapper (CUDA events; K4b/K5b's delta
+    included), plain, SDPA with a float mask (forward for K4,
+    forward+backward for K4b/K5b), and the bound.  Returns the K4, K4b
+    and K5b entries (K4's error also covers phase_k45's odd-head case,
+    ``k4_worst``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from vae_gslm_tpu_torch.nn.positions import alibi_slopes
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+
+    worst = {"K4": k4_worst, "K4b": 0.0, "K5b": 0.0}
+    cases = (("K4b", K3_B, K3_T, K3_T, K4B_LENGTHS, True),
+             ("K5b", 2, K5B_T, K5B_T, K5B_LENGTHS, True),
+             ("K5b", 3, 96, 256, [256, 0, 1], False))
+    slopes = -torch.tensor(alibi_slopes(H), device=dev)
+    for (name, b, tq, tk, lens, causal), dtype in \
+            itertools.product(cases, (torch.float32, torch.bfloat16)):
+        bf16 = dtype == torch.bfloat16
+        q, k, v = bhtd_inputs(dtype, dev, b, tq, tk, H, seed=tq + 1)
+        do = bhtd_grad(dtype, dev, b, tq, H, seed=tq + 2)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if name == "K4b":
+            o, lse = fa.flash_forward_full(q, k, v, lengths, slopes, causal,
+                                           with_stats=True)
+            o_ref, lse_ref = fa.flash_forward_full_plain(
+                q, k, v, lengths, slopes, causal, with_stats=True)
+            torch.cuda.synchronize()
+            where = (f"K4 B={b} T={tq} H={H} {str(dtype)[6:]} "
+                     f"causal={causal} alibi=True (the training call)")
+            errs = []
+            for n, g_, r_ in (("o", o, o_ref), ("lse", lse, lse_ref)):
+                tol = 1e-2 if bf16 and n == "o" else 1e-5
+                err, text = hold(where, n, g_, r_, tol,
+                                 0.0 if bf16 and n == "o" else 1.0, bf16)
+                errs.append(text)
+                if n == "o":
+                    worst["K4"] = max(worst["K4"], err)
+            log(f"K4 check {where}: max_abs_err " + ", ".join(errs))
+            del o_ref, lse_ref
+            extra = (lse,)
+            fn, plain = fa.flash_backward_full, fa.flash_backward_full_plain
+        else:
+            o = fa.flash_forward_tiled(q, k, v, lengths, slopes, causal)
+            extra = ()
+            fn, plain = (fa.flash_backward_blockwise,
+                         fa.flash_backward_blockwise_plain)
+        got = fn(q, k, v, o, do, *extra, lengths, slopes, causal)
+        want = plain(q, k, v, o, do, *extra, lengths, slopes, causal)
+        torch.cuda.synchronize()
+        where = (f"{name} B={b} Tq={tq} Tk={tk} H={H} {str(dtype)[6:]} "
+                 f"causal={causal}")
+        errs = []
+        for n, g_, r_ in zip(("dq", "dk", "dv"), got, want):
+            if g_.dtype != dtype or g_.shape != r_.shape:
+                raise AssertionError(f"{where}: {n} is {g_.dtype} "
+                                     f"{tuple(g_.shape)}")
+            err, text = hold(where, n, g_, r_, 2e-2 if bf16 else 1e-4, 0.0,
+                             bf16)
+            worst[name] = max(worst[name], err)
+            errs.append(text)
+        log(f"{name} check {where}: max_abs_err " + ", ".join(errs))
+        del got, want
+
+    def entry(name, fn_name, line, ms, plain_ms, bound, by, lib):
+        return {"name": fn_name, "route": "cuda",
+                "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"vae_gslm_tpu/ops/flash_attention.py:{line}",
+                "launches": None, "max_abs_err": worst[name], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                "library_ms": lib}
+
+    def bound_of(nbytes, flops):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        return max(t_b, t_o) * 1e3, "bytes" if t_b > t_o else "operations"
+
+    out = {}
+    dtype = torch.bfloat16
+    for name, b, t, lens in (("K4b", K3_B, K3_T, K4B_LENGTHS),
+                             ("K5b", 2, K5B_T, K5B_LENGTHS)):
+        q, k, v = bhtd_inputs(dtype, dev, b, t, t, H, seed=1)
+        do = bhtd_grad(dtype, dev, b, t, H, seed=2)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        mask = sdpa_mask(lengths, slopes, dtype, dev, t, t, True)
+        if name == "K4b":
+            def fwd(i):
+                return fa.flash_forward_full(q, k, v, lengths, slopes, True,
+                                             with_stats=True)
+
+            def fwd_plain(i):
+                return fa.flash_forward_full_plain(q, k, v, lengths, slopes,
+                                                   True, with_stats=True)
+
+            def sdpa_fwd(i):
+                with torch.no_grad():
+                    return F.scaled_dot_product_attention(q, k, v,
+                                                          attn_mask=mask)
+
+            kf = device_ms(fwd, n=20, only=("k4_fwd",), per_call=1)
+            cf = cuda_ms(fwd, n=20)
+            pf = device_ms(fwd_plain, n=3)
+            lf = device_ms(sdpa_fwd, n=20)
+            nbytes, flops = bhtd_bytes_ops(b, t, t, H, lens, True, 2)
+            nbytes += b * H * t * 4                    # lse written
+            bound, by = bound_of(nbytes, flops)
+            log(f"K4 time B={b} T={t} H={H} bf16 with lse (the training "
+                f"call): kernel {kf:.4f} ms, {cf:.4f} ms per call with the "
+                f"wrapper, plain {pf:.4f} ms, SDPA (float mask) forward "
+                f"{lf:.4f} ms, bound {bound:.4f} ms ({by}; "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            out["K4"] = entry("K4", "flash_forward_full", 406, kf, pf, bound,
+                              by, lf)
+            o, lse = fwd(0)
+
+            def call(i):
+                return fa.flash_backward_full(q, k, v, o, do, lse, lengths,
+                                              slopes, True)
+
+            def plain(i):
+                return fa.flash_backward_full_plain(q, k, v, o, do, lse,
+                                                    lengths, slopes, True)
+        else:
+            o = fa.flash_forward_tiled(q, k, v, lengths, slopes, True)
+
+            def call(i):
+                return fa.flash_backward_blockwise(q, k, v, o, do, lengths,
+                                                   slopes, True)
+
+            def plain(i):
+                return fa.flash_backward_blockwise_plain(
+                    q, k, v, o, do, lengths, slopes, True)
+        # K4b: the dk/dv and dq kernels; K5b: the statistics pass first
+        kt = device_ms(call, n=20, only=(name.lower() + "_",),
+                       per_call=2 if name == "K4b" else 3)
+        ct = cuda_ms(call, n=20)
+        pt = device_ms(plain, n=3)
+        q4, k4, v4 = (x.detach().requires_grad_() for x in (q, k, v))
+
+        def sdpa_fwd_bwd(i):
+            F.scaled_dot_product_attention(q4, k4, v4,
+                                           attn_mask=mask).backward(do)
+
+        lt = device_ms(sdpa_fwd_bwd, n=10)
+        del mask
+        nbytes, flops = bwd_bytes_ops(b, t, t, H, lens, True, 2,
+                                      2 if name == "K4b" else 1)
+        bound, by = bound_of(nbytes, flops)
+        log(f"{name} time B={b} T={t} H={H} bf16: kernels {kt:.4f} ms, "
+            f"{ct:.4f} ms per call with the wrapper (delta included), plain "
+            f"{pt:.4f} ms, SDPA (float mask) forward+backward {lt:.4f} ms, "
+            f"bound of the kernels {bound:.4f} ms ({by}; "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        out[name] = entry(name, "flash_backward_full" if name == "K4b"
+                          else "flash_backward_blockwise",
+                          735 if name == "K4b" else 682, kt, pt, bound, by,
+                          lt)
+        del q, k, v, do, o
+    return out["K4"], out["K4b"], out["K5b"]
+
+
+# ------------------------------------------------------ data parallel
+DP_WORLD = 2
+DP_STEPS = 3                        # optimizer steps of the two-rank fit
+DP_FLASH = ("flash_forward_packed", "flash_backward_packed",
+            "flash_forward_full", "flash_backward_full",
+            "flash_forward_tiled", "flash_backward_blockwise")
+
+
+def run_ranks(args: dict, work: str, timeout: float):
+    """``DP_WORLD`` ranks of this script in worker mode (``--dp-worker``)
+    on the card, over gloo: JAX's launch variables, one log file each.
+    Every rank is killed if the ranks are not done in ``timeout``
+    seconds.  Returns each rank's result dict."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    path = os.path.join(work, "args.json")
+    with open(path, "w") as f:
+        json.dump(args, f)
+    procs, logs = [], []
+    try:
+        for r in range(DP_WORLD):
+            env = dict(os.environ, VAE_GSLM_COORDINATOR=f"127.0.0.1:{port}",
+                       VAE_GSLM_NUM_PROCESSES=str(DP_WORLD),
+                       VAE_GSLM_PROCESS_ID=str(r), PYTHONPATH=ROOT)
+            logs.append(open(os.path.join(work, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-worker",
+                 path], cwd=ROOT, env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.time() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                log(f"rank {r} failed (exit {procs[r].returncode}):\n"
+                    + f.read()[-4000:])
+        raise AssertionError(f"ranks {bad} of the {args['mode']} phase "
+                             "failed")
+    out = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _refuse_plain(where: str):
+    """Make every plain attention version raise (the kernels must run);
+    returns a callable that undoes it."""
+    from vae_gslm_tpu_torch.nn import attention as attn_mod
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+
+    names = ("flash_forward_packed_plain", "flash_backward_packed_plain",
+             "flash_forward_full_plain", "flash_forward_tiled_plain",
+             "flash_backward_full_plain", "flash_backward_blockwise_plain",
+             "attention_reference")
+    saved = {n: getattr(fa, n) for n in names}
+    saved_attend = attn_mod.attend
+
+    def refuse(what):
+        def fn(*a, **k):
+            raise AssertionError(f"{where} reached {what} on the card")
+        return fn
+
+    for n in names:
+        setattr(fa, n, refuse(n))
+    attn_mod.attend = refuse("the dense attention")
+
+    def undo():
+        for n, f in saved.items():
+            setattr(fa, n, f)
+        attn_mod.attend = saved_attend
+
+    return undo
+
+
+def _param_digest(params) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in params:
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_small_rank(args: dict, rank: int) -> dict:
+    """One rank of ``phase_dp_small``: the step on this rank's rows."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vae_gslm_tpu_torch.core.masked import Masked
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+    from vae_gslm_tpu_torch.parallel import mesh
+    from vae_gslm_tpu_torch.trainers.speech.lvtr import LVTRTrainer
+
+    mesh.init_distributed("gloo")
+    try:
+        dev = mesh.rank_device()
+        work, b = args["work"], args["rows"]
+        tr = LVTRTrainer(small_train_hparams(args["vocoder"]), seed=3,
+                         device=dev)
+        tr.model.load_state_dict(torch.load(
+            os.path.join(work, "model.pt"), map_location=dev))
+        tr.global_step = args["step"]
+        data = torch.load(os.path.join(work, "batch.pt"))
+        lo, hi = rank * b, (rank + 1) * b
+        batch = {k: Masked(data[k][:, lo:hi], data[k + ".len"][:, lo:hi], 1)
+                 for k in ("mel", "tokens", "cropped_mel_utt")}
+        draws = [{k[len(f"draw{i}."):]: v[lo:hi] for k, v in data.items()
+                  if k.startswith(f"draw{i}.")}
+                 for i in range(TRAIN_ACCUM)]
+        undo = _refuse_plain("the two-rank small step")
+        for n in DP_FLASH:
+            getattr(fa, n).launches = 0
+        with tr.parallel_context():
+            metrics = tr.run_step(batch, draws=draws)
+        torch.cuda.synchronize()
+        counts = {n: getattr(fa, n).launches for n in DP_FLASH}
+        undo()
+        np.savez(os.path.join(work, f"grads{rank}.npz"),
+                 **{n: p.grad.cpu().numpy() for n, p in zip(tr.names,
+                                                             tr.params)})
+        return {"metrics": {k: float(v) for k, v in metrics.items()},
+                "counts": counts, "digest": _param_digest(tr.params)}
+    finally:
+        dist.destroy_process_group()
+
+
+def _dp_fit_rank(args: dict, rank: int) -> dict:
+    """One rank of ``phase_dp_fit``: ``scripts/train.py`` (gloo), each
+    optimizer step timed and its kernel counts set to 0 just before and
+    read just after, the all-reduces timed, the plain versions refused."""
+    import torch
+
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+    from vae_gslm_tpu_torch.parallel import mesh
+    from vae_gslm_tpu_torch.scripts import train as train_cli
+    from vae_gslm_tpu_torch.trainers.speech.lvtr import LVTRTrainer
+
+    steps, reduce_s, holder = [], [], {}
+    run_step, all_reduce = LVTRTrainer.run_step, mesh.all_reduce_sum
+
+    def counted(self, stacked, draws=None):
+        holder["trainer"] = self
+        for n in DP_FLASH:
+            getattr(fa, n).launches = 0
+        torch.cuda.synchronize()
+        t0, r0 = time.perf_counter(), sum(reduce_s)
+        metrics = run_step(self, stacked, draws)
+        torch.cuda.synchronize()
+        tok = stacked["tokens"]
+        steps.append({
+            "sec": time.perf_counter() - t0,
+            "reduce_sec": sum(reduce_s) - r0,
+            "counts": {n: getattr(fa, n).launches for n in DP_FLASH},
+            "shape": list(tok.value.shape),
+            "tokens": int(tok.lengths.sum()),
+            "metrics": {k: float(v) for k, v in metrics.items()}})
+        return metrics
+
+    def timed_reduce(tensors):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce(tensors)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+
+    LVTRTrainer.run_step = counted
+    mesh.all_reduce_sum = timed_reduce
+    undo = _refuse_plain("the two-rank fit")
+    dev = torch.device("cuda", 0)
+    torch.empty(0, device=dev)       # the allocator exists before its reset
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    train_cli.main(["-c", args["config"], "--backend", "gloo",
+                    "--max_steps", str(args["steps"]), "-n", "dp",
+                    "-log", "WARNING"])
+    wall = time.perf_counter() - t0
+    undo()
+    tr = holder["trainer"]
+    return {"steps": steps, "wall": wall, "device": str(tr.device),
+            "world": tr.world_size,
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "nparams": sum(p.numel() for p in tr.params),
+            "digest": _param_digest(tr.params)}
+
+
+def dp_worker(args_path: str) -> int:
+    """Worker mode: one rank of a two-rank phase (launched by
+    ``run_ranks`` with the launch variables set)."""
+    os.environ.setdefault("TEARDOWN_CUPTI", "0")
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(args_path) as f:
+        args = json.load(f)
+    rank = int(os.environ["VAE_GSLM_PROCESS_ID"])
+    out = (_dp_small_rank(args, rank) if args["mode"] == "small"
+           else _dp_fit_rank(args, rank))
+    with open(os.path.join(args["work"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_dp_small(dev):
+    """Two ranks on the card (gloo, one process each) take one float32
+    step of the small LVTR (accumulation 2, utterance encoder) on their
+    halves of a global batch with pinned draws, through K4/K4b (the
+    data-mesh route); the single-process step over the whole batch on
+    the card (K3/K3b) is the reference: metrics to 1e-4 relative (token
+    sums and grad_norm), the summed gradients to 1e-3 x max|g| per leaf
+    (1e-3: two kernels summing in other orders, then the cross-rank sum);
+    the ranks' parameters bitwise equal.  Exactly 2 x accumulation K4
+    and K4b launches per rank, no K3/K3b."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.trainers.speech.lvtr import LVTRTrainer
+
+    b_rank, t = 2, 100
+    work = tempfile.mkdtemp(prefix="dp_small_")
+    try:
+        with precision.policy_scope(precision.Policy()):
+            vdir = vocoder_dir(work)
+            single = LVTRTrainer(small_train_hparams(vdir), seed=3,
+                                 device=dev)
+            torch.save(single.model.state_dict(),
+                       os.path.join(work, "model.pt"))
+            rng = np.random.RandomState(4)
+            batch = train_batches(rng, DP_WORLD * b_rank, t,
+                                  [100, 61, 1, 77], 40, 50)
+            draws = [train_draws(rng, DP_WORLD * b_rank, t, 4, 32,
+                                 single.model.decoder.num_timesteps)
+                     for _ in range(TRAIN_ACCUM)]
+            data = {}
+            for k, v in batch.items():
+                data[k], data[k + ".len"] = v.value, v.lengths
+            for i, d in enumerate(draws):
+                data.update({f"draw{i}.{k}": x for k, x in d.items()})
+            torch.save(data, os.path.join(work, "batch.pt"))
+            step = 40000                           # past the KLD warm-up
+            single.global_step = step
+            want = single.run_step(batch, draws=draws)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ranks = run_ranks({"mode": "small", "work": work,
+                               "vocoder": vdir, "rows": b_rank,
+                               "step": step}, work, timeout=300)
+            sec = time.perf_counter() - t0
+            grads = []
+            for r in range(DP_WORLD):
+                with np.load(os.path.join(work, f"grads{r}.npz")) as z:
+                    grads.append({k: z[k] for k in z.files})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    n_layers = len(single.model.transformer.layers)
+    wantc = n_layers * TRAIN_ACCUM
+    worst_m, worst_g = 0.0, 0.0
+    for r, res in enumerate(ranks):
+        c = res["counts"]
+        if (c["flash_forward_full"], c["flash_backward_full"],
+                c["flash_forward_packed"], c["flash_backward_packed"]) != \
+                (wantc, wantc, 0, 0):
+            raise AssertionError(f"rank {r}: launches {c}, expected "
+                                 f"{wantc} K4 and K4b and no K3/K3b")
+        for k in ("rec_loss", "kld", "token_kld", "log_p", "log_q",
+                  "grad_norm"):
+            g, w = res["metrics"][k], float(want[k])
+            worst_m = max(worst_m, abs(g - w) / max(abs(w), 1e-12))
+        for name, p in zip(single.names, single.params):
+            ref = p.grad.double().cpu().numpy()
+            scale = np.abs(ref).max()
+            err = np.abs(grads[r][name] - ref).max()
+            if not err <= 1e-3 * scale + 1e-30:
+                raise AssertionError(f"rank {r}: summed gradient of {name} "
+                                     f"differs by {err:.3e} (max |g| "
+                                     f"{scale:.3e})")
+            worst_g = max(worst_g, err / max(scale, 1e-30))
+    if not worst_m <= 1e-4:
+        raise AssertionError(f"two-rank metrics differ from the single "
+                             f"process by {worst_m:.3e} relative")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError("the ranks' parameters differ after the step")
+    log(f"two-rank small step on the card (gloo, K4/K4b, float32) vs the "
+        f"single-process step (K3/K3b): metrics max rel err {worst_m:.2e}, "
+        f"summed gradients max err {worst_g:.2e} x max|g| over "
+        f"{len(single.params)} leaves; parameters bitwise equal across "
+        f"ranks; launches per rank {ranks[0]['counts']}; {sec:.1f} s with "
+        "the ranks' start")
+
+
+def write_train_corpus(root: str, mels: str, n: int, lo_s: float,
+                       hi_s: float, dev, seed: int = 0) -> float:
+    """``n`` WAVs (16 kHz, 16-bit) of ``lo_s``-``hi_s`` s from ``seed``,
+    a ``tokens.txt`` of random token ids at 50 Hz, and each WAV's 80-bin
+    log-mel (the vocoder config's frontend, on the card) as ``.npy``
+    under ``mels``, as ``preprocess_mels`` reads them.  Every duration
+    is a whole number of 20 ms frames.  Returns the seconds of audio."""
+    import numpy as np
+
+    from vae_gslm_tpu_torch.data import audio
+    from vae_gslm_tpu_torch.data.features import MelSpecFeatureProcessor
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+
+    proc = MelSpecFeatureProcessor(
+        Hparams.from_yamlfile(VOCODER_YAML).feature, device=dev)
+    rng = np.random.RandomState(seed)
+    frames = rng.randint(int(lo_s * 50), int(hi_s * 50) + 1, n)
+    lines = []
+    os.makedirs(mels, exist_ok=True)
+    for i, nf in enumerate(frames):
+        m = int(nf) * 320
+        t = np.arange(m, dtype=np.float32) / 16000.0
+        f0 = rng.uniform(90, 250)
+        wave = sum(rng.uniform(0.02, 0.1) / h
+                   * np.sin(2 * np.pi * h * f0 * t + rng.uniform(0, 6.3))
+                   for h in range(1, 6))
+        wave = (wave * (0.6 + 0.4 * np.sin(2 * np.pi * 3.1 * t))
+                + 0.01 * rng.randn(m)).astype(np.float32)
+        name = f"utt{i:03d}"
+        audio.save_wav(os.path.join(root, name + ".wav"), wave, 16000)
+        np.save(os.path.join(mels, name + ".npy"),
+                proc.encode_single(wave).cpu().numpy())
+        lines.append(f"{name}.wav|"
+                     f"{' '.join(map(str, rng.randint(0, 200, nf)))}")
+    with open(os.path.join(root, "tokens.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return float(frames.sum()) / 50.0
+
+
+def phase_dp_fit(dev, gpu: str, long: bool = False):
+    """Two ranks on the card (gloo) train the full-width LVTR of
+    ``configs/train/speech/vae-gslm.yaml`` through ``scripts/train.py``
+    -> ``LVTRTrainer.fit``, its data paths pointed at a synthetic corpus
+    written from seed 0 (WAVs, tokens and preprocessed mels; a uniform
+    length mix, not a measured corpus's).  The shipped settings: 8 rows
+    per rank x accumulation 2 x 640-frame segments, 16-mixed, AdamW,
+    ``DP_STEPS`` optimizer steps over 96 utterances of 13-20 s (one
+    epoch); exactly 32 K4 and 32 K4b launches per rank per step and no
+    K3/K3b; the ranks' parameters bitwise equal at the end; rank 0's
+    ``last-cpt.npz`` read back strictly and equal to them.  With
+    ``long``: one step past 1024 frames (``token_segment_size`` 1536 and
+    its post-padding, 2 rows per rank, accumulation 1) over 4 utterances
+    of 31-35 s: exactly 16 K5 and 16 K5b launches per rank.  Both ranks
+    share the one card: their times say nothing about scaling.  Returns
+    rank 0's launches of the kernels over the run."""
+    import shutil
+    import tempfile
+
+    import yaml
+
+    tmp = tempfile.mkdtemp(prefix="dp_fit_")
+    try:
+        corpus, mels = os.path.join(tmp, "corpus"), os.path.join(tmp, "mels")
+        os.makedirs(corpus)
+        steps = 1 if long else DP_STEPS
+        n_utt = 4 if long else DP_WORLD * TRAIN_B * TRAIN_ACCUM * steps
+        t0 = time.perf_counter()
+        audio_s = write_train_corpus(corpus, mels, n_utt,
+                                     31.0 if long else 13.0,
+                                     35.0 if long else 20.0, dev)
+        with open(TRAIN_YAML) as f:
+            cfg = yaml.safe_load(f)
+        cfg["vocoder"]["path"] = vocoder_dir(tmp)
+        cfg["logging"]["log_dir"] = os.path.join(tmp, "logs")
+        data = cfg["data"]["train"]
+        data.update(path=os.path.join(corpus, "tokens.txt"), wavdir=corpus,
+                    preprocess_mels=mels)
+        if long:
+            data.update(token_segment_size=K5B_T, batch_size=2,
+                        post_pad={"tokens": {"num_tokens": K5B_T},
+                                  "mel": {"length": K5B_T / 50.0}})
+            cfg["training"]["gradient_accumulation"] = 1
+        path = os.path.join(tmp, "train.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        log(f"dp{' long' if long else ''}: corpus of {n_utt} WAVs "
+            f"({audio_s:.1f} s of audio) with mels written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ranks = run_ranks({"mode": "fit", "work": tmp, "config": path,
+                           "steps": steps}, tmp, timeout=600)
+        ckpt = os.path.join(tmp, "logs", "dp", "ckpt", "version_0")
+        names = sorted(os.listdir(ckpt))
+        want_names = sorted([f"step={steps}-cpt.npz", "last-cpt.npz",
+                             "hp.yaml", "full_state.pt"])
+        if names != want_names:
+            raise AssertionError(f"rank 0 wrote {names}, expected "
+                                 f"{want_names}")
+        if not long:
+            read_back(os.path.join(ckpt, "last-cpt.npz"), cfg, dev,
+                      ranks[0]["digest"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seg = K5B_T if long else TRAIN_T
+    rows = 2 if long else TRAIN_B
+    accum = 1 if long else TRAIN_ACCUM
+    want = L * accum
+    kernels = (("flash_forward_tiled", "flash_backward_blockwise") if long
+               else ("flash_forward_full", "flash_backward_full"))
+    for r, res in enumerate(ranks):
+        if res["world"] != DP_WORLD or len(res["steps"]) != steps:
+            raise AssertionError(f"rank {r}: world {res['world']}, "
+                                 f"{len(res['steps'])} steps")
+        for i, st in enumerate(res["steps"]):
+            c = st["counts"]
+            others = {n: v for n, v in c.items() if n not in kernels and v}
+            if (c[kernels[0]], c[kernels[1]]) != (want, want) or others:
+                raise AssertionError(
+                    f"rank {r} step {i}: launches {c}, expected {want} of "
+                    f"{kernels[0]} and {kernels[1]} and no other")
+            if st["shape"] != [accum, rows, seg]:
+                raise AssertionError(f"rank {r} step {i}: batch "
+                                     f"{st['shape']}, expected "
+                                     f"{[accum, rows, seg]}")
+            terms = [st["metrics"][k] for k in ("rec_loss", "kld",
+                                                "token_kld", "grad_norm")]
+            if not all(math.isfinite(x) for x in terms):
+                raise AssertionError(f"rank {r} step {i}: metrics "
+                                     f"{st['metrics']}")
+        log(f"dp{' long' if long else ''} rank {r} on {res['device']}: "
+            + "; ".join(
+                f"step {i} {st['sec'] * 1e3:.1f} ms (all-reduce "
+                f"{st['reduce_sec'] * 1e3:.1f} ms), {st['tokens']} tokens, "
+                f"{kernels[0]} {st['counts'][kernels[0]]}, {kernels[1]} "
+                f"{st['counts'][kernels[1]]}, rec_loss "
+                f"{st['metrics']['rec_loss']:.4f}, grad_norm "
+                f"{st['metrics']['grad_norm']:.4f}"
+                for i, st in enumerate(res["steps"]))
+            + f"; peak memory {res['peak'] / 2 ** 30:.2f} GiB; fit wall "
+              f"{res['wall']:.1f} s")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError("the ranks' parameters differ after fit")
+    for i in range(steps):
+        a, b = (res["steps"][i]["metrics"] for res in ranks)
+        if a != b:
+            raise AssertionError(f"step {i}: the ranks logged {a} and {b}")
+    timed = [res["steps"][1:] or res["steps"] for res in ranks]
+    sec = statistics.median(st["sec"] for st in timed[0])
+    red = statistics.median(st["reduce_sec"] for st in timed[0])
+    tokens = statistics.median(st["tokens"] for st in timed[0])
+    log(f"dp{' long' if long else ''} summary ({DP_WORLD} ranks sharing one "
+        f"card over gloo: no scaling claim; {ranks[0]['nparams'] / 1e6:.1f} "
+        f"M parameters): median step {sec * 1e3:.1f} ms over "
+        f"{len(timed[0])} step(s) of rank 0 ({rows} rows x accumulation "
+        f"{accum} x {seg} frames per rank), {tokens / sec:.0f} tokens/s per "
+        f"rank, all-reduce {red / sec:.1%} of the step, peak memory per "
+        f"rank {', '.join(f'{r_['peak'] / 2 ** 30:.2f}' for r_ in ranks)} "
+        f"GiB; parameters and logged metrics equal across ranks ({gpu})")
+    return {n: sum(st["counts"][n] for st in ranks[0]["steps"])
+            for n in kernels}
+
+
+def read_back(path: str, cfg: dict, dev, digest: str) -> None:
+    """Strictly load rank 0's compact checkpoint into a fresh LVTR of the
+    config; its parameters must equal rank 0's at the end of fit."""
+    import torch
+
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.models.speech.lvtr import LVTR
+    from vae_gslm_tpu_torch.training.checkpoint import load_compact
+
+    model = LVTR(Hparams.from_dict(cfg["model"]), input_dim=80, device=dev,
+                 generator=torch.Generator(dev).manual_seed(9))
+    load_compact(model, path)
+    got = _param_digest(p for _, p in model.named_parameters())
+    if got != digest:
+        raise AssertionError("last-cpt.npz read back differs from rank 0's "
+                             "parameters")
+    log("dp: rank 0's last-cpt.npz read back strictly, equal to the ranks' "
+        "parameters")
+    del model
+
+
 def main() -> int:
     # keep CUPTI set up between profiler windows (torch's own workaround
     # for its re-initialisation, which has left windows with no kernel)
@@ -1827,6 +2603,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on a GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dp-worker"]:
+        return dp_worker(sys.argv[2])
     sys.path.insert(0, ROOT)
     import vae_gslm_tpu_torch  # noqa: F401  (fails outside the repo)
 
@@ -1850,7 +2628,7 @@ def main() -> int:
         for job in jobs:
             job.result()
     log(f"build: {', '.join(n + '.cu' for n in names)} (K1, K2, "
-        f"K3/K3b/K4/K5) and native/dataio.cc in "
+        f"K3/K3b/K4/K4b/K5/K5b) and native/dataio.cc in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, (sec, text) in build.BUILD_LOG.items():
         log(f"nvcc {name} ({sec:.1f} s): "
@@ -1860,17 +2638,24 @@ def main() -> int:
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
     k3, k3b = phase_k3(dev)
-    k4, k5 = phase_k45(dev)
+    k4_worst, k5 = phase_k45(dev)
+    k4, k4b, k5b = phase_k45b(dev, k4_worst)
     phase_small(dev, quantize=False)
     phase_small(dev, quantize=True)
     phase_train_small(dev)
-    k4["launches"] = phase_likelihood_small(dev)
+    phase_likelihood_small(dev)
+    phase_dp_small(dev)
     k1["launches"] = phase_pipeline(dev, gpu, quantize=False)
     k2["launches"] = phase_pipeline(dev, gpu, quantize=True)
     k3["launches"], k3b["launches"] = phase_train(dev, gpu)
+    dp = phase_dp_fit(dev, gpu)
+    k4["launches"] = dp["flash_forward_full"]
+    k4b["launches"] = dp["flash_backward_full"]
+    k5b["launches"] = phase_dp_fit(dev, gpu, long=True)[
+        "flash_backward_blockwise"]
     k5["launches"] = phase_score(dev, gpu)
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3, k3b, k4, k5]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k3b, k4, k4b, k5, k5b]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

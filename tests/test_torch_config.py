@@ -68,6 +68,18 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("path", [
+    "vae_gslm_tpu_torch/parallel/mesh.py",
+    "vae_gslm_tpu_torch/parallel/tp.py",
+    "vae_gslm_tpu_torch/training/logging.py",
+    "vae_gslm_tpu_torch/scripts/train.py"])
+def test_import_guard_covers_training_slice(path):
+    """The data-parallel training slice's modules are among the guarded
+    files and import no JAX."""
+    assert path in PORT_FILES
+    test_port_imports_no_jax(path)
+
+
 def _tiny_lvtr(**kw):
     return LVTR(Hparams.from_yaml(TINY_YAML), input_dim=N_MELS, **kw)
 

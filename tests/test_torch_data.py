@@ -150,10 +150,19 @@ def test_sampler_orders_match_jax(kw):
 @pytest.mark.parametrize("typ, distributed", [
     ("standard", True), ("bucket", False), ("concat", False)])
 def test_dataloader_refuses_unported_samplers(typ, distributed):
-    """Only the standard sampler of one process is ported; the others
-    raise, naming ROADMAP.md, before the dataset is read."""
+    """The bucket and concat samplers raise, naming ROADMAP.md, before
+    the dataset is read.  The standard sampler is ported for one process
+    and for one rank; a rank's loader needs the world size and rank."""
     hp = Hparams.from_dict({"num_workers": 1, "batch_size": 4,
                             "sampler": {"type": typ, "shuffle": False}})
+    if typ == "standard":
+        with pytest.raises(ValueError, match="world_size and rank"):
+            get_dataloader(hp, [], distributed)
+        items = type("Items", (list,), {"seq_collate": staticmethod(list)})
+        loader = get_dataloader(hp, items(range(10)), distributed, 2, 1)
+        assert isinstance(loader.sampler, sampler.DistributedSampler)
+        assert _batches(loader.sampler) == [[1, 3, 5, 7]]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_dataloader(hp, [], distributed)
 
@@ -235,6 +244,87 @@ def test_token_dataset_batches_match_jax(tmp_path):
                                        rtol=0, atol=atol)
         # frames = samples / 320 after the padding; tokens cap the mels
         assert g["mel"].value.shape[1] == g["tokens"].value.shape[1]
+
+
+TRAIN_DATA_YAML = """
+path: "{corpus}/tokens.txt"
+wavdir: "{corpus}"
+preprocess_mels: "{mels}"
+preprocess_mels_recursive_dir: true
+sample_rate: 16000
+with_text: false
+with_tokens: true
+batch_size: 2
+num_workers: 1
+min_audio_length: 0.5
+bits_per_second: 32000
+token_segment_size: 30
+post_pad:
+    tokens: {{num_tokens: 30}}
+    mel: {{length: 0.6}}
+random_crop_mel_utt: {{min_seg_sec: 0.2, max_seg_sec: 0.4}}
+sampler: {{type: "standard", shuffle: true}}
+"""
+
+
+@pytest.mark.parametrize("world, rank", [(1, 0), (2, 1)])
+def test_training_data_settings_match_jax(tmp_path, world, rank):
+    """The shipped training config's data settings (``preprocess_mels``
+    from a recursive directory, ``token_segment_size`` crops,
+    ``post_pad``, seeded ``random_crop_mel_utt`` crops, mel rescale)
+    through each package's loader with the distributed sampler of
+    ``(world, rank)`` over two epochs: the same batches, tokens and
+    lengths exactly, mels to 1e-6."""
+    corpus, mels = tmp_path / "corpus", tmp_path / "mels"
+    os.makedirs(corpus / "sub")
+    write_corpus(str(corpus), [0.8, 1.1, 0.62, 0.9, 1.3, 0.7])
+    lines = []
+    with open(corpus / "tokens.txt") as f:     # the WAVs one level down
+        for line in f.read().split():
+            if "|" in line:
+                name, rest = line.split("|", 1)
+                os.replace(corpus / name, corpus / "sub" / name)
+                line = f"sub/{name}|{rest}"
+            lines.append(line)
+    with open(corpus / "tokens.txt", "w") as f:
+        f.write(" ".join(lines).replace(" sub/", "\nsub/") + "\n")
+    feat = _feature_hp("flagship")
+    proc = MelSpecFeatureProcessor(Hparams(**feat), device="cpu")
+    os.makedirs(mels / "sub")
+    for name in os.listdir(corpus / "sub"):
+        wave, _ = audio.load_audio(str(corpus / "sub" / name))
+        np.save(mels / "sub" / name.replace(".wav", ".npy"),
+                proc.encode_single(wave).numpy())
+    data = TRAIN_DATA_YAML.format(corpus=corpus, mels=mels)
+    rescale = {"mean": -1.5, "std": 2.0}
+    ours = dataset.DiscreteTokenDataset(
+        Hparams.from_yaml(data), Hparams(**feat),
+        Hparams(deduplicate=False, sample_rate=50), Hparams(**rescale),
+        device="cpu")
+    theirs = jdataset.DiscreteTokenDataset(
+        JHparams.from_yaml(data), JHparams(**feat),
+        JHparams(deduplicate=False, sample_rate=50), JHparams(**rescale))
+    jsamp = jsampler.standard_sampler(len(theirs), 2, shuffle=True,
+                                      distributed=True, world_size=world,
+                                      rank=rank)
+    loader = get_dataloader(Hparams.from_yaml(data), ours, True, world, rank)
+    assert len(ours) == len(theirs) == 6
+    for epoch in (0, 1):
+        jsamp.set_epoch(epoch)
+        loader.sampler.set_epoch(epoch)
+        want = list(JLoader(theirs, jsamp, num_workers=1))
+        got = list(loader)
+        assert len(got) == len(want) == 3 // world
+        for g, w in zip(got, want):
+            assert sorted(g) == sorted(w)
+            for k in ("tokens", "mel", "cropped_mel_utt"):
+                np.testing.assert_array_equal(g[k].lengths.numpy(),
+                                              w[k].lengths)
+                np.testing.assert_allclose(g[k].value.numpy(), w[k].value,
+                                           rtol=0,
+                                           atol=0 if k == "tokens" else 1e-6)
+            assert g["tokens"].value.shape[1] == 30
+            assert g["mel"].value.shape[1] == 30
 
 
 def _build_and_read(build_dir, wav, queue):

@@ -1,19 +1,24 @@
-// K3 / K3b / K4 / K5: length-masked ALiBi attention, forward and backward,
-// for sm_90a.
+// K3 / K3b / K4 / K4b / K5 / K5b: length-masked ALiBi attention, forward
+// and backward, for sm_90a.
 //
 // Replaces the Pallas kernels of vae_gslm_tpu/ops/flash_attention.py:
 //   K3  _flash_forward_full_packed (:230, body _fwd_full_packed_kernel :189)
 //   K3b _flash_backward_packed     (:359, body _bwd_full_packed_kernel :272)
 //   K4  _flash_forward_full        (:406, body _fwd_full_kernel :111)
+//   K4b _flash_backward            (:735, body _flash_bwd_kernel :481)
 //   K5  _flash_forward             (:443, body _flash_kernel :69)
+//   K5b _flash_backward_blockwise  (:682, body
+//       _flash_bwd_blockwise_kernel :609)
 // K3/K3b take causal self-attention over the packed (B, T, H*D)
 // projection layout, T <= 1024.  K4 (Tq = Tk <= 1024, optional lse) and
 // K5 (any Tq, Tk up to 8192, no lse) are the (B, H, T, D) forwards that
-// JAX runs off the packed envelope: an unpackable head layout, or T past
-// 1024.  All three forwards are one tiled body (below) with an entry
-// point and kernel symbols of their own (k3_/k4_/k5_fwd[_mma]_kernel), so
-// a profile tells them apart.  Every operand is read through (batch,
-// head, row) element strides with a contiguous feature axis, so packed
+// JAX runs off the packed envelope and under a data-parallel mesh; K4b
+// (Tq = Tk <= 1024, lse from K4) and K5b (any Tq, Tk up to 8192, its own
+// row statistics) are the backwards of that (B, H, T, D) custom VJP.  The
+// three forwards are one tiled body (below), the three backwards another,
+// each with an entry point and kernel symbols of its own (k3_/k4_/k5_fwd*,
+// k3b_/k4b_/k5b_{dkv,dq}*, k5b_stats*), so a profile tells them apart.  Every operand is read through (batch, head,
+// row) element strides with a contiguous feature axis, so packed
 // projection views and (B, H, T, D) tensors both go in without a copy.
 // The query and key positions both count from 0 (the ALiBi distance and
 // the causal test of _flash_kernel :90-99 for Tq != Tk).
@@ -23,26 +28,35 @@
 //         is at or past lengths[b] or (causal) after the query;
 //   fwd: m = max s, l = sum exp(s - m), p = exp(s - m) / l rounded to V's
 //        dtype, o = p . v (float32 sums) in q's dtype, lse = m + log l;
-//   bwd: p = exp(s - lse), dp = dO . v, ds = p (dp - delta) rounded to q's
-//        dtype, dq = (ds . k) * scale, dv = round(p)^T . dO,
-//        dk = (ds^T . q) * scale, with delta = rowsum(dO * O) given.
-// All arithmetic is float32; elements are float32 or bfloat16.
+//   bwd: p = exp(s - lse) (K3b, K4b) or exp(s - m) / l (K5b, exact rows as
+//        _flash_bwd_blockwise_kernel :648-650), dp = dO . v,
+//        ds = p (dp - delta) rounded to q's dtype, dq = (ds . k) * scale,
+//        dv = round(p)^T . dO, dk = (ds^T . q) * scale, with
+//        delta = rowsum(dO * O) given.  dk and dv are summed in float32
+//        over every query tile and rounded once.
+// All arithmetic is float32; elements are float32 or bfloat16.  A row of
+// length 0 sees every key at -1e30: K4's lse is then -1e30 + log Tk, which
+// is -1e30 in float32, so K3b/K4b's p is 1 on every key (JAX's kernels do
+// the same); K5b keeps m and l apart and gets 1 / Tk.
 //
 // Design.  The TPU kernels keep a whole (T, T) float32 tile per
 // (batch, head) in VMEM; at T = 640 that is 1.6 MB against the 227 KB of
 // shared memory an H100 block can use, so these kernels are tiled 64 x 64.
-// q/k/v/dO are read straight from the packed projection output by row
-// stride (views into the fused qkv tensor need no copy).
 //   * forward: one block per (64-query tile, head, batch).  Pass 1 walks
 //     the key tiles for the row max and sum (online); pass 2 recomputes
 //     the logits, forms the normalized, rounded p and accumulates p . v.
 //     The probabilities are normalized before P.V, as the TPU kernel does.
 //   * backward: two launches and no atomics, so runs agree bit for bit:
 //     one block per key tile walks the query tiles for dk and dv, one per
-//     query tile walks the key tiles for dq.
+//     query tile walks the key tiles for dq.  K5b, which gets no lse,
+//     runs a third launch before them, the forward's pass 1 alone, that
+//     writes each row's m and l; whether a body reads l is a template
+//     parameter, so K3b and K4b compile without it.  The TPU's q-tile
+//     grid that carries dk/dv across sequential steps (K5b) becomes the
+//     key-tile block's own loop over the query tiles.
 // Key tiles past the causal edge or at or past lengths[b] add exact zeros
 // and are skipped, but only when lengths[b] >= 1: a row of length 0 is
-// uniform over all T keys, as in the reference.
+// uniform over all Tk keys, as in the reference.
 //
 // Two element types, two product routes.  bfloat16 (the training path
 // under 16-mixed) multiplies on the tensor cores with mma.sync
@@ -63,7 +77,8 @@
 // memory by plain loads (no ldmatrix, no TMA, no pipelining of the next
 // tile's loads), and every key tile is read twice in the forward (the
 // two passes) and every (query, key) pair recomputed in both backward
-// launches.  wgmma/TMA pipelines are later work.
+// launches (three times in K5b, whose statistics pass runs first).  wgmma/TMA
+// pipelines are later work.
 //
 // Each launch function returns cudaGetLastError() after its launches.
 
@@ -83,6 +98,7 @@ constexpr float NEG_INF = -1e30f;
 constexpr int TT = HD * LD;     // floats in a transposed tile
 constexpr int TR = TILE * HD;   // floats in a row-major tile
 constexpr int FWD_SMEM = (3 * TT + TR) * 4;
+constexpr int STATS_SMEM = 2 * TT * 4;
 constexpr int DKV_SMEM = (6 * TT + 2 * TR) * 4;
 constexpr int DQ_SMEM = (5 * TT + TR) * 4;
 
@@ -142,6 +158,14 @@ __device__ __forceinline__ float logit(float dot, int r, int c, int len,
   return valid ? x : NEG_INF;
 }
 
+// The backward's probability of a logit x from its row's statistics:
+// exp(x - lse) (a is lse, l unused) or, with HAVE_L, exp(x - m) / l (a
+// is m).
+template <bool HAVE_L>
+__device__ __forceinline__ float prob(float x, float a, float l) {
+  return HAVE_L ? __fdiv_rn(expf(x - a), l) : expf(x - a);
+}
+
 // Reductions over the 16 threads (tx) that share a row: lanes 0-15 or
 // 16-31 of a warp.  The butterfly gives every lane the same value.
 __device__ __forceinline__ float row_max(float x) {
@@ -166,6 +190,50 @@ __device__ __forceinline__ int key_tiles(int qt, int len, int tk,
     if (causal) end = min(end, qt + 1);
   }
   return end;
+}
+
+// Pass 1 of the float32 forward: the row max m and the sum l of
+// exp(s - m) of the thread's four query rows of the tile at q0, online
+// over the key tiles [0, kt_end).  Qt holds the query tile; Kt is
+// scratch.
+__device__ __forceinline__ void pass1_f32(const float* Qt, float* Kt,
+                                          const float* kb, long long k_rs,
+                                          int q0, int kt_end, int tk,
+                                          int len, int causal,
+                                          int use_alibi, float slope,
+                                          float scale, float m[4],
+                                          float l[4]) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float s[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int k0 = kt * TILE;
+    __syncthreads();
+    load_t(Kt, kb, k_rs, k0, tk);
+    __syncthreads();
+    zero(s);
+    outer(Qt, LD, Kt, LD, s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + ty * 4 + i;
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = k0 + tx * 4 + j;
+        s[i][j] = c < tk ? logit(s[i][j], r, c, len, causal, use_alibi,
+                                 slope, scale)
+                         : -INFINITY;
+        tmax = fmaxf(tmax, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(tmax));
+      float e = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) e += expf(s[i][j] - m_new);
+      l[i] = l[i] * expf(m[i] - m_new) + row_sum(e);
+      m[i] = m_new;
+    }
+  }
 }
 
 // The float32 forward of one (64-query tile, head, batch): tq queries
@@ -193,37 +261,8 @@ __device__ __forceinline__ void fwd_f32(
 
   load_t(Qt, qb, sq.rs, q0, tq);
   float m[4], l[4], s[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
-
-  // pass 1: row max and sum of exp, online over the key tiles
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();
-    load_t(Kt, kb, sk.rs, k0, tk);
-    __syncthreads();
-    zero(s);
-    outer(Qt, LD, Kt, LD, s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx * 4 + j;
-        s[i][j] = c < tk ? logit(s[i][j], r, c, len, causal, use_alibi,
-                                 slope, scale)
-                         : -INFINITY;
-        tmax = fmaxf(tmax, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(tmax));
-      float e = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) e += expf(s[i][j] - m_new);
-      l[i] = l[i] * expf(m[i] - m_new) + row_sum(e);
-      m[i] = m_new;
-    }
-  }
+  pass1_f32(Qt, Kt, kb, sk.rs, q0, kt_end, tk, len, causal, use_alibi,
+            slope, scale, m, l);
 
   // pass 2: normalized probabilities times V
   float acc[4][4];
@@ -287,13 +326,57 @@ __global__ void __launch_bounds__(NT) k5_fwd_kernel(FWD_F32_ARGS) {
   fwd_f32(FWD_PASS);
 }
 
+// K5b's row statistics of one (64-query tile, head, batch): pass 1 of
+// the forward alone, m into m_out and l into l_out, each (B, H, tq).
+__device__ __forceinline__ void stats_f32(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const int* __restrict__ lengths, const float* __restrict__ slopes,
+    float* __restrict__ m_out, float* __restrict__ l_out, Seq sq, Seq sk,
+    int tq, int tk, int nheads, int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  float* Qt = reinterpret_cast<float*>(smem4);
+  float* Kt = Qt + TT;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = qt * TILE, ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int len = lengths[b];
+  const int use_alibi = slopes != nullptr;
+  const float slope = use_alibi ? slopes[h] : 0.f;
+  load_t(Qt, q + b * sq.bs + h * sq.hs, sq.rs, q0, tq);
+  float m[4], l[4];
+  pass1_f32(Qt, Kt, k + b * sk.bs + h * sk.hs, sk.rs, q0,
+            key_tiles(qt, len, tk, causal), tk, len, causal, use_alibi,
+            slope, scale, m, l);
+  if (tx != 0) return;
+  const long long base = ((long long)b * nheads + h) * tq;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty * 4 + i;
+    if (r >= tq) continue;
+    m_out[base + r] = m[i];
+    l_out[base + r] = l[i];
+  }
+}
+
+#define STATS_F32_ARGS                                                    \
+  const float *__restrict__ q, const float *__restrict__ k,               \
+      const int *__restrict__ lengths, const float *__restrict__ slopes,  \
+      float *__restrict__ m_out, float *__restrict__ l_out, Seq sq,       \
+      Seq sk, int tq, int tk, int nheads, int causal, float scale
+#define STATS_PASS q, k, lengths, slopes, m_out, l_out, sq, sk, tq, tk, \
+                   nheads, causal, scale
+
+__global__ void __launch_bounds__(NT) k5b_stats_kernel(STATS_F32_ARGS) {
+  stats_f32(STATS_PASS);
+}
+
 // p and ds of one (query tile, key tile) pair from the logits s and
-// dp = dO . v; zero outside [0, T).
+// dp = dO . v; zero for rows at or past tq and keys at or past tk.
+template <bool HAVE_L>
 __device__ __forceinline__ void probs(float s[4][4], float dp[4][4],
-                                      const float lse_r[4],
-                                      const float delta_r[4], int q0,
-                                      int k0, int t_len, int len,
-                                      int causal, int use_alibi,
+                                      const float a_r[4], const float l_r[4],
+                                      const float delta_r[4],
+                                      int q0, int k0, int tq, int tk,
+                                      int len, int causal, int use_alibi,
                                       float slope, float scale) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -302,10 +385,10 @@ __device__ __forceinline__ void probs(float s[4][4], float dp[4][4],
     for (int j = 0; j < 4; ++j) {
       const int c = k0 + (threadIdx.x & 15) * 4 + j;
       float p = 0.f, ds = 0.f;
-      if (r < t_len && c < t_len) {
+      if (r < tq && c < tk) {
         const float x = logit(s[i][j], r, c, len, causal, use_alibi, slope,
                               scale);
-        p = expf(x - lse_r[i]);
+        p = prob<HAVE_L>(x, a_r[i], l_r[i]);
         ds = __fmul_rn(p, __fsub_rn(dp[i][j], delta_r[i]));
       }
       s[i][j] = p;       // s now holds p, dp holds ds
@@ -314,28 +397,45 @@ __device__ __forceinline__ void probs(float s[4][4], float dp[4][4],
   }
 }
 
-__device__ __forceinline__ void row_stats(float lse_r[4], float delta_r[4],
+// The statistics (lse, or m and l) and delta of the thread's four query
+// rows.
+template <bool HAVE_L>
+__device__ __forceinline__ void row_stats(float a_r[4], float l_r[4],
+                                          float delta_r[4], const float* ab,
                                           const float* lb, const float* db,
-                                          int q0, int t_len) {
+                                          int q0, int tq) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + (threadIdx.x >> 4) * 4 + i;
-    lse_r[i] = r < t_len ? lb[r] : 0.f;
-    delta_r[i] = r < t_len ? db[r] : 0.f;
+    a_r[i] = r < tq ? ab[r] : 0.f;
+    l_r[i] = HAVE_L && r < tq ? lb[r] : 1.f;
+    delta_r[i] = r < tq ? db[r] : 0.f;
   }
 }
 
-// dk, dv of one key tile, walking the query tiles that see it.
-__global__ void __launch_bounds__(NT)
-    k3b_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ g,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta,
-                   const int* __restrict__ lengths,
-                   const float* __restrict__ slopes, float* __restrict__ dk,
-                   float* __restrict__ dv, Seq sq, Seq sk, Seq sv, Seq sg,
-                   Seq sdk,
-                   Seq sdv, int t_len, int nheads, int causal, float scale) {
+#define BWD_F32_COMMON                                                    \
+  const float *__restrict__ q, const float *__restrict__ k,               \
+      const float *__restrict__ v, const float *__restrict__ g,           \
+      const float *__restrict__ rowa, const float *__restrict__ rowl,     \
+      const float *__restrict__ delta, const int *__restrict__ lengths,   \
+      const float *__restrict__ slopes
+#define DKV_F32_ARGS                                                      \
+  BWD_F32_COMMON, float *__restrict__ dk, float *__restrict__ dv, Seq sq, \
+      Seq sk, Seq sv, Seq sg, Seq sdk, Seq sdv, int tq, int tk,           \
+      int nheads, int causal, float scale
+#define DKV_PASS q, k, v, g, rowa, rowl, delta, lengths, slopes, dk, dv, sq, \
+                 sk, sv, sg, sdk, sdv, tq, tk, nheads, causal, scale
+#define DQ_F32_ARGS                                                       \
+  BWD_F32_COMMON, float *__restrict__ dq, Seq sq, Seq sk, Seq sv, Seq sg, \
+      Seq sdq, int tq, int tk, int nheads, int causal, float scale
+#define DQ_PASS q, k, v, g, rowa, rowl, delta, lengths, slopes, dq, sq, sk, \
+                sv, sg, sdq, tq, tk, nheads, causal, scale
+
+// dk, dv of one key tile, walking the query tiles that see it; with
+// HAVE_L p = exp(s - m) / l from rowa = m and rowl = l, else exp(s - lse)
+// from rowa = lse.
+template <bool HAVE_L>
+__device__ __forceinline__ void dkv_f32(DKV_F32_ARGS) {
   extern __shared__ float4 smem4[];
   float* Kt = reinterpret_cast<float*>(smem4);
   float* Vt = Kt + TT;
@@ -350,39 +450,41 @@ __global__ void __launch_bounds__(NT)
   const int len = lengths[b];
   const int use_alibi = slopes != nullptr;
   const float slope = use_alibi ? slopes[h] : 0.f;
-  const float* qb = q + b * sq.bs + h * HD;
-  const float* gb = g + b * sg.bs + h * HD;
+  const float* qb = q + b * sq.bs + h * sq.hs;
+  const float* gb = g + b * sg.bs + h * sg.hs;
   const long long bh = (long long)b * nheads + h;
-  const float* lb = lse + bh * t_len;
-  const float* db = delta + bh * t_len;
-  const int nq = (t_len + TILE - 1) / TILE;
+  const float* ab = rowa + bh * tq;
+  const float* lb = HAVE_L ? rowl + bh * tq : nullptr;
+  const float* db = delta + bh * tq;
+  const int nq = (tq + TILE - 1) / TILE;
   int qt_begin = 0;
   if (len >= 1) {
     if (k0 >= len) qt_begin = nq;          // every p of this tile is 0
     else if (causal) qt_begin = kt;
   }
-  float acc_k[4][4], acc_v[4][4], s[4][4], dp[4][4], lse_r[4], delta_r[4];
+  float acc_k[4][4], acc_v[4][4], s[4][4], dp[4][4];
+  float a_r[4], l_r[4], delta_r[4];
   zero(acc_k);
   zero(acc_v);
   if (qt_begin < nq) {
-    load_t(Kt, k + b * sk.bs + h * HD, sk.rs, k0, t_len);
-    load_t(Vt, v + b * sv.bs + h * HD, sv.rs, k0, t_len);
+    load_t(Kt, k + b * sk.bs + h * sk.hs, sk.rs, k0, tk);
+    load_t(Vt, v + b * sv.bs + h * sv.hs, sv.rs, k0, tk);
   }
   for (int qt = qt_begin; qt < nq; ++qt) {
     const int q0 = qt * TILE;
     __syncthreads();
-    load_t(Qt, qb, sq.rs, q0, t_len);
-    load_r(Qs, qb, sq.rs, q0, t_len);
-    load_t(Gt, gb, sg.rs, q0, t_len);
-    load_r(Gs, gb, sg.rs, q0, t_len);
+    load_t(Qt, qb, sq.rs, q0, tq);
+    load_r(Qs, qb, sq.rs, q0, tq);
+    load_t(Gt, gb, sg.rs, q0, tq);
+    load_r(Gs, gb, sg.rs, q0, tq);
     __syncthreads();
     zero(s);
     zero(dp);
     outer(Qt, LD, Kt, LD, s, ty, tx);
     outer(Gt, LD, Vt, LD, dp, ty, tx);
-    row_stats(lse_r, delta_r, lb, db, q0, t_len);
-    probs(s, dp, lse_r, delta_r, q0, k0, t_len, len, causal, use_alibi,
-          slope, scale);
+    row_stats<HAVE_L>(a_r, l_r, delta_r, ab, lb, db, q0, tq);
+    probs<HAVE_L>(s, dp, a_r, l_r, delta_r, q0, k0, tq, tk, len, causal,
+                  use_alibi, slope, scale);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -394,12 +496,12 @@ __global__ void __launch_bounds__(NT)
     outer(Ps, LD, Gs, HD, acc_v, ty, tx);   // rows: keys ty*4+i
     outer(Ss, LD, Qs, HD, acc_k, ty, tx);
   }
-  float* dkb = dk + b * sdk.bs + h * HD;
-  float* dvb = dv + b * sdv.bs + h * HD;
+  float* dkb = dk + b * sdk.bs + h * sdk.hs;
+  float* dvb = dv + b * sdv.bs + h * sdv.hs;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int c = k0 + ty * 4 + i;
-    if (c >= t_len) continue;
+    if (c >= tk) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       dkb[c * sdk.rs + tx * 4 + j] = __fmul_rn(acc_k[i][j], scale);
@@ -408,17 +510,10 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// dq of one query tile, walking the key tiles it sees.
-__global__ void __launch_bounds__(NT)
-    k3b_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ g,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  const int* __restrict__ lengths,
-                  const float* __restrict__ slopes, float* __restrict__ dq,
-                  Seq sq,
-                  Seq sk, Seq sv, Seq sg, Seq sdq, int t_len, int nheads,
-                  int causal, float scale) {
+// dq of one query tile, walking the key tiles it sees (HAVE_L as in
+// dkv_f32).
+template <bool HAVE_L>
+__device__ __forceinline__ void dq_f32(DQ_F32_ARGS) {
   extern __shared__ float4 smem4[];
   float* Qt = reinterpret_cast<float*>(smem4);
   float* Gt = Qt + TT;
@@ -431,30 +526,31 @@ __global__ void __launch_bounds__(NT)
   const int len = lengths[b];
   const int use_alibi = slopes != nullptr;
   const float slope = use_alibi ? slopes[h] : 0.f;
-  const float* qb = q + b * sq.bs + h * HD;
-  const float* kb = k + b * sk.bs + h * HD;
-  const float* vb = v + b * sv.bs + h * HD;
+  const float* qb = q + b * sq.bs + h * sq.hs;
+  const float* kb = k + b * sk.bs + h * sk.hs;
+  const float* vb = v + b * sv.bs + h * sv.hs;
   const long long bh = (long long)b * nheads + h;
-  const int kt_end = key_tiles(qt, len, t_len, causal);
-  float acc[4][4], s[4][4], dp[4][4], lse_r[4], delta_r[4];
+  const int kt_end = key_tiles(qt, len, tk, causal);
+  float acc[4][4], s[4][4], dp[4][4], a_r[4], l_r[4], delta_r[4];
   zero(acc);
-  load_t(Qt, qb, sq.rs, q0, t_len);
-  load_t(Gt, g + b * sg.bs + h * HD, sg.rs, q0, t_len);
-  row_stats(lse_r, delta_r, lse + bh * t_len, delta + bh * t_len, q0,
-            t_len);
+  load_t(Qt, qb, sq.rs, q0, tq);
+  load_t(Gt, g + b * sg.bs + h * sg.hs, sg.rs, q0, tq);
+  row_stats<HAVE_L>(a_r, l_r, delta_r, rowa + bh * tq,
+                    HAVE_L ? rowl + bh * tq : nullptr, delta + bh * tq, q0,
+                    tq);
   for (int kt = 0; kt < kt_end; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();
-    load_t(Kt, kb, sk.rs, k0, t_len);
-    load_t(Vt, vb, sv.rs, k0, t_len);
-    load_r(Ks, kb, sk.rs, k0, t_len);
+    load_t(Kt, kb, sk.rs, k0, tk);
+    load_t(Vt, vb, sv.rs, k0, tk);
+    load_r(Ks, kb, sk.rs, k0, tk);
     __syncthreads();
     zero(s);
     zero(dp);
     outer(Qt, LD, Kt, LD, s, ty, tx);
     outer(Gt, LD, Vt, LD, dp, ty, tx);
-    probs(s, dp, lse_r, delta_r, q0, k0, t_len, len, causal, use_alibi,
-          slope, scale);
+    probs<HAVE_L>(s, dp, a_r, l_r, delta_r, q0, k0, tq, tk, len, causal,
+                  use_alibi, slope, scale);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -462,15 +558,36 @@ __global__ void __launch_bounds__(NT)
     __syncthreads();
     outer(St, LD, Ks, HD, acc, ty, tx);
   }
-  float* dqb = dq + b * sdq.bs + h * HD;
+  float* dqb = dq + b * sdq.bs + h * sdq.hs;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
-    if (r >= t_len) continue;
+    if (r >= tq) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       dqb[r * sdq.rs + tx * 4 + j] = __fmul_rn(acc[i][j], scale);
   }
+}
+
+// One symbol per TPU kernel replaced (K3b packed, K4b full: from lse;
+// K5b blockwise: from m and l).
+__global__ void __launch_bounds__(NT) k3b_dkv_kernel(DKV_F32_ARGS) {
+  dkv_f32<false>(DKV_PASS);
+}
+__global__ void __launch_bounds__(NT) k4b_dkv_kernel(DKV_F32_ARGS) {
+  dkv_f32<false>(DKV_PASS);
+}
+__global__ void __launch_bounds__(NT) k5b_dkv_kernel(DKV_F32_ARGS) {
+  dkv_f32<true>(DKV_PASS);
+}
+__global__ void __launch_bounds__(NT) k3b_dq_kernel(DQ_F32_ARGS) {
+  dq_f32<false>(DQ_PASS);
+}
+__global__ void __launch_bounds__(NT) k4b_dq_kernel(DQ_F32_ARGS) {
+  dq_f32<false>(DQ_PASS);
+}
+__global__ void __launch_bounds__(NT) k5b_dq_kernel(DQ_F32_ARGS) {
+  dq_f32<true>(DQ_PASS);
 }
 
 // ------------------------------------------------------------------
@@ -489,7 +606,8 @@ constexpr int MT = MW * 32;             // threads per block
 constexpr int LH = HD + 8;              // bf16 pitch of a shared tile
 constexpr int SH = TILE * LH;           // bf16 elements per shared tile
 constexpr int FWD_MMA_SMEM = 3 * SH * 2;
-constexpr int DKV_MMA_SMEM = 4 * SH * 2 + 2 * TILE * 4;
+constexpr int STATS_MMA_SMEM = 2 * SH * 2;
+constexpr int DKV_MMA_SMEM = 4 * SH * 2 + 3 * TILE * 4;
 constexpr int DQ_MMA_SMEM = 3 * SH * 2;
 
 __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
@@ -598,36 +716,23 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The bfloat16 forward of one (64-query tile, head, batch), as fwd_f32.
-__device__ __forceinline__ void fwd_mma(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o,
-    float* __restrict__ lse, const int* __restrict__ lengths,
-    const float* __restrict__ slopes, Seq sq, Seq sk, Seq sv, Seq so,
-    int tq, int tk, int nheads, int causal, float scale) {
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);
-  bf16* Ks = Qs + SH;      // [key][d]: B of S = Q K^T
-  bf16* Vt = Ks + SH;      // [d][key]: B of O = P V
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int w = threadIdx.x >> 5, q0 = qt * TILE, row0 = q0 + w * 16;
-  const int len = lengths[b];
-  const int use_alibi = slopes != nullptr;
-  const float slope = use_alibi ? slopes[h] : 0.f;
-  const bf16* kb = k + b * sk.bs + h * sk.hs;
-  const bf16* vb = v + b * sv.bs + h * sv.hs;
-  const int kt_end = key_tiles(qt, len, tk, causal);
-
-  load_bf16(Qs, nullptr, q + b * sq.bs + h * sq.hs, sq.rs, q0, tq);
-  __syncthreads();
-  uint32_t qa[4][4], pa[4][4];
-  a_frags(qa, Qs, w * 16);
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, s[8][4];
-
+// Pass 1 of the bfloat16 forward: m and l of the warp's two accumulator
+// rows (hr 0, 1) of the 16 at row0, online over the key tiles
+// [0, kt_end); qa holds the query rows' A fragments, Ks is scratch.
+__device__ __forceinline__ void pass1_mma(const uint32_t qa[4][4], bf16* Ks,
+                                          const bf16* kb, long long k_rs,
+                                          int row0, int kt_end, int tk,
+                                          int len, int causal,
+                                          int use_alibi, float slope,
+                                          float scale, float m[2],
+                                          float l[2]) {
+  float s[8][4];
+  m[0] = m[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
   for (int kt = 0; kt < kt_end; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();
-    load_bf16(Ks, nullptr, kb, sk.rs, k0, tk);
+    load_bf16(Ks, nullptr, kb, k_rs, k0, tk);
     __syncthreads();
     zero8(s);
     mma_rows(s, qa, Ks);
@@ -653,6 +758,35 @@ __device__ __forceinline__ void fwd_mma(
       m[hr] = m_new;
     }
   }
+}
+
+// The bfloat16 forward of one (64-query tile, head, batch), as fwd_f32.
+__device__ __forceinline__ void fwd_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o,
+    float* __restrict__ lse, const int* __restrict__ lengths,
+    const float* __restrict__ slopes, Seq sq, Seq sk, Seq sv, Seq so,
+    int tq, int tk, int nheads, int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* Ks = Qs + SH;      // [key][d]: B of S = Q K^T
+  bf16* Vt = Ks + SH;      // [d][key]: B of O = P V
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int w = threadIdx.x >> 5, q0 = qt * TILE, row0 = q0 + w * 16;
+  const int len = lengths[b];
+  const int use_alibi = slopes != nullptr;
+  const float slope = use_alibi ? slopes[h] : 0.f;
+  const bf16* kb = k + b * sk.bs + h * sk.hs;
+  const bf16* vb = v + b * sv.bs + h * sv.hs;
+  const int kt_end = key_tiles(qt, len, tk, causal);
+
+  load_bf16(Qs, nullptr, q + b * sq.bs + h * sq.hs, sq.rs, q0, tq);
+  __syncthreads();
+  uint32_t qa[4][4], pa[4][4];
+  a_frags(qa, Qs, w * 16);
+  float m[2], l[2], s[8][4];
+  pass1_mma(qa, Ks, kb, sk.rs, row0, kt_end, tk, len, causal, use_alibi,
+            slope, scale, m, l);
 
   float acc[8][4];
   zero8(acc);
@@ -712,37 +846,86 @@ __global__ void __launch_bounds__(MT) k5_fwd_mma_kernel(FWD_MMA_ARGS) {
   fwd_mma(FWD_PASS);
 }
 
+// K5b's bfloat16 row statistics, as stats_f32.
+__device__ __forceinline__ void stats_mma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const int* __restrict__ lengths, const float* __restrict__ slopes,
+    float* __restrict__ m_out, float* __restrict__ l_out, Seq sq, Seq sk,
+    int tq, int tk, int nheads, int causal, float scale) {
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);
+  bf16* Ks = Qs + SH;
+  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int w = threadIdx.x >> 5, q0 = qt * TILE, row0 = q0 + w * 16;
+  const int len = lengths[b];
+  const int use_alibi = slopes != nullptr;
+  const float slope = use_alibi ? slopes[h] : 0.f;
+  load_bf16(Qs, nullptr, q + b * sq.bs + h * sq.hs, sq.rs, q0, tq);
+  __syncthreads();
+  uint32_t qa[4][4];
+  a_frags(qa, Qs, w * 16);
+  float m[2], l[2];
+  pass1_mma(qa, Ks, k + b * sk.bs + h * sk.hs, sk.rs, row0,
+            key_tiles(qt, len, tk, causal), tk, len, causal, use_alibi,
+            slope, scale, m, l);
+  if (threadIdx.x & 3) return;
+  const long long base = ((long long)b * nheads + h) * tq;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = row0 + frag_row(2 * hr);
+    if (r >= tq) continue;
+    m_out[base + r] = m[hr];
+    l_out[base + r] = l[hr];
+  }
+}
+
+#define STATS_MMA_ARGS                                                    \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k,                 \
+      const int *__restrict__ lengths, const float *__restrict__ slopes,  \
+      float *__restrict__ m_out, float *__restrict__ l_out, Seq sq,       \
+      Seq sk, int tq, int tk, int nheads, int causal, float scale
+
+__global__ void __launch_bounds__(MT) k5b_stats_mma_kernel(STATS_MMA_ARGS) {
+  stats_mma(STATS_PASS);
+}
+
+#define BWD_MMA_COMMON                                                    \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k,                 \
+      const bf16 *__restrict__ v, const bf16 *__restrict__ g,             \
+      const float *__restrict__ rowa, const float *__restrict__ rowl,     \
+      const float *__restrict__ delta, const int *__restrict__ lengths,   \
+      const float *__restrict__ slopes
+#define DKV_MMA_ARGS                                                      \
+  BWD_MMA_COMMON, bf16 *__restrict__ dk, bf16 *__restrict__ dv, Seq sq,   \
+      Seq sk, Seq sv, Seq sg, Seq sdk, Seq sdv, int tq, int tk,           \
+      int nheads, int causal, float scale
+#define DQ_MMA_ARGS                                                       \
+  BWD_MMA_COMMON, bf16 *__restrict__ dq, Seq sq, Seq sk, Seq sv, Seq sg,  \
+      Seq sdq, int tq, int tk, int nheads, int causal, float scale
+
 // dk, dv of one 64-key tile, each warp 16 keys, in the transposed
 // orientation (rows = keys, columns = queries) so that p^T and ds^T feed
-// the dv and dk products straight from their accumulators.
-__global__ void __launch_bounds__(MT)
-    k3b_dkv_mma_kernel(const bf16* __restrict__ q,
-                       const bf16* __restrict__ k,
-                       const bf16* __restrict__ v,
-                       const bf16* __restrict__ g,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ delta,
-                       const int* __restrict__ lengths,
-                       const float* __restrict__ slopes,
-                       bf16* __restrict__ dk, bf16* __restrict__ dv, Seq sq,
-                       Seq sk, Seq sv, Seq sg, Seq sdk, Seq sdv, int t_len,
-                       int nheads, int causal, float scale) {
+// the dv and dk products straight from their accumulators (HAVE_L as in
+// dkv_f32).
+template <bool HAVE_L>
+__device__ __forceinline__ void dkv_mma(DKV_MMA_ARGS) {
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [q][d]: B of S^T = K Q^T
   bf16* Qt = Qs + SH;                         // [d][q]: B of dK += dS^T Q
   bf16* Gs = Qt + SH;                         // [q][d]: B of dP^T = V dO^T
   bf16* Gt = Gs + SH;                         // [d][q]: B of dV += P^T dO
-  float* lse_s = reinterpret_cast<float*>(Gt + SH);
-  float* delta_s = lse_s + TILE;
+  float* a_s = reinterpret_cast<float*>(Gt + SH);
+  float* l_s = a_s + TILE;
+  float* delta_s = l_s + TILE;
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int w = threadIdx.x >> 5, k0 = kt * TILE, key0 = k0 + w * 16;
   const int len = lengths[b];
   const int use_alibi = slopes != nullptr;
   const float slope = use_alibi ? slopes[h] : 0.f;
-  const bf16* qb = q + b * sq.bs + h * HD;
-  const bf16* gb = g + b * sg.bs + h * HD;
+  const bf16* qb = q + b * sq.bs + h * sq.hs;
+  const bf16* gb = g + b * sg.bs + h * sg.hs;
   const long long bh = (long long)b * nheads + h;
-  const int nq = (t_len + TILE - 1) / TILE;
+  const int nq = (tq + TILE - 1) / TILE;
   int qt_begin = 0;
   if (len >= 1) {
     if (k0 >= len) qt_begin = nq;          // every p of this tile is 0
@@ -753,8 +936,8 @@ __global__ void __launch_bounds__(MT)
   zero8(acc_k);
   zero8(acc_v);
   if (qt_begin < nq) {   // the warp's K and V rows as A fragments
-    load_bf16(Qs, nullptr, k + b * sk.bs + h * HD, sk.rs, k0, t_len);
-    load_bf16(Gs, nullptr, v + b * sv.bs + h * HD, sv.rs, k0, t_len);
+    load_bf16(Qs, nullptr, k + b * sk.bs + h * sk.hs, sk.rs, k0, tk);
+    load_bf16(Gs, nullptr, v + b * sv.bs + h * sv.hs, sv.rs, k0, tk);
     __syncthreads();
     a_frags(ka, Qs, w * 16);
     a_frags(va, Gs, w * 16);
@@ -762,12 +945,13 @@ __global__ void __launch_bounds__(MT)
   for (int qt = qt_begin; qt < nq; ++qt) {
     const int q0 = qt * TILE;
     __syncthreads();
-    load_bf16(Qs, Qt, qb, sq.rs, q0, t_len);
-    load_bf16(Gs, Gt, gb, sg.rs, q0, t_len);
+    load_bf16(Qs, Qt, qb, sq.rs, q0, tq);
+    load_bf16(Gs, Gt, gb, sg.rs, q0, tq);
     for (int i = threadIdx.x; i < TILE; i += MT) {
       const int r = q0 + i;
-      lse_s[i] = r < t_len ? lse[bh * t_len + r] : 0.f;
-      delta_s[i] = r < t_len ? delta[bh * t_len + r] : 0.f;
+      a_s[i] = r < tq ? rowa[bh * tq + r] : 0.f;
+      if (HAVE_L) l_s[i] = r < tq ? rowl[bh * tq + r] : 1.f;
+      delta_s[i] = r < tq ? delta[bh * tq + r] : 0.f;
     }
     __syncthreads();
     zero8(s);
@@ -780,10 +964,10 @@ __global__ void __launch_bounds__(MT)
       for (int e = 0; e < 4; ++e) {
         const int c = key0 + frag_row(e), ri = frag_col(nt, e), r = q0 + ri;
         float p = 0.f, ds = 0.f;
-        if (r < t_len && c < t_len) {
+        if (r < tq && c < tk) {
           const float x = logit(s[nt][e], r, c, len, causal, use_alibi,
                                 slope, scale);
-          p = expf(x - lse_s[ri]);
+          p = prob<HAVE_L>(x, a_s[ri], HAVE_L ? l_s[ri] : 1.f);
           ds = __fmul_rn(p, __fsub_rn(dp[nt][e], delta_s[ri]));
         }
         s[nt][e] = p;
@@ -794,12 +978,12 @@ __global__ void __launch_bounds__(MT)
     mma_rows(acc_v, pa, Gt);
     mma_rows(acc_k, sa, Qt);
   }
-  bf16* dkb = dk + b * sdk.bs + h * HD;
-  bf16* dvb = dv + b * sdv.bs + h * HD;
+  bf16* dkb = dk + b * sdk.bs + h * sdk.hs;
+  bf16* dvb = dv + b * sdv.bs + h * sdv.hs;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int c = key0 + frag_row(2 * hr);
-    if (c >= t_len) continue;
+    if (c >= tk) continue;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const int d = frag_col(nt, 0);
@@ -812,19 +996,9 @@ __global__ void __launch_bounds__(MT)
   }
 }
 
-// dq of one 64-query tile, each warp 16 queries.
-__global__ void __launch_bounds__(MT)
-    k3b_dq_mma_kernel(const bf16* __restrict__ q,
-                      const bf16* __restrict__ k,
-                      const bf16* __restrict__ v,
-                      const bf16* __restrict__ g,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      const int* __restrict__ lengths,
-                      const float* __restrict__ slopes,
-                      bf16* __restrict__ dq, Seq sq, Seq sk, Seq sv, Seq sg,
-                      Seq sdq, int t_len, int nheads, int causal,
-                      float scale) {
+// dq of one 64-query tile, each warp 16 queries (HAVE_L as in dkv_f32).
+template <bool HAVE_L>
+__device__ __forceinline__ void dq_mma(DQ_MMA_ARGS) {
   extern __shared__ float4 smem4[];
   bf16* Ks = reinterpret_cast<bf16*>(smem4);  // [key][d]: B of S = Q K^T
   bf16* Vs = Ks + SH;                         // [key][d]: B of dP = dO V^T
@@ -834,30 +1008,31 @@ __global__ void __launch_bounds__(MT)
   const int len = lengths[b];
   const int use_alibi = slopes != nullptr;
   const float slope = use_alibi ? slopes[h] : 0.f;
-  const bf16* kb = k + b * sk.bs + h * HD;
-  const bf16* vb = v + b * sv.bs + h * HD;
+  const bf16* kb = k + b * sk.bs + h * sk.hs;
+  const bf16* vb = v + b * sv.bs + h * sv.hs;
   const long long bh = (long long)b * nheads + h;
-  const int kt_end = key_tiles(qt, len, t_len, causal);
+  const int kt_end = key_tiles(qt, len, tk, causal);
   uint32_t qa[4][4], ga[4][4], sa[4][4];
-  load_bf16(Ks, nullptr, q + b * sq.bs + h * HD, sq.rs, q0, t_len);
-  load_bf16(Vs, nullptr, g + b * sg.bs + h * HD, sg.rs, q0, t_len);
+  load_bf16(Ks, nullptr, q + b * sq.bs + h * sq.hs, sq.rs, q0, tq);
+  load_bf16(Vs, nullptr, g + b * sg.bs + h * sg.hs, sg.rs, q0, tq);
   __syncthreads();
   a_frags(qa, Ks, w * 16);
   a_frags(ga, Vs, w * 16);
-  float lse_r[2], delta_r[2];
+  float a_r[2], l_r[2], delta_r[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int r = row0 + frag_row(2 * hr);
-    lse_r[hr] = r < t_len ? lse[bh * t_len + r] : 0.f;
-    delta_r[hr] = r < t_len ? delta[bh * t_len + r] : 0.f;
+    a_r[hr] = r < tq ? rowa[bh * tq + r] : 0.f;
+    l_r[hr] = HAVE_L && r < tq ? rowl[bh * tq + r] : 1.f;
+    delta_r[hr] = r < tq ? delta[bh * tq + r] : 0.f;
   }
   float acc[8][4], s[8][4], dp[8][4];
   zero8(acc);
   for (int kt = 0; kt < kt_end; ++kt) {
     const int k0 = kt * TILE;
     __syncthreads();
-    load_bf16(Ks, Kt, kb, sk.rs, k0, t_len);
-    load_bf16(Vs, nullptr, vb, sv.rs, k0, t_len);
+    load_bf16(Ks, Kt, kb, sk.rs, k0, tk);
+    load_bf16(Vs, nullptr, vb, sv.rs, k0, tk);
     __syncthreads();
     zero8(s);
     zero8(dp);
@@ -869,10 +1044,10 @@ __global__ void __launch_bounds__(MT)
       for (int e = 0; e < 4; ++e) {
         const int r = row0 + frag_row(e), c = k0 + frag_col(nt, e);
         float ds = 0.f;
-        if (r < t_len && c < t_len) {
+        if (r < tq && c < tk) {
           const float x = logit(s[nt][e], r, c, len, causal, use_alibi,
                                 slope, scale);
-          const float p = expf(x - lse_r[e >> 1]);
+          const float p = prob<HAVE_L>(x, a_r[e >> 1], l_r[e >> 1]);
           ds = __fmul_rn(p, __fsub_rn(dp[nt][e], delta_r[e >> 1]));
         }
         dp[nt][e] = ds;
@@ -880,11 +1055,11 @@ __global__ void __launch_bounds__(MT)
     acc_to_a(sa, dp);
     mma_rows(acc, sa, Kt);
   }
-  bf16* dqb = dq + b * sdq.bs + h * HD;
+  bf16* dqb = dq + b * sdq.bs + h * sdq.hs;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int r = row0 + frag_row(2 * hr);
-    if (r >= t_len) continue;
+    if (r >= tq) continue;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
       *reinterpret_cast<uint32_t*>(dqb + r * sdq.rs + frag_col(nt, 0)) =
@@ -893,11 +1068,41 @@ __global__ void __launch_bounds__(MT)
   }
 }
 
+__global__ void __launch_bounds__(MT) k3b_dkv_mma_kernel(DKV_MMA_ARGS) {
+  dkv_mma<false>(DKV_PASS);
+}
+__global__ void __launch_bounds__(MT) k4b_dkv_mma_kernel(DKV_MMA_ARGS) {
+  dkv_mma<false>(DKV_PASS);
+}
+__global__ void __launch_bounds__(MT) k5b_dkv_mma_kernel(DKV_MMA_ARGS) {
+  dkv_mma<true>(DKV_PASS);
+}
+__global__ void __launch_bounds__(MT) k3b_dq_mma_kernel(DQ_MMA_ARGS) {
+  dq_mma<false>(DQ_PASS);
+}
+__global__ void __launch_bounds__(MT) k4b_dq_mma_kernel(DQ_MMA_ARGS) {
+  dq_mma<false>(DQ_PASS);
+}
+__global__ void __launch_bounds__(MT) k5b_dq_mma_kernel(DQ_MMA_ARGS) {
+  dq_mma<true>(DQ_PASS);
+}
+
 typedef void (*FwdF32)(FWD_F32_ARGS);
 typedef void (*FwdMma)(FWD_MMA_ARGS);
+typedef void (*DkvF32)(DKV_F32_ARGS);
+typedef void (*DkvMma)(DKV_MMA_ARGS);
+typedef void (*DqF32)(DQ_F32_ARGS);
+typedef void (*DqMma)(DQ_MMA_ARGS);
 constexpr FwdF32 FWD_F32[3] = {k3_fwd_kernel, k4_fwd_kernel, k5_fwd_kernel};
 constexpr FwdMma FWD_MMA[3] = {k3_fwd_mma_kernel, k4_fwd_mma_kernel,
                                k5_fwd_mma_kernel};
+constexpr DkvF32 DKV_F32[3] = {k3b_dkv_kernel, k4b_dkv_kernel,
+                               k5b_dkv_kernel};
+constexpr DkvMma DKV_MMA[3] = {k3b_dkv_mma_kernel, k4b_dkv_mma_kernel,
+                               k5b_dkv_mma_kernel};
+constexpr DqF32 DQ_F32[3] = {k3b_dq_kernel, k4b_dq_kernel, k5b_dq_kernel};
+constexpr DqMma DQ_MMA[3] = {k3b_dq_mma_kernel, k4b_dq_mma_kernel,
+                             k5b_dq_mma_kernel};
 
 // One forward launch of entry point `kid` (0: K3, 1: K4, 2: K5): one block
 // per (64-query tile, head, batch); lse may be null.
@@ -926,53 +1131,52 @@ int launch_fwd(int kid, int use_mma, const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
-int launch_bwd_mma(const void* q, const void* k, const void* v,
-                   const void* g, const float* lse, const float* delta,
-                   const int* lengths, const float* slopes, void* dq,
-                   void* dk, void* dv, Seq sq, Seq sk, Seq sv, Seq sg,
-                   Seq sdq, Seq sdk, Seq sdv, int B, int T_, int H,
-                   int causal, float scale, cudaStream_t stream) {
-  dim3 grid((T_ + TILE - 1) / TILE, H, B);
-  k3b_dkv_mma_kernel<<<grid, MT, DKV_MMA_SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, lse,
-      delta, lengths, slopes, (bf16*)dk, (bf16*)dv, sq, sk, sv, sg, sdk,
-      sdv, T_, H, causal, scale);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  k3b_dq_mma_kernel<<<grid, MT, DQ_MMA_SMEM, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, lse,
-      delta, lengths, slopes, (bf16*)dq, sq, sk, sv, sg, sdq, T_, H, causal,
-      scale);
-  return (int)cudaGetLastError();
-}
-
-int launch_bwd(const void* q, const void* k, const void* v, const void* g,
-               const float* lse, const float* delta, const int* lengths,
+// The backward's two launches of entry point `kid` (0: K3b, 1: K4b,
+// 2: K5b): one block per (64-key tile, head, batch) for dk and dv, then
+// one per (64-query tile, head, batch) for dq.  K3b and K4b read lse from
+// rowa; K5b reads m from rowa and l from rowl.
+int launch_bwd(int kid, int use_mma, const void* q, const void* k,
+               const void* v, const void* g, const float* rowa,
+               const float* rowl, const float* delta, const int* lengths,
                const float* slopes, void* dq, void* dk, void* dv, Seq sq,
                Seq sk, Seq sv, Seq sg, Seq sdq, Seq sdk, Seq sdv, int B,
-               int T_, int H, int causal, float scale,
+               int tq, int tk, int H, int causal, float scale,
                cudaStream_t stream) {
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(k3b_dkv_kernel,
+  dim3 gk((tk + TILE - 1) / TILE, H, B), gq((tq + TILE - 1) / TILE, H, B);
+  int err;
+  if (use_mma) {
+    DKV_MMA[kid]<<<gk, MT, DKV_MMA_SMEM, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g,
+        rowa, rowl, delta, lengths, slopes, (bf16*)dk, (bf16*)dv, sq, sk,
+        sv, sg, sdk, sdv, tq, tk, H, causal, scale);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    DQ_MMA[kid]<<<gq, MT, DQ_MMA_SMEM, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g,
+        rowa, rowl, delta, lengths, slopes, (bf16*)dq, sq, sk, sv, sg, sdq,
+        tq, tk, H, causal, scale);
+    return (int)cudaGetLastError();
+  }
+  static bool attr[3] = {false, false, false};
+  if (!attr[kid]) {
+    cudaFuncSetAttribute(DKV_F32[kid],
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          DKV_SMEM);
-    cudaFuncSetAttribute(k3b_dq_kernel,
+    cudaFuncSetAttribute(DQ_F32[kid],
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          DQ_SMEM);
-    attr = true;
+    attr[kid] = true;
   }
-  dim3 grid((T_ + TILE - 1) / TILE, H, B);
-  k3b_dkv_kernel<<<grid, NT, DKV_SMEM, stream>>>(
+  DKV_F32[kid]<<<gk, NT, DKV_SMEM, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)g,
-      lse, delta, lengths, slopes, (float*)dk, (float*)dv, sq, sk, sv, sg,
-      sdk, sdv, T_, H, causal, scale);
-  int err = (int)cudaGetLastError();
+      rowa, rowl, delta, lengths, slopes, (float*)dk, (float*)dv, sq, sk,
+      sv, sg, sdk, sdv, tq, tk, H, causal, scale);
+  err = (int)cudaGetLastError();
   if (err) return err;
-  k3b_dq_kernel<<<grid, NT, DQ_SMEM, stream>>>(
+  DQ_F32[kid]<<<gq, NT, DQ_SMEM, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)g,
-      lse, delta, lengths, slopes, (float*)dq, sq, sk, sv, sg, sdq, T_, H,
-      causal, scale);
+      rowa, rowl, delta, lengths, slopes, (float*)dq, sq, sk, sv, sg, sdq,
+      tq, tk, H, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -981,8 +1185,8 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* g,
 extern "C" {
 
 // Strides are in elements: (batch, row) of each packed operand (K3/K3b:
-// the head stride is head_dim), (batch, head, row) of each operand of K4
-// and K5.
+// the head stride is head_dim), (batch, head, row) of each operand of
+// K4, K4b, K5 and K5b.
 int flash_fwd_packed_launch(const void* q, const void* k, const void* v,
                             void* o, float* lse, const int* lengths,
                             const float* slopes, long long q_bs,
@@ -1043,14 +1247,57 @@ int flash_bwd_packed_launch(const void* q, const void* k, const void* v,
   Seq sq{q_bs, HD, q_rs}, sk{k_bs, HD, k_rs}, sv{v_bs, HD, v_rs};
   Seq sg{g_bs, HD, g_rs};
   Seq sdq{dq_bs, HD, dq_rs}, sdk{dk_bs, HD, dk_rs}, sdv{dv_bs, HD, dv_rs};
+  return launch_bwd(0, bf16, q, k, v, g, lse, nullptr, delta, lengths,
+                    slopes, dq, dk, dv, sq, sk, sv, sg, sdq, sdk, sdv, B, T_,
+                    T_, H, causal, scale, (cudaStream_t)stream);
+}
+
+// K5b's row statistics, m into m_out and l into l_out, each (B, H, Tq)
+// float32: one block per (64-query tile, head, batch).
+int flash_stats_launch(const void* q, const void* k, const int* lengths,
+                       const float* slopes, float* m_out, float* l_out,
+                       long long q_bs, long long q_hs, long long q_rs,
+                       long long k_bs, long long k_hs, long long k_rs, int B,
+                       int Tq, int Tk, int H, int use_bf16, int causal,
+                       float scale, void* stream) {
+  Seq sq{q_bs, q_hs, q_rs}, sk{k_bs, k_hs, k_rs};
+  dim3 grid((Tq + TILE - 1) / TILE, H, B);
   cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return launch_bwd_mma(q, k, v, g, lse, delta, lengths, slopes, dq, dk,
-                          dv, sq, sk, sv, sg, sdq, sdk, sdv, B, T_, H, causal,
-                          scale, st);
-  return launch_bwd(q, k, v, g, lse, delta, lengths, slopes, dq, dk, dv,
-                    sq, sk, sv, sg, sdq, sdk, sdv, B, T_, H, causal, scale,
-                    st);
+  if (use_bf16)
+    k5b_stats_mma_kernel<<<grid, MT, STATS_MMA_SMEM, st>>>(
+        (const bf16*)q, (const bf16*)k, lengths, slopes, m_out, l_out, sq,
+        sk, Tq, Tk, H, causal, scale);
+  else
+    k5b_stats_kernel<<<grid, NT, STATS_SMEM, st>>>(
+        (const float*)q, (const float*)k, lengths, slopes, m_out, l_out, sq,
+        sk, Tq, Tk, H, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// K4b (`kid` 1: Tq = Tk, rowa = lse from K4, rowl null) or K5b (`kid` 2:
+// rowa = m, rowl = l from flash_stats_launch) on (B, H, T, D) operands.
+int flash_bwd_bhtd_launch(int kid, const void* q, const void* k,
+                          const void* v, const void* g, const float* rowa,
+                          const float* rowl, const float* delta,
+                          const int* lengths, const float* slopes, void* dq,
+                          void* dk, void* dv, long long q_bs, long long q_hs,
+                          long long q_rs, long long k_bs, long long k_hs,
+                          long long k_rs, long long v_bs, long long v_hs,
+                          long long v_rs, long long g_bs, long long g_hs,
+                          long long g_rs, long long dq_bs, long long dq_hs,
+                          long long dq_rs, long long dk_bs, long long dk_hs,
+                          long long dk_rs, long long dv_bs, long long dv_hs,
+                          long long dv_rs, int B, int Tq, int Tk, int H,
+                          int bf16, int causal, float scale, void* stream) {
+  if (kid < 1 || kid > 2 || (kid == 2) != (rowl != nullptr))
+    return (int)cudaErrorInvalidValue;
+  Seq sq{q_bs, q_hs, q_rs}, sk{k_bs, k_hs, k_rs}, sv{v_bs, v_hs, v_rs};
+  Seq sg{g_bs, g_hs, g_rs};
+  Seq sdq{dq_bs, dq_hs, dq_rs}, sdk{dk_bs, dk_hs, dk_rs};
+  Seq sdv{dv_bs, dv_hs, dv_rs};
+  return launch_bwd(kid, bf16, q, k, v, g, rowa, rowl, delta, lengths,
+                    slopes, dq, dk, dv, sq, sk, sv, sg, sdq, sdk, sdv, B, Tq,
+                    Tk, H, causal, scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

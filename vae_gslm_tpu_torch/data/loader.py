@@ -4,7 +4,7 @@ A thread pool builds the batches ahead of the consumer (``prefetch``
 batches staged), overlapping file IO and feature extraction with the
 model; a dataset whose features run on the card issues its device work
 from these threads, asynchronously.  ``get_dataloader`` builds the
-standard sampler's loader for one process.
+standard sampler's loader for one process or one rank.
 """
 from __future__ import annotations
 
@@ -74,21 +74,21 @@ class DataLoader:
             return sum(1 for _ in iter(self.sampler))
 
 
-def get_dataloader(hp: Hparams, dataset, distributed: bool = False
-                   ) -> DataLoader:
-    """The ``standard`` branch of the JAX sampler dispatch for one
-    process.  ``distributed`` and the ``bucket`` and ``concat`` samplers
-    raise until the parallel-modes and training slices port them
-    (ROADMAP.md)."""
+def get_dataloader(hp: Hparams, dataset, distributed: bool = False,
+                   world_size: Optional[int] = None,
+                   rank: Optional[int] = None) -> DataLoader:
+    """The ``standard`` branch of JAX's sampler dispatch
+    (``BaseTrainer.get_dataloader`` :238-266): one process's sampler, or
+    with ``distributed`` the rank's ``DistributedSampler`` (a world of 1
+    when the caller runs alone).  The ``bucket`` and ``concat`` samplers
+    raise; no shipped config selects them (ROADMAP.md)."""
     hp.check_arg_in_hparams("num_workers", "sampler", "batch_size")
-    if distributed:
-        raise NotImplementedError("distributed data loading is not ported "
-                                  "yet (ROADMAP.md, parallel modes)")
     if hp.sampler.type != "standard":
         raise NotImplementedError(f"the {hp.sampler.type!r} sampler is not "
                                   "ported yet (ROADMAP.md); the port has "
                                   "the 'standard' one")
     sampler = standard_sampler(
         len(dataset), hp.batch_size, shuffle=hp.sampler.shuffle,
+        distributed=distributed, world_size=world_size, rank=rank,
         drop_last=hp.sampler.get("drop_last", True))
     return DataLoader(dataset, sampler, num_workers=hp.num_workers)

@@ -22,6 +22,7 @@ from ..hparams.hp import Hparams
 from ..models.convert import load_reference_lvtr
 from ..models.speech.lvtr import LVTR
 from ..models.vocoder.vocoder import load_torch_state_dict
+from ..parallel.mesh import process_count, process_index
 from ..scripts.registry import resolve
 from ..training.checkpoint import get_last_ckpt, load_compact
 
@@ -58,7 +59,8 @@ class BaseInferer:
         trainer = self.hp.get("trainer", None)
         distributed = bool(trainer.get("distributed", False)) \
             if trainer is not None else False
-        return get_dataloader(hp, dataset, distributed)
+        return get_dataloader(hp, dataset, distributed, process_count(),
+                              process_index())
 
     def synchronize(self) -> None:
         """Wait for the inferer's device (a no-op on the CPU)."""

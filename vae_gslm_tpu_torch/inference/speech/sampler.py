@@ -109,8 +109,6 @@ class ARTRSampler:
                 "float caches wait for the per-layer path (ROADMAP.md, "
                 "Queue 1)")
         self.device = resolve_device(device)
-        if getattr(model, "utterance_net", None) is not None:
-            raise NotImplementedError("utterance conditioning (ROADMAP.md)")
         if not model.transformer.supports_stacked_decode():
             raise NotImplementedError(
                 "the hybrid and mega paths need a pre-LN RMSNorm trunk")
@@ -177,6 +175,10 @@ class ARTRSampler:
                                  encoder_temperature, timings)
         model = self.model
         clock = _StageClock(timings, self.device)
+        # JAX conditions the decoder on the prompt's utterance embedding
+        u_c = (model.encode_utterance(prior)
+               if getattr(model, "utterance_net", None) is not None
+               else None)
         enc = model.encode(prior, generator,
                            temperature=encoder_temperature)
         stacked = model.transformer.build_stacked_decode()
@@ -204,7 +206,7 @@ class ARTRSampler:
         clock.lap("ar_loop")
         full = torch.cat([enc.value, frames.to(enc.value.dtype)], dim=1)
         full_m = Masked.from_lengths(full, enc.lengths + length)
-        mel = model.decode(full_m, generator)
+        mel = model.decode(full_m, generator, u_c=u_c)
         clock.lap("diffusion")
         return {"output": mel, "frames": full_m}
 

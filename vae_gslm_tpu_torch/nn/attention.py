@@ -19,7 +19,8 @@ from torch import nn
 from ..core.masked import Masked
 from ..core.precision import get_policy
 from ..hparams.hp import Hparams
-from ..ops.flash_attention import flash_attention_packed
+from ..ops.flash_attention import flash_attention_bhtd, flash_attention_packed
+from ..parallel import tp
 from .linear import Dense
 from .positions import ALiBi
 
@@ -92,8 +93,11 @@ class SelfAttention(nn.Module):
     ``use_flash`` is not switched off): ``flash_attention_packed`` over
     views of the packed projection, on the card K3/K3b inside the packed
     envelope and K4 (T <= 1024, unpackable heads) or K5 (T > 1024)
-    outside it.  Otherwise the dense ``attend`` with the ALiBi bias and
-    masks."""
+    outside it.  Inside ``parallel/tp.py::flash_mesh`` of more than one
+    rank (JAX's mesh branch, :288-302) it takes ``flash_attention_bhtd``
+    on (B, H, T, D) views of the projection instead: K4 and K4b at T <=
+    1024, K4/K5 and K5b past it.  Otherwise the dense ``attend`` with the
+    ALiBi bias and masks."""
 
     def __init__(self, dim: int, hp: Hparams):
         super().__init__()
@@ -115,8 +119,16 @@ class SelfAttention(nn.Module):
         q, k, v = self.in_proj(x.value).chunk(3, dim=-1)
         if self.use_flash and self.causal:
             slopes = rpe.slopes if rpe is not None else None
-            out = flash_attention_packed(q, k, v, x.lengths, slopes, True,
-                                         self.nheads)
+            if tp.active_flash_mesh():
+                b, t, _ = q.shape
+                qh, kh, vh = (y.view(b, t, self.nheads, self.head_dim)
+                              .transpose(1, 2) for y in (q, k, v))
+                out = flash_attention_bhtd(qh, kh, vh, x.lengths, slopes,
+                                           True).transpose(1, 2).reshape(
+                                               b, t, self.dim)
+            else:
+                out = flash_attention_packed(q, k, v, x.lengths, slopes,
+                                             True, self.nheads)
         else:
             t = q.shape[1]
             pos = torch.arange(t, device=q.device)

@@ -1,6 +1,6 @@
 """Flash attention (port of ``vae_gslm_tpu/ops/flash_attention.py``).
 
-Three forwards and one backward, each a CUDA kernel on the card
+Three forwards and three backwards, each a CUDA kernel on the card
 (``csrc/flash_attention.cu``) with its plain PyTorch version beside it:
 
 - K3 ``flash_forward_packed`` (JAX ``_flash_forward_full_packed`` :230)
@@ -9,10 +9,15 @@ Three forwards and one backward, each a CUDA kernel on the card
   layout (views into the fused qkv projection are fine: the last axis
   must be contiguous), forward with ``lse``;
 - K4 ``flash_forward_full`` (``_flash_forward_full`` :406): the
-  ``(B, H, T, D)`` forward for Tq = Tk <= 1024, ``lse`` optional;
+  ``(B, H, T, D)`` forward for Tq = Tk <= 1024, ``lse`` optional, and
+  K4b ``flash_backward_full`` (``_flash_backward`` :735): its backward,
+  from K4's ``lse`` (JAX reaches ``_flash_backward`` without one only
+  after a failed K4, a fallback the port does not take);
 - K5 ``flash_forward_tiled`` (``_flash_forward`` :443): the q-tiled
   ``(B, H, T, D)`` forward for any Tq and Tk (up to 8192 keys on the
-  card), no ``lse``.
+  card), no ``lse``, and K5b ``flash_backward_blockwise``
+  (``_flash_backward_blockwise`` :682): the backward for any Tq and Tk
+  up to 8192, each query row's softmax exact over the whole key axis.
 
 lengths ``(B,)`` are valid key counts; slopes ``(H,)`` negative ALiBi
 slopes or None.
@@ -23,12 +28,14 @@ positions both from 0), ``-1e30`` where the key is at or past
 ``lengths[b]`` or (causal) after the query; the softmax is normalized
 before P.V and rounded to V's dtype; ``lse = m + log(sum exp(s - m))``
 as ``(B, H, Tq)`` float32 (the port's own layout).  A row of length 0 is
-uniform over all Tk keys.  The K3b backward recomputes
-``p = exp(s - lse)``; with ``delta = rowsum(dO * O)``:
-``ds = p (dO.v - delta)`` rounded to q's dtype, ``dq = (ds . k) /
-sqrt(D)``, ``dv = round(p)^T . dO``, ``dk = (ds^T . q) / sqrt(D)``.  The
-plain versions compute in float32 (float64 for float64 inputs, for
-``gradcheck``).
+uniform over all Tk keys.  The backwards form ``p = exp(s - lse)``
+(K3b, K4b; a row of length 0 then has p = 1 on every key, as in JAX's
+kernels) or ``p = exp(s - m) / l`` (K5b: 1/Tk there); with ``delta =
+rowsum(dO * O)`` computed outside the kernels (``_delta``): ``ds = p (dO.v
+- delta)`` rounded to q's dtype, ``dq = (ds . k) / sqrt(D)``, ``dv =
+round(p)^T . dO``, ``dk = (ds^T . q) / sqrt(D)``, each summed in float32
+and written in its input's dtype.  The plain versions compute in float32
+(float64 for float64 inputs, for ``gradcheck``).
 
 ``flash_attention_packed`` is a ``torch.autograd.Function`` that
 dispatches as JAX does.  Inside the packed envelope (JAX's
@@ -38,9 +45,13 @@ dispatches as JAX does.  Inside the packed envelope (JAX's
 (JAX relayouts to ``(B, H, T, D)``; the values are the same), and the
 backward recomputes the dense reference from q, k, v and differentiates
 it, as JAX's ``_bwd_packed`` takes ``jax.vjp`` of ``_attention_reference``
-(:936-943): no ``(B, H, T, T)`` tensor is kept from the forward.  On CPU
-tensors every wrapper runs its plain version; on CUDA tensors it launches
-its kernel or raises (head_dim 64, float32/bfloat16 only).
+(:936-943): no ``(B, H, T, T)`` tensor is kept from the forward.
+``flash_attention_bhtd`` is JAX's ``flash_attention`` custom VJP (:776),
+the route of every self-attention layer under a data-parallel process
+group (``parallel/tp.py``): ``backward_route`` picks K4 with ``lse`` and
+K4b, K4/K5 and K5b, or K5 and the dense recompute.  On CPU tensors every
+wrapper runs its plain version; on CUDA tensors it launches its kernel or
+raises (head_dim 64, float32/bfloat16 only).
 """
 from __future__ import annotations
 
@@ -119,13 +130,32 @@ def flash_forward_packed_plain(q, k, v, lengths, slopes, causal: bool,
     return _packed(out).to(q.dtype), (m + torch.log(denom))[..., 0]
 
 
-def _delta(g: torch.Tensor, o: torch.Tensor, nheads: int) -> torch.Tensor:
-    """rowsum(dO * O) per head as (B, H, T), float32 (float64 inputs:
-    float64)."""
+def _delta(g: torch.Tensor, o: torch.Tensor,
+           nheads: Optional[int] = None) -> torch.Tensor:
+    """rowsum(dO * O) per head as a contiguous (B, H, T), float32
+    (float64 inputs: float64), of packed (B, T, H*D) operands (``nheads``
+    given) or (B, H, T, D) ones."""
     dt = _acc_dtype(o)
+    prod = g.to(dt) * o.to(dt)
+    if nheads is None:
+        return prod.sum(-1).contiguous()
     b, t, hd = o.shape
-    prod = (g.to(dt) * o.to(dt)).reshape(b, t, nheads, hd // nheads)
-    return prod.sum(-1).transpose(1, 2).contiguous()
+    return prod.reshape(b, t, nheads, hd // nheads).sum(-1).transpose(
+        1, 2).contiguous()
+
+
+def _grads(p, qh, kh, vh, gh, delta, dt):
+    """dq, dk, dv (B, H, T, D) in ``dt`` from the probabilities ``p``
+    (B, H, Tq, Tk) and ``delta`` (B, H, Tq): the five products of the
+    backward kernels, ds rounded to q's dtype and p to dO's."""
+    scale = 1.0 / math.sqrt(qh.shape[-1])
+    g32 = gh.to(dt)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g32, vh.to(dt))
+    ds = (p * (dp - delta.to(dt)[..., None])).to(qh.dtype).to(dt)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kh.to(dt)) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(gh.dtype).to(dt), g32)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qh.to(dt)) * scale
+    return dq, dk, dv
 
 
 def flash_backward_packed_plain(q, k, v, o, g, lse, lengths, slopes,
@@ -133,17 +163,11 @@ def flash_backward_packed_plain(q, k, v, o, g, lse, lengths, slopes,
     """K3b's function in plain PyTorch, from the saved ``o`` and ``lse``
     (not autograd of the forward: delta comes from the rounded O).
     Returns dq, dk, dv in packed layout and the inputs' dtypes."""
-    s, dt = _logits(_heads(q, nheads), _heads(k, nheads), lengths, slopes,
-                    causal)
-    d = q.shape[-1] // nheads
-    scale = 1.0 / math.sqrt(d)
+    qh, kh = _heads(q, nheads), _heads(k, nheads)
+    s, dt = _logits(qh, kh, lengths, slopes, causal)
     p = torch.exp(s - lse.to(dt)[..., None])
-    gh = _heads(g, nheads, dt)
-    dp = torch.einsum("bhqd,bhkd->bhqk", gh, _heads(v, nheads, dt))
-    ds = (p * (dp - _delta(g, o, nheads)[..., None])).to(q.dtype).to(dt)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, _heads(k, nheads, dt)) * scale
-    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(g.dtype).to(dt), gh)
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, _heads(q, nheads, dt)) * scale
+    dq, dk, dv = _grads(p, qh, kh, _heads(v, nheads), _heads(g, nheads),
+                        _delta(g, o, nheads), dt)
     return (_packed(dq).to(q.dtype), _packed(dk).to(k.dtype),
             _packed(dv).to(v.dtype))
 
@@ -165,12 +189,35 @@ def flash_forward_tiled_plain(q, k, v, lengths, slopes, causal: bool
     return attention_reference(q, k, v, lengths, slopes, causal)
 
 
+def flash_backward_full_plain(q, k, v, o, g, lse, lengths, slopes,
+                              causal: bool):
+    """K4b's function in plain PyTorch on (B, H, T, D) operands: p =
+    exp(s - lse) with K4's ``lse``.  dq, dk, dv in the inputs' dtypes."""
+    s, dt = _logits(q, k, lengths, slopes, causal)
+    p = torch.exp(s - lse.to(dt)[..., None])
+    dq, dk, dv = _grads(p, q, k, v, g, _delta(g, o), dt)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_backward_blockwise_plain(q, k, v, o, g, lengths, slopes,
+                                   causal: bool):
+    """K5b's function in plain PyTorch on (B, H, Tq, D) queries and
+    (B, H, Tk, D) keys: each row's softmax exact over the key axis, p =
+    exp(s - m) / sum exp(s - m).  dq in q's dtype, dk and dv summed in
+    float32 and cast to k's and v's."""
+    s, dt = _logits(q, k, lengths, slopes, causal)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e / e.sum(dim=-1, keepdim=True)
+    dq, dk, dv = _grads(p, q, k, v, g, _delta(g, o), dt)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ------------------------------------------------------------- kernels
 _LIB = None
 
 
 def _launchers():
-    """The four launch functions of ``csrc/flash_attention.cu``, built
+    """The six launch functions of ``csrc/flash_attention.cu``, built
     and bound at first use."""
     global _LIB
     if _LIB is None:
@@ -187,8 +234,13 @@ def _launchers():
             + [f, p]
         lib.flash_fwd_tiled_launch.argtypes = [p] * 6 + [ll] * 12 \
             + [i] * 6 + [f, p]
+        lib.flash_stats_launch.argtypes = [p] * 6 + [ll] * 6 + [i] * 6 \
+            + [f, p]
+        lib.flash_bwd_bhtd_launch.argtypes = [i] + [p] * 12 + [ll] * 21 \
+            + [i] * 6 + [f, p]
         for fn in (lib.flash_fwd_packed_launch, lib.flash_bwd_packed_launch,
-                   lib.flash_fwd_full_launch, lib.flash_fwd_tiled_launch):
+                   lib.flash_fwd_full_launch, lib.flash_fwd_tiled_launch,
+                   lib.flash_stats_launch, lib.flash_bwd_bhtd_launch):
             fn.restype = i
         _LIB = lib
     return _LIB
@@ -417,12 +469,123 @@ def flash_forward_tiled(q, k, v, lengths, slopes, causal: bool
 flash_forward_tiled.launches = 0
 
 
+def _bhtd_backward(kind: str, q, k, v, o, g, lengths, slopes, causal: bool,
+                   lse: Optional[torch.Tensor] = None):
+    """Launch K4b (``kind`` "full", from ``lse``) or K5b ("blockwise":
+    its row-statistics pass first) on (B, H, T, D) operands of any
+    (batch, head, row) strides: the dk/dv and dq kernels.  The gradients
+    are allocated in the packed (B, T, H, D) memory order and returned as
+    their (B, H, T, D) views."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    dev = q.device
+    what = ("K4b (the (B, H, T, D) full backward)" if kind == "full" else
+            "K5b (the blockwise (B, H, T, D) backward)")
+    _check_kernel(what, q, lengths, slopes, h)
+    kshape = (b, h, tk, d)
+    st = [_strides("q", q, q.shape, q.dtype, dev),
+          _strides("k", k, kshape, q.dtype, dev),
+          _strides("v", v, kshape, q.dtype, dev),
+          _strides("dO", g, q.shape, q.dtype, dev)]
+    _strides("o", o, q.shape, q.dtype, dev)
+    delta = _delta(g, o)
+    grads = [torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
+             .transpose(1, 2) for t in (tq, tk, tk)]
+    st += [x.stride()[:3] for x in grads]
+    lib = _launchers()
+    kid = 1 if kind == "full" else 2
+    slope_ptr = slopes.data_ptr() if slopes is not None else None
+    tail = (int(q.dtype == torch.bfloat16), int(causal), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(dev).cuda_stream)
+    rowl = None
+    if kind == "full":
+        if not isinstance(lse, torch.Tensor) or lse.shape != (b, h, tq) \
+                or lse.dtype != torch.float32 or not lse.is_contiguous() \
+                or lse.device != dev:
+            raise ValueError("K4b needs K4's lse: a contiguous (B, H, T) "
+                             "float32 tensor on q's device")
+        rowa = lse
+    else:
+        rowa = torch.empty((b, h, tq), dtype=torch.float32, device=dev)
+        rowl = torch.empty_like(rowa)
+        err = lib.flash_stats_launch(
+            q.data_ptr(), k.data_ptr(), lengths.data_ptr(), slope_ptr,
+            rowa.data_ptr(), rowl.data_ptr(), *st[0], *st[1], b, tq, tk, h,
+            *tail)
+        if err != 0:
+            raise RuntimeError(f"{what} statistics launch failed: CUDA "
+                               f"error {err}")
+    err = lib.flash_bwd_bhtd_launch(
+        kid, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        rowa.data_ptr(), rowl.data_ptr() if rowl is not None else None,
+        delta.data_ptr(), lengths.data_ptr(), slope_ptr,
+        *(x.data_ptr() for x in grads), *(s_ for x in st for s_ in x),
+        b, tq, tk, h, *tail)
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+    return tuple(grads)
+
+
+def flash_backward_full(q, k, v, o, g, lse, lengths, slopes, causal: bool):
+    """K4b: (dq, dk, dv) of (B, H, T, D) operands for Tq = Tk <= 1024,
+    from K4's ``lse``.  CPU tensors take the plain version; CUDA tensors
+    launch the kernels (one count) or raise."""
+    if q.device.type == "cpu":
+        return flash_backward_full_plain(q, k, v, o, g, lse, lengths, slopes,
+                                         causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention for {q.device}")
+    if q.shape[2] != k.shape[2] or k.shape[2] > MAX_T:
+        raise ValueError(f"K4b takes Tq = Tk <= {MAX_T}; got Tq "
+                         f"{q.shape[2]}, Tk {k.shape[2]} "
+                         "(flash_backward_blockwise takes the rest)")
+    out = _bhtd_backward("full", q, k, v, o, g, lengths, slopes, causal,
+                         lse)
+    flash_backward_full.launches += 1
+    return out
+
+
+flash_backward_full.launches = 0
+
+
+def flash_backward_blockwise(q, k, v, o, g, lengths, slopes, causal: bool):
+    """K5b: (dq, dk, dv) of (B, H, Tq, D) queries against (B, H, Tk, D)
+    keys, Tk <= 8192 on the card.  CPU tensors take the plain version;
+    CUDA tensors launch the kernels (one count) or raise."""
+    if q.device.type == "cpu":
+        return flash_backward_blockwise_plain(q, k, v, o, g, lengths,
+                                              slopes, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention for {q.device}")
+    if k.shape[2] > MAX_TK:
+        raise NotImplementedError(
+            f"K5b on CUDA walks at most {MAX_TK} keys (JAX's "
+            f"_BWD_BLOCKWISE_MAX_TK); got Tk {k.shape[2]}")
+    out = _bhtd_backward("blockwise", q, k, v, o, g, lengths, slopes,
+                         causal)
+    flash_backward_blockwise.launches += 1
+    return out
+
+
+flash_backward_blockwise.launches = 0
+
+
 def flash_attention(q, k, v, lengths, slopes, causal: bool) -> torch.Tensor:
     """JAX's ``_dispatch`` (:787) on (B, H, T, D) operands: K4 for
     self-attention at T <= 1024, K5 otherwise."""
     if q.shape[2] == k.shape[2] and k.shape[2] <= MAX_T:
         return flash_forward_full(q, k, v, lengths, slopes, causal)
     return flash_forward_tiled(q, k, v, lengths, slopes, causal)
+
+
+def _dense_grads(fn, ins, g):
+    """Gradients of ``fn(*ins)`` under ``g``, recomputed from the inputs
+    alone: JAX's ``jax.vjp`` of the dense reference off the kernels'
+    envelope."""
+    with torch.enable_grad():
+        ins = [x.detach().requires_grad_() for x in ins]
+        out = fn(*ins)
+        return torch.autograd.grad(out, ins, g.to(out.dtype))
 
 
 class FlashAttentionPacked(torch.autograd.Function):
@@ -450,12 +613,10 @@ class FlashAttentionPacked(torch.autograd.Function):
         if ctx.dense:
             q, k, v, lengths, slopes = ctx.saved_tensors
             h = ctx.nheads
-            with torch.enable_grad():
-                ins = [x.detach().requires_grad_() for x in (q, k, v)]
-                out = _packed(attention_reference(
-                    *(_heads(x, h) for x in ins), lengths, slopes,
-                    ctx.causal))
-                dq, dk, dv = torch.autograd.grad(out, ins, g.to(out.dtype))
+            dq, dk, dv = _dense_grads(
+                lambda *x: _packed(attention_reference(
+                    *(_heads(y, h) for y in x), lengths, slopes,
+                    ctx.causal)), (q, k, v), g)
             return dq, dk, dv, None, None, None, None
         q, k, v, o, lse, lengths, slopes = ctx.saved_tensors
         g = g.contiguous()
@@ -463,6 +624,63 @@ class FlashAttentionPacked(torch.autograd.Function):
                                            lengths, slopes, ctx.causal,
                                            ctx.nheads)
         return dq, dk, dv, None, None, None, None
+
+
+def backward_route(tq: int, tk: int) -> str:
+    """JAX's ``_fwd``/``_bwd`` routing (:826-864) of the (B, H, T, D)
+    custom VJP: "full" (K4 with lse, then K4b) for Tq = Tk <= 1024,
+    "blockwise" (K4 or K5, then K5b) for Tk <= 8192, else "dense" (K5,
+    then the dense reference differentiated)."""
+    if tq == tk <= MAX_T:
+        return "full"
+    return "blockwise" if tk <= MAX_TK else "dense"
+
+
+class FlashAttention(torch.autograd.Function):
+    """JAX's ``flash_attention`` custom VJP on (B, H, T, D) operands: the
+    forward saves o (and K4's lse on the "full" route); the backward
+    takes K4b, K5b or the dense recompute by ``backward_route``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, slopes, causal):
+        ctx.causal = causal
+        ctx.route = backward_route(q.shape[2], k.shape[2])
+        if ctx.route == "full":
+            o, lse = flash_forward_full(q, k, v, lengths, slopes, causal,
+                                        with_stats=True)
+        else:
+            o, lse = flash_attention(q, k, v, lengths, slopes, causal), None
+        ctx.save_for_backward(q, k, v, o, lse, lengths, slopes)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse, lengths, slopes = ctx.saved_tensors
+        g = g.to(q.dtype)
+        if g.stride(-1) != 1:
+            g = g.contiguous()
+        if ctx.route == "full":
+            grads = flash_backward_full(q, k, v, o, g, lse, lengths, slopes,
+                                        ctx.causal)
+        elif ctx.route == "blockwise":
+            grads = flash_backward_blockwise(q, k, v, o, g, lengths, slopes,
+                                             ctx.causal)
+        else:
+            grads = _dense_grads(
+                lambda *x: attention_reference(*x, lengths, slopes,
+                                               ctx.causal), (q, k, v), g)
+        return (*grads, None, None, None)
+
+
+def flash_attention_bhtd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         lengths: torch.Tensor,
+                         slopes: Optional[torch.Tensor],
+                         causal: bool = True) -> torch.Tensor:
+    """Fused attention over (B, H, T, D) operands (views of any batch,
+    head and row strides with a contiguous feature axis) with the
+    backward of JAX's custom VJP; returns o (B, H, Tq, D)."""
+    return FlashAttention.apply(q, k, v, lengths.to(torch.int32), slopes,
+                                causal)
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor,

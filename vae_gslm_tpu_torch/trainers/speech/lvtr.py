@@ -1,16 +1,28 @@
-"""LVTR (VAE-GSLM) training step (port of the step of
+"""LVTR (VAE-GSLM) trainer (port of
 ``vae_gslm_tpu/trainers/speech/lvtr.py``).
 
 beta-VAE weighting (``fixed_beta`` splits reconstruction against KLD),
 the KLD zero/warm-up schedule by global step, loss = rec * scale +
 (log_q * entropy_weight - log_p) * kld_weight + CE * token_kld_weight *
-kld_weight.  ``run_step`` takes micro-batches stacked on a leading
-accumulation axis (``training/trainer.py::stack_batches``), sums their
-gradients (the losses are masked sums, as in the reference's repeated
-backward) and takes one optimizer step under the policy of
-``trainer.precision``.  Like the JAX ``run_step`` it leaves
-``global_step`` to the caller (JAX's ``fit``).  Data, ``fit``,
-checkpoints and validation audio wait for a later slice (ROADMAP.md).
+kld_weight, the optional encoder warm start from a compact checkpoint
+with the encoder frozen, validation with reconstruction and
+prior-continuation audio, compact checkpoints and the full state.
+``run_step`` takes micro-batches stacked on a leading accumulation axis
+(``training/trainer.py::stack_batches``), sums their gradients (the
+losses are masked sums, as in the reference's repeated backward) and
+takes one optimizer step under the policy of ``trainer.precision``.
+Like the JAX ``run_step`` it leaves ``global_step`` to the caller
+(``fit``).
+
+Over ``W`` ranks each rank runs the step on its own rows.  JAX's loss is
+a token sum over the global batch, so the gradient is the SUM over the
+ranks of each rank's summed micro-batch gradients, in one all-reduce
+after accumulation (not the mean ``DistributedDataParallel`` takes);
+clipping, ``grad_norm`` and AdamW act on that sum, identically on every
+rank.  The metrics are reduced the same way (token sums summed, the
+others weighted by the global valid length), so every rank logs the same
+numbers.  Each rank draws its noise from a generator seeded by the seed
+and the rank.
 """
 from __future__ import annotations
 
@@ -24,26 +36,36 @@ from ...core.device import resolve_device
 from ...core.losses import masked_loss
 from ...core.masked import Masked
 from ...core.precision import policy_for_precision, policy_scope
+from ...data.dataset import DiscreteTokenDataset, MelSpecDataset
 from ...hparams.hp import Hparams
+from ...inference.speech.sampler import ARTRSampler
 from ...models.speech.lvtr import LVTR
+from ...models.vocoder.vocoder import HiFiGAN
+from ...parallel import mesh
+from ...training.checkpoint import load_compact, save_compact
 from ...training.optimizer import create_optimizer, global_norm
-from ...training.trainer import fuse_microbatches, init_weights
+from ...training.trainer import (BaseTrainer, bucket_pad_batch,
+                                 fuse_microbatches, init_weights)
 
 Draws = Dict[str, torch.Tensor]
 _BATCH_KEYS = ("mel", "tokens", "cropped_mel_utt", "cropped_mel")
 _SUM_KEYS = ("kld", "rec_loss", "token_kld", "length")
+_FROZEN = ("encoder_net.", "encoder_head.")
+RANK_SEED_STRIDE = 1_000_003      # rank r draws from seed + 1 + r * this
 
 
-class LVTRTrainer:
+class LVTRTrainer(BaseTrainer):
     """``hp.vocoder.path`` names a directory with the vocoder's
-    ``hp.yaml``, from which the model's mel width is read (the vocoder's
-    weights serve validation, not the step).  Runs on CUDA unless
-    ``device="cpu"``."""
+    ``hp.yaml``, from which the model's mel width and the datasets'
+    feature settings are read; its weights are loaded when validation
+    first renders audio.  Runs on CUDA unless ``device="cpu"``; a rank of
+    a process group passes its own device (``parallel/mesh.py::
+    rank_device``)."""
 
     def __init__(self, hp: Hparams, seed: int = 0,
                  device: Union[str, torch.device] = "cuda"):
+        super().__init__(hp)
         self.device = resolve_device(device)
-        self.hp = hp
         hp.check_arg_in_hparams("vocoder", "training", "trainer")
         hp.vocoder.check_arg_in_hparams("path")
         tr = hp.training
@@ -58,10 +80,11 @@ class LVTRTrainer:
         if tr.has("mel_rescale"):
             tr.mel_rescale.check_arg_in_hparams("mean", "std")
             self.mel_rescale = tr.mel_rescale
-        voc_hp = Hparams.from_yamlfile(os.path.join(hp.vocoder.path,
-                                                    "hp.yaml"))
-        voc_hp.check_arg_in_hparams("model", "feature")
-        self.model = LVTR(hp.model, input_dim=voc_hp.feature.n_mels,
+        self.voc_hp = Hparams.from_yamlfile(os.path.join(hp.vocoder.path,
+                                                         "hp.yaml"))
+        self.voc_hp.check_arg_in_hparams("model", "feature")
+        self._vocoder: Optional[HiFiGAN] = None
+        self.model = LVTR(hp.model, input_dim=self.voc_hp.feature.n_mels,
                           device=self.device,
                           generator=torch.Generator(
                               self.device).manual_seed(seed))
@@ -79,21 +102,53 @@ class LVTRTrainer:
         if self.use_tokens:
             hp.check_arg_in_hparams("hubert")
             hp.hubert.check_arg_in_hparams("sample_rate")
-        # JAX warm-starts the encoder from a compact checkpoint and then
-        # zeroes its gradients; the checkpoint format is not ported yet.
-        if hp.model.encoder.get("init_from_ckpt", None) is not None:
-            raise NotImplementedError(
-                "encoder.init_from_ckpt needs the compact checkpoint "
-                "loader, not ported yet (ROADMAP.md)")
+            self.hp_hubert = Hparams(deduplicate=False,
+                                     sample_rate=hp.hubert.sample_rate)
+        # optional encoder warm start (the reference's lvtr.py:57-64): the
+        # compact checkpoint's weights, the encoder's gradients zeroed
         self.freeze_encoder = False
+        init_from = hp.model.encoder.get("init_from_ckpt", None)
+        if init_from is not None:
+            load_compact(self.model, init_from)
+            self.freeze_encoder = True
         self.names, self.params = zip(*self.model.named_parameters())
+        mesh.replicate(self.params)
         self.opt, self.lr_schedule = create_optimizer(
             tr, hp.trainer.total_steps, self.params)
         self.policy = policy_for_precision(hp.trainer.get("precision",
                                                           "32"))
         self.fuse_accumulation = bool(tr.get("fuse_accumulation", False))
-        self.global_step = 0
-        self.rng = torch.Generator(self.device).manual_seed(seed + 1)
+        self.rng = torch.Generator(self.device).manual_seed(
+            seed + 1 + RANK_SEED_STRIDE * self.rank)
+
+    @property
+    def vocoder(self) -> HiFiGAN:
+        if self._vocoder is None:
+            self._vocoder = HiFiGAN.from_pretrained(
+                self.hp.vocoder.path, hp_rescale=self.mel_rescale,
+                device=self.device)
+        return self._vocoder
+
+    # --------------------------------------------------------------- data
+    def _make_dataset(self, hp_data: Hparams, name: str):
+        feat = self.voc_hp.feature
+        if self.use_tokens:
+            return DiscreteTokenDataset(hp_data, feat, self.hp_hubert,
+                                        self.mel_rescale, name=name,
+                                        device=self.device)
+        return MelSpecDataset(hp_data, feat, self.mel_rescale, name=name,
+                              device=self.device)
+
+    def train_dataloader(self):
+        ds = self._make_dataset(self.hp.data.train, "train dataset")
+        self.train_dataset = ds
+        return self.get_dataloader(self.hp.data.train, ds)
+
+    def val_dataloader(self):
+        ds = self._make_dataset(self.hp.data.val, "validation dataset")
+        self.val_dataset = ds
+        self.val_mel_sample_rate = ds.melspec.sample_rate
+        return self.get_dataloader(self.hp.data.val, ds)
 
     # --------------------------------------------------------------- step
     def _model_input(self, batch: Dict[str, Masked]) -> Masked:
@@ -149,13 +204,32 @@ class LVTRTrainer:
             w = np.float32(0.0)
         return float(w)
 
+    def _reduce_metrics(self, metrics: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """The global batch's metrics from every rank's, in one
+        all-reduce: token sums summed, the others weighted by each
+        rank's valid length.  The same all-reduce sums the ranks'
+        SIGTERM flags into ``_stop_agreed``."""
+        keys = list(metrics)
+        n = metrics["length"].float()
+        vals = torch.stack([metrics[k].float() if k in _SUM_KEYS
+                            else metrics[k].float() * n for k in keys]
+                           + [n.new_tensor(float(self._preempted))])
+        mesh.all_reduce_sum([vals])
+        self._stop_agreed = bool(vals[-1] > 0)
+        vals = vals[:-1]
+        total = vals[keys.index("length")]
+        return {k: v if k in _SUM_KEYS else v / total
+                for k, v in zip(keys, vals)}
+
     def train_step(self, stacked: Dict[str, Masked],
                    draws: Optional[List[Draws]] = None) -> Dict[str, Any]:
         """One optimizer step over the stacked micro-batches (on the
-        model's device): gradients summed over them, metrics aggregated
-        as JAX does (token sums add up, the other statistics are weighted
-        by each micro-batch's valid length).  ``draws[i]`` replaces
-        micro-batch ``i``'s random draws (``LVTR.forward``)."""
+        model's device): gradients summed over them and over the ranks,
+        metrics aggregated as JAX does (token sums add up, the other
+        statistics are weighted by each micro-batch's valid length).
+        ``draws[i]`` replaces micro-batch ``i``'s random draws
+        (``LVTR.forward``) and holds this rank's rows."""
         kld_weight = self._kld_weight(self.global_step)
         for p in self.params:
             p.grad = None
@@ -173,10 +247,14 @@ class LVTRTrainer:
             metrics[k] = (v.sum(0) if k in _SUM_KEYS
                           else (v * n_mb).sum(0) / n_mb.sum())
         grads = [p.grad for p in self.params]
+        if self.world_size > 1:
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(self.params, grads)]
+            mesh.all_reduce_sum(grads)
+            metrics = self._reduce_metrics(metrics)
         if self.freeze_encoder:
             for name, g in zip(self.names, grads):
-                if g is not None and name.startswith(("encoder_net.",
-                                                      "encoder_head.")):
+                if g is not None and name.startswith(_FROZEN):
                     g.zero_()
         metrics["kld_weight"] = kld_weight
         metrics["grad_norm"] = global_norm(
@@ -185,20 +263,24 @@ class LVTRTrainer:
         self.opt.step(grads)
         return metrics
 
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Masked]:
+        return {k: Masked(v.value.to(self.device),
+                          v.lengths.to(self.device, torch.int32),
+                          v.time_axis)
+                for k, v in batch.items() if k in _BATCH_KEYS}
+
     def prepare_batch(self, stacked: Dict[str, Any]) -> Dict[str, Masked]:
         """The step's keys, fused if ``fuse_accumulation``, on the
         model's device."""
         batch = {k: v for k, v in stacked.items() if k in _BATCH_KEYS}
         if self.fuse_accumulation:
             batch = fuse_microbatches(batch)
-        return {k: Masked(v.value.to(self.device),
-                          v.lengths.to(self.device, torch.int32),
-                          v.time_axis) for k, v in batch.items()}
+        return self._to_device(batch)
 
     def run_step(self, stacked: Dict[str, Any],
                  draws: Optional[List[Draws]] = None) -> Dict[str, Any]:
         """One optimizer step; ``kld``, ``rec_loss`` and ``token_kld``
-        come back per valid token."""
+        come back per valid token of the global batch."""
         batch = self.prepare_batch(stacked)
         with policy_scope(self.policy):
             metrics = self.train_step(batch, draws)
@@ -207,3 +289,151 @@ class LVTRTrainer:
             if k in metrics:
                 metrics[k] = metrics[k] / n
         return metrics
+
+    # ---------------------------------------------------------- validation
+    @torch.no_grad()
+    def validation_run(self, step: int) -> None:
+        """Token-sum losses per valid token over at most
+        ``limit_val_batches`` batches (time padded to a multiple of 256),
+        then audio from the first batch."""
+        limit = self.hp.trainer.get("limit_val_batches", 50)
+        loader = self.val_dataloader()
+        totals: Dict[str, float] = {}
+        length_total, n_batches, first = 0.0, 0, None
+        with policy_scope(self.policy):
+            for i, batch in enumerate(loader):
+                if i >= limit:
+                    break
+                vb = self._to_device(bucket_pad_batch(
+                    {k: v for k, v in batch.items() if k in _BATCH_KEYS}))
+                _, m = self._loss_fn(vb, 1.0, self.rng)
+                length_total += float(m["length"])
+                for k in ("kld", "rec_loss", "token_kld"):
+                    if k in m:
+                        totals[k] = totals.get(k, 0.0) + float(m[k])
+                n_batches += 1
+                if first is None:
+                    first = batch
+        if self.logger is not None and n_batches:
+            self.logger.log_scalars(
+                {f"val/{k}": v / length_total for k, v in totals.items()},
+                step)
+        if first is not None:
+            self._log_audio_samples(first, step)
+
+    @torch.no_grad()
+    def _log_audio_samples(self, batch, step: int) -> None:
+        """Re-vocoded, reconstructed, shuffled-speaker and prior-
+        continuation audio of the batch's first ``num_samples`` rows
+        (the reference's ``lvtr.py:182-274``), the continuation through
+        the port's hybrid sampler, all through the HiFi-GAN."""
+        if self.logger is None:
+            return
+        hpl = self.hp.logging
+        if hpl.plot_attn:
+            raise NotImplementedError(
+                "plot_attn needs the sampler's attention maps, which the "
+                "per-layer decode path gives (ROADMAP.md, Queue 1 item 4)")
+        num = min(hpl.num_samples, batch["mel"].value.shape[0])
+        if num == 0:
+            return
+        dev, g = self.device, self.rng
+        vocoder = self.vocoder
+
+        def rows(key):
+            x = batch[key]
+            return Masked(x.value[:num].to(dev), x.lengths[:num].to(dev), 1)
+
+        mel = rows("mel")
+        model_input = mel
+        if self.use_tokens:
+            tok = rows("tokens")
+            model_input = Masked(tok.value[..., None].float(), tok.lengths,
+                                 1).cat(mel)
+        with policy_scope(self.policy):
+            u_c = None
+            if self.model.utterance_net is not None:
+                u_c = self.model.utterance_pool(self.model.utterance_net(
+                    rows("cropped_mel_utt")))
+            enc = self.model.encode(model_input, g)
+            rec_audio = vocoder.decode(self.model.decode(enc, g, u_c=u_c))
+            re_vocoded = vocoder.decode(mel)
+            s_rec_audio = None
+            if u_c is not None and num > 1:
+                perm = torch.from_numpy(
+                    np.random.RandomState(step).permutation(num)).to(dev)
+                s_rec_audio = vocoder.decode(
+                    self.model.decode(enc, g, u_c=u_c[perm]))
+            prior_len = int(hpl.sample_prior_length
+                            * self.val_mel_sample_rate)
+            length = int(hpl.sample_length * self.val_mel_sample_rate
+                         * self.model.sample_ratio)
+            prior = Masked(model_input.value[:, :prior_len],
+                           model_input.lengths.clamp(max=prior_len), 1)
+            samples = ARTRSampler(self.model, device=dev)(
+                length, prior, g, temperature=hpl.temperature)
+            sampled_audio = vocoder.decode(samples["output"])
+        sr = self.hp.data.train.sample_rate
+        artifacts = [("re_vocoded", re_vocoded), ("reconstruct", rec_audio),
+                     ("samples", sampled_audio)]
+        if s_rec_audio is not None:
+            artifacts.append(("shuffled_rec", s_rec_audio))
+        for i in range(num):
+            for tag, audio in artifacts:
+                ln = int(audio.lengths[i])
+                self.logger.log_audio(f"{tag}/{i}",
+                                      audio.value[i, :ln].float().cpu()
+                                      .numpy(), step, sr)
+
+    # --------------------------------------------------------- checkpoints
+    def save_checkpoint(self, path: str) -> None:
+        """The compact npz (JAX's contract) and ``hp.yaml`` beside it and
+        in the logger's checkpoint directory."""
+        save_compact(self.model, path)
+        if self.logger is not None:
+            self.hp.save(os.path.join(self.logger.ckpt_path, "hp.yaml"))
+        self.hp.save(os.path.join(os.path.dirname(path), "hp.yaml"))
+
+    def _train_state(self) -> Dict[str, Any]:
+        opt = self.opt
+        return {"params": dict(zip(self.names, self.params)),
+                "mu": dict(zip(self.names, opt.mu)),
+                "nu": dict(zip(self.names, opt.nu)),
+                "count": opt.count, "step": self.global_step}
+
+    def _apply_train_state(self, state: Dict[str, Any]) -> None:
+        """Load a full state strictly: the same parameter names and
+        shapes, then moments, optimizer count and step."""
+        names = list(self.names)
+        for key in ("params", "mu", "nu"):
+            got = state[key]
+            if sorted(got) != sorted(names):
+                raise ValueError(
+                    f"full state's {key} names differ from the model's: "
+                    f"missing {sorted(set(names) - set(got))[:5]}, extra "
+                    f"{sorted(set(got) - set(names))[:5]}")
+        with torch.no_grad():
+            for i, name in enumerate(names):
+                for dst, key in ((self.params[i], "params"),
+                                 (self.opt.mu[i], "mu"),
+                                 (self.opt.nu[i], "nu")):
+                    src = state[key][name]
+                    if src.shape != dst.shape:
+                        raise ValueError(f"full state's {key}[{name}] has "
+                                         f"shape {tuple(src.shape)}, the "
+                                         f"model {tuple(dst.shape)}")
+                    dst.copy_(src)
+        self.opt.count = int(state["count"])
+        self.global_step = int(state["step"])
+
+    def resume(self, path: str) -> None:
+        """From a compact npz (parameters only; the optimizer starts
+        afresh and the step is kept, as JAX's ``resume`` does) or from
+        the port's full state (exact)."""
+        if path.endswith(".npz"):
+            load_compact(self.model, path)
+            self.opt, self.lr_schedule = create_optimizer(
+                self.hp.training, self.hp.trainer.total_steps, self.params)
+        else:
+            self.restore_full_state(path)
+        mesh.replicate(self.params)

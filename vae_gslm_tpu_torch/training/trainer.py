@@ -1,20 +1,37 @@
-"""What a training step needs from the base trainer (port of parts of
-``vae_gslm_tpu/training/trainer.py``): the reference weight init and the
-stacking of micro-batches for gradient accumulation.  The mesh, data
-loaders, ``fit`` and checkpoints wait for a later slice (ROADMAP.md).
+"""Base trainer (port of ``vae_gslm_tpu/training/trainer.py``): the
+reference weight init, micro-batch stacking for gradient accumulation,
+and ``BaseTrainer``: data wiring, the ``fit`` loop, checkpoints, full
+state and the SIGTERM flag.
+
+JAX jits one step over a ``data`` mesh and lets XLA insert the gradient
+all-reduce.  The port runs one process per rank (``parallel/mesh.py``):
+each rank loads its own rows through the distributed sampler, runs the
+step on its device, and the task trainer sums the gradients over the
+ranks in one all-reduce per optimizer step.  The model axis, pipeline
+and FSDP modes are not ported (ROADMAP.md, Queue 1 item 14).
 """
 from __future__ import annotations
 
+import logging
 import math
-from typing import Dict, Optional, Sequence
+import os
+import signal
+import time
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..core.masked import Masked
+from ..data.loader import DataLoader, get_dataloader
+from ..hparams.hp import Hparams
 from ..nn.attention import SelfAttention
 from ..nn.linear import Dense, Embedding, uniform_
 from ..nn.transformer import TransformerLayerStack
+from ..parallel import mesh, tp
+from .logging import ExperimentLogger
+
+log = logging.getLogger(__name__)
 
 Batch = Dict[str, Masked]
 
@@ -54,3 +71,264 @@ def fuse_microbatches(stacked: Batch) -> Batch:
 
     return {k: Masked(f(v.value), f(v.lengths), v.time_axis)
             for k, v in stacked.items()}
+
+
+def bucket_pad_batch(batch: Dict[str, Any], bucket: int = 256
+                     ) -> Dict[str, Any]:
+    """Every Masked entry's time axis zero-padded up to a multiple of
+    ``bucket``, lengths unchanged (JAX :101-122, which bounds its
+    compiled eval shapes; the port keeps it so that validation sees the
+    same padded shapes)."""
+    out: Dict[str, Any] = {}
+    for k, v in batch.items():
+        if isinstance(v, Masked) and v.time_axis == 1:
+            t = v.value.shape[1]
+            target = -(-t // bucket) * bucket
+            value = v.value
+            if target != t:
+                pad = [0, 0] * (value.dim() - 2) + [0, target - t]
+                value = torch.nn.functional.pad(value, pad)
+            out[k] = Masked(value, v.lengths, 1)
+        else:
+            out[k] = v
+    return out
+
+
+_UNPORTED_MODES = ("model_parallel", "pipeline_parallel", "fsdp",
+                   "sequence_parallel")
+
+
+class BaseTrainer:
+    """Owns the rank's view of the process group, the data, the logger
+    and the step loop.  Task trainers implement ``train_dataloader``,
+    ``run_step``, ``save_checkpoint``, ``_train_state`` and
+    ``_apply_train_state``; with more than one rank, ``run_step`` sums
+    ``_preempted`` over the ranks in its all-reduce and stores whether any
+    rank saw SIGTERM in ``_stop_agreed``."""
+
+    def __init__(self, hp: Hparams):
+        hp.check_arg_in_hparams("model", "data")
+        self.hp = hp
+        self.gradient_update_step = 1
+        if hp.has("training") and hp.training.has("gradient_accumulation"):
+            self.gradient_update_step = hp.training.gradient_accumulation
+        hp_tr = hp.get("trainer", None)
+        for mode in _UNPORTED_MODES:
+            val = hp_tr.get(mode, None) if hp_tr is not None else None
+            if val and not (isinstance(val, int) and not isinstance(
+                    val, bool) and val <= 1):
+                raise NotImplementedError(
+                    f"trainer.{mode} is not ported; the port trains data "
+                    "parallel only (ROADMAP.md, Queue 1 item 14)")
+        self.world_size = mesh.process_count()
+        self.rank = mesh.process_index()
+        self.global_step = 0
+        self.logger: Optional[ExperimentLogger] = None
+        # rank 0 owns every artifact write (scalars, checkpoints)
+        self._is_main = self.rank == 0
+        self._preempted = False       # this rank saw SIGTERM
+        self._stop_agreed = False     # some rank had, at the last all-reduce
+
+    def parallel_context(self):
+        """The ambient parallelism of a step: attention routed as JAX
+        routes it under a data mesh of ``world_size`` devices."""
+        return tp.flash_mesh(self.world_size)
+
+    # ---------------------------------------------------------------- data
+    def _world(self):
+        if self.hp.trainer.get("distributed", False):
+            return self.world_size, self.rank
+        return None, None
+
+    def get_dataloader(self, hp: Hparams, dataset) -> DataLoader:
+        """JAX's sampler dispatch (:238-266), its ``standard`` branch: a
+        configuration with ``distributed`` gets the rank's distributed
+        sampler, a world of 1 in one process."""
+        world_size, rank = self._world()
+        return get_dataloader(hp, dataset,
+                              bool(self.hp.trainer.get("distributed",
+                                                       False)),
+                              world_size, rank)
+
+    # --------------------------------------------------------------- hooks
+    def train_dataloader(self) -> DataLoader:
+        raise NotImplementedError
+
+    def val_dataloader(self) -> Optional[DataLoader]:
+        return None
+
+    def validation_run(self, step: int) -> None:
+        pass
+
+    def save_checkpoint(self, path: str) -> None:
+        raise NotImplementedError
+
+    def run_step(self, stacked_batch) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def resume(self, path: str) -> None:
+        raise NotImplementedError
+
+    # ----------------------------------------------- full-state resume
+    def _train_state(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def _apply_train_state(self, state: Dict[str, Any]) -> None:
+        raise NotImplementedError
+
+    def save_full_state(self, path: str) -> None:
+        """The full train state (parameters, optimizer moments, step) in
+        the port's torch format; failures raise (JAX logs a warning)."""
+        from .checkpoint import save_train_state
+
+        save_train_state(path, self._train_state())
+
+    def restore_full_state(self, path: str) -> None:
+        from .checkpoint import restore_train_state
+
+        self._apply_train_state(restore_train_state(path))
+
+    # ------------------------------------------------------- preemption
+    def _should_stop(self) -> bool:
+        """Whether to checkpoint and leave ``fit`` after this step: this
+        rank's flag in one process; across ranks the flags as the step's
+        all-reduce summed them, so every rank stops after the same step
+        (a rank that returned alone would leave the others waiting in the
+        next step's all-reduce)."""
+        return self._preempted if self.world_size == 1 else self._stop_agreed
+
+    def _install_preemption_handler(self) -> Callable[[], None]:
+        """SIGTERM sets a flag; ``fit`` checkpoints at the next optimizer
+        step and returns, so that ``-r`` on the full state resumes
+        exactly.  Returns a callable that restores the old handler."""
+        self._preempted = self._stop_agreed = False
+
+        def on_term(signum, frame):
+            log.warning("SIGTERM received: checkpointing at the next step "
+                        "boundary, then exiting")
+            self._preempted = True
+
+        try:
+            prev = signal.signal(signal.SIGTERM, on_term)
+        except ValueError:          # not the main thread: no handler
+            return lambda: None
+        return lambda: signal.signal(signal.SIGTERM, prev)
+
+    # ---------------------------------------------------------------- loop
+    def fit(self, logger: ExperimentLogger,
+            max_steps: Optional[int] = None,
+            val_check_interval: Optional[int] = None,
+            log_every: int = 50,
+            profile_dir: Optional[str] = None) -> None:
+        """JAX's loop (:362-454): optimizer steps until ``total_steps``,
+        micro-batches carried across epochs (a loader with fewer batches
+        than the accumulation count still makes progress), scalars every
+        ``log_every`` steps from rank 0, validation and a checkpoint
+        every ``val_check_interval`` steps and at the end (validation
+        only in a world of one rank).  With ``profile_dir`` steps 10-12
+        are traced by torch.profiler into a Chrome trace there."""
+        self.logger = logger
+        hp_tr = self.hp.trainer
+        total_steps = max_steps or hp_tr.total_steps
+        val_interval = val_check_interval or hp_tr.get(
+            "val_check_interval", None)
+        loader = self.train_dataloader()
+        accum = self.gradient_update_step
+        restore_sig = self._install_preemption_handler()
+        t0 = time.time()
+        prof, profiled = None, False
+        epoch = 0
+        micro: list = []
+        try:
+            while self.global_step < total_steps:
+                loader.sampler.set_epoch(epoch)
+                epoch += 1
+                yielded = False
+                for batch in loader:
+                    yielded = True
+                    micro.append(batch)
+                    if len(micro) < accum:
+                        continue
+                    stacked = stack_batches(micro)
+                    micro = []
+                    if profile_dir and not profiled \
+                            and self.global_step == 10:
+                        prof, profiled = self._start_profile(), True
+                    with self.parallel_context():
+                        metrics = self.run_step(stacked)
+                    if prof is not None and self.global_step == 12:
+                        self._stop_profile(prof, profile_dir)
+                        prof = None
+                    self.global_step += 1
+                    if self.global_step % log_every == 0:
+                        metrics = {k: float(v) for k, v in metrics.items()}
+                        metrics["steps_per_sec"] = log_every / (
+                            time.time() - t0)
+                        t0 = time.time()
+                        if self._is_main:
+                            logger.log_scalars(
+                                {f"train/{k}": v
+                                 for k, v in metrics.items()},
+                                self.global_step)
+                    if val_interval and \
+                            self.global_step % val_interval == 0:
+                        self._validate()
+                        self.checkpoint()
+                    if self._should_stop():
+                        self.checkpoint()
+                        log.warning("preemption checkpoint written at step "
+                                    "%d; exiting fit", self.global_step)
+                        return
+                    if self.global_step >= total_steps:
+                        break
+                if not yielded:
+                    raise RuntimeError(
+                        "train dataloader yielded no batches: dataset "
+                        "smaller than the (distributed) batch size?")
+            self._validate()
+            self.checkpoint()
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+            restore_sig()
+
+    def _validate(self) -> None:
+        if self.world_size == 1:
+            with self.parallel_context():
+                self.validation_run(self.global_step)
+        else:
+            # every rank would have to run validation in lockstep; as in
+            # JAX, evaluate the compact checkpoint in one process instead
+            log.warning("%d ranks: skipping validation at step %d",
+                        self.world_size, self.global_step)
+
+    @staticmethod
+    def _start_profile():
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.__enter__()
+        return prof
+
+    def _stop_profile(self, prof, profile_dir: str) -> None:
+        prof.__exit__(None, None, None)
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            profile_dir, f"trace_rank{self.rank}.json"))
+
+    def checkpoint(self) -> None:
+        """Rank 0 writes ``step=N-cpt.npz``, ``last-cpt.npz`` and the full
+        state ``full_state.pt`` into the logger's checkpoint directory."""
+        if self.logger is None or not self._is_main:
+            return
+        ckpt = self.logger.ckpt_path
+        self.save_checkpoint(os.path.join(
+            ckpt, f"step={self.global_step}-cpt.npz"))
+        self.save_checkpoint(os.path.join(ckpt, "last-cpt.npz"))
+        self.save_full_state(os.path.join(ckpt, FULL_STATE))
+
+
+FULL_STATE = "full_state.pt"
