@@ -22,6 +22,15 @@ Phases (any failure ends the run with a non-zero exit, no result):
      flagship width, B = 8 with s8 x s8 products and B = 32 with bf16
      products, over five (flushed, pos) cache states, at max |diff| <=
      2e-3 |want| + 2e-4; then its times at B = 8 as K1's;
+  4b. K2-w4 (the same step on nibble-packed int4 weights) against its
+     plain version over those cache states at B = 8 with group 128, at
+     B = 32 with group 128 (the CLI's chunks under
+     ``VAE_GSLM_MEGA_W4=1``) and at B = 32 with group 64 (its ``=64``
+     setting), at K2's tolerance (the weights packed by the
+     port's ``pack_mega_w4`` on the card from K2's int8 weights, bitwise
+     equal to the same packing on the CPU); its times at B = 8 over the
+     rollout and at B = 32 (group 128), and the device time of one w4
+     and one a8 call by kernel name;
   5. K3 (packed ALiBi flash attention forward: o, lse) and K3b (its
      backward: dq, dk, dv) against their plain versions at the training
      shapes (B 8, T 640, 16 heads of 64, q/k/v views of one projection,
@@ -55,10 +64,12 @@ Phases (any failure ends the run with a non-zero exit, no result):
   6. agreement on a small input, twice: a small LVTR (head_dim 64)
      continues a prompt by 300 frames on the card (through the kernels)
      and on the CPU (through the plain versions), float32, temperature 0,
-     with bf16 weights through K1 across a 256-position flush, and with
+     with bf16 weights through K1 across a 256-position flush, with
      int8 weights through K2 (dim 256) across 8-step merges and two
-     128-position flushes: the token streams agree until at least step
-     150, the latents of the first 64 steps to 1e-2;
+     128-position flushes, and with int4 weights (group 128) through
+     K2-w4 (exactly 300 K2-w4 launches and no other K2 on the card): the
+     token streams agree until at least step 150, the latents of the
+     first 64 steps to 1e-2;
   7. one small training step (accumulation 2, utterance encoder) on the
      card through K3/K3b and on the CPU through the plain versions, same
      weights, batch and draws, float32: loss terms to 1e-4 relative,
@@ -87,8 +98,7 @@ Phases (any failure ends the run with a non-zero exit, no result):
          no K2 launch per run;
        - int8 weights quantized from the float32 weights, the rest cast
          to bf16 (the shipped ``weight_dtype: int8`` path): exactly 500
-         K2 launches and no K1 launch per run; then one B = 64 run, two
-         sequential B = 32 chunks with bf16 products, 1000 K2 launches;
+         K2 launches and no K1 launch per run (B = 64 runs in phase 11);
      then, for each path, a profile of 64 AR steps: the device busy
      share and the kernels that take it;
   9. the training path: ``LVTRTrainer`` on that config at full width with
@@ -101,7 +111,8 @@ Phases (any failure ends the run with a non-zero exit, no result):
   9b. the data-parallel training path: two ranks sharing the card (gloo)
      run ``scripts/train.py`` -> ``LVTRTrainer.fit`` on the shipped
      config, its data paths pointed at a synthetic corpus written from
-     seed 0 (96 WAVs of 13-20 s, their token ids and preprocessed mels):
+     seed 0 (96 WAVs of 13-20 s, their token ids, and the mels that
+     ``scripts/preprocess_mels.py`` writes from them on the card):
      8 rows per rank x accumulation 2 x 640 frames, 16-mixed, three
      optimizer steps, each with its counts set to 0 just before and read
      just after (exactly 32 K4 and 32 K4b launches per rank and no other
@@ -114,8 +125,10 @@ Phases (any failure ends the run with a non-zero exit, no result):
      changes, 2 rows per rank, accumulation 1, 4 WAVs of 31-35 s):
      exactly 16 K5 and 16 K5b launches per rank;
   10. the scoring path: ``LikelihoodEstimator`` at the full width of that
-     config (weights from seed 0 written by ``save_compact``, read back
-     strictly), float32, over 192 synthetic WAVs from seed 0 with the
+     config with its utterance encoder (weights from seed 0 written once
+     by ``save_compact`` beside a seed-1 vocoder directory and shared
+     with phase 11, read back strictly), float32, over 192 synthetic
+     WAVs from seed 0 with the
      infer config's data settings (batch 64) and a uniform length mix
      made to run both routes: 64 utterances of 5-20 s (one batch <= 1024
      frames: 16 K3 launches) and 128 of 5-35 s (two batches padded to
@@ -123,7 +136,23 @@ Phases (any failure ends the run with a non-zero exit, no result):
      version, each batch's lengths those phases 5 and 5b held K3 and K5
      at; utterances/s, seconds of audio scored per wall second, model
      and data time, peak memory, one profiled batch, and the device time
-     of one loader pass alone.
+     of one loader pass alone;
+  11. the speech-continuation CLI, twice: ``scripts/infer.py``'s ``main``
+     in this process on the shipped ``configs/infer/speech/vae-gslm.yaml``
+     with only ``ckpt_path`` (phase 10's checkpoint), ``vocoder.path``,
+     ``data.path``, ``data.wavdir`` and ``output_dir`` pointed at a
+     temporary directory holding 64 synthetic WAVs of 5-13 s from seed 0
+     and their tokens file: one batch of 64 (two sequential B = 32 chunks
+     of 500 AR steps, 16-mixed, int8 KV cache, int8 weights, DDIM-100 at
+     eta 0.5 with the utterance embedding, HiFi-GAN, the energy-VAD trim),
+     the kernels' counts set to 0 just before ``main`` and read just
+     after: exactly 1000 K2 launches and no K2-w4 or K1 launch; then with
+     ``VAE_GSLM_MEGA_W4=1``, exactly 1000 K2-w4 launches and no K2 or K1
+     launch.  Each run writes exactly 64 finite 16 kHz WAVs, none longer
+     than the 3 s prompt + 10 s; the real-time factor over the whole
+     ``main`` call (64 x 10 s over its wall time: model build, data,
+     sampling, vocoder and WAV writing included), the stage times and
+     the peak memory.
 Output: one line per measurement, then the ``{"kernels": [...]}`` line,
 the nvidia-smi name/power line, and ``{"ok": true, "device": ...}``.
 """
@@ -195,6 +224,12 @@ def _profiled(fn, n: int, only=()):
     return [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA
             and (not only or any(s in e.key for s in only))]
+
+
+def _kernel_name(key: str) -> str:
+    """A profiler key without its namespace and argument list."""
+    name = key.replace("(anonymous namespace)::", "").split("(")[0].strip()
+    return name[5:] if name.startswith("void ") else name
 
 
 def device_ms(fn, n: int, only=(), per_call: int = 0, tries: int = 4
@@ -392,20 +427,25 @@ def k2_inputs(b: int, dev, seed: int = 0):
     return x, weights, cache, slopes
 
 
-def k2_bytes_ops(b: int, pos: int, flushed: int, a8: bool):
+def k2_bytes_ops(b: int, pos: int, flushed: int, a8: bool, group: int = 0):
     """Bytes one call must move (int8 weights and their float32 vectors,
     the valid cache rows of every layer, x in and out, the new K/V rows)
     and its operations (dense multiply-adds; QK and PV over the valid
-    rows), and the card's peak rate for their type."""
+    rows), and the card's peak rate for their type.  With ``group``
+    (K2-w4): nibble-packed weights and their float32 group scales in
+    place of the int8 weights and column scales; s8 x s8 products."""
     d = H * D
     stage_base = pos - (pos - flushed) % 8
     weight_bytes = L * (12 * d * d + 4 * (2 * 9 * d + 2 * d))
+    if group:
+        weight_bytes = L * (6 * d * d + 4 * 12 * d * d // group
+                            + 4 * (9 * d + 2 * d))
     rows_i8 = stage_base                      # cold + merged tail rows
     rows_bf16 = pos - stage_base              # stage rows
     cache_bytes = L * b * H * (rows_i8 * 2 * (D + 4) + rows_bf16 * 4 * D)
     io_bytes = 2 * b * d * 4 + 2 * L * H * b * D * 2 + H * 4
     ops = 2 * b * L * 12 * d * d + L * b * H * 4 * D * (pos + 1)
-    peak = INT8_OPS_PER_S if a8 else BF16_FLOPS
+    peak = INT8_OPS_PER_S if a8 or group else BF16_FLOPS
     return weight_bytes + cache_bytes + io_bytes, ops, peak
 
 
@@ -469,6 +509,124 @@ def phase_k2(dev):
     return {"name": "fused_trunk_step", "route": "cuda",
             "source": "vae_gslm_tpu_torch/csrc/mega_step.cu",
             "replaces": "vae_gslm_tpu/ops/mega_step.py:427",
+            "launches": None, "max_abs_err": worst,
+            "ms": statistics.mean(ks), "plain_ms": statistics.mean(ps),
+            "bound_ms": statistics.mean(bs), "bound_by": "bytes",
+            "library_ms": None}
+
+
+def phase_k2_w4(dev):
+    """K2-w4 (the nibble-packed int4 branch of the trunk step) against its
+    plain version at the flagship width over ``K2_CASES``: at B = 8 with
+    group 128, and at B = 32 with group 128 and with group 64 (the CLI's
+    chunks under ``VAE_GSLM_MEGA_W4=1`` and ``=64``), at K2's tolerance; the w4
+    weights are built by the port's ``pack_mega_w4`` on the card from
+    ``k2_inputs``' int8 weights and held bitwise equal to the same build
+    on the CPU.  Then its times at B = 8 over the rollout's positions and
+    at B = 32, group 128 (the CLI's chunks under ``VAE_GSLM_MEGA_W4=1``)."""
+    import torch
+
+    from vae_gslm_tpu_torch.nn.transformer import pack_mega_w4
+    from vae_gslm_tpu_torch.ops.mega_step import (
+        fused_trunk_step as k2, fused_trunk_step_plain as plain)
+
+    def w4_weights(weights, group):
+        w4 = pack_mega_w4(weights, group, D)
+        cpu = pack_mega_w4({k: v.cpu() for k, v in weights.items()}, group,
+                           D)
+        for k in cpu:
+            a, b = w4[k].cpu(), cpu[k]
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                raise AssertionError(f"the card's w4 build of {k} (group "
+                                     f"{group}) differs from the CPU's")
+        return w4
+
+    worst = 0.0
+    for b, group in ((8, 128), (32, 128), (32, 64)):
+        x, weights, cache, slopes = k2_inputs(b, dev, seed=b)
+        w4 = w4_weights(weights, group)
+        mb = sum(v.numel() * v.element_size() for k, v in w4.items()
+                 if k[0] in "wg") / 1e6
+        log(f"K2-w4 build B={b} group={group}: card and CPU bitwise equal "
+            f"({mb:.1f} MB of packed weights and group scales)")
+        for flushed, pos in K2_CASES:
+            before = k2.launches_w4
+            got = k2(x, w4, cache, pos, slopes, flushed)
+            want = plain(x, w4, cache, pos, slopes, flushed)
+            torch.cuda.synchronize()
+            if k2.launches_w4 != before + 1:
+                raise AssertionError("the w4 call did not count as K2-w4")
+            errs = []
+            for name, gt, wt in zip(("x", "k_new", "v_new"), got, want):
+                gt, wt = gt.float(), wt.float()
+                diff = (gt - wt).abs()
+                errs.append(diff.max().item())
+                slack = (2e-4 + 2e-3 * wt.abs() - diff).min().item()
+                if slack < 0 or not math.isfinite(errs[-1]):
+                    raise AssertionError(
+                        f"K2-w4 {name} disagrees with its plain version "
+                        f"beyond rtol 2e-3 / atol 2e-4 (B={b}, group="
+                        f"{group}, flushed={flushed}, pos={pos}): max abs "
+                        f"{errs[-1]:.3e}")
+            log(f"K2-w4 check B={b} group={group} flushed={flushed} "
+                f"pos={pos}: max_abs_err x {errs[0]:.3e}, k_new "
+                f"{errs[1]:.3e}, v_new {errs[2]:.3e}")
+            worst = max(worst, *errs)
+    ks, calls, ps, bs = [], [], [], []
+    x, weights, cache, slopes = k2_inputs(8, dev, seed=1)
+    w4 = pack_mega_w4(weights, 128, D)
+    for pos in range(PROMPT + 1, PROMPT + 1 + LENGTH, 100):
+        flushed = pos // 128 * 128
+
+        def kernel(i):
+            return k2(x, w4, cache, pos, slopes, flushed)
+
+        ks.append(device_ms(kernel, n=50))
+        calls.append(cuda_ms(kernel, n=50))
+        ps.append(device_ms(lambda i: plain(x, w4, cache, pos, slopes,
+                                            flushed), n=3))
+        nbytes, ops, peak = k2_bytes_ops(8, pos, flushed, False, 128)
+        bs.append(max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3)
+        log(f"K2-w4 time B=8 group=128 pos={pos}: kernel "
+            f"{ks[-1] * 1e3:.1f} us, {calls[-1] * 1e3:.1f} us per call with "
+            f"the wrapper, plain {ps[-1] * 1e3:.1f} us, bound "
+            f"{bs[-1] * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.2f} G int8 ops)")
+    # where a step's device time goes, K2-w4 against K2-a8 on the same
+    # int8 weights, by kernel name (per call)
+    pos = PROMPT + 1 + 200
+    flushed = pos // 128 * 128
+    for what, w, kw in (("K2-w4", w4, {}), ("K2-a8", weights, {"a8": True})):
+        evs = _profiled(lambda i: k2(x, w, cache, pos, slopes, flushed, **kw),
+                        20)
+        total = sum(us for _, us, _ in evs) / 20
+        log(f"{what} B=8 pos={pos} by kernel: " + "; ".join(
+            f"{_kernel_name(name)} {us / 20:.1f} us ({cnt / 20:.0f}x)"
+            for name, us, cnt in sorted(evs, key=lambda e: -e[1]))
+            + f"; total {total:.1f} us")
+    log(f"K2-w4 mean over the rollout (B=8, group 128): kernel "
+        f"{statistics.mean(ks) * 1e3:.1f} us, "
+        f"{statistics.mean(calls) * 1e3:.1f} us per call with the wrapper, "
+        f"plain {statistics.mean(ps) * 1e3:.1f} us, bound "
+        f"{statistics.mean(bs) * 1e3:.1f} us")
+    x, weights, cache, slopes = k2_inputs(32, dev, seed=32)
+    w4 = pack_mega_w4(weights, 128, D)
+    pos = PROMPT + 1 + LENGTH // 2
+    flushed = pos // 128 * 128
+    k32 = device_ms(lambda i: k2(x, w4, cache, pos, slopes, flushed), n=20)
+    p32 = device_ms(lambda i: plain(x, w4, cache, pos, slopes, flushed), n=2)
+    nbytes, ops, peak = k2_bytes_ops(32, pos, flushed, False, 128)
+    b32 = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
+    log(f"K2-w4 time B=32 group=128 pos={pos}: kernel {k32 * 1e3:.1f} us, "
+        f"plain {p32 * 1e3:.1f} us, bound {b32 * 1e3:.1f} us "
+        f"({nbytes / 1e6:.1f} MB)")
+    log("K2-w4 library_ms: null (no single PyTorch call computes a whole "
+        "int4-weight trunk step)")
+    return {"name": "fused_trunk_step_w4", "route": "cuda",
+            "source": "vae_gslm_tpu_torch/csrc/mega_step.cu",
+            "replaces": "vae_gslm_tpu/ops/mega_step.py:143",
             "launches": None, "max_abs_err": worst,
             "ms": statistics.mean(ks), "plain_ms": statistics.mean(ps),
             "bound_ms": statistics.mean(bs), "bound_by": "bytes",
@@ -997,17 +1155,20 @@ def small_hparams(mega: bool):
     return Hparams.from_dict(d)
 
 
-def phase_small(dev, quantize: bool):
+def phase_small(dev, quantize: bool, w4: int = 0):
     """A small LVTR continues a prompt by 300 frames on the card (through
     the kernels) and on the CPU (through the plain versions), float32,
     temperature 0: bf16 weights through K1, or int8 weights through K2
-    (a8 at B = 2) across eight-step merges and two tail -> cold flushes."""
+    (a8 at B = 2) across eight-step merges and two tail -> cold flushes,
+    or with ``w4`` nibble-packed int4 weights of that scale group through
+    K2-w4 (exactly 300 K2-w4 launches and no other K2 on the card)."""
     import numpy as np
     import torch
 
     from vae_gslm_tpu_torch.core.masked import Masked
     from vae_gslm_tpu_torch.inference.speech.sampler import ARTRSampler
     from vae_gslm_tpu_torch.models.speech.lvtr import LVTR
+    from vae_gslm_tpu_torch.ops.mega_step import fused_trunk_step
 
     rng = np.random.RandomState(1)
     b, tp, length = 2, 20, 300
@@ -1028,20 +1189,27 @@ def phase_small(dev, quantize: bool):
                                  for k, v in model.state_dict().items()}
         else:
             model.load_state_dict(runs["cpu_state"])
-        sampler = ARTRSampler(model, quantize_weights=quantize, device=where)
+        sampler = ARTRSampler(model, quantize_weights=quantize, device=where,
+                              mega_w4=w4)
         if sampler.use_mega != quantize:
             raise AssertionError("the small int8 model missed the mega path")
         x = torch.from_numpy(prompt).to(where)
+        fused_trunk_step.launches = fused_trunk_step.launches_w4 = 0
         out = sampler(length, Masked.from_lengths(x, [tp] * b),
                       torch.Generator(where).manual_seed(0),
                       temperature=0.0, token_temperature=1e-6,
                       encoder_temperature=0.0)
+        counts = fused_trunk_step.launches, fused_trunk_step.launches_w4
+        if w4 and str(where) != "cpu" and counts != (0, length):
+            raise AssertionError(f"K2 / K2-w4 launches {counts}, expected "
+                                 f"(0, {length})")
         runs[str(where)] = out["frames"].value.float().cpu().numpy()
     cpu, gpu = runs["cpu"][:, tp:], runs[str(dev)][:, tp:]
     neq = (cpu[..., 0] != gpu[..., 0]).any(0)
     first = int(neq.argmax()) if neq.any() else length
     lat_err = float(np.abs(cpu[:, :64, 1:] - gpu[:, :64, 1:]).max())
-    what = "int8 weights through K2" if quantize else "bf16 through K1"
+    what = (f"int4 weights (group {w4}) through K2-w4" if w4
+            else "int8 weights through K2" if quantize else "bf16 through K1")
     log(f"small-input agreement (card {what} vs CPU plain, {length} steps "
         f"across flushes): tokens equal for the first {first} steps, "
         f"first-64-step latent max error {lat_err:.2e}")
@@ -1421,10 +1589,8 @@ def run_once(sampler, vocoder, prior, dev, seed: int, kw: dict):
 def phase_pipeline(dev, gpu: str, quantize: bool):
     """The 3 s -> 10 s continuation at B = 8, three times: bf16 weights
     through K1 (16 x 500 launches, no K2) or int8 weights through K2 (500
-    launches, a8, no K1); with int8 weights also one B = 64 run (two
-    sequential B = 32 chunks, bf16 products, 1000 K2 launches).  Then a
-    profile of 64 AR steps.  Returns the path's kernel count of its last
-    B = 8 run."""
+    launches, a8, no K1).  Then a profile of 64 AR steps.  Returns the
+    path's kernel count of its last B = 8 run."""
     import torch
 
     path = "int8 weights, K2" if quantize else "bf16 weights, K1"
@@ -1461,17 +1627,6 @@ def phase_pipeline(dev, gpu: str, quantize: bool):
     log(f"pipeline B=8 ({path}): {audio_s:.0f} s of audio, real-time "
         f"factor median {rtf[1]:.2f}x, range {rtf[0]:.2f}-{rtf[-1]:.2f}x "
         f"over {len(runs)} runs ({gpu})")
-    if quantize:
-        prior64 = make_prior(64, dev)
-        timings, counts = run_once(sampler, vocoder, prior64, dev, 7, kw)
-        rtf64 = 64 * LENGTH / 50.0 / sum(timings.values())
-        log(f"run B=64 ({path}, two B=32 chunks): K1 launches {counts[0]}, "
-            f"K2 launches {counts[1]}; " + ", ".join(
-                f"{name} {sec * 1e3:.1f} ms" for name, sec in timings.items())
-            + f"; real-time factor {rtf64:.2f}x ({gpu})")
-        if counts != (0, 2 * LENGTH):
-            raise AssertionError(f"B=64: launches (K1, K2) = {counts}, "
-                                 f"expected (0, {2 * LENGTH})")
     profile_ar_loop(sampler, prior, dev, gpu, kw, path)
     return launches
 
@@ -1696,11 +1851,46 @@ trainer: {{distributed: false}}
 """
 
 
-def phase_score(dev, gpu: str, seed: int = 0) -> int:
+def write_flagship(root: str, dev, seed: int = 0):
+    """The checkpoint directory of the full-width LVTR of
+    ``configs/train/speech/vae-gslm.yaml`` with its utterance encoder
+    (weights from ``seed``, float32, saved by the port's ``save_compact``
+    with the train config as ``hp.yaml``) and a HiFi-GAN directory of
+    the 80-bin vocoder config (weights from seed 1, ``save_pretrained``),
+    written once under ``root`` for the scoring and the CLI phases.
+    Returns (checkpoint directory, vocoder directory)."""
+    import torch
+
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.models.speech.lvtr import LVTR
+    from vae_gslm_tpu_torch.models.vocoder.vocoder import HiFiGAN
+    from vae_gslm_tpu_torch.training.checkpoint import save_compact
+
+    ckpt, voc = os.path.join(root, "ckpt"), os.path.join(root, "voc")
+    os.makedirs(ckpt)
+    t0 = time.perf_counter()
+    HiFiGAN(Hparams.from_yamlfile(VOCODER_YAML), device=dev,
+            generator=torch.Generator(dev).manual_seed(1)
+            ).save_pretrained(voc)
+    hp = Hparams.from_yamlfile(TRAIN_YAML)
+    hp.vocoder.path = voc
+    model = LVTR(hp.model, input_dim=80, device=dev,
+                 generator=torch.Generator(dev).manual_seed(seed))
+    nparams = sum(p.numel() for p in model.parameters())
+    save_compact(model, os.path.join(ckpt, "last-cpt.npz"))
+    hp.save(os.path.join(ckpt, "hp.yaml"))
+    del model
+    log(f"flagship: LVTR {nparams / 1e6:.1f} M parameters (with the "
+        f"utterance encoder) saved with save_compact, and the vocoder, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ckpt, voc
+
+
+def phase_score(dev, gpu: str, ckpt: str, seed: int = 0) -> int:
     """The scoring path at full width: ``LikelihoodEstimator`` on the
-    LVTR of ``configs/train/speech/vae-gslm.yaml`` (weights from seed 0,
-    saved by the port's ``save_compact`` with the train config as
-    ``hp.yaml``) and the 80-bin vocoder directory, over a synthetic
+    flagship checkpoint directory (``write_flagship``: the LVTR of
+    ``configs/train/speech/vae-gslm.yaml``, weights from seed 0, and the
+    80-bin vocoder directory), over a synthetic
     corpus of 192 WAVs with the infer config's data settings (batch 64,
     ``min_audio_length`` 5.0, padding to a multiple of 320 samples;
     ``bits_per_second`` 32000, the rate of 16-bit 16 kHz WAV), float32
@@ -1721,11 +1911,8 @@ def phase_score(dev, gpu: str, seed: int = 0) -> int:
     from vae_gslm_tpu_torch.hparams.hp import Hparams
     from vae_gslm_tpu_torch.inference.speech.likelihood import \
         LikelihoodEstimator
-    from vae_gslm_tpu_torch.models.speech.lvtr import LVTR
-    from vae_gslm_tpu_torch.models.vocoder.vocoder import HiFiGAN
     from vae_gslm_tpu_torch.nn import attention as attn_mod
     from vae_gslm_tpu_torch.ops import flash_attention as fa
-    from vae_gslm_tpu_torch.training.checkpoint import save_compact
 
     tmp = tempfile.mkdtemp(prefix="score_")
     saved = (fa.flash_forward_packed_plain, fa.flash_forward_tiled_plain,
@@ -1740,35 +1927,19 @@ def phase_score(dev, gpu: str, seed: int = 0) -> int:
 
     try:
         with precision.policy_scope(precision.Policy()):
-            corpus, voc, ckpt = (os.path.join(tmp, n)
-                                 for n in ("corpus", "voc", "ckpt"))
-            for dname in (corpus, ckpt):
-                os.makedirs(dname)
+            corpus = os.path.join(tmp, "corpus")
+            os.makedirs(corpus)
             t0 = time.perf_counter()
             audio_s = write_scoring_corpus(corpus, seed)
-            t1 = time.perf_counter()
-            HiFiGAN(Hparams.from_yamlfile(VOCODER_YAML), device=dev,
-                    generator=torch.Generator(dev).manual_seed(1)
-                    ).save_pretrained(voc)
-            hp = Hparams.from_yamlfile(TRAIN_YAML)
-            hp.vocoder.path = voc
-            model = LVTR(hp.model, input_dim=80, device=dev,
-                         generator=torch.Generator(dev).manual_seed(seed))
-            nparams = sum(p.numel() for p in model.parameters())
-            save_compact(model, os.path.join(ckpt, "last-cpt.npz"))
-            hp.save(os.path.join(ckpt, "hp.yaml"))
-            del model
             t2 = time.perf_counter()
             est = LikelihoodEstimator(Hparams.from_yaml(SCORE_INFER_YAML.format(
                 ckpt=ckpt, corpus=corpus)), device=dev)
             torch.cuda.synchronize()
             t3 = time.perf_counter()
             log(f"score: corpus of {SCORE_SHORT + SCORE_LONG} WAVs "
-                f"({audio_s:.1f} s of audio) written in {t1 - t0:.1f} s; "
-                f"LVTR {nparams / 1e6:.1f} M parameters saved with "
-                f"save_compact in {t2 - t1:.1f} s; LikelihoodEstimator "
-                f"(checkpoint and vocoder loaded strictly) built in "
-                f"{t3 - t2:.1f} s")
+                f"({audio_s:.1f} s of audio) written in {t2 - t0:.1f} s; "
+                f"LikelihoodEstimator (checkpoint and vocoder loaded "
+                f"strictly) built in {t3 - t2:.1f} s")
             (fa.flash_forward_packed_plain, fa.flash_forward_tiled_plain,
              fa.flash_forward_full_plain, fa.flash_forward_full,
              fa.attention_reference, attn_mod.attend) = (
@@ -1887,6 +2058,116 @@ def phase_score(dev, gpu: str, seed: int = 0) -> int:
     for ms, cnt, name in sorted(kernels, reverse=True)[:10]:
         log(f"  {ms:.3f} ms, {cnt}x: {name[:90]}")
     return k5_launches
+
+
+# ------------------------------------------------------------------ CLI
+INFER_YAML = os.path.join(ROOT, "configs", "infer", "speech",
+                          "vae-gslm.yaml")
+CLI_UTTERANCES = 64                 # the infer config's batch_size
+
+
+def write_cli_corpus(root: str, seed: int = 0) -> str:
+    """64 WAVs of 5-13 s and their tokens file from ``seed`` (the training
+    corpus writer, without mels), and the shipped infer config with only
+    ``ckpt_path``, ``vocoder.path``, ``data.path``, ``data.wavdir`` and
+    ``output_dir`` pointed under ``root``.  Returns the config's path."""
+    import yaml
+
+    corpus = os.path.join(root, "corpus")
+    os.makedirs(corpus)
+    write_train_corpus(corpus, None, CLI_UTTERANCES, 5.0, 13.0, seed)
+    with open(INFER_YAML) as f:
+        cfg = yaml.safe_load(f)
+    cfg["ckpt_path"] = os.path.join(root, "ckpt")
+    cfg["vocoder"]["path"] = os.path.join(root, "voc")
+    cfg["data"].update(path=os.path.join(corpus, "tokens.txt"),
+                       wavdir=corpus)
+    cfg["output_dir"] = os.path.join(root, "samples")
+    path = os.path.join(root, "infer.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def phase_cli(dev, gpu: str, config: str, w4: bool) -> int:
+    """The speech-continuation CLI at full width: ``scripts/infer.py``'s
+    ``main`` in this process on the shipped infer config (``write_cli_
+    corpus``), one batch of 64 (two sequential B = 32 chunks of 500 AR
+    steps, DDIM-100 at eta 0.5 with the utterance embedding, HiFi-GAN,
+    the energy-VAD trim), the bf16-mixed policy, int8 KV cache and int8
+    weights; with ``w4`` under ``VAE_GSLM_MEGA_W4=1``.  The kernels'
+    counts are set to 0 just before ``main`` and read just after: exactly
+    1000 launches of K2 (int8) or of K2-w4 (w4), none of the other and no
+    K1.  Checks 64 finite 16 kHz WAVs, none longer than the prompt + 10 s.
+    Reports the real-time factor over the whole ``main`` call (model
+    build, data, sampling, vocoder, WAV writing: 64 x 10 s over its wall
+    time), the stage times and the peak memory.  Returns the launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from vae_gslm_tpu_torch.data import audio
+    from vae_gslm_tpu_torch.ops.fused_decode import fused_decode_attention
+    from vae_gslm_tpu_torch.ops.mega_step import fused_trunk_step
+    from vae_gslm_tpu_torch.scripts import infer as infer_cli
+
+    with open(config) as f:
+        out_dir = yaml.safe_load(f)["output_dir"]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    path = "int4 weights, K2-w4" if w4 else "int8 weights, K2"
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    old = os.environ.pop("VAE_GSLM_MEGA_W4", None)
+    if w4:
+        os.environ["VAE_GSLM_MEGA_W4"] = "1"
+    try:
+        fused_decode_attention.launches = 0
+        fused_trunk_step.launches = fused_trunk_step.launches_w4 = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = infer_cli.main(["-c", config, "--max_batches", "1", "--seed",
+                            "0"], timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = (fused_decode_attention.launches, fused_trunk_step.launches,
+                  fused_trunk_step.launches_w4)
+    finally:
+        os.environ.pop("VAE_GSLM_MEGA_W4", None)
+        if old is not None:
+            os.environ["VAE_GSLM_MEGA_W4"] = old
+    peak = torch.cuda.max_memory_allocated()
+    want = (0, 0, 2 * LENGTH) if w4 else (0, 2 * LENGTH, 0)
+    if counts != want:
+        raise AssertionError(f"CLI ({path}): launches (K1, K2, K2-w4) = "
+                             f"{counts}, expected {want}")
+    names = sorted(os.listdir(out_dir), key=lambda n: int(n.split(".")[0]))
+    if n != CLI_UTTERANCES or names != [f"{i}.wav" for i in
+                                        range(1, CLI_UTTERANCES + 1)]:
+        raise AssertionError(f"CLI ({path}): {n} outputs, files {names[:4]}"
+                             f"... ({len(names)})")
+    lens = []
+    for name in names:
+        wave, sr = audio.load_audio(os.path.join(out_dir, name))
+        lens.append(len(wave))
+        if sr != 16000 or not 0 < len(wave) <= (PROMPT + LENGTH) * 320 \
+                or not np.isfinite(wave).all():
+            raise AssertionError(f"CLI ({path}) {name}: {len(wave)} samples "
+                                 f"at {sr} Hz")
+    trimmed = sum(x < (PROMPT + LENGTH) * 320 for x in lens)
+    audio_s = CLI_UTTERANCES * LENGTH / 50.0
+    log(f"CLI ({path}), B={CLI_UTTERANCES} as two B=32 chunks: K1 "
+        f"{counts[0]}, K2 {counts[1]}, K2-w4 {counts[2]} launches; {n} "
+        f"WAVs of {min(lens) / 16000:.2f}-{max(lens) / 16000:.2f} s ({trimmed}"
+        f" shortened by the VAD trim); " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in timings.items())
+        + f"; main wall {wall:.3f} s, real-time factor "
+        f"{audio_s / wall:.2f}x with model build, data and WAV writing "
+        f"({audio_s / sum(timings.values()):.2f}x over the timed stages); "
+        f"peak memory {peak / 2 ** 30:.2f} GiB ({gpu})")
+    return counts[2] if w4 else counts[1]
 
 
 # --------------------------------------------------------------- K4b/K5b
@@ -2411,25 +2692,25 @@ def phase_dp_small(dev):
         "the ranks' start")
 
 
-def write_train_corpus(root: str, mels: str, n: int, lo_s: float,
-                       hi_s: float, dev, seed: int = 0) -> float:
-    """``n`` WAVs (16 kHz, 16-bit) of ``lo_s``-``hi_s`` s from ``seed``,
-    a ``tokens.txt`` of random token ids at 50 Hz, and each WAV's 80-bin
+def write_train_corpus(root: str, mels, n: int, lo_s: float,
+                       hi_s: float, seed: int = 0) -> float:
+    """``n`` WAVs (16 kHz, 16-bit) of ``lo_s``-``hi_s`` s from ``seed``
+    and a ``tokens.txt`` of random token ids at 50 Hz; unless ``mels`` is
+    None, ``scripts/preprocess_mels.py`` then writes each WAV's 80-bin
     log-mel (the vocoder config's frontend, on the card) as ``.npy``
-    under ``mels``, as ``preprocess_mels`` reads them.  Every duration
-    is a whole number of 20 ms frames.  Returns the seconds of audio."""
+    under ``mels``, the tree the training data reads.  Every duration is
+    a whole number of 20 ms frames.  Returns the seconds of audio."""
+    import logging
+
     import numpy as np
+    import yaml
 
     from vae_gslm_tpu_torch.data import audio
-    from vae_gslm_tpu_torch.data.features import MelSpecFeatureProcessor
-    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.scripts import preprocess_mels
 
-    proc = MelSpecFeatureProcessor(
-        Hparams.from_yamlfile(VOCODER_YAML).feature, device=dev)
     rng = np.random.RandomState(seed)
     frames = rng.randint(int(lo_s * 50), int(hi_s * 50) + 1, n)
     lines = []
-    os.makedirs(mels, exist_ok=True)
     for i, nf in enumerate(frames):
         m = int(nf) * 320
         t = np.arange(m, dtype=np.float32) / 16000.0
@@ -2441,12 +2722,27 @@ def write_train_corpus(root: str, mels: str, n: int, lo_s: float,
                 + 0.01 * rng.randn(m)).astype(np.float32)
         name = f"utt{i:03d}"
         audio.save_wav(os.path.join(root, name + ".wav"), wave, 16000)
-        np.save(os.path.join(mels, name + ".npy"),
-                proc.encode_single(wave).cpu().numpy())
         lines.append(f"{name}.wav|"
                      f"{' '.join(map(str, rng.randint(0, 200, nf)))}")
-    with open(os.path.join(root, "tokens.txt"), "w") as f:
+    tokens = os.path.join(root, "tokens.txt")
+    with open(tokens, "w") as f:
         f.write("\n".join(lines) + "\n")
+    if mels is not None:
+        with open(VOCODER_YAML) as f:
+            cfg = yaml.safe_load(f)
+        cfg["data"] = {"path": tokens, "wavdir": root, "sample_rate": 16000,
+                       "with_text": False, "with_tokens": True}
+        path = os.path.join(os.path.dirname(os.path.abspath(mels)),
+                            "preprocess_mels.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        level = logging.getLogger().level     # the CLI logs at INFO
+        wrote = preprocess_mels.main(["-c", path, "-o", mels,
+                                      "--device", "cuda"])
+        logging.getLogger().setLevel(level)
+        if wrote != n:
+            raise AssertionError(f"preprocess_mels wrote {wrote} mels of "
+                                 f"{n} WAVs")
     return float(frames.sum()) / 50.0
 
 
@@ -2454,7 +2750,8 @@ def phase_dp_fit(dev, gpu: str, long: bool = False):
     """Two ranks on the card (gloo) train the full-width LVTR of
     ``configs/train/speech/vae-gslm.yaml`` through ``scripts/train.py``
     -> ``LVTRTrainer.fit``, its data paths pointed at a synthetic corpus
-    written from seed 0 (WAVs, tokens and preprocessed mels; a uniform
+    written from seed 0 (WAVs, tokens and mels from ``scripts/
+    preprocess_mels.py``; a uniform
     length mix, not a measured corpus's).  The shipped settings: 8 rows
     per rank x accumulation 2 x 640-frame segments, 16-mixed, AdamW,
     ``DP_STEPS`` optimizer steps over 96 utterances of 13-20 s (one
@@ -2480,7 +2777,7 @@ def phase_dp_fit(dev, gpu: str, long: bool = False):
         t0 = time.perf_counter()
         audio_s = write_train_corpus(corpus, mels, n_utt,
                                      31.0 if long else 13.0,
-                                     35.0 if long else 20.0, dev)
+                                     35.0 if long else 20.0)
         with open(TRAIN_YAML) as f:
             cfg = yaml.safe_load(f)
         cfg["vocoder"]["path"] = vocoder_dir(tmp)
@@ -2637,25 +2934,39 @@ def main() -> int:
 
     k1 = phase_k1(dev)
     k2 = phase_k2(dev)
+    k2w4 = phase_k2_w4(dev)
     k3, k3b = phase_k3(dev)
     k4_worst, k5 = phase_k45(dev)
     k4, k4b, k5b = phase_k45b(dev, k4_worst)
     phase_small(dev, quantize=False)
     phase_small(dev, quantize=True)
+    phase_small(dev, quantize=True, w4=128)
     phase_train_small(dev)
     phase_likelihood_small(dev)
     phase_dp_small(dev)
     k1["launches"] = phase_pipeline(dev, gpu, quantize=False)
-    k2["launches"] = phase_pipeline(dev, gpu, quantize=True)
+    phase_pipeline(dev, gpu, quantize=True)
     k3["launches"], k3b["launches"] = phase_train(dev, gpu)
     dp = phase_dp_fit(dev, gpu)
     k4["launches"] = dp["flash_forward_full"]
     k4b["launches"] = dp["flash_backward_full"]
     k5b["launches"] = phase_dp_fit(dev, gpu, long=True)[
         "flash_backward_blockwise"]
-    k5["launches"] = phase_score(dev, gpu)
+    import shutil
+    import tempfile
+
+    flagship = tempfile.mkdtemp(prefix="flagship_")
+    try:
+        ckpt, _ = write_flagship(flagship, dev)
+        k5["launches"] = phase_score(dev, gpu, ckpt)
+        config = write_cli_corpus(flagship)
+        k2["launches"] = phase_cli(dev, gpu, config, w4=False)
+        k2w4["launches"] = phase_cli(dev, gpu, config, w4=True)
+    finally:
+        shutil.rmtree(flagship, ignore_errors=True)
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k3, k3b, k4, k4b, k5, k5b]}))
+    print(json.dumps({"kernels": [k1, k2, k2w4, k3, k3b, k4, k4b, k5,
+                                  k5b]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -239,7 +239,7 @@ def test_discrete_ar_raises(scoring_dirs):
     corpus, ckpt = scoring_dirs
     hp = Hparams.from_yaml(INFER_YAML.format(ckpt=ckpt, corpus=corpus))
     hp.model.identifier = "models.speech.discrete.DiscreteAR"
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         LikelihoodEstimator(hp, device="cpu")
 
 

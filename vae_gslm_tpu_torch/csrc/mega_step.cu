@@ -59,6 +59,29 @@
 //     are summed in float64 and rounded once, in the plain version too, so
 //     their order of summation does not matter;
 //   * GELU uses the Abramowitz-Stegun rational erf of the TPU kernel.
+//
+// The w4 branch (group > 0; K2-w4, the Pallas kernel's w4 path at _kernel
+// and its out-projection) reads nibble-packed int4 weights: (L, din/2,
+// dout) int8, rows r and r + din/2 in the hi and lo nibble of one byte,
+// with folded group scales g (L, din/group, dout) float32 in place of the
+// column scales.  Its bound is the same HBM stream at about half the
+// weight bytes (6 x 1024^2 x 16 = 101 MB packed + 6.3 MB of group scales
+// at group 128).  It has kernels of its own beside the a8/bf16 ones, which
+// it leaves as they are:
+//   * rows_w4_kernel quantizes each row per group of `group` inputs (one
+//     scale per (row, group), max|h| / 127 divided, not multiplied by a
+//     reciprocal);
+//   * dense_w4_kernel reads each packed byte once: a block takes PKC = 32
+//     packed rows, unpacks the hi nibbles (logical rows p0..) and the
+//     sign-extended lo nibbles (rows din/2 + p0..) into int8 and sums each
+//     against its activation rows with __dp4a into exact int32 partials,
+//     one per 32-row sub-chunk;
+//   * epilogue_w4_kernel sums a group's sub-chunk partials in int32 (exact, so
+//     the order does not matter), then the groups in group order in
+//     float32: y += float(dot_g) * (xs[b, g] * g[g, n]); the
+//     out-projection takes each head's (two sub-chunks') dot, its scale
+//     asx[b, h] and its group row of go, with no `so`;
+//   * the attention tier quantizes its output per head, as a8 does.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -141,10 +164,24 @@ __device__ __forceinline__ float bf16_round(float v) {
 }
 
 // ------------------------------------------------------------ 1. rows
+// r = 1 / sqrt(sum(x^2) / K + 1e-6) of one row, the squares summed in
+// float64
+__device__ __forceinline__ float row_rms(const float* __restrict__ xr,
+                                         int K, double* dred) {
+  double ss = 0.0;
+  for (int k = threadIdx.x; k < K; k += RT) {
+    const float v = xr[k];
+    ss += (double)__fmul_rn(v, v);
+  }
+  const float ms = __fdiv_rn(__double2float_rn(block_sum<RT>(ss, dred)),
+                             (float)K);
+  return __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(ms, 1e-6f)));
+}
+
 // One block per batch row of K values.  With `norm`, h = (x * r) * norm
-// where r = 1 / sqrt(sum(x^2) / K + 1e-6), the squares summed in float64;
-// else h = x.  a8: q8 = round(h / xs), xs = max(|h|max, 1e-8) / 127, with
-// xs written to xs_out[b * xs_stride]; otherwise h goes to h_out.
+// (r from row_rms); else h = x.  a8: q8 = round(h / xs), xs =
+// max(|h|max, 1e-8) / 127, with xs written to xs_out[b * xs_stride];
+// otherwise h goes to h_out.
 __global__ void __launch_bounds__(RT)
 rows_kernel(const float* __restrict__ x, const float* __restrict__ norm,
             int K, int a8, float* __restrict__ h_out,
@@ -154,17 +191,7 @@ rows_kernel(const float* __restrict__ x, const float* __restrict__ norm,
   __shared__ float fred[RT / 32];
   const int b = blockIdx.x;
   const float* xr = x + (size_t)b * K;
-  float r = 1.f;
-  if (norm) {
-    double ss = 0.0;
-    for (int k = threadIdx.x; k < K; k += RT) {
-      const float v = xr[k];
-      ss += (double)__fmul_rn(v, v);
-    }
-    const float ms = __fdiv_rn(__double2float_rn(block_sum<RT>(ss, dred)),
-                               (float)K);
-    r = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(ms, 1e-6f)));
-  }
+  const float r = norm ? row_rms(xr, K, dred) : 1.f;
   float amax = 0.f;
   for (int k = threadIdx.x; k < K; k += RT) {
     const float h = norm ? __fmul_rn(__fmul_rn(xr[k], r), norm[k]) : xr[k];
@@ -180,10 +207,39 @@ rows_kernel(const float* __restrict__ x, const float* __restrict__ norm,
   if (threadIdx.x == 0) xs_out[(size_t)b * xs_stride] = xs;
 }
 
+// w4: as rows_kernel's a8 mode with one xs per group of `group` values (a
+// warp per group), written to xs_out[b * (K / group) + group index].
+__global__ void __launch_bounds__(RT)
+rows_w4_kernel(const float* __restrict__ x, const float* __restrict__ norm,
+               int K, int group, int8_t* __restrict__ q_out,
+               float* __restrict__ xs_out) {
+  __shared__ double dred[RT / 32];
+  const int b = blockIdx.x;
+  const float* xr = x + (size_t)b * K;
+  const float r = norm ? row_rms(xr, K, dred) : 1.f;
+  const int G = K / group, lane = threadIdx.x & 31;
+  for (int gi = threadIdx.x >> 5; gi < G; gi += RT / 32) {
+    const int k0 = gi * group;
+    float amax = 0.f;
+    for (int k = k0 + lane; k < k0 + group; k += 32) {
+      const float h = norm ? __fmul_rn(__fmul_rn(xr[k], r), norm[k]) : xr[k];
+      amax = fmaxf(amax, fabsf(h));
+    }
+    for (int o = 16; o > 0; o >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float xs = qscale(amax, 1e-8f);
+    for (int k = k0 + lane; k < k0 + group; k += 32) {
+      const float h = norm ? __fmul_rn(__fmul_rn(xr[k], r), norm[k]) : xr[k];
+      q_out[(size_t)b * K + k] = quant(h, xs);
+    }
+    if (lane == 0) xs_out[(size_t)b * G + gi] = xs;
+  }
+}
+
 // ----------------------------------------------------------- 2. dense
 // part[s, b, n] = sum over k in chunk s of act[b, k] * w[k, n], for the
 // block's 256 columns, 8 batch rows and chunk s = blockIdx.y of KC rows.
-// a8: int8 x int8 in int32.  bf16: bf16(act) x int8 in float32.
+// a8: int8 x int8 in int32.  bf16: bf16(act) x int8 in float64.
 __device__ __forceinline__ void transpose4(int w0, int w1, int w2, int w3,
                                            int c[4]) {
   const int lo01 = __byte_perm(w0, w1, 0x5140);
@@ -194,6 +250,13 @@ __device__ __forceinline__ void transpose4(int w0, int w1, int w2, int w3,
   c[1] = __byte_perm(lo01, lo23, 0x7632);
   c[2] = __byte_perm(hi01, hi23, 0x5410);
   c[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// the four signed 4-bit values in the hi (or lo) nibbles of w's bytes, as
+// four signed bytes: per byte, (nibble ^ 8) - 8 without carries
+__device__ __forceinline__ int nibbles(int w, bool hi) {
+  const unsigned u = (hi ? (unsigned)w >> 4 : (unsigned)w) & 0x0F0F0F0Fu;
+  return (int)__vsub4(u ^ 0x08080808u, 0x08080808u);
 }
 
 // the four signed bytes of w as exact floats: (byte ^ 0x80) placed in the
@@ -279,15 +342,79 @@ dense_kernel(const int8_t* __restrict__ act8, const float* __restrict__ actf,
   }
 }
 
+// ------------------------------------------------------ 2a. dense, w4
+// Nibble-packed weights (K/2, N): packed row r holds logical row r in its
+// hi nibble and row K/2 + r in its lo nibble.  A block takes 256 columns,
+// 8 batch rows and the PKC packed rows [p0, p0 + PKC), p0 = blockIdx.y *
+// PKC, reading each byte once, and writes the int32 sums of its two
+// logical sub-chunks: rows p0.. to part[p0 / PKC], rows K/2 + p0.. to
+// part[(K/2 + p0) / PKC] (part[c, b, n], one c per PKC logical rows).
+constexpr int PKC = 32;
+
+__global__ void __launch_bounds__(DT)
+dense_w4_kernel(const int8_t* __restrict__ act8, const int8_t* __restrict__ w,
+                int B, int K, int N, int* __restrict__ part) {
+  __shared__ __align__(16) int8_t xs[2][BT][PKC];
+  const int n0 = blockIdx.x * DCOLS + threadIdx.x * 4;
+  const int p0 = blockIdx.y * PKC, half = K / 2;
+  const int b0 = blockIdx.z * BT;
+  const int bt = min(BT, B - b0);
+  for (int i = threadIdx.x; i < 2 * BT * PKC; i += DT) {
+    const int hl = i / (BT * PKC), bb = i / PKC % BT, k = i % PKC;
+    xs[hl][bb][k] =
+        bb < bt ? act8[(size_t)(b0 + bb) * K + hl * half + p0 + k] : 0;
+  }
+  __syncthreads();
+  const int8_t* wp = w + (size_t)p0 * N + n0;
+  int acc[2][BT][4] = {};
+#pragma unroll 2
+  for (int k = 0; k < PKC; k += 4) {
+    int r[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      r[j] = *reinterpret_cast<const int*>(wp + (size_t)(k + j) * N);
+#pragma unroll
+    for (int hl = 0; hl < 2; ++hl) {
+      int c[4];
+      transpose4(nibbles(r[0], hl == 0), nibbles(r[1], hl == 0),
+                 nibbles(r[2], hl == 0), nibbles(r[3], hl == 0), c);
+#pragma unroll
+      for (int bb = 0; bb < BT; ++bb) {
+        const int xp = *reinterpret_cast<const int*>(&xs[hl][bb][k]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[hl][bb][j] = __dp4a(xp, c[j], acc[hl][bb][j]);
+      }
+    }
+  }
+  const size_t c_lo = (size_t)(half + p0) / PKC;
+  for (int hl = 0; hl < 2; ++hl)
+    for (int bb = 0; bb < bt; ++bb)
+      *reinterpret_cast<int4*>(
+          part + (((hl ? c_lo : p0 / PKC)) * B + b0 + bb) * N + n0) =
+          make_int4(acc[hl][bb][0], acc[hl][bb][1], acc[hl][bb][2],
+                    acc[hl][bb][3]);
+}
+
 // -------------------------------------------------------- 2b. epilogue
-// y[b, n] from the S partial sums, then out = y + bias (EPI_OUT),
-// gelu(y + bias) (EPI_GELU) or x = (x + y) + bias (EPI_RESID).
+// out = y + bias (EPI_OUT), gelu(y + bias) (EPI_GELU) or x = (x + y) + bias
+// (EPI_RESID)
+__device__ __forceinline__ void epi_store(float y, const float* bias,
+                                          int op, float* out, int i, int n) {
+  if (op == EPI_OUT)
+    out[i] = __fadd_rn(y, bias[n]);
+  else if (op == EPI_GELU)
+    out[i] = gelu(__fadd_rn(y, bias[n]));
+  else
+    out[i] = __fadd_rn(__fadd_rn(out[i], y), bias[n]);
+}
+
+// y[b, n] from the S partial sums, then epi_store:
 //   a8, per-row scale:  y = float(sum_s part) * (ascale[b*H] * col[n])
 //   a8, per-head scale: y = (sum_s float(part_s) * ascale[b*H + s]) * col[n]
 //   bf16:               y = float(sum_s part_s) * col[n], the float64
-//                       partials summed in float64
-//   bf16, per head:     y = (sum_s float(part_s)) * col[n], the heads'
-//                       float32 outputs summed in order
+//                       partials summed in float64 (per-head: each partial
+//                       rounded to float32 first, then summed in order)
 __global__ void __launch_bounds__(ET)
 epilogue_kernel(const void* __restrict__ part, int S, int B, int N, int a8,
                 int per_head, const float* __restrict__ ascale, int H,
@@ -323,12 +450,61 @@ epilogue_kernel(const void* __restrict__ part, int S, int B, int N, int a8,
       y = __fadd_rn(y, __double2float_rn(p[s * stride]));
     y = __fmul_rn(y, col[n]);
   }
-  if (op == EPI_OUT)
-    out[i] = __fadd_rn(y, bias[n]);
-  else if (op == EPI_GELU)
-    out[i] = gelu(__fadd_rn(y, bias[n]));
-  else
-    out[i] = __fadd_rn(__fadd_rn(out[i], y), bias[n]);
+  epi_store(y, bias, op, out, i, n);
+}
+
+// w4: S scale units (groups, or heads in the out-projection) of NSUB
+// partials each; dot_s = the int32 sum of unit s's partials, then y =
+// sum_s float(dot_s) * (ascale[b*S + s] * gscale[(s / gdiv) * N + n]) in
+// unit order, no column scale (gdiv = group / 64 for heads, else 1).
+// The loads of EU units (EU * NSUB partials and their scales) are issued
+// before their in-order float32 sum, so that many are in flight at once:
+// a thread's loads are the kernel's time, and at B = 8 the FFN-down
+// epilogue has only 32 blocks for 128 partials per thread.  On the H100,
+// 4 units ran ahead of 8 and of a plain loop under `#pragma unroll`
+// (scripts/mega_ab.py).
+constexpr int EU = 4;
+
+template <int NSUB>
+__global__ void __launch_bounds__(ET)
+epilogue_w4_kernel(const int* __restrict__ part, int S, int B, int N,
+                   const float* __restrict__ ascale,
+                   const float* __restrict__ gscale, int gdiv,
+                   const float* __restrict__ bias, int op,
+                   float* __restrict__ out) {
+  const int i = blockIdx.x * ET + threadIdx.x;
+  if (i >= B * N) return;
+  const int b = i / N, n = i % N;
+  const size_t stride = (size_t)B * N;
+  const int* p = part + i;
+  const float* as = ascale + (size_t)b * S;
+  const float* gs = gscale + n;
+  float y = 0.f;
+  int s0 = 0;
+  for (; s0 + EU <= S; s0 += EU) {
+    int dot[EU];
+    float sc[EU];
+#pragma unroll
+    for (int u = 0; u < EU; ++u) {
+      const int s = s0 + u;
+      int d = 0;
+#pragma unroll
+      for (int j = 0; j < NSUB; ++j) d += p[(size_t)(s * NSUB + j) * stride];
+      dot[u] = d;
+      sc[u] = __fmul_rn(as[s], gs[(size_t)(s / gdiv) * N]);
+    }
+#pragma unroll
+    for (int u = 0; u < EU; ++u)
+      y = __fadd_rn(y, __fmul_rn(__int2float_rn(dot[u]), sc[u]));
+  }
+  for (int s = s0; s < S; ++s) {          // fewer than EU units left
+    int d = 0;
+#pragma unroll
+    for (int j = 0; j < NSUB; ++j) d += p[(size_t)(s * NSUB + j) * stride];
+    y = __fadd_rn(y, __fmul_rn(__int2float_rn(d),
+                               __fmul_rn(as[s], gs[(size_t)(s / gdiv) * N])));
+  }
+  epi_store(y, bias, op, out, i, n);
 }
 
 // ------------------------------------------------------- 3. attention
@@ -539,27 +715,54 @@ __global__ void __launch_bounds__(AT) attn_kernel(AttnArgs a) {
 }
 
 // ------------------------------------------------------------ launches
+// K-input product: the int8/bf16 split-K kernel in chunks of KC rows, or
+// (w4) the nibble kernel in PKC-row sub-chunks
 int dense(const int8_t* act8, const float* actf, const int8_t* w, int B,
-          int K, int N, int KC, int a8, void* part, cudaStream_t st) {
+          int K, int N, int KC, int a8, int w4, void* part, cudaStream_t st) {
+  if (w4) {
+    const dim3 grid(N / DCOLS, K / 2 / PKC, (B + BT - 1) / BT);
+    dense_w4_kernel<<<grid, DT, 0, st>>>(act8, w, B, K, N,
+                                         static_cast<int*>(part));
+    return (int)cudaGetLastError();
+  }
   const dim3 grid(N / DCOLS, K / KC, (B + BT - 1) / BT);
   const size_t smem = (size_t)BT * KC * (a8 ? 1 : 4);
   dense_kernel<<<grid, DT, smem, st>>>(act8, actf, w, B, K, N, KC, a8, part);
   return (int)cudaGetLastError();
 }
 
+// the split-K partials' epilogue; w4 (gscale set): the group-scale
+// epilogue with nsub partials per unit, 2 (group 64, or a head) or 4
+// (group 128)
 int epilogue(const void* part, int S, int B, int N, int a8, int per_head,
-             const float* ascale, int H, const float* col, const float* bias,
+             const float* ascale, int H, const float* col,
+             const float* gscale, int gdiv, int nsub, const float* bias,
              int op, float* out, cudaStream_t st) {
-  epilogue_kernel<<<(B * N + ET - 1) / ET, ET, 0, st>>>(
-      part, S, B, N, a8, per_head, ascale, H, col, bias, op, out);
+  const int nblk = (B * N + ET - 1) / ET;
+  const int* p32 = static_cast<const int*>(part);
+  if (!gscale)
+    epilogue_kernel<<<nblk, ET, 0, st>>>(part, S, B, N, a8, per_head, ascale,
+                                         H, col, bias, op, out);
+  else if (nsub == 2)
+    epilogue_w4_kernel<2><<<nblk, ET, 0, st>>>(p32, S, B, N, ascale, gscale,
+                                               gdiv, bias, op, out);
+  else if (nsub == 4)
+    epilogue_w4_kernel<4><<<nblk, ET, 0, st>>>(p32, S, B, N, ascale, gscale,
+                                               gdiv, bias, op, out);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
-int rows(const float* x, const float* norm, int B, int K, int a8,
+// RMSNorm / quantization of B rows: per row, or (group > 0) per group
+int rows(const float* x, const float* norm, int B, int K, int a8, int group,
          float* h_out, int8_t* q_out, float* xs_out, int xs_stride,
          cudaStream_t st) {
-  rows_kernel<<<B, RT, 0, st>>>(x, norm, K, a8, h_out, q_out, xs_out,
-                                xs_stride);
+  if (group)
+    rows_w4_kernel<<<B, RT, 0, st>>>(x, norm, K, group, q_out, xs_out);
+  else
+    rows_kernel<<<B, RT, 0, st>>>(x, norm, K, a8, h_out, q_out, xs_out,
+                                  xs_stride);
   return (int)cudaGetLastError();
 }
 
@@ -573,7 +776,10 @@ int rows(const float* x, const float* norm, int B, int K, int a8,
 
 // One trunk step for all L layers.  Shapes and layouts as in the wrapper,
 // vae_gslm_tpu_torch/ops/mega_step.py; `work` is its workspace_bytes(B, D,
-// H) bytes of scratch.  Requires head_dim 64, D a multiple of 256.
+// H) bytes of scratch.  Requires head_dim 64, D a multiple of 256.  With
+// group > 0 (the w4 branch; 64 or 128, dividing D / 2) wq/wo/w1/w2
+// are nibble-packed and gq/go/g1/g2 their group scales; sq/so/s1/s2 and
+// a8 are then not read.
 extern "C" int fused_trunk_step_launch(
     const void* x, void* x_out, const void* wq, const void* wo,
     const void* w1, const void* w2, const void* sq, const void* so,
@@ -583,8 +789,11 @@ extern "C" int fused_trunk_step_launch(
     const void* kc_scale, const void* vc_scale, const void* k_tail,
     const void* v_tail, const void* kt_scale, const void* vt_scale,
     const void* k_stage, const void* v_stage, void* k_new, void* v_new,
-    void* work, int L, int B, int D, int H, int nb_cap, int pos,
-    int flushed, int a8, float scale, void* stream) {
+    void* work, const void* gq, const void* go, const void* g1,
+    const void* g2, int L, int B, int D, int H, int nb_cap, int pos,
+    int flushed, int a8, int group, float scale, void* stream) {
+  if (group != 0 && group != 64 && group != 128)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t BD = (size_t)B * D;
   const int pmax = D / 16 > H ? D / 16 : H;
@@ -608,15 +817,25 @@ extern "C" int fused_trunk_step_launch(
   const size_t cold = (size_t)nb_cap * H * B * BLK;  // one layer's cold rows
   const size_t tail = (size_t)H * B * BLK;
   const int D3 = 3 * D, D4 = 4 * D;
+  const int w4 = group > 0;
+  const int q8 = a8 || w4;               // int8 activations
+  const int wrows = w4 ? D / 2 : D;      // stored rows of a D-input weight
+  // scale units per product: groups (w4) or split-K chunks of 64 (128 for
+  // the 4D-input FFN-down), and w4's partials per unit
+  const int kc = w4 ? group : 64, kc2 = w4 ? group : 128;
+  const int nsub = w4 ? group / PKC : 1;
+  const auto gs = [&](const void* p, size_t din, size_t dout, int li) {
+    return w4 ? f32(p) + (size_t)li * (din / group) * dout : nullptr;
+  };
   for (int li = 0; li < L; ++li) {
     // 1-2. RMSNorm, QKV
-    CHECK(rows(xo, f32(n1) + (size_t)li * D, B, D, a8, actf, act8, ascale, H,
-               st));
-    CHECK(dense(act8, actf, i8(wq) + (size_t)li * D * D3, B, D, D3, 64, a8,
-                part, st));
-    CHECK(epilogue(part, D / 64, B, D3, a8, 0, ascale, H,
-                   f32(sq) + (size_t)li * D3, f32(bq) + (size_t)li * D3,
-                   EPI_OUT, qkv, st));
+    CHECK(rows(xo, f32(n1) + (size_t)li * D, B, D, q8, group, actf, act8,
+               ascale, H, st));
+    CHECK(dense(act8, actf, i8(wq) + (size_t)li * wrows * D3, B, D, D3, kc,
+                a8, w4, part, st));
+    CHECK(epilogue(part, D / kc, B, D3, q8, 0, ascale, H,
+                   f32(sq) + (size_t)li * D3, gs(gq, D, D3, li), 1, nsub,
+                   f32(bq) + (size_t)li * D3, EPI_OUT, qkv, st));
     // 3. attention
     AttnArgs aa{qkv,
                 i8(k_cold) + (size_t)li * cold * DH,
@@ -633,30 +852,32 @@ extern "C" int fused_trunk_step_launch(
                 static_cast<__nv_bfloat16*>(k_new) + (size_t)li * hbd,
                 static_cast<__nv_bfloat16*>(v_new) + (size_t)li * hbd,
                 act8, ascale, actf,
-                B, H, D, flushed / BLK, pos, flushed, a8, scale};
+                B, H, D, flushed / BLK, pos, flushed, q8, scale};
     attn_kernel<<<H * B, AT, 0, st>>>(aa);
     CHECK((int)cudaGetLastError());
     // 4. out-projection, one K chunk per head; residual
-    CHECK(dense(act8, actf, i8(wo) + (size_t)li * D * D, B, D, D, DH, a8,
-                part, st));
-    CHECK(epilogue(part, H, B, D, a8, 1, ascale, H,
-                   f32(so) + (size_t)li * D, f32(bo) + (size_t)li * D,
+    CHECK(dense(act8, actf, i8(wo) + (size_t)li * wrows * D, B, D, D, DH,
+                a8, w4, part, st));
+    CHECK(epilogue(part, H, B, D, q8, 1, ascale, H,
+                   f32(so) + (size_t)li * D, gs(go, D, D, li),
+                   w4 ? group / DH : 1, DH / PKC, f32(bo) + (size_t)li * D,
                    EPI_RESID, xo, st));
     // 5. RMSNorm, FFN up, GELU
-    CHECK(rows(xo, f32(n3) + (size_t)li * D, B, D, a8, actf, act8, ascale, H,
-               st));
-    CHECK(dense(act8, actf, i8(w1) + (size_t)li * D * D4, B, D, D4, 64, a8,
-                part, st));
-    CHECK(epilogue(part, D / 64, B, D4, a8, 0, ascale, H,
-                   f32(s1) + (size_t)li * D4, f32(b1) + (size_t)li * D4,
-                   EPI_GELU, g, st));
+    CHECK(rows(xo, f32(n3) + (size_t)li * D, B, D, q8, group, actf, act8,
+               ascale, H, st));
+    CHECK(dense(act8, actf, i8(w1) + (size_t)li * wrows * D4, B, D, D4, kc,
+                a8, w4, part, st));
+    CHECK(epilogue(part, D / kc, B, D4, q8, 0, ascale, H,
+                   f32(s1) + (size_t)li * D4, gs(g1, D, D4, li), 1, nsub,
+                   f32(b1) + (size_t)li * D4, EPI_GELU, g, st));
     // 6. FFN down, residual
-    if (a8) CHECK(rows(g, nullptr, B, D4, 1, nullptr, act8, ascale, H, st));
-    CHECK(dense(act8, g, i8(w2) + (size_t)li * D4 * D, B, D4, D, 128, a8,
-                part, st));
-    CHECK(epilogue(part, D4 / 128, B, D, a8, 0, ascale, H,
-                   f32(s2) + (size_t)li * D, f32(b2) + (size_t)li * D,
-                   EPI_RESID, xo, st));
+    if (q8)
+      CHECK(rows(g, nullptr, B, D4, 1, group, nullptr, act8, ascale, H, st));
+    CHECK(dense(act8, g, i8(w2) + (size_t)li * (D4 / (w4 ? 2 : 1)) * D, B,
+                D4, D, kc2, a8, w4, part, st));
+    CHECK(epilogue(part, D4 / kc2, B, D, q8, 0, ascale, H,
+                   f32(s2) + (size_t)li * D, gs(g2, D4, D, li), 1, nsub,
+                   f32(b2) + (size_t)li * D, EPI_RESID, xo, st));
   }
   return 0;
 }

@@ -36,7 +36,7 @@ class LikelihoodEstimator(BaseInferer):
         if hp.model.identifier.endswith("discrete.DiscreteAR"):
             raise NotImplementedError(
                 "likelihood scoring of the DiscreteAR (hubert) model is not "
-                "ported yet (ROADMAP.md, Queue 1 item 9)")
+                "ported yet (ROADMAP.md, Queue 1 item 6)")
         self.vocoder = HiFiGAN.from_pretrained(
             self.hp_model.vocoder.path, hp_rescale=self.mel_rescale,
             device=self.device)

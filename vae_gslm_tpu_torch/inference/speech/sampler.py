@@ -9,7 +9,9 @@ generated frame in a Python loop (the JAX package's segmented
     ``mega_max_batch``): the prefill cache becomes the three-tier mega
     cache and each step is one ``LVTR.step_mega`` (the whole trunk as one
     K2 call); every 8 steps the bf16 stage merges into the int8 tail and
-    every 128 the tail moves to a cold block.  For ``mega_max_batch`` < B
+    every 128 the tail moves to a cold block.  With ``mega_w4`` (JAX's
+    ``VAE_GSLM_MEGA_W4``) the trunk runs on nibble-packed int4 weights
+    (``build_mega_decode_w4``) through K2-w4.  For ``mega_max_batch`` < B
     <= 2 x ``mega_max_batch`` the batch runs as sequential chunks of
     ``mega_max_batch``; beyond that the per-layer path, not ported yet,
     would serve it (ROADMAP.md, Queue 1, "The per-layer decode path").
@@ -32,6 +34,7 @@ matches the JAX sampler.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, Optional, Tuple, Union
 
@@ -97,11 +100,15 @@ class ARTRSampler:
     when the trunk is eligible (``supports_mega_decode``).
     ``mega_max_batch`` is the largest batch one mega run takes (JAX's
     ``VAE_GSLM_MEGA_MAX_BATCH``); ``mega_a8`` forces the s8 x s8 dense
-    products on or off (default: B <= 8)."""
+    products on or off (default: B <= 8).  ``mega_w4`` is the scale group
+    of the nibble-packed int4 trunk (0: int8 weights); None reads
+    ``VAE_GSLM_MEGA_W4`` as JAX does ("0" or "" off, "64" group 64,
+    anything else group 128)."""
 
     def __init__(self, model, kv_dtype=torch.int8,
                  quantize_weights: bool = False, mega_max_batch: int = 32,
                  mega_a8: Optional[bool] = None,
+                 mega_w4: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda"):
         if kv_dtype != torch.int8:
             raise NotImplementedError(
@@ -119,6 +126,10 @@ class ARTRSampler:
         self.use_mega = model.transformer.supports_mega_decode()
         self.mega_max_batch = mega_max_batch
         self.mega_a8 = mega_a8
+        if mega_w4 is None:
+            env = os.environ.get("VAE_GSLM_MEGA_W4", "0")
+            mega_w4 = 0 if env in ("0", "") else 64 if env == "64" else 128
+        self.mega_w4 = mega_w4
 
     def prefill(self, enc: Masked, length: int, stacked: dict, generator,
                 mega: bool = False, **kw):
@@ -188,7 +199,9 @@ class ARTRSampler:
         clock.lap("encode_prefill")
         pos0 = enc.value.shape[1] + 1
         if mega:
-            weights = model.transformer.build_mega_decode()
+            weights = (model.transformer.build_mega_decode_w4(self.mega_w4)
+                       if self.mega_w4
+                       else model.transformer.build_mega_decode())
 
             def step_fn(frame, cache, pos, flushed):
                 return model.step_mega(frame, weights, cache, pos, flushed,

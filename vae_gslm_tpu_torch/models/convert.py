@@ -39,7 +39,7 @@ from ..nn.conv import Conv1d, ConvTranspose1d, LayerScale
 from ..nn.diffusion import GaussianDiffusion1D
 from ..nn.linear import Dense, Embedding, FiLM, GaussianParameterize, Linear
 from ..nn.positions import ALiBi, SinCos
-from ..ops.mega_step import WEIGHT_KEYS
+from ..ops.mega_step import W4_KEYS, WEIGHT_KEYS
 from .vocoder.hfgan import Generator
 
 # reference top-level prefix -> port attribute
@@ -107,12 +107,15 @@ def mega_weights_from_numpy(d: Mapping,
     """The port's K2 weights dict from the arrays of a JAX
     ``TransformerLayerStack.build_mega_decode()`` dict (numpy or array
     likes): the same (L, din, dout) int8 weights and float32 vectors,
-    contiguous, with nothing requantized."""
-    extra = sorted(set(d) - set(WEIGHT_KEYS))
+    contiguous, with nothing requantized.  A ``build_mega_decode_w4()``
+    dict (its packed (L, din/2, dout) ``wq/wo/w1/w2`` and its group scales
+    ``gq/go/g1/g2``) carries across the same way."""
+    keys = WEIGHT_KEYS + (W4_KEYS if "gq" in d else ())
+    extra = sorted(set(d) - set(keys))
     if extra:
         raise KeyError(f"unexpected mega weight keys: {extra}")
     out = {}
-    for key in WEIGHT_KEYS:
+    for key in keys:
         v = np.array(d[key])          # a writable, contiguous copy
         want = np.int8 if key.startswith("w") else np.float32
         if v.dtype != want:

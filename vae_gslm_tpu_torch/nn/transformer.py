@@ -51,6 +51,41 @@ from .norms import RMSNorm, get_norm
 from .positions import ALiBi
 
 
+@torch.no_grad()
+def pack_mega_w4(w8: dict, group: int, head_dim: int) -> dict:
+    """K2's int8 weights (``build_mega_decode``) requantized to int4 for
+    K2-w4, as JAX's ``build_mega_decode_w4`` does it: per (group of
+    ``group`` rows, column) the scale ``s4 = max(amax, 1e-8) / 7`` and
+    ``round(q / s4)`` clipped to [-8, 7]; rows ``r`` and ``r + din/2``
+    packed into the hi and lo nibble of one byte, so ``wq/wo/w1/w2``
+    become (L, din/2, dout) int8; ``s4`` folded with the column scale into
+    ``gq/go/g1/g2`` (L, din/group, dout) float32.  ``sq/so/s1/s2`` stay,
+    as in JAX.  The divisions are by tensors and the packing runs in
+    int32, so the bytes equal JAX's on any device.  Raises unless
+    ``group`` is a multiple of ``head_dim`` (the out-projection applies
+    one group scale per head) and divides each din / 2."""
+    if group <= 0 or group % head_dim:
+        raise ValueError(f"w4 group {group} must be a multiple of the head "
+                         f"width {head_dim}")
+    out = dict(w8)
+    for name, sname, gname in (("wq", "sq", "gq"), ("wo", "so", "go"),
+                               ("w1", "s1", "g1"), ("w2", "s2", "g2")):
+        w = w8[name]                           # (L, din, dout) int8
+        nl, din, dout = w.shape
+        if din % (2 * group):
+            raise ValueError(f"{name}: din {din} is not a multiple of 2 x "
+                             f"group {group}")
+        q = w.float().reshape(nl, din // group, group, dout)
+        s4 = q.abs().amax(dim=2).clamp(min=1e-8) / torch.tensor(
+            7.0, device=w.device)
+        q4 = torch.round(q / s4[:, :, None, :]).clamp(-8, 7).reshape(
+            nl, din, dout).to(torch.int32)
+        hi, lo = q4[:, :din // 2], q4[:, din // 2:]
+        out[name] = ((hi << 4) | (lo & 0xF)).to(torch.int8)
+        out[gname] = s4 * w8[sname][:, None, :]
+    return out
+
+
 class TransformerLayer(nn.Module):
     def __init__(self, hp: Hparams):
         super().__init__()
@@ -451,6 +486,15 @@ class TransformerLayerStack(nn.Module):
             "bq": biases(qkv, 3 * d), "bo": biases(out, d),
             "b1": biases(up, 4 * d), "b2": biases(down, d),
         }
+
+    def build_mega_decode_w4(self, group: int = 128) -> Optional[dict]:
+        """K2-w4's nibble-packed int4 weights (JAX's
+        ``build_mega_decode_w4``): ``pack_mega_w4`` of
+        ``build_mega_decode()``.  None unless ``supports_mega_decode()``."""
+        w8 = self.build_mega_decode()
+        if w8 is None:
+            return None
+        return pack_mega_w4(w8, group, self.layers[0].self_attn.head_dim)
 
     @staticmethod
     def mega_cache_from_prefill(cache: LayerKVCache, prompt_len: int,

@@ -27,6 +27,17 @@ stage (``stage_append``), merges the stage into the tail every 8 steps
 (``merge_stage``) and moves a full tail into the next cold block every
 128 (``flush_mega``); these three update the cache dict in place.
 
+Nibble-packed int4 weights (``build_mega_decode_w4``, detected as JAX
+detects them, by ``"gq" in weights``): ``wq/wo/w1/w2`` are (L, din/2,
+dout) int8 with rows ``r`` and ``r + din/2`` in the hi and lo nibble of
+one byte, and ``gq/go/g1/g2`` (L, din/group, dout) float32 fold the
+per-(row group, column) int4 scale with the int8 column scale.  Each
+dense product quantizes the activation per group of ``group`` inputs
+(scale max|x|/127), takes an exact int32 dot per group and adds ``dot *
+(x_scale * g)`` to a float32 sum in group order; the out-projection
+quantizes each head's row and scales it by the head's group row of
+``go``; no ``s*`` column scale is applied (``a8`` has no effect).
+
 Numerics (``fused_trunk_step_reference``): with ``a8`` the dense
 products quantize each activation row to int8 (scale max|x|/127) and
 sum int8 x int8 in int32; otherwise they multiply bfloat16 activations
@@ -59,6 +70,8 @@ NEG_INF = -1e30
 HEAD_DIM = 64          # the CUDA kernel's head width (the flagship's)
 WEIGHT_KEYS = ("wq", "wo", "w1", "w2", "sq", "so", "s1", "s2", "n1", "n3",
                "bq", "bo", "b1", "b2")
+W4_KEYS = ("gq", "go", "g1", "g2")        # K2-w4's folded group scales
+W4_GROUPS = (64, 128)                     # the groups K2-w4 is built for
 CACHE_KEYS = ("k_cold", "v_cold", "kc_scale", "vc_scale", "k_tail",
               "v_tail", "kt_scale", "vt_scale", "k_stage", "v_stage")
 
@@ -119,6 +132,34 @@ def _mm(x: torch.Tensor, w8: torch.Tensor, scales: torch.Tensor,
     return (xb @ w8.double()).float() * scales
 
 
+def unpack_w4(wp: torch.Tensor) -> torch.Tensor:
+    """(din/2, dout) nibble-packed int8 -> (din, dout) int32 in row order:
+    the hi nibbles (``b >> 4``) are rows [0, din/2), the sign-extended lo
+    nibbles (``(b << 28) >> 28``) rows [din/2, din), unpacked through
+    int32 as the TPU kernel does."""
+    w32 = wp.to(torch.int32)
+    return torch.cat([w32 >> 4, (w32 << 28) >> 28])
+
+
+def _mm_w4(x: torch.Tensor, wp: torch.Tensor,
+           gscale: torch.Tensor) -> torch.Tensor:
+    """A dense product with nibble-packed weights and folded group scales
+    (G, dout): per group of din/G inputs, the activation quantized to int8,
+    an exact int32 dot (at most 128 terms of 127 x 8), and ``y += dot *
+    (x_scale * g)`` in float32 in group order."""
+    w8 = unpack_w4(wp).double()
+    b = x.shape[0]
+    ng = gscale.shape[0]
+    gsz = w8.shape[0] // ng
+    x8, xs = _quant_rows(x.reshape(b, ng, gsz), 1e-8)   # (B, G, g), (B, G, 1)
+    dots = torch.einsum("bgk,gkn->gbn", x8.double(),
+                        w8.reshape(ng, gsz, -1)).float()
+    y = torch.zeros((b, w8.shape[1]), device=x.device)
+    for gi in range(ng):
+        y = y + dots[gi] * (xs[:, gi] * gscale[gi])
+    return y
+
+
 def _merge(m, l, acc, s, v_fn):
     """One online-softmax block against the running maximum ``m``."""
     m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
@@ -141,6 +182,7 @@ def fused_trunk_step_plain(x, weights: dict, cache: dict, pos: int,
     """Plain PyTorch version of the kernel's math.  Per-head tensors are
     (H, B, ...).  Returns (x (B, D) float32, k_new, v_new (L, H, B, Dh)
     bfloat16)."""
+    w4 = "gq" in weights
     b, d = x.shape
     nl = weights["wq"].shape[0]
     h = cache["k_tail"].shape[1]
@@ -157,11 +199,16 @@ def fused_trunk_step_plain(x, weights: dict, cache: dict, pos: int,
     def alibi(t_idx):
         return slopes_f * (t_idx - pos).abs().float()
 
+    def mm(xin, li, w, s, g):
+        if w4:
+            return _mm_w4(xin, weights[w][li], weights[g][li])
+        return _mm(xin, weights[w][li], weights[s][li], a8)
+
     x = x.float()
     k_news, v_news = [], []
     for li in range(nl):
-        qkv = (_mm(_rms(x, weights["n1"][li]), weights["wq"][li],
-                   weights["sq"][li], a8) + weights["bq"][li])
+        qkv = (mm(_rms(x, weights["n1"][li]), li, "wq", "sq", "gq")
+               + weights["bq"][li])
         q, k_cur, v_cur = (qkv[:, i * d:(i + 1) * d].reshape(b, h, dh)
                            .transpose(0, 1) for i in range(3))
         q8, q_scale = _quant_rows(q, 1e-8)
@@ -204,23 +251,33 @@ def fused_trunk_step_plain(x, weights: dict, cache: dict, pos: int,
         e_self = torch.exp(s_self - m_f)
         attn = (acc * corr + e_self * v_cur) / (l * corr + e_self)
 
-        wo = weights["wo"][li].double()
         y = torch.zeros((b, d), device=dev)
-        if a8:
+        if w4:
+            wo = unpack_w4(weights["wo"][li]).double()
+            go = weights["go"][li]
+            gsz = d // go.shape[0]
+            a8_, asx = _quant_rows(attn, 1e-8)
+            for h0 in range(h):
+                y = y + (a8_[h0].double() @ wo[h0 * dh:(h0 + 1) * dh]
+                         ).float() * (asx[h0] * go[(h0 * dh) // gsz])
+            x = x + y + weights["bo"][li]
+        elif a8:
+            wo = weights["wo"][li].double()
             a8_, asx = _quant_rows(attn, 1e-8)
             for h0 in range(h):
                 y = y + (a8_[h0].double() @ wo[h0 * dh:(h0 + 1) * dh]
                          ).float() * asx[h0]
+            x = x + y * weights["so"][li] + weights["bo"][li]
         else:
+            wo = weights["wo"][li].double()
             ab = attn.to(torch.bfloat16).double()
             for h0 in range(h):
                 y = y + (ab[h0] @ wo[h0 * dh:(h0 + 1) * dh]).float()
-        x = x + y * weights["so"][li] + weights["bo"][li]
+            x = x + y * weights["so"][li] + weights["bo"][li]
 
-        g = gelu_rational(_mm(_rms(x, weights["n3"][li]), weights["w1"][li],
-                              weights["s1"][li], a8) + weights["b1"][li])
-        x = x + _mm(g, weights["w2"][li], weights["s2"][li], a8) \
-            + weights["b2"][li]
+        g = gelu_rational(mm(_rms(x, weights["n3"][li]), li, "w1", "s1", "g1")
+                          + weights["b1"][li])
+        x = x + mm(g, li, "w2", "s2", "g2") + weights["b2"][li]
     return x, torch.stack(k_news), torch.stack(v_news)
 
 
@@ -262,9 +319,24 @@ def flush_mega(cache: dict, flushed_prev: int) -> dict:
 def workspace_bytes(b: int, d: int, h: int) -> int:
     """Scratch of one call, laid out as ``csrc/mega_step.cu`` carves it:
     the split-K partial sums, qkv, the FFN activation, the float32 and
-    the int8 dense inputs, and the int8 inputs' scales."""
-    return (8 * b * d * max(d // 16, h) + 4 * (11 * b * d + b * h)
-            + 4 * b * d)
+    the int8 dense inputs, and the int8 inputs' scales (one per row and
+    head, or per row and group of at least 64 inputs)."""
+    return (8 * b * d * max(d // 16, h)
+            + 4 * (11 * b * d + b * max(h, d // 16)) + 4 * b * d)
+
+
+def w4_group(weights: dict, d: int) -> int:
+    """The scale group of a ``build_mega_decode_w4`` dict, derived as JAX
+    derives it from ``gq``'s shape (L, D / group, 3D).  Raises unless the
+    kernel takes it: one of ``W4_GROUPS`` (the kernel's instantiations),
+    dividing D / 2."""
+    ng = weights["gq"].shape[1]
+    group = d // ng if ng else 0
+    if group not in W4_GROUPS or ng * group != d or d % (2 * group):
+        raise ValueError(f"w4 weights with {ng} scale groups over dim {d}: "
+                         f"the kernel takes a group of {W4_GROUPS} that "
+                         f"divides dim / 2")
+    return group
 
 
 _LAUNCH = None
@@ -276,7 +348,7 @@ def _launcher():
         from .build import load
 
         fn = load("mega_step").fused_trunk_step_launch
-        fn.argtypes = ([ctypes.c_void_p] * 30 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 34 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LAUNCH = fn
@@ -289,7 +361,9 @@ def fused_trunk_step(x, weights: dict, cache: dict, pos: int, slopes,
     docstring; ``pos`` and ``flushed`` host ints (flushed a multiple of
     128, ``flushed <= pos < flushed + 128``); slopes (H,) negative ALiBi
     slopes.  Returns (x (B, D) float32, k_new, v_new (L, H, B, Dh)
-    bfloat16).  One call, one launch count, whatever the layer count."""
+    bfloat16).  With nibble-packed weights (``"gq" in weights``) the call
+    runs the w4 branch and counts under ``launches_w4``, else under
+    ``launches``: one call, one count, whatever the layer count."""
     if x.device.type == "cpu":
         return fused_trunk_step_plain(x, weights, cache, pos, slopes,
                                       flushed, a8=a8)
@@ -312,9 +386,14 @@ def fused_trunk_step(x, weights: dict, cache: dict, pos: int, slopes,
                          f"{flushed + TAIL})")
     f32, i8 = torch.float32, torch.int8
     _check("x", x, f32, (b, d), dev)
-    for name, din, dout in (("wq", d, 3 * d), ("wo", d, d),
-                            ("w1", d, 4 * d), ("w2", 4 * d, d)):
-        _check(name, weights[name], i8, (nl, din, dout), dev)
+    w4 = "gq" in weights
+    group = w4_group(weights, d) if w4 else 0
+    for name, g, din, dout in (("wq", "gq", d, 3 * d), ("wo", "go", d, d),
+                               ("w1", "g1", d, 4 * d), ("w2", "g2", 4 * d, d)):
+        _check(name, weights[name], i8,
+               (nl, din // 2 if w4 else din, dout), dev)
+        if w4:
+            _check(g, weights[g], f32, (nl, din // group, dout), dev)
     for name, n in (("sq", 3 * d), ("so", d), ("s1", 4 * d), ("s2", d),
                     ("n1", d), ("n3", d), ("bq", 3 * d), ("bo", d),
                     ("b1", 4 * d), ("b2", d)):
@@ -341,13 +420,18 @@ def fused_trunk_step(x, weights: dict, cache: dict, pos: int, slopes,
         *(weights[k].data_ptr() for k in WEIGHT_KEYS),
         slopes.data_ptr(), *(cache[k].data_ptr() for k in CACHE_KEYS),
         k_new.data_ptr(), v_new.data_ptr(), work.data_ptr(),
-        nl, b, d, h, nb, pos, flushed, int(a8), 1.0 / math.sqrt(dh),
+        *(weights[g].data_ptr() if w4 else None for g in W4_KEYS),
+        nl, b, d, h, nb, pos, flushed, int(a8), group, 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_trunk_step launch failed: CUDA error "
                            f"{err}")
-    fused_trunk_step.launches += 1
+    if w4:
+        fused_trunk_step.launches_w4 += 1
+    else:
+        fused_trunk_step.launches += 1
     return x_out, k_new, v_new
 
 
 fused_trunk_step.launches = 0
+fused_trunk_step.launches_w4 = 0
