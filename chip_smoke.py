@@ -8,11 +8,11 @@ Phases (any failure ends the run with a non-zero exit, no result):
      float32 matmuls and convolutions (the comparisons below are float32;
      the pipelines themselves run bfloat16);
   2. build: every kernel of the port's serving, training and scoring
-     paths, from ``vae_gslm_tpu_torch/csrc`` with one nvcc per source,
-     all started together (K1 ``fused_decode.cu``, K2 ``mega_step.cu``,
-     K3/K3b/K4/K4b/K5/K5b ``flash_attention.cu``), with nvcc's register
-     and spill lines, and beside them the g++ build of
-     ``native/dataio.cc``;
+     paths and its measurement tool, from ``vae_gslm_tpu_torch/csrc`` with
+     one nvcc per source, all started together (K1 ``fused_decode.cu``,
+     K2 ``mega_step.cu``, K3/K3b/K4/K4b/K5/K5b ``flash_attention.cu``, K6
+     ``flash_decode.cu``, K7 ``stream.cu``), with nvcc's register and
+     spill lines, and beside them the g++ build of ``native/dataio.cc``;
   3. K1 against its plain PyTorch version at the flagship width (16
      layers, 16 heads, head_dim 64) at B = 8 and 32 over the cache
      states the 150 -> 650 rollout passes through; kernel and plain
@@ -61,13 +61,34 @@ Phases (any failure ends the run with a non-zero exit, no result):
      bf16 value); their bf16 times (K4 and K4b at the training call)
      beside the plain versions', SDPA's with a float mask (forward for
      K4, forward+backward for K4b/K5b) and the bound;
-  6. agreement on a small input, twice: a small LVTR (head_dim 64)
+  5d. K6 (single-query decode attention over an int8 per-layer cache,
+     reading only the blocks up to ``pos``) against its plain version at
+     the per-layer path's calls: B 128, 16 heads of 64, T 768 (the
+     651-position rollout rounded up to 256), a bf16 q as a view of one
+     qkv projection, at pos 151, 255, 256, 400, 511, 512 and 650, to
+     1e-5 x max|ref| (float32, both summing in 256-key blocks); then
+     over every 50th position of
+     the rollout its device time, the time per call with the wrapper,
+     the plain version's time, JAX's route as ported (``decode_attention``
+     over the cache at the sampler's segment window: the A/B beside the
+     kernel) and the bytes bound;
+  5e. K7 (the weight-stream probe) on a seed-0 (16, 1024, 12288) int8
+     stack: its per-layer sums and the TPU kernel's tile sum equal to the
+     plain version's; the plain version's and one ``torch.sum``'s times;
+     then ``scripts/bench_slope.py``'s slopes: K7's microseconds per call
+     and GB/s (beside the 3.35 TB/s of the data sheet, which the bounds
+     keep), K2's full step at flushed 0 and 512;
+  6. agreement on a small input: a small LVTR (head_dim 64)
      continues a prompt by 300 frames on the card (through the kernels)
      and on the CPU (through the plain versions), float32, temperature 0,
      with bf16 weights through K1 across a 256-position flush, with
      int8 weights through K2 (dim 256) across 8-step merges and two
      128-position flushes, and with int4 weights (group 128) through
-     K2-w4 (exactly 300 K2-w4 launches and no other K2 on the card): the
+     K2-w4 (exactly 300 K2-w4 launches and no other K2 on the card); then
+     the int8-weight model (dim 256) at B = 72, past the mega batches, on
+     the per-layer route three times: an int8 cache through
+     ``decode_attention``, the same through K6 (exactly 600 launches) and
+     a float32 cache (``kv_dtype`` None), none launching K1 or K2: the
      token streams agree until at least step 150, the latents of the
      first 64 steps to 1e-2;
   7. one small training step (accumulation 2, utterance encoder) on the
@@ -92,8 +113,8 @@ Phases (any failure ends the run with a non-zero exit, no result):
      run), int8 KV cache,
      temperature 0.85, DDIM-100 at eta 0.5, then the HiFi-GAN of
      ``configs/train/vocoder/hfgan_16k_50hz_librispeech.yaml``; each run
-     three times (stage times: median and range) with the kernels'
-     counts set to 0 just before a run and read just after:
+     once, with the kernels' counts set to 0 just before a run and read
+     just after:
        - bf16 weights (the hybrid path): exactly 16 x 500 K1 launches and
          no K2 launch per run;
        - int8 weights quantized from the float32 weights, the rest cast
@@ -101,6 +122,15 @@ Phases (any failure ends the run with a non-zero exit, no result):
          K2 launches and no K1 launch per run (B = 64 runs in phase 11);
      then, for each path, a profile of 64 AR steps: the device busy
      share and the kernels that take it;
+  8b. the per-layer paths at that width and B = 128 (past the mega
+     batches), same prompts, stages and checks: int8 weights and an
+     int8 cache through JAX's route (``decode_attention``; no K1, K2 or
+     K6 launch), then with ``flash_decode=True`` (exactly 16 x 500 K6
+     launches, no K1 or K2), the two routes' token agreement and latent
+     difference reported, each with its real-time factor, stage times,
+     ms per AR step and peak memory, and a profile of 32 AR steps of
+     each; then bf16 weights with a bf16 cache (``kv_dtype`` None; no
+     kernel launch on the AR loop);
   9. the training path: ``LVTRTrainer`` on that config at full width with
      its utterance encoder (16-mixed, AdamW, accumulation 2), synthetic
      B = 8 x 640 batches from seed 0: one warm-up and five timed
@@ -137,8 +167,9 @@ Phases (any failure ends the run with a non-zero exit, no result):
      at; utterances/s, seconds of audio scored per wall second, model
      and data time, peak memory, one profiled batch, and the device time
      of one loader pass alone;
-  11. the speech-continuation CLI, twice: ``scripts/infer.py``'s ``main``
-     in this process on the shipped ``configs/infer/speech/vae-gslm.yaml``
+  11. the speech-continuation CLI, three times: ``scripts/infer.py``'s
+     ``main`` in this process on the shipped
+     ``configs/infer/speech/vae-gslm.yaml``
      with only ``ckpt_path`` (phase 10's checkpoint), ``vocoder.path``,
      ``data.path``, ``data.wavdir`` and ``output_dir`` pointed at a
      temporary directory holding 64 synthetic WAVs of 5-13 s from seed 0
@@ -148,11 +179,13 @@ Phases (any failure ends the run with a non-zero exit, no result):
      the kernels' counts set to 0 just before ``main`` and read just
      after: exactly 1000 K2 launches and no K2-w4 or K1 launch; then with
      ``VAE_GSLM_MEGA_W4=1``, exactly 1000 K2-w4 launches and no K2 or K1
-     launch.  Each run writes exactly 64 finite 16 kHz WAVs, none longer
-     than the 3 s prompt + 10 s; the real-time factor over the whole
-     ``main`` call (64 x 10 s over its wall time: model build, data,
-     sampling, vocoder and WAV writing included), the stage times and
-     the peak memory.
+     launch; then one batch of 128 over 128 such WAVs (``data.batch_size``
+     128, the per-layer int8 route: no K1, K2, K2-w4 or K6 launch).  Each
+     run writes exactly one finite 16 kHz WAV per input, none longer than
+     the 3 s prompt + 10 s; the real-time factor over the whole ``main``
+     call (n x 10 s over its wall time: model build, data, sampling,
+     vocoder and WAV writing included), the stage times and the peak
+     memory.
 Output: one line per measurement, then the ``{"kernels": [...]}`` line,
 the nvidia-smi name/power line, and ``{"ok": true, "device": ...}``.
 """
@@ -1155,28 +1188,38 @@ def small_hparams(mega: bool):
     return Hparams.from_dict(d)
 
 
-def phase_small(dev, quantize: bool, w4: int = 0):
+def phase_small(dev, quantize: bool, w4: int = 0, per_layer: str = ""):
     """A small LVTR continues a prompt by 300 frames on the card (through
     the kernels) and on the CPU (through the plain versions), float32,
     temperature 0: bf16 weights through K1, or int8 weights through K2
     (a8 at B = 2) across eight-step merges and two tail -> cold flushes,
     or with ``w4`` nibble-packed int4 weights of that scale group through
-    K2-w4 (exactly 300 K2-w4 launches and no other K2 on the card)."""
+    K2-w4 (exactly 300 K2-w4 launches and no other K2 on the card).  With
+    ``per_layer`` the int8-weight model (dim 256) at B = 72, past the mega
+    batches, on the per-layer route: "int8" (an int8 cache through
+    ``decode_attention``, no kernel), "k6" (the same through K6: exactly
+    600 launches on the card) or "float" (``kv_dtype`` None: a float32
+    cache, no kernel); no K1 or K2 launch."""
     import numpy as np
     import torch
 
     from vae_gslm_tpu_torch.core.masked import Masked
     from vae_gslm_tpu_torch.inference.speech.sampler import ARTRSampler
     from vae_gslm_tpu_torch.models.speech.lvtr import LVTR
+    from vae_gslm_tpu_torch.ops.flash_decode import flash_decode_int8
+    from vae_gslm_tpu_torch.ops.fused_decode import fused_decode_attention
     from vae_gslm_tpu_torch.ops.mega_step import fused_trunk_step
 
+    quantize = quantize or bool(per_layer)
     rng = np.random.RandomState(1)
-    b, tp, length = 2, 20, 300
+    b, tp, length = (72 if per_layer else 2), 20, 300
     prompt = np.concatenate([rng.randint(0, 50, (b, tp, 1)),
                              rng.randn(b, tp, 80)], -1).astype(np.float32)
     # the CPU and the card draw different streams from one seed, so the
     # uniform initial AR state is pinned on both, as the tests pin it
     init = torch.from_numpy(rng.rand(b, 1, 32).astype(np.float32) * 2 - 1)
+    route = ("per_layer" if per_layer else "mega" if quantize
+             else "hybrid")
     runs = {}
     for where in ("cpu", dev):
         model = LVTR(small_hparams(quantize), input_dim=80, device=where,
@@ -1189,30 +1232,44 @@ def phase_small(dev, quantize: bool, w4: int = 0):
                                  for k, v in model.state_dict().items()}
         else:
             model.load_state_dict(runs["cpu_state"])
-        sampler = ARTRSampler(model, quantize_weights=quantize, device=where,
-                              mega_w4=w4)
-        if sampler.use_mega != quantize:
-            raise AssertionError("the small int8 model missed the mega path")
+        sampler = ARTRSampler(
+            model, kv_dtype=None if per_layer == "float" else torch.int8,
+            quantize_weights=quantize, device=where, mega_w4=w4,
+            flash_decode=per_layer == "k6")
+        if sampler.route(b) != route:
+            raise AssertionError(f"the small model took the "
+                                 f"{sampler.route(b)} route, not {route}")
         x = torch.from_numpy(prompt).to(where)
         fused_trunk_step.launches = fused_trunk_step.launches_w4 = 0
+        fused_decode_attention.launches = flash_decode_int8.launches = 0
         out = sampler(length, Masked.from_lengths(x, [tp] * b),
                       torch.Generator(where).manual_seed(0),
                       temperature=0.0, token_temperature=1e-6,
                       encoder_temperature=0.0)
-        counts = fused_trunk_step.launches, fused_trunk_step.launches_w4
-        if w4 and str(where) != "cpu" and counts != (0, length):
-            raise AssertionError(f"K2 / K2-w4 launches {counts}, expected "
-                                 f"(0, {length})")
+        counts = (fused_decode_attention.launches, fused_trunk_step.launches,
+                  fused_trunk_step.launches_w4, flash_decode_int8.launches)
+        want = None
+        if w4:
+            want = (0, 0, length, 0)
+        elif per_layer:
+            want = (0, 0, 0, 2 * length if per_layer == "k6" else 0)
+        if want and str(where) != "cpu" and counts != want:
+            raise AssertionError(f"K1 / K2 / K2-w4 / K6 launches {counts}, "
+                                 f"expected {want}")
         runs[str(where)] = out["frames"].value.float().cpu().numpy()
     cpu, gpu = runs["cpu"][:, tp:], runs[str(dev)][:, tp:]
     neq = (cpu[..., 0] != gpu[..., 0]).any(0)
     first = int(neq.argmax()) if neq.any() else length
     lat_err = float(np.abs(cpu[:, :64, 1:] - gpu[:, :64, 1:]).max())
     what = (f"int4 weights (group {w4}) through K2-w4" if w4
-            else "int8 weights through K2" if quantize else "bf16 through K1")
-    log(f"small-input agreement (card {what} vs CPU plain, {length} steps "
-        f"across flushes): tokens equal for the first {first} steps, "
-        f"first-64-step latent max error {lat_err:.2e}")
+            else {"int8": "per-layer int8 cache through decode_attention",
+                  "k6": "per-layer int8 cache through K6",
+                  "float": "per-layer float32 cache"}[per_layer]
+            if per_layer else "int8 weights through K2" if quantize
+            else "bf16 through K1")
+    log(f"small-input agreement (card {what} vs CPU plain, B={b}, {length} "
+        f"steps): tokens equal for the first {first} steps, first-64-step "
+        f"latent max error {lat_err:.2e}")
     if first < 150 or not lat_err < 1e-2:
         raise AssertionError("the card and the CPU disagree on a small "
                              "input")
@@ -1502,11 +1559,12 @@ def phase_train(dev, gpu: str, seed: int = 0):
 
 
 # --------------------------------------------------------- main paths
-def build_pipeline(dev, quantize: bool):
+def build_pipeline(dev, quantize: bool, kv_dtype="int8"):
     """The full-width LVTR of ``configs/train/speech/vae-gslm.yaml``
     (weights from seed 0, the utterance encoder left out), its sampler
-    with an int8 KV cache, and the HiFi-GAN.  With ``quantize`` the trunk
-    is quantized to int8 from the float32 weights; the remaining float
+    with an int8 KV cache (``kv_dtype`` None: a cache in the compute
+    dtype, bf16), and the HiFi-GAN.  With ``quantize`` the trunk is
+    quantized to int8 from the float32 weights; the remaining float
     parameters are then cast to bf16."""
     import torch
 
@@ -1528,9 +1586,9 @@ def build_pipeline(dev, quantize: bool):
                  generator=torch.Generator(dev).manual_seed(0))
     model.decoder.override_sampling(sampling_timesteps=100,
                                     ddim_sampling_eta=0.5)
-    sampler = ARTRSampler(model, kv_dtype=torch.int8,
+    sampler = ARTRSampler(model, kv_dtype=kv_dtype and torch.int8,
                           quantize_weights=quantize, device=dev)
-    if sampler.use_mega != quantize:
+    if sampler.use_mega != (quantize and kv_dtype == "int8"):
         raise AssertionError("the int8-weight trunk missed the mega path")
     with torch.no_grad():
         for p in model.parameters():
@@ -1563,17 +1621,19 @@ def make_prior(batch: int, dev):
 
 
 def run_once(sampler, vocoder, prior, dev, seed: int, kw: dict):
-    """One continuation and its vocoding with both kernels' counts set to
-    0 just before and read just after.  Returns (stage seconds, K1
-    launches, K2 launches)."""
+    """One continuation and its vocoding with the decode kernels' counts
+    set to 0 just before and read just after.  Returns (stage seconds,
+    (K1, K2, K6) launches, the sampler's outputs)."""
     import torch
 
+    from vae_gslm_tpu_torch.ops.flash_decode import flash_decode_int8
     from vae_gslm_tpu_torch.ops.fused_decode import fused_decode_attention
     from vae_gslm_tpu_torch.ops.mega_step import fused_trunk_step
 
     batch = prior.value.shape[0]
     fused_decode_attention.launches = 0
-    fused_trunk_step.launches = 0
+    fused_trunk_step.launches = fused_trunk_step.launches_w4 = 0
+    flash_decode_int8.launches = 0
     timings = {}
     out = sampler(LENGTH, prior, torch.Generator(dev).manual_seed(seed),
                   timings=timings, **kw)
@@ -1581,54 +1641,113 @@ def run_once(sampler, vocoder, prior, dev, seed: int, kw: dict):
     wave = vocoder(out["output"])
     torch.cuda.synchronize()
     timings["vocoder"] = time.perf_counter() - t0
-    counts = fused_decode_attention.launches, fused_trunk_step.launches
+    counts = (fused_decode_attention.launches,
+              fused_trunk_step.launches + fused_trunk_step.launches_w4,
+              flash_decode_int8.launches)
     check_outputs(out, wave, batch)
-    return timings, counts
+    return timings, counts, out
 
 
 def phase_pipeline(dev, gpu: str, quantize: bool):
-    """The 3 s -> 10 s continuation at B = 8, three times: bf16 weights
-    through K1 (16 x 500 launches, no K2) or int8 weights through K2 (500
+    """The 3 s -> 10 s continuation at B = 8, once: bf16 weights through
+    K1 (16 x 500 launches, no K2) or int8 weights through K2 (500
     launches, a8, no K1).  Then a profile of 64 AR steps.  Returns the
-    path's kernel count of its last B = 8 run."""
+    path's kernel count."""
     import torch
 
     path = "int8 weights, K2" if quantize else "bf16 weights, K1"
     sampler, vocoder = build_pipeline(dev, quantize)
     prior = make_prior(8, dev)
     kw = dict(temperature=0.85, token_temperature=0.85)
-    want = (0, LENGTH) if quantize else (L * LENGTH, 0)
+    want = (0, LENGTH, 0) if quantize else (L * LENGTH, 0, 0)
 
     # warm-up (allocator, cuBLAS/cuDNN handles, lazily loaded kernels) on
     # a short continuation and its vocoding
     vocoder(sampler(8, prior, torch.Generator(dev).manual_seed(99),
                     **kw)["output"])
     torch.cuda.synchronize()
-
-    # Three runs: the stage times vary from run to run with the host (the
-    # AR loop is host-bound), so their median and range are reported.
-    runs = []
-    for rep in range(3):
-        timings, counts = run_once(sampler, vocoder, prior, dev, 1 + rep, kw)
-        log(f"run {rep} ({path}): K1 launches {counts[0]}, K2 launches "
-            f"{counts[1]}; " + ", ".join(
-                f"{name} {sec * 1e3:.1f} ms" for name, sec in timings.items()))
-        if counts != want:
-            raise AssertionError(f"launches (K1, K2) = {counts}, expected "
-                                 f"{want}")
-        runs.append(timings)
-    launches = counts[1] if quantize else counts[0]
+    timings, counts, _ = run_once(sampler, vocoder, prior, dev, 1, kw)
+    if counts != want:
+        raise AssertionError(f"launches (K1, K2, K6) = {counts}, expected "
+                             f"{want}")
     audio_s = 8 * LENGTH / 50.0
-    for name in runs[0]:
-        secs = sorted(r[name] for r in runs)
-        log(f"stage {name} ({path}): median {secs[1] * 1e3:.1f} ms, range "
-            f"{secs[0] * 1e3:.1f}-{secs[-1] * 1e3:.1f} ms ({gpu})")
-    rtf = sorted(audio_s / sum(r.values()) for r in runs)
-    log(f"pipeline B=8 ({path}): {audio_s:.0f} s of audio, real-time "
-        f"factor median {rtf[1]:.2f}x, range {rtf[0]:.2f}-{rtf[-1]:.2f}x "
-        f"over {len(runs)} runs ({gpu})")
+    log(f"pipeline B=8 ({path}): K1 launches {counts[0]}, K2 launches "
+        f"{counts[1]}; " + ", ".join(
+            f"{name} {sec * 1e3:.1f} ms" for name, sec in timings.items())
+        + f"; {audio_s:.0f} s of audio, real-time factor "
+        f"{audio_s / sum(timings.values()):.2f}x ({gpu})")
     profile_ar_loop(sampler, prior, dev, gpu, kw, path)
-    return launches
+    return counts[1] if quantize else counts[0]
+
+
+PL_B = 128                          # past the mega batches: per layer
+
+
+def phase_per_layer(dev, gpu: str) -> int:
+    """The per-layer serving paths at full width, B = 128 synthetic
+    150-frame prompts, 500 AR steps, DDIM-100, HiFi-GAN, each run with
+    the decode kernels' counts set to 0 just before and read just after:
+    int8 weights and an int8 cache through JAX's route
+    (``decode_attention``; no K1, K2 or K6 launch), then the same prompts
+    and seed with ``flash_decode=True`` (exactly 16 x 500 K6 launches and
+    no K1 or K2); the two routes' token agreement and latent difference
+    (reported, not gated); then bf16 weights with a bf16 cache
+    (``kv_dtype`` None; no kernel launch on the AR loop).  Real-time
+    factor, stage times, peak memory and ms per AR step of each, and a
+    profile of 32 AR steps of the two int8 routes.  Returns the K6
+    launches."""
+    import numpy as np
+    import torch
+
+    from vae_gslm_tpu_torch.inference.speech.sampler import ARTRSampler
+
+    kw = dict(temperature=0.85, token_temperature=0.85)
+    prior = make_prior(PL_B, dev)
+    audio_s = PL_B * LENGTH / 50.0
+
+    def run(name, sampler, vocoder, want):
+        if sampler.route(PL_B) != "per_layer":
+            raise AssertionError(f"{name}: route {sampler.route(PL_B)}")
+        vocoder(sampler(8, prior, torch.Generator(dev).manual_seed(99),
+                        **kw)["output"])                # warm-up
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timings, counts, out = run_once(sampler, vocoder, prior, dev, 1, kw)
+        peak = torch.cuda.max_memory_allocated()
+        if counts != want:
+            raise AssertionError(f"{name}: launches (K1, K2, K6) = {counts}"
+                                 f", expected {want}")
+        log(f"per-layer B={PL_B} ({name}): K1 {counts[0]}, K2 {counts[1]}, "
+            f"K6 {counts[2]} launches; " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in timings.items())
+            + f"; {timings['ar_loop'] / LENGTH * 1e3:.2f} ms per AR step; "
+            f"real-time factor {audio_s / sum(timings.values()):.2f}x; peak "
+            f"memory {peak / 2 ** 30:.2f} GiB ({gpu})")
+        return out["frames"].value[:, PROMPT:].float().cpu().numpy(), counts
+
+    sampler, vocoder = build_pipeline(dev, quantize=True)
+    k6_sampler = ARTRSampler(sampler.model, kv_dtype=torch.int8,
+                             flash_decode=True, device=dev)
+    ref, _ = run("int8 weights, int8 cache, JAX's route", sampler, vocoder,
+                 (0, 0, 0))
+    got, counts = run("int8 weights, int8 cache, K6", k6_sampler, vocoder,
+                      (0, 0, L * LENGTH))
+    same = float((ref[..., 0] == got[..., 0]).mean())
+    log(f"per-layer B={PL_B}: K6 route against JAX's route, same prompts and "
+        f"seed: tokens equal at {same:.1%} of the steps, latent max |diff| "
+        f"{float(np.abs(ref[..., 1:] - got[..., 1:]).max()):.3e} (reported, "
+        f"not gated: K6 does not quantize q)")
+    for s, path in ((sampler, "per-layer int8, JAX's route"),
+                    (k6_sampler, "per-layer int8, K6")):
+        profile_ar_loop(s, prior, dev, gpu, kw, path, steps=32)
+    del sampler, k6_sampler, vocoder
+    gc.collect()
+    sampler, vocoder = build_pipeline(dev, quantize=False, kv_dtype=None)
+    run("bf16 weights, bf16 cache", sampler, vocoder, (0, 0, 0))
+    del sampler, vocoder
+    gc.collect()
+    return counts[2]
 
 
 def check_outputs(out, wave, batch: int) -> None:
@@ -1663,22 +1782,29 @@ def profile_ar_loop(sampler, prior, dev, gpu: str, kw: dict, path: str,
         hybrid_scan_segments, mega_scan_segments)
 
     model = sampler.model
-    mega = sampler.use_mega
+    batch = prior.value.shape[0]
+    route = sampler.route(batch)
     g = torch.Generator(dev).manual_seed(2)
     with torch.no_grad():
         enc = model.encode(prior, g)
-        stacked = model.transformer.build_stacked_decode()
-        frame, cache, flushed = sampler.prefill(enc, steps, stacked, g,
-                                                mega=mega, **kw)
         pos0 = enc.value.shape[1] + 1
-        if mega:
+        if route == "per_layer":
+            frame, caches = sampler.prefill_per_layer(enc, steps, g, **kw)
+
+            def run():
+                sampler.per_layer_scan(frame, caches, pos0, steps, g, **kw)
+        else:
+            stacked = model.transformer.build_stacked_decode()
+            frame, cache, flushed = sampler.prefill(
+                enc, steps, stacked, g, mega=route == "mega", **kw)
+        if route == "mega":
             weights = model.transformer.build_mega_decode()
 
             def run():
                 mega_scan_segments(frame, cache, flushed, pos0, steps,
                                    lambda fr, c, p, f: model.step_mega(
                                        fr, weights, c, p, f, g, **kw))
-        else:
+        elif route == "hybrid":
             def run():
                 hybrid_scan_segments(model, frame, cache, flushed, pos0,
                                      steps, lambda fr, c, p, f:
@@ -1699,7 +1825,8 @@ def profile_ar_loop(sampler, prior, dev, gpu: str, kw: dict, path: str,
             "profiler recorded no kernel)")
         return
     busy_ms = sum(k[0] for k in kernels)
-    log(f"AR loop profile ({path}), {steps} steps at B=8 (profiler on): "
+    log(f"AR loop profile ({path}), {steps} steps at B={batch} (profiler "
+        f"on): "
         f"wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step "
         f"({busy_ms / wall_ms:.1%}), {sum(k[1] for k in kernels):.0f} "
         f"device ops/step ({gpu})")
@@ -2066,42 +2193,49 @@ INFER_YAML = os.path.join(ROOT, "configs", "infer", "speech",
 CLI_UTTERANCES = 64                 # the infer config's batch_size
 
 
-def write_cli_corpus(root: str, seed: int = 0) -> str:
-    """64 WAVs of 5-13 s and their tokens file from ``seed`` (the training
-    corpus writer, without mels), and the shipped infer config with only
-    ``ckpt_path``, ``vocoder.path``, ``data.path``, ``data.wavdir`` and
-    ``output_dir`` pointed under ``root``.  Returns the config's path."""
+def write_cli_corpus(root: str, n: int = CLI_UTTERANCES,
+                     seed: int = 0) -> str:
+    """``n`` WAVs of 5-13 s and their tokens file from ``seed`` (the
+    training corpus writer, without mels), and the shipped infer config
+    with only ``ckpt_path``, ``vocoder.path``, ``data.path``,
+    ``data.wavdir`` and ``output_dir`` pointed under ``root`` (the corpus
+    in ``corpus{n}``), and ``data.batch_size`` set to ``n`` where it is
+    not the config's.  Returns the config's path."""
     import yaml
 
-    corpus = os.path.join(root, "corpus")
+    corpus = os.path.join(root, f"corpus{n}")
     os.makedirs(corpus)
-    write_train_corpus(corpus, None, CLI_UTTERANCES, 5.0, 13.0, seed)
+    write_train_corpus(corpus, None, n, 5.0, 13.0, seed)
     with open(INFER_YAML) as f:
         cfg = yaml.safe_load(f)
     cfg["ckpt_path"] = os.path.join(root, "ckpt")
     cfg["vocoder"]["path"] = os.path.join(root, "voc")
     cfg["data"].update(path=os.path.join(corpus, "tokens.txt"),
-                       wavdir=corpus)
-    cfg["output_dir"] = os.path.join(root, "samples")
-    path = os.path.join(root, "infer.yaml")
+                       wavdir=corpus, batch_size=n)
+    cfg["output_dir"] = os.path.join(root, f"samples{n}")
+    path = os.path.join(root, f"infer{n}.yaml")
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     return path
 
 
-def phase_cli(dev, gpu: str, config: str, w4: bool) -> int:
+def phase_cli(dev, gpu: str, config: str, w4: bool = False,
+              n_wavs: int = CLI_UTTERANCES) -> int:
     """The speech-continuation CLI at full width: ``scripts/infer.py``'s
     ``main`` in this process on the shipped infer config (``write_cli_
-    corpus``), one batch of 64 (two sequential B = 32 chunks of 500 AR
-    steps, DDIM-100 at eta 0.5 with the utterance embedding, HiFi-GAN,
-    the energy-VAD trim), the bf16-mixed policy, int8 KV cache and int8
-    weights; with ``w4`` under ``VAE_GSLM_MEGA_W4=1``.  The kernels'
-    counts are set to 0 just before ``main`` and read just after: exactly
-    1000 launches of K2 (int8) or of K2-w4 (w4), none of the other and no
-    K1.  Checks 64 finite 16 kHz WAVs, none longer than the prompt + 10 s.
+    corpus``), one batch of ``n_wavs`` (500 AR steps, DDIM-100 at eta 0.5
+    with the utterance embedding, HiFi-GAN, the energy-VAD trim), the
+    bf16-mixed policy, int8 KV cache and int8 weights; with ``w4`` under
+    ``VAE_GSLM_MEGA_W4=1``.  The decode kernels' counts are set to 0 just
+    before ``main`` and read just after: at 64 (two sequential B = 32
+    chunks) exactly 1000 launches of K2 (int8) or of K2-w4 (w4), none of
+    the other and no K1 or K6; at 128 (the per-layer int8 route, JAX's
+    ``decode_attention``) no K1, K2, K2-w4 or K6 launch.  Checks
+    ``n_wavs`` finite 16 kHz WAVs, none longer than the prompt + 10 s.
     Reports the real-time factor over the whole ``main`` call (model
-    build, data, sampling, vocoder, WAV writing: 64 x 10 s over its wall
-    time), the stage times and the peak memory.  Returns the launches."""
+    build, data, sampling, vocoder, WAV writing: ``n_wavs`` x 10 s over
+    its wall time), the stage times and the peak memory.  Returns the K2
+    or K2-w4 launches."""
     import shutil
 
     import numpy as np
@@ -2109,6 +2243,7 @@ def phase_cli(dev, gpu: str, config: str, w4: bool) -> int:
     import yaml
 
     from vae_gslm_tpu_torch.data import audio
+    from vae_gslm_tpu_torch.ops.flash_decode import flash_decode_int8
     from vae_gslm_tpu_torch.ops.fused_decode import fused_decode_attention
     from vae_gslm_tpu_torch.ops.mega_step import fused_trunk_step
     from vae_gslm_tpu_torch.scripts import infer as infer_cli
@@ -2116,7 +2251,9 @@ def phase_cli(dev, gpu: str, config: str, w4: bool) -> int:
     with open(config) as f:
         out_dir = yaml.safe_load(f)["output_dir"]
     shutil.rmtree(out_dir, ignore_errors=True)
-    path = "int4 weights, K2-w4" if w4 else "int8 weights, K2"
+    chunked = n_wavs <= 64
+    path = ("int4 weights, K2-w4" if w4 else "int8 weights, K2" if chunked
+            else "int8 weights, per-layer int8 cache")
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     timings = {}
@@ -2124,7 +2261,7 @@ def phase_cli(dev, gpu: str, config: str, w4: bool) -> int:
     if w4:
         os.environ["VAE_GSLM_MEGA_W4"] = "1"
     try:
-        fused_decode_attention.launches = 0
+        fused_decode_attention.launches = flash_decode_int8.launches = 0
         fused_trunk_step.launches = fused_trunk_step.launches_w4 = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2133,19 +2270,19 @@ def phase_cli(dev, gpu: str, config: str, w4: bool) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = (fused_decode_attention.launches, fused_trunk_step.launches,
-                  fused_trunk_step.launches_w4)
+                  fused_trunk_step.launches_w4, flash_decode_int8.launches)
     finally:
         os.environ.pop("VAE_GSLM_MEGA_W4", None)
         if old is not None:
             os.environ["VAE_GSLM_MEGA_W4"] = old
     peak = torch.cuda.max_memory_allocated()
-    want = (0, 0, 2 * LENGTH) if w4 else (0, 2 * LENGTH, 0)
+    k2 = n_wavs // 32 * LENGTH if chunked else 0
+    want = (0, 0, k2, 0) if w4 else (0, k2, 0, 0)
     if counts != want:
-        raise AssertionError(f"CLI ({path}): launches (K1, K2, K2-w4) = "
+        raise AssertionError(f"CLI ({path}): launches (K1, K2, K2-w4, K6) = "
                              f"{counts}, expected {want}")
     names = sorted(os.listdir(out_dir), key=lambda n: int(n.split(".")[0]))
-    if n != CLI_UTTERANCES or names != [f"{i}.wav" for i in
-                                        range(1, CLI_UTTERANCES + 1)]:
+    if n != n_wavs or names != [f"{i}.wav" for i in range(1, n_wavs + 1)]:
         raise AssertionError(f"CLI ({path}): {n} outputs, files {names[:4]}"
                              f"... ({len(names)})")
     lens = []
@@ -2157,9 +2294,10 @@ def phase_cli(dev, gpu: str, config: str, w4: bool) -> int:
             raise AssertionError(f"CLI ({path}) {name}: {len(wave)} samples "
                                  f"at {sr} Hz")
     trimmed = sum(x < (PROMPT + LENGTH) * 320 for x in lens)
-    audio_s = CLI_UTTERANCES * LENGTH / 50.0
-    log(f"CLI ({path}), B={CLI_UTTERANCES} as two B=32 chunks: K1 "
-        f"{counts[0]}, K2 {counts[1]}, K2-w4 {counts[2]} launches; {n} "
+    audio_s = n_wavs * LENGTH / 50.0
+    how = "as two B=32 chunks" if chunked else "per layer"
+    log(f"CLI ({path}), B={n_wavs} {how}: K1 {counts[0]}, K2 {counts[1]}, "
+        f"K2-w4 {counts[2]}, K6 {counts[3]} launches; {n} "
         f"WAVs of {min(lens) / 16000:.2f}-{max(lens) / 16000:.2f} s ({trimmed}"
         f" shortened by the VAD trim); " + ", ".join(
             f"{k} {v:.3f} s" for k, v in timings.items())
@@ -2381,6 +2519,158 @@ def phase_k45b(dev, k4_worst: float):
                           lt)
         del q, k, v, do, o
     return out["K4"], out["K4b"], out["K5b"]
+
+
+# ------------------------------------------------------------------ K6
+K6_B, K6_T = 128, 768               # the per-layer path's batch; 651 -> 768
+K6_CASES = (151, 255, 256, 400, 511, 512, 650)
+
+
+def k6_inputs(dev, seed: int = 0):
+    """An int8 per-layer cache (B 128, 16 heads, T 768) quantized from
+    normal rows by the port's ``quantize_i8``, a bfloat16 q as a view of one fused qkv projection (as the per-layer
+    step hands it over) and the ALiBi slopes."""
+    import torch
+
+    from vae_gslm_tpu_torch.nn.attention import quantize_i8
+    from vae_gslm_tpu_torch.nn.positions import alibi_slopes
+
+    g = torch.Generator(dev).manual_seed(seed)
+    k8, ks = quantize_i8(torch.randn((K6_B, H, K6_T, D), generator=g,
+                                     device=dev))
+    v8, vs = quantize_i8(torch.randn((K6_B, H, K6_T, D), generator=g,
+                                     device=dev))
+    qkv = torch.randn((K6_B, 3 * H * D), generator=g, device=dev).to(
+        torch.bfloat16)
+    q = qkv.view(K6_B, 3, H, D)[:, 0]
+    slopes = -torch.tensor(alibi_slopes(H), device=dev)
+    return q, k8, v8, ks, vs, slopes
+
+
+def k6_bytes(pos: int, q_itemsize: int = 2) -> int:
+    """Bytes one call must move: the valid rows' int8 K and V and their
+    two float32 scales, q in, the float32 output, the slopes."""
+    return (K6_B * H * ((pos + 1) * (2 * D + 8) + D * (q_itemsize + 4))
+            + H * 4)
+
+
+def phase_k6(dev):
+    """K6 against its plain version at the per-layer path's calls (B 128,
+    16 heads of 64, T 768) at the rollout's cache states ``K6_CASES``,
+    to ``1e-5 * max|ref|`` (float32, both
+    summing in 256-key blocks); then, over every 50th position of the
+    151 -> 650 rollout, its device time, the time per call with the
+    wrapper, the plain version's time, JAX's route as ported
+    (``decode_attention`` over the int8 cache at the sampler's segment
+    window, the A/B beside the kernel) and the bytes bound."""
+    import torch
+
+    from vae_gslm_tpu_torch.inference.speech.sampler import (
+        n_segments, segment_windows)
+    from vae_gslm_tpu_torch.ops.decode_attention import decode_attention
+    from vae_gslm_tpu_torch.ops.flash_decode import (
+        flash_decode_int8 as k6, flash_decode_int8_plain as plain)
+
+    q, k8, v8, ks, vs, slopes = k6_inputs(dev)
+    worst = 0.0
+    for pos in K6_CASES:
+        want = plain(q, k8, v8, ks, vs, pos, slopes)
+        got = k6(q, k8, v8, ks, vs, pos, slopes)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 1e-5 * want.abs().max().item()
+        log(f"K6 check B={K6_B} T={K6_T} pos={pos}: "
+            f"max_abs_err={err:.3e} (tolerance {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError(f"K6 disagrees with its plain version at "
+                                 f"pos {pos}")
+        worst = max(worst, err)
+    pos0 = PROMPT + 1
+    segments = segment_windows(pos0, LENGTH, n_segments(LENGTH),
+                               pos0 + LENGTH)
+    ks_, calls, ps, js, bs = [], [], [], [], []
+    for pos in range(pos0, pos0 + LENGTH, 50):
+        window = next(w for a, e, w in segments if a <= pos - pos0 < e)
+
+        def kernel(i):
+            return k6(q, k8, v8, ks, vs, pos, slopes)
+
+        ks_.append(device_ms(kernel, n=100, only=("flash_decode_kernel",),
+                             per_call=1))
+        calls.append(cuda_ms(kernel, n=100))
+        ps.append(device_ms(lambda i: plain(q, k8, v8, ks, vs, pos, slopes),
+                            n=5))
+        js.append(device_ms(lambda i: decode_attention(
+            q, k8, v8, pos, slopes, window=window, k_scale=ks, v_scale=vs),
+            n=10))
+        bs.append(k6_bytes(pos) / HBM_BYTES_PER_S * 1e3)
+        log(f"K6 time B={K6_B} pos={pos}: kernel {ks_[-1] * 1e3:.2f} us, "
+            f"{calls[-1] * 1e3:.2f} us per call with the wrapper, plain "
+            f"{ps[-1] * 1e3:.1f} us, JAX's route (decode_attention, window "
+            f"{window}) {js[-1] * 1e3:.1f} us, bound {bs[-1] * 1e3:.2f} us "
+            f"({k6_bytes(pos) / 1e6:.1f} MB)")
+    log(f"K6 mean over the rollout: kernel {statistics.mean(ks_) * 1e3:.2f} "
+        f"us, {statistics.mean(calls) * 1e3:.2f} us per call with the "
+        f"wrapper, plain {statistics.mean(ps) * 1e3:.1f} us, JAX's route "
+        f"{statistics.mean(js) * 1e3:.1f} us, bound "
+        f"{statistics.mean(bs) * 1e3:.2f} us")
+    log("K6 library_ms: null (no single PyTorch call computes this "
+        "int8-dequantizing decode attention)")
+    return {"name": "flash_decode_int8", "route": "cuda",
+            "source": "vae_gslm_tpu_torch/csrc/flash_decode.cu",
+            "replaces": "vae_gslm_tpu/ops/flash_decode.py:131",
+            "launches": None, "max_abs_err": worst,
+            "ms": statistics.mean(ks_), "plain_ms": statistics.mean(ps),
+            "bound_ms": statistics.mean(bs), "bound_by": "bytes",
+            "library_ms": None}
+
+
+# ------------------------------------------------------------------ K7
+def phase_k7(dev, gpu: str):
+    """K7's per-layer and tile sums against its plain version on the
+    seed-0 (16, 1024, 12288) int8 stack, exactly; its plain version's and
+    one ``torch.sum`` call's device times; then
+    ``scripts/bench_slope.py``'s slopes (K7's microseconds per call and
+    GB/s, K2's full step at flushed 0 and 512) with K7's count set to 0
+    just before and read just after."""
+    import torch
+
+    from vae_gslm_tpu_torch.ops.stream import stream_sums, stream_sums_plain
+    from vae_gslm_tpu_torch.scripts import bench_slope
+
+    g = torch.Generator(dev).manual_seed(0)
+    w = torch.randint(-127, 128, (bench_slope.L, bench_slope.R,
+                                  bench_slope.C), generator=g, device=dev,
+                      dtype=torch.int8)
+    got, want = stream_sums(w), stream_sums_plain(w)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("K7's sums differ from its plain version's")
+    log(f"K7 check: per-layer sums and k_block's tile sum "
+        f"({int(got[1])}) equal to the plain version's")
+    plain_ms = device_ms(lambda i: stream_sums_plain(w), n=5)
+    library_ms = device_ms(lambda i: w.sum(dim=(1, 2)), n=5)
+    nbytes = w.numel()
+    del w, got, want
+    stream_sums.launches = 0
+    res = bench_slope.run(dev)
+    launches = stream_sums.launches
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    share = res["stream_gb_s"] * 1e9 / HBM_BYTES_PER_S
+    log(f"bench_slope: K7 {res['stream_us']:.2f} us per call, "
+        f"{res['stream_gb_s']:.1f} GB/s ({share:.1%} of the data sheet's "
+        f"3.35 TB/s), bound {bound * 1e3:.2f} us "
+        f"({nbytes / 1e6:.1f} MB), {launches} launches; plain "
+        f"{plain_ms * 1e3:.1f} us, torch.sum {library_ms * 1e3:.1f} us; K2 "
+        f"full step B=8 a8: {res['mega_us_flushed_0']:.1f} us at flushed 0, "
+        f"{res['mega_us_flushed_512']:.1f} us at flushed 512 ({gpu})")
+    return {"name": "stream_sums", "route": "cuda",
+            "source": "vae_gslm_tpu_torch/csrc/stream.cu",
+            "replaces": "tools/bench_slope.py:56",
+            "launches": launches, "max_abs_err": 0.0,
+            "ms": res["stream_us"] / 1e3, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": library_ms}
 
 
 # ------------------------------------------------------ data parallel
@@ -2917,7 +3207,8 @@ def main() -> int:
 
     from vae_gslm_tpu_torch.data import native
     from vae_gslm_tpu_torch.ops import build
-    names = ("fused_decode", "mega_step", "flash_attention")
+    names = ("fused_decode", "mega_step", "flash_attention", "flash_decode",
+             "stream")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names) + 1) as pool:   # one nvcc per source
         jobs = [pool.submit(build.load, n) for n in names]
@@ -2925,48 +3216,69 @@ def main() -> int:
         for job in jobs:
             job.result()
     log(f"build: {', '.join(n + '.cu' for n in names)} (K1, K2, "
-        f"K3/K3b/K4/K4b/K5/K5b) and native/dataio.cc in "
+        f"K3/K3b/K4/K4b/K5/K5b, K6, K7) and native/dataio.cc in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, (sec, text) in build.BUILD_LOG.items():
         log(f"nvcc {name} ({sec:.1f} s): "
             + " | ".join(x.strip() for x in text.splitlines()
                          if "registers" in x or "spill" in x))
 
-    k1 = phase_k1(dev)
-    k2 = phase_k2(dev)
-    k2w4 = phase_k2_w4(dev)
-    k3, k3b = phase_k3(dev)
-    k4_worst, k5 = phase_k45(dev)
-    k4, k4b, k5b = phase_k45b(dev, k4_worst)
-    phase_small(dev, quantize=False)
-    phase_small(dev, quantize=True)
-    phase_small(dev, quantize=True, w4=128)
-    phase_train_small(dev)
-    phase_likelihood_small(dev)
-    phase_dp_small(dev)
-    k1["launches"] = phase_pipeline(dev, gpu, quantize=False)
-    phase_pipeline(dev, gpu, quantize=True)
-    k3["launches"], k3b["launches"] = phase_train(dev, gpu)
-    dp = phase_dp_fit(dev, gpu)
+    spent = []
+
+    def timed(name, fn, *args, **kw):
+        """``fn``'s result; its wall seconds go to the closing log line."""
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        spent.append(f"{name} {time.perf_counter() - t:.1f}")
+        return out
+
+    k1 = timed("k1", phase_k1, dev)
+    k2 = timed("k2", phase_k2, dev)
+    k2w4 = timed("k2_w4", phase_k2_w4, dev)
+    k3, k3b = timed("k3", phase_k3, dev)
+    k4_worst, k5 = timed("k45", phase_k45, dev)
+    k4, k4b, k5b = timed("k45b", phase_k45b, dev, k4_worst)
+    k6 = timed("k6", phase_k6, dev)
+    k7 = timed("k7", phase_k7, dev, gpu)
+    timed("small_k1", phase_small, dev, quantize=False)
+    timed("small_k2", phase_small, dev, quantize=True)
+    timed("small_w4", phase_small, dev, quantize=True, w4=128)
+    for per_layer in ("int8", "k6", "float"):
+        timed(f"small_{per_layer}", phase_small, dev, quantize=True,
+              per_layer=per_layer)
+    timed("train_small", phase_train_small, dev)
+    timed("likelihood_small", phase_likelihood_small, dev)
+    timed("dp_small", phase_dp_small, dev)
+    k1["launches"] = timed("pipeline_k1", phase_pipeline, dev, gpu,
+                           quantize=False)
+    timed("pipeline_k2", phase_pipeline, dev, gpu, quantize=True)
+    k6["launches"] = timed("per_layer", phase_per_layer, dev, gpu)
+    k3["launches"], k3b["launches"] = timed("train", phase_train, dev, gpu)
+    dp = timed("dp_fit", phase_dp_fit, dev, gpu)
     k4["launches"] = dp["flash_forward_full"]
     k4b["launches"] = dp["flash_backward_full"]
-    k5b["launches"] = phase_dp_fit(dev, gpu, long=True)[
-        "flash_backward_blockwise"]
+    k5b["launches"] = timed("dp_fit_long", phase_dp_fit, dev, gpu,
+                            long=True)["flash_backward_blockwise"]
     import shutil
     import tempfile
 
     flagship = tempfile.mkdtemp(prefix="flagship_")
     try:
-        ckpt, _ = write_flagship(flagship, dev)
-        k5["launches"] = phase_score(dev, gpu, ckpt)
+        ckpt, _ = timed("flagship", write_flagship, flagship, dev)
+        k5["launches"] = timed("score", phase_score, dev, gpu, ckpt)
         config = write_cli_corpus(flagship)
-        k2["launches"] = phase_cli(dev, gpu, config, w4=False)
-        k2w4["launches"] = phase_cli(dev, gpu, config, w4=True)
+        k2["launches"] = timed("cli_k2", phase_cli, dev, gpu, config,
+                               w4=False)
+        k2w4["launches"] = timed("cli_w4", phase_cli, dev, gpu, config,
+                                 w4=True)
+        timed("cli_per_layer", phase_cli, dev, gpu,
+              write_cli_corpus(flagship, n=PL_B), n_wavs=PL_B)
     finally:
         shutil.rmtree(flagship, ignore_errors=True)
+    log("phase seconds: " + ", ".join(spent))
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k2w4, k3, k3b, k4, k4b, k5,
-                                  k5b]}))
+                                  k5b, k6, k7]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -144,7 +144,15 @@ def _gradcheck(b, t, h, d, lengths, alibi, seed):
         q, k, v = x.chunk(3, dim=-1)
         return FlashAttentionPacked.apply(q, k, v, lengths, slopes, True, h)
 
-    return torch.autograd.gradcheck(fn, (qkv,), eps=1e-6, atol=1e-7)
+    # ~16k tiny float64 calls: on a host whose cores the other test
+    # workers keep busy, torch's intra-op thread pool turns them from
+    # ~10 s into many minutes, and one thread runs them at full speed
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return torch.autograd.gradcheck(fn, (qkv,), eps=1e-6, atol=1e-7)
+    finally:
+        torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("alibi", [True, False])

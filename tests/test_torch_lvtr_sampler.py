@@ -76,7 +76,7 @@ def test_sampler_matches_jax_hybrid(monkeypatch, length):
         length, JMasked.from_lengths(jnp.asarray(prompt),
                                      jnp.asarray(lengths)),
         jax.random.PRNGKey(0), **DETERMINISTIC)
-    got = ARTRSampler(tm, device="cpu")(
+    got = ARTRSampler(tm, kv_dtype=torch.int8, device="cpu")(
         length, Masked.from_lengths(torch.from_numpy(prompt), lengths),
         torch.Generator().manual_seed(0), **DETERMINISTIC)
 

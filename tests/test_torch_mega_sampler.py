@@ -50,7 +50,8 @@ def _run_both(jm, tm, length, **port_kw):
         length, JMasked.from_lengths(jnp.asarray(prompt),
                                      jnp.asarray(lengths)),
         jax.random.PRNGKey(0), **DETERMINISTIC)
-    sampler = ARTRSampler(tm, quantize_weights=True, device="cpu", **port_kw)
+    sampler = ARTRSampler(tm, kv_dtype=torch.int8, quantize_weights=True,
+                          device="cpu", **port_kw)
     got = sampler(length, Masked.from_lengths(torch.from_numpy(prompt),
                                               lengths),
                   torch.Generator().manual_seed(0), **DETERMINISTIC)
@@ -183,10 +184,11 @@ def test_int8_weight_hybrid_matches_jax(monkeypatch, length):
 def test_chunked_call_matches_chunks_run_alone():
     """B = 3 with ``mega_max_batch=2``: chunks [0, 2) and [2, 3) run one
     after the other on one generator, and their outputs are
-    concatenated; B = 5 > 2 x 2 raises."""
+    concatenated; B = 5 > 2 x 2 runs the per-layer int8 route, as JAX's
+    sampler does past its chunked batches."""
     _, tm = mega_lvtr_pair(seed=3)
-    sampler = ARTRSampler(tm, quantize_weights=True, mega_max_batch=2,
-                          device="cpu")
+    sampler = ARTRSampler(tm, kv_dtype=torch.int8, quantize_weights=True,
+                          mega_max_batch=2, device="cpu")
     rng = np.random.RandomState(0)
     prompt = np.concatenate([rng.randint(0, 11, (3, TP, 1)),
                              rng.randn(3, TP, 10)], -1).astype(np.float32)
@@ -209,6 +211,8 @@ def test_chunked_call_matches_chunks_run_alone():
             torch.cat([p[key].lengths for p in parts]).numpy())
     assert out["frames"].lengths.tolist() == [TP + 12, TP + 12, TP - 1 + 12]
     wide = np.concatenate([prompt, prompt[:2]])
-    with pytest.raises(NotImplementedError, match="per-layer"):
-        sampler(4, Masked.from_lengths(torch.from_numpy(wide),
-                                       [TP] * 5))
+    assert [sampler.route(b) for b in (2, 3, 4, 5)] == [
+        "mega", "chunked", "chunked", "per_layer"]
+    out = sampler(4, Masked.from_lengths(torch.from_numpy(wide), [TP] * 5))
+    assert out["frames"].value.shape == (5, TP + 4, 5)
+    assert bool(torch.isfinite(out["output"].value).all())

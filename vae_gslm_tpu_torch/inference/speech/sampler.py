@@ -1,28 +1,63 @@
 """Autoregressive speech continuation (port of ``ARTRSampler`` from
-``vae_gslm_tpu/inference/speech/sampler.py``, hybrid and mega paths).
+``vae_gslm_tpu/inference/speech/sampler.py``).
 
-Both paths start with a stacked int8 prefill, then run one step per
-generated frame in a Python loop (the JAX package's segmented
-``lax.scan``):
+Every route encodes the prompt, prefills a KV cache with [initial state,
+prompt] and runs one step per generated frame in a Python loop (the JAX
+package's segmented ``lax.scan``), then decodes by diffusion.  Routes:
+
+| weights | KV cache | B | route |
+|---|---|---|---|
+| int8 | int8 | <= 32 / <= 64 | mega / chunked mega |
+| int8 | int8 | > 64 | per-layer int8 (JAX's route) |
+| bf16 | int8 | any | hybrid K1 (the port's choice) |
+| any | float (None, bf16, f32) | any | per-layer float |
+| any | any, with ``return_attn`` | any | per-layer, one full-window segment |
 
   * **mega** (``quantize_weights=True`` and a K2-eligible trunk, B <=
-    ``mega_max_batch``): the prefill cache becomes the three-tier mega
-    cache and each step is one ``LVTR.step_mega`` (the whole trunk as one
-    K2 call); every 8 steps the bf16 stage merges into the int8 tail and
-    every 128 the tail moves to a cold block.  With ``mega_w4`` (JAX's
-    ``VAE_GSLM_MEGA_W4``) the trunk runs on nibble-packed int4 weights
-    (``build_mega_decode_w4``) through K2-w4.  For ``mega_max_batch`` < B
+    ``mega_max_batch``): a stacked int8 prefill, converted to the
+    three-tier mega cache; each step is one ``LVTR.step_mega`` (the whole
+    trunk as one K2 call); every 8 steps the bf16 stage merges into the
+    int8 tail and every 128 the tail moves to a cold block.  With
+    ``mega_w4`` (JAX's ``VAE_GSLM_MEGA_W4``) the trunk runs on
+    nibble-packed int4 weights through K2-w4.  For ``mega_max_batch`` < B
     <= 2 x ``mega_max_batch`` the batch runs as sequential chunks of
-    ``mega_max_batch``; beyond that the per-layer path, not ported yet,
-    would serve it (ROADMAP.md, Queue 1, "The per-layer decode path").
-  * **hybrid** (bf16 weights, or int8 weights the mega path cannot
-    take): the cold/tail cache and one ``LVTR.step_hybrid`` (K1 per
-    layer) per frame, with a tail -> cold flush every 256 positions.
+    ``mega_max_batch``; beyond that, per layer, as in JAX.
+  * **hybrid** (an int8 cache with bf16 weights, or int8 weights the
+    mega path cannot take; a pre-LN RMSNorm trunk): a stacked int8
+    prefill converted to the cold/tail cache, then one
+    ``LVTR.step_hybrid`` (K1 per layer) per frame, with a tail -> cold
+    flush every 256 positions.  JAX caps this route at B = 32
+    (``VAE_GSLM_HYBRID_MAX_BATCH``); the port takes it at any batch.
+  * **per-layer** (float caches, int8 beyond the mega batches, trunks
+    the stacked paths cannot take, ``return_attn``): one ``LayerKVCache``
+    per layer (``kv_dtype`` None: float, as below; int8 with per-row
+    scales), prefilled by ``LVTR.step`` over [initial state,
+    prompt], then one ``LVTR.step`` per frame through
+    ``decode_attention``.  The scan runs in ``decode_segments`` segments
+    (JAX's ``_n_segments``: at most 8, one per 48 steps); segment i's
+    steps attend over ``cache[:window_i]``, ``window_i = min(ceil64(tp + 1
+    + end_i), max_len)``.  With ``return_attn`` one full-window segment,
+    and ``outputs["attn"]`` holds the generated steps' maps, (B, L, H,
+    steps, max_len) float32 (rounded to bfloat16 per step, as JAX's scan
+    rows are).  With ``flash_decode=True`` an int8 per-layer step's
+    attention is K6 (``ops/flash_decode.py``): the caches are then
+    allocated at ``max_len`` rounded up to a multiple of 256, and no
+    window applies (K6 reads only the blocks up to ``pos``).  JAX's
+    samplers never call K6; the option exists to run it on the path it
+    was written for.
 
-The batch gates are JAX's (mega at B <= 32, chunks of 32 up to B = 64,
-the s8 x s8 dense products at B <= 8).  They were measured on a TPU and
-are kept so that the port computes what JAX computes at each batch; the
-H100's own crossovers wait for a measurement (ROADMAP.md).
+JAX sends float caches at B <= 32 through its stacked single-token step
+(``TransformerLayerStack._decode_stacked_step``) when the trunk is
+pre-LN RMSNorm, and that stacked cache is float32 for ``kv_dtype`` None.
+The port takes the per-layer route there, with the same float32 cache
+(``per_layer_kv_dtype``), so the V product runs on float32 weights as in
+JAX; past B = 32, or on a trunk the stacked step cannot take, ``None``
+is the compute dtype, as JAX's per-layer caches are.  JAX's lane-packed
+per-layer layout (``VAE_GSLM_PACKED_CACHE``), which its ``auto`` picks
+on a TPU only, is not ported.  The batch gates are JAX's (mega at B <=
+32, chunks of 32 up to B = 64, the s8 x s8 dense products at B <= 8);
+they were measured on a TPU, and the H100's own crossovers wait for a
+measurement (ROADMAP.md).
 
 Randomness: one ``torch.Generator`` consumed in this order: encoder
 noise, initial AR state, prefill step (prior noise, token Gumbel
@@ -90,46 +125,94 @@ def mega_scan_segments(frame: torch.Tensor, cache: dict, flushed: int,
     return torch.stack(frames, dim=1), frame
 
 
-class ARTRSampler:
-    """Sampler for the LVTR family on the hybrid and mega paths.
+def n_segments(length: int, cap: int = 8) -> int:
+    """JAX's ``_n_segments``: the windowed scan's segment count, at most
+    ``cap`` (``VAE_GSLM_DECODE_SEGMENTS``) and one per 48 steps."""
+    return max(1, min(cap, length // 48))
 
-    ``kv_dtype`` must be ``torch.int8``; the float caches and
-    ``return_attn`` raise ``NotImplementedError`` until the per-layer
-    slice lands.  ``quantize_weights=True`` converts the trunk to
-    weight-only int8 in place (inference only) and serves through K2
+
+def segment_windows(pos0: int, length: int, n_seg: int, max_len: int):
+    """The windowed scan's segments as ``(start, end, window)``: the steps
+    ``start <= i < end`` (at positions ``pos0 + i``) attend over
+    ``cache[:window]``, ``window = min(ceil64(pos0 + end), max_len)``."""
+    out, start = [], 0
+    for i in range(n_seg):
+        end = round(length * (i + 1) / n_seg)
+        out.append((start, end, min(-(-(pos0 + end) // 64) * 64, max_len)))
+        start = end
+    return out
+
+
+class ARTRSampler:
+    """Sampler for the LVTR family (routes in the module docstring).
+
+    ``kv_dtype``: None (JAX's default: a float cache in the policy's
+    compute dtype), a float dtype, or ``torch.int8``.
+    ``quantize_weights=True`` converts the trunk to weight-only int8 in
+    place (inference only) and, with an int8 cache, serves through K2
     when the trunk is eligible (``supports_mega_decode``).
     ``mega_max_batch`` is the largest batch one mega run takes (JAX's
     ``VAE_GSLM_MEGA_MAX_BATCH``); ``mega_a8`` forces the s8 x s8 dense
     products on or off (default: B <= 8).  ``mega_w4`` is the scale group
     of the nibble-packed int4 trunk (0: int8 weights); None reads
     ``VAE_GSLM_MEGA_W4`` as JAX does ("0" or "" off, "64" group 64,
-    anything else group 128)."""
+    anything else group 128).  ``flash_decode`` puts K6 under the
+    per-layer int8 step (no other route changes).  ``decode_segments``
+    caps the per-layer scan's segments (None reads
+    ``VAE_GSLM_DECODE_SEGMENTS``, default 8)."""
 
-    def __init__(self, model, kv_dtype=torch.int8,
+    def __init__(self, model, kv_dtype=None,
                  quantize_weights: bool = False, mega_max_batch: int = 32,
                  mega_a8: Optional[bool] = None,
                  mega_w4: Optional[int] = None,
+                 flash_decode: bool = False,
+                 decode_segments: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda"):
-        if kv_dtype != torch.int8:
-            raise NotImplementedError(
-                "only the int8 KV cache (hybrid and mega decode) is ported; "
-                "float caches wait for the per-layer path (ROADMAP.md, "
-                "Queue 1)")
         self.device = resolve_device(device)
-        if not model.transformer.supports_stacked_decode():
-            raise NotImplementedError(
-                "the hybrid and mega paths need a pre-LN RMSNorm trunk")
+        int8_kv = kv_dtype == torch.int8
+        if not (kv_dtype is None or int8_kv or kv_dtype.is_floating_point):
+            raise ValueError(f"kv_dtype {kv_dtype}: None, a float dtype or "
+                             "torch.int8")
+        if flash_decode and not int8_kv:
+            raise ValueError("flash_decode (K6) takes the int8 per-layer "
+                             "cache")
         if quantize_weights:
             model.transformer.quantize_weights_int8()
         self.model = model
         self.kv_dtype = kv_dtype
-        self.use_mega = model.transformer.supports_mega_decode()
+        self.use_mega = int8_kv and model.transformer.supports_mega_decode()
+        self.use_hybrid = (int8_kv and not self.use_mega
+                           and model.transformer.supports_stacked_decode())
         self.mega_max_batch = mega_max_batch
         self.mega_a8 = mega_a8
         if mega_w4 is None:
             env = os.environ.get("VAE_GSLM_MEGA_W4", "0")
             mega_w4 = 0 if env in ("0", "") else 64 if env == "64" else 128
         self.mega_w4 = mega_w4
+        self.flash_decode = flash_decode
+        if decode_segments is None:
+            decode_segments = int(os.environ.get("VAE_GSLM_DECODE_SEGMENTS",
+                                                 "8"))
+        self.decode_segments = decode_segments
+
+    def route(self, batch: int, return_attn: bool = False) -> str:
+        """"mega", "chunked" (mega in chunks), "hybrid" or "per_layer"."""
+        if return_attn or self.kv_dtype != torch.int8:
+            return "per_layer"
+        if self.use_mega:
+            cap = self.mega_max_batch
+            return ("mega" if batch <= cap else "chunked"
+                    if batch <= 2 * cap else "per_layer")
+        return "hybrid" if self.use_hybrid else "per_layer"
+
+    def per_layer_kv_dtype(self, batch: int):
+        """The per-layer caches' dtype: ``kv_dtype``, but float32 for
+        ``kv_dtype`` None where JAX would take its stacked step (B <= 32,
+        a pre-LN RMSNorm trunk), whose float cache is float32."""
+        if (self.kv_dtype is None and batch <= 32
+                and self.model.transformer.supports_stacked_decode()):
+            return torch.float32
+        return self.kv_dtype
 
     def prefill(self, enc: Masked, length: int, stacked: dict, generator,
                 mega: bool = False, **kw):
@@ -138,7 +221,8 @@ class ARTRSampler:
         cache.  Returns (first generated frame, cache, flushed)."""
         model = self.model
         b, tp = enc.value.shape[0], enc.value.shape[1]
-        pre_cache = model.init_cache(b, tp + 1, dtype=torch.int8)
+        pre_cache = model.init_cache(b, tp + 1, dtype=torch.int8,
+                                     stacked=True)
         out, pre_cache = model.step(enc.value, pre_cache, 0, generator,
                                     push_init_state=True, stacked=stacked,
                                     **kw)
@@ -147,6 +231,50 @@ class ARTRSampler:
                    else tr.hybrid_cache_from_prefill)
         cache, flushed = convert(pre_cache, tp + 1, tp + 1 + length)
         return out[:, -1:], cache, flushed
+
+    def prefill_per_layer(self, enc: Masked, length: int, generator, **kw):
+        """The per-layer caches (``max_len`` = prompt + 1 + ``length``,
+        rounded up to a multiple of 256 for K6) prefilled over [initial
+        state, prompt].  Returns (first generated frame, caches)."""
+        b, tp = enc.value.shape[0], enc.value.shape[1]
+        max_len = tp + 1 + length
+        if self.flash_decode:
+            max_len = -(-max_len // 256) * 256
+        caches = self.model.init_cache(b, max_len,
+                                       dtype=self.per_layer_kv_dtype(b))
+        out, caches = self.model.step(enc.value, caches, 0, generator,
+                                      push_init_state=True, **kw)
+        return out[:, -1:], caches
+
+    def per_layer_scan(self, frame: torch.Tensor, caches: list, pos0: int,
+                       length: int, generator, return_attn: bool = False,
+                       **kw):
+        """``length`` per-layer AR steps from position ``pos0`` in the
+        windowed segments (one full-window segment with ``return_attn``;
+        no window on the K6 route).  Returns (frames (B, length, C), the
+        maps (B, L, H, length, max_len) float32 or None)."""
+        max_len = pos0 + length
+        n_seg = 1 if return_attn else n_segments(length,
+                                                 self.decode_segments)
+        frames, rows = [], []
+        pos = pos0
+        for start, end, window in segment_windows(pos0, length, n_seg,
+                                                  max_len):
+            for _ in range(start, end):
+                frames.append(frame[:, 0])
+                res = self.model.step(
+                    frame, caches, pos, generator,
+                    window=None if self.flash_decode else window,
+                    return_attn=return_attn, flash_decode=self.flash_decode,
+                    **kw)
+                frame, caches = res[:2]
+                if return_attn:          # (L, B, H, 1, T) -> (L, B, H, T)
+                    rows.append(res[2][:, :, :, 0].to(torch.bfloat16))
+                pos += 1
+        attn = None
+        if return_attn:
+            attn = torch.stack(rows).permute(2, 1, 3, 0, 4).float()
+        return torch.stack(frames, dim=1), attn
 
     @torch.no_grad()
     def __call__(self, length: int, prior: Masked,
@@ -159,13 +287,11 @@ class ARTRSampler:
                  timings: Optional[dict] = None) -> Dict[str, Masked]:
         """Continue the prompt ``prior`` ([token, mel] frames) by
         ``length`` frames.  Returns ``{"frames": prompt latents +
-        continuation, "output": the diffusion-decoded mel}``.  With a
-        ``timings`` dict, the wall seconds of the stages (encode_prefill,
+        continuation, "output": the diffusion-decoded mel}``, with
+        ``return_attn`` also ``"attn"`` (B, L, H, length, max_len).  With
+        a ``timings`` dict, the wall seconds of the stages (encode_prefill,
         ar_loop, diffusion; summed over chunks) are stored in it, the
         device synchronised at each stage boundary."""
-        if return_attn:
-            raise NotImplementedError(
-                "return_attn runs the per-layer path (ROADMAP.md)")
         if prior.value.device != self.device:
             raise ValueError(f"prior is on {prior.value.device}, the "
                              f"sampler on {self.device}")
@@ -174,14 +300,8 @@ class ARTRSampler:
         kw = dict(temperature=temperature,
                   token_temperature=token_temperature,
                   truncated_norm=truncated_norm)
-        b = prior.value.shape[0]
-        cap = self.mega_max_batch
-        if self.use_mega and b > cap:
-            if b > 2 * cap:
-                raise NotImplementedError(
-                    f"B={b} > 2 x mega_max_batch ({cap}): the JAX package "
-                    "serves it through the per-layer decode path, not "
-                    "ported yet (ROADMAP.md, Queue 1)")
+        route = self.route(prior.value.shape[0], return_attn)
+        if route == "chunked":
             return self._chunked(length, prior, generator, kw,
                                  encoder_temperature, timings)
         model = self.model
@@ -192,36 +312,49 @@ class ARTRSampler:
                else None)
         enc = model.encode(prior, generator,
                            temperature=encoder_temperature)
-        stacked = model.transformer.build_stacked_decode()
-        mega = self.use_mega
-        frame, cache, flushed = self.prefill(enc, length, stacked,
-                                             generator, mega=mega, **kw)
-        clock.lap("encode_prefill")
         pos0 = enc.value.shape[1] + 1
-        if mega:
-            weights = (model.transformer.build_mega_decode_w4(self.mega_w4)
-                       if self.mega_w4
-                       else model.transformer.build_mega_decode())
-
-            def step_fn(frame, cache, pos, flushed):
-                return model.step_mega(frame, weights, cache, pos, flushed,
-                                       generator, a8=self.mega_a8, **kw)
-
-            frames, _ = mega_scan_segments(frame, cache, flushed, pos0,
-                                           length, step_fn)
+        attn = None
+        if route == "per_layer":
+            frame, caches = self.prefill_per_layer(enc, length, generator,
+                                                   **kw)
+            clock.lap("encode_prefill")
+            frames, attn = self.per_layer_scan(frame, caches, pos0, length,
+                                               generator, return_attn, **kw)
         else:
-            def step_fn(frame, cache, pos, flushed):
-                return model.step_hybrid(frame, stacked, cache, pos,
-                                         flushed, generator, **kw)
+            stacked = model.transformer.build_stacked_decode()
+            mega = route == "mega"
+            frame, cache, flushed = self.prefill(enc, length, stacked,
+                                                 generator, mega=mega, **kw)
+            clock.lap("encode_prefill")
+            if mega:
+                weights = (
+                    model.transformer.build_mega_decode_w4(self.mega_w4)
+                    if self.mega_w4
+                    else model.transformer.build_mega_decode())
 
-            frames, _ = hybrid_scan_segments(model, frame, cache, flushed,
-                                             pos0, length, step_fn)
+                def step_fn(frame, cache, pos, flushed):
+                    return model.step_mega(frame, weights, cache, pos,
+                                           flushed, generator,
+                                           a8=self.mega_a8, **kw)
+
+                frames, _ = mega_scan_segments(frame, cache, flushed, pos0,
+                                               length, step_fn)
+            else:
+                def step_fn(frame, cache, pos, flushed):
+                    return model.step_hybrid(frame, stacked, cache, pos,
+                                             flushed, generator, **kw)
+
+                frames, _ = hybrid_scan_segments(model, frame, cache, flushed,
+                                                 pos0, length, step_fn)
         clock.lap("ar_loop")
         full = torch.cat([enc.value, frames.to(enc.value.dtype)], dim=1)
         full_m = Masked.from_lengths(full, enc.lengths + length)
         mel = model.decode(full_m, generator, u_c=u_c)
         clock.lap("diffusion")
-        return {"output": mel, "frames": full_m}
+        out = {"output": mel, "frames": full_m}
+        if return_attn:
+            out["attn"] = attn
+        return out
 
     def _chunked(self, length: int, prior: Masked, generator, kw: dict,
                  encoder_temperature: float,

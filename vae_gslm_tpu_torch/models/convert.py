@@ -10,7 +10,8 @@ takes the reference HiFi-GAN generator's state dict in either
 weight-norm form (``weight_g``/``weight_v`` or
 ``parametrizations.weight.original0/1``) or with weight norm removed,
 and folds it.  ``mega_weights_from_numpy`` carries the int8 K2 weights
-of a JAX ``build_mega_decode()`` dict across as they are.
+of a JAX ``build_mega_decode()`` dict across as they are, and
+``layer_cache_from_numpy`` a JAX per-layer KV cache.
 
 ``to_flat`` / ``load_flat`` map an LVTR or a HiFi-GAN generator to and
 from the JAX package's compact checkpoint contract: a flat dict of
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..nn.attention import LayerKVCache
 from ..nn.conv import Conv1d, ConvTranspose1d, LayerScale
 from ..nn.diffusion import GaussianDiffusion1D
 from ..nn.linear import Dense, Embedding, FiLM, GaussianParameterize, Linear
@@ -122,6 +124,33 @@ def mega_weights_from_numpy(d: Mapping,
             raise TypeError(f"{key}: dtype {v.dtype}, expected {want}")
         out[key] = torch.from_numpy(v).to(device)
     return out
+
+
+def _array_tensor(a, device) -> torch.Tensor:
+    """A contiguous copy of a numpy (or array-like) array, bfloat16
+    included (numpy holds it as ml_dtypes' bfloat16, which torch does not
+    read: its bits go across as int16)."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(a).to(device)
+
+
+def layer_cache_from_numpy(cache, device: Union[str, torch.device] = "cpu"
+                           ) -> LayerKVCache:
+    """The port's per-layer ``LayerKVCache`` from the arrays of a JAX
+    per-layer ``LayerKVCache`` (``k``, ``v`` and, int8, ``k_scale``,
+    ``v_scale``) in the base (B, H, T, D) layout, in the same dtype (int8
+    with float32 scales, or a float dtype), copied."""
+    if cache.k.ndim != 4:
+        raise ValueError(f"k: rank {cache.k.ndim}; the port takes the base "
+                         "(B, H, T, D) layout, not JAX's packed one")
+    scales = ((None, None) if cache.k_scale is None else
+              (_array_tensor(cache.k_scale, device),
+               _array_tensor(cache.v_scale, device)))
+    return LayerKVCache(_array_tensor(cache.k, device),
+                        _array_tensor(cache.v, device), *scales)
 
 
 # ------------------------------------------------- JAX compact contract

@@ -166,12 +166,13 @@ class LVTR(nn.Module):
         u = torch.rand((bsize, 1, nfeat), generator=generator, device=dev)
         return u * 2.0 - 1.0
 
-    def init_cache(self, batch: int, max_len: int, dtype=torch.int8,
-                   stacked: bool = True):
-        if not stacked:
-            raise NotImplementedError(
-                "the per-layer cache is not ported yet (ROADMAP.md)")
-        return self.transformer.init_stacked_cache(batch, max_len, dtype)
+    def init_cache(self, batch: int, max_len: int, dtype=None,
+                   stacked: bool = False):
+        """The stacked cache (``stacked``; the port's is int8 only) or one
+        per-layer cache per layer (``dtype`` None: the compute dtype)."""
+        if stacked:
+            return self.transformer.init_stacked_cache(batch, max_len, dtype)
+        return self.transformer.init_cache(batch, max_len, dtype)
 
     def forward(self, x: Masked, generator: Optional[torch.Generator],
                 c: Optional[Masked] = None,
@@ -349,22 +350,37 @@ class LVTR(nn.Module):
              generator: Optional[torch.Generator],
              temperature: float = 1.0, token_temperature: float = 1.0,
              truncated_norm: Optional[Tuple[float, float]] = None,
-             push_init_state: bool = False, stacked: Optional[dict] = None):
-        """Prefill over the stacked int8 cache: frames xv (B, S, C) at
-        [pos, pos+S); with ``push_init_state`` the initial state is
-        prepended (S' = S + 1).  Returns next frames (B, S', C) and the
-        cache."""
-        if stacked is None:
-            raise NotImplementedError(
-                "the per-layer step is not ported yet (ROADMAP.md)")
+             push_init_state: bool = False, stacked: Optional[dict] = None,
+             window: Optional[int] = None, return_attn: bool = False,
+             flash_decode: bool = False):
+        """Frames xv (B, S, C) at [pos, pos+S) over the stacked int8 cache
+        (``stacked`` weights; the prefill) or the per-layer caches
+        (``stacked`` None: a prefill, or one AR step attending over
+        ``cache[:window]``, through K6 with ``flash_decode``).  With
+        ``push_init_state`` the initial state is prepended (S' = S + 1).
+        Returns next frames (B, S', C) and the cache, with ``return_attn``
+        (per-layer only) also the stacked maps (L, B, H, S', maxT)."""
         fused = self._fuse_frames(xv)
         if push_init_state:
             init = self.initial_state(generator, xv.shape[0])
             fused = torch.cat([init.to(fused.dtype), fused], dim=1)
-        h, cache = self.transformer.decode_stacked(fused, stacked, cache,
-                                                   pos)
-        return self._sample_next(h, generator, temperature,
-                                 token_temperature, truncated_norm), cache
+        attn = None
+        if stacked is not None:
+            if return_attn:
+                raise NotImplementedError(
+                    "return_attn runs the per-layer step (stacked=None)")
+            h, cache = self.transformer.decode_stacked(fused, stacked, cache,
+                                                       pos)
+        else:
+            res = self.transformer.decode(fused, cache, pos, window=window,
+                                          return_attn=return_attn,
+                                          flash=flash_decode)
+            h, cache = res[:2]
+            if return_attn:
+                attn = res[2]
+        out = self._sample_next(h, generator, temperature, token_temperature,
+                                truncated_norm)
+        return (out, cache, attn) if return_attn else (out, cache)
 
     @torch.no_grad()
     def step_hybrid(self, xv: torch.Tensor, stacked: dict, cache: dict,

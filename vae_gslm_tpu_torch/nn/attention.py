@@ -1,11 +1,13 @@
-"""Self-attention (port of ``vae_gslm_tpu/nn/attention.py``): the int8
-cache of the stacked decode paths, the dense attention core, and the
-``SelfAttention`` module's full-sequence (training) call.
+"""Self-attention (port of ``vae_gslm_tpu/nn/attention.py``): the KV
+caches, the dense attention core, the ``SelfAttention`` module's
+full-sequence (training) call and its per-layer decode step.
 
 The stacked prefill and the hybrid and mega steps in
 ``nn/transformer.py`` read ``SelfAttention``'s projection weights
-directly; its per-layer decode step and ``CrossAttention`` wait for a
-later slice (ROADMAP.md).
+directly; ``SelfAttention.decode_step`` is the per-layer path's
+attention (``decode_attention``, or K6 ``flash_decode_int8`` on request).
+``CrossAttention`` waits for a later slice (ROADMAP.md).  The caches are
+updated in place (the JAX functions return new arrays).
 """
 from __future__ import annotations
 
@@ -19,7 +21,9 @@ from torch import nn
 from ..core.masked import Masked
 from ..core.precision import get_policy
 from ..hparams.hp import Hparams
+from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import flash_attention_bhtd, flash_attention_packed
+from ..ops.flash_decode import flash_decode_int8
 from ..parallel import tp
 from .linear import Dense
 from .positions import ALiBi
@@ -38,17 +42,63 @@ def quantize_i8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 @dataclasses.dataclass
 class LayerKVCache:
-    """Stacked KV cache ``(L, B, H, maxT, D)``; the int8 form keeps
-    float32 per-row scales ``(L, B, H, maxT)``."""
+    """KV cache.  The stacked decode paths hold one for the whole stack,
+    ``(L, B, H, maxT, D)``; the per-layer path one per layer in JAX's base
+    layout, ``(B, H, maxT, D)`` (JAX's lane-packed ``(maxT, D, B*H)``
+    layout, which fills a TPU's 128 lanes, is not ported).  The int8
+    form keeps float32 per-row scales, ``(L, B, H, maxT)`` or ``(B, H,
+    maxT)``; a float cache holds the rows in its dtype."""
 
     k: torch.Tensor
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
 
+    @classmethod
+    def zeros(cls, batch: int, max_len: int, nheads: int, head_dim: int,
+              dtype=torch.float32, device=None) -> "LayerKVCache":
+        """A per-layer cache of zeros (JAX's ``LayerKVCache.zeros``)."""
+        shape = (batch, nheads, max_len, head_dim)
+        if dtype != torch.int8:
+            return cls(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+        sshape = shape[:-1]
+        return cls(torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.zeros(sshape, device=device),
+                   torch.zeros(sshape, device=device))
+
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+    def write(self, pos: int, k: torch.Tensor, v: torch.Tensor
+              ) -> "LayerKVCache":
+        """Write new keys/values (B, S, H, D) at positions [pos, pos+S) of
+        a per-layer cache, in place (int8 through ``quantize_i8``)."""
+        s = k.shape[1]
+        for dst, sdst, new in ((self.k, self.k_scale, k),
+                               (self.v, self.v_scale, v)):
+            new = new.transpose(1, 2)                       # (B, H, S, D)
+            sc = None
+            if self.quantized:
+                new, sc = quantize_i8(new)
+                sdst[:, :, pos:pos + s] = sc
+            dst[:, :, pos:pos + s] = new
+        return self
+
+    def dense_kv(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T, H, D) views for the prefill: the int8 rows dequantized to
+        bfloat16, as JAX's ``dense_kv``."""
+        k, v = self.k, self.v
+        if self.quantized:
+            k = (k.float() * self.k_scale[..., None]).to(torch.bfloat16)
+            v = (v.float() * self.v_scale[..., None]).to(torch.bfloat16)
+        return k.transpose(1, 2), v.transpose(1, 2)
 
 
 def split_heads(x: torch.Tensor, nheads: int) -> torch.Tensor:
@@ -62,14 +112,16 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           bias: Optional[torch.Tensor], mask: torch.Tensor
-           ) -> torch.Tensor:
+           bias: Optional[torch.Tensor], mask: torch.Tensor,
+           return_attn: bool = False):
     """Masked multi-head attention core, float32 softmax.
 
     q: (B, Tq, H, D); k, v: (B, Tk, H, D); bias (H, Tq, Tk) or None;
     mask (B, 1, Tq, Tk) bool.  Inputs are rounded to the compute dtype
     and multiplied in float32, which is what the JAX package's
-    ``preferred_element_type=float32`` products compute."""
+    ``preferred_element_type=float32`` products compute.  Returns the
+    output (B, Tq, H, D), with ``return_attn`` also the float32 weights
+    (B, H, Tq, Tk)."""
     dt = get_policy().compute_dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(dt).float(),
@@ -80,8 +132,8 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                                     device=logits.device))
     weights = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", weights.to(dt).float(),
-                       v.to(dt).float())
-    return out.to(dt)
+                       v.to(dt).float()).to(dt)
+    return (out, weights) if return_attn else out
 
 
 class SelfAttention(nn.Module):
@@ -143,3 +195,68 @@ class SelfAttention(nn.Module):
                                      split_heads(v, self.nheads), bias,
                                      mask))
         return Masked(self.out_proj(out), x.lengths, 1).apply_mask()
+
+    # -- per-layer static-cache decode -------------------------------------
+    def init_cache(self, batch: int, max_len: int,
+                   dtype=None) -> LayerKVCache:
+        """This layer's cache; ``dtype`` None is the policy's compute
+        dtype, as in JAX."""
+        return LayerKVCache.zeros(batch, max_len, self.nheads, self.head_dim,
+                                  dtype or get_policy().compute_dtype,
+                                  device=self.in_proj.weight.device)
+
+    @torch.no_grad()
+    def decode_step(self, xv: torch.Tensor, cache: LayerKVCache, pos: int,
+                    rpe: Optional[ALiBi] = None,
+                    window: Optional[int] = None,
+                    return_attn: bool = False, flash: bool = False):
+        """New frames xv (B, S, C) at absolute positions [pos, pos+S) over
+        the per-layer cache (written in place first).  S == 1 goes through
+        ``decode_attention`` (attending over ``cache[:window]``), or with
+        ``flash`` through K6 ``flash_decode_int8`` (an int8 cache whose
+        length is a multiple of 256; no window, no weights); S > 1 is the
+        dense prefill over the whole cache through ``attend``.  Returns
+        ``(out (B, S, C), cache)``, with ``return_attn`` also the float32
+        weights (B, H, S, maxT)."""
+        s = xv.shape[1]
+        q, k, v = self.in_proj(xv).chunk(3, dim=-1)
+        qh = split_heads(q, self.nheads)
+        cache.write(pos, split_heads(k, self.nheads),
+                    split_heads(v, self.nheads))
+        slopes = rpe.slopes if rpe is not None else None
+        if s == 1:
+            w = None
+            if flash:
+                if return_attn or not cache.quantized:
+                    raise ValueError(
+                        "flash_decode_int8 takes an int8 cache and "
+                        "returns no weights")
+                if slopes is None:
+                    slopes = torch.zeros(self.nheads, device=xv.device)
+                out = flash_decode_int8(
+                    qh[:, 0], cache.k, cache.v, cache.k_scale, cache.v_scale,
+                    pos, slopes).to(qh.dtype)
+            else:
+                out = decode_attention(
+                    qh[:, 0], cache.k, cache.v, pos, slopes, window=window,
+                    k_scale=cache.k_scale, v_scale=cache.v_scale,
+                    return_weights=return_attn)
+                if return_attn:
+                    out, w = out
+            out = self.out_proj(out.reshape(out.shape[0], 1, self.dim))
+            if return_attn:
+                return out, cache, w[:, :, None]             # (B, H, 1, T)
+            return out, cache
+        max_len = cache.max_len
+        dev = xv.device
+        k_pos = torch.arange(max_len, device=dev)
+        q_pos = pos + torch.arange(s, device=dev)
+        mask = (k_pos[None, :] <= q_pos[:, None])[None, None].expand(
+            xv.shape[0], 1, s, max_len)
+        bias = rpe.bias(q_pos, k_pos) if rpe is not None else None
+        kc, vc = cache.dense_kv()                           # (B, T, H, D)
+        out, attn = attend(qh, kc, vc, bias, mask, return_attn=True)
+        out = self.out_proj(merge_heads(out))
+        if return_attn:
+            return out, cache, attn                          # (B, H, S, T)
+        return out, cache

@@ -25,15 +25,20 @@ Serving:
     three-tier cold/tail/stage layout of ``ops/mega_step.py`` and
     ``decode_mega`` runs one token through the whole trunk as one K2
     call plus the stage append.
+  * the per-layer path: ``init_cache`` gives one ``LayerKVCache`` per
+    layer (int8 or float) and ``decode`` runs
+    frames through ``TransformerLayer.decode`` layer by layer (pre-LN or
+    post-LN): a prefill (S > 1) or one token through
+    ``SelfAttention.decode_step``, optionally returning the stacked
+    attention maps.
 The cache tensors are updated in place (the JAX functions return new
-arrays).  The per-layer and packed decode paths, K2's w4 variant,
-cross-attention and T5/Rotary positions wait for later slices
+arrays).  Cross-attention and T5/Rotary positions wait for later slices
 (ROADMAP.md).
 """
 from __future__ import annotations
 
 from operator import attrgetter
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -103,6 +108,9 @@ class TransformerLayer(nn.Module):
         self.norm3 = get_norm(hp.dim, hp.norm)
         self.activation = get_activation(hp.activation)
 
+    def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        return self.linear2(self.activation(self.linear1(x)))
+
     def forward(self, tgt: Masked, rpe: Optional[ALiBi] = None) -> Masked:
         """Pre-LN (default) or post-LN: self-attention, then the FFN."""
         lengths = tgt.lengths
@@ -114,10 +122,31 @@ class TransformerLayer(nn.Module):
         if not self.preln:
             x = self.norm1(x)
         n_x = self.norm3(x) if self.preln else x
-        x = x + self.linear2(self.activation(self.linear1(n_x)))
+        x = x + self._ffn(n_x)
         if not self.preln:
             x = self.norm3(x)
         return Masked(x, lengths, 1).apply_mask()
+
+    def decode(self, xv: torch.Tensor, cache: LayerKVCache, pos: int,
+               rpe: Optional[ALiBi] = None, window: Optional[int] = None,
+               return_attn: bool = False, flash: bool = False):
+        """Pre-LN or post-LN step of frames xv (B, S, C) at [pos, pos+S)
+        over this layer's cache (no masking: decode positions are all
+        valid).  Returns ``(x, cache)``, with ``return_attn`` also the
+        self-attention weights (B, H, S, maxT)."""
+        n_x = self.norm1(xv) if self.preln else xv
+        res = self.self_attn.decode_step(n_x, cache, pos, rpe=rpe,
+                                         window=window,
+                                         return_attn=return_attn,
+                                         flash=flash)
+        h = res[0]
+        if self.preln:
+            x = xv + h
+            x = x + self._ffn(self.norm3(x))
+        else:
+            x = self.norm1(xv + h)
+            x = self.norm3(x + self._ffn(x))
+        return (x,) + tuple(res[1:])
 
 
 class TransformerLayerStack(nn.Module):
@@ -272,6 +301,36 @@ class TransformerLayerStack(nn.Module):
             return self.rpe.slopes
         return torch.zeros(self.layers[0].self_attn.nheads, device=device)
 
+    # -- per-layer static-cache decode ------------------------------------
+    def init_cache(self, batch: int, max_len: int,
+                   dtype=None) -> List[LayerKVCache]:
+        """One cache per layer (``dtype`` None: the compute dtype)."""
+        return [la.self_attn.init_cache(batch, max_len, dtype)
+                for la in self.layers]
+
+    @torch.no_grad()
+    def decode(self, xv: torch.Tensor, caches: List[LayerKVCache], pos: int,
+               window: Optional[int] = None, return_attn: bool = False,
+               flash: bool = False):
+        """Frames xv (B, S, C) at [pos, pos+S) through every layer's
+        ``decode`` over its cache: a prefill (S > 1) or one AR step
+        (``window`` and ``flash`` as in ``SelfAttention.decode_step``).
+        Returns the final hidden (B, S, C) and the caches, with
+        ``return_attn`` also the per-layer weights stacked, (L, B, H, S,
+        maxT)."""
+        xv = self._project_in(xv)
+        attns = []
+        for layer, cache in zip(self.layers, caches):
+            res = layer.decode(xv, cache, pos, rpe=self.rpe, window=window,
+                               return_attn=return_attn, flash=flash)
+            xv = res[0]
+            if return_attn:
+                attns.append(res[2])
+        xv = self._project_out(xv)
+        if return_attn:
+            return xv, caches, torch.stack(attns)
+        return xv, caches
+
     # -- stacked int8 cache and prefill ----------------------------------
     def init_stacked_cache(self, batch: int, max_len: int,
                            dtype=torch.int8) -> LayerKVCache:
@@ -298,8 +357,9 @@ class TransformerLayerStack(nn.Module):
         b, s, _ = xv.shape
         if s == 1:
             raise NotImplementedError(
-                "single-token stacked steps run through decode_hybrid; "
-                "the per-layer step waits for a later slice (ROADMAP.md)")
+                "single-token steps run through decode_hybrid, decode_mega "
+                "or the per-layer decode; JAX's stacked single-token step "
+                "is not ported (ROADMAP.md, Queue 1)")
         nheads = self.layers[0].self_attn.nheads
         win = cache.k.shape[-2]
         dev = xv.device

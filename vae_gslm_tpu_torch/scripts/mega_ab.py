@@ -39,7 +39,7 @@ POS, FLUSHED, NB = 351, 256, 6
 CALLS, WINDOWS = 20, 5
 
 
-def _inputs(b: int, dev, mega):
+def mega_inputs(b: int, dev, mega):
     """Int8 weights, a three-tier cache and x from seed 0 on ``dev``."""
     import torch
 
@@ -155,7 +155,7 @@ def time_root(root: str) -> dict:
     if pack_mega_w4 is not None:
         cases += [("K2-w4 B8", 8, False, 128), ("K2-w4 B32", 32, False, 128)]
     for name, b, a8, group in cases:
-        x, w, cache, slopes = _inputs(b, dev, mega)
+        x, w, cache, slopes = mega_inputs(b, dev, mega)
         if group:
             w = pack_mega_w4(w, group, DH)
 

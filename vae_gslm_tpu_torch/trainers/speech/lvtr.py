@@ -332,8 +332,9 @@ class LVTRTrainer(BaseTrainer):
         hpl = self.hp.logging
         if hpl.plot_attn:
             raise NotImplementedError(
-                "plot_attn needs the sampler's attention maps, which the "
-                "per-layer decode path gives (ROADMAP.md, Queue 1 item 4)")
+                "plot_attn draws the sampler's attention maps with JAX's "
+                "inference/plots.py, which needs matplotlib; that module is "
+                "not ported (ROADMAP.md, Queue 1 item 2)")
         num = min(hpl.num_samples, batch["mel"].value.shape[0])
         if num == 0:
             return
@@ -370,7 +371,8 @@ class LVTRTrainer(BaseTrainer):
                          * self.model.sample_ratio)
             prior = Masked(model_input.value[:, :prior_len],
                            model_input.lengths.clamp(max=prior_len), 1)
-            samples = ARTRSampler(self.model, device=dev)(
+            # a float KV cache, as JAX's trainer samples (kv_dtype None)
+            samples = ARTRSampler(self.model, kv_dtype=None, device=dev)(
                 length, prior, g, temperature=hpl.temperature)
             sampled_audio = vocoder.decode(samples["output"])
         sr = self.hp.data.train.sample_rate
