@@ -36,10 +36,13 @@ Phases (any failure ends the run with a non-zero exit, no result):
      shapes (B 8, T 640, 16 heads of 64, q/k/v views of one projection,
      lengths down to 1), float32 and bfloat16, with ALiBi and without,
      the bf16 outputs also element by element (2 ulps + a share of the
-     rms) and in relative L2; K3 float32 at the scoring path's call (B
-     64, the short batch's padded length and lengths) and its time
-     beside the bound; K3/K3b's bf16 times beside the plain versions',
-     SDPA's with a float mask (forward, forward+backward) and the bound;
+     rms) and in relative L2, and in bf16 at T 1000 and 1024 (the wgmma
+     forward's largest resident K); K3 float32 at the scoring path's
+     call (B 64, the short batch's padded length and lengths) and its
+     time beside SDPA's (float32, float mask) and the bound; K3/K3b's
+     bf16 times beside the plain versions', SDPA's with a float mask
+     (K3: forward, and the kernel's ratio to it; K3b: backward alone,
+     and forward+backward) and the bound;
   5b. K5 (the q-tiled forward) at B 8, 16 heads of 64, T 1750, lengths
      down to 0 and 1, and Tq 96 x Tk 256 non-causal, and K4 (the (B, H,
      T, D) full forward with lse) at B 8, T 640 with 15 heads (no packed
@@ -58,9 +61,11 @@ Phases (any failure ends the run with a non-zero exit, no result):
      element by element 2 bf16 ulps + 2e-2 rms(ref), relative L2 1e-3:
      dk and dv sum every query row's share in float32 in another order
      than the plain einsum, and a ds one ulp apart rounds to another
-     bf16 value); their bf16 times (K4 and K4b at the training call)
-     beside the plain versions', SDPA's with a float mask (forward for
-     K4, forward+backward for K4b/K5b) and the bound;
+     bf16 value); K4 bf16 also at T 200, 1000 and 1024, with and
+     without lse; their bf16 times (K4
+     and K4b at the training call) beside the plain versions', SDPA's
+     with a float mask (forward for K4, with the ratio; backward alone
+     and forward+backward for K4b/K5b) and the bound;
   5d. K6 (single-query decode attention over an int8 per-layer cache,
      reading only the blocks up to ``pos``) against its plain version at
      the per-layer path's calls: B 128, 16 heads of 64, T 768 (the
@@ -670,6 +675,8 @@ def phase_k2_w4(dev):
 K3_B, K3_T = 8, 640               # the training micro-batch
 K3_KERNELS = ("k3_fwd", "k3b_dkv", "k3b_dq")   # kernel name prefixes
 K3_LENGTHS = [640, 320, 300, 640, 1, 639, 512, 64]
+# bf16 K3/K4 checks at the largest resident key sets (16 tiles at 1024)
+K3_LONG = ((4, 1000, 4, [1000, 0, 1, 611]), (4, 1024, 4, [1024, 1, 0, 700]))
 
 
 def k3_inputs(dtype, dev, seed: int = 0, b: int = K3_B, t: int = K3_T,
@@ -729,6 +736,21 @@ def sdpa_mask(lengths, slopes, dtype, dev, tq: int = K3_T, tk: int = K3_T,
     return torch.where(valid, bias[None], float("-inf")).to(dtype)
 
 
+def sdpa_bwd_ms(q, k, v, do, mask) -> float:
+    """Device ms of SDPA's backward alone (float mask): one
+    ``torch.autograd.grad`` call on a retained forward graph, the
+    library call that computes a backward kernel's function."""
+    import torch
+    import torch.nn.functional as F
+
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    ms = device_ms(lambda i: torch.autograd.grad(out, (q, k, v), do,
+                                                 retain_graph=True), n=10)
+    del out
+    return ms
+
+
 def ulp_bf16(x):
     """One bfloat16 unit in the last place of each |x| (0 where x is 0)."""
     import torch
@@ -783,11 +805,14 @@ def in_chunks(fn, b: int, step: int):
 def phase_k3(dev):
     """K3 (o, lse) and K3b (dq, dk, dv) against their plain versions at
     the training shapes (B 8, T 640, 16 heads of 64) and at T 200 (a
-    partial last tile), float32 and bfloat16, with ALiBi and without;
-    K3 float32 at the scoring path's shape (B 64, the short batch's
-    padded length and lengths) and its time there beside the bound; then
-    K3/K3b's bf16 times beside the plain versions', SDPA's and the
-    bound.  Every output is held by ``hold`` at tol x max|ref| (tol 1e-5
+    partial last tile), float32 and bfloat16, and in bfloat16 at T 1000
+    and 1024 (lengths 0 and 1 among them: the bf16 forward's largest
+    resident key sets), with ALiBi and without; K3 float32 at the
+    scoring path's shape (B 64, the short batch's padded length and
+    lengths) and its time there beside SDPA's (float32, float mask) and
+    the bound; then K3/K3b's bf16 times beside the plain versions',
+    SDPA's (K3: its forward and the ratio; K3b: its backward alone, and
+    forward+backward) and the bound.  Every output is held by ``hold`` at tol x max|ref| (tol 1e-5
     on f32 o and lse, 1e-4 on f32 gradients, bf16: 1e-2 on o, 1e-5 on
     lse, 2e-2 on gradients), a bf16 o, dq, dk or dv also element by
     element and in relative L2."""
@@ -800,8 +825,10 @@ def phase_k3(dev):
 
     worst_f, worst_b = 0.0, 0.0
     shapes = ((K3_B, K3_T, H, K3_LENGTHS), (4, 200, 2, [200, 77, 1, 130]))
-    for (b, t, h, lengths), dtype in itertools.product(
-            shapes, (torch.float32, torch.bfloat16)):
+    cases = list(itertools.product(shapes, (torch.float32, torch.bfloat16)))
+    # the bf16 forward's largest resident K: T 1000 and 1024
+    cases += [(shape, torch.bfloat16) for shape in K3_LONG]
+    for (b, t, h, lengths), dtype in cases:
         bf16 = dtype == torch.bfloat16
         q, k, v, do, lengths, slopes = k3_inputs(dtype, dev, 0, b, t, h,
                                                  lengths)
@@ -855,14 +882,25 @@ def phase_k3(dev):
                    only=K3_KERNELS[:1], per_call=1)
     cs = cuda_ms(lambda i: k3(q, k, v, lengths, slopes, True, H), n=10)
     ps = device_ms(plain_s, n=2)
+    mask = sdpa_mask(lengths, slopes, torch.float32, dev, ts, ts)
+    q4, k4, v4 = (x.view(SCORE_BATCH, ts, H, D).transpose(1, 2)
+                  for x in (q, k, v))
+
+    def sdpa_s(i):
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+    ls = device_ms(sdpa_s, n=3)
+    del mask
     (sb, so), _ = k3_bytes_ops(4, SCORE_BATCH, ts, lens)
     bound_s = max(sb / HBM_BYTES_PER_S, so / F32_FLOPS) * 1e3
     by_s = "bytes" if sb / HBM_BYTES_PER_S > so / F32_FLOPS else "operations"
     log(f"K3 time B={SCORE_BATCH} T={ts} float32 (the scoring path's call): "
         f"kernel {ks:.4f} ms, {cs:.4f} ms per call with the wrapper, plain "
-        f"{ps:.4f} ms (16-row chunks), bound {bound_s:.4f} ms ({by_s}; "
-        f"{sb / 1e6:.1f} MB, {so / 1e9:.2f} GFLOP at the float32 FMA rate)")
-    del q, k, v
+        f"{ps:.4f} ms (16-row chunks), SDPA (float32, float mask) forward "
+        f"{ls:.4f} ms, bound {bound_s:.4f} ms ({by_s}; {sb / 1e6:.1f} MB, "
+        f"{so / 1e9:.2f} GFLOP at the float32 FMA rate)")
+    del q, k, v, q4, k4, v4
 
     # Times at the training path's type (bf16, ALiBi).
     q, k, v, do, lengths, slopes = k3_inputs(torch.bfloat16, dev, seed=1)
@@ -895,6 +933,7 @@ def phase_k3(dev):
 
     lf = device_ms(sdpa_fwd, n=20)
     lfb = device_ms(sdpa_fwd_bwd, n=10)
+    lb = sdpa_bwd_ms(q4, k4, v4, do4, mask)
     (fb, fo), (bb, bo) = k3_bytes_ops(2)
     bound_f = max(fb / HBM_BYTES_PER_S, fo / BF16_FLOPS) * 1e3
     bound_b = max(bb / HBM_BYTES_PER_S, bo / BF16_FLOPS) * 1e3
@@ -902,13 +941,14 @@ def phase_k3(dev):
     by_b = "bytes" if bb / HBM_BYTES_PER_S > bo / BF16_FLOPS else "operations"
     log(f"K3 time B={K3_B} T={K3_T} bf16: kernel {kf:.4f} ms, {cf:.4f} ms "
         f"per call with the wrapper, plain {pf:.4f} ms, SDPA (float mask) "
-        f"forward {lf:.4f} ms, bound {bound_f:.4f} ms ({by_f}; "
-        f"{fb / 1e6:.1f} MB, {fo / 1e9:.2f} GFLOP)")
+        f"forward {lf:.4f} ms (kernel / SDPA {kf / lf:.3f}), bound "
+        f"{bound_f:.4f} ms ({by_f}; {fb / 1e6:.1f} MB, {fo / 1e9:.2f} "
+        f"GFLOP)")
     log(f"K3b time B={K3_B} T={K3_T} bf16: kernels {kb:.4f} ms, {cb:.4f} ms "
         f"per call with the wrapper (delta included), plain {pb:.4f} ms, "
-        f"SDPA forward+backward {lfb:.4f} ms, bound of the kernels "
-        f"{bound_b:.4f} ms ({by_b}; {bb / 1e6:.1f} MB, {bo / 1e9:.2f} "
-        f"GFLOP)")
+        f"SDPA (float mask) backward alone {lb:.4f} ms, forward+backward "
+        f"{lfb:.4f} ms, bound of the kernels {bound_b:.4f} ms ({by_b}; "
+        f"{bb / 1e6:.1f} MB, {bo / 1e9:.2f} GFLOP)")
     return (
         {"name": "flash_forward_packed", "route": "cuda",
          "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
@@ -919,7 +959,7 @@ def phase_k3(dev):
          "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
          "replaces": "vae_gslm_tpu/ops/flash_attention.py:359",
          "launches": None, "max_abs_err": worst_b, "ms": kb, "plain_ms": pb,
-         "bound_ms": bound_b, "bound_by": by_b, "library_ms": lfb})
+         "bound_ms": bound_b, "bound_by": by_b, "library_ms": lb})
 
 
 # --------------------------------------------------------------- K4/K5
@@ -2362,8 +2402,10 @@ def phase_k45b(dev, k4_worst: float):
     (the 16-mixed path's type), K4 and K4b at the training call, K5b at
     the long-segment one: kernels (profiler, every launch of the window
     counted), per call with the wrapper (CUDA events; K4b/K5b's delta
-    included), plain, SDPA with a float mask (forward for K4,
-    forward+backward for K4b/K5b), and the bound.  Returns the K4, K4b
+    included), plain, SDPA with a float mask (forward for K4, with the
+    ratio; for K4b/K5b its backward alone, the library time, and
+    forward+backward), and the bound.  K4 bf16 is also held at T 200,
+    1000 and 1024 (lengths 0 and 1 among them), with lse and without.  Returns the K4, K4b
     and K5b entries (K4's error also covers phase_k45's odd-head case,
     ``k4_worst``)."""
     import torch
@@ -2425,6 +2467,30 @@ def phase_k45b(dev, k4_worst: float):
         log(f"{name} check {where}: max_abs_err " + ", ".join(errs))
         del got, want
 
+    # the bf16 K4 forward at a partial last tile and at its largest
+    # resident key sets, with lse and without (the scoring route's call)
+    for b, t, h, lens in ((4, 200, 2, [200, 77, 1, 0]),) + K3_LONG:
+        q, k, v = bhtd_inputs(torch.bfloat16, dev, b, t, t, h, seed=t + 3)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        sl = -torch.tensor(alibi_slopes(h), device=dev)
+        o, lse = fa.flash_forward_full(q, k, v, lengths, sl, True,
+                                       with_stats=True)
+        o_only = fa.flash_forward_full(q, k, v, lengths, sl, True)
+        o_ref, lse_ref = fa.flash_forward_full_plain(q, k, v, lengths, sl,
+                                                     True, with_stats=True)
+        torch.cuda.synchronize()
+        where = f"K4 B={b} T={t} H={h} bfloat16 causal=True alibi=True"
+        errs = []
+        for n, g_, r_ in (("o", o, o_ref), ("lse", lse, lse_ref),
+                          ("o without lse", o_only, o_ref)):
+            err, text = hold(where, n, g_, r_, 1e-5 if n == "lse" else 1e-2,
+                             1.0 if n == "lse" else 0.0, True)
+            errs.append(text)
+            if n != "lse":
+                worst["K4"] = max(worst["K4"], err)
+        log(f"K4 check {where}: max_abs_err " + ", ".join(errs))
+        del q, k, v, o, lse, o_only, o_ref, lse_ref
+
     def entry(name, fn_name, line, ms, plain_ms, bound, by, lib):
         return {"name": fn_name, "route": "cuda",
                 "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
@@ -2469,8 +2535,9 @@ def phase_k45b(dev, k4_worst: float):
             log(f"K4 time B={b} T={t} H={H} bf16 with lse (the training "
                 f"call): kernel {kf:.4f} ms, {cf:.4f} ms per call with the "
                 f"wrapper, plain {pf:.4f} ms, SDPA (float mask) forward "
-                f"{lf:.4f} ms, bound {bound:.4f} ms ({by}; "
-                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+                f"{lf:.4f} ms (kernel / SDPA {kf / lf:.3f}), bound "
+                f"{bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+                f"{flops / 1e9:.2f} GFLOP)")
             out["K4"] = entry("K4", "flash_forward_full", 406, kf, pf, bound,
                               by, lf)
             o, lse = fwd(0)
@@ -2504,19 +2571,21 @@ def phase_k45b(dev, k4_worst: float):
                                            attn_mask=mask).backward(do)
 
         lt = device_ms(sdpa_fwd_bwd, n=10)
+        lb = sdpa_bwd_ms(q, k, v, do, mask)
         del mask
         nbytes, flops = bwd_bytes_ops(b, t, t, H, lens, True, 2,
                                       2 if name == "K4b" else 1)
         bound, by = bound_of(nbytes, flops)
         log(f"{name} time B={b} T={t} H={H} bf16: kernels {kt:.4f} ms, "
             f"{ct:.4f} ms per call with the wrapper (delta included), plain "
-            f"{pt:.4f} ms, SDPA (float mask) forward+backward {lt:.4f} ms, "
-            f"bound of the kernels {bound:.4f} ms ({by}; "
-            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            f"{pt:.4f} ms, SDPA (float mask) backward alone {lb:.4f} ms, "
+            f"forward+backward {lt:.4f} ms, bound of the kernels "
+            f"{bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
         out[name] = entry(name, "flash_backward_full" if name == "K4b"
                           else "flash_backward_blockwise",
                           735 if name == "K4b" else 682, kt, pt, bound, by,
-                          lt)
+                          lb)
         del q, k, v, do, o
     return out["K4"], out["K4b"], out["K5b"]
 

@@ -10,9 +10,11 @@ projection, as the model hands them over.  Tolerances: float32 forward
 inputs within one bfloat16 ulp of the output; the log-sum-exp to 1e-5;
 the backward rtol 1e-4 / atol 1e-5 (the port's K3b formula from the
 saved O and LSE, or autograd of the port's dense reference, against
-``jax.vjp`` of JAX's: the same math in another order).  The ``cuda``
-cases hold the kernels against the plain versions on a card and skip
-without one."""
+``jax.vjp`` of JAX's: the same math in another order).  The bf16 K3/K4
+forward's shared-memory plan is held on the CPU against the key tiles a
+launch can walk and the H100's per-block limit.  The ``cuda`` cases hold
+the kernels against the plain versions on a card and skip without
+one."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,10 +28,11 @@ from vae_gslm_tpu.ops.flash_attention import (
     flash_attention_packed as jax_flash_packed)
 from vae_gslm_tpu_torch.nn.positions import alibi_slopes
 from vae_gslm_tpu_torch.ops.flash_attention import (
-    FlashAttentionPacked, flash_attention_packed, flash_backward_packed,
+    MAX_T, TILE, FlashAttentionPacked, _plan_args,
+    flash_attention_packed, flash_backward_packed,
     flash_backward_packed_plain, flash_forward_full, flash_forward_full_plain,
     flash_forward_packed, flash_forward_packed_plain, flash_forward_tiled,
-    flash_forward_tiled_plain, packed_eligible)
+    flash_forward_tiled_plain, fwd_smem_plan, packed_eligible)
 
 LENGTHS = [37, 20, 1]
 SHAPES = {"d16": (3, 37, 4, 16), "d64": (3, 37, 2, 64)}
@@ -308,6 +311,61 @@ def test_off_envelope_packed_matches_jax_vjp(case, alibi):
             flash_forward_tiled.launches) == before
 
 
+def _key_tiles(qt, length, tk, causal):
+    """The kernels' ``key_tiles`` (``csrc/flash_attention.cu``): the key
+    tiles [0, n) that query tile ``qt`` walks."""
+    end = -(-tk // TILE)
+    if length >= 1:
+        end = min(end, -(-length // TILE))
+        if causal:
+            end = min(end, qt + 1)
+    return end
+
+
+def _tiles_walked(qt, length, t, causal):
+    """The key tiles query tile ``qt`` needs, from the masks themselves:
+    up to the last key that one of its rows sees (every key for a row of
+    length 0, which is uniform over all T)."""
+    last_row = min(qt * TILE + TILE, t) - 1
+    if length < 1:
+        last_key = t - 1
+    else:
+        last_key = min(length, t) - 1
+        if causal:
+            last_key = min(last_key, last_row)
+    return last_key // TILE + 1
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_fwd_smem_plan_holds_every_launch(causal):
+    """For every T from 1 to 1024 the bf16 K3/K4 plan fits the 232,448
+    bytes a block may use on an H100, and its resident key tiles are the
+    most that ``key_tiles`` gives any query tile of a causal or
+    non-causal launch, which is what the masks need."""
+    tile_bytes = TILE * 64 * 2
+    for t in range(1, MAX_T + 1):
+        plan = fwd_smem_plan(t)
+        assert plan.bytes <= 232448 and plan.stages >= 2
+        assert plan.bytes >= (1 + plan.tiles + plan.stages) * tile_bytes
+        most = 0
+        for qt in range(-(-t // TILE)):
+            for length in {0, 1, TILE - 1, TILE, TILE + 1, t // 2, t - 1, t}:
+                n = _key_tiles(qt, length, t, causal)
+                assert n == _tiles_walked(qt, length, t, causal), (t, qt,
+                                                                   length)
+                most = max(most, n)
+        assert plan.tiles == most, t
+
+
+def test_plan_args_only_for_bf16():
+    """The launcher gets the plan for bfloat16 and zeros for float32."""
+    q = torch.zeros(1, 640, 128)
+    assert _plan_args(q, 640) == (0, 0, 0)
+    plan = fwd_smem_plan(640)
+    assert _plan_args(q.to(torch.bfloat16), 640) == (
+        plan.bytes, plan.tiles, plan.stages)
+
+
 def test_packed_eligible_matches_jax():
     from vae_gslm_tpu.ops.flash_attention import _packed_eligible
 
@@ -455,3 +513,66 @@ def test_cuda_packed_past_1024_launches_k5(cuda_device):
     assert flash_forward_tiled.launches == before + 1
     torch.testing.assert_close(runs[1][0], runs[0][0], rtol=0, atol=1e-5)
     torch.testing.assert_close(runs[1][1], runs[0][1], rtol=1e-4, atol=1e-5)
+
+
+WGMMA_T = [200, 640, 1000, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", WGMMA_T)
+@pytest.mark.parametrize("alibi", [True, False])
+def test_cuda_k3_bf16_forward_matches_plain(cuda_device, t, alibi):
+    """The bf16 K3 forward (wgmma, TMA, resident K) at T 200 (a partial
+    last tile), 640 (the training call's), 1000 and 1024 (the largest
+    resident K), lengths 0 and 1 among them, against its plain version at
+    chip_smoke.py's bf16 tolerances: o 1e-2 max|ref| and element by
+    element 2 ulps + 1e-2 rms(ref), relative L2 1e-3; lse 1e-5 max(1,
+    max|ref|)."""
+    b, h, d = 4, 2, 64
+    qkv, _, slopes = _inputs((b, t, h, d), seed=t)
+    q, k, v = (x.to(cuda_device)
+               for x in _torch_views(qkv, torch.bfloat16))
+    lengths = torch.tensor([t, 0, 1, t // 2 + 3], dtype=torch.int32,
+                           device=cuda_device)
+    ts = torch.from_numpy(slopes).to(cuda_device) if alibi else None
+    before = flash_forward_packed.launches
+    o, lse = flash_forward_packed(q, k, v, lengths, ts, True, h)
+    o_ref, lse_ref = flash_forward_packed_plain(q, k, v, lengths, ts, True,
+                                                h)
+    torch.cuda.synchronize()
+    assert flash_forward_packed.launches == before + 1
+    _close_bhtd(o, o_ref, True)
+    assert (lse - lse_ref).abs().max().item() <= 1e-5 * max(
+        1.0, lse_ref.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", WGMMA_T)
+@pytest.mark.parametrize("alibi", [True, False])
+@pytest.mark.parametrize("with_stats", [True, False])
+def test_cuda_k4_bf16_forward_matches_plain(cuda_device, t, alibi,
+                                            with_stats):
+    """The bf16 K4 forward with 15 heads (no packed head grouping), with
+    and without lse, from strided views of packed projections, at K3's
+    T and tolerances; lengths 0 and 1 among them."""
+    b, h, d = 3, 15, 64
+    g = torch.Generator(cuda_device).manual_seed(t)
+    xq = torch.randn((b, t, h * d), generator=g, device=cuda_device)
+    xkv = torch.randn((b, t, 2 * h * d), generator=g, device=cuda_device)
+    q = xq.to(torch.bfloat16).view(b, t, h, d).transpose(1, 2)
+    k, v = (x.view(b, t, h, d).transpose(1, 2)
+            for x in xkv.to(torch.bfloat16).chunk(2, dim=-1))
+    lengths = torch.tensor([t, 1, 0], dtype=torch.int32, device=cuda_device)
+    slopes = (-torch.tensor(alibi_slopes(h), device=cuda_device)
+              if alibi else None)
+    before = flash_forward_full.launches
+    got = flash_forward_full(q, k, v, lengths, slopes, True, with_stats)
+    want = flash_forward_full_plain(q, k, v, lengths, slopes, True,
+                                    with_stats)
+    torch.cuda.synchronize()
+    assert flash_forward_full.launches == before + 1
+    if with_stats:
+        (got, lse), (want, lse_ref) = got, want
+        assert (lse - lse_ref).abs().max().item() <= 1e-5 * max(
+            1.0, lse_ref.abs().max().item())
+    _close_bhtd(got, want, True)

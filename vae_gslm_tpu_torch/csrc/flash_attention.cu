@@ -15,10 +15,13 @@
 // JAX runs off the packed envelope and under a data-parallel mesh; K4b
 // (Tq = Tk <= 1024, lse from K4) and K5b (any Tq, Tk up to 8192, its own
 // row statistics) are the backwards of that (B, H, T, D) custom VJP.  The
-// three forwards are one tiled body (below), the three backwards another,
-// each with an entry point and kernel symbols of its own (k3_/k4_/k5_fwd*,
-// k3b_/k4b_/k5b_{dkv,dq}*, k5b_stats*), so a profile tells them apart.  Every operand is read through (batch, head,
-// row) element strides with a contiguous feature axis, so packed
+// three forwards share a tiled float32 body and K5's bfloat16 body; K3
+// and K4 in bfloat16 have a Hopper body of their own (wgmma, TMA); the
+// three backwards share another.  Each has an entry point and kernel
+// symbols of its own (k3_/k4_/k5_fwd*, k3b_/k4b_/k5b_{dkv,dq}*,
+// k5b_stats*), so a profile tells them apart.  Every operand is read
+// through (batch, head, row) element strides with a contiguous feature
+// axis (the bf16 forward builds TMA tensor maps from them), so packed
 // projection views and (B, H, T, D) tensors both go in without a copy.
 // The query and key positions both count from 0 (the ALiBi distance and
 // the causal test of _flash_kernel :90-99 for Tq != Tk).
@@ -59,29 +62,62 @@
 // uniform over all Tk keys, as in the reference.
 //
 // Two element types, two product routes.  bfloat16 (the training path
-// under 16-mixed) multiplies on the tensor cores with mma.sync
-// (m16n8k16, float32 accumulators): exact bf16 products, float32 sums in
-// the hardware's order.  float32 multiplies with scalar FMAs out of
-// shared memory (4 x 4 outputs per thread, float4 operand loads), since
-// the tensor cores would round its operands to TF32.
+// under 16-mixed) multiplies on the tensor cores: K3/K4's forward with
+// wgmma (below), K5 and the backwards with mma.sync (m16n8k16); exact
+// bf16 products, float32 sums in the hardware's order.  float32
+// multiplies with scalar FMAs out of shared memory (4 x 4 outputs per
+// thread, float4 operand loads), since the tensor cores would round its
+// operands to TF32.
+//
+// K3/K4 bfloat16 forward (fwd_wgmma).  JAX normalises p = exp(s - m) / l
+// before P.V, so m and l are final before any p is formed: two passes
+// over the key tiles.  Tq = Tk <= 1024 here, so a head's key tiles
+// (<= 16 x 8 KB) stay in shared memory for both passes and only V
+// streams in pass 2.  One block per (64-query tile, head, batch), the
+// longest causal tiles first: a producer warp issues TMA loads (128B
+// swizzle, zero fill past T, tensor maps built from the operands'
+// strides) of Q, every key tile (one mbarrier each) and V through a
+// ring of `stages` tiles (full/empty mbarriers); one consumer warpgroup
+// forms S = Q K^T with wgmma m64n64k16 (both operands K-major from
+// shared memory) and O += P V with P's bf16 A fragments in registers
+// and V MN-major (the transpose bit).  The tensor cores run the next
+// tile's Q K^T (pass 1) or this tile's P V (pass 2) while the warps take
+// a softmax.  Tiles wholly inside the length and causal edges take the
+// ALiBi bias alone; edge tiles also mask.  The
+// plan of the dynamic shared memory (resident key tiles, V stages,
+// bytes) comes from the wrapper (fwd_smem_plan in ops/flash_attention.py)
+// and is checked here.  Numerics against the plain version: the logit is
+// fmaf(dot, scale, slope * |k - q|), which equals the rounded product
+// plus the rounded bias since scale = 1/8 is a power of two at head_dim
+// 64; exponentials are ex2.approx of (x - m) * log2(e); p is exp(.)
+// times the row's 1/l, not a division: within 1.5 float32 ulps of the
+// quotient, so a bf16 p differs only where the quotient lies that close
+// to a rounding edge.
 //
 // What bounds it: at the training shapes (B 8, T 640, H 16, D 64, the
 // lengths of chip_smoke.py) the ~34 / ~66 MB the forward / backward
 // must move over HBM bandwidth (10 / 20 us on an H100 SXM) bound it more
 // than their causal, length-masked products (4.7 / 11.8 GFLOP at the
-// bf16 peak).  K5 at the scoring shapes (B 8, T 1750, float32) is bound
-// by its products instead: ~50 GFLOP of causal pairs at the 67 TFLOP/s
+// bf16 peak).  K3/K4's bf16 forward recomputes S in pass 2 and takes
+// two exponentials per element of every walked 64 x 64 tile (5,072 tiles
+// at the training call: ~42 M, ~10 us at 16 per clock per SM on 132 SMs
+// at 1.98 GHz), plus ~14 other instructions per element (logit, mask,
+// max, sums, scaling, packing), so the per-element work and its
+// latency, with two consumer warpgroups per SM, not the bytes, hold it
+// (~4x its bytes bound).  K5 at the scoring shapes (B 8, T 1750, float32) is
+// bound by its products: ~50 GFLOP of causal pairs at the 67 TFLOP/s
 // float32 rate of the FMA units (~0.75 ms) against ~0.2 GB of HBM
 // traffic (~0.07 ms).
-// Both routes run far from that bound: fragments are loaded from shared
-// memory by plain loads (no ldmatrix, no TMA, no pipelining of the next
-// tile's loads), and every key tile is read twice in the forward (the
-// two passes) and every (query, key) pair recomputed in both backward
-// launches (three times in K5b, whose statistics pass runs first).  wgmma/TMA
-// pipelines are later work.
+// The mma.sync kernels (K5 bf16, the backwards) run far from that
+// bound: fragments are loaded from shared memory by plain loads (no
+// ldmatrix, no TMA, no pipelining of the next tile's loads), K5 reads
+// every key tile twice, and the backward launches recompute every
+// (query, key) pair (three times in K5b, whose statistics pass runs
+// first).
 //
 // Each launch function returns cudaGetLastError() after its launches.
 
+#include <cuda.h>   // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -836,14 +872,378 @@ __device__ __forceinline__ void fwd_mma(
       const float *__restrict__ slopes, Seq sq, Seq sk, Seq sv, Seq so,   \
       int tq, int tk, int nheads, int causal, float scale
 
-__global__ void __launch_bounds__(MT) k3_fwd_mma_kernel(FWD_MMA_ARGS) {
-  fwd_mma(FWD_PASS);
-}
-__global__ void __launch_bounds__(MT) k4_fwd_mma_kernel(FWD_MMA_ARGS) {
-  fwd_mma(FWD_PASS);
-}
+// K5's bfloat16 forward (Tk up to 8192: no resident K).
 __global__ void __launch_bounds__(MT) k5_fwd_mma_kernel(FWD_MMA_ARGS) {
   fwd_mma(FWD_PASS);
+}
+
+// ------------------------------------------------------------------
+// K3/K4 bfloat16 forward for Hopper: TMA into a resident K and a V ring,
+// wgmma products (the design note at the top of the file).
+// ------------------------------------------------------------------
+constexpr int WG = 128;                 // the consumer warpgroup
+constexpr int WG_NT = WG + 32;          // and one producer warp
+constexpr int TILE_BYTES = TILE * HD * 2;
+constexpr int MAX_KEY_TILES = 16;       // Tk <= 1024
+constexpr int SMEM_LIMIT = 232448;      // a block's most on an H100
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The dynamic shared memory of a plan: alignment slack, Q, the resident
+// key tiles and the V stages (1024-byte aligned for the 128B swizzle),
+// then the mbarriers (Q, one per key tile, full and empty per stage).
+// ops/flash_attention.py's fwd_smem_plan computes the same.
+constexpr int plan_bytes(int tiles, int stages) {
+  return 1024 + (1 + tiles + stages) * TILE_BYTES +
+         8 * (1 + tiles + 2 * stages);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One 64-row tile (rows [row, row + 64) of head h, batch b) of a 4-D
+// (D, T, H, B) tensor map into shared memory at dst.
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row),
+      "r"(h), "r"(b)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor of a 128B-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Waits until at most N wgmma groups of the warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accesses of an accumulator across the
+// asynchronous products.
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WG_D32                                                             \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define WG_OUT(d)                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),     \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),     \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),     \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),     \
+      "+f"(d[31])
+
+// d (64 x 64, float32) (+)= A (64 x 16) . B (16 x 64), both K-major in
+// shared memory; d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_OUT(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d += A (64 x 16, bf16 fragments in registers) . B (16 x 64), B
+// MN-major in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Issues s = Q K^T of one key tile (four k16 steps, 32 bytes apart
+// inside the 128-byte swizzled rows) as one wgmma group.
+__device__ __forceinline__ void qk_issue(float (&s)[32], uint64_t dq,
+                                         uint64_t dk) {
+  wg_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) wgmma_ss(s, dq + 2 * ks, dk + 2 * ks, ks);
+  wg_commit();
+}
+
+// x = the scaled, ALiBi-biased logits of the products s of one tile.
+// Accumulator element i of the thread holds row rr + 8 ((i >> 1) & 1) and
+// column cc + 8 (i >> 2) + (i & 1); |k - q| is |dt + const|, dt = rr -
+// cc.  EDGE tiles also mask: -inf past tk (no probability), -1e30 at or
+// past len or after the query (causal).
+template <bool EDGE>
+__device__ __forceinline__ void tile_logits(float (&x)[32],
+                                            const float (&s)[32], int rr,
+                                            int cc, int tk, int len,
+                                            int causal, float slope,
+                                            float scale) {
+  const float dt = (float)(rr - cc);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int j = (i >> 1) & 1, nt = i >> 2, e = i & 1;
+    const float bias =
+        __fmul_rn(slope, fabsf(dt + (float)(8 * j - 8 * nt - e)));
+    x[i] = fmaf(s[i], scale, bias);
+    if (EDGE) {
+      const int r = rr + 8 * j, c = cc + 8 * nt + e;
+      x[i] = c >= tk ? -INFINITY
+                     : (c < len && (!causal || c <= r) ? x[i] : NEG_INF);
+    }
+  }
+}
+
+// The bfloat16 forward of one (64-query tile, head, batch) of K3/K4:
+// Tq = Tk = t; lse (B, H, t) is written unless it is null.
+__device__ __forceinline__ void fwd_wgmma(
+    const CUtensorMap* mq, const CUtensorMap* mk, const CUtensorMap* mv,
+    bf16* __restrict__ o, float* __restrict__ lse,
+    const int* __restrict__ lengths, const float* __restrict__ slopes,
+    Seq so, int t, int nheads, int causal, float scale, int tiles,
+    int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sq = (raw + 1023) & ~1023u;   // Q, then the key tiles,
+  const uint32_t sk = sq + TILE_BYTES;         // then the V stages
+  const uint32_t sv = sk + tiles * TILE_BYTES;
+  const uint32_t bq = sv + stages * TILE_BYTES;   // mbarriers
+  const uint32_t bk = bq + 8, bfull = bk + 8 * tiles;
+  const uint32_t bempty = bfull + 8 * stages;
+  const int n_qt = (t + TILE - 1) / TILE;
+  const int h = blockIdx.x, b = blockIdx.y, qt = n_qt - 1 - blockIdx.z;
+  const int q0 = qt * TILE, len = lengths[b];
+  const int kt_end = key_tiles(qt, len, t, causal);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(bq, 1);
+    for (int j = 0; j < kt_end; ++j) mbar_init(bk + 8 * j, 1);
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(bfull + 8 * st, 1);
+      mbar_init(bempty + 8 * st, 4);   // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= WG) {   // the producer warp: one thread issues every copy
+    if (tid == WG) {
+      mbar_expect(bq, TILE_BYTES);
+      tma_tile(sq, mq, bq, q0, h, b);
+      for (int j = 0; j < kt_end; ++j) {
+        mbar_expect(bk + 8 * j, TILE_BYTES);
+        tma_tile(sk + j * TILE_BYTES, mk, bk + 8 * j, j * TILE, h, b);
+      }
+      for (int j = 0; j < kt_end; ++j) {
+        const int st = j % stages;
+        if (j >= stages) mbar_wait(bempty + 8 * st, (j / stages - 1) & 1);
+        mbar_expect(bfull + 8 * st, TILE_BYTES);
+        tma_tile(sv + st * TILE_BYTES, mv, bfull + 8 * st, j * TILE, h, b);
+      }
+    }
+    return;
+  }
+
+  const int w = tid >> 5, lane = tid & 31;
+  const int rr = q0 + 16 * w + (lane >> 2);   // rows rr and rr + 8
+  const float slope = slopes != nullptr ? slopes[h] : 0.f;
+  // key tiles [0, n_in) lie wholly inside the length and causal edges
+  int n_in = 0;
+  if (len >= 1) {
+    n_in = min(len, t) / TILE;
+    if (causal) n_in = min(n_in, qt);
+  }
+  const uint64_t dq = sw128_desc(sq, 16, 1024);
+  // The products overlap the softmax, with a pipeline ptxas keeps
+  // asynchronous: s is written by wgmma alone and read only after the
+  // group that wrote it has retired (the logits go to x), and every
+  // iteration issues the next Q K^T unconditionally (the last tile's
+  // again at the end, unread).
+  float s[32], x[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  const int last = kt_end - 1;
+  auto dk = [&](int kt) {
+    return sw128_desc(sk + kt * TILE_BYTES, 16, 1024);
+  };
+  auto logits = [&](int kt) {   // x from s
+    const int cc = kt * TILE + 2 * (lane & 3);
+    if (kt < n_in)
+      tile_logits<false>(x, s, rr, cc, t, len, causal, slope, scale);
+    else
+      tile_logits<true>(x, s, rr, cc, t, len, causal, slope, scale);
+  };
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  // pass 1: the row max and the (thread-partial) sum, online; tile kt's
+  // softmax runs beside tile kt + 1's Q K^T
+  mbar_wait(bq, 0);
+  mbar_wait(bk, 0);
+  __syncwarp();
+  qk_issue(s, dq, dk(0));
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int nx = min(kt + 1, last);
+    wg_wait<0>();
+    reg_fence(s);
+    logits(kt);
+    mbar_wait(bk + 8 * nx, 0);
+    __syncwarp();
+    qk_issue(s, dq, dk(nx));
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        mx = fmaxf(mx, fmaxf(x[4 * nt + 2 * j], x[4 * nt + 2 * j + 1]));
+      const float m_new = fmaxf(m[j], quad_max(mx));
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          sum += ex2(__fmul_rn(__fsub_rn(x[4 * nt + 2 * j + e], m_new),
+                               LOG2E));
+      l[j] = l[j] * ex2(__fmul_rn(__fsub_rn(m[j], m_new), LOG2E)) + sum;
+      m[j] = m_new;
+    }
+  }
+  float inv[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] = quad_sum(l[j]);
+    inv[j] = 1.f / l[j];
+  }
+
+  // pass 2: p = exp(s - m) / l rounded to bf16, O += P V; tile kt + 1's
+  // softmax runs beside tile kt's P V
+  auto probs = [&]() {   // x = p from the logits in x
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = (i >> 1) & 1;
+      x[i] = __fmul_rn(ex2(__fmul_rn(__fsub_rn(x[i], m[j]), LOG2E)),
+                       inv[j]);
+    }
+  };
+  wg_wait<0>();   // pass 1's last (unread) product
+  reg_fence(s);
+  float acc[32];
+  uint32_t pa[16];   // P's A fragments, four per k16 step of keys
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  qk_issue(s, dq, dk(0));
+  wg_wait<0>();
+  reg_fence(s);
+  logits(0);
+  probs();
+#pragma unroll
+  for (int i = 0; i < 16; ++i) pa[i] = pack(x[2 * i], x[2 * i + 1]);
+  for (int kt = 0; kt < kt_end; ++kt) {
+    qk_issue(s, dq, dk(min(kt + 1, last)));
+    const int st = kt % stages;
+    const uint32_t vt = sv + st * TILE_BYTES;
+    mbar_wait(bfull + 8 * st, (kt / stages) & 1);
+    __syncwarp();
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)   // 16 keys = two 1024-byte atoms
+      wgmma_rs(acc, pa + 4 * ks, sw128_desc(vt + ks * 2048, 1024, 1024));
+    wg_commit();
+    wg_wait<1>();   // the next tile's Q K^T; P V still runs
+    reg_fence(s);
+    if (kt < last) {
+      logits(kt + 1);
+      probs();
+    }
+    wg_wait<0>();
+    reg_fence(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bempty + 8 * st);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) pa[i] = pack(x[2 * i], x[2 * i + 1]);
+  }
+
+  bf16* ob = o + b * so.bs + h * so.hs;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = rr + 8 * j;
+    if (r >= t) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<uint32_t*>(ob + r * so.rs + 8 * nt +
+                                   2 * (lane & 3)) =
+          pack(acc[4 * nt + 2 * j], acc[4 * nt + 2 * j + 1]);
+    if (lse && (lane & 3) == 0)
+      lse[((long long)b * nheads + h) * t + r] = m[j] + logf(l[j]);
+  }
+}
+
+#define FWD_WGMMA_ARGS                                                    \
+  const __grid_constant__ CUtensorMap mq,                                 \
+      const __grid_constant__ CUtensorMap mk,                             \
+      const __grid_constant__ CUtensorMap mv, bf16 *__restrict__ o,       \
+      float *__restrict__ lse, const int *__restrict__ lengths,           \
+      const float *__restrict__ slopes, Seq so, int t, int nheads,        \
+      int causal, float scale, int tiles, int stages
+#define FWD_WGMMA_PASS &mq, &mk, &mv, o, lse, lengths, slopes, so, t, \
+                       nheads, causal, scale, tiles, stages
+
+__global__ void __launch_bounds__(WG_NT) k3_fwd_wgmma_kernel(FWD_WGMMA_ARGS) {
+  fwd_wgmma(FWD_WGMMA_PASS);
+}
+__global__ void __launch_bounds__(WG_NT) k4_fwd_wgmma_kernel(FWD_WGMMA_ARGS) {
+  fwd_wgmma(FWD_WGMMA_PASS);
 }
 
 // K5b's bfloat16 row statistics, as stats_f32.
@@ -1088,14 +1488,11 @@ __global__ void __launch_bounds__(MT) k5b_dq_mma_kernel(DQ_MMA_ARGS) {
 }
 
 typedef void (*FwdF32)(FWD_F32_ARGS);
-typedef void (*FwdMma)(FWD_MMA_ARGS);
 typedef void (*DkvF32)(DKV_F32_ARGS);
 typedef void (*DkvMma)(DKV_MMA_ARGS);
 typedef void (*DqF32)(DQ_F32_ARGS);
 typedef void (*DqMma)(DQ_MMA_ARGS);
 constexpr FwdF32 FWD_F32[3] = {k3_fwd_kernel, k4_fwd_kernel, k5_fwd_kernel};
-constexpr FwdMma FWD_MMA[3] = {k3_fwd_mma_kernel, k4_fwd_mma_kernel,
-                               k5_fwd_mma_kernel};
 constexpr DkvF32 DKV_F32[3] = {k3b_dkv_kernel, k4b_dkv_kernel,
                                k5b_dkv_kernel};
 constexpr DkvMma DKV_MMA[3] = {k3b_dkv_mma_kernel, k4b_dkv_mma_kernel,
@@ -1104,16 +1501,114 @@ constexpr DqF32 DQ_F32[3] = {k3b_dq_kernel, k4b_dq_kernel, k5b_dq_kernel};
 constexpr DqMma DQ_MMA[3] = {k3b_dq_mma_kernel, k4b_dq_mma_kernel,
                              k5b_dq_mma_kernel};
 
+// cuTensorMapEncodeTiled through the runtime's driver entry point (the
+// library links no -lcuda); null if the driver has none.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Launch errors of the wgmma forward beyond cudaError_t: no encoder in
+// the driver, or the driver refused a tensor map (TMA_ENCODE + CUresult).
+constexpr int TMA_NO_ENCODER = 900;
+constexpr int TMA_ENCODE = 1000;
+
+// The (D, T, H, B) tensor map of one bf16 operand, 64 x 64 boxes with
+// 128B swizzle, zero fill past T.  A size-1 axis's stride is never read;
+// 128 bytes stands in for it.
+int tile_map(CUtensorMap* map, const void* ptr, Seq s, int t, int h, int b) {
+  EncodeTiled enc = encoder();
+  if (enc == nullptr) return TMA_NO_ENCODER;
+  const cuuint64_t row = HD * 2;
+  cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)t, (cuuint64_t)h,
+                        (cuuint64_t)b};
+  cuuint64_t strides[3] = {t > 1 ? (cuuint64_t)s.rs * 2 : row,
+                           h > 1 ? (cuuint64_t)s.hs * 2 : row,
+                           b > 1 ? (cuuint64_t)s.bs * 2 : row};
+  cuuint32_t box[4] = {(cuuint32_t)HD, (cuuint32_t)TILE, 1, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                   const_cast<void*>(ptr), dims, strides, box, elem,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : TMA_ENCODE + (int)r;
+}
+
+// K3 (`kid` 0) or K4 (1) bfloat16 forward, Tq = Tk = t: one block per
+// (64-query tile, head, batch), query tiles in the grid's slowest axis,
+// the longest first.  `smem`, `tiles` and `stages` are the wrapper's
+// shared-memory plan; a plan that cannot hold this launch is refused.
+int launch_fwd_wgmma(int kid, const void* q, const void* k, const void* v,
+                     void* o, float* lse, const int* lengths,
+                     const float* slopes, Seq sq, Seq sk, Seq sv, Seq so,
+                     int B, int t, int H, int causal, float scale, int smem,
+                     int tiles, int stages, cudaStream_t stream) {
+  if (tiles < (t + TILE - 1) / TILE || tiles > MAX_KEY_TILES ||
+      stages < 1 || smem < plan_bytes(tiles, stages) || smem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  int err = tile_map(&mq, q, sq, t, H, B);
+  if (!err) err = tile_map(&mk, k, sk, t, H, B);
+  if (!err) err = tile_map(&mv, v, sv, t, H, B);
+  if (err) return err;
+  const void* fn = kid == 0 ? (const void*)k3_fwd_wgmma_kernel
+                            : (const void*)k4_fwd_wgmma_kernel;
+  static int attr[2] = {0, 0};   // the largest size set per kernel
+  if (smem > attr[kid]) {
+    err = (int)cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+    attr[kid] = smem;
+  }
+  dim3 grid(H, B, (t + TILE - 1) / TILE);
+  if (kid == 0)
+    k3_fwd_wgmma_kernel<<<grid, WG_NT, smem, stream>>>(
+        mq, mk, mv, (bf16*)o, lse, lengths, slopes, so, t, H, causal, scale,
+        tiles, stages);
+  else
+    k4_fwd_wgmma_kernel<<<grid, WG_NT, smem, stream>>>(
+        mq, mk, mv, (bf16*)o, lse, lengths, slopes, so, t, H, causal, scale,
+        tiles, stages);
+  return (int)cudaGetLastError();
+}
+
 // One forward launch of entry point `kid` (0: K3, 1: K4, 2: K5): one block
-// per (64-query tile, head, batch); lse may be null.
+// per (64-query tile, head, batch); lse may be null.  K3/K4 in bfloat16
+// take the wgmma kernels with the plan (smem, tiles, stages).
 int launch_fwd(int kid, int use_mma, const void* q, const void* k,
                const void* v, void* o, float* lse, const int* lengths,
                const float* slopes, Seq sq, Seq sk, Seq sv, Seq so, int B,
-               int tq, int tk, int H, int causal, float scale,
-               cudaStream_t stream) {
+               int tq, int tk, int H, int causal, float scale, int smem,
+               int tiles, int stages, cudaStream_t stream) {
+  if (use_mma && kid < 2) {
+    if (tq != tk) return (int)cudaErrorInvalidValue;
+    return launch_fwd_wgmma(kid, q, k, v, o, lse, lengths, slopes, sq, sk,
+                            sv, so, B, tq, H, causal, scale, smem, tiles,
+                            stages, stream);
+  }
   dim3 grid((tq + TILE - 1) / TILE, H, B);
   if (use_mma) {
-    FWD_MMA[kid]<<<grid, MT, FWD_MMA_SMEM, stream>>>(
+    k5_fwd_mma_kernel<<<grid, MT, FWD_MMA_SMEM, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse,
         lengths, slopes, sq, sk, sv, so, tq, tk, H, causal, scale);
     return (int)cudaGetLastError();
@@ -1186,18 +1681,21 @@ extern "C" {
 
 // Strides are in elements: (batch, row) of each packed operand (K3/K3b:
 // the head stride is head_dim), (batch, head, row) of each operand of
-// K4, K4b, K5 and K5b.
+// K4, K4b, K5 and K5b.  K3/K4 take the bf16 forward's shared-memory plan
+// (smem bytes, resident key tiles, V stages; unread for float32).
 int flash_fwd_packed_launch(const void* q, const void* k, const void* v,
                             void* o, float* lse, const int* lengths,
                             const float* slopes, long long q_bs,
                             long long q_rs, long long k_bs, long long k_rs,
                             long long v_bs, long long v_rs, long long o_bs,
                             long long o_rs, int B, int T_, int H, int bf16,
-                            int causal, float scale, void* stream) {
+                            int causal, float scale, int smem, int tiles,
+                            int stages, void* stream) {
   Seq sq{q_bs, HD, q_rs}, sk{k_bs, HD, k_rs}, sv{v_bs, HD, v_rs};
   Seq so{o_bs, HD, o_rs};
   return launch_fwd(0, bf16, q, k, v, o, lse, lengths, slopes, sq, sk, sv,
-                    so, B, T_, T_, H, causal, scale, (cudaStream_t)stream);
+                    so, B, T_, T_, H, causal, scale, smem, tiles, stages,
+                    (cudaStream_t)stream);
 }
 
 // K4: Tq = Tk = T_ (<= 1024 on its path); lse (B, H, T) or null.
@@ -1208,12 +1706,13 @@ int flash_fwd_full_launch(const void* q, const void* k, const void* v,
                           long long k_hs, long long k_rs, long long v_bs,
                           long long v_hs, long long v_rs, long long o_bs,
                           long long o_hs, long long o_rs, int B, int T_,
-                          int H, int bf16, int causal, float scale,
-                          void* stream) {
+                          int H, int bf16, int causal, float scale, int smem,
+                          int tiles, int stages, void* stream) {
   Seq sq{q_bs, q_hs, q_rs}, sk{k_bs, k_hs, k_rs}, sv{v_bs, v_hs, v_rs};
   Seq so{o_bs, o_hs, o_rs};
   return launch_fwd(1, bf16, q, k, v, o, lse, lengths, slopes, sq, sk, sv,
-                    so, B, T_, T_, H, causal, scale, (cudaStream_t)stream);
+                    so, B, T_, T_, H, causal, scale, smem, tiles, stages,
+                    (cudaStream_t)stream);
 }
 
 // K5: Tq queries against Tk keys, no lse.
@@ -1228,7 +1727,7 @@ int flash_fwd_tiled_launch(const void* q, const void* k, const void* v,
   Seq sq{q_bs, q_hs, q_rs}, sk{k_bs, k_hs, k_rs}, sv{v_bs, v_hs, v_rs};
   Seq so{o_bs, o_hs, o_rs};
   return launch_fwd(2, bf16, q, k, v, o, nullptr, lengths, slopes, sq, sk,
-                    sv, so, B, Tq, Tk, H, causal, scale,
+                    sv, so, B, Tq, Tk, H, causal, scale, 0, 0, 0,
                     (cudaStream_t)stream);
 }
 

@@ -51,13 +51,16 @@ the route of every self-attention layer under a data-parallel process
 group (``parallel/tp.py``): ``backward_route`` picks K4 with ``lse`` and
 K4b, K4/K5 and K5b, or K5 and the dense recompute.  On CPU tensors every
 wrapper runs its plain version; on CUDA tensors it launches its kernel or
-raises (head_dim 64, float32/bfloat16 only).
+raises (head_dim 64, float32/bfloat16 only).  K3 and K4 in bfloat16 run
+a Hopper kernel (TMA tensor maps built from the operands' strides,
+``wgmma``) whose dynamic shared memory the wrapper plans
+(``fwd_smem_plan``) and the launcher checks.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -65,6 +68,8 @@ NEG_INF = -1e30
 MAX_T = 1024          # K3/K4 envelope (JAX's _FWD_FULL_MAX_T)
 MAX_TK = 8192         # K5's key walk (JAX's _BWD_BLOCKWISE_MAX_TK)
 HEAD_DIM = 64
+TILE = 64             # the kernels' query and key rows per tile
+V_STAGES = 2          # the bf16 K3/K4 forward's ring of V tiles
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -227,11 +232,11 @@ def _launchers():
         p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_float)
         lib.flash_fwd_packed_launch.argtypes = [p] * 7 + [ll] * 8 + [i] * 5 \
-            + [f, p]
+            + [f] + [i] * 3 + [p]
         lib.flash_bwd_packed_launch.argtypes = [p] * 11 + [ll] * 14 \
             + [i] * 5 + [f, p]
         lib.flash_fwd_full_launch.argtypes = [p] * 7 + [ll] * 12 + [i] * 5 \
-            + [f, p]
+            + [f] + [i] * 3 + [p]
         lib.flash_fwd_tiled_launch.argtypes = [p] * 6 + [ll] * 12 \
             + [i] * 6 + [f, p]
         lib.flash_stats_launch.argtypes = [p] * 6 + [ll] * 6 + [i] * 6 \
@@ -244,6 +249,51 @@ def _launchers():
             fn.restype = i
         _LIB = lib
     return _LIB
+
+
+class FwdPlan(NamedTuple):
+    """The dynamic shared memory of one bf16 K3/K4 forward launch."""
+    tiles: int        # resident key tiles: the most any query tile walks
+    stages: int       # V ring stages
+    bytes: int        # alignment slack, Q, K, V stages and mbarriers
+
+
+def fwd_smem_plan(t: int) -> FwdPlan:
+    """The shared-memory plan of the bf16 K3/K4 forward over T = Tq = Tk
+    (``fwd_wgmma`` in ``csrc/flash_attention.cu``, whose ``plan_bytes``
+    is the same sum): Q, every key tile a query tile can walk (kept for
+    both softmax passes) and ``V_STAGES`` V tiles of 64 x 64 bf16, 1024
+    bytes of alignment slack, one 8-byte mbarrier for Q, each key tile
+    and each stage's full and empty.  A row of length 0 walks all
+    ceil(T / 64) key tiles (the kernels' ``key_tiles``), causal or not,
+    so the plan holds them all."""
+    tiles = -(-t // TILE)
+    tile_bytes = TILE * HEAD_DIM * 2
+    nbytes = (1024 + (1 + tiles + V_STAGES) * tile_bytes
+              + 8 * (1 + tiles + 2 * V_STAGES))
+    return FwdPlan(tiles, V_STAGES, nbytes)
+
+
+def _plan_args(q: torch.Tensor, t: int) -> Tuple[int, ...]:
+    """(smem bytes, key tiles, V stages) for the launcher: the plan for
+    bf16, zeros for float32 (whose kernels take none)."""
+    if q.dtype != torch.bfloat16:
+        return (0, 0, 0)
+    plan = fwd_smem_plan(t)
+    return (plan.bytes, plan.tiles, plan.stages)
+
+
+def _launch_error(what: str, err: int) -> RuntimeError:
+    """The error of a failed launch; the bf16 K3/K4 forward adds codes of
+    its own for the TMA tensor maps (csrc TMA_NO_ENCODER, TMA_ENCODE)."""
+    if err == 900:
+        why = "the driver has no cuTensorMapEncodeTiled"
+    elif err >= 1000:
+        why = (f"the driver refused a TMA tensor map of the operands "
+               f"(CUresult {err - 1000})")
+    else:
+        why = f"CUDA error {err}"
+    return RuntimeError(f"{what} launch failed: {why}")
 
 
 def packed_eligible(q: torch.Tensor, k: torch.Tensor, nheads: int) -> bool:
@@ -332,11 +382,10 @@ def flash_forward_packed(q, k, v, lengths, slopes, causal: bool,
         slopes.data_ptr() if slopes is not None else None,
         *seqs[0], *seqs[1], *seqs[2], *o.stride()[:2],
         b, t, nheads, int(q.dtype == torch.bfloat16), int(causal),
-        1.0 / math.sqrt(hd // nheads),
+        1.0 / math.sqrt(hd // nheads), *_plan_args(q, t),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash attention forward launch failed: CUDA "
-                           f"error {err}")
+        raise _launch_error("flash attention forward", err)
     flash_forward_packed.launches += 1
     return o, lse
 
@@ -416,13 +465,14 @@ def _bhtd_launch(kind: str, q, k, v, lengths, slopes, causal: bool,
         err = lib.flash_fwd_full_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None, lengths.data_ptr(),
-            slope_ptr, *common, b, tq, h, *tail)
+            slope_ptr, *common, b, tq, h, *tail[:3],
+            *_plan_args(q, tq), tail[3])
     else:
         err = lib.flash_fwd_tiled_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lengths.data_ptr(), slope_ptr, *common, b, tq, tk, h, *tail)
     if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+        raise _launch_error(what, err)
     return (o, lse) if with_stats else o
 
 

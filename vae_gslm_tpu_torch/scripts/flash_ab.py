@@ -13,15 +13,20 @@ times the same calls on the same inputs (seeded here, not by the
 package): K3 (``flash_forward_packed``), K3b (``flash_backward_packed``)
 and K4 (``flash_forward_full`` with lse) at the single-process training
 call (B 8, T 640, 16 heads of 64, bfloat16, ALiBi, causal, lengths
-640, 320, 300, 640, 1, 639, 0, 64), and K4b (``flash_backward_full``)
-from K4's lse where the root has it.  A time is the median over 5
-torch.profiler windows of 50 calls of the kernels' own device time per
-call; a window counts as read only when it holds every launch (1 kernel
-per K3/K4 call, 2 per K3b/K4b call).  Prints one JSON line per root and
-then the card's name and power limit.
+640, 320, 300, 640, 1, 639, 0, 64), K4b (``flash_backward_full``) there
+where the root has it, and K5 (``flash_forward_tiled``) at the
+long-segment call (B 2, T 1536, lengths 1536 and 1).  K3b and K4b take
+o and lse from the plain forward on the card, so their outputs depend on
+the backward kernels alone.  A time is the median over 5 torch.profiler
+windows of 50 calls of the kernels' own device time per call; a window
+counts as read only when it holds every launch (1 kernel per K3/K4/K5
+call, 2 per K3b/K4b call).  Beside each time, a digest of the call's
+outputs: equal across roots when their kernels compute the same bits.
+Prints one JSON line per root and then the card's name and power limit.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -30,6 +35,7 @@ import sys
 
 B, T, H, D = 8, 640, 16, 64
 LENGTHS = [640, 320, 300, 640, 1, 639, 0, 64]
+B5, T5, LENGTHS5 = 2, 1536, [1536, 1]
 CALLS, WINDOWS = 50, 5
 
 
@@ -51,8 +57,22 @@ def _window_ms(fn, prefix: str, per_call: int) -> float:
     raise RuntimeError(f"no profiler window held every {prefix} launch")
 
 
+def _digest(outs) -> str:
+    """The first 16 hex digits of the sha256 of the outputs' bytes."""
+    import torch
+
+    if isinstance(outs, torch.Tensor):
+        outs = (outs,)
+    h = hashlib.sha256()
+    for t in outs:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
 def time_root(root: str) -> dict:
-    """The kernels' times of the package under ``root``."""
+    """The kernels' times and output digests of the package under
+    ``root``."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -65,13 +85,18 @@ def time_root(root: str) -> dict:
                       device=dev).to(torch.bfloat16)
     do = torch.randn((B, T, H * D), generator=g,
                      device=dev).to(torch.bfloat16)
+    qkv5 = torch.randn((B5, T5, 3 * H * D), generator=g,
+                       device=dev).to(torch.bfloat16)
     q, k, v = qkv.chunk(3, dim=-1)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    lengths5 = torch.tensor(LENGTHS5, dtype=torch.int32, device=dev)
     slopes = -torch.tensor(alibi_slopes(H), device=dev)
-    o, lse = fa.flash_forward_packed(q, k, v, lengths, slopes, True, H)
+    o, lse = fa.flash_forward_packed_plain(q, k, v, lengths, slopes, True, H)
     heads = [x.view(B, T, H, D).transpose(1, 2) for x in (q, k, v, do)]
-    o4, lse4 = fa.flash_forward_full(*heads[:3], lengths, slopes, True,
-                                     with_stats=True)
+    heads5 = [x.view(B5, T5, H, D).transpose(1, 2)
+              for x in qkv5.chunk(3, dim=-1)]
+    o4, lse4 = fa.flash_forward_full_plain(*heads[:3], lengths, slopes, True,
+                                           with_stats=True)
     calls = {
         "K3": (lambda: fa.flash_forward_packed(q, k, v, lengths, slopes,
                                                True, H), "k3_fwd", 1),
@@ -85,12 +110,15 @@ def time_root(root: str) -> dict:
     if hasattr(fa, "flash_backward_full"):
         calls["K4b"] = (lambda: fa.flash_backward_full(
             *heads[:3], o4, heads[3], lse4, lengths, slopes, True), "k4b_", 2)
+    calls["K5"] = (lambda: fa.flash_forward_tiled(*heads5, lengths5, slopes,
+                                                  True), "k5_fwd", 1)
     out = {"root": root, "source": fa.__file__}
     for name, (fn, prefix, per_call) in calls.items():
-        fn()
+        digest = _digest(fn())
         torch.cuda.synchronize()
-        out[name] = statistics.median(
-            _window_ms(fn, prefix, per_call) for _ in range(WINDOWS))
+        out[name] = {"ms": statistics.median(
+            _window_ms(fn, prefix, per_call) for _ in range(WINDOWS)),
+            "digest": digest}
     return out
 
 
