@@ -62,10 +62,14 @@ Phases (any failure ends the run with a non-zero exit, no result):
      dk and dv sum every query row's share in float32 in another order
      than the plain einsum, and a ds one ulp apart rounds to another
      bf16 value); K4 bf16 also at T 200, 1000 and 1024, with and
-     without lse; their bf16 times (K4
-     and K4b at the training call) beside the plain versions', SDPA's
-     with a float mask (forward for K4, with the ratio; backward alone
-     and forward+backward for K4b/K5b) and the bound;
+     without lse; the bf16 backward (K4b and K5b's ``bwd_wgmma``) also
+     at K4b T 200, 1000 and 1024 and K5b T 1100 and 8192 (Tk at the
+     envelope's edge), lengths 0 and 1 among them; their bf16 times (K4
+     and K4b at the training call, K5b at B 2 x T 1536: 2 kernels per
+     call, its row statistics inside the dq kernel) beside the plain
+     versions', SDPA's with a float mask (forward for K4, with the
+     ratio; backward alone, with the ratio, and forward+backward for
+     K4b/K5b) and the bound;
   5d. K6 (single-query decode attention over an int8 per-layer cache,
      reading only the blocks up to ``pos``) against its plain version at
      the per-layer path's calls: B 128, 16 heads of 64, T 768 (the
@@ -946,9 +950,10 @@ def phase_k3(dev):
         f"GFLOP)")
     log(f"K3b time B={K3_B} T={K3_T} bf16: kernels {kb:.4f} ms, {cb:.4f} ms "
         f"per call with the wrapper (delta included), plain {pb:.4f} ms, "
-        f"SDPA (float mask) backward alone {lb:.4f} ms, forward+backward "
-        f"{lfb:.4f} ms, bound of the kernels {bound_b:.4f} ms ({by_b}; "
-        f"{bb / 1e6:.1f} MB, {bo / 1e9:.2f} GFLOP)")
+        f"SDPA (float mask) backward alone {lb:.4f} ms (kernels / SDPA "
+        f"backward {kb / lb:.3f}), forward+backward {lfb:.4f} ms, bound of "
+        f"the kernels {bound_b:.4f} ms ({by_b}; {bb / 1e6:.1f} MB, "
+        f"{bo / 1e9:.2f} GFLOP)")
     return (
         {"name": "flash_forward_packed", "route": "cuda",
          "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
@@ -2351,6 +2356,14 @@ def phase_cli(dev, gpu: str, config: str, w4: bool = False,
 # --------------------------------------------------------------- K4b/K5b
 K4B_LENGTHS = [640, 320, 300, 640, 1, 639, 0, 64]
 K5B_T, K5B_LENGTHS = 1536, [1536, 1]
+# the bf16 backward (bwd_wgmma) held at more shapes: (name, B, T, H,
+# lengths), causal, Tq = Tk; partial last tiles, K4b's largest T, and
+# K5b at the envelope's edge, Tk 8192
+BWD_BF16_MORE = (("K4b", 4, 200, 2, [200, 77, 1, 0]),
+                 ("K4b", 4, 1000, 4, [1000, 0, 1, 611]),
+                 ("K4b", 4, 1024, 4, [1024, 1, 0, 700]),
+                 ("K5b", 3, 1100, 3, [1100, 1, 0]),
+                 ("K5b", 3, 8192, 2, [8192, 1, 0]))
 
 
 def bhtd_grad(dtype, dev, b: int, tq: int, h: int, seed: int):
@@ -2404,10 +2417,14 @@ def phase_k45b(dev, k4_worst: float):
     counted), per call with the wrapper (CUDA events; K4b/K5b's delta
     included), plain, SDPA with a float mask (forward for K4, with the
     ratio; for K4b/K5b its backward alone, the library time, and
-    forward+backward), and the bound.  K4 bf16 is also held at T 200,
-    1000 and 1024 (lengths 0 and 1 among them), with lse and without.  Returns the K4, K4b
-    and K5b entries (K4's error also covers phase_k45's odd-head case,
-    ``k4_worst``)."""
+    forward+backward, with the kernels' ratio to the backward alone),
+    and the bound.  K4 bf16 is also held at T 200, 1000 and 1024
+    (lengths 0 and 1 among them), with lse and without, and the bf16
+    backward (``bwd_wgmma``) at ``BWD_BF16_MORE``: K4b at T 200, 1000 and
+    1024 and K5b at T 1100 and 8192 (Tk at the envelope's edge; its
+    plain version one batch row at a time), at the same tolerances.
+    Returns the K4, K4b and K5b entries (K4's error also covers
+    phase_k45's odd-head case, ``k4_worst``)."""
     import torch
     import torch.nn.functional as F
 
@@ -2491,6 +2508,37 @@ def phase_k45b(dev, k4_worst: float):
         log(f"K4 check {where}: max_abs_err " + ", ".join(errs))
         del q, k, v, o, lse, o_only, o_ref, lse_ref
 
+    # the bf16 backward at partial last tiles, K4b's largest T and K5b's
+    # largest Tk (its plain version one batch row at a time)
+    for name, b, t, h, lens in BWD_BF16_MORE:
+        q, k, v = bhtd_inputs(torch.bfloat16, dev, b, t, t, h, seed=t + 5)
+        do = bhtd_grad(torch.bfloat16, dev, b, t, h, seed=t + 6)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        sl = -torch.tensor(alibi_slopes(h), device=dev)
+        if name == "K4b":
+            o, lse = fa.flash_forward_full(q, k, v, lengths, sl, True,
+                                           with_stats=True)
+            got = fa.flash_backward_full(q, k, v, o, do, lse, lengths, sl,
+                                         True)
+            want = in_chunks(lambda r: fa.flash_backward_full_plain(
+                q[r], k[r], v[r], o[r], do[r], lse[r], lengths[r], sl,
+                True), b, 1)
+        else:
+            o = fa.flash_forward_tiled(q, k, v, lengths, sl, True)
+            got = fa.flash_backward_blockwise(q, k, v, o, do, lengths, sl,
+                                              True)
+            want = in_chunks(lambda r: fa.flash_backward_blockwise_plain(
+                q[r], k[r], v[r], o[r], do[r], lengths[r], sl, True), b, 1)
+        torch.cuda.synchronize()
+        where = f"{name} B={b} T={t} H={h} bfloat16 causal=True alibi=True"
+        errs = []
+        for n, g_, r_ in zip(("dq", "dk", "dv"), got, want):
+            err, text = hold(where, n, g_, r_, 2e-2, 0.0, True)
+            worst[name] = max(worst[name], err)
+            errs.append(text)
+        log(f"{name} check {where}: max_abs_err " + ", ".join(errs))
+        del q, k, v, do, o, got, want
+
     def entry(name, fn_name, line, ms, plain_ms, bound, by, lib):
         return {"name": fn_name, "route": "cuda",
                 "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
@@ -2559,9 +2607,9 @@ def phase_k45b(dev, k4_worst: float):
             def plain(i):
                 return fa.flash_backward_blockwise_plain(
                     q, k, v, o, do, lengths, slopes, True)
-        # K4b: the dk/dv and dq kernels; K5b: the statistics pass first
+        # the dq and dk/dv kernels (K5b's row statistics inside dq)
         kt = device_ms(call, n=20, only=(name.lower() + "_",),
-                       per_call=2 if name == "K4b" else 3)
+                       per_call=2 if name == "K4b" else fa.K5B_BF16_KERNELS)
         ct = cuda_ms(call, n=20)
         pt = device_ms(plain, n=3)
         q4, k4, v4 = (x.detach().requires_grad_() for x in (q, k, v))
@@ -2578,7 +2626,8 @@ def phase_k45b(dev, k4_worst: float):
         bound, by = bound_of(nbytes, flops)
         log(f"{name} time B={b} T={t} H={H} bf16: kernels {kt:.4f} ms, "
             f"{ct:.4f} ms per call with the wrapper (delta included), plain "
-            f"{pt:.4f} ms, SDPA (float mask) backward alone {lb:.4f} ms, "
+            f"{pt:.4f} ms, SDPA (float mask) backward alone {lb:.4f} ms "
+            f"(kernels / SDPA backward {kt / lb:.3f}), "
             f"forward+backward {lt:.4f} ms, bound of the kernels "
             f"{bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP)")

@@ -11,7 +11,11 @@ is held against ``jax.vjp`` of JAX's ``flash_attention`` custom VJP, which
 off the TPU differentiates ``_attention_reference``.  Tolerances, float32:
 gradients to 1e-5 x max|ref| (2e-5 at T = 1100, where a row sums more
 terms): the same five products in another order.  The forward to 1e-6.
-``gradcheck`` runs in float64.  The ``cuda`` cases hold the kernels
+``gradcheck`` runs in float64.  A Python mirror of the bf16 backward's
+walks (``bwd_wgmma`` in ``csrc/flash_attention.cu``: ``qt_begin`` of the
+dk/dv kernel, ``key_tiles`` of the dq kernel) and of its longest-first
+grid order is held against the masks, and its shared-memory plan
+against the H100's per-block limit.  The ``cuda`` cases hold the kernels
 against their plain versions on a card and skip without one."""
 import functools
 
@@ -195,6 +199,126 @@ def test_backward_routing(monkeypatch, tq, tk, want):
         _close(x.grad, r.grad.numpy(), 1e-5)
 
 
+# ------------------------------------------------- the bf16 walks (mirror)
+TILE = fa.TILE
+SMEM_LIMIT = 232448        # a block's most on an H100
+
+
+def _qt_begin(kt, length, tq, causal):
+    """The dk/dv kernel's walk: key tile ``kt`` visits query tiles
+    [qt_begin, ceil(Tq / 64))."""
+    nq = -(-tq // TILE)
+    if length >= 1:
+        if kt * TILE >= length:
+            return nq
+        if causal:
+            return kt
+    return 0
+
+
+def _key_tiles(qt, length, tk, causal):
+    """The dq kernel's walk: query tile ``qt`` visits key tiles [0, n)
+    (twice in K5b: its row statistics, then dq)."""
+    end = -(-tk // TILE)
+    if length >= 1:
+        end = min(end, -(-length // TILE))
+        if causal:
+            end = min(end, qt + 1)
+    return end
+
+
+def _needed(tq, tk, length, causal):
+    """The (query tile, key tile) pairs holding a (query, key) pair of
+    nonzero probability, from the masks: a key below ``length`` (any key
+    for a row of length 0, uniform over all Tk), at or before the query
+    when causal."""
+    out = set()
+    for qt in range(-(-tq // TILE)):
+        last_q = min(qt * TILE + TILE, tq) - 1
+        for kt in range(-(-tk // TILE)):
+            k0 = kt * TILE
+            if length < 1 or (k0 < min(length, tk)
+                              and (not causal or k0 <= last_q)):
+                out.add((qt, kt))
+    return out
+
+
+def _walked(tq, tk, length, causal):
+    """The tile pairs each kernel's walks visit: (dk/dv, dq)."""
+    nq, nk = -(-tq // TILE), -(-tk // TILE)
+    dkv = {(qt, kt) for kt in range(nk)
+           for qt in range(_qt_begin(kt, length, tq, causal), nq)}
+    dq = {(qt, kt) for qt in range(nq)
+          for kt in range(_key_tiles(qt, length, tk, causal))}
+    return dkv, dq
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_walks_cover_every_nonzero_pair(causal):
+    """For T 1 to 1100 (Tq = Tk) and lengths 0, 1 and T, every tile
+    pair holding a nonzero probability lies on both kernels' walks, and
+    the two kernels walk the same pairs (dq and dk/dv sum the same
+    terms)."""
+    for t in range(1, 1101):
+        for length in (0, 1, t):
+            need = _needed(t, t, length, causal)
+            dkv, dq = _walked(t, t, length, causal)
+            assert need <= dkv and dkv == dq, (t, length)
+
+
+def test_bwd_walks_cover_the_cross_shape():
+    """Tq 96 x Tk 256, non-causal, lengths 256, 0 and 1 (K5b's cross
+    call), and Tk 8192, the envelope's edge."""
+    for tq, tk in ((96, 256), (100, 8192), (8192, 8192)):
+        for length in (tk, 0, 1, 131):
+            for causal in ((False,) if tq != tk else (False, True)):
+                need = _needed(tq, tk, length, causal)
+                dkv, dq = _walked(tq, tk, length, causal)
+                assert need <= dkv and dkv == dq, (tq, tk, length, causal)
+
+
+def _grid(kind, n_tiles, nheads, batch):
+    """(tile, head, batch) of each block in launch order: the grid is
+    (H, B, tiles), x fastest; the dk/dv kernel takes key tile z, the dq
+    kernel query tile tiles - 1 - z."""
+    for z in range(n_tiles):
+        for b in range(batch):
+            for h in range(nheads):
+                yield (z if kind == "dkv" else n_tiles - 1 - z, h, b)
+
+
+@pytest.mark.parametrize("t", [64, 640, 1100, 1536])
+def test_bwd_grid_runs_the_longest_walks_first(t):
+    """Each kernel's grid order is a permutation of every (tile, head,
+    batch); on causal rows of full length the walks never grow along it
+    (the longest start first, out of the tail)."""
+    nt, nheads, batch = -(-t // TILE), 3, 2
+    for kind in ("dkv", "dq"):
+        order = list(_grid(kind, nt, nheads, batch))
+        assert sorted(order) == sorted(
+            (i, h, b) for i in range(nt) for h in range(nheads)
+            for b in range(batch))
+        if kind == "dkv":
+            walks = [nt - _qt_begin(i, t, t, True) for i, _, _ in order]
+        else:
+            walks = [_key_tiles(i, t, t, True) for i, _, _ in order]
+        assert walks == sorted(walks, reverse=True), kind
+        assert walks[0] == nt
+
+
+def test_bwd_smem_plan_fits_every_shape():
+    """The bf16 K4b/K5b plan fits the 232,448 bytes a block may use on an
+    H100, holds its tiles, rows and mbarriers and rings at least two
+    stages; nothing in it grows with T, so it holds every shape the
+    envelope admits (K4b: Tq = Tk <= 1024; K5b: Tk <= 8192)."""
+    tile_bytes = TILE * 64 * 2
+    plan = fa.bwd_smem_plan()
+    assert plan.stages >= 2 and plan.bytes <= SMEM_LIMIT
+    assert plan.bytes >= (1023 + (2 + 2 * plan.stages) * tile_bytes
+                          + plan.stages * 4 * TILE * 4
+                          + 8 * (1 + 2 * plan.stages))
+
+
 # ----------------------------------------------------------------- card
 @pytest.fixture
 def cuda_device():
@@ -205,21 +329,29 @@ def cuda_device():
     return torch.device("cuda")
 
 
+CUDA_CASES = {"k4b_causal": (300, 300, True),
+              "k4b_noncausal": (300, 300, False),
+              "k4b_200": (200, 200, True), "k4b_640": (640, 640, True),
+              "k4b_1000": (1000, 1000, True),
+              "k4b_1024": (1024, 1024, True),
+              "k5b_self": (1100, 1100, True),
+              "k5b_1536": (1536, 1536, True),
+              "k5b_cross": (96, 256, False)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["k4b_causal", "k4b_noncausal", "k5b_self",
-                                  "k5b_cross"])
+@pytest.mark.parametrize("case", list(CUDA_CASES))
+@pytest.mark.parametrize("alibi", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_k4b_k5b_match_plain(cuda_device, case, dtype):
-    """K4b at T 300 (K4's lse; causal and not) and K5b at T 1100 and 96 x
-    256 (non-causal), from strided views of packed projections, against
-    their plain versions; lengths down to 0 and 1.  float32 to 1e-4
-    max|ref|; bf16 to 2e-2 max|ref|, element by element 2 bf16 ulps +
-    2e-2 rms(ref), relative L2 1e-3."""
+def test_cuda_k4b_k5b_match_plain(cuda_device, case, alibi, dtype):
+    """K4b at T 200, 300 (causal and not), 640, 1000 and 1024 (K4's lse)
+    and K5b at T 1100, 1536 and 96 x 256 (non-causal), ALiBi on and off,
+    from strided views of packed projections, against their plain
+    versions; lengths down to 0 and 1.  bf16 takes the ``bwd_wgmma``
+    kernels.  float32 to 1e-4 max|ref|; bf16 to 2e-2 max|ref|, element
+    by element 2 bf16 ulps + 2e-2 rms(ref), relative L2 1e-3."""
     b, h, d = 3, 3, 64
-    tq, tk, causal = {"k4b_causal": (300, 300, True),
-                      "k4b_noncausal": (300, 300, False),
-                      "k5b_self": (1100, 1100, True),
-                      "k5b_cross": (96, 256, False)}[case]
+    tq, tk, causal = CUDA_CASES[case]
     gen = torch.Generator(cuda_device).manual_seed(11)
     xq = torch.randn((b, tq, 2 * h * d), generator=gen, device=cuda_device)
     xkv = torch.randn((b, tk, 2 * h * d), generator=gen, device=cuda_device)
@@ -228,7 +360,8 @@ def test_cuda_k4b_k5b_match_plain(cuda_device, case, dtype):
     k, v = (x.view(b, tk, h, d).transpose(1, 2)
             for x in xkv.to(dtype).chunk(2, dim=-1))
     lengths = torch.tensor([tk, 1, 0], dtype=torch.int32, device=cuda_device)
-    slopes = -torch.tensor(alibi_slopes(h), device=cuda_device)
+    slopes = (-torch.tensor(alibi_slopes(h), device=cuda_device) if alibi
+              else None)
     if case.startswith("k4b"):
         o, lse = fa.flash_forward_full(q, k, v, lengths, slopes, causal,
                                        with_stats=True)

@@ -17,9 +17,11 @@
 // row statistics) are the backwards of that (B, H, T, D) custom VJP.  The
 // three forwards share a tiled float32 body and K5's bfloat16 body; K3
 // and K4 in bfloat16 have a Hopper body of their own (wgmma, TMA); the
-// three backwards share another.  Each has an entry point and kernel
-// symbols of its own (k3_/k4_/k5_fwd*, k3b_/k4b_/k5b_{dkv,dq}*,
-// k5b_stats*), so a profile tells them apart.  Every operand is read
+// three backwards share another in float32 and K3b's in bfloat16, and
+// K4b and K5b in bfloat16 have a Hopper body of their own (bwd_wgmma).
+// Each has an entry point and kernel symbols of its own
+// (k3_/k4_/k5_fwd*, k3b_/k4b_/k5b_{dkv,dq}*, k5b_stats*), so a profile
+// tells them apart.  Every operand is read
 // through (batch, head, row) element strides with a contiguous feature
 // axis (the bf16 forward builds TMA tensor maps from them), so packed
 // projection views and (B, H, T, D) tensors both go in without a copy.
@@ -52,9 +54,10 @@
 //   * backward: two launches and no atomics, so runs agree bit for bit:
 //     one block per key tile walks the query tiles for dk and dv, one per
 //     query tile walks the key tiles for dq.  K5b, which gets no lse,
-//     runs a third launch before them, the forward's pass 1 alone, that
-//     writes each row's m and l; whether a body reads l is a template
-//     parameter, so K3b and K4b compile without it.  The TPU's q-tile
+//     runs a third launch before them in float32, the forward's pass 1
+//     alone, that writes each row's m and l (in bfloat16 the dq kernel's
+//     first pass); whether a body reads l is a template parameter, so
+//     K3b and K4b compile without it.  The TPU's q-tile
 //     grid that carries dk/dv across sequential steps (K5b) becomes the
 //     key-tile block's own loop over the query tiles.
 // Key tiles past the causal edge or at or past lengths[b] add exact zeros
@@ -62,12 +65,12 @@
 // uniform over all Tk keys, as in the reference.
 //
 // Two element types, two product routes.  bfloat16 (the training path
-// under 16-mixed) multiplies on the tensor cores: K3/K4's forward with
-// wgmma (below), K5 and the backwards with mma.sync (m16n8k16); exact
-// bf16 products, float32 sums in the hardware's order.  float32
-// multiplies with scalar FMAs out of shared memory (4 x 4 outputs per
-// thread, float4 operand loads), since the tensor cores would round its
-// operands to TF32.
+// under 16-mixed) multiplies on the tensor cores: K3/K4's forward and
+// K4b/K5b's backward with wgmma (below), K5 and K3b with mma.sync
+// (m16n8k16); exact bf16 products, float32 sums in the hardware's order.
+// float32 multiplies with scalar FMAs out of shared memory (4 x 4
+// outputs per thread, float4 operand loads), since the tensor cores
+// would round its operands to TF32.
 //
 // K3/K4 bfloat16 forward (fwd_wgmma).  JAX normalises p = exp(s - m) / l
 // before P.V, so m and l are final before any p is formed: two passes
@@ -108,12 +111,41 @@
 // bound by its products: ~50 GFLOP of causal pairs at the 67 TFLOP/s
 // float32 rate of the FMA units (~0.75 ms) against ~0.2 GB of HBM
 // traffic (~0.07 ms).
-// The mma.sync kernels (K5 bf16, the backwards) run far from that
-// bound: fragments are loaded from shared memory by plain loads (no
-// ldmatrix, no TMA, no pipelining of the next tile's loads), K5 reads
-// every key tile twice, and the backward launches recompute every
-// (query, key) pair (three times in K5b, whose statistics pass runs
-// first).
+// The mma.sync kernels (K5 bf16, K3b) run far from that bound:
+// fragments are loaded from shared memory by plain loads (no ldmatrix,
+// no TMA, no pipelining of the next tile's loads), K5 reads every key
+// tile twice, and K3b's two launches recompute every (query, key) pair.
+//
+// K4b/K5b bfloat16 backward (bwd_wgmma).  Two launches, no atomics, so
+// the outputs are the same bits from run to run: the dq kernel, one
+// block per (64-query tile, head, batch), the longest causal walks
+// first, then the dk/dv kernel, one block per (64-key tile, head,
+// batch), the same.  Each block keeps two tiles (Q and dO, or K and V)
+// and a producer warp streams the walk's other two through a ring by
+// TMA (tensor maps from the strides, zero fill past Tq or Tk; the
+// dk/dv walk's float32 query rows of lse or m, l, 1/l and delta by
+// plain loads, 0, 1, 1 and 0 past Tq).  One consumer warpgroup forms both
+// logit-side products from shared memory with wgmma (S = Q K^T and
+// dP = dO V^T, or S^T = K Q^T and dP^T = V dO^T, all K-major), p and ds
+// in registers, and the gradient products with the bf16 A fragments in
+// registers: dQ += dS K, dV += P^T dO, dK += dS^T Q, with K, dO and Q
+// read MN-major through the transpose bit, so no tile is ever copied
+// transposed.  K5b's row statistics are the dq kernel's pass 1 (online
+// m and l over the key tiles, which stream twice: Tk up to 8192 does not
+// stay resident); it writes m and l for the dk/dv kernel and keeps them
+// in registers.  p = ex2((x - lse) log2(e)) in K4b, as the forward; in
+// K5b expf(x - m) / l, the quotient correctly rounded (its product by
+// 1/l and one FMA correction), as JAX's kernel divides: with rows of up
+// to 8192 keys, a few ulps more in p (ex2.approx, or the product alone)
+// flip enough of ds's bf16 roundings against the plain version's to
+// fail the element-wise gate at Tk 8192 (bwd_prob); ds = p (dp - delta)
+// rounded to bf16, the 1/sqrt(D) scale on dq and dk.  Interior tiles
+// skip the length and causal tests.  The wrapper's bwd_smem_plan sizes
+// the shared memory (the same for both kernels and every T), which the
+// launcher checks.
+// Per (query, key) pair it runs the five products the backward needs
+// (K5b: six, its statistics recompute Q K^T), where K3b's mma.sync body
+// runs seven.
 //
 // Each launch function returns cudaGetLastError() after its launches.
 
@@ -642,8 +674,7 @@ constexpr int MT = MW * 32;             // threads per block
 constexpr int LH = HD + 8;              // bf16 pitch of a shared tile
 constexpr int SH = TILE * LH;           // bf16 elements per shared tile
 constexpr int FWD_MMA_SMEM = 3 * SH * 2;
-constexpr int STATS_MMA_SMEM = 2 * SH * 2;
-constexpr int DKV_MMA_SMEM = 4 * SH * 2 + 3 * TILE * 4;
+constexpr int DKV_MMA_SMEM = 4 * SH * 2 + 2 * TILE * 4;
 constexpr int DQ_MMA_SMEM = 3 * SH * 2;
 
 __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
@@ -1246,49 +1277,6 @@ __global__ void __launch_bounds__(WG_NT) k4_fwd_wgmma_kernel(FWD_WGMMA_ARGS) {
   fwd_wgmma(FWD_WGMMA_PASS);
 }
 
-// K5b's bfloat16 row statistics, as stats_f32.
-__device__ __forceinline__ void stats_mma(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const int* __restrict__ lengths, const float* __restrict__ slopes,
-    float* __restrict__ m_out, float* __restrict__ l_out, Seq sq, Seq sk,
-    int tq, int tk, int nheads, int causal, float scale) {
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);
-  bf16* Ks = Qs + SH;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int w = threadIdx.x >> 5, q0 = qt * TILE, row0 = q0 + w * 16;
-  const int len = lengths[b];
-  const int use_alibi = slopes != nullptr;
-  const float slope = use_alibi ? slopes[h] : 0.f;
-  load_bf16(Qs, nullptr, q + b * sq.bs + h * sq.hs, sq.rs, q0, tq);
-  __syncthreads();
-  uint32_t qa[4][4];
-  a_frags(qa, Qs, w * 16);
-  float m[2], l[2];
-  pass1_mma(qa, Ks, k + b * sk.bs + h * sk.hs, sk.rs, row0,
-            key_tiles(qt, len, tk, causal), tk, len, causal, use_alibi,
-            slope, scale, m, l);
-  if (threadIdx.x & 3) return;
-  const long long base = ((long long)b * nheads + h) * tq;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = row0 + frag_row(2 * hr);
-    if (r >= tq) continue;
-    m_out[base + r] = m[hr];
-    l_out[base + r] = l[hr];
-  }
-}
-
-#define STATS_MMA_ARGS                                                    \
-  const bf16 *__restrict__ q, const bf16 *__restrict__ k,                 \
-      const int *__restrict__ lengths, const float *__restrict__ slopes,  \
-      float *__restrict__ m_out, float *__restrict__ l_out, Seq sq,       \
-      Seq sk, int tq, int tk, int nheads, int causal, float scale
-
-__global__ void __launch_bounds__(MT) k5b_stats_mma_kernel(STATS_MMA_ARGS) {
-  stats_mma(STATS_PASS);
-}
-
 #define BWD_MMA_COMMON                                                    \
   const bf16 *__restrict__ q, const bf16 *__restrict__ k,                 \
       const bf16 *__restrict__ v, const bf16 *__restrict__ g,             \
@@ -1303,11 +1291,10 @@ __global__ void __launch_bounds__(MT) k5b_stats_mma_kernel(STATS_MMA_ARGS) {
   BWD_MMA_COMMON, bf16 *__restrict__ dq, Seq sq, Seq sk, Seq sv, Seq sg,  \
       Seq sdq, int tq, int tk, int nheads, int causal, float scale
 
-// dk, dv of one 64-key tile, each warp 16 keys, in the transposed
+// K3b's dk, dv of one 64-key tile, each warp 16 keys, in the transposed
 // orientation (rows = keys, columns = queries) so that p^T and ds^T feed
-// the dv and dk products straight from their accumulators (HAVE_L as in
-// dkv_f32).
-template <bool HAVE_L>
+// the dv and dk products straight from their accumulators; p = exp(s -
+// lse) (rowl unread).
 __device__ __forceinline__ void dkv_mma(DKV_MMA_ARGS) {
   extern __shared__ float4 smem4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [q][d]: B of S^T = K Q^T
@@ -1315,8 +1302,7 @@ __device__ __forceinline__ void dkv_mma(DKV_MMA_ARGS) {
   bf16* Gs = Qt + SH;                         // [q][d]: B of dP^T = V dO^T
   bf16* Gt = Gs + SH;                         // [d][q]: B of dV += P^T dO
   float* a_s = reinterpret_cast<float*>(Gt + SH);
-  float* l_s = a_s + TILE;
-  float* delta_s = l_s + TILE;
+  float* delta_s = a_s + TILE;
   const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int w = threadIdx.x >> 5, k0 = kt * TILE, key0 = k0 + w * 16;
   const int len = lengths[b];
@@ -1350,7 +1336,6 @@ __device__ __forceinline__ void dkv_mma(DKV_MMA_ARGS) {
     for (int i = threadIdx.x; i < TILE; i += MT) {
       const int r = q0 + i;
       a_s[i] = r < tq ? rowa[bh * tq + r] : 0.f;
-      if (HAVE_L) l_s[i] = r < tq ? rowl[bh * tq + r] : 1.f;
       delta_s[i] = r < tq ? delta[bh * tq + r] : 0.f;
     }
     __syncthreads();
@@ -1367,7 +1352,7 @@ __device__ __forceinline__ void dkv_mma(DKV_MMA_ARGS) {
         if (r < tq && c < tk) {
           const float x = logit(s[nt][e], r, c, len, causal, use_alibi,
                                 slope, scale);
-          p = prob<HAVE_L>(x, a_s[ri], HAVE_L ? l_s[ri] : 1.f);
+          p = prob<false>(x, a_s[ri], 1.f);
           ds = __fmul_rn(p, __fsub_rn(dp[nt][e], delta_s[ri]));
         }
         s[nt][e] = p;
@@ -1396,8 +1381,7 @@ __device__ __forceinline__ void dkv_mma(DKV_MMA_ARGS) {
   }
 }
 
-// dq of one 64-query tile, each warp 16 queries (HAVE_L as in dkv_f32).
-template <bool HAVE_L>
+// K3b's dq of one 64-query tile, each warp 16 queries (as dkv_mma).
 __device__ __forceinline__ void dq_mma(DQ_MMA_ARGS) {
   extern __shared__ float4 smem4[];
   bf16* Ks = reinterpret_cast<bf16*>(smem4);  // [key][d]: B of S = Q K^T
@@ -1418,12 +1402,11 @@ __device__ __forceinline__ void dq_mma(DQ_MMA_ARGS) {
   __syncthreads();
   a_frags(qa, Ks, w * 16);
   a_frags(ga, Vs, w * 16);
-  float a_r[2], l_r[2], delta_r[2];
+  float a_r[2], delta_r[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int r = row0 + frag_row(2 * hr);
     a_r[hr] = r < tq ? rowa[bh * tq + r] : 0.f;
-    l_r[hr] = HAVE_L && r < tq ? rowl[bh * tq + r] : 1.f;
     delta_r[hr] = r < tq ? delta[bh * tq + r] : 0.f;
   }
   float acc[8][4], s[8][4], dp[8][4];
@@ -1447,7 +1430,7 @@ __device__ __forceinline__ void dq_mma(DQ_MMA_ARGS) {
         if (r < tq && c < tk) {
           const float x = logit(s[nt][e], r, c, len, causal, use_alibi,
                                 slope, scale);
-          const float p = prob<HAVE_L>(x, a_r[e >> 1], l_r[e >> 1]);
+          const float p = prob<false>(x, a_r[e >> 1], 1.f);
           ds = __fmul_rn(p, __fsub_rn(dp[nt][e], delta_r[e >> 1]));
         }
         dp[nt][e] = ds;
@@ -1468,38 +1451,516 @@ __device__ __forceinline__ void dq_mma(DQ_MMA_ARGS) {
   }
 }
 
+// K3b's bfloat16 backward (K4b and K5b take bwd_wgmma below).
 __global__ void __launch_bounds__(MT) k3b_dkv_mma_kernel(DKV_MMA_ARGS) {
-  dkv_mma<false>(DKV_PASS);
-}
-__global__ void __launch_bounds__(MT) k4b_dkv_mma_kernel(DKV_MMA_ARGS) {
-  dkv_mma<false>(DKV_PASS);
-}
-__global__ void __launch_bounds__(MT) k5b_dkv_mma_kernel(DKV_MMA_ARGS) {
-  dkv_mma<true>(DKV_PASS);
+  dkv_mma(DKV_PASS);
 }
 __global__ void __launch_bounds__(MT) k3b_dq_mma_kernel(DQ_MMA_ARGS) {
-  dq_mma<false>(DQ_PASS);
+  dq_mma(DQ_PASS);
 }
-__global__ void __launch_bounds__(MT) k4b_dq_mma_kernel(DQ_MMA_ARGS) {
-  dq_mma<false>(DQ_PASS);
+
+// ------------------------------------------------------------------
+// K4b/K5b bfloat16 backward for Hopper (bwd_wgmma): TMA rings, wgmma
+// products, no transposed copies (the design note at the top of the
+// file).
+// ------------------------------------------------------------------
+constexpr int ROW_FLOATS = 4 * TILE;   // a stage's lse or m, l, 1/l, delta
+
+// The dynamic shared memory of a backward plan with `stages` ring
+// stages: alignment slack, two resident tiles (K and V, or Q and dO),
+// two tiles per stage (Q and dO, or K and V), each stage's float32 query
+// rows (read by the dk/dv kernel), then the mbarriers (the resident
+// tiles', full and empty per stage).  ops/flash_attention.py's
+// bwd_smem_plan computes the same.
+constexpr int bwd_plan_bytes(int stages) {
+  return 1024 + (2 + 2 * stages) * TILE_BYTES + stages * ROW_FLOATS * 4 +
+         8 * (1 + 2 * stages);
 }
-__global__ void __launch_bounds__(MT) k5b_dq_mma_kernel(DQ_MMA_ARGS) {
-  dq_mma<true>(DQ_PASS);
+
+// The logit of accumulator element i of a backward tile: rows from rr,
+// columns from cc (element i at row rr + 8 ((i >> 1) & 1), column cc +
+// 8 (i >> 2) + (i & 1)), keys along the rows (KEY_ROWS: the dk/dv
+// kernel's S^T) or along the columns; dt = rr - cc.  EDGE tiles also
+// mask: -inf for keys at or past tk or queries at or past tq (p = 0, as
+// the mma kernels' r < tq && c < tk test), -1e30 at or past len or
+// after the query (causal).
+template <bool EDGE, bool KEY_ROWS>
+__device__ __forceinline__ float bwd_logit(float s, int i, float dt, int rr,
+                                           int cc, int tq, int tk, int len,
+                                           int causal, float slope,
+                                           float scale) {
+  const int j = (i >> 1) & 1, nt = i >> 2, e = i & 1;
+  const float x = fmaf(
+      s, scale, __fmul_rn(slope, fabsf(dt + (float)(8 * j - 8 * nt - e))));
+  if (!EDGE) return x;
+  const int row = rr + 8 * j, col = cc + 8 * nt + e;
+  const int key = KEY_ROWS ? row : col, qry = KEY_ROWS ? col : row;
+  if (key >= tk || qry >= tq) return -INFINITY;
+  return key < len && (!causal || key <= qry) ? x : NEG_INF;
+}
+
+// p of a logit from its query row's statistics: K4b (a = lse; ex2 of
+// (x - lse) log2(e), as the forward) or K5b (HAVE_L: a = m, l and its
+// reciprocal inv; expf(x - m) / l as JAX's kernel, the quotient
+// correctly rounded by one FMA correction of its product by inv).  At
+// Tk up to 8192 a row's dq and a key's dk sum thousands of ds terms,
+// each rounded to bf16: ex2.approx of a rounded product (a few ulps) and
+// the product by 1/l (1.5 ulps) flip those roundings against the plain
+// version's often enough to fail the element-wise gate.
+template <bool HAVE_L>
+__device__ __forceinline__ float bwd_prob(float x, float a, float l,
+                                          float inv) {
+  if (!HAVE_L) return ex2(__fmul_rn(__fsub_rn(x, a), LOG2E));
+  const float e = expf(__fsub_rn(x, a));
+  const float q = __fmul_rn(e, inv);
+  return fmaf(fmaf(-q, l, e), inv, q);
+}
+
+// d = A B^T over the 64 features, A and B 64 x 64 K-major tiles in
+// shared memory (four k16 steps, 32 bytes apart in the swizzled rows);
+// issued, not committed.
+__device__ __forceinline__ void ss_tile(float (&d)[32], uint32_t a,
+                                        uint32_t b) {
+  const uint64_t da = sw128_desc(a, 16, 1024), db = sw128_desc(b, 16, 1024);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) wgmma_ss(d, da + 2 * ks, db + 2 * ks, ks);
+}
+// d += A B, A's bf16 fragments in registers (four per k16 step), B a
+// 64 x 64 tile whose rows are the product's k, read MN-major (the
+// transpose bit; 16 rows = two 1024-byte atoms per step); issued, not
+// committed.
+__device__ __forceinline__ void rs_tile(float (&d)[32],
+                                        const uint32_t (&a)[16],
+                                        uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    wgmma_rs(d, a + 4 * ks, sw128_desc(b + ks * 2048, 1024, 1024));
+}
+
+// The dk/dv kernel's p^T and ds^T fragments of one (key tile, query
+// tile) pair from S^T and dP^T: keys along the rows from cr, queries
+// along the columns from qc, each query's a, l, 1/l and delta from the
+// stage's rows r_s (index in the tile).
+template <bool EDGE, bool HAVE_L>
+__device__ __forceinline__ void dkv_frags(uint32_t (&pa)[16],
+                                          uint32_t (&sa)[16],
+                                          const float (&s)[32],
+                                          const float (&dp)[32],
+                                          const float* r_s, int cr, int qc,
+                                          int q0, int tq, int tk, int len,
+                                          int causal, float slope,
+                                          float scale) {
+  const float dt = (float)(cr - q0 - qc);
+#pragma unroll
+  for (int u = 0; u < 16; ++u) {
+    const int c = qc + 8 * (u >> 1);
+    const float2 a = *reinterpret_cast<const float2*>(r_s + c);
+    const float2 ll = *reinterpret_cast<const float2*>(r_s + TILE + c);
+    const float2 il = *reinterpret_cast<const float2*>(r_s + 2 * TILE + c);
+    const float2 de = *reinterpret_cast<const float2*>(r_s + 3 * TILE + c);
+    float p[2], ds[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 2 * u + e;
+      const float x = bwd_logit<EDGE, true>(s[i], i, dt, cr, q0 + qc, tq,
+                                            tk, len, causal, slope, scale);
+      p[e] = bwd_prob<HAVE_L>(x, e ? a.y : a.x, e ? ll.y : ll.x,
+                              e ? il.y : il.x);
+      ds[e] = __fmul_rn(p[e], __fsub_rn(dp[i], e ? de.y : de.x));
+    }
+    pa[u] = pack(p[0], p[1]);    // p^T rounded to dO's type
+    sa[u] = pack(ds[0], ds[1]);  // ds^T rounded to q's type
+  }
+}
+
+// dk, dv of one (64-key tile, head, batch): the producer warp loads K
+// and V once and streams the walk's Q and dO tiles (TMA) with their
+// rows of lse (or m, l, 1/l) and delta (plain loads: 0, 1, 1 and 0 past
+// tq)
+// through the ring; the consumer warpgroup forms S^T = K Q^T and
+// dP^T = V dO^T (wgmma, shared operands), p^T and ds^T in registers,
+// and dV += P^T dO, dK += dS^T Q (wgmma, A in registers, dO and Q read
+// MN-major).  Key tiles run in the grid's slowest axis from 0, the
+// longest causal walks first.
+template <bool HAVE_L>
+__device__ __forceinline__ void dkv_wgmma(
+    const CUtensorMap* mq, const CUtensorMap* mk, const CUtensorMap* mv,
+    const CUtensorMap* mg, const float* __restrict__ rowa,
+    const float* __restrict__ rowl, const float* __restrict__ delta,
+    const int* __restrict__ lengths, const float* __restrict__ slopes,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, Seq sdk, Seq sdv, int tq,
+    int tk, int nheads, int causal, float scale, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t s_k = base, s_v = base + TILE_BYTES;
+  const uint32_t ring = base + 2 * TILE_BYTES;   // stage st: Q, then dO
+  const uint32_t rows_off = (2 + 2 * stages) * TILE_BYTES;
+  float* rows = reinterpret_cast<float*>(smem_raw + (base - raw) + rows_off);
+  const uint32_t b_kv = base + rows_off + stages * ROW_FLOATS * 4;
+  const uint32_t b_full = b_kv + 8, b_empty = b_full + 8 * stages;
+  const int h = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int k0 = kt * TILE, len = lengths[b], tid = threadIdx.x;
+  const int nq = (tq + TILE - 1) / TILE;
+  int qt_begin = 0;
+  if (len >= 1) {
+    if (k0 >= len) qt_begin = nq;          // every p of this tile is 0
+    else if (causal) qt_begin = kt;
+  }
+  const int walk = nq - qt_begin;
+  const long long bh = (long long)b * nheads + h;
+
+  if (tid == 0) {
+    mbar_init(b_kv, 1);
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(b_full + 8 * st, 32);    // every producer lane
+      mbar_init(b_empty + 8 * st, 4);    // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= WG) {   // the producer warp
+    const int lane = tid - WG;
+    if (walk > 0 && lane == 0) {
+      mbar_expect(b_kv, 2 * TILE_BYTES);
+      tma_tile(s_k, mk, b_kv, k0, h, b);
+      tma_tile(s_v, mv, b_kv, k0, h, b);
+    }
+    for (int n = 0; n < walk; ++n) {
+      const int st = n % stages, q0 = (qt_begin + n) * TILE;
+      if (n >= stages) mbar_wait(b_empty + 8 * st, (n / stages - 1) & 1);
+      float* r_s = rows + st * ROW_FLOATS;
+      for (int i = lane; i < TILE; i += 32) {
+        const int r = q0 + i;
+        const bool in = r < tq;
+        const float l = HAVE_L && in ? rowl[bh * tq + r] : 1.f;
+        r_s[i] = in ? rowa[bh * tq + r] : 0.f;
+        r_s[TILE + i] = l;
+        r_s[2 * TILE + i] = 1.f / l;
+        r_s[3 * TILE + i] = in ? delta[bh * tq + r] : 0.f;
+      }
+      const uint32_t full = b_full + 8 * st;
+      if (lane == 0) {   // its arrival carries the tiles' bytes
+        const uint32_t dst = ring + st * 2 * TILE_BYTES;
+        mbar_expect(full, 2 * TILE_BYTES);
+        tma_tile(dst, mq, full, q0, h, b);
+        tma_tile(dst + TILE_BYTES, mg, full, q0, h, b);
+      } else {
+        mbar_arrive(full);
+      }
+    }
+    return;
+  }
+
+  const int w = tid >> 5, lane = tid & 31;
+  const int cr = k0 + 16 * w + (lane >> 2);   // keys cr and cr + 8
+  const int qc = 2 * (lane & 3);              // query columns qc + 8 nt + e
+  const float slope = slopes != nullptr ? slopes[h] : 0.f;
+  // the key tile lies wholly inside the length (and below tk)
+  const bool keys_in = k0 + TILE <= min(len, tk);
+  float acc_k[32], acc_v[32], s[32], dp[32];
+  uint32_t pa[16], sa[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_k[i] = acc_v[i] = 0.f;
+  if (walk > 0) mbar_wait(b_kv, 0);
+  for (int n = 0; n < walk; ++n) {
+    const int st = n % stages, qt = qt_begin + n, q0 = qt * TILE;
+    const uint32_t sq = ring + st * 2 * TILE_BYTES, sg = sq + TILE_BYTES;
+    mbar_wait(b_full + 8 * st, (n / stages) & 1);
+    __syncwarp();
+    wg_fence();
+    ss_tile(s, s_k, sq);    // S^T = K Q^T
+    ss_tile(dp, s_v, sg);   // dP^T = V dO^T
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    const float* r_s = rows + st * ROW_FLOATS;
+    if (keys_in && q0 + TILE <= tq && (!causal || kt < qt))
+      dkv_frags<false, HAVE_L>(pa, sa, s, dp, r_s, cr, qc, q0, tq, tk, len,
+                               causal, slope, scale);
+    else
+      dkv_frags<true, HAVE_L>(pa, sa, s, dp, r_s, cr, qc, q0, tq, tk, len,
+                              causal, slope, scale);
+    wg_fence();
+    rs_tile(acc_v, pa, sg);   // dV += P^T dO
+    rs_tile(acc_k, sa, sq);   // dK += dS^T Q
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(acc_v);
+    reg_fence(acc_k);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(b_empty + 8 * st);
+  }
+
+  bf16* dkb = dk + b * sdk.bs + h * sdk.hs;
+  bf16* dvb = dv + b * sdv.bs + h * sdv.hs;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int c = cr + 8 * j;
+    if (c >= tk) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int d = 8 * nt + qc, i = 4 * nt + 2 * j;
+      *reinterpret_cast<uint32_t*>(dkb + c * sdk.rs + d) =
+          pack(__fmul_rn(acc_k[i], scale), __fmul_rn(acc_k[i + 1], scale));
+      *reinterpret_cast<uint32_t*>(dvb + c * sdv.rs + d) =
+          pack(acc_v[i], acc_v[i + 1]);
+    }
+  }
+}
+
+// The dq kernel's ds fragments of one (query tile, key tile) pair from
+// S and dP: queries along the rows from rr (rows rr and rr + 8 with
+// their a, l, 1/l and delta), keys along the columns from cc.
+template <bool EDGE, bool HAVE_L>
+__device__ __forceinline__ void dq_frags(uint32_t (&sa)[16],
+                                         const float (&s)[32],
+                                         const float (&dp)[32],
+                                         const float (&a_r)[2],
+                                         const float (&l_r)[2],
+                                         const float (&inv_r)[2],
+                                         const float (&del_r)[2], int rr,
+                                         int cc, int tq, int tk, int len,
+                                         int causal, float slope,
+                                         float scale) {
+  const float dt = (float)(rr - cc);
+#pragma unroll
+  for (int u = 0; u < 16; ++u) {
+    const int j = u & 1;
+    float ds[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 2 * u + e;
+      const float x = bwd_logit<EDGE, false>(s[i], i, dt, rr, cc, tq, tk,
+                                             len, causal, slope, scale);
+      const float p = bwd_prob<HAVE_L>(x, a_r[j], l_r[j], inv_r[j]);
+      ds[e] = __fmul_rn(p, __fsub_rn(dp[i], del_r[j]));
+    }
+    sa[u] = pack(ds[0], ds[1]);   // ds rounded to q's type
+  }
+}
+
+// dq of one (64-query tile, head, batch): Q and dO are loaded once, K
+// (pass 1) and K with V (pass 2) stream through the ring.  HAVE_L (K5b):
+// pass 1 walks the key tiles for each row's m and l (online, as the
+// forward's pass 1) and writes m to rowa and l to rowl for the dk/dv
+// kernel, which runs after; without it (K4b) rowa holds K4's lse.  Pass
+// 2 forms S = Q K^T and dP = dO V^T (wgmma, shared operands), ds in
+// registers and dQ += dS K (A in registers, K read MN-major).  Query
+// tiles run in the grid's slowest axis from the last, the longest causal
+// walks first.
+template <bool HAVE_L>
+__device__ __forceinline__ void dq_wgmma(
+    const CUtensorMap* mq, const CUtensorMap* mk, const CUtensorMap* mv,
+    const CUtensorMap* mg, float* __restrict__ rowa,
+    float* __restrict__ rowl, const float* __restrict__ delta,
+    const int* __restrict__ lengths, const float* __restrict__ slopes,
+    bf16* __restrict__ dq, Seq sdq, int tq, int tk, int nheads, int causal,
+    float scale, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t s_q = base, s_g = base + TILE_BYTES;
+  const uint32_t ring = base + 2 * TILE_BYTES;   // stage st: K, then V
+  const uint32_t b_qg = base + (2 + 2 * stages) * TILE_BYTES +
+                        stages * ROW_FLOATS * 4;
+  const uint32_t b_full = b_qg + 8, b_empty = b_full + 8 * stages;
+  const int n_qt = (tq + TILE - 1) / TILE;
+  const int h = blockIdx.x, b = blockIdx.y, qt = n_qt - 1 - blockIdx.z;
+  const int q0 = qt * TILE, len = lengths[b], tid = threadIdx.x;
+  const int kt_end = key_tiles(qt, len, tk, causal);
+  const int n1 = HAVE_L ? kt_end : 0;   // pass 1's ring items
+  const long long bh = (long long)b * nheads + h;
+
+  if (tid == 0) {
+    mbar_init(b_qg, 1);
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(b_full + 8 * st, 1);
+      mbar_init(b_empty + 8 * st, 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= WG) {   // the producer warp: one thread issues every copy
+    if (tid == WG) {
+      mbar_expect(b_qg, 2 * TILE_BYTES);
+      tma_tile(s_q, mq, b_qg, q0, h, b);
+      tma_tile(s_g, mg, b_qg, q0, h, b);
+      for (int n = 0; n < n1 + kt_end; ++n) {
+        const int st = n % stages, k0 = (n < n1 ? n : n - n1) * TILE;
+        const uint32_t dst = ring + st * 2 * TILE_BYTES;
+        const uint32_t full = b_full + 8 * st;
+        if (n >= stages) mbar_wait(b_empty + 8 * st, (n / stages - 1) & 1);
+        mbar_expect(full, (n < n1 ? 1 : 2) * TILE_BYTES);
+        tma_tile(dst, mk, full, k0, h, b);
+        if (n >= n1) tma_tile(dst + TILE_BYTES, mv, full, k0, h, b);
+      }
+    }
+    return;
+  }
+
+  const int w = tid >> 5, lane = tid & 31;
+  const int rr = q0 + 16 * w + (lane >> 2);   // query rows rr and rr + 8
+  const int cc = 2 * (lane & 3);              // key columns cc + 8 nt + e
+  const float slope = slopes != nullptr ? slopes[h] : 0.f;
+  float a_r[2], l_r[2], inv_r[2], del_r[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = rr + 8 * j;
+    a_r[j] = !HAVE_L && r < tq ? rowa[bh * tq + r] : 0.f;
+    l_r[j] = inv_r[j] = 1.f;
+    del_r[j] = r < tq ? delta[bh * tq + r] : 0.f;
+  }
+  float s[32], dp[32], acc[32];
+  uint32_t sa[16];
+  mbar_wait(b_qg, 0);
+
+  if (HAVE_L) {   // pass 1: m and l (expf), online over the key tiles
+    // key tiles [0, n_in) lie wholly inside the length and causal edges
+    int n_in = 0;
+    if (len >= 1) {
+      n_in = min(len, tk) / TILE;
+      if (causal) n_in = min(n_in, qt);
+    }
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int kt = 0; kt < kt_end; ++kt) {
+      const int st = kt % stages;
+      mbar_wait(b_full + 8 * st, (kt / stages) & 1);
+      __syncwarp();
+      wg_fence();
+      ss_tile(s, s_q, ring + st * 2 * TILE_BYTES);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(b_empty + 8 * st);
+      float x[32];   // the logits
+      if (kt < n_in)
+        tile_logits<false>(x, s, rr, kt * TILE + cc, tk, len, causal, slope,
+                           scale);
+      else
+        tile_logits<true>(x, s, rr, kt * TILE + cc, tk, len, causal, slope,
+                          scale);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          mx = fmaxf(mx, fmaxf(x[4 * nt + 2 * j], x[4 * nt + 2 * j + 1]));
+        const float m_new = fmaxf(m[j], quad_max(mx));
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            sum += expf(__fsub_rn(x[4 * nt + 2 * j + e], m_new));
+        l[j] = l[j] * expf(__fsub_rn(m[j], m_new)) + sum;
+        m[j] = m_new;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int r = rr + 8 * j;
+      a_r[j] = m[j];
+      l_r[j] = quad_sum(l[j]);
+      inv_r[j] = 1.f / l_r[j];
+      if (r < tq && (lane & 3) == 0) {
+        rowa[bh * tq + r] = a_r[j];
+        rowl[bh * tq + r] = l_r[j];
+      }
+    }
+  }
+
+  // pass 2: dQ += dS K
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  const bool rows_in = q0 + TILE <= tq;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int n = n1 + kt, st = n % stages, k0 = kt * TILE;
+    const uint32_t sk = ring + st * 2 * TILE_BYTES, sv = sk + TILE_BYTES;
+    mbar_wait(b_full + 8 * st, (n / stages) & 1);
+    __syncwarp();
+    wg_fence();
+    ss_tile(s, s_q, sk);    // S = Q K^T
+    ss_tile(dp, s_g, sv);   // dP = dO V^T
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    if (rows_in && k0 + TILE <= min(len, tk) && (!causal || kt < qt))
+      dq_frags<false, HAVE_L>(sa, s, dp, a_r, l_r, inv_r, del_r, rr,
+                              k0 + cc, tq, tk, len, causal, slope, scale);
+    else
+      dq_frags<true, HAVE_L>(sa, s, dp, a_r, l_r, inv_r, del_r, rr, k0 + cc,
+                             tq, tk, len, causal, slope, scale);
+    wg_fence();
+    rs_tile(acc, sa, sk);   // dQ += dS K
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(b_empty + 8 * st);
+  }
+
+  bf16* dqb = dq + b * sdq.bs + h * sdq.hs;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = rr + 8 * j;
+    if (r >= tq) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int i = 4 * nt + 2 * j;
+      *reinterpret_cast<uint32_t*>(dqb + r * sdq.rs + 8 * nt + cc) =
+          pack(__fmul_rn(acc[i], scale), __fmul_rn(acc[i + 1], scale));
+    }
+  }
+}
+
+#define BWD_WGMMA_MAPS                                                    \
+  const __grid_constant__ CUtensorMap mq,                                 \
+      const __grid_constant__ CUtensorMap mk,                             \
+      const __grid_constant__ CUtensorMap mv,                             \
+      const __grid_constant__ CUtensorMap mg
+#define DKV_WGMMA_ARGS                                                    \
+  BWD_WGMMA_MAPS, const float *__restrict__ rowa,                         \
+      const float *__restrict__ rowl, const float *__restrict__ delta,    \
+      const int *__restrict__ lengths, const float *__restrict__ slopes,  \
+      bf16 *__restrict__ dk, bf16 *__restrict__ dv, Seq sdk, Seq sdv,     \
+      int tq, int tk, int nheads, int causal, float scale, int stages
+#define DKV_WGMMA_PASS &mq, &mk, &mv, &mg, rowa, rowl, delta, lengths,    \
+                       slopes, dk, dv, sdk, sdv, tq, tk, nheads, causal, \
+                       scale, stages
+#define DQ_WGMMA_ARGS                                                     \
+  BWD_WGMMA_MAPS, float *__restrict__ rowa, float *__restrict__ rowl,     \
+      const float *__restrict__ delta, const int *__restrict__ lengths,   \
+      const float *__restrict__ slopes, bf16 *__restrict__ dq, Seq sdq,   \
+      int tq, int tk, int nheads, int causal, float scale, int stages
+#define DQ_WGMMA_PASS &mq, &mk, &mv, &mg, rowa, rowl, delta, lengths,     \
+                      slopes, dq, sdq, tq, tk, nheads, causal, scale,    \
+                      stages
+
+__global__ void __launch_bounds__(WG_NT) k4b_dkv_wgmma_kernel(DKV_WGMMA_ARGS) {
+  dkv_wgmma<false>(DKV_WGMMA_PASS);
+}
+__global__ void __launch_bounds__(WG_NT) k5b_dkv_wgmma_kernel(DKV_WGMMA_ARGS) {
+  dkv_wgmma<true>(DKV_WGMMA_PASS);
+}
+__global__ void __launch_bounds__(WG_NT) k4b_dq_wgmma_kernel(DQ_WGMMA_ARGS) {
+  dq_wgmma<false>(DQ_WGMMA_PASS);
+}
+__global__ void __launch_bounds__(WG_NT) k5b_dq_wgmma_kernel(DQ_WGMMA_ARGS) {
+  dq_wgmma<true>(DQ_WGMMA_PASS);
 }
 
 typedef void (*FwdF32)(FWD_F32_ARGS);
 typedef void (*DkvF32)(DKV_F32_ARGS);
-typedef void (*DkvMma)(DKV_MMA_ARGS);
 typedef void (*DqF32)(DQ_F32_ARGS);
-typedef void (*DqMma)(DQ_MMA_ARGS);
 constexpr FwdF32 FWD_F32[3] = {k3_fwd_kernel, k4_fwd_kernel, k5_fwd_kernel};
 constexpr DkvF32 DKV_F32[3] = {k3b_dkv_kernel, k4b_dkv_kernel,
                                k5b_dkv_kernel};
-constexpr DkvMma DKV_MMA[3] = {k3b_dkv_mma_kernel, k4b_dkv_mma_kernel,
-                               k5b_dkv_mma_kernel};
 constexpr DqF32 DQ_F32[3] = {k3b_dq_kernel, k4b_dq_kernel, k5b_dq_kernel};
-constexpr DqMma DQ_MMA[3] = {k3b_dq_mma_kernel, k4b_dq_mma_kernel,
-                             k5b_dq_mma_kernel};
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point (the
 // library links no -lcuda); null if the driver has none.
@@ -1527,7 +1988,7 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// Launch errors of the wgmma forward beyond cudaError_t: no encoder in
+// Launch errors of the wgmma kernels beyond cudaError_t: no encoder in
 // the driver, or the driver refused a tensor map (TMA_ENCODE + CUresult).
 constexpr int TMA_NO_ENCODER = 900;
 constexpr int TMA_ENCODE = 1000;
@@ -1626,27 +2087,93 @@ int launch_fwd(int kid, int use_mma, const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
+// K4b (`kid` 1: rowa = K4's lse, rowl null) or K5b (2: rowa and rowl
+// receive each query row's m and l) bfloat16 backward: the dq kernel
+// (K5b's row statistics folded into its pass 1), then the dk/dv kernel.
+// `smem` and `stages` are the wrapper's shared-memory plan; a plan that
+// cannot hold these launches is refused.
+int launch_bwd_wgmma(int kid, const void* q, const void* k, const void* v,
+                     const void* g, float* rowa, float* rowl,
+                     const float* delta, const int* lengths,
+                     const float* slopes, void* dq, void* dk, void* dv,
+                     Seq sq, Seq sk, Seq sv, Seq sg, Seq sdq, Seq sdk,
+                     Seq sdv, int B, int tq, int tk, int H, int causal,
+                     float scale, int smem, int stages,
+                     cudaStream_t stream) {
+  if (stages < 1 || smem < bwd_plan_bytes(stages) || smem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mg;
+  int err = tile_map(&mq, q, sq, tq, H, B);
+  if (!err) err = tile_map(&mg, g, sg, tq, H, B);
+  if (!err) err = tile_map(&mk, k, sk, tk, H, B);
+  if (!err) err = tile_map(&mv, v, sv, tk, H, B);
+  if (err) return err;
+  const int l = kid == 2;
+  const void* fq = l ? (const void*)k5b_dq_wgmma_kernel
+                     : (const void*)k4b_dq_wgmma_kernel;
+  const void* fkv = l ? (const void*)k5b_dkv_wgmma_kernel
+                      : (const void*)k4b_dkv_wgmma_kernel;
+  static int attr[2] = {0, 0};   // the largest size set per entry point
+  if (smem > attr[l]) {
+    err = (int)cudaFuncSetAttribute(
+        fq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (!err)
+      err = (int)cudaFuncSetAttribute(
+          fkv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err) return err;
+    attr[l] = smem;
+  }
+  dim3 gq(H, B, (tq + TILE - 1) / TILE), gk(H, B, (tk + TILE - 1) / TILE);
+  if (l)
+    k5b_dq_wgmma_kernel<<<gq, WG_NT, smem, stream>>>(
+        mq, mk, mv, mg, rowa, rowl, delta, lengths, slopes, (bf16*)dq, sdq,
+        tq, tk, H, causal, scale, stages);
+  else
+    k4b_dq_wgmma_kernel<<<gq, WG_NT, smem, stream>>>(
+        mq, mk, mv, mg, rowa, rowl, delta, lengths, slopes, (bf16*)dq, sdq,
+        tq, tk, H, causal, scale, stages);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  if (l)
+    k5b_dkv_wgmma_kernel<<<gk, WG_NT, smem, stream>>>(
+        mq, mk, mv, mg, rowa, rowl, delta, lengths, slopes, (bf16*)dk,
+        (bf16*)dv, sdk, sdv, tq, tk, H, causal, scale, stages);
+  else
+    k4b_dkv_wgmma_kernel<<<gk, WG_NT, smem, stream>>>(
+        mq, mk, mv, mg, rowa, rowl, delta, lengths, slopes, (bf16*)dk,
+        (bf16*)dv, sdk, sdv, tq, tk, H, causal, scale, stages);
+  return (int)cudaGetLastError();
+}
+
 // The backward's two launches of entry point `kid` (0: K3b, 1: K4b,
-// 2: K5b): one block per (64-key tile, head, batch) for dk and dv, then
-// one per (64-query tile, head, batch) for dq.  K3b and K4b read lse from
-// rowa; K5b reads m from rowa and l from rowl.
+// 2: K5b): float32, and K3b in bfloat16, one block per (64-key tile,
+// head, batch) for dk and dv, then one per (64-query tile, head, batch)
+// for dq; K4b and K5b in bfloat16 take launch_bwd_wgmma with the plan
+// (smem, stages).  K3b and K4b read lse from rowa; K5b reads m from rowa
+// and l from rowl (float32: from flash_stats_launch; bfloat16: written
+// there by the dq kernel).
 int launch_bwd(int kid, int use_mma, const void* q, const void* k,
-               const void* v, const void* g, const float* rowa,
-               const float* rowl, const float* delta, const int* lengths,
-               const float* slopes, void* dq, void* dk, void* dv, Seq sq,
-               Seq sk, Seq sv, Seq sg, Seq sdq, Seq sdk, Seq sdv, int B,
-               int tq, int tk, int H, int causal, float scale,
+               const void* v, const void* g, float* rowa, float* rowl,
+               const float* delta, const int* lengths, const float* slopes,
+               void* dq, void* dk, void* dv, Seq sq, Seq sk, Seq sv, Seq sg,
+               Seq sdq, Seq sdk, Seq sdv, int B, int tq, int tk, int H,
+               int causal, float scale, int smem, int stages,
                cudaStream_t stream) {
+  if (use_mma && kid > 0)
+    return launch_bwd_wgmma(kid, q, k, v, g, rowa, rowl, delta, lengths,
+                            slopes, dq, dk, dv, sq, sk, sv, sg, sdq, sdk,
+                            sdv, B, tq, tk, H, causal, scale, smem, stages,
+                            stream);
   dim3 gk((tk + TILE - 1) / TILE, H, B), gq((tq + TILE - 1) / TILE, H, B);
   int err;
   if (use_mma) {
-    DKV_MMA[kid]<<<gk, MT, DKV_MMA_SMEM, stream>>>(
+    k3b_dkv_mma_kernel<<<gk, MT, DKV_MMA_SMEM, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g,
         rowa, rowl, delta, lengths, slopes, (bf16*)dk, (bf16*)dv, sq, sk,
         sv, sg, sdk, sdv, tq, tk, H, causal, scale);
     err = (int)cudaGetLastError();
     if (err) return err;
-    DQ_MMA[kid]<<<gq, MT, DQ_MMA_SMEM, stream>>>(
+    k3b_dq_mma_kernel<<<gq, MT, DQ_MMA_SMEM, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g,
         rowa, rowl, delta, lengths, slopes, (bf16*)dq, sq, sk, sv, sg, sdq,
         tq, tk, H, causal, scale);
@@ -1746,38 +2273,37 @@ int flash_bwd_packed_launch(const void* q, const void* k, const void* v,
   Seq sq{q_bs, HD, q_rs}, sk{k_bs, HD, k_rs}, sv{v_bs, HD, v_rs};
   Seq sg{g_bs, HD, g_rs};
   Seq sdq{dq_bs, HD, dq_rs}, sdk{dk_bs, HD, dk_rs}, sdv{dv_bs, HD, dv_rs};
-  return launch_bwd(0, bf16, q, k, v, g, lse, nullptr, delta, lengths,
-                    slopes, dq, dk, dv, sq, sk, sv, sg, sdq, sdk, sdv, B, T_,
-                    T_, H, causal, scale, (cudaStream_t)stream);
+  return launch_bwd(0, bf16, q, k, v, g, const_cast<float*>(lse), nullptr,
+                    delta, lengths, slopes, dq, dk, dv, sq, sk, sv, sg, sdq,
+                    sdk, sdv, B, T_, T_, H, causal, scale, 0, 0,
+                    (cudaStream_t)stream);
 }
 
-// K5b's row statistics, m into m_out and l into l_out, each (B, H, Tq)
-// float32: one block per (64-query tile, head, batch).
+// K5b's float32 row statistics, m into m_out and l into l_out, each
+// (B, H, Tq): one block per (64-query tile, head, batch).  (The bf16
+// backward folds them into its dq kernel.)
 int flash_stats_launch(const void* q, const void* k, const int* lengths,
                        const float* slopes, float* m_out, float* l_out,
                        long long q_bs, long long q_hs, long long q_rs,
                        long long k_bs, long long k_hs, long long k_rs, int B,
-                       int Tq, int Tk, int H, int use_bf16, int causal,
-                       float scale, void* stream) {
+                       int Tq, int Tk, int H, int causal, float scale,
+                       void* stream) {
   Seq sq{q_bs, q_hs, q_rs}, sk{k_bs, k_hs, k_rs};
   dim3 grid((Tq + TILE - 1) / TILE, H, B);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (use_bf16)
-    k5b_stats_mma_kernel<<<grid, MT, STATS_MMA_SMEM, st>>>(
-        (const bf16*)q, (const bf16*)k, lengths, slopes, m_out, l_out, sq,
-        sk, Tq, Tk, H, causal, scale);
-  else
-    k5b_stats_kernel<<<grid, NT, STATS_SMEM, st>>>(
-        (const float*)q, (const float*)k, lengths, slopes, m_out, l_out, sq,
-        sk, Tq, Tk, H, causal, scale);
+  k5b_stats_kernel<<<grid, NT, STATS_SMEM, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)k, lengths, slopes, m_out, l_out, sq,
+      sk, Tq, Tk, H, causal, scale);
   return (int)cudaGetLastError();
 }
 
 // K4b (`kid` 1: Tq = Tk, rowa = lse from K4, rowl null) or K5b (`kid` 2:
-// rowa = m, rowl = l from flash_stats_launch) on (B, H, T, D) operands.
+// rowa and rowl hold m and l, from flash_stats_launch in float32 and
+// from the dq kernel in bfloat16) on (B, H, T, D)
+// operands; `smem` and `stages` are the bf16 backward's plan (unread for
+// float32).
 int flash_bwd_bhtd_launch(int kid, const void* q, const void* k,
-                          const void* v, const void* g, const float* rowa,
-                          const float* rowl, const float* delta,
+                          const void* v, const void* g, float* rowa,
+                          float* rowl, const float* delta,
                           const int* lengths, const float* slopes, void* dq,
                           void* dk, void* dv, long long q_bs, long long q_hs,
                           long long q_rs, long long k_bs, long long k_hs,
@@ -1787,7 +2313,8 @@ int flash_bwd_bhtd_launch(int kid, const void* q, const void* k,
                           long long dq_rs, long long dk_bs, long long dk_hs,
                           long long dk_rs, long long dv_bs, long long dv_hs,
                           long long dv_rs, int B, int Tq, int Tk, int H,
-                          int bf16, int causal, float scale, void* stream) {
+                          int bf16, int causal, float scale, int smem,
+                          int stages, void* stream) {
   if (kid < 1 || kid > 2 || (kid == 2) != (rowl != nullptr))
     return (int)cudaErrorInvalidValue;
   Seq sq{q_bs, q_hs, q_rs}, sk{k_bs, k_hs, k_rs}, sv{v_bs, v_hs, v_rs};
@@ -1796,7 +2323,7 @@ int flash_bwd_bhtd_launch(int kid, const void* q, const void* k,
   Seq sdv{dv_bs, dv_hs, dv_rs};
   return launch_bwd(kid, bf16, q, k, v, g, rowa, rowl, delta, lengths,
                     slopes, dq, dk, dv, sq, sk, sv, sg, sdq, sdk, sdv, B, Tq,
-                    Tk, H, causal, scale, (cudaStream_t)stream);
+                    Tk, H, causal, scale, smem, stages, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -54,7 +54,9 @@ wrapper runs its plain version; on CUDA tensors it launches its kernel or
 raises (head_dim 64, float32/bfloat16 only).  K3 and K4 in bfloat16 run
 a Hopper kernel (TMA tensor maps built from the operands' strides,
 ``wgmma``) whose dynamic shared memory the wrapper plans
-(``fwd_smem_plan``) and the launcher checks.
+(``fwd_smem_plan``) and the launcher checks; so do K4b and K5b in
+bfloat16 (``bwd_smem_plan``: two launches, dq then dk/dv, K5b's row
+statistics folded into the dq kernel).
 """
 from __future__ import annotations
 
@@ -70,6 +72,9 @@ MAX_TK = 8192         # K5's key walk (JAX's _BWD_BLOCKWISE_MAX_TK)
 HEAD_DIM = 64
 TILE = 64             # the kernels' query and key rows per tile
 V_STAGES = 2          # the bf16 K3/K4 forward's ring of V tiles
+BWD_STAGES = 2        # the bf16 K4b/K5b backward's rings
+K5B_BF16_KERNELS = 2  # kernels per bf16 K5b call: dq (statistics folded
+#                       in), then dk/dv
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -239,10 +244,10 @@ def _launchers():
             + [f] + [i] * 3 + [p]
         lib.flash_fwd_tiled_launch.argtypes = [p] * 6 + [ll] * 12 \
             + [i] * 6 + [f, p]
-        lib.flash_stats_launch.argtypes = [p] * 6 + [ll] * 6 + [i] * 6 \
+        lib.flash_stats_launch.argtypes = [p] * 6 + [ll] * 6 + [i] * 5 \
             + [f, p]
         lib.flash_bwd_bhtd_launch.argtypes = [i] + [p] * 12 + [ll] * 21 \
-            + [i] * 6 + [f, p]
+            + [i] * 6 + [f] + [i] * 2 + [p]
         for fn in (lib.flash_fwd_packed_launch, lib.flash_bwd_packed_launch,
                    lib.flash_fwd_full_launch, lib.flash_fwd_tiled_launch,
                    lib.flash_stats_launch, lib.flash_bwd_bhtd_launch):
@@ -274,6 +279,28 @@ def fwd_smem_plan(t: int) -> FwdPlan:
     return FwdPlan(tiles, V_STAGES, nbytes)
 
 
+class BwdPlan(NamedTuple):
+    """The dynamic shared memory of the bf16 K4b/K5b backward launches."""
+    stages: int       # ring stages of each kernel
+    bytes: int        # alignment slack, tiles, query rows and mbarriers
+
+
+def bwd_smem_plan() -> BwdPlan:
+    """The shared-memory plan of the bf16 K4b/K5b backward
+    (``bwd_wgmma`` in ``csrc/flash_attention.cu``, whose
+    ``bwd_plan_bytes`` is the same sum), one plan for both kernels: 1024
+    bytes of alignment slack; two resident 64 x 64 bf16 tiles (K and V
+    in the dk/dv kernel, Q and dO in the dq kernel) and two per ring
+    stage (Q and dO, or K and V); each stage's float32 query rows (lse or
+    m, l, 1/l, delta: 4 x 64); one 8-byte mbarrier for the resident
+    tiles and each stage's full and empty.  Nothing grows with T (every
+    walk streams), so every Tq and Tk the wrappers admit take it."""
+    tile_bytes = TILE * HEAD_DIM * 2
+    nbytes = (1024 + (2 + 2 * BWD_STAGES) * tile_bytes
+              + BWD_STAGES * 4 * TILE * 4 + 8 * (1 + 2 * BWD_STAGES))
+    return BwdPlan(BWD_STAGES, nbytes)
+
+
 def _plan_args(q: torch.Tensor, t: int) -> Tuple[int, ...]:
     """(smem bytes, key tiles, V stages) for the launcher: the plan for
     bf16, zeros for float32 (whose kernels take none)."""
@@ -284,8 +311,9 @@ def _plan_args(q: torch.Tensor, t: int) -> Tuple[int, ...]:
 
 
 def _launch_error(what: str, err: int) -> RuntimeError:
-    """The error of a failed launch; the bf16 K3/K4 forward adds codes of
-    its own for the TMA tensor maps (csrc TMA_NO_ENCODER, TMA_ENCODE)."""
+    """The error of a failed launch; the bf16 K3/K4 forward and K4b/K5b
+    backward add codes of their own for the TMA tensor maps (csrc
+    TMA_NO_ENCODER, TMA_ENCODE)."""
     if err == 900:
         why = "the driver has no cuTensorMapEncodeTiled"
     elif err >= 1000:
@@ -522,8 +550,9 @@ flash_forward_tiled.launches = 0
 def _bhtd_backward(kind: str, q, k, v, o, g, lengths, slopes, causal: bool,
                    lse: Optional[torch.Tensor] = None):
     """Launch K4b (``kind`` "full", from ``lse``) or K5b ("blockwise":
-    its row-statistics pass first) on (B, H, T, D) operands of any
-    (batch, head, row) strides: the dk/dv and dq kernels.  The gradients
+    each row's statistics folded into the dq kernel in bf16, a
+    statistics launch first in float32) on (B, H, T, D) operands of any
+    (batch, head, row) strides: the dq and dk/dv kernels.  The gradients
     are allocated in the packed (B, T, H, D) memory order and returned as
     their (B, H, T, D) views."""
     b, h, tq, d = q.shape
@@ -545,8 +574,10 @@ def _bhtd_backward(kind: str, q, k, v, o, g, lengths, slopes, causal: bool,
     lib = _launchers()
     kid = 1 if kind == "full" else 2
     slope_ptr = slopes.data_ptr() if slopes is not None else None
-    tail = (int(q.dtype == torch.bfloat16), int(causal), 1.0 / math.sqrt(d),
-            torch.cuda.current_stream(dev).cuda_stream)
+    bf16 = q.dtype == torch.bfloat16
+    scale = 1.0 / math.sqrt(d)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = bwd_smem_plan() if bf16 else BwdPlan(0, 0)
     rowl = None
     if kind == "full":
         if not isinstance(lse, torch.Tensor) or lse.shape != (b, h, tq) \
@@ -555,24 +586,26 @@ def _bhtd_backward(kind: str, q, k, v, o, g, lengths, slopes, causal: bool,
             raise ValueError("K4b needs K4's lse: a contiguous (B, H, T) "
                              "float32 tensor on q's device")
         rowa = lse
-    else:
+    else:   # each row's m and l (bf16: from the dq kernel)
         rowa = torch.empty((b, h, tq), dtype=torch.float32, device=dev)
         rowl = torch.empty_like(rowa)
-        err = lib.flash_stats_launch(
-            q.data_ptr(), k.data_ptr(), lengths.data_ptr(), slope_ptr,
-            rowa.data_ptr(), rowl.data_ptr(), *st[0], *st[1], b, tq, tk, h,
-            *tail)
-        if err != 0:
-            raise RuntimeError(f"{what} statistics launch failed: CUDA "
-                               f"error {err}")
+        if not bf16:
+            err = lib.flash_stats_launch(
+                q.data_ptr(), k.data_ptr(), lengths.data_ptr(), slope_ptr,
+                rowa.data_ptr(), rowl.data_ptr(), *st[0], *st[1], b, tq, tk,
+                h, int(causal), scale, stream)
+            if err != 0:
+                raise RuntimeError(f"{what} statistics launch failed: CUDA "
+                                   f"error {err}")
     err = lib.flash_bwd_bhtd_launch(
         kid, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         rowa.data_ptr(), rowl.data_ptr() if rowl is not None else None,
         delta.data_ptr(), lengths.data_ptr(), slope_ptr,
         *(x.data_ptr() for x in grads), *(s_ for x in st for s_ in x),
-        b, tq, tk, h, *tail)
+        b, tq, tk, h, int(bf16), int(causal), scale, plan.bytes, plan.stages,
+        stream)
     if err != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+        raise _launch_error(what, err)
     return tuple(grads)
 
 

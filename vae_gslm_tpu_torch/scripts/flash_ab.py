@@ -14,13 +14,16 @@ package): K3 (``flash_forward_packed``), K3b (``flash_backward_packed``)
 and K4 (``flash_forward_full`` with lse) at the single-process training
 call (B 8, T 640, 16 heads of 64, bfloat16, ALiBi, causal, lengths
 640, 320, 300, 640, 1, 639, 0, 64), K4b (``flash_backward_full``) there
-where the root has it, and K5 (``flash_forward_tiled``) at the
-long-segment call (B 2, T 1536, lengths 1536 and 1).  K3b and K4b take
-o and lse from the plain forward on the card, so their outputs depend on
-the backward kernels alone.  A time is the median over 5 torch.profiler
+where the root has it, and K5 (``flash_forward_tiled``) and K5b
+(``flash_backward_blockwise``, with a seeded dO) at the long-segment
+call (B 2, T 1536, lengths 1536 and 1).  K3b, K4b and K5b take o (and
+lse) from the plain forward on the card, so their outputs depend on the
+backward kernels alone.  A time is the median over 5 torch.profiler
 windows of 50 calls of the kernels' own device time per call; a window
 counts as read only when it holds every launch (1 kernel per K3/K4/K5
-call, 2 per K3b/K4b call).  Beside each time, a digest of the call's
+call, 2 per K3b/K4b call, and per K5b call the root's
+``K5B_BF16_KERNELS``, 3 where the root has none: its statistics
+launch, dk/dv, dq).  Beside each time, a digest of the call's
 outputs: equal across roots when their kernels compute the same bits.
 Prints one JSON line per root and then the card's name and power limit.
 """
@@ -87,6 +90,8 @@ def time_root(root: str) -> dict:
                      device=dev).to(torch.bfloat16)
     qkv5 = torch.randn((B5, T5, 3 * H * D), generator=g,
                        device=dev).to(torch.bfloat16)
+    do5 = torch.randn((B5, T5, H * D), generator=g,
+                      device=dev).to(torch.bfloat16)
     q, k, v = qkv.chunk(3, dim=-1)
     lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
     lengths5 = torch.tensor(LENGTHS5, dtype=torch.int32, device=dev)
@@ -112,6 +117,11 @@ def time_root(root: str) -> dict:
             *heads[:3], o4, heads[3], lse4, lengths, slopes, True), "k4b_", 2)
     calls["K5"] = (lambda: fa.flash_forward_tiled(*heads5, lengths5, slopes,
                                                   True), "k5_fwd", 1)
+    o5 = fa.flash_forward_tiled_plain(*heads5, lengths5, slopes, True)
+    g5 = do5.view(B5, T5, H, D).transpose(1, 2)
+    calls["K5b"] = (lambda: fa.flash_backward_blockwise(
+        *heads5, o5, g5, lengths5, slopes, True), "k5b_",
+        getattr(fa, "K5B_BF16_KERNELS", 3))
     out = {"root": root, "source": fa.__file__}
     for name, (fn, prefix, per_call) in calls.items():
         digest = _digest(fn())
