@@ -19,9 +19,14 @@ Phases (any failure ends the run with a non-zero exit, no result):
      device times (torch.profiler), the time per call with the wrapper
      (CUDA events), the HBM-bytes bound;
   4. K2 (the whole 16-layer trunk step) against its plain version at the
-     flagship width, B = 8 with s8 x s8 products and B = 32 with bf16
-     products, over five (flushed, pos) cache states, at max |diff| <=
-     2e-3 |want| + 2e-4; then its times at B = 8 as K1's;
+     flagship width, B = 8 with s8 x s8 products (K2-a8) and B = 17 and
+     32 with bf16 products (K2-bf16: one persistent cooperative launch a
+     step, FP64 tensor-core products), over five (flushed, pos) cache
+     states, at max |diff| <= 2e-3 |want| + 2e-4; then K2-a8's times at
+     B = 8 as K1's and K2-bf16's at B = 32 (the CLI's chunks) over the
+     rollout's positions, beside its bytes bound and the FP64
+     tensor-core ceiling of its exact float64 sums, and the time of one
+     of its grid barriers alone (a probe launch of 1000);
   4b. K2-w4 (the same step on nibble-packed int4 weights) against its
      plain version over those cache states at B = 8 with group 128, at
      B = 32 with group 128 (the CLI's chunks under
@@ -92,7 +97,8 @@ Phases (any failure ends the run with a non-zero exit, no result):
      and on the CPU (through the plain versions), float32, temperature 0,
      with bf16 weights through K1 across a 256-position flush, with
      int8 weights through K2 (dim 256) across 8-step merges and two
-     128-position flushes, and with int4 weights (group 128) through
+     128-position flushes, at B = 2 (K2-a8) and B = 12 (K2-bf16: exactly
+     300 launches and no other K2), and with int4 weights (group 128) through
      K2-w4 (exactly 300 K2-w4 launches and no other K2 on the card); then
      the int8-weight model (dim 256) at B = 72, past the mega batches, on
      the per-layer route three times: an int8 cache through
@@ -186,7 +192,8 @@ Phases (any failure ends the run with a non-zero exit, no result):
      of 500 AR steps, 16-mixed, int8 KV cache, int8 weights, DDIM-100 at
      eta 0.5 with the utterance embedding, HiFi-GAN, the energy-VAD trim),
      the kernels' counts set to 0 just before ``main`` and read just
-     after: exactly 1000 K2 launches and no K2-w4 or K1 launch; then with
+     after: exactly 1000 K2-bf16 launches and no K2-a8, K2-w4 or K1
+     launch; then with
      ``VAE_GSLM_MEGA_W4=1``, exactly 1000 K2-w4 launches and no K2 or K1
      launch; then one batch of 128 over 128 such WAVs (``data.batch_size``
      128, the per-layer int8 route: no K1, K2, K2-w4 or K6 launch).  Each
@@ -216,6 +223,7 @@ PROMPT, LENGTH = 150, 500         # 3 s -> 10 s at 50 frames/s
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM (NVIDIA data sheet)
 INT8_OPS_PER_S = 1.979e15
 BF16_FLOPS = 0.989e15
+FP64_TENSOR_FLOPS = 67e12         # H100 SXM FP64 tensor cores (data sheet)
 
 
 def log(msg: str) -> None:
@@ -493,20 +501,28 @@ def k2_bytes_ops(b: int, pos: int, flushed: int, a8: bool, group: int = 0):
 
 def phase_k2(dev):
     """K2 against its plain version at the flagship width (B = 8 with the
-    s8 x s8 products, B = 32 with bf16 products) over the rollout's cache
-    states, then its times at B = 8 over the rollout's positions."""
+    s8 x s8 products; B = 17 and 32 with bf16 products, the persistent
+    kernel, one launch a call) over the rollout's cache states; its a8
+    times at B = 8 and its bf16 times at B = 32 (the CLI's chunks) over
+    the rollout's positions, the bf16 step's grid barrier alone, and the
+    bf16 branch's bounds: bytes, and the FP64 tensor cores' rate for its
+    exact float64 sums.  Returns the K2-a8 and K2-bf16 entries."""
     import torch
 
+    from vae_gslm_tpu_torch.ops import mega_step
     from vae_gslm_tpu_torch.ops.mega_step import (
         fused_trunk_step as k2, fused_trunk_step_plain as plain)
 
-    worst = 0.0
-    for b, a8 in ((8, True), (32, False)):
+    worst = {True: 0.0, False: 0.0}
+    for b, a8 in ((8, True), (17, False), (32, False)):
         x, weights, cache, slopes = k2_inputs(b, dev, seed=b)
         for flushed, pos in K2_CASES:
+            before = k2.launches_bf16
             got = k2(x, weights, cache, pos, slopes, flushed, a8=a8)
             want = plain(x, weights, cache, pos, slopes, flushed, a8=a8)
             torch.cuda.synchronize()
+            if k2.launches_bf16 != before + (not a8):
+                raise AssertionError("the call did not count as its branch")
             errs = []
             for name, gt, wt in zip(("x", "k_new", "v_new"), got, want):
                 gt, wt = gt.float(), wt.float()
@@ -522,7 +538,7 @@ def phase_k2(dev):
             log(f"K2 check B={b} a8={a8} flushed={flushed} pos={pos}: "
                 f"max_abs_err x {errs[0]:.3e}, k_new {errs[1]:.3e}, "
                 f"v_new {errs[2]:.3e}")
-            worst = max(worst, *errs)
+            worst[a8] = max(worst[a8], *errs)
     # Times over the main path's positions at B = 8 (a8), as K1's.
     ks, calls, ps, bs = [], [], [], []
     x, weights, cache, slopes = k2_inputs(8, dev, seed=1)
@@ -548,13 +564,78 @@ def phase_k2(dev):
         f"{statistics.mean(bs) * 1e3:.1f} us")
     log("K2 library_ms: null (no single PyTorch call computes a whole "
         "int8-weight trunk step)")
-    return {"name": "fused_trunk_step", "route": "cuda",
-            "source": "vae_gslm_tpu_torch/csrc/mega_step.cu",
-            "replaces": "vae_gslm_tpu/ops/mega_step.py:427",
-            "launches": None, "max_abs_err": worst,
-            "ms": statistics.mean(ks), "plain_ms": statistics.mean(ps),
-            "bound_ms": statistics.mean(bs), "bound_by": "bytes",
-            "library_ms": None}
+    a8_entry = {"name": "fused_trunk_step", "route": "cuda",
+                "source": "vae_gslm_tpu_torch/csrc/mega_step.cu",
+                "replaces": "vae_gslm_tpu/ops/mega_step.py:427",
+                "launches": None, "max_abs_err": worst[True],
+                "ms": statistics.mean(ks), "plain_ms": statistics.mean(ps),
+                "bound_ms": statistics.mean(bs), "bound_by": "bytes",
+                "library_ms": None}
+    # The bf16 branch at B = 32 (the CLI's chunks) over the rollout's
+    # positions, as K2-a8's.
+    ks, calls, ps, bs = [], [], [], []
+    x, weights, cache, slopes = k2_inputs(32, dev, seed=2)
+    plan = mega_step.step_plan_for(32, H * D, H, dev)
+    fp64 = 2 * 32 * L * 12 * (H * D) ** 2 / FP64_TENSOR_FLOPS * 1e3
+    for pos in range(PROMPT + 1, PROMPT + 1 + LENGTH, 100):
+        flushed = pos // 128 * 128
+
+        def kernel_bf16(i):
+            return k2(x, weights, cache, pos, slopes, flushed)
+
+        ks.append(device_ms(kernel_bf16, n=20,
+                            only=("k2_bf16_step_kernel",), per_call=1))
+        calls.append(cuda_ms(kernel_bf16, n=20))
+        ps.append(device_ms(lambda i: plain(x, weights, cache, pos, slopes,
+                                            flushed), n=2))
+        nbytes, ops, peak = k2_bytes_ops(32, pos, flushed, False)
+        bs.append(max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3)
+        log(f"K2-bf16 time B=32 pos={pos}: kernel {ks[-1] * 1e3:.1f} us, "
+            f"{calls[-1] * 1e3:.1f} us per call with the wrapper, plain "
+            f"{ps[-1] * 1e3:.1f} us, bound {bs[-1] * 1e3:.1f} us "
+            f"({nbytes / 1e6:.1f} MB); the exact float64 sums' FP64 "
+            f"tensor-core ceiling {fp64 * 1e3:.1f} us")
+    pos = PROMPT + 1 + 200                        # 351, as mega_ab.py
+    flushed = pos // 128 * 128
+    k2(x, weights, cache, pos, slopes, flushed)
+    phases = [mega_step.bf16_step_phases(x, weights, cache, pos, slopes,
+                                         flushed) for _ in range(5)]
+    log(f"K2-bf16 B=32 pos={pos} by phase (block 0's global timer, mean "
+        f"of 5 steps, each phase's grid barrier included): " + ", ".join(
+            f"{k} {statistics.mean(p[k] for p in phases):.2f} us"
+            + (" a layer" if k != "total" else "") for k in phases[0]))
+    # The same phases at fewer rows: every block reads all B activation
+    # rows of a product, the weights once whatever B is.
+    by_b = []
+    for b in (1, 9, 17):
+        xb, _, cb, sb = k2_inputs(b, dev, seed=2)
+        ph = [mega_step.bf16_step_phases(xb, weights, cb, pos, sb, flushed)
+              for _ in range(3)]
+        by_b.append(f"B={b} " + " ".join(
+            f"{k} {statistics.mean(p[k] for p in ph):.2f}" for k in ph[0]))
+        del xb, cb
+    log(f"K2-bf16 pos={pos} phases by batch (us a layer, total us): "
+        + "; ".join(by_b))
+    n_bar = 1000
+    bar_us = cuda_ms(lambda i: mega_step.barrier_probe(n_bar, 32, H * D, H,
+                                                       dev), n=5) * 1e3
+    log(f"K2-bf16 mean over the rollout (B=32): kernel "
+        f"{statistics.mean(ks) * 1e3:.1f} us, "
+        f"{statistics.mean(calls) * 1e3:.1f} us per call with the wrapper, "
+        f"plain {statistics.mean(ps) * 1e3:.1f} us, bound "
+        f"{statistics.mean(bs) * 1e3:.1f} us; one cooperative launch of "
+        f"{plan.grid} blocks x {mega_step.STEP_THREADS} threads, "
+        f"{plan.bytes} bytes of shared memory each; a grid barrier alone "
+        f"{bar_us / n_bar:.2f} us ({n_bar} in one probe launch), "
+        f"{5 * L - 1} per step")
+    bf16_entry = {"name": "fused_trunk_step_bf16", "route": "cuda",
+                  "source": "vae_gslm_tpu_torch/csrc/mega_step.cu",
+                  "replaces": "vae_gslm_tpu/ops/mega_step.py:427",
+                  "launches": None, "max_abs_err": worst[False],
+                  "ms": statistics.mean(ks), "plain_ms": statistics.mean(ps),
+                  "bound_ms": statistics.mean(bs), "bound_by": "bytes",
+                  "library_ms": None}
+    return a8_entry, bf16_entry
 
 
 def phase_k2_w4(dev):
@@ -816,10 +897,12 @@ def phase_k3(dev):
     lengths) and its time there beside SDPA's (float32, float mask) and
     the bound; then K3/K3b's bf16 times beside the plain versions',
     SDPA's (K3: its forward and the ratio; K3b: its backward alone, and
-    forward+backward) and the bound.  Every output is held by ``hold`` at tol x max|ref| (tol 1e-5
-    on f32 o and lse, 1e-4 on f32 gradients, bf16: 1e-2 on o, 1e-5 on
-    lse, 2e-2 on gradients), a bf16 o, dq, dk or dv also element by
-    element and in relative L2."""
+    forward+backward) and the bound; in bf16 K3b is ``bwd_wgmma``
+    (``k3b_dq_wgmma_kernel`` then ``k3b_dkv_wgmma_kernel``).  Every output
+    is held by ``hold`` at tol x max|ref| (tol 1e-5 on f32 o and lse,
+    1e-4 on f32 gradients, bf16: 1e-2 on o, 1e-5 on lse, 2e-2 on
+    gradients), a bf16 o, dq, dk or dv also element by element and in
+    relative L2."""
     import torch
     import torch.nn.functional as F
 
@@ -1233,13 +1316,16 @@ def small_hparams(mega: bool):
     return Hparams.from_dict(d)
 
 
-def phase_small(dev, quantize: bool, w4: int = 0, per_layer: str = ""):
+def phase_small(dev, quantize: bool, w4: int = 0, per_layer: str = "",
+                batch: int = 2):
     """A small LVTR continues a prompt by 300 frames on the card (through
     the kernels) and on the CPU (through the plain versions), float32,
     temperature 0: bf16 weights through K1, or int8 weights through K2
-    (a8 at B = 2) across eight-step merges and two tail -> cold flushes,
-    or with ``w4`` nibble-packed int4 weights of that scale group through
-    K2-w4 (exactly 300 K2-w4 launches and no other K2 on the card).  With
+    (a8 at B = 2; at ``batch`` 12 the bf16 branch, exactly 300 K2-bf16
+    launches and no other K2) across eight-step merges and two tail ->
+    cold flushes, or with ``w4`` nibble-packed int4 weights of that scale
+    group through K2-w4 (exactly 300 K2-w4 launches and no other K2 on
+    the card).  With
     ``per_layer`` the int8-weight model (dim 256) at B = 72, past the mega
     batches, on the per-layer route: "int8" (an int8 cache through
     ``decode_attention``, no kernel), "k6" (the same through K6: exactly
@@ -1257,7 +1343,7 @@ def phase_small(dev, quantize: bool, w4: int = 0, per_layer: str = ""):
 
     quantize = quantize or bool(per_layer)
     rng = np.random.RandomState(1)
-    b, tp, length = (72 if per_layer else 2), 20, 300
+    b, tp, length = (72 if per_layer else batch), 20, 300
     prompt = np.concatenate([rng.randint(0, 50, (b, tp, 1)),
                              rng.randn(b, tp, 80)], -1).astype(np.float32)
     # the CPU and the card draw different streams from one seed, so the
@@ -1286,21 +1372,25 @@ def phase_small(dev, quantize: bool, w4: int = 0, per_layer: str = ""):
                                  f"{sampler.route(b)} route, not {route}")
         x = torch.from_numpy(prompt).to(where)
         fused_trunk_step.launches = fused_trunk_step.launches_w4 = 0
+        fused_trunk_step.launches_bf16 = 0
         fused_decode_attention.launches = flash_decode_int8.launches = 0
         out = sampler(length, Masked.from_lengths(x, [tp] * b),
                       torch.Generator(where).manual_seed(0),
                       temperature=0.0, token_temperature=1e-6,
                       encoder_temperature=0.0)
         counts = (fused_decode_attention.launches, fused_trunk_step.launches,
+                  fused_trunk_step.launches_bf16,
                   fused_trunk_step.launches_w4, flash_decode_int8.launches)
         want = None
         if w4:
-            want = (0, 0, length, 0)
+            want = (0, 0, 0, length, 0)
         elif per_layer:
-            want = (0, 0, 0, 2 * length if per_layer == "k6" else 0)
+            want = (0, 0, 0, 0, 2 * length if per_layer == "k6" else 0)
+        elif quantize:
+            want = (0, length, 0, 0, 0) if b <= 8 else (0, 0, length, 0, 0)
         if want and str(where) != "cpu" and counts != want:
-            raise AssertionError(f"K1 / K2 / K2-w4 / K6 launches {counts}, "
-                                 f"expected {want}")
+            raise AssertionError(f"K1 / K2-a8 / K2-bf16 / K2-w4 / K6 "
+                                 f"launches {counts}, expected {want}")
         runs[str(where)] = out["frames"].value.float().cpu().numpy()
     cpu, gpu = runs["cpu"][:, tp:], runs[str(dev)][:, tp:]
     neq = (cpu[..., 0] != gpu[..., 0]).any(0)
@@ -1310,7 +1400,8 @@ def phase_small(dev, quantize: bool, w4: int = 0, per_layer: str = ""):
             else {"int8": "per-layer int8 cache through decode_attention",
                   "k6": "per-layer int8 cache through K6",
                   "float": "per-layer float32 cache"}[per_layer]
-            if per_layer else "int8 weights through K2" if quantize
+            if per_layer else "int8 weights through K2-"
+            + ("a8" if b <= 8 else "bf16") if quantize
             else "bf16 through K1")
     log(f"small-input agreement (card {what} vs CPU plain, B={b}, {length} "
         f"steps): tokens equal for the first {first} steps, first-64-step "
@@ -1678,6 +1769,7 @@ def run_once(sampler, vocoder, prior, dev, seed: int, kw: dict):
     batch = prior.value.shape[0]
     fused_decode_attention.launches = 0
     fused_trunk_step.launches = fused_trunk_step.launches_w4 = 0
+    fused_trunk_step.launches_bf16 = 0
     flash_decode_int8.launches = 0
     timings = {}
     out = sampler(LENGTH, prior, torch.Generator(dev).manual_seed(seed),
@@ -1687,8 +1779,12 @@ def run_once(sampler, vocoder, prior, dev, seed: int, kw: dict):
     torch.cuda.synchronize()
     timings["vocoder"] = time.perf_counter() - t0
     counts = (fused_decode_attention.launches,
-              fused_trunk_step.launches + fused_trunk_step.launches_w4,
+              fused_trunk_step.launches + fused_trunk_step.launches_w4
+              + fused_trunk_step.launches_bf16,
               flash_decode_int8.launches)
+    if fused_trunk_step.launches != counts[1]:   # B <= 8: a8 alone
+        raise AssertionError(f"K2 at B={batch} ran {counts[1]} steps, "
+                             f"{fused_trunk_step.launches} of them s8 x s8")
     check_outputs(out, wave, batch)
     return timings, counts, out
 
@@ -2273,14 +2369,15 @@ def phase_cli(dev, gpu: str, config: str, w4: bool = False,
     bf16-mixed policy, int8 KV cache and int8 weights; with ``w4`` under
     ``VAE_GSLM_MEGA_W4=1``.  The decode kernels' counts are set to 0 just
     before ``main`` and read just after: at 64 (two sequential B = 32
-    chunks) exactly 1000 launches of K2 (int8) or of K2-w4 (w4), none of
-    the other and no K1 or K6; at 128 (the per-layer int8 route, JAX's
-    ``decode_attention``) no K1, K2, K2-w4 or K6 launch.  Checks
+    chunks) exactly 1000 launches of K2's bf16 branch (int8; one
+    persistent launch a step) or of K2-w4 (w4), no other K2 and no K1 or
+    K6; at 128 (the per-layer int8 route, JAX's ``decode_attention``) no
+    K1, K2, K2-w4 or K6 launch.  Checks
     ``n_wavs`` finite 16 kHz WAVs, none longer than the prompt + 10 s.
     Reports the real-time factor over the whole ``main`` call (model
     build, data, sampling, vocoder, WAV writing: ``n_wavs`` x 10 s over
-    its wall time), the stage times and the peak memory.  Returns the K2
-    or K2-w4 launches."""
+    its wall time), the stage times and the peak memory.  Returns the
+    K2-bf16 or K2-w4 launches."""
     import shutil
 
     import numpy as np
@@ -2297,8 +2394,8 @@ def phase_cli(dev, gpu: str, config: str, w4: bool = False,
         out_dir = yaml.safe_load(f)["output_dir"]
     shutil.rmtree(out_dir, ignore_errors=True)
     chunked = n_wavs <= 64
-    path = ("int4 weights, K2-w4" if w4 else "int8 weights, K2" if chunked
-            else "int8 weights, per-layer int8 cache")
+    path = ("int4 weights, K2-w4" if w4 else "int8 weights, K2-bf16"
+            if chunked else "int8 weights, per-layer int8 cache")
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     timings = {}
@@ -2308,6 +2405,7 @@ def phase_cli(dev, gpu: str, config: str, w4: bool = False,
     try:
         fused_decode_attention.launches = flash_decode_int8.launches = 0
         fused_trunk_step.launches = fused_trunk_step.launches_w4 = 0
+        fused_trunk_step.launches_bf16 = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         n = infer_cli.main(["-c", config, "--max_batches", "1", "--seed",
@@ -2315,6 +2413,7 @@ def phase_cli(dev, gpu: str, config: str, w4: bool = False,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = (fused_decode_attention.launches, fused_trunk_step.launches,
+                  fused_trunk_step.launches_bf16,
                   fused_trunk_step.launches_w4, flash_decode_int8.launches)
     finally:
         os.environ.pop("VAE_GSLM_MEGA_W4", None)
@@ -2322,10 +2421,10 @@ def phase_cli(dev, gpu: str, config: str, w4: bool = False,
             os.environ["VAE_GSLM_MEGA_W4"] = old
     peak = torch.cuda.max_memory_allocated()
     k2 = n_wavs // 32 * LENGTH if chunked else 0
-    want = (0, 0, k2, 0) if w4 else (0, k2, 0, 0)
+    want = (0, 0, 0, k2, 0) if w4 else (0, 0, k2, 0, 0)
     if counts != want:
-        raise AssertionError(f"CLI ({path}): launches (K1, K2, K2-w4, K6) = "
-                             f"{counts}, expected {want}")
+        raise AssertionError(f"CLI ({path}): launches (K1, K2-a8, K2-bf16, "
+                             f"K2-w4, K6) = {counts}, expected {want}")
     names = sorted(os.listdir(out_dir), key=lambda n: int(n.split(".")[0]))
     if n != n_wavs or names != [f"{i}.wav" for i in range(1, n_wavs + 1)]:
         raise AssertionError(f"CLI ({path}): {n} outputs, files {names[:4]}"
@@ -2341,8 +2440,9 @@ def phase_cli(dev, gpu: str, config: str, w4: bool = False,
     trimmed = sum(x < (PROMPT + LENGTH) * 320 for x in lens)
     audio_s = n_wavs * LENGTH / 50.0
     how = "as two B=32 chunks" if chunked else "per layer"
-    log(f"CLI ({path}), B={n_wavs} {how}: K1 {counts[0]}, K2 {counts[1]}, "
-        f"K2-w4 {counts[2]}, K6 {counts[3]} launches; {n} "
+    log(f"CLI ({path}), B={n_wavs} {how}: K1 {counts[0]}, K2-a8 "
+        f"{counts[1]}, K2-bf16 {counts[2]}, K2-w4 {counts[3]}, K6 "
+        f"{counts[4]} launches; {n} "
         f"WAVs of {min(lens) / 16000:.2f}-{max(lens) / 16000:.2f} s ({trimmed}"
         f" shortened by the VAD trim); " + ", ".join(
             f"{k} {v:.3f} s" for k, v in timings.items())
@@ -2350,7 +2450,7 @@ def phase_cli(dev, gpu: str, config: str, w4: bool = False,
         f"{audio_s / wall:.2f}x with model build, data and WAV writing "
         f"({audio_s / sum(timings.values()):.2f}x over the timed stages); "
         f"peak memory {peak / 2 ** 30:.2f} GiB ({gpu})")
-    return counts[2] if w4 else counts[1]
+    return counts[3] if w4 else counts[2]
 
 
 # --------------------------------------------------------------- K4b/K5b
@@ -3351,7 +3451,7 @@ def main() -> int:
         return out
 
     k1 = timed("k1", phase_k1, dev)
-    k2 = timed("k2", phase_k2, dev)
+    k2, k2bf16 = timed("k2", phase_k2, dev)
     k2w4 = timed("k2_w4", phase_k2_w4, dev)
     k3, k3b = timed("k3", phase_k3, dev)
     k4_worst, k5 = timed("k45", phase_k45, dev)
@@ -3360,6 +3460,7 @@ def main() -> int:
     k7 = timed("k7", phase_k7, dev, gpu)
     timed("small_k1", phase_small, dev, quantize=False)
     timed("small_k2", phase_small, dev, quantize=True)
+    timed("small_k2_bf16", phase_small, dev, quantize=True, batch=12)
     timed("small_w4", phase_small, dev, quantize=True, w4=128)
     for per_layer in ("int8", "k6", "float"):
         timed(f"small_{per_layer}", phase_small, dev, quantize=True,
@@ -3369,7 +3470,8 @@ def main() -> int:
     timed("dp_small", phase_dp_small, dev)
     k1["launches"] = timed("pipeline_k1", phase_pipeline, dev, gpu,
                            quantize=False)
-    timed("pipeline_k2", phase_pipeline, dev, gpu, quantize=True)
+    k2["launches"] = timed("pipeline_k2", phase_pipeline, dev, gpu,
+                           quantize=True)
     k6["launches"] = timed("per_layer", phase_per_layer, dev, gpu)
     k3["launches"], k3b["launches"] = timed("train", phase_train, dev, gpu)
     dp = timed("dp_fit", phase_dp_fit, dev, gpu)
@@ -3385,8 +3487,8 @@ def main() -> int:
         ckpt, _ = timed("flagship", write_flagship, flagship, dev)
         k5["launches"] = timed("score", phase_score, dev, gpu, ckpt)
         config = write_cli_corpus(flagship)
-        k2["launches"] = timed("cli_k2", phase_cli, dev, gpu, config,
-                               w4=False)
+        k2bf16["launches"] = timed("cli_k2", phase_cli, dev, gpu, config,
+                                   w4=False)
         k2w4["launches"] = timed("cli_w4", phase_cli, dev, gpu, config,
                                  w4=True)
         timed("cli_per_layer", phase_cli, dev, gpu,
@@ -3395,8 +3497,8 @@ def main() -> int:
         shutil.rmtree(flagship, ignore_errors=True)
     log("phase seconds: " + ", ".join(spent))
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k2w4, k3, k3b, k4, k4b, k5,
-                                  k5b, k6, k7]}))
+    print(json.dumps({"kernels": [k1, k2, k2bf16, k2w4, k3, k3b, k4, k4b,
+                                  k5, k5b, k6, k7]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,10 @@ walks (``bwd_wgmma`` in ``csrc/flash_attention.cu``: ``qt_begin`` of the
 dk/dv kernel, ``key_tiles`` of the dq kernel) and of its longest-first
 grid order is held against the masks, and its shared-memory plan
 against the H100's per-block limit.  The ``cuda`` cases hold the kernels
-against their plain versions on a card and skip without one."""
+against their plain versions on a card and skip without one.  K3b (the
+packed backward, on the same bf16 body) is held to its plan and its
+tensor-map alignment checks on the CPU, and to its plain version on a
+card."""
 import functools
 
 import jax
@@ -319,6 +322,63 @@ def test_bwd_smem_plan_fits_every_shape():
                           + 8 * (1 + 2 * plan.stages))
 
 
+class _FakeLib:
+    """Records the arguments of ``flash_bwd_packed_launch``."""
+
+    def __init__(self):
+        self.calls = []
+
+    def flash_bwd_packed_launch(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+def _packed_operands(dtype, width=3 * 2 * 64, offset=0):
+    """q, k, v as views of one (B, T, width) projection starting
+    ``offset`` elements into its storage, dO, o, lse, lengths."""
+    b, t, h, d = 2, 70, 2, 64
+    base = torch.zeros(b * t * width + offset, dtype=dtype)[offset:]
+    qkv = base.view(b, t, width)
+    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d] for i in range(3))
+    g = torch.zeros((b, t, h * d), dtype=dtype)
+    lse = torch.zeros((b, h, t))
+    lengths = torch.tensor([t, 1], dtype=torch.int32)
+    return q, k, v, g.clone(), g, lse, lengths, h
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3b_launch_takes_the_bwd_plan(monkeypatch, dtype):
+    """K3b's launch passes ``bwd_smem_plan()`` (bytes, stages) to
+    ``flash_bwd_packed_launch`` in bfloat16, as K4b and K5b do, and zeros
+    in float32; the stream goes last."""
+    lib = _FakeLib()
+    monkeypatch.setattr(fa, "_launchers", lambda: lib)
+    q, k, v, o, g, lse, lengths, h = _packed_operands(dtype)
+    grads = fa._packed_backward(q, k, v, o, g, lse, lengths, None, True,
+                                h, 1234)
+    assert [x.shape for x in grads] == [q.shape] * 3
+    (args,) = lib.calls
+    plan = fa.bwd_smem_plan()
+    want = (plan.bytes, plan.stages) if dtype == torch.bfloat16 else (0, 0)
+    assert args[-3:] == (*want, 1234)
+    assert fa.bwd_plan_args(q) == want
+
+
+@pytest.mark.parametrize("case", ["base", "row_stride"])
+def test_k3b_rejects_misaligned_packed_views(monkeypatch, case):
+    """A bf16 view into a fused projection whose base is not 16-byte
+    aligned, or whose row stride is not a multiple of 16 bytes, cannot
+    take a TMA tensor map: K3b's checks raise before any launch."""
+    lib = _FakeLib()
+    monkeypatch.setattr(fa, "_launchers", lambda: lib)
+    kw = ({"offset": 1} if case == "base" else
+          {"width": 3 * 2 * 64 + 4})
+    q, k, v, o, g, lse, lengths, h = _packed_operands(torch.bfloat16, **kw)
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        fa._packed_backward(q, k, v, o, g, lse, lengths, None, True, h, 0)
+    assert lib.calls == []
+
+
 # ----------------------------------------------------------------- card
 @pytest.fixture
 def cuda_device():
@@ -390,3 +450,47 @@ def test_cuda_k4b_k5b_match_plain(cuda_device, case, alibi, dtype):
                               torch.ldexp(torch.ones_like(w), e - 8))
             assert (diff <= 2 * ulp + tol * w.pow(2).mean().sqrt()).all()
             assert diff.norm() <= 1e-3 * w.norm()
+
+
+K3B_T = [200, 640, 1000, 1024]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", K3B_T)
+@pytest.mark.parametrize("alibi", [True, False])
+def test_cuda_k3b_bf16_matches_plain(cuda_device, t, alibi):
+    """K3b in bf16 (``bwd_wgmma``: ``k3b_dq_wgmma_kernel`` then
+    ``k3b_dkv_wgmma_kernel``) from K3's o and lse, q, k and v views of one
+    fused projection, at T 200, 640, 1000 and 1024, lengths T, 0, 1 and
+    T // 2 + 3, ALiBi on and off, against its plain version: 2e-2
+    max|ref|, element by element 2 bf16 ulps + 2e-2 rms(ref), relative
+    L2 1e-3 (``chip_smoke.py``'s gates)."""
+    b, h, d = 4, 2, 64
+    gen = torch.Generator(cuda_device).manual_seed(t)
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    q, k, v = qkv.chunk(3, dim=-1)
+    go = torch.randn((b, t, h * d), generator=gen,
+                     device=cuda_device).to(torch.bfloat16)
+    lengths = torch.tensor([t, 0, 1, t // 2 + 3], dtype=torch.int32,
+                           device=cuda_device)
+    slopes = (-torch.tensor(alibi_slopes(h), device=cuda_device) if alibi
+              else None)
+    o, lse = fa.flash_forward_packed(q, k, v, lengths, slopes, True, h)
+    before = fa.flash_backward_packed.launches
+    got = fa.flash_backward_packed(q, k, v, o, go, lse, lengths, slopes,
+                                   True, h)
+    want = fa.flash_backward_packed_plain(q, k, v, o, go, lse, lengths,
+                                          slopes, True, h)
+    torch.cuda.synchronize()
+    assert fa.flash_backward_packed.launches == before + 1
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == torch.bfloat16
+        a, w = a.float(), w.float()
+        diff = (a - w).abs()
+        assert diff.max().item() <= 2e-2 * w.abs().max().item()
+        _, e = torch.frexp(w)
+        ulp = torch.where(w == 0, torch.zeros_like(w),
+                          torch.ldexp(torch.ones_like(w), e - 8))
+        assert (diff <= 2 * ulp + 2e-2 * w.pow(2).mean().sqrt()).all()
+        assert diff.norm() <= 1e-3 * w.norm()

@@ -216,3 +216,27 @@ def test_chunked_call_matches_chunks_run_alone():
     out = sampler(4, Masked.from_lengths(torch.from_numpy(wide), [TP] * 5))
     assert out["frames"].value.shape == (5, TP + 4, 5)
     assert bool(torch.isfinite(out["output"].value).all())
+
+
+@pytest.mark.parametrize("n_sm, a8, w4, routes", [
+    (132, False, 0, ["mega", "chunked", "per_layer"]),
+    (1, False, 0, ["hybrid", "hybrid", "per_layer"]),
+    (1, None, 0, ["mega", "chunked", "per_layer"]),
+    (1, False, 128, ["mega", "chunked", "per_layer"])])
+def test_route_asks_the_bf16_step_plan_on_a_card(monkeypatch, n_sm, a8, w4,
+                                                 routes):
+    """On a card, a mega batch (or chunk) that K2's bf16 branch would run
+    takes the hybrid route when the persistent step's plan does not fit
+    a block of that card (``bf16_step_fits``; here the small trunk's on a
+    one-SM card), so the sampler never picks a route that raises; the a8
+    branch (B <= 8 by default) and the w4 branch take any width, and the
+    CPU's plain version any batch."""
+    _, tm = mega_lvtr_pair(seed=3)
+    sampler = ARTRSampler(tm, kv_dtype=torch.int8, quantize_weights=True,
+                          mega_max_batch=2, mega_a8=a8, mega_w4=w4,
+                          device="cpu")
+    assert [sampler.route(b) for b in (2, 3, 5)] == [
+        "mega", "chunked", "per_layer"]
+    monkeypatch.setattr(tmega, "sm_count", lambda dev: n_sm)
+    sampler.device = torch.device("cuda")
+    assert [sampler.route(b) for b in (2, 3, 5)] == routes

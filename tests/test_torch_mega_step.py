@@ -11,7 +11,12 @@ plain version.
     ``merge_stage`` / ``flush_mega`` and ``mega_cache_from_prefill``
     exactly;
   * the sampler's merge / flush cadence, driven with a stand-in step,
-    against JAX's ``_mega_scan_segments``, exactly.
+    against JAX's ``_mega_scan_segments``, exactly;
+  * the premise of the bf16 branch's persistent kernel: the plain
+    version's float64 products round to the same float32 bits as a
+    numpy float64 sum in the kernel's order (or its reverse), and the
+    kernel's shared-memory plan (``bf16_step_plan``) covers every output
+    column once within the H100's per-block limit.
 
 Also holds the mega-eligible tiny LVTR (``tests/test_torch_trunk.py``'s,
 widened to dim 256 / ffd 1024 like ``tests/test_lvtr_step_parity.py``'s
@@ -268,6 +273,184 @@ def test_scan_cadence_matches_jax():
     assert len(np.unique(np.asarray(jfr)[0, 1:, 2])) == 3
     np.testing.assert_array_equal(tfr.numpy(), np.asarray(jfr))
     np.testing.assert_array_equal(tlast.numpy(), np.asarray(jlast))
+
+
+# ------------------------------------------- the bf16 step's design
+def _kernel_order_sum(xb, w8, ks_n):
+    """sum_k xb[k] w8[k, n] in float64 as ``k2_bf16_step_kernel`` adds
+    it: chunk c (16 k) goes to warp c % ks_n; one m16n8k16 product adds
+    the chunk's 16 products (k = 16 c + 4 t + s for its k index t + 4 s;
+    here summed in that order) to the warp's sum; the warps' sums are
+    added in warp order.  ``ks_n`` < 0 adds the warps' sums in
+    reverse."""
+    k = xb.shape[-1]
+    prods = xb[..., :, None] * w8                     # (B, K, N), exact
+    chunks = prods.reshape(xb.shape[0], k // 16, 4, 4, w8.shape[1])
+    chunks = chunks.transpose(0, 1, 3, 2, 4)          # (B, c, s, t, N)
+    chunks = chunks.reshape(xb.shape[0], k // 16, 16, w8.shape[1])
+    n_warps = abs(ks_n)
+    sums = []
+    for ks in range(n_warps):
+        acc = np.zeros((xb.shape[0], w8.shape[1]))
+        for c in range(ks, k // 16, n_warps):
+            part = np.zeros_like(acc)
+            for i in range(16):
+                part = part + chunks[:, c, i]
+            acc = acc + part
+        sums.append(acc)
+    if ks_n < 0:
+        sums = sums[::-1]
+    total = np.zeros_like(sums[0])
+    for part in sums:
+        total = total + part
+    return total
+
+
+@pytest.mark.parametrize("k", [1024, 4096])
+@pytest.mark.parametrize("rows", ["random", "wide"])
+@pytest.mark.parametrize("ks_n", [4, 16, -4])
+def test_bf16_products_sum_exactly_in_any_order(k, rows, ks_n):
+    """The bf16 branch's dense product (``_mm`` with ``a8=False``): bf16
+    activations x int8 weights summed in float64 and rounded once.  A
+    numpy float64 sum in the persistent kernel's order (chunks of 16 k
+    over 4 or 16 warps, each chunk's 16 products summed, then added; the
+    warps in order or reversed) rounds to the same float32 bits, on
+    random rows and on RMS-normed rows whose magnitudes span 2^-24..2^6
+    (the exact-sum premise that lets the kernel pick any order)."""
+    rng = np.random.RandomState(k + len(rows))
+    b, n = 8, 64
+    if rows == "random":
+        x = rng.randn(b, k).astype(np.float32)
+    else:
+        mag = np.exp2(rng.uniform(-24, 6, (b, k)))
+        x = (np.sign(rng.randn(b, k)) * mag).astype(np.float32)
+        x[:, ::97] = 0.0                               # GELU's exact zeros
+        x = x / np.sqrt((x.astype(np.float64) ** 2).mean(-1, keepdims=True))
+        x = x.astype(np.float32)
+    w8 = rng.randint(-127, 128, (k, n)).astype(np.int8)
+    xt = torch.from_numpy(x)
+    got = tmega._mm(xt, torch.from_numpy(w8), torch.ones(n), a8=False)
+    xb = xt.to(torch.bfloat16).double().numpy()
+    want = _kernel_order_sum(xb, w8.astype(np.float64), ks_n)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.astype(np.float32).view(np.int32))
+
+
+def _pass_work(b, k, per_head_h=0):
+    """The kernel's split of one pass: for each batch pass, {(batch
+    tile, chunk or head): warp} over the 16 warps (``dense_phase``)."""
+    nt_all = -(-b // tmega.TILE_ROWS)
+    out = []
+    for bt0 in range(0, nt_all, tmega.TILES_PER_PASS):
+        ntp = min(tmega.TILES_PER_PASS, nt_all - bt0)
+        nks = tmega.STEP_WARPS // ntp
+        work = {}
+        for w in range(tmega.STEP_WARPS):
+            ntl, ks = w % ntp, w // ntp
+            if ks >= nks:
+                continue
+            items = (range(ks, per_head_h, nks) if per_head_h else
+                     range(ks, k // 16, nks))
+            for it in items:
+                assert (bt0 + ntl, it) not in work
+                work[(bt0 + ntl, it)] = w
+        out.append((bt0, ntp, nks, work))
+    return out
+
+
+@pytest.mark.parametrize("b", range(1, 33))
+def test_bf16_step_plan_covers_every_column(b):
+    """``bf16_step_plan`` (the Python mirror of ``step_plan`` in
+    ``csrc/mega_step.cu``) at B = 1..32, flagship dim 1024 / 16 heads and
+    the small model's 256 / 4, on an H100's 132 SMs: every product's
+    output columns are taken by exactly one block (units of 8 columns:
+    block, block + grid, ..), each in its 16-column weight strip; a
+    block's strips of any product fit a weight slot; every pass's partial
+    sums fit the partial buffer, beside the norm scale; every batch tile
+    and every K chunk (or head)
+    goes to exactly one warp; the whole
+    plan fits the 232,448 bytes a block may use, and the grid is the
+    occupancy x the SM count, as the launcher sizes it."""
+    n_sm = 132
+    for d, h in ((1024, 16), (256, 4)):
+        plan = tmega.bf16_step_plan(b, d, h, n_sm)
+        assert plan.bytes <= tmega.SMEM_LIMIT
+        assert plan.slot % 1024 == 0 and plan.rows >= 4 * b
+        assert plan.region >= tmega.STEP_GROUPS * tmega.GROUP_SMEM
+        assert tmega.bf16_step_plan(b, d, h, n_sm, occupancy=2).grid == \
+            2 * n_sm
+        for occ in (1, 2):
+            grid = occ * n_sm
+            for pi, (n, k) in enumerate(tmega.step_products(d)):
+                seen = []
+                for blk in range(grid):
+                    units = tmega.step_units(n, grid, blk)
+                    assert len(units) * tmega.STRIP_COLS * k <= plan.slot
+                    for j0 in range(0, len(units), tmega.UNITS_PER_PASS):
+                        up = min(tmega.UNITS_PER_PASS, len(units) - j0)
+                        cols = up * tmega.UNIT_COLS
+                        for bt0, ntp, nks, work in _pass_work(
+                                b, k, h if pi == 1 else 0):
+                            bw = tmega.TILE_ROWS * ntp
+                            need = (h * bw * cols * 4 if pi == 1 else
+                                    nks * bw * cols * 8)
+                            assert need <= plan.part
+                            assert plan.part + 4 * d <= plan.region
+                            want = {(bt0 + t, it) for t in range(ntp)
+                                    for it in range(h if pi == 1
+                                                    else k // 16)}
+                            assert set(work) == want
+                    seen += [u * tmega.UNIT_COLS + c for u in units
+                             for c in range(tmega.UNIT_COLS)]
+                assert sorted(seen) == list(range(n))
+
+
+@pytest.mark.parametrize("b, d, n_sm, slot, fits", [
+    (32, 1024, 132, 65536, True),      # the flagship on an H100 SXM
+    (1, 1024, 132, 65536, True),
+    (32, 768, 114, 49152, True),
+    (32, 1280, 132, 163840, False),    # FFN down: 2 units x 16 x 5120
+    (32, 2048, 132, 262144, False),
+    (32, 1024, 114, 131072, False),    # the flagship on an H100 PCIe
+    (1, 1024, 114, 131072, False)])
+def test_bf16_step_fits_at_the_plan_limits(b, d, n_sm, slot, fits):
+    """``bf16_step_fits`` past the plan's limits: a weight slot holds the
+    most units (8 columns over all K) that a block takes of one product,
+    so wider dims or fewer SMs outgrow the 232,448 bytes a block may use
+    (the sampler then routes such batches to the hybrid path), and the
+    wrapper refuses such a call before it reaches the card."""
+    h = d // tmega.HEAD_DIM
+    plan = tmega.bf16_step_plan(b, d, h, n_sm)
+    assert plan.slot == slot
+    assert tmega.bf16_step_fits(b, d, h, n_sm) is fits
+    assert (plan.bytes <= tmega.SMEM_LIMIT) is fits
+
+
+@pytest.mark.parametrize("d, h", [(256, 4), (1024, 16), (2048, 32)])
+@pytest.mark.parametrize("group", [0, 64, 128])
+def test_workspace_holds_every_partial(d, h, group):
+    """``workspace_bytes`` against what the a8 (``group`` 0) and w4
+    multi-launch step (``fused_trunk_step_launch`` in
+    ``csrc/mega_step.cu``) carve from it: the int32 partial sums of each
+    product (a8: one per split-K chunk of 64 rows, of 128 in FFN down,
+    one per head in the out-projection; w4: one per 32 logical rows, so
+    D / 8 per output in FFN down), then qkv (B, 3D) and the GELU rows (B,
+    4D) in float32, the int8 rows (B, 4D), and their scales (one per row
+    and head, or per row and group of the 4D-input FFN down).  A buffer
+    sized for a8's partials alone let w4's FFN down write over qkv and
+    the int8 rows on the card."""
+    b = 32
+    if group:
+        parts = [k // 32 * n for n, k in tmega.step_products(d)]
+        n_scales = max(h, 4 * d // group)
+    else:
+        parts = [d // 64 * 3 * d, h * d, d // 64 * 4 * d, 4 * d // 128 * d]
+        n_scales = h
+    pmax = max(d // 16, h)
+    part_region = 4 * 2 * b * d * pmax      # the launcher's offset of qkv
+    assert 4 * b * max(parts) <= part_region
+    need = part_region + 4 * (3 + 4) * b * d + 4 * b * d + 4 * b * n_scales
+    assert tmega.workspace_bytes(b, d, h) >= need
 
 
 @pytest.fixture

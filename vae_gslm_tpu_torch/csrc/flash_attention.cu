@@ -17,8 +17,9 @@
 // row statistics) are the backwards of that (B, H, T, D) custom VJP.  The
 // three forwards share a tiled float32 body and K5's bfloat16 body; K3
 // and K4 in bfloat16 have a Hopper body of their own (wgmma, TMA); the
-// three backwards share another in float32 and K3b's in bfloat16, and
-// K4b and K5b in bfloat16 have a Hopper body of their own (bwd_wgmma).
+// three backwards share another in float32, and in bfloat16 a Hopper
+// body of their own (bwd_wgmma; K3b's packed operands are the same
+// tensor maps with a head stride of head_dim).
 // Each has an entry point and kernel symbols of its own
 // (k3_/k4_/k5_fwd*, k3b_/k4b_/k5b_{dkv,dq}*, k5b_stats*), so a profile
 // tells them apart.  Every operand is read
@@ -66,7 +67,7 @@
 //
 // Two element types, two product routes.  bfloat16 (the training path
 // under 16-mixed) multiplies on the tensor cores: K3/K4's forward and
-// K4b/K5b's backward with wgmma (below), K5 and K3b with mma.sync
+// K3b/K4b/K5b's backward with wgmma (below), K5 with mma.sync
 // (m16n8k16); exact bf16 products, float32 sums in the hardware's order.
 // float32 multiplies with scalar FMAs out of shared memory (4 x 4
 // outputs per thread, float4 operand loads), since the tensor cores
@@ -111,12 +112,12 @@
 // bound by its products: ~50 GFLOP of causal pairs at the 67 TFLOP/s
 // float32 rate of the FMA units (~0.75 ms) against ~0.2 GB of HBM
 // traffic (~0.07 ms).
-// The mma.sync kernels (K5 bf16, K3b) run far from that bound:
-// fragments are loaded from shared memory by plain loads (no ldmatrix,
-// no TMA, no pipelining of the next tile's loads), K5 reads every key
-// tile twice, and K3b's two launches recompute every (query, key) pair.
+// K5's bf16 mma.sync kernel runs far from that bound: fragments are
+// loaded from shared memory by plain loads (no ldmatrix, no TMA, no
+// pipelining of the next tile's loads), and it reads every key tile
+// twice.
 //
-// K4b/K5b bfloat16 backward (bwd_wgmma).  Two launches, no atomics, so
+// K3b/K4b/K5b bfloat16 backward (bwd_wgmma).  Two launches, no atomics, so
 // the outputs are the same bits from run to run: the dq kernel, one
 // block per (64-query tile, head, batch), the longest causal walks
 // first, then the dk/dv kernel, one block per (64-key tile, head,
@@ -144,8 +145,10 @@
 // the shared memory (the same for both kernels and every T), which the
 // launcher checks.
 // Per (query, key) pair it runs the five products the backward needs
-// (K5b: six, its statistics recompute Q K^T), where K3b's mma.sync body
-// runs seven.
+// (K5b: six, its statistics recompute Q K^T).  K3b reads K3's lse as
+// K4b reads K4's (a row of length 0: p = 1 on every key); its packed q,
+// k and v may be views of one fused projection, so the wrapper checks
+// the 16-byte base and stride alignment that a tensor map needs.
 //
 // Each launch function returns cudaGetLastError() after its launches.
 
@@ -659,14 +662,13 @@ __global__ void __launch_bounds__(NT) k5b_dq_kernel(DQ_F32_ARGS) {
 }
 
 // ------------------------------------------------------------------
-// bfloat16: the same math with the products on the tensor cores
-// (mma.sync m16n8k16, bf16 x bf16 -> float32).  Four warps per block,
-// each owning 16 rows of the 64-row tile; a product's accumulator
+// K5's bfloat16 forward: the same math with the products on the tensor
+// cores (mma.sync m16n8k16, bf16 x bf16 -> float32).  Four warps per
+// block, each owning 16 rows of the 64-row tile; a product's accumulator
 // fragment is reused, rounded to bf16, as the next product's A operand
-// (p before P.V, p and ds in the backward): exactly the roundings of the
-// plain version.  Tiles sit in shared memory as bf16, row-major or
-// transposed as each product's B operand needs (pitch 72: conflict-free
-// fragment loads).
+// (p before P.V): exactly the roundings of the plain version.  Tiles
+// sit in shared memory as bf16, row-major or transposed as each
+// product's B operand needs (pitch 72: conflict-free fragment loads).
 // ------------------------------------------------------------------
 typedef __nv_bfloat16 bf16;
 constexpr int MW = 4;                   // warps per block
@@ -674,8 +676,6 @@ constexpr int MT = MW * 32;             // threads per block
 constexpr int LH = HD + 8;              // bf16 pitch of a shared tile
 constexpr int SH = TILE * LH;           // bf16 elements per shared tile
 constexpr int FWD_MMA_SMEM = 3 * SH * 2;
-constexpr int DKV_MMA_SMEM = 4 * SH * 2 + 2 * TILE * 4;
-constexpr int DQ_MMA_SMEM = 3 * SH * 2;
 
 __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
                                          uint32_t b0, uint32_t b1) {
@@ -1277,188 +1277,6 @@ __global__ void __launch_bounds__(WG_NT) k4_fwd_wgmma_kernel(FWD_WGMMA_ARGS) {
   fwd_wgmma(FWD_WGMMA_PASS);
 }
 
-#define BWD_MMA_COMMON                                                    \
-  const bf16 *__restrict__ q, const bf16 *__restrict__ k,                 \
-      const bf16 *__restrict__ v, const bf16 *__restrict__ g,             \
-      const float *__restrict__ rowa, const float *__restrict__ rowl,     \
-      const float *__restrict__ delta, const int *__restrict__ lengths,   \
-      const float *__restrict__ slopes
-#define DKV_MMA_ARGS                                                      \
-  BWD_MMA_COMMON, bf16 *__restrict__ dk, bf16 *__restrict__ dv, Seq sq,   \
-      Seq sk, Seq sv, Seq sg, Seq sdk, Seq sdv, int tq, int tk,           \
-      int nheads, int causal, float scale
-#define DQ_MMA_ARGS                                                       \
-  BWD_MMA_COMMON, bf16 *__restrict__ dq, Seq sq, Seq sk, Seq sv, Seq sg,  \
-      Seq sdq, int tq, int tk, int nheads, int causal, float scale
-
-// K3b's dk, dv of one 64-key tile, each warp 16 keys, in the transposed
-// orientation (rows = keys, columns = queries) so that p^T and ds^T feed
-// the dv and dk products straight from their accumulators; p = exp(s -
-// lse) (rowl unread).
-__device__ __forceinline__ void dkv_mma(DKV_MMA_ARGS) {
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [q][d]: B of S^T = K Q^T
-  bf16* Qt = Qs + SH;                         // [d][q]: B of dK += dS^T Q
-  bf16* Gs = Qt + SH;                         // [q][d]: B of dP^T = V dO^T
-  bf16* Gt = Gs + SH;                         // [d][q]: B of dV += P^T dO
-  float* a_s = reinterpret_cast<float*>(Gt + SH);
-  float* delta_s = a_s + TILE;
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int w = threadIdx.x >> 5, k0 = kt * TILE, key0 = k0 + w * 16;
-  const int len = lengths[b];
-  const int use_alibi = slopes != nullptr;
-  const float slope = use_alibi ? slopes[h] : 0.f;
-  const bf16* qb = q + b * sq.bs + h * sq.hs;
-  const bf16* gb = g + b * sg.bs + h * sg.hs;
-  const long long bh = (long long)b * nheads + h;
-  const int nq = (tq + TILE - 1) / TILE;
-  int qt_begin = 0;
-  if (len >= 1) {
-    if (k0 >= len) qt_begin = nq;          // every p of this tile is 0
-    else if (causal) qt_begin = kt;
-  }
-  uint32_t ka[4][4], va[4][4], pa[4][4], sa[4][4];
-  float acc_k[8][4], acc_v[8][4], s[8][4], dp[8][4];
-  zero8(acc_k);
-  zero8(acc_v);
-  if (qt_begin < nq) {   // the warp's K and V rows as A fragments
-    load_bf16(Qs, nullptr, k + b * sk.bs + h * sk.hs, sk.rs, k0, tk);
-    load_bf16(Gs, nullptr, v + b * sv.bs + h * sv.hs, sv.rs, k0, tk);
-    __syncthreads();
-    a_frags(ka, Qs, w * 16);
-    a_frags(va, Gs, w * 16);
-  }
-  for (int qt = qt_begin; qt < nq; ++qt) {
-    const int q0 = qt * TILE;
-    __syncthreads();
-    load_bf16(Qs, Qt, qb, sq.rs, q0, tq);
-    load_bf16(Gs, Gt, gb, sg.rs, q0, tq);
-    for (int i = threadIdx.x; i < TILE; i += MT) {
-      const int r = q0 + i;
-      a_s[i] = r < tq ? rowa[bh * tq + r] : 0.f;
-      delta_s[i] = r < tq ? delta[bh * tq + r] : 0.f;
-    }
-    __syncthreads();
-    zero8(s);
-    zero8(dp);
-    mma_rows(s, ka, Qs);
-    mma_rows(dp, va, Gs);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = key0 + frag_row(e), ri = frag_col(nt, e), r = q0 + ri;
-        float p = 0.f, ds = 0.f;
-        if (r < tq && c < tk) {
-          const float x = logit(s[nt][e], r, c, len, causal, use_alibi,
-                                slope, scale);
-          p = prob<false>(x, a_s[ri], 1.f);
-          ds = __fmul_rn(p, __fsub_rn(dp[nt][e], delta_s[ri]));
-        }
-        s[nt][e] = p;
-        dp[nt][e] = ds;
-      }
-    acc_to_a(pa, s);      // p^T rounded to dO's type
-    acc_to_a(sa, dp);     // ds^T rounded to q's type
-    mma_rows(acc_v, pa, Gt);
-    mma_rows(acc_k, sa, Qt);
-  }
-  bf16* dkb = dk + b * sdk.bs + h * sdk.hs;
-  bf16* dvb = dv + b * sdv.bs + h * sdv.hs;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int c = key0 + frag_row(2 * hr);
-    if (c >= tk) continue;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int d = frag_col(nt, 0);
-      *reinterpret_cast<uint32_t*>(dkb + c * sdk.rs + d) =
-          pack(__fmul_rn(acc_k[nt][2 * hr], scale),
-               __fmul_rn(acc_k[nt][2 * hr + 1], scale));
-      *reinterpret_cast<uint32_t*>(dvb + c * sdv.rs + d) =
-          pack(acc_v[nt][2 * hr], acc_v[nt][2 * hr + 1]);
-    }
-  }
-}
-
-// K3b's dq of one 64-query tile, each warp 16 queries (as dkv_mma).
-__device__ __forceinline__ void dq_mma(DQ_MMA_ARGS) {
-  extern __shared__ float4 smem4[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem4);  // [key][d]: B of S = Q K^T
-  bf16* Vs = Ks + SH;                         // [key][d]: B of dP = dO V^T
-  bf16* Kt = Vs + SH;                         // [d][key]: B of dQ += dS K
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int w = threadIdx.x >> 5, q0 = qt * TILE, row0 = q0 + w * 16;
-  const int len = lengths[b];
-  const int use_alibi = slopes != nullptr;
-  const float slope = use_alibi ? slopes[h] : 0.f;
-  const bf16* kb = k + b * sk.bs + h * sk.hs;
-  const bf16* vb = v + b * sv.bs + h * sv.hs;
-  const long long bh = (long long)b * nheads + h;
-  const int kt_end = key_tiles(qt, len, tk, causal);
-  uint32_t qa[4][4], ga[4][4], sa[4][4];
-  load_bf16(Ks, nullptr, q + b * sq.bs + h * sq.hs, sq.rs, q0, tq);
-  load_bf16(Vs, nullptr, g + b * sg.bs + h * sg.hs, sg.rs, q0, tq);
-  __syncthreads();
-  a_frags(qa, Ks, w * 16);
-  a_frags(ga, Vs, w * 16);
-  float a_r[2], delta_r[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = row0 + frag_row(2 * hr);
-    a_r[hr] = r < tq ? rowa[bh * tq + r] : 0.f;
-    delta_r[hr] = r < tq ? delta[bh * tq + r] : 0.f;
-  }
-  float acc[8][4], s[8][4], dp[8][4];
-  zero8(acc);
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();
-    load_bf16(Ks, Kt, kb, sk.rs, k0, tk);
-    load_bf16(Vs, nullptr, vb, sv.rs, k0, tk);
-    __syncthreads();
-    zero8(s);
-    zero8(dp);
-    mma_rows(s, qa, Ks);
-    mma_rows(dp, ga, Vs);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row0 + frag_row(e), c = k0 + frag_col(nt, e);
-        float ds = 0.f;
-        if (r < tq && c < tk) {
-          const float x = logit(s[nt][e], r, c, len, causal, use_alibi,
-                                slope, scale);
-          const float p = prob<false>(x, a_r[e >> 1], 1.f);
-          ds = __fmul_rn(p, __fsub_rn(dp[nt][e], delta_r[e >> 1]));
-        }
-        dp[nt][e] = ds;
-      }
-    acc_to_a(sa, dp);
-    mma_rows(acc, sa, Kt);
-  }
-  bf16* dqb = dq + b * sdq.bs + h * sdq.hs;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = row0 + frag_row(2 * hr);
-    if (r >= tq) continue;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      *reinterpret_cast<uint32_t*>(dqb + r * sdq.rs + frag_col(nt, 0)) =
-          pack(__fmul_rn(acc[nt][2 * hr], scale),
-               __fmul_rn(acc[nt][2 * hr + 1], scale));
-  }
-}
-
-// K3b's bfloat16 backward (K4b and K5b take bwd_wgmma below).
-__global__ void __launch_bounds__(MT) k3b_dkv_mma_kernel(DKV_MMA_ARGS) {
-  dkv_mma(DKV_PASS);
-}
-__global__ void __launch_bounds__(MT) k3b_dq_mma_kernel(DQ_MMA_ARGS) {
-  dq_mma(DQ_PASS);
-}
-
 // ------------------------------------------------------------------
 // K4b/K5b bfloat16 backward for Hopper (bwd_wgmma): TMA rings, wgmma
 // products, no transposed copies (the design note at the top of the
@@ -1941,11 +1759,17 @@ __device__ __forceinline__ void dq_wgmma(
                       slopes, dq, sdq, tq, tk, nheads, causal, scale,    \
                       stages
 
+__global__ void __launch_bounds__(WG_NT) k3b_dkv_wgmma_kernel(DKV_WGMMA_ARGS) {
+  dkv_wgmma<false>(DKV_WGMMA_PASS);
+}
 __global__ void __launch_bounds__(WG_NT) k4b_dkv_wgmma_kernel(DKV_WGMMA_ARGS) {
   dkv_wgmma<false>(DKV_WGMMA_PASS);
 }
 __global__ void __launch_bounds__(WG_NT) k5b_dkv_wgmma_kernel(DKV_WGMMA_ARGS) {
   dkv_wgmma<true>(DKV_WGMMA_PASS);
+}
+__global__ void __launch_bounds__(WG_NT) k3b_dq_wgmma_kernel(DQ_WGMMA_ARGS) {
+  dq_wgmma<false>(DQ_WGMMA_PASS);
 }
 __global__ void __launch_bounds__(WG_NT) k4b_dq_wgmma_kernel(DQ_WGMMA_ARGS) {
   dq_wgmma<false>(DQ_WGMMA_PASS);
@@ -2087,11 +1911,20 @@ int launch_fwd(int kid, int use_mma, const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
-// K4b (`kid` 1: rowa = K4's lse, rowl null) or K5b (2: rowa and rowl
-// receive each query row's m and l) bfloat16 backward: the dq kernel
-// (K5b's row statistics folded into its pass 1), then the dk/dv kernel.
-// `smem` and `stages` are the wrapper's shared-memory plan; a plan that
-// cannot hold these launches is refused.
+// K3b (`kid` 0, packed operands: head stride = head_dim) or K4b (1),
+// each with rowa = its forward's lse and rowl null, or K5b (2: rowa and
+// rowl receive each query row's m and l) bfloat16 backward: the dq
+// kernel (K5b's row statistics folded into its pass 1), then the dk/dv
+// kernel.  `smem` and `stages` are the wrapper's shared-memory plan; a
+// plan that cannot hold these launches is refused.
+typedef void (*DkvWgmma)(DKV_WGMMA_ARGS);
+typedef void (*DqWgmma)(DQ_WGMMA_ARGS);
+constexpr DqWgmma DQ_WGMMA[3] = {k3b_dq_wgmma_kernel, k4b_dq_wgmma_kernel,
+                                 k5b_dq_wgmma_kernel};
+constexpr DkvWgmma DKV_WGMMA[3] = {k3b_dkv_wgmma_kernel,
+                                   k4b_dkv_wgmma_kernel,
+                                   k5b_dkv_wgmma_kernel};
+
 int launch_bwd_wgmma(int kid, const void* q, const void* k, const void* v,
                      const void* g, float* rowa, float* rowl,
                      const float* delta, const int* lengths,
@@ -2108,50 +1941,35 @@ int launch_bwd_wgmma(int kid, const void* q, const void* k, const void* v,
   if (!err) err = tile_map(&mk, k, sk, tk, H, B);
   if (!err) err = tile_map(&mv, v, sv, tk, H, B);
   if (err) return err;
-  const int l = kid == 2;
-  const void* fq = l ? (const void*)k5b_dq_wgmma_kernel
-                     : (const void*)k4b_dq_wgmma_kernel;
-  const void* fkv = l ? (const void*)k5b_dkv_wgmma_kernel
-                      : (const void*)k4b_dkv_wgmma_kernel;
-  static int attr[2] = {0, 0};   // the largest size set per entry point
-  if (smem > attr[l]) {
+  static int attr[3] = {0, 0, 0};   // the largest size set per entry point
+  if (smem > attr[kid]) {
     err = (int)cudaFuncSetAttribute(
-        fq, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        DQ_WGMMA[kid], cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (!err)
       err = (int)cudaFuncSetAttribute(
-          fkv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          DKV_WGMMA[kid], cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
     if (err) return err;
-    attr[l] = smem;
+    attr[kid] = smem;
   }
   dim3 gq(H, B, (tq + TILE - 1) / TILE), gk(H, B, (tk + TILE - 1) / TILE);
-  if (l)
-    k5b_dq_wgmma_kernel<<<gq, WG_NT, smem, stream>>>(
-        mq, mk, mv, mg, rowa, rowl, delta, lengths, slopes, (bf16*)dq, sdq,
-        tq, tk, H, causal, scale, stages);
-  else
-    k4b_dq_wgmma_kernel<<<gq, WG_NT, smem, stream>>>(
-        mq, mk, mv, mg, rowa, rowl, delta, lengths, slopes, (bf16*)dq, sdq,
-        tq, tk, H, causal, scale, stages);
+  DQ_WGMMA[kid]<<<gq, WG_NT, smem, stream>>>(
+      mq, mk, mv, mg, rowa, rowl, delta, lengths, slopes, (bf16*)dq, sdq,
+      tq, tk, H, causal, scale, stages);
   err = (int)cudaGetLastError();
   if (err) return err;
-  if (l)
-    k5b_dkv_wgmma_kernel<<<gk, WG_NT, smem, stream>>>(
-        mq, mk, mv, mg, rowa, rowl, delta, lengths, slopes, (bf16*)dk,
-        (bf16*)dv, sdk, sdv, tq, tk, H, causal, scale, stages);
-  else
-    k4b_dkv_wgmma_kernel<<<gk, WG_NT, smem, stream>>>(
-        mq, mk, mv, mg, rowa, rowl, delta, lengths, slopes, (bf16*)dk,
-        (bf16*)dv, sdk, sdv, tq, tk, H, causal, scale, stages);
+  DKV_WGMMA[kid]<<<gk, WG_NT, smem, stream>>>(
+      mq, mk, mv, mg, rowa, rowl, delta, lengths, slopes, (bf16*)dk,
+      (bf16*)dv, sdk, sdv, tq, tk, H, causal, scale, stages);
   return (int)cudaGetLastError();
 }
 
 // The backward's two launches of entry point `kid` (0: K3b, 1: K4b,
-// 2: K5b): float32, and K3b in bfloat16, one block per (64-key tile,
-// head, batch) for dk and dv, then one per (64-query tile, head, batch)
-// for dq; K4b and K5b in bfloat16 take launch_bwd_wgmma with the plan
-// (smem, stages).  K3b and K4b read lse from rowa; K5b reads m from rowa
-// and l from rowl (float32: from flash_stats_launch; bfloat16: written
-// there by the dq kernel).
+// 2: K5b): float32, one block per (64-key tile, head, batch) for dk and
+// dv, then one per (64-query tile, head, batch) for dq; bfloat16 takes
+// launch_bwd_wgmma with the plan (smem, stages).  K3b and K4b read lse
+// from rowa; K5b reads m from rowa and l from rowl (float32: from
+// flash_stats_launch; bfloat16: written there by the dq kernel).
 int launch_bwd(int kid, int use_mma, const void* q, const void* k,
                const void* v, const void* g, float* rowa, float* rowl,
                const float* delta, const int* lengths, const float* slopes,
@@ -2159,26 +1977,13 @@ int launch_bwd(int kid, int use_mma, const void* q, const void* k,
                Seq sdq, Seq sdk, Seq sdv, int B, int tq, int tk, int H,
                int causal, float scale, int smem, int stages,
                cudaStream_t stream) {
-  if (use_mma && kid > 0)
+  if (use_mma)
     return launch_bwd_wgmma(kid, q, k, v, g, rowa, rowl, delta, lengths,
                             slopes, dq, dk, dv, sq, sk, sv, sg, sdq, sdk,
                             sdv, B, tq, tk, H, causal, scale, smem, stages,
                             stream);
   dim3 gk((tk + TILE - 1) / TILE, H, B), gq((tq + TILE - 1) / TILE, H, B);
   int err;
-  if (use_mma) {
-    k3b_dkv_mma_kernel<<<gk, MT, DKV_MMA_SMEM, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g,
-        rowa, rowl, delta, lengths, slopes, (bf16*)dk, (bf16*)dv, sq, sk,
-        sv, sg, sdk, sdv, tq, tk, H, causal, scale);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    k3b_dq_mma_kernel<<<gq, MT, DQ_MMA_SMEM, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g,
-        rowa, rowl, delta, lengths, slopes, (bf16*)dq, sq, sk, sv, sg, sdq,
-        tq, tk, H, causal, scale);
-    return (int)cudaGetLastError();
-  }
   static bool attr[3] = {false, false, false};
   if (!attr[kid]) {
     cudaFuncSetAttribute(DKV_F32[kid],
@@ -2269,13 +2074,13 @@ int flash_bwd_packed_launch(const void* q, const void* k, const void* v,
                             long long dk_bs, long long dk_rs,
                             long long dv_bs, long long dv_rs, int B, int T_,
                             int H, int bf16, int causal, float scale,
-                            void* stream) {
+                            int smem, int stages, void* stream) {
   Seq sq{q_bs, HD, q_rs}, sk{k_bs, HD, k_rs}, sv{v_bs, HD, v_rs};
   Seq sg{g_bs, HD, g_rs};
   Seq sdq{dq_bs, HD, dq_rs}, sdk{dk_bs, HD, dk_rs}, sdv{dv_bs, HD, dv_rs};
   return launch_bwd(0, bf16, q, k, v, g, const_cast<float*>(lse), nullptr,
                     delta, lengths, slopes, dq, dk, dv, sq, sk, sv, sg, sdq,
-                    sdk, sdv, B, T_, T_, H, causal, scale, 0, 0,
+                    sdk, sdv, B, T_, T_, H, causal, scale, smem, stages,
                     (cudaStream_t)stream);
 }
 

@@ -23,8 +23,10 @@ package's segmented ``lax.scan``), then decodes by diffusion.  Routes:
     <= 2 x ``mega_max_batch`` the batch runs as sequential chunks of
     ``mega_max_batch``; beyond that, per layer, as in JAX.
   * **hybrid** (an int8 cache with bf16 weights, or int8 weights the
-    mega path cannot take; a pre-LN RMSNorm trunk): a stacked int8
-    prefill converted to the cold/tail cache, then one
+    mega path cannot take, among them a mega batch whose K2-bf16 step
+    does not fit a block of the card: ``mega_step.bf16_step_fits``, dim
+    1280 on 132 SMs or dim 1024 on 114; a pre-LN RMSNorm trunk): a
+    stacked int8 prefill converted to the cold/tail cache, then one
     ``LVTR.step_hybrid`` (K1 per layer) per frame, with a tail -> cold
     flush every 256 positions.  JAX caps this route at B = 32
     (``VAE_GSLM_HYBRID_MAX_BATCH``); the port takes it at any batch.
@@ -201,9 +203,25 @@ class ARTRSampler:
             return "per_layer"
         if self.use_mega:
             cap = self.mega_max_batch
+            if batch <= 2 * cap and not self._mega_fits(min(batch, cap)):
+                return "hybrid"
             return ("mega" if batch <= cap else "chunked"
                     if batch <= 2 * cap else "per_layer")
         return "hybrid" if self.use_hybrid else "per_layer"
+
+    def _mega_fits(self, batch: int) -> bool:
+        """Whether K2 takes a mega batch (or chunk) of ``batch`` rows on
+        this device.  Its bf16 branch (int8 weights without ``mega_a8``:
+        B > 8 by default) needs the persistent step's shared-memory plan
+        to fit a block of this card (``mega_step.bf16_step_fits``); the
+        a8 and w4 branches, and the CPU's plain version, take any."""
+        a8 = batch <= 8 if self.mega_a8 is None else self.mega_a8
+        if self.device.type != "cuda" or self.mega_w4 or a8:
+            return True
+        tr = self.model.transformer
+        return mega_step.bf16_step_fits(batch, tr.dim,
+                                        tr.layers[0].self_attn.nheads,
+                                        mega_step.sm_count(self.device))
 
     def per_layer_kv_dtype(self, batch: int):
         """The per-layer caches' dtype: ``kv_dtype``, but float32 for

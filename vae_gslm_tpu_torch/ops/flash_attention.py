@@ -54,7 +54,7 @@ wrapper runs its plain version; on CUDA tensors it launches its kernel or
 raises (head_dim 64, float32/bfloat16 only).  K3 and K4 in bfloat16 run
 a Hopper kernel (TMA tensor maps built from the operands' strides,
 ``wgmma``) whose dynamic shared memory the wrapper plans
-(``fwd_smem_plan``) and the launcher checks; so do K4b and K5b in
+(``fwd_smem_plan``) and the launcher checks; so do K3b, K4b and K5b in
 bfloat16 (``bwd_smem_plan``: two launches, dq then dk/dv, K5b's row
 statistics folded into the dq kernel).
 """
@@ -72,7 +72,7 @@ MAX_TK = 8192         # K5's key walk (JAX's _BWD_BLOCKWISE_MAX_TK)
 HEAD_DIM = 64
 TILE = 64             # the kernels' query and key rows per tile
 V_STAGES = 2          # the bf16 K3/K4 forward's ring of V tiles
-BWD_STAGES = 2        # the bf16 K4b/K5b backward's rings
+BWD_STAGES = 2        # the bf16 K3b/K4b/K5b backward's rings
 K5B_BF16_KERNELS = 2  # kernels per bf16 K5b call: dq (statistics folded
 #                       in), then dk/dv
 
@@ -239,7 +239,7 @@ def _launchers():
         lib.flash_fwd_packed_launch.argtypes = [p] * 7 + [ll] * 8 + [i] * 5 \
             + [f] + [i] * 3 + [p]
         lib.flash_bwd_packed_launch.argtypes = [p] * 11 + [ll] * 14 \
-            + [i] * 5 + [f, p]
+            + [i] * 5 + [f] + [i] * 2 + [p]
         lib.flash_fwd_full_launch.argtypes = [p] * 7 + [ll] * 12 + [i] * 5 \
             + [f] + [i] * 3 + [p]
         lib.flash_fwd_tiled_launch.argtypes = [p] * 6 + [ll] * 12 \
@@ -280,13 +280,14 @@ def fwd_smem_plan(t: int) -> FwdPlan:
 
 
 class BwdPlan(NamedTuple):
-    """The dynamic shared memory of the bf16 K4b/K5b backward launches."""
+    """The dynamic shared memory of the bf16 K3b/K4b/K5b backward
+    launches."""
     stages: int       # ring stages of each kernel
     bytes: int        # alignment slack, tiles, query rows and mbarriers
 
 
 def bwd_smem_plan() -> BwdPlan:
-    """The shared-memory plan of the bf16 K4b/K5b backward
+    """The shared-memory plan of the bf16 K3b/K4b/K5b backward
     (``bwd_wgmma`` in ``csrc/flash_attention.cu``, whose
     ``bwd_plan_bytes`` is the same sum), one plan for both kernels: 1024
     bytes of alignment slack; two resident 64 x 64 bf16 tiles (K and V
@@ -299,6 +300,16 @@ def bwd_smem_plan() -> BwdPlan:
     nbytes = (1024 + (2 + 2 * BWD_STAGES) * tile_bytes
               + BWD_STAGES * 4 * TILE * 4 + 8 * (1 + 2 * BWD_STAGES))
     return BwdPlan(BWD_STAGES, nbytes)
+
+
+def bwd_plan_args(q: torch.Tensor) -> Tuple[int, int]:
+    """(smem bytes, ring stages) of a backward launch: ``bwd_smem_plan``
+    for bf16 (K3b, K4b and K5b alike), zeros for float32 (whose kernels
+    take none)."""
+    if q.dtype != torch.bfloat16:
+        return (0, 0)
+    plan = bwd_smem_plan()
+    return (plan.bytes, plan.stages)
 
 
 def _plan_args(q: torch.Tensor, t: int) -> Tuple[int, ...]:
@@ -360,7 +371,10 @@ def _check_kernel(what: str, q, lengths, slopes, nheads: int) -> None:
 
 def _strides(name: str, x: torch.Tensor, shape, dtype, device):
     """The element strides of an operand but its last (contiguous) axis;
-    raises unless the kernels can read it."""
+    raises unless the kernels can read it: a bf16 operand (the TMA tensor
+    maps of the wgmma kernels) needs a 16-byte aligned base and strides
+    that are multiples of 16 bytes, which a view into a fused projection
+    at an odd offset or of an odd width breaks."""
     if x.shape != shape or x.dtype != dtype or x.device != device:
         raise ValueError(f"{name}: {tuple(x.shape)} {x.dtype} on "
                          f"{x.device}, expected {tuple(shape)} {dtype} on "
@@ -424,7 +438,8 @@ flash_forward_packed.launches = 0
 def flash_backward_packed(q, k, v, o, g, lse, lengths, slopes,
                           causal: bool, nheads: int):
     """K3b: (dq, dk, dv).  CPU tensors take the plain version; CUDA
-    tensors launch the kernels (two launches, one count) or raise.
+    tensors launch the kernels (two launches, one count: in bf16 the dq
+    and dk/dv kernels of ``bwd_wgmma`` with ``bwd_smem_plan``) or raise.
     ``delta`` is a plain torch op, as JAX computes it outside its
     kernel."""
     if q.device.type == "cpu":
@@ -432,6 +447,25 @@ def flash_backward_packed(q, k, v, o, g, lse, lengths, slopes,
                                            slopes, causal, nheads)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for {q.device}")
+    grads = _packed_backward(q, k, v, o, g, lse, lengths, slopes, causal,
+                             nheads, _stream(q.device))
+    flash_backward_packed.launches += 1
+    return grads
+
+
+flash_backward_packed.launches = 0
+
+
+def _stream(dev: torch.device) -> int:
+    """The handle of the caller's current CUDA stream on ``dev``."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _packed_backward(q, k, v, o, g, lse, lengths, slopes, causal: bool,
+                     nheads: int, stream: int):
+    """K3b's checks and its launch on ``stream``: the operands' strides
+    (the tensor maps' 16-byte rule), lse's layout, delta, then
+    ``flash_bwd_packed_launch`` with ``bwd_plan_args``."""
     _check_packed(q, k, v, lengths, slopes, nheads)
     b, t, hd = q.shape
     dev = q.device
@@ -452,16 +486,10 @@ def flash_backward_packed(q, k, v, o, g, lse, lengths, slopes,
         *seqs[0], *seqs[1], *seqs[2], *seqs[3],
         *(s for x in grads for s in x.stride()[:2]),
         b, t, nheads, int(q.dtype == torch.bfloat16), int(causal),
-        1.0 / math.sqrt(hd // nheads),
-        torch.cuda.current_stream(dev).cuda_stream)
+        1.0 / math.sqrt(hd // nheads), *bwd_plan_args(q), stream)
     if err != 0:
-        raise RuntimeError(f"flash attention backward launch failed: CUDA "
-                           f"error {err}")
-    flash_backward_packed.launches += 1
+        raise _launch_error("flash attention backward", err)
     return tuple(grads)
-
-
-flash_backward_packed.launches = 0
 
 
 def _bhtd_launch(kind: str, q, k, v, lengths, slopes, causal: bool,
@@ -577,7 +605,6 @@ def _bhtd_backward(kind: str, q, k, v, o, g, lengths, slopes, causal: bool,
     bf16 = q.dtype == torch.bfloat16
     scale = 1.0 / math.sqrt(d)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    plan = bwd_smem_plan() if bf16 else BwdPlan(0, 0)
     rowl = None
     if kind == "full":
         if not isinstance(lse, torch.Tensor) or lse.shape != (b, h, tq) \
@@ -602,7 +629,7 @@ def _bhtd_backward(kind: str, q, k, v, o, g, lengths, slopes, causal: bool,
         rowa.data_ptr(), rowl.data_ptr() if rowl is not None else None,
         delta.data_ptr(), lengths.data_ptr(), slope_ptr,
         *(x.data_ptr() for x in grads), *(s_ for x in st for s_ in x),
-        b, tq, tk, h, int(bf16), int(causal), scale, plan.bytes, plan.stages,
+        b, tq, tk, h, int(bf16), int(causal), scale, *bwd_plan_args(q),
         stream)
     if err != 0:
         raise _launch_error(what, err)

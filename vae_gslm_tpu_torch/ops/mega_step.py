@@ -52,12 +52,17 @@ and current-token dots, the softmax denominators, the stage P.V) is
 taken in float64 and rounded once, in the kernel and here.
 
 On a CPU tensor the wrapper computes ``fused_trunk_step_plain``; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises.  The a8 and w4 branches
+issue a sequence of kernels per step; the bf16 branch (``a8=False`` on
+int8 weights) is one cooperative launch of ``k2_bf16_step_kernel`` whose
+shared memory ``bf16_step_plan`` lays out (products on the FP64 tensor
+cores, weights streamed by TMA, grid barriers between the phases).
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -317,12 +322,105 @@ def flush_mega(cache: dict, flushed_prev: int) -> dict:
 
 # ------------------------------------------------------------ kernel
 def workspace_bytes(b: int, d: int, h: int) -> int:
-    """Scratch of one call, laid out as ``csrc/mega_step.cu`` carves it:
-    the split-K partial sums, qkv, the FFN activation, the float32 and
+    """Scratch of one a8 or w4 call, laid out as ``csrc/mega_step.cu``
+    carves it: the split-K int32 partial sums (w4's FFN down takes D / 8
+    per output: one per 32 packed rows of 4D), qkv, the FFN activation,
     the int8 dense inputs, and the int8 inputs' scales (one per row and
     head, or per row and group of at least 64 inputs)."""
     return (8 * b * d * max(d // 16, h)
-            + 4 * (11 * b * d + b * max(h, d // 16)) + 4 * b * d)
+            + 4 * (7 * b * d + b * max(h, d // 16)) + 4 * b * d)
+
+
+def bf16_workspace_bytes(b: int, d: int) -> int:
+    """Scratch of one bf16 call: qkv (B, 3D) float32, the attention and
+    GELU rows (B, D) and (B, 4D) as 32-bit high words of their bf16
+    values as doubles, and the grid barrier's word (the launcher zeroes
+    it, so no state outlives a call)."""
+    return 4 * b * (3 * d + d + 4 * d) + 16
+
+
+# The persistent bf16 step (``k2_bf16_step_kernel``): its block, units
+# and shared-memory layout, as ``csrc/mega_step.cu`` defines them.
+STEP_THREADS = 512        # 16 warps; 4 attention groups of 128
+STEP_WARPS = STEP_THREADS // 32
+STEP_GROUPS = STEP_THREADS // 128
+UNIT_COLS = 8             # output columns per unit (an M tile)
+STRIP_COLS = 16           # columns per weight strip (a TMA box's 16 bytes)
+UNITS_PER_PASS = 4
+TILE_ROWS = 16            # batch rows per tile (the products' M)
+TILES_PER_PASS = 2
+GROUP_SMEM = 17680        # sizeof(GroupSmem): an attention group's scratch
+SMEM_LIMIT = 232448       # a block's most on an H100
+
+
+class StepPlan(NamedTuple):
+    """The grid and dynamic shared memory of one bf16 step launch."""
+    grid: int        # blocks: occupancy x the SM count
+    slot: int        # bytes of each of the two weight slots
+    part: int        # bytes of the products' partial sums
+    region: int      # bytes of the region: part + the norm scale, or the
+    #                  attention groups' scratch
+    rows: int        # bytes of the rows' 1/rms
+    bytes: int       # the whole dynamic shared memory
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def step_products(d: int) -> Tuple[Tuple[int, int], ...]:
+    """(dout, din) of a layer's four products, in step order: QKV, the
+    out-projection, FFN up, FFN down."""
+    return ((3 * d, d), (d, d), (4 * d, d), (d, 4 * d))
+
+
+def step_units(n: int, grid: int, block: int) -> range:
+    """The units (8 output columns each, over all K) of an n-column
+    product that block ``block`` of ``grid`` takes: block, block + grid,
+    .. (``load_units`` and ``dense_phase``; each comes in the 16-column
+    strip that holds it)."""
+    return range(block, n // UNIT_COLS, grid)
+
+
+def bf16_step_plan(b: int, d: int, h: int, n_sm: int,
+                   occupancy: int = 1) -> StepPlan:
+    """``step_plan`` of ``csrc/mega_step.cu`` at B = b rows, laid out for
+    one block per SM (``n_sm`` blocks; the launch runs occupancy x n_sm
+    blocks, which take no more units each): two slots of the most units
+    that a block takes of one product x a 16-column strip x K int8 rows;
+    a region for the partial sums of a pass of up to 4 units and 2 batch
+    tiles of 16 rows (float64 per warp K-split, or float32 per head for
+    the out-projection) and the RMSNorm scale (D float32), or for the
+    four attention groups' scratch (each with a cache block's K and V);
+    the rows' 1/rms; 1024 bytes of alignment slack and two mbarriers."""
+    slot = max(_cdiv(n // UNIT_COLS, n_sm) * STRIP_COLS * k
+               for n, k in step_products(d))
+    slot = _cdiv(slot, 1024) * 1024
+    btp = min(_cdiv(b, TILE_ROWS), TILES_PER_PASS)
+    ks = STEP_WARPS // btp
+    sums = ks * btp * TILE_ROWS * UNITS_PER_PASS * UNIT_COLS * 8
+    heads = (h * btp * TILE_ROWS
+             * min(_cdiv(d // UNIT_COLS, n_sm), UNITS_PER_PASS)
+             * UNIT_COLS * 4)
+    part = _cdiv(max(sums, heads), 16) * 16
+    region = max(part + 4 * d, STEP_GROUPS * GROUP_SMEM)
+    rows = _cdiv(b, 4) * 16
+    nbytes = 1024 + 2 * slot + region + rows + 16
+    return StepPlan(occupancy * n_sm, slot, part, region, rows, nbytes)
+
+
+def bf16_step_fits(b: int, d: int, h: int, n_sm: int) -> bool:
+    """Whether the bf16 step's plan at B = b, dim d, h heads fits a block
+    on a card of ``n_sm`` SMs.  Its two weight slots each hold the most
+    units a block takes of one product over all K, so the plan outgrows
+    the card at wider dims or fewer SMs (dim 1280 on 132 SMs, dim 1024 on
+    114); the sampler then routes such batches elsewhere."""
+    return bf16_step_plan(b, d, h, n_sm).bytes <= SMEM_LIMIT
+
+
+def sm_count(dev: torch.device) -> int:
+    """The SM count of ``dev``'s card."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def w4_group(weights: dict, d: int) -> int:
@@ -339,31 +437,83 @@ def w4_group(weights: dict, d: int) -> int:
     return group
 
 
-_LAUNCH = None
+_LIB = None
 
 
-def _launcher():
-    global _LAUNCH
-    if _LAUNCH is None:
+def _lib():
+    """``csrc/mega_step.cu``'s launch functions, built and bound at first
+    use."""
+    global _LIB
+    if _LIB is None:
         from .build import load
 
-        fn = load("mega_step").fused_trunk_step_launch
-        fn.argtypes = ([ctypes.c_void_p] * 34 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _LAUNCH = fn
-    return _LAUNCH
+        lib = load("mega_step")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused_trunk_step_launch.argtypes = (
+            [p] * 34 + [i] * 9 + [ctypes.c_float, p])
+        lib.fused_trunk_step_bf16_launch.argtypes = (
+            [p] * 31 + [i] * 7 + [ctypes.c_float, i, p])
+        lib.fused_trunk_step_bf16_grid.argtypes = [i, ctypes.POINTER(i)]
+        lib.k2_barrier_probe_launch.argtypes = [p, i, i, p]
+        for fn in (lib.fused_trunk_step_launch,
+                   lib.fused_trunk_step_bf16_launch,
+                   lib.fused_trunk_step_bf16_grid,
+                   lib.k2_barrier_probe_launch):
+            fn.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def _error(what: str, err: int) -> RuntimeError:
+    """A failed launch, with the TMA codes of ``csrc/mega_step.cu``."""
+    if err == 900:
+        why = "the driver has no cuTensorMapEncodeTiled"
+    elif err >= 1000:
+        why = (f"the driver refused a TMA tensor map of the weights "
+               f"(CUresult {err - 1000})")
+    else:
+        why = f"CUDA error {err}"
+    return RuntimeError(f"{what} launch failed: {why}")
+
+
+def step_plan_for(b: int, d: int, h: int, dev: torch.device) -> StepPlan:
+    """The bf16 step's plan on ``dev``'s card: its SM count, and the grid
+    the launcher will size (occupancy x SMs) for that shared memory."""
+    plan = bf16_step_plan(b, d, h, sm_count(dev))
+    grid = ctypes.c_int(0)
+    err = _lib().fused_trunk_step_bf16_grid(plan.bytes, ctypes.byref(grid))
+    if err != 0:
+        raise _error("fused_trunk_step (bf16) occupancy", err)
+    return plan._replace(grid=grid.value)
+
+
+def barrier_probe(n: int, b: int, d: int, h: int, dev: torch.device
+                  ) -> None:
+    """``n`` grid barriers alone on the bf16 step's grid (one
+    cooperative launch), to time what a barrier costs."""
+    plan = bf16_step_plan(b, d, h, sm_count(dev))
+    bar = torch.empty(4, dtype=torch.int32, device=dev)
+    err = _lib().k2_barrier_probe_launch(
+        bar.data_ptr(), n, plan.bytes,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise _error("k2 barrier probe", err)
 
 
 def fused_trunk_step(x, weights: dict, cache: dict, pos: int, slopes,
-                     flushed: int, a8: bool = False):
+                     flushed: int, a8: bool = False, trace=None):
     """x (B, D) float32; ``weights`` and ``cache`` as in the module
     docstring; ``pos`` and ``flushed`` host ints (flushed a multiple of
     128, ``flushed <= pos < flushed + 128``); slopes (H,) negative ALiBi
     slopes.  Returns (x (B, D) float32, k_new, v_new (L, H, B, Dh)
-    bfloat16).  With nibble-packed weights (``"gq" in weights``) the call
-    runs the w4 branch and counts under ``launches_w4``, else under
-    ``launches``: one call, one count, whatever the layer count."""
+    bfloat16).  ``trace`` (the bf16 branch only; see ``bf16_step_phases``)
+    is None or a (1 + 5 L,) int64 CUDA tensor for the kernel's phase-end
+    times.  With nibble-packed weights (``"gq" in weights``) the call
+    runs the w4 branch and counts under ``launches_w4``; with int8
+    weights, ``a8`` runs the s8 x s8 kernels and counts under
+    ``launches``, else the bf16 branch's one cooperative launch counts
+    under ``launches_bf16``: one call, one count, whatever the layer
+    count."""
     if x.device.type == "cpu":
         return fused_trunk_step_plain(x, weights, cache, pos, slopes,
                                       flushed, a8=a8)
@@ -413,19 +563,37 @@ def fused_trunk_step(x, weights: dict, cache: dict, pos: int, slopes,
     x_out = torch.empty((b, d), dtype=f32, device=dev)
     k_new = torch.empty((nl, h, b, dh), dtype=torch.bfloat16, device=dev)
     v_new = torch.empty_like(k_new)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    common = (x.data_ptr(), x_out.data_ptr(),
+              *(weights[k].data_ptr() for k in WEIGHT_KEYS),
+              slopes.data_ptr(), *(cache[k].data_ptr() for k in CACHE_KEYS),
+              k_new.data_ptr(), v_new.data_ptr())
+    if not (w4 or a8):
+        plan = bf16_step_plan(b, d, h, sm_count(dev))
+        if plan.bytes > SMEM_LIMIT:
+            raise ValueError(f"the bf16 step at B={b}, dim {d} needs "
+                             f"{plan.bytes} bytes of shared memory per "
+                             f"block, more than the {SMEM_LIMIT} a block "
+                             "may use")
+        work = torch.empty(bf16_workspace_bytes(b, d), dtype=torch.uint8,
+                           device=dev)
+        err = _lib().fused_trunk_step_bf16_launch(
+            *common, work.data_ptr(),
+            trace.data_ptr() if trace is not None else None, nl, b, d, h,
+            nb, pos, flushed, 1.0 / math.sqrt(dh), plan.bytes, stream)
+        if err != 0:
+            raise _error("fused_trunk_step (bf16)", err)
+        fused_trunk_step.launches_bf16 += 1
+        return x_out, k_new, v_new
     work = torch.empty(workspace_bytes(b, d, h), dtype=torch.uint8,
                        device=dev)
-    err = _launcher()(
-        x.data_ptr(), x_out.data_ptr(),
-        *(weights[k].data_ptr() for k in WEIGHT_KEYS),
-        slopes.data_ptr(), *(cache[k].data_ptr() for k in CACHE_KEYS),
-        k_new.data_ptr(), v_new.data_ptr(), work.data_ptr(),
+    err = _lib().fused_trunk_step_launch(
+        *common, work.data_ptr(),
         *(weights[g].data_ptr() if w4 else None for g in W4_KEYS),
         nl, b, d, h, nb, pos, flushed, int(a8), group, 1.0 / math.sqrt(dh),
-        torch.cuda.current_stream(dev).cuda_stream)
+        stream)
     if err != 0:
-        raise RuntimeError(f"fused_trunk_step launch failed: CUDA error "
-                           f"{err}")
+        raise _error("fused_trunk_step", err)
     if w4:
         fused_trunk_step.launches_w4 += 1
     else:
@@ -435,3 +603,26 @@ def fused_trunk_step(x, weights: dict, cache: dict, pos: int, slopes,
 
 fused_trunk_step.launches = 0
 fused_trunk_step.launches_w4 = 0
+fused_trunk_step.launches_bf16 = 0
+
+
+STEP_PHASES = ("qkv", "attention", "out", "ffn_up", "ffn_down")
+
+
+def bf16_step_phases(x, weights: dict, cache: dict, pos: int, slopes,
+                     flushed: int) -> dict:
+    """One bf16 step on the card with its phase trace: block 0 stamps the
+    global timer at the start and at the end of each layer's five phases
+    (after each grid barrier, when every block is done).  Returns each
+    phase's mean microseconds over the layers (its grid barrier
+    included) and the total."""
+    nl = weights["wq"].shape[0]
+    n_ph = len(STEP_PHASES)
+    trace = torch.zeros(1 + n_ph * nl, dtype=torch.int64, device=x.device)
+    fused_trunk_step(x, weights, cache, pos, slopes, flushed, trace=trace)
+    t = trace.cpu().double()
+    steps = (t[1:] - t[:-1]).reshape(nl, n_ph) / 1e3
+    out = {name: float(steps[:, i].mean()) for i, name in
+           enumerate(STEP_PHASES)}
+    out["total"] = float((t[-1] - t[0]) / 1e3)
+    return out

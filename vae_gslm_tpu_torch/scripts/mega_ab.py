@@ -13,8 +13,9 @@ times the same calls on the same inputs, made here from seed 0 on the
 card: the flagship trunk (16 layers, 16 heads of 64, random int8
 weights with column scales, a random three-tier cache at position 351,
 256 rows flushed) through ``fused_trunk_step`` at B = 8 with s8 x s8
-products (K2-a8, the serving default at B <= 8), at B = 32 with bf16
-products (K2-bf16, the CLI's B = 32 chunks), and, where the root has
+products (K2-a8, the serving default at B <= 8), at B = 32 and 17 with
+bf16 products (K2-bf16: the CLI's B = 32 chunks, and the ragged last
+chunk of a 49-utterance run), and, where the root has
 ``pack_mega_w4``, at B = 8 and B = 32 on those weights packed to int4 at
 group 128 (K2-w4).  A time is the median over 5 torch.profiler windows
 of 20 calls of the device time per call of every operation the call
@@ -113,7 +114,7 @@ def _time(fn) -> dict:
     # launches per window: the fuller of two (a window may lose some)
     with_all = max(sum(n for _, n in _window(fn).values()) for _ in range(2))
     totals, last = [], None
-    for _ in range(4 * WINDOWS):
+    for _ in range(10 * WINDOWS):
         w = _window(fn)
         if sum(n for _, n in w.values()) == with_all:
             totals.append(sum(us for us, _ in w.values()) / 1e3 / CALLS)
@@ -147,7 +148,8 @@ def time_root(root: str) -> dict:
 
     dev = torch.device("cuda", 0)
     out = {"root": root, "source": mega.__file__}
-    cases = [("K2-a8 B8", 8, True, 0), ("K2-bf16 B32", 32, False, 0)]
+    cases = [("K2-a8 B8", 8, True, 0), ("K2-bf16 B32", 32, False, 0),
+             ("K2-bf16 B17", 17, False, 0)]
     try:
         from vae_gslm_tpu_torch.nn.transformer import pack_mega_w4
     except ImportError:
