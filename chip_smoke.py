@@ -19,23 +19,27 @@ Phases (any failure ends the run with a non-zero exit, no result):
      device times (torch.profiler), the time per call with the wrapper
      (CUDA events), the HBM-bytes bound;
   4. K2 (the whole 16-layer trunk step) against its plain version at the
-     flagship width, B = 8 with s8 x s8 products (K2-a8) and B = 17 and
-     32 with bf16 products (K2-bf16: one persistent cooperative launch a
-     step, FP64 tensor-core products), over five (flushed, pos) cache
-     states, at max |diff| <= 2e-3 |want| + 2e-4; then K2-a8's times at
-     B = 8 as K1's and K2-bf16's at B = 32 (the CLI's chunks) over the
-     rollout's positions, beside its bytes bound and the FP64
-     tensor-core ceiling of its exact float64 sums, and the time of one
-     of its grid barriers alone (a probe launch of 1000);
-  4b. K2-w4 (the same step on nibble-packed int4 weights) against its
-     plain version over those cache states at B = 8 with group 128, at
-     B = 32 with group 128 (the CLI's chunks under
+     flagship width, B = 1, 2 and 8 with s8 x s8 products (K2-a8: one
+     persistent cooperative launch a step, int8 tensor-core products) and
+     B = 17 and 32 with bf16 products (K2-bf16: the other persistent
+     kernel, FP64 tensor-core products), over five (flushed, pos) cache
+     states of the rollout and a full tail with an empty stage, at max
+     |diff| <= 2e-3 |want| + 2e-4, each call counted once under its
+     branch and, at B = 8 and 32, one call one launch in a profiler
+     window; then K2-a8's times at B = 8 and K2-bf16's at B = 32 (the
+     CLI's chunks) over the rollout's positions (kernel by profiler,
+     wrapper by CUDA events, plain, bytes bound), their phase lines by
+     batch (block 0's global timer: B = 1, 8 and 1, 17, 32), and one of
+     their grid barriers alone (a probe launch of 1000);
+  4b. K2-w4 (the same step on nibble-packed int4 weights, the a8 step's
+     kernel) against its plain version over those cache states at B = 8
+     with group 128, at B = 32 with group 128 (the CLI's chunks under
      ``VAE_GSLM_MEGA_W4=1``) and at B = 32 with group 64 (its ``=64``
-     setting), at K2's tolerance (the weights packed by the
-     port's ``pack_mega_w4`` on the card from K2's int8 weights, bitwise
-     equal to the same packing on the CPU); its times at B = 8 over the
-     rollout and at B = 32 (group 128), and the device time of one w4
-     and one a8 call by kernel name;
+     setting), at K2's tolerance (the weights packed by the port's
+     ``pack_mega_w4`` on the card from K2's int8 weights, bitwise equal to
+     the same packing on the CPU); one call one launch;
+     its times at B = 32 with group 128 over the CLI's positions and its
+     phase lines at B = 9, 17 and 32;
   5. K3 (packed ALiBi flash attention forward: o, lse) and K3b (its
      backward: dq, dk, dv) against their plain versions at the training
      shapes (B 8, T 640, 16 heads of 64, q/k/v views of one projection,
@@ -429,6 +433,8 @@ def phase_k1(dev):
 
 # ------------------------------------------------------------------ K2
 K2_CASES = ((128, 151), (128, 255), (256, 256), (384, 500), (640, 650))
+# the rollout's states and a full tail with an empty stage (flushed + 128)
+K2_STATES = K2_CASES + ((512, 640),)
 
 
 def k2_inputs(b: int, dev, seed: int = 0):
@@ -499,159 +505,199 @@ def k2_bytes_ops(b: int, pos: int, flushed: int, a8: bool, group: int = 0):
     return weight_bytes + cache_bytes + io_bytes, ops, peak
 
 
-def phase_k2(dev):
-    """K2 against its plain version at the flagship width (B = 8 with the
-    s8 x s8 products; B = 17 and 32 with bf16 products, the persistent
-    kernel, one launch a call) over the rollout's cache states; its a8
-    times at B = 8 and its bf16 times at B = 32 (the CLI's chunks) over
-    the rollout's positions, the bf16 step's grid barrier alone, and the
-    bf16 branch's bounds: bytes, and the FP64 tensor cores' rate for its
-    exact float64 sums.  Returns the K2-a8 and K2-bf16 entries."""
+def k2_check(where: str, dev, b: int, weights, x, cache, slopes,
+             a8: bool, counter: str, states=K2_STATES) -> float:
+    """The kernel against its plain version at each cache state, at
+    max |diff| <= 2e-3 |want| + 2e-4, each call one launch counted under
+    ``counter``.  Returns the largest abs error."""
     import torch
 
-    from vae_gslm_tpu_torch.ops import mega_step
     from vae_gslm_tpu_torch.ops.mega_step import (
         fused_trunk_step as k2, fused_trunk_step_plain as plain)
 
-    worst = {True: 0.0, False: 0.0}
-    for b, a8 in ((8, True), (17, False), (32, False)):
-        x, weights, cache, slopes = k2_inputs(b, dev, seed=b)
-        for flushed, pos in K2_CASES:
-            before = k2.launches_bf16
-            got = k2(x, weights, cache, pos, slopes, flushed, a8=a8)
-            want = plain(x, weights, cache, pos, slopes, flushed, a8=a8)
-            torch.cuda.synchronize()
-            if k2.launches_bf16 != before + (not a8):
-                raise AssertionError("the call did not count as its branch")
-            errs = []
-            for name, gt, wt in zip(("x", "k_new", "v_new"), got, want):
-                gt, wt = gt.float(), wt.float()
-                diff = (gt - wt).abs()
-                errs.append(diff.max().item())
-                slack = (2e-4 + 2e-3 * wt.abs() - diff).min().item()
-                if slack < 0 or not math.isfinite(errs[-1]):
-                    raise AssertionError(
-                        f"K2 {name} disagrees with its plain version beyond "
-                        f"rtol 2e-3 / atol 2e-4 (B={b}, a8={a8}, "
-                        f"flushed={flushed}, pos={pos}): max abs "
-                        f"{errs[-1]:.3e}")
-            log(f"K2 check B={b} a8={a8} flushed={flushed} pos={pos}: "
-                f"max_abs_err x {errs[0]:.3e}, k_new {errs[1]:.3e}, "
-                f"v_new {errs[2]:.3e}")
-            worst[a8] = max(worst[a8], *errs)
-    # Times over the main path's positions at B = 8 (a8), as K1's.
+    worst = 0.0
+    for flushed, pos in states:
+        before = getattr(k2, counter)
+        got = k2(x, weights, cache, pos, slopes, flushed, a8=a8)
+        want = plain(x, weights, cache, pos, slopes, flushed, a8=a8)
+        torch.cuda.synchronize()
+        if getattr(k2, counter) != before + 1:
+            raise AssertionError(f"{where}: the call did not count once "
+                                 f"under {counter}")
+        errs = []
+        for name, gt, wt in zip(("x", "k_new", "v_new"), got, want):
+            gt, wt = gt.float(), wt.float()
+            diff = (gt - wt).abs()
+            errs.append(diff.max().item())
+            slack = (2e-4 + 2e-3 * wt.abs() - diff).min().item()
+            if slack < 0 or not math.isfinite(errs[-1]):
+                raise AssertionError(
+                    f"{where} {name} disagrees with its plain version beyond "
+                    f"rtol 2e-3 / atol 2e-4 (B={b}, flushed={flushed}, "
+                    f"pos={pos}): max abs {errs[-1]:.3e}")
+        log(f"{where} check B={b} flushed={flushed} pos={pos}: max_abs_err x "
+            f"{errs[0]:.3e}, k_new {errs[1]:.3e}, v_new {errs[2]:.3e}")
+        worst = max(worst, *errs)
+    return worst
+
+
+def k2_one_launch(where: str, fn, kernel: str) -> None:
+    """A profiler window around one call records one launch of ``kernel``
+    and no other kernel, beside the memset that zeroes its scratch words
+    (a window that recorded nothing is taken again)."""
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    for _ in range(4):
+        evs = [(k, c) for k, _, c in _profiled(fn, 1)
+               if not k.startswith("Memset")]
+        if evs:
+            break
+    if len(evs) != 1 or kernel not in evs[0][0] or evs[0][1] != 1:
+        raise AssertionError(f"{where}: one call launched {evs}, not one "
+                             f"{kernel}")
+    log(f"{where}: one call is one launch of {_kernel_name(evs[0][0])} "
+        "(torch.profiler)")
+
+
+def k2_times(where: str, dev, b: int, weights, x, cache, slopes, a8: bool,
+             group: int, kernel: str) -> tuple:
+    """Kernel, wrapper, plain and bound times over the main path's
+    positions (151 to 551 by 100, the 150 -> 650 rollout's).  Returns the
+    means (ms)."""
+    from vae_gslm_tpu_torch.ops.mega_step import (
+        fused_trunk_step as k2, fused_trunk_step_plain as plain)
+
     ks, calls, ps, bs = [], [], [], []
-    x, weights, cache, slopes = k2_inputs(8, dev, seed=1)
     for pos in range(PROMPT + 1, PROMPT + 1 + LENGTH, 100):
         flushed = pos // 128 * 128
 
-        def kernel(i):
-            return k2(x, weights, cache, pos, slopes, flushed, a8=True)
+        def kernel_call(i):
+            return k2(x, weights, cache, pos, slopes, flushed, a8=a8)
 
-        ks.append(device_ms(kernel, n=50))
-        calls.append(cuda_ms(kernel, n=50))
+        ks.append(device_ms(kernel_call, n=20, only=(kernel,), per_call=1))
+        calls.append(cuda_ms(kernel_call, n=20, reps=3))
         ps.append(device_ms(lambda i: plain(x, weights, cache, pos, slopes,
-                                            flushed, a8=True), n=3))
-        nbytes, ops, peak = k2_bytes_ops(8, pos, flushed, True)
+                                            flushed, a8=a8), n=2))
+        nbytes, ops, peak = k2_bytes_ops(b, pos, flushed, a8, group)
         bs.append(max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3)
-        log(f"K2 time B=8 a8 pos={pos}: kernel {ks[-1] * 1e3:.1f} us, "
+        log(f"{where} time B={b} pos={pos}: kernel {ks[-1] * 1e3:.1f} us, "
             f"{calls[-1] * 1e3:.1f} us per call with the wrapper, plain "
-            f"{ps[-1] * 1e3:.1f} us, bound {bs[-1] * 1e3:.1f} us "
-            f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} G int8 ops)")
-    log(f"K2 mean over the rollout: kernel {statistics.mean(ks) * 1e3:.1f} "
-        f"us, {statistics.mean(calls) * 1e3:.1f} us per call with the "
-        f"wrapper, plain {statistics.mean(ps) * 1e3:.1f} us, bound "
-        f"{statistics.mean(bs) * 1e3:.1f} us")
+            f"{ps[-1] * 1e3:.1f} us, bound {bs[-1] * 1e3:.1f} us ({nbytes / 1e6:.1f} MB)")
+    out = tuple(statistics.mean(v) for v in (ks, calls, ps, bs))
+    log(f"{where} mean over the rollout (B={b}): kernel {out[0] * 1e3:.1f} "
+        f"us, {out[1] * 1e3:.1f} us per call with the wrapper, plain "
+        f"{out[2] * 1e3:.1f} us, bound {out[3] * 1e3:.1f} us")
+    return out
+
+
+def k2_phase_lines(where: str, dev, weights_for, batches, a8: bool) -> None:
+    """The step's phases (block 0's global timer, each phase's grid
+    barrier included; mean of 3 steps) at position 351 for each batch,
+    on one line."""
+    from vae_gslm_tpu_torch.ops import mega_step
+
+    pos = PROMPT + 1 + 200                   # 351, as mega_ab.py
+    flushed = pos // 128 * 128
+    by_b = []
+    for b in batches:
+        x, weights, cache, slopes = k2_inputs(b, dev, seed=2)
+        weights = weights_for(weights)
+        ph = [mega_step.step_phases(x, weights, cache, pos, slopes, flushed,
+                                    a8=a8) for _ in range(4)][1:]
+        by_b.append(f"B={b} " + " ".join(
+            f"{k} {statistics.mean(p[k] for p in ph):.2f}" for k in ph[0]))
+        del x, cache
+    log(f"{where} pos={pos} phases by batch (us a layer, tail and total "
+        "us): " + "; ".join(by_b))
+
+
+def phase_k2(dev):
+    """K2 on int8 weights against its plain version at the flagship width
+    (B = 1, 2 and 8 with the s8 x s8 products, one persistent launch a
+    call; B = 17 and 32 with bf16 products, the other persistent kernel)
+    over the rollout's cache states and a full tail; one call of each
+    branch one launch (torch.profiler); the a8 times at B = 8 and the
+    bf16 times at B = 32 (the CLI's chunks) over the rollout's positions,
+    beside the bytes bound (and, for bf16, the FP64 tensor cores' rate for
+    its exact float64 sums); the phase lines by batch; one grid barrier
+    alone.  Returns the K2-a8 and K2-bf16 entries."""
+    from vae_gslm_tpu_torch.ops import mega_step
+
+    worst = {True: 0.0, False: 0.0}
+    for b, a8 in ((1, True), (2, True), (8, True), (17, False),
+                  (32, False)):
+        x, weights, cache, slopes = k2_inputs(b, dev, seed=b)
+        worst[a8] = max(worst[a8], k2_check(
+            "K2-a8" if a8 else "K2-bf16", dev, b, weights, x, cache, slopes,
+            a8, "launches" if a8 else "launches_bf16"))
+        if b in (8, 32):
+            k2_one_launch(f"K2-{'a8' if a8 else 'bf16'} B={b}", lambda i: (
+                mega_step.fused_trunk_step(x, weights, cache, 351, slopes,
+                                           256, a8=a8)),
+                "k2_i8_step_kernel" if a8 else "k2_bf16_step_kernel")
+        del x, weights, cache
+    # K2-a8 at B = 8 over the main path's positions
+    x, weights, cache, slopes = k2_inputs(8, dev, seed=1)
+    ms, call_ms, plain_ms, bound = k2_times(
+        "K2-a8", dev, 8, weights, x, cache, slopes, True, 0,
+        "k2_i8_step_kernel")
+    plan = mega_step.step_plan_for(8, H * D, H, dev, a8=True)
+    log(f"K2-a8 plan B=8: {plan.grid} blocks x {mega_step.STEP_THREADS} "
+        f"threads, {plan.bytes} bytes of shared memory each, splits "
+        f"{plan.splits}, tiles per piece {plan.tp}")
     log("K2 library_ms: null (no single PyTorch call computes a whole "
         "int8-weight trunk step)")
     a8_entry = {"name": "fused_trunk_step", "route": "cuda",
                 "source": "vae_gslm_tpu_torch/csrc/mega_step.cu",
                 "replaces": "vae_gslm_tpu/ops/mega_step.py:427",
                 "launches": None, "max_abs_err": worst[True],
-                "ms": statistics.mean(ks), "plain_ms": statistics.mean(ps),
-                "bound_ms": statistics.mean(bs), "bound_by": "bytes",
-                "library_ms": None}
-    # The bf16 branch at B = 32 (the CLI's chunks) over the rollout's
-    # positions, as K2-a8's.
-    ks, calls, ps, bs = [], [], [], []
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes", "library_ms": None}
+    del x, weights, cache
+    k2_phase_lines("K2-a8", dev, lambda w: w, (1, 8), True)
+    # the bf16 branch at B = 32 (the CLI's chunks), as K2-a8's
     x, weights, cache, slopes = k2_inputs(32, dev, seed=2)
+    ms, call_ms, plain_ms, bound = k2_times(
+        "K2-bf16", dev, 32, weights, x, cache, slopes, False, 0,
+        "k2_bf16_step_kernel")
     plan = mega_step.step_plan_for(32, H * D, H, dev)
     fp64 = 2 * 32 * L * 12 * (H * D) ** 2 / FP64_TENSOR_FLOPS * 1e3
-    for pos in range(PROMPT + 1, PROMPT + 1 + LENGTH, 100):
-        flushed = pos // 128 * 128
-
-        def kernel_bf16(i):
-            return k2(x, weights, cache, pos, slopes, flushed)
-
-        ks.append(device_ms(kernel_bf16, n=20,
-                            only=("k2_bf16_step_kernel",), per_call=1))
-        calls.append(cuda_ms(kernel_bf16, n=20))
-        ps.append(device_ms(lambda i: plain(x, weights, cache, pos, slopes,
-                                            flushed), n=2))
-        nbytes, ops, peak = k2_bytes_ops(32, pos, flushed, False)
-        bs.append(max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3)
-        log(f"K2-bf16 time B=32 pos={pos}: kernel {ks[-1] * 1e3:.1f} us, "
-            f"{calls[-1] * 1e3:.1f} us per call with the wrapper, plain "
-            f"{ps[-1] * 1e3:.1f} us, bound {bs[-1] * 1e3:.1f} us "
-            f"({nbytes / 1e6:.1f} MB); the exact float64 sums' FP64 "
-            f"tensor-core ceiling {fp64 * 1e3:.1f} us")
-    pos = PROMPT + 1 + 200                        # 351, as mega_ab.py
-    flushed = pos // 128 * 128
-    k2(x, weights, cache, pos, slopes, flushed)
-    phases = [mega_step.bf16_step_phases(x, weights, cache, pos, slopes,
-                                         flushed) for _ in range(5)]
-    log(f"K2-bf16 B=32 pos={pos} by phase (block 0's global timer, mean "
-        f"of 5 steps, each phase's grid barrier included): " + ", ".join(
-            f"{k} {statistics.mean(p[k] for p in phases):.2f} us"
-            + (" a layer" if k != "total" else "") for k in phases[0]))
-    # The same phases at fewer rows: every block reads all B activation
-    # rows of a product, the weights once whatever B is.
-    by_b = []
-    for b in (1, 9, 17):
-        xb, _, cb, sb = k2_inputs(b, dev, seed=2)
-        ph = [mega_step.bf16_step_phases(xb, weights, cb, pos, sb, flushed)
-              for _ in range(3)]
-        by_b.append(f"B={b} " + " ".join(
-            f"{k} {statistics.mean(p[k] for p in ph):.2f}" for k in ph[0]))
-        del xb, cb
-    log(f"K2-bf16 pos={pos} phases by batch (us a layer, total us): "
-        + "; ".join(by_b))
+    del x, weights, cache
+    k2_phase_lines("K2-bf16", dev, lambda w: w, (1, 17, 32), False)
     n_bar = 1000
     bar_us = cuda_ms(lambda i: mega_step.barrier_probe(n_bar, 32, H * D, H,
                                                        dev), n=5) * 1e3
-    log(f"K2-bf16 mean over the rollout (B=32): kernel "
-        f"{statistics.mean(ks) * 1e3:.1f} us, "
-        f"{statistics.mean(calls) * 1e3:.1f} us per call with the wrapper, "
-        f"plain {statistics.mean(ps) * 1e3:.1f} us, bound "
-        f"{statistics.mean(bs) * 1e3:.1f} us; one cooperative launch of "
-        f"{plan.grid} blocks x {mega_step.STEP_THREADS} threads, "
-        f"{plan.bytes} bytes of shared memory each; a grid barrier alone "
-        f"{bar_us / n_bar:.2f} us ({n_bar} in one probe launch), "
-        f"{5 * L - 1} per step")
+    log(f"K2-bf16: one cooperative launch of {plan.grid} blocks x "
+        f"{mega_step.STEP_THREADS} threads, {plan.bytes} bytes of shared "
+        f"memory each; the exact float64 sums' FP64 tensor-core ceiling "
+        f"{fp64 * 1e3:.1f} us; a grid barrier alone {bar_us / n_bar:.2f} us "
+        f"({n_bar} in one probe launch), {5 * L - 1} per bf16 step, "
+        f"{8 * L} per a8/w4 step")
     bf16_entry = {"name": "fused_trunk_step_bf16", "route": "cuda",
                   "source": "vae_gslm_tpu_torch/csrc/mega_step.cu",
                   "replaces": "vae_gslm_tpu/ops/mega_step.py:427",
                   "launches": None, "max_abs_err": worst[False],
-                  "ms": statistics.mean(ks), "plain_ms": statistics.mean(ps),
-                  "bound_ms": statistics.mean(bs), "bound_by": "bytes",
-                  "library_ms": None}
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                  "bound_by": "bytes", "library_ms": None}
     return a8_entry, bf16_entry
 
 
 def phase_k2_w4(dev):
-    """K2-w4 (the nibble-packed int4 branch of the trunk step) against its
-    plain version at the flagship width over ``K2_CASES``: at B = 8 with
-    group 128, and at B = 32 with group 128 and with group 64 (the CLI's
-    chunks under ``VAE_GSLM_MEGA_W4=1`` and ``=64``), at K2's tolerance; the w4
-    weights are built by the port's ``pack_mega_w4`` on the card from
-    ``k2_inputs``' int8 weights and held bitwise equal to the same build
-    on the CPU.  Then its times at B = 8 over the rollout's positions and
-    at B = 32, group 128 (the CLI's chunks under ``VAE_GSLM_MEGA_W4=1``)."""
+    """K2-w4 (the nibble-packed int4 branch, one persistent launch a call)
+    against its plain version at the flagship width over the rollout's
+    cache states and a full tail: at B = 8 and 32 with group 128 (the
+    CLI's chunks under ``VAE_GSLM_MEGA_W4=1``) and at B = 32 with group 64
+    (its ``=64`` setting), at K2's tolerance; the w4 weights built by the
+    port's ``pack_mega_w4`` on the card from ``k2_inputs``' int8 weights
+    and held bitwise equal to the same build on the CPU.
+    Then one call one launch, its times at B = 32, group 128 over the
+    CLI's positions (151 to 551), and the phase lines at B = 9, 17, 32."""
     import torch
 
     from vae_gslm_tpu_torch.nn.transformer import pack_mega_w4
-    from vae_gslm_tpu_torch.ops.mega_step import (
-        fused_trunk_step as k2, fused_trunk_step_plain as plain)
+    from vae_gslm_tpu_torch.ops import mega_step
 
     def w4_weights(weights, group):
         w4 = pack_mega_w4(weights, group, D)
@@ -664,96 +710,45 @@ def phase_k2_w4(dev):
             if not torch.equal(a, b):
                 raise AssertionError(f"the card's w4 build of {k} (group "
                                      f"{group}) differs from the CPU's")
+        mb = sum(v.numel() * v.element_size() for k, v in w4.items()
+                 if k[0] in "wg") / 1e6
+        log(f"K2-w4 build group={group}: card and CPU bitwise equal "
+            f"({mb:.1f} MB of packed weights and group scales)")
         return w4
 
     worst = 0.0
     for b, group in ((8, 128), (32, 128), (32, 64)):
         x, weights, cache, slopes = k2_inputs(b, dev, seed=b)
         w4 = w4_weights(weights, group)
-        mb = sum(v.numel() * v.element_size() for k, v in w4.items()
-                 if k[0] in "wg") / 1e6
-        log(f"K2-w4 build B={b} group={group}: card and CPU bitwise equal "
-            f"({mb:.1f} MB of packed weights and group scales)")
-        for flushed, pos in K2_CASES:
-            before = k2.launches_w4
-            got = k2(x, w4, cache, pos, slopes, flushed)
-            want = plain(x, w4, cache, pos, slopes, flushed)
-            torch.cuda.synchronize()
-            if k2.launches_w4 != before + 1:
-                raise AssertionError("the w4 call did not count as K2-w4")
-            errs = []
-            for name, gt, wt in zip(("x", "k_new", "v_new"), got, want):
-                gt, wt = gt.float(), wt.float()
-                diff = (gt - wt).abs()
-                errs.append(diff.max().item())
-                slack = (2e-4 + 2e-3 * wt.abs() - diff).min().item()
-                if slack < 0 or not math.isfinite(errs[-1]):
-                    raise AssertionError(
-                        f"K2-w4 {name} disagrees with its plain version "
-                        f"beyond rtol 2e-3 / atol 2e-4 (B={b}, group="
-                        f"{group}, flushed={flushed}, pos={pos}): max abs "
-                        f"{errs[-1]:.3e}")
-            log(f"K2-w4 check B={b} group={group} flushed={flushed} "
-                f"pos={pos}: max_abs_err x {errs[0]:.3e}, k_new "
-                f"{errs[1]:.3e}, v_new {errs[2]:.3e}")
-            worst = max(worst, *errs)
-    ks, calls, ps, bs = [], [], [], []
-    x, weights, cache, slopes = k2_inputs(8, dev, seed=1)
-    w4 = pack_mega_w4(weights, 128, D)
-    for pos in range(PROMPT + 1, PROMPT + 1 + LENGTH, 100):
-        flushed = pos // 128 * 128
-
-        def kernel(i):
-            return k2(x, w4, cache, pos, slopes, flushed)
-
-        ks.append(device_ms(kernel, n=50))
-        calls.append(cuda_ms(kernel, n=50))
-        ps.append(device_ms(lambda i: plain(x, w4, cache, pos, slopes,
-                                            flushed), n=3))
-        nbytes, ops, peak = k2_bytes_ops(8, pos, flushed, False, 128)
-        bs.append(max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3)
-        log(f"K2-w4 time B=8 group=128 pos={pos}: kernel "
-            f"{ks[-1] * 1e3:.1f} us, {calls[-1] * 1e3:.1f} us per call with "
-            f"the wrapper, plain {ps[-1] * 1e3:.1f} us, bound "
-            f"{bs[-1] * 1e3:.1f} us ({nbytes / 1e6:.1f} MB, "
-            f"{ops / 1e9:.2f} G int8 ops)")
-    # where a step's device time goes, K2-w4 against K2-a8 on the same
-    # int8 weights, by kernel name (per call)
-    pos = PROMPT + 1 + 200
-    flushed = pos // 128 * 128
-    for what, w, kw in (("K2-w4", w4, {}), ("K2-a8", weights, {"a8": True})):
-        evs = _profiled(lambda i: k2(x, w, cache, pos, slopes, flushed, **kw),
-                        20)
-        total = sum(us for _, us, _ in evs) / 20
-        log(f"{what} B=8 pos={pos} by kernel: " + "; ".join(
-            f"{_kernel_name(name)} {us / 20:.1f} us ({cnt / 20:.0f}x)"
-            for name, us, cnt in sorted(evs, key=lambda e: -e[1]))
-            + f"; total {total:.1f} us")
-    log(f"K2-w4 mean over the rollout (B=8, group 128): kernel "
-        f"{statistics.mean(ks) * 1e3:.1f} us, "
-        f"{statistics.mean(calls) * 1e3:.1f} us per call with the wrapper, "
-        f"plain {statistics.mean(ps) * 1e3:.1f} us, bound "
-        f"{statistics.mean(bs) * 1e3:.1f} us")
+        del weights
+        worst = max(worst, k2_check(f"K2-w4 group={group}", dev, b, w4, x,
+                                    cache, slopes, False, "launches_w4"))
+        if b == 32 and group == 128:
+            k2_one_launch("K2-w4 B=32", lambda i: mega_step.fused_trunk_step(
+                x, w4, cache, 351, slopes, 256), "k2_i8_step_kernel")
+        del x, w4, cache
+    # the CLI's calls: B = 32, group 128, over its positions
     x, weights, cache, slopes = k2_inputs(32, dev, seed=32)
     w4 = pack_mega_w4(weights, 128, D)
-    pos = PROMPT + 1 + LENGTH // 2
-    flushed = pos // 128 * 128
-    k32 = device_ms(lambda i: k2(x, w4, cache, pos, slopes, flushed), n=20)
-    p32 = device_ms(lambda i: plain(x, w4, cache, pos, slopes, flushed), n=2)
-    nbytes, ops, peak = k2_bytes_ops(32, pos, flushed, False, 128)
-    b32 = max(nbytes / HBM_BYTES_PER_S, ops / peak) * 1e3
-    log(f"K2-w4 time B=32 group=128 pos={pos}: kernel {k32 * 1e3:.1f} us, "
-        f"plain {p32 * 1e3:.1f} us, bound {b32 * 1e3:.1f} us "
-        f"({nbytes / 1e6:.1f} MB)")
+    del weights
+    ms, call_ms, plain_ms, bound = k2_times(
+        "K2-w4", dev, 32, w4, x, cache, slopes, False, 128,
+        "k2_i8_step_kernel")
+    plan = mega_step.step_plan_for(32, H * D, H, dev, group=128)
+    log(f"K2-w4 plan B=32 group=128: {plan.grid} blocks x "
+        f"{mega_step.STEP_THREADS} threads, {plan.bytes} bytes of shared "
+        f"memory each, splits {plan.splits}, tiles per piece {plan.tp}")
+    del x, w4, cache
+    k2_phase_lines("K2-w4", dev, lambda w: pack_mega_w4(w, 128, D),
+                   (9, 17, 32), False)
     log("K2-w4 library_ms: null (no single PyTorch call computes a whole "
         "int4-weight trunk step)")
     return {"name": "fused_trunk_step_w4", "route": "cuda",
             "source": "vae_gslm_tpu_torch/csrc/mega_step.cu",
             "replaces": "vae_gslm_tpu/ops/mega_step.py:143",
             "launches": None, "max_abs_err": worst,
-            "ms": statistics.mean(ks), "plain_ms": statistics.mean(ps),
-            "bound_ms": statistics.mean(bs), "bound_by": "bytes",
-            "library_ms": None}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None}
 
 
 # -------------------------------------------------------------- K3/K3b

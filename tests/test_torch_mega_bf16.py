@@ -1,13 +1,15 @@
-"""K2's bf16 branch on a card: the persistent kernel (one cooperative
-launch a step, ``k2_bf16_step_kernel``) against its plain version.
+"""K2 on int8 weights on a card: the persistent kernels (one cooperative
+launch a step: ``k2_bf16_step_kernel`` for the bf16 branch,
+``k2_i8_step_kernel`` for the s8 x s8 branch) against their plain
+version.
 
 Imports only torch, numpy and the port, so that it runs on a machine
 with a card and no JAX model stack.  Inputs are made here from a seed: a
 two-layer trunk of dim 256 (4 heads of 64) with int8 weights and column
 scales, a random three-tier cache, at the ``(flushed, pos)`` cases of
-``tests/test_torch_mega_step.py`` (``CASES``).  The design's premise and the
-kernel's shared-memory plan are held on the CPU there; these cases skip
-without a card."""
+``tests/test_torch_mega_step.py`` (``CASES``), the last a full tail with
+an empty stage.  The designs' premises and the kernels' shared-memory
+plans are held on the CPU there; these cases skip without a card."""
 import math
 
 import numpy as np
@@ -17,17 +19,18 @@ import torch
 from vae_gslm_tpu_torch.nn.positions import alibi_slopes
 from vae_gslm_tpu_torch.ops import mega_step as tmega
 
-# tests/test_torch_mega_step.py's (flushed, pos) cases; its (256, 384)
-# puts pos past the tail's last slot, which the kernels refuse, so the
-# last slot (383) stands in for it
-CASES = [(0, 0), (0, 5), (0, 40), (128, 140), (256, 300), (256, 383)]
+# tests/test_torch_mega_step.py's (flushed, pos) cases: (256, 384) is a
+# full tail with an empty stage, which JAX's kernel takes
+CASES = [(0, 0), (0, 5), (0, 40), (128, 140), (256, 300), (256, 384)]
 D, H, L, NB = 256, 4, 2, 2
 
 
-def _inputs(b, dev, seed=0):
+def _inputs(b, dev, seed=0, d=D, nl=L):
     """x, int8 weights with column scales, a three-tier cache of NB cold
-    blocks, ALiBi slopes: numpy draws from ``seed``, moved to ``dev``."""
+    blocks, ALiBi slopes: numpy draws from ``seed``, moved to ``dev``; a
+    trunk of ``nl`` layers of dim ``d`` (heads of 64)."""
     rng = np.random.RandomState(seed)
+    D, L, H = d, nl, d // tmega.HEAD_DIM
     dh = D // H
 
     def i8(*shape):
@@ -89,6 +92,11 @@ def test_cuda_bf16_step_matches_plain(cuda_device, flushed, pos, b):
     want = tmega.fused_trunk_step_plain(*args, a8=False)
     torch.cuda.synchronize()
     assert tmega.fused_trunk_step.launches_bf16 == before + 1
+    _hold(got, want)
+
+
+def _hold(got, want):
+    """K2's band against the plain version: rtol 2e-3 / atol 2e-4."""
     for name, g, wnt in zip(("x", "k_new", "v_new"), got, want):
         np.testing.assert_allclose(g.float().cpu().numpy(),
                                    wnt.float().cpu().numpy(), rtol=2e-3,
@@ -96,22 +104,53 @@ def test_cuda_bf16_step_matches_plain(cuda_device, flushed, pos, b):
 
 
 @pytest.mark.cuda
-def test_cuda_bf16_step_is_one_launch(cuda_device):
-    """A bf16 call is one kernel on the card: a profiler window around one
-    call records one launch of ``k2_bf16_step_kernel`` and no other
-    kernel, beside the memset that zeroes its grid barrier's word (a
-    window that records nothing is taken again: torch.profiler windows
+@pytest.mark.parametrize("flushed,pos", CASES)
+@pytest.mark.parametrize("a8", [False, True])
+def test_cuda_kernel_matches_plain(cuda_device, flushed, pos, a8):
+    """B = 8, the serving default's batch, with and without the s8 x s8
+    products: the kernel and its plain version round the same exact int32
+    or float64 sums; the band is the JAX test's.  Each call is one launch,
+    counted under its branch."""
+    x, w, cache, slopes = _inputs(8, cuda_device, seed=3)
+    args = (x, w, cache, pos, slopes, flushed)
+    k2 = tmega.fused_trunk_step
+    before = (k2.launches, k2.launches_bf16)
+    got = k2(*args, a8=a8)
+    want = tmega.fused_trunk_step_plain(*args, a8=a8)
+    torch.cuda.synchronize()
+    assert (k2.launches, k2.launches_bf16) == (before[0] + a8,
+                                               before[1] + (not a8))
+    _hold(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 2, 9, 17, 32])
+def test_cuda_a8_step_matches_plain_at_any_batch(cuda_device, b):
+    """The s8 x s8 branch (``mega_a8=True`` forces it at any B up to the
+    mega cap) at ragged and full batch tiles of 8 rows, at a cold block,
+    tail and stage rows and at a full tail."""
+    x, w, cache, slopes = _inputs(b, cuda_device, seed=b)
+    for flushed, pos in ((128, 140), (256, 384)):
+        args = (x, w, cache, pos, slopes, flushed)
+        got = tmega.fused_trunk_step(*args, a8=True)
+        want = tmega.fused_trunk_step_plain(*args, a8=True)
+        torch.cuda.synchronize()
+        _hold(got, want)
+
+
+def one_launch(call, kernel: str):
+    """A profiler window around one call records one launch of ``kernel``
+    and no other kernel, beside the memset that zeroes its scratch words
+    (a window that records nothing is taken again: torch.profiler windows
     on the H100 have lost launches)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x, w, cache, slopes = _inputs(12, cuda_device)
-    args = (x, w, cache, 300, slopes, 256)
-    tmega.fused_trunk_step(*args, a8=False)
+    call()
     torch.cuda.synchronize()
     for _ in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            tmega.fused_trunk_step(*args, a8=False)
+            call()
             torch.cuda.synchronize()
         kernels = {e.key: e.count for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
@@ -120,4 +159,20 @@ def test_cuda_bf16_step_is_one_launch(cuda_device):
             break
     assert len(kernels) == 1, kernels
     (name, count), = kernels.items()
-    assert "k2_bf16_step_kernel" in name and count == 1
+    assert kernel in name and count == 1
+
+
+@pytest.mark.cuda
+def test_cuda_a8_step_is_one_launch(cuda_device):
+    x, w, cache, slopes = _inputs(8, cuda_device)
+    one_launch(lambda: tmega.fused_trunk_step(x, w, cache, 300, slopes, 256,
+                                              a8=True), "k2_i8_step_kernel")
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_step_is_one_launch(cuda_device):
+    """A bf16 call is one kernel on the card (``one_launch``)."""
+    x, w, cache, slopes = _inputs(12, cuda_device)
+    one_launch(lambda: tmega.fused_trunk_step(x, w, cache, 300, slopes, 256,
+                                              a8=False),
+               "k2_bf16_step_kernel")

@@ -1,6 +1,7 @@
 """K2, the whole-trunk mega step, and its cache upkeep: the port against
-the JAX package on the CPU, and, on a card, the CUDA kernel against its
-plain version.
+the JAX package on the CPU.  The card tests of the kernels are in the
+torch-only ``tests/test_torch_mega_bf16.py`` and
+``tests/test_torch_mega_w4_cuda.py`` (the card's machine has no flax).
 
   * ``fused_trunk_step_plain`` against the JAX Pallas kernel in interpret
     mode and against ``fused_trunk_step_reference``, on the weights, cache
@@ -16,7 +17,15 @@ plain version.
     version's float64 products round to the same float32 bits as a
     numpy float64 sum in the kernel's order (or its reverse), and the
     kernel's shared-memory plan (``bf16_step_plan``) covers every output
-    column once within the H100's per-block limit.
+    column once within the H100's per-block limit;
+  * the same for the a8/w4 persistent kernel: int32 partials of chunks
+    in a shuffled order and the group-order float32 fold give the plain
+    version's bits; its plan (``i8_step_plan``) covers every weight row
+    of every column once, in whole fold groups, and fits every batch at
+    dims 1024 and 1280 on 114 and 132 SMs; its scratch
+    (``i8_workspace_bytes``) holds every partial;
+  * the wrapper at a full tail with an empty stage (``pos == flushed +
+    128``), as JAX's kernel takes it, against JAX's reference.
 
 Also holds the mega-eligible tiny LVTR (``tests/test_torch_trunk.py``'s,
 widened to dim 256 / ffd 1024 like ``tests/test_lvtr_step_parity.py``'s
@@ -429,53 +438,199 @@ def test_bf16_step_fits_at_the_plan_limits(b, d, n_sm, slot, fits):
 @pytest.mark.parametrize("d, h", [(256, 4), (1024, 16), (2048, 32)])
 @pytest.mark.parametrize("group", [0, 64, 128])
 def test_workspace_holds_every_partial(d, h, group):
-    """``workspace_bytes`` against what the a8 (``group`` 0) and w4
-    multi-launch step (``fused_trunk_step_launch`` in
-    ``csrc/mega_step.cu``) carve from it: the int32 partial sums of each
-    product (a8: one per split-K chunk of 64 rows, of 128 in FFN down,
-    one per head in the out-projection; w4: one per 32 logical rows, so
-    D / 8 per output in FFN down), then qkv (B, 3D) and the GELU rows (B,
-    4D) in float32, the int8 rows (B, 4D), and their scales (one per row
-    and head, or per row and group of the 4D-input FFN down).  A buffer
-    sized for a8's partials alone let w4's FFN down write over qkv and
-    the int8 rows on the card."""
+    """``i8_workspace_bytes`` against what the a8 (``group`` 0) and w4
+    persistent step (``fused_trunk_step_i8_launch`` in
+    ``csrc/mega_step.cu``) carves from it, derived here from the products
+    and their tiles: the barrier's word; a8's int32 sums, one per row and
+    output column of its widest one-dot product (FFN up's 4D); every
+    partial a grouped product writes (one float32 term per fold group,
+    row and output column: the out-projection's heads, w4's groups, over
+    the tiles of each product) and the largest of those; the int8 rows
+    (B, 4D); two arrays of per-row activation scales, each as wide as the
+    most scales a row takes (heads, or FFN down's groups).  The dense
+    partial sums of a tile never leave shared memory otherwise."""
     b = 32
-    if group:
-        parts = [k // 32 * n for n, k in tmega.step_products(d)]
-        n_scales = max(h, 4 * d // group)
-    else:
-        parts = [d // 64 * 3 * d, h * d, d // 64 * 4 * d, 4 * d // 128 * d]
-        n_scales = h
-    pmax = max(d // 16, h)
-    part_region = 4 * 2 * b * d * pmax      # the launcher's offset of qkv
-    assert 4 * b * max(parts) <= part_region
-    need = part_region + 4 * (3 + 4) * b * d + 4 * b * d + 4 * b * n_scales
-    assert tmega.workspace_bytes(b, d, h) >= need
+    acc = 0 if group else 4 * d
+    terms = 0
+    for p in range(4):
+        n, k, gsz = tmega.i8_geom(p, d, group)
+        if not gsz:
+            continue
+        plan = tmega.i8_step_plan(b, d, h, 132, group)
+        groups = set()
+        for col, row, rows in tmega.i8_tiles(p, d, group, plan.splits[p]):
+            halves = (0, k // 2) if group else (0,)
+            for off in halves:
+                groups.update(range((off + row) // gsz,
+                                    (off + row + rows) // gsz))
+        assert groups == set(range(k // gsz))
+        terms = max(terms, len(groups) * n)
+    n_scales = max(h, 4 * d // group if group else 1)
+    need = (16 + 4 * b * acc + 4 * b * terms + b * 4 * d
+            + 2 * 4 * b * n_scales)
+    assert tmega.i8_workspace_bytes(b, d, h, group) >= need
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("the CUDA kernel needs an NVIDIA GPU (sm_90a)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
+def _tile_cover(p, d, group, plan, n_sm):
+    """Each stored row of each output column of product ``p``, and the
+    tiles and pieces each block takes, as ``i8_issue`` walks them."""
+    n, k, gsz = tmega.i8_geom(p, d, group)
+    kst = k // 2 if group else k
+    tiles = tmega.i8_tiles(p, d, group, plan.splits[p])
+    cover = np.zeros((kst, n), np.int32)
+    for col, row, rows in tiles:
+        assert rows % tmega.I8_CHUNK == 0
+        if gsz:                       # whole fold groups in every tile
+            assert row % gsz == 0 and rows % gsz == 0
+        cover[row:row + rows, col:col + tmega.I8_TILE] += 1
+        assert tmega.i8_tile_bytes(p, d, group, plan.bp, rows) <= plan.region
+    for blk in range(n_sm):
+        mine = tiles[blk::n_sm]
+        for i in range(0, len(mine), plan.tp[p]):
+            piece = mine[i:i + plan.tp[p]]
+            assert sum(r for _, _, r in piece) * tmega.I8_TILE <= plan.slot
+    return cover
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("flushed,pos", CASES)
-@pytest.mark.parametrize("a8", [False, True])
-def test_cuda_kernel_matches_plain(cuda_device, flushed, pos, a8):
-    """The kernel and its plain version round the same float64 or int32
-    sums; the band is the JAX test's."""
+@pytest.mark.parametrize("b", [1, 2, 8, 9, 17, 24, 32])
+@pytest.mark.parametrize("group", [0, 64, 128])
+def test_i8_step_plan_covers_every_column(b, group):
+    """``i8_step_plan`` (the Python mirror of ``i8_plan`` in
+    ``csrc/mega_step.cu``) for the a8 (``group`` 0) and w4 steps at the
+    flagship's dim 1024 / 16 heads and dims 1280 and 2560, on an H100 SXM's
+    132 SMs and a PCIe card's 114: every stored weight row of every output
+    column lies in exactly one tile; each tile holds whole fold groups and
+    whole 32-row chunks, and its int8 rows and scratch fit the region; a
+    block's piece of tiles fits a weight slot; the whole plan fits the
+    232,448 bytes a block may use."""
+    for d in (1024, 1280, 2560):
+        if group and d % (2 * group):
+            continue
+        for n_sm in (114, 132):
+            plan = tmega.i8_step_plan(b, d, d // tmega.HEAD_DIM, n_sm, group)
+            assert plan.bytes <= tmega.SMEM_LIMIT
+            assert plan.slot % 1024 == 0 and plan.bp % 8 == 0 >= b - plan.bp
+            assert plan.region >= tmega.STEP_GROUPS * tmega.GROUP_SMEM
+            assert plan.region >= 20 * d + 4 * plan.nxs + 64
+            for p in range(4):
+                cover = _tile_cover(p, d, group, plan, n_sm)
+                assert (cover == 1).all(), (d, n_sm, p)
+
+
+@pytest.mark.parametrize("d", [1024, 1280])
+@pytest.mark.parametrize("n_sm", [114, 132])
+@pytest.mark.parametrize("group", [0, 64, 128])
+def test_i8_step_fits_at_the_plan_limits(d, n_sm, group):
+    """The a8 and w4 steps take every batch up to the mega cap (32) at dim
+    1024 and 1280 on 114 and 132 SMs: their tiles cut K as well as the
+    columns, so a block's share shrinks with the card (where the bf16
+    step's plan outgrows a block at dim 1280 on 132 SMs or dim 1024 on
+    114), and the sampler never needs another route for them.  Even a
+    one-SM card takes them: a block's tiles then stream through the two
+    slots in pieces."""
+    for b in range(1, 33):
+        plan = tmega.i8_step_plan(b, d, d // tmega.HEAD_DIM, n_sm, group)
+        assert plan.bytes <= tmega.SMEM_LIMIT
+    plan = tmega.i8_step_plan(8, d, d // tmega.HEAD_DIM, 1, group)
+    assert plan.bytes <= tmega.SMEM_LIMIT and max(plan.tp) >= 1
+
+
+@pytest.mark.parametrize("n_sm", [1, 16, 114, 132])
+def test_i8_rows_phase_takes_every_row(n_sm):
+    """A rows phase of the a8/w4 step (``i8_rows``) finalizes, normalizes
+    and quantizes each batch row in exactly one block, also where the grid
+    has fewer blocks than rows (one SM, or an H100 slice of 16 SMs at the
+    CLI's B = 32 chunks): block j takes rows j, j + G, ..."""
+    for b in range(1, 33):
+        taken = [r for blk in range(n_sm)
+                 for r in tmega.i8_row_blocks(b, n_sm, blk)]
+        assert sorted(taken) == list(range(b))
+
+
+def _chunked_dot(x8, w8, rng, chunk=32):
+    """sum_k x8[b, k] w8[k, n] as the kernel adds it: int32 partials of
+    chunks of 32 k, taken in a shuffled order (warps, tiles and atomics
+    add them in any order); every partial sum stays inside int32."""
+    k = x8.shape[1]
+    order = rng.permutation(k // chunk)
+    acc = np.zeros((x8.shape[0], w8.shape[1]), np.int64)
+    for c in order:
+        sl = slice(c * chunk, (c + 1) * chunk)
+        acc += x8[:, sl] @ w8[sl]
+        assert np.abs(acc).max() < 2 ** 31
+    return acc
+
+
+def _emulated_mm(rng):
+    """``_mm`` (a8) and ``_mm_w4`` as the a8/w4 step computes them: int32
+    dots from shuffled chunks, then a8's float(dot) * (xs * s), or w4's
+    terms float(dot_g) * (xs_g * g_g) added in group order from 0.0."""
+    def mm(x, w8, scales, a8):
+        assert a8
+        x8, xs = tmega._quant_rows(x, 1e-8)
+        dot = _chunked_dot(x8.numpy().astype(np.int64),
+                           w8.numpy().astype(np.int64), rng)
+        return torch.from_numpy(dot.astype(np.float32)) * (xs * scales)
+
+    def mm_w4(x, wp, gscale):
+        w8 = tmega.unpack_w4(wp).numpy().astype(np.int64)
+        b, ng = x.shape[0], gscale.shape[0]
+        gsz = w8.shape[0] // ng
+        x8, xs = tmega._quant_rows(x.reshape(b, ng, gsz), 1e-8)
+        x8 = x8.numpy().astype(np.int64)
+        y = torch.zeros((b, w8.shape[1]))
+        for gi in range(ng):
+            dot = _chunked_dot(x8[:, gi], w8[gi * gsz:(gi + 1) * gsz], rng)
+            y = y + (torch.from_numpy(dot.astype(np.float32))
+                     * (xs[:, gi] * gscale[gi]))
+        return y
+    return mm, mm_w4
+
+
+@pytest.mark.parametrize("kind", ["a8", "w4_64", "w4_128"])
+def test_i8_split_sums_equal_the_plain_version(monkeypatch, kind):
+    """The a8/w4 step's premise: its int32 partials (chunks of 32 inputs,
+    summed in any order by warps, tiles and atomics) and its float32 fold
+    of the group terms in group order give the plain version's bits.  The
+    whole plain step with its dense products replaced by that emulation
+    (shuffled chunk orders from a seed) equals the plain step bitwise, for
+    a8 and for w4 at groups 64 and 128, at a cache state with cold, tail
+    and stage rows."""
+    from vae_gslm_tpu_torch.nn.transformer import pack_mega_w4
+
     _, (x, w, cache, slopes) = _inputs()
-    dev = cuda_device
-    w = {k: v.to(dev) for k, v in w.items()}
-    cache = {k: v.to(dev) for k, v in cache.items()}
-    args = (x.to(dev), w, cache, pos, slopes.to(dev), flushed)
-    got = tmega.fused_trunk_step(*args, a8=a8)
-    want = tmega.fused_trunk_step_plain(*args, a8=a8)
-    torch.cuda.synchronize()
+    a8 = kind == "a8"
+    if not a8:
+        w = pack_mega_w4(w, int(kind.split("_")[1]), tmega.HEAD_DIM)
+    want = tmega.fused_trunk_step_plain(x, w, cache, 300, slopes, 256, a8=a8)
+    mm, mm_w4 = _emulated_mm(np.random.RandomState(len(kind)))
+    monkeypatch.setattr(tmega, "_mm", mm)
+    monkeypatch.setattr(tmega, "_mm_w4", mm_w4)
+    got = tmega.fused_trunk_step_plain(x, w, cache, 300, slopes, 256, a8=a8)
     for name, g, wnt in zip(("x", "k_new", "v_new"), got, want):
-        np.testing.assert_allclose(g.float().cpu().numpy(),
-                                   wnt.float().cpu().numpy(), rtol=2e-3,
+        np.testing.assert_array_equal(g.float().numpy().view(np.int32),
+                                      wnt.float().numpy().view(np.int32),
+                                      err_msg=name)
+
+
+@pytest.mark.parametrize("branch", ["a8", "bf16", "w4"])
+def test_wrapper_takes_a_full_tail_as_jax(branch):
+    """``pos == flushed + 128``: a full int8 tail and an empty stage, a
+    state JAX's kernel takes (its tail mask is ``t < stage_base``, its
+    stage mask ``j < pos``; ``tests/test_mega_step.py`` holds it at
+    flushed 256).  The wrapper takes it on every branch; on the CPU its
+    plain route agrees with ``fused_trunk_step_reference`` within the JAX
+    test's band."""
+    (jx, jw, jcache, jslopes), (x, w, cache, slopes) = _inputs()
+    a8 = branch == "a8"
+    if branch == "w4":
+        jw = _stack().build_mega_decode_w4(group=128)
+        w = mega_weights_from_numpy(jw)
+    flushed, pos = 256, 256 + tmega.TAIL      # tests/test_mega_step.py's
+    want = jmega.fused_trunk_step_reference(jx, jw, jcache, pos, jslopes,
+                                            flushed, a8=a8)
+    got = tmega.fused_trunk_step(x, w, cache, pos, slopes, flushed, a8=a8)
+    for name, g, wnt in zip(("x", "k_new", "v_new"), got, want):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(wnt, np.float32), rtol=2e-3,
                                    atol=2e-4, err_msg=name)

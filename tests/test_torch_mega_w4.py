@@ -1,6 +1,6 @@
 """K2-w4, the nibble-packed int4 branch of the whole-trunk step: the port
-against the JAX package on the CPU, and, on a card, the CUDA kernel
-against its plain version.
+against the JAX package on the CPU.  Its card tests are in the torch-only
+``tests/test_torch_mega_w4_cuda.py``.
 
   * ``build_mega_decode_w4`` equals JAX's bit for bit (the packed bytes,
     and the folded group scales as float32 bits) at groups 128 and 64,
@@ -191,32 +191,3 @@ def test_sampler_matches_jax_mega_w4(monkeypatch):
     assert _first_token_disagreement(tf, jf) >= 150
     np.testing.assert_allclose(tf[..., 1:], jf[..., 1:], atol=1e-2,
                                rtol=1e-2, err_msg="latents")
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("the CUDA kernel needs an NVIDIA GPU (sm_90a)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("flushed,pos,group", W4_CASES)
-def test_cuda_w4_kernel_matches_plain(cuda_device, flushed, pos, group):
-    """The kernel and its plain version sum the same exact int32 group
-    dots in group order in float32; the band is the JAX test's."""
-    _, _, (x, w, cache, slopes) = _inputs(group)
-    dev = cuda_device
-    w = {k: v.to(dev) for k, v in w.items()}
-    cache = {k: v.to(dev) for k, v in cache.items()}
-    args = (x.to(dev), w, cache, pos, slopes.to(dev), flushed)
-    before = tmega.fused_trunk_step.launches_w4
-    got = tmega.fused_trunk_step(*args)
-    want = tmega.fused_trunk_step_plain(*args)
-    torch.cuda.synchronize()
-    assert tmega.fused_trunk_step.launches_w4 == before + 1
-    for name, g, wnt in zip(("x", "k_new", "v_new"), got, want):
-        np.testing.assert_allclose(g.float().cpu().numpy(),
-                                   wnt.float().cpu().numpy(), rtol=2e-3,
-                                   atol=2e-4, err_msg=name)

@@ -16,33 +16,18 @@
 // It is bound by HBM bytes: even at B=32 the dense products are 64
 // int8 (or bf16) operations per weight byte, far under the card's ratio.
 //
-// Two designs.  The a8 branch (s8 x s8 products, the serving default at
-// B <= 8) and the w4 branch run as one C call per step that issues, for
-// each layer, these kernels in stream order:
-//   1. rows_kernel: RMSNorm(x, n1), then per-row int8 quantization;
-//   2. dense_kernel + epilogue_kernel: the QKV product plus bq.  The dense
-//      kernel splits K into chunks (one grid row each) and writes partial
-//      sums; the epilogue sums them in chunk order and applies the scales,
-//      so the result does not depend on which block finishes first;
-//   3. attn_kernel, one block per (h, b): cold blocks, the tail masked at
-//      t < stage_base, the stage rows masked at stage_base <= j < pos,
-//      then the current token; writes k_new/v_new in bf16 and the head's
-//      output (int8 + per-head scale);
-//   4. the out-projection, split by head: the epilogue sums heads 0..H-1
-//      in order (dot_h * asx[b, h]), applies `so`, the residual and bo;
-//   5. rows_kernel(x, n3), the FFN-up product, b1, the rational-erf GELU;
-//   6. rows_kernel quantizes the GELU rows; the FFN-down product, b2, the
-//      residual.
-// Its dense products take __dp4a over four int8 weights of one column (a
-// 4x4 byte transpose of four 32-bit row loads) in int32.  Each thread
-// owns 4 columns and 8 batch rows; more rows take more grid rows.
+// Every branch is one cooperative launch per step: one 512-thread block per
+// SM (the grid is the occupancy x the SM count), all L layers, phases
+// separated by a hand-written grid barrier (a release add and an acquire
+// poll on a word of the call's scratch that the launcher zeroes).
+// Attention is one (h, b) item per group of 128 threads (4 per block),
+// the positions of an item in order (each block of 128 is requantized
+// against the running maximum there).
 //
 // The bf16 branch (bf16 activations x int8 weights: every B > 8 call,
-// such as the CLI's B = 32 chunks) is one cooperative launch per step,
-// k2_bf16_step_kernel: one 512-thread block per SM (its grid is the
-// occupancy x the SM count), 16 layers x 5 phases separated by a grid
-// barrier (5 L - 1 per step): QKV, attention, out-projection, FFN up, FFN
-// down.
+// such as the CLI's B = 32 chunks) is k2_bf16_step_kernel (section 4): 5
+// phases a layer (QKV, attention, out-projection, FFN up, FFN down; 5 L -
+// 1 barriers a step).
 //   * Dense products on the FP64 tensor cores (mma.m16n8k16.f64, twice
 //     m8n8k4's rate on sm_90): the batch is M (tiles of 16 rows; rows
 //     past B are zeros and never stored), the weights are N (units of 8
@@ -59,24 +44,65 @@
 //     the block: warps split K (or, in the out-projection, the heads) and
 //     the block adds their float64 sums in shared memory.
 //   * The RMSNorm of the B rows is folded into the product that reads it:
-//     every block recomputes each row's 1/rms as rows_kernel sums it, and
-//     the fragment loads apply it and round to bf16.  Attention and GELU
-//     rows are written as the high words of their bf16 values as doubles.
+//     every block recomputes each row's 1/rms (rms_rows) and the fragment
+//     loads apply it and round to bf16.  Attention and GELU rows are
+//     written as the high words of their bf16 values as doubles.
 //   * The epilogues keep the parent's operation order: the QKV bias; the
 //     out-projection's per-head sums rounded to float32 and added in head
 //     order, then `so`, the residual and bo; GELU(y + b1); (x + y) + b2.
-//   * Attention is attn_kernel's body over (h, b) items, one per group of
-//     128 threads (4 per block), the positions of an item in order (each
-//     block of 128 is requantized against the running maximum there);
-//     each cache block is copied to shared memory by 16-byte loads, the
-//     next one in flight.
 //   Bounds at B = 32 (position 351): 0.603 GB of weights, valid cache
 //   rows and I/O, 0.180 ms at 3.35 TB/s; the exact-sum design's 12.88
 //   GFLOP on the FP64 tensor cores, 0.192 ms at 67 TFLOP/s.  What holds
 //   it far above them on the H100 (PERF.md): every block reads all B
-//   activation rows of each product from L2, at 6-15 bytes a cycle a
-//   block, each item's attention is a chain of dependent block merges,
-//   and 79 grid barriers of about 1 us.
+//   activation rows of each product from L2, each warp's chain of K
+//   chunks on the FP64 tensor cores, each item's attention is a chain of
+//   dependent block merges, and 79 grid barriers of about 1 us.
+//
+// The a8 branch (s8 x s8 products, the serving default at B <= 8) and the
+// w4 branch (group > 0; K2-w4, the Pallas kernel's w4 path at _kernel and
+// its out-projection: nibble-packed int4 weights (L, din/2, dout) int8, rows
+// r and r + din/2 in the hi and lo nibble of one byte, with folded group
+// scales g (L, din/group, dout) float32 in place of the column scales) are
+// k2_i8_step_kernel<W4> (section 5): 8 phases a layer, each input row
+// quantized once, each product split over K as well as over its columns.
+//   * A rows phase (block b takes row b) finalizes the product before it
+//     (the residual x, or GELU(y + b1)), takes the next product's RMSNorm
+//     (1/rms summed as rms_rows sums it) and its scales max|h| / 127 per
+//     row (a8) or per (row, group) (w4), a true division, and writes the
+//     int8 row once, in each 32-chunk's fragment order (chunk_pos).
+//   * A product is cut into tiles of 64 output columns x a K range (S per
+//     product, from the plan), tile t to block t mod G.  Each block loads
+//     its tiles' weight rows (64 bytes a row) with cp.async into one of two
+//     slots, the next product's while this one runs (TMA boxes of narrow
+//     strips had stalled the issuing thread for microseconds), and its K
+//     range of the int8 rows (w4: both nibble halves) into shared memory.
+//   * Dense products on the int8 tensor cores, mma.m16n8k32.s8.s8.s32: the
+//     weights' output columns are M (16 a tile), the batch is N (tiles of 8
+//     rows, up to four a pass), so no half of a tile is padding at B <= 8.
+//     ldmatrix.trans reads 32 weight rows of a chunk as each lane's two
+//     columns x four rows, and two byte permutes make them the A fragment
+//     (w4: then the nibbles of the half, sign-extended).  An int32 sum of
+//     int8 products is exact in any order, so warps, tiles and atomics
+//     split and add K any way: the bits equal the parent's.
+//   * a8's one dot per output: the tile's int32 sums in shared memory,
+//     then added into the call's int32 sums with global atomics; the next
+//     phase's reader takes float(dot) * (xs[b] * s[n]) + b, and zeroes
+//     them.  A fold group (w4's group, the out-projection's head): its
+//     tile writes the term float(dot_g) * (xs[b, g] * g[g, n]) (the out-
+//     projection: asx[b, h], times w4's go row of the head); the reader
+//     adds the terms in group order from 0.0 in float32 (a8's
+//     out-projection then * so), the parent's operation order.
+//   * Attention (after QKV, whose sums each item finalizes) quantizes its
+//     head's output per head into the int8 rows.  The a8 kernel, with no
+//     more items than blocks (B <= 8 at 16 heads), gives each item a whole
+//     block (attn_coop_i8): its cache blocks are split over the four
+//     groups, which replay the sequential walk's recurrences exactly.
+//   * The phase bodies are not inlined (one copy each): inlined four times,
+//     the kernel was 60,000 instructions and every phase refetched its code.
+//   Bounds at B = 8 (position 351): 0.303 GB of weights, valid cache rows
+//   and I/O, 0.090 ms at 3.35 TB/s; w4 at B = 32, group 128: 0.152 ms.
+//   What holds it far above them (PERF.md): 8 L barriers of about 1 us and
+//   a few dependent memory round trips in every phase.
 //
 // Numerics that must match the reference (and are easy to get wrong):
 //   * the online softmax is per 128-row block: each block's e*v_scale is
@@ -97,29 +123,6 @@
 //     are summed in float64 and rounded once, in the plain version too, so
 //     their order of summation does not matter;
 //   * GELU uses the Abramowitz-Stegun rational erf of the TPU kernel.
-//
-// The w4 branch (group > 0; K2-w4, the Pallas kernel's w4 path at _kernel
-// and its out-projection) reads nibble-packed int4 weights: (L, din/2,
-// dout) int8, rows r and r + din/2 in the hi and lo nibble of one byte,
-// with folded group scales g (L, din/group, dout) float32 in place of the
-// column scales.  Its bound is the same HBM stream at about half the
-// weight bytes (6 x 1024^2 x 16 = 101 MB packed + 6.3 MB of group scales
-// at group 128).  It has kernels of its own beside the a8/bf16 ones, which
-// it leaves as they are:
-//   * rows_w4_kernel quantizes each row per group of `group` inputs (one
-//     scale per (row, group), max|h| / 127 divided, not multiplied by a
-//     reciprocal);
-//   * dense_w4_kernel reads each packed byte once: a block takes PKC = 32
-//     packed rows, unpacks the hi nibbles (logical rows p0..) and the
-//     sign-extended lo nibbles (rows din/2 + p0..) into int8 and sums each
-//     against its activation rows with __dp4a into exact int32 partials,
-//     one per 32-row sub-chunk;
-//   * epilogue_w4_kernel sums a group's sub-chunk partials in int32 (exact, so
-//     the order does not matter), then the groups in group order in
-//     float32: y += float(dot_g) * (xs[b, g] * g[g, n]); the
-//     out-projection takes each head's (two sub-chunks') dot, its scale
-//     asx[b, h] and its group row of go, with no `so`;
-//   * the attention tier quantizes its output per head, as a8 does.
 
 #include <cuda.h>   // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
@@ -134,38 +137,11 @@ constexpr int STAGE = 8;        // bf16 stage rows
 constexpr int DH = 64;          // head_dim
 constexpr int AT = 128;         // attention threads: one per block row
 constexpr float NEG_INF = -1e30f;
-constexpr int RT = 256;         // rows_kernel threads
-constexpr int DT = 64;          // dense_kernel threads
-constexpr int DCOLS = 4 * DT;   // columns per dense block
-constexpr int BT = 8;           // batch rows per dense block
-constexpr int ET = 256;         // epilogue threads
-
-enum Epi { EPI_OUT = 0, EPI_GELU = 1, EPI_RESID = 2 };
+constexpr int RT = 256;         // the RMS sum's width: rms_rows adds a row's
+                                // squares as RT threads (k = t, t + RT, ..)
+                                // would, then their warps in order
 
 // ---------------------------------------------------------------- helpers
-template <int NT>
-__device__ __forceinline__ float block_max(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();                       // red may still be read
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = red[0];
-  for (int w = 1; w < NT / 32; ++w) v = fmaxf(v, red[w]);
-  return v;
-}
-
-template <int NT>
-__device__ __forceinline__ double block_sum(double v, double* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = red[0];
-  for (int w = 1; w < NT / 32; ++w) v += red[w];
-  return v;
-}
-
 __device__ __forceinline__ int8_t quant(float v, float scale) {
   return (int8_t)__float2int_rn(__fdiv_rn(v, scale));
 }
@@ -208,91 +184,6 @@ __device__ __forceinline__ uint32_t bf16_hi(float v) {
   return (uint32_t)__double2hiint((double)bf16_round(v));
 }
 
-// ------------------------------------------------------------ 1. rows
-// r = 1 / sqrt(sum(x^2) / K + 1e-6) of one row, the squares summed in
-// float64
-__device__ __forceinline__ float row_rms(const float* __restrict__ xr,
-                                         int K, double* dred) {
-  double ss = 0.0;
-  for (int k = threadIdx.x; k < K; k += RT) {
-    const float v = xr[k];
-    ss += (double)__fmul_rn(v, v);
-  }
-  const float ms = __fdiv_rn(__double2float_rn(block_sum<RT>(ss, dred)),
-                             (float)K);
-  return __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(ms, 1e-6f)));
-}
-
-// One block per batch row of K values.  With `norm`, h = (x * r) * norm
-// (r from row_rms); else h = x.  q8 = round(h / xs), xs = max(|h|max,
-// 1e-8) / 127, with xs written to xs_out[b * xs_stride].
-__global__ void __launch_bounds__(RT)
-rows_kernel(const float* __restrict__ x, const float* __restrict__ norm,
-            int K, int8_t* __restrict__ q_out, float* __restrict__ xs_out,
-            int xs_stride) {
-  __shared__ double dred[RT / 32];
-  __shared__ float fred[RT / 32];
-  const int b = blockIdx.x;
-  const float* xr = x + (size_t)b * K;
-  const float r = norm ? row_rms(xr, K, dred) : 1.f;
-  float amax = 0.f;
-  for (int k = threadIdx.x; k < K; k += RT) {
-    const float h = norm ? __fmul_rn(__fmul_rn(xr[k], r), norm[k]) : xr[k];
-    amax = fmaxf(amax, fabsf(h));
-  }
-  const float xs = qscale(block_max<RT>(amax, fred), 1e-8f);
-  for (int k = threadIdx.x; k < K; k += RT) {
-    const float h = norm ? __fmul_rn(__fmul_rn(xr[k], r), norm[k]) : xr[k];
-    q_out[(size_t)b * K + k] = quant(h, xs);
-  }
-  if (threadIdx.x == 0) xs_out[(size_t)b * xs_stride] = xs;
-}
-
-// w4: as rows_kernel's a8 mode with one xs per group of `group` values (a
-// warp per group), written to xs_out[b * (K / group) + group index].
-__global__ void __launch_bounds__(RT)
-rows_w4_kernel(const float* __restrict__ x, const float* __restrict__ norm,
-               int K, int group, int8_t* __restrict__ q_out,
-               float* __restrict__ xs_out) {
-  __shared__ double dred[RT / 32];
-  const int b = blockIdx.x;
-  const float* xr = x + (size_t)b * K;
-  const float r = norm ? row_rms(xr, K, dred) : 1.f;
-  const int G = K / group, lane = threadIdx.x & 31;
-  for (int gi = threadIdx.x >> 5; gi < G; gi += RT / 32) {
-    const int k0 = gi * group;
-    float amax = 0.f;
-    for (int k = k0 + lane; k < k0 + group; k += 32) {
-      const float h = norm ? __fmul_rn(__fmul_rn(xr[k], r), norm[k]) : xr[k];
-      amax = fmaxf(amax, fabsf(h));
-    }
-    for (int o = 16; o > 0; o >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    const float xs = qscale(amax, 1e-8f);
-    for (int k = k0 + lane; k < k0 + group; k += 32) {
-      const float h = norm ? __fmul_rn(__fmul_rn(xr[k], r), norm[k]) : xr[k];
-      q_out[(size_t)b * K + k] = quant(h, xs);
-    }
-    if (lane == 0) xs_out[(size_t)b * G + gi] = xs;
-  }
-}
-
-// ----------------------------------------------------------- 2. dense
-// part[s, b, n] = sum over k in chunk s of act[b, k] * w[k, n], for the
-// block's 256 columns, 8 batch rows and chunk s = blockIdx.y of KC rows:
-// int8 x int8 in int32.
-__device__ __forceinline__ void transpose4(int w0, int w1, int w2, int w3,
-                                           int c[4]) {
-  const int lo01 = __byte_perm(w0, w1, 0x5140);
-  const int hi01 = __byte_perm(w0, w1, 0x7362);
-  const int lo23 = __byte_perm(w2, w3, 0x5140);
-  const int hi23 = __byte_perm(w2, w3, 0x7362);
-  c[0] = __byte_perm(lo01, lo23, 0x5410);  // column 0: rows 0..3
-  c[1] = __byte_perm(lo01, lo23, 0x7632);
-  c[2] = __byte_perm(hi01, hi23, 0x5410);
-  c[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
 // the four signed 4-bit values in the hi (or lo) nibbles of w's bytes, as
 // four signed bytes: per byte, (nibble ^ 8) - 8 without carries
 __device__ __forceinline__ int nibbles(int w, bool hi) {
@@ -300,208 +191,17 @@ __device__ __forceinline__ int nibbles(int w, bool hi) {
   return (int)__vsub4(u ^ 0x08080808u, 0x08080808u);
 }
 
-__global__ void __launch_bounds__(DT)
-dense_kernel(const int8_t* __restrict__ act8, const int8_t* __restrict__ w,
-             int B, int K, int N, int KC, int* __restrict__ part) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n0 = blockIdx.x * DCOLS + threadIdx.x * 4;
-  const int s = blockIdx.y;
-  const int k0 = s * KC;
-  const int b0 = blockIdx.z * BT;
-  const int bt = min(BT, B - b0);
-  const int8_t* wp = w + (size_t)k0 * N + n0;
-  int8_t* xs = reinterpret_cast<int8_t*>(smem);          // [BT][KC]
-  for (int i = threadIdx.x; i < BT * KC; i += DT) {
-    const int bb = i / KC, k = i % KC;
-    xs[i] = bb < bt ? act8[(size_t)(b0 + bb) * K + k0 + k] : 0;
-  }
-  __syncthreads();
-  int acc[BT][4] = {};
-  // 32 weight rows a step, the next step's 32 in flight while this one's
-  // are summed (KC is 64 or 128), so that many loads wait at once
-  int r[32];
-#pragma unroll
-  for (int j = 0; j < 32; ++j)
-    r[j] = *reinterpret_cast<const int*>(wp + (size_t)j * N);
-  for (int k = 0; k < KC; k += 32) {
-    int nx[32];
-    if (k + 32 < KC) {
-#pragma unroll
-      for (int j = 0; j < 32; ++j)
-        nx[j] = *reinterpret_cast<const int*>(wp + (size_t)(k + 32 + j) * N);
-    }
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      int c[4];
-      transpose4(r[4 * q], r[4 * q + 1], r[4 * q + 2], r[4 * q + 3], c);
-#pragma unroll
-      for (int bb = 0; bb < BT; ++bb) {
-        const int xp =
-            *reinterpret_cast<const int*>(xs + bb * KC + k + 4 * q);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[bb][j] = __dp4a(xp, c[j], acc[bb][j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 32; ++j) r[j] = nx[j];
-  }
-  for (int bb = 0; bb < bt; ++bb)
-    *reinterpret_cast<int4*>(part + ((size_t)s * B + b0 + bb) * N + n0) =
-        make_int4(acc[bb][0], acc[bb][1], acc[bb][2], acc[bb][3]);
+// The position of k (within its chunk of 32) in the chunk's stored order:
+// k = 8 j + 2 t + e goes to 8 t + 4 (j / 2) + 2 (j % 2) + e, so that lane
+// (g, t)'s two B-fragment registers (k rows 2t, 2t+1, 8+2t, 9+2t and 16 +
+// those, the weight rows ldmatrix.trans hands it: section 5) are 8 contiguous
+// bytes.
+__host__ __device__ __forceinline__ int chunk_pos(int k) {
+  const int j = (k >> 3) & 3, t = (k >> 1) & 3, e = k & 1;
+  return (k & ~31) + 8 * t + 4 * (j >> 1) + 2 * (j & 1) + e;
 }
 
-// ------------------------------------------------------ 2a. dense, w4
-// Nibble-packed weights (K/2, N): packed row r holds logical row r in its
-// hi nibble and row K/2 + r in its lo nibble.  A block takes 256 columns,
-// 8 batch rows and the PKC packed rows [p0, p0 + PKC), p0 = blockIdx.y *
-// PKC, reading each byte once, and writes the int32 sums of its two
-// logical sub-chunks: rows p0.. to part[p0 / PKC], rows K/2 + p0.. to
-// part[(K/2 + p0) / PKC] (part[c, b, n], one c per PKC logical rows).
-constexpr int PKC = 32;
-
-__global__ void __launch_bounds__(DT)
-dense_w4_kernel(const int8_t* __restrict__ act8, const int8_t* __restrict__ w,
-                int B, int K, int N, int* __restrict__ part) {
-  __shared__ __align__(16) int8_t xs[2][BT][PKC];
-  const int n0 = blockIdx.x * DCOLS + threadIdx.x * 4;
-  const int p0 = blockIdx.y * PKC, half = K / 2;
-  const int b0 = blockIdx.z * BT;
-  const int bt = min(BT, B - b0);
-  for (int i = threadIdx.x; i < 2 * BT * PKC; i += DT) {
-    const int hl = i / (BT * PKC), bb = i / PKC % BT, k = i % PKC;
-    xs[hl][bb][k] =
-        bb < bt ? act8[(size_t)(b0 + bb) * K + hl * half + p0 + k] : 0;
-  }
-  __syncthreads();
-  const int8_t* wp = w + (size_t)p0 * N + n0;
-  int acc[2][BT][4] = {};
-#pragma unroll 2
-  for (int k = 0; k < PKC; k += 4) {
-    int r[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      r[j] = *reinterpret_cast<const int*>(wp + (size_t)(k + j) * N);
-#pragma unroll
-    for (int hl = 0; hl < 2; ++hl) {
-      int c[4];
-      transpose4(nibbles(r[0], hl == 0), nibbles(r[1], hl == 0),
-                 nibbles(r[2], hl == 0), nibbles(r[3], hl == 0), c);
-#pragma unroll
-      for (int bb = 0; bb < BT; ++bb) {
-        const int xp = *reinterpret_cast<const int*>(&xs[hl][bb][k]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[hl][bb][j] = __dp4a(xp, c[j], acc[hl][bb][j]);
-      }
-    }
-  }
-  const size_t c_lo = (size_t)(half + p0) / PKC;
-  for (int hl = 0; hl < 2; ++hl)
-    for (int bb = 0; bb < bt; ++bb)
-      *reinterpret_cast<int4*>(
-          part + (((hl ? c_lo : p0 / PKC)) * B + b0 + bb) * N + n0) =
-          make_int4(acc[hl][bb][0], acc[hl][bb][1], acc[hl][bb][2],
-                    acc[hl][bb][3]);
-}
-
-// -------------------------------------------------------- 2b. epilogue
-// out = y + bias (EPI_OUT), gelu(y + bias) (EPI_GELU) or x = (x + y) + bias
-// (EPI_RESID)
-__device__ __forceinline__ void epi_store(float y, const float* bias,
-                                          int op, float* out, int i, int n) {
-  if (op == EPI_OUT)
-    out[i] = __fadd_rn(y, bias[n]);
-  else if (op == EPI_GELU)
-    out[i] = gelu(__fadd_rn(y, bias[n]));
-  else
-    out[i] = __fadd_rn(__fadd_rn(out[i], y), bias[n]);
-}
-
-// y[b, n] from the S int32 partial sums, then epi_store:
-//   per-row scale:  y = float(sum_s part) * (ascale[b*H] * col[n])
-//   per-head scale: y = (sum_s float(part_s) * ascale[b*H + s]) * col[n]
-__global__ void __launch_bounds__(ET)
-epilogue_kernel(const int* __restrict__ part, int S, int B, int N,
-                int per_head, const float* __restrict__ ascale, int H,
-                const float* __restrict__ col, const float* __restrict__ bias,
-                int op, float* __restrict__ out) {
-  const int i = blockIdx.x * ET + threadIdx.x;
-  if (i >= B * N) return;
-  const int b = i / N, n = i % N;
-  const size_t stride = (size_t)B * N;
-  const int* p = part + i;
-  float y;
-  if (!per_head) {
-    int acc = 0;
-    for (int s = 0; s < S; ++s) acc += p[s * stride];
-    y = __fmul_rn(__int2float_rn(acc),
-                  __fmul_rn(ascale[(size_t)b * H], col[n]));
-  } else {
-    y = 0.f;
-    for (int s = 0; s < S; ++s)
-      y = __fadd_rn(y, __fmul_rn(__int2float_rn(p[s * stride]),
-                                 ascale[(size_t)b * H + s]));
-    y = __fmul_rn(y, col[n]);
-  }
-  epi_store(y, bias, op, out, i, n);
-}
-
-// w4: S scale units (groups, or heads in the out-projection) of NSUB
-// partials each; dot_s = the int32 sum of unit s's partials, then y =
-// sum_s float(dot_s) * (ascale[b*S + s] * gscale[(s / gdiv) * N + n]) in
-// unit order, no column scale (gdiv = group / 64 for heads, else 1).
-// The loads of EU units (EU * NSUB partials and their scales) are issued
-// before their in-order float32 sum, so that many are in flight at once:
-// a thread's loads are the kernel's time, and at B = 8 the FFN-down
-// epilogue has only 32 blocks for 128 partials per thread.  On the H100,
-// 4 units ran ahead of 8 and of a plain loop under `#pragma unroll`
-// (scripts/mega_ab.py).
-constexpr int EU = 4;
-
-template <int NSUB>
-__global__ void __launch_bounds__(ET)
-epilogue_w4_kernel(const int* __restrict__ part, int S, int B, int N,
-                   const float* __restrict__ ascale,
-                   const float* __restrict__ gscale, int gdiv,
-                   const float* __restrict__ bias, int op,
-                   float* __restrict__ out) {
-  const int i = blockIdx.x * ET + threadIdx.x;
-  if (i >= B * N) return;
-  const int b = i / N, n = i % N;
-  const size_t stride = (size_t)B * N;
-  const int* p = part + i;
-  const float* as = ascale + (size_t)b * S;
-  const float* gs = gscale + n;
-  float y = 0.f;
-  int s0 = 0;
-  for (; s0 + EU <= S; s0 += EU) {
-    int dot[EU];
-    float sc[EU];
-#pragma unroll
-    for (int u = 0; u < EU; ++u) {
-      const int s = s0 + u;
-      int d = 0;
-#pragma unroll
-      for (int j = 0; j < NSUB; ++j) d += p[(size_t)(s * NSUB + j) * stride];
-      dot[u] = d;
-      sc[u] = __fmul_rn(as[s], gs[(size_t)(s / gdiv) * N]);
-    }
-#pragma unroll
-    for (int u = 0; u < EU; ++u)
-      y = __fadd_rn(y, __fmul_rn(__int2float_rn(dot[u]), sc[u]));
-  }
-  for (int s = s0; s < S; ++s) {          // fewer than EU units left
-    int d = 0;
-#pragma unroll
-    for (int j = 0; j < NSUB; ++j) d += p[(size_t)(s * NSUB + j) * stride];
-    y = __fadd_rn(y, __fmul_rn(__int2float_rn(d),
-                               __fmul_rn(as[s], gs[(size_t)(s / gdiv) * N])));
-  }
-  epi_store(y, bias, op, out, i, n);
-}
-
-// ------------------------------------------------------- 3. attention
+// ------------------------------------------------------- attention
 struct AttnArgs {
   const float* qkv;            // (B, 3D)
   const int8_t* k_cold;        // this layer's (NB, H, B, DH, BLK)
@@ -527,181 +227,6 @@ struct AttnState {
   float m, l;                  // running max and denominator (all threads)
   float acc;                   // output channel d = tid (tid < DH)
 };
-
-// Merge one 128-row block of logits (thread t holds row t's logit s and
-// V scale vs) into the state.  V is int8, (DH, BLK) time-minor for a cold
-// block, (BLK, DH) for the tail.
-__device__ __forceinline__ void merge_i8(AttnState& st, float s, float vs,
-                                         const int8_t* v, bool time_minor,
-                                         float* fred, double* dred,
-                                         int8_t* u8, int* avred) {
-  const int tid = threadIdx.x;
-  const float m_new = fmaxf(st.m, block_max<AT>(s, fred));
-  const float corr = expf(__fsub_rn(st.m, m_new));
-  const float e = expf(__fsub_rn(s, m_new));
-  const float esum = __double2float_rn(block_sum<AT>((double)e, dred));
-  st.l = __fadd_rn(__fmul_rn(st.l, corr), esum);
-  const float u = __fmul_rn(e, vs);
-  const float u_scale = qscale(block_max<AT>(u, fred), 1e-20f);
-  u8[tid] = quant(u, u_scale);
-  __syncthreads();
-  // thread (d = tid % 64, part = tid / 64) sums 64 rows of channel d
-  const int d = tid % DH, part = tid / DH;
-  int av = 0;
-  if (time_minor) {                      // row d: 64 contiguous bytes
-    const int4* r = reinterpret_cast<const int4*>(v + d * BLK + part * DH);
-    const int* up = reinterpret_cast<const int*>(u8 + part * DH);
-    for (int i = 0; i < DH / 16; ++i) {
-      const int4 vv = r[i];
-      av = __dp4a(up[4 * i], vv.x, av);
-      av = __dp4a(up[4 * i + 1], vv.y, av);
-      av = __dp4a(up[4 * i + 2], vv.z, av);
-      av = __dp4a(up[4 * i + 3], vv.w, av);
-    }
-  } else {                               // column d, coalesced over d
-    for (int t = part * DH; t < (part + 1) * DH; ++t)
-      av += (int)u8[t] * (int)v[t * DH + d];
-  }
-  if (part == 1) avred[d] = av;
-  __syncthreads();
-  if (part == 0)
-    st.acc = __fadd_rn(__fmul_rn(st.acc, corr),
-                       __fmul_rn(__int2float_rn(av + avred[d]), u_scale));
-  st.m = m_new;
-  __syncthreads();                       // u8 / avred are rewritten next
-}
-
-__global__ void __launch_bounds__(AT) attn_kernel(AttnArgs a) {
-  __shared__ float qf[DH], kc[DH], vc[DH];
-  __shared__ __align__(16) int8_t q8[DH];
-  __shared__ __align__(16) int8_t u8[AT];
-  __shared__ int avred[DH];
-  __shared__ float fred[AT / 32];
-  __shared__ double dred[AT / 32];
-  __shared__ float s_st[STAGE];
-
-  const int tid = threadIdx.x;
-  const int h = blockIdx.x / a.B, b = blockIdx.x % a.B;
-  const size_t hb = (size_t)h * a.B + b;
-  const float slope = a.slopes[h];
-  const float* row = a.qkv + (size_t)b * 3 * a.D + h * DH;
-  if (tid < DH) {
-    qf[tid] = row[tid];
-    kc[tid] = row[a.D + tid];
-    vc[tid] = row[2 * a.D + tid];
-    a.k_new[hb * DH + tid] = __float2bfloat16_rn(kc[tid]);
-    a.v_new[hb * DH + tid] = __float2bfloat16_rn(vc[tid]);
-  }
-  __syncthreads();
-  const float q_scale =
-      qscale(block_max<AT>(tid < DH ? fabsf(qf[tid]) : 0.f, fred), 1e-8f);
-  if (tid < DH) q8[tid] = quant(qf[tid], q_scale);
-  __syncthreads();
-  const float qs = __fmul_rn(q_scale, a.scale);
-  const int* q8p = reinterpret_cast<const int*>(q8);
-  const int stage_base = a.pos - (a.pos - a.flushed) % STAGE;
-  AttnState st{NEG_INF, 0.f, 0.f};
-
-  // ---- cold blocks: (DH, BLK) time-minor planes, read byte-wise
-  for (int i = 0; i < a.nblk; ++i) {
-    const size_t plane = (size_t)i * a.H * a.B + hb;
-    const int8_t* k = a.k_cold + plane * DH * BLK + tid;
-    int acc = 0;
-    for (int d4 = 0; d4 < DH / 4; ++d4) {
-      const int8_t* p = k + (size_t)(4 * d4) * BLK;
-      const int packed = (int)(uint8_t)p[0] | ((int)(uint8_t)p[BLK] << 8) |
-                         ((int)(uint8_t)p[2 * BLK] << 16) |
-                         ((int)(uint8_t)p[3 * BLK] << 24);
-      acc = __dp4a(q8p[d4], packed, acc);
-    }
-    const int t = i * BLK + tid;
-    float s = __fmul_rn(__fmul_rn((float)acc, qs),
-                        a.kc_scale[plane * BLK + tid]);
-    s = __fadd_rn(s, __fmul_rn(slope, (float)abs(t - a.pos)));
-    merge_i8(st, s, a.vc_scale[plane * BLK + tid],
-             a.v_cold + plane * DH * BLK, true, fred, dred, u8, avred);
-  }
-
-  // ---- tail: (BLK, DH) rows, valid below stage_base
-  {
-    const int4* kr = reinterpret_cast<const int4*>(
-        a.k_tail + (hb * BLK + tid) * DH);
-    int acc = 0;
-    for (int i = 0; i < DH / 16; ++i) {
-      const int4 v = kr[i];
-      acc = __dp4a(q8p[4 * i], v.x, acc);
-      acc = __dp4a(q8p[4 * i + 1], v.y, acc);
-      acc = __dp4a(q8p[4 * i + 2], v.z, acc);
-      acc = __dp4a(q8p[4 * i + 3], v.w, acc);
-    }
-    const int t = a.flushed + tid;
-    float s = __fmul_rn(__fmul_rn((float)acc, qs),
-                        a.kt_scale[hb * BLK + tid]);
-    s = __fadd_rn(s, __fmul_rn(slope, (float)abs(t - a.pos)));
-    s = t < stage_base ? s : NEG_INF;
-    merge_i8(st, s, a.vt_scale[hb * BLK + tid], a.v_tail + hb * BLK * DH,
-             false, fred, dred, u8, avred);
-  }
-
-  // ---- stage: STAGE bf16 rows, valid at stage_base <= j < pos.  Warp w
-  // takes rows w and w + 4; the dot is summed in float64.
-  {
-    const int warp = tid / 32, lane = tid % 32;
-    for (int j = warp; j < STAGE; j += AT / 32) {
-      const __nv_bfloat16* kr = a.k_stage + ((size_t)j * a.H * a.B + hb) * DH;
-      double dot = (double)__fmul_rn(qf[lane], __bfloat162float(kr[lane])) +
-                   (double)__fmul_rn(qf[lane + 32],
-                                     __bfloat162float(kr[lane + 32]));
-      for (int o = 16; o > 0; o >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      if (lane == 0) {
-        const int jj = stage_base + j;
-        float s = __fmul_rn(__double2float_rn(dot), a.scale);
-        s = __fadd_rn(s, __fmul_rn(slope, (float)abs(jj - a.pos)));
-        s_st[j] = jj < a.pos ? s : NEG_INF;
-      }
-    }
-    __syncthreads();
-    float mx = s_st[0];
-    for (int j = 1; j < STAGE; ++j) mx = fmaxf(mx, s_st[j]);
-    const float m_new = fmaxf(st.m, mx);
-    const float corr = expf(__fsub_rn(st.m, m_new));
-    float e[STAGE];
-    double esum = 0.0;
-    for (int j = 0; j < STAGE; ++j) {
-      e[j] = expf(__fsub_rn(s_st[j], m_new));
-      esum += (double)e[j];
-    }
-    st.l = __fadd_rn(__fmul_rn(st.l, corr), __double2float_rn(esum));
-    if (tid < DH) {
-      double av = 0.0;
-      for (int j = 0; j < STAGE; ++j)
-        av += (double)__fmul_rn(
-            e[j], __bfloat162float(
-                      a.v_stage[((size_t)j * a.H * a.B + hb) * DH + tid]));
-      st.acc = __fadd_rn(__fmul_rn(st.acc, corr), __double2float_rn(av));
-    }
-    st.m = m_new;
-  }
-
-  // ---- the current token (dot summed in float64), then acc / l
-  const double dot = block_sum<AT>(
-      tid < DH ? (double)__fmul_rn(qf[tid], kc[tid]) : 0.0, dred);
-  const float s_self = __fmul_rn(__double2float_rn(dot), a.scale);
-  const float m_f = fmaxf(st.m, s_self);
-  const float corr = expf(__fsub_rn(st.m, m_f));
-  const float e_self = expf(__fsub_rn(s_self, m_f));
-  const float l_f = __fadd_rn(__fmul_rn(st.l, corr), e_self);
-  float attn = 0.f;
-  if (tid < DH)
-    attn = __fdiv_rn(__fadd_rn(__fmul_rn(st.acc, corr),
-                               __fmul_rn(e_self, vc[tid])),
-                     l_f);
-  const size_t o = (size_t)b * a.D + h * DH + tid;
-  const float asx = qscale(block_max<AT>(fabsf(attn), fred), 1e-8f);
-  if (tid < DH) a.out8[o] = quant(attn, asx);
-  if (tid == 0) a.asx[(size_t)b * a.H + h] = asx;
-}
 
 // ------------------------------------------- 4. K2-bf16: one launch a step
 // The bf16 branch (bf16 activations x int8 weights) as one cooperative
@@ -861,7 +386,8 @@ __device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
 }
 
 // ---- attention: (h, b) items, one per group of AT threads
-// A group's shared scratch: attn_kernel's, and the K and V of the block
+// A group's shared scratch: the item's q, k and v rows, its reductions,
+// and the K and V of the block
 // being merged (a cold block's (DH, BLK) planes or the tail's (BLK, DH)
 // rows), 8 KB each.
 struct __align__(16) GroupSmem {
@@ -957,23 +483,225 @@ __device__ __forceinline__ KVBlock kv_load(const AttnArgs& a, size_t hb,
   return r;
 }
 
-// attn_kernel's attention of head h, batch row b by one group (named
-// barrier `id`), with the same operations in the same order, so the same
-// bits; its output goes to outh as bf16 high words.  Each block's K and
-// V are copied into g.k and g.v by 16-byte loads, and block i + 1's
-// copy is in flight while block i merges, so the walk waits on device
-// memory once, not twice a block.
+// The sum, in group order from 0.0, of output (b, n)'s fold terms.
+// Its terms lie `stride` floats apart (the terms are [g][b][n]); they are
+// loaded up to 32 at a time, then added in order.
+__device__ __forceinline__ float fold_terms(const float* t, int ng,
+                                           size_t stride) {
+  float y = 0.f;
+  for (int g0 = 0; g0 < ng; g0 += 32) {
+    float v[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      v[j] = g0 + j < ng ? __ldcg(t + (g0 + j) * stride) : 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      if (g0 + j < ng) y = __fadd_rn(y, v[j]);
+  }
+  return y;
+}
+
+// The folds of outputs n + o m (o < KO, those below cnt) from at most NG
+// terms each, all their loads in flight at once.
+template <int KO, int NG>
+__device__ __forceinline__ void fold_multi(const float* t, int m, int ng,
+                                           size_t stride, int cnt,
+                                           float (&y)[4]) {
+  float v[KO][NG];
+#pragma unroll
+  for (int o = 0; o < KO; ++o)
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+      v[o][j] = j < ng && o < cnt ? __ldcg(t + o * m + j * stride) : 0.f;
+#pragma unroll
+  for (int o = 0; o < KO; ++o) {
+    y[o] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NG; ++j)
+      if (j < ng) y[o] = __fadd_rn(y[o], v[o][j]);
+  }
+}
+
+// The finalize of QKV's outputs inside the attention items: a8's int32
+// sums (acc, zeroed as read) x (xs[b] * sq) or w4's fold of the terms,
+// then + bq.
+struct I8Fin {
+  int* acc;                    // (B, 3D) a8's int32 sums
+  const float* terms;          // (ng, B, 3D) w4's fold terms
+  size_t gstride;              // B x 3D: the terms' group stride
+  int ng;                      // their count
+  const float* xs;             // the QKV inputs' scales (B, nxs)
+  const float* sq;             // layer li's column scales, biases
+  const float* bq;
+  int nxs;
+};
+
+// QKV outputs n, D + n and 2D + n of row b (q, k and v of one head
+// channel), finalized, every load issued before the first is used: w4's
+// fold terms (W4) or a8's int32 sums
+template <bool W4>
+__device__ __forceinline__ void i8_fin(const I8Fin& f, int b, int n, int D,
+                                       float (&y)[3]) {
+  const size_t i = (size_t)b * 3 * D + n;
+  float bq[3], y4[4];
+#pragma unroll
+  for (int o = 0; o < 3; ++o) bq[o] = __ldg(f.bq + n + o * D);
+  if (W4) {
+    if (f.ng <= 16) {
+      fold_multi<3, 16>(f.terms + i, D, f.ng, f.gstride, 3, y4);
+    } else {
+#pragma unroll
+      for (int o = 0; o < 3; ++o)
+        y4[o] = fold_terms(f.terms + i + o * D, f.ng, f.gstride);
+    }
+  } else {
+    int q[3];
+    float sc[3];
+    const float xs = __ldcg(f.xs + (size_t)b * f.nxs);
+#pragma unroll
+    for (int o = 0; o < 3; ++o) {
+      q[o] = __ldcg(f.acc + i + o * D);
+      sc[o] = __ldg(f.sq + n + o * D);
+    }
+#pragma unroll
+    for (int o = 0; o < 3; ++o) {
+      y4[o] = __fmul_rn(__int2float_rn(q[o]), __fmul_rn(xs, sc[o]));
+      f.acc[i + o * D] = 0;
+    }
+  }
+#pragma unroll
+  for (int o = 0; o < 3; ++o) y[o] = __fadd_rn(y4[o], bq[o]);
+}
+
+// An item's stage rows, loaded ahead into shared memory: K and V, [STAGE]
+// [DH] float32 each (the values of their bf16).
+struct StagePre {
+  const float* k;
+  const float* v;
+};
+// by one group's thread tid, its share
+__device__ __forceinline__ void stage_load(const AttnArgs& a, size_t hb,
+                                           int tid, float* k, float* v) {
+#pragma unroll
+  for (int e = tid; e < STAGE * DH; e += AT) {
+    const size_t at = ((size_t)(e / DH) * a.H * a.B + hb) * DH + e % DH;
+    k[e] = __bfloat162float(a.k_stage[at]);
+    v[e] = __bfloat162float(a.v_stage[at]);
+  }
+}
+
+// The end of an item's attention, after its cold blocks and tail: the
+// stage rows (loaded here, or ahead with PRE), the current token, acc / l,
+// and the output (attn_group's).
+template <bool I8, bool PRE = false>
+__device__ __forceinline__ void attn_finish(const AttnArgs& a,
+                                            uint32_t* outh, int h, int b,
+                                            GroupSmem& g, int id,
+                                            const I8Fin& f, AttnState& st,
+                                            const StagePre& pre = {}) {
+  const int tid = threadIdx.x % AT;
+  const size_t hb = (size_t)h * a.B + b;
+  const float slope = a.slopes[h];
+  const int stage_base = a.pos - (a.pos - a.flushed) % STAGE;
+  // ---- stage: STAGE bf16 rows, valid at stage_base <= j < pos.  Warp w
+  // takes rows w and w + 4; the dot is summed in float64.
+  {
+    const int warp = tid / 32, lane = tid % 32;
+    for (int j = warp; j < STAGE; j += AT / 32) {
+      const __nv_bfloat16* kr = a.k_stage + ((size_t)j * a.H * a.B + hb) * DH;
+      const float k0 = PRE ? pre.k[j * DH + lane] : __bfloat162float(kr[lane]);
+      const float k1 =
+          PRE ? pre.k[j * DH + lane + 32] : __bfloat162float(kr[lane + 32]);
+      double dot = (double)__fmul_rn(g.qf[lane], k0) +
+                   (double)__fmul_rn(g.qf[lane + 32], k1);
+      for (int o = 16; o > 0; o >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      if (lane == 0) {
+        const int jj = stage_base + j;
+        float s = __fmul_rn(__double2float_rn(dot), a.scale);
+        s = __fadd_rn(s, __fmul_rn(slope, (float)abs(jj - a.pos)));
+        g.s_st[j] = jj < a.pos ? s : NEG_INF;
+      }
+    }
+    group_bar(id);
+    float mx = g.s_st[0];
+    for (int j = 1; j < STAGE; ++j) mx = fmaxf(mx, g.s_st[j]);
+    const float m_new = fmaxf(st.m, mx);
+    const float corr = expf(__fsub_rn(st.m, m_new));
+    float e[STAGE];
+    double esum = 0.0;
+    for (int j = 0; j < STAGE; ++j) {
+      e[j] = expf(__fsub_rn(g.s_st[j], m_new));
+      esum += (double)e[j];
+    }
+    st.l = __fadd_rn(__fmul_rn(st.l, corr), __double2float_rn(esum));
+    if (tid < DH) {
+      double av = 0.0;
+      for (int j = 0; j < STAGE; ++j)
+        av += (double)__fmul_rn(
+            e[j], PRE ? pre.v[j * DH + tid]
+                      : __bfloat162float(
+                            a.v_stage[((size_t)j * a.H * a.B + hb) * DH + tid]));
+      st.acc = __fadd_rn(__fmul_rn(st.acc, corr), __double2float_rn(av));
+    }
+    st.m = m_new;
+  }
+
+  // ---- the current token (dot summed in float64), then acc / l
+  const double dot = group_sum(
+      tid < DH ? (double)__fmul_rn(g.qf[tid], g.kc[tid]) : 0.0, g.dred, id);
+  const float s_self = __fmul_rn(__double2float_rn(dot), a.scale);
+  const float m_f = fmaxf(st.m, s_self);
+  const float corr = expf(__fsub_rn(st.m, m_f));
+  const float e_self = expf(__fsub_rn(s_self, m_f));
+  const float l_f = __fadd_rn(__fmul_rn(st.l, corr), e_self);
+  if (I8) {
+    const float o =
+        tid < DH ? __fdiv_rn(__fadd_rn(__fmul_rn(st.acc, corr),
+                                       __fmul_rn(e_self, g.vc[tid])),
+                             l_f)
+                 : 0.f;
+    const float asx = qscale(group_max(fabsf(o), g.fred, id), 1e-8f);
+    if (tid < DH) a.out8[(size_t)b * a.D + h * DH + chunk_pos(tid)] =
+        quant(o, asx);
+    if (tid == 0) a.asx[(size_t)b * f.nxs + h] = asx;
+  } else if (tid < DH) {
+    outh[(size_t)b * a.D + h * DH + tid] = bf16_hi(__fdiv_rn(
+        __fadd_rn(__fmul_rn(st.acc, corr), __fmul_rn(e_self, g.vc[tid])),
+        l_f));
+  }
+}
+
+// The attention of head h, batch row b by one group (named barrier `id`),
+// with the operations of the reference in its order, so the same bits
+// as the plain version.  Its output goes to outh as bf16 high words (the
+// bf16 branch) or, with I8, quantized per head (scale max|o| / 127) into
+// a.out8 in chunk_pos order and a.asx (stride f.nxs); with I8 its q, k and
+// v are QKV's sums, finalized here (i8_fin).  Each
+// block's K and V are copied into g.k and g.v by 16-byte loads, and block
+// i + 1's copy is in flight while block i merges, so the walk waits on
+// device memory once, not twice a block.
+template <bool I8, bool W4 = false>
 __device__ __forceinline__ void attn_group(const AttnArgs& a,
                                            uint32_t* outh, int h, int b,
-                                           GroupSmem& g, int id) {
+                                           GroupSmem& g, int id,
+                                           const I8Fin& f) {
   const int tid = threadIdx.x % AT;
   const size_t hb = (size_t)h * a.B + b;
   const float slope = a.slopes[h];
   const float* row = a.qkv + (size_t)b * 3 * a.D + h * DH;
   if (tid < DH) {
-    g.qf[tid] = __ldcg(row + tid);
-    g.kc[tid] = __ldcg(row + a.D + tid);
-    g.vc[tid] = __ldcg(row + 2 * a.D + tid);
+    if (I8) {
+      float y[3];
+      i8_fin<W4>(f, b, h * DH + tid, a.D, y);
+      g.qf[tid] = y[0];
+      g.kc[tid] = y[1];
+      g.vc[tid] = y[2];
+    } else {
+      g.qf[tid] = __ldcg(row + tid);
+      g.kc[tid] = __ldcg(row + a.D + tid);
+      g.vc[tid] = __ldcg(row + 2 * a.D + tid);
+    }
     a.k_new[hb * DH + tid] = __float2bfloat16_rn(g.kc[tid]);
     a.v_new[hb * DH + tid] = __float2bfloat16_rn(g.vc[tid]);
   }
@@ -1025,7 +753,7 @@ __device__ __forceinline__ void attn_group(const AttnArgs& a,
     float s = __fmul_rn(__fmul_rn((float)acc, qs), ks);
     s = __fadd_rn(s, __fmul_rn(slope, (float)abs(t - a.pos)));
     if (!cold) s = t < stage_base ? s : NEG_INF;
-    // merge_i8 (the sum of e and the max of e * vs in one round)
+    // merge the block (the sum of e and the max of e * vs in one round)
     const float m_new = fmaxf(st.m, group_max(s, g.fred, id));
     const float corr = expf(__fsub_rn(st.m, m_new));
     const float e = expf(__fsub_rn(s, m_new));
@@ -1063,60 +791,170 @@ __device__ __forceinline__ void attn_group(const AttnArgs& a,
     group_bar(id);                       // u8 / avred / k / v are rewritten
   }
 
-  // ---- stage: STAGE bf16 rows, valid at stage_base <= j < pos.  Warp w
-  // takes rows w and w + 4; the dot is summed in float64.
-  {
-    const int warp = tid / 32, lane = tid % 32;
-    for (int j = warp; j < STAGE; j += AT / 32) {
-      const __nv_bfloat16* kr = a.k_stage + ((size_t)j * a.H * a.B + hb) * DH;
-      double dot =
-          (double)__fmul_rn(g.qf[lane], __bfloat162float(kr[lane])) +
-          (double)__fmul_rn(g.qf[lane + 32], __bfloat162float(kr[lane + 32]));
-      for (int o = 16; o > 0; o >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      if (lane == 0) {
-        const int jj = stage_base + j;
-        float s = __fmul_rn(__double2float_rn(dot), a.scale);
-        s = __fadd_rn(s, __fmul_rn(slope, (float)abs(jj - a.pos)));
-        g.s_st[j] = jj < a.pos ? s : NEG_INF;
-      }
+  attn_finish<I8>(a, outh, h, b, g, id, f, st);
+  group_bar(id);                         // g is rewritten by the next item
+}
+
+// An a8/w4 attention item (h, b) by a whole block, for grids with a block
+// per item: its cold blocks and tail (nb1 = nblk + 1 cache blocks) are
+// split over the block's PGROUPS groups (block i to group i mod PGROUPS).
+// A first pass takes each cache block's logit maximum; every group then
+// knows the running maximum m_i after each block (the prefix maxima), so
+// a second pass merges each cache block against it (e, its float64 sum,
+// e * v_scale requantized against its own maximum, the int8 P.V) as the
+// walk of attn_group does; group 0 then replays the walk's recurrences
+// in block order (corr = exp(m_{i-1} - m_i); l = l corr + esum_i; acc =
+// acc corr + av_i u_scale_i), the same operations on the same values, so
+// the same bits, and finishes as attn_group (the stage rows loaded ahead
+// by the last group).  `xs` is scratch of 268 bytes a cache block and
+// 4112 more (a weight slot no product reads now).
+__device__ void attn_coop_i8(const AttnArgs& a, int h, int b,
+                             GroupSmem* groups, const I8Fin& f,
+                             uint8_t* xs) {
+  const int tid = threadIdx.x % AT, grp = threadIdx.x / AT, id = 1 + grp;
+  GroupSmem& g = groups[grp];
+  GroupSmem& g0 = groups[0];
+  const size_t hb = (size_t)h * a.B + b;
+  const int nb1 = a.nblk + 1;
+  float* mx = reinterpret_cast<float*>(xs);            // [nb1] block maxima
+  float* es = mx + nb1;                                // [nb1] esum
+  float* us = es + nb1;                                // [nb1] u_scale
+  int* avs = reinterpret_cast<int*>(us + nb1);         // [nb1][DH] av
+  float* qsp = reinterpret_cast<float*>(avs + nb1 * DH);  // qs
+  float* stk = qsp + 4;                               // [STAGE][DH] K, V
+  float* stv = stk + STAGE * DH;
+  if (grp == PGROUPS - 1) stage_load(a, hb, tid, stk, stv);   // ahead
+  if (grp == 0 && tid < DH) {
+    float y[3];
+    i8_fin<false>(f, b, h * DH + tid, a.D, y);
+    g0.qf[tid] = y[0];
+    g0.kc[tid] = y[1];
+    g0.vc[tid] = y[2];
+    a.k_new[hb * DH + tid] = __float2bfloat16_rn(g0.kc[tid]);
+    a.v_new[hb * DH + tid] = __float2bfloat16_rn(g0.vc[tid]);
+  }
+  KVBlock cur;
+  if (grp < nb1) cur = kv_load(a, hb, grp, tid);   // the first round's
+  if (grp == 0) {
+    group_bar(id);
+    const float q_scale = qscale(
+        group_max(tid < DH ? fabsf(g0.qf[tid]) : 0.f, g0.fred, id), 1e-8f);
+    if (tid < DH) g0.q8[tid] = quant(g0.qf[tid], q_scale);
+    if (tid == 0) qsp[0] = __fmul_rn(q_scale, a.scale);
+  }
+  __syncthreads();
+  const float qs = qsp[0], slope = a.slopes[h];
+  const int* q8p = reinterpret_cast<const int*>(g0.q8);
+  const int stage_base = a.pos - (a.pos - a.flushed) % STAGE;
+  const int d = tid % DH, part = tid / DH;
+  const bool one = nb1 <= PGROUPS;        // each group keeps its K and V
+  // cache block i's K and V into g, and row tid's logit
+  const auto logit = [&](int i, const KVBlock& kv) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      reinterpret_cast<int4*>(g.k)[j * AT + tid] = kv.k[j];
+      reinterpret_cast<int4*>(g.v)[j * AT + tid] = kv.v[j];
     }
     group_bar(id);
-    float mx = g.s_st[0];
-    for (int j = 1; j < STAGE; ++j) mx = fmaxf(mx, g.s_st[j]);
-    const float m_new = fmaxf(st.m, mx);
+    const bool cold = i < a.nblk;
+    int acc = 0;
+    if (cold) {
+#pragma unroll
+      for (int d4 = 0; d4 < DH / 4; ++d4) {
+        const uint8_t* p =
+            reinterpret_cast<const uint8_t*>(g.k) + 4 * d4 * BLK + tid;
+        const int packed = (int)p[0] | ((int)p[BLK] << 8) |
+                           ((int)p[2 * BLK] << 16) | ((int)p[3 * BLK] << 24);
+        acc = __dp4a(q8p[d4], packed, acc);
+      }
+    } else {
+      const int4* kr = reinterpret_cast<const int4*>(g.k) + 4 * tid;
+#pragma unroll
+      for (int j = 0; j < DH / 16; ++j) {
+        const int4 v = kr[j];
+        acc = __dp4a(q8p[4 * j], v.x, acc);
+        acc = __dp4a(q8p[4 * j + 1], v.y, acc);
+        acc = __dp4a(q8p[4 * j + 2], v.z, acc);
+        acc = __dp4a(q8p[4 * j + 3], v.w, acc);
+      }
+    }
+    const int t = cold ? i * BLK + tid : a.flushed + tid;
+    float s = __fmul_rn(__fmul_rn((float)acc, qs), kv.ks);
+    s = __fadd_rn(s, __fmul_rn(slope, (float)abs(t - a.pos)));
+    if (!cold) s = t < stage_base ? s : NEG_INF;
+    return s;
+  };
+  // pass 1: each cache block's maximum
+  float s0 = NEG_INF;
+  for (int i = grp; i < nb1; i += PGROUPS) {
+    if (i > grp) cur = kv_load(a, hb, i, tid);
+    const float s = logit(i, cur);
+    if (i == grp) s0 = s;
+    const float m = group_max(s, g.fred, id);
+    if (tid == 0) mx[i] = m;
+    group_bar(id);                       // g.k, g.v are rewritten next
+  }
+  __syncthreads();
+  // pass 2: each cache block merged against the running maximum
+  for (int i = grp; i < nb1; i += PGROUPS) {
+    float m_i = mx[0];
+    for (int j = 1; j <= i; ++j) m_i = fmaxf(m_i, mx[j]);
+    KVBlock kv;
+    float s = s0, vs;
+    if (one) {
+      vs = cur.vs;
+    } else {
+      kv = kv_load(a, hb, i, tid);
+      s = logit(i, kv);
+      vs = kv.vs;
+    }
+    const float e = expf(__fsub_rn(s, m_i));
+    const float u = __fmul_rn(e, vs);
+    float umax;
+    const float esum =
+        __double2float_rn(group_sum_max((double)e, u, g, id, umax));
+    const float u_scale = qscale(umax, 1e-20f);
+    g.u8[tid] = quant(u, u_scale);
+    group_bar(id);
+    int av = 0;
+    if (i < a.nblk) {
+      const int4* r = reinterpret_cast<const int4*>(g.v + d * BLK + part * DH);
+      const int* up = reinterpret_cast<const int*>(g.u8 + part * DH);
+#pragma unroll
+      for (int j = 0; j < DH / 16; ++j) {
+        const int4 vv = r[j];
+        av = __dp4a(up[4 * j], vv.x, av);
+        av = __dp4a(up[4 * j + 1], vv.y, av);
+        av = __dp4a(up[4 * j + 2], vv.z, av);
+        av = __dp4a(up[4 * j + 3], vv.w, av);
+      }
+    } else {
+#pragma unroll 16
+      for (int t2 = part * DH; t2 < (part + 1) * DH; ++t2)
+        av += (int)g.u8[t2] * (int)g.v[t2 * DH + d];
+    }
+    if (part == 1) g.avred[d] = av;
+    group_bar(id);
+    if (part == 0) avs[i * DH + d] = av + g.avred[d];
+    if (tid == 0) {
+      es[i] = esum;
+      us[i] = u_scale;
+    }
+    group_bar(id);                       // u8 / avred / k / v are rewritten
+  }
+  __syncthreads();
+  if (grp != 0) return;
+  AttnState st{NEG_INF, 0.f, 0.f};
+  for (int i = 0; i < nb1; ++i) {
+    const float m_new = fmaxf(st.m, mx[i]);
     const float corr = expf(__fsub_rn(st.m, m_new));
-    float e[STAGE];
-    double esum = 0.0;
-    for (int j = 0; j < STAGE; ++j) {
-      e[j] = expf(__fsub_rn(g.s_st[j], m_new));
-      esum += (double)e[j];
-    }
-    st.l = __fadd_rn(__fmul_rn(st.l, corr), __double2float_rn(esum));
-    if (tid < DH) {
-      double av = 0.0;
-      for (int j = 0; j < STAGE; ++j)
-        av += (double)__fmul_rn(
-            e[j], __bfloat162float(
-                      a.v_stage[((size_t)j * a.H * a.B + hb) * DH + tid]));
-      st.acc = __fadd_rn(__fmul_rn(st.acc, corr), __double2float_rn(av));
-    }
+    st.l = __fadd_rn(__fmul_rn(st.l, corr), es[i]);
+    if (part == 0)
+      st.acc = __fadd_rn(__fmul_rn(st.acc, corr),
+                         __fmul_rn(__int2float_rn(avs[i * DH + d]), us[i]));
     st.m = m_new;
   }
-
-  // ---- the current token (dot summed in float64), then acc / l
-  const double dot = group_sum(
-      tid < DH ? (double)__fmul_rn(g.qf[tid], g.kc[tid]) : 0.0, g.dred, id);
-  const float s_self = __fmul_rn(__double2float_rn(dot), a.scale);
-  const float m_f = fmaxf(st.m, s_self);
-  const float corr = expf(__fsub_rn(st.m, m_f));
-  const float e_self = expf(__fsub_rn(s_self, m_f));
-  const float l_f = __fadd_rn(__fmul_rn(st.l, corr), e_self);
-  if (tid < DH)
-    outh[(size_t)b * a.D + h * DH + tid] = bf16_hi(__fdiv_rn(
-        __fadd_rn(__fmul_rn(st.acc, corr), __fmul_rn(e_self, g.vc[tid])),
-        l_f));
-  group_bar(id);                         // g is rewritten by the next item
+  attn_finish<true, true>(a, nullptr, h, b, g0, id, f, st, StagePre{stk, stv});
 }
 
 // ---- the products
@@ -1364,12 +1202,13 @@ __device__ __forceinline__ void dense_phase(
   }
 }
 
-// Each row's 1 / rms into r[b], one warp a row, summed as rows_kernel's
-// RT threads sum it (thread t: k = t, t + RT, ..; each warp's butterfly,
-// lane 0's result; the warps in order), so the bits are the same.  A
+// Each row's 1 / rms into r[b], one warp a row, summed as RT threads
+// would sum it (thread t: k = t, t + RT, ..; each warp's butterfly, lane
+// 0's result; the warps in order): the order of the multi-launch design's
+// row kernel, whose bits the plain version's float64 sum rounds to.  A
 // lane loads 4 RT / 32 values at a time before summing them.
 __device__ void rms_rows(const float* x, int B, int K, float* r) {
-  constexpr int NW = RT / 32;            // rows_kernel's warps
+  constexpr int NW = RT / 32;            // RT's warps
   const int wi = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int b = wi; b < B; b += PWARPS) {
     const float* xr = x + (size_t)b * K + lane;
@@ -1495,7 +1334,8 @@ k2_bf16_step_kernel(const __grid_constant__ CUtensorMap mq,
     const AttnArgs at = attn_layer(a.att, li, a.nb_cap);
     for (int it = blockIdx.x * PGROUPS + grp; it < H * B;
          it += G * PGROUPS)
-      attn_group(at, a.ah, it / B, it % B, groups[grp], 1 + grp);
+      attn_group<false>(at, a.ah, it / B, it % B, groups[grp], 1 + grp,
+                        I8Fin{});
     grid_sync(a.bar, arrivals);
     mark();
     // out-projection by head, residual
@@ -1536,62 +1376,659 @@ k2_barrier_probe_kernel(unsigned* bar, int n) {
   for (int i = 0; i < n; ++i) grid_sync(bar, arrivals);
 }
 
-// ------------------------------------------------------------ launches
-// K-input product: the int8 split-K kernel in chunks of KC rows, or (w4)
-// the nibble kernel in PKC-row sub-chunks
-int dense(const int8_t* act8, const int8_t* w, int B, int K, int N, int KC,
-          int w4, void* part, cudaStream_t st) {
-  if (w4) {
-    const dim3 grid(N / DCOLS, K / 2 / PKC, (B + BT - 1) / BT);
-    dense_w4_kernel<<<grid, DT, 0, st>>>(act8, w, B, K, N,
-                                         static_cast<int*>(part));
-    return (int)cudaGetLastError();
+// --------------------------------- 5. K2-a8 and K2-w4: one launch a step
+// The s8 x s8 and nibble-packed int4 branches as one cooperative launch
+// per step, on section 4's grid, barrier and attention items: the design
+// note at the top of the file.  A layer is 8 phases:
+//   rows      block b < B finalizes row b of the previous layer's FFN down
+//             (the residual x), then RMSNorm(x, n1): 1/rms, the scales and
+//             the int8 row (chunk_pos order) for QKV;
+//   QKV       split-K tiles of 64 output columns x a K range;
+//   attention finalizes its item's q, k, v from QKV's sums, attends, and
+//             quantizes its head's output per head;
+//   out       the out-projection's tiles;
+//   rows_up   finalizes the out-projection (the residual), RMSNorm(x, n3),
+//             the int8 row for FFN up;
+//   FFN up    its tiles;
+//   gelu_rows finalizes FFN up, GELU(y + b1), the int8 row for FFN down;
+//   FFN down  its tiles;
+// and after the last layer one more rows phase finalizes its FFN down
+// (8 L barriers a step).
+constexpr int TW = 64;                  // output columns per tile (a strip:
+                                        // 64-byte weight rows)
+constexpr int TM = TW / 16;             // the strip's 16-column M tiles
+constexpr int IK = 32;                  // logical k per chunk: the mma's K
+constexpr int IROWS = 32;               // batch rows per pass: 4 N tiles
+constexpr int IPAD = 32;                // bytes past each activation row
+constexpr int COOP_BYTES = 12 + 4 * DH;  // attn_coop_i8's scratch a block
+enum RowsKind { RA = 0, RB = 1, RC = 2, RF = 3 };
+
+// Product p (0 QKV, 1 out-projection, 2 FFN up, 3 FFN down): its output
+// columns N, its inputs K and its fold group gsz in logical inputs (the
+// heads for the out-projection, w4's scale group, or 0: a8's one dot).
+__host__ __device__ inline void i8_geom(int p, int D, int group, int& N,
+                                        int& K, int& gsz) {
+  N = p == 0 ? 3 * D : p == 2 ? 4 * D : D;
+  K = p == 3 ? 4 * D : D;
+  gsz = p == 1 ? DH : group;
+}
+
+// The tiles, scratch and shared memory of one a8/w4 step for G blocks.
+// Product p is cut into N / 64 strips x S K ranges of TR stored rows (K,
+// or K / 2 packed); tile t = strip + NS s goes to block t mod G.  The
+// region holds the attention groups' scratch, a rows phase's row (4D
+// float32), its maxima, 1/rms and norm scale (D float32), or a tile's int8
+// activation rows (w4: the hi and lo halves) beside its int32 sums (a8)
+// or the scales of its fold groups; each of the two slots what is left of
+// the block, and a piece of a block's tiles (TP of them) at a time.  S is the split whose
+// tiles fit that (TR a multiple of 32 and of the fold group in stored
+// rows) and that costs the busiest block least, at TR + TILE_COST rows a
+// tile (its staging and barriers).  ops/mega_step.py's i8_step_plan
+// computes the same.
+struct I8Plan {
+  int bp;                      // batch rows rounded up to 8
+  int splits[4];               // per product: S
+  int tp[4];                   // per product: tiles per piece
+  int nxs;                     // activation scales per row (stride)
+  int slot, region, bytes;
+};
+constexpr int I8_NO_FIT = 1 << 30;      // bytes of a plan that does not fit
+constexpr int TILE_COST = 256;          // a tile's overhead, in rows
+
+// Product p's tile of TR stored rows: its int8 rows and, after them, its
+// scratch (a8: int32 sums [bp][64]; grouped: the scales of its fold
+// groups, [groups][bp] and [groups][64]), in bytes.
+__host__ __device__ inline int i8_tile_bytes(int p, int D, int group, int bp,
+                                             int tr) {
+  int N, K, gsz;
+  i8_geom(p, D, group, N, K, gsz);
+  const int ngt = gsz ? (group ? 2 : 1) * tr / gsz : 0;
+  return bp * ((group ? 2 : 1) * tr + IPAD) +
+         (gsz ? ngt * (bp + TW) * 4 : bp * TW * 4);
+}
+
+__host__ __device__ inline I8Plan i8_plan(int B, int D, int H, int G,
+                                          int group) {
+  I8Plan pl{};
+  pl.bp = cdiv(B, 8) * 8;
+  pl.nxs = cdiv(imax(H, group ? 4 * D / group : 1), 4) * 4;
+  pl.region = cdiv(imax(PGROUPS * GROUP_SMEM, 20 * D + 4 * pl.nxs + 64), 16) *
+              16;
+  const int budget = (SMEM_LIMIT - 1024 - pl.region - 16) / 2 / 1024 * 1024;
+  bool ok = true;
+  for (int p = 0; p < 4; ++p) {
+    int N, K, gsz;
+    i8_geom(p, D, group, N, K, gsz);
+    const int kst = group ? K / 2 : K, ns = N / TW;
+    const int gst = imax(IK, gsz);      // stored rows per fold group
+    int best = -1, bs = 0;
+    for (int S = 1; S <= kst / gst; ++S) {
+      const int tr = kst / S;
+      if (kst % S || tr % gst || tr * TW > budget ||
+          i8_tile_bytes(p, D, group, pl.bp, tr) > pl.region)
+        continue;
+      const int cost = cdiv(ns * S, G) * (tr + TILE_COST);
+      if (best < 0 || cost < best) best = cost, bs = S;
+    }
+    if (best < 0) {
+      ok = false;
+      continue;
+    }
+    const int tr = kst / bs, mine = cdiv(ns * bs, G);
+    pl.splits[p] = bs;
+    pl.tp[p] = imin(mine, budget / (tr * TW));
+    pl.slot = imax(pl.slot, pl.tp[p] * tr * TW);
   }
-  const dim3 grid(N / DCOLS, K / KC, (B + BT - 1) / BT);
-  dense_kernel<<<grid, DT, (size_t)BT * KC, st>>>(act8, w, B, K, N, KC,
-                                                  static_cast<int*>(part));
-  return (int)cudaGetLastError();
+  pl.slot = cdiv(pl.slot, 1024) * 1024;
+  pl.bytes = ok ? 1024 + 2 * pl.slot + pl.region + 16 : I8_NO_FIT;
+  return pl;
 }
 
-// the split-K partials' epilogue; w4 (gscale set): the group-scale
-// epilogue with nsub partials per unit, 2 (group 64, or a head) or 4
-// (group 128)
-int epilogue(const void* part, int S, int B, int N, int per_head,
-             const float* ascale, int H, const float* col,
-             const float* gscale, int gdiv, int nsub, const float* bias,
-             int op, float* out, cudaStream_t st) {
-  const int nblk = (B * N + ET - 1) / ET;
-  const int* p32 = static_cast<const int*>(part);
-  if (!gscale)
-    epilogue_kernel<<<nblk, ET, 0, st>>>(p32, S, B, N, per_head, ascale, H,
-                                         col, bias, op, out);
-  else if (nsub == 2)
-    epilogue_w4_kernel<2><<<nblk, ET, 0, st>>>(p32, S, B, N, ascale, gscale,
-                                               gdiv, bias, op, out);
-  else if (nsub == 4)
-    epilogue_w4_kernel<4><<<nblk, ET, 0, st>>>(p32, S, B, N, ascale, gscale,
-                                               gdiv, bias, op, out);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+struct I8Args {
+  const float* x;              // (B, D) in
+  float* xo;                   // (B, D) out: the residual rows
+  const int8_t* w[4];          // (L, K or K / 2, N): wq, wo, w1, w2
+  const float *sq, *so, *s1, *s2, *n1, *n3, *bq, *bo, *b1, *b2;  // (L, n)
+  const float *gq, *go, *g1, *g2;  // w4: (L, din / group, dout); else null
+  AttnArgs att;                // layer 0's (its qkv unused)
+  int8_t* rows8;               // (B, K) the next product's int8 rows
+  float* xs[2];                // (B, nxs) scales: [0] the QKV and FFN-up
+                               // inputs', [1] the out-projection's and
+                               // FFN-down's
+  int* acc;                    // (B, 4D) a8's int32 sums, zeroed
+  float* terms;                // (groups, B, N) grouped products' terms
+  unsigned* bar;               // the grid barrier's count, zeroed
+  unsigned long long* trace;   // null, or 2 + 8 L phase-end times (ns)
+  int L, nb_cap, group;
+  I8Plan plan;                 // laid out for one block per SM
+};
+
+// The weight pieces in step order (layer, product, piece): `s` counts
+// those consumed, (li, p, i) is the next one to issue.  Every block takes
+// cdiv(its most tiles, TP) pieces of a product (some may be empty).
+struct Ring {
+  int s, li, p, i;
+};
+
+// lane (g, t) of four 8 x 8 matrices of 16-bit values, transposed: matrix j
+// is the 8 rows (of 16 bytes) whose addresses lanes 8j..8j+7 give; the
+// lane gets rows 2t and 2t + 1 of each at bytes 2g, 2g + 1
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&d)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(addr));
 }
 
-// RMSNorm / quantization of B rows: per row, or (group > 0) per group
-int rows(const float* x, const float* norm, int B, int K, int group,
-         int8_t* q_out, float* xs_out, int xs_stride, cudaStream_t st) {
-  if (group)
-    rows_w4_kernel<<<B, RT, 0, st>>>(x, norm, K, group, q_out, xs_out);
-  else
-    rows_kernel<<<B, RT, 0, st>>>(x, norm, K, q_out, xs_out, xs_stride);
-  return (int)cudaGetLastError();
+// d (16 x 8, int32) += a (16 x 32 s8) . b (32 x 8 s8): lane (g, t) holds
+// a[g][4t..], a[g+8][4t..], a[g][16+4t..], a[g+8][16+4t..] (four bytes each),
+// b[4t..][g], b[16+4t..][g] and d[g][2t], d[g][2t+1], d[g+8][2t],
+// d[g+8][2t+1]
+__device__ __forceinline__ void imma(int (&d)[4], const unsigned (&a)[4],
+                                     const uint2& b) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
 }
 
-#define CHECK(call)                  \
-  do {                               \
-    const int err_ = (call);         \
-    if (err_ != 0) return err_;      \
-  } while (0)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
 
+// The pieces of product p every block takes.
+__host__ __device__ inline int i8_pieces(const I8Plan& pl, int p, int D,
+                                         int group, int G) {
+  int N, K, gsz;
+  i8_geom(p, D, group, N, K, gsz);
+  return cdiv(cdiv(N / TW * pl.splits[p], G), pl.tp[p]);
+}
+
+// Piece i of product p of layer li into shared memory at dst: every thread
+// copies 16-byte parts of its tiles' rows (64 bytes a row, four lanes a
+// row, so a warp reads 8 whole rows a copy) with cp.async, which does not
+// wait for the data.
+__device__ void i8_issue(const I8Args& a, int li, int p, int i, uint32_t dst) {
+  int N, K, gsz;
+  i8_geom(p, a.att.D, a.group, N, K, gsz);
+  const int G = gridDim.x, ns = N / TW, S = a.plan.splits[p];
+  const int kst = a.group ? K / 2 : K, tr = kst / S, nt = ns * S;
+  const int mine =
+      (int)blockIdx.x < nt ? cdiv(nt - (int)blockIdx.x, G) : 0;
+  const int j0 = i * a.plan.tp[p], j1 = imin(mine, j0 + a.plan.tp[p]);
+  const int8_t* w = a.w[p] + (size_t)li * kst * N;
+  const int part = threadIdx.x % (TW / 16), r0 = threadIdx.x / (TW / 16);
+  constexpr int RSTEP = PT / (TW / 16);   // rows a pass of the block copies
+  for (int jj = 0; jj < j1 - j0; ++jj) {
+    const int t = (int)blockIdx.x + (j0 + jj) * G, strip = t % ns, s = t / ns;
+    const int8_t* src = w + (size_t)(s * tr) * N + strip * TW + part * 16;
+    const uint32_t d = dst + (uint32_t)(jj * tr * TW + part * 16);
+#pragma unroll 4
+    for (int r = r0; r < tr; r += RSTEP)
+      cp_async16(d + (uint32_t)(r * TW), src + (size_t)r * N);
+  }
+}
+
+__device__ __forceinline__ void ring_next(Ring& r, const I8Args& a) {
+  if (++r.i < i8_pieces(a.plan, r.p, a.att.D, a.group, gridDim.x)) return;
+  r.i = 0;
+  if (++r.p < 4) return;
+  r.p = 0;
+  ++r.li;
+}
+
+// The next piece's weights: issue the one after it into the other slot
+// (its last reader, the piece before, is done), then wait for this
+// thread's copies of this one; the caller's __syncthreads then makes every
+// thread's copies visible.  Each piece is one cp.async group (maybe empty).
+__device__ void ring_begin(Ring& r, const I8Args& a, uint32_t slots) {
+  if (r.li < a.L) {
+    i8_issue(a, r.li, r.p, r.i, slots + ((r.s + 1) & 1) * a.plan.slot);
+    ring_next(r, a);
+  }
+  asm volatile("cp.async.commit_group;\n"
+               "cp.async.wait_group 1;" ::: "memory");
+}
+
+// One product's tiles on this block: for each tile, its K range of the B
+// int8 rows (w4: the hi and the lo half) into shared memory, with the
+// scales of its fold groups, then warp w takes items w, w + 16, .. of (M
+// tile, segment, nibble half): a segment is a fold group (w4's group, in
+// one nibble half an item, the out-projection's head) or, for a8's one
+// dot, a quarter of the range.  An item sums its chunks in int32 registers (exact, in any
+// order); a8 adds them into the tile's sums in shared memory (exact, in
+// any order), which the block then adds into acc with global atomics, a
+// row of 64 columns at a time; a fold group writes its terms float(dot) *
+// (xs[b, g] * g[g, n]) (the out-projection: asx[b, h], and w4's go row of
+// the head) to terms[g, b, n], which the next phase adds in group order.
+template <bool W4>
+__device__ __noinline__ void i8_product(const I8Args& a, uint32_t slots, uint8_t* region,
+                           Ring& ring, int li, int p) {
+  const int tid = threadIdx.x, G = gridDim.x, wi = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int B = a.att.B, D = a.att.D, group = a.group;
+  const I8Plan& pl = a.plan;
+  int N, K, gsz;
+  i8_geom(p, D, group, N, K, gsz);
+  const int ns = N / TW, S = pl.splits[p], kst = W4 ? K / 2 : K;
+  const int tr = kst / S, nt = ns * S, bp = pl.bp;
+  const int mine =
+      (int)blockIdx.x < nt ? cdiv(nt - (int)blockIdx.x, G) : 0;
+  const bool grouped = gsz > 0;
+  const int nseg = grouped ? tr / gsz : imin(4, tr / IK);
+  const int ngt = (W4 ? 2 : 1) * (grouped ? nseg : 0);   // tile's groups
+  const int nch = tr / IK, half = W4 ? tr : 0;  // lo rows' offset in act
+  const int astride = (W4 ? 2 : 1) * tr + IPAD;
+  const size_t gstride = (size_t)B * N;        // the terms' group stride
+  const float* xs = a.xs[p == 1 || p == 3 ? 1 : 0];
+  const float* gsc =
+      W4 ? (p == 0 ? a.gq : p == 1 ? a.go : p == 2 ? a.g1 : a.g2) +
+               (size_t)li * (K / group) * N
+         : nullptr;
+  int8_t* act = reinterpret_cast<int8_t*>(region);
+  int* tacc = reinterpret_cast<int*>(region + (size_t)bp * astride);
+  float* tsx = reinterpret_cast<float*>(tacc);            // [ngt][bp]
+  float* tgs = tsx + ngt * bp;                            // [ngt][TW]
+  const int tp = pl.tp[p], npieces = i8_pieces(pl, p, D, group, G);
+  // a tile's fold group gl: hi (or a8) groups, then lo ones
+  const auto group_of = [&](int s, int gl) {
+    return ((gl / nseg) * (K / 2) + s * tr + gl % nseg * gsz) / gsz;
+  };
+
+  if (!grouped)
+    for (int e = tid; e < bp * TW; e += PT) tacc[e] = 0;
+  for (int i = 0; i < npieces; ++i) {
+    const int j0 = i * tp, j1 = imin(mine, j0 + tp);
+    if (j1 <= j0) ring_begin(ring, a, slots);           // an empty piece
+    for (int j = j0; j < j1; ++j) {
+      const int t = (int)blockIdx.x + j * G, strip = t % ns, s = t / ns;
+      // the tile's K range of the rows (rows past B: zeros), and the
+      // scales of its fold groups
+      const int n16 = (W4 ? 2 : 1) * tr / 16;
+      for (int e = tid; e < bp * n16; e += PT) {
+        const int b = e / n16, q = e - b * n16;
+        const int k =
+            q * 16 < tr ? s * tr + q * 16 : K / 2 + s * tr + q * 16 - tr;
+        *reinterpret_cast<int4*>(act + (size_t)b * astride + 16 * q) =
+            b < B ? __ldcg(reinterpret_cast<const int4*>(a.rows8 +
+                                                         (size_t)b * K + k))
+                  : make_int4(0, 0, 0, 0);
+      }
+      for (int e = tid; e < ngt * bp; e += PT) {
+        const int gl = e / bp, b = e % bp;
+        tsx[e] = b < B ? __ldcg(xs + (size_t)b * pl.nxs + group_of(s, gl))
+                       : 0.f;
+      }
+      if (W4)
+        for (int e = tid; e < ngt * TW; e += PT) {
+          const int gl = e / TW, c = e % TW;
+          tgs[e] = __ldg(gsc + (size_t)(group_of(s, gl) * gsz / group) * N +
+                         strip * TW + c);
+        }
+      if (j == j0) ring_begin(ring, a, slots);            // the piece
+      __syncthreads();
+      const uint32_t wt =
+          slots + (ring.s & 1) * pl.slot + (uint32_t)((j - j0) * tr) * TW;
+      // items (M tile, segment, nibble half): w4's halves on two warps
+      for (int it = wi; it < TM * nseg * (W4 ? 2 : 1); it += PWARPS) {
+        const int m = it % TM, sg = it / TM % nseg, hl = it / TM / nseg;
+        const int ca = grouped ? sg * gsz / IK : sg * nch / nseg;
+        const int cb = grouped ? (sg + 1) * gsz / IK : (sg + 1) * nch / nseg;
+        const int c0 = 16 * m + 2 * gq;           // the lane's columns
+        for (int rp = 0; rp < bp; rp += IROWS) {
+          const int ntl = imin(IROWS, bp - rp) / 8;
+          {
+            int acc[4][4] = {};                         // [N tile]
+            for (int c = ca; c < cb; ++c) {
+              unsigned d[4], af[4];
+              ldsm_x4_t(d, wt + (uint32_t)(c * IK + lane) * TW + 16 * m);
+              af[0] = __byte_perm(d[0], d[1], 0x6420);
+              af[1] = __byte_perm(d[0], d[1], 0x7531);
+              af[2] = __byte_perm(d[2], d[3], 0x6420);
+              af[3] = __byte_perm(d[2], d[3], 0x7531);
+              if (W4) {
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                  af[q] = (unsigned)nibbles(af[q], hl == 0);
+              }
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+                if (u < ntl)
+                  imma(acc[u], af,
+                       *reinterpret_cast<const uint2*>(
+                           act + (size_t)(rp + 8 * u + gq) * astride +
+                           hl * half + c * IK + 8 * tq));
+            }
+            const int gl = hl * nseg + sg;              // grouped: its group
+            const size_t tb =
+                grouped ? group_of(s, gl) * gstride + strip * TW + c0 : 0;
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              if (u >= ntl) continue;
+#pragma unroll
+              for (int r2 = 0; r2 < 2; ++r2) {    // rows 2t and 2t + 1
+                const int b = rp + 8 * u + 2 * tq + r2;
+                const int v0 = acc[u][r2], v1 = acc[u][2 + r2];
+                if (!grouped) {
+                  atomicAdd(tacc + b * TW + c0, v0);
+                  atomicAdd(tacc + b * TW + c0 + 1, v1);
+                  continue;
+                }
+                if (b >= B) continue;
+                const float sx = tsx[gl * bp + b];
+                const float sc0 = W4 ? __fmul_rn(sx, tgs[gl * TW + c0]) : sx;
+                const float sc1 =
+                    W4 ? __fmul_rn(sx, tgs[gl * TW + c0 + 1]) : sx;
+                *reinterpret_cast<float2*>(a.terms + tb + (size_t)b * N) =
+                    make_float2(__fmul_rn(__int2float_rn(v0), sc0),
+                                __fmul_rn(__int2float_rn(v1), sc1));
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();
+      if (!grouped)                 // the tile's sums, a row at a time
+        for (int e = tid; e < B * TW; e += PT) {
+          const int b = e / TW, c = e % TW;
+          atomicAdd(a.acc + (size_t)b * N + strip * TW + c, tacc[e]);
+          tacc[e] = 0;
+        }
+      __syncthreads();              // act (and the slot) are free again
+    }
+    ++ring.s;
+  }
+}
+
+// GELU and the int8 pair of two values, as calls: the rows phases apply
+// them in unrolled loops, and one copy each keeps the kernel's code small.
+__device__ __noinline__ float gelu_call(float x) { return gelu(x); }
+__device__ __noinline__ unsigned quant_pair(float h0, float h1, float sc) {
+  return (unsigned)(uint8_t)quant(h0, sc) |
+         ((unsigned)(uint8_t)quant(h1, sc) << 8);
+}
+
+// rms_rows' order (RT threads: thread t sums k = t, t + RT, ..; each warp's
+// butterfly, lane 0's result; the warps in order) over one row in shared
+// memory, by one warp: 1 / sqrt(sum(x^2) / K + 1e-6).
+__device__ float rms_row(const float* xr, int K) {
+  constexpr int NW = RT / 32;
+  const int lane = threadIdx.x & 31;
+  double ss[NW] = {};
+  for (int k0 = 0; k0 < K; k0 += 4 * RT)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int wv = 0; wv < NW; ++wv)
+        if (k0 + j * RT < K) {
+          const float v = xr[k0 + j * RT + wv * 32 + lane];
+          ss[wv] += (double)__fmul_rn(v, v);
+        }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int wv = 0; wv < NW; ++wv)
+      ss[wv] += __shfl_xor_sync(0xffffffffu, ss[wv], o);
+  double tot = 0.0;
+#pragma unroll
+  for (int wv = 0; wv < NW; ++wv) tot += ss[wv];
+  return __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(
+                            __fdiv_rn(__double2float_rn(tot), (float)K),
+                            1e-6f)));
+}
+
+// A rows phase: block j of a grid of G takes batch rows j, j + G, .. (one
+// row a block from B = 1 to the SM count; the loop keeps b uniform), one
+// after another through the shared row.  A row's values into the shared
+// row: RA/RF the residual x after the previous FFN down (or the input rows
+// at layer 0), RB after the out-projection, both also written to xo; RC
+// GELU(FFN up + b1).  Then (not RF) the next product's input: RA/RB
+// h = (x r) n (r = 1 / rms), RC the GELU row; its maximum per row (a8) or
+// group of `group` (w4): 8 inputs a thread, a warp's lanes of one group
+// reduced by shuffles, one shared atomicMax per warp and group; the scales
+// max / 127 into xs; the int8 row in chunk_pos order into rows8.
+template <bool W4>
+__device__ __noinline__ void i8_rows(const I8Args& a, int li, int kind, uint8_t* region) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int B = a.att.B, D = a.att.D, group = a.group;
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    if (b != (int)blockIdx.x) __syncthreads();   // the last row is read
+    const int nxs = a.plan.nxs;
+    float* row = reinterpret_cast<float*>(region);          // up to 4D
+    unsigned* amx = reinterpret_cast<unsigned*>(row + 4 * D);
+    float* rs = reinterpret_cast<float*>(amx + nxs);
+    float* nrm8 = rs + 16;                                  // D: the norm scale
+    const int nrow = kind == RC ? 4 * D : D;
+    const int gx = W4 ? group : nrow, nx = nrow / gx, n8 = nrow / 8;
+    for (int i = tid; i < nx; i += PT) amx[i] = 0u;
+    // the norm scale (RA/RB), loaded into shared memory ahead
+    if (kind == RA || kind == RB) {
+      const float* nrm = (kind == RA ? a.n1 : a.n3) + (size_t)li * D;
+      for (int k = 4 * tid; k < D; k += 4 * PT)
+        *reinterpret_cast<float4*>(nrm8 + k) =
+            __ldg(reinterpret_cast<const float4*>(nrm + k));
+    }
+    // the values
+    if (kind == RA && li == 0) {
+      for (int n = tid; n < D; n += PT)
+        row[n] = __ldcg(a.x + (size_t)b * D + n);
+    } else {
+      const int pp = kind == RB ? 1 : kind == RC ? 2 : 3;
+      const int lp = kind == RB || kind == RC ? li : li - 1;  // its layer
+      int N, K, gsz;
+      i8_geom(pp, D, group, N, K, gsz);
+      const int ng = gsz ? K / gsz : 0;
+      const float* cs = pp == 1 ? a.so : pp == 2 ? a.s1 : a.s2;
+      const float* bias = pp == 1 ? a.bo : pp == 2 ? a.b1 : a.b2;
+      const float* xin = pp == 1 ? (li == 0 ? a.x : a.xo) : a.xo;
+      const float xb =
+          gsz ? 0.f : __ldcg(a.xs[pp == 2 ? 0 : 1] + (size_t)b * nxs);
+      cs += (size_t)lp * N;
+      bias += (size_t)lp * N;
+      // a8: 8 outputs a round, their loads issued together
+      if (!W4 && !gsz) {
+#pragma unroll 1
+        for (int n0 = 0; n0 < N; n0 += 8 * PT) {
+          int q[8];
+          float c8[8], b8[8], x8[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int n = n0 + j * PT + tid;
+            const bool in = n < N;
+            q[j] = in ? __ldcg(a.acc + (size_t)b * N + n) : 0;
+            c8[j] = in ? __ldg(cs + n) : 0.f;
+            b8[j] = in ? __ldg(bias + n) : 0.f;
+            x8[j] = in && pp != 2 ? __ldcg(xin + (size_t)b * N + n) : 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int n = n0 + j * PT + tid;
+            if (n >= N) continue;
+            a.acc[(size_t)b * N + n] = 0;
+            const float y =
+                __fmul_rn(__int2float_rn(q[j]), __fmul_rn(xb, c8[j]));
+            float v;
+            if (pp == 2) {
+              v = gelu_call(__fadd_rn(y, b8[j]));
+            } else {
+              v = __fadd_rn(__fadd_rn(x8[j], y), b8[j]);
+              a.xo[(size_t)b * N + n] = v;
+            }
+            row[n] = v;
+          }
+        }
+      } else {
+        // grouped: up to 4 outputs a round (as many as 32 terms allow), their
+        // terms, biases, scales and residuals loaded together
+        const int step = W4 && ng <= 8 ? 4 : ng <= 16 ? 2 : 1;
+        const size_t gstr = (size_t)B * N;
+#pragma unroll 1
+        for (int n0 = tid; n0 < N; n0 += step * PT) {
+          const int cnt = imin(step, (N - n0 + PT - 1) / PT);
+          float bn[4], sc[4], xv[4], y[4];
+#pragma unroll
+          for (int o = 0; o < 4; ++o) {
+            const int n = n0 + o * PT;
+            const bool in = o < cnt;
+            bn[o] = in ? __ldg(bias + n) : 0.f;
+            sc[o] = in && pp == 1 && !W4 ? __ldg(cs + n) : 1.f;
+            xv[o] = in && pp != 2 ? __ldcg(xin + (size_t)b * N + n) : 0.f;
+          }
+          const float* t = a.terms + (size_t)b * N + n0;
+          if (W4 && step == 4)            // (a8 folds the heads: 16 or more)
+            fold_multi<4, 8>(t, PT, ng, gstr, cnt, y);
+          else if (step == 2)
+            fold_multi<2, 16>(t, PT, ng, gstr, cnt, y);
+          else
+            y[0] = fold_terms(t, ng, gstr);
+#pragma unroll
+          for (int o = 0; o < 4; ++o) {
+            if (o >= cnt) break;
+            const int n = n0 + o * PT;
+            float yy = y[o];
+            if (pp == 1 && !W4) yy = __fmul_rn(yy, sc[o]);
+            float v;
+            if (pp == 2) {
+              v = gelu_call(__fadd_rn(yy, bn[o]));
+            } else {
+              v = __fadd_rn(__fadd_rn(xv[o], yy), bn[o]);
+              a.xo[(size_t)b * N + n] = v;
+            }
+            row[n] = v;
+          }
+        }
+      }
+    }
+    if (kind == RF) continue;
+    __syncthreads();
+    if (kind != RC && tid < 32) {
+      const float r = rms_row(row, D);
+      if (tid == 0) rs[0] = r;
+    }
+    __syncthreads();
+    const float r = kind == RC ? 1.f : rs[0];
+    const int span = imin(gx / 8, 32);
+    // h = (x r) n (RA/RB) or the GELU row, 8 inputs from k
+    const auto h8 = [&](int k, float (&h)[8]) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        h[e] = kind == RC ? row[k + e]
+                          : __fmul_rn(__fmul_rn(row[k + e], r), nrm8[k + e]);
+    };
+    // the maxima: items of 8 a thread
+#pragma unroll 1
+    for (int i0 = 0; i0 < n8; i0 += PT) {
+      const int i = i0 + tid;            // warp-uniform: n8 is a multiple of 32
+      float m = 0.f;
+      if (i < n8) {
+        float h[8];
+        h8(8 * i, h);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) m = fmaxf(m, fabsf(h[e]));
+      }
+      for (int s = 1; s < span; s <<= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, s));
+      if (i < n8 && (lane & (span - 1)) == 0)
+        atomicMax(amx + 8 * i / gx, __float_as_uint(m));
+    }
+    __syncthreads();
+    float* xs = a.xs[kind == RC ? 1 : 0] + (size_t)b * nxs;
+    if (tid < nx) xs[tid] = qscale(__uint_as_float(amx[tid]), 1e-8f);
+#pragma unroll 1
+    for (int i = tid; i < n8; i += PT) {
+      const float sc = qscale(__uint_as_float(amx[8 * i / gx]), 1e-8f);
+      float h[8];
+      h8(8 * i, h);
+      int8_t* dst = a.rows8 + (size_t)b * nrow + chunk_pos(8 * i);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        *reinterpret_cast<uint16_t*>(dst + 8 * t) =
+            (uint16_t)quant_pair(h[2 * t], h[2 * t + 1], sc);
+    }
+  }
+}
+
+template <bool W4>
+__global__ void __launch_bounds__(PT, 1)
+k2_i8_step_kernel(const __grid_constant__ I8Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - raw);
+  const I8Plan& pl = a.plan;
+  uint8_t* region = gbase + 2 * pl.slot;
+  GroupSmem* groups = reinterpret_cast<GroupSmem*>(region);
+  const int tid = threadIdx.x, G = gridDim.x;
+  const int B = a.att.B, D = a.att.D, H = a.att.H, L = a.L;
+
+  Ring ring{0, 0, 0, 0};
+  i8_issue(a, 0, 0, 0, base);            // the first piece
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  ring_next(ring, a);
+  // with a.trace, block 0 stamps the start and each phase's end (after
+  // its grid barrier: every block is done) on the global timer
+  int stamp = 0;
+  const auto mark = [&]() {
+    if (a.trace != nullptr && blockIdx.x == 0 && tid == 0) {
+      unsigned long long t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      a.trace[stamp] = t;
+    }
+    ++stamp;
+  };
+  mark();
+  unsigned arrivals = 0;                 // grid_sync's target
+  const int grp = tid / AT;
+  const auto phase_end = [&]() {
+    grid_sync(a.bar, arrivals);
+    mark();
+  };
+  for (int li = 0; li < L; ++li) {
+    i8_rows<W4>(a, li, RA, region);
+    phase_end();
+    i8_product<W4>(a, base, region, ring, li, 0);
+    phase_end();
+    // attention: (h, b) items, one per group of AT threads, each
+    // finalizing its q, k, v and quantizing its output per head
+    const AttnArgs at = attn_layer(a.att, li, a.nb_cap);
+    const I8Fin fin{a.acc, a.terms, (size_t)B * 3 * D,
+                    W4 ? D / a.group : 0, a.xs[0],
+                    a.sq + (size_t)li * 3 * D, a.bq + (size_t)li * 3 * D,
+                    pl.nxs};
+    uint8_t* spare = gbase + ((ring.s + 1) & 1) * pl.slot;  // read by none
+    // a8 (the serving default up to B = 8): a block per item when there
+    // are no more items than blocks (w4, the CLI's B = 32 chunks, keeps
+    // its kernel's code small: it would not take this path there)
+    if (!W4 && H * B <= G &&
+        (a.nb_cap + 1) * COOP_BYTES + 16 + 2 * STAGE * DH * 4 <= pl.slot) {
+      if ((int)blockIdx.x < H * B)       // a block per item
+        attn_coop_i8(at, blockIdx.x / B, blockIdx.x % B, groups, fin, spare);
+    } else {
+      for (int it = blockIdx.x * PGROUPS + grp; it < H * B;
+           it += G * PGROUPS)
+        attn_group<true, W4>(at, nullptr, it / B, it % B, groups[grp],
+                             1 + grp, fin);
+    }
+    phase_end();
+    i8_product<W4>(a, base, region, ring, li, 1);
+    phase_end();
+    i8_rows<W4>(a, li, RB, region);
+    phase_end();
+    i8_product<W4>(a, base, region, ring, li, 2);
+    phase_end();
+    i8_rows<W4>(a, li, RC, region);
+    phase_end();
+    i8_product<W4>(a, base, region, ring, li, 3);
+    phase_end();
+  }
+  i8_rows<W4>(a, L, RF, region);
+  mark();
+}
+
+// ------------------------------------------------------------ launches
 // cuTensorMapEncodeTiled through the runtime's driver entry point (the
 // library links no -lcuda); null if the driver has none.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1662,100 +2099,6 @@ int coop_grid(const void* fn, int smem, int* grid) {
 
 }  // namespace
 
-// One trunk step for all L layers on the a8 or w4 branch (the bf16 branch
-// is fused_trunk_step_bf16_launch).  Shapes and layouts as in the
-// wrapper, vae_gslm_tpu_torch/ops/mega_step.py; `work` is its
-// workspace_bytes(B, D, H) bytes of scratch.  Requires head_dim 64, D a
-// multiple of 256.  With group > 0 (the w4 branch; 64 or 128, dividing
-// D / 2) wq/wo/w1/w2 are nibble-packed and gq/go/g1/g2 their group
-// scales; sq/so/s1/s2 and a8 are then not read.
-extern "C" int fused_trunk_step_launch(
-    const void* x, void* x_out, const void* wq, const void* wo,
-    const void* w1, const void* w2, const void* sq, const void* so,
-    const void* s1, const void* s2, const void* n1, const void* n3,
-    const void* bq, const void* bo, const void* b1, const void* b2,
-    const void* slopes, const void* k_cold, const void* v_cold,
-    const void* kc_scale, const void* vc_scale, const void* k_tail,
-    const void* v_tail, const void* kt_scale, const void* vt_scale,
-    const void* k_stage, const void* v_stage, void* k_new, void* v_new,
-    void* work, const void* gq, const void* go, const void* g1,
-    const void* g2, int L, int B, int D, int H, int nb_cap, int pos,
-    int flushed, int a8, int group, float scale, void* stream) {
-  if ((group != 0 && group != 64 && group != 128) || (!a8 && !group))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t BD = (size_t)B * D;
-  const int pmax = D / 16 > H ? D / 16 : H;
-  void* part = work;      // int32 partials: w4 takes D / 8 per output
-  float* qkv =
-      reinterpret_cast<float*>(static_cast<int*>(work) + 2 * BD * pmax);
-  float* g = qkv + 3 * BD;
-  int8_t* act8 = reinterpret_cast<int8_t*>(g + 4 * BD);
-  float* ascale = reinterpret_cast<float*>(act8 + 4 * BD);
-  float* xo = static_cast<float*>(x_out);
-  CHECK((int)cudaMemcpyAsync(xo, x, BD * sizeof(float),
-                             cudaMemcpyDeviceToDevice, st));
-
-  const auto i8 = [](const void* p) { return static_cast<const int8_t*>(p); };
-  const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
-  const int D3 = 3 * D, D4 = 4 * D;
-  const int w4 = group > 0;
-  const int wrows = w4 ? D / 2 : D;      // stored rows of a D-input weight
-  // scale units per product: groups (w4) or split-K chunks of 64 (128 for
-  // the 4D-input FFN-down), and w4's partials per unit
-  const int kc = w4 ? group : 64, kc2 = w4 ? group : 128;
-  const int nsub = w4 ? group / PKC : 1;
-  const auto gs = [&](const void* p, size_t din, size_t dout, int li) {
-    return w4 ? f32(p) + (size_t)li * (din / group) * dout : nullptr;
-  };
-  const AttnArgs att0{qkv,
-                      i8(k_cold), i8(v_cold), f32(kc_scale), f32(vc_scale),
-                      i8(k_tail), i8(v_tail), f32(kt_scale), f32(vt_scale),
-                      static_cast<const __nv_bfloat16*>(k_stage),
-                      static_cast<const __nv_bfloat16*>(v_stage),
-                      f32(slopes),
-                      static_cast<__nv_bfloat16*>(k_new),
-                      static_cast<__nv_bfloat16*>(v_new),
-                      act8, ascale,
-                      B, H, D, flushed / BLK, pos, flushed, scale};
-  for (int li = 0; li < L; ++li) {
-    // 1-2. RMSNorm, QKV
-    CHECK(rows(xo, f32(n1) + (size_t)li * D, B, D, group, act8, ascale, H,
-               st));
-    CHECK(dense(act8, i8(wq) + (size_t)li * wrows * D3, B, D, D3, kc, w4,
-                part, st));
-    CHECK(epilogue(part, D / kc, B, D3, 0, ascale, H,
-                   f32(sq) + (size_t)li * D3, gs(gq, D, D3, li), 1, nsub,
-                   f32(bq) + (size_t)li * D3, EPI_OUT, qkv, st));
-    // 3. attention
-    attn_kernel<<<H * B, AT, 0, st>>>(attn_layer(att0, li, nb_cap));
-    CHECK((int)cudaGetLastError());
-    // 4. out-projection, one K chunk per head; residual
-    CHECK(dense(act8, i8(wo) + (size_t)li * wrows * D, B, D, D, DH, w4,
-                part, st));
-    CHECK(epilogue(part, H, B, D, 1, ascale, H,
-                   f32(so) + (size_t)li * D, gs(go, D, D, li),
-                   w4 ? group / DH : 1, DH / PKC, f32(bo) + (size_t)li * D,
-                   EPI_RESID, xo, st));
-    // 5. RMSNorm, FFN up, GELU
-    CHECK(rows(xo, f32(n3) + (size_t)li * D, B, D, group, act8, ascale, H,
-               st));
-    CHECK(dense(act8, i8(w1) + (size_t)li * wrows * D4, B, D, D4, kc, w4,
-                part, st));
-    CHECK(epilogue(part, D / kc, B, D4, 0, ascale, H,
-                   f32(s1) + (size_t)li * D4, gs(g1, D, D4, li), 1, nsub,
-                   f32(b1) + (size_t)li * D4, EPI_GELU, g, st));
-    // 6. FFN down, residual
-    CHECK(rows(g, nullptr, B, D4, group, act8, ascale, H, st));
-    CHECK(dense(act8, i8(w2) + (size_t)li * (D4 / (w4 ? 2 : 1)) * D, B, D4,
-                D, kc2, w4, part, st));
-    CHECK(epilogue(part, D4 / kc2, B, D, 0, ascale, H,
-                   f32(s2) + (size_t)li * D, gs(g2, D4, D, li), 1, nsub,
-                   f32(b2) + (size_t)li * D, EPI_RESID, xo, st));
-  }
-  return 0;
-}
-
 // The bf16 branch's grid for a dynamic shared memory of `smem` bytes
 // (the wrapper's bf16_step_plan): occupancy x the SM count, into *grid.
 extern "C" int fused_trunk_step_bf16_grid(int smem, int* grid) {
@@ -1765,7 +2108,8 @@ extern "C" int fused_trunk_step_bf16_grid(int smem, int* grid) {
 
 // One trunk step for all L layers on the bf16 branch (bf16 activations x
 // int8 weights): one cooperative launch of k2_bf16_step_kernel.  Shapes
-// and layouts as fused_trunk_step_launch's; `work` holds qkv (B, 3D)
+// and layouts as in the wrapper (vae_gslm_tpu_torch/ops/mega_step.py;
+// head_dim 64, D a multiple of 256); `work` holds qkv (B, 3D)
 // float32 and the attention and GELU rows (B, D) and (B, 4D) as bf16
 // high words, then the grid barrier's word, zeroed here
 // (bf16_workspace_bytes(B, D)); `trace` null or 1 + 5 L words for block
@@ -1848,4 +2192,108 @@ extern "C" int k2_barrier_probe_launch(void* bar, int n, int smem,
   return (int)cudaLaunchCooperativeKernel(
       (const void*)k2_barrier_probe_kernel, dim3(grid), dim3(PT), params,
       (size_t)smem, static_cast<cudaStream_t>(stream));
+}
+
+// The a8/w4 step's plan on this card (i8_plan for one block per SM) and its
+// grid for a dynamic shared memory of `smem` bytes: occupancy x the SM
+// count, into *grid, and the plan's bytes into *bytes.
+extern "C" int fused_trunk_step_i8_grid(int B, int D, int H, int group,
+                                        int smem, int* grid, int* bytes) {
+  int dev, nsm;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err) return err;
+  *bytes = i8_plan(B, D, H, nsm, group).bytes;
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  return coop_grid(group ? (const void*)k2_i8_step_kernel<true>
+                         : (const void*)k2_i8_step_kernel<false>,
+                   smem, grid);
+}
+
+// One trunk step for all L layers on the a8 branch (group 0: int8 weights,
+// s8 x s8 products) or the w4 branch (group 64 or 128, dividing D / 2:
+// wq/wo/w1/w2 nibble-packed, gq/go/g1/g2 their group scales; sq/so/s1/s2
+// then not read): one cooperative launch of k2_i8_step_kernel.  Shapes and
+// layouts as fused_trunk_step_bf16_launch's; `work` holds the grid
+// barrier's word (16 bytes) and, for a8, the int32 sums (B, 4D), both
+// zeroed here, then the fold terms of the grouped products (groups x B x
+// N float32, the largest product's), the int8 rows
+// (B, 4D) and two arrays of activation scales (B, nxs) float32
+// (ops/mega_step.py's i8_workspace_bytes); `trace` null or 2 + 8 L words
+// for block 0's phase-end times; `smem` the wrapper's plan, refused
+// unless it holds i8_plan for one block per SM.
+extern "C" int fused_trunk_step_i8_launch(
+    const void* x, void* x_out, const void* wq, const void* wo,
+    const void* w1, const void* w2, const void* sq, const void* so,
+    const void* s1, const void* s2, const void* n1, const void* n3,
+    const void* bq, const void* bo, const void* b1, const void* b2,
+    const void* slopes, const void* k_cold, const void* v_cold,
+    const void* kc_scale, const void* vc_scale, const void* k_tail,
+    const void* v_tail, const void* kt_scale, const void* vt_scale,
+    const void* k_stage, const void* v_stage, void* k_new, void* v_new,
+    void* work, const void* gq, const void* go, const void* g1,
+    const void* g2, void* trace, int L, int B, int D, int H, int nb_cap,
+    int pos, int flushed, int group, float scale, int smem, void* stream) {
+  if (B < 1 || D % 256 || H * DH != D ||
+      (group != 0 && group != 64 && group != 128) ||
+      (group && D % (2 * group)))
+    return (int)cudaErrorInvalidValue;
+  int dev, nsm;
+  int err = (int)cudaGetDevice(&dev);
+  if (!err)
+    err = (int)cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err) return err;
+  const I8Plan plan = i8_plan(B, D, H, nsm, group);
+  if (smem < plan.bytes || smem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = group ? (const void*)k2_i8_step_kernel<true>
+                         : (const void*)k2_i8_step_kernel<false>;
+  int grid;
+  err = coop_grid(fn, smem, &grid);
+  if (err) return err;
+  const auto i8 = [](const void* p) { return static_cast<const int8_t*>(p); };
+  const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+  size_t terms_n = 0;                    // the largest grouped product's
+  for (int p = 0; p < 4; ++p) {
+    int N, K, gsz;
+    i8_geom(p, D, group, N, K, gsz);
+    if (gsz) terms_n = imax((int)terms_n, N * (K / gsz));
+  }
+  const size_t acc_n = group ? 0 : (size_t)4 * D;
+  unsigned* bar = static_cast<unsigned*>(work);
+  int* acc = reinterpret_cast<int*>(bar + 4);
+  float* terms = reinterpret_cast<float*>(acc + (size_t)B * acc_n);
+  // the terms: (groups, B, N) of the largest grouped product
+  int8_t* rows8 = reinterpret_cast<int8_t*>(terms + (size_t)B * terms_n);
+  float* xs0 = reinterpret_cast<float*>(rows8 + (size_t)B * 4 * D);
+  float* xs1 = xs0 + (size_t)B * plan.nxs;
+  err = (int)cudaMemsetAsync(work, 0, 16 + 4 * (size_t)B * acc_n,
+                             static_cast<cudaStream_t>(stream));
+  if (err) return err;
+  I8Args args{static_cast<const float*>(x), static_cast<float*>(x_out),
+              {i8(wq), i8(wo), i8(w1), i8(w2)},
+              f32(sq), f32(so), f32(s1), f32(s2), f32(n1), f32(n3),
+              f32(bq), f32(bo), f32(b1), f32(b2),
+              f32(gq), f32(go), f32(g1), f32(g2),
+              AttnArgs{nullptr,
+                       i8(k_cold), i8(v_cold), f32(kc_scale),
+                       f32(vc_scale), i8(k_tail), i8(v_tail),
+                       f32(kt_scale), f32(vt_scale),
+                       static_cast<const __nv_bfloat16*>(k_stage),
+                       static_cast<const __nv_bfloat16*>(v_stage),
+                       f32(slopes),
+                       static_cast<__nv_bfloat16*>(k_new),
+                       static_cast<__nv_bfloat16*>(v_new),
+                       rows8, xs1,
+                       B, H, D, flushed / BLK, pos, flushed, scale},
+              rows8, {xs0, xs1}, acc, terms, bar,
+              static_cast<unsigned long long*>(trace), L, nb_cap, group,
+              plan};
+  void* params[] = {&args};
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(PT), params,
+                                          (size_t)smem,
+                                          static_cast<cudaStream_t>(stream));
 }

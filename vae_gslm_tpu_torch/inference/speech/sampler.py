@@ -214,7 +214,9 @@ class ARTRSampler:
         this device.  Its bf16 branch (int8 weights without ``mega_a8``:
         B > 8 by default) needs the persistent step's shared-memory plan
         to fit a block of this card (``mega_step.bf16_step_fits``); the
-        a8 and w4 branches, and the CPU's plain version, take any."""
+        a8 and w4 branches (whose plan streams a block's tiles in pieces,
+        so it fits every dim up to 8192 on any SM count), and the CPU's
+        plain version, take any."""
         a8 = batch <= 8 if self.mega_a8 is None else self.mega_a8
         if self.device.type != "cuda" or self.mega_w4 or a8:
             return True

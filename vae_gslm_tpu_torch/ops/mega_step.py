@@ -52,15 +52,21 @@ and current-token dots, the softmax denominators, the stage P.V) is
 taken in float64 and rounded once, in the kernel and here.
 
 On a CPU tensor the wrapper computes ``fused_trunk_step_plain``; on a
-CUDA tensor it launches the kernel or raises.  The a8 and w4 branches
-issue a sequence of kernels per step; the bf16 branch (``a8=False`` on
-int8 weights) is one cooperative launch of ``k2_bf16_step_kernel`` whose
-shared memory ``bf16_step_plan`` lays out (products on the FP64 tensor
-cores, weights streamed by TMA, grid barriers between the phases).
+CUDA tensor it launches the kernel or raises.  Every branch is one
+cooperative launch a step (grid barriers between the phases): the bf16
+branch (``a8=False`` on int8 weights) ``k2_bf16_step_kernel``, products
+on the FP64 tensor cores, weights streamed by TMA, shared memory laid out
+by ``bf16_step_plan``; the a8 and w4 branches ``k2_i8_step_kernel``, 8
+phases a layer (each input row quantized once by a rows phase, each
+product in tiles of 64 columns x a K range), products on the int8 tensor
+cores (``mma.m16n8k32.s8``, exact int32 sums), weights streamed by
+cp.async, shared memory laid out by ``i8_step_plan`` and scratch by
+``i8_workspace_bytes``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple, Tuple
 
@@ -321,14 +327,21 @@ def flush_mega(cache: dict, flushed_prev: int) -> dict:
 
 
 # ------------------------------------------------------------ kernel
-def workspace_bytes(b: int, d: int, h: int) -> int:
-    """Scratch of one a8 or w4 call, laid out as ``csrc/mega_step.cu``
-    carves it: the split-K int32 partial sums (w4's FFN down takes D / 8
-    per output: one per 32 packed rows of 4D), qkv, the FFN activation,
-    the int8 dense inputs, and the int8 inputs' scales (one per row and
-    head, or per row and group of at least 64 inputs)."""
-    return (8 * b * d * max(d // 16, h)
-            + 4 * (7 * b * d + b * max(h, d // 16)) + 4 * b * d)
+def i8_workspace_bytes(b: int, d: int, h: int, group: int) -> int:
+    """Scratch of one a8 (``group`` 0) or w4 call, laid out as
+    ``fused_trunk_step_i8_launch`` carves it: the grid barrier's word (16
+    bytes) and, for a8, the int32 sums of the one-dot products (B, 4D),
+    which the launcher zeroes and each reader zeroes again as it reads;
+    the fold terms of the grouped products (fold groups x B x N float32:
+    the largest product's); the int8 rows (B,
+    4D); two arrays of activation scales (B, nxs) float32.  Nothing is
+    kept per layer."""
+    nxs = _cdiv(max(h, 4 * d // group if group else 1), 4) * 4
+    terms = max(n * (k // gsz)
+                for n, k, gsz in (i8_geom(p, d, group) for p in range(4))
+                if gsz)
+    acc = 0 if group else 4 * d
+    return 16 + 4 * b * acc + 4 * b * terms + 4 * b * d + 2 * 4 * b * nxs
 
 
 def bf16_workspace_bytes(b: int, d: int) -> int:
@@ -418,6 +431,114 @@ def bf16_step_fits(b: int, d: int, h: int, n_sm: int) -> bool:
     return bf16_step_plan(b, d, h, n_sm).bytes <= SMEM_LIMIT
 
 
+# The persistent a8/w4 step (``k2_i8_step_kernel``): its tiles and
+# shared-memory layout, as ``csrc/mega_step.cu`` defines them.
+I8_TILE = 64              # output columns per tile (a strip: 64-byte rows)
+I8_CHUNK = 32             # logical k per chunk (the mma's K)
+I8_PAD = 32               # bytes past each activation row
+I8_TILE_COST = 256        # a tile's overhead (staging, barriers), in rows
+I8_NO_FIT = 1 << 30       # bytes of a plan that does not fit
+
+
+class I8Plan(NamedTuple):
+    """The grid and dynamic shared memory of one a8/w4 step launch."""
+    grid: int        # blocks: the SM count, or the launcher's grid
+    bp: int          # batch rows rounded up to 8
+    splits: tuple    # per product: K ranges per 64-column strip
+    tp: tuple        # per product: a block's tiles per weight piece
+    nxs: int         # activation scales per row (the scales' stride)
+    slot: int        # bytes of each of the two weight slots
+    region: int      # bytes of the region: the attention groups' scratch,
+    #                  a rows phase's row, or a tile's int8 rows and scratch
+    bytes: int       # the whole dynamic shared memory (I8_NO_FIT: none)
+
+
+def i8_geom(p: int, d: int, group: int) -> Tuple[int, int, int]:
+    """Product ``p`` (0 QKV, 1 out-projection, 2 FFN up, 3 FFN down) of the
+    a8/w4 step: its output columns N, inputs K and fold group in logical
+    inputs (the heads for the out-projection, w4's scale group, or 0: a8's
+    one dot)."""
+    n = 3 * d if p == 0 else 4 * d if p == 2 else d
+    k = 4 * d if p == 3 else d
+    return n, k, HEAD_DIM if p == 1 else group
+
+
+def i8_tiles(p: int, d: int, group: int, splits: int):
+    """Product ``p``'s tiles in order: (first column, first stored row,
+    stored rows).  Tile t is strip t mod NS (64 columns) of K range t // NS
+    (K, or K / 2 packed rows for w4, in ``splits`` equal ranges); block j
+    of a grid of G takes tiles j, j + G, .. (``i8_issue``)."""
+    n, k, _ = i8_geom(p, d, group)
+    kst = k // 2 if group else k
+    ns, tr = n // I8_TILE, kst // splits
+    return [((t % ns) * I8_TILE, (t // ns) * tr, tr)
+            for t in range(ns * splits)]
+
+
+def i8_tile_bytes(p: int, d: int, group: int, bp: int, tr: int) -> int:
+    """Product ``p``'s tile of ``tr`` stored rows in shared memory: its int8
+    rows (w4: both nibble halves, ``I8_PAD`` bytes past each) and its
+    scratch: a8's int32 sums (bp x 64) or the scales of its fold groups
+    ((bp + 64) float32 a group)."""
+    _, _, gsz = i8_geom(p, d, group)
+    ngt = (2 if group else 1) * tr // gsz if gsz else 0
+    return (bp * ((2 if group else 1) * tr + I8_PAD)
+            + (ngt * (bp + I8_TILE) * 4 if gsz else bp * I8_TILE * 4))
+
+
+@functools.lru_cache(maxsize=None)
+def i8_step_plan(b: int, d: int, h: int, n_sm: int, group: int = 0) -> I8Plan:
+    """``i8_plan`` of ``csrc/mega_step.cu`` at B = b rows, dim d, h heads,
+    ``group`` 0 (a8) or w4's scale group, laid out for one block per SM.
+    The region holds the attention groups' scratch or a rows phase's row
+    (4D float32), its maxima, 1/rms and norm scale (D float32), and a tile's int8 rows and
+    scratch (``i8_tile_bytes``) must fit it; each of the two weight slots is what the block has left, rounded
+    down to 1 KiB.  Each product's split S is the one whose tiles fit
+    those (its K ranges a multiple of 32 stored rows and of its fold
+    group) and that costs the busiest block least, at its stored rows +
+    ``I8_TILE_COST`` a tile; a piece is as many of a block's tiles as a
+    slot holds."""
+    bp = _cdiv(b, 8) * 8
+    nxs = _cdiv(max(h, 4 * d // group if group else 1), 4) * 4
+    region = _cdiv(max(STEP_GROUPS * GROUP_SMEM, 20 * d + 4 * nxs + 64),
+                   16) * 16
+    budget = (SMEM_LIMIT - 1024 - region - 16) // 2 // 1024 * 1024
+    ok = True
+    slot, splits, tps = 0, [], []
+    for p in range(4):
+        n, k, gsz = i8_geom(p, d, group)
+        kst = k // 2 if group else k
+        ns, gst = n // I8_TILE, max(I8_CHUNK, gsz)
+        best, bs = -1, 0
+        for sp in range(1, kst // gst + 1):
+            tr = kst // sp
+            if (kst % sp or tr % gst or tr * I8_TILE > budget
+                    or i8_tile_bytes(p, d, group, bp, tr) > region):
+                continue
+            cost = _cdiv(ns * sp, n_sm) * (tr + I8_TILE_COST)
+            if best < 0 or cost < best:
+                best, bs = cost, sp
+        if best < 0:
+            ok = False
+            splits.append(0), tps.append(0)
+            continue
+        tr = kst // bs
+        tp = min(_cdiv(ns * bs, n_sm), budget // (tr * I8_TILE))
+        splits.append(bs)
+        tps.append(tp)
+        slot = max(slot, tp * tr * I8_TILE)
+    slot = _cdiv(slot, 1024) * 1024
+    nbytes = 1024 + 2 * slot + region + 16 if ok else I8_NO_FIT
+    return I8Plan(n_sm, bp, tuple(splits), tuple(tps), nxs,
+                  slot, region, nbytes)
+
+
+def i8_row_blocks(b: int, grid: int, block: int) -> range:
+    """The batch rows that block ``block`` of ``grid`` takes in an a8/w4
+    rows phase (``i8_rows``): block, block + grid, .. below B = b."""
+    return range(block, b, grid)
+
+
 def sm_count(dev: torch.device) -> int:
     """The SM count of ``dev``'s card."""
     return torch.cuda.get_device_properties(dev).multi_processor_count
@@ -449,13 +570,16 @@ def _lib():
 
         lib = load("mega_step")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_trunk_step_launch.argtypes = (
-            [p] * 34 + [i] * 9 + [ctypes.c_float, p])
+        lib.fused_trunk_step_i8_launch.argtypes = (
+            [p] * 35 + [i] * 8 + [ctypes.c_float, i, p])
+        lib.fused_trunk_step_i8_grid.argtypes = (
+            [i] * 5 + [ctypes.POINTER(i)] * 2)
         lib.fused_trunk_step_bf16_launch.argtypes = (
             [p] * 31 + [i] * 7 + [ctypes.c_float, i, p])
         lib.fused_trunk_step_bf16_grid.argtypes = [i, ctypes.POINTER(i)]
         lib.k2_barrier_probe_launch.argtypes = [p, i, i, p]
-        for fn in (lib.fused_trunk_step_launch,
+        for fn in (lib.fused_trunk_step_i8_launch,
+                   lib.fused_trunk_step_i8_grid,
                    lib.fused_trunk_step_bf16_launch,
                    lib.fused_trunk_step_bf16_grid,
                    lib.k2_barrier_probe_launch):
@@ -476,14 +600,35 @@ def _error(what: str, err: int) -> RuntimeError:
     return RuntimeError(f"{what} launch failed: {why}")
 
 
-def step_plan_for(b: int, d: int, h: int, dev: torch.device) -> StepPlan:
-    """The bf16 step's plan on ``dev``'s card: its SM count, and the grid
-    the launcher will size (occupancy x SMs) for that shared memory."""
-    plan = bf16_step_plan(b, d, h, sm_count(dev))
+@functools.lru_cache(maxsize=None)
+def step_plan_for(b: int, d: int, h: int, dev: torch.device,
+                  a8: bool = False, group: int = 0):
+    """The plan of the step branch that a call at B = b takes on ``dev``'s
+    card (bf16, or with ``a8`` or a w4 ``group`` the a8/w4 step), and the
+    grid the launcher will size (occupancy x SMs) for its shared memory.
+    The a8/w4 plan is held against the library's ``i8_plan`` and raises
+    unless it fits a block; kept per shape and card, so the wrapper takes
+    it on every a8/w4 call."""
     grid = ctypes.c_int(0)
-    err = _lib().fused_trunk_step_bf16_grid(plan.bytes, ctypes.byref(grid))
+    if a8 or group:
+        plan = i8_step_plan(b, d, h, sm_count(dev), group)
+        if plan.bytes > SMEM_LIMIT:
+            raise ValueError(f"the {'w4' if group else 'a8'} step at B={b}, "
+                             f"dim {d} has no shared-memory plan within the "
+                             f"{SMEM_LIMIT} bytes a block may use")
+        nbytes = ctypes.c_int(0)
+        err = _lib().fused_trunk_step_i8_grid(
+            b, d, h, group, plan.bytes, ctypes.byref(grid),
+            ctypes.byref(nbytes))
+        if err == 0 and nbytes.value != plan.bytes:
+            raise RuntimeError(f"the a8/w4 step's plan is {nbytes.value} "
+                               f"bytes on the card, {plan.bytes} here")
+    else:
+        plan = bf16_step_plan(b, d, h, sm_count(dev))
+        err = _lib().fused_trunk_step_bf16_grid(plan.bytes,
+                                                ctypes.byref(grid))
     if err != 0:
-        raise _error("fused_trunk_step (bf16) occupancy", err)
+        raise _error("fused_trunk_step occupancy", err)
     return plan._replace(grid=grid.value)
 
 
@@ -504,16 +649,16 @@ def fused_trunk_step(x, weights: dict, cache: dict, pos: int, slopes,
                      flushed: int, a8: bool = False, trace=None):
     """x (B, D) float32; ``weights`` and ``cache`` as in the module
     docstring; ``pos`` and ``flushed`` host ints (flushed a multiple of
-    128, ``flushed <= pos < flushed + 128``); slopes (H,) negative ALiBi
+    128, ``flushed <= pos <= flushed + 128``: a full tail with an empty
+    stage is taken, as JAX's kernel takes it); slopes (H,) negative ALiBi
     slopes.  Returns (x (B, D) float32, k_new, v_new (L, H, B, Dh)
-    bfloat16).  ``trace`` (the bf16 branch only; see ``bf16_step_phases``)
-    is None or a (1 + 5 L,) int64 CUDA tensor for the kernel's phase-end
-    times.  With nibble-packed weights (``"gq" in weights``) the call
-    runs the w4 branch and counts under ``launches_w4``; with int8
-    weights, ``a8`` runs the s8 x s8 kernels and counts under
-    ``launches``, else the bf16 branch's one cooperative launch counts
-    under ``launches_bf16``: one call, one count, whatever the layer
-    count."""
+    bfloat16).  ``trace`` (see ``step_phases``) is None or an int64 CUDA
+    tensor for the kernel's phase-end times (1 + 5 L words for the bf16
+    branch, 2 + 8 L for the a8 and w4 branches).  Each call is one
+    cooperative launch: with nibble-packed weights (``"gq" in weights``)
+    of the w4 branch, counted under ``launches_w4``; with int8 weights
+    and ``a8`` of the s8 x s8 branch, counted under ``launches``; else of
+    the bf16 branch, counted under ``launches_bf16``."""
     if x.device.type == "cpu":
         return fused_trunk_step_plain(x, weights, cache, pos, slopes,
                                       flushed, a8=a8)
@@ -531,9 +676,9 @@ def fused_trunk_step(x, weights: dict, cache: dict, pos: int, slopes,
     if flushed % BLK or not 0 <= flushed <= nb * BLK:
         raise ValueError(f"flushed={flushed} must be a multiple of {BLK} "
                          f"within the {nb}-block cold cache")
-    if not flushed <= pos < flushed + TAIL:
+    if not flushed <= pos <= flushed + TAIL:
         raise ValueError(f"pos={pos} outside the tail [{flushed}, "
-                         f"{flushed + TAIL})")
+                         f"{flushed + TAIL}]")
     f32, i8 = torch.float32, torch.int8
     _check("x", x, f32, (b, d), dev)
     w4 = "gq" in weights
@@ -568,6 +713,7 @@ def fused_trunk_step(x, weights: dict, cache: dict, pos: int, slopes,
               *(weights[k].data_ptr() for k in WEIGHT_KEYS),
               slopes.data_ptr(), *(cache[k].data_ptr() for k in CACHE_KEYS),
               k_new.data_ptr(), v_new.data_ptr())
+    trace_ptr = trace.data_ptr() if trace is not None else None
     if not (w4 or a8):
         plan = bf16_step_plan(b, d, h, sm_count(dev))
         if plan.bytes > SMEM_LIMIT:
@@ -578,22 +724,22 @@ def fused_trunk_step(x, weights: dict, cache: dict, pos: int, slopes,
         work = torch.empty(bf16_workspace_bytes(b, d), dtype=torch.uint8,
                            device=dev)
         err = _lib().fused_trunk_step_bf16_launch(
-            *common, work.data_ptr(),
-            trace.data_ptr() if trace is not None else None, nl, b, d, h,
-            nb, pos, flushed, 1.0 / math.sqrt(dh), plan.bytes, stream)
+            *common, work.data_ptr(), trace_ptr, nl, b, d, h, nb, pos,
+            flushed, 1.0 / math.sqrt(dh), plan.bytes, stream)
         if err != 0:
             raise _error("fused_trunk_step (bf16)", err)
         fused_trunk_step.launches_bf16 += 1
         return x_out, k_new, v_new
-    work = torch.empty(workspace_bytes(b, d, h), dtype=torch.uint8,
-                       device=dev)
-    err = _lib().fused_trunk_step_launch(
+    plan = step_plan_for(b, d, h, dev, a8, group)
+    work = torch.empty(i8_workspace_bytes(b, d, h, group),
+                       dtype=torch.uint8, device=dev)
+    err = _lib().fused_trunk_step_i8_launch(
         *common, work.data_ptr(),
         *(weights[g].data_ptr() if w4 else None for g in W4_KEYS),
-        nl, b, d, h, nb, pos, flushed, int(a8), group, 1.0 / math.sqrt(dh),
-        stream)
+        trace_ptr, nl, b, d, h, nb, pos, flushed, group,
+        1.0 / math.sqrt(dh), plan.bytes, stream)
     if err != 0:
-        raise _error("fused_trunk_step", err)
+        raise _error(f"fused_trunk_step ({'w4' if w4 else 'a8'})", err)
     if w4:
         fused_trunk_step.launches_w4 += 1
     else:
@@ -607,22 +753,32 @@ fused_trunk_step.launches_bf16 = 0
 
 
 STEP_PHASES = ("qkv", "attention", "out", "ffn_up", "ffn_down")
+I8_STEP_PHASES = ("rows", "qkv", "attention", "out", "rows_up", "ffn_up",
+                  "gelu_rows", "ffn_down")
 
 
-def bf16_step_phases(x, weights: dict, cache: dict, pos: int, slopes,
-                     flushed: int) -> dict:
-    """One bf16 step on the card with its phase trace: block 0 stamps the
-    global timer at the start and at the end of each layer's five phases
-    (after each grid barrier, when every block is done).  Returns each
-    phase's mean microseconds over the layers (its grid barrier
-    included) and the total."""
+def step_phases(x, weights: dict, cache: dict, pos: int, slopes,
+                flushed: int, a8: bool = False) -> dict:
+    """One step on the card (the branch that ``fused_trunk_step`` takes
+    with these weights and ``a8``) with its phase trace: block 0 stamps
+    the global timer at the start and at the end of each layer's five
+    phases (after each grid barrier, when every block is done).  Returns
+    each phase's mean microseconds over the layers (its grid barrier
+    included) and the total: the bf16 branch's five phases a layer
+    (``STEP_PHASES``), or the a8/w4 branch's eight (``I8_STEP_PHASES``)
+    and its last rows phase (``tail``: the last FFN down finalized)."""
     nl = weights["wq"].shape[0]
-    n_ph = len(STEP_PHASES)
-    trace = torch.zeros(1 + n_ph * nl, dtype=torch.int64, device=x.device)
-    fused_trunk_step(x, weights, cache, pos, slopes, flushed, trace=trace)
+    names = I8_STEP_PHASES if a8 or "gq" in weights else STEP_PHASES
+    n_ph = len(names)
+    extra = 1 if names is I8_STEP_PHASES else 0
+    trace = torch.zeros(1 + n_ph * nl + extra, dtype=torch.int64,
+                        device=x.device)
+    fused_trunk_step(x, weights, cache, pos, slopes, flushed, a8=a8,
+                     trace=trace)
     t = trace.cpu().double()
-    steps = (t[1:] - t[:-1]).reshape(nl, n_ph) / 1e3
-    out = {name: float(steps[:, i].mean()) for i, name in
-           enumerate(STEP_PHASES)}
+    steps = (t[1:1 + n_ph * nl] - t[:n_ph * nl]).reshape(nl, n_ph) / 1e3
+    out = {name: float(steps[:, i].mean()) for i, name in enumerate(names)}
+    if extra:
+        out["tail"] = float((t[-1] - t[-2]) / 1e3)
     out["total"] = float((t[-1] - t[0]) / 1e3)
     return out

@@ -9,7 +9,7 @@ that routing, so that it computes what JAX computes at each world size:
 group of more than one rank runs, and ``SelfAttention`` reads
 ``active_flash_mesh()``.  Each rank already holds only its own rows, so
 nothing is sharded here.  The model axis, sequence parallelism, pipeline
-parallelism and FSDP are not ported (ROADMAP.md, Queue 1 item 14).
+parallelism and FSDP are not ported (ROADMAP.md, Queue 1 item 11).
 """
 from __future__ import annotations
 

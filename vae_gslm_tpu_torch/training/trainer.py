@@ -8,7 +8,7 @@ all-reduce.  The port runs one process per rank (``parallel/mesh.py``):
 each rank loads its own rows through the distributed sampler, runs the
 step on its device, and the task trainer sums the gradients over the
 ranks in one all-reduce per optimizer step.  The model axis, pipeline
-and FSDP modes are not ported (ROADMAP.md, Queue 1 item 14).
+and FSDP modes are not ported (ROADMAP.md, Queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -119,7 +119,7 @@ class BaseTrainer:
                     val, bool) and val <= 1):
                 raise NotImplementedError(
                     f"trainer.{mode} is not ported; the port trains data "
-                    "parallel only (ROADMAP.md, Queue 1 item 14)")
+                    "parallel only (ROADMAP.md, Queue 1 item 11)")
         self.world_size = mesh.process_count()
         self.rank = mesh.process_index()
         self.global_step = 0
