@@ -13,11 +13,15 @@ Phases (any failure ends the run with a non-zero exit, no result):
      K2 ``mega_step.cu``, K3/K3b/K4/K4b/K5/K5b ``flash_attention.cu``, K6
      ``flash_decode.cu``, K7 ``stream.cu``), with nvcc's register and
      spill lines, and beside them the g++ build of ``native/dataio.cc``;
-  3. K1 against its plain PyTorch version at the flagship width (16
-     layers, 16 heads, head_dim 64) at B = 8 and 32 over the cache
-     states the 150 -> 650 rollout passes through; kernel and plain
-     device times (torch.profiler), the time per call with the wrapper
-     (CUDA events), the HBM-bytes bound;
+  3. K1 against its plain PyTorch version at the cache states its
+     cluster design makes likely to break (an empty cold cache at pos 0,
+     pos == flushed, 9 and 40 cold blocks: more than a portable cluster's
+     8 CTAs, B = 1, and head_dim 16, 32, 128 and 256, the last past 8
+     blocks through its plane ring; one launch a call), then at the
+     flagship width (16 layers, 16 heads, head_dim 64) at B = 8 and 32
+     over the cache states the 150 -> 650 rollout passes through; kernel
+     and plain device times (torch.profiler), the time per call with the
+     wrapper (CUDA events), the HBM-bytes bound;
   4. K2 (the whole 16-layer trunk step) against its plain version at the
      flagship width, B = 1, 2 and 8 with s8 x s8 products (K2-a8: one
      persistent cooperative launch a step, int8 tensor-core products) and
@@ -46,7 +50,9 @@ Phases (any failure ends the run with a non-zero exit, no result):
      lengths down to 1), float32 and bfloat16, with ALiBi and without,
      the bf16 outputs also element by element (2 ulps + a share of the
      rms) and in relative L2, and in bf16 at T 1000 and 1024 (the wgmma
-     forward's largest resident K); K3 float32 at the scoring path's
+     forward's largest resident K), in float32 at T 37, 100 and 1000
+     (below one 128-row query tile of the one-pass float32 body, and
+     ragged; lengths 0 and 1); K3 float32 at the scoring path's
      call (B 64, the short batch's padded length and lengths) and its
      time beside SDPA's (float32, float mask) and the bound; K3/K3b's
      bf16 times beside the plain versions', SDPA's with a float mask
@@ -56,10 +62,14 @@ Phases (any failure ends the run with a non-zero exit, no result):
      down to 0 and 1, and Tq 96 x Tk 256 non-causal, and K4 (the (B, H,
      T, D) full forward with lse) at B 8, T 640 with 15 heads (no packed
      head grouping), against their plain versions, float32 and bfloat16,
-     with ALiBi and without, at K3's tolerances; K5 float32 at the
-     scoring path's calls (B 64, T 1750, each long batch's lengths) and
-     its time there beside the bound; its float32 time at B 8 beside the
-     plain version's, SDPA's (float mask) and the bound;
+     with ALiBi and without, at K3's tolerances, and in float32 at the
+     one-pass body's edges (Tq 37 x Tk 300, Tq 96 x Tk 8192 non-causal,
+     Tq = Tk = 8192 and 1100 causal, K4 at T 5 and T 300 non-causal,
+     lengths 0 and 1); K5 float32 at the scoring path's calls (B 64, T
+     1750, each long batch's lengths) and its time there beside the
+     bound and SDPA's (float32, float mask, in 8-row chunks summed); its
+     float32 time at B 8 beside the plain version's, SDPA's (float mask)
+     and the bound, and its bf16 time beside the bf16 bound;
   5c. K4 (with lse) and K4b (the (B, H, T, D) full backward from K4's
      lse) at the data-parallel training call (B 8, T 640, 16 heads,
      lengths down to 0 and 1; K4's o and lse at K3's forward
@@ -366,13 +376,73 @@ def k1_bytes_ops(b: int, pos: int):
     return cache_bytes + io_bytes, ops
 
 
+# K1's cluster design at the states it makes likely to break: (b, heads,
+# head_dim, cold capacity, flushed, pos) -- an empty cold cache at pos 0,
+# pos == flushed, more cold blocks than a portable cluster has CTAs (the
+# CTAs then own several blocks, and at head_dim 256 stream them through
+# a ring), B = 1, and every head_dim the kernel is instantiated for
+K1_EDGES = ((8, H, D, 1, 0, 0), (8, H, D, 3, 512, 512), (1, H, D, 3, 256, 400),
+            (2, 4, D, 12, 9 * 256, 9 * 256 + 77),
+            (2, 4, D, 41, 40 * 256, 40 * 256 + 255),
+            (4, 4, 16, 12, 10 * 256, 10 * 256 + 3), (4, 4, 32, 3, 512, 700),
+            (4, 4, 128, 10, 9 * 256, 9 * 256 + 100),
+            (4, 2, 256, 3, 512, 600), (2, 2, 256, 12, 11 * 256, 11 * 256 + 9))
+
+
+def k1_edge_inputs(dev, b: int, h: int, d: int, nb: int, seed: int):
+    """A random two-layer int8 hybrid cache of ``nb`` cold blocks and
+    bfloat16 q/k/v rows as views of one fused projection."""
+    import torch
+
+    from vae_gslm_tpu_torch.nn.positions import alibi_slopes
+
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def sc(*shape):
+        return torch.rand(shape, generator=g, device=dev) * 0.02
+
+    cache = (i8(2, nb, b, h, d, 256), i8(2, nb, b, h, d, 256),
+             sc(2, nb, b, h, 256), sc(2, nb, b, h, 256),
+             i8(2, b, h, 256, d), i8(2, b, h, 256, d),
+             sc(2, b, h, 256), sc(2, b, h, 256))
+    qkv = torch.randn((b, 3 * h * d), generator=g, device=dev).to(
+        torch.bfloat16)
+    q, k, v = qkv.view(b, 3, h, d).unbind(1)
+    return cache, q, k, v, -torch.tensor(alibi_slopes(h), device=dev)
+
+
 def phase_k1(dev):
     import torch
 
     from vae_gslm_tpu_torch.ops.fused_decode import (
-        fused_decode_attention as k1, fused_decode_attention_plain as plain)
+        fused_decode_attention as k1, fused_decode_attention_plain as plain,
+        k1_plan)
 
     worst = 0.0
+    for b, h, d, nb, flushed, pos in K1_EDGES:
+        cache, q, k, v, slopes = k1_edge_inputs(dev, b, h, d, nb, pos)
+        for li in (0, 1):
+            before = k1.launches
+            got = k1(q, *cache, pos, li, slopes, k, v, flushed)
+            want = plain(q, *cache, pos, li, slopes, k, v, flushed)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = (1e-4 + 1e-3 * want.abs()).sub(
+                (got - want).abs()).min().item()
+            log(f"K1 check B={b} H={h} head_dim={d} flushed={flushed} "
+                f"pos={pos} li={li} ({k1_plan(d, flushed // 256)}): "
+                f"max_abs_err={err:.3e}")
+            if tol < 0 or not math.isfinite(err) or k1.launches != before + 1:
+                raise AssertionError(
+                    f"K1 disagrees with its plain version beyond rtol 1e-3 / "
+                    f"atol 1e-4, or did not launch once (B={b}, head_dim={d}, "
+                    f"flushed={flushed}, pos={pos})")
+            worst = max(worst, err)
+        del cache, q, k, v
     for b in (8, 32):
         for flushed, pos in ((0, 151), (0, 255), (256, 256), (256, 511),
                              (512, 650)):
@@ -544,12 +614,13 @@ def k2_check(where: str, dev, b: int, weights, x, cache, slopes,
 def k2_one_launch(where: str, fn, kernel: str) -> None:
     """A profiler window around one call records one launch of ``kernel``
     and no other kernel, beside the memset that zeroes its scratch words
-    (a window that recorded nothing is taken again)."""
+    (a window that recorded nothing is taken again, up to 10 windows:
+    windows lose launches, and four empty ones in a row were seen)."""
     import torch
 
     fn(0)
     torch.cuda.synchronize()
-    for _ in range(4):
+    for _ in range(10):
         evs = [(k, c) for k, _, c in _profiled(fn, 1)
                if not k.startswith("Memset")]
         if evs:
@@ -757,6 +828,8 @@ K3_KERNELS = ("k3_fwd", "k3b_dkv", "k3b_dq")   # kernel name prefixes
 K3_LENGTHS = [640, 320, 300, 640, 1, 639, 512, 64]
 # bf16 K3/K4 checks at the largest resident key sets (16 tiles at 1024)
 K3_LONG = ((4, 1000, 4, [1000, 0, 1, 611]), (4, 1024, 4, [1024, 1, 0, 700]))
+K3_F32_EDGES = ((3, 37, 2, [37, 0, 1]), (2, 100, 2, [100, 1]),
+                (2, 1000, 4, [1000, 1]))
 
 
 def k3_inputs(dtype, dev, seed: int = 0, b: int = K3_B, t: int = K3_T,
@@ -910,6 +983,8 @@ def phase_k3(dev):
     cases = list(itertools.product(shapes, (torch.float32, torch.bfloat16)))
     # the bf16 forward's largest resident K: T 1000 and 1024
     cases += [(shape, torch.bfloat16) for shape in K3_LONG]
+    # the float32 forward below one 128-row query tile and at a ragged T
+    cases += [(shape, torch.float32) for shape in K3_F32_EDGES]
     for (b, t, h, lengths), dtype in cases:
         bf16 = dtype == torch.bfloat16
         q, k, v, do, lengths, slopes = k3_inputs(dtype, dev, 0, b, t, h,
@@ -1050,6 +1125,15 @@ K5_B, K5_T = 8, 1750              # a scoring batch padded to 35 s
 K5_LENGTHS = [1750, 1000, 1, 0, 1749, 64, 1700, 900]
 K4_B, K4_T, K4_H = 8, 640, 15     # 15 heads: no packed head grouping
 K4_LENGTHS = [640, 320, 300, 640, 1, 639, 0, 64]
+# the one-pass float32 body at the shapes it makes likely to break: Tq
+# below one 128-row query tile, Tq not a multiple of it, Tk 8192 (the
+# envelope's longest walk, causal and not), lengths 0 and 1
+F32_EDGES = (("K5", 3, 37, 300, 3, [300, 0, 1], True),
+             ("K5", 3, 96, 8192, H, [8192, 0, 1], False),
+             ("K5", 2, 8192, 8192, 2, [8192, 1], True),
+             ("K5", 2, 1100, 1100, 3, [1100, 1], True),
+             ("K4", 3, 5, 5, 3, [5, 1, 0], True),
+             ("K4", 3, 300, 300, 3, [300, 1, 0], False))
 F32_FLOPS = 67e12                 # H100 SXM float32 FMA units (data sheet)
 
 
@@ -1111,8 +1195,9 @@ def phase_k45(dev):
     cases = (("K5", K5_B, K5_T, K5_T, H, K5_LENGTHS, True),
              ("K5", 3, 96, 256, H, [256, 0, 131], False),
              ("K4", K4_B, K4_T, K4_T, K4_H, K4_LENGTHS, True))
-    for (name, b, tq, tk, h, lens, causal), dtype in itertools.product(
-            cases, (torch.float32, torch.bfloat16)):
+    runs = list(itertools.product(cases, (torch.float32, torch.bfloat16)))
+    runs += [(case, torch.float32) for case in F32_EDGES]
+    for (name, b, tq, tk, h, lens, causal), dtype in runs:
         bf16 = dtype == torch.bfloat16
         q, k, v = bhtd_inputs(dtype, dev, b, tq, tk, h, seed=tq)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -1174,15 +1259,31 @@ def phase_k45(dev):
     cs = cuda_ms(lambda i: fa.flash_forward_tiled(q, k, v, lengths, slopes,
                                                   True), n=5)
     ps = device_ms(plain_s, n=1)
+    # SDPA (float32, float mask) at the same call: the (B, H, T, T) mask
+    # of all 64 rows would take 12.5 GB, so 8-row chunks, their times
+    # summed
+    ls = 0.0
+    for r in range(0, SCORE_BATCH, 8):
+        mask = sdpa_mask(lengths[r:r + 8], slopes, torch.float32, dev, ts,
+                         ts)
+
+        def sdpa_chunk(i, r=r, mask=mask):
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(
+                    q[r:r + 8], k[r:r + 8], v[r:r + 8], attn_mask=mask)
+
+        ls += device_ms(sdpa_chunk, n=2)
+        del mask
     nbytes, flops = bhtd_bytes_ops(SCORE_BATCH, ts, ts, H, lens, True, 4)
     bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
     by = "bytes" if nbytes / HBM_BYTES_PER_S > flops / F32_FLOPS \
         else "operations"
     log(f"K5 time B={SCORE_BATCH} T={ts} H={H} float32 (the scoring path's "
         f"call, batch {bi}): kernel {ks:.4f} ms, {cs:.4f} ms per call with "
-        f"the wrapper, plain {ps:.4f} ms (8-row chunks), bound {bound:.4f} "
-        f"ms ({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the "
-        f"float32 FMA rate)")
+        f"the wrapper, plain {ps:.4f} ms (8-row chunks), SDPA (float32, "
+        f"float mask, 8-row chunks summed) forward {ls:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+        f"GFLOP at the float32 FMA rate)")
     del q, k, v, qp, kp, vp
 
     b, tq, h, lens = K5_B, K5_T, H, K5_LENGTHS
@@ -1211,12 +1312,18 @@ def phase_k45(dev):
     bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
     by = ("bytes" if nbytes / HBM_BYTES_PER_S > flops / F32_FLOPS
           else "operations")
+    nb2, _ = bhtd_bytes_ops(b, tq, tq, h, lens, True, 2)
+    bound2 = max(nb2 / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
+    by2 = ("bytes" if nb2 / HBM_BYTES_PER_S > flops / BF16_FLOPS
+           else "operations")
     log(f"K5 time B={b} T={tq} H={h} float32: kernel {kf:.4f} ms, "
         f"{cf:.4f} ms per call with the wrapper, plain {pf:.4f} ms, SDPA "
         f"(float mask) forward {lf:.4f} ms, bound {bound:.4f} ms ({by}; "
         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the float32 "
         f"FMA rate); bf16 kernel {times[torch.bfloat16][0]:.4f} ms, "
-        f"{times[torch.bfloat16][1]:.4f} ms with the wrapper")
+        f"{times[torch.bfloat16][1]:.4f} ms with the wrapper, bf16 bound "
+        f"{bound2:.4f} ms ({by2}; {nb2 / 1e6:.1f} MB at 2 bytes an element, "
+        f"{flops / 1e9:.2f} GFLOP at the bf16 tensor-core rate)")
     return worst["K4"], {
         "name": "flash_forward_tiled", "route": "cuda",
         "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",

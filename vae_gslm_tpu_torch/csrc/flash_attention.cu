@@ -47,11 +47,16 @@
 //
 // Design.  The TPU kernels keep a whole (T, T) float32 tile per
 // (batch, head) in VMEM; at T = 640 that is 1.6 MB against the 227 KB of
-// shared memory an H100 block can use, so these kernels are tiled 64 x 64.
-//   * forward: one block per (64-query tile, head, batch).  Pass 1 walks
-//     the key tiles for the row max and sum (online); pass 2 recomputes
-//     the logits, forms the normalized, rounded p and accumulates p . v.
-//     The probabilities are normalized before P.V, as the TPU kernel does.
+// shared memory an H100 block can use, so these kernels are tiled.
+//   * forward, bfloat16: one block per (64-query tile, head, batch).  Pass
+//     1 walks the key tiles for the row max and sum (online); pass 2
+//     recomputes the logits, forms the normalized, rounded p and
+//     accumulates p . v.  The probabilities are normalized before P.V, as
+//     the TPU kernel does, since p is rounded to bf16 before P.V.
+//   * forward, float32: one pass, one block per (128-query tile, head,
+//     batch): the softmax online, O rescaled as the row max grows and
+//     divided by l once at the end (fwd_f32 below: p is not rounded, so
+//     only the last bits of each term move).
 //   * backward: two launches and no atomics, so runs agree bit for bit:
 //     one block per key tile walks the query tiles for dk and dv, one per
 //     query tile walks the key tiles for dq.  K5b, which gets no lse,
@@ -69,9 +74,10 @@
 // under 16-mixed) multiplies on the tensor cores: K3/K4's forward and
 // K3b/K4b/K5b's backward with wgmma (below), K5 with mma.sync
 // (m16n8k16); exact bf16 products, float32 sums in the hardware's order.
-// float32 multiplies with scalar FMAs out of shared memory (4 x 4
-// outputs per thread, float4 operand loads), since the tensor cores
-// would round its operands to TF32.
+// float32 multiplies with scalar FMAs out of shared memory (the
+// forward: 8 x 4 outputs per thread and product; the backward: 4 x 4;
+// float4 operand loads), since the tensor cores would round its operands
+// to TF32.
 //
 // K3/K4 bfloat16 forward (fwd_wgmma).  JAX normalises p = exp(s - m) / l
 // before P.V, so m and l are final before any p is formed: two passes
@@ -109,9 +115,13 @@
 // max, sums, scaling, packing), so the per-element work and its
 // latency, with two consumer warpgroups per SM, not the bytes, hold it
 // (~4x its bytes bound).  K5 at the scoring shapes (B 8, T 1750, float32) is
-// bound by its products: ~50 GFLOP of causal pairs at the 67 TFLOP/s
-// float32 rate of the FMA units (~0.75 ms) against ~0.2 GB of HBM
-// traffic (~0.07 ms).
+// bound by its products: ~42 GFLOP of causal pairs at the 67 TFLOP/s
+// float32 rate of the FMA units (~0.62 ms) against ~0.2 GB of HBM
+// traffic (~0.07 ms); so are K3 and K5 at the scoring path's B 64
+// (103 and 316 GFLOP).  The one-pass float32 body forms those two
+// products and no third, on a register tile that leaves the FMA pipes,
+// not shared memory, the limit; the logits and exponentials (~12
+// instructions per pair against 128 FMAs) come on top.
 // K5's bf16 mma.sync kernel runs far from that bound: fragments are
 // loaded from shared memory by plain loads (no ldmatrix, no TMA, no
 // pipelining of the next tile's loads), and it reads every key tile
@@ -168,7 +178,6 @@ constexpr float NEG_INF = -1e30f;
 
 constexpr int TT = HD * LD;     // floats in a transposed tile
 constexpr int TR = TILE * HD;   // floats in a row-major tile
-constexpr int FWD_SMEM = (3 * TT + TR) * 4;
 constexpr int STATS_SMEM = 2 * TT * 4;
 constexpr int DKV_SMEM = (6 * TT + 2 * TR) * 4;
 constexpr int DQ_SMEM = (5 * TT + TR) * 4;
@@ -307,8 +316,95 @@ __device__ __forceinline__ void pass1_f32(const float* Qt, float* Kt,
   }
 }
 
-// The float32 forward of one (64-query tile, head, batch): tq queries
-// against tk keys; lse (B, H, tq) is written unless it is null.
+// ------------------------------------------------------------------
+// The float32 forward (K3, K4 and K5 in float32): one pass over the key
+// tiles with the softmax taken online, products on the FMA units.
+//
+// One block of 256 threads per (128-query tile, head, batch), the query
+// tiles in the grid's slowest axis from the last (the longest causal
+// walks) to the first, and aligned to end at Tq, so that a ragged tile is
+// the first, whose walk is the shortest, and no row past Tq is computed.
+// Warp w owns query rows [16 w, 16 w + 16) of the tile; lane (rg = lane
+// / 16, cg = lane % 16) owns rows 16 w + rg + 2 i (i < 8) and, of a
+// 64-key tile, keys cg + 16 j of S = Q K^T and output
+// columns 4 cg + j of O (j < 4): an 8 x 4 register tile per product, 32
+// FMAs for every 12 floats read from shared memory, so a warp's operand
+// loads (two distinct Q rows, sixteen K rows of a padded pitch, or
+// sixteen consecutive V quads: conflict-free) keep shared memory at
+// about half its rate while the FMA pipes run full.  Q stays resident;
+// K and V tiles come in by 16-byte cp.async (zero fill past Tk) two
+// stages deep, the next tile's bytes in flight while this tile's
+// products run.  Per key tile: S, the logits (tiles wholly inside the
+// length and causal edges skip the masks), the row max over the 16
+// lanes, O and the lanes' partial sums l rescaled by ex2((m_old - m_new)
+// log2 e) (1 unless the max grew; a branch on it read slower), p = ex2((x
+// - m) log2 e) into shared memory, then O += P V.  Three barriers a tile
+// (one fewer, the copy's wait folded into the first, read no faster).  The row's l is summed over its lanes and O divided by
+// it once at the end, so Q K^T is formed once per (query, key) pair
+// (the two-pass body formed it twice): two products of 2 D FLOPs per
+// pair, the count the bound takes.  Numerics against the plain version
+// (exp(s - m) / l before P.V): the logit is rounded exactly as the plain
+// version rounds it; each p carries ex2.approx's error (2 ulps) and the
+// rounding of (x - m) log2 e; each rescale of O adds an ulp; float32 p
+// is not rounded to V's dtype, so the order of normalisation changes
+// only the last bits of each term.  The plan (FWD_F32_SMEM bytes,
+// FQ-row query tiles, two stages) is ops/flash_attention.py's
+// f32_fwd_plan, which the launcher checks.
+// ------------------------------------------------------------------
+constexpr int FQ = 128;                 // query rows per block
+constexpr int FK = 64;                  // keys per tile
+constexpr int FP = HD + 4;              // pitch (floats) of Q, K and P rows
+constexpr int F_STAGES = 2;
+constexpr int FWD_F32_SMEM =
+    (FQ * FP + F_STAGES * FK * FP + F_STAGES * FK * HD + FQ * FP) * 4;
+constexpr float F_LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ void cp16(float* dst, const float* src,
+                                     bool fill) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(fill ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Rows [r0, r0 + rows) of one head into shared memory at `pitch` floats
+// a row, 16 bytes per cp.async; rows before 0 or at or past t_len are
+// zero filled.
+__device__ __forceinline__ void rows_async(float* dst, int pitch,
+                                          const float* src, long long rs,
+                                          int r0, int rows, int t_len) {
+  for (int idx = threadIdx.x; idx < rows * (HD / 4); idx += NT) {
+    const int r = idx / (HD / 4), c = idx % (HD / 4) * 4, t = r0 + r;
+    const bool in = t >= 0 && t < t_len;
+    cp16(dst + r * pitch + c, in ? src + t * rs + c : src, in);
+  }
+}
+
+// Key tiles [0, end) that can hold a nonzero probability for the query
+// rows [q0, q0 + FQ) (q0 + FQ <= tq) over tk keys: all of them for a row
+// set of length 0.
+__device__ __forceinline__ int key_tiles_f32(int q0, int len, int tk,
+                                             int causal) {
+  int end = (tk + FK - 1) / FK;
+  if (len >= 1) {
+    end = min(end, (len + FK - 1) / FK);
+    if (causal) end = min(end, (q0 + FQ - 1) / FK + 1);
+  }
+  return end;
+}
+
 __device__ __forceinline__ void fwd_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o,
@@ -316,64 +412,148 @@ __device__ __forceinline__ void fwd_f32(
     const float* __restrict__ slopes, Seq sq, Seq sk, Seq sv, Seq so,
     int tq, int tk, int nheads, int causal, float scale) {
   extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);
-  float* Kt = Qt + TT;
-  float* Pt = Kt + TT;
-  float* Vs = Pt + TT;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * TILE, ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float* Qs = reinterpret_cast<float*>(smem4);   // [FQ][FP]
+  float* Ks = Qs + FQ * FP;                      // [stage][FK][FP]
+  float* Vs = Ks + F_STAGES * FK * FP;           // [stage][FK][HD]
+  float* Ps = Vs + F_STAGES * FK * HD;           // [FQ][FP]
+  // query tile qt holds rows [q0, q0 + FQ), the tiles aligned to end at
+  // tq: a ragged tile is the first, whose causal walk is the shortest
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int q0 = qt * FQ - ((int)gridDim.z * FQ - tq);
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane >> 4, cg = lane & 15;
+  const int qrow = w * 16 + rg;                  // + 2 i
   const int len = lengths[b];
   const int use_alibi = slopes != nullptr;
   const float slope = use_alibi ? slopes[h] : 0.f;
-  const float* qb = q + b * sq.bs + h * sq.hs;
   const float* kb = k + b * sk.bs + h * sk.hs;
   const float* vb = v + b * sv.bs + h * sv.hs;
-  const int kt_end = key_tiles(qt, len, tk, causal);
+  const int kt_end = key_tiles_f32(q0, len, tk, causal);
 
-  load_t(Qt, qb, sq.rs, q0, tq);
-  float m[4], l[4], s[4][4];
-  pass1_f32(Qt, Kt, kb, sk.rs, q0, kt_end, tk, len, causal, use_alibi,
-            slope, scale, m, l);
+  rows_async(Qs, FP, q + b * sq.bs + h * sq.hs, sq.rs, q0, FQ, tq);
+  rows_async(Ks, FP, kb, sk.rs, 0, FK, tk);
+  rows_async(Vs, HD, vb, sv.rs, 0, FK, tk);
+  cp_commit();
 
-  // pass 2: normalized probabilities times V
-  float acc[4][4];
-  zero(acc);
+  float acc[8][4], m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY, l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
   for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();
-    load_t(Kt, kb, sk.rs, k0, tk);
-    load_r(Vs, vb, sv.rs, k0, tk);
-    __syncthreads();
-    zero(s);
-    outer(Qt, LD, Kt, LD, s, ty, tx);
+    const int k0 = kt * FK, st = kt & 1;
+    __syncthreads();                 // tile kt - 1's K, V and P are read
+    if (kt + 1 < kt_end) {           // tile kt + 1 into the other stage
+      rows_async(Ks + (st ^ 1) * FK * FP, FP, kb, sk.rs, k0 + FK, FK, tk);
+      rows_async(Vs + (st ^ 1) * FK * HD, HD, vb, sv.rs, k0 + FK, FK, tk);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();                 // tile kt is in shared memory
+    const float* Kt = Ks + st * FK * FP;
+    const float* Vt = Vs + st * FK * HD;
+
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx * 4 + j;
-        float p = 0.f;
-        if (c < tk) {
-          const float x = logit(s[i][j], r, c, len, causal, use_alibi,
-                                slope, scale);
-          p = __fdiv_rn(expf(x - m[i]), l[i]);
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < HD; d += 4) {
+      float4 kv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(Kt + (cg + 16 * j) * FP + d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(Qs + (qrow + 2 * i) * FP + d);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
+          s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
+          s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
+          s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
         }
-        Pt[(tx * 4 + j) * LD + ty * 4 + i] = p;
       }
     }
-    __syncthreads();
-    outer(Pt, LD, Vs, HD, acc, ty, tx);
+
+    // logits; tiles inside the length and causal edges skip the masks;
+    // c - r as a float from one conversion a tile (exact integers)
+    const bool interior = len >= 1 && k0 + FK <= min(len, tk) &&
+                          (!causal || k0 + FK - 1 <= q0);
+    const float dist0 = (float)(k0 + cg - q0 - qrow);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = q0 + qrow + 2 * i;
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = k0 + cg + 16 * j;
+        float x = __fmul_rn(s[i][j], scale);
+        if (use_alibi)
+          x = __fadd_rn(x, __fmul_rn(slope, fabsf(dist0 + (16 * j - 2 * i))));
+        if (!interior) {
+          const bool valid = c < len && (!causal || c <= r);
+          x = c < tk ? (valid ? x : NEG_INF) : -INFINITY;
+        }
+        s[i][j] = x;
+        tmax = fmaxf(tmax, x);
+      }
+      const float m_new = fmaxf(m[i], row_max(tmax));
+      const float alpha = ex2((m[i] - m_new) * F_LOG2E);   // 1 or less
+      m[i] = m_new;
+      float e_sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = ex2((s[i][j] - m_new) * F_LOG2E);
+        e_sum += p;
+        Ps[(qrow + 2 * i) * FP + cg + 16 * j] = p;
+        acc[i][j] *= alpha;
+      }
+      l[i] = fmaf(l[i], alpha, e_sum);
+    }
+    __syncthreads();                 // P is in shared memory
+
+#pragma unroll 4
+    for (int n = 0; n < FK; n += 4) {
+      float4 vv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        vv[u] = *reinterpret_cast<const float4*>(Vt + (n + u) * HD + 4 * cg);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 pv =
+            *reinterpret_cast<const float4*>(Ps + (qrow + 2 * i) * FP + n);
+        const float pp[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[i][0] = fmaf(pp[u], vv[u].x, acc[i][0]);
+          acc[i][1] = fmaf(pp[u], vv[u].y, acc[i][1]);
+          acc[i][2] = fmaf(pp[u], vv[u].z, acc[i][2]);
+          acc[i][3] = fmaf(pp[u], vv[u].w, acc[i][3]);
+        }
+      }
+    }
   }
+  cp_wait<0>();
 
   float* ob = o + b * so.bs + h * so.hs;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= tq) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) ob[r * so.rs + tx * 4 + j] = acc[i][j];
-    if (lse && tx == 0)
-      lse[((long long)b * nheads + h) * tq + r] = m[i] + logf(l[i]);
+  for (int i = 0; i < 8; ++i) {
+    const int r = q0 + qrow + 2 * i;
+    const float lr = row_sum(l[i]);
+    if (r < 0) continue;
+    *reinterpret_cast<float4*>(ob + r * so.rs + 4 * cg) =
+        make_float4(__fdiv_rn(acc[i][0], lr), __fdiv_rn(acc[i][1], lr),
+                    __fdiv_rn(acc[i][2], lr), __fdiv_rn(acc[i][3], lr));
+    if (lse && cg == 0)
+      lse[((long long)b * nheads + h) * tq + r] = m[i] + logf(lr);
   }
 }
 
@@ -387,13 +567,13 @@ __device__ __forceinline__ void fwd_f32(
                  nheads, causal, scale
 
 // One symbol per TPU kernel replaced (K3 packed, K4 full, K5 q-tiled).
-__global__ void __launch_bounds__(NT) k3_fwd_kernel(FWD_F32_ARGS) {
+__global__ void __launch_bounds__(NT, 1) k3_fwd_kernel(FWD_F32_ARGS) {
   fwd_f32(FWD_PASS);
 }
-__global__ void __launch_bounds__(NT) k4_fwd_kernel(FWD_F32_ARGS) {
+__global__ void __launch_bounds__(NT, 1) k4_fwd_kernel(FWD_F32_ARGS) {
   fwd_f32(FWD_PASS);
 }
-__global__ void __launch_bounds__(NT) k5_fwd_kernel(FWD_F32_ARGS) {
+__global__ void __launch_bounds__(NT, 1) k5_fwd_kernel(FWD_F32_ARGS) {
   fwd_f32(FWD_PASS);
 }
 
@@ -1032,12 +1212,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : WG_OUT(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Issues s = Q K^T of one key tile (four k16 steps, 32 bytes apart
@@ -1877,9 +2051,13 @@ int launch_fwd_wgmma(int kid, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// One forward launch of entry point `kid` (0: K3, 1: K4, 2: K5): one block
-// per (64-query tile, head, batch); lse may be null.  K3/K4 in bfloat16
-// take the wgmma kernels with the plan (smem, tiles, stages).
+// One forward launch of entry point `kid` (0: K3, 1: K4, 2: K5); lse may
+// be null.  K3/K4 in bfloat16 take the wgmma kernels with the plan (smem,
+// tiles, stages); K5 in bfloat16 the mma.sync kernel, one block per
+// (64-query tile, head, batch); float32 the one-pass body, one block per
+// (128-query tile, head, batch), the last query tiles first, whose plan
+// (smem bytes, query rows per tile, stages: f32_fwd_plan) must be this
+// body's.
 int launch_fwd(int kid, int use_mma, const void* q, const void* k,
                const void* v, void* o, float* lse, const int* lengths,
                const float* slopes, Seq sq, Seq sk, Seq sv, Seq so, int B,
@@ -1891,21 +2069,25 @@ int launch_fwd(int kid, int use_mma, const void* q, const void* k,
                             sv, so, B, tq, H, causal, scale, smem, tiles,
                             stages, stream);
   }
-  dim3 grid((tq + TILE - 1) / TILE, H, B);
   if (use_mma) {
+    dim3 grid((tq + TILE - 1) / TILE, H, B);
     k5_fwd_mma_kernel<<<grid, MT, FWD_MMA_SMEM, stream>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse,
         lengths, slopes, sq, sk, sv, so, tq, tk, H, causal, scale);
     return (int)cudaGetLastError();
   }
+  if (smem != FWD_F32_SMEM || tiles != FQ || stages != F_STAGES)
+    return (int)cudaErrorInvalidValue;
   static bool attr[3] = {false, false, false};
   if (!attr[kid]) {
-    cudaFuncSetAttribute(FWD_F32[kid],
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         FWD_SMEM);
+    const int err = (int)cudaFuncSetAttribute(
+        FWD_F32[kid], cudaFuncAttributeMaxDynamicSharedMemorySize,
+        FWD_F32_SMEM);
+    if (err) return err;
     attr[kid] = true;
   }
-  FWD_F32[kid]<<<grid, NT, FWD_SMEM, stream>>>(
+  dim3 grid(H, B, (tq + FQ - 1) / FQ);
+  FWD_F32[kid]<<<grid, NT, FWD_F32_SMEM, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, lse,
       lengths, slopes, sq, sk, sv, so, tq, tk, H, causal, scale);
   return (int)cudaGetLastError();
@@ -2013,8 +2195,9 @@ extern "C" {
 
 // Strides are in elements: (batch, row) of each packed operand (K3/K3b:
 // the head stride is head_dim), (batch, head, row) of each operand of
-// K4, K4b, K5 and K5b.  K3/K4 take the bf16 forward's shared-memory plan
-// (smem bytes, resident key tiles, V stages; unread for float32).
+// K4, K4b, K5 and K5b.  K3/K4 take the forward's plan: in bfloat16 the
+// wgmma body's (smem bytes, resident key tiles, V stages), in float32 the
+// one-pass body's (smem bytes, query rows per tile, stages).
 int flash_fwd_packed_launch(const void* q, const void* k, const void* v,
                             void* o, float* lse, const int* lengths,
                             const float* slopes, long long q_bs,
@@ -2047,7 +2230,8 @@ int flash_fwd_full_launch(const void* q, const void* k, const void* v,
                     (cudaStream_t)stream);
 }
 
-// K5: Tq queries against Tk keys, no lse.
+// K5: Tq queries against Tk keys, no lse; the float32 plan (unread for
+// bfloat16).
 int flash_fwd_tiled_launch(const void* q, const void* k, const void* v,
                            void* o, const int* lengths, const float* slopes,
                            long long q_bs, long long q_hs, long long q_rs,
@@ -2055,12 +2239,13 @@ int flash_fwd_tiled_launch(const void* q, const void* k, const void* v,
                            long long v_bs, long long v_hs, long long v_rs,
                            long long o_bs, long long o_hs, long long o_rs,
                            int B, int Tq, int Tk, int H, int bf16,
-                           int causal, float scale, void* stream) {
+                           int causal, float scale, int smem, int tiles,
+                           int stages, void* stream) {
   Seq sq{q_bs, q_hs, q_rs}, sk{k_bs, k_hs, k_rs}, sv{v_bs, v_hs, v_rs};
   Seq so{o_bs, o_hs, o_rs};
   return launch_fwd(2, bf16, q, k, v, o, nullptr, lengths, slopes, sq, sk,
-                    sv, so, B, Tq, Tk, H, causal, scale, 0, 0, 0,
-                    (cudaStream_t)stream);
+                    sv, so, B, Tq, Tk, H, causal, scale, smem, tiles,
+                    stages, (cudaStream_t)stream);
 }
 
 int flash_bwd_packed_launch(const void* q, const void* k, const void* v,

@@ -56,7 +56,11 @@ a Hopper kernel (TMA tensor maps built from the operands' strides,
 ``wgmma``) whose dynamic shared memory the wrapper plans
 (``fwd_smem_plan``) and the launcher checks; so do K3b, K4b and K5b in
 bfloat16 (``bwd_smem_plan``: two launches, dq then dk/dv, K5b's row
-statistics folded into the dq kernel).
+statistics folded into the dq kernel).  K3, K4 and K5 in float32 run one
+body, a single pass over the key tiles with the softmax online, whose
+plan (``f32_fwd_plan``: 128-query tiles, a two-stage K/V ring) the
+launcher checks; it reads q, k and v 16 bytes at a time, so their bases
+and strides must be 16-byte aligned, as the bf16 kernels' must.
 """
 from __future__ import annotations
 
@@ -75,6 +79,10 @@ V_STAGES = 2          # the bf16 K3/K4 forward's ring of V tiles
 BWD_STAGES = 2        # the bf16 K3b/K4b/K5b backward's rings
 K5B_BF16_KERNELS = 2  # kernels per bf16 K5b call: dq (statistics folded
 #                       in), then dk/dv
+F32_Q_TILE = 128      # the float32 forward's query rows per block
+F32_STAGES = 2        # its K/V ring
+F32_PITCH = HEAD_DIM + 4   # floats per shared row of its Q, K and P tiles
+SMEM_LIMIT = 232448   # the most dynamic shared memory an H100 block takes
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -243,7 +251,7 @@ def _launchers():
         lib.flash_fwd_full_launch.argtypes = [p] * 7 + [ll] * 12 + [i] * 5 \
             + [f] + [i] * 3 + [p]
         lib.flash_fwd_tiled_launch.argtypes = [p] * 6 + [ll] * 12 \
-            + [i] * 6 + [f, p]
+            + [i] * 6 + [f] + [i] * 3 + [p]
         lib.flash_stats_launch.argtypes = [p] * 6 + [ll] * 6 + [i] * 5 \
             + [f, p]
         lib.flash_bwd_bhtd_launch.argtypes = [i] + [p] * 12 + [ll] * 21 \
@@ -312,6 +320,62 @@ def bwd_plan_args(q: torch.Tensor) -> Tuple[int, int]:
     return (plan.bytes, plan.stages)
 
 
+class F32Plan(NamedTuple):
+    """The launch plan of the float32 forward (K3, K4 and K5 in float32:
+    ``fwd_f32`` in ``csrc/flash_attention.cu``, whose ``FWD_F32_SMEM``,
+    ``FQ`` and ``F_STAGES`` the launcher holds it to)."""
+    q_tile: int       # query rows per block
+    k_tile: int       # keys per tile of the walk
+    stages: int       # K/V ring stages
+    bytes: int        # Q, the K and V stages and P
+
+
+def f32_fwd_plan() -> F32Plan:
+    """The float32 forward's plan: a 128-query tile of Q and its P tile
+    (padded rows of ``F32_PITCH`` floats), ``F32_STAGES`` 64-key K tiles
+    (padded) and V tiles (64 floats a row), float32.  Nothing grows with
+    Tq or Tk (every walk streams), so one plan takes every call."""
+    q_rows = F32_Q_TILE * F32_PITCH
+    floats = (2 * q_rows + F32_STAGES * TILE * F32_PITCH
+              + F32_STAGES * TILE * HEAD_DIM)
+    return F32Plan(F32_Q_TILE, TILE, F32_STAGES, 4 * floats)
+
+
+def f32_fwd_grid(b: int, h: int, tq: int) -> Tuple[int, int, int]:
+    """The float32 forward's grid (x, y, z): heads, batch rows and query
+    tiles, the tiles in the slowest axis."""
+    return (h, b, -(-tq // F32_Q_TILE))
+
+
+def f32_block_tile(x: int, y: int, z: int, nz: int) -> Tuple[int, int, int]:
+    """(query tile, head, batch row) of block (x, y, z) of a grid with
+    ``nz`` query tiles: the kernel walks the query tiles from the last,
+    whose causal walks are the longest, to the first."""
+    return (nz - 1 - z, x, y)
+
+
+def f32_tile_rows(qt: int, tq: int) -> range:
+    """The query rows of tile ``qt``: the tiles are aligned to end at
+    ``tq``, so a ragged tile is the first (its rows before 0 are not
+    computed into the output) and no row past ``tq`` is walked."""
+    q0 = qt * F32_Q_TILE - (-(-tq // F32_Q_TILE) * F32_Q_TILE - tq)
+    return range(max(q0, 0), q0 + F32_Q_TILE)
+
+
+def f32_key_tiles(qt: int, tq: int, length: int, tk: int,
+                  causal: bool) -> int:
+    """The key tiles [0, n) that query tile ``qt`` of the float32 forward
+    walks (the kernel's ``key_tiles_f32``): every tile for a row of
+    length 0, else up to the length and, causal, to the tile's last
+    query row."""
+    end = -(-tk // TILE)
+    if length >= 1:
+        end = min(end, -(-length // TILE))
+        if causal:
+            end = min(end, (f32_tile_rows(qt, tq)[-1]) // TILE + 1)
+    return end
+
+
 def _plan_args(q: torch.Tensor, t: int) -> Tuple[int, ...]:
     """(smem bytes, key tiles, V stages) for the launcher: the plan for
     bf16, zeros for float32 (whose kernels take none)."""
@@ -319,6 +383,16 @@ def _plan_args(q: torch.Tensor, t: int) -> Tuple[int, ...]:
         return (0, 0, 0)
     plan = fwd_smem_plan(t)
     return (plan.bytes, plan.tiles, plan.stages)
+
+
+def _fwd_args(q: torch.Tensor, t: int) -> Tuple[int, ...]:
+    """The plan a K3/K4/K5 forward launch takes: ``_plan_args`` for
+    bfloat16 (K5's mma.sync kernel reads none), and for float32
+    ``f32_fwd_plan`` as (smem bytes, query rows per tile, stages)."""
+    if q.dtype == torch.bfloat16:
+        return _plan_args(q, t)
+    plan = f32_fwd_plan()
+    return (plan.bytes, plan.q_tile, plan.stages)
 
 
 def _launch_error(what: str, err: int) -> RuntimeError:
@@ -369,12 +443,14 @@ def _check_kernel(what: str, q, lengths, slopes, nheads: int) -> None:
                          "on q's device")
 
 
-def _strides(name: str, x: torch.Tensor, shape, dtype, device):
+def _strides(name: str, x: torch.Tensor, shape, dtype, device,
+             aligned: Optional[bool] = None):
     """The element strides of an operand but its last (contiguous) axis;
     raises unless the kernels can read it: a bf16 operand (the TMA tensor
-    maps of the wgmma kernels) needs a 16-byte aligned base and strides
-    that are multiples of 16 bytes, which a view into a fused projection
-    at an odd offset or of an odd width breaks."""
+    maps of the wgmma kernels) and, with ``aligned``, any operand (the
+    float32 forward's 16-byte cp.async rows) needs a 16-byte aligned base
+    and strides that are multiples of 16 bytes, which a view into a fused
+    projection at an odd offset or of an odd width breaks."""
     if x.shape != shape or x.dtype != dtype or x.device != device:
         raise ValueError(f"{name}: {tuple(x.shape)} {x.dtype} on "
                          f"{x.device}, expected {tuple(shape)} {dtype} on "
@@ -383,9 +459,11 @@ def _strides(name: str, x: torch.Tensor, shape, dtype, device):
         raise ValueError(f"{name}: the feature axis must be contiguous "
                          f"(strides {x.stride()})")
     st = x.stride()[:-1]
-    if dtype == torch.bfloat16 and (x.data_ptr() % 16
-                                    or any(s % 8 for s in st)):
-        raise ValueError(f"{name}: the bf16 kernels read rows 16 bytes at "
+    if aligned is None:
+        aligned = dtype == torch.bfloat16
+    per16 = 16 // x.element_size()
+    if aligned and (x.data_ptr() % 16 or any(s % per16 for s in st)):
+        raise ValueError(f"{name}: the kernels read rows 16 bytes at "
                          f"a time; data_ptr {x.data_ptr()} and strides "
                          f"{x.stride()} are not 16-byte aligned")
     return st
@@ -414,7 +492,7 @@ def flash_forward_packed(q, k, v, lengths, slopes, causal: bool,
     _check_packed(q, k, v, lengths, slopes, nheads)
     b, t, hd = q.shape
     dev = q.device
-    seqs = [_strides(n, x, q.shape, q.dtype, dev)
+    seqs = [_strides(n, x, q.shape, q.dtype, dev, aligned=True)
             for n, x in (("q", q), ("k", k), ("v", v))]
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, nheads, t), dtype=torch.float32, device=dev)
@@ -424,7 +502,7 @@ def flash_forward_packed(q, k, v, lengths, slopes, causal: bool,
         slopes.data_ptr() if slopes is not None else None,
         *seqs[0], *seqs[1], *seqs[2], *o.stride()[:2],
         b, t, nheads, int(q.dtype == torch.bfloat16), int(causal),
-        1.0 / math.sqrt(hd // nheads), *_plan_args(q, t),
+        1.0 / math.sqrt(hd // nheads), *_fwd_args(q, t),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise _launch_error("flash attention forward", err)
@@ -505,9 +583,9 @@ def _bhtd_launch(kind: str, q, k, v, lengths, slopes, causal: bool,
             "K5 (the q-tiled (B, H, T, D) forward)")
     _check_kernel(what, q, lengths, slopes, h)
     kshape = (b, h, tk, d)
-    st = [_strides("q", q, q.shape, q.dtype, dev),
-          _strides("k", k, kshape, q.dtype, dev),
-          _strides("v", v, kshape, q.dtype, dev)]
+    st = [_strides("q", q, q.shape, q.dtype, dev, aligned=True),
+          _strides("k", k, kshape, q.dtype, dev, aligned=True),
+          _strides("v", v, kshape, q.dtype, dev, aligned=True)]
     o = torch.empty((b, tq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
     st.append(o.stride()[:3])
     lse = (torch.empty((b, h, tq), dtype=torch.float32, device=dev)
@@ -522,11 +600,14 @@ def _bhtd_launch(kind: str, q, k, v, lengths, slopes, causal: bool,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None, lengths.data_ptr(),
             slope_ptr, *common, b, tq, h, *tail[:3],
-            *_plan_args(q, tq), tail[3])
+            *_fwd_args(q, tq), tail[3])
     else:
+        plan = (_fwd_args(q, tq) if q.dtype == torch.float32
+                else (0, 0, 0))
         err = lib.flash_fwd_tiled_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lengths.data_ptr(), slope_ptr, *common, b, tq, tk, h, *tail)
+            lengths.data_ptr(), slope_ptr, *common, b, tq, tk, h,
+            *tail[:3], *plan, tail[3])
     if err != 0:
         raise _launch_error(what, err)
     return (o, lse) if with_stats else o

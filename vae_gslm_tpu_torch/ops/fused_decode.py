@@ -23,18 +23,76 @@ from 0, then the tail as one block) against its block max, rounding
 half to even, and sums int8 x int8 in int32.
 
 On a CPU tensor the wrapper computes ``fused_decode_attention_plain``;
-on a CUDA tensor it launches the kernel or raises.
+on a CUDA tensor it launches the kernel or raises.  The kernel runs one
+thread-block cluster per (batch row, head), its position blocks spread
+over the cluster's CTAs (``k1_plan``, ``k1_owner``), and gives the bits
+of a one-block kernel that takes the blocks in order: CTA 0 sums ``l``
+and merges the blocks' terms in the reference's order
+(``k1_merge_order``).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 BLK = 256
 TAIL = 256
 NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernel's instantiations
+MAX_CLUSTER = 8                      # the portable cluster size
+MAX_SLOTS = 13                       # slot mbarriers in a CTA's header
+SMEM_LIMIT = 232448                  # an H100 block's most shared memory
+_HDR = 352                           # mbarriers, reduction scratch, maxima
+
+
+class K1Plan(NamedTuple):
+    """One K1 launch (``make_plan`` in ``csrc/fused_decode.cu``)."""
+    cluster: int      # CTAs per (batch row, head)
+    owned: int        # position blocks of the CTA that owns the most
+    slots: int        # K/V plane slots of a CTA's shared memory
+    smem: int         # dynamic shared memory of a CTA, bytes
+
+
+@functools.lru_cache(maxsize=None)
+def k1_plan(d: int, nblk: int) -> K1Plan:
+    """The cluster, ownership and shared memory of a call over ``nblk``
+    cold blocks and the tail (``nblk + 1`` position blocks): a cluster of
+    ``min(nblk + 1, 8)`` CTAs, CTA r owning blocks r, r + C, ..; each CTA
+    keeps a 352-byte header, q8, u8, the int32 sums, each owned block's
+    e and term, when every CTA owns one block the receive buffers into
+    which the others push blocks 1 .. nblk's e and terms, and ``slots``
+    planes (a 256-position K or V plane and its scales): all of its K and
+    V planes when they fit (every plane requested before the first
+    product), else a ring of as many as fit.  Raises if not one plane
+    fits."""
+    cluster = min(nblk + 1, MAX_CLUSTER)
+    owned = -(-(nblk + 1) // cluster)
+    fixed = _HDR + 5 * d + BLK + owned * (BLK * 4 + d * 4)
+    if owned == 1:
+        fixed += nblk * (BLK * 4 + d * 4)
+    slot = d * BLK + BLK * 4
+    slots = min(2 * owned, MAX_SLOTS, max((SMEM_LIMIT - fixed) // slot, 0))
+    if slots < 1:
+        raise ValueError(f"K1: {nblk} cold blocks at head_dim {d} leave no "
+                         "room for a plane in a CTA's shared memory")
+    return K1Plan(cluster, owned, slots, fixed + slots * slot)
+
+
+def k1_owner(j: int, cluster: int) -> Tuple[int, int]:
+    """(CTA rank, its local index) of position block ``j`` (cold blocks
+    from 0, the tail last)."""
+    return j % cluster, j // cluster
+
+
+def k1_merge_order(nblk: int) -> List[int]:
+    """The position blocks in the order CTA 0 adds their terms (and sums
+    their e into l), after ``e_self * v_new``: the reference's order,
+    cold blocks 0 .. nblk - 1 and then the tail (block nblk)."""
+    return list(range(nblk + 1))
 
 
 def fused_decode_attention_plain(q, k_cold, v_cold, kc_scale, vc_scale,
@@ -130,8 +188,8 @@ def _launcher():
         fn = load("fused_decode").fused_decode_attention_launch
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
                        + [ctypes.c_void_p] * 10 + [ctypes.c_longlong]
-                       + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                               ctypes.c_void_p])
+                       + [ctypes.c_int] * 7 + [ctypes.c_float]
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LAUNCH = fn
     return _LAUNCH
@@ -172,9 +230,17 @@ def fused_decode_attention(q, k_cold, v_cold, kc_scale, vc_scale,
     for name, t in (("kt_scale", kt_scale), ("vt_scale", vt_scale)):
         _check(name, t, torch.float32, (nl, b, h, TAIL), dev)
     _check("slopes", slopes, torch.float32, (h,), dev)
-    if d % 16 or BLK % d or d > BLK:
+    if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d}: the kernel needs a multiple of "
                          "16 that divides 256")
+    for name, t in (("k_cold", k_cold), ("v_cold", v_cold),
+                    ("kc_scale", kc_scale), ("vc_scale", vc_scale),
+                    ("k_tail", k_tail), ("v_tail", v_tail),
+                    ("kt_scale", kt_scale), ("vt_scale", vt_scale)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel copies cache planes 16 "
+                             f"bytes at a time; data_ptr {t.data_ptr()} "
+                             "is not 16-byte aligned")
     if flushed % BLK or not 0 <= flushed <= nb * BLK:
         raise ValueError(f"flushed={flushed} must be a multiple of {BLK} "
                          f"within the {nb}-block cold cache")
@@ -183,6 +249,7 @@ def fused_decode_attention(q, k_cold, v_cold, kc_scale, vc_scale,
                          f"{flushed + TAIL})")
     if not 0 <= li < nl:
         raise ValueError(f"layer index {li} outside [0, {nl})")
+    plan = k1_plan(d, flushed // BLK)
     out = torch.empty((b, h, d), dtype=torch.float32, device=dev)
     err = _launcher()(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
@@ -192,7 +259,7 @@ def fused_decode_attention(q, k_cold, v_cold, kc_scale, vc_scale,
         kt_scale.data_ptr(), vt_scale.data_ptr(),
         slopes.data_ptr(), out.data_ptr(), row_stride,
         b, h, d, nb, li, pos, flushed,
-        1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream)
+        1.0 / math.sqrt(d), *plan, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_decode_attention launch failed: CUDA "
                            f"error {err}")

@@ -2,7 +2,8 @@
 one call, so that two versions of ``csrc/flash_attention.cu`` can be
 compared on the same card and clocks:
 
-    python vae_gslm_tpu_torch/scripts/flash_ab.py ROOT [ROOT ...]
+    python vae_gslm_tpu_torch/scripts/flash_ab.py [--only K5f32,K3f32]
+        ROOT [ROOT ...]
 
 Each ROOT is a directory holding a ``vae_gslm_tpu_torch`` package (a
 checkout, or ``git archive <commit> vae_gslm_tpu_torch`` unpacked).  The
@@ -16,7 +17,14 @@ call (B 8, T 640, 16 heads of 64, bfloat16, ALiBi, causal, lengths
 640, 320, 300, 640, 1, 639, 0, 64), K4b (``flash_backward_full``) there
 where the root has it, and K5 (``flash_forward_tiled``) and K5b
 (``flash_backward_blockwise``, with a seeded dO) at the long-segment
-call (B 2, T 1536, lengths 1536 and 1).  K3b, K4b and K5b take o (and
+call (B 2, T 1536, lengths 1536 and 1); then the float32 forwards of the
+scoring path: K5f32 at its long batch's call (B 64, T 1750, 16 heads of
+64, the lengths of the scoring corpus's last batch) and K3f32 at its
+short batch's (B 64, T 973), q, k and v views of one packed projection
+(``chip_smoke.py``'s uniform scoring mix, seed 0), and K4f32 (with lse)
+at the training call's shape in float32 (any root runs them: the calls
+are the same on the two-pass body).  ``--only`` times just
+the named calls.  K3b, K4b and K5b take o (and
 lse) from the plain forward on the card, so their outputs depend on the
 backward kernels alone.  A time is the median over 5 torch.profiler
 windows of 50 calls of the kernels' own device time per call; a window
@@ -40,23 +48,39 @@ B, T, H, D = 8, 640, 16, 64
 LENGTHS = [640, 320, 300, 640, 1, 639, 0, 64]
 B5, T5, LENGTHS5 = 2, 1536, [1536, 1]
 CALLS, WINDOWS = 50, 5
+SCORE_B, F32_CALLS = 64, 5         # the scoring batch; calls per window
 
 
-def _window_ms(fn, prefix: str, per_call: int) -> float:
+def scoring_lengths():
+    """The short and the last long batch of ``chip_smoke.py``'s synthetic
+    scoring corpus (seed 0: 64 utterances of 250-1000 frames, then 128 of
+    250-1750, each long batch holding one of 1750)."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    frames = np.concatenate([rng.randint(250, 1001, SCORE_B),
+                             rng.randint(250, 1751, 2 * SCORE_B)])
+    frames[SCORE_B] = frames[2 * SCORE_B] = 1750
+    frames = [int(f) for f in frames]
+    return frames[:SCORE_B], frames[2 * SCORE_B:]
+
+
+def _window_ms(fn, prefix: str, per_call: int, calls: int = CALLS
+               ) -> float:
     """Device ms per call of the kernels whose names hold ``prefix`` over one
-    profiler window of ``CALLS`` calls; raises unless the window holds
+    profiler window of ``calls`` calls; raises unless the window holds
     ``per_call`` launches per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(4):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(CALLS):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages() if prefix in e.key]
-        if sum(e.count for e in evs) == CALLS * per_call:
-            return sum(e.self_device_time_total for e in evs) / 1e3 / CALLS
+        if sum(e.count for e in evs) == calls * per_call:
+            return sum(e.self_device_time_total for e in evs) / 1e3 / calls
     raise RuntimeError(f"no profiler window held every {prefix} launch")
 
 
@@ -73,9 +97,9 @@ def _digest(outs) -> str:
     return h.hexdigest()[:16]
 
 
-def time_root(root: str) -> dict:
+def time_root(root: str, only=()) -> dict:
     """The kernels' times and output digests of the package under
-    ``root``."""
+    ``root`` (with ``only``, of the named calls alone)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -122,28 +146,56 @@ def time_root(root: str) -> dict:
     calls["K5b"] = (lambda: fa.flash_backward_blockwise(
         *heads5, o5, g5, lengths5, slopes, True), "k5b_",
         getattr(fa, "K5B_BF16_KERNELS", 3))
+    if not only or "K4f32" in only:
+        h32 = [x.float() for x in heads[:3]]
+        calls["K4f32"] = (lambda: fa.flash_forward_full(
+            *h32, lengths, slopes, True, with_stats=True), "k4_fwd", 1, 10)
+    short, long_ = scoring_lengths()
+    for name, lens, prefix in (("K5f32", long_, "k5_fwd"),
+                               ("K3f32", short, "k3_fwd")):
+        if only and name not in only:
+            continue
+        t = max(lens)
+        x = torch.randn((SCORE_B, t, 3 * H * D), generator=g, device=dev)
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if name == "K5f32":
+            hq, hk, hv = (y.view(SCORE_B, t, H, D).transpose(1, 2)
+                          for y in x.chunk(3, dim=-1))
+            fn = (lambda hq=hq, hk=hk, hv=hv, ln=ln: fa.flash_forward_tiled(
+                hq, hk, hv, ln, slopes, True))
+        else:
+            pq, pk, pv = x.chunk(3, dim=-1)
+            fn = (lambda pq=pq, pk=pk, pv=pv, ln=ln: fa.flash_forward_packed(
+                pq, pk, pv, ln, slopes, True, H))
+        calls[name] = (fn, prefix, 1, F32_CALLS)
+    if only:
+        calls = {k: v for k, v in calls.items() if k in only}
     out = {"root": root, "source": fa.__file__}
-    for name, (fn, prefix, per_call) in calls.items():
+    for name, (fn, prefix, per_call, *n) in calls.items():
         digest = _digest(fn())
         torch.cuda.synchronize()
         out[name] = {"ms": statistics.median(
-            _window_ms(fn, prefix, per_call) for _ in range(WINDOWS)),
+            _window_ms(fn, prefix, per_call, *n) for _ in range(WINDOWS)),
             "digest": digest}
     return out
 
 
 def main(argv) -> int:
+    only = []
+    if argv[:1] == ["--only"]:
+        only, argv = argv[1].split(","), argv[2:]
     if argv[:1] == ["--one"]:
         os.environ.setdefault("TEARDOWN_CUPTI", "0")
-        print(json.dumps(time_root(argv[1])), flush=True)
+        print(json.dumps(time_root(argv[1], only)), flush=True)
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     for root in argv:
+        sel = ["--only", ",".join(only)] if only else []
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--one", root], capture_output=True, text=True,
-                              timeout=600)
+                               *sel, "--one", root], capture_output=True,
+                              text=True, timeout=600)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
