@@ -65,11 +65,14 @@ Phases (any failure ends the run with a non-zero exit, no result):
      with ALiBi and without, at K3's tolerances, and in float32 at the
      one-pass body's edges (Tq 37 x Tk 300, Tq 96 x Tk 8192 non-causal,
      Tq = Tk = 8192 and 1100 causal, K4 at T 5 and T 300 non-causal,
-     lengths 0 and 1); K5 float32 at the scoring path's calls (B 64, T
-     1750, each long batch's lengths) and its time there beside the
-     bound and SDPA's (float32, float mask, in 8-row chunks summed); its
-     float32 time at B 8 beside the plain version's, SDPA's (float mask)
-     and the bound, and its bf16 time beside the bf16 bound;
+     lengths 0 and 1), and in bf16 (the streaming
+     ``k5_fwd_wgmma_kernel``) at Tq = Tk = 8192 causal and Tq 96 x Tk
+     8192 non-causal, lengths 0 and 1; K5 float32 at the scoring path's
+     calls (B 64, T 1750, each long batch's lengths) and its time there
+     beside the bound and SDPA's (float32, float mask, in 8-row chunks
+     summed); its float32 and bf16 times at B 8, each beside the plain
+     version's, SDPA's forward with a float mask of its type and its
+     bound;
   5c. K4 (with lse) and K4b (the (B, H, T, D) full backward from K4's
      lse) at the data-parallel training call (B 8, T 640, 16 heads,
      lengths down to 0 and 1; K4's o and lse at K3's forward
@@ -88,7 +91,10 @@ Phases (any failure ends the run with a non-zero exit, no result):
      call, its row statistics inside the dq kernel) beside the plain
      versions', SDPA's with a float mask (forward for K4, with the
      ratio; backward alone, with the ratio, and forward+backward for
-     K4b/K5b) and the bound;
+     K4b/K5b) and the bound; then the float32 backward's times (the
+     trainer's default precision: ``k4b_``/``k5b_{dq,dkv}_kernel``, 2
+     kernels per call) at the same two calls beside the plain versions',
+     SDPA's float32 backward alone and the float32 operations bound;
   5d. K6 (single-query decode attention over an int8 per-layer cache,
      reading only the blocks up to ``pos``) against its plain version at
      the per-layer path's calls: B 128, 16 heads of 64, T 768 (the
@@ -1135,6 +1141,10 @@ F32_EDGES = (("K5", 3, 37, 300, 3, [300, 0, 1], True),
              ("K4", 3, 5, 5, 3, [5, 1, 0], True),
              ("K4", 3, 300, 300, 3, [300, 1, 0], False))
 F32_FLOPS = 67e12                 # H100 SXM float32 FMA units (data sheet)
+# the streaming bf16 K5 body at the envelope's longest key walk, causal
+# and not, lengths 0 and 1
+K5_BF16_EDGES = (("K5", 3, 8192, 8192, 2, [8192, 0, 1], True),
+                 ("K5", 3, 96, 8192, H, [8192, 0, 1], False))
 
 
 def bhtd_inputs(dtype, dev, b: int, tq: int, tk: int, h: int, seed: int):
@@ -1181,22 +1191,26 @@ def phase_k45(dev):
     max|ref|); bf16 o 1e-2 x max|ref| and element by element 2 ulps +
     1e-2 x rms, relative L2 1e-3; lse 1e-5 x max(1, max|ref|)); K5
     float32 at the scoring path's shape (B 64, T 1750, each long batch's
-    lengths) and its time there beside the bound.  Then K5's float32
-    time (the scoring path's type) at B 8 beside the plain version's,
-    SDPA's with a float mask (forward) and the bound.  Returns K4's
-    worst error and K5's entry."""
+    lengths) and its time there beside the bound; K5 bf16 (the streaming
+    ``k5_fwd_wgmma_kernel``) also at Tk 8192, causal (Tq 8192) and not (Tq
+    96), lengths 0 and 1, the plain version one batch row at a time.
+    Then K5's float32 time (the scoring path's type) and bf16 time (the
+    16-mixed training path's) at B 8, each beside its plain version's,
+    SDPA's forward with a float mask of its type and its bound.  Returns
+    K4's worst error, K5's float32 entry and its bf16 entry."""
     import torch
     import torch.nn.functional as F
 
     from vae_gslm_tpu_torch.nn.positions import alibi_slopes
     from vae_gslm_tpu_torch.ops import flash_attention as fa
 
-    worst = {"K4": 0.0, "K5": 0.0}
+    worst = {"K4": 0.0, "K5": 0.0, "K5bf16": 0.0}
     cases = (("K5", K5_B, K5_T, K5_T, H, K5_LENGTHS, True),
              ("K5", 3, 96, 256, H, [256, 0, 131], False),
              ("K4", K4_B, K4_T, K4_T, K4_H, K4_LENGTHS, True))
     runs = list(itertools.product(cases, (torch.float32, torch.bfloat16)))
     runs += [(case, torch.float32) for case in F32_EDGES]
+    runs += [(case, torch.bfloat16) for case in K5_BF16_EDGES]
     for (name, b, tq, tk, h, lens, causal), dtype in runs:
         bf16 = dtype == torch.bfloat16
         q, k, v = bhtd_inputs(dtype, dev, b, tq, tk, h, seed=tq)
@@ -1208,8 +1222,9 @@ def phase_k45(dev):
             errs = []
             if name == "K5":
                 got = fa.flash_forward_tiled(q, k, v, lengths, sl, causal)
-                want = fa.flash_forward_tiled_plain(q, k, v, lengths, sl,
-                                                    causal)
+                want = in_chunks(lambda r: fa.flash_forward_tiled_plain(
+                    q[r], k[r], v[r], lengths[r], sl, causal), b,
+                    1 if tq * tk > 1 << 24 else b)
                 pairs = [("o", got, want)]
             else:
                 got, lse = fa.flash_forward_full(q, k, v, lengths, sl, causal,
@@ -1224,8 +1239,10 @@ def phase_k45(dev):
                 err, text = hold(where, n, g_, r_, tol, floor, bf16)
                 errs.append(text)
                 if n == "o":
-                    worst[name] = max(worst[name], err)
+                    key = "K5bf16" if name == "K5" and bf16 else name
+                    worst[key] = max(worst[key], err)
             log(f"{name} check {where}: max_abs_err " + ", ".join(errs))
+            del got, want
 
     # The scoring path's K5 calls: float32, B 64, each long batch's padded
     # length and lengths, q/k/v the (B, H, T, D) views of one packed
@@ -1290,47 +1307,52 @@ def phase_k45(dev):
     fn, plain = fa.flash_forward_tiled, fa.flash_forward_tiled_plain
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     slopes = -torch.tensor(alibi_slopes(h), device=dev)
-    times = {}
-    for dtype in (torch.bfloat16, torch.float32):   # float32 last: the
-        # plain version and SDPA below take its q, k, v
+    times, entries = {}, {}
+    for dtype, flops_rate, itemsize in ((torch.bfloat16, BF16_FLOPS, 2),
+                                        (torch.float32, F32_FLOPS, 4)):
         q, k, v = bhtd_inputs(dtype, dev, b, tq, tq, h, seed=1)
-        times[dtype] = (
-            device_ms(lambda i: fn(q, k, v, lengths, slopes, True), n=10,
-                      only=("k5_fwd",), per_call=1),
-            cuda_ms(lambda i: fn(q, k, v, lengths, slopes, True), n=10))
-    kf, cf = times[torch.float32]
-    pf = device_ms(lambda i: plain(q, k, v, lengths, slopes, True), n=2)
-    mask = sdpa_mask(lengths, slopes, torch.float32, dev, tq, tq, True)
+        ks = device_ms(lambda i: fn(q, k, v, lengths, slopes, True), n=10,
+                       only=("k5_fwd",), per_call=1)
+        cs = cuda_ms(lambda i: fn(q, k, v, lengths, slopes, True), n=10)
+        ps = device_ms(lambda i: plain(q, k, v, lengths, slopes, True), n=2)
+        mask = sdpa_mask(lengths, slopes, dtype, dev, tq, tq, True)
 
-    def sdpa(i):
-        with torch.no_grad():
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+        def sdpa(i):
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask)
 
-    lf = device_ms(sdpa, n=5)
-    del mask
-    nbytes, flops = bhtd_bytes_ops(b, tq, tq, h, lens, True, 4)
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-    by = ("bytes" if nbytes / HBM_BYTES_PER_S > flops / F32_FLOPS
-          else "operations")
-    nb2, _ = bhtd_bytes_ops(b, tq, tq, h, lens, True, 2)
-    bound2 = max(nb2 / HBM_BYTES_PER_S, flops / BF16_FLOPS) * 1e3
-    by2 = ("bytes" if nb2 / HBM_BYTES_PER_S > flops / BF16_FLOPS
-           else "operations")
-    log(f"K5 time B={b} T={tq} H={h} float32: kernel {kf:.4f} ms, "
-        f"{cf:.4f} ms per call with the wrapper, plain {pf:.4f} ms, SDPA "
-        f"(float mask) forward {lf:.4f} ms, bound {bound:.4f} ms ({by}; "
-        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the float32 "
-        f"FMA rate); bf16 kernel {times[torch.bfloat16][0]:.4f} ms, "
-        f"{times[torch.bfloat16][1]:.4f} ms with the wrapper, bf16 bound "
-        f"{bound2:.4f} ms ({by2}; {nb2 / 1e6:.1f} MB at 2 bytes an element, "
-        f"{flops / 1e9:.2f} GFLOP at the bf16 tensor-core rate)")
-    return worst["K4"], {
-        "name": "flash_forward_tiled", "route": "cuda",
-        "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "vae_gslm_tpu/ops/flash_attention.py:443",
-        "launches": None, "max_abs_err": worst["K5"], "ms": kf,
-        "plain_ms": pf, "bound_ms": bound, "bound_by": by,
-        "library_ms": lf}
+        ls = device_ms(sdpa, n=5)
+        del mask
+        nbytes, flops = bhtd_bytes_ops(b, tq, tq, h, lens, True, itemsize)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / flops_rate
+        bound = max(t_b, t_o) * 1e3
+        by = "bytes" if t_b > t_o else "operations"
+        times[dtype] = (ks, cs, ps, ls, bound, by, nbytes, flops)
+        bf16 = dtype == torch.bfloat16
+        entries[dtype] = {
+            "name": ("flash_forward_tiled (bf16: k5_fwd_wgmma_kernel)" if bf16
+                     else "flash_forward_tiled (float32: k5_fwd_kernel)"),
+            "route": "cuda",
+            "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "vae_gslm_tpu/ops/flash_attention.py:443",
+            "launches": None,
+            "max_abs_err": worst["K5bf16" if bf16 else "K5"], "ms": ks,
+            "plain_ms": ps, "bound_ms": bound, "bound_by": by,
+            "library_ms": ls}
+        del q, k, v
+    for dtype, what in ((torch.float32, "float32"),
+                        (torch.bfloat16, "bf16")):
+        ks, cs, ps, ls, bound, by, nbytes, flops = times[dtype]
+        rate = "bf16 tensor-core" if dtype == torch.bfloat16 else \
+            "float32 FMA"
+        log(f"K5 time B={b} T={tq} H={h} {what}: kernel {ks:.4f} ms, "
+            f"{cs:.4f} ms per call with the wrapper, plain {ps:.4f} ms, SDPA "
+            f"({what}, float mask) forward {ls:.4f} ms (kernel / SDPA "
+            f"{ks / ls:.3f}), bound {bound:.4f} ms ({by}; "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at the {rate} "
+            f"rate)")
+    return worst["K4"], entries[torch.float32], entries[torch.bfloat16]
 
 
 # ----------------------------------------------------- small agreement
@@ -2633,7 +2655,7 @@ def phase_k45b(dev, k4_worst: float):
     from vae_gslm_tpu_torch.nn.positions import alibi_slopes
     from vae_gslm_tpu_torch.ops import flash_attention as fa
 
-    worst = {"K4": k4_worst, "K4b": 0.0, "K5b": 0.0}
+    worst = {"K4": k4_worst, "K4b": 0.0, "K5b": 0.0, "f32": 0.0}
     cases = (("K4b", K3_B, K3_T, K3_T, K4B_LENGTHS, True),
              ("K5b", 2, K5B_T, K5B_T, K5B_LENGTHS, True),
              ("K5b", 3, 96, 256, [256, 0, 1], False))
@@ -2682,6 +2704,8 @@ def phase_k45b(dev, k4_worst: float):
             err, text = hold(where, n, g_, r_, 2e-2 if bf16 else 1e-4, 0.0,
                              bf16)
             worst[name] = max(worst[name], err)
+            if not bf16:
+                worst["f32"] = max(worst["f32"], err)
             errs.append(text)
         log(f"{name} check {where}: max_abs_err " + ", ".join(errs))
         del got, want
@@ -2838,7 +2862,56 @@ def phase_k45b(dev, k4_worst: float):
                           735 if name == "K4b" else 682, kt, pt, bound, by,
                           lb)
         del q, k, v, do, o
-    return out["K4"], out["K4b"], out["K5b"]
+
+    # the float32 backward (dq_f32 then dkv_f32: the trainer's default
+    # precision) at the same two calls, beside SDPA's float32 backward
+    # alone and the float32 operations bound
+    dtype, f32 = torch.float32, {}
+    for name, b, t, lens in (("K4b", K3_B, K3_T, K4B_LENGTHS),
+                             ("K5b", 2, K5B_T, K5B_LENGTHS)):
+        q, k, v = bhtd_inputs(dtype, dev, b, t, t, H, seed=1)
+        do = bhtd_grad(dtype, dev, b, t, H, seed=2)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if name == "K4b":
+            o, lse = fa.flash_forward_full(q, k, v, lengths, slopes, True,
+                                           with_stats=True)
+            args = (q, k, v, o, do, lse, lengths, slopes, True)
+            fn, plain = fa.flash_backward_full, fa.flash_backward_full_plain
+        else:
+            o = fa.flash_forward_tiled(q, k, v, lengths, slopes, True)
+            args = (q, k, v, o, do, lengths, slopes, True)
+            fn, plain = (fa.flash_backward_blockwise,
+                         fa.flash_backward_blockwise_plain)
+        kt = device_ms(lambda i: fn(*args), n=10, only=(name.lower() + "_",),
+                       per_call=2 if name == "K4b" else fa.K5B_F32_KERNELS)
+        ct = cuda_ms(lambda i: fn(*args), n=10)
+        pt = device_ms(lambda i: plain(*args), n=2)
+        mask = sdpa_mask(lengths, slopes, dtype, dev, t, t, True)
+        lb = sdpa_bwd_ms(q, k, v, do, mask)
+        del mask
+        nbytes, flops = bwd_bytes_ops(b, t, t, H, lens, True, 4,
+                                      2 if name == "K4b" else 1)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+        bound = max(t_b, t_o) * 1e3
+        by = "bytes" if t_b > t_o else "operations"
+        log(f"{name} time B={b} T={t} H={H} float32: kernels {kt:.4f} ms, "
+            f"{ct:.4f} ms per call with the wrapper (delta included), plain "
+            f"{pt:.4f} ms, SDPA (float32, float mask) backward alone "
+            f"{lb:.4f} ms (kernels / SDPA backward {kt / lb:.3f}), bound of "
+            f"the kernels {bound:.4f} ms ({by}; {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP at the float32 FMA rate)")
+        f32[name] = (kt, pt, bound, by, lb)
+        del q, k, v, do, o
+    kt, pt, bound, by, lb = f32["K4b"]
+    out["f32"] = {
+        "name": "flash_backward_full (float32: k4b_dq_kernel, "
+                "k4b_dkv_kernel; K3b's and K5b's on the same body)",
+        "route": "cuda",
+        "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "vae_gslm_tpu/ops/flash_attention.py:735",
+        "launches": None, "max_abs_err": worst["f32"], "ms": kt,
+        "plain_ms": pt, "bound_ms": bound, "bound_by": by, "library_ms": lb}
+    return out["K4"], out["K4b"], out["K5b"], out["f32"]
 
 
 # ------------------------------------------------------------------ K6
@@ -3220,7 +3293,8 @@ def phase_dp_small(dev):
     sums and grad_norm), the summed gradients to 1e-3 x max|g| per leaf
     (1e-3: two kernels summing in other orders, then the cross-rank sum);
     the ranks' parameters bitwise equal.  Exactly 2 x accumulation K4
-    and K4b launches per rank, no K3/K3b."""
+    and K4b launches per rank, no K3/K3b.  Returns rank 0's K4b launches
+    (float32: the float32 backward's main path)."""
     import shutil
     import tempfile
 
@@ -3300,6 +3374,7 @@ def phase_dp_small(dev):
         f"{len(single.params)} leaves; parameters bitwise equal across "
         f"ranks; launches per rank {ranks[0]['counts']}; {sec:.1f} s with "
         "the ranks' start")
+    return ranks[0]["counts"]["flash_backward_full"]
 
 
 def write_train_corpus(root: str, mels, n: int, lo_s: float,
@@ -3556,8 +3631,8 @@ def main() -> int:
     k2, k2bf16 = timed("k2", phase_k2, dev)
     k2w4 = timed("k2_w4", phase_k2_w4, dev)
     k3, k3b = timed("k3", phase_k3, dev)
-    k4_worst, k5 = timed("k45", phase_k45, dev)
-    k4, k4b, k5b = timed("k45b", phase_k45b, dev, k4_worst)
+    k4_worst, k5, k5bf16 = timed("k45", phase_k45, dev)
+    k4, k4b, k5b, bwdf32 = timed("k45b", phase_k45b, dev, k4_worst)
     k6 = timed("k6", phase_k6, dev)
     k7 = timed("k7", phase_k7, dev, gpu)
     timed("small_k1", phase_small, dev, quantize=False)
@@ -3569,7 +3644,7 @@ def main() -> int:
               per_layer=per_layer)
     timed("train_small", phase_train_small, dev)
     timed("likelihood_small", phase_likelihood_small, dev)
-    timed("dp_small", phase_dp_small, dev)
+    bwdf32["launches"] = timed("dp_small", phase_dp_small, dev)
     k1["launches"] = timed("pipeline_k1", phase_pipeline, dev, gpu,
                            quantize=False)
     k2["launches"] = timed("pipeline_k2", phase_pipeline, dev, gpu,
@@ -3579,8 +3654,9 @@ def main() -> int:
     dp = timed("dp_fit", phase_dp_fit, dev, gpu)
     k4["launches"] = dp["flash_forward_full"]
     k4b["launches"] = dp["flash_backward_full"]
-    k5b["launches"] = timed("dp_fit_long", phase_dp_fit, dev, gpu,
-                            long=True)["flash_backward_blockwise"]
+    long_counts = timed("dp_fit_long", phase_dp_fit, dev, gpu, long=True)
+    k5bf16["launches"] = long_counts["flash_forward_tiled"]
+    k5b["launches"] = long_counts["flash_backward_blockwise"]
     import shutil
     import tempfile
 
@@ -3600,7 +3676,7 @@ def main() -> int:
     log("phase seconds: " + ", ".join(spent))
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k2bf16, k2w4, k3, k3b, k4, k4b,
-                                  k5, k5b, k6, k7]}))
+                                  k5, k5bf16, k5b, bwdf32, k6, k7]}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

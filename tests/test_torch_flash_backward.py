@@ -19,8 +19,15 @@ against the H100's per-block limit.  The ``cuda`` cases hold the kernels
 against their plain versions on a card and skip without one.  K3b (the
 packed backward, on the same bf16 body) is held to its plan and its
 tensor-map alignment checks on the CPU, and to its plain version on a
-card."""
+card.  The float32 backward (``dq_f32`` then ``dkv_f32``, one body for
+K3b, K4b and K5b) is held to its plan, to walks that cover every nonzero
+pair, and, in a torch emulation of its sums (K5b's row statistics online
+over 64-key tiles, dq summed over key tiles in order, dk and dv over
+64-query tiles), to the plain version at Tk 8192 to the card's 1e-4 x
+max|ref|; on a card, at ``chip_smoke.py``'s ``phase_k45b`` cases and
+K3b's packed training call."""
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -349,8 +356,8 @@ def _packed_operands(dtype, width=3 * 2 * 64, offset=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3b_launch_takes_the_bwd_plan(monkeypatch, dtype):
     """K3b's launch passes ``bwd_smem_plan()`` (bytes, stages) to
-    ``flash_bwd_packed_launch`` in bfloat16, as K4b and K5b do, and zeros
-    in float32; the stream goes last."""
+    ``flash_bwd_packed_launch`` in bfloat16, as K4b and K5b do, and
+    ``f32_bwd_plan()``'s in float32; the stream goes last."""
     lib = _FakeLib()
     monkeypatch.setattr(fa, "_launchers", lambda: lib)
     q, k, v, o, g, lse, lengths, h = _packed_operands(dtype)
@@ -358,8 +365,9 @@ def test_k3b_launch_takes_the_bwd_plan(monkeypatch, dtype):
                                 h, 1234)
     assert [x.shape for x in grads] == [q.shape] * 3
     (args,) = lib.calls
-    plan = fa.bwd_smem_plan()
-    want = (plan.bytes, plan.stages) if dtype == torch.bfloat16 else (0, 0)
+    plan = (fa.bwd_smem_plan() if dtype == torch.bfloat16
+            else fa.f32_bwd_plan())
+    want = (plan.bytes, plan.stages)
     assert args[-3:] == (*want, 1234)
     assert fa.bwd_plan_args(q) == want
 
@@ -377,6 +385,112 @@ def test_k3b_rejects_misaligned_packed_views(monkeypatch, case):
     with pytest.raises(ValueError, match="not 16-byte aligned"):
         fa._packed_backward(q, k, v, o, g, lse, lengths, None, True, h, 0)
     assert lib.calls == []
+
+
+# ------------------------------------------- the float32 backward (mirror)
+def test_f32_bwd_plan_fits():
+    """The float32 backward's plan fits the 232,448 bytes a block may use
+    on an H100 and is the kernels' sum: three resident 128-row tiles and
+    two stages of two 64-row tiles with three rows of query statistics,
+    float32 at a pitch of 68; nothing in it grows with Tq or Tk."""
+    plan = fa.f32_bwd_plan()
+    assert (plan.rows, plan.tile, plan.stages) == (128, 64, 2)
+    assert plan.bytes == 4 * (3 * 128 * 68 + 2 * (2 * 64 * 68 + 3 * 64))
+    assert plan.bytes <= SMEM_LIMIT
+
+
+def _f32_walked(tq, tk, length, causal):
+    """The (query row block, key row block) pairs each float32 kernel
+    walks, as sets of (query row, key) pairs' tiles: the dq kernel's
+    128-query tiles (aligned to end at Tq) over 64-key tiles, the dk/dv
+    kernel's 128-key tiles over 64-query tiles; returns the (query, key)
+    pairs each covers."""
+    nqb = -(-tq // 128)
+    dq = set()
+    for i in range(nqb):
+        rows = fa.f32_tile_rows(i, tq)
+        for kt in fa.f32_bwd_walk("dq", i, tq, length, tk, causal):
+            dq.add((max(rows[0], 0), rows[-1], kt * 64,
+                    min(kt * 64 + 64, tk) - 1))
+    dkv = set()
+    for i in range(-(-tk // 128)):
+        for qt in fa.f32_bwd_walk("dkv", i, tq, length, tk, causal):
+            dkv.add((qt * 64, min(qt * 64 + 64, tq) - 1, i * 128,
+                     min(i * 128 + 128, tk) - 1))
+    return dq, dkv
+
+
+def _covers(blocks, r, c):
+    return any(r0 <= r <= r1 and c0 <= c <= c1 for r0, r1, c0, c1 in blocks)
+
+
+@pytest.mark.parametrize("tq,tk,causal", [
+    (640, 640, True), (200, 200, False), (96, 256, False), (96, 256, True),
+    (300, 37, True), (1100, 1100, True), (129, 129, True), (37, 300, False)])
+def test_f32_bwd_walks_cover_every_nonzero_pair(tq, tk, causal):
+    """Every (query, key) pair of nonzero probability (a key below the
+    row's length, at or before the query when causal; every key for a
+    row of length 0) lies on both kernels' walks."""
+    for length in (0, 1, 63, 64, 65, 129, tk // 2, tk):
+        dq, dkv = _f32_walked(tq, tk, length, causal)
+        for r in range(0, tq, 7):
+            for c in range(0, tk, 5):
+                need = length < 1 or (c < min(length, tk)
+                                      and (not causal or c <= r))
+                if need:
+                    assert _covers(dq, r, c), (r, c, length)
+                    assert _covers(dkv, r, c), (r, c, length)
+
+
+def _f32_bwd_emulated(q, k, v, o, g, lengths, slopes, causal):
+    """K5b's float32 backward as the kernels sum it, in float32 torch on
+    (B, H, T, D) operands: m and l online over 64-key tiles (l rescaled
+    by exp(m_old - m_new)), p = exp(s - m) / l, ds = p (dO.v - delta),
+    dq summed over the 64-key tiles in order, dk and dv over the 64-query
+    tiles in order."""
+    s, dt = fa._logits(q, k, lengths, slopes, causal)
+    tq, tk = q.shape[2], k.shape[2]
+    m = torch.full(s.shape[:-1] + (1,), -math.inf)
+    l = torch.zeros_like(m)
+    for k0 in range(0, tk, 64):
+        x = s[..., k0:k0 + 64]
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        l = l * torch.exp(m - m_new) + torch.exp(x - m_new).sum(
+            -1, keepdim=True)
+        m = m_new
+    p = torch.exp(s - m) / l
+    delta = fa._delta(g, o)
+    dp = torch.einsum("bhqd,bhkd->bhqk", g, v)
+    ds = p * (dp - delta[..., None])
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dq = torch.zeros_like(q)
+    for k0 in range(0, tk, 64):
+        dq = dq + ds[..., k0:k0 + 64] @ k[:, :, k0:k0 + 64]
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for q0 in range(0, tq, 64):
+        sl = slice(q0, q0 + 64)
+        dk = dk + ds[..., sl, :].transpose(-1, -2) @ q[:, :, sl]
+        dv = dv + p[..., sl, :].transpose(-1, -2) @ g[:, :, sl]
+    return dq * scale, dk * scale, dv
+
+
+@pytest.mark.parametrize("tq,causal", [(96, False), (200, True)])
+def test_f32_bwd_emulation_holds_the_gate_at_8192_keys(tq, causal):
+    """The emulated float32 backward against the plain K5b over 8192
+    keys, ALiBi on and off, lengths 8192, 0 and 1: within the card's
+    float32 gate, 1e-4 x max|ref|."""
+    tk = 8192
+    q, k, v, g, _ = (torch.from_numpy(x) for x in _inputs(3, 1, tq, tk,
+                                                          seed=3))
+    lengths = torch.tensor([tk, 0, 1], dtype=torch.int32)
+    for sl in (-torch.tensor(alibi_slopes(8)[-1:]), None):
+        o = fa.flash_forward_tiled_plain(q, k, v, lengths, sl, causal)
+        got = _f32_bwd_emulated(q, k, v, o, g, lengths, sl, causal)
+        want = fa.flash_backward_blockwise_plain(q, k, v, o, g, lengths, sl,
+                                                 causal)
+        for a, w in zip(got, want):
+            err = (a - w).abs().max().item()
+            assert err <= 1e-4 * w.abs().max().item(), err
 
 
 # ----------------------------------------------------------------- card
@@ -494,3 +608,71 @@ def test_cuda_k3b_bf16_matches_plain(cuda_device, t, alibi):
                           torch.ldexp(torch.ones_like(w), e - 8))
         assert (diff <= 2 * ulp + 2e-2 * w.pow(2).mean().sqrt()).all()
         assert diff.norm() <= 1e-3 * w.norm()
+
+
+# chip_smoke.py's phase_k45b cases (name, B, Tq, Tk, lengths, causal) and
+# K3b's packed training call, float32, 16 heads of 64
+F32_CARD_CASES = {
+    "k4b_training": ("K4b", 8, 640, 640, [640, 320, 300, 640, 1, 639, 0, 64],
+                     True),
+    "k5b_long": ("K5b", 2, 1536, 1536, [1536, 1], True),
+    "k5b_cross": ("K5b", 3, 96, 256, [256, 0, 1], False),
+    "k5b_8192": ("K5b", 2, 8192, 8192, [8192, 1], True),
+    "k3b_training": ("K3b", 8, 640, 640, [640, 320, 300, 640, 1, 639, 512,
+                                          64], True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(F32_CARD_CASES))
+@pytest.mark.parametrize("alibi", [True, False])
+def test_cuda_f32_backward_matches_plain(cuda_device, case, alibi):
+    """The float32 backward (``k{3,4,5}b_dq_kernel`` then
+    ``k{3,4,5}b_dkv_kernel``) against its plain version from q, k and v
+    views of packed projections, o (and lse) from the kernels' forward,
+    one count a call: 1e-4 x max|ref| (``phase_k45b``'s float32 gate)."""
+    name, b, tq, tk, lens, causal = F32_CARD_CASES[case]
+    h = 2 if tk > 4096 else 16
+    dev = cuda_device
+    gen = torch.Generator(dev).manual_seed(tq + 1)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    slopes = -torch.tensor(alibi_slopes(h), device=dev) if alibi else None
+    if name == "K3b":
+        qkv = torch.randn((b, tq, 3 * h * 64), generator=gen, device=dev)
+        q, k, v = qkv.chunk(3, dim=-1)
+        go = torch.randn((b, tq, h * 64), generator=gen, device=dev)
+        o, lse = fa.flash_forward_packed(q, k, v, lengths, slopes, causal, h)
+        fn, plain = fa.flash_backward_packed, fa.flash_backward_packed_plain
+        args, kw = (q, k, v, o, go, lse, lengths, slopes, causal, h), {}
+    else:
+        xq = torch.randn((b, tq, 2 * h * 64), generator=gen, device=dev)
+        xkv = torch.randn((b, tk, 2 * h * 64), generator=gen, device=dev)
+        q, go = (x.view(b, tq, h, 64).transpose(1, 2)
+                 for x in xq.chunk(2, dim=-1))
+        k, v = (x.view(b, tk, h, 64).transpose(1, 2)
+                for x in xkv.chunk(2, dim=-1))
+        if name == "K4b":
+            o, lse = fa.flash_forward_full(q, k, v, lengths, slopes, causal,
+                                           with_stats=True)
+            fn, plain = fa.flash_backward_full, fa.flash_backward_full_plain
+            args = (q, k, v, o, go, lse, lengths, slopes, causal)
+        else:
+            o = fa.flash_forward_tiled(q, k, v, lengths, slopes, causal)
+            fn, plain = (fa.flash_backward_blockwise,
+                         fa.flash_backward_blockwise_plain)
+            args = (q, k, v, o, go, lengths, slopes, causal)
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    if tk > 4096:   # the plain version one batch row at a time
+        want = [torch.cat(x) for x in zip(*(
+            plain(*(a[i:i + 1] if isinstance(a, torch.Tensor)
+                    and a.dim() > 1 else a for a in args[:5]),
+                  lengths[i:i + 1], slopes, causal) for i in range(b)))]
+    else:
+        want = plain(*args)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == torch.float32
+        err = (a - w).abs().max().item()
+        assert err <= 1e-4 * w.abs().max().item(), (case, err)

@@ -94,7 +94,7 @@ def test_f32_forward_rejects_misaligned_views():
     q = base[..., :128].view(2, 70, 2, 64).transpose(1, 2)
     with pytest.raises(ValueError, match="not 16-byte aligned"):
         fa._strides("q", q, q.shape, q.dtype, q.device, aligned=True)
-    fa._strides("q", q, q.shape, q.dtype, q.device)   # backward: no rule
+    fa._strides("q", q, q.shape, q.dtype, q.device)   # default: no rule
 
 
 def _online(q, k, v, lengths, slopes, causal):

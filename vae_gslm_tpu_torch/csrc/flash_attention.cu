@@ -15,14 +15,15 @@
 // JAX runs off the packed envelope and under a data-parallel mesh; K4b
 // (Tq = Tk <= 1024, lse from K4) and K5b (any Tq, Tk up to 8192, its own
 // row statistics) are the backwards of that (B, H, T, D) custom VJP.  The
-// three forwards share a tiled float32 body and K5's bfloat16 body; K3
-// and K4 in bfloat16 have a Hopper body of their own (wgmma, TMA); the
-// three backwards share another in float32, and in bfloat16 a Hopper
-// body of their own (bwd_wgmma; K3b's packed operands are the same
-// tensor maps with a head stride of head_dim).
+// three forwards share a tiled float32 body (fwd_f32); K3 and K4 in
+// bfloat16 have a Hopper body of their own (fwd_wgmma: wgmma, TMA, K
+// resident), K5 in bfloat16 another (fwd_stream_wgmma: K streamed); the
+// three backwards share one body in float32 (dq_f32, dkv_f32) and in
+// bfloat16 a Hopper body of their own (bwd_wgmma; K3b's packed operands
+// are the same tensor maps with a head stride of head_dim).
 // Each has an entry point and kernel symbols of its own
-// (k3_/k4_/k5_fwd*, k3b_/k4b_/k5b_{dkv,dq}*, k5b_stats*), so a profile
-// tells them apart.  Every operand is read
+// (k3_/k4_/k5_fwd*, k3b_/k4b_/k5b_{dq,dkv}*), so a profile tells them
+// apart.  Every operand is read
 // through (batch, head, row) element strides with a contiguous feature
 // axis (the bf16 forward builds TMA tensor maps from them), so packed
 // projection views and (B, H, T, D) tensors both go in without a copy.
@@ -48,22 +49,21 @@
 // Design.  The TPU kernels keep a whole (T, T) float32 tile per
 // (batch, head) in VMEM; at T = 640 that is 1.6 MB against the 227 KB of
 // shared memory an H100 block can use, so these kernels are tiled.
-//   * forward, bfloat16: one block per (64-query tile, head, batch).  Pass
-//     1 walks the key tiles for the row max and sum (online); pass 2
-//     recomputes the logits, forms the normalized, rounded p and
-//     accumulates p . v.  The probabilities are normalized before P.V, as
-//     the TPU kernel does, since p is rounded to bf16 before P.V.
+//   * forward, bfloat16: pass 1 walks the key tiles for the row max and
+//     sum (online); pass 2 recomputes the logits, forms the normalized,
+//     rounded p and accumulates p . v.  The probabilities are normalized
+//     before P.V, as the TPU kernel does, since p is rounded to bf16
+//     before P.V.
 //   * forward, float32: one pass, one block per (128-query tile, head,
 //     batch): the softmax online, O rescaled as the row max grows and
 //     divided by l once at the end (fwd_f32 below: p is not rounded, so
 //     only the last bits of each term move).
 //   * backward: two launches and no atomics, so runs agree bit for bit:
-//     one block per key tile walks the query tiles for dk and dv, one per
-//     query tile walks the key tiles for dq.  K5b, which gets no lse,
-//     runs a third launch before them in float32, the forward's pass 1
-//     alone, that writes each row's m and l (in bfloat16 the dq kernel's
-//     first pass); whether a body reads l is a template parameter, so
-//     K3b and K4b compile without it.  The TPU's q-tile
+//     one block per query tile walks the key tiles for dq, then one per
+//     key tile walks the query tiles for dk and dv.  K5b, which gets no
+//     lse, takes each row's m and l in the dq kernel's first pass and
+//     writes them for the dk/dv kernel; whether a body reads l is a
+//     template parameter, so K3b and K4b compile without it.  The TPU's q-tile
 //     grid that carries dk/dv across sequential steps (K5b) becomes the
 //     key-tile block's own loop over the query tiles.
 // Key tiles past the causal edge or at or past lengths[b] add exact zeros
@@ -71,13 +71,11 @@
 // uniform over all Tk keys, as in the reference.
 //
 // Two element types, two product routes.  bfloat16 (the training path
-// under 16-mixed) multiplies on the tensor cores: K3/K4's forward and
-// K3b/K4b/K5b's backward with wgmma (below), K5 with mma.sync
-// (m16n8k16); exact bf16 products, float32 sums in the hardware's order.
-// float32 multiplies with scalar FMAs out of shared memory (the
-// forward: 8 x 4 outputs per thread and product; the backward: 4 x 4;
-// float4 operand loads), since the tensor cores would round its operands
-// to TF32.
+// under 16-mixed) multiplies on the tensor cores with wgmma (below);
+// exact bf16 products, float32 sums in the hardware's order.  float32
+// multiplies with scalar FMAs out of shared memory (8 x 4 outputs per
+// thread and product, float4 operand loads, forward and backward), since
+// the tensor cores would round its operands to TF32.
 //
 // K3/K4 bfloat16 forward (fwd_wgmma).  JAX normalises p = exp(s - m) / l
 // before P.V, so m and l are final before any p is formed: two passes
@@ -121,11 +119,28 @@
 // (103 and 316 GFLOP).  The one-pass float32 body forms those two
 // products and no third, on a register tile that leaves the FMA pipes,
 // not shared memory, the limit; the logits and exponentials (~12
-// instructions per pair against 128 FMAs) come on top.
-// K5's bf16 mma.sync kernel runs far from that bound: fragments are
-// loaded from shared memory by plain loads (no ldmatrix, no TMA, no
-// pipelining of the next tile's loads), and it reads every key tile
-// twice.
+// instructions per pair against 128 FMAs) come on top.  The float32
+// backward (dq_f32, dkv_f32 below) is bound the same way: 14.0 GFLOP at
+// K4b's training call (~0.21 ms at 67 TFLOP/s) against ~0.13 GB.
+//
+// K5 bfloat16 forward (fwd_stream_wgmma).  The same two passes as
+// fwd_wgmma, but Tk goes up to 8192 (128 key tiles, 1 MB of K per
+// (batch, head)), so no key tile stays resident: a producer warp loads
+// Q once by TMA and streams K (pass 1), then K and V (pass 2), through
+// one ring of `stages` stages of a K and a V tile (full/empty
+// mbarriers); the plan (k5_fwd_plan) is the same for every Tq and Tk.
+// Two consumer warpgroups share each K/V tile, 64 query rows each, which
+// halves the K/V traffic per query row against one; each walks its own
+// key tiles (the causal edge of its rows) and only frees the stages of
+// the longer walk it does not read.  Query blocks of 128 rows run the
+// longest causal walks first.  S = Q K^T (wgmma m64n64k16, both
+// operands K-major) and O += P V (P's bf16 A fragments in registers, V
+// MN-major) overlap the softmax as in fwd_wgmma, with fwd_wgmma's
+// numerics (fmaf logit, ex2.approx, p as the product with 1/l); keys
+// past Tk take -inf.  At chip_smoke.py's K5 call (B 8, T 1750) the
+// products are 41.7 GFLOP (42 us at the bf16 peak) and both passes'
+// exponentials and logits, ~20 instructions per element of each walked
+// 64 x 64 tile, bound it, as fwd_wgmma.
 //
 // K3b/K4b/K5b bfloat16 backward (bwd_wgmma).  Two launches, no atomics, so
 // the outputs are the same bits from run to run: the dq kernel, one
@@ -172,79 +187,12 @@ namespace {
 
 constexpr int HD = 64;          // head_dim (the wrapper checks)
 constexpr int TILE = 64;        // query and key rows per tile
-constexpr int NT = 256;         // threads per block: 16 x 16, 4 x 4 each
-constexpr int LD = TILE + 4;    // padded row of a transposed (d-major) tile
+constexpr int NT = 256;         // threads per block of the float32 bodies
 constexpr float NEG_INF = -1e30f;
-
-constexpr int TT = HD * LD;     // floats in a transposed tile
-constexpr int TR = TILE * HD;   // floats in a row-major tile
-constexpr int STATS_SMEM = 2 * TT * 4;
-constexpr int DKV_SMEM = (6 * TT + 2 * TR) * 4;
-constexpr int DQ_SMEM = (5 * TT + TR) * 4;
 
 struct Seq {             // one operand's element strides: batch, head and
   long long bs, hs, rs;  // row; the feature axis is contiguous
 };
-
-// Rows [r0, r0 + 64) of head h of one batch row into shared memory,
-// d-major (dst[d * LD + r]) or row-major (dst[r * HD + d]); rows at or
-// past T read as 0.
-__device__ void load_t(float* dst, const float* src, long long rs, int r0,
-                       int t_len) {
-  for (int idx = threadIdx.x; idx < TILE * HD; idx += NT) {
-    int r = idx / HD, d = idx % HD, t = r0 + r;
-    dst[d * LD + r] = t < t_len ? src[t * rs + d] : 0.f;
-  }
-}
-__device__ void load_r(float* dst, const float* src, long long rs, int r0,
-                       int t_len) {
-  for (int idx = threadIdx.x; idx < TILE * HD; idx += NT) {
-    int r = idx / HD, d = idx % HD, t = r0 + r;
-    dst[r * HD + d] = t < t_len ? src[t * rs + d] : 0.f;
-  }
-}
-
-// acc[i][j] += sum_k X[k][ty*4 + i] * Y[k][tx*4 + j] over 64 k.
-__device__ __forceinline__ void outer(const float* X, int ldx,
-                                      const float* Y, int ldy,
-                                      float acc[4][4], int ty, int tx) {
-#pragma unroll 8
-  for (int k = 0; k < TILE; ++k) {
-    float4 a = *reinterpret_cast<const float4*>(X + k * ldx + ty * 4);
-    float4 b = *reinterpret_cast<const float4*>(Y + k * ldy + tx * 4);
-    float av[4] = {a.x, a.y, a.z, a.w};
-    float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void zero(float a[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
-}
-
-// Scaled, ALiBi-biased, masked logit of query row r and key c.
-__device__ __forceinline__ float logit(float dot, int r, int c, int len,
-                                       int causal, int use_alibi,
-                                       float slope, float scale) {
-  float x = __fmul_rn(dot, scale);
-  if (use_alibi) x = __fadd_rn(x, __fmul_rn(slope, (float)abs(c - r)));
-  bool valid = c < len && (!causal || c <= r);
-  return valid ? x : NEG_INF;
-}
-
-// The backward's probability of a logit x from its row's statistics:
-// exp(x - lse) (a is lse, l unused) or, with HAVE_L, exp(x - m) / l (a
-// is m).
-template <bool HAVE_L>
-__device__ __forceinline__ float prob(float x, float a, float l) {
-  return HAVE_L ? __fdiv_rn(expf(x - a), l) : expf(x - a);
-}
 
 // Reductions over the 16 threads (tx) that share a row: lanes 0-15 or
 // 16-31 of a warp.  The butterfly gives every lane the same value.
@@ -270,50 +218,6 @@ __device__ __forceinline__ int key_tiles(int qt, int len, int tk,
     if (causal) end = min(end, qt + 1);
   }
   return end;
-}
-
-// Pass 1 of the float32 forward: the row max m and the sum l of
-// exp(s - m) of the thread's four query rows of the tile at q0, online
-// over the key tiles [0, kt_end).  Qt holds the query tile; Kt is
-// scratch.
-__device__ __forceinline__ void pass1_f32(const float* Qt, float* Kt,
-                                          const float* kb, long long k_rs,
-                                          int q0, int kt_end, int tk,
-                                          int len, int causal,
-                                          int use_alibi, float slope,
-                                          float scale, float m[4],
-                                          float l[4]) {
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float s[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();
-    load_t(Kt, kb, k_rs, k0, tk);
-    __syncthreads();
-    zero(s);
-    outer(Qt, LD, Kt, LD, s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx * 4 + j;
-        s[i][j] = c < tk ? logit(s[i][j], r, c, len, causal, use_alibi,
-                                 slope, scale)
-                         : -INFINITY;
-        tmax = fmaxf(tmax, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(tmax));
-      float e = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) e += expf(s[i][j] - m_new);
-      l[i] = l[i] * expf(m[i] - m_new) + row_sum(e);
-      m[i] = m_new;
-    }
-  }
 }
 
 // ------------------------------------------------------------------
@@ -577,127 +481,347 @@ __global__ void __launch_bounds__(NT, 1) k5_fwd_kernel(FWD_F32_ARGS) {
   fwd_f32(FWD_PASS);
 }
 
-// K5b's row statistics of one (64-query tile, head, batch): pass 1 of
-// the forward alone, m into m_out and l into l_out, each (B, H, tq).
-__device__ __forceinline__ void stats_f32(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const int* __restrict__ lengths, const float* __restrict__ slopes,
-    float* __restrict__ m_out, float* __restrict__ l_out, Seq sq, Seq sk,
-    int tq, int tk, int nheads, int causal, float scale) {
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);
-  float* Kt = Qt + TT;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * TILE, ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int len = lengths[b];
-  const int use_alibi = slopes != nullptr;
-  const float slope = use_alibi ? slopes[h] : 0.f;
-  load_t(Qt, q + b * sq.bs + h * sq.hs, sq.rs, q0, tq);
-  float m[4], l[4];
-  pass1_f32(Qt, Kt, k + b * sk.bs + h * sk.hs, sk.rs, q0,
-            key_tiles(qt, len, tk, causal), tk, len, causal, use_alibi,
-            slope, scale, m, l);
-  if (tx != 0) return;
-  const long long base = ((long long)b * nheads + h) * tq;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= tq) continue;
-    m_out[base + r] = m[i];
-    l_out[base + r] = l[i];
-  }
+// ------------------------------------------------------------------
+// The float32 backward (K3b, K4b and K5b in float32): two launches, the
+// dq kernel then the dk/dv kernel, products on the FMA units.
+//
+// Both kernels take fwd_f32's geometry: one block of 256 threads keeps
+// 128 rows of one side resident (Q and dO in the dq kernel, K and V in
+// the dk/dv kernel) and walks 64-row tiles of the other side, which
+// come in by 16-byte cp.async two stages deep (zero fill outside [0,
+// T)), the next tile's bytes in flight while this tile's products run.
+// Warp w owns resident rows [16 w, 16 w + 16); lane (rg = lane / 16, cg
+// = lane % 16) owns rows 16 w + rg + 2 i (i < 8), streamed rows cg + 16
+// j (j < 4) of the logit-side products and output columns 4 cg + j of
+// the gradient products: an 8 x 4 register tile per product, fed by
+// float4 loads of rows as they lie (pitch FP, conflict-free), so no
+// tile is ever copied transposed:
+//   dq kernel   S = Q K^T, dP = dO V^T (resident rows by streamed rows
+//               along D), ds in registers, then through the warp's own
+//               rows of a shared tile into dQ += dS K;
+//   dk/dv kernel S^T = K Q^T, dP^T = V dO^T, p^T and ds^T in registers
+//               and through the warp's own rows of the shared tile into
+//               dV += P^T dO and dK += dS^T Q.
+// A row of the shared P/dS tile is written and read by one warp, so the
+// warp's own barrier orders it; the ring takes two block barriers a
+// tile.  dk and dv are summed in float32 over the key tile's query
+// tiles inside one block and rounded once; no atomics, so runs agree
+// bit for bit.  Per (query, key) pair the two kernels form seven
+// products of 2 D FLOPs (S and dP in both), K5b eight (its statistics
+// form S once more), against the five the bound counts.
+//
+// The dq kernel runs first, one block per (128-query tile, head, batch),
+// the tiles aligned to end at Tq (a ragged tile is the first, the
+// shortest causal walk) and launched from the last (the longest); K5b's
+// pass 1 walks the key tiles for each row's m and l (online, the
+// forward's pass; K tiles alone) and writes them to rowa and rowl for
+// the dk/dv kernel, one block per (128-key tile, head, batch), key tile
+// 0 (the longest causal walk) first.  Numerics: the logit as fwd_f32
+// rounds it; p = expf(x - lse) (K3b, K4b; a row of length 0 has p = 1 on
+// every key) or expf(x - m) / l (K5b, the quotient correctly rounded by
+// one FMA correction of its product by 1/l: 1 / Tk on a row of length
+// 0); ds = p (dp - delta); every sum over D, keys or queries in order,
+// as the plain version's loops.  The plan (BWD_F32_SMEM bytes, F_STAGES)
+// is ops/flash_attention.py's f32_bwd_plan, which the launcher checks.
+// ------------------------------------------------------------------
+constexpr int BWD_F32_SMEM =
+    (3 * FQ * FP + F_STAGES * (2 * FK * FP + 3 * FK)) * 4;
+static_assert(BWD_F32_SMEM <= 232448, "the float32 backward's plan");
+
+// 4-byte cp.async (zero fill unless `fill`).
+__device__ __forceinline__ void cp4(float* dst, const float* src,
+                                    bool fill) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(fill ? 4 : 0)
+               : "memory");
 }
 
-#define STATS_F32_ARGS                                                    \
-  const float *__restrict__ q, const float *__restrict__ k,               \
-      const int *__restrict__ lengths, const float *__restrict__ slopes,  \
-      float *__restrict__ m_out, float *__restrict__ l_out, Seq sq,       \
-      Seq sk, int tq, int tk, int nheads, int causal, float scale
-#define STATS_PASS q, k, lengths, slopes, m_out, l_out, sq, sk, tq, tk, \
-                   nheads, causal, scale
-
-__global__ void __launch_bounds__(NT) k5b_stats_kernel(STATS_F32_ARGS) {
-  stats_f32(STATS_PASS);
-}
-
-// p and ds of one (query tile, key tile) pair from the logits s and
-// dp = dO . v; zero for rows at or past tq and keys at or past tk.
-template <bool HAVE_L>
-__device__ __forceinline__ void probs(float s[4][4], float dp[4][4],
-                                      const float a_r[4], const float l_r[4],
-                                      const float delta_r[4],
-                                      int q0, int k0, int tq, int tk,
-                                      int len, int causal, int use_alibi,
-                                      float slope, float scale) {
+// s[i][j] = sum_d A[row + 2 i][d] B[cg + 16 j][d], in order over d: A
+// the resident rows, B a streamed 64-row tile, both at pitch FP.
+__device__ __forceinline__ void rows_by_rows(float (&s)[8][4],
+                                             const float* A,
+                                             const float* Bt, int row,
+                                             int cg) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + (threadIdx.x >> 4) * 4 + i;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = k0 + (threadIdx.x & 15) * 4 + j;
-      float p = 0.f, ds = 0.f;
-      if (r < tq && c < tk) {
-        const float x = logit(s[i][j], r, c, len, causal, use_alibi, slope,
-                              scale);
-        p = prob<HAVE_L>(x, a_r[i], l_r[i]);
-        ds = __fmul_rn(p, __fsub_rn(dp[i][j], delta_r[i]));
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < HD; d += 4) {
+    float4 bv[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(Bt + (cg + 16 * j) * FP + d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 av =
+          *reinterpret_cast<const float4*>(A + (row + 2 * i) * FP + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(av.x, bv[j].x, s[i][j]);
+        s[i][j] = fmaf(av.y, bv[j].y, s[i][j]);
+        s[i][j] = fmaf(av.z, bv[j].z, s[i][j]);
+        s[i][j] = fmaf(av.w, bv[j].w, s[i][j]);
       }
-      s[i][j] = p;       // s now holds p, dp holds ds
-      dp[i][j] = ds;
     }
   }
 }
 
-// The statistics (lse, or m and l) and delta of the thread's four query
-// rows.
-template <bool HAVE_L>
-__device__ __forceinline__ void row_stats(float a_r[4], float l_r[4],
-                                          float delta_r[4], const float* ab,
-                                          const float* lb, const float* db,
-                                          int q0, int tq) {
+// acc[i][c] += sum_n P[row + 2 i][n] X[n][4 cg + c] over the 64 n of a
+// tile, in order: P the warp's own rows of the shared tile, X a
+// streamed tile (both at pitch FP).
+__device__ __forceinline__ void rows_times_tile(float (&acc)[8][4],
+                                                const float* P,
+                                                const float* X, int row,
+                                                int cg) {
+#pragma unroll 4
+  for (int n = 0; n < FK; n += 4) {
+    float4 xv[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + (threadIdx.x >> 4) * 4 + i;
-    a_r[i] = r < tq ? ab[r] : 0.f;
-    l_r[i] = HAVE_L && r < tq ? lb[r] : 1.f;
-    delta_r[i] = r < tq ? db[r] : 0.f;
+    for (int u = 0; u < 4; ++u)
+      xv[u] = *reinterpret_cast<const float4*>(X + (n + u) * FP + 4 * cg);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float4 pv =
+          *reinterpret_cast<const float4*>(P + (row + 2 * i) * FP + n);
+      const float pp[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        acc[i][0] = fmaf(pp[u], xv[u].x, acc[i][0]);
+        acc[i][1] = fmaf(pp[u], xv[u].y, acc[i][1]);
+        acc[i][2] = fmaf(pp[u], xv[u].z, acc[i][2]);
+        acc[i][3] = fmaf(pp[u], xv[u].w, acc[i][3]);
+      }
+    }
   }
+}
+
+// The backward's logit of a dot product at |key - query| = dist, as
+// fwd_f32 rounds it.
+__device__ __forceinline__ float logit_f32(float dot, float dist,
+                                           float slope, float scale,
+                                           int use_alibi) {
+  const float x = __fmul_rn(dot, scale);
+  return use_alibi ? __fadd_rn(x, __fmul_rn(slope, dist)) : x;
+}
+
+// p of a logit from its query row's statistics: expf(x - lse) (a =
+// lse), or with HAVE_L expf(x - m) / l (a = m; inv = 1 / l), the
+// quotient correctly rounded by one FMA correction.
+template <bool HAVE_L>
+__device__ __forceinline__ float prob_f32(float x, float a, float l,
+                                          float inv) {
+  const float e = expf(__fsub_rn(x, a));
+  if (!HAVE_L) return e;
+  const float q = __fmul_rn(e, inv);
+  return fmaf(fmaf(-q, l, e), inv, q);
 }
 
 #define BWD_F32_COMMON                                                    \
   const float *__restrict__ q, const float *__restrict__ k,               \
       const float *__restrict__ v, const float *__restrict__ g,           \
-      const float *__restrict__ rowa, const float *__restrict__ rowl,     \
       const float *__restrict__ delta, const int *__restrict__ lengths,   \
       const float *__restrict__ slopes
 #define DKV_F32_ARGS                                                      \
-  BWD_F32_COMMON, float *__restrict__ dk, float *__restrict__ dv, Seq sq, \
-      Seq sk, Seq sv, Seq sg, Seq sdk, Seq sdv, int tq, int tk,           \
-      int nheads, int causal, float scale
-#define DKV_PASS q, k, v, g, rowa, rowl, delta, lengths, slopes, dk, dv, sq, \
+  BWD_F32_COMMON, const float *__restrict__ rowa,                         \
+      const float *__restrict__ rowl, float *__restrict__ dk,             \
+      float *__restrict__ dv, Seq sq, Seq sk, Seq sv, Seq sg, Seq sdk,    \
+      Seq sdv, int tq, int tk, int nheads, int causal, float scale
+#define DKV_PASS q, k, v, g, delta, lengths, slopes, rowa, rowl, dk, dv, sq, \
                  sk, sv, sg, sdk, sdv, tq, tk, nheads, causal, scale
 #define DQ_F32_ARGS                                                       \
-  BWD_F32_COMMON, float *__restrict__ dq, Seq sq, Seq sk, Seq sv, Seq sg, \
-      Seq sdq, int tq, int tk, int nheads, int causal, float scale
-#define DQ_PASS q, k, v, g, rowa, rowl, delta, lengths, slopes, dq, sq, sk, \
+  BWD_F32_COMMON, float *__restrict__ rowa, float *__restrict__ rowl,     \
+      float *__restrict__ dq, Seq sq, Seq sk, Seq sv, Seq sg, Seq sdq,    \
+      int tq, int tk, int nheads, int causal, float scale
+#define DQ_PASS q, k, v, g, delta, lengths, slopes, rowa, rowl, dq, sq, sk, \
                 sv, sg, sdq, tq, tk, nheads, causal, scale
 
-// dk, dv of one key tile, walking the query tiles that see it; with
-// HAVE_L p = exp(s - m) / l from rowa = m and rowl = l, else exp(s - lse)
-// from rowa = lse.
+// dq of one (128-query tile, head, batch); with HAVE_L (K5b) pass 1
+// writes each row's m to rowa and l to rowl, else rowa holds lse.
+template <bool HAVE_L>
+__device__ __forceinline__ void dq_f32(DQ_F32_ARGS) {
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // [FQ][FP]
+  float* Gs = Qs + FQ * FP;                      // [FQ][FP]
+  float* Ps = Gs + FQ * FP;                      // [FQ][FP]: ds
+  float* ring = Ps + FQ * FP;                    // [stage]: K, V [FK][FP]
+  constexpr int STAGE = 2 * FK * FP;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int q0 = qt * FQ - ((int)gridDim.z * FQ - tq);
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane >> 4, cg = lane & 15;
+  const int row = w * 16 + rg;                   // + 2 i
+  const int len = lengths[b];
+  const int use_alibi = slopes != nullptr;
+  const float slope = use_alibi ? slopes[h] : 0.f;
+  const float* kb = k + b * sk.bs + h * sk.hs;
+  const float* vb = v + b * sv.bs + h * sv.hs;
+  const long long bh = (long long)b * nheads + h;
+  const int kt_end = key_tiles_f32(q0, len, tk, causal);
+  const int n1 = HAVE_L ? kt_end : 0;            // pass 1's items (K only)
+  const int items = n1 + kt_end;
+
+  auto issue = [&](int i) {   // item i into stage i & 1
+    const int k0 = (i < n1 ? i : i - n1) * FK;
+    float* st = ring + (i & 1) * STAGE;
+    rows_async(st, FP, kb, sk.rs, k0, FK, tk);
+    if (i >= n1) rows_async(st + FK * FP, FP, vb, sv.rs, k0, FK, tk);
+    cp_commit();
+  };
+  rows_async(Qs, FP, q + b * sq.bs + h * sq.hs, sq.rs, q0, FQ, tq);
+  rows_async(Gs, FP, g + b * sg.bs + h * sg.hs, sg.rs, q0, FQ, tq);
+  issue(0);
+
+  // the rows' statistics (lse, or m, l, 1/l) and delta; 0, 1, 1 and 0
+  // outside [0, tq)
+  float a_r[8], l_r[8], inv_r[8], del_r[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = q0 + row + 2 * i;
+    const bool in = r >= 0 && r < tq;
+    a_r[i] = !HAVE_L && in ? rowa[bh * tq + r] : 0.f;
+    l_r[i] = inv_r[i] = 1.f;
+    del_r[i] = in ? delta[bh * tq + r] : 0.f;
+  }
+  // the warp's 16 rows see no key of tile kt (rows outside [0, tq), or
+  // every key at or past the length or after the rows): its products
+  // would add exact zeros, so it skips them
+  const int r_lo = q0 + 16 * w, r_hi = r_lo + 15;
+  auto warp_idle = [&](int kt) {
+    const int k0 = kt * FK;
+    return r_hi < 0 || r_lo >= tq ||
+           (len >= 1 && (k0 >= len || (causal && k0 > r_hi)));
+  };
+  auto wait_item = [&](int i) {
+    __syncthreads();                 // item i - 1's tiles are read
+    if (i + 1 < items) {
+      issue(i + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();                 // item i is in shared memory
+  };
+
+  if (HAVE_L) {   // pass 1: m and l, online over the key tiles
+    float m[8], l[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) m[i] = -INFINITY, l[i] = 0.f;
+    for (int kt = 0; kt < kt_end; ++kt) {
+      wait_item(kt);
+      if (warp_idle(kt)) continue;
+      const int k0 = kt * FK;
+      float s[8][4];
+      rows_by_rows(s, Qs, ring + (kt & 1) * STAGE, row, cg);
+      const float dist0 = (float)(k0 + cg - q0 - row);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int r = q0 + row + 2 * i;
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = k0 + cg + 16 * j;
+          float x = logit_f32(s[i][j], fabsf(dist0 + (16 * j - 2 * i)),
+                              slope, scale, use_alibi);
+          const bool valid = c < len && (!causal || c <= r);
+          x = c < tk ? (valid ? x : NEG_INF) : -INFINITY;
+          s[i][j] = x;
+          tmax = fmaxf(tmax, x);
+        }
+        const float m_new = fmaxf(m[i], row_max(tmax));
+        float e = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) e += expf(__fsub_rn(s[i][j], m_new));
+        l[i] = fmaf(l[i], expf(__fsub_rn(m[i], m_new)), e);
+        m[i] = m_new;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = q0 + row + 2 * i;
+      a_r[i] = m[i];
+      l_r[i] = row_sum(l[i]);
+      inv_r[i] = 1.f / l_r[i];
+      if (r >= 0 && r < tq && cg == 0) {
+        rowa[bh * tq + r] = a_r[i];
+        rowl[bh * tq + r] = l_r[i];
+      }
+    }
+  }
+
+  // pass 2: dQ += dS K
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int kt = 0; kt < kt_end; ++kt) {
+    const int i_ = n1 + kt, k0 = kt * FK;
+    wait_item(i_);
+    if (warp_idle(kt)) continue;
+    const float* Kt = ring + (i_ & 1) * STAGE;
+    const float* Vt = Kt + FK * FP;
+    float p[8][4], dp[8][4];
+    rows_by_rows(p, Qs, Kt, row, cg);
+    rows_by_rows(dp, Gs, Vt, row, cg);
+    const bool interior = q0 >= 0 && len >= 1 &&
+                          k0 + FK <= min(len, tk) &&
+                          (!causal || k0 + FK - 1 <= q0);
+    const float dist0 = (float)(k0 + cg - q0 - row);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = q0 + row + 2 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = k0 + cg + 16 * j;
+        const float x = logit_f32(p[i][j], fabsf(dist0 + (16 * j - 2 * i)),
+                                  slope, scale, use_alibi);
+        float pr = 0.f;
+        if (interior) {
+          pr = prob_f32<HAVE_L>(x, a_r[i], l_r[i], inv_r[i]);
+        } else if (r >= 0 && r < tq && c < tk) {
+          const bool valid = c < len && (!causal || c <= r);
+          pr = prob_f32<HAVE_L>(valid ? x : NEG_INF, a_r[i], l_r[i],
+                                inv_r[i]);
+        }
+        Ps[(row + 2 * i) * FP + cg + 16 * j] =
+            __fmul_rn(pr, __fsub_rn(dp[i][j], del_r[i]));
+      }
+    }
+    __syncwarp();                    // the warp's rows of dS are written
+    rows_times_tile(acc, Ps, Kt, row, cg);
+  }
+  cp_wait<0>();
+
+  float* dqb = dq + b * sdq.bs + h * sdq.hs;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = q0 + row + 2 * i;
+    if (r < 0) continue;
+    *reinterpret_cast<float4*>(dqb + r * sdq.rs + 4 * cg) =
+        make_float4(__fmul_rn(acc[i][0], scale), __fmul_rn(acc[i][1], scale),
+                    __fmul_rn(acc[i][2], scale),
+                    __fmul_rn(acc[i][3], scale));
+  }
+}
+
+// dk, dv of one (128-key tile, head, batch), walking the 64-query tiles
+// that see it (HAVE_L as in dq_f32; rowa and rowl come from it).
 template <bool HAVE_L>
 __device__ __forceinline__ void dkv_f32(DKV_F32_ARGS) {
   extern __shared__ float4 smem4[];
-  float* Kt = reinterpret_cast<float*>(smem4);
-  float* Vt = Kt + TT;
-  float* Qt = Vt + TT;
-  float* Gt = Qt + TT;
-  float* Ps = Gt + TT;     // p  [r][c]
-  float* Ss = Ps + TT;     // ds [r][c]
-  float* Qs = Ss + TT;
-  float* Gs = Qs + TR;
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * TILE, ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float* Ks = reinterpret_cast<float*>(smem4);   // [FQ][FP]
+  float* Vs = Ks + FQ * FP;                      // [FQ][FP]
+  float* Ps = Vs + FQ * FP;                      // [FQ][FP]: p^T, ds^T
+  float* ring = Ps + FQ * FP;   // [stage]: Q, dO [FK][FP], rows [3][FK]
+  constexpr int STAGE = 2 * FK * FP + 3 * FK;
+  const int h = blockIdx.x, b = blockIdx.y, kt = blockIdx.z;
+  const int k0 = kt * FQ;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane >> 4, cg = lane & 15;
+  const int row = w * 16 + rg;                   // + 2 i
   const int len = lengths[b];
   const int use_alibi = slopes != nullptr;
   const float slope = use_alibi ? slopes[h] : 0.f;
@@ -707,249 +831,148 @@ __device__ __forceinline__ void dkv_f32(DKV_F32_ARGS) {
   const float* ab = rowa + bh * tq;
   const float* lb = HAVE_L ? rowl + bh * tq : nullptr;
   const float* db = delta + bh * tq;
-  const int nq = (tq + TILE - 1) / TILE;
+  const int nq = (tq + FK - 1) / FK;
   int qt_begin = 0;
   if (len >= 1) {
     if (k0 >= len) qt_begin = nq;          // every p of this tile is 0
-    else if (causal) qt_begin = kt;
+    else if (causal) qt_begin = min(nq, k0 / FK);
   }
-  float acc_k[4][4], acc_v[4][4], s[4][4], dp[4][4];
-  float a_r[4], l_r[4], delta_r[4];
-  zero(acc_k);
-  zero(acc_v);
-  if (qt_begin < nq) {
-    load_t(Kt, k + b * sk.bs + h * sk.hs, sk.rs, k0, tk);
-    load_t(Vt, v + b * sv.bs + h * sv.hs, sv.rs, k0, tk);
-  }
-  for (int qt = qt_begin; qt < nq; ++qt) {
-    const int q0 = qt * TILE;
-    __syncthreads();
-    load_t(Qt, qb, sq.rs, q0, tq);
-    load_r(Qs, qb, sq.rs, q0, tq);
-    load_t(Gt, gb, sg.rs, q0, tq);
-    load_r(Gs, gb, sg.rs, q0, tq);
-    __syncthreads();
-    zero(s);
-    zero(dp);
-    outer(Qt, LD, Kt, LD, s, ty, tx);
-    outer(Gt, LD, Vt, LD, dp, ty, tx);
-    row_stats<HAVE_L>(a_r, l_r, delta_r, ab, lb, db, q0, tq);
-    probs<HAVE_L>(s, dp, a_r, l_r, delta_r, q0, k0, tq, tk, len, causal,
-                  use_alibi, slope, scale);
+  const int walk = nq - qt_begin;
+
+  auto issue = [&](int n) {   // query tile qt_begin + n into stage n & 1
+    const int q0 = (qt_begin + n) * FK;
+    float* st = ring + (n & 1) * STAGE;
+    rows_async(st, FP, qb, sq.rs, q0, FK, tq);
+    rows_async(st + FK * FP, FP, gb, sg.rs, q0, FK, tq);
+    float* rs = st + 2 * FK * FP;
+    for (int idx = threadIdx.x; idx < 3 * FK; idx += NT) {
+      const int which = idx / FK, r = q0 + idx % FK;
+      const float* src = which == 0 ? ab : which == 1 ? lb : db;
+      const bool in = r < tq && src != nullptr;
+      cp4(rs + idx, in ? src + r : ab, in);
+    }
+    cp_commit();
+  };
+  float acc_k[8][4], acc_v[8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+  if (walk > 0) {
+    rows_async(Ks, FP, k + b * sk.bs + h * sk.hs, sk.rs, k0, FQ, tk);
+    rows_async(Vs, FP, v + b * sv.bs + h * sv.hs, sv.rs, k0, FQ, tk);
+    issue(0);
+  }
+  for (int n = 0; n < walk; ++n) {
+    const int q0 = (qt_begin + n) * FK;
+    __syncthreads();                 // tile n - 1 is read
+    if (n + 1 < walk) {
+      issue(n + 1);
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();                 // tile n is in shared memory
+    // the warp's 16 keys are seen by no query of the tile (past tk, at or
+    // past the length, or after every query): exact zeros, skipped
+    const int c_lo = k0 + 16 * w;
+    if (c_lo >= tk || (len >= 1 && (c_lo >= len ||
+                                    (causal && c_lo > min(q0 + FK, tq) - 1))))
+      continue;
+    const float* Qt = ring + (n & 1) * STAGE;
+    const float* Gt = Qt + FK * FP;
+    const float* Rt = Gt + FK * FP;  // a, l, delta of the tile's rows
+    float a_c[4], l_c[4], inv_c[4], del_c[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      a_c[j] = Rt[cg + 16 * j];
+      l_c[j] = HAVE_L ? Rt[FK + cg + 16 * j] : 1.f;
+      inv_c[j] = HAVE_L ? 1.f / l_c[j] : 1.f;
+      del_c[j] = Rt[2 * FK + cg + 16 * j];
+    }
+    const bool interior = len >= 1 && q0 + FK <= tq &&
+                          k0 + FQ <= min(len, tk) &&
+                          (!causal || k0 + FQ - 1 <= q0);
+    const float dist0 = (float)(k0 + row - q0 - cg);
+    float p[8][4];
+    rows_by_rows(p, Ks, Qt, row, cg);    // S^T = K Q^T
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int c = k0 + row + 2 * i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        Ps[(ty * 4 + i) * LD + tx * 4 + j] = s[i][j];
-        Ss[(ty * 4 + i) * LD + tx * 4 + j] = dp[i][j];
+        const int r = q0 + cg + 16 * j;
+        const float x = logit_f32(p[i][j], fabsf(dist0 + (2 * i - 16 * j)),
+                                  slope, scale, use_alibi);
+        float pr = 0.f;
+        if (interior) {
+          pr = prob_f32<HAVE_L>(x, a_c[j], l_c[j], inv_c[j]);
+        } else if (r < tq && c < tk) {
+          const bool valid = c < len && (!causal || c <= r);
+          pr = prob_f32<HAVE_L>(valid ? x : NEG_INF, a_c[j], l_c[j],
+                                inv_c[j]);
+        }
+        p[i][j] = pr;
+        Ps[(row + 2 * i) * FP + cg + 16 * j] = pr;
       }
-    __syncthreads();
-    outer(Ps, LD, Gs, HD, acc_v, ty, tx);   // rows: keys ty*4+i
-    outer(Ss, LD, Qs, HD, acc_k, ty, tx);
+    }
+    __syncwarp();                    // the warp's rows of p^T are written
+    rows_times_tile(acc_v, Ps, Gt, row, cg);   // dV += P^T dO
+    float dp[8][4];
+    rows_by_rows(dp, Vs, Gt, row, cg);   // dP^T = V dO^T
+    __syncwarp();                    // the warp's reads of p^T are done
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        Ps[(row + 2 * i) * FP + cg + 16 * j] =
+            __fmul_rn(p[i][j], __fsub_rn(dp[i][j], del_c[j]));
+    __syncwarp();                    // ... and of ds^T written
+    rows_times_tile(acc_k, Ps, Qt, row, cg);   // dK += dS^T Q
   }
+
   float* dkb = dk + b * sdk.bs + h * sdk.hs;
   float* dvb = dv + b * sdv.bs + h * sdv.hs;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int c = k0 + row + 2 * i;
     if (c >= tk) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      dkb[c * sdk.rs + tx * 4 + j] = __fmul_rn(acc_k[i][j], scale);
-      dvb[c * sdv.rs + tx * 4 + j] = acc_v[i][j];
-    }
-  }
-}
-
-// dq of one query tile, walking the key tiles it sees (HAVE_L as in
-// dkv_f32).
-template <bool HAVE_L>
-__device__ __forceinline__ void dq_f32(DQ_F32_ARGS) {
-  extern __shared__ float4 smem4[];
-  float* Qt = reinterpret_cast<float*>(smem4);
-  float* Gt = Qt + TT;
-  float* Kt = Gt + TT;
-  float* Vt = Kt + TT;
-  float* St = Vt + TT;     // ds [c][r]
-  float* Ks = St + TT;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qt * TILE, ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const int len = lengths[b];
-  const int use_alibi = slopes != nullptr;
-  const float slope = use_alibi ? slopes[h] : 0.f;
-  const float* qb = q + b * sq.bs + h * sq.hs;
-  const float* kb = k + b * sk.bs + h * sk.hs;
-  const float* vb = v + b * sv.bs + h * sv.hs;
-  const long long bh = (long long)b * nheads + h;
-  const int kt_end = key_tiles(qt, len, tk, causal);
-  float acc[4][4], s[4][4], dp[4][4], a_r[4], l_r[4], delta_r[4];
-  zero(acc);
-  load_t(Qt, qb, sq.rs, q0, tq);
-  load_t(Gt, g + b * sg.bs + h * sg.hs, sg.rs, q0, tq);
-  row_stats<HAVE_L>(a_r, l_r, delta_r, rowa + bh * tq,
-                    HAVE_L ? rowl + bh * tq : nullptr, delta + bh * tq, q0,
-                    tq);
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();
-    load_t(Kt, kb, sk.rs, k0, tk);
-    load_t(Vt, vb, sv.rs, k0, tk);
-    load_r(Ks, kb, sk.rs, k0, tk);
-    __syncthreads();
-    zero(s);
-    zero(dp);
-    outer(Qt, LD, Kt, LD, s, ty, tx);
-    outer(Gt, LD, Vt, LD, dp, ty, tx);
-    probs<HAVE_L>(s, dp, a_r, l_r, delta_r, q0, k0, tq, tk, len, causal,
-                  use_alibi, slope, scale);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) St[(tx * 4 + j) * LD + ty * 4 + i] = dp[i][j];
-    __syncthreads();
-    outer(St, LD, Ks, HD, acc, ty, tx);
-  }
-  float* dqb = dq + b * sdq.bs + h * sdq.hs;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= tq) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      dqb[r * sdq.rs + tx * 4 + j] = __fmul_rn(acc[i][j], scale);
+    *reinterpret_cast<float4*>(dkb + c * sdk.rs + 4 * cg) =
+        make_float4(__fmul_rn(acc_k[i][0], scale),
+                    __fmul_rn(acc_k[i][1], scale),
+                    __fmul_rn(acc_k[i][2], scale),
+                    __fmul_rn(acc_k[i][3], scale));
+    *reinterpret_cast<float4*>(dvb + c * sdv.rs + 4 * cg) =
+        make_float4(acc_v[i][0], acc_v[i][1], acc_v[i][2], acc_v[i][3]);
   }
 }
 
 // One symbol per TPU kernel replaced (K3b packed, K4b full: from lse;
-// K5b blockwise: from m and l).
-__global__ void __launch_bounds__(NT) k3b_dkv_kernel(DKV_F32_ARGS) {
-  dkv_f32<false>(DKV_PASS);
-}
-__global__ void __launch_bounds__(NT) k4b_dkv_kernel(DKV_F32_ARGS) {
-  dkv_f32<false>(DKV_PASS);
-}
-__global__ void __launch_bounds__(NT) k5b_dkv_kernel(DKV_F32_ARGS) {
-  dkv_f32<true>(DKV_PASS);
-}
-__global__ void __launch_bounds__(NT) k3b_dq_kernel(DQ_F32_ARGS) {
+// K5b blockwise: its own m and l).
+__global__ void __launch_bounds__(NT, 1) k3b_dq_kernel(DQ_F32_ARGS) {
   dq_f32<false>(DQ_PASS);
 }
-__global__ void __launch_bounds__(NT) k4b_dq_kernel(DQ_F32_ARGS) {
+__global__ void __launch_bounds__(NT, 1) k4b_dq_kernel(DQ_F32_ARGS) {
   dq_f32<false>(DQ_PASS);
 }
-__global__ void __launch_bounds__(NT) k5b_dq_kernel(DQ_F32_ARGS) {
+__global__ void __launch_bounds__(NT, 1) k5b_dq_kernel(DQ_F32_ARGS) {
   dq_f32<true>(DQ_PASS);
 }
-
-// ------------------------------------------------------------------
-// K5's bfloat16 forward: the same math with the products on the tensor
-// cores (mma.sync m16n8k16, bf16 x bf16 -> float32).  Four warps per
-// block, each owning 16 rows of the 64-row tile; a product's accumulator
-// fragment is reused, rounded to bf16, as the next product's A operand
-// (p before P.V): exactly the roundings of the plain version.  Tiles
-// sit in shared memory as bf16, row-major or transposed as each
-// product's B operand needs (pitch 72: conflict-free fragment loads).
-// ------------------------------------------------------------------
-typedef __nv_bfloat16 bf16;
-constexpr int MW = 4;                   // warps per block
-constexpr int MT = MW * 32;             // threads per block
-constexpr int LH = HD + 8;              // bf16 pitch of a shared tile
-constexpr int SH = TILE * LH;           // bf16 elements per shared tile
-constexpr int FWD_MMA_SMEM = 3 * SH * 2;
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__global__ void __launch_bounds__(NT, 1) k3b_dkv_kernel(DKV_F32_ARGS) {
+  dkv_f32<false>(DKV_PASS);
 }
+__global__ void __launch_bounds__(NT, 1) k4b_dkv_kernel(DKV_F32_ARGS) {
+  dkv_f32<false>(DKV_PASS);
+}
+__global__ void __launch_bounds__(NT, 1) k5b_dkv_kernel(DKV_F32_ARGS) {
+  dkv_f32<true>(DKV_PASS);
+}
+
+typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Rows [r0, r0 + 64) of one head into shared bf16, row-major (dst[r][d])
-// and/or transposed (dst_t[d][r]); rows at or past T read as 0.  Global
-// rows are read 16 bytes at a time (the wrapper checks the alignment).
-__device__ void load_bf16(bf16* dst, bf16* dst_t, const bf16* src,
-                          long long rs, int r0, int t_len) {
-  for (int idx = threadIdx.x; idx < TILE * HD / 8; idx += MT) {
-    const int r = idx / (HD / 8), d = idx % (HD / 8) * 8, t = r0 + r;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (t < t_len) v = *reinterpret_cast<const uint4*>(src + t * rs + d);
-    if (dst) *reinterpret_cast<uint4*>(dst + r * LH + d) = v;
-    if (dst_t) {
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dst_t[(d + i) * LH + r] = e[i];
-    }
-  }
-}
-
-// A fragments (16 rows x 64) of rows [row0, row0 + 16) of a row-major
-// shared tile: a[k-step][4].
-__device__ __forceinline__ void a_frags(uint32_t a[4][4], const bf16* s,
-                                        int row0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const bf16* p = s + (row0 + g) * LH + ks * 16 + 2 * t;
-    a[ks][0] = ld32(p);
-    a[ks][1] = ld32(p + 8 * LH);
-    a[ks][2] = ld32(p + 8);
-    a[ks][3] = ld32(p + 8 * LH + 8);
-  }
-}
-
-// acc[nt] (16 x 8 each, 8 tiles) += A (16 x 64) . B, where B[k][n] is
-// read from a shared tile stored n-major: bt[n * LH + k].
-__device__ __forceinline__ void mma_rows(float acc[8][4],
-                                         const uint32_t a[4][4],
-                                         const bf16* bt) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const bf16* p = bt + (nt * 8 + g) * LH + ks * 16 + 2 * t;
-      mma16816(acc[nt], a[ks], ld32(p), ld32(p + 8));
-    }
-}
-
-__device__ __forceinline__ void zero8(float a[8][4]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a[i][j] = 0.f;
-}
-
-// The A fragments of a 16 x 64 accumulator (8 column tiles), rounded to
-// bf16: the operand of the next product over those 64 columns.
-__device__ __forceinline__ void acc_to_a(uint32_t a[4][4],
-                                         const float c[8][4]) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    a[ks][0] = pack(c[2 * ks][0], c[2 * ks][1]);
-    a[ks][1] = pack(c[2 * ks][2], c[2 * ks][3]);
-    a[ks][2] = pack(c[2 * ks + 1][0], c[2 * ks + 1][1]);
-    a[ks][3] = pack(c[2 * ks + 1][2], c[2 * ks + 1][3]);
-  }
-}
-
-// Accumulator element e (0..3) of column tile nt: its row within the
-// warp's 16 and its column within the tile's 64.
-__device__ __forceinline__ int frag_row(int e) {
-  return ((threadIdx.x & 31) >> 2) + (e >> 1) * 8;
-}
-__device__ __forceinline__ int frag_col(int nt, int e) {
-  return nt * 8 + 2 * (threadIdx.x & 3) + (e & 1);
 }
 
 // Row reductions over the 4 threads (a quad) that share an accumulator
@@ -961,131 +984,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Pass 1 of the bfloat16 forward: m and l of the warp's two accumulator
-// rows (hr 0, 1) of the 16 at row0, online over the key tiles
-// [0, kt_end); qa holds the query rows' A fragments, Ks is scratch.
-__device__ __forceinline__ void pass1_mma(const uint32_t qa[4][4], bf16* Ks,
-                                          const bf16* kb, long long k_rs,
-                                          int row0, int kt_end, int tk,
-                                          int len, int causal,
-                                          int use_alibi, float slope,
-                                          float scale, float m[2],
-                                          float l[2]) {
-  float s[8][4];
-  m[0] = m[1] = -INFINITY;
-  l[0] = l[1] = 0.f;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();
-    load_bf16(Ks, nullptr, kb, k_rs, k0, tk);
-    __syncthreads();
-    zero8(s);
-    mma_rows(s, qa, Ks);
-    float tmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row0 + frag_row(e), c = k0 + frag_col(nt, e);
-        s[nt][e] = c < tk ? logit(s[nt][e], r, c, len, causal, use_alibi,
-                                  slope, scale)
-                          : -INFINITY;
-        tmax[e >> 1] = fmaxf(tmax[e >> 1], s[nt][e]);
-      }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const float m_new = fmaxf(m[hr], quad_max(tmax[hr]));
-      float e_sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-        e_sum += expf(s[nt][2 * hr] - m_new) + expf(s[nt][2 * hr + 1] - m_new);
-      l[hr] = l[hr] * expf(m[hr] - m_new) + quad_sum(e_sum);
-      m[hr] = m_new;
-    }
-  }
-}
-
-// The bfloat16 forward of one (64-query tile, head, batch), as fwd_f32.
-__device__ __forceinline__ void fwd_mma(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, bf16* __restrict__ o,
-    float* __restrict__ lse, const int* __restrict__ lengths,
-    const float* __restrict__ slopes, Seq sq, Seq sk, Seq sv, Seq so,
-    int tq, int tk, int nheads, int causal, float scale) {
-  extern __shared__ float4 smem4[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem4);
-  bf16* Ks = Qs + SH;      // [key][d]: B of S = Q K^T
-  bf16* Vt = Ks + SH;      // [d][key]: B of O = P V
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int w = threadIdx.x >> 5, q0 = qt * TILE, row0 = q0 + w * 16;
-  const int len = lengths[b];
-  const int use_alibi = slopes != nullptr;
-  const float slope = use_alibi ? slopes[h] : 0.f;
-  const bf16* kb = k + b * sk.bs + h * sk.hs;
-  const bf16* vb = v + b * sv.bs + h * sv.hs;
-  const int kt_end = key_tiles(qt, len, tk, causal);
-
-  load_bf16(Qs, nullptr, q + b * sq.bs + h * sq.hs, sq.rs, q0, tq);
-  __syncthreads();
-  uint32_t qa[4][4], pa[4][4];
-  a_frags(qa, Qs, w * 16);
-  float m[2], l[2], s[8][4];
-  pass1_mma(qa, Ks, kb, sk.rs, row0, kt_end, tk, len, causal, use_alibi,
-            slope, scale, m, l);
-
-  float acc[8][4];
-  zero8(acc);
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * TILE;
-    __syncthreads();
-    load_bf16(Ks, nullptr, kb, sk.rs, k0, tk);
-    load_bf16(nullptr, Vt, vb, sv.rs, k0, tk);
-    __syncthreads();
-    zero8(s);
-    mma_rows(s, qa, Ks);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row0 + frag_row(e), c = k0 + frag_col(nt, e);
-        float p = 0.f;
-        if (c < tk) {
-          const float x = logit(s[nt][e], r, c, len, causal, use_alibi,
-                                slope, scale);
-          p = __fdiv_rn(expf(x - m[e >> 1]), l[e >> 1]);
-        }
-        s[nt][e] = p;
-      }
-    acc_to_a(pa, s);
-    mma_rows(acc, pa, Vt);
-  }
-
-  bf16* ob = o + b * so.bs + h * so.hs;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = row0 + frag_row(2 * hr);
-    if (r >= tq) continue;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      *reinterpret_cast<uint32_t*>(ob + r * so.rs + frag_col(nt, 0)) =
-          pack(acc[nt][2 * hr], acc[nt][2 * hr + 1]);
-    if (lse && (threadIdx.x & 3) == 0)
-      lse[((long long)b * nheads + h) * tq + r] = m[hr] + logf(l[hr]);
-  }
-}
-
-#define FWD_MMA_ARGS                                                      \
-  const bf16 *__restrict__ q, const bf16 *__restrict__ k,                 \
-      const bf16 *__restrict__ v, bf16 *__restrict__ o,                   \
-      float *__restrict__ lse, const int *__restrict__ lengths,           \
-      const float *__restrict__ slopes, Seq sq, Seq sk, Seq sv, Seq so,   \
-      int tq, int tk, int nheads, int causal, float scale
-
-// K5's bfloat16 forward (Tk up to 8192: no resident K).
-__global__ void __launch_bounds__(MT) k5_fwd_mma_kernel(FWD_MMA_ARGS) {
-  fwd_mma(FWD_PASS);
 }
 
 // ------------------------------------------------------------------
@@ -1449,6 +1347,233 @@ __global__ void __launch_bounds__(WG_NT) k3_fwd_wgmma_kernel(FWD_WGMMA_ARGS) {
 }
 __global__ void __launch_bounds__(WG_NT) k4_fwd_wgmma_kernel(FWD_WGMMA_ARGS) {
   fwd_wgmma(FWD_WGMMA_PASS);
+}
+
+// ------------------------------------------------------------------
+// K5's bfloat16 forward for Hopper (fwd_stream_wgmma): TMA rings, two
+// consumer warpgroups, wgmma products (the design note at the top of
+// the file).
+// ------------------------------------------------------------------
+constexpr int K5_WGS = 2;                    // consumer warpgroups
+constexpr int K5_Q = K5_WGS * TILE;          // query rows per block
+constexpr int K5_NT = K5_WGS * WG + 32;      // and one producer warp
+
+// The dynamic shared memory of K5's plan with `stages` ring stages:
+// alignment slack, Q (one 64-row tile per warpgroup), a K and a V tile
+// per stage (1024-byte aligned for the 128B swizzle), then the
+// mbarriers (Q, full and empty per stage).  ops/flash_attention.py's
+// k5_fwd_plan computes the same.
+constexpr int k5_plan_bytes(int stages) {
+  return 1024 + (K5_WGS + 2 * stages) * TILE_BYTES + 8 * (1 + 2 * stages);
+}
+
+// The bfloat16 forward of one (128-query tile, head, batch) of K5: Tq
+// queries against Tk keys (up to 8192), both positions from 0, no lse.
+// Warpgroup wg owns the 64-row query tile 2 qb + wg and walks its own
+// key tiles (key_tiles; none for rows wholly past tq); the producer
+// streams the longer walk twice through one ring, K alone in pass 1 and
+// K with V in pass 2, and a warpgroup past its own walk only waits for
+// and frees the stages it does not read.
+__device__ __forceinline__ void fwd_stream_wgmma(
+    const CUtensorMap* mq, const CUtensorMap* mk, const CUtensorMap* mv,
+    bf16* __restrict__ o, const int* __restrict__ lengths,
+    const float* __restrict__ slopes, Seq so, int tq, int tk, int causal,
+    float scale, int stages) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t ring = sq + K5_WGS * TILE_BYTES;   // stage st: K, then V
+  const uint32_t bq = ring + 2 * stages * TILE_BYTES;   // mbarriers
+  const uint32_t bfull = bq + 8, bempty = bfull + 8 * stages;
+  const int n_qb = (tq + K5_Q - 1) / K5_Q;
+  const int h = blockIdx.x, b = blockIdx.y, qb = n_qb - 1 - blockIdx.z;
+  const int q0 = qb * K5_Q, len = lengths[b], tid = threadIdx.x;
+  auto walk_of = [&](int wg) {   // key tiles of warpgroup wg's rows
+    const int t64 = 2 * qb + wg;
+    return t64 * TILE < tq ? key_tiles(t64, len, tk, causal) : 0;
+  };
+  const int n = max(walk_of(0), walk_of(1));   // the ring's walk
+
+  if (tid == 0) {
+    mbar_init(bq, 1);
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(bfull + 8 * st, 1);
+      mbar_init(bempty + 8 * st, 4 * K5_WGS);   // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= K5_WGS * WG) {   // the producer warp: one thread issues
+    if (tid == K5_WGS * WG) {
+      const int nq = q0 + TILE < tq ? 2 : 1;   // Q tiles holding rows
+      mbar_expect(bq, nq * TILE_BYTES);
+      for (int j = 0; j < nq; ++j)
+        tma_tile(sq + j * TILE_BYTES, mq, bq, q0 + j * TILE, h, b);
+      for (int i = 0; i < 2 * n; ++i) {
+        const int st = i % stages, kt = i < n ? i : i - n;
+        const uint32_t dst = ring + st * 2 * TILE_BYTES;
+        const uint32_t full = bfull + 8 * st;
+        if (i >= stages) mbar_wait(bempty + 8 * st, (i / stages - 1) & 1);
+        mbar_expect(full, (i < n ? 1 : 2) * TILE_BYTES);
+        tma_tile(dst, mk, full, kt * TILE, h, b);
+        if (i >= n) tma_tile(dst + TILE_BYTES, mv, full, kt * TILE, h, b);
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / WG, w = (tid % WG) >> 5, lane = tid & 31;
+  const int t64 = 2 * qb + wg, walk = walk_of(wg), last = walk - 1;
+  const int rr = t64 * TILE + 16 * w + (lane >> 2);   // rows rr, rr + 8
+  const float slope = slopes != nullptr ? slopes[h] : 0.f;
+  // key tiles [0, n_in) lie wholly inside the length and causal edges
+  int n_in = 0;
+  if (len >= 1) {
+    n_in = min(len, tk) / TILE;
+    if (causal) n_in = min(n_in, t64);
+  }
+  const uint64_t dq = sw128_desc(sq + wg * TILE_BYTES, 16, 1024);
+  auto stage = [&](int i) { return ring + (i % stages) * 2 * TILE_BYTES; };
+  auto dk = [&](int i) { return sw128_desc(stage(i), 16, 1024); };
+  auto full_wait = [&](int i) {
+    mbar_wait(bfull + 8 * (i % stages), (i / stages) & 1);
+    __syncwarp();
+  };
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bempty + 8 * (i % stages));
+  };
+  // The products overlap the softmax as in fwd_wgmma: s is written by
+  // wgmma alone and read only after its group has retired, and every
+  // iteration issues the next Q K^T unconditionally (the last tile's
+  // again at the end, unread, before its stage is freed).
+  float s[32], x[32], acc[32];
+  uint32_t pa[16];   // P's A fragments, four per k16 step of keys
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = acc[i] = 0.f;
+  auto logits = [&](int kt) {   // x from s
+    const int cc = kt * TILE + 2 * (lane & 3);
+    if (kt < n_in)
+      tile_logits<false>(x, s, rr, cc, tk, len, causal, slope, scale);
+    else
+      tile_logits<true>(x, s, rr, cc, tk, len, causal, slope, scale);
+  };
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, inv[2];
+  mbar_wait(bq, 0);
+
+  // pass 1 (items 0 .. n - 1): the row max and the (thread-partial)
+  // sum, online; tile kt's softmax runs beside tile kt + 1's Q K^T
+  if (walk > 0) {
+    full_wait(0);
+    qk_issue(s, dq, dk(0));
+    for (int kt = 0; kt < walk; ++kt) {
+      const int nx = min(kt + 1, last);
+      wg_wait<0>();
+      reg_fence(s);
+      if (kt < last) release(kt);
+      logits(kt);
+      full_wait(nx);
+      qk_issue(s, dq, dk(nx));
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          mx = fmaxf(mx, fmaxf(x[4 * nt + 2 * j], x[4 * nt + 2 * j + 1]));
+        const float m_new = fmaxf(m[j], quad_max(mx));
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            sum += ex2(__fmul_rn(__fsub_rn(x[4 * nt + 2 * j + e], m_new),
+                                 LOG2E));
+        l[j] = l[j] * ex2(__fmul_rn(__fsub_rn(m[j], m_new), LOG2E)) + sum;
+        m[j] = m_new;
+      }
+    }
+    wg_wait<0>();   // the unread last product
+    reg_fence(s);
+    release(last);
+  }
+  for (int kt = max(walk, 0); kt < n; ++kt) {   // stages this group skips
+    full_wait(kt);
+    release(kt);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    l[j] = quad_sum(l[j]);
+    inv[j] = 1.f / l[j];
+  }
+
+  // pass 2 (items n .. 2 n - 1): p = exp(s - m) / l rounded to bf16, O
+  // += P V; tile kt + 1's softmax runs beside tile kt's P V
+  auto probs = [&]() {   // x = p from the logits in x
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = (i >> 1) & 1;
+      x[i] = __fmul_rn(ex2(__fmul_rn(__fsub_rn(x[i], m[j]), LOG2E)),
+                       inv[j]);
+    }
+  };
+  if (walk > 0) {
+    full_wait(n);
+    qk_issue(s, dq, dk(n));
+    wg_wait<0>();
+    reg_fence(s);
+    logits(0);
+    probs();
+#pragma unroll
+    for (int i = 0; i < 16; ++i) pa[i] = pack(x[2 * i], x[2 * i + 1]);
+    for (int kt = 0; kt < walk; ++kt) {
+      const int it = n + kt, nx = n + min(kt + 1, last);
+      full_wait(nx);
+      qk_issue(s, dq, dk(nx));
+      const uint32_t vt = stage(it) + TILE_BYTES;
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)   // 16 keys = two 1024-byte atoms
+        wgmma_rs(acc, pa + 4 * ks, sw128_desc(vt + ks * 2048, 1024, 1024));
+      wg_commit();
+      wg_wait<1>();   // the next tile's Q K^T; P V still runs
+      reg_fence(s);
+      if (kt < last) {
+        logits(kt + 1);
+        probs();
+      }
+      wg_wait<0>();
+      reg_fence(acc);
+      release(it);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) pa[i] = pack(x[2 * i], x[2 * i + 1]);
+    }
+  }
+  for (int kt = max(walk, 0); kt < n; ++kt) {
+    full_wait(n + kt);
+    release(n + kt);
+  }
+
+  bf16* ob = o + b * so.bs + h * so.hs;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int r = rr + 8 * j;
+    if (r >= tq) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<uint32_t*>(ob + r * so.rs + 8 * nt +
+                                   2 * (lane & 3)) =
+          pack(acc[4 * nt + 2 * j], acc[4 * nt + 2 * j + 1]);
+  }
+}
+
+__global__ void __launch_bounds__(K5_NT, 1) k5_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap mq,
+    const __grid_constant__ CUtensorMap mk,
+    const __grid_constant__ CUtensorMap mv, bf16* __restrict__ o,
+    const int* __restrict__ lengths, const float* __restrict__ slopes,
+    Seq so, int tq, int tk, int causal, float scale, int stages) {
+  fwd_stream_wgmma(&mq, &mk, &mv, o, lengths, slopes, so, tq, tk, causal,
+                   scale, stages);
 }
 
 // ------------------------------------------------------------------
@@ -2051,13 +2176,45 @@ int launch_fwd_wgmma(int kid, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// K5 bfloat16 forward: one block per (128-query tile, head, batch),
+// query tiles in the grid's slowest axis, the longest walks first.
+// `smem`, `q_rows` and `stages` are the wrapper's plan (k5_fwd_plan); a
+// plan that cannot hold this launch is refused.
+int launch_fwd_stream(const void* q, const void* k, const void* v, void* o,
+                      const int* lengths, const float* slopes, Seq sq,
+                      Seq sk, Seq sv, Seq so, int B, int tq, int tk, int H,
+                      int causal, float scale, int smem, int q_rows,
+                      int stages, cudaStream_t stream) {
+  if (q_rows != K5_Q || stages < 2 || smem < k5_plan_bytes(stages) ||
+      smem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  int err = tile_map(&mq, q, sq, tq, H, B);
+  if (!err) err = tile_map(&mk, k, sk, tk, H, B);
+  if (!err) err = tile_map(&mv, v, sv, tk, H, B);
+  if (err) return err;
+  static int attr = 0;   // the largest size set
+  if (smem > attr) {
+    err = (int)cudaFuncSetAttribute(
+        k5_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err) return err;
+    attr = smem;
+  }
+  dim3 grid(H, B, (tq + K5_Q - 1) / K5_Q);
+  k5_fwd_wgmma_kernel<<<grid, K5_NT, smem, stream>>>(
+      mq, mk, mv, (bf16*)o, lengths, slopes, so, tq, tk, causal, scale,
+      stages);
+  return (int)cudaGetLastError();
+}
+
 // One forward launch of entry point `kid` (0: K3, 1: K4, 2: K5); lse may
 // be null.  K3/K4 in bfloat16 take the wgmma kernels with the plan (smem,
-// tiles, stages); K5 in bfloat16 the mma.sync kernel, one block per
-// (64-query tile, head, batch); float32 the one-pass body, one block per
-// (128-query tile, head, batch), the last query tiles first, whose plan
-// (smem bytes, query rows per tile, stages: f32_fwd_plan) must be this
-// body's.
+// tiles, stages); K5 in bfloat16 the streaming kernel with its plan
+// (smem, query rows per block, stages); float32 the one-pass body, one
+// block per (128-query tile, head, batch), the last query tiles first,
+// whose plan (smem bytes, query rows per tile, stages: f32_fwd_plan) must
+// be this body's.
 int launch_fwd(int kid, int use_mma, const void* q, const void* k,
                const void* v, void* o, float* lse, const int* lengths,
                const float* slopes, Seq sq, Seq sk, Seq sv, Seq so, int B,
@@ -2069,13 +2226,10 @@ int launch_fwd(int kid, int use_mma, const void* q, const void* k,
                             sv, so, B, tq, H, causal, scale, smem, tiles,
                             stages, stream);
   }
-  if (use_mma) {
-    dim3 grid((tq + TILE - 1) / TILE, H, B);
-    k5_fwd_mma_kernel<<<grid, MT, FWD_MMA_SMEM, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse,
-        lengths, slopes, sq, sk, sv, so, tq, tk, H, causal, scale);
-    return (int)cudaGetLastError();
-  }
+  if (use_mma)
+    return launch_fwd_stream(q, k, v, o, lengths, slopes, sq, sk, sv, so, B,
+                             tq, tk, H, causal, scale, smem, tiles, stages,
+                             stream);
   if (smem != FWD_F32_SMEM || tiles != FQ || stages != F_STAGES)
     return (int)cudaErrorInvalidValue;
   static bool attr[3] = {false, false, false};
@@ -2147,11 +2301,12 @@ int launch_bwd_wgmma(int kid, const void* q, const void* k, const void* v,
 }
 
 // The backward's two launches of entry point `kid` (0: K3b, 1: K4b,
-// 2: K5b): float32, one block per (64-key tile, head, batch) for dk and
-// dv, then one per (64-query tile, head, batch) for dq; bfloat16 takes
-// launch_bwd_wgmma with the plan (smem, stages).  K3b and K4b read lse
-// from rowa; K5b reads m from rowa and l from rowl (float32: from
-// flash_stats_launch; bfloat16: written there by the dq kernel).
+// 2: K5b), the dq kernel then the dk/dv kernel: bfloat16 takes
+// launch_bwd_wgmma with its plan (smem, stages); float32 one block per
+// (128-query tile, head, batch) for dq, then one per (128-key tile,
+// head, batch) for dk and dv, whose plan (smem bytes, stages:
+// f32_bwd_plan) must be this body's.  K3b and K4b read lse from rowa;
+// K5b's dq kernel writes m to rowa and l to rowl for the dk/dv kernel.
 int launch_bwd(int kid, int use_mma, const void* q, const void* k,
                const void* v, const void* g, float* rowa, float* rowl,
                const float* delta, const int* lengths, const float* slopes,
@@ -2164,28 +2319,32 @@ int launch_bwd(int kid, int use_mma, const void* q, const void* k,
                             slopes, dq, dk, dv, sq, sk, sv, sg, sdq, sdk,
                             sdv, B, tq, tk, H, causal, scale, smem, stages,
                             stream);
-  dim3 gk((tk + TILE - 1) / TILE, H, B), gq((tq + TILE - 1) / TILE, H, B);
+  if (smem != BWD_F32_SMEM || stages != F_STAGES)
+    return (int)cudaErrorInvalidValue;
   int err;
   static bool attr[3] = {false, false, false};
   if (!attr[kid]) {
-    cudaFuncSetAttribute(DKV_F32[kid],
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         DKV_SMEM);
-    cudaFuncSetAttribute(DQ_F32[kid],
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         DQ_SMEM);
+    err = (int)cudaFuncSetAttribute(
+        DQ_F32[kid], cudaFuncAttributeMaxDynamicSharedMemorySize,
+        BWD_F32_SMEM);
+    if (!err)
+      err = (int)cudaFuncSetAttribute(
+          DKV_F32[kid], cudaFuncAttributeMaxDynamicSharedMemorySize,
+          BWD_F32_SMEM);
+    if (err) return err;
     attr[kid] = true;
   }
-  DKV_F32[kid]<<<gk, NT, DKV_SMEM, stream>>>(
+  dim3 gq(H, B, (tq + FQ - 1) / FQ), gk(H, B, (tk + FQ - 1) / FQ);
+  DQ_F32[kid]<<<gq, NT, BWD_F32_SMEM, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)g,
-      rowa, rowl, delta, lengths, slopes, (float*)dk, (float*)dv, sq, sk,
-      sv, sg, sdk, sdv, tq, tk, H, causal, scale);
+      delta, lengths, slopes, rowa, rowl, (float*)dq, sq, sk, sv, sg, sdq,
+      tq, tk, H, causal, scale);
   err = (int)cudaGetLastError();
   if (err) return err;
-  DQ_F32[kid]<<<gq, NT, DQ_SMEM, stream>>>(
+  DKV_F32[kid]<<<gk, NT, BWD_F32_SMEM, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)g,
-      rowa, rowl, delta, lengths, slopes, (float*)dq, sq, sk, sv, sg, sdq,
-      tq, tk, H, causal, scale);
+      delta, lengths, slopes, rowa, rowl, (float*)dk, (float*)dv, sq, sk,
+      sv, sg, sdk, sdv, tq, tk, H, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -2230,8 +2389,8 @@ int flash_fwd_full_launch(const void* q, const void* k, const void* v,
                     (cudaStream_t)stream);
 }
 
-// K5: Tq queries against Tk keys, no lse; the float32 plan (unread for
-// bfloat16).
+// K5: Tq queries against Tk keys, no lse; the plan of its body
+// (k5_fwd_plan in bfloat16, f32_fwd_plan in float32).
 int flash_fwd_tiled_launch(const void* q, const void* k, const void* v,
                            void* o, const int* lengths, const float* slopes,
                            long long q_bs, long long q_hs, long long q_rs,
@@ -2269,28 +2428,10 @@ int flash_bwd_packed_launch(const void* q, const void* k, const void* v,
                     (cudaStream_t)stream);
 }
 
-// K5b's float32 row statistics, m into m_out and l into l_out, each
-// (B, H, Tq): one block per (64-query tile, head, batch).  (The bf16
-// backward folds them into its dq kernel.)
-int flash_stats_launch(const void* q, const void* k, const int* lengths,
-                       const float* slopes, float* m_out, float* l_out,
-                       long long q_bs, long long q_hs, long long q_rs,
-                       long long k_bs, long long k_hs, long long k_rs, int B,
-                       int Tq, int Tk, int H, int causal, float scale,
-                       void* stream) {
-  Seq sq{q_bs, q_hs, q_rs}, sk{k_bs, k_hs, k_rs};
-  dim3 grid((Tq + TILE - 1) / TILE, H, B);
-  k5b_stats_kernel<<<grid, NT, STATS_SMEM, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, lengths, slopes, m_out, l_out, sq,
-      sk, Tq, Tk, H, causal, scale);
-  return (int)cudaGetLastError();
-}
-
 // K4b (`kid` 1: Tq = Tk, rowa = lse from K4, rowl null) or K5b (`kid` 2:
-// rowa and rowl hold m and l, from flash_stats_launch in float32 and
-// from the dq kernel in bfloat16) on (B, H, T, D)
-// operands; `smem` and `stages` are the bf16 backward's plan (unread for
-// float32).
+// rowa and rowl receive each row's m and l from the dq kernel) on (B, H,
+// T, D) operands; `smem` and `stages` are the backward's plan
+// (bwd_smem_plan in bfloat16, f32_bwd_plan in float32).
 int flash_bwd_bhtd_launch(int kid, const void* q, const void* k,
                           const void* v, const void* g, float* rowa,
                           float* rowl, const float* delta,

@@ -56,11 +56,18 @@ a Hopper kernel (TMA tensor maps built from the operands' strides,
 ``wgmma``) whose dynamic shared memory the wrapper plans
 (``fwd_smem_plan``) and the launcher checks; so do K3b, K4b and K5b in
 bfloat16 (``bwd_smem_plan``: two launches, dq then dk/dv, K5b's row
-statistics folded into the dq kernel).  K3, K4 and K5 in float32 run one
-body, a single pass over the key tiles with the softmax online, whose
-plan (``f32_fwd_plan``: 128-query tiles, a two-stage K/V ring) the
-launcher checks; it reads q, k and v 16 bytes at a time, so their bases
-and strides must be 16-byte aligned, as the bf16 kernels' must.
+statistics folded into the dq kernel).  K5 in bfloat16 runs a Hopper
+kernel of its own (two passes over K streamed through a TMA ring, two
+consumer warpgroups sharing each K/V tile) whose plan (``k5_fwd_plan``,
+the same for every Tq and Tk) the launcher checks.  K3, K4 and K5 in
+float32 run one body, a single pass over the key tiles with the softmax
+online, whose plan (``f32_fwd_plan``: 128-query tiles, a two-stage K/V
+ring) the launcher checks; K3b, K4b and K5b in float32 run one backward
+body (``f32_bwd_plan``: the dq kernel, K5b's row statistics folded in,
+then the dk/dv kernel, 128 resident rows and a two-stage ring of 64-row
+tiles each).  The float32 kernels read their operands 16 bytes at a
+time, so every operand's base and strides must be 16-byte aligned, as
+the bf16 kernels' must.
 """
 from __future__ import annotations
 
@@ -79,8 +86,12 @@ V_STAGES = 2          # the bf16 K3/K4 forward's ring of V tiles
 BWD_STAGES = 2        # the bf16 K3b/K4b/K5b backward's rings
 K5B_BF16_KERNELS = 2  # kernels per bf16 K5b call: dq (statistics folded
 #                       in), then dk/dv
-F32_Q_TILE = 128      # the float32 forward's query rows per block
-F32_STAGES = 2        # its K/V ring
+K5B_F32_KERNELS = 2   # the same in float32
+K5_Q_ROWS = 128       # the bf16 K5 forward's query rows per block
+K5_STAGES = 4         # its K/V ring
+F32_Q_TILE = 128      # the float32 forward's query rows per block (and
+#                       the float32 backward's resident rows)
+F32_STAGES = 2        # its K/V ring (and the backward's)
 F32_PITCH = HEAD_DIM + 4   # floats per shared row of its Q, K and P tiles
 SMEM_LIMIT = 232448   # the most dynamic shared memory an H100 block takes
 
@@ -235,7 +246,7 @@ _LIB = None
 
 
 def _launchers():
-    """The six launch functions of ``csrc/flash_attention.cu``, built
+    """The five launch functions of ``csrc/flash_attention.cu``, built
     and bound at first use."""
     global _LIB
     if _LIB is None:
@@ -252,13 +263,11 @@ def _launchers():
             + [f] + [i] * 3 + [p]
         lib.flash_fwd_tiled_launch.argtypes = [p] * 6 + [ll] * 12 \
             + [i] * 6 + [f] + [i] * 3 + [p]
-        lib.flash_stats_launch.argtypes = [p] * 6 + [ll] * 6 + [i] * 5 \
-            + [f, p]
         lib.flash_bwd_bhtd_launch.argtypes = [i] + [p] * 12 + [ll] * 21 \
             + [i] * 6 + [f] + [i] * 2 + [p]
         for fn in (lib.flash_fwd_packed_launch, lib.flash_bwd_packed_launch,
                    lib.flash_fwd_full_launch, lib.flash_fwd_tiled_launch,
-                   lib.flash_stats_launch, lib.flash_bwd_bhtd_launch):
+                   lib.flash_bwd_bhtd_launch):
             fn.restype = i
         _LIB = lib
     return _LIB
@@ -312,12 +321,102 @@ def bwd_smem_plan() -> BwdPlan:
 
 def bwd_plan_args(q: torch.Tensor) -> Tuple[int, int]:
     """(smem bytes, ring stages) of a backward launch: ``bwd_smem_plan``
-    for bf16 (K3b, K4b and K5b alike), zeros for float32 (whose kernels
-    take none)."""
-    if q.dtype != torch.bfloat16:
-        return (0, 0)
-    plan = bwd_smem_plan()
+    for bf16 and ``f32_bwd_plan`` for float32 (K3b, K4b and K5b
+    alike)."""
+    plan = bwd_smem_plan() if q.dtype == torch.bfloat16 else f32_bwd_plan()
     return (plan.bytes, plan.stages)
+
+
+class K5Plan(NamedTuple):
+    """The launch plan of the bf16 K5 forward (``fwd_stream_wgmma`` in
+    ``csrc/flash_attention.cu``, whose ``k5_plan_bytes`` is the same
+    sum)."""
+    q_rows: int       # query rows per block: 64 per consumer warpgroup
+    stages: int       # ring stages, each a K and a V tile
+    bytes: int        # alignment slack, Q, the stages and mbarriers
+
+
+def k5_fwd_plan() -> K5Plan:
+    """The bf16 K5 forward's plan: 1024 bytes of alignment slack, the
+    block's 128 query rows as two 64 x 64 bf16 tiles, ``K5_STAGES`` ring
+    stages of a K and a V tile (both passes stream K, the second V too,
+    so nothing grows with Tq or Tk: one plan takes every call up to Tk
+    8192), one 8-byte mbarrier for Q and each stage's full and empty."""
+    tile_bytes = TILE * HEAD_DIM * 2
+    nbytes = (1024 + (K5_Q_ROWS // TILE + 2 * K5_STAGES) * tile_bytes
+              + 8 * (1 + 2 * K5_STAGES))
+    return K5Plan(K5_Q_ROWS, K5_STAGES, nbytes)
+
+
+def k5_grid(b: int, h: int, tq: int) -> Tuple[int, int, int]:
+    """The bf16 K5 forward's grid (x, y, z): heads, batch rows and
+    128-row query blocks, block z holding query tile ``nz - 1 - z`` (the
+    longest causal walks first)."""
+    return (h, b, -(-tq // K5_Q_ROWS))
+
+
+def k5_walks(qb: int, tq: int, length: int, tk: int,
+             causal: bool) -> Tuple[int, int, int]:
+    """(warpgroup 0's walk, warpgroup 1's walk, the ring's walk) of
+    query block ``qb`` of the bf16 K5 forward: warpgroup w owns 64-row
+    tile 2 qb + w and walks key tiles [0, n) (``key_tiles`` of the bf16
+    bodies; none for rows wholly at or past ``tq``), and the producer
+    streams the longer walk."""
+    walks = []
+    for w in range(2):
+        t64 = 2 * qb + w
+        if t64 * TILE >= tq:
+            walks.append(0)
+            continue
+        end = -(-tk // TILE)
+        if length >= 1:
+            end = min(end, -(-length // TILE))
+            if causal:
+                end = min(end, t64 + 1)
+        walks.append(end)
+    return walks[0], walks[1], max(walks)
+
+
+class F32BwdPlan(NamedTuple):
+    """The launch plan of the float32 backward (K3b, K4b and K5b in
+    float32: ``dq_f32`` and ``dkv_f32`` in ``csrc/flash_attention.cu``,
+    whose ``BWD_F32_SMEM`` and ``F_STAGES`` the launcher holds it to)."""
+    rows: int         # resident rows per block (queries, or keys)
+    tile: int         # rows per streamed tile
+    stages: int       # ring stages
+    bytes: int        # the resident rows, the P/dS tile and the stages
+
+
+def f32_bwd_plan() -> F32BwdPlan:
+    """The float32 backward's plan, one for both kernels: three tiles of
+    128 rows at ``F32_PITCH`` floats (Q and dO, or K and V, resident, and
+    the warps' P or dS rows) and ``F32_STAGES`` stages of two streamed
+    64-row tiles (K and V, or Q and dO) with the dk/dv walk's three
+    float32 rows of query statistics (lse or m, l, and delta).  Nothing
+    grows with Tq or Tk."""
+    floats = (3 * F32_Q_TILE * F32_PITCH
+              + F32_STAGES * (2 * TILE * F32_PITCH + 3 * TILE))
+    return F32BwdPlan(F32_Q_TILE, TILE, F32_STAGES, 4 * floats)
+
+
+def f32_bwd_walk(kind: str, i: int, tq: int, length: int, tk: int,
+                 causal: bool) -> range:
+    """The tiles block ``i`` of the float32 backward walks: ``kind``
+    "dq" (128-query tile ``i``, aligned to end at ``tq`` as the float32
+    forward's: its 64-key tiles, the forward's ``f32_key_tiles``) or
+    "dkv" (128-key tile ``i``: the 64-query tiles from the first that
+    can see it)."""
+    if kind == "dq":
+        return range(f32_key_tiles(i, tq, length, tk, causal))
+    nq = -(-tq // TILE)
+    k0 = i * F32_Q_TILE
+    begin = 0
+    if length >= 1:
+        if k0 >= length:
+            begin = nq
+        elif causal:
+            begin = min(nq, k0 // TILE)
+    return range(begin, nq)
 
 
 class F32Plan(NamedTuple):
@@ -386,9 +485,9 @@ def _plan_args(q: torch.Tensor, t: int) -> Tuple[int, ...]:
 
 
 def _fwd_args(q: torch.Tensor, t: int) -> Tuple[int, ...]:
-    """The plan a K3/K4/K5 forward launch takes: ``_plan_args`` for
-    bfloat16 (K5's mma.sync kernel reads none), and for float32
-    ``f32_fwd_plan`` as (smem bytes, query rows per tile, stages)."""
+    """The plan a K3/K4 forward launch takes: ``_plan_args`` for
+    bfloat16, and for float32 ``f32_fwd_plan`` as (smem bytes, query rows
+    per tile, stages), which K5's float32 launch takes too."""
     if q.dtype == torch.bfloat16:
         return _plan_args(q, t)
     plan = f32_fwd_plan()
@@ -396,9 +495,9 @@ def _fwd_args(q: torch.Tensor, t: int) -> Tuple[int, ...]:
 
 
 def _launch_error(what: str, err: int) -> RuntimeError:
-    """The error of a failed launch; the bf16 K3/K4 forward and K4b/K5b
-    backward add codes of their own for the TMA tensor maps (csrc
-    TMA_NO_ENCODER, TMA_ENCODE)."""
+    """The error of a failed launch; the bf16 forwards and backwards add
+    codes of their own for the TMA tensor maps (csrc TMA_NO_ENCODER,
+    TMA_ENCODE)."""
     if err == 900:
         why = "the driver has no cuTensorMapEncodeTiled"
     elif err >= 1000:
@@ -547,7 +646,7 @@ def _packed_backward(q, k, v, o, g, lse, lengths, slopes, causal: bool,
     _check_packed(q, k, v, lengths, slopes, nheads)
     b, t, hd = q.shape
     dev = q.device
-    seqs = [_strides(n, x, q.shape, q.dtype, dev)
+    seqs = [_strides(n, x, q.shape, q.dtype, dev, aligned=True)
             for n, x in (("q", q), ("k", k), ("v", v), ("dO", g))]
     _strides("o", o, q.shape, q.dtype, dev)
     if lse.shape != (b, nheads, t) or lse.dtype != torch.float32 \
@@ -602,8 +701,11 @@ def _bhtd_launch(kind: str, q, k, v, lengths, slopes, causal: bool,
             slope_ptr, *common, b, tq, h, *tail[:3],
             *_fwd_args(q, tq), tail[3])
     else:
-        plan = (_fwd_args(q, tq) if q.dtype == torch.float32
-                else (0, 0, 0))
+        if q.dtype == torch.float32:
+            plan = _fwd_args(q, tq)
+        else:
+            p5 = k5_fwd_plan()
+            plan = (p5.bytes, p5.q_rows, p5.stages)
         err = lib.flash_fwd_tiled_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lengths.data_ptr(), slope_ptr, *common, b, tq, tk, h,
@@ -659,9 +761,9 @@ flash_forward_tiled.launches = 0
 def _bhtd_backward(kind: str, q, k, v, o, g, lengths, slopes, causal: bool,
                    lse: Optional[torch.Tensor] = None):
     """Launch K4b (``kind`` "full", from ``lse``) or K5b ("blockwise":
-    each row's statistics folded into the dq kernel in bf16, a
-    statistics launch first in float32) on (B, H, T, D) operands of any
-    (batch, head, row) strides: the dq and dk/dv kernels.  The gradients
+    each row's statistics folded into the dq kernel) on (B, H, T, D)
+    operands of any 16-byte aligned (batch, head, row) strides: the dq
+    and dk/dv kernels.  The gradients
     are allocated in the packed (B, T, H, D) memory order and returned as
     their (B, H, T, D) views."""
     b, h, tq, d = q.shape
@@ -671,10 +773,10 @@ def _bhtd_backward(kind: str, q, k, v, o, g, lengths, slopes, causal: bool,
             "K5b (the blockwise (B, H, T, D) backward)")
     _check_kernel(what, q, lengths, slopes, h)
     kshape = (b, h, tk, d)
-    st = [_strides("q", q, q.shape, q.dtype, dev),
-          _strides("k", k, kshape, q.dtype, dev),
-          _strides("v", v, kshape, q.dtype, dev),
-          _strides("dO", g, q.shape, q.dtype, dev)]
+    st = [_strides("q", q, q.shape, q.dtype, dev, aligned=True),
+          _strides("k", k, kshape, q.dtype, dev, aligned=True),
+          _strides("v", v, kshape, q.dtype, dev, aligned=True),
+          _strides("dO", g, q.shape, q.dtype, dev, aligned=True)]
     _strides("o", o, q.shape, q.dtype, dev)
     delta = _delta(g, o)
     grads = [torch.empty((b, t, h, d), dtype=q.dtype, device=dev)
@@ -694,17 +796,9 @@ def _bhtd_backward(kind: str, q, k, v, o, g, lengths, slopes, causal: bool,
             raise ValueError("K4b needs K4's lse: a contiguous (B, H, T) "
                              "float32 tensor on q's device")
         rowa = lse
-    else:   # each row's m and l (bf16: from the dq kernel)
+    else:   # each row's m and l, written by the dq kernel
         rowa = torch.empty((b, h, tq), dtype=torch.float32, device=dev)
         rowl = torch.empty_like(rowa)
-        if not bf16:
-            err = lib.flash_stats_launch(
-                q.data_ptr(), k.data_ptr(), lengths.data_ptr(), slope_ptr,
-                rowa.data_ptr(), rowl.data_ptr(), *st[0], *st[1], b, tq, tk,
-                h, int(causal), scale, stream)
-            if err != 0:
-                raise RuntimeError(f"{what} statistics launch failed: CUDA "
-                                   f"error {err}")
     err = lib.flash_bwd_bhtd_launch(
         kid, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         rowa.data_ptr(), rowl.data_ptr() if rowl is not None else None,

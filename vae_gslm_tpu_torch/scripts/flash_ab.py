@@ -17,8 +17,12 @@ call (B 8, T 640, 16 heads of 64, bfloat16, ALiBi, causal, lengths
 640, 320, 300, 640, 1, 639, 0, 64), K4b (``flash_backward_full``) there
 where the root has it, and K5 (``flash_forward_tiled``) and K5b
 (``flash_backward_blockwise``, with a seeded dO) at the long-segment
-call (B 2, T 1536, lengths 1536 and 1); then the float32 forwards of the
-scoring path: K5f32 at its long batch's call (B 64, T 1750, 16 heads of
+call (B 2, T 1536, lengths 1536 and 1), K5_1750 (K5 in bf16 at
+``chip_smoke.py``'s K5 call: B 8, T 1750, lengths 1750, 1000, 1, 0,
+1749, 64, 1700, 900); then the float32 backwards K4bf32 (K4b at the
+training call), K3bf32 (K3b there, q, k and v views of one packed
+projection) and K5bf32 (K5b at the long-segment call), from the plain
+forward's o (and lse); then the float32 forwards of the scoring path: K5f32 at its long batch's call (B 64, T 1750, 16 heads of
 64, the lengths of the scoring corpus's last batch) and K3f32 at its
 short batch's (B 64, T 973), q, k and v views of one packed projection
 (``chip_smoke.py``'s uniform scoring mix, seed 0), and K4f32 (with lse)
@@ -30,10 +34,21 @@ backward kernels alone.  A time is the median over 5 torch.profiler
 windows of 50 calls of the kernels' own device time per call; a window
 counts as read only when it holds every launch (1 kernel per K3/K4/K5
 call, 2 per K3b/K4b call, and per K5b call the root's
-``K5B_BF16_KERNELS``, 3 where the root has none: its statistics
-launch, dk/dv, dq).  Beside each time, a digest of the call's
-outputs: equal across roots when their kernels compute the same bits.
-Prints one JSON line per root and then the card's name and power limit.
+``K5B_BF16_KERNELS`` or, in float32, ``K5B_F32_KERNELS``, 3 where the
+root has none: its statistics launch, dk/dv, dq).  Beside each time, a
+digest of the call's outputs: equal across roots when their kernels
+compute the same bits.  Prints one JSON line per root and then the
+card's name and power limit.
+
+    python vae_gslm_tpu_torch/scripts/flash_ab.py --library
+
+times, in this process and without any root's kernels, the library
+calls beside them: SDPA's bf16 forward with a float mask at the K5_1750
+call and its float32 forward at the K4f32 call, and SDPA's float32
+backward alone (one ``torch.autograd.grad`` on a retained graph, float
+mask) at the K4bf32 and K5bf32 calls, each with the bound of the
+kernels' work (bytes at 3.35 TB/s, operations at 989 TFLOP/s bf16 or 67
+TFLOP/s float32, the larger; K4f32 writes lse too).
 """
 from __future__ import annotations
 
@@ -47,7 +62,11 @@ import sys
 B, T, H, D = 8, 640, 16, 64
 LENGTHS = [640, 320, 300, 640, 1, 639, 0, 64]
 B5, T5, LENGTHS5 = 2, 1536, [1536, 1]
+B7, T7 = 8, 1750                   # chip_smoke.py's K5 call
+LENGTHS7 = [1750, 1000, 1, 0, 1749, 64, 1700, 900]
 CALLS, WINDOWS = 50, 5
+F32_BWD_CALLS = 10                 # float32 backward calls per window
+HBM, BF16, F32 = 3.35e12, 989e12, 67e12   # H100 SXM data sheet
 SCORE_B, F32_CALLS = 64, 5         # the scoring batch; calls per window
 
 
@@ -146,6 +165,33 @@ def time_root(root: str, only=()) -> dict:
     calls["K5b"] = (lambda: fa.flash_backward_blockwise(
         *heads5, o5, g5, lengths5, slopes, True), "k5b_",
         getattr(fa, "K5B_BF16_KERNELS", 3))
+    if not only or "K5_1750" in only:
+        x7 = torch.randn((B7, T7, 3 * H * D), generator=g,
+                         device=dev).to(torch.bfloat16)
+        heads7 = [y.view(B7, T7, H, D).transpose(1, 2)
+                  for y in x7.chunk(3, dim=-1)]
+        lengths7 = torch.tensor(LENGTHS7, dtype=torch.int32, device=dev)
+        calls["K5_1750"] = (lambda: fa.flash_forward_tiled(
+            *heads7, lengths7, slopes, True), "k5_fwd", 1, 10)
+    if not only or "K3bf32" in only:
+        q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+        o32, lse32 = fa.flash_forward_packed_plain(q32, k32, v32, lengths,
+                                                   slopes, True, H)
+        calls["K3bf32"] = (lambda: fa.flash_backward_packed(
+            q32, k32, v32, o32, do32, lse32, lengths, slopes, True, H),
+            "k3b_", 2, F32_BWD_CALLS)
+    if not only or "K4bf32" in only or "K5bf32" in only:
+        f4 = [x.float() for x in heads]
+        o4f, lse4f = fa.flash_forward_full_plain(*f4[:3], lengths, slopes,
+                                                 True, with_stats=True)
+        calls["K4bf32"] = (lambda: fa.flash_backward_full(
+            *f4[:3], o4f, f4[3], lse4f, lengths, slopes, True), "k4b_", 2,
+            F32_BWD_CALLS)
+        f5 = [x.float() for x in heads5] + [g5.float()]
+        o5f = fa.flash_forward_tiled_plain(*f5[:3], lengths5, slopes, True)
+        calls["K5bf32"] = (lambda: fa.flash_backward_blockwise(
+            *f5[:3], o5f, f5[3], lengths5, slopes, True), "k5b_",
+            getattr(fa, "K5B_F32_KERNELS", 3), F32_BWD_CALLS)
     if not only or "K4f32" in only:
         h32 = [x.float() for x in heads[:3]]
         calls["K4f32"] = (lambda: fa.flash_forward_full(
@@ -180,7 +226,99 @@ def time_root(root: str, only=()) -> dict:
     return out
 
 
+def _pairs(b: int, tq: int, tk: int, lengths) -> int:
+    """(query, key) pairs of nonzero probability per head: causal, keys
+    below each length (every key for a row of length 0)."""
+    return sum(sum(min(r + 1, ln) if ln >= 1 else tk for r in range(tq))
+               for ln in lengths)
+
+
+def library() -> dict:
+    """SDPA's times at the K5_1750, K4f32, K4bf32 and K5bf32 calls and
+    the bounds of the kernels' work there (module docstring)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from torch.autograd import DeviceType
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+    from vae_gslm_tpu_torch.nn.positions import alibi_slopes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(dev).manual_seed(0)
+    slopes = -torch.tensor(alibi_slopes(H), device=dev)
+
+    def mask(lengths, t, dtype):
+        pos = torch.arange(t, device=dev)
+        bias = slopes[:, None, None] * (pos[None, :] - pos[:, None]).abs()
+        ok = (pos[None, None, None, :] < lengths[:, None, None, None]) & \
+            (pos[None, :] <= pos[:, None])[None, None]
+        return torch.where(ok, bias[None], float("-inf")).to(dtype)
+
+    def ms(fn, calls):
+        fn()
+        torch.cuda.synchronize()
+        best = []
+        for _ in range(WINDOWS):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            best.append(sum(e.self_device_time_total
+                            for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA)
+                        / 1e3 / calls)
+        return statistics.median(best)
+
+    out = {}
+    for name, b, t, lens, dtype in (
+            ("K5_1750", B7, T7, LENGTHS7, torch.bfloat16),
+            ("K4f32", B, T, LENGTHS, torch.float32),
+            ("K4bf32", B, T, LENGTHS, torch.float32),
+            ("K5bf32", B5, T5, LENGTHS5, torch.float32)):
+        q, k, v, do = (torch.randn((b, H, t, D), generator=g, device=dev)
+                       .to(dtype) for _ in range(4))
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        m = mask(ln, t, dtype)
+        pairs = H * _pairs(b, t, t, lens)
+        kv = sum(x if x >= 1 else t for x in lens) * H * D
+        if name in ("K5_1750", "K4f32"):
+            with torch.no_grad():
+                lib = ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=m), 10)
+            item = 2 if name == "K5_1750" else 4
+            flops, rate = 4 * D * pairs, BF16 if item == 2 else F32
+            nbytes = item * (2 * b * t * H * D + 2 * kv)
+            if name == "K4f32":
+                nbytes += 4 * b * H * t           # lse written
+        else:
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=m)
+            lib = ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do,
+                                                 retain_graph=True), 10)
+            del o
+            flops, rate = 10 * D * pairs, F32
+            n_stats = 2 if name == "K4bf32" else 1
+            nbytes = 4 * ((5 * b * t * H * D) + 2 * kv
+                          + n_stats * b * H * t)
+        t_b, t_o = nbytes / HBM, flops / rate
+        out[name] = {"sdpa_ms": lib, "bound_ms": max(t_b, t_o) * 1e3,
+                     "bound_by": "bytes" if t_b > t_o else "operations",
+                     "gflop": flops / 1e9, "mb": nbytes / 1e6}
+        del q, k, v, do, m
+    return out
+
+
 def main(argv) -> int:
+    if argv[:1] == ["--library"]:
+        os.environ.setdefault("TEARDOWN_CUPTI", "0")
+        print(json.dumps({"library": library()}), flush=True)
+        argv = argv[1:]
+        if not argv:
+            return 0
     only = []
     if argv[:1] == ["--only"]:
         only, argv = argv[1].split(","), argv[2:]
