@@ -147,7 +147,8 @@ Phases (any failure ends the run with a non-zero exit, no result):
      0; without the utterance encoder, which the serving path does not
      run), int8 KV cache,
      temperature 0.85, DDIM-100 at eta 0.5, then the HiFi-GAN of
-     ``configs/train/vocoder/hfgan_16k_50hz_librispeech.yaml``; each run
+     ``configs/train/vocoder/hfgan_16k_50hz_librispeech.yaml`` (weight
+     norm folded, as ``HiFiGAN.from_pretrained`` leaves it); each run
      once, with the kernels' counts set to 0 just before a run and read
      just after:
        - bf16 weights (the hybrid path): exactly 16 x 500 K1 launches and
@@ -221,7 +222,26 @@ Phases (any failure ends the run with a non-zero exit, no result):
      the 3 s prompt + 10 s; the real-time factor over the whole ``main``
      call (n x 10 s over its wall time: model build, data, sampling,
      vocoder and WAV writing included), the stage times and the peak
-     memory.
+     memory;
+  12. the HiFi-GAN training path (no port kernel launches on it; both
+     phases check the counters): ``hfgan_small``, one G+D
+     ``HiFiGANTrainer.run_step`` of the tiny config of ``tests/
+     test_trainers.py::_hfgan_hp`` on the card and on the CPU from the
+     same weights and a seeded batch, float32, TF32 set on before the
+     step (the trainer's own scope must turn it off): the metrics to 1e-5
+     relative, every gradient to 1e-4 x its leaf's max |g|, the
+     parameters after the step, and a control step with TF32 left on;
+     then ``hfgan_fit``: ``scripts/train.py``
+     -> ``fit`` on the shipped
+     ``configs/train/vocoder/hfgan_16k_50hz_librispeech.yaml`` at full
+     width (B 24 x 1 s, MPD periods 2-11, MRD at three resolutions),
+     only its data paths (48 + 4 synthetic WAVs from seed 0) and
+     ``total_steps`` (``--max_steps 8``) changed: ms per G+D step with its
+     D and G halves, its FLOPs and rate, peak memory, one profiled step's
+     busy share and top operations, the one validation batch's mel L1;
+     then
+     ``HiFiGAN.from_pretrained`` on the written directory decodes four 1 s
+     clips' mels on the card, equal to the trainer's generator.
 Output: one line per measurement, then the ``{"kernels": [...]}`` line,
 the nvidia-smi name/power line, and ``{"ok": true, "device": ...}``.
 """
@@ -244,6 +264,7 @@ HBM_BYTES_PER_S = 3.35e12         # H100 SXM (NVIDIA data sheet)
 INT8_OPS_PER_S = 1.979e15
 BF16_FLOPS = 0.989e15
 FP64_TENSOR_FLOPS = 67e12         # H100 SXM FP64 tensor cores (data sheet)
+FP32_FLOPS = 67e12                # H100 SXM float32 outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -314,10 +335,10 @@ def device_ms(fn, n: int, only=(), per_call: int = 0, tries: int = 4
     launched once under a name of its own) the time per call is the sum
     of each name's mean recorded duration, and a window must record
     every name, else it is profiled again, up to ``tries`` windows; then
-    the run fails.  Without it (plain versions, library calls and K2:
-    many launches of few names, of which windows have lost a few in
-    thousands or, once, 5 %), the fuller of two windows' total over
-    ``n``."""
+    the run fails.  Without it (plain versions and K2: many launches of
+    few names, of which windows have lost a few in thousands or, once,
+    5 %), the fuller of two windows' total over ``n``; library calls go
+    through ``library_ms``."""
     import torch
 
     fn(0)
@@ -341,6 +362,30 @@ def device_ms(fn, n: int, only=(), per_call: int = 0, tries: int = 4
             return sum(us / c for _, us, c in evs) / 1e3
     raise AssertionError(f"the profiler windows recorded {seen} launches per "
                          f"kernel name, {per_call} names expected")
+
+
+def library_ms(fn, n: int, windows: int = 3) -> float:
+    """Device ms per call of a library call ``fn`` that launches the same
+    kernels on every call: each kernel name's median mean recorded
+    duration over ``windows`` profiler windows of ``n`` calls, times its
+    launches per call (the most any window recorded, in whole calls).  A
+    window that loses launches leaves this as it is, where its total over
+    ``n`` reads low (on an H100 80GB HBM3 at 700 W, SDPA at K5's bf16 call
+    read 0.27 and 0.34 ms that way, against 0.57 with every launch
+    recorded)."""
+    import torch
+
+    fn(0)
+    torch.cuda.synchronize()
+    means, per_call = {}, {}
+    for _ in range(windows):
+        for name, us, count in _profiled(fn, n):
+            means.setdefault(name, []).append(us / count)
+            per_call[name] = max(per_call.get(name, 0), -(-count // n))
+    if not means:
+        raise AssertionError("the profiler recorded no device operation")
+    return sum(statistics.median(means[k]) * per_call[k]
+               for k in means) / 1e3
 
 
 # ------------------------------------------------------------------ K1
@@ -904,8 +949,8 @@ def sdpa_bwd_ms(q, k, v, do, mask) -> float:
 
     q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-    ms = device_ms(lambda i: torch.autograd.grad(out, (q, k, v), do,
-                                                 retain_graph=True), n=10)
+    ms = library_ms(lambda i: torch.autograd.grad(out, (q, k, v), do,
+                                                  retain_graph=True), n=10)
     del out
     return ms
 
@@ -1053,7 +1098,7 @@ def phase_k3(dev):
         with torch.no_grad():
             return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
 
-    ls = device_ms(sdpa_s, n=3)
+    ls = library_ms(sdpa_s, n=3)
     del mask
     (sb, so), _ = k3_bytes_ops(4, SCORE_BATCH, ts, lens)
     bound_s = max(sb / HBM_BYTES_PER_S, so / F32_FLOPS) * 1e3
@@ -1094,8 +1139,8 @@ def phase_k3(dev):
         F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask).backward(
             do4)
 
-    lf = device_ms(sdpa_fwd, n=20)
-    lfb = device_ms(sdpa_fwd_bwd, n=10)
+    lf = library_ms(sdpa_fwd, n=20)
+    lfb = library_ms(sdpa_fwd_bwd, n=10)
     lb = sdpa_bwd_ms(q4, k4, v4, do4, mask)
     (fb, fo), (bb, bo) = k3_bytes_ops(2)
     bound_f = max(fb / HBM_BYTES_PER_S, fo / BF16_FLOPS) * 1e3
@@ -1289,7 +1334,7 @@ def phase_k45(dev):
                 return F.scaled_dot_product_attention(
                     q[r:r + 8], k[r:r + 8], v[r:r + 8], attn_mask=mask)
 
-        ls += device_ms(sdpa_chunk, n=2)
+        ls += library_ms(sdpa_chunk, n=2)
         del mask
     nbytes, flops = bhtd_bytes_ops(SCORE_BATCH, ts, ts, H, lens, True, 4)
     bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
@@ -1322,7 +1367,7 @@ def phase_k45(dev):
                 return F.scaled_dot_product_attention(q, k, v,
                                                       attn_mask=mask)
 
-        ls = device_ms(sdpa, n=5)
+        ls = library_ms(sdpa, n=5)
         del mask
         nbytes, flops = bhtd_bytes_ops(b, tq, tq, h, lens, True, itemsize)
         t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / flops_rate
@@ -1856,6 +1901,8 @@ def build_pipeline(dev, quantize: bool, kv_dtype="int8"):
                 p.data = p.data.to(torch.bfloat16)
     vocoder = Generator(voc_hp.model.generator, device=dev,
                         generator=torch.Generator(dev).manual_seed(1))
+    vocoder.remove_weight_norm()          # as HiFiGAN.from_pretrained
+    vocoder.requires_grad_(False)
     nparams = sum(p.numel() for p in model.parameters())
     torch.cuda.synchronize()
     log(f"pipeline: LVTR {nparams / 1e6:.1f} M parameters "
@@ -2802,7 +2849,7 @@ def phase_k45b(dev, k4_worst: float):
             kf = device_ms(fwd, n=20, only=("k4_fwd",), per_call=1)
             cf = cuda_ms(fwd, n=20)
             pf = device_ms(fwd_plain, n=3)
-            lf = device_ms(sdpa_fwd, n=20)
+            lf = library_ms(sdpa_fwd, n=20)
             nbytes, flops = bhtd_bytes_ops(b, t, t, H, lens, True, 2)
             nbytes += b * H * t * 4                    # lse written
             bound, by = bound_of(nbytes, flops)
@@ -2844,7 +2891,7 @@ def phase_k45b(dev, k4_worst: float):
             F.scaled_dot_product_attention(q4, k4, v4,
                                            attn_mask=mask).backward(do)
 
-        lt = device_ms(sdpa_fwd_bwd, n=10)
+        lt = library_ms(sdpa_fwd_bwd, n=10)
         lb = sdpa_bwd_ms(q, k, v, do, mask)
         del mask
         nbytes, flops = bwd_bytes_ops(b, t, t, H, lens, True, 2,
@@ -3042,7 +3089,7 @@ def phase_k7(dev, gpu: str):
     log(f"K7 check: per-layer sums and k_block's tile sum "
         f"({int(got[1])}) equal to the plain version's")
     plain_ms = device_ms(lambda i: stream_sums_plain(w), n=5)
-    library_ms = device_ms(lambda i: w.sum(dim=(1, 2)), n=5)
+    lib_ms = library_ms(lambda i: w.sum(dim=(1, 2)), n=5)
     nbytes = w.numel()
     del w, got, want
     stream_sums.launches = 0
@@ -3054,7 +3101,7 @@ def phase_k7(dev, gpu: str):
         f"{res['stream_gb_s']:.1f} GB/s ({share:.1%} of the data sheet's "
         f"3.35 TB/s), bound {bound * 1e3:.2f} us "
         f"({nbytes / 1e6:.1f} MB), {launches} launches; plain "
-        f"{plain_ms * 1e3:.1f} us, torch.sum {library_ms * 1e3:.1f} us; K2 "
+        f"{plain_ms * 1e3:.1f} us, torch.sum {lib_ms * 1e3:.1f} us; K2 "
         f"full step B=8 a8: {res['mega_us_flushed_0']:.1f} us at flushed 0, "
         f"{res['mega_us_flushed_512']:.1f} us at flushed 512 ({gpu})")
     return {"name": "stream_sums", "route": "cuda",
@@ -3063,7 +3110,7 @@ def phase_k7(dev, gpu: str):
             "launches": launches, "max_abs_err": 0.0,
             "ms": res["stream_us"] / 1e3, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": library_ms}
+            "library_ms": lib_ms}
 
 
 # ------------------------------------------------------ data parallel
@@ -3575,6 +3622,436 @@ def read_back(path: str, cfg: dict, dev, digest: str) -> None:
     del model
 
 
+# ------------------------------------------------------------ HiFi-GAN
+HFGAN_SMALL_YAML = """
+trainer:
+    identifier: "trainers.vocoder.hfgan.HiFiGANTrainer"
+    total_steps: 4
+    limit_val_batches: 1
+    precision: "32"
+    distributed: false
+logging: {log_dir: "unused", num_samples: 1}
+feature:
+    sample_rate: 16000
+    n_fft: 513
+    win_length: 400
+    hop_length: 320
+    n_mels: 20
+    f_min: 0
+    f_max: 8000
+    power: 1.0
+    log_scale: true
+model:
+    generator:
+        weight_norm: true
+        upsample_rates: [5, 4, 4, 2, 2]
+        upsample_kernel_sizes: [10, 8, 8, 4, 4]
+        upsample_initial_channel: 64
+        resblock_kernel_sizes: [3]
+        resblock_dilation_sizes:
+            - [1, 2]
+        in_channels: 20
+        kernel_size: 7
+    mrd:
+        weight_norm: true
+        resolutions:
+            - [128, 32, 64]
+    mpd: {weight_norm: true, periods: [2, 3]}
+training:
+    generator:
+        optimizer: {identifier: Adam, lr: 1.0e-4, beta1: 0.8, beta2: 0.98}
+        scheduler: {identifier: triangle, flat_steps: 1}
+    discriminator:
+        optimizer: {identifier: Adam, lr: 1.0e-4, beta1: 0.8, beta2: 0.98}
+        scheduler: {identifier: triangle, flat_steps: 1}
+    mel_loss_weight: 40.0
+data: {}
+"""
+HFGAN_STEPS = 8                     # G+D steps of the full-width fit
+HFGAN_TRAIN_WAVS, HFGAN_VAL_WAVS = 48, 4
+
+
+def port_kernel_counts() -> dict:
+    """Every port kernel's launch counter (K1-K7), by wrapper."""
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+    from vae_gslm_tpu_torch.ops.flash_decode import flash_decode_int8
+    from vae_gslm_tpu_torch.ops.fused_decode import fused_decode_attention
+    from vae_gslm_tpu_torch.ops.mega_step import fused_trunk_step
+    from vae_gslm_tpu_torch.ops.stream import stream_sums
+
+    out = {"fused_decode_attention": fused_decode_attention.launches,
+           "fused_trunk_step": fused_trunk_step.launches
+           + fused_trunk_step.launches_w4 + fused_trunk_step.launches_bf16,
+           "flash_decode_int8": flash_decode_int8.launches,
+           "stream_sums": stream_sums.launches}
+    for name in ("flash_forward_packed", "flash_backward_packed",
+                 "flash_forward_full", "flash_backward_full",
+                 "flash_forward_tiled", "flash_backward_blockwise"):
+        out[name] = getattr(fa, name).launches
+    return out
+
+
+def _unit_gain_generator(trainer, seed: int) -> None:
+    """Redraw the generator's v at unit gain (N(0, 1/fan in)), g = ||v||,
+    from a numpy seed.  At the trainer's own 0.01 its wave is the last
+    bias's constant plus a faint signal, whose near-silent mel bands make
+    the mel loss's gradient float32 noise on any device (3 % of its max
+    between float32 and float64 on the CPU); at unit gain the card and
+    the CPU must agree."""
+    import numpy as np
+    import torch
+
+    from vae_gslm_tpu_torch.models.vocoder import hfgan as th
+
+    rng = np.random.RandomState(seed)
+    with torch.no_grad():
+        for m in trainer.generator.modules():
+            if isinstance(m, (th.WNConv1d, th.WNConvT1d)):
+                v = rng.randn(*m.weight_v.shape) / math.sqrt(m.fan_in)
+                m.weight_v.copy_(torch.from_numpy(v))
+                m.weight_g.copy_(m.weight_v.square().sum(
+                    dim=(1, 2), keepdim=True).sqrt())
+
+
+def _hfgan_step_errs(got, want, gpu, cpu):
+    """A card step's distance from the CPU's: the metrics' max relative
+    error, and per leaf (both sets, in order) the gradient's max error
+    over its max |g| and, after the step, the parameter's max error
+    overall and where |g| >= 1e-2 x max |g|."""
+    from vae_gslm_tpu_torch.trainers.vocoder.hfgan import METRICS
+
+    worst_m = max(abs(float(got[k]) - float(want[k]))
+                  / max(abs(float(want[k])), 1e-12) for k in METRICS)
+    leaves = []
+    for name, pg, pc in zip(gpu.g_names + gpu.d_names,
+                            gpu.g_params + gpu.d_params,
+                            cpu.g_params + cpu.d_params):
+        gg, gc = pg.grad.double().cpu(), pc.grad.double()
+        scale = gc.abs().max().item()
+        diff = (pg.detach().double().cpu() - pc.detach().double()).abs()
+        big = gc.abs() >= 1e-2 * scale
+        leaves.append((name, (gg - gc).abs().max().item() / max(scale, 1e-30),
+                       diff.max().item(),
+                       diff[big].max().item() if big.any() else 0.0))
+    return worst_m, leaves
+
+
+def phase_hfgan_small(dev):
+    """One G+D ``run_step`` of the tiny HiFi-GAN config of ``tests/
+    test_trainers.py::_hfgan_hp`` (0.2 s segments, MPD periods 2 and 3, one
+    MRD resolution) on the card and on the CPU from the same weights
+    (drawn on the CPU from seed 0; the generator redrawn at unit gain)
+    and the same seeded batch, one row post-padded with zeros, float32.
+    Both TF32 flags are set on before the card's step: the trainer's own
+    ``policy_scope`` must turn them off (forward hooks read both off on
+    every generator and discriminator call) and put them back after.  The
+    four metrics to 1e-5 relative, every gradient (both sets) to 1e-4 x
+    its leaf's max |g| (the CPU tests' limit against JAX), the parameters
+    after the step to 1e-2 x lr where the gradient is at least 1e-2 of
+    its leaf's max and to 2 x lr everywhere (Adam's first step moves a
+    parameter by lr times its gradient's sign).  Then a control: the same
+    step on the card with TF32 left on (the trainer's scope replaced by
+    one that sets the policy alone), its distance printed beside the
+    gate's.  No port kernel launches."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.core.masked import Masked
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.trainers.vocoder import hfgan as hf
+
+    hp = Hparams.from_yaml(HFGAN_SMALL_YAML)
+    cpu = hf.HiFiGANTrainer(hp, seed=0, device="cpu")
+    _unit_gain_generator(cpu, 1)
+
+    def on_card():
+        t = hf.HiFiGANTrainer(Hparams.from_yaml(HFGAN_SMALL_YAML), seed=0,
+                              device=dev)
+        t.generator.load_state_dict(cpu.generator.state_dict())
+        t.disc.load_state_dict(cpu.disc.state_dict())
+        return t
+
+    gpu, tf32 = on_card(), on_card()
+    lengths = [[3200, 2500]]
+    x = (np.random.RandomState(0).randn(1, 2, 3200) * 0.2).astype(
+        np.float32)
+    x[0, 1, 2500:] = 0.0
+
+    def batch():
+        return {"audio": Masked(torch.from_numpy(x.copy()),
+                                torch.tensor(lengths, dtype=torch.int32), 1)}
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 4))
+    try:
+        want = cpu.run_step(batch())
+    finally:
+        torch.set_num_threads(threads)
+    flags_in_step = set()
+    hooks = [m.register_forward_pre_hook(
+        lambda *_: flags_in_step.add(precision.tf32_flags()))
+        for m in (gpu.generator, gpu.disc)]
+    def set_tf32(matmul, cudnn):
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn
+
+    outer = precision.tf32_flags()
+    set_tf32(True, True)
+    try:
+        before = port_kernel_counts()
+        got = gpu.run_step(batch())
+        torch.cuda.synchronize()
+        if port_kernel_counts() != before:
+            raise AssertionError("the HiFi-GAN step launched a port kernel")
+        if precision.tf32_flags() != (True, True):
+            raise AssertionError("hfgan small: run_step left the TF32 "
+                                 f"flags at {precision.tf32_flags()}")
+
+        @contextlib.contextmanager
+        def policy_only(policy):
+            prev = precision.get_policy()
+            precision.set_policy(policy)
+            try:
+                yield
+            finally:
+                precision.set_policy(prev)
+
+        scope, hf.policy_scope = hf.policy_scope, policy_only
+        try:
+            got_tf32 = tf32.run_step(batch())
+            torch.cuda.synchronize()
+        finally:
+            hf.policy_scope = scope
+    finally:
+        set_tf32(*outer)
+        for h in hooks:
+            h.remove()
+    if flags_in_step != {(False, False)}:
+        raise AssertionError(f"hfgan small: TF32 flags inside run_step "
+                             f"{sorted(flags_in_step)}, not both off")
+    lr = float(hp.training.generator.optimizer.lr)
+    worst_m, leaves = _hfgan_step_errs(got, want, gpu, cpu)
+    tf32_m, tf32_leaves = _hfgan_step_errs(got_tf32, want, tf32, cpu)
+    worst_g = max(g for _, g, _, _ in leaves)
+    worst_p = max(p for _, _, _, p in leaves)
+    tf32_g = max(g for _, g, _, _ in tf32_leaves)
+    log(f"hfgan small (card vs CPU, tiny config, one G+D step, float32; "
+        f"TF32 set on, run_step read both off): metrics " + ", ".join(
+            f"{k} {float(got[k]):.5f}/{float(want[k]):.5f}"
+            for k in hf.METRICS)
+        + f" (max rel err {worst_m:.2e}, limit 1e-5); gradients max err "
+        f"{worst_g:.2e} x max|g| over {len(leaves)} leaves (limit 1e-4); "
+        f"parameters after the step max err {worst_p:.2e} where |g| >= "
+        f"1e-2 max|g| (lr {lr:g})")
+    log(f"hfgan small control (the same step on the card with TF32 left "
+        f"on): metrics max rel err {tf32_m:.2e}, gradients max err "
+        f"{tf32_g:.2e} x max|g|: "
+        + ("fails" if tf32_m > 1e-5 or tf32_g > 1e-4 else "passes")
+        + " the gate")
+    for name, g, p_all, p_big in leaves:
+        if not g <= 1e-4:
+            raise AssertionError(f"hfgan small: gradient of {name} differs "
+                                 f"by {g:.3e} x max|g|")
+        if p_all > 2 * lr or p_big > 1e-2 * lr:
+            raise AssertionError(f"hfgan small: {name} after the step "
+                                 f"differs by {p_all:.3e}")
+    if not worst_m <= 1e-5:
+        raise AssertionError("hfgan small: the card's metrics differ from "
+                             "the CPU's")
+
+
+def phase_hfgan_fit(dev, gpu: str):
+    """The shipped ``configs/train/vocoder/hfgan_16k_50hz_librispeech.yaml``
+    at full width (generator 512 initial channels, rates 5.4.2.2.2.2; MPD
+    periods 2-11; MRD at three resolutions; batch 24 x 1 s; Adam, float32)
+    through ``scripts/train.py`` -> ``BaseTrainer.fit`` ->
+    ``HiFiGANTrainer.run_step``, only the data paths (a synthetic corpus
+    from seed 0: 48 training WAVs of 2-3 s, 4 validation WAVs of 5-6 s,
+    written as ``write_train_corpus`` writes the data-parallel corpus)
+    and ``total_steps`` (``--max_steps 8``) changed: ms per G+D step
+    (median of steps 1-5; each step between syncs, so the loader's wait
+    is outside it) with its D half (mel, G forward, D step and update)
+    and G half, the FLOPs of step 6 (torch's FLOP counter) and their rate
+    against the 67 TFLOP/s float32 peak, peak memory, and one profiled
+    step (the last): busy share and top device operations; the one
+    validation batch's mel L1.  No port kernel launches.  Then
+    ``HiFiGAN.from_pretrained`` on the checkpoint directory decodes the
+    mels of four 1 s clips on the card: finite, frames x 320 samples,
+    equal to the trainer's own generator on the same mels to 1e-5."""
+    import json as _json
+    import logging
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.core.masked import Masked
+    from vae_gslm_tpu_torch.models.vocoder.vocoder import HiFiGAN
+    from vae_gslm_tpu_torch.scripts import train as train_cli
+    from vae_gslm_tpu_torch.trainers.vocoder import hfgan as hf
+
+    tmp = tempfile.mkdtemp(prefix="hfgan_fit_")
+    run_step, apply = hf.HiFiGANTrainer.run_step, hf.HiFiGANTrainer._apply
+    seen = {"steps": [], "halves": [], "trainer": None, "prof": None}
+
+    def timed_apply(self, opt, params, grads):
+        apply(self, opt, params, grads)
+        torch.cuda.synchronize()
+        seen["halves"][-1].append(time.perf_counter())
+
+    def timed_run_step(self, stacked):
+        seen["trainer"] = self
+        torch.cuda.synchronize()
+        seen["halves"].append([time.perf_counter()])
+        i = len(seen["steps"])
+        if i == HFGAN_STEPS - 2:
+            with FlopCounterMode(display=False) as counter:
+                out = run_step(self, stacked)
+            seen["flops"] = counter.get_total_flops()
+        elif i == HFGAN_STEPS - 1:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = run_step(self, stacked)
+                torch.cuda.synchronize()
+            seen["prof"] = prof
+        else:
+            out = run_step(self, stacked)
+        torch.cuda.synchronize()
+        if i == HFGAN_STEPS - 3:       # the last timed step
+            seen["peak"] = torch.cuda.max_memory_allocated()
+        t0, t_d, t_g = seen["halves"][-1]
+        seen["steps"].append((t_g - t0, t_d - t0, t_g - t_d,
+                              {k: float(v) for k, v in out.items()},
+                              tuple(stacked["audio"].value.shape)))
+        return out
+
+    try:
+        corpus, val = os.path.join(tmp, "train"), os.path.join(tmp, "val")
+        os.makedirs(corpus)
+        os.makedirs(val)
+        t0 = time.perf_counter()
+        audio_s = (write_train_corpus(corpus, None, HFGAN_TRAIN_WAVS, 2.0,
+                                      3.0, seed=0)
+                   + write_train_corpus(val, None, HFGAN_VAL_WAVS, 5.0, 6.0,
+                                        seed=1))
+        with open(VOCODER_YAML) as f:
+            cfg = yaml.safe_load(f)
+        for split, root in (("train", corpus), ("val", val)):
+            cfg["data"][split].update(
+                path=os.path.join(root, "tokens.txt"), wavdir=root)
+        cfg["logging"]["log_dir"] = os.path.join(tmp, "logs")
+        path = os.path.join(tmp, "hfgan.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(cfg, f)
+        log(f"hfgan fit: {HFGAN_TRAIN_WAVS} + {HFGAN_VAL_WAVS} WAVs "
+            f"({audio_s:.1f} s of audio) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        hf.HiFiGANTrainer.run_step = timed_run_step
+        hf.HiFiGANTrainer._apply = timed_apply
+        before = port_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        level = logging.getLogger().level     # the CLI logs at INFO
+        t0 = time.perf_counter()
+        try:
+            train_cli.main(["-c", path, "--max_steps", str(HFGAN_STEPS),
+                            "-n", "hfgan"])
+        finally:
+            hf.HiFiGANTrainer.run_step = run_step
+            hf.HiFiGANTrainer._apply = apply
+            logging.getLogger().setLevel(level)
+        wall = time.perf_counter() - t0
+        peak = seen["peak"]
+        if port_kernel_counts() != before:
+            raise AssertionError("the HiFi-GAN fit launched a port kernel")
+        trainer, steps = seen["trainer"], seen["steps"]
+        if len(steps) != HFGAN_STEPS or trainer.global_step != HFGAN_STEPS:
+            raise AssertionError(f"hfgan fit ran {len(steps)} steps")
+        nparams = [sum(p.numel() for p in ps)
+                   for ps in (trainer.g_params, trainer.d_params)]
+        data = cfg["data"]["train"]
+        rows, samples = data["batch_size"], int(data["segment_size"] * 16000)
+        for i, (sec, d_sec, g_sec, m, shape) in enumerate(steps):
+            if shape != (1, rows, samples) or not all(
+                    math.isfinite(v) for v in m.values()):
+                raise AssertionError(f"hfgan step {i}: batch {shape}, "
+                                     f"metrics {m}")
+            note = {0: " (warm-up)", HFGAN_STEPS - 2: " (FLOP count)",
+                    HFGAN_STEPS - 1: " (profiled)"}.get(i, "")
+            log(f"hfgan step {i}{note}: {sec * 1e3:.1f} ms (D half "
+                f"{d_sec * 1e3:.1f}, G half {g_sec * 1e3:.1f}); " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in m.items()))
+        mid = steps[1:-2]
+        med = [statistics.median(s[j] for s in mid) for j in range(3)]
+        ckpt = os.path.join(tmp, "logs", "hfgan", "ckpt", "version_0")
+        with open(os.path.join(tmp, "logs", "hfgan", "log", "version_0",
+                               "metrics.jsonl")) as f:
+            val_mel = [_json.loads(line)["value"] for line in f
+                       if '"val/mel"' in line]
+        if len(val_mel) != 1 or not math.isfinite(val_mel[0]):
+            raise AssertionError(f"hfgan fit: val/mel {val_mel}")
+        log(f"hfgan fit (B={rows} x {samples} samples, float32, generator "
+            f"{nparams[0] / 1e6:.2f} M + discriminators "
+            f"{nparams[1] / 1e6:.2f} M parameters): median G+D step "
+            f"{med[0] * 1e3:.1f} ms over steps 1-{HFGAN_STEPS - 3} (D half "
+            f"{med[1] * 1e3:.1f} ms: mel, G forward, D step and update; G "
+            f"half {med[2] * 1e3:.1f} ms), {rows / med[0]:.1f} clips/s; "
+            f"{seen['flops'] / 1e12:.3f} TFLOP a step (torch's FLOP "
+            f"counter), {seen['flops'] / med[0] / 1e12:.1f} TFLOP/s, "
+            f"{seen['flops'] / med[0] / FP32_FLOPS:.1%} of the float32 "
+            f"FMA peak; peak memory {peak / 2 ** 30:.2f} GiB over steps "
+            f"0-{HFGAN_STEPS - 3}; validation mel L1 {val_mel[0]:.4f} over one batch; "
+            f"scripts/train.py wall {wall:.1f} s; files "
+            f"{sorted(os.listdir(ckpt))} ({gpu})")
+        kernels = [(e.self_device_time_total / 1e3, e.count, e.key)
+                   for e in seen["prof"].key_averages()
+                   if e.self_device_time_total > 0]
+        if kernels:
+            busy = sum(k[0] for k in kernels)
+            log(f"hfgan step profile (profiler on): wall "
+                f"{steps[-1][0] * 1e3:.1f} ms, device busy {busy:.1f} ms "
+                f"({busy / (steps[-1][0] * 1e3):.1%}), "
+                f"{sum(k[1] for k in kernels)} device ops ({gpu})")
+            for ms, n, name in sorted(kernels, reverse=True)[:10]:
+                log(f"  {ms:.3f} ms, {n}x: {name[:90]}")
+        else:
+            log("hfgan step profile: device time not measured (the "
+                "profiler recorded no kernel)")
+
+        voc = HiFiGAN.from_pretrained(ckpt, device=dev)
+        if voc.model.conv_pre.weight_norm:
+            raise AssertionError("from_pretrained left weight norm on")
+        rng = np.random.RandomState(2)
+        clips = torch.from_numpy((rng.randn(4, 16000) * 0.1).astype(
+            np.float32)).to(dev)
+        with precision.policy_scope(precision.Policy()), torch.no_grad():
+            mel = trainer.features.encode(Masked.from_lengths(
+                clips, torch.tensor([16000, 16000, 12800, 8000],
+                                    device=dev)))
+            wave = voc.decode(mel)
+            ref = trainer.generator(mel).apply_mask()
+        frames = mel.value.shape[1]
+        err = (wave.value - ref.value).abs().max().item()
+        if wave.value.shape != (4, frames * 320) or not bool(
+                torch.isfinite(wave.value).all()) or not err <= 1e-5:
+            raise AssertionError(f"hfgan vocoder: shape "
+                                 f"{tuple(wave.value.shape)}, max diff "
+                                 f"{err:.3e} against the trainer's "
+                                 "generator")
+        log(f"hfgan vocoder: HiFiGAN.from_pretrained on the fit's checkpoint "
+            f"decodes 4 x {frames} frames to {tuple(wave.value.shape)} on "
+            f"the card, finite, max |diff| {err:.2e} against the trainer's "
+            "generator")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     # keep CUPTI set up between profiler windows (torch's own workaround
     # for its re-initialisation, which has left windows with no kernel)
@@ -3657,6 +4134,8 @@ def main() -> int:
     long_counts = timed("dp_fit_long", phase_dp_fit, dev, gpu, long=True)
     k5bf16["launches"] = long_counts["flash_forward_tiled"]
     k5b["launches"] = long_counts["flash_backward_blockwise"]
+    timed("hfgan_small", phase_hfgan_small, dev)
+    timed("hfgan_fit", phase_hfgan_fit, dev, gpu)
     import shutil
     import tempfile
 

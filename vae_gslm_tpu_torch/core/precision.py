@@ -5,6 +5,12 @@ Parameters stay float32.  The default policy computes in float32;
 matmul and convolution inputs in bfloat16, while norms, softmax and
 distribution math stay float32 inside the modules that do them.
 Modules read the active policy at call time.
+
+A float32 policy means IEEE float32 products: ``policy_scope`` turns
+PyTorch's TF32 switches for matmuls and cuDNN convolutions off inside a
+float32 scope (cuDNN's default would run "float32" convolutions in TF32
+on the card) and puts both back on exit; a bf16 scope leaves them as
+they are.
 """
 from __future__ import annotations
 
@@ -35,14 +41,29 @@ def bf16_mixed() -> Policy:
     return Policy(compute_dtype=torch.bfloat16)
 
 
+def tf32_flags() -> tuple:
+    """(``torch.backends.cuda.matmul.allow_tf32``,
+    ``torch.backends.cudnn.allow_tf32``)."""
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def _set_tf32(matmul: bool, cudnn: bool) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.backends.cudnn.allow_tf32 = cudnn
+
+
 @contextlib.contextmanager
 def policy_scope(policy: Policy):
-    prev = get_policy()
+    prev, flags = get_policy(), tf32_flags()
     set_policy(policy)
+    if policy.compute_dtype == torch.float32:
+        _set_tf32(False, False)
     try:
         yield
     finally:
         set_policy(prev)
+        _set_tf32(*flags)
 
 
 def policy_for_precision(precision) -> Policy:

@@ -8,7 +8,8 @@ estimator's device; the utterances are scored whole (no crop unless the
 data config asks for one), so a batch padded past 1024 frames runs the
 q-tiled attention kernel (K5) in every layer and a shorter one the
 packed kernel (K3).  The JAX estimator applies no precision policy and
-no int8 weights, and neither does the port: the path runs float32.
+no int8 weights: its path runs float32, and the port's ``run`` runs under
+the float32 policy (TF32 off) whatever the caller's policy is.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ...core.masked import Masked
+from ...core.precision import Policy, policy_scope
 from ...data.dataset import DiscreteTokenDataset, MelSpecDataset
 from ...data.loader import DataLoader
 from ...hparams.hp import Hparams
@@ -84,6 +86,11 @@ class LikelihoodEstimator(BaseInferer):
         model are added under ``data`` and ``model`` (the device
         synchronised at each boundary) and the batch count under
         ``batches``."""
+        with policy_scope(Policy()):
+            return self._run(seed, max_batches, timings)
+
+    def _run(self, seed: int, max_batches: Optional[int],
+             timings: Optional[Dict[str, float]]) -> np.ndarray:
         loader = self.test_dataloader()
         generator = torch.Generator(self.device).manual_seed(seed)
         self.scores = []

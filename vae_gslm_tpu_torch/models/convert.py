@@ -8,9 +8,11 @@ no key may be left over.  ``load_reference_lvtr`` takes exactly what
 a reference checkpoint's state dict); ``load_reference_generator``
 takes the reference HiFi-GAN generator's state dict in either
 weight-norm form (``weight_g``/``weight_v`` or
-``parametrizations.weight.original0/1``) or with weight norm removed,
-and folds it.  ``mega_weights_from_numpy`` carries the int8 K2 weights
-of a JAX ``build_mega_decode()`` dict across as they are, and
+``parametrizations.weight.original0/1``) or with weight norm removed
+(``weight``: then v = weight and g = ||weight||, as JAX loads it), into
+a weight-normed generator (``HiFiGAN.from_pretrained`` folds it after).
+``mega_weights_from_numpy`` carries the int8 K2 weights of a JAX
+``build_mega_decode()`` dict across as they are, and
 ``layer_cache_from_numpy`` a JAX per-layer KV cache.
 
 ``to_flat`` / ``load_flat`` map an LVTR or a HiFi-GAN generator to and
@@ -18,7 +20,10 @@ from the JAX package's compact checkpoint contract: a flat dict of
 numpy arrays keyed by the flax attribute paths joined by ``/``
 (``nnx.to_pure_dict``, list indices included), in the JAX layouts
 (dense kernels (in, out), conv kernels (k, in, out), transposed-conv
-kernels (k, out, in), the generator's weight-norm ``g``/``v`` pairs).
+kernels (k, out, in), 2-D conv kernels (kh, kw, in, out), the HiFi-GAN
+weight-norm ``g``/``v`` pairs with ``g`` flat).  ``load_hfgan_flat``
+fills a HiFi-GAN generator and its discriminators from the JAX trainer's
+two parameter sets (``mpd/discriminators/{i}/convs/{j}/v`` and so on).
 The map is derived from the port's modules, as the JAX package's
 ``models/convert_torch.py::export_torch_lvtr`` derives the reference
 names from its own, and is strict both ways: every port parameter is
@@ -42,7 +47,7 @@ from ..nn.diffusion import GaussianDiffusion1D
 from ..nn.linear import Dense, Embedding, FiLM, GaussianParameterize, Linear
 from ..nn.positions import ALiBi, SinCos
 from ..ops.mega_step import W4_KEYS, WEIGHT_KEYS
-from .vocoder.hfgan import Generator
+from .vocoder.hfgan import WN_CONVS, WNConv2d
 
 # reference top-level prefix -> port attribute
 _LVTR_PREFIXES = (("encoder.0.", "encoder_net."),
@@ -71,36 +76,44 @@ def load_reference_lvtr(model: nn.Module, sd: Mapping) -> None:
                           strict=True)
 
 
-def _fold(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """torch weight norm (dim=0): w = g * v / ||v||, the norm over every
-    axis but the first, with the JAX package's 1e-12 inside the root."""
-    g, v = g.double(), v.double()
-    norm = torch.sqrt(v.square().sum(dim=tuple(range(1, v.dim())),
-                                     keepdim=True) + 1e-12)
-    return (g.reshape((-1,) + (1,) * (v.dim() - 1)) * v / norm).float()
+def _wn_convs(model: nn.Module) -> Iterator[Tuple[str, nn.Module]]:
+    return ((name, m) for name, m in model.named_modules()
+            if isinstance(m, WN_CONVS))
 
 
+def _set_wn(mod: nn.Module, g: torch.Tensor, v: torch.Tensor) -> None:
+    """A torch-layout g/v pair into a weight-normed conv as it is."""
+    mod.weight_g.copy_(g.reshape(mod.weight_g.shape))
+    mod.weight_v.copy_(v)
+
+
+def _check_shape(what: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    if tuple(got.shape) != tuple(want.shape):
+        raise ValueError(f"{what}: shape {tuple(got.shape)}, the port's "
+                         f"{tuple(want.shape)}")
+
+
+@torch.no_grad()
 def load_reference_generator(gen: nn.Module, sd: Mapping) -> None:
-    """Strictly load a reference HiFi-GAN generator state dict, folding
-    weight norm into plain ``weight`` tensors."""
+    """Strictly load a reference HiFi-GAN generator state dict (any of
+    the three weight forms) into the port's generator."""
     sd = {k: _tensor(v) for k, v in sd.items()}
-    out: Dict[str, torch.Tensor] = {}
-    for key in gen.state_dict():
-        prefix, leaf = key.rsplit(".", 1)
-        if leaf == "bias":
-            out[key] = sd.pop(key)
-        elif f"{prefix}.weight_g" in sd:
-            out[key] = _fold(sd.pop(f"{prefix}.weight_g"),
-                             sd.pop(f"{prefix}.weight_v"))
+    for prefix, mod in _wn_convs(gen):
+        if f"{prefix}.weight_g" in sd:
+            g, v = sd.pop(f"{prefix}.weight_g"), sd.pop(f"{prefix}.weight_v")
         elif f"{prefix}.parametrizations.weight.original0" in sd:
-            out[key] = _fold(
-                sd.pop(f"{prefix}.parametrizations.weight.original0"),
-                sd.pop(f"{prefix}.parametrizations.weight.original1"))
+            g = sd.pop(f"{prefix}.parametrizations.weight.original0")
+            v = sd.pop(f"{prefix}.parametrizations.weight.original1")
         else:
-            out[key] = sd.pop(key)
+            v = sd.pop(f"{prefix}.weight")
+            g = torch.from_numpy(_g_norm(v.numpy()))
+        _check_shape(f"{prefix} weight", v, mod.weight_v)
+        _set_wn(mod, g, v)
+        bias = sd.pop(f"{prefix}.bias")
+        _check_shape(f"{prefix}.bias", bias, mod.bias)
+        mod.bias.copy_(bias)
     if sd:
         raise KeyError(f"unexpected generator keys: {sorted(sd)}")
-    gen.load_state_dict(out, strict=True)
 
 
 def mega_weights_from_numpy(d: Mapping,
@@ -227,26 +240,89 @@ def _lvtr_variables(model: nn.Module) -> Iterator[Tuple[str, np.ndarray]]:
 def _g_norm(v: np.ndarray) -> np.ndarray:
     """The weight-norm magnitude of a folded torch-layout weight: its
     norm over every axis but the first."""
-    return np.sqrt((v.astype(np.float64) ** 2).sum(axis=(1, 2))).astype(
-        np.float32)
+    return np.sqrt((v.astype(np.float64) ** 2).sum(
+        axis=tuple(range(1, v.ndim)))).astype(np.float32)
+
+
+def _wn_perm(mod: nn.Module, to_jax: bool) -> Tuple[int, ...]:
+    """Torch layout -> JAX layout (or back) of a weight-normed conv's v:
+    (out, in, k) <-> (k, in, out), (in, out, k) <-> (k, out, in), (out,
+    in, kh, kw) <-> (kh, kw, in, out)."""
+    if isinstance(mod, WNConv2d):
+        return (2, 3, 1, 0) if to_jax else (3, 2, 0, 1)
+    return (2, 1, 0)
+
+
+def _wn_path(prefix: str) -> str:
+    """The flax path prefix of a conv at torch module path ``prefix``
+    (empty for a conv on its own)."""
+    return prefix.replace(".", "/") + "/" if prefix else ""
+
+
+def _wn_to_flat(model: nn.Module) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for prefix, mod in _wn_convs(model):
+        path = _wn_path(prefix)
+        perm = _wn_perm(mod, True)
+        if mod.weight_norm:
+            v = mod.weight_v.detach().float().cpu().numpy()
+            g = mod.weight_g.detach().float().cpu().numpy().reshape(-1)
+        else:       # folded: v = w, g = |w|, so g v/|v| = w
+            v = mod.weight.detach().float().cpu().numpy()
+            g = _g_norm(v)
+        out[f"{path}v"] = np.ascontiguousarray(v.transpose(perm))
+        out[f"{path}g"] = g
+        out[f"{path}bias"] = mod.bias.detach().float().cpu().numpy()
+    return out
+
+
+@torch.no_grad()
+def _wn_load_flat(what: str, model: nn.Module, flat: Dict[str, np.ndarray]
+                  ) -> None:
+    """Pop every weight-normed conv's ``v``, ``g`` and ``bias`` from
+    ``flat`` into ``model``."""
+    for prefix, mod in _wn_convs(model):
+        path = _wn_path(prefix)
+        try:
+            v, g, bias = (torch.from_numpy(np.array(flat.pop(
+                f"{path}{leaf}"), np.float32)) for leaf in ("v", "g", "bias"))
+        except KeyError as e:
+            raise KeyError(f"{what}: key missing {e}") from None
+        v = v.permute(_wn_perm(mod, False)).contiguous()
+        _check_shape(f"{path}v", v, mod.weight_v)
+        if tuple(g.shape) != (v.shape[0],):
+            raise ValueError(f"{path}g: shape {tuple(g.shape)}, the "
+                             f"port's ({v.shape[0]},)")
+        _check_shape(f"{path}bias", bias, mod.bias)
+        _set_wn(mod, g, v)
+        mod.bias.copy_(bias)
+
+
+def _is_wn_model(model: nn.Module) -> bool:
+    return any(True for _ in _wn_convs(model))
+
+
+def load_hfgan_flat(generator: nn.Module, discriminators: nn.Module,
+                    g_flat: Mapping, d_flat: Mapping) -> None:
+    """Strictly fill a HiFi-GAN generator and its discriminators
+    (``trainers/vocoder/hfgan.py::Discriminators``) from the JAX trainer's
+    parameters as flat ``flax path -> array`` dicts (``g_params`` and
+    ``d_params``)."""
+    load_flat(generator, g_flat)
+    d_flat = {k: np.asarray(v) for k, v in d_flat.items()}
+    _wn_load_flat("discriminator parameters", discriminators, d_flat)
+    _strict_keys("discriminator parameters", [], d_flat)
 
 
 def to_flat(model: nn.Module) -> Dict[str, np.ndarray]:
     """The JAX compact-checkpoint dict of an LVTR or a HiFi-GAN
-    generator (float32 numpy arrays keyed by flax paths)."""
+    generator, weight-normed or folded (float32 numpy arrays keyed by
+    flax paths)."""
+    if _is_wn_model(model):
+        return _wn_to_flat(model)
     sd = {k: v.detach().float().cpu().numpy()
           for k, v in model.state_dict().items()}
     out: Dict[str, np.ndarray] = {}
-    if isinstance(model, Generator):
-        for key, w in sd.items():
-            prefix, leaf = key.rsplit(".", 1)
-            path = prefix.replace(".", "/")
-            if leaf == "bias":
-                out[f"{path}/bias"] = w
-            else:       # a folded weight: v = w, g = |w|, so g v/|v| = w
-                out[f"{path}/v"] = w.transpose(2, 1, 0)
-                out[f"{path}/g"] = _g_norm(w)
-        return out
     for key, w in sd.items():
         path, kind = _flat_name(model, key)
         out[path] = np.ascontiguousarray(_to_jax(w, kind))
@@ -265,19 +341,9 @@ def load_flat(model: nn.Module, flat: Mapping) -> None:
     contract) into an LVTR or a HiFi-GAN generator; the non-parameter
     variables must equal the port's (to 1e-6)."""
     flat = {k: np.asarray(v) for k, v in flat.items()}
-    if isinstance(model, Generator):
-        ref = {}
-        for key in model.state_dict():
-            prefix, leaf = key.rsplit(".", 1)
-            path = prefix.replace(".", "/")
-            if leaf == "bias":
-                ref[key] = flat.pop(f"{path}/bias")
-            else:
-                v = flat.pop(f"{path}/v")
-                ref[f"{prefix}.weight_g"] = flat.pop(f"{path}/g")
-                ref[f"{prefix}.weight_v"] = v.transpose(2, 1, 0)
+    if _is_wn_model(model):
+        _wn_load_flat("generator checkpoint", model, flat)
         _strict_keys("generator checkpoint", [], flat)
-        load_reference_generator(model, ref)
         return
     sd = model.state_dict()
     names = {key: _flat_name(model, key) for key in sd}

@@ -4,8 +4,10 @@ of ``HiFiGAN`` in ``vae_gslm_tpu/models/vocoder/vocoder.py``).
 The checkpoint directory contract is the JAX package's: ``{path}/hp.yaml``
 (``feature`` and ``model.generator``) and ``{path}/last-cpt.npz`` (the
 JAX compact npz, weight-norm ``g``/``v`` pairs) or ``last-cpt.ckpt`` (a
-reference torch state dict), else the newest ``*-cpt.*``.  Weight norm
-is folded at load.  ``HuBERTIO`` waits for the discrete-AR slice
+reference torch state dict), else the newest ``*-cpt.*``.  The weights
+load into the weight-normed generator, whose norm ``from_pretrained``
+then folds (JAX ``vocoder.py:149-161``), so decoding runs plain convs on
+folded weights.  ``HuBERTIO`` waits for the discrete-AR slice
 (ROADMAP.md).
 """
 from __future__ import annotations
@@ -75,6 +77,7 @@ class HiFiGAN:
             load_compact(voc.model, ckpt)
         else:
             load_reference_generator(voc.model, load_torch_state_dict(ckpt))
+        voc.model.remove_weight_norm()
         return voc
 
     def save_pretrained(self, path: str) -> None:

@@ -44,11 +44,17 @@ card's name and power limit.
 
 times, in this process and without any root's kernels, the library
 calls beside them: SDPA's bf16 forward with a float mask at the K5_1750
-call and its float32 forward at the K4f32 call, and SDPA's float32
+call (on contiguous (B, H, T, D) tensors, and as ``K5_1750_views`` on
+the strided views of one packed projection that the kernels' calls
+get) and its float32 forward at the K4f32 call, and SDPA's float32
 backward alone (one ``torch.autograd.grad`` on a retained graph, float
 mask) at the K4bf32 and K5bf32 calls, each with the bound of the
 kernels' work (bytes at 3.35 TB/s, operations at 989 TFLOP/s bf16 or 67
-TFLOP/s float32, the larger; K4f32 writes lse too).
+TFLOP/s float32, the larger; K4f32 writes lse too).  Beside each
+profiler time, the median over 5 runs of CUDA events around 10 calls
+(host gaps included) and the device kernels of the last profiled window
+with their launch counts (which SDPA backend ran, and whether a window
+lost launches).
 """
 from __future__ import annotations
 
@@ -261,35 +267,53 @@ def library() -> dict:
     def ms(fn, calls):
         fn()
         torch.cuda.synchronize()
-        best = []
+        best, kernels = [], {}
         for _ in range(WINDOWS):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(calls):
                     fn()
                 torch.cuda.synchronize()
-            best.append(sum(e.self_device_time_total
-                            for e in prof.key_averages()
-                            if e.device_type == DeviceType.CUDA)
+            evs = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+            best.append(sum(e.self_device_time_total for e in evs)
                         / 1e3 / calls)
-        return statistics.median(best)
+            kernels = {e.key[:80]: e.count for e in evs}
+        events = []
+        for _ in range(WINDOWS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            events.append(start.elapsed_time(end) / calls)
+        return statistics.median(best), statistics.median(events), kernels
 
     out = {}
     for name, b, t, lens, dtype in (
             ("K5_1750", B7, T7, LENGTHS7, torch.bfloat16),
+            ("K5_1750_views", B7, T7, LENGTHS7, torch.bfloat16),
             ("K4f32", B, T, LENGTHS, torch.float32),
             ("K4bf32", B, T, LENGTHS, torch.float32),
             ("K5bf32", B5, T5, LENGTHS5, torch.float32)):
         q, k, v, do = (torch.randn((b, H, t, D), generator=g, device=dev)
                        .to(dtype) for _ in range(4))
+        if name.endswith("_views"):      # as the kernels' calls get them
+            x = torch.randn((b, t, 3 * H * D), generator=g, device=dev
+                            ).to(dtype)
+            q, k, v = (y.view(b, t, H, D).transpose(1, 2)
+                       for y in x.chunk(3, dim=-1))
         ln = torch.tensor(lens, dtype=torch.int32, device=dev)
         m = mask(ln, t, dtype)
         pairs = H * _pairs(b, t, t, lens)
         kv = sum(x if x >= 1 else t for x in lens) * H * D
-        if name in ("K5_1750", "K4f32"):
+        if name in ("K5_1750", "K5_1750_views", "K4f32"):
             with torch.no_grad():
-                lib = ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=m), 10)
-            item = 2 if name == "K5_1750" else 4
+                lib, lib_ev, kernels = ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=m), 10)
+            item = 2 if name.startswith("K5_1750") else 4
             flops, rate = 4 * D * pairs, BF16 if item == 2 else F32
             nbytes = item * (2 * b * t * H * D + 2 * kv)
             if name == "K4f32":
@@ -297,15 +321,18 @@ def library() -> dict:
         else:
             qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
             o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=m)
-            lib = ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do,
-                                                 retain_graph=True), 10)
+            lib, lib_ev, kernels = ms(
+                lambda: torch.autograd.grad(o, (qg, kg, vg), do,
+                                            retain_graph=True), 10)
             del o
             flops, rate = 10 * D * pairs, F32
             n_stats = 2 if name == "K4bf32" else 1
             nbytes = 4 * ((5 * b * t * H * D) + 2 * kv
                           + n_stats * b * H * t)
         t_b, t_o = nbytes / HBM, flops / rate
-        out[name] = {"sdpa_ms": lib, "bound_ms": max(t_b, t_o) * 1e3,
+        out[name] = {"sdpa_ms": lib, "sdpa_event_ms": lib_ev,
+                     "sdpa_kernels": kernels,
+                     "bound_ms": max(t_b, t_o) * 1e3,
                      "bound_by": "bytes" if t_b > t_o else "operations",
                      "gflop": flops / 1e9, "mb": nbytes / 1e6}
         del q, k, v, do, m
