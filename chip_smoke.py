@@ -241,7 +241,25 @@ Phases (any failure ends the run with a non-zero exit, no result):
      busy share and top operations, the one validation batch's mel L1;
      then
      ``HiFiGAN.from_pretrained`` on the written directory decodes four 1 s
-     clips' mels on the card, equal to the trainer's generator.
+     clips' mels on the card, equal to the trainer's generator;
+  13. the rest of the nn layers at full width (``lvtr_options``): the
+     shipped training config with, overridden in memory, a 3-layer
+     ``ResNet`` encoder, Rotary trunk positions, a 4-layer spline flow
+     and a ``ConditionalUNet`` denoiser with GroupNorm
+     (``options_config``): one ``LVTRTrainer.run_step`` at B 8 x 640,
+     16-mixed, accumulation 2 (exactly 32 K3 and 32 K3b launches with no
+     slopes), a B = 8 continuation of 500 per-layer int8 steps through
+     ``decode_attention`` and then through K6 (exactly 8000 launches,
+     zero slopes) with DDIM-100 and the HiFi-GAN, one float32 scoring
+     batch of 4 x 1100 frames (exactly 16 K5 launches); one call of each
+     of these kernels held against its plain version and timed at its
+     path's shape; then the same configuration at 2 layers and convs of
+     64/256 on the card against the CPU (loss terms, gradients, scores
+     past 1024 frames, a per-layer K6 continuation); 13b.
+     ``lvtr_options_small``: the same card-against-CPU checks on 2-layer
+     d256 LVTRs with T5 positions, ``ConvCoupling`` and a GroupNorm
+     encoder, and with SinCos positions and cross-attention over a
+     memory.
 Output: one line per measurement, then the ``{"kernels": [...]}`` line,
 the nvidia-smi name/power line, and ``{"ok": true, "device": ...}``.
 """
@@ -4052,6 +4070,638 @@ def phase_hfgan_fit(dev, gpu: str):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------- the rest of the nn layers
+OPT_PROMPT_B = 8                    # the continuation's batch
+OPT_SCORE_B, OPT_SCORE_T = 4, 1100  # one scoring batch past 1024: K5
+OPT_SCORE_LENGTHS = [1100, 1100, 1003, 1071]
+
+
+def options_config(layers: int = L, conv=(512, 2048), groups: int = 32
+                   ) -> dict:
+    """``configs/train/speech/vae-gslm.yaml`` with the options of the rest
+    of the nn layers, overridden in memory: a 3-layer ``ResNet`` encoder
+    (the shipped bottleneck's widths ``conv``, k 7, causal, InstanceNorm,
+    ReLU, final norm), Rotary trunk positions (``layers`` layers, d1024,
+    16 x 64 heads, FFN 4096 as shipped), a 4-layer conditional
+    rational-quadratic spline flow (8 bins, tail bound 5, hidden 64 as the
+    shipped flow's), a ``ConditionalUNet`` denoiser whose ``cond_net`` and
+    ``unet`` are 6-layer ``ResNet``s at ``conv`` with SiLU (the unet's
+    blocks GroupNorm of ``groups`` groups, concat-conditioned on the cond
+    net's output), the shipped time embedding, tokens and utterance
+    encoder."""
+    import copy
+
+    import yaml
+
+    with open(TRAIN_YAML) as f:
+        cfg = yaml.safe_load(f)
+    m = cfg["model"]
+    cin, chid = conv
+
+    def block(norm, act):
+        return {"in_channels": cin, "hidden_channels": chid,
+                "kernel_size": 7, "causal_padding": True, "norm": norm,
+                "activation": {"identifier": act}}
+
+    inorm = {"identifier": "InstanceNorm", "eps": 1e-6}
+    gnorm = {"identifier": "GroupNorm", "num_groups": groups, "eps": 1e-5}
+    m["encoder"] = {"identifier": "ResNet", "num_layers": 3,
+                    "final_norm": True, "layer": block(inorm, "ReLU")}
+    tr = m["transformer"]
+    tr["num_layers"] = layers
+    tr["rpe"] = {"identifier": "Rotary"}
+    tr["flow"] = {"identifier": "RationalQuadraticSplineCoupling",
+                  "num_layers": 4, "conditional": True,
+                  "layer": {"hidden_dim": 64, "num_bins": 8,
+                            "tail_bound": 5.0,
+                            "activation": {"identifier": "GELU"},
+                            "norm": {"identifier": "LayerNorm",
+                                     "eps": 1e-6}}}
+    dec = m["decoder"]
+    dec["diffusion"]["identifier"] = "ConditionalUNet"
+    dec["cond_unet"] = {
+        "cond_net": {"num_layers": 6, "layer": block(inorm, "SiLU")},
+        "unet": {"num_layers": 6, "final_norm": True,
+                 "layer": dict(block(gnorm, "SiLU"), condition_type="concat",
+                               in_dim=chid)},
+        "time_embedding": copy.deepcopy(dec["cond_unet"]["time_embedding"])}
+    return cfg
+
+
+def zero_kernel_counts() -> None:
+    """Every port kernel's launch counter to 0."""
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+    from vae_gslm_tpu_torch.ops.flash_decode import flash_decode_int8
+    from vae_gslm_tpu_torch.ops.fused_decode import fused_decode_attention
+    from vae_gslm_tpu_torch.ops.mega_step import fused_trunk_step
+    from vae_gslm_tpu_torch.ops.stream import stream_sums
+
+    for fn in (fused_decode_attention, flash_decode_int8, stream_sums,
+               fa.flash_forward_packed, fa.flash_backward_packed,
+               fa.flash_forward_full, fa.flash_backward_full,
+               fa.flash_forward_tiled, fa.flash_backward_blockwise):
+        fn.launches = 0
+    fused_trunk_step.launches = fused_trunk_step.launches_w4 = 0
+    fused_trunk_step.launches_bf16 = 0
+
+
+def expect_counts(where: str, want: dict) -> dict:
+    """The kernels' counts; fails unless those in ``want`` equal it and
+    every other is 0."""
+    got = port_kernel_counts()
+    bad = {k: v for k, v in got.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"{where}: kernel launches {bad}, expected "
+                             f"{want} and no other")
+    return got
+
+
+class Capture:
+    """Records the arguments of a wrapper's first call (``when`` decides
+    which call counts) while the module attribute ``name`` of ``mod``
+    points at a spy; the wrapper itself still runs, and its launch count
+    (which it keeps on its module attribute) reads and writes through to
+    the wrapper's own."""
+
+    def __init__(self, mod, name: str, when=None):
+        self.mod, self.name, self.when = mod, name, when
+        self.fn, self.args = getattr(mod, name), None
+
+    def __enter__(self):
+        cap = self
+
+        class Spy:
+            @property
+            def launches(self):
+                return cap.fn.launches
+
+            @launches.setter
+            def launches(self, n):
+                cap.fn.launches = n
+
+            def __call__(self, *args):
+                if cap.args is None and (cap.when is None
+                                         or cap.when(args)):
+                    cap.args = tuple(a.detach() if hasattr(a, "detach")
+                                     else a for a in args)
+                return cap.fn(*args)
+
+        setattr(self.mod, self.name, Spy())
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.fn)
+
+
+def _terms(out) -> list:
+    """A forward's loss terms, and one scalar of them to differentiate."""
+    t = [out["log_p"].value.sum(), out["log_q"].value.sum(),
+         out["rec_loss"], out["ce_loss"]]
+    return t, t[0] + t[1] - t[2] - t[3]
+
+
+def options_agree(dev, cfg_model: dict, what: str, memory_dim=None,
+                  flash: bool = True) -> None:
+    """A small LVTR under the options on the card (through the kernels)
+    and on the CPU (through the plain versions), float32, same weights,
+    inputs and draws: the training forward's loss terms to 1e-4
+    relative and every gradient to 1e-3 x its max |g| (B 2 x 100 frames,
+    an utterance crop where the model has an utterance encoder, a memory
+    where the trunk has cross-attention); ``likelihood`` at T = 1100
+    (K5 with ``flash``) with a pinned initial state, to 1e-4 relative; a
+    100-step continuation on the per-layer route over the int8 cache
+    (through K6 on the card), temperature 0 and a pinned initial state:
+    tokens equal for at least the first 50 steps, the first 32 steps'
+    latents to 1e-2.  ``flash``: the trunk's attention is the kernels'
+    (K3/K3b, K5, K6 each once a layer a call; T5's dense attention takes
+    none but K6)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.core.masked import Masked
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.inference.speech.sampler import ARTRSampler
+    from vae_gslm_tpu_torch.models.speech.lvtr import LVTR
+
+    rng = np.random.RandomState(6)
+    b, t, t_utt = 2, 100, 40
+    torch.cuda.reset_peak_memory_stats()
+    nl = cfg_model["transformer"]["num_layers"]
+    emb = cfg_model["tokens"]["embedding_dim"]
+    vocab = cfg_model["tokens"]["vocab_size"]
+    with precision.policy_scope(precision.Policy()):
+        models = {}
+        for where in ("cpu", dev):
+            models[str(where)] = LVTR(
+                Hparams.from_dict(copy.deepcopy(cfg_model)), input_dim=80,
+                device=where, memory_dim=memory_dim,
+                generator=torch.Generator("cpu").manual_seed(3)
+                if where == "cpu" else None)
+        cpu, gpu = models["cpu"], models[str(dev)]
+        gpu.load_state_dict(cpu.state_dict())
+        for m in (cpu, gpu):
+            m.decoder.override_sampling(sampling_timesteps=5,
+                                        ddim_sampling_eta=0.0)
+        x = np.concatenate([rng.randint(0, vocab, (b, t, 1)),
+                            rng.randn(b, t, 80)], -1).astype(np.float32)
+        utt = rng.randn(b, t_utt, 80).astype(np.float32)
+        mem = rng.randn(b, 30, memory_dim or 1).astype(np.float32)
+        draws = train_draws(rng, b, t, cfg_model["latent_dim"], emb,
+                            cpu.decoder.num_timesteps)
+
+        def inputs(where):
+            xm = Masked.from_lengths(torch.from_numpy(x).to(where), [t, 61])
+            um = (Masked.from_lengths(torch.from_numpy(utt).to(where),
+                                      [t_utt, 31])
+                  if cpu.utterance_net is not None else None)
+            cm = (Masked.from_lengths(torch.from_numpy(mem).to(where),
+                                      [30, 17]) if memory_dim else None)
+            return xm, um, cm
+
+        terms, grads = {}, {}
+        for name, model, where in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+            xm, um, cm = inputs(where)
+            zero_kernel_counts()
+            model.zero_grad()
+            ts, total = _terms(model(xm, None, c=cm, utterance=um,
+                                     draws={k: v.to(where)
+                                            for k, v in draws.items()}))
+            total.backward()
+            terms[name] = [float(v.detach()) for v in ts]
+            grads[name] = {n: p.grad.double().cpu()
+                           for n, p in model.named_parameters()
+                           if p.grad is not None}
+        torch.cuda.synchronize()
+        k3 = nl if flash else 0
+        launched = {}
+        launched["step"] = expect_counts(f"{what} step", {
+            "flash_forward_packed": k3, "flash_backward_packed": k3})
+        rel = max(abs(g - w) / max(abs(w), 1e-12)
+                  for g, w in zip(terms["gpu"], terms["cpu"]))
+        worst = 0.0
+        if set(grads["gpu"]) != set(grads["cpu"]):
+            raise AssertionError(f"{what}: gradient leaves differ")
+        for n, gc_ in grads["cpu"].items():
+            err = (grads["gpu"][n] - gc_).abs().max().item()
+            scale = gc_.abs().max().item()
+            if not err <= 1e-3 * scale + 1e-30:
+                raise AssertionError(f"{what}: gradient of {n} differs by "
+                                     f"{err:.3e} (max |g| {scale:.3e})")
+            worst = max(worst, err / max(scale, 1e-30))
+        if not rel <= 1e-4 or not all(math.isfinite(v)
+                                      for v in terms["gpu"]):
+            raise AssertionError(f"{what}: loss terms {terms}")
+
+        # scores past 1024 frames
+        ts_ = OPT_SCORE_T
+        xs = np.concatenate([rng.randint(0, vocab, (b, ts_, 1)),
+                             rng.randn(b, ts_, 80)], -1).astype(np.float32)
+        init = torch.from_numpy((rng.rand(b, 1, emb) * 2 - 1).astype(
+            np.float32))
+        scores = {}
+        for name, model, where in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+            model.initial_state = (lambda generator, bsize, nfeat=None,
+                                   where=where: init.to(where))
+            cs = (Masked.from_lengths(torch.from_numpy(mem).to(where),
+                                      [30, 17]) if memory_dim else None)
+            zero_kernel_counts()
+            with torch.no_grad():
+                scores[name] = model.likelihood(Masked.from_lengths(
+                    torch.from_numpy(xs).to(where), [ts_, 1041]), None,
+                    c=cs).double().cpu()
+        torch.cuda.synchronize()
+        launched["scores"] = expect_counts(
+            f"{what} scores", {"flash_forward_tiled": nl if flash else 0})
+        srel = ((scores["gpu"] - scores["cpu"]).abs()
+                / scores["cpu"].abs().clamp_min(1e-12)).max().item()
+        if not srel <= 1e-4 or not bool(torch.isfinite(scores["gpu"]).all()):
+            raise AssertionError(f"{what}: scores {scores}")
+
+        # the per-layer continuation over the int8 cache (K6 on the card)
+        tp, length = 20, 100
+        prompt = x[:, :tp]
+        frames = {}
+        for name, model, where in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+            sampler = ARTRSampler(model, kv_dtype=torch.int8,
+                                  flash_decode=True, device=where)
+            if sampler.route(b) != "per_layer":
+                raise AssertionError(f"{what}: route {sampler.route(b)}")
+            zero_kernel_counts()
+            out = sampler(length, Masked.from_lengths(
+                torch.from_numpy(prompt).to(where), [tp] * b),
+                torch.Generator(where).manual_seed(0), temperature=0.0,
+                token_temperature=1e-6, encoder_temperature=0.0)
+            frames[name] = out["frames"].value.float().cpu().numpy()[:, tp:]
+            if not bool(torch.isfinite(out["output"].value).all()):
+                raise AssertionError(f"{what}: non-finite mel")
+        torch.cuda.synchronize()
+        launched["continuation"] = expect_counts(f"{what} continuation",
+                      {"flash_decode_int8": nl * length})
+    neq = (frames["cpu"][..., 0] != frames["gpu"][..., 0]).any(0)
+    first = int(neq.argmax()) if neq.any() else length
+    lat = float(np.abs(frames["cpu"][:, :32, 1:]
+                       - frames["gpu"][:, :32, 1:]).max())
+    log(f"{what} (card kernels vs CPU plain, float32): loss terms max rel "
+        f"err {rel:.2e}, gradients max err {worst:.2e} x max|g| over "
+        f"{len(grads['cpu'])} leaves; scores at T={ts_} max rel err "
+        f"{srel:.2e}; per-layer int8 continuation (K6) tokens equal for "
+        f"the first {first} of {length} steps, first-32-step latent max "
+        f"error {lat:.2e}")
+    log(f"{what}: card peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; card "
+        "launches " + "; ".join(
+            f"{run} " + (", ".join(f"{k} {v}" for k, v in c.items() if v)
+                         or "none") for run, c in launched.items()))
+    if first < 50 or not lat < 1e-2:
+        raise AssertionError(f"{what}: the card and the CPU continuations "
+                             "disagree")
+
+
+def phase_lvtr_options_small(dev) -> None:
+    """The options the full-width phase leaves out, each on a 2-layer d256
+    LVTR (4 heads of 64, narrow convs), card against CPU
+    (``options_agree``): T5 relative positions with ``ConvCoupling`` and a
+    GroupNorm ``ResNet`` encoder (dense attention: no K3/K5), and SinCos
+    positions with cross-attention layers over a 64-wide memory (K3/K3b,
+    K5, K6)."""
+    import copy
+
+    base = options_config(layers=2, conv=(64, 128), groups=8)["model"]
+    base["transformer"]["layer"].update(dim=256, ffd_size=1024)
+    base["transformer"]["layer"]["self_attn"]["nheads"] = 4
+    del base["utterance_encoder"]
+    t5 = copy.deepcopy(base)
+    t5["encoder"]["layer"]["norm"] = {"identifier": "GroupNorm",
+                                      "num_groups": 8, "eps": 1e-5}
+    t5["transformer"]["rpe"] = {"identifier": "T5RPE",
+                                "bidirectional": False, "num_buckets": 32,
+                                "max_distance": 128}
+    t5["transformer"]["flow"] = {
+        "identifier": "ConvCoupling", "num_layers": 2, "conditional": True,
+        "layer": {"hidden_dim": 32, "kernel_size": 3, "causal_padding": True,
+                  "mean_only": False, "scale_range": [0.5, 2.0],
+                  "activation": {"identifier": "GELU"},
+                  "norm": {"identifier": "LayerNorm", "eps": 1e-6}}}
+    options_agree(dev, t5, "options small (T5RPE, ConvCoupling, GroupNorm "
+                  "encoder)", flash=False)
+    cross = copy.deepcopy(base)
+    cross["transformer"]["rpe"] = {"identifier": "SinCos", "maxpos": 2048}
+    cross["transformer"]["layer"]["cross_attn"] = {"nheads": 4}
+    options_agree(dev, cross, "options small (SinCos, cross-attention over "
+                  "a memory)", memory_dim=64)
+
+
+def phase_lvtr_options(dev, gpu: str) -> dict:
+    """The options at full width (``options_config``: 16 layers, d1024,
+    Rotary, ResNet encoder, spline flow, ConditionalUNet with GroupNorm),
+    weights from seed 0, each run with every kernel count set to 0 just
+    before and read just after:
+      (a) ``LVTRTrainer.run_step`` at B 8 x 640 frames, 16-mixed,
+          accumulation 2, after one warm-up step: exactly 32 K3 and 32 K3b
+          launches (bf16, ``slopes=None``) and no other kernel; the loss
+          terms and every gradient finite;
+      (b) ``ARTRSampler`` at B 8: a 3 s prompt, 500 AR steps on the
+          per-layer route over the int8 cache, once through
+          ``decode_attention`` (no kernel) and once with
+          ``flash_decode=True`` (exactly 16 x 500 K6 launches, zero
+          slopes), DDIM-100 at eta 0.5, the seed-1 HiFi-GAN (bf16
+          weights), outputs checked as the serving phases check them;
+      (c) one ``LVTR.likelihood`` batch, float32 with TF32 off, 4 x 1100
+          frames: exactly 16 K5 launches.
+    One call of each kernel on the path (K3 and K3b from the step, K6 at
+    position 400 of the flash rollout, K5 from the scores) is held against
+    its plain version on the same inputs, then timed at those shapes
+    beside its plain version, one library call and its bound.  Then
+    ``options_agree`` on the same configuration at 2 trunk layers and
+    convs of 64/256.  Returns the launches of (a), (b) and (c) by
+    wrapper."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.core.masked import Masked
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.inference.speech.sampler import ARTRSampler
+    from vae_gslm_tpu_torch.models.speech.lvtr import LVTR
+    from vae_gslm_tpu_torch.models.vocoder.hfgan import Generator
+    from vae_gslm_tpu_torch.nn import attention as attn_mod
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+    from vae_gslm_tpu_torch.ops.flash_decode import flash_decode_int8_plain
+    from vae_gslm_tpu_torch.trainers.speech.lvtr import LVTRTrainer
+
+    cfg = options_config()
+    launches = {}
+
+    # (a) the training step
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg["vocoder"]["path"] = vocoder_dir(tmp)
+        cfg["trainer"]["precision"] = "16-mixed"
+        t0 = time.perf_counter()
+        trainer = LVTRTrainer(Hparams.from_dict(cfg), seed=0, device=dev)
+    nparams = sum(p.numel() for p in trainer.params)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    batch = trainer.prepare_batch(train_batches(
+        np.random.RandomState(0), TRAIN_B, TRAIN_T, TRAIN_LENGTHS, 200,
+        cfg["model"]["tokens"]["vocab_size"]))
+    trainer.run_step(batch)                           # warm-up
+    trainer.global_step += 1
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    with Capture(fa, "flash_forward_packed") as cf, \
+            Capture(fa, "flash_backward_packed") as cb:
+        t0 = time.perf_counter()
+        metrics = trainer.run_step(batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    want = L * TRAIN_ACCUM
+    launches.update(expect_counts("options step", {
+        "flash_forward_packed": want, "flash_backward_packed": want}))
+    terms = {k: float(metrics[k]) for k in ("rec_loss", "kld", "token_kld",
+                                            "grad_norm")}
+    finite = all(bool(torch.isfinite(p.grad).all())
+                 for p in trainer.params if p.grad is not None)
+    if not finite or not all(math.isfinite(v) for v in terms.values()):
+        raise AssertionError(f"options step: non-finite loss or gradients "
+                             f"{terms}")
+    tokens = TRAIN_B * TRAIN_ACCUM * TRAIN_T
+    log(f"options train step (Rotary, ResNet encoder, spline flow, "
+        f"ConditionalUNet + GroupNorm; {nparams / 1e6:.1f} M parameters, "
+        f"built in {build_s:.1f} s) B={TRAIN_B} x accumulation "
+        f"{TRAIN_ACCUM} x T={TRAIN_T}, 16-mixed: {step_s * 1e3:.1f} ms "
+        f"({tokens / step_s:.0f} tokens/s), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; K3 {want}, K3b {want} launches; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in terms.items()) + f" ({gpu})")
+    q, k, v, lengths, slopes, causal, nh = cf.args
+    bq, bk, bv, bo, bg, blse = cb.args[:6]
+    if slopes is not None or cb.args[7] is not None:
+        raise AssertionError("the Rotary trunk handed K3/K3b slopes")
+    o, lse = fa.flash_forward_packed(q, k, v, lengths, None, causal, nh)
+    o_ref, lse_ref = fa.flash_forward_packed_plain(q, k, v, lengths, None,
+                                                   causal, nh)
+    grads = fa.flash_backward_packed(bq, bk, bv, bo, bg, blse, lengths,
+                                     None, causal, nh)
+    refs = fa.flash_backward_packed_plain(bq, bk, bv, bo, bg, blse, lengths,
+                                          None, causal, nh)
+    torch.cuda.synchronize()
+    where = "K3/K3b at the options step's call, bf16, slopes None"
+    errs, worst_f, worst_b = [], 0.0, 0.0
+    for name, got, ref, tol, floor in (
+            ("o", o, o_ref, 1e-2, 0.0), ("lse", lse, lse_ref, 1e-5, 1.0),
+            *((n, g_, r_, 2e-2, 0.0) for n, g_, r_ in zip(
+                ("dq", "dk", "dv"), grads, refs))):
+        err, text = hold(where, name, got, ref, tol, floor, True)
+        errs.append(text)
+        if name in ("o", "lse"):
+            worst_f = max(worst_f, err)
+        else:
+            worst_b = max(worst_b, err)
+    log(f"K3/K3b check at the options step's call (B={q.shape[0]} "
+        f"T={q.shape[1]} H={nh} bf16, Rotary q/k, slopes None): "
+        f"max_abs_err " + ", ".join(errs))
+    del o, lse, o_ref, lse_ref, grads, refs
+    lens = lengths.tolist()
+    kf = device_ms(lambda i: fa.flash_forward_packed(
+        q, k, v, lengths, None, True, nh), n=20, only=K3_KERNELS[:1],
+        per_call=1)
+    kb = device_ms(lambda i: fa.flash_backward_packed(
+        bq, bk, bv, bo, bg, blse, lengths, None, True, nh), n=20,
+        only=K3_KERNELS[1:], per_call=2)
+    pf = device_ms(lambda i: fa.flash_forward_packed_plain(
+        q, k, v, lengths, None, True, nh), n=3)
+    pb = device_ms(lambda i: fa.flash_backward_packed_plain(
+        bq, bk, bv, bo, bg, blse, lengths, None, True, nh), n=3)
+    zeros = torch.zeros(nh, device=dev)
+    mask = sdpa_mask(lengths, zeros, torch.bfloat16, dev)
+    b_, t_ = q.shape[:2]
+    q4, k4, v4 = (x.reshape(b_, t_, nh, D).transpose(1, 2) for x in
+                  (q, k, v))
+    lf = library_ms(lambda i: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask), n=20)
+    lb = sdpa_bwd_ms(q4, k4, v4, bg.reshape(b_, t_, nh, D).transpose(1, 2),
+                     mask)
+    (fbytes, fops), (bbytes, bops) = k3_bytes_ops(2, b_, t_, lens)
+    bound_f = max(fbytes / HBM_BYTES_PER_S, fops / BF16_FLOPS) * 1e3
+    bound_b = max(bbytes / HBM_BYTES_PER_S, bops / BF16_FLOPS) * 1e3
+    log(f"K3 time at the options step's call (bf16, slopes None): kernel "
+        f"{kf:.4f} ms, plain {pf:.4f} ms, SDPA (float mask) forward "
+        f"{lf:.4f} ms, bound {bound_f:.4f} ms ({gpu})")
+    log(f"K3b time at the options step's call (bf16, slopes None): "
+        f"kernels {kb:.4f} ms, plain {pb:.4f} ms, SDPA backward alone "
+        f"{lb:.4f} ms, bound {bound_b:.4f} ms ({gpu})")
+    timings = {"K3": (kf, pf, lf, bound_f, worst_f),
+               "K3b": (kb, pb, lb, bound_b, worst_b)}
+    del trainer, metrics, cf, cb, q, k, v, bq, bk, bv, bo, bg, blse, mask
+    del q4, k4, v4
+    gc.collect()
+
+    # (b) the continuation
+    model_cfg = options_config()["model"]
+    del model_cfg["utterance_encoder"]       # as the serving phases
+    voc_hp = Hparams.from_yamlfile(VOCODER_YAML)
+    prior = make_prior(OPT_PROMPT_B, dev)
+    kw = dict(temperature=0.85, token_temperature=0.85)
+    audio_s = OPT_PROMPT_B * LENGTH / 50.0
+    with precision.policy_scope(precision.bf16_mixed()):
+        model = LVTR(Hparams.from_dict(model_cfg), input_dim=80, device=dev,
+                     generator=torch.Generator(dev).manual_seed(0))
+        model.decoder.override_sampling(sampling_timesteps=100,
+                                        ddim_sampling_eta=0.5)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.data = p.data.to(torch.bfloat16)
+        vocoder = Generator(voc_hp.model.generator, device=dev,
+                            generator=torch.Generator(dev).manual_seed(1))
+        vocoder.remove_weight_norm()
+        vocoder.requires_grad_(False)
+        frames = {}
+        for flash in (False, True):
+            name = "K6" if flash else "decode_attention"
+            sampler = ARTRSampler(model, kv_dtype=torch.int8,
+                                  flash_decode=flash, device=dev)
+            if sampler.route(OPT_PROMPT_B) != "per_layer":
+                raise AssertionError(f"options continuation: route "
+                                     f"{sampler.route(OPT_PROMPT_B)}")
+            vocoder(sampler(8, prior, torch.Generator(dev).manual_seed(99),
+                            **kw)["output"])              # warm-up
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_kernel_counts()
+            with Capture(attn_mod, "flash_decode_int8",
+                         when=lambda a: a[5] == 400) as c6:
+                run_t, counts, out = run_once(sampler, vocoder, prior, dev, 1,
+                                              kw)
+            peak = torch.cuda.max_memory_allocated()
+            got = expect_counts(f"options continuation ({name})",
+                                {"flash_decode_int8": L * LENGTH if flash
+                                 else 0})
+            if flash:
+                launches["flash_decode_int8"] = got["flash_decode_int8"]
+                k6_args = c6.args
+            frames[name] = out["frames"].value[:, PROMPT:].float().cpu()
+            log(f"options continuation B={OPT_PROMPT_B} (per-layer int8 "
+                f"cache, {name}): K6 launches {counts[2]}; " + ", ".join(
+                    f"{k} {v:.3f} s" for k, v in run_t.items())
+                + f"; {run_t['ar_loop'] / LENGTH * 1e3:.2f} ms per AR step; "
+                f"real-time factor {audio_s / sum(run_t.values()):.2f}x; "
+                f"peak memory {peak / 2 ** 30:.2f} GiB ({gpu})")
+    ref_f, k6_f = frames["decode_attention"], frames["K6"]
+    log(f"options continuation: K6 route against decode_attention, same "
+        f"prompts and seed: tokens equal at "
+        f"{float((ref_f[..., 0] == k6_f[..., 0]).float().mean()):.1%} of "
+        f"the steps (reported, not gated)")
+    q6, k8, v8, ks, vs, pos, sl = k6_args
+    if bool(sl.any()):
+        raise AssertionError("the Rotary trunk handed K6 non-zero slopes")
+    got = attn_mod.flash_decode_int8(q6, k8, v8, ks, vs, pos, sl)
+    want = flash_decode_int8_plain(q6, k8, v8, ks, vs, pos, sl)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = 1e-5 * want.float().abs().max().item()
+    log(f"K6 check at the options rollout's call (B={q6.shape[0]}, pos "
+        f"{pos}, cache T={k8.shape[2]}, zero slopes): max_abs_err {err:.3e} "
+        f"(tolerance {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError("K6 disagrees with its plain version at the "
+                             "options rollout's call")
+    k6_ms = device_ms(lambda i: attn_mod.flash_decode_int8(
+        q6, k8, v8, ks, vs, pos, sl), n=100, only=("flash_decode_kernel",),
+        per_call=1)
+    k6_plain = device_ms(lambda i: flash_decode_int8_plain(
+        q6, k8, v8, ks, vs, pos, sl), n=5)
+    k6_bytes_ = (q6.shape[0] * H * ((pos + 1) * (2 * D + 8)
+                                    + D * (q6.element_size() + 4)) + H * 4)
+    k6_bound = k6_bytes_ / HBM_BYTES_PER_S * 1e3
+    log(f"K6 time at the options rollout's call: kernel {k6_ms * 1e3:.2f} "
+        f"us, plain {k6_plain * 1e3:.1f} us, bound {k6_bound * 1e3:.2f} us "
+        f"({k6_bytes_ / 1e6:.2f} MB; no library call) ({gpu})")
+    timings["K6"] = (k6_ms, k6_plain, None, k6_bound, err)
+    del model, sampler, vocoder, k6_args, q6, k8, v8, ks, vs, out
+    gc.collect()
+
+    # (c) one scoring batch past 1024 frames, float32
+    rng = np.random.RandomState(3)
+    x = np.concatenate([rng.randint(0, 200, (OPT_SCORE_B, OPT_SCORE_T, 1)),
+                        rng.randn(OPT_SCORE_B, OPT_SCORE_T, 80)],
+                       -1).astype(np.float32)
+    with precision.policy_scope(precision.Policy()):
+        model = LVTR(Hparams.from_dict(model_cfg), input_dim=80, device=dev,
+                     generator=torch.Generator(dev).manual_seed(0))
+        xm = Masked.from_lengths(torch.from_numpy(x).to(dev),
+                                 OPT_SCORE_LENGTHS)
+        with torch.no_grad():
+            model.likelihood(xm, torch.Generator(dev).manual_seed(1))
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_kernel_counts()
+        with Capture(fa, "flash_forward_tiled") as c5, torch.no_grad():
+            t0 = time.perf_counter()
+            scores = model.likelihood(xm, torch.Generator(dev).manual_seed(1))
+            torch.cuda.synchronize()
+            score_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    launches.update({k: v for k, v in expect_counts(
+        "options scores", {"flash_forward_tiled": L}).items() if v})
+    if tuple(scores.shape) != (OPT_SCORE_B,) or not bool(
+            torch.isfinite(scores).all()):
+        raise AssertionError(f"options scores {scores}")
+    audio = sum(OPT_SCORE_LENGTHS) / 50.0
+    log(f"options scores B={OPT_SCORE_B} x T={OPT_SCORE_T} (float32, TF32 "
+        f"off): {score_s * 1e3:.1f} ms ({audio / score_s:.0f} s of audio "
+        f"per second), peak memory {peak / 2 ** 30:.2f} GiB; K5 launches "
+        f"{L}; scores {[round(float(s), 4) for s in scores]} ({gpu})")
+    q5, k5, v5, l5, s5, causal5 = c5.args
+    if s5 is not None:
+        raise AssertionError("the Rotary trunk handed K5 slopes")
+    got = fa.flash_forward_tiled(q5, k5, v5, l5, None, causal5)
+    want = fa.flash_forward_tiled_plain(q5, k5, v5, l5, None, causal5)
+    torch.cuda.synchronize()
+    k5_err, text = hold("K5 at the options scores' call, float32", "o", got,
+                        want, 1e-5, 1.0, False)
+    log(f"K5 check at the options scores' call (B={q5.shape[0]} "
+        f"Tq=Tk={q5.shape[2]} H={q5.shape[1]} float32, slopes None): "
+        f"max_abs_err {text}")
+    k5_ms = device_ms(lambda i: fa.flash_forward_tiled(
+        q5, k5, v5, l5, None, True), n=5, only=("k5_fwd",), per_call=1)
+    k5_plain = device_ms(lambda i: fa.flash_forward_tiled_plain(
+        q5, k5, v5, l5, None, True), n=2)
+    mask = sdpa_mask(l5, torch.zeros(H, device=dev), torch.float32, dev,
+                     OPT_SCORE_T, OPT_SCORE_T)
+    k5_lib = library_ms(lambda i: F.scaled_dot_product_attention(
+        q5, k5, v5, attn_mask=mask), n=3)
+    nb, no = bhtd_bytes_ops(OPT_SCORE_B, OPT_SCORE_T, OPT_SCORE_T, H,
+                            OPT_SCORE_LENGTHS, True, 4)
+    k5_bound = max(nb / HBM_BYTES_PER_S, no / F32_FLOPS) * 1e3
+    log(f"K5 time at the options scores' call (float32, slopes None): "
+        f"kernel {k5_ms:.4f} ms, plain {k5_plain:.4f} ms, SDPA (float32, "
+        f"float mask) {k5_lib:.4f} ms, bound {k5_bound:.4f} ms ({gpu})")
+    timings["K5"] = (k5_ms, k5_plain, k5_lib, k5_bound, k5_err)
+    del model, q5, k5, v5, mask, got, want
+    gc.collect()
+
+    # the same configuration at 2 trunk layers and narrow convs, card
+    # against CPU
+    small = options_config(layers=2, conv=(64, 256))["model"]
+    options_agree(dev, small, "options (2 layers, convs 64/256)")
+    for name, (ms, plain, lib, bound, err) in timings.items():
+        log(f"options kernel line {name}: ms {ms:.4f}, plain_ms "
+            f"{plain:.4f}, library_ms "
+            f"{'null' if lib is None else f'{lib:.4f}'}, bound_ms "
+            f"{bound:.4f}, max_abs_err {err:.3e}")
+    return launches
+
+
 def main() -> int:
     # keep CUPTI set up between profiler windows (torch's own workaround
     # for its re-initialisation, which has left windows with no kernel)
@@ -4136,13 +4786,19 @@ def main() -> int:
     k5b["launches"] = long_counts["flash_backward_blockwise"]
     timed("hfgan_small", phase_hfgan_small, dev)
     timed("hfgan_fit", phase_hfgan_fit, dev, gpu)
+    opt = timed("lvtr_options", phase_lvtr_options, dev, gpu)
+    timed("lvtr_options_small", phase_lvtr_options_small, dev)
+    k3["launches"] += opt["flash_forward_packed"]
+    k3b["launches"] += opt["flash_backward_packed"]
+    k6["launches"] += opt["flash_decode_int8"]
     import shutil
     import tempfile
 
     flagship = tempfile.mkdtemp(prefix="flagship_")
     try:
         ckpt, _ = timed("flagship", write_flagship, flagship, dev)
-        k5["launches"] = timed("score", phase_score, dev, gpu, ckpt)
+        k5["launches"] = (timed("score", phase_score, dev, gpu, ckpt)
+                          + opt["flash_forward_tiled"])
         config = write_cli_corpus(flagship)
         k2bf16["launches"] = timed("cli_k2", phase_cli, dev, gpu, config,
                                    w4=False)

@@ -28,10 +28,13 @@ The map is derived from the port's modules, as the JAX package's
 ``models/convert_torch.py::export_torch_lvtr`` derives the reference
 names from its own, and is strict both ways: every port parameter is
 covered, no key is left over, shapes must agree.  Variables that are not
-parameters (ALiBi's ``slopes``, the SinCos ``p`` table, the diffusion
-``schedule`` stack) are written from the port's recomputed buffers and,
-on loading, checked equal to them.  None of this imports the JAX
-package.
+parameters (ALiBi's ``slopes``, the SinCos ``p`` table, Rotary's
+``freqs`` and xpos ``scale``, the diffusion ``schedule`` stack) are
+written from the port's recomputed buffers and, on loading, checked
+equal to them.  The JAX exporter drops a ``ConditionalUNet`` denoiser
+(and names any encoder as a bottleneck's), so ``load_reference_lvtr``
+refuses such a dict and points to ``load_flat``, which carries every
+LVTR the port builds.  None of this imports the JAX package.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ from ..nn.attention import LayerKVCache
 from ..nn.conv import Conv1d, ConvTranspose1d, LayerScale
 from ..nn.diffusion import GaussianDiffusion1D
 from ..nn.linear import Dense, Embedding, FiLM, GaussianParameterize, Linear
-from ..nn.positions import ALiBi, SinCos
+from ..nn.positions import ALiBi, Rotary, SinCos
 from ..ops.mega_step import W4_KEYS, WEIGHT_KEYS
 from .vocoder.hfgan import WN_CONVS, WNConv2d
 
@@ -71,9 +74,17 @@ def _rename(key: str) -> str:
 
 
 def load_reference_lvtr(model: nn.Module, sd: Mapping) -> None:
-    """Strictly load a reference-keyed LVTR state dict into the port."""
-    model.load_state_dict({_rename(k): _tensor(v) for k, v in sd.items()},
-                          strict=True)
+    """Strictly load a reference-keyed LVTR state dict into the port;
+    raises naming ``load_flat`` when the dict does not cover the model
+    (a JAX ``export_torch_lvtr`` dict of a ``ConditionalUNet`` model)."""
+    try:
+        model.load_state_dict({_rename(k): _tensor(v)
+                               for k, v in sd.items()}, strict=True)
+    except RuntimeError as e:
+        raise KeyError(
+            f"the state dict does not cover this LVTR ({e}); the JAX "
+            "exporter drops a ConditionalUNet denoiser: carry the model "
+            "through its compact checkpoint and load_flat instead") from None
 
 
 def _wn_convs(model: nn.Module) -> Iterator[Tuple[str, nn.Module]]:
@@ -224,14 +235,19 @@ def _from_jax(a: np.ndarray, kind: str, shape) -> np.ndarray:
 
 def _lvtr_variables(model: nn.Module) -> Iterator[Tuple[str, np.ndarray]]:
     """The non-parameter variables of a JAX LVTR, from the port's
-    recomputed buffers: ALiBi slopes, SinCos tables and each diffusion
-    decoder's sorted ``schedule`` stack."""
+    recomputed buffers: ALiBi slopes, SinCos tables, Rotary frequencies
+    (and xpos scales) and each diffusion decoder's sorted ``schedule``
+    stack."""
     for name, mod in model.named_modules():
         prefix = name.replace(".", "/")
         if isinstance(mod, ALiBi):
             yield f"{prefix}/slopes", mod.slopes.cpu().numpy()
         elif isinstance(mod, SinCos):
             yield f"{prefix}/p", mod.p.cpu().numpy()
+        elif isinstance(mod, Rotary):
+            yield f"{prefix}/freqs", mod.freqs.cpu().numpy()
+            if mod.scale is not None:
+                yield f"{prefix}/scale", mod.scale.cpu().numpy()
         elif isinstance(mod, GaussianDiffusion1D):
             yield f"{prefix}/schedule", np.stack(
                 [mod._host[k] for k in sorted(mod._host)])
@@ -362,6 +378,5 @@ def load_flat(model: nn.Module, flat: Mapping) -> None:
         if a.shape != tuple(sd[key].shape):
             raise ValueError(f"{path}: checkpoint shape {a.shape}, the "
                              f"port's {tuple(sd[key].shape)}")
-        out[key] = torch.from_numpy(np.ascontiguousarray(a)).to(
-            sd[key].dtype)
+        out[key] = torch.from_numpy(np.array(a)).to(sd[key].dtype)
     model.load_state_dict(out, strict=True)

@@ -8,8 +8,13 @@ flow, token CE, diffusion loss with the utterance embedding),
 ``step`` (the stacked prefill), ``step_hybrid`` (one AR step over the
 hybrid int8 cache), ``step_mega`` (one AR step through K2 with int8
 weights), ``decode`` (diffusion back to mels) and ``likelihood`` (the
-per-utterance pseudo-likelihood of the scoring path).  The other
-encoders wait for a later slice (ROADMAP.md).
+per-utterance pseudo-likelihood of the scoring path).  The encoder is a
+``ResNet`` (JAX's default), ``BottleNeckResNet`` or ``CNNStack``; the
+denoiser a ``ConditionalUNet`` (JAX's default) or
+``ConditionalBottleNeckUNet``.  A trunk with cross-attention layers
+attends over a memory ``c`` (``memory_dim`` wide when the stack projects
+it) in ``forward`` and ``likelihood`` and, projected once by the caller
+(``transformer.project_memory``), in the per-layer ``step``.
 
 Randomness comes from one ``torch.Generator`` that the caller passes
 and that is consumed in call order: ``forward`` draws the posterior
@@ -35,15 +40,19 @@ from ...core.device import resolve_device
 from ...core.losses import masked_ce_loss
 from ...core.masked import Masked, resize_length
 from ...hparams.hp import Hparams
-from ...nn.conv import BottleNeckResNet, CNNStack
+from ...nn.conv import BottleNeckResNet, CNNStack, ResNet
 from ...nn.diffusion import GaussianDiffusion1D
 from ...nn.flow import CouplingStack, TensorLogdet
 from ...nn.linear import (Embedding, GaussianParameterize, Linear,
                           TimeAggregation)
 from ...nn.transformer import TransformerLayerStack
-from ...nn.unet import ConditionalBottleNeckUNet
+from ...nn.unet import ConditionalBottleNeckUNet, ConditionalUNet
 
 LOG_2PI = math.log(2.0 * math.pi)
+ENCODERS = {"BottleNeckResNet": BottleNeckResNet, "ResNet": ResNet,
+            "CNNStack": CNNStack}
+DENOISERS = {"ConditionalBottleNeckUNet": ConditionalBottleNeckUNet,
+             "ConditionalUNet": ConditionalUNet}
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
@@ -71,26 +80,27 @@ class LVTR(nn.Module):
 
     def __init__(self, hp: Hparams, input_dim: Optional[int] = None,
                  device: Union[str, torch.device] = "cuda",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 memory_dim: Optional[int] = None):
         super().__init__()
         dev = resolve_device(device)
         hp.check_arg_in_hparams("encoder", "decoder", "transformer",
                                 "latent_dim")
         with torch.device(dev):
-            self._build(hp, input_dim)
+            self._build(hp, input_dim, memory_dim)
         if generator is None:
             generator = torch.Generator(dev).manual_seed(0)
         init_parameters(self, generator)
 
-    def _build(self, hp: Hparams, input_dim: Optional[int]) -> None:
+    def _build(self, hp: Hparams, input_dim: Optional[int],
+               memory_dim: Optional[int]) -> None:
         self.hp = hp
         self.input_dim = input_dim
         self.latent_dim = hp.latent_dim
         enc_id = hp.encoder.get("identifier", "ResNet")
-        if enc_id != "BottleNeckResNet":
-            raise NotImplementedError(
-                f"the {enc_id} encoder is not ported yet (ROADMAP.md)")
-        self.encoder_net = BottleNeckResNet(hp.encoder, input_dim=input_dim,
+        if enc_id not in ENCODERS:
+            raise ValueError(f"{enc_id} not recognized.")
+        self.encoder_net = ENCODERS[enc_id](hp.encoder, input_dim=input_dim,
                                             output_dim=hp.latent_dim)
         self.encoder_head = GaussianParameterize(
             hp.latent_dim, hp.latent_dim,
@@ -119,13 +129,12 @@ class LVTR(nn.Module):
         if hp.has("utterance_encoder"):
             diff_cond_dim += hp.utterance_encoder.embedding_dim
         dec_id = hp.decoder.diffusion.get("identifier", "ConditionalUNet")
-        if dec_id != "ConditionalBottleNeckUNet":
-            raise NotImplementedError(
-                f"the {dec_id} denoiser is not ported yet (ROADMAP.md)")
+        if dec_id not in DENOISERS:
+            raise ValueError(f"{dec_id} not recognized.")
         hp.decoder.check_arg_in_hparams("cond_unet")
         self.decoder = GaussianDiffusion1D(
-            ConditionalBottleNeckUNet(diff_cond_dim, input_dim,
-                                      hp.decoder.cond_unet),
+            DENOISERS[dec_id](diff_cond_dim, input_dim,
+                              hp.decoder.cond_unet),
             hp.decoder.diffusion)
         self.diff_scaling = hp.decoder.diffusion.get("input_scale", 1.0)
         if hp.transformer.has("flow"):
@@ -138,7 +147,7 @@ class LVTR(nn.Module):
         self.transformer = TransformerLayerStack(
             hp.transformer,
             input_dim=(self.tokens_hp.embedding_dim if self.use_tokens
-                       else hp.latent_dim))
+                       else hp.latent_dim), memory_dim=memory_dim)
         self.prior_head = GaussianParameterize(
             tr_dim, hp.latent_dim, std=hp.transformer.get("fix_std", None),
             std_range=hp.transformer.get("std_range", None),
@@ -181,14 +190,11 @@ class LVTR(nn.Module):
                 draws: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Dict[str, Any]:
         """Training forward (JAX ``__call__``): the loss terms and
-        statistics of [token, mel] frames ``x``.  ``draws`` may replace
-        any of the generator's draws with given tensors: ``posterior``,
-        ``initial`` (B, 1, C) uniform(-1, 1), ``prior``,
+        statistics of [token, mel] frames ``x``, the trunk attending over
+        the memory ``c`` where it has cross-attention layers.  ``draws``
+        may replace any of the generator's draws with given tensors:
+        ``posterior``, ``initial`` (B, 1, C) uniform(-1, 1), ``prior``,
         ``diff_posterior``, ``t`` and ``noise``."""
-        if c is not None:
-            raise NotImplementedError(
-                "the trunk's cross-attention memory is not ported yet "
-                "(ROADMAP.md)")
         draws = draws or {}
         tokens = token_ids = None
         if self.use_tokens:
@@ -210,7 +216,7 @@ class LVTR(nn.Module):
             shifted = tokens + self.token_fuser(shifted)
         shifted = shifted.shift_right(init.to(x.value.device)).apply_mask()
 
-        trunk = self.transformer(shifted)
+        trunk = self.transformer(shifted, c)
         q_split = self.q_spliter(trunk) if self.use_tokens else trunk
         z_given = self.prior_head(q_split, generator,
                                   noise=draws.get("prior"))
@@ -267,13 +273,16 @@ class LVTR(nn.Module):
         }
 
     def likelihood(self, x: Masked, generator: Optional[torch.Generator],
-                   temperature: float = 0.0) -> torch.Tensor:
+                   temperature: float = 0.0,
+                   c: Optional[Masked] = None) -> torch.Tensor:
         """Per-utterance pseudo-likelihood (B,) of [token, mel] (or mel)
         frames ``x``: the token log-prob per frame with tokens, else the
         latent log-density per frame (flow-corrected with a flow).  The
         initial AR state is the one draw from ``generator``; at
         ``temperature`` 0 the posterior sample is its mean and no noise
-        is drawn (the prior head's sample is never used)."""
+        is drawn (the prior head's sample is never used).  ``c`` is the
+        memory of a cross-attention trunk (JAX's ``likelihood`` takes
+        none, so it runs trunks without cross-attention only)."""
         token_ids = None
         if self.use_tokens:
             tokens_id, x = x.split(1)
@@ -287,7 +296,7 @@ class LVTR(nn.Module):
         shift_q = tokens + self.token_fuser(q) if self.use_tokens else q
         init = self.initial_state(generator, x.value.shape[0])
         shift_q = shift_q.shift_right(init.to(x.value.device)).apply_mask()
-        trunk = self.transformer(shift_q)
+        trunk = self.transformer(shift_q, c)
         if self.use_tokens:
             # JAX computes the latent log-density here too and discards
             # it; the score is the token log-prob alone
@@ -352,14 +361,16 @@ class LVTR(nn.Module):
              truncated_norm: Optional[Tuple[float, float]] = None,
              push_init_state: bool = False, stacked: Optional[dict] = None,
              window: Optional[int] = None, return_attn: bool = False,
-             flash_decode: bool = False):
+             flash_decode: bool = False, memory: Optional[Masked] = None):
         """Frames xv (B, S, C) at [pos, pos+S) over the stacked int8 cache
         (``stacked`` weights; the prefill) or the per-layer caches
         (``stacked`` None: a prefill, or one AR step attending over
-        ``cache[:window]``, through K6 with ``flash_decode``).  With
-        ``push_init_state`` the initial state is prepended (S' = S + 1).
-        Returns next frames (B, S', C) and the cache, with ``return_attn``
-        (per-layer only) also the stacked maps (L, B, H, S', maxT)."""
+        ``cache[:window]``, through K6 with ``flash_decode``; the
+        cross-attention layers over ``memory``, already through
+        ``transformer.project_memory``).  With ``push_init_state`` the
+        initial state is prepended (S' = S + 1).  Returns next frames (B,
+        S', C) and the cache, with ``return_attn`` (per-layer only) also
+        the stacked maps (L, B, H, S', maxT)."""
         fused = self._fuse_frames(xv)
         if push_init_state:
             init = self.initial_state(generator, xv.shape[0])
@@ -374,7 +385,7 @@ class LVTR(nn.Module):
         else:
             res = self.transformer.decode(fused, cache, pos, window=window,
                                           return_attn=return_attn,
-                                          flash=flash_decode)
+                                          flash=flash_decode, memory=memory)
             h, cache = res[:2]
             if return_attn:
                 attn = res[2]

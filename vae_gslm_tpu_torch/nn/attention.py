@@ -1,13 +1,16 @@
-"""Self-attention (port of ``vae_gslm_tpu/nn/attention.py``): the KV
-caches, the dense attention core, the ``SelfAttention`` module's
-full-sequence (training) call and its per-layer decode step.
+"""Self- and cross-attention (port of ``vae_gslm_tpu/nn/attention.py``):
+the KV caches, the dense attention core, the ``SelfAttention`` module's
+full-sequence (training) call and its per-layer decode step, and
+``CrossAttention`` over an encoder memory.
 
 The stacked prefill and the hybrid and mega steps in
 ``nn/transformer.py`` read ``SelfAttention``'s projection weights
 directly; ``SelfAttention.decode_step`` is the per-layer path's
 attention (``decode_attention``, or K6 ``flash_decode_int8`` on request).
-``CrossAttention`` waits for a later slice (ROADMAP.md).  The caches are
-updated in place (the JAX functions return new arrays).
+Positions reach attention as JAX's do: Rotary and SinCos act on q and k
+(at the frames' absolute positions, so the cache holds rotated keys),
+ALiBi and the T5 table as a bias on the logits.  The caches are updated
+in place (the JAX functions return new arrays).
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from ..ops.flash_attention import flash_attention_bhtd, flash_attention_packed
 from ..ops.flash_decode import flash_decode_int8
 from ..parallel import tp
 from .linear import Dense
-from .positions import ALiBi
+from .positions import ALiBi, Rotary, SinCos, T5RPE, get_positional_encoding
 
 NEG_INF = -1e30
 
@@ -141,15 +144,16 @@ class SelfAttention(nn.Module):
     projection (state-dict names ``in_proj``/``out_proj``).
 
     The full-sequence call takes the fused branch, as JAX does, when the
-    layer is causal and uses ALiBi or no position bias (and
-    ``use_flash`` is not switched off): ``flash_attention_packed`` over
-    views of the packed projection, on the card K3/K3b inside the packed
-    envelope and K4 (T <= 1024, unpackable heads) or K5 (T > 1024)
-    outside it.  Inside ``parallel/tp.py::flash_mesh`` of more than one
-    rank (JAX's mesh branch, :288-302) it takes ``flash_attention_bhtd``
-    on (B, H, T, D) views of the projection instead: K4 and K4b at T <=
-    1024, K4/K5 and K5b past it.  Otherwise the dense ``attend`` with the
-    ALiBi bias and masks."""
+    layer is causal, ``use_flash`` is not switched off and no bias is
+    added to the logits (ALiBi's slopes go to the kernels; Rotary and
+    SinCos have already moved q and k; the T5 table is a bias):
+    ``flash_attention_packed`` over the packed projections, on the card
+    K3/K3b inside the packed envelope and K4 (T <= 1024, unpackable heads)
+    or K5 (T > 1024) outside it.  Inside ``parallel/tp.py::flash_mesh`` of
+    more than one rank (JAX's mesh branch, :288-302) it takes
+    ``flash_attention_bhtd`` on (B, H, T, D) views of the projection
+    instead: K4 and K4b at T <= 1024, K4/K5 and K5b past it.  Otherwise
+    the dense ``attend`` with the ALiBi or T5 bias and the masks."""
 
     def __init__(self, dim: int, hp: Hparams):
         super().__init__()
@@ -165,12 +169,28 @@ class SelfAttention(nn.Module):
         self.in_proj = Dense(dim, dim * 3, bias=bias)
         self.out_proj = Dense(dim, dim, bias=bias)
 
-    def forward(self, x: Masked, rpe: Optional[ALiBi] = None) -> Masked:
-        """x: (B, T, C) frames; ``rpe`` the stack's shared ALiBi or None.
-        Returns the masked output (B, T, C)."""
-        q, k, v = self.in_proj(x.value).chunk(3, dim=-1)
-        if self.use_flash and self.causal:
-            slopes = rpe.slopes if rpe is not None else None
+    def _qkv(self, xv: torch.Tensor, rpe, offset: int = 0):
+        """The projections; Rotary/SinCos act on q and k at positions
+        [offset, offset + T)."""
+        q, k, v = self.in_proj(xv).chunk(3, dim=-1)
+        if isinstance(rpe, Rotary):
+            q, k = rpe.rotate_qk(q, k, offset)
+        elif isinstance(rpe, SinCos):
+            q, k = rpe(q, offset), rpe(k, offset)
+        return q, k, v
+
+    def forward(self, x: Masked, rpe=None,
+                bias: Optional[torch.Tensor] = None) -> Masked:
+        """x: (B, T, C) frames; ``rpe`` the stack's shared position module
+        or None; ``bias`` a (H, T, T) logit bias computed once for the
+        stack (the T5 table's; computed here when a T5 ``rpe`` comes
+        without it).  Returns the masked output (B, T, C)."""
+        q, k, v = self._qkv(x.value, rpe)
+        t = q.shape[1]
+        if isinstance(rpe, T5RPE) and bias is None:
+            bias = rpe(t, t)
+        if self.use_flash and self.causal and bias is None:
+            slopes = rpe.slopes if isinstance(rpe, ALiBi) else None
             if tp.active_flash_mesh():
                 b, t, _ = q.shape
                 qh, kh, vh = (y.view(b, t, self.nheads, self.head_dim)
@@ -182,14 +202,14 @@ class SelfAttention(nn.Module):
                 out = flash_attention_packed(q, k, v, x.lengths, slopes,
                                              True, self.nheads)
         else:
-            t = q.shape[1]
             pos = torch.arange(t, device=q.device)
             mask = (pos[None, :] < x.lengths[:, None])[:, None, None, :]
             if self.causal:
                 mask = mask & (pos[None, :] <= pos[:, None])[None, None]
             else:
                 mask = mask.expand(q.shape[0], 1, t, t)
-            bias = rpe.bias(pos, pos) if rpe is not None else None
+            if isinstance(rpe, ALiBi):
+                bias = rpe.bias(pos, pos)
             out = merge_heads(attend(split_heads(q, self.nheads),
                                      split_heads(k, self.nheads),
                                      split_heads(v, self.nheads), bias,
@@ -207,7 +227,7 @@ class SelfAttention(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, xv: torch.Tensor, cache: LayerKVCache, pos: int,
-                    rpe: Optional[ALiBi] = None,
+                    rpe=None,
                     window: Optional[int] = None,
                     return_attn: bool = False, flash: bool = False):
         """New frames xv (B, S, C) at absolute positions [pos, pos+S) over
@@ -215,15 +235,17 @@ class SelfAttention(nn.Module):
         ``decode_attention`` (attending over ``cache[:window]``), or with
         ``flash`` through K6 ``flash_decode_int8`` (an int8 cache whose
         length is a multiple of 256; no window, no weights); S > 1 is the
-        dense prefill over the whole cache through ``attend``.  Returns
-        ``(out (B, S, C), cache)``, with ``return_attn`` also the float32
-        weights (B, H, S, maxT)."""
+        dense prefill over the whole cache through ``attend``.  Rotary
+        and SinCos act on q and k at [pos, pos+S) before the cache write;
+        only ALiBi adds a bias here (JAX adds no T5 bias at decode).
+        Returns ``(out (B, S, C), cache)``, with ``return_attn`` also the
+        float32 weights (B, H, S, maxT)."""
         s = xv.shape[1]
-        q, k, v = self.in_proj(xv).chunk(3, dim=-1)
+        q, k, v = self._qkv(xv, rpe, pos)
         qh = split_heads(q, self.nheads)
         cache.write(pos, split_heads(k, self.nheads),
                     split_heads(v, self.nheads))
-        slopes = rpe.slopes if rpe is not None else None
+        slopes = rpe.slopes if isinstance(rpe, ALiBi) else None
         if s == 1:
             w = None
             if flash:
@@ -253,10 +275,64 @@ class SelfAttention(nn.Module):
         q_pos = pos + torch.arange(s, device=dev)
         mask = (k_pos[None, :] <= q_pos[:, None])[None, None].expand(
             xv.shape[0], 1, s, max_len)
-        bias = rpe.bias(q_pos, k_pos) if rpe is not None else None
+        bias = rpe.bias(q_pos, k_pos) if slopes is not None else None
         kc, vc = cache.dense_kv()                           # (B, T, H, D)
         out, attn = attend(qh, kc, vc, bias, mask, return_attn=True)
         out = self.out_proj(merge_heads(out))
         if return_attn:
             return out, cache, attn                          # (B, H, S, T)
         return out, cache
+
+
+class CrossAttention(nn.Module):
+    """Attention of frames over an encoder memory (reference
+    ``attention.py:101-172``): ``q_proj`` on the frames, a fused
+    ``kv_proj`` on the memory, the memory's padding masked, no causal
+    mask; an optional SinCos/Rotary ``rpe`` acts on q, k or both
+    (``target`` "source", "memory" or unset)."""
+
+    def __init__(self, dim: int, hp: Hparams):
+        super().__init__()
+        hp.check_arg_in_hparams("nheads")
+        if dim % hp.nheads:
+            raise ValueError("dim must be a multiple of nheads")
+        self.nheads = hp.nheads
+        self.dim = dim
+        self.head_dim = dim // hp.nheads
+        bias = bool(hp.get("bias", None))
+        self.q_proj = Dense(dim, dim, bias=bias)
+        self.kv_proj = Dense(dim, dim * 2, bias=bias)
+        self.out_proj = Dense(dim, dim, bias=bias)
+        self.rpe, self.rpe_target = None, None
+        if hp.has("rpe"):
+            rpe_id = hp.rpe.identifier
+            if rpe_id not in ("SinCos", "Rotary"):
+                raise ValueError(f"cross-attention positions: SinCos or "
+                                 f"Rotary, not {rpe_id}")
+            self.rpe = get_positional_encoding(rpe_id, hp.rpe, dim,
+                                               self.nheads)
+            self.rpe_target = hp.rpe.get("target", None)
+
+    def forward(self, q: Masked, kv: Masked, return_attn: bool = False):
+        """Frames q (B, Tq, C) over the memory kv (B, Tk, C); returns the
+        masked output, with ``return_attn`` also the float32 weights (B,
+        H, Tq, Tk)."""
+        qv = self.q_proj(q.value)
+        kk, vv = self.kv_proj(kv.value).chunk(2, dim=-1)
+        if self.rpe is not None:
+            if self.rpe_target != "memory":
+                qv = self.rpe(qv)
+            if self.rpe_target != "source":
+                kk = self.rpe(kk)
+        tq, tk = qv.shape[1], kk.shape[1]
+        pad = torch.arange(tk, device=kk.device)[None, :] \
+            < kv.lengths[:, None]
+        mask = pad[:, None, None, :].expand(qv.shape[0], 1, tq, tk)
+        res = attend(split_heads(qv, self.nheads),
+                     split_heads(kk, self.nheads),
+                     split_heads(vv, self.nheads), None, mask,
+                     return_attn=return_attn)
+        out, attn = res if return_attn else (res, None)
+        out = Masked(self.out_proj(merge_heads(out)), q.lengths,
+                     1).apply_mask()
+        return (out, attn) if return_attn else out

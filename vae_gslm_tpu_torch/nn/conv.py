@@ -1,13 +1,14 @@
 """1-D convolution stacks (port of ``vae_gslm_tpu/nn/conv.py``): the
-residual-block family, ``BottleNeckResNet`` and the conv-norm-act
-``CNNStack``.
+residual-block family, the uniform-width ``ResNet``, ``BottleNeckResNet``
+and the conv-norm-act ``CNNStack``.
 
 The JAX package runs NWC (``(B, T, C)``).  PyTorch's convolutions are
-NCW, so the stacks transpose once at their edges: ``BottleNeckResNet``
-takes and returns ``(B, T, C)`` Masked values like the JAX module and
-runs every block inside on ``(B, C, T)``.  Blocks normalise over the
-channel axis (``dim=1``).  Weights keep the reference's torch layouts
-and state-dict names (``Conv1d.weight`` (out, in/groups, k)).
+NCW, so the stacks transpose once at their edges: ``ResNet`` and
+``BottleNeckResNet`` take and return ``(B, T, C)`` Masked values like
+the JAX modules and run every block inside on ``(B, C, T)``.  Blocks
+normalise over the channel axis (``dim=1``).  Weights keep the
+reference's torch layouts and state-dict names (``Conv1d.weight`` (out,
+in/groups, k)).
 Asymmetric causal/future padding is an explicit ``F.pad``.
 """
 from __future__ import annotations
@@ -122,11 +123,35 @@ class LayerScale(nn.Module):
         return self.gamma.to(x.dtype) * x
 
 
+class Dropout(nn.Module):
+    """JAX's ``Dropout``: the identity at rate 0 or when
+    ``deterministic`` (which every call in the conv stacks leaves at its
+    default, as in JAX); otherwise each element is kept with probability
+    1 - rate, drawn from ``generator`` (or given as the bool ``keep``),
+    and scaled by 1 / (1 - rate)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.rate <= 0.0 or deterministic:
+            return x
+        p = 1.0 - self.rate
+        if keep is None:
+            keep = torch.rand(x.shape, generator=generator,
+                              device=x.device) < p
+        kept = x / torch.tensor(p, device=x.device)
+        return torch.where(keep, kept, torch.zeros((), device=x.device)
+                           ).to(x.dtype)
+
+
 class ResidualBlock(nn.Module):
     """Depthwise-separable residual block on NCW values:
-    h = layer_scale(conv3(act(conv2(norm(conv1(x)))))) + shortcut(x).
-    JAX's dropout here is deterministic (the identity) and is not
-    ported."""
+    h = layer_scale(dropout(conv3(act(conv2(norm(conv1(x))))))) +
+    shortcut(x)."""
 
     def __init__(self, hp: Hparams):
         super().__init__()
@@ -143,6 +168,7 @@ class ResidualBlock(nn.Module):
                             groups=cin)
         self.conv2 = Conv1d(cin + aux, chid, 1)
         self.conv3 = Conv1d(chid, cin, 1)
+        self.dropout = Dropout(hp.get("dropout", 0.0))
         self.shortcut = (nn.ModuleList([Conv1d(cin, cin, 1)])
                          if hp.get("shortcut", False) else None)
         if hp.has("layer_scale"):
@@ -152,7 +178,7 @@ class ResidualBlock(nn.Module):
             self.layer_scale = None
 
     def _tail(self, h: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
-        h = self.conv3(h)
+        h = self.dropout(self.conv3(h))
         if self.layer_scale is not None:
             h = self.layer_scale(h)
         if self.shortcut is not None:
@@ -271,6 +297,73 @@ def _sample_ratio(resample_rates: Sequence[int]) -> float:
     for rate in resample_rates:
         ret = ret * rate if rate > 0 else ret / -rate
     return ret
+
+
+class ResNet(nn.Module):
+    """Uniform-width residual conv stack (reference
+    ``conv/layers.py:298-383``): ``num_layers`` blocks of ``hp.layer``
+    (conditional blocks with ``conditional``), each followed by an
+    up- or downsampling at its ``resample_rates`` entry.  Takes and
+    returns ``(B, T, C)``; runs NCW inside."""
+
+    def __init__(self, hp: Hparams, input_dim: Optional[int] = None,
+                 output_dim: Optional[int] = None,
+                 conditional: bool = False):
+        super().__init__()
+        hp.check_arg_in_hparams("num_layers", "layer")
+        self.hp = hp
+        n = hp.num_layers
+        causal_padding = hp.layer.get("causal_padding", False)
+        rates = hp.get("resample_rates", [1] * n)
+        ksizes = hp.get("resample_ksize", [3] * n)
+        if len(rates) != n:
+            raise ValueError("resample_rates must have num_layers entries")
+        block = ConditionalResidualBlock if conditional else ResidualBlock
+        self.layers = nn.ModuleList([block(hp.layer) for _ in range(n)])
+        cin = hp.layer.in_channels
+        samples = []
+        for rk, rate in zip(ksizes, rates):
+            if not isinstance(rate, int) or rate == 0:
+                raise ValueError(f"bad resample rate {rate!r}")
+            if rate in (1, -1):
+                samples.append(None)
+            else:
+                sample = Upsample if rate > 1 else Downsample
+                samples.append(sample(cin, rk, abs(rate), hp.layer.norm,
+                                      causal_padding=causal_padding))
+        self.samples = nn.ModuleList(samples)
+        self.linear = (Dense(input_dim, cin)
+                       if input_dim is not None else None)
+        self.out_linear = (Dense(cin, output_dim)
+                           if output_dim is not None else None)
+        self.final_norm = (get_norm(cin, hp.layer.norm)
+                           if hp.get("final_norm", False) else None)
+        self.first_norm = (get_norm(cin, hp.layer.norm)
+                           if hp.get("first_norm", False) else None)
+        self.conditional = conditional
+
+    def forward(self, x: Masked, c: Optional[Masked] = None) -> Masked:
+        if self.linear is not None:
+            x = Masked(self.linear(x.value), x.lengths, 1).apply_mask()
+        if self.first_norm is not None:
+            x = dataclasses.replace(x, value=self.first_norm(x.value))
+        x = x.transpose()                      # (B, C, T) from here on
+        c = c.transpose() if c is not None else None
+        for sample, layer in zip(self.samples, self.layers):
+            x = layer(x, c) if self.conditional else layer(x)
+            if sample is not None:
+                x = sample(x)
+        if self.final_norm is not None:
+            x = dataclasses.replace(x, value=self.final_norm(x.value, dim=1))
+        x = x.transpose()
+        if self.out_linear is not None:
+            x = Masked(self.out_linear(x.value), x.lengths, 1)
+        return x.apply_mask()
+
+    @property
+    def sample_ratio(self) -> float:
+        return _sample_ratio(self.hp.get("resample_rates",
+                                         [1] * self.hp.num_layers))
 
 
 class BottleNeckResNet(nn.Module):
@@ -404,8 +497,7 @@ class ConvNormAct(nn.Module):
     """conv | transposed conv -> norm -> act on NCW values (reference
     ``conv/layers.py:543-607``).  ``stride < 0``: strided downsampling
     conv; ``stride > 1``: transposed-conv upsampling; lengths follow
-    through ``resize_length``.  JAX's dropout here is deterministic
-    (the identity) and is not ported."""
+    through ``resize_length``; the dropout is JAX's (``Dropout``)."""
 
     def __init__(self, hp: Hparams):
         super().__init__()
@@ -427,9 +519,10 @@ class ConvNormAct(nn.Module):
                                         hp.kernel_size, stride=hp.stride,
                                         padding=padding)
             self.stride_ratio = float(hp.stride)
+        self.dropout = Dropout(hp.get("dropout", 0.0))
 
     def forward(self, x: Masked) -> Masked:
-        h = self.act(self.norm(self.conv(x.value), dim=1))
+        h = self.dropout(self.act(self.norm(self.conv(x.value), dim=1)))
         if self.stride_ratio != 1.0:
             return Masked(h, resize_length(x.lengths, self.stride_ratio), 2)
         return dataclasses.replace(x, value=h)

@@ -1,5 +1,7 @@
-"""Dense layers, embeddings, FiLM, the time pool and the Gaussian head
-(port of ``vae_gslm_tpu/nn/linear.py``).
+"""Dense layers, embeddings (one table, or ``RVQEmbedding``'s sum of
+per-quantizer tables), FiLM, the residual MLP stack, the time pool, the
+Gaussian head and the straight-through Gumbel-softmax head (port of
+``vae_gslm_tpu/nn/linear.py``).
 
 Weights keep the reference's torch layout and state-dict names
 (``weight`` (out, in), ``bias``).  Matmuls run in the policy's compute
@@ -18,7 +20,9 @@ from torch import nn
 
 from ..core.masked import Masked
 from ..core.precision import get_policy
-from .activations import identity
+from ..hparams.hp import Hparams
+from .activations import get_activation, identity
+from .norms import get_norm
 
 
 def uniform_(t: torch.Tensor, bound: float, generator) -> None:
@@ -103,6 +107,76 @@ class Embedding(nn.Module):
 
     def forward(self, ids: Masked) -> Masked:
         return Masked(self.lookup(ids.value), ids.lengths, 1).apply_mask()
+
+
+class RVQEmbedding(nn.Module):
+    """Sum of per-quantizer codebook embeddings of ids (B, T, n):
+    ``tables`` (n, codebook, dim)."""
+
+    def __init__(self, num_quantizers: int, codebook_size: int, dim: int):
+        super().__init__()
+        self.num_quantizers = num_quantizers
+        self.tables = nn.Parameter(torch.empty(num_quantizers, codebook_size,
+                                               dim))
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            self.tables.normal_(generator=generator)
+
+    def forward(self, ids: Masked) -> Masked:
+        dt = get_policy().compute_dtype
+        idx = ids.value.long()
+        tabs = self.tables.to(dt)
+        out = tabs[0][idx[..., 0]]
+        for i in range(1, self.num_quantizers):
+            out = out + tabs[i][idx[..., i]]
+        return Masked(out, ids.lengths, 1).apply_mask()
+
+
+class LinearBlock(nn.Module):
+    """Residual MLP block: x + linear2(act(norm2(linear1(act(norm1(x))))))
+    (reference ``linear/layers.py:196-234``)."""
+
+    def __init__(self, hp: Hparams):
+        super().__init__()
+        hp.check_arg_in_hparams("hidden_dim", "activation", "norm")
+        bias = hp.get("bias", True)
+        d = hp.hidden_dim
+        self.linear1 = Dense(d, d, bias=bias)
+        self.linear2 = Dense(d, d, bias=bias)
+        self.norm1 = get_norm(d, hp.norm)
+        self.norm2 = get_norm(d, hp.norm)
+        self.activation = get_activation(hp.activation)
+
+    def forward(self, x: Masked) -> Masked:
+        r = self.linear1(self.activation(self.norm1(x.value)))
+        r = self.linear2(self.activation(self.norm2(r)))
+        return Masked(x.value + r, x.lengths, 1).apply_mask()
+
+
+class LinearLayerStack(nn.Module):
+    """``LinearBlock``s with optional in/out projections (reference
+    ``linear/layers.py:237-257``)."""
+
+    def __init__(self, hp: Hparams, input_dim: Optional[int] = None,
+                 output_dim: Optional[int] = None):
+        super().__init__()
+        hp.check_arg_in_hparams("num_layers", "layer")
+        d = hp.layer.hidden_dim
+        self.layers = nn.ModuleList([LinearBlock(hp.layer)
+                                     for _ in range(hp.num_layers)])
+        self.linear = Dense(input_dim, d) if input_dim is not None else None
+        self.out_linear = (Dense(d, output_dim) if output_dim is not None
+                           else None)
+
+    def forward(self, x: Masked) -> Masked:
+        if self.linear is not None:
+            x = Masked(self.linear(x.value), x.lengths, 1).apply_mask()
+        for layer in self.layers:
+            x = layer(x)
+        if self.out_linear is not None:
+            x = Masked(self.out_linear(x.value), x.lengths, 1).apply_mask()
+        return x
 
 
 class FiLM(nn.Module):
@@ -229,3 +303,42 @@ class GaussianParameterize(nn.Module):
         return GaussianOutput(mean=Masked(mean, x.lengths, 1),
                               logstd=Masked(logstd, x.lengths, 1),
                               sample=Masked(sample, x.lengths, 1))
+
+
+class GumbelSoftMaxParameterize(nn.Module):
+    """Straight-through Gumbel-softmax head (reference
+    ``linear/layers.py:13-51``): logits over ``num_codebooks`` scaled by
+    1/sqrt(in_dim), a Gumbel-perturbed softmax at ``temperature``, its
+    one-hot argmax in the forward with the soft gradient, projected by
+    ``encode_linear``.  The uniform draw comes from ``generator`` or is
+    given as ``u``."""
+
+    def __init__(self, in_dim: int, num_codebooks: int, codebook_dim: int,
+                 temperature: float = 1.0):
+        super().__init__()
+        self.in_dim = in_dim
+        self.in_linear = Dense(in_dim, num_codebooks, bias=False)
+        self.encode_linear = Dense(num_codebooks, codebook_dim, bias=False)
+        self.temperature = temperature
+
+    def forward(self, x: Masked, generator: Optional[torch.Generator],
+                temperature: Optional[float] = None,
+                u: Optional[torch.Tensor] = None) -> dict:
+        logits = self.in_linear(x.value).float()
+        logits = logits / torch.tensor(math.sqrt(self.in_dim))
+        if temperature is None:
+            temperature = self.temperature
+        if u is None:
+            u = torch.rand(logits.shape, generator=generator,
+                           device=logits.device)
+        eps = 1e-20
+        gumbel = -torch.log(-torch.log(u.to(logits.device) + eps) + eps)
+        y = torch.softmax((logits + gumbel) / torch.tensor(temperature),
+                          dim=-1)
+        y_hard = F.one_hot(y.argmax(dim=-1), y.shape[-1]).to(y.dtype)
+        y_st = y + (y_hard - y).detach()
+        return dict(
+            logits=Masked(logits, x.lengths, 1).apply_mask(-1000.0),
+            output=Masked(self.encode_linear(y_st), x.lengths,
+                          1).apply_mask(),
+            gumbel_prob=Masked(y, x.lengths, 1).apply_mask())

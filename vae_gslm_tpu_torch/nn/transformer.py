@@ -3,7 +3,11 @@
 
 Training: ``TransformerLayerStack.run`` / ``forward`` takes masked
 frames through pre-LN or post-LN layers (self-attention through K3/K3b
-on the card, then the FFN), with optional per-layer rematerialization.
+on the card, cross-attention over a memory where the layers have it,
+then the FFN), with optional per-layer rematerialization.  The stack
+owns one position module (``rpe``: ALiBi, T5RPE, Rotary or SinCos)
+shared by its layers; a T5 bias is computed once per call and reused by
+every layer, as JAX reuses the first layer's.
 
 Serving:
   * ``init_stacked_cache`` + ``decode_stacked`` prefill: the prompt runs
@@ -49,11 +53,11 @@ from ..hparams.hp import Hparams
 from ..ops import mega_step as mega
 from ..ops.fused_decode import BLK, TAIL, fused_decode_attention
 from .activations import gelu, get_activation
-from .attention import (LayerKVCache, SelfAttention, attend, merge_heads,
-                        quantize_i8, split_heads)
+from .attention import (CrossAttention, LayerKVCache, SelfAttention, attend,
+                        merge_heads, quantize_i8, split_heads)
 from .linear import Dense
 from .norms import RMSNorm, get_norm
-from .positions import ALiBi
+from .positions import T5RPE, get_positional_encoding
 
 
 @torch.no_grad()
@@ -96,11 +100,13 @@ class TransformerLayer(nn.Module):
         super().__init__()
         hp.check_arg_in_hparams("ffd_size", "norm", "activation", "dim",
                                 "self_attn")
-        if hp.has("cross_attn"):
-            raise NotImplementedError(
-                "cross-attention is not ported yet (ROADMAP.md)")
         self.preln = hp.get("preln", True)
         self.self_attn = SelfAttention(hp.dim, hp.self_attn)
+        if hp.has("cross_attn"):
+            self.cross_attn = CrossAttention(hp.dim, hp.cross_attn)
+            self.norm2 = get_norm(hp.dim, hp.norm)
+        else:
+            self.cross_attn = None
         bias = hp.get("bias", True)
         self.linear1 = Dense(hp.dim, hp.ffd_size, bias=bias)
         self.linear2 = Dense(hp.ffd_size, hp.dim, bias=bias)
@@ -111,16 +117,27 @@ class TransformerLayer(nn.Module):
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear2(self.activation(self.linear1(x)))
 
-    def forward(self, tgt: Masked, rpe: Optional[ALiBi] = None) -> Masked:
-        """Pre-LN (default) or post-LN: self-attention, then the FFN."""
+    def forward(self, tgt: Masked, memory: Optional[Masked] = None,
+                rpe=None, bias: Optional[torch.Tensor] = None) -> Masked:
+        """Pre-LN (default) or post-LN: self-attention (``rpe`` and
+        ``bias`` as in ``SelfAttention.forward``), cross-attention over
+        ``memory`` where the layer has it, then the FFN."""
         lengths = tgt.lengths
         if self.preln:
             n_tgt = Masked(self.norm1(tgt.value), lengths, 1).apply_mask()
         else:
             n_tgt = tgt
-        x = tgt.value + self.self_attn(n_tgt, rpe).value
+        x = tgt.value + self.self_attn(n_tgt, rpe, bias).value
         if not self.preln:
             x = self.norm1(x)
+        if self.cross_attn is not None:
+            if memory is None:
+                raise ValueError("a cross-attention layer needs a memory")
+            n_x = self.norm2(x) if self.preln else x
+            x = x + self.cross_attn(Masked(n_x, lengths, 1).apply_mask(),
+                                    memory).value
+            if not self.preln:
+                x = self.norm2(x)
         n_x = self.norm3(x) if self.preln else x
         x = x + self._ffn(n_x)
         if not self.preln:
@@ -128,30 +145,41 @@ class TransformerLayer(nn.Module):
         return Masked(x, lengths, 1).apply_mask()
 
     def decode(self, xv: torch.Tensor, cache: LayerKVCache, pos: int,
-               rpe: Optional[ALiBi] = None, window: Optional[int] = None,
-               return_attn: bool = False, flash: bool = False):
+               rpe=None, window: Optional[int] = None,
+               return_attn: bool = False, flash: bool = False,
+               memory: Optional[Masked] = None):
         """Pre-LN or post-LN step of frames xv (B, S, C) at [pos, pos+S)
         over this layer's cache (no masking: decode positions are all
-        valid).  Returns ``(x, cache)``, with ``return_attn`` also the
-        self-attention weights (B, H, S, maxT)."""
+        valid); with ``memory`` a cross-attention layer attends over all
+        of it (without, it is skipped, as in JAX).  Returns ``(x,
+        cache)``, with ``return_attn`` also the self-attention weights
+        (B, H, S, maxT)."""
         n_x = self.norm1(xv) if self.preln else xv
         res = self.self_attn.decode_step(n_x, cache, pos, rpe=rpe,
                                          window=window,
                                          return_attn=return_attn,
                                          flash=flash)
         h = res[0]
+        cross = self.cross_attn is not None and memory is not None
         if self.preln:
             x = xv + h
+            if cross:
+                x = x + self.cross_attn(Masked.full(self.norm2(x)),
+                                        memory).value
             x = x + self._ffn(self.norm3(x))
         else:
             x = self.norm1(xv + h)
+            if cross:
+                x = self.norm2(x + self.cross_attn(Masked.full(x),
+                                                   memory).value)
             x = self.norm3(x + self._ffn(x))
         return (x,) + tuple(res[1:])
 
 
 class TransformerLayerStack(nn.Module):
     def __init__(self, hp: Hparams, input_dim: Optional[int] = None,
-                 output_dim: Optional[int] = None):
+                 output_dim: Optional[int] = None,
+                 memory_dim: Optional[int] = None):
         super().__init__()
         hp.check_arg_in_hparams("num_layers", "layer")
         self.hp = hp
@@ -161,6 +189,10 @@ class TransformerLayerStack(nn.Module):
         dim = hp.layer.dim
         self.linear = (Dense(input_dim, dim, bias=bias)
                        if input_dim is not None else None)
+        self.is_cross_attn = hp.layer.has("cross_attn")
+        self.memory_linear = (Dense(memory_dim, dim, bias=bias)
+                              if self.is_cross_attn
+                              and memory_dim is not None else None)
         self.out = (Dense(dim, output_dim, bias=bias)
                     if output_dim is not None else None)
         self.final_norm = (get_norm(dim, hp.layer.norm)
@@ -168,14 +200,9 @@ class TransformerLayerStack(nn.Module):
         self.first_norm = (get_norm(dim, hp.layer.norm)
                            if hp.get("first_ln", False) else None)
         self.rpe_id = hp.rpe.identifier if hp.get("rpe", False) else None
-        if self.rpe_id == "ALiBi":
-            self.rpe = ALiBi(hp.layer.self_attn.nheads,
-                             hp.rpe.get("maxpos", 10000))
-        elif self.rpe_id is None:
-            self.rpe = None
-        else:
-            raise NotImplementedError(
-                f"{self.rpe_id} positions are not ported yet (ROADMAP.md)")
+        self.rpe = (get_positional_encoding(self.rpe_id, hp.rpe, dim,
+                                            hp.layer.self_attn.nheads)
+                    if self.rpe_id is not None else None)
         self.remat = bool(hp.get("remat", False))
 
     @property
@@ -183,12 +210,23 @@ class TransformerLayerStack(nn.Module):
         return self.hp.layer.dim
 
     def set_uniform(self, std: float, generator=None) -> None:
-        """JAX re-draws a learned T5 bias table here; ALiBi and no
-        position bias (the port's choices) hold no parameters."""
+        """Re-draw a learned T5 bias table uniform +-std, as JAX does;
+        the other positions hold no table."""
+        if isinstance(self.rpe, T5RPE):
+            self.rpe.set_uniform(std, generator)
+
+    def project_memory(self, memory: Optional[Masked]) -> Optional[Masked]:
+        """The stack's memory projection (``memory_linear``), applied once
+        per call."""
+        if self.memory_linear is not None and memory is not None:
+            memory = Masked(self.memory_linear(memory.value),
+                            memory.lengths, 1).apply_mask()
+        return memory
 
     # -- full-sequence (training) call -----------------------------------
-    def run(self, tgt: Masked) -> dict:
-        """All layers over (B, T, C) frames: ``{"output": Masked,
+    def run(self, tgt: Masked, memory: Optional[Masked] = None) -> dict:
+        """All layers over (B, T, C) frames, cross-attention layers over
+        ``memory`` (B, Tm, memory_dim or C): ``{"output": Masked,
         "layers": [per-layer outputs, then the final norm's]}``.  With
         ``remat: true`` each layer's activations are recomputed in the
         backward (``torch.utils.checkpoint``, as JAX's
@@ -200,16 +238,20 @@ class TransformerLayerStack(nn.Module):
         if self.first_norm is not None:
             out = Masked(self.first_norm(out.value), lengths,
                          1).apply_mask()
+        memory = self.project_memory(memory)
+        bias = None
+        if isinstance(self.rpe, T5RPE):
+            bias = self.rpe(out.value.shape[1], out.value.shape[1])
         layers = []
         for layer in self.layers:
             if self.remat and torch.is_grad_enabled():
                 value = torch.utils.checkpoint.checkpoint(
-                    lambda v, la=layer: la(Masked(v, lengths, 1),
-                                           self.rpe).value,
+                    lambda v, la=layer: la(Masked(v, lengths, 1), memory,
+                                           self.rpe, bias).value,
                     out.value, use_reentrant=False)
                 out = Masked(value, lengths, 1)
             else:
-                out = layer(out, self.rpe)
+                out = layer(out, memory, self.rpe, bias)
             layers.append(out)
         if self.final_norm is not None:
             out = Masked(self.final_norm(out.value), lengths, 1)
@@ -218,13 +260,19 @@ class TransformerLayerStack(nn.Module):
             out = Masked(self.out(out.value), lengths, 1).apply_mask()
         return {"output": out, "layers": layers}
 
-    def forward(self, tgt: Masked) -> Masked:
-        return self.run(tgt)["output"]
+    def forward(self, tgt: Masked, memory: Optional[Masked] = None
+                ) -> Masked:
+        return self.run(tgt, memory)["output"]
 
     # -- shared pieces of the stacked paths -----------------------------
     def supports_stacked_decode(self) -> bool:
-        return all(la.preln and isinstance(la.norm1, RMSNorm)
-                   and isinstance(la.norm3, RMSNorm) for la in self.layers)
+        """JAX's rule for its stacked paths: ALiBi or no positions, no
+        cross-attention, pre-LN RMSNorm layers; other trunks take the
+        per-layer ``decode``."""
+        return self.rpe_id in (None, "ALiBi") and all(
+            la.preln and la.cross_attn is None
+            and isinstance(la.norm1, RMSNorm)
+            and isinstance(la.norm3, RMSNorm) for la in self.layers)
 
     def build_stacked_decode(self) -> dict:
         """Per-layer weights stacked on a leading L axis, ``w`` as
@@ -235,7 +283,8 @@ class TransformerLayerStack(nn.Module):
 
         if not self.supports_stacked_decode():
             raise NotImplementedError(
-                "the stacked decode needs pre-LN RMSNorm layers")
+                "the stacked decode needs pre-LN RMSNorm layers without "
+                "cross-attention and ALiBi or no positions")
         dt = get_policy().compute_dtype
 
         def dense(getter):
@@ -311,18 +360,19 @@ class TransformerLayerStack(nn.Module):
     @torch.no_grad()
     def decode(self, xv: torch.Tensor, caches: List[LayerKVCache], pos: int,
                window: Optional[int] = None, return_attn: bool = False,
-               flash: bool = False):
+               flash: bool = False, memory: Optional[Masked] = None):
         """Frames xv (B, S, C) at [pos, pos+S) through every layer's
         ``decode`` over its cache: a prefill (S > 1) or one AR step
-        (``window`` and ``flash`` as in ``SelfAttention.decode_step``).
-        Returns the final hidden (B, S, C) and the caches, with
-        ``return_attn`` also the per-layer weights stacked, (L, B, H, S,
-        maxT)."""
+        (``window`` and ``flash`` as in ``SelfAttention.decode_step``);
+        ``memory`` has been through ``project_memory`` once.  Returns the
+        final hidden (B, S, C) and the caches, with ``return_attn`` also
+        the per-layer weights stacked, (L, B, H, S, maxT)."""
         xv = self._project_in(xv)
         attns = []
         for layer, cache in zip(self.layers, caches):
             res = layer.decode(xv, cache, pos, rpe=self.rpe, window=window,
-                               return_attn=return_attn, flash=flash)
+                               return_attn=return_attn, flash=flash,
+                               memory=memory)
             xv = res[0]
             if return_attn:
                 attns.append(res[2])

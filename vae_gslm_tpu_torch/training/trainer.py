@@ -25,7 +25,7 @@ from torch import nn
 from ..core.masked import Masked
 from ..data.loader import DataLoader, get_dataloader
 from ..hparams.hp import Hparams
-from ..nn.attention import SelfAttention
+from ..nn.attention import CrossAttention, SelfAttention
 from ..nn.linear import Dense, Embedding, uniform_
 from ..nn.transformer import TransformerLayerStack
 from ..parallel import mesh, tp
@@ -41,15 +41,17 @@ def init_weights(model: nn.Module, init_std: float = 1.0,
                  generator: Optional[torch.Generator] = None) -> None:
     """Reference init (``training_lib/trainer.py:113-125``), the JAX
     package's rules drawn from ``generator``: zero every dense bias;
-    attention projections uniform +-init_std/sqrt(dim/3); embeddings
-    uniform +-1; the stacks' ``set_uniform`` (a learned position table,
-    none for ALiBi)."""
+    self- and cross-attention projections uniform +-init_std/sqrt(dim/3);
+    embeddings uniform +-1; the stacks' ``set_uniform`` (a T5 bias table
+    uniform +-init_std/sqrt(dim/3); the other positions hold none)."""
     for m in model.modules():
         if isinstance(m, Dense) and m.bias is not None:
             m.bias.zero_()
-        if isinstance(m, SelfAttention):
+        if isinstance(m, (SelfAttention, CrossAttention)):
             std = init_std / math.sqrt(m.dim / 3)
-            for proj in (m.in_proj, m.out_proj):
+            projs = ((m.in_proj, m.out_proj) if isinstance(m, SelfAttention)
+                     else (m.q_proj, m.kv_proj, m.out_proj))
+            for proj in projs:
                 uniform_(proj.weight, std, generator)
         if isinstance(m, Embedding):
             uniform_(m.weight, 1.0, generator)
