@@ -259,7 +259,40 @@ Phases (any failure ends the run with a non-zero exit, no result):
      ``lvtr_options_small``: the same card-against-CPU checks on 2-layer
      d256 LVTRs with T5 positions, ``ConvCoupling`` and a GroupNorm
      encoder, and with SinCos positions and cross-attention over a
-     memory.
+     memory;
+  14. K5 past 8192 keys (``k5_long``), where it raised before: float32
+     and bf16 at Tk 12288, self (B 1, 2 heads, causal) and cross (B 2,
+     16 heads, Tq 256, lengths 12288 and 9001), against the plain version
+     at phase 5b's gates, one launch a call, and its time at B 1 x 16
+     heads x 12288 causal beside the bound; ``FlashAttention`` at T 9000
+     (K5, then the dense backward: no K5b) against autograd of the plain
+     reference; ``LikelihoodEstimator`` on one 180 s utterance with a
+     small LVTR against the CPU;
+  15. the token LM small (``discrete_small``): a 2-layer DiscreteAR card
+     against CPU on the hybrid route (K1, across a flush) and the
+     per-layer route (argmax draws, tokens equal), ``likelihood`` at T 300
+     (K3) and 1100 (K5), and one ``DiscreteARTrainer`` step (K3/K3b,
+     float32: CE and every gradient);
+  16. ``discrete_train``: ``scripts/train.py`` -> ``DiscreteARTrainer.fit``
+     at full width (the shipped trunk without its flow, single-VQ over
+     200 tokens, the full-width HuBERT codec and the 80-bin vocoder on
+     random weights), 16-mixed, B 8 x accumulation 2 x 640 tokens on a
+     synthetic 48 x 13 s corpus, 4 steps with exactly 32 K3 and 32 K3b
+     launches each (plain versions refused); step times, peak memory;
+  17. ``hubert_decoder_fit``: ``HuBERTDecoderTrainer`` at full width (a
+     3-layer 512/2048 ``ResNet`` embed encoder, the shipped 6-layer
+     diffusion decoder), 4 float32 steps at B 8 x 640 frames (no port
+     kernel), then ``save_checkpoint`` read back by
+     ``HuBERTIO.from_pretrained``;
+  18. ``discrete_serve``: ``DiscreteARSampler(kv_dtype=torch.int8)`` at B
+     8, 150 -> 500 tokens, bf16 weights (exactly 8000 K1 launches, no
+     other kernel), then ``scripts/infer.py`` with
+     ``inference.speech.hubert.SpeechInferer`` on 8 utterances (the
+     per-layer float32 route, HuBERT DDIM-100, HiFi-GAN): 8 continuations
+     and 8 decoded prompts, finite and of the right lengths;
+  19. ``discrete_score``: ``LikelihoodEstimator`` (the token LM branch),
+     float32, one batch under 1024 tokens (16 K3) and one past it (16
+     K5), plain versions refused.
 Output: one line per measurement, then the ``{"kernels": [...]}`` line,
 the nvidia-smi name/power line, and ``{"ok": true, "device": ...}``.
 """
@@ -4702,6 +4735,802 @@ def phase_lvtr_options(dev, gpu: str) -> dict:
     return launches
 
 
+# ------------------------------------------------- K5 past 8192 keys
+K5_LONG_TK = 12288                # 245.8 s at 50 Hz
+K5_LONG_DENSE_T = 9000            # past K5b's 8192: the dense backward
+K5_LONG_UTT_FRAMES = 9000         # one 180 s utterance to score
+
+
+def phase_k5_long(dev, gpu: str):
+    """K5 past 8192 keys, where it raised before: float32 and bfloat16 at
+    Tk 12288, self-attention (B 1, 2 heads, causal, Tq 12288) and a cross
+    call (B 2, 16 heads, Tq 256, lengths 12288 and 9001, non-causal),
+    against the plain version one batch row at a time at phase 5b's gates;
+    the time per call (CUDA events) at B 1 x 16 heads x Tq = Tk 12288
+    causal beside its bound; then ``FlashAttention`` at Tq = Tk 9000 (K5 forward, then the
+    dense recomputed backward: no K5b launch) against autograd of the
+    plain reference, float32, gradients to 1e-4 x max|ref|; then
+    ``LikelihoodEstimator`` on one 180 s utterance (9000 frames) with a
+    small float32 LVTR (2 layers, 2 heads of 64), its initial AR state
+    pinned, against the same model's ``likelihood`` on the CPU (plain
+    versions) to 1e-4 relative.  Returns the estimator's K5 launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.core.masked import Masked
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.inference.speech.likelihood import \
+        LikelihoodEstimator
+    from vae_gslm_tpu_torch.models.speech.lvtr import LVTR
+    from vae_gslm_tpu_torch.models.vocoder.vocoder import HiFiGAN
+    from vae_gslm_tpu_torch.nn.positions import alibi_slopes
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+    from vae_gslm_tpu_torch.training.checkpoint import save_compact
+
+    tk = K5_LONG_TK
+    cases = (("self", 1, tk, 2, [tk], True),
+             ("cross", 2, 256, H, [tk, 9001], False))
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for what, b, tq, h, lens, causal in cases:
+            q, k, v = bhtd_inputs(dtype, dev, b, tq, tk, h, seed=tq + 1)
+            lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+            slopes = -torch.tensor(alibi_slopes(h), device=dev)
+            where = (f"K5 {what} B={b} Tq={tq} Tk={tk} H={h} "
+                     f"{str(dtype)[6:]} causal={causal}")
+            fa.flash_forward_tiled.launches = 0
+            got = fa.flash_forward_tiled(q, k, v, lengths, slopes, causal)
+            torch.cuda.synchronize()
+            n_launch = fa.flash_forward_tiled.launches
+            if n_launch != 1:
+                raise AssertionError(f"{where}: {n_launch} launches, "
+                                     "expected 1")
+            want = in_chunks(lambda r: fa.flash_forward_tiled_plain(
+                q[r], k[r], v[r], lengths[r], slopes, causal), b, 1)
+            _, text = hold(where, "o", got, want, 1e-2 if bf16 else 1e-5,
+                           0.0 if bf16 else 1.0, bf16)
+            log(f"k5_long check {where}: max_abs_err {text}")
+            del q, k, v, got, want
+        q, k, v = bhtd_inputs(dtype, dev, 1, tk, tk, H, seed=5)
+        lengths = torch.tensor([tk], dtype=torch.int32, device=dev)
+        slopes = -torch.tensor(alibi_slopes(H), device=dev)
+        # CUDA events: after the CLI phases the profiler's windows have
+        # recorded no kernel here, and one call of several ms makes the
+        # wrapper's share negligible
+        ks = cuda_ms(lambda i: fa.flash_forward_tiled(
+            q, k, v, lengths, slopes, True), n=3, reps=3)
+        nbytes, flops = bhtd_bytes_ops(1, tk, tk, H, [tk], True,
+                                       q.element_size())
+        rate = BF16_FLOPS if bf16 else FP32_FLOPS
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
+        bound = max(t_b, t_o) * 1e3
+        log(f"K5 time B=1 Tq=Tk={tk} H={H} causal {str(dtype)[6:]}: "
+            f"{ks:.4f} ms per call (CUDA events), bound {bound:.4f} ms "
+            f"({'bytes' if t_b > t_o else 'operations'}; "
+            f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); plain not "
+            f"measured at this size ({gpu})")
+        del q, k, v
+
+    # FlashAttention autograd past K5b's envelope: K5, then the dense
+    # backward, against autograd of the plain reference
+    t = K5_LONG_DENSE_T
+    ins = [x.detach().clone().requires_grad_() for x in
+           bhtd_inputs(torch.float32, dev, 1, t, t, 2, seed=9)]
+    lengths = torch.tensor([t - 7], dtype=torch.int32, device=dev)
+    slopes = -torch.tensor(alibi_slopes(2), device=dev)
+    g = torch.randn(ins[0].shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(3))
+    fa.flash_forward_tiled.launches = 0
+    fa.flash_backward_blockwise.launches = 0
+    fa.flash_attention_bhtd(*ins, lengths, slopes).backward(g)
+    torch.cuda.synchronize()
+    counts = (fa.flash_forward_tiled.launches,
+              fa.flash_backward_blockwise.launches)
+    ref = [x.detach().clone().requires_grad_() for x in ins]
+    fa.attention_reference(*ref, lengths, slopes, True).backward(g)
+    worst = 0.0
+    for name, a, w in zip("qkv", ins, ref):
+        err = (a.grad - w.grad).abs().max().item()
+        scale = w.grad.abs().max().item()
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"FlashAttention T={t}: d{name} differs by "
+                                 f"{err:.3e} (max |ref| {scale:.3e})")
+        worst = max(worst, err / scale)
+    log(f"k5_long FlashAttention T={t} (float32, K5 forward, dense "
+        f"backward): gradients max err {worst:.2e} x max|ref|; (K5, K5b) "
+        f"launches {counts}")
+    if counts != (1, 0):
+        raise AssertionError(f"FlashAttention T={t}: (K5, K5b) launches "
+                             f"{counts}, expected (1, 0)")
+    del ins, ref
+
+    # one 180 s utterance through LikelihoodEstimator (it raised on the
+    # card before), against the CPU
+    tmp = tempfile.mkdtemp(prefix="k5_long_")
+    try:
+        corpus, ckpt, voc = (os.path.join(tmp, n)
+                             for n in ("corpus", "ckpt", "voc"))
+        for d_ in (corpus, ckpt):
+            os.makedirs(d_)
+        sec = K5_LONG_UTT_FRAMES / 50.0
+        write_train_corpus(corpus, None, 1, sec, sec, seed=4)
+        HiFiGAN(Hparams.from_yamlfile(VOCODER_YAML), device=dev,
+                generator=torch.Generator(dev).manual_seed(1)
+                ).save_pretrained(voc)
+        with open(TRAIN_YAML) as f:
+            cfg = yaml.safe_load(f)
+        cfg["model"] = yaml.safe_load(SMALL_YAML)
+        cfg["model"]["tokens"]["vocab_size"] = 200     # the corpus's ids
+        cfg["vocoder"]["path"] = voc
+        hp = Hparams.from_dict(cfg)
+        model = LVTR(hp.model, input_dim=80, device="cpu",
+                     generator=torch.Generator().manual_seed(7))
+        save_compact(model, os.path.join(ckpt, "last-cpt.npz"))
+        hp.save(os.path.join(ckpt, "hp.yaml"))
+        infer = Hparams.from_yaml(SCORE_INFER_YAML.format(ckpt=ckpt,
+                                                          corpus=corpus))
+        infer.data.batch_size = 1
+        est = LikelihoodEstimator(infer, device=dev)
+        init = torch.from_numpy((np.random.RandomState(8).rand(1, 1, 32) * 2
+                                 - 1).astype(np.float32))
+        est.model.initial_state = (lambda generator, bsize, nfeat=None:
+                                   init.to(dev))
+        fa.flash_forward_tiled.launches = 0
+        got = est.run()
+        torch.cuda.synchronize()
+        launches = fa.flash_forward_tiled.launches
+        batch = next(iter(est.test_dataloader()))
+        x = est.model_input(batch)
+        model.initial_state = lambda generator, bsize, nfeat=None: init
+        with precision.policy_scope(precision.Policy()), torch.no_grad():
+            want = model.likelihood(Masked(x.value.cpu(), x.lengths.cpu(), 1),
+                                    None).numpy()
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        log(f"k5_long LikelihoodEstimator: one {sec:.0f} s utterance "
+            f"({int(x.lengths[0])} frames), score {got.tolist()} against the "
+            f"CPU's {want.tolist()} (max rel err {rel:.2e}); K5 launches "
+            f"{launches}")
+        if launches != len(model.transformer.layers) or not rel <= 1e-4 \
+                or not np.isfinite(got).all():
+            raise AssertionError("k5_long: the estimator's score or launches "
+                                 "are wrong")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+# ------------------------------------------------- the token LM (slice 16)
+DAR_B, DAR_T = 8, 640             # the trainer's batch: 8 x 12.8 s
+DAR_STEPS = 4                     # fit's optimizer steps (one warm-up)
+HUB_STEPS = 4                     # the HuBERT decoder trainer's steps
+
+
+def token_lm_config(codec: str, corpus: str, layers=None):
+    """The token LM's training config, built from ``TRAIN_YAML`` (no
+    DiscreteAR config ships): its ``model.transformer`` without ``flow``
+    (``layers`` to cut the depth), single-VQ over the codec's vocabulary,
+    ``DiscreteARTrainer`` at ``16-mixed`` with the shipped training block
+    and train data settings on ``corpus`` (mels computed, no
+    preprocessing; no utterance crops), no validation audio."""
+    import copy
+
+    import yaml
+
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+
+    with open(TRAIN_YAML) as f:
+        cfg = yaml.safe_load(f)
+    tr = copy.deepcopy(cfg["model"]["transformer"])
+    tr.pop("flow", None)
+    if layers is not None:
+        tr["num_layers"] = layers
+    cfg["model"] = {"transformer": tr}
+    cfg["hubert"] = {"path": codec, "sample_rate": 50}
+    cfg["trainer"].update(identifier="trainers.speech.discrete."
+                          "DiscreteARTrainer", distributed=False,
+                          limit_val_batches=1, val_check_interval=None)
+    cfg["logging"]["num_samples"] = 0
+    data = cfg["data"]["train"]
+    for key in ("preprocess_mels", "preprocess_mels_recursive_dir",
+                "random_crop_mel_utt", "min_audio_length"):
+        data.pop(key, None)
+    data.update(path=os.path.join(corpus, "tokens.txt"), wavdir=corpus,
+                bits_per_second=32000, batch_size=DAR_B, num_workers=4,
+                token_segment_size=DAR_T)
+    data["post_pad"] = {"tokens": {"num_tokens": DAR_T}}
+    cfg["data"] = {"train": data, "val": copy.deepcopy(data)}
+    return Hparams.from_dict(cfg)
+
+
+def codec_config(voc: str):
+    """The HuBERT token -> mel codec at full width: embedding 64 over the
+    shipped token vocabulary (no dedup, 50 Hz), a 3-layer ``ResNet``
+    ``embed_encoder`` at the shipped encoder's widths (512 channels, 2048
+    hidden, k 7, InstanceNorm, ReLU), the shipped ``model.decoder`` with
+    ``condition_dim`` the embedding's, over the vocoder at ``voc``."""
+    import copy
+
+    import yaml
+
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+
+    with open(TRAIN_YAML) as f:
+        m = yaml.safe_load(f)["model"]
+    enc = m["encoder"]
+    decoder = copy.deepcopy(m["decoder"])
+    decoder["cond_unet"]["unet"]["condition_dim"] = 64
+    model = {
+        "embedding_dim": 64,
+        "hubert": {"vocab_size": m["tokens"]["vocab_size"],
+                   "deduplicate": False, "sample_rate": 50},
+        "embed_encoder": {
+            "num_layers": enc["num_layers"], "final_norm": True,
+            "layer": {"in_channels": enc["init_channel"],
+                      "hidden_channels": enc["hidden_channels"][0],
+                      **copy.deepcopy(enc["layer"])}},
+        "decoder": decoder}
+    return Hparams.from_dict({"model": model, "vocoder": {"path": voc}})
+
+
+def token_lm_dirs(root: str, dev):
+    """Under ``root``: the 80-bin vocoder (seed 1), the full-width codec
+    (``HuBERTIO.save_pretrained``, seed 2), a 48-utterance corpus of
+    13 s each from seed 5 (WAVs and 200-token ids at 50 Hz), and the
+    full-width token LM's checkpoint directory (``save_compact``, seed 0,
+    its training config as ``hp.yaml``).  Returns their paths."""
+    import torch
+
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.models.speech.discrete import DiscreteAR
+    from vae_gslm_tpu_torch.models.vocoder.vocoder import HiFiGAN, HuBERTIO
+    from vae_gslm_tpu_torch.training.checkpoint import save_compact
+
+    paths = {n: os.path.join(root, n)
+             for n in ("voc", "codec", "corpus", "ckpt")}
+    for n in ("corpus", "ckpt"):
+        os.makedirs(paths[n])
+    t0 = time.perf_counter()
+    HiFiGAN(Hparams.from_yamlfile(VOCODER_YAML), device=dev,
+            generator=torch.Generator(dev).manual_seed(1)
+            ).save_pretrained(paths["voc"])
+    codec = HuBERTIO(codec_config(paths["voc"]), device=dev,
+                     generator=torch.Generator(dev).manual_seed(2))
+    codec.save_pretrained(paths["codec"])
+    # one length, so that the micro-batches' audio rows stack
+    write_train_corpus(paths["corpus"], None, 48, 13.0, 13.0, seed=5)
+    hp = token_lm_config(paths["codec"], paths["corpus"])
+    model = DiscreteAR(hp.model, codec.hp_vq, input_dim=80, device=dev,
+                       generator=torch.Generator(dev).manual_seed(0))
+    save_compact(model, os.path.join(paths["ckpt"], "last-cpt.npz"))
+    hp.save(os.path.join(paths["ckpt"], "hp.yaml"))
+    n_lm = sum(p.numel() for p in model.parameters())
+    n_codec = sum(p.numel() for p in codec.model.parameters())
+    log(f"token LM: DiscreteAR {n_lm / 1e6:.1f} M parameters, HuBERT codec "
+        f"{n_codec / 1e6:.1f} M, the vocoder and a 48-utterance corpus "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    return paths
+
+
+def _argmax_draws(model):
+    """The token draw replaced by the argmax of the logits (the
+    deterministic protocol across devices, whose Gumbel streams differ);
+    the top-two gap of each draw's logits recorded."""
+    import torch
+
+    gaps = []
+
+    def draw(h, generator, temperature):
+        logits = model.transformer.out(h).float()
+        top = torch.topk(logits[:, -1], 2, dim=-1).values
+        gaps.append((top[:, 0] - top[:, 1]).cpu())
+        return logits.argmax(-1)
+
+    model._sample_from_hidden = draw
+    return gaps
+
+
+def phase_discrete_small(dev):
+    """A 2-layer DiscreteAR (d 128, two heads of 64, its output layer
+    scaled by 10) on the card (through the kernels) and on the CPU
+    (through the plain versions), same weights, float32: the hybrid route
+    (int8 cache, K1, across a 256-position flush) and the per-layer route
+    (float32 cache), 300 tokens from a 41-token prompt at B 2 with argmax
+    draws: tokens equal up to a draw whose CPU top-two gap is under 5e-3
+    (none expected), at least 150 steps; ``likelihood`` at T 300 (K3) and
+    1100 (K5) to 1e-4 relative; one ``DiscreteARTrainer`` step (float32,
+    accumulation 2, B 3 x 100) card against CPU: the CE to 1e-4 relative,
+    every gradient to 1e-3 x its max |g|."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.core.masked import Masked
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.inference.speech.sampler import \
+        DiscreteARSampler
+    from vae_gslm_tpu_torch.models.speech.discrete import DiscreteAR
+    from vae_gslm_tpu_torch.models.vocoder.vocoder import HiFiGAN, HuBERTIO
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+    from vae_gslm_tpu_torch.ops.fused_decode import fused_decode_attention
+    from vae_gslm_tpu_torch.trainers.speech.discrete import DiscreteARTrainer
+    from vae_gslm_tpu_torch.training.trainer import stack_batches
+
+    small = {"num_layers": 2, "bias": False,
+             "rpe": {"identifier": "ALiBi", "maxpos": 1024},
+             "layer": {"dim": 128, "ffd_size": 512,
+                       "norm": {"identifier": "RMSNorm", "eps": 1e-6},
+                       "activation": {"identifier": "GELU"},
+                       "self_attn": {"nheads": 2, "causal": True}}}
+    vq = Hparams(num_quantizers=1, codebook_size=200, dim=64)
+    hp = Hparams.from_dict({"transformer": small})
+    rng = np.random.RandomState(11)
+    with precision.policy_scope(precision.Policy()):
+        cpu = DiscreteAR(hp, vq, device="cpu",
+                         generator=torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            cpu.transformer.out.weight.mul_(10.0)
+        gpu = DiscreteAR(hp, vq, device=dev)
+        gpu.load_state_dict(cpu.state_dict())
+        prompt = rng.randint(0, 200, (2, 41))
+        for route, kv in (("hybrid", torch.int8), ("per_layer", None)):
+            outs, gaps = [], None
+            for model, where in ((cpu, "cpu"), (gpu, dev)):
+                g = _argmax_draws(model)
+                gaps = g if where == "cpu" else gaps
+                samp = DiscreteARSampler(model, kv_dtype=kv, device=where)
+                if samp.route(2) != route:
+                    raise AssertionError(f"discrete_small: route "
+                                         f"{samp.route(2)}, not {route}")
+                fused_decode_attention.launches = 0
+                out = samp(300, Masked.from_lengths(
+                    torch.from_numpy(prompt).to(where), [41, 41]),
+                    temperature=1e-4)
+                outs.append(out.value.cpu().numpy())
+                k1 = fused_decode_attention.launches
+                del model._sample_from_hidden
+            torch.cuda.synchronize()
+            want_k1 = 2 * 300 if route == "hybrid" else 0
+            gap = torch.stack(gaps, 1).numpy()
+            agree = []
+            for r in range(2):
+                diff = np.flatnonzero(outs[0][r] != outs[1][r])
+                n = outs[0].shape[1] if not diff.size else int(diff[0])
+                if diff.size and not gap[r, n - 41] < 5e-3:
+                    raise AssertionError(
+                        f"discrete_small {route}: row {r} parts at "
+                        f"{n} with a top-two gap of {gap[r, n - 41]:.3e}")
+                agree.append(n - 41)
+            log(f"discrete_small {route} (B 2, 300 tokens, card vs CPU, "
+                f"argmax): tokens agree for {agree} steps; K1 launches {k1}")
+            if min(agree) < 150 or k1 != want_k1:
+                raise AssertionError(f"discrete_small {route}: agreement "
+                                     f"{agree}, K1 launches {k1} (expected "
+                                     f"{want_k1})")
+        for t, lens, want in ((300, [300, 1, 211], (2, 0)),
+                              (1100, [1100, 1030, 2], (0, 2))):
+            x = rng.randint(0, 200, (3, t))
+            scores = []
+            for model, where in ((cpu, "cpu"), (gpu, dev)):
+                fa.flash_forward_packed.launches = 0
+                fa.flash_forward_tiled.launches = 0
+                with torch.no_grad():
+                    scores.append(model.likelihood(Masked.from_lengths(
+                        torch.from_numpy(x).to(where), lens)).cpu().double())
+                counts = (fa.flash_forward_packed.launches,
+                          fa.flash_forward_tiled.launches)
+            rel = ((scores[1] - scores[0]).abs()
+                   / scores[0].abs()).max().item()
+            log(f"discrete_small likelihood T={t} (float32): scores "
+                f"{scores[1].tolist()}, max rel err {rel:.2e}; card (K3, K5) "
+                f"launches {counts}")
+            if counts != want or not rel <= 1e-4:
+                raise AssertionError(f"discrete_small likelihood T={t}")
+
+    # one trainer step card vs CPU over a small codec
+    with tempfile.TemporaryDirectory() as tmp:
+        voc, codec_dir = os.path.join(tmp, "voc"), os.path.join(tmp, "codec")
+        HiFiGAN(Hparams.from_yaml(HFGAN_SMALL_YAML), device="cpu",
+                generator=torch.Generator().manual_seed(1)
+                ).save_pretrained(voc)
+        ccfg = codec_config(voc).to_dict()
+        ccfg["model"]["embed_encoder"]["layer"].update(in_channels=32,
+                                                       hidden_channels=64)
+        ccfg["model"]["decoder"] = yaml_small_decoder()
+        HuBERTIO(Hparams.from_dict(ccfg), device="cpu").save_pretrained(
+            codec_dir)
+        cfg = token_lm_config(codec_dir, tmp).to_dict()
+        cfg["model"] = {"transformer": copy.deepcopy(small)}
+        cfg["trainer"]["precision"] = "32"
+        cfg["training"]["gradient_clip_val"] = 1.0
+        trainers = [DiscreteARTrainer(Hparams.from_dict(copy.deepcopy(cfg)),
+                                      seed=4, device=d_)
+                    for d_ in ("cpu", dev)]
+    trainers[1].model.load_state_dict(trainers[0].model.state_dict())
+    toks = rng.randint(0, 200, (2, 3, 100))
+    lens = [100, 61, 1]
+    batch = stack_batches([{"tokens": Masked.from_lengths(
+        torch.from_numpy(toks[i]), lens)} for i in range(2)])
+    metrics = []
+    for tr in trainers:
+        fa.flash_forward_packed.launches = 0
+        fa.flash_backward_packed.launches = 0
+        metrics.append(tr.run_step(batch))
+    torch.cuda.synchronize()
+    counts = (fa.flash_forward_packed.launches,
+              fa.flash_backward_packed.launches)
+    rel = abs(float(metrics[1]["kld"]) - float(metrics[0]["kld"])) / abs(
+        float(metrics[0]["kld"]))
+    worst = 0.0
+    for name, pc, pg in zip(trainers[0].names, trainers[0].params,
+                            trainers[1].params):
+        gc_, gg = pc.grad.double(), pg.grad.double().cpu()
+        err, scale = (gg - gc_).abs().max().item(), gc_.abs().max().item()
+        if not err <= 1e-3 * scale + 1e-30:
+            raise AssertionError(f"discrete_small step: gradient of {name} "
+                                 f"differs by {err:.3e} (max |g| "
+                                 f"{scale:.3e})")
+        worst = max(worst, err / max(scale, 1e-30))
+    log(f"discrete_small trainer step (float32, accumulation 2, card K3/K3b "
+        f"vs CPU plain): CE per token {float(metrics[1]['kld']):.5f} (rel "
+        f"err {rel:.2e}), gradients max err {worst:.2e} x max|g|; K3/K3b "
+        f"launches {counts}")
+    if counts != (4, 4) or not rel <= 1e-4:
+        raise AssertionError(f"discrete_small step: launches {counts}, CE "
+                             f"rel err {rel:.2e}")
+
+
+def yaml_small_decoder() -> dict:
+    """SMALL_YAML's diffusion decoder (condition width 64)."""
+    import copy
+
+    import yaml
+
+    d = copy.deepcopy(yaml.safe_load(SMALL_YAML)["decoder"])
+    d["cond_unet"]["unet"]["condition_dim"] = 16
+    return d
+
+
+def phase_discrete_train(dev, gpu: str, paths: dict):
+    """``scripts/train.py`` -> ``DiscreteARTrainer.fit`` at full width (the
+    shipped trunk without its flow, 201 M trunk parameters, 16-mixed,
+    AdamW, accumulation 2) on ``paths``' corpus: B 8 x 640 tokens, mels
+    computed by the dataset on the card, ``DAR_STEPS`` optimizer steps,
+    each step's kernel counts set to 0 just before ``run_step`` and read
+    just after (exactly 32 K3 and 32 K3b launches: 16 layers x 2
+    micro-batches; the plain attention versions refused), then the final
+    validation and checkpoint.  Returns the last step's (K3, K3b)."""
+    import torch
+    import yaml
+
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+    from vae_gslm_tpu_torch.scripts import train as train_cli
+    from vae_gslm_tpu_torch.trainers.speech.discrete import DiscreteARTrainer
+
+    cfg = token_lm_config(paths["codec"], paths["corpus"]).to_dict()
+    cfg["logging"]["log_dir"] = os.path.join(paths["corpus"], "..", "logs")
+    config = os.path.join(paths["ckpt"], "..", "train_lm.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    run_step = DiscreteARTrainer.run_step
+    steps, counts = [], []
+    accum = cfg["training"]["gradient_accumulation"]
+    want = cfg["model"]["transformer"]["num_layers"] * accum
+
+    def timed(self, stacked):
+        fa.flash_forward_packed.launches = 0
+        fa.flash_backward_packed.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_step(self, stacked)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        counts.append((fa.flash_forward_packed.launches,
+                       fa.flash_backward_packed.launches))
+        log(f"discrete_train step {len(steps) - 1}: {steps[-1] * 1e3:.1f} ms,"
+            f" CE per token {float(out['kld']):.4f}; K3/K3b {counts[-1]}")
+        if counts[-1] != (want, want) or not math.isfinite(
+                float(out["kld"])):
+            raise AssertionError(f"discrete_train: K3/K3b {counts[-1]} "
+                                 f"(expected {want} each), CE {out['kld']}")
+        return out
+
+    undo = _refuse_plain("discrete_train")
+    DiscreteARTrainer.run_step = timed
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        train_cli.main(["-c", config, "--max_steps", str(DAR_STEPS)])
+        wall = time.perf_counter() - t0
+    finally:
+        DiscreteARTrainer.run_step = run_step
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(steps[1:])
+    tokens = DAR_B * accum * DAR_T
+    log(f"discrete_train (scripts/train.py, B={DAR_B} x accumulation "
+        f"{accum} x {DAR_T} tokens, 16-mixed): median step "
+        f"{med * 1e3:.1f} ms over {len(steps) - 1} steps after a warm-up, "
+        f"{tokens / med:.0f} tokens/s; the whole CLI {wall:.1f} s; peak "
+        f"memory {peak / 2 ** 30:.2f} GiB; K3/K3b per step {counts[-1]} "
+        f"({gpu})")
+    if len(steps) != DAR_STEPS:
+        raise AssertionError(f"discrete_train ran {len(steps)} steps")
+    return counts[-1]
+
+
+def phase_hubert_decoder_fit(dev, gpu: str, paths: dict):
+    """``HuBERTDecoderTrainer`` at full width (the codec of
+    ``codec_config``, float32, AdamW of the shipped training block) for
+    ``HUB_STEPS`` steps on synthetic B 8 x 640-frame batches (tokens and
+    80-bin mels from seed 6; no port kernel: the counts stay 0), then
+    ``save_checkpoint`` and ``HuBERTIO.from_pretrained`` reading it back
+    strictly, equal to the trainer's weights."""
+    import copy
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from vae_gslm_tpu_torch.core.masked import Masked
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.models.vocoder.vocoder import HuBERTIO
+    from vae_gslm_tpu_torch.trainers.vocoder.hubert import \
+        HuBERTDecoderTrainer
+    from vae_gslm_tpu_torch.training.trainer import stack_batches
+
+    with open(TRAIN_YAML) as f:
+        shipped = yaml.safe_load(f)
+    cfg = codec_config(paths["voc"]).to_dict()
+    cfg.update(trainer={"identifier": "trainers.vocoder.hubert."
+                        "HuBERTDecoderTrainer",
+                        "total_steps": shipped["trainer"]["total_steps"],
+                        "precision": "32"},
+               logging={"log_dir": "unused", "num_samples": 0},
+               training=copy.deepcopy(shipped["training"]), data={})
+    t0 = time.perf_counter()
+    tr = HuBERTDecoderTrainer(Hparams.from_dict(cfg), seed=3, device=dev)
+    nparams = sum(p.numel() for p in tr.params)
+    built = time.perf_counter() - t0
+    rng = np.random.RandomState(6)
+    lens = [DAR_T] * (DAR_B - 2) + [DAR_T * 25 // 32, DAR_T // 2]
+    batch = stack_batches([{
+        "tokens": Masked.from_lengths(torch.from_numpy(
+            rng.randint(0, 200, (DAR_B, DAR_T))), lens),
+        "mel": Masked.from_lengths(torch.from_numpy(
+            rng.randn(DAR_B, DAR_T, 80).astype(np.float32)), lens)}])
+    zero_kernel_counts()
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(HUB_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = tr.run_step(batch)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t1)
+        tr.global_step += 1
+        if not math.isfinite(float(m["rec_loss"])):
+            raise AssertionError(f"hubert_decoder_fit: rec_loss {m}")
+    expect_counts("hubert_decoder_fit", {})
+    peak = torch.cuda.max_memory_allocated()
+    out_dir = os.path.join(paths["codec"] + "_trained")
+    os.makedirs(out_dir)
+    tr.save_checkpoint(os.path.join(out_dir, "last-cpt.npz"))
+    back = HuBERTIO.from_pretrained(out_dir, device=dev)
+    for (name, a), b in zip(tr.model.state_dict().items(),
+                            back.model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise AssertionError(f"hubert_decoder_fit: {name} read back "
+                                 "differently")
+    log(f"hubert_decoder_fit: HuBERT decoder {nparams / 1e6:.1f} M "
+        f"parameters and AdamW built in {built:.1f} s; B={DAR_B} x {DAR_T} "
+        f"frames, float32: steps "
+        f"{', '.join(f'{s * 1e3:.1f}' for s in steps)} ms (median after the "
+        f"first {statistics.median(steps[1:]) * 1e3:.1f} ms), rec_loss "
+        f"{float(m['rec_loss']):.4f}; peak memory {peak / 2 ** 30:.2f} GiB; "
+        f"saved and read back by HuBERTIO.from_pretrained, equal ({gpu})")
+
+
+DAR_PRIOR_S, DAR_CONT_S = 3.0, 10.0  # the shipped infer config's
+DAR_INFER_YAML = """
+identifier: "inference.speech.hubert.SpeechInferer"
+precision: "16-mixed"
+output_dir: "{out}"
+ckpt_path: "{ckpt}"
+model: {{identifier: "models.speech.discrete.DiscreteAR"}}
+sample_prior_length: {prior}
+sample_length: {cont}
+temperature: 0.85
+diffusion: {{sampling_timesteps: 100, ddim_sampling_eta: 0.5}}
+data:
+    path: "{corpus}/tokens.txt"
+    wavdir: "{corpus}"
+    sample_rate: 16000
+    with_text: false
+    with_tokens: true
+    batch_size: 8
+    num_workers: 4
+    min_audio_length: 5.0
+    bits_per_second: 32000
+    pad: {{multiple_of: 320, mode: "constant"}}
+    sampler: {{type: "standard", shuffle: false}}
+trainer: {{distributed: false}}
+"""
+
+
+def phase_discrete_serve(dev, gpu: str, paths: dict) -> int:
+    """The token LM's serving at full width, bf16 weights: first
+    ``DiscreteARSampler(kv_dtype=torch.int8)`` at B 8 on 150-token prompts
+    for 500 tokens, the hybrid route (exactly 16 x 500 K1 launches, no
+    other kernel), its ms per AR step; then ``scripts/infer.py`` with the
+    token-LM ``SpeechInferer`` (``inference/speech/hubert.py``) on 8 of the
+    corpus's utterances at B 8: the per-layer float32 route (no kernel on
+    the AR loop), HuBERT DDIM-100, HiFi-GAN, 8 continuations and 8 decoded
+    prompts written, each finite and at most 13 s (3 s).  Returns the
+    sampler's K1 launches."""
+    import numpy as np
+    import torch
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.core.masked import Masked
+    from vae_gslm_tpu_torch.data import audio
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.inference.speech.sampler import \
+        DiscreteARSampler
+    from vae_gslm_tpu_torch.models.speech.discrete import DiscreteAR
+    from vae_gslm_tpu_torch.ops.fused_decode import fused_decode_attention
+    from vae_gslm_tpu_torch.scripts import infer as infer_cli
+    from vae_gslm_tpu_torch.training.checkpoint import load_compact
+
+    hp = Hparams.from_yamlfile(os.path.join(paths["ckpt"], "hp.yaml"))
+    with precision.policy_scope(precision.bf16_mixed()):
+        model = DiscreteAR(hp.model, Hparams(num_quantizers=1,
+                                             codebook_size=200, dim=64),
+                           input_dim=80, device=dev)
+        load_compact(model, os.path.join(paths["ckpt"], "last-cpt.npz"))
+        with torch.no_grad():
+            for p in model.parameters():
+                p.data = p.data.to(torch.bfloat16)
+        sampler = DiscreteARSampler(model, kv_dtype=torch.int8, device=dev)
+        nl = len(model.transformer.layers)
+        if sampler.route(DAR_B) != "hybrid":
+            raise AssertionError("discrete_serve: not the hybrid route")
+        prior = Masked.from_lengths(torch.from_numpy(np.random.RandomState(
+            7).randint(0, 200, (DAR_B, PROMPT))).to(dev), [PROMPT] * DAR_B)
+        gen = torch.Generator(dev).manual_seed(0)
+        sampler(8, prior, gen, temperature=0.85)          # warm-up
+        zero_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sampler(LENGTH, prior, gen, temperature=0.85)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    counts = expect_counts("discrete_serve hybrid",
+                           {"fused_decode_attention": nl * LENGTH})
+    toks = out.value
+    if toks.shape != (DAR_B, PROMPT + LENGTH) or not bool(
+            ((toks >= 0) & (toks < 200)).all()):
+        raise AssertionError(f"discrete_serve: tokens {tuple(toks.shape)}")
+    log(f"discrete_serve hybrid (B={DAR_B}, {PROMPT} -> {LENGTH} tokens, "
+        f"bf16 weights, int8 cache): {sec:.2f} s, "
+        f"{sec / LENGTH * 1e3:.2f} ms per AR step (prefill included); K1 "
+        f"launches {counts['fused_decode_attention']} ({gpu})")
+    del model, sampler
+
+    out_dir = os.path.join(paths["ckpt"], "..", "lm_out")
+    config = os.path.join(paths["ckpt"], "..", "infer_lm.yaml")
+    corpus8 = os.path.join(paths["ckpt"], "..", "corpus8")
+    os.makedirs(corpus8)
+    with open(os.path.join(paths["corpus"], "tokens.txt")) as f:
+        lines = f.read().splitlines()[:DAR_B]
+    for line in lines:
+        name = line.split("|")[0]
+        os.symlink(os.path.join(paths["corpus"], name),
+                   os.path.join(corpus8, name))
+    with open(os.path.join(corpus8, "tokens.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(config, "w") as f:
+        f.write(DAR_INFER_YAML.format(out=out_dir, ckpt=paths["ckpt"],
+                                      corpus=corpus8, prior=DAR_PRIOR_S,
+                                      cont=DAR_CONT_S))
+    prior_n, cont_n = int(DAR_PRIOR_S * 50), int(DAR_CONT_S * 50)
+    zero_kernel_counts()
+    timings = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n = infer_cli.main(["-c", config, "--max_batches", "1"], timings=timings)
+    wall = time.perf_counter() - t0
+    expect_counts("discrete_serve CLI", {})
+    peak = torch.cuda.max_memory_allocated()
+    names = sorted(os.listdir(out_dir))
+    if n != DAR_B or len(names) != 2 * DAR_B:
+        raise AssertionError(f"discrete_serve CLI: {n} continuations, files "
+                             f"{names}")
+    longest = 0
+    for name in names:
+        wave, sr = audio.load_audio(os.path.join(out_dir, name))
+        limit = (prior_n if name.endswith("_ov.wav")
+                 else prior_n + cont_n) * 320
+        if sr != 16000 or not 0 < len(wave) <= limit or not \
+                np.isfinite(wave).all():
+            raise AssertionError(f"discrete_serve CLI: {name} has {len(wave)}"
+                                 f" samples at {sr} Hz")
+        longest = max(longest, len(wave))
+    log(f"discrete_serve CLI (scripts/infer.py, inference.speech.hubert."
+        f"SpeechInferer, B={DAR_B}, per-layer float32 cache, 16-mixed, "
+        f"HuBERT DDIM-100, HiFi-GAN): {n} continuations and their prompts "
+        f"in {wall:.1f} s, AR loop {timings['ar_loop']:.2f} s "
+        f"({timings['ar_loop'] / cont_n * 1e3:.1f} ms per step), codec "
+        f"{timings['codec']:.2f} s; longest wave {longest / 16000:.2f} s; "
+        f"real-time factor {n * DAR_CONT_S / wall:.1f}; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB ({gpu})")
+    return counts["fused_decode_attention"]
+
+
+def phase_discrete_score(dev, gpu: str, paths: dict):
+    """``LikelihoodEstimator`` (the token LM branch) at full width,
+    float32, on 8 utterances at batch 4: one batch of 10-20 s (padded to
+    <= 1024 tokens: exactly 16 K3 launches) and one of 22-25 s (past
+    1024: exactly 16 K5 launches), the plain versions refused; finite
+    scores <= 0.  Returns (K3, K5) launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.inference.speech.likelihood import \
+        LikelihoodEstimator
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+
+    root = os.path.join(paths["ckpt"], "..", "score_corpus")
+    parts = []
+    for i, (lo, hi) in enumerate(((10.0, 20.0), (22.0, 25.0))):
+        d_ = os.path.join(root, str(i))
+        os.makedirs(d_)
+        write_train_corpus(d_, None, 4, lo, hi, seed=20 + i)
+        with open(os.path.join(d_, "tokens.txt")) as f:
+            parts += [f"{i}/{line}" for line in f.read().splitlines()]
+    with open(os.path.join(root, "tokens.txt"), "w") as f:
+        f.write("\n".join(parts) + "\n")
+    hp = Hparams.from_yaml(SCORE_INFER_YAML.format(ckpt=paths["ckpt"],
+                                                   corpus=root))
+    hp.model.identifier = "models.speech.discrete.DiscreteAR"
+    hp.data.batch_size = 4
+    est = LikelihoodEstimator(hp, device=dev)
+    undo = _refuse_plain("discrete_score")
+    try:
+        est.run(max_batches=1)                      # warm-up
+        zero_kernel_counts()
+        timings = {}
+        t0 = time.perf_counter()
+        scores = est.run(timings=timings)
+        wall = time.perf_counter() - t0
+    finally:
+        undo()
+    counts = (fa.flash_forward_packed.launches,
+              fa.flash_forward_tiled.launches)
+    nl = len(est.model.transformer.layers)
+    expect_counts("discrete_score", {"flash_forward_packed": nl,
+                                     "flash_forward_tiled": nl})
+    if scores.shape != (8,) or not np.isfinite(scores).all() or not \
+            (scores <= 0).all():
+        raise AssertionError(f"discrete_score: scores {scores}")
+    log(f"discrete_score (float32, 8 utterances at batch 4, one batch past "
+        f"1024 tokens): {8 / wall:.2f} utterances/s ({wall:.2f} s, model "
+        f"{timings['model']:.2f} s); scores {np.round(scores, 4).tolist()}; "
+        f"(K3, K5) launches {counts} ({gpu})")
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     # keep CUPTI set up between profiler windows (torch's own workaround
     # for its re-initialisation, which has left windows with no kernel)
@@ -4808,6 +5637,25 @@ def main() -> int:
               write_cli_corpus(flagship, n=PL_B), n_wavs=PL_B)
     finally:
         shutil.rmtree(flagship, ignore_errors=True)
+    # the token-LM baseline (slice 16) and K5 past 8192 keys
+    k5_long_launches = timed("k5_long", phase_k5_long, dev, gpu)
+    timed("discrete_small", phase_discrete_small, dev)
+    lm_root = tempfile.mkdtemp(prefix="token_lm_")
+    try:
+        paths = timed("token_lm_dirs", token_lm_dirs, lm_root, dev)
+        lm_k3, lm_k3b = timed("discrete_train", phase_discrete_train, dev,
+                              gpu, paths)
+        timed("hubert_decoder_fit", phase_hubert_decoder_fit, dev, gpu,
+              paths)
+        k1["launches"] += timed("discrete_serve", phase_discrete_serve, dev,
+                                gpu, paths)
+        score_k3, score_k5 = timed("discrete_score", phase_discrete_score,
+                                   dev, gpu, paths)
+    finally:
+        shutil.rmtree(lm_root, ignore_errors=True)
+    k3["launches"] += lm_k3 + score_k3
+    k3b["launches"] += lm_k3b
+    k5["launches"] += score_k5 + k5_long_launches
     log("phase seconds: " + ", ".join(spent))
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, k2bf16, k2w4, k3, k3b, k4, k4b,

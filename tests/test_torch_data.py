@@ -150,9 +150,12 @@ def test_sampler_orders_match_jax(kw):
 @pytest.mark.parametrize("typ, distributed", [
     ("standard", True), ("bucket", False), ("concat", False)])
 def test_dataloader_refuses_unported_samplers(typ, distributed):
-    """The bucket and concat samplers raise, naming ROADMAP.md, before
-    the dataset is read.  The standard sampler is ported for one process
-    and for one rank; a rank's loader needs the world size and rank."""
+    """An unknown sampler type raises before the dataset is read; the
+    bucket and concat samplers refuse a config without their settings
+    (``sampler.num_buckets``, ``length``) and build from the dataset's
+    ``lengths`` with them.  The standard sampler is ported for one
+    process and for one rank; a rank's loader needs the world size and
+    rank."""
     hp = Hparams.from_dict({"num_workers": 1, "batch_size": 4,
                             "sampler": {"type": typ, "shuffle": False}})
     if typ == "standard":
@@ -163,7 +166,18 @@ def test_dataloader_refuses_unported_samplers(typ, distributed):
         assert isinstance(loader.sampler, sampler.DistributedSampler)
         assert _batches(loader.sampler) == [[1, 3, 5, 7]]
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="not specified"):
+        get_dataloader(hp, [], distributed)
+    hp.sampler.num_buckets = 2
+    hp.length = 2.0
+    items = type("Items", (list,), {"seq_collate": staticmethod(list),
+                                    "lengths": [1.0, 3.0, 2.0, 0.5]})
+    loader = get_dataloader(hp, items(range(4)), distributed)
+    want = (sampler.SingleRandomBucketSampler if typ == "bucket"
+            else sampler.SingleConcatLengthSampler)
+    assert isinstance(loader.sampler, want)
+    hp.sampler.type = "nope"
+    with pytest.raises(NotImplementedError, match="nope"):
         get_dataloader(hp, [], distributed)
 
 

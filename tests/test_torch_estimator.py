@@ -13,7 +13,7 @@ JAX package's.
     pinned on both sides: scores to rtol/atol 1e-3 (the log-mels agree
     to 1e-3, not bit for bit, and feed the whole model);
   * the registry resolves inside the port only; the DiscreteAR type
-    raises.
+    raises over a checkpoint that names no ``hubert.path`` codec.
 All on the CPU."""
 import os
 
@@ -239,7 +239,7 @@ def test_discrete_ar_raises(scoring_dirs):
     corpus, ckpt = scoring_dirs
     hp = Hparams.from_yaml(INFER_YAML.format(ckpt=ckpt, corpus=corpus))
     hp.model.identifier = "models.speech.discrete.DiscreteAR"
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="path not specified"):
         LikelihoodEstimator(hp, device="cpu")
 
 

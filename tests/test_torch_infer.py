@@ -20,7 +20,7 @@
   * ``energy_vad_segments`` and ``vad_trim`` equal JAX's; the pyannote
     branch against a stub package; without pyannote an ``auth_token``
     falls back to the energy VAD with a warning; the DiscreteAR type
-    raises;
+    raises over a checkpoint that names no ``hubert.path`` codec;
   * ``scripts.infer.main`` (with ``-v`` on an ``exp_dir`` layout, and
     without) writes the files ``SpeechInferer.run`` writes;
     ``scripts.preprocess_mels.main`` writes JAX's ``.npy`` tree to the
@@ -279,7 +279,7 @@ def test_discrete_ar_raises(dirs):
     hp = Hparams.from_yamlfile(_config(dirs, os.path.join(dirs["root"],
                                                           "discrete_out")))
     hp.model.identifier = "models.speech.discrete.DiscreteAR"
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError, match="path not specified"):
         SpeechInferer(hp, device="cpu")
 
 

@@ -94,6 +94,26 @@ class Masked:
                           dim=1)
         return Masked(value, self.lengths, 1)
 
+    def push(self, other: Tensor) -> "Masked":
+        """Prepend ``other`` along time (n frames on ``time_axis``);
+        lengths grow by n."""
+        value = torch.cat([other.to(self.value.dtype), self.value],
+                          dim=self.time_axis)
+        return Masked(value, self.lengths + other.shape[self.time_axis],
+                      self.time_axis)
+
+    def pop(self, n: int = 1) -> "Masked":
+        """Drop the last n frames; lengths shrink by n."""
+        value = self.value.narrow(self.time_axis, 0,
+                                  self.value.shape[self.time_axis] - n)
+        return Masked(value, self.lengths - n, self.time_axis)
+
+    def pop_left(self, n: int = 1) -> "Masked":
+        """Drop the first n frames; lengths shrink by n."""
+        value = self.value.narrow(self.time_axis, n,
+                                  self.value.shape[self.time_axis] - n)
+        return Masked(value, self.lengths - n, self.time_axis)
+
     def mean(self) -> Tensor:
         """Masked mean over (batch, time), averaged over channels: the
         masked sum, divided by the channel count, then by the total

@@ -11,7 +11,7 @@
 //       _flash_bwd_blockwise_kernel :609)
 // K3/K3b take causal self-attention over the packed (B, T, H*D)
 // projection layout, T <= 1024.  K4 (Tq = Tk <= 1024, optional lse) and
-// K5 (any Tq, Tk up to 8192, no lse) are the (B, H, T, D) forwards that
+// K5 (any Tq and Tk, no lse) are the (B, H, T, D) forwards that
 // JAX runs off the packed envelope and under a data-parallel mesh; K4b
 // (Tq = Tk <= 1024, lse from K4) and K5b (any Tq, Tk up to 8192, its own
 // row statistics) are the backwards of that (B, H, T, D) custom VJP.  The
@@ -124,8 +124,8 @@
 // K4b's training call (~0.21 ms at 67 TFLOP/s) against ~0.13 GB.
 //
 // K5 bfloat16 forward (fwd_stream_wgmma).  The same two passes as
-// fwd_wgmma, but Tk goes up to 8192 (128 key tiles, 1 MB of K per
-// (batch, head)), so no key tile stays resident: a producer warp loads
+// fwd_wgmma, but Tk has no bound (8192 keys are 128 key tiles, 1 MB of
+// K per (batch, head)), so no key tile stays resident: a producer warp loads
 // Q once by TMA and streams K (pass 1), then K and V (pass 2), through
 // one ring of `stages` stages of a K and a V tile (full/empty
 // mbarriers); the plan (k5_fwd_plan) is the same for every Tq and Tk.
@@ -1368,7 +1368,7 @@ constexpr int k5_plan_bytes(int stages) {
 }
 
 // The bfloat16 forward of one (128-query tile, head, batch) of K5: Tq
-// queries against Tk keys (up to 8192), both positions from 0, no lse.
+// queries against Tk keys (any number), both positions from 0, no lse.
 // Warpgroup wg owns the 64-row query tile 2 qb + wg and walks its own
 // key tiles (key_tiles; none for rows wholly past tq); the producer
 // streams the longer walk twice through one ring, K alone in pass 1 and

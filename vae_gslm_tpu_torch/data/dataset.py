@@ -180,6 +180,10 @@ class StandardDataset:
         self.hp = hp
         self.name = name or "dataset"
         self.rng = np.random.RandomState(seed)
+        # the bucket and concat samplers batch by length (JAX keeps the
+        # lengths for "bucket" only, so its concat branch cannot run)
+        store_length = hp.has("sampler") and hp.sampler.type in ("bucket",
+                                                                 "concat")
         if hp.with_text:
             hp.check_arg_in_hparams("delimiter")
         if hp.get("min_audio_length", False):
@@ -194,8 +198,9 @@ class StandardDataset:
             paths, wavdirs = [paths], [wavdirs]
         if not isinstance(bps, list):
             bps = [bps] * len(paths)
+        lengths: List[float] = []
         for _path, _wavdir, _bps in zip(paths, wavdirs, bps):
-            a, t, s, _, tk = load_dataset(
+            a, t, s, ln, tk = load_dataset(
                 _path, hp.with_text, hp.get("delimiter", " "),
                 hp.get("min_audio_length", None),
                 hp.get("max_audio_length", None), _bps, _wavdir,
@@ -207,8 +212,14 @@ class StandardDataset:
             self.texts += t
             self.symbols |= s
             self.tokens += tk
+            lengths += ln
         if hp.with_text:
             self.symbols = Symbols(self.symbols, hp.delimiter)
+        if store_length:
+            hp.check_arg_in_hparams("bits_per_second")
+            self.lengths = lengths
+            if hp.has("truncate"):
+                self.lengths = [min(x, hp.truncate) for x in self.lengths]
         log.info("%s: total %d examples", self.name, len(self.audios))
 
     def __len__(self) -> int:

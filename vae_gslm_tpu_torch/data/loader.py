@@ -4,7 +4,8 @@ A thread pool builds the batches ahead of the consumer (``prefetch``
 batches staged), overlapping file IO and feature extraction with the
 model; a dataset whose features run on the card issues its device work
 from these threads, asynchronously.  ``get_dataloader`` builds the
-standard sampler's loader for one process or one rank.
+standard, bucket or concat sampler's loader for one process or one
+rank.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterator, Optional
 
 from ..hparams.hp import Hparams
-from .sampler import Sampler, standard_sampler
+from .sampler import (Sampler, concat_length_sampler, random_bucket_sampler,
+                      standard_sampler)
 
 
 class DataLoader:
@@ -77,18 +79,32 @@ class DataLoader:
 def get_dataloader(hp: Hparams, dataset, distributed: bool = False,
                    world_size: Optional[int] = None,
                    rank: Optional[int] = None) -> DataLoader:
-    """The ``standard`` branch of JAX's sampler dispatch
-    (``BaseTrainer.get_dataloader`` :238-266): one process's sampler, or
-    with ``distributed`` the rank's ``DistributedSampler`` (a world of 1
-    when the caller runs alone).  The ``bucket`` and ``concat`` samplers
-    raise; no shipped config selects them (ROADMAP.md)."""
-    hp.check_arg_in_hparams("num_workers", "sampler", "batch_size")
-    if hp.sampler.type != "standard":
-        raise NotImplementedError(f"the {hp.sampler.type!r} sampler is not "
-                                  "ported yet (ROADMAP.md); the port has "
-                                  "the 'standard' one")
-    sampler = standard_sampler(
-        len(dataset), hp.batch_size, shuffle=hp.sampler.shuffle,
-        distributed=distributed, world_size=world_size, rank=rank,
-        drop_last=hp.sampler.get("drop_last", True))
+    """JAX's sampler dispatch (``BaseTrainer.get_dataloader`` :238-266):
+    ``sampler.type`` ``standard`` (``batch_size``), ``bucket``
+    (``sampler.num_buckets`` and ``batch_size`` or ``batch_length``, over
+    the dataset's ``lengths``) or ``concat`` (``batch_size`` x ``length``
+    of summed length), each of one process or, with ``distributed``, of
+    this rank (a world of 1 when the caller runs alone)."""
+    hp.check_arg_in_hparams("num_workers", "sampler")
+    styp = hp.sampler.type
+    if styp == "standard":
+        hp.check_arg_in_hparams("batch_size")
+        sampler = standard_sampler(
+            len(dataset), hp.batch_size, shuffle=hp.sampler.shuffle,
+            distributed=distributed, world_size=world_size, rank=rank,
+            drop_last=hp.sampler.get("drop_last", True))
+    elif styp == "bucket":
+        hp.sampler.check_arg_in_hparams("num_buckets")
+        sampler = random_bucket_sampler(
+            hp.sampler.num_buckets, dataset.lengths,
+            hp.get("batch_size", None), hp.get("batch_length", None),
+            hp.sampler.get("drop_last", False), distributed,
+            world_size=world_size, rank=rank)
+    elif styp == "concat":
+        hp.check_arg_in_hparams("batch_size", "length")
+        sampler = concat_length_sampler(
+            hp.batch_size, hp.length, dataset.lengths, distributed,
+            world_size=world_size, rank=rank)
+    else:
+        raise NotImplementedError(f"sampler type {styp!r}")
     return DataLoader(dataset, sampler, num_workers=hp.num_workers)

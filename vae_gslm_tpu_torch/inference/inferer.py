@@ -6,7 +6,8 @@ at inference; the model class comes from the inference config's dotted
 ``model.identifier`` (``scripts/registry.py``); its weights from
 ``{ckpt_path}/last-cpt.npz`` (the JAX compact contract, loaded strictly)
 or, failing that, the newest ``*-cpt.*`` there, where a ``.ckpt`` is a
-reference torch state dict (the released artifacts).  Entry points run
+reference torch state dict (the released artifacts) of an LVTR or a
+DiscreteAR.  Entry points run
 on CUDA unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 from ..core.device import resolve_device
 from ..data.loader import DataLoader, get_dataloader
 from ..hparams.hp import Hparams
-from ..models.convert import load_reference_lvtr
+from ..models.convert import load_reference_discrete_ar, load_reference_lvtr
+from ..models.speech.discrete import DiscreteAR
 from ..models.speech.lvtr import LVTR
 from ..models.vocoder.vocoder import load_torch_state_dict
 from ..parallel.mesh import process_count, process_index
@@ -48,10 +50,11 @@ class BaseInferer:
             load_compact(model, ckpt)
         elif isinstance(model, LVTR):
             load_reference_lvtr(model, load_torch_state_dict(ckpt))
+        elif isinstance(model, DiscreteAR):
+            load_reference_discrete_ar(model, load_torch_state_dict(ckpt))
         else:
             raise NotImplementedError(
-                f"torch checkpoints of {type(model).__name__} are not "
-                "ported yet (ROADMAP.md)")
+                f"torch checkpoints of {type(model).__name__}")
         self.model = model
         return model
 

@@ -11,7 +11,17 @@ The VAD is pyannote's when ``vad.auth_token`` is set and the package is
 installed (``build_pyannote_vad``, imported lazily); otherwise the
 energy VAD applies the same trailing-segment rule, with a warning when a
 token was given, as JAX does.  Nothing is downloaded unless the caller's
-pyannote does so.  The DiscreteAR (hubert) branch is not ported yet.
+pyannote does so.
+
+A config whose ``model.identifier`` ends in ``discrete.DiscreteAR`` takes
+the token LM branch (``type`` "hubert"): the checkpoint's ``hubert.path``
+names the frozen ``HuBERTIO`` codec, the prompt is the first
+``sample_prior_length`` s of the tokens (``sample_prior_tokens`` of the
+deduplicated tokens when the codec deduplicates; with f0 the [token, f0]
+channels), ``DiscreteARSampler`` continues it (built without
+``kv_dtype``, as JAX's is: ``kv_cache_dtype`` and ``weight_dtype`` apply
+to the LVTR only), and the codec decodes it (HuBERT DDIM, then HiFi-GAN;
+with the prompt's mel as the speaker crop where the codec takes one).
 """
 from __future__ import annotations
 
@@ -19,7 +29,7 @@ import logging
 import os
 import tempfile
 import time
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,9 +39,9 @@ from ...data import audio as audio_lib
 from ...data.dataset import DiscreteTokenDataset, MelSpecDataset
 from ...data.loader import DataLoader
 from ...hparams.hp import Hparams
-from ...models.vocoder.vocoder import HiFiGAN
+from ...models.vocoder.vocoder import HiFiGAN, HuBERTIO
 from ..inferer import BaseInferer
-from .sampler import ARTRSampler
+from .sampler import ARTRSampler, DiscreteARSampler
 
 log = logging.getLogger(__name__)
 
@@ -108,26 +118,40 @@ class SpeechInferer(BaseInferer):
         if self.hp_model.training.has("mel_rescale"):
             self.mel_rescale = self.hp_model.training.mel_rescale
         if hp.model.identifier.endswith("discrete.DiscreteAR"):
-            raise NotImplementedError(
-                "speech continuation with the DiscreteAR (hubert) model is "
-                "not ported yet (ROADMAP.md, Queue 1 item 6)")
-        self.vocoder = HiFiGAN.from_pretrained(
-            self.hp_model.vocoder.path, hp_rescale=self.mel_rescale,
-            device=self.device)
-        self.load_model(input_dim=self.vocoder.hp.n_mels)
-        self.sampler = ARTRSampler(
-            self.model,
-            kv_dtype=(torch.int8 if hp.get("kv_cache_dtype", None) == "int8"
-                      else None),
-            quantize_weights=hp.get("weight_dtype", None) == "int8",
-            device=self.device)
+            self.type = "hubert"
+            self.hp_model.hubert.check_arg_in_hparams("path")
+            self.codec = HuBERTIO.from_pretrained(
+                self.hp_model.hubert.path, hp_rescale=self.mel_rescale,
+                device=self.device)
+            self.deduplicate = self.codec.model.deduplicate
+            self.load_model(hp_vq=self.codec.hp_vq)
+            self.model.set_soundstream(self.codec)
+            self.input_key = ("dedup_tokens" if self.deduplicate
+                              else "tokens")
+            self.sampler = DiscreteARSampler(self.model, device=self.device)
+            decoder = self.codec.model.decoder
+        else:
+            self.type = "lvtr"
+            self.vocoder = HiFiGAN.from_pretrained(
+                self.hp_model.vocoder.path, hp_rescale=self.mel_rescale,
+                device=self.device)
+            self.load_model(input_dim=self.vocoder.hp.n_mels)
+            self.input_key = "mel"
+            self.sampler = ARTRSampler(
+                self.model,
+                kv_dtype=(torch.int8
+                          if hp.get("kv_cache_dtype", None) == "int8"
+                          else None),
+                quantize_weights=hp.get("weight_dtype", None) == "int8",
+                device=self.device)
+            decoder = self.model.decoder
         self.use_tokens = getattr(self.model, "use_tokens", False)
         if self.use_tokens:
             self.hp_hubert = Hparams(
                 deduplicate=False,
                 sample_rate=self.hp_model.hubert.sample_rate)
         if hp.has("diffusion"):
-            self.model.decoder.override_sampling(
+            decoder.override_sampling(
                 hp.diffusion.get("sampling_timesteps", None),
                 hp.diffusion.get("ddim_sampling_eta", None))
         self.vad_pipeline = None
@@ -139,7 +163,12 @@ class SpeechInferer(BaseInferer):
         self.sampled = 0
 
     def test_dataloader(self) -> DataLoader:
-        if self.use_tokens:
+        if self.type == "hubert":
+            dataset = DiscreteTokenDataset(
+                self.hp.data, self.codec.hp, self.codec.model.hp.hubert,
+                self.mel_rescale, device=self.device)
+            self.token_sample_rate = dataset.token_sample_rate
+        elif self.use_tokens:
             dataset = DiscreteTokenDataset(
                 self.hp.data, self.vocoder.hp, self.hp_hubert,
                 self.mel_rescale, device=self.device)
@@ -173,12 +202,61 @@ class SpeechInferer(BaseInferer):
         return Masked(prior_v, mel.lengths.to(dev).clamp(max=prior_length),
                       1)
 
+    def token_prompt(self, batch) -> Tuple[Masked, int]:
+        """The token LM's prompt on the inferer's device and the number of
+        tokens to continue it by: ``sample_prior_tokens`` and
+        ``sample_tokens`` of the deduplicated tokens, else the first
+        ``sample_prior_length`` s of the tokens and ``sample_length`` s;
+        with f0 the [token, f0] channels."""
+        hp = self.hp
+        prior = batch[self.input_key]
+        if self.deduplicate:
+            prior_length, length = hp.sample_prior_tokens, hp.sample_tokens
+        else:
+            prior_length = int(hp.sample_prior_length
+                               * self.token_sample_rate)
+            length = int(hp.sample_length * self.token_sample_rate)
+        prior_v = prior.value[:, :prior_length].to(self.device)
+        if self.model.f0 is not None:
+            f0 = batch["f0"].value[:, :prior_length].to(self.device)
+            prior_v = torch.stack([prior_v.float(), f0.float()], dim=-1)
+        return Masked(prior_v, prior.lengths.to(self.device).clamp(
+            max=prior_length), 1), length
+
+    @torch.no_grad()
+    def _test_step_tokens(self, batch, generator: torch.Generator,
+                          timings: Optional[Dict[str, float]]) -> Masked:
+        prior, length = self.token_prompt(batch)
+        t0 = time.perf_counter()
+        full = self.sampler(length, prior, generator,
+                            temperature=self.hp.temperature)
+        if timings is not None:
+            self.synchronize()
+            t1 = time.perf_counter()
+            timings["ar_loop"] = timings.get("ar_loop", 0.0) + t1 - t0
+        dec_kw = {}
+        if self.codec.model.hp.has("spkr"):
+            mel_len = int(self.hp.sample_prior_length * self.mel_sample_rate)
+            mel = batch["mel"]
+            dec_kw["spkr"] = Masked(mel.value[:, :mel_len].to(self.device),
+                                    mel.lengths.to(self.device).clamp(
+                                        max=mel_len), 1)
+        audio = self.model.decode(full, generator, **dec_kw)
+        if timings is not None:
+            self.synchronize()
+            timings["codec"] = (timings.get("codec", 0.0)
+                                + time.perf_counter() - t1)
+        return audio
+
     @torch.no_grad()
     def test_step(self, batch, generator: torch.Generator,
                   timings: Optional[Dict[str, float]] = None) -> Masked:
         """One batch continued and vocoded: the wave (B, samples) with its
         lengths.  With ``timings``, the sampler's stage seconds and the
-        vocoder's are added to it."""
+        vocoder's (the token LM: ``ar_loop`` and ``codec``) are added to
+        it."""
+        if self.type == "hubert":
+            return self._test_step_tokens(batch, generator, timings)
         hp = self.hp
         length = int(hp.sample_length * self.mel_sample_rate
                      * self.model.sample_ratio)

@@ -3,7 +3,11 @@
 
 Batches ``LVTR.likelihood`` over an evaluation set into one score per
 utterance: the token log-prob per frame for the tokenised LVTR, the
-latent log-density per frame otherwise.  Mels are computed on the
+latent log-density per frame otherwise; a config whose
+``model.identifier`` ends in ``discrete.DiscreteAR`` scores the token
+LM's ``likelihood`` (the mean token log-prob, with f0 where the model
+has it) on the tokens, deduplicated where the frozen codec
+deduplicates.  Mels are computed on the
 estimator's device; the utterances are scored whole (no crop unless the
 data config asks for one), so a batch padded past 1024 frames runs the
 q-tiled attention kernel (K5) in every layer and a shorter one the
@@ -24,7 +28,7 @@ from ...core.precision import Policy, policy_scope
 from ...data.dataset import DiscreteTokenDataset, MelSpecDataset
 from ...data.loader import DataLoader
 from ...hparams.hp import Hparams
-from ...models.vocoder.vocoder import HiFiGAN
+from ...models.vocoder.vocoder import HiFiGAN, HuBERTIO
 from ..inferer import BaseInferer
 
 
@@ -36,14 +40,23 @@ class LikelihoodEstimator(BaseInferer):
         if self.hp_model.training.has("mel_rescale"):
             self.mel_rescale = self.hp_model.training.mel_rescale
         if hp.model.identifier.endswith("discrete.DiscreteAR"):
-            raise NotImplementedError(
-                "likelihood scoring of the DiscreteAR (hubert) model is not "
-                "ported yet (ROADMAP.md, Queue 1 item 6)")
-        self.vocoder = HiFiGAN.from_pretrained(
-            self.hp_model.vocoder.path, hp_rescale=self.mel_rescale,
-            device=self.device)
-        self.load_model(input_dim=self.vocoder.hp.n_mels)
-        self.input_key = "mel"
+            self.type = "hubert"
+            self.hp_model.hubert.check_arg_in_hparams("path")
+            self.codec = HuBERTIO.from_pretrained(
+                self.hp_model.hubert.path, hp_rescale=self.mel_rescale,
+                device=self.device)
+            self.deduplicate = self.codec.model.deduplicate
+            self.load_model(hp_vq=self.codec.hp_vq)
+            self.model.set_soundstream(self.codec)
+            self.input_key = ("dedup_tokens" if self.deduplicate
+                              else "tokens")
+        else:
+            self.type = "lvtr"
+            self.vocoder = HiFiGAN.from_pretrained(
+                self.hp_model.vocoder.path, hp_rescale=self.mel_rescale,
+                device=self.device)
+            self.load_model(input_dim=self.vocoder.hp.n_mels)
+            self.input_key = "mel"
         self.use_tokens = getattr(self.model, "use_tokens", False)
         if self.use_tokens:
             self.hp_hubert = Hparams(
@@ -52,7 +65,11 @@ class LikelihoodEstimator(BaseInferer):
         self.scores: list = []
 
     def test_dataloader(self) -> DataLoader:
-        if self.use_tokens:
+        if self.type == "hubert":
+            dataset = DiscreteTokenDataset(
+                self.hp.data, self.codec.hp, self.codec.model.hp.hubert,
+                self.mel_rescale, device=self.device)
+        elif self.use_tokens:
             dataset = DiscreteTokenDataset(
                 self.hp.data, self.vocoder.hp, self.hp_hubert,
                 self.mel_rescale, device=self.device)
@@ -76,6 +93,14 @@ class LikelihoodEstimator(BaseInferer):
 
     @torch.no_grad()
     def test_step(self, batch, generator: torch.Generator) -> torch.Tensor:
+        if self.type == "hubert":
+            dev = self.device
+            toks = batch[self.input_key]
+            f0 = batch.get("f0")
+            if f0 is not None:
+                f0 = Masked(f0.value.to(dev), f0.lengths.to(dev), 1)
+            return self.model.likelihood(
+                Masked(toks.value.to(dev), toks.lengths.to(dev), 1), f0=f0)
         return self.model.likelihood(self.model_input(batch), generator)
 
     def run(self, seed: int = 0, max_batches: Optional[int] = None,

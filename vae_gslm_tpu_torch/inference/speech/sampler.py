@@ -1,5 +1,6 @@
-"""Autoregressive speech continuation (port of ``ARTRSampler`` from
-``vae_gslm_tpu/inference/speech/sampler.py``).
+"""Autoregressive speech continuation (port of ``ARTRSampler`` and
+``DiscreteARSampler`` from ``vae_gslm_tpu/inference/speech/sampler.py``;
+the token LM's sampler is at the end of this module).
 
 Every route encodes the prompt, prefills a KV cache with [initial state,
 prompt] and runs one step per generated frame in a Python loop (the JAX
@@ -145,6 +146,22 @@ def segment_windows(pos0: int, length: int, n_seg: int, max_len: int):
     return out
 
 
+# The batch cap of JAX's stacked routes: ``VAE_GSLM_HYBRID_MAX_BATCH``'s
+# default.
+HYBRID_MAX_BATCH = 32
+
+
+def per_layer_kv_dtype(kv_dtype, batch: int, transformer):
+    """The per-layer caches' dtype: ``kv_dtype``, but float32 for
+    ``kv_dtype`` None where JAX would take its stacked step (B <=
+    ``HYBRID_MAX_BATCH``, a pre-LN RMSNorm trunk), whose float cache is
+    float32."""
+    if (kv_dtype is None and batch <= HYBRID_MAX_BATCH
+            and transformer.supports_stacked_decode()):
+        return torch.float32
+    return kv_dtype
+
+
 class ARTRSampler:
     """Sampler for the LVTR family (routes in the module docstring).
 
@@ -226,13 +243,9 @@ class ARTRSampler:
                                         mega_step.sm_count(self.device))
 
     def per_layer_kv_dtype(self, batch: int):
-        """The per-layer caches' dtype: ``kv_dtype``, but float32 for
-        ``kv_dtype`` None where JAX would take its stacked step (B <= 32,
-        a pre-LN RMSNorm trunk), whose float cache is float32."""
-        if (self.kv_dtype is None and batch <= 32
-                and self.model.transformer.supports_stacked_decode()):
-            return torch.float32
-        return self.kv_dtype
+        """The per-layer caches' dtype (``per_layer_kv_dtype``)."""
+        return per_layer_kv_dtype(self.kv_dtype, batch,
+                                  self.model.transformer)
 
     def prefill(self, enc: Masked, length: int, stacked: dict, generator,
                 mega: bool = False, **kw):
@@ -417,3 +430,114 @@ class _StageClock:
         now = time.perf_counter()
         self.timings[name] = now - self.t0
         self.t0 = now
+
+
+class DiscreteARSampler:
+    """Sampler for the token LM (JAX :555-698): SOS and the prompt
+    prefilled, then one ``DiscreteAR`` step per generated token.  Routes:
+
+      * **hybrid** (``kv_dtype`` int8, a trunk the stacked paths take, B
+        <= ``HYBRID_MAX_BATCH``, JAX's default cap): the stacked int8
+        prefill converted to the cold/tail cache, then ``DiscreteAR.step_hybrid`` (K1 per layer on the card)
+        with a tail -> cold flush every 256 positions;
+      * **per-layer** (otherwise): one ``LayerKVCache`` per layer of
+        ``per_layer_kv_dtype`` (float32 for ``kv_dtype`` None at B <= 32,
+        where JAX takes its stacked float step, which is not ported),
+        prefilled, then the windowed segments of ``ARTRSampler``'s
+        per-layer scan at JAX's default cap of 8 segments.
+
+    The draws come from one ``torch.Generator``: the prefill's token,
+    then each step's.  ``__call__`` returns the prompt and the
+    continuation as one ``Masked`` ((B, T) tokens; [token, f0] (B, T, 2)
+    with f0; codes (B, T, n) with RVQ)."""
+
+    def __init__(self, model, kv_dtype=None,
+                 device: Union[str, torch.device] = "cuda"):
+        self.device = resolve_device(device)
+        if not (kv_dtype is None or kv_dtype == torch.int8
+                or kv_dtype.is_floating_point):
+            raise ValueError(f"kv_dtype {kv_dtype}: None, a float dtype or "
+                             "torch.int8")
+        self.model = model
+        self.kv_dtype = kv_dtype
+
+    def route(self, batch: int) -> str:
+        """"hybrid" or "per_layer"."""
+        if (self.kv_dtype == torch.int8 and batch <= HYBRID_MAX_BATCH
+                and self.model.transformer.supports_stacked_decode()):
+            return "hybrid"
+        return "per_layer"
+
+    def _inputs(self, prior: Masked):
+        """(ids, f0 or None, [SOS, prompt] as the step's input)."""
+        model = self.model
+        if model.f0 is not None:
+            ids = prior.value[..., 0].long()
+            f0 = prior.value[..., 1:].float()
+        else:
+            ids, f0 = prior.value.long(), None
+        b = ids.shape[0]
+        inp = torch.cat([model.initial_state(b), ids], dim=1)
+        if f0 is not None:
+            f0_in = torch.cat([torch.zeros((b, 1, 1), device=f0.device), f0],
+                              dim=1)
+            inp = torch.cat([inp[..., None].float(), f0_in], dim=-1)
+        return ids, f0, inp
+
+    @torch.no_grad()
+    def __call__(self, length: int, prior_tokens: Masked,
+                 generator: Optional[torch.Generator] = None,
+                 temperature: float = 1.0) -> Masked:
+        """Continue the prompt ``prior_tokens`` by ``length`` tokens."""
+        if prior_tokens.value.device != self.device:
+            raise ValueError(f"the prompt is on {prior_tokens.value.device},"
+                             f" the sampler on {self.device}")
+        if generator is None:
+            generator = torch.Generator(self.device).manual_seed(0)
+        model = self.model
+        ids, f0, inp = self._inputs(prior_tokens)
+        b, tp = ids.shape[0], ids.shape[1]
+        pos0 = tp + 1
+        if self.route(b) == "hybrid":
+            stacked = model.transformer.build_stacked_decode()
+            pre = model.init_cache(b, pos0, dtype=torch.int8, stacked=True)
+            out, pre = model.step(inp, pre, 0, generator,
+                                  temperature=temperature, stacked=stacked)
+            cache, flushed = model.transformer.hybrid_cache_from_prefill(
+                pre, pos0, pos0 + length)
+
+            def step_fn(frame, cache, pos, flushed):
+                return model.step_hybrid(frame, stacked, cache, pos, flushed,
+                                         generator, temperature=temperature)
+
+            frames, _ = hybrid_scan_segments(model, out[:, -1:], cache,
+                                             flushed, pos0, length, step_fn)
+        else:
+            max_len = pos0 + length
+            caches = model.init_cache(b, max_len, dtype=per_layer_kv_dtype(
+                self.kv_dtype, b, model.transformer))
+            out, caches = model.step(inp, caches, 0, generator,
+                                     temperature=temperature)
+            frame, rows, pos = out[:, -1:], [], pos0
+            n_seg = n_segments(length)
+            for start, end, window in segment_windows(pos0, length, n_seg,
+                                                      max_len):
+                for _ in range(start, end):
+                    rows.append(frame[:, 0])
+                    frame, caches = model.step(frame, caches, pos, generator,
+                                               temperature=temperature,
+                                               window=window)
+                    pos += 1
+            frames = torch.stack(rows, dim=1)
+        return self._assemble(ids, f0, frames, prior_tokens.lengths, length)
+
+    @staticmethod
+    def _assemble(ids: torch.Tensor, f0: Optional[torch.Tensor],
+                  frames: torch.Tensor, lengths: torch.Tensor,
+                  length: int) -> Masked:
+        if f0 is not None:
+            prior = torch.cat([ids[..., None].float(), f0], dim=-1)
+            full = torch.cat([prior, frames.float()], dim=1)
+        else:
+            full = torch.cat([ids, frames.to(ids.dtype)], dim=1)
+        return Masked.from_lengths(full, lengths + length)

@@ -11,12 +11,15 @@ weight-norm form (``weight_g``/``weight_v`` or
 ``parametrizations.weight.original0/1``) or with weight norm removed
 (``weight``: then v = weight and g = ||weight||, as JAX loads it), into
 a weight-normed generator (``HiFiGAN.from_pretrained`` folds it after).
-``mega_weights_from_numpy`` carries the int8 K2 weights of a JAX
+``load_reference_hubert_decoder`` and ``load_reference_discrete_ar``
+take the reference's token->mel decoder and token LM state dicts (JAX's
+``export_torch_hubert_decoder`` and what ``load_torch_discrete_ar``
+reads).  ``mega_weights_from_numpy`` carries the int8 K2 weights of a JAX
 ``build_mega_decode()`` dict across as they are, and
 ``layer_cache_from_numpy`` a JAX per-layer KV cache.
 
-``to_flat`` / ``load_flat`` map an LVTR or a HiFi-GAN generator to and
-from the JAX package's compact checkpoint contract: a flat dict of
+``to_flat`` / ``load_flat`` map an LVTR, a DiscreteAR, a HuBERT decoder
+or a HiFi-GAN generator to and from the JAX package's compact checkpoint contract: a flat dict of
 numpy arrays keyed by the flax attribute paths joined by ``/``
 (``nnx.to_pure_dict``, list indices included), in the JAX layouts
 (dense kernels (in, out), conv kernels (k, in, out), transposed-conv
@@ -66,25 +69,60 @@ def _tensor(v) -> torch.Tensor:
     return torch.tensor(np.asarray(v))
 
 
-def _rename(key: str) -> str:
-    for old, new in _LVTR_PREFIXES:
-        if key.startswith(old):
-            return new + key[len(old):]
-    return key
-
-
 def load_reference_lvtr(model: nn.Module, sd: Mapping) -> None:
     """Strictly load a reference-keyed LVTR state dict into the port;
     raises naming ``load_flat`` when the dict does not cover the model
     (a JAX ``export_torch_lvtr`` dict of a ``ConditionalUNet`` model)."""
+    _load_renamed("LVTR", model, sd, _LVTR_PREFIXES,
+                  "; the JAX exporter drops a ConditionalUNet denoiser: "
+                  "carry the model through its compact checkpoint and "
+                  "load_flat instead")
+
+
+def _load_renamed(what: str, model: nn.Module, sd: Mapping, prefixes,
+                  hint: str = "") -> None:
+    """Strictly load ``sd`` into ``model`` after renaming the reference's
+    top-level ``prefixes`` (old, new) pairs; a dict that does not cover
+    the model raises a ``KeyError`` (ending with ``hint``)."""
+    out = {}
+    for k, v in sd.items():
+        for old, new in prefixes:
+            if k.startswith(old):
+                k = new + k[len(old):]
+                break
+        out[k] = _tensor(v)
     try:
-        model.load_state_dict({_rename(k): _tensor(v)
-                               for k, v in sd.items()}, strict=True)
+        model.load_state_dict(out, strict=True)
     except RuntimeError as e:
-        raise KeyError(
-            f"the state dict does not cover this LVTR ({e}); the JAX "
-            "exporter drops a ConditionalUNet denoiser: carry the model "
-            "through its compact checkpoint and load_flat instead") from None
+        raise KeyError(f"the state dict does not cover this {what} "
+                       f"({e}){hint}") from None
+
+
+def load_reference_hubert_decoder(model: nn.Module, sd: Mapping) -> None:
+    """Strictly load a reference-keyed HuBERT token->mel decoder state
+    dict (the reference checkpoint's, or JAX's
+    ``export_torch_hubert_decoder``): the speaker encoder's
+    ``spkr_encoder.0.`` is the port's ``spkr_net.``, every other key the
+    port's own."""
+    _load_renamed("HuBERT decoder", model, sd,
+                  (("spkr_encoder.0.", "spkr_net."),))
+
+
+def load_reference_discrete_ar(model: nn.Module, sd: Mapping) -> None:
+    """Strictly load a reference DiscreteAR state dict (the reference's
+    ``Sequential(embedding, stack)`` as ``transformer.0.``/
+    ``transformer.1.``; a multi-VQ embedding's per-quantizer tables
+    ``transformer.0.embeddings.{i}.weight`` stack into the port's
+    ``embedding.tables``)."""
+    sd = dict(sd)
+    n = getattr(model.embedding, "num_quantizers", None)
+    if n is not None:
+        sd["embedding.tables"] = torch.stack(
+            [_tensor(sd.pop(f"transformer.0.embeddings.{i}.weight"))
+             for i in range(n)])
+    _load_renamed("DiscreteAR", model, sd,
+                  (("transformer.0.", "embedding."),
+                   ("transformer.1.", "transformer.")))
 
 
 def _wn_convs(model: nn.Module) -> Iterator[Tuple[str, nn.Module]]:
@@ -331,9 +369,9 @@ def load_hfgan_flat(generator: nn.Module, discriminators: nn.Module,
 
 
 def to_flat(model: nn.Module) -> Dict[str, np.ndarray]:
-    """The JAX compact-checkpoint dict of an LVTR or a HiFi-GAN
-    generator, weight-normed or folded (float32 numpy arrays keyed by
-    flax paths)."""
+    """The JAX compact-checkpoint dict of an LVTR, a DiscreteAR, a HuBERT
+    decoder or a HiFi-GAN generator, weight-normed or folded (float32
+    numpy arrays keyed by flax paths)."""
     if _is_wn_model(model):
         return _wn_to_flat(model)
     sd = {k: v.detach().float().cpu().numpy()
@@ -354,7 +392,8 @@ def _strict_keys(what: str, want, got) -> None:
 
 def load_flat(model: nn.Module, flat: Mapping) -> None:
     """Strictly load a JAX compact-checkpoint dict (``to_flat``'s
-    contract) into an LVTR or a HiFi-GAN generator; the non-parameter
+    contract) into an LVTR, a DiscreteAR, a HuBERT decoder or a HiFi-GAN
+    generator; the non-parameter
     variables must equal the port's (to 1e-6)."""
     flat = {k: np.asarray(v) for k, v in flat.items()}
     if _is_wn_model(model):
@@ -364,7 +403,7 @@ def load_flat(model: nn.Module, flat: Mapping) -> None:
     sd = model.state_dict()
     names = {key: _flat_name(model, key) for key in sd}
     variables = dict(_lvtr_variables(model))
-    _strict_keys("LVTR checkpoint",
+    _strict_keys(f"{type(model).__name__} checkpoint",
                  [p for p, _ in names.values()] + list(variables), flat)
     for path, want in variables.items():
         got = flat[path]

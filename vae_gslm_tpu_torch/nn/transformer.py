@@ -36,8 +36,9 @@ Serving:
     ``SelfAttention.decode_step``, optionally returning the stacked
     attention maps.
 The cache tensors are updated in place (the JAX functions return new
-arrays).  Cross-attention and T5/Rotary positions wait for later slices
-(ROADMAP.md).
+arrays).  Every decode takes ``project=False`` to return the final
+norm's output without the stack's output layer (the token LM reads it
+for its f0 head and applies the output layer itself).
 """
 from __future__ import annotations
 
@@ -338,10 +339,13 @@ class TransformerLayerStack(nn.Module):
             xv = self.first_norm(xv)
         return xv
 
-    def _project_out(self, x: torch.Tensor) -> torch.Tensor:
+    def _project_out(self, x: torch.Tensor, project: bool = True
+                     ) -> torch.Tensor:
+        """The final norm, then the output layer unless ``project`` is
+        False (a caller that reads the normed hidden itself)."""
         if self.final_norm is not None:
             x = self.final_norm(x)
-        if self.out is not None:
+        if self.out is not None and project:
             x = self.out(x)
         return x
 
@@ -360,7 +364,8 @@ class TransformerLayerStack(nn.Module):
     @torch.no_grad()
     def decode(self, xv: torch.Tensor, caches: List[LayerKVCache], pos: int,
                window: Optional[int] = None, return_attn: bool = False,
-               flash: bool = False, memory: Optional[Masked] = None):
+               flash: bool = False, memory: Optional[Masked] = None,
+               project: bool = True):
         """Frames xv (B, S, C) at [pos, pos+S) through every layer's
         ``decode`` over its cache: a prefill (S > 1) or one AR step
         (``window`` and ``flash`` as in ``SelfAttention.decode_step``);
@@ -376,7 +381,7 @@ class TransformerLayerStack(nn.Module):
             xv = res[0]
             if return_attn:
                 attns.append(res[2])
-        xv = self._project_out(xv)
+        xv = self._project_out(xv, project)
         if return_attn:
             return xv, caches, torch.stack(attns)
         return xv, caches
@@ -399,7 +404,7 @@ class TransformerLayerStack(nn.Module):
 
     @torch.no_grad()
     def decode_stacked(self, xv: torch.Tensor, stacked: dict,
-                       cache: LayerKVCache, pos: int):
+                       cache: LayerKVCache, pos: int, project: bool = True):
         """Prefill: frames ``xv`` (B, S, C) at positions [pos, pos+S)
         through all layers, writing their int8 K/V rows into ``cache``.
         Returns the final hidden (B, S, C) and the cache."""
@@ -439,7 +444,7 @@ class TransformerLayerStack(nn.Module):
                          vd.transpose(1, 2), bias, mask)
             x = x + self._matmul(merge_heads(out), stacked["out"], li)
             x = self._ffn(x, stacked, li)
-        return self._project_out(x), cache
+        return self._project_out(x, project), cache
 
     # -- hybrid cold/tail cache ------------------------------------------
     @staticmethod
@@ -488,7 +493,7 @@ class TransformerLayerStack(nn.Module):
 
     @torch.no_grad()
     def decode_hybrid(self, xv: torch.Tensor, stacked: dict, cache: dict,
-                      pos: int, flushed: int):
+                      pos: int, flushed: int, project: bool = True):
         """One token (B, 1, C) at position ``pos`` through all layers,
         with ``fused_decode_attention`` as each layer's attention.  The
         layers' new K/V rows go into tail slot ``pos - flushed`` after
@@ -520,7 +525,7 @@ class TransformerLayerStack(nn.Module):
             q8, sc = quantize_i8(torch.stack(rows))        # (L, B, H, D)
             cache[f"{name}_tail"][:, :, :, slot] = q8
             cache[f"{name}t_scale"][..., slot] = sc
-        return self._project_out(x), cache
+        return self._project_out(x, project), cache
 
     # -- int8 weights and the mega path -----------------------------------
     def quantize_weights_int8(self) -> None:

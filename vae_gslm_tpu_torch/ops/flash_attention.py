@@ -14,8 +14,7 @@ Three forwards and three backwards, each a CUDA kernel on the card
   from K4's ``lse`` (JAX reaches ``_flash_backward`` without one only
   after a failed K4, a fallback the port does not take);
 - K5 ``flash_forward_tiled`` (``_flash_forward`` :443): the q-tiled
-  ``(B, H, T, D)`` forward for any Tq and Tk (up to 8192 keys on the
-  card), no ``lse``, and K5b ``flash_backward_blockwise``
+  ``(B, H, T, D)`` forward for any Tq and Tk, no ``lse``, and K5b ``flash_backward_blockwise``
   (``_flash_backward_blockwise`` :682): the backward for any Tq and Tk
   up to 8192, each query row's softmax exact over the whole key axis.
 
@@ -79,7 +78,8 @@ import torch
 
 NEG_INF = -1e30
 MAX_T = 1024          # K3/K4 envelope (JAX's _FWD_FULL_MAX_T)
-MAX_TK = 8192         # K5's key walk (JAX's _BWD_BLOCKWISE_MAX_TK)
+MAX_TK = 8192         # K5b's key walk (JAX's _BWD_BLOCKWISE_MAX_TK); K5
+#                       walks any Tk
 HEAD_DIM = 64
 TILE = 64             # the kernels' query and key rows per tile
 V_STAGES = 2          # the bf16 K3/K4 forward's ring of V tiles
@@ -340,8 +340,8 @@ def k5_fwd_plan() -> K5Plan:
     """The bf16 K5 forward's plan: 1024 bytes of alignment slack, the
     block's 128 query rows as two 64 x 64 bf16 tiles, ``K5_STAGES`` ring
     stages of a K and a V tile (both passes stream K, the second V too,
-    so nothing grows with Tq or Tk: one plan takes every call up to Tk
-    8192), one 8-byte mbarrier for Q and each stage's full and empty."""
+    so nothing grows with Tq or Tk: one plan takes every call, at any
+    Tk), one 8-byte mbarrier for Q and each stage's full and empty."""
     tile_bytes = TILE * HEAD_DIM * 2
     nbytes = (1024 + (K5_Q_ROWS // TILE + 2 * K5_STAGES) * tile_bytes
               + 8 * (1 + 2 * K5_STAGES))
@@ -739,17 +739,13 @@ flash_forward_full.launches = 0
 
 def flash_forward_tiled(q, k, v, lengths, slopes, causal: bool
                         ) -> torch.Tensor:
-    """K5: o (B, H, Tq, D) for any Tq and Tk (Tk <= 8192 on the card).
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    or raise."""
+    """K5: o (B, H, Tq, D) for any Tq and Tk, as JAX's forward takes
+    (its 8192-key limit is the blockwise backward's alone).  CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
     if q.device.type == "cpu":
         return flash_forward_tiled_plain(q, k, v, lengths, slopes, causal)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for {q.device}")
-    if k.shape[2] > MAX_TK:
-        raise NotImplementedError(
-            f"K5 on CUDA walks at most {MAX_TK} keys (JAX's "
-            f"_BWD_BLOCKWISE_MAX_TK); got Tk {k.shape[2]}")
     out = _bhtd_launch("tiled", q, k, v, lengths, slopes, causal)
     flash_forward_tiled.launches += 1
     return out

@@ -42,16 +42,16 @@ from ...inference.speech.sampler import ARTRSampler
 from ...models.speech.lvtr import LVTR
 from ...models.vocoder.vocoder import HiFiGAN
 from ...parallel import mesh
-from ...training.checkpoint import load_compact, save_compact
+from ...training.checkpoint import load_compact
 from ...training.optimizer import create_optimizer, global_norm
-from ...training.trainer import (BaseTrainer, bucket_pad_batch,
-                                 fuse_microbatches, init_weights)
+from ...training.trainer import (RANK_SEED_STRIDE, BaseTrainer,
+                                 bucket_pad_batch, fuse_microbatches,
+                                 init_weights)
 
 Draws = Dict[str, torch.Tensor]
 _BATCH_KEYS = ("mel", "tokens", "cropped_mel_utt", "cropped_mel")
 _SUM_KEYS = ("kld", "rec_loss", "token_kld", "length")
 _FROZEN = ("encoder_net.", "encoder_head.")
-RANK_SEED_STRIDE = 1_000_003      # rank r draws from seed + 1 + r * this
 
 
 class LVTRTrainer(BaseTrainer):
@@ -212,12 +212,9 @@ class LVTRTrainer(BaseTrainer):
         SIGTERM flags into ``_stop_agreed``."""
         keys = list(metrics)
         n = metrics["length"].float()
-        vals = torch.stack([metrics[k].float() if k in _SUM_KEYS
-                            else metrics[k].float() * n for k in keys]
-                           + [n.new_tensor(float(self._preempted))])
-        mesh.all_reduce_sum([vals])
-        self._stop_agreed = bool(vals[-1] > 0)
-        vals = vals[:-1]
+        vals = self.all_reduce_metrics(torch.stack(
+            [metrics[k].float() if k in _SUM_KEYS
+             else metrics[k].float() * n for k in keys]))
         total = vals[keys.index("length")]
         return {k: v if k in _SUM_KEYS else v / total
                 for k, v in zip(keys, vals)}
@@ -231,15 +228,9 @@ class LVTRTrainer(BaseTrainer):
         ``draws[i]`` replaces micro-batch ``i``'s random draws
         (``LVTR.forward``) and holds this rank's rows."""
         kld_weight = self._kld_weight(self.global_step)
-        for p in self.params:
-            p.grad = None
-        per_mb = []
-        for i in range(next(iter(stacked.values())).value.shape[0]):
-            mb = {k: v.micro(i) for k, v in stacked.items()}
-            loss, metrics = self._loss_fn(mb, kld_weight, self.rng,
-                                          draws[i] if draws else None)
-            loss.backward()
-            per_mb.append(metrics)
+        per_mb = self.backward_micro_batches(
+            stacked, lambda mb, i: self._loss_fn(
+                mb, kld_weight, self.rng, draws[i] if draws else None))
         n_mb = torch.stack([m["length"] for m in per_mb])
         metrics = {}
         for k in per_mb[0]:
@@ -263,19 +254,13 @@ class LVTRTrainer(BaseTrainer):
         self.opt.step(grads)
         return metrics
 
-    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Masked]:
-        return {k: Masked(v.value.to(self.device),
-                          v.lengths.to(self.device, torch.int32),
-                          v.time_axis)
-                for k, v in batch.items() if k in _BATCH_KEYS}
-
     def prepare_batch(self, stacked: Dict[str, Any]) -> Dict[str, Masked]:
         """The step's keys, fused if ``fuse_accumulation``, on the
         model's device."""
         batch = {k: v for k, v in stacked.items() if k in _BATCH_KEYS}
         if self.fuse_accumulation:
             batch = fuse_microbatches(batch)
-        return self._to_device(batch)
+        return self.to_device(batch, _BATCH_KEYS)
 
     def run_step(self, stacked: Dict[str, Any],
                  draws: Optional[List[Draws]] = None) -> Dict[str, Any]:
@@ -304,8 +289,9 @@ class LVTRTrainer(BaseTrainer):
             for i, batch in enumerate(loader):
                 if i >= limit:
                     break
-                vb = self._to_device(bucket_pad_batch(
-                    {k: v for k, v in batch.items() if k in _BATCH_KEYS}))
+                vb = self.to_device(bucket_pad_batch(
+                    {k: v for k, v in batch.items() if k in _BATCH_KEYS}),
+                    _BATCH_KEYS)
                 _, m = self._loss_fn(vb, 1.0, self.rng)
                 length_total += float(m["length"])
                 for k in ("kld", "rec_loss", "token_kld"):
@@ -386,56 +372,3 @@ class LVTRTrainer(BaseTrainer):
                 self.logger.log_audio(f"{tag}/{i}",
                                       audio.value[i, :ln].float().cpu()
                                       .numpy(), step, sr)
-
-    # --------------------------------------------------------- checkpoints
-    def save_checkpoint(self, path: str) -> None:
-        """The compact npz (JAX's contract) and ``hp.yaml`` beside it and
-        in the logger's checkpoint directory."""
-        save_compact(self.model, path)
-        if self.logger is not None:
-            self.hp.save(os.path.join(self.logger.ckpt_path, "hp.yaml"))
-        self.hp.save(os.path.join(os.path.dirname(path), "hp.yaml"))
-
-    def _train_state(self) -> Dict[str, Any]:
-        opt = self.opt
-        return {"params": dict(zip(self.names, self.params)),
-                "mu": dict(zip(self.names, opt.mu)),
-                "nu": dict(zip(self.names, opt.nu)),
-                "count": opt.count, "step": self.global_step}
-
-    def _apply_train_state(self, state: Dict[str, Any]) -> None:
-        """Load a full state strictly: the same parameter names and
-        shapes, then moments, optimizer count and step."""
-        names = list(self.names)
-        for key in ("params", "mu", "nu"):
-            got = state[key]
-            if sorted(got) != sorted(names):
-                raise ValueError(
-                    f"full state's {key} names differ from the model's: "
-                    f"missing {sorted(set(names) - set(got))[:5]}, extra "
-                    f"{sorted(set(got) - set(names))[:5]}")
-        with torch.no_grad():
-            for i, name in enumerate(names):
-                for dst, key in ((self.params[i], "params"),
-                                 (self.opt.mu[i], "mu"),
-                                 (self.opt.nu[i], "nu")):
-                    src = state[key][name]
-                    if src.shape != dst.shape:
-                        raise ValueError(f"full state's {key}[{name}] has "
-                                         f"shape {tuple(src.shape)}, the "
-                                         f"model {tuple(dst.shape)}")
-                    dst.copy_(src)
-        self.opt.count = int(state["count"])
-        self.global_step = int(state["step"])
-
-    def resume(self, path: str) -> None:
-        """From a compact npz (parameters only; the optimizer starts
-        afresh and the step is kept, as JAX's ``resume`` does) or from
-        the port's full state (exact)."""
-        if path.endswith(".npz"):
-            load_compact(self.model, path)
-            self.opt, self.lr_schedule = create_optimizer(
-                self.hp.training, self.hp.trainer.total_steps, self.params)
-        else:
-            self.restore_full_state(path)
-        mesh.replicate(self.params)

@@ -30,8 +30,9 @@ from ..models.convert import load_flat, to_flat
 
 
 def save_compact(model: nn.Module, path: str) -> None:
-    """Save an LVTR's or a HiFi-GAN generator's parameters as ``path``
-    (npz) in the JAX package's flat contract."""
+    """Save a model's parameters (an LVTR, a DiscreteAR, a HuBERT decoder
+    or a HiFi-GAN generator) as ``path`` (npz) in the JAX package's flat
+    contract."""
     np.savez(path, **to_flat(model))
 
 

@@ -17,7 +17,7 @@ import math
 import os
 import signal
 import time
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -34,6 +34,7 @@ from .logging import ExperimentLogger
 log = logging.getLogger(__name__)
 
 Batch = Dict[str, Masked]
+RANK_SEED_STRIDE = 1_000_003      # rank r draws from seed + 1 + r * this
 
 
 @torch.no_grad()
@@ -102,11 +103,15 @@ _UNPORTED_MODES = ("model_parallel", "pipeline_parallel", "fsdp",
 
 class BaseTrainer:
     """Owns the rank's view of the process group, the data, the logger
-    and the step loop.  Task trainers implement ``train_dataloader``,
-    ``run_step``, ``save_checkpoint``, ``_train_state`` and
-    ``_apply_train_state``; with more than one rank, ``run_step`` sums
-    ``_preempted`` over the ranks in its all-reduce and stores whether any
-    rank saw SIGTERM in ``_stop_agreed``."""
+    and the step loop.  Task trainers implement ``train_dataloader`` and
+    ``run_step``; ``save_checkpoint``, ``resume``, ``_train_state`` and
+    ``_apply_train_state`` unless theirs is one ``model`` (compact
+    checkpoint) with one optimizer (``opt``, ``lr_schedule``) over
+    ``params`` named ``names``; with more than one rank,
+    ``run_step`` sums ``_preempted`` over the ranks in its all-reduce and
+    stores whether any rank saw SIGTERM in ``_stop_agreed``
+    (``all_reduce_metrics``).  ``step_micro_batches`` is such a step for
+    a trainer whose metrics are the last micro-batch's."""
 
     def __init__(self, hp: Hparams):
         hp.check_arg_in_hparams("model", "data")
@@ -163,20 +168,118 @@ class BaseTrainer:
         pass
 
     def save_checkpoint(self, path: str) -> None:
-        raise NotImplementedError
+        """``self.model``'s compact npz (JAX's contract) and ``hp.yaml``
+        beside it and in the logger's checkpoint directory."""
+        from .checkpoint import save_compact
+
+        save_compact(self.model, path)
+        if self.logger is not None:
+            self.hp.save(os.path.join(self.logger.ckpt_path, "hp.yaml"))
+        self.hp.save(os.path.join(os.path.dirname(path), "hp.yaml"))
 
     def run_step(self, stacked_batch) -> Dict[str, Any]:
         raise NotImplementedError
 
+    # ---------------------------------------------------------------- step
+    def to_device(self, batch: Dict[str, Any], keys) -> Batch:
+        """The ``keys`` of a collated batch as ``Masked`` on the trainer's
+        ``device``."""
+        return {k: Masked(v.value.to(self.device),
+                          v.lengths.to(self.device, torch.int32),
+                          v.time_axis)
+                for k, v in batch.items() if k in keys}
+
+    def backward_micro_batches(self, stacked: Batch,
+                               loss_fn: Callable) -> List[Dict[str, Any]]:
+        """``loss_fn(mb, i)``'s gradients summed over the stacked
+        micro-batches into ``params``' ``.grad`` (cleared first); each
+        micro-batch's metrics."""
+        for p in self.params:
+            p.grad = None
+        metrics = []
+        for i in range(next(iter(stacked.values())).value.shape[0]):
+            loss, m = loss_fn({k: v.micro(i) for k, v in stacked.items()}, i)
+            loss.backward()
+            metrics.append(m)
+        return metrics
+
+    def all_reduce_metrics(self, vals: torch.Tensor) -> torch.Tensor:
+        """``vals`` summed over the ranks in one all-reduce that also
+        sums the ranks' SIGTERM flags into ``_stop_agreed``."""
+        both = torch.cat([vals, vals.new_tensor([float(self._preempted)])])
+        mesh.all_reduce_sum([both])
+        self._stop_agreed = bool(both[-1] > 0)
+        return both[:-1]
+
+    def step_micro_batches(self, stacked: Batch,
+                           loss_fn: Callable) -> Dict[str, Any]:
+        """One optimizer step (``opt``, ``lr_schedule``) over the stacked
+        micro-batches: ``loss_fn(mb, i)``'s gradients summed over them
+        and over the ranks (JAX's losses are sums over the global batch),
+        the metrics those of the last micro-batch (JAX's ``m[-1]``),
+        summed over the ranks."""
+        metrics = dict(self.backward_micro_batches(stacked, loss_fn)[-1])
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in self.params]
+        if self.world_size > 1:
+            mesh.all_reduce_sum(grads)
+            keys = list(metrics)
+            vals = self.all_reduce_metrics(
+                torch.stack([metrics[k].float() for k in keys]))
+            metrics.update(zip(keys, vals))
+        metrics["lr"] = self.lr_schedule(self.global_step)
+        self.opt.step(grads)
+        return metrics
+
     def resume(self, path: str) -> None:
-        raise NotImplementedError
+        """From a compact npz (``self.model``'s parameters; the optimizer
+        starts afresh and the step is kept, as JAX's ``resume`` does) or
+        from the port's full state (exact)."""
+        from .checkpoint import load_compact
+        from .optimizer import create_optimizer
+
+        if path.endswith(".npz"):
+            load_compact(self.model, path)
+            self.opt, self.lr_schedule = create_optimizer(
+                self.hp.training, self.hp.trainer.total_steps, self.params)
+        else:
+            self.restore_full_state(path)
+        mesh.replicate(self.params)
 
     # ----------------------------------------------- full-state resume
+    # the default full state is that of one optimizer (``self.opt``, an
+    # ``AdamOptimizer``) over ``self.params`` named ``self.names``
     def _train_state(self) -> Dict[str, Any]:
-        raise NotImplementedError
+        opt = self.opt
+        return {"params": dict(zip(self.names, self.params)),
+                "mu": dict(zip(self.names, opt.mu)),
+                "nu": dict(zip(self.names, opt.nu)),
+                "count": opt.count, "step": self.global_step}
 
     def _apply_train_state(self, state: Dict[str, Any]) -> None:
-        raise NotImplementedError
+        """Load a full state strictly: the same parameter names and
+        shapes, then moments, optimizer count and step."""
+        names = list(self.names)
+        for key in ("params", "mu", "nu"):
+            got = state[key]
+            if sorted(got) != sorted(names):
+                raise ValueError(
+                    f"full state's {key} names differ from the model's: "
+                    f"missing {sorted(set(names) - set(got))[:5]}, extra "
+                    f"{sorted(set(got) - set(names))[:5]}")
+        with torch.no_grad():
+            for i, name in enumerate(names):
+                for dst, key in ((self.params[i], "params"),
+                                 (self.opt.mu[i], "mu"),
+                                 (self.opt.nu[i], "nu")):
+                    src = state[key][name]
+                    if src.shape != dst.shape:
+                        raise ValueError(f"full state's {key}[{name}] has "
+                                         f"shape {tuple(src.shape)}, the "
+                                         f"model {tuple(dst.shape)}")
+                    dst.copy_(src)
+        self.opt.count = int(state["count"])
+        self.global_step = int(state["step"])
 
     def save_full_state(self, path: str) -> None:
         """The full train state (parameters, optimizer moments, step) in
