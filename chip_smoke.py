@@ -292,9 +292,31 @@ Phases (any failure ends the run with a non-zero exit, no result):
      and 8 decoded prompts, finite and of the right lengths;
   19. ``discrete_score``: ``LikelihoodEstimator`` (the token LM branch),
      float32, one batch under 1024 tokens (16 K3) and one past it (16
-     K5), plain versions refused.
-Output: one line per measurement, then the ``{"kernels": [...]}`` line,
-the nvidia-smi name/power line, and ``{"ok": true, "device": ...}``.
+     K5), plain versions refused;
+  20. ``head_widths``: every templated flash body and K6 at head widths
+     32 and 128 against its plain version at the D = 64 gates
+     (``phase_head_widths``: K3/K3b bf16 and float32 at T 640 and 1024,
+     the latter past the D = 128 resident plan; K4/K4b at T 300 causal
+     and not and at T 1024; K5/K5b at 1536, 1100, 96 x 256 and 1750 (its
+     bf16 gradients by ``hold_flips``: a ds rounding flip passes where the
+     kernel stays within the bf16 rounding bound of the float64 gradient,
+     ``grad_bounds``); K5 at Tk 9000; lengths 0, 1 and full; K6 across
+     block edges);
+  21. ``wide_heads_8`` and ``wide_heads_32``: the shipped LVTR with 8
+     heads of 128, then 32 of 32, on the port's entry points
+     (``phase_wide_heads``): three ``LVTRTrainer`` steps (32 K3 + 32 K3b
+     each), ``LikelihoodEstimator`` over a batch under 1024 frames (16 K3
+     float32) and one past it (16 K5), B 8 continuations on the hybrid
+     route with bf16 and int8 weights (K1 at the width; K2 takes 64
+     alone) and per layer with K6; each flash kernel and K1 held at its
+     call (K3b by ``hold_flips``) and timed beside its plain version,
+     SDPA and the bound; the
+     new kernel-line entries carry the width in their names.
+Output: one line per measurement, then the ``{"kernels": [...]}`` line
+(an entry time that CUDA events took, where the profiler recorded no
+device operation at all, carries ``ms_source``, ``plain_ms_source`` or
+``library_ms_source``: "cuda_events"), the nvidia-smi name/power line,
+and ``{"ok": true, "device": ...}``.
 """
 from __future__ import annotations
 
@@ -328,6 +350,32 @@ def gpu_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(text: str) -> str:
+    """ptxas's registers and spill stores of each templated kernel of
+    ``text`` (nvcc's -Xptxas -v log), by kernel and head width."""
+    import re
+
+    rows, name, spill = [], None, None
+    for line in text.splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )"
+                      r"(_Z\w+)", line)
+        if m:
+            k = re.search(r"(k\d+b?_[a-z_]+_kernel|flash_decode_kernel)"
+                          r"ILi(\d+)E", m.group(1))
+            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)[-40:]
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append(f"{name} {m.group(1)} regs"
+                        + (f" {spill} B spilled" if spill else ""))
+            name, spill = None, None
+    return ", ".join(sorted(set(rows)))
 
 
 def cuda_ms(fn, n: int, reps: int = 5) -> float:
@@ -389,7 +437,8 @@ def device_ms(fn, n: int, only=(), per_call: int = 0, tries: int = 4
     the run fails.  Without it (plain versions and K2: many launches of
     few names, of which windows have lost a few in thousands or, once,
     5 %), the fuller of two windows' total over ``n``; library calls go
-    through ``library_ms``."""
+    through ``library_ms``.  Where no window recorded a named kernel,
+    ``no_launch_ms`` decides."""
     import torch
 
     fn(0)
@@ -398,7 +447,7 @@ def device_ms(fn, n: int, only=(), per_call: int = 0, tries: int = 4
         evs = max((_profiled(fn, n, only) for _ in range(2)),
                   key=lambda w: sum(c for _, _, c in w))
         if not evs:
-            raise AssertionError("the profiler recorded no device operation")
+            return no_launch_ms(fn, n, only)
         return sum(us for _, us, _ in evs) / 1e3 / n
     seen = []
     for _ in range(tries):
@@ -411,8 +460,52 @@ def device_ms(fn, n: int, only=(), per_call: int = 0, tries: int = 4
                     f"kernel name of {n} calls; the time is the mean of "
                     "the recorded launches)")
             return sum(us / c for _, us, c in evs) / 1e3
+    if not any(seen):
+        return no_launch_ms(fn, n, only)
     raise AssertionError(f"the profiler windows recorded {seen} launches per "
                          f"kernel name, {per_call} names expected")
+
+
+class EventsMs(float):
+    """A time per call taken by CUDA events (host gaps between launches
+    included) where torch.profiler's windows recorded no device operation
+    at all; the kernels line marks it (``mark_event_times``)."""
+
+
+def no_launch_ms(fn, n: int, only=()) -> float:
+    """The time per call of ``fn`` where the profiler's windows recorded
+    none of the kernels named in ``only`` (or nothing, without it).  If
+    one unfiltered window records other device operations, the named
+    kernels did not run and the run fails; if it too records nothing
+    (seen on the H100 late in a run: ``k5_long`` once, and the streamed
+    K3's SDPA call once), the time comes from CUDA events (``cuda_ms``),
+    as an ``EventsMs`` and with a log line that says so."""
+    others = _profiled(fn, n) if only else []
+    if others:
+        raise AssertionError(
+            f"the profiler recorded no kernel named {list(only)}, but "
+            f"{sorted({_kernel_name(k) for k, _, _ in others})} ran")
+    ms = EventsMs(cuda_ms(fn, n))
+    log(f"  (the profiler's windows recorded no device operation: "
+        f"{ms:.4f} ms per call from CUDA events)")
+    return ms
+
+
+def mean_ms(times) -> float:
+    """The mean of several times, an ``EventsMs`` if any of them is."""
+    ms = statistics.mean(times)
+    return EventsMs(ms) if any(isinstance(t, EventsMs) for t in times) \
+        else ms
+
+
+def mark_event_times(entries: list) -> list:
+    """Each kernels-line entry with, for every time of it that CUDA events
+    took (``EventsMs``), ``<key>_source``: "cuda_events"."""
+    for entry in entries:
+        for key in ("ms", "plain_ms", "library_ms"):
+            if isinstance(entry.get(key), EventsMs):
+                entry[key + "_source"] = "cuda_events"
+    return entries
 
 
 def library_ms(fn, n: int, windows: int = 3) -> float:
@@ -423,7 +516,8 @@ def library_ms(fn, n: int, windows: int = 3) -> float:
     window that loses launches leaves this as it is, where its total over
     ``n`` reads low (on an H100 80GB HBM3 at 700 W, SDPA at K5's bf16 call
     read 0.27 and 0.34 ms that way, against 0.57 with every launch
-    recorded)."""
+    recorded).  Where no window recorded any device operation,
+    ``no_launch_ms`` decides."""
     import torch
 
     fn(0)
@@ -434,7 +528,7 @@ def library_ms(fn, n: int, windows: int = 3) -> float:
             means.setdefault(name, []).append(us / count)
             per_call[name] = max(per_call.get(name, 0), -(-count // n))
     if not means:
-        raise AssertionError("the profiler recorded no device operation")
+        return no_launch_ms(fn, n)
     return sum(statistics.median(means[k]) * per_call[k]
                for k in means) / 1e3
 
@@ -598,7 +692,7 @@ def phase_k1(dev):
             "source": "vae_gslm_tpu_torch/csrc/fused_decode.cu",
             "replaces": "vae_gslm_tpu/ops/fused_decode.py:229",
             "launches": None, "max_abs_err": worst,
-            "ms": statistics.mean(ks), "plain_ms": statistics.mean(ps),
+            "ms": mean_ms(ks), "plain_ms": mean_ms(ps),
             "bound_ms": statistics.mean(bs), "bound_by": "bytes",
             "library_ms": None}
 
@@ -952,7 +1046,7 @@ def k3_inputs(dtype, dev, seed: int = 0, b: int = K3_B, t: int = K3_T,
 
 
 def k3_bytes_ops(itemsize: int, b: int = K3_B, t: int = K3_T,
-                 lengths=K3_LENGTHS):
+                 lengths=K3_LENGTHS, h: int = H, d: int = D):
     """Bytes and FLOPs of one K3 call and of K3b's two kernels (the
     timed part: ``delta`` comes in computed) on the inputs of
     ``k3_inputs``.  Bytes: each input read once, each output written
@@ -961,17 +1055,17 @@ def k3_bytes_ops(itemsize: int, b: int = K3_B, t: int = K3_T,
     reads q, k, v, dO, lse, delta and writes dq, dk, dv.  FLOPs: the
     (query, key) pairs this run's causal and length masks leave, 2 D per
     pair and product: 2 products forward (QK, PV), 5 backward (QK, dO V,
-    dS K, dS^T Q, P^T dO)."""
-    row = H * D * itemsize
+    dS K, dS^T Q, P^T dO), at ``h`` heads of ``d``."""
+    row = h * d * itemsize
     n = b * t * row                          # one full (B, T, H D) tensor
     n_kv = sum(ln if ln >= 1 else t for ln in lengths) * row
-    stats = b * H * t * 4                    # lse or delta, float32
-    small = b * 4 + H * 4
+    stats = b * h * t * 4                    # lse or delta, float32
+    small = b * 4 + h * 4
     rows = sum(sum(min(r + 1, ln) if ln >= 1 else t
                    for r in range(t)) for ln in lengths)
-    pairs = H * rows
-    return ((2 * n + 2 * n_kv + stats + small, 2 * 2 * pairs * D),
-            (5 * n + 2 * n_kv + 2 * stats + small, 5 * 2 * pairs * D))
+    pairs = h * rows
+    return ((2 * n + 2 * n_kv + stats + small, 2 * 2 * pairs * d),
+            (5 * n + 2 * n_kv + 2 * stats + small, 5 * 2 * pairs * d))
 
 
 def sdpa_mask(lengths, slopes, dtype, dev, tq: int = K3_T, tk: int = K3_T,
@@ -1041,6 +1135,111 @@ def hold(where: str, name: str, got, want, tol: float, floor: float,
                 f"{name} disagrees with its plain version: {excess:.3e} x "
                 f"rms(ref) past 2 bf16 ulps (limit {tol}), relative L2 "
                 f"{rel:.3e} (limit 1e-3) ({where})")
+    return err, text
+
+
+def grad_bounds(q, k, v, o, g, lse, lengths, slopes, causal: bool,
+                nheads=None):
+    """The float64 gradients (dq, dk, dv) of a bf16 flash backward's
+    inputs, and for each element a bound on its distance from them that
+    holds for any implementation that rounds p and ds to bfloat16 (to
+    nearest) and sums in float32, as K3b/K4b/K5b and their plain versions
+    do: the rounding of every ds (p for dv) that sums into the element,
+    the float32 errors of the logits, of p (ex2.approx, the row
+    statistics), of dP = dO V^T and of delta = rowsum(dO O), and the
+    output's rounding, with unit roundoffs 2^-8 (bf16) and 2^-22 (four
+    times float32's, for the tensor cores' accumulation).  ``lse`` as K3b
+    and K4b take it, None for K5b (its own row statistics); packed (B, T,
+    H D) operands with ``nheads``, else (B, H, T, D).  One ds that the
+    kernel and the plain version round the two ways moves an element by
+    up to a bf16 ulp of its largest term, past ``hold``'s element-wise
+    limit where those terms cancel; the bound is what such an element is
+    held to."""
+    import math
+
+    import torch
+
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+
+    def heads(x):
+        return (fa._heads(x, nheads) if nheads else x).double()
+
+    def gamma(n):
+        return n * e32 / (1 - n * e32)
+
+    u, e32 = 2.0 ** -8, 2.0 ** -22
+    qh, kh, vh, gh, oh = (heads(x) for x in (q, k, v, g, o))
+    s, _ = fa._logits(qh, kh, lengths, slopes, causal)
+    live = s > fa.NEG_INF / 2
+    if lse is None:     # a row with no key: p = 1 / Tk, as the softmax
+        p = torch.softmax(s, -1)
+        norm = torch.logsumexp(s, -1, keepdim=True)
+    else:       # a row with no key: p as float32 gives it, s - lse = 0
+        norm = lse.double()[..., None]
+        p = torch.where(live, torch.exp(s - norm),
+                        torch.exp(s.float() - lse.float()[..., None]).double())
+    d, tq, tk = qh.shape[-1], s.shape[-2], s.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    aq, ak, av, ag, ao = (x.abs() for x in (qh, kh, vh, gh, oh))
+    t = lambda x: x.transpose(-1, -2)  # noqa: E731
+    # relative error of p: the logit (a D-term dot product, the scale,
+    # the slope term), the exponent and ex2.approx, the row statistics
+    eps_p = torch.where(
+        live, gamma(d + 3) * (2 * scale * (aq @ t(ak)) + s.abs())
+        + 4 * e32 * ((s - norm).abs() + norm.abs()) + 2.0 ** -20
+        + gamma(tk), 0.0)
+    dp, delta = gh @ t(vh), (gh * oh).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    e_ds = p * (gamma(d + 4) * (ag @ t(av) + (ag * ao).sum(-1, keepdim=True))
+                + (eps_p + gamma(4)) * (dp - delta).abs())
+    e_ds = e_ds + u * (ds.abs() + e_ds)             # ds rounded to bf16
+    e_p = p * eps_p
+    e_p = e_p + u * (p + e_p)                       # p rounded to bf16
+    exact = (scale * (ds @ kh), scale * (t(ds) @ qh), t(p) @ gh)
+    bounds = (scale * (e_ds @ ak + gamma(tk + 1) * ((ds.abs() + e_ds) @ ak)),
+              scale * (t(e_ds) @ aq
+                       + gamma(tq + 1) * (t(ds.abs() + e_ds) @ aq)),
+              t(e_p) @ ag + gamma(tq + 1) * (t(p + e_p) @ ag))
+    out = []
+    for x, bound in zip(exact, bounds):
+        bound = bound + u * (x.abs() + bound)       # the output's rounding
+        out.append((fa._packed(x), fa._packed(bound)) if nheads
+                   else (x, bound))
+    return tuple(x for x, _ in out), tuple(bd for _, bd in out)
+
+
+def hold_flips(where: str, name: str, got, want, exact, bound, tol: float):
+    """``hold``'s bf16 gate for a gradient (max |diff| <= tol x max|ref|,
+    relative L2 <= 1e-3, and element by element |diff| <= 2 bf16 ulps of
+    |ref| + tol x rms(ref)), except that an element past that limit
+    passes where the kernel there is within ``bound`` of the float64
+    gradient ``exact`` (``grad_bounds``): a ds that the kernel and the
+    plain version round the two ways (on the trunk's own activations,
+    K3b at 8 x 128 heads; K5b at 1750 frames with ALiBi at D = 128).
+    Returns the max |diff| and its log text."""
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    err = diff.max().item()
+    ref = want.abs().max().item()
+    rms = want.pow(2).mean().sqrt().item()
+    past = diff > 2 * ulp_bf16(want) + tol * rms
+    far = (got - exact).abs() > bound
+    norm = want.norm().item()
+    rel = diff.norm().item() / norm if norm else (0.0 if not err else 1.0)
+    excess = (diff - 2 * ulp_bf16(want)).clamp_min(0).max().item() / (
+        rms or 1.0)
+    plain_far = int(((want - exact).abs() > bound).sum())
+    text = (f"{name} {err:.3e} ({excess:.1e} rms past 2 ulp, L2 {rel:.1e}; "
+            f"{int(past.sum())} past the element-wise limit, "
+            f"{int((past & far).sum())} of them past the rounding bound; "
+            f"plain version past it at {plain_far})")
+    if not (err <= tol * ref and rel <= 1e-3 and not (past & far).any()):
+        raise AssertionError(
+            f"{name} disagrees with its plain version: max abs {err:.3e} "
+            f"(limit {tol} x {ref:.3e}), relative L2 {rel:.3e} (limit "
+            f"1e-3), {int((past & far).sum())} elements past {tol} x "
+            f"rms(ref) + 2 bf16 ulps and past the rounding bound of the "
+            f"float64 gradient ({where})")
     return err, text
 
 
@@ -1258,13 +1457,13 @@ def bhtd_inputs(dtype, dev, b: int, tq: int, tk: int, h: int, seed: int):
 
 
 def bhtd_bytes_ops(b: int, tq: int, tk: int, h: int, lengths, causal: bool,
-                   itemsize: int):
+                   itemsize: int, d: int = D):
     """Bytes and FLOPs of one K4/K5 forward on these inputs: q read and o
     written once, key and value rows only below each length (a row of
     length 0 reads all Tk), no lse; the (query, key) pairs the causal and
     length masks leave (all Tk for a row of length 0), 2 products of 2 D
-    FLOPs each."""
-    row = h * D * itemsize
+    FLOPs each (``h`` heads of ``d``)."""
+    row = h * d * itemsize
     kv_rows = sum(ln if ln >= 1 else tk for ln in lengths)
     nbytes = 2 * b * tq * row + 2 * kv_rows * row + b * 4 + h * 4
 
@@ -1274,7 +1473,7 @@ def bhtd_bytes_ops(b: int, tq: int, tk: int, h: int, lengths, causal: bool,
         return min(r + 1, ln) if causal else min(ln, tk)
 
     pairs = h * sum(sum(keys(r, ln) for r in range(tq)) for ln in lengths)
-    return nbytes, 2 * 2 * D * pairs
+    return nbytes, 2 * 2 * d * pairs
 
 
 def phase_k45(dev):
@@ -1915,13 +2114,15 @@ def phase_train(dev, gpu: str, seed: int = 0):
 
 
 # --------------------------------------------------------- main paths
-def build_pipeline(dev, quantize: bool, kv_dtype="int8"):
+def build_pipeline(dev, quantize: bool, kv_dtype="int8", nheads: int = 0):
     """The full-width LVTR of ``configs/train/speech/vae-gslm.yaml``
     (weights from seed 0, the utterance encoder left out), its sampler
     with an int8 KV cache (``kv_dtype`` None: a cache in the compute
     dtype, bf16), and the HiFi-GAN.  With ``quantize`` the trunk is
     quantized to int8 from the float32 weights; the remaining float
-    parameters are then cast to bf16."""
+    parameters are then cast to bf16.  ``nheads`` replaces the config's
+    16 heads (K2 takes head_dim 64 alone, so an int8-weight trunk of
+    another width serves on the hybrid route)."""
     import torch
 
     from vae_gslm_tpu_torch.core import precision
@@ -1931,9 +2132,10 @@ def build_pipeline(dev, quantize: bool, kv_dtype="int8"):
     from vae_gslm_tpu_torch.models.vocoder.hfgan import Generator
 
     precision.set_policy(precision.bf16_mixed())
-    hp = Hparams.from_yamlfile(os.path.join(
-        ROOT, "configs", "train", "speech", "vae-gslm.yaml"))
+    hp = Hparams.from_yamlfile(TRAIN_YAML)
     del hp.model.__dict__["utterance_encoder"]
+    if nheads:
+        hp.model.transformer.layer.self_attn.nheads = nheads
     voc_hp = Hparams.from_yamlfile(os.path.join(
         ROOT, "configs", "train", "vocoder",
         "hfgan_16k_50hz_librispeech.yaml"))
@@ -1944,8 +2146,10 @@ def build_pipeline(dev, quantize: bool, kv_dtype="int8"):
                                     ddim_sampling_eta=0.5)
     sampler = ARTRSampler(model, kv_dtype=kv_dtype and torch.int8,
                           quantize_weights=quantize, device=dev)
-    if sampler.use_mega != (quantize and kv_dtype == "int8"):
-        raise AssertionError("the int8-weight trunk missed the mega path")
+    mega = quantize and kv_dtype == "int8" and nheads in (0, H)
+    if sampler.use_mega != mega:
+        raise AssertionError(f"the trunk's mega route is {sampler.use_mega}"
+                             f", expected {mega}")
     with torch.no_grad():
         for p in model.parameters():
             if p.is_floating_point():
@@ -1978,12 +2182,15 @@ def make_prior(batch: int, dev):
         [PROMPT] * batch)
 
 
-def run_once(sampler, vocoder, prior, dev, seed: int, kw: dict):
-    """One continuation and its vocoding with the decode kernels' counts
-    set to 0 just before and read just after.  Returns (stage seconds,
-    (K1, K2, K6) launches, the sampler's outputs)."""
+def run_once(sampler, vocoder, prior, dev, seed: int, kw: dict,
+             length: int = 0):
+    """One continuation of ``length`` frames (``LENGTH`` unless given)
+    and its vocoding with the decode kernels' counts set to 0 just before
+    and read just after.  Returns (stage seconds, (K1, K2, K6) launches,
+    the sampler's outputs)."""
     import torch
 
+    length = length or LENGTH
     from vae_gslm_tpu_torch.ops.flash_decode import flash_decode_int8
     from vae_gslm_tpu_torch.ops.fused_decode import fused_decode_attention
     from vae_gslm_tpu_torch.ops.mega_step import fused_trunk_step
@@ -1994,7 +2201,7 @@ def run_once(sampler, vocoder, prior, dev, seed: int, kw: dict):
     fused_trunk_step.launches_bf16 = 0
     flash_decode_int8.launches = 0
     timings = {}
-    out = sampler(LENGTH, prior, torch.Generator(dev).manual_seed(seed),
+    out = sampler(length, prior, torch.Generator(dev).manual_seed(seed),
                   timings=timings, **kw)
     t0 = time.perf_counter()
     wave = vocoder(out["output"])
@@ -2007,7 +2214,7 @@ def run_once(sampler, vocoder, prior, dev, seed: int, kw: dict):
     if fused_trunk_step.launches != counts[1]:   # B <= 8: a8 alone
         raise AssertionError(f"K2 at B={batch} ran {counts[1]} steps, "
                              f"{fused_trunk_step.launches} of them s8 x s8")
-    check_outputs(out, wave, batch)
+    check_outputs(out, wave, batch, length)
     return timings, counts, out
 
 
@@ -2113,16 +2320,18 @@ def phase_per_layer(dev, gpu: str) -> int:
     return counts[2]
 
 
-def check_outputs(out, wave, batch: int) -> None:
-    """Shapes, finiteness and token ids of one continuation."""
+def check_outputs(out, wave, batch: int, length: int = 0) -> None:
+    """Shapes, finiteness and token ids of one continuation of
+    ``length`` frames (``LENGTH`` unless given)."""
     import torch
 
+    length = length or LENGTH
     frames = out["frames"].value
     mel_out = out["output"].value
     w = wave.value
-    if tuple(w.shape) != (batch, (PROMPT + LENGTH) * 320):
+    if tuple(w.shape) != (batch, (PROMPT + length) * 320):
         raise AssertionError(f"wave shape {tuple(w.shape)}")
-    if tuple(mel_out.shape) != (batch, PROMPT + LENGTH, 80):
+    if tuple(mel_out.shape) != (batch, PROMPT + length, 80):
         raise AssertionError(f"mel shape {tuple(mel_out.shape)}")
     toks_out = frames[:, PROMPT:, 0]
     if not (bool(torch.isfinite(w).all()) and bool(torch.isfinite(
@@ -2299,10 +2508,19 @@ def write_scoring_corpus(root: str, seed: int = 0) -> float:
     mel frames equal its tokens.  Returns the seconds of audio."""
     import numpy as np
 
+    rng = np.random.RandomState(seed)
+    return write_wav_corpus(root, scoring_frames(rng), rng)
+
+
+def write_wav_corpus(root: str, frames, rng) -> float:
+    """WAVs (16 kHz, 16-bit) of ``frames`` 50 Hz frames each (a sum of
+    harmonics with a slow envelope and noise, from ``rng``) and a
+    ``tokens.txt`` of random token ids at 50 Hz.  Returns the seconds of
+    audio."""
+    import numpy as np
+
     from vae_gslm_tpu_torch.data import audio
 
-    rng = np.random.RandomState(seed)
-    frames = scoring_frames(rng)
     lines = []
     for i, nf in enumerate(frames):
         n = int(nf) * 320
@@ -2318,7 +2536,7 @@ def write_scoring_corpus(root: str, seed: int = 0) -> float:
         lines.append(f"{name}|{' '.join(map(str, rng.randint(0, 200, nf)))}")
     with open(os.path.join(root, "tokens.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
-    return float(frames.sum()) / 50.0
+    return float(np.sum(frames)) / 50.0
 
 
 SCORE_INFER_YAML = """
@@ -2341,13 +2559,14 @@ trainer: {{distributed: false}}
 """
 
 
-def write_flagship(root: str, dev, seed: int = 0):
+def write_flagship(root: str, dev, seed: int = 0, nheads: int = 0):
     """The checkpoint directory of the full-width LVTR of
     ``configs/train/speech/vae-gslm.yaml`` with its utterance encoder
     (weights from ``seed``, float32, saved by the port's ``save_compact``
     with the train config as ``hp.yaml``) and a HiFi-GAN directory of
     the 80-bin vocoder config (weights from seed 1, ``save_pretrained``),
-    written once under ``root`` for the scoring and the CLI phases.
+    written once under ``root`` for the scoring and the CLI phases
+    (``nheads``: the trunk's heads instead of the config's 16).
     Returns (checkpoint directory, vocoder directory)."""
     import torch
 
@@ -2364,6 +2583,8 @@ def write_flagship(root: str, dev, seed: int = 0):
             ).save_pretrained(voc)
     hp = Hparams.from_yamlfile(TRAIN_YAML)
     hp.vocoder.path = voc
+    if nheads:
+        hp.model.transformer.layer.self_attn.nheads = nheads
     model = LVTR(hp.model, input_dim=80, device=dev,
                  generator=torch.Generator(dev).manual_seed(seed))
     nparams = sum(p.numel() for p in model.parameters())
@@ -3111,7 +3332,7 @@ def phase_k6(dev):
             "source": "vae_gslm_tpu_torch/csrc/flash_decode.cu",
             "replaces": "vae_gslm_tpu/ops/flash_decode.py:131",
             "launches": None, "max_abs_err": worst,
-            "ms": statistics.mean(ks_), "plain_ms": statistics.mean(ps),
+            "ms": mean_ms(ks_), "plain_ms": mean_ms(ps),
             "bound_ms": statistics.mean(bs), "bound_by": "bytes",
             "library_ms": None}
 
@@ -4455,7 +4676,6 @@ def phase_lvtr_options(dev, gpu: str) -> dict:
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from vae_gslm_tpu_torch.core import precision
     from vae_gslm_tpu_torch.core.masked import Masked
@@ -4465,7 +4685,6 @@ def phase_lvtr_options(dev, gpu: str) -> dict:
     from vae_gslm_tpu_torch.models.vocoder.hfgan import Generator
     from vae_gslm_tpu_torch.nn import attention as attn_mod
     from vae_gslm_tpu_torch.ops import flash_attention as fa
-    from vae_gslm_tpu_torch.ops.flash_decode import flash_decode_int8_plain
     from vae_gslm_tpu_torch.trainers.speech.lvtr import LVTRTrainer
 
     cfg = options_config()
@@ -4514,67 +4733,11 @@ def phase_lvtr_options(dev, gpu: str) -> dict:
         f"({tokens / step_s:.0f} tokens/s), peak memory "
         f"{peak / 2 ** 30:.2f} GiB; K3 {want}, K3b {want} launches; "
         + ", ".join(f"{k} {v:.4f}" for k, v in terms.items()) + f" ({gpu})")
-    q, k, v, lengths, slopes, causal, nh = cf.args
-    bq, bk, bv, bo, bg, blse = cb.args[:6]
-    if slopes is not None or cb.args[7] is not None:
+    if cf.args[4] is not None or cb.args[7] is not None:
         raise AssertionError("the Rotary trunk handed K3/K3b slopes")
-    o, lse = fa.flash_forward_packed(q, k, v, lengths, None, causal, nh)
-    o_ref, lse_ref = fa.flash_forward_packed_plain(q, k, v, lengths, None,
-                                                   causal, nh)
-    grads = fa.flash_backward_packed(bq, bk, bv, bo, bg, blse, lengths,
-                                     None, causal, nh)
-    refs = fa.flash_backward_packed_plain(bq, bk, bv, bo, bg, blse, lengths,
-                                          None, causal, nh)
-    torch.cuda.synchronize()
-    where = "K3/K3b at the options step's call, bf16, slopes None"
-    errs, worst_f, worst_b = [], 0.0, 0.0
-    for name, got, ref, tol, floor in (
-            ("o", o, o_ref, 1e-2, 0.0), ("lse", lse, lse_ref, 1e-5, 1.0),
-            *((n, g_, r_, 2e-2, 0.0) for n, g_, r_ in zip(
-                ("dq", "dk", "dv"), grads, refs))):
-        err, text = hold(where, name, got, ref, tol, floor, True)
-        errs.append(text)
-        if name in ("o", "lse"):
-            worst_f = max(worst_f, err)
-        else:
-            worst_b = max(worst_b, err)
-    log(f"K3/K3b check at the options step's call (B={q.shape[0]} "
-        f"T={q.shape[1]} H={nh} bf16, Rotary q/k, slopes None): "
-        f"max_abs_err " + ", ".join(errs))
-    del o, lse, o_ref, lse_ref, grads, refs
-    lens = lengths.tolist()
-    kf = device_ms(lambda i: fa.flash_forward_packed(
-        q, k, v, lengths, None, True, nh), n=20, only=K3_KERNELS[:1],
-        per_call=1)
-    kb = device_ms(lambda i: fa.flash_backward_packed(
-        bq, bk, bv, bo, bg, blse, lengths, None, True, nh), n=20,
-        only=K3_KERNELS[1:], per_call=2)
-    pf = device_ms(lambda i: fa.flash_forward_packed_plain(
-        q, k, v, lengths, None, True, nh), n=3)
-    pb = device_ms(lambda i: fa.flash_backward_packed_plain(
-        bq, bk, bv, bo, bg, blse, lengths, None, True, nh), n=3)
-    zeros = torch.zeros(nh, device=dev)
-    mask = sdpa_mask(lengths, zeros, torch.bfloat16, dev)
-    b_, t_ = q.shape[:2]
-    q4, k4, v4 = (x.reshape(b_, t_, nh, D).transpose(1, 2) for x in
-                  (q, k, v))
-    lf = library_ms(lambda i: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask), n=20)
-    lb = sdpa_bwd_ms(q4, k4, v4, bg.reshape(b_, t_, nh, D).transpose(1, 2),
-                     mask)
-    (fbytes, fops), (bbytes, bops) = k3_bytes_ops(2, b_, t_, lens)
-    bound_f = max(fbytes / HBM_BYTES_PER_S, fops / BF16_FLOPS) * 1e3
-    bound_b = max(bbytes / HBM_BYTES_PER_S, bops / BF16_FLOPS) * 1e3
-    log(f"K3 time at the options step's call (bf16, slopes None): kernel "
-        f"{kf:.4f} ms, plain {pf:.4f} ms, SDPA (float mask) forward "
-        f"{lf:.4f} ms, bound {bound_f:.4f} ms ({gpu})")
-    log(f"K3b time at the options step's call (bf16, slopes None): "
-        f"kernels {kb:.4f} ms, plain {pb:.4f} ms, SDPA backward alone "
-        f"{lb:.4f} ms, bound {bound_b:.4f} ms ({gpu})")
-    timings = {"K3": (kf, pf, lf, bound_f, worst_f),
-               "K3b": (kb, pb, lb, bound_b, worst_b)}
-    del trainer, metrics, cf, cb, q, k, v, bq, bk, bv, bo, bg, blse, mask
-    del q4, k4, v4
+    timings = call_k3_times(dev, gpu, "options at the step's call (Rotary "
+                            "q/k, slopes None)", cf.args, cb.args, D)
+    del trainer, metrics, cf, cb
     gc.collect()
 
     # (b) the continuation
@@ -4633,33 +4796,11 @@ def phase_lvtr_options(dev, gpu: str) -> dict:
         f"prompts and seed: tokens equal at "
         f"{float((ref_f[..., 0] == k6_f[..., 0]).float().mean()):.1%} of "
         f"the steps (reported, not gated)")
-    q6, k8, v8, ks, vs, pos, sl = k6_args
-    if bool(sl.any()):
+    if bool(k6_args[6].any()):
         raise AssertionError("the Rotary trunk handed K6 non-zero slopes")
-    got = attn_mod.flash_decode_int8(q6, k8, v8, ks, vs, pos, sl)
-    want = flash_decode_int8_plain(q6, k8, v8, ks, vs, pos, sl)
-    torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    tol = 1e-5 * want.float().abs().max().item()
-    log(f"K6 check at the options rollout's call (B={q6.shape[0]}, pos "
-        f"{pos}, cache T={k8.shape[2]}, zero slopes): max_abs_err {err:.3e} "
-        f"(tolerance {tol:.3e})")
-    if not err <= tol:
-        raise AssertionError("K6 disagrees with its plain version at the "
-                             "options rollout's call")
-    k6_ms = device_ms(lambda i: attn_mod.flash_decode_int8(
-        q6, k8, v8, ks, vs, pos, sl), n=100, only=("flash_decode_kernel",),
-        per_call=1)
-    k6_plain = device_ms(lambda i: flash_decode_int8_plain(
-        q6, k8, v8, ks, vs, pos, sl), n=5)
-    k6_bytes_ = (q6.shape[0] * H * ((pos + 1) * (2 * D + 8)
-                                    + D * (q6.element_size() + 4)) + H * 4)
-    k6_bound = k6_bytes_ / HBM_BYTES_PER_S * 1e3
-    log(f"K6 time at the options rollout's call: kernel {k6_ms * 1e3:.2f} "
-        f"us, plain {k6_plain * 1e3:.1f} us, bound {k6_bound * 1e3:.2f} us "
-        f"({k6_bytes_ / 1e6:.2f} MB; no library call) ({gpu})")
-    timings["K6"] = (k6_ms, k6_plain, None, k6_bound, err)
-    del model, sampler, vocoder, k6_args, q6, k8, v8, ks, vs, out
+    timings.update(call_k6_times(gpu, "options at the rollout's call (zero "
+                                 "slopes)", k6_args, D))
+    del model, sampler, vocoder, k6_args, out
     gc.collect()
 
     # (c) one scoring batch past 1024 frames, float32
@@ -4694,45 +4835,788 @@ def phase_lvtr_options(dev, gpu: str) -> dict:
         f"off): {score_s * 1e3:.1f} ms ({audio / score_s:.0f} s of audio "
         f"per second), peak memory {peak / 2 ** 30:.2f} GiB; K5 launches "
         f"{L}; scores {[round(float(s), 4) for s in scores]} ({gpu})")
-    q5, k5, v5, l5, s5, causal5 = c5.args
-    if s5 is not None:
+    if c5.args[4] is not None:
         raise AssertionError("the Rotary trunk handed K5 slopes")
-    got = fa.flash_forward_tiled(q5, k5, v5, l5, None, causal5)
-    want = fa.flash_forward_tiled_plain(q5, k5, v5, l5, None, causal5)
-    torch.cuda.synchronize()
-    k5_err, text = hold("K5 at the options scores' call, float32", "o", got,
-                        want, 1e-5, 1.0, False)
-    log(f"K5 check at the options scores' call (B={q5.shape[0]} "
-        f"Tq=Tk={q5.shape[2]} H={q5.shape[1]} float32, slopes None): "
-        f"max_abs_err {text}")
-    k5_ms = device_ms(lambda i: fa.flash_forward_tiled(
-        q5, k5, v5, l5, None, True), n=5, only=("k5_fwd",), per_call=1)
-    k5_plain = device_ms(lambda i: fa.flash_forward_tiled_plain(
-        q5, k5, v5, l5, None, True), n=2)
-    mask = sdpa_mask(l5, torch.zeros(H, device=dev), torch.float32, dev,
-                     OPT_SCORE_T, OPT_SCORE_T)
-    k5_lib = library_ms(lambda i: F.scaled_dot_product_attention(
-        q5, k5, v5, attn_mask=mask), n=3)
-    nb, no = bhtd_bytes_ops(OPT_SCORE_B, OPT_SCORE_T, OPT_SCORE_T, H,
-                            OPT_SCORE_LENGTHS, True, 4)
-    k5_bound = max(nb / HBM_BYTES_PER_S, no / F32_FLOPS) * 1e3
-    log(f"K5 time at the options scores' call (float32, slopes None): "
-        f"kernel {k5_ms:.4f} ms, plain {k5_plain:.4f} ms, SDPA (float32, "
-        f"float mask) {k5_lib:.4f} ms, bound {k5_bound:.4f} ms ({gpu})")
-    timings["K5"] = (k5_ms, k5_plain, k5_lib, k5_bound, k5_err)
-    del model, q5, k5, v5, mask, got, want
+    timings.update(call_k5_times(dev, gpu, "options at the scores' call "
+                                 "(slopes None)", c5.args, D))
+    del model, c5
     gc.collect()
 
     # the same configuration at 2 trunk layers and narrow convs, card
     # against CPU
     small = options_config(layers=2, conv=(64, 256))["model"]
     options_agree(dev, small, "options (2 layers, convs 64/256)")
-    for name, (ms, plain, lib, bound, err) in timings.items():
+    for name, (ms, plain, lib, bound, err, _) in timings.items():
         log(f"options kernel line {name}: ms {ms:.4f}, plain_ms "
             f"{plain:.4f}, library_ms "
             f"{'null' if lib is None else f'{lib:.4f}'}, bound_ms "
             f"{bound:.4f}, max_abs_err {err:.3e}")
     return launches
+
+
+# ------------------------------------------------ head widths 32 and 128
+HW_WIDTHS = (32, 128)             # the instantiations beside 64
+# (kernel, Tq, Tk, heads, lengths, causal, backward gate) of the width
+# checks on the (B, H, T, D) layout: K4 with lse and K4b at T 300 (3
+# heads: no packed grouping) and at T 1024 (at D = 128 past the resident
+# plan: K streamed, lse written); K5 and K5b at the D = 64 checks' shapes
+# (the long-segment step's B 2 x 1536, 1100 and 96 x 256) and at the
+# scoring path's 1750 frames, where at D = 128 with ALiBi a dk element
+# sits past the element-wise limit by a ds rounding flip (``hold_flips``);
+# K5 alone past K5b's 8192 keys
+HW_BHTD = (("K4", 300, 300, 3, [300, 0, 1], True, "hold"),
+           ("K4", 300, 300, 3, [300, 1, 0], False, "hold"),
+           ("K4", 1024, 1024, 2, [1024, 0, 1], True, "hold"),
+           ("K5", 1536, 1536, 2, [1536, 1], True, "hold"),
+           ("K5", 1100, 1100, 3, [1100, 1, 0], True, "hold"),
+           ("K5", 96, 256, 3, [256, 0, 1], False, "hold"),
+           ("K5", 1750, 1750, 2, [1750, 0, 1], True, "flips"),
+           ("K5", 96, 9000, 2, [9000, 0, 1], False, ""))
+HW_K6_POS = (151, 255, 256, 400, 511, 512, 650)
+
+
+def hw_views(dev, dtype, b: int, tq: int, tk: int, h: int, d: int,
+             seed: int):
+    """q, dO (B, H, Tq, D) and k, v (B, H, Tk, D) as strided views of
+    packed projections, as the trunk hands them over."""
+    import torch
+
+    g = torch.Generator(dev).manual_seed(seed)
+    xq = torch.randn((b, tq, 2 * h * d), generator=g, device=dev).to(dtype)
+    xkv = torch.randn((b, tk, 2 * h * d), generator=g, device=dev).to(dtype)
+    q, do = (x.view(b, tq, h, d).transpose(1, 2) for x in xq.chunk(2, -1))
+    k, v = (x.view(b, tk, h, d).transpose(1, 2) for x in xkv.chunk(2, -1))
+    return q, k, v, do
+
+
+def phase_head_widths(dev, gpu: str) -> dict:
+    """The templated bodies at D = 32 and 128 against their plain
+    versions, at the D = 64 checks' gates (``hold``: float32 o and lse
+    1e-5 x max(1, max|ref|), gradients 1e-4 x max|ref|; bf16 o 1e-2 and
+    gradients 2e-2 x max|ref|, element by element and in relative L2),
+    bf16 and float32, ALiBi on and off, one launch a call:
+      - ``fwd_wgmma``/``fwd_stream_wgmma`` and ``bwd_wgmma`` (bf16) and
+        ``fwd_f32``/``dq_f32``/``dkv_f32`` (float32) through K3/K3b on
+        the packed layout at T 640 and 1024 (lengths T, 0, 1 and one
+        between; at D = 128 T 1024 is past the resident plan's 704 keys,
+        so K3 streams K), causal;
+      - K4 (o, lse) then K4b at T 300, causal and not, and at T 1024
+        (at D = 128 past the resident plan); K5 then K5b at the D = 64
+        checks' shapes (B 2 x T 1536, T 1100, Tq 96 x Tk 256
+        non-causal) and at T 1750, whose bf16 gradients ``hold_flips``
+        holds; K5 alone at Tq 96 x Tk 9000 (past K5b's 8192 keys);
+      - K6 at B 8, H x D = 1024, a 768-position int8 cache, positions
+        across the 256-key block edges, to 1e-5 x max|ref|.
+    Then ``hw_times`` at each width.  Returns the worst max |diff| by
+    (kernel, head width, dtype)."""
+    import torch
+
+    from vae_gslm_tpu_torch.nn.attention import quantize_i8
+    from vae_gslm_tpu_torch.nn.positions import alibi_slopes
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+    from vae_gslm_tpu_torch.ops import flash_decode as fd
+
+    worst = {}
+
+    def held(key, where, checks, bf16, exact=None):
+        texts = []
+        for name, got, want, tol, floor in checks:
+            if exact is not None and name in exact:
+                err, text = hold_flips(where, name, got, want,
+                                       *exact[name], tol)
+            else:
+                err, text = hold(where, name, got, want, tol, floor, bf16)
+            k = key[0] if name in ("o", "lse") else key[1]
+            worst[(k, *key[2:])] = max(worst.get((k, *key[2:]), 0.0), err)
+            texts.append(text)
+        log(f"head_widths check {where}: max_abs_err " + ", ".join(texts))
+
+    def fwd_tols(bf16):
+        return (1e-2, 0.0) if bf16 else (1e-5, 1.0)
+
+    for d in HW_WIDTHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            bf16 = dtype == torch.bfloat16
+            fk = "bf16" if bf16 else "f32"
+            gtol = 2e-2 if bf16 else 1e-4
+            h = 4 if d == 32 else 2
+            for t, lens in ((640, [640, 0, 1, 323]), (1024, [1024, 1, 0, 700])):
+                g = torch.Generator(dev).manual_seed(t + d)
+                qkv = torch.randn((4, t, 3 * h * d), generator=g,
+                                  device=dev).to(dtype)
+                q, k, v = qkv.chunk(3, dim=-1)
+                do = torch.randn((4, t, h * d), generator=g,
+                                 device=dev).to(dtype)
+                lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+                for sl in (-torch.tensor(alibi_slopes(h), device=dev), None):
+                    n0 = (fa.flash_forward_packed.launches,
+                          fa.flash_backward_packed.launches)
+                    o, lse = fa.flash_forward_packed(q, k, v, lengths, sl,
+                                                     True, h)
+                    o_ref, lse_ref = fa.flash_forward_packed_plain(
+                        q, k, v, lengths, sl, True, h)
+                    grads = fa.flash_backward_packed(q, k, v, o, do, lse,
+                                                     lengths, sl, True, h)
+                    refs = fa.flash_backward_packed_plain(
+                        q, k, v, o, do, lse, lengths, sl, True, h)
+                    torch.cuda.synchronize()
+                    if (fa.flash_forward_packed.launches,
+                            fa.flash_backward_packed.launches) != (
+                            n0[0] + 1, n0[1] + 1):
+                        raise AssertionError("K3/K3b did not launch once")
+                    plan = fa.fwd_smem_plan(t, d) if bf16 else None
+                    held(("K3", "K3b", d, fk),
+                         f"K3/K3b head_dim {d} {fk} B=4 T={t} H={h} "
+                         f"alibi={sl is not None}"
+                         + (f" (K {'streamed' if not plan.tiles else 'resident'})"
+                            if bf16 else ""),
+                         [("o", o, o_ref, *fwd_tols(bf16)),
+                          ("lse", lse, lse_ref, 1e-5, 1.0)]
+                         + [(n, a, r, gtol, 0.0) for n, a, r in
+                            zip(("dq", "dk", "dv"), grads, refs)], bf16)
+                del qkv, q, k, v, do, o, lse, o_ref, lse_ref, grads, refs
+            for kind, tq, tk, hh, lens, causal, backward in HW_BHTD:
+                q, k, v, do = hw_views(dev, dtype, len(lens), tq, tk, hh, d,
+                                       tq + tk + d)
+                lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+                sl = -torch.tensor(alibi_slopes(hh), device=dev)
+                fwd_tol, fwd_floor = fwd_tols(bf16)
+                if kind == "K4":
+                    o, lse = fa.flash_forward_full(q, k, v, lengths, sl,
+                                                   causal, with_stats=True)
+                    o_ref, lse_ref = fa.flash_forward_full_plain(
+                        q, k, v, lengths, sl, causal, True)
+                    checks = [("o", o, o_ref, fwd_tol, fwd_floor),
+                              ("lse", lse, lse_ref, 1e-5, 1.0)]
+                    bwd, plain, extra = (fa.flash_backward_full,
+                                         fa.flash_backward_full_plain, (lse,))
+                else:
+                    o = fa.flash_forward_tiled(q, k, v, lengths, sl, causal)
+                    o_ref = fa.flash_forward_tiled_plain(q, k, v, lengths, sl,
+                                                         causal)
+                    checks = [("o", o, o_ref, fwd_tol, fwd_floor)]
+                    bwd, plain, extra = (fa.flash_backward_blockwise,
+                                         fa.flash_backward_blockwise_plain, ())
+                exact = None
+                if backward:
+                    n0 = bwd.launches
+                    grads = bwd(q, k, v, o, do, *extra, lengths, sl, causal)
+                    refs = plain(q, k, v, o, do, *extra, lengths, sl, causal)
+                    if bwd.launches != n0 + 1:
+                        raise AssertionError(f"{kind}b did not launch once")
+                    checks += [(n, a, r, gtol, 0.0) for n, a, r in
+                               zip(("dq", "dk", "dv"), grads, refs)]
+                    if backward == "flips" and bf16:
+                        exact = dict(zip(("dq", "dk", "dv"), zip(
+                            *grad_bounds(q, k, v, o, do, extra[0] if extra
+                                         else None, lengths, sl, causal))))
+                torch.cuda.synchronize()
+                held((kind, kind + "b", d, fk),
+                     f"{kind}{'/' + kind + 'b' if backward else ''} "
+                     f"head_dim {d} {fk} B={len(lens)} Tq={tq} Tk={tk} "
+                     f"H={hh} causal={causal}", checks, bf16, exact)
+                del q, k, v, do, o, o_ref, checks, exact
+        # K6: B 8, H x D = 1024, a bf16 q as a view of one projection
+        h = 1024 // d
+        g = torch.Generator(dev).manual_seed(d)
+        k8, ks = quantize_i8(torch.randn((8, h, K6_T, d), generator=g,
+                                         device=dev))
+        v8, vs = quantize_i8(torch.randn((8, h, K6_T, d), generator=g,
+                                         device=dev))
+        q = torch.randn((8, 3 * h * d), generator=g, device=dev).to(
+            torch.bfloat16).view(8, 3, h, d)[:, 0]
+        sl = -torch.tensor(alibi_slopes(h), device=dev)
+        errs = []
+        for pos in HW_K6_POS:
+            n0 = fd.flash_decode_int8.launches
+            got = fd.flash_decode_int8(q, k8, v8, ks, vs, pos, sl)
+            want = fd.flash_decode_int8_plain(q, k8, v8, ks, vs, pos, sl)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if not err <= 1e-5 * want.abs().max().item() or \
+                    fd.flash_decode_int8.launches != n0 + 1:
+                raise AssertionError(f"K6 at head_dim {d} disagrees with its "
+                                     f"plain version at pos {pos} ({err:.3e})"
+                                     " or did not launch once")
+            errs.append(err)
+            worst[("K6", d, "f32")] = max(worst.get(("K6", d, "f32"), 0.0),
+                                          err)
+        log(f"head_widths check K6 head_dim {d} B=8 H={h} T={K6_T} at pos "
+            f"{list(HW_K6_POS)}: max_abs_err {max(errs):.3e} (tolerance 1e-5 x "
+            "max|ref|)")
+        del k8, v8, ks, vs, q
+        gc.collect()
+        hw_times(dev, gpu, d)
+    return worst
+
+
+def hw_times(dev, gpu: str, d: int) -> None:
+    """The bodies that the 8 x 128 and 32 x 32 paths do not launch, timed
+    at head width ``d`` at the D = 64 rows' calls of ``PERF.md`` section 6
+    (H x D = 1024): K5's bf16 ``fwd_stream_wgmma`` at B 8 x T 1750
+    (``K5_LENGTHS``), K3b's float32 ``dq_f32``/``dkv_f32`` at the training
+    call (B 8 x T 640, ``K3_LENGTHS``) and, at D = 128, K3's bf16 forward
+    past the resident plan (B 8 x T 1024, streamed); each beside its plain
+    version, SDPA (forward, or backward alone) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vae_gslm_tpu_torch.nn.positions import alibi_slopes
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+
+    h = H * D // d
+    sl = -torch.tensor(alibi_slopes(h), device=dev)
+    q, k, v, _ = hw_views(dev, torch.bfloat16, K5_B, K5_T, K5_T, h, d, 5)
+    lengths = torch.tensor(K5_LENGTHS, dtype=torch.int32, device=dev)
+    km = device_ms(lambda i: fa.flash_forward_tiled(
+        q, k, v, lengths, sl, True), n=10, only=("k5_fwd",), per_call=1)
+    pm = device_ms(lambda i: fa.flash_forward_tiled_plain(
+        q, k, v, lengths, sl, True), n=2)
+    mask = sdpa_mask(lengths, sl, torch.bfloat16, dev, K5_T, K5_T)
+    lm = library_ms(lambda i: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), n=10)
+    nb, no = bhtd_bytes_ops(K5_B, K5_T, K5_T, h, K5_LENGTHS, True, 2, d)
+    bound = max(nb / HBM_BYTES_PER_S, no / BF16_FLOPS) * 1e3
+    log(f"head_widths K5 time B={K5_B} T={K5_T} H={h} head_dim {d} bf16 "
+        f"(fwd_stream_wgmma<{d}>): kernel {km:.4f} ms, plain {pm:.4f} ms, "
+        f"SDPA (float mask) forward {lm:.4f} ms, bound {bound:.4f} ms "
+        f"({'bytes' if nb / HBM_BYTES_PER_S > no / BF16_FLOPS else 'operations'}"
+        f"; {nb / 1e6:.1f} MB, {no / 1e9:.2f} GFLOP); launches on the "
+        f"{h} x {d} paths: 0 ({gpu})")
+    del q, k, v, mask
+    g = torch.Generator(dev).manual_seed(d)
+    for dtype, t in ((torch.float32, K3_T),) + (
+            ((torch.bfloat16, 1024),) if fa.fwd_smem_plan(1024, d).tiles == 0
+            else ()):
+        qkv = torch.randn((K3_B, t, 3 * h * d), generator=g, device=dev).to(
+            dtype)
+        q, k, v = qkv.chunk(3, dim=-1)
+        do = torch.randn((K3_B, t, h * d), generator=g, device=dev).to(dtype)
+        lens = [min(x, t) for x in K3_LENGTHS]
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q4, k4, v4 = (x.reshape(K3_B, t, h, d).transpose(1, 2)
+                      for x in (q, k, v))
+        mask = sdpa_mask(lengths, sl, dtype, dev, t, t)
+        (fb, fo), (bb, bo) = k3_bytes_ops(q.element_size(), K3_B, t, lens, h,
+                                          d)
+        if dtype == torch.float32:
+            o, lse = fa.flash_forward_packed_plain(q, k, v, lengths, sl, True,
+                                                   h)
+            km = device_ms(lambda i: fa.flash_backward_packed(
+                q, k, v, o, do, lse, lengths, sl, True, h), n=5,
+                only=K3_KERNELS[1:], per_call=2)
+            pm = device_ms(lambda i: fa.flash_backward_packed_plain(
+                q, k, v, o, do, lse, lengths, sl, True, h), n=2)
+            lm = sdpa_bwd_ms(q4, k4, v4, do.reshape(K3_B, t, h, d).transpose(
+                1, 2), mask)
+            bound = max(bb / HBM_BYTES_PER_S, bo / F32_FLOPS) * 1e3
+            what = (f"K3b time B={K3_B} T={t} H={h} head_dim {d} float32 "
+                    f"(dq_f32<{d}>, dkv_f32<{d}>): kernels")
+            lib = "SDPA (float32, float mask) backward alone"
+            nbytes, ops = bb, bo
+            del o, lse
+        else:
+            km = device_ms(lambda i: fa.flash_forward_packed(
+                q, k, v, lengths, sl, True, h), n=10, only=K3_KERNELS[:1],
+                per_call=1)
+            pm = device_ms(lambda i: fa.flash_forward_packed_plain(
+                q, k, v, lengths, sl, True, h), n=2)
+            lm = library_ms(lambda i: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask), n=10)
+            bound = max(fb / HBM_BYTES_PER_S, fo / BF16_FLOPS) * 1e3
+            what = (f"K3 time B={K3_B} T={t} H={h} head_dim {d} bf16 (past "
+                    f"the resident plan: k3_fwd_stream_kernel<{d}>): kernel")
+            lib = "SDPA (float mask) forward"
+            nbytes, ops = fb, fo
+        log(f"head_widths {what} {km:.4f} ms, plain {pm:.4f} ms, {lib} "
+            f"{lm:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB, "
+            f"{ops / 1e9:.2f} GFLOP); launches on the {h} x {d} paths: 0 "
+            f"({gpu})")
+        del qkv, q, k, v, do, q4, k4, v4, mask
+    gc.collect()
+
+
+WIDE_SCORE_B = 8                  # utterances a scoring batch
+# frames of the wide scoring corpus: a batch under 1024 frames (K3), then
+# one past it (K5)
+WIDE_SCORE_FRAMES = [1000, 640, 873, 512, 999, 300, 777, 951,
+                     1100, 1030, 640, 1099, 400, 1050, 870, 1075]
+WIDE_PL_STEPS = 200               # the per-layer (K6) rollout's steps
+
+
+def call_k3_times(dev, gpu: str, where: str, fwd_args, bwd_args, d: int,
+                  flips: bool = False):
+    """K3 at the arguments ``fwd_args`` of a call captured on a path (and
+    K3b at ``bwd_args``, unless None): held against the plain versions by
+    ``hold`` (with ``flips``, a bf16 K3b by ``hold_flips``), then kernel,
+    plain, SDPA (the forward with a float mask, zero where the trunk
+    takes no slopes; the backward alone) and the bound.  Returns {name:
+    (ms, plain_ms, library_ms, bound_ms, max_abs_err, bound_by)}."""
+    import torch
+    import torch.nn.functional as F
+
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, lengths, slopes, causal, nh = fwd_args
+    bf16 = q.dtype == torch.bfloat16
+    b, t = q.shape[:2]
+    lens = lengths.tolist()
+    o, lse = fa.flash_forward_packed(q, k, v, lengths, slopes, causal, nh)
+    o_ref, lse_ref = fa.flash_forward_packed_plain(q, k, v, lengths, slopes,
+                                                   causal, nh)
+    torch.cuda.synchronize()
+    ef, tf = hold(where, "o", o, o_ref, 1e-2 if bf16 else 1e-5,
+                  0.0 if bf16 else 1.0, bf16)
+    el, tl = hold(where, "lse", lse, lse_ref, 1e-5, 1.0, bf16)
+    log(f"{where} K3 check (B={b} T={t} H={nh} head_dim {d} "
+        f"{str(q.dtype)[6:]}): max_abs_err {tf}, {tl}")
+    del o, lse, o_ref, lse_ref
+    rate = BF16_FLOPS if bf16 else F32_FLOPS
+    out = {}
+    kf = device_ms(lambda i: fa.flash_forward_packed(
+        q, k, v, lengths, slopes, causal, nh), n=10 if bf16 else 5,
+        only=K3_KERNELS[:1], per_call=1)
+    pf = device_ms(lambda i: fa.flash_forward_packed_plain(
+        q, k, v, lengths, slopes, causal, nh), n=2)
+    mask = sdpa_mask(lengths, slopes if slopes is not None else
+                     torch.zeros(nh, device=dev), q.dtype, dev, t, t)
+    q4, k4, v4 = (x.reshape(b, t, nh, d).transpose(1, 2) for x in (q, k, v))
+    lf = library_ms(lambda i: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask), n=10 if bf16 else 3)
+    (fb, fo), (bb, bo) = k3_bytes_ops(q.element_size(), b, t, lens, nh, d)
+    bound_f = max(fb / HBM_BYTES_PER_S, fo / rate) * 1e3
+    by_f = "bytes" if fb / HBM_BYTES_PER_S > fo / rate else "operations"
+    out["K3"] = (kf, pf, lf, bound_f, max(ef, el), by_f)
+    log(f"{where} K3 time (head_dim {d}, {str(q.dtype)[6:]}): kernel "
+        f"{kf:.4f} ms, plain {pf:.4f} ms, SDPA (float mask) forward "
+        f"{lf:.4f} ms, bound {bound_f:.4f} ms ({by_f}; {fb / 1e6:.1f} MB, "
+        f"{fo / 1e9:.2f} GFLOP) ({gpu})")
+    if bwd_args is not None:
+        bq, bk, bv, bo_, bg, blse = bwd_args[:6]
+        grads = fa.flash_backward_packed(bq, bk, bv, bo_, bg, blse, lengths,
+                                         slopes, causal, nh)
+        refs = fa.flash_backward_packed_plain(bq, bk, bv, bo_, bg, blse,
+                                              lengths, slopes, causal, nh)
+        exact, bounds = grad_bounds(
+            bq, bk, bv, bo_, bg, blse, lengths, slopes, causal, nh) \
+            if flips and bf16 else ((None,) * 3, (None,) * 3)
+        torch.cuda.synchronize()
+        eb, texts = 0.0, []
+        tol = 2e-2 if bf16 else 1e-4
+        for name, a, r, x, bd in zip(("dq", "dk", "dv"), grads, refs, exact,
+                                     bounds):
+            err, text = (hold(where, name, a, r, tol, 0.0, bf16) if x is None
+                         else hold_flips(where, name, a, r, x, bd, tol))
+            eb = max(eb, err)
+            texts.append(text)
+        log(f"{where} K3b check: max_abs_err " + ", ".join(texts))
+        del grads, refs, exact, bounds
+        kb = device_ms(lambda i: fa.flash_backward_packed(
+            bq, bk, bv, bo_, bg, blse, lengths, slopes, causal, nh), n=10,
+            only=K3_KERNELS[1:], per_call=2)
+        pb = device_ms(lambda i: fa.flash_backward_packed_plain(
+            bq, bk, bv, bo_, bg, blse, lengths, slopes, causal, nh), n=2)
+        lb = sdpa_bwd_ms(q4, k4, v4, bg.reshape(b, t, nh, d).transpose(1, 2),
+                         mask)
+        bound_b = max(bb / HBM_BYTES_PER_S, bo / rate) * 1e3
+        by_b = "bytes" if bb / HBM_BYTES_PER_S > bo / rate else "operations"
+        out["K3b"] = (kb, pb, lb, bound_b, eb, by_b)
+        log(f"{where} K3b time (head_dim {d}, {str(q.dtype)[6:]}): kernels "
+            f"{kb:.4f} ms, plain {pb:.4f} ms, SDPA backward alone "
+            f"{lb:.4f} ms, bound {bound_b:.4f} ms ({by_b}; "
+            f"{bb / 1e6:.1f} MB, {bo / 1e9:.2f} GFLOP) ({gpu})")
+    del mask, q4, k4, v4
+    gc.collect()
+    return out
+
+
+def call_k5_times(dev, gpu: str, where: str, args, d: int):
+    """K5 (float32) at the arguments of a call captured on a scoring path,
+    as ``call_k3_times``."""
+    import torch
+    import torch.nn.functional as F
+
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, lengths, slopes, causal = args
+    b, h, t = q.shape[:3]
+    o = fa.flash_forward_tiled(q, k, v, lengths, slopes, causal)
+    o_ref = fa.flash_forward_tiled_plain(q, k, v, lengths, slopes, causal)
+    torch.cuda.synchronize()
+    err, text = hold(where, "o", o, o_ref, 1e-5, 1.0, False)
+    log(f"{where} K5 check (B={b} Tq=Tk={t} H={h} head_dim {d} float32): "
+        f"max_abs_err {text}")
+    del o, o_ref
+    km = device_ms(lambda i: fa.flash_forward_tiled(
+        q, k, v, lengths, slopes, causal), n=5, only=("k5_fwd",),
+        per_call=1)
+    pm = device_ms(lambda i: fa.flash_forward_tiled_plain(
+        q, k, v, lengths, slopes, causal), n=2)
+    mask = sdpa_mask(lengths, slopes if slopes is not None else
+                     torch.zeros(h, device=dev), torch.float32, dev, t, t)
+    lm = library_ms(lambda i: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), n=3)
+    nb, no = bhtd_bytes_ops(b, t, t, h, lengths.tolist(), causal, 4, d)
+    bound = max(nb / HBM_BYTES_PER_S, no / F32_FLOPS) * 1e3
+    by = "bytes" if nb / HBM_BYTES_PER_S > no / F32_FLOPS else "operations"
+    log(f"{where} K5 time (head_dim {d}, float32): kernel {km:.4f} ms, "
+        f"plain {pm:.4f} ms, SDPA (float32, float mask) {lm:.4f} ms, bound "
+        f"{bound:.4f} ms ({by}; {nb / 1e6:.1f} MB, {no / 1e9:.2f} GFLOP) "
+        f"({gpu})")
+    del mask
+    return {"K5": (km, pm, lm, bound, err, by)}
+
+
+def call_k6_times(gpu: str, where: str, args, d: int):
+    """K6 at the arguments of a call captured on a per-layer rollout: held
+    against the plain version (1e-5 x max|ref|), then kernel, plain and
+    the bytes bound (no library call computes it)."""
+    import torch
+
+    from vae_gslm_tpu_torch.nn import attention as attn_mod
+    from vae_gslm_tpu_torch.ops.flash_decode import flash_decode_int8_plain
+
+    q6, k8, v8, ks, vs, pos, sl = args
+    got = attn_mod.flash_decode_int8(q6, k8, v8, ks, vs, pos, sl)
+    want = flash_decode_int8_plain(q6, k8, v8, ks, vs, pos, sl)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= 1e-5 * want.float().abs().max().item():
+        raise AssertionError(f"{where}: K6 disagrees with its plain version "
+                             f"({err:.3e})")
+    b, h = q6.shape[:2]
+    ms = device_ms(lambda i: attn_mod.flash_decode_int8(
+        q6, k8, v8, ks, vs, pos, sl), n=100, only=("flash_decode_kernel",),
+        per_call=1)
+    plain = device_ms(lambda i: flash_decode_int8_plain(
+        q6, k8, v8, ks, vs, pos, sl), n=5)
+    nbytes = b * h * ((pos + 1) * (2 * d + 8) + d * (q6.element_size() + 4)
+                      ) + h * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"{where} K6 (B={b}, H={h}, head_dim {d}, pos {pos}, cache "
+        f"T={k8.shape[2]}): max_abs_err {err:.3e}; kernel {ms * 1e3:.2f} us, "
+        f"plain {plain * 1e3:.1f} us, bound {bound * 1e3:.2f} us "
+        f"({nbytes / 1e6:.2f} MB; no library call) ({gpu})")
+    return {"K6": (ms, plain, None, bound, err, "bytes")}
+
+
+def phase_wide_heads(dev, gpu: str, nheads: int, worst: dict):
+    """The shipped LVTR (``configs/train/speech/vae-gslm.yaml``: 16
+    layers, d1024, FFN 4096, ALiBi, RMSNorm, the 4-layer conditional
+    flow) with ``transformer.layer.self_attn.nheads`` set to ``nheads``
+    (8: head_dim 128; 32: head_dim 32), nothing else changed, on the
+    port's entry points, each run with every kernel count set to 0 just
+    before and read just after (no other kernel may launch):
+      (a) ``LVTRTrainer.run_step`` at B 8 x 640 frames, 16-mixed,
+          accumulation 2, utterance encoder: a warm-up and three timed
+          steps, exactly 32 K3 and 32 K3b launches each, the plain
+          versions and the dense attention refused;
+      (b) ``LikelihoodEstimator.run``, float32 with TF32 off, on the
+          model saved by ``save_compact`` (weights from seed 0) and 16
+          synthetic WAVs at batch 8: a batch padded to 1000 frames
+          (exactly 16 K3) and one to 1100 (exactly 16 K5), the plain
+          versions refused;
+      (c) ``ARTRSampler`` at B 8 (a 3 s prompt, int8 KV cache, DDIM-100
+          at eta 0.5, the seed-1 HiFi-GAN): 500 AR steps on the hybrid
+          route with bf16 weights and with int8 weights (K2 takes
+          head_dim 64 alone: exactly 16 x 500 K1 launches each), then
+          ``WIDE_PL_STEPS`` per-layer steps with ``flash_decode=True``
+          (exactly 16 per step K6 launches).
+    One call of each flash kernel on the path (K3/K3b from the step, K3
+    and K5 from the scoring batches, K6 at position 250) is held against
+    its plain version and timed beside the plain version, SDPA and the
+    bound; K1 at the rollout's position 400 too.  Returns (kernel line
+    entries, K1 launches)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.inference.speech.likelihood import \
+        LikelihoodEstimator
+    from vae_gslm_tpu_torch.inference.speech.sampler import ARTRSampler
+    from vae_gslm_tpu_torch.nn import attention as attn_mod
+    from vae_gslm_tpu_torch.nn import transformer as tr_mod
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+    from vae_gslm_tpu_torch.ops.fused_decode import \
+        fused_decode_attention_plain
+    from vae_gslm_tpu_torch.trainers.speech.lvtr import LVTRTrainer
+
+    d = H * D // nheads
+    tag = f"wide_heads {nheads} x {d}"
+    times, launches = {}, {}
+
+    def refuse(what):
+        def fn(*a, **k):
+            raise AssertionError(f"{tag}: the path reached {what} on the "
+                                 "card")
+        return fn
+
+    # (a) the training step
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = Hparams.from_yamlfile(TRAIN_YAML)
+        hp.vocoder.path = vocoder_dir(tmp)
+        hp.model.transformer.layer.self_attn.nheads = nheads
+        t0 = time.perf_counter()
+        trainer = LVTRTrainer(hp, seed=0, device=dev)
+    nparams = sum(p.numel() for p in trainer.params)
+    batch = trainer.prepare_batch(train_batches(
+        np.random.RandomState(0), TRAIN_B, TRAIN_T, TRAIN_LENGTHS, 200,
+        hp.model.tokens.vocab_size))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    want = L * TRAIN_ACCUM
+    saved = (fa.flash_forward_packed_plain, fa.flash_backward_packed_plain,
+             attn_mod.attend)
+    steps = []
+    try:
+        (fa.flash_forward_packed_plain, fa.flash_backward_packed_plain,
+         attn_mod.attend) = (refuse("the plain K3"), refuse("the plain K3b"),
+                             refuse("the dense attention"))
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(4):
+            zero_kernel_counts()
+            with Capture(fa, "flash_forward_packed") as cf, \
+                    Capture(fa, "flash_backward_packed") as cb:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                metrics = trainer.run_step(batch)
+                torch.cuda.synchronize()
+                sec = time.perf_counter() - t1
+            trainer.global_step += 1
+            got = expect_counts(f"{tag} step {i}", {
+                "flash_forward_packed": want, "flash_backward_packed": want})
+            terms = {k: float(metrics[k]) for k in ("rec_loss", "kld",
+                                                     "token_kld", "grad_norm")}
+            if not all(math.isfinite(x) for x in terms.values()):
+                raise AssertionError(f"{tag}: non-finite metrics {terms}")
+            log(f"{tag} train step {i}{' (warm-up)' if i == 0 else ''}: "
+                f"{sec * 1e3:.1f} ms; K3 {got['flash_forward_packed']}, K3b "
+                f"{got['flash_backward_packed']}; " + ", ".join(
+                    f"{k} {x:.4f}" for k, x in terms.items()))
+            if i:
+                steps.append(sec)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        (fa.flash_forward_packed_plain, fa.flash_backward_packed_plain,
+         attn_mod.attend) = saved
+    med = statistics.median(steps)
+    tokens = TRAIN_B * TRAIN_ACCUM * TRAIN_T
+    log(f"{tag} train (LVTR {nparams / 1e6:.1f} M parameters, built in "
+        f"{build_s:.1f} s; B={TRAIN_B} x accumulation {TRAIN_ACCUM} x "
+        f"T={TRAIN_T}, 16-mixed): median step {med * 1e3:.1f} ms over "
+        f"{len(steps)} steps (range {min(steps) * 1e3:.1f}-"
+        f"{max(steps) * 1e3:.1f}), {tokens / med:.0f} tokens/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB ({gpu})")
+    launches["K3 bf16"] = 4 * want
+    launches["K3b bf16"] = 4 * want
+    del trainer, metrics, batch
+    gc.collect()
+    for k, x in call_k3_times(dev, gpu, f"{tag} at the training call",
+                              cf.args, cb.args, d, flips=True).items():
+        times[f"{k} bf16"] = x
+    del cf, cb
+    gc.collect()
+
+    # (b) scoring, float32
+    root = tempfile.mkdtemp(prefix="wide_")
+    try:
+        with precision.policy_scope(precision.Policy()):
+            ckpt, _ = write_flagship(root, dev, nheads=nheads)
+            corpus = os.path.join(root, "corpus")
+            os.makedirs(corpus)
+            audio_s = write_wav_corpus(corpus, WIDE_SCORE_FRAMES,
+                                       np.random.RandomState(nheads))
+            est = LikelihoodEstimator(Hparams.from_yaml(
+                SCORE_INFER_YAML.format(ckpt=ckpt, corpus=corpus).replace(
+                    "batch_size: 64", f"batch_size: {WIDE_SCORE_B}")),
+                device=dev)
+            est.run(seed=0, max_batches=1)            # warm-up
+            saved = (fa.flash_forward_packed_plain,
+                     fa.flash_forward_tiled_plain, fa.flash_forward_full,
+                     attn_mod.attend)
+            step, per_batch = est.test_step, []
+
+            def counted(batch, generator):
+                zero_kernel_counts()
+                out = step(batch, generator)
+                per_batch.append((int(batch["tokens"].value.shape[1]),
+                                  port_kernel_counts()))
+                return out
+
+            try:
+                (fa.flash_forward_packed_plain, fa.flash_forward_tiled_plain,
+                 fa.flash_forward_full, attn_mod.attend) = (
+                    refuse("the plain K3"), refuse("the plain K5"),
+                    refuse("K4"), refuse("the dense attention"))
+                est.test_step = counted
+                timings = {}
+                with Capture(fa, "flash_forward_packed") as c3, \
+                        Capture(fa, "flash_forward_tiled") as c5:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    scores = est.run(seed=0, timings=timings)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                (fa.flash_forward_packed_plain, fa.flash_forward_tiled_plain,
+                 fa.flash_forward_full, attn_mod.attend) = saved
+                est.test_step = step
+            padded = [max(WIDE_SCORE_FRAMES[i:i + WIDE_SCORE_B]) for i in
+                      range(0, len(WIDE_SCORE_FRAMES), WIDE_SCORE_B)]
+            if [t for t, _ in per_batch] != padded or \
+                    not min(padded) <= fa.MAX_T < max(padded):
+                raise AssertionError(f"{tag}: scoring batches padded to "
+                                     f"{[t for t, _ in per_batch]} frames, "
+                                     f"expected {padded} across {fa.MAX_T}")
+            for t, counts in per_batch:
+                name = "flash_forward_packed" if t <= fa.MAX_T else \
+                    "flash_forward_tiled"
+                bad = {k: x for k, x in counts.items()
+                       if x != (L if k == name else 0)}
+                if bad:
+                    raise AssertionError(f"{tag}: scoring batch of {t} "
+                                         f"frames launched {bad}, expected "
+                                         f"{L} {name} and no other")
+            n = len(WIDE_SCORE_FRAMES)
+            if scores.shape != (n,) or not np.isfinite(scores).all() \
+                    or not (scores <= 0).all():
+                raise AssertionError(f"{tag}: scores {scores}")
+            log(f"{tag} score (LikelihoodEstimator, float32, batch "
+                f"{WIDE_SCORE_B}, batches padded to {padded} frames): "
+                f"{n} utterances ({audio_s:.1f} s of audio) in {wall:.3f} s, "
+                f"{n / wall:.2f} utterances/s; model {timings['model']:.3f} "
+                f"s; K3 {L} and K5 {L} launches; scores mean "
+                f"{scores.mean():.4f} ({gpu})")
+            launches["K3 f32"] = L
+            launches["K5 f32"] = L
+            del est
+            gc.collect()
+            for k, x in call_k3_times(dev, gpu, f"{tag} at the scoring call",
+                                      c3.args, None, d).items():
+                times[f"{k} f32"] = x
+            for k, x in call_k5_times(dev, gpu, f"{tag} at the scoring call",
+                                      c5.args, d).items():
+                times[f"{k} f32"] = x
+            del c3, c5
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+
+    # (c) serving at B 8
+    prior = make_prior(8, dev)
+    kw = dict(temperature=0.85, token_temperature=0.85)
+    k1_launches = 0
+    for quantize in (False, True):
+        sampler, vocoder = build_pipeline(dev, quantize, nheads=nheads)
+        route = sampler.route(8)
+        if route != "hybrid":
+            raise AssertionError(f"{tag}: B = 8 takes the {route} route")
+        vocoder(sampler(8, prior, torch.Generator(dev).manual_seed(99),
+                        **kw)["output"])
+        zero_kernel_counts()
+        with Capture(tr_mod, "fused_decode_attention",
+                     when=lambda a: a[9] == PROMPT + LENGTH // 2) as c1:
+            run_t, _, _ = run_once(sampler, vocoder, prior, dev, 1, kw)
+        expect_counts(f"{tag} serving ({'int8' if quantize else 'bf16'} "
+                      "weights)", {"fused_decode_attention": L * LENGTH})
+        k1_launches += L * LENGTH
+        log(f"{tag} serving B=8 ({'int8' if quantize else 'bf16'} weights, "
+            f"hybrid route: K2 takes head_dim 64 alone): K1 launches "
+            f"{L * LENGTH}; " + ", ".join(
+                f"{k} {x:.3f} s" for k, x in run_t.items())
+            + f"; {run_t['ar_loop'] / LENGTH * 1e3:.2f} ms per AR step; "
+            f"real-time factor {8 * LENGTH / 50.0 / sum(run_t.values()):.2f}x"
+            f" ({gpu})")
+        if not quantize:
+            model, keep_vocoder, k1_args = sampler.model, vocoder, c1.args
+        del sampler, vocoder
+        gc.collect()
+    # K1 at position 400 of the bf16 rollout
+    qa, *cache_a = k1_args[:9]
+    pos, li, sl1, ka, va, flushed = k1_args[9:15]
+    got = tr_mod.fused_decode_attention(qa, *cache_a, pos, li, sl1, ka, va,
+                                        flushed)
+    want = fused_decode_attention_plain(qa, *cache_a, pos, li, sl1, ka, va,
+                                        flushed)
+    torch.cuda.synchronize()
+    k1_err = (got - want).abs().max().item()
+    if not bool(((got - want).abs() <= 1e-4 + 1e-3 * want.abs()).all()):
+        raise AssertionError(f"{tag}: K1 disagrees with its plain version "
+                             f"({k1_err:.3e})")
+    k1_ms = device_ms(lambda i: tr_mod.fused_decode_attention(
+        qa, *cache_a, pos, i % L, sl1, ka, va, flushed), n=200,
+        only=("fused_decode_kernel",), per_call=1)
+    nb = 8 * nheads * pos * (2 * d + 8) + 3 * 8 * nheads * d * 2 \
+        + 8 * nheads * d * 4 + nheads * 4
+    log(f"{tag} K1 at the rollout's call (B=8, H={nheads}, head_dim {d}, "
+        f"pos {pos}): max_abs_err {k1_err:.3e}; kernel {k1_ms * 1e3:.2f} us, "
+        f"bound {nb / HBM_BYTES_PER_S * 1e6:.2f} us ({nb / 1e6:.2f} MB) "
+        f"({gpu})")
+    del k1_args, qa, cache_a, ka, va
+    # the per-layer route with K6, bf16 weights
+    vocoder = keep_vocoder
+    sampler = ARTRSampler(model, kv_dtype=torch.int8, flash_decode=True,
+                          device=dev)
+    sampler.use_hybrid = False               # B 8 per layer
+    if sampler.route(8) != "per_layer":
+        raise AssertionError(f"{tag}: the K6 rollout took "
+                             f"{sampler.route(8)}")
+    vocoder(sampler(8, prior, torch.Generator(dev).manual_seed(99),
+                    **kw)["output"])
+    zero_kernel_counts()
+    with Capture(attn_mod, "flash_decode_int8",
+                 when=lambda a: a[5] == PROMPT + WIDE_PL_STEPS // 2) as c6:
+        run_t, _, _ = run_once(sampler, vocoder, prior, dev, 1, kw,
+                               length=WIDE_PL_STEPS)
+    expect_counts(f"{tag} per-layer serving (K6)",
+                  {"flash_decode_int8": L * WIDE_PL_STEPS})
+    launches["K6"] = L * WIDE_PL_STEPS
+    log(f"{tag} serving B=8 (per-layer int8 cache, K6, bf16 weights, "
+        f"{WIDE_PL_STEPS} steps): K6 launches {L * WIDE_PL_STEPS}; "
+        + ", ".join(f"{k} {x:.3f} s" for k, x in run_t.items())
+        + f"; {run_t['ar_loop'] / WIDE_PL_STEPS * 1e3:.2f} ms per AR step "
+        f"({gpu})")
+    del sampler, vocoder, keep_vocoder, model
+    gc.collect()
+    for k, x in call_k6_times(gpu, f"{tag} at the rollout's call", c6.args,
+                              d).items():
+        times[k] = x
+    del c6
+    gc.collect()
+
+    # the kernels line: each kernel of the path at this width
+    names = {"K3 bf16": ("flash_forward_packed", ("k3_fwd_wgmma_kernel",),
+                         "vae_gslm_tpu/ops/flash_attention.py:230"),
+             "K3b bf16": ("flash_backward_packed",
+                          ("k3b_dq_wgmma_kernel", "k3b_dkv_wgmma_kernel"),
+                          "vae_gslm_tpu/ops/flash_attention.py:359"),
+             "K3 f32": ("flash_forward_packed", ("k3_fwd_kernel",),
+                        "vae_gslm_tpu/ops/flash_attention.py:230"),
+             "K5 f32": ("flash_forward_tiled", ("k5_fwd_kernel",),
+                        "vae_gslm_tpu/ops/flash_attention.py:443"),
+             "K6": ("flash_decode_int8", ("flash_decode_kernel",),
+                    "vae_gslm_tpu/ops/flash_decode.py:131")}
+    entries = []
+    for key, (ms, plain, lib, bound, err, by) in times.items():
+        fn, symbols, replaces = names[key]
+        kind = key.split()[0]
+        dt = key.split()[1] if " " in key else "f32"
+        err = max(err, worst.get((kind, d, dt), 0.0))
+        entries.append({
+            "name": f"{fn} (head_dim {d}, {nheads} heads: " + ", ".join(
+                f"{sym}<{d}>" for sym in symbols) + ")",
+            "route": "cuda",
+            "source": ("vae_gslm_tpu_torch/csrc/flash_decode.cu"
+                       if kind == "K6" else
+                       "vae_gslm_tpu_torch/csrc/flash_attention.cu"),
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib})
+    return entries, k1_launches
 
 
 # ------------------------------------------------- K5 past 8192 keys
@@ -5570,6 +6454,9 @@ def main() -> int:
         f"K3/K3b/K4/K4b/K5/K5b, K6, K7) and native/dataio.cc in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, (sec, text) in build.BUILD_LOG.items():
+        if name in ("flash_attention", "flash_decode"):
+            log(f"nvcc {name} ({sec:.1f} s): " + ptxas_summary(text))
+            continue
         log(f"nvcc {name} ({sec:.1f} s): "
             + " | ".join(x.strip() for x in text.splitlines()
                          if "registers" in x or "spill" in x))
@@ -5656,10 +6543,20 @@ def main() -> int:
     k3["launches"] += lm_k3 + score_k3
     k3b["launches"] += lm_k3b
     k5["launches"] += score_k5 + k5_long_launches
+    # head widths 32 and 128: the templated bodies against
+    # their plain versions, then the 8 x 128 and 32 x 32 trunks' paths
+    widths = timed("head_widths", phase_head_widths, dev, gpu)
+    wide = []
+    for nheads in (8, 32):
+        entries, k1_wide = timed(f"wide_heads_{nheads}", phase_wide_heads,
+                                 dev, gpu, nheads, widths)
+        wide += entries
+        k1["launches"] += k1_wide
     log("phase seconds: " + ", ".join(spent))
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, k2bf16, k2w4, k3, k3b, k4, k4b,
-                                  k5, k5bf16, k5b, bwdf32, k6, k7]}))
+    print(json.dumps({"kernels": mark_event_times(
+        [k1, k2, k2bf16, k2w4, k3, k3b, k4, k4b, k5, k5bf16, k5b, bwdf32, k6,
+         k7] + wide)}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

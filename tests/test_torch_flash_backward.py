@@ -322,7 +322,7 @@ def test_bwd_smem_plan_fits_every_shape():
     stages; nothing in it grows with T, so it holds every shape the
     envelope admits (K4b: Tq = Tk <= 1024; K5b: Tk <= 8192)."""
     tile_bytes = TILE * 64 * 2
-    plan = fa.bwd_smem_plan()
+    plan = fa.bwd_smem_plan(64)
     assert plan.stages >= 2 and plan.bytes <= SMEM_LIMIT
     assert plan.bytes >= (1023 + (2 + 2 * plan.stages) * tile_bytes
                           + plan.stages * 4 * TILE * 4
@@ -355,9 +355,9 @@ def _packed_operands(dtype, width=3 * 2 * 64, offset=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3b_launch_takes_the_bwd_plan(monkeypatch, dtype):
-    """K3b's launch passes ``bwd_smem_plan()`` (bytes, stages) to
+    """K3b's launch passes ``bwd_smem_plan(64)`` (bytes, stages) to
     ``flash_bwd_packed_launch`` in bfloat16, as K4b and K5b do, and
-    ``f32_bwd_plan()``'s in float32; the stream goes last."""
+    ``f32_bwd_plan(64)``'s in float32; the stream goes last."""
     lib = _FakeLib()
     monkeypatch.setattr(fa, "_launchers", lambda: lib)
     q, k, v, o, g, lse, lengths, h = _packed_operands(dtype)
@@ -365,11 +365,11 @@ def test_k3b_launch_takes_the_bwd_plan(monkeypatch, dtype):
                                 h, 1234)
     assert [x.shape for x in grads] == [q.shape] * 3
     (args,) = lib.calls
-    plan = (fa.bwd_smem_plan() if dtype == torch.bfloat16
-            else fa.f32_bwd_plan())
+    plan = (fa.bwd_smem_plan(64) if dtype == torch.bfloat16
+            else fa.f32_bwd_plan(64))
     want = (plan.bytes, plan.stages)
     assert args[-3:] == (*want, 1234)
-    assert fa.bwd_plan_args(q) == want
+    assert fa.bwd_plan_args(q, 64) == want
 
 
 @pytest.mark.parametrize("case", ["base", "row_stride"])
@@ -393,7 +393,7 @@ def test_f32_bwd_plan_fits():
     on an H100 and is the kernels' sum: three resident 128-row tiles and
     two stages of two 64-row tiles with three rows of query statistics,
     float32 at a pitch of 68; nothing in it grows with Tq or Tk."""
-    plan = fa.f32_bwd_plan()
+    plan = fa.f32_bwd_plan(64)
     assert (plan.rows, plan.tile, plan.stages) == (128, 64, 2)
     assert plan.bytes == 4 * (3 * 128 * 68 + 2 * (2 * 64 * 68 + 3 * 64))
     assert plan.bytes <= SMEM_LIMIT
@@ -408,13 +408,13 @@ def _f32_walked(tq, tk, length, causal):
     nqb = -(-tq // 128)
     dq = set()
     for i in range(nqb):
-        rows = fa.f32_tile_rows(i, tq)
-        for kt in fa.f32_bwd_walk("dq", i, tq, length, tk, causal):
+        rows = fa.f32_tile_rows(i, tq, 64)
+        for kt in fa.f32_bwd_walk("dq", i, tq, length, tk, causal, 64):
             dq.add((max(rows[0], 0), rows[-1], kt * 64,
                     min(kt * 64 + 64, tk) - 1))
     dkv = set()
     for i in range(-(-tk // 128)):
-        for qt in fa.f32_bwd_walk("dkv", i, tq, length, tk, causal):
+        for qt in fa.f32_bwd_walk("dkv", i, tq, length, tk, causal, 64):
             dkv.add((qt * 64, min(qt * 64 + 64, tq) - 1, i * 128,
                      min(i * 128 + 128, tk) - 1))
     return dq, dkv

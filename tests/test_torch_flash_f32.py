@@ -38,20 +38,21 @@ def test_f32_plan_holds_every_launch(b, h, tq, tk, causal):
     blocks cover every (query tile, head, batch row) once and the tiles
     every query row once; in launch order (x fastest) the causal walks of
     full-length rows never grow."""
-    plan = fa.f32_fwd_plan()
+    plan = fa.f32_fwd_plan(64)
     assert plan.bytes <= fa.SMEM_LIMIT
     assert plan.bytes == 4 * (2 * 128 * 68 + 2 * 64 * 68 + 2 * 64 * 64)
     assert (plan.q_tile, plan.k_tile, plan.stages) == (128, 64, 2)
-    gx, gy, gz = fa.f32_fwd_grid(b, h, tq)
+    gx, gy, gz = fa.f32_fwd_grid(b, h, tq, 64)
     assert gz * plan.q_tile >= tq > (gz - 1) * plan.q_tile
     order = [fa.f32_block_tile(x, y, z, gz) for z in range(gz)
              for y in range(gy) for x in range(gx)]
     assert len(set(order)) == len(order) == gz * h * b
     assert set(order) == {(qt, hh, bb) for qt in range(gz)
                           for hh in range(h) for bb in range(b)}
-    rows = [r for qt in range(gz) for r in fa.f32_tile_rows(qt, tq)]
+    rows = [r for qt in range(gz) for r in fa.f32_tile_rows(qt, tq, 64)]
     assert rows == list(range(tq))          # each query row in one tile
-    walks = [fa.f32_key_tiles(qt, tq, tk, tk, causal) for qt, _, _ in order]
+    walks = [fa.f32_key_tiles(qt, tq, tk, tk, causal, 64)
+             for qt, _, _ in order]
     assert walks == sorted(walks, reverse=True)
 
 
@@ -64,9 +65,9 @@ def test_f32_key_tiles_cover_every_probability(tq, tk, causal):
     the tiles the walk takes."""
     for length in (0, 1, 63, 64, 65, tk // 2, tk):
         for qt in range(-(-tq // 128)):
-            n = fa.f32_key_tiles(qt, tq, length, tk, causal)
+            n = fa.f32_key_tiles(qt, tq, length, tk, causal, 64)
             last = -1
-            rows = fa.f32_tile_rows(qt, tq)
+            rows = fa.f32_tile_rows(qt, tq, 64)
             assert rows[-1] == tq - 1 - 128 * (-(-tq // 128) - 1 - qt)
             for r in rows:
                 if length < 1:
@@ -80,11 +81,11 @@ def test_f32_key_tiles_cover_every_probability(tq, tk, causal):
 def test_fwd_args_by_dtype():
     """K3/K4/K5 launches take ``_plan_args`` in bf16 and the float32
     body's plan in float32."""
-    plan = fa.f32_fwd_plan()
+    plan = fa.f32_fwd_plan(64)
     q = torch.zeros(1, 640, 128)
-    assert fa._fwd_args(q, 640) == (plan.bytes, plan.q_tile, plan.stages)
+    assert fa._fwd_args(q, 640, 64) == (plan.bytes, plan.q_tile, plan.stages)
     qb = q.to(torch.bfloat16)
-    assert fa._fwd_args(qb, 640) == fa._plan_args(qb, 640)
+    assert fa._fwd_args(qb, 640, 64) == fa._plan_args(qb, 640, 64)
 
 
 def test_f32_forward_rejects_misaligned_views():

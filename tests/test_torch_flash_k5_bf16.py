@@ -58,7 +58,7 @@ def test_k5_plan_holds_every_launch(monkeypatch, tq, tk):
     """The plan fits the block limit, is the kernel's sum, and is what a
     bf16 K5 launch passes (smem bytes, query rows per block, stages)
     whatever Tq and Tk: every walk streams, so nothing grows with them."""
-    plan = fa.k5_fwd_plan()
+    plan = fa.k5_fwd_plan(64)
     tile_bytes = TILE * D * 2
     assert plan.bytes <= fa.SMEM_LIMIT
     assert plan.bytes == 1024 + (2 + 2 * plan.stages) * tile_bytes \

@@ -62,9 +62,9 @@ def test_k5b_keeps_its_limit():
 
 def test_k5_plans_do_not_grow_with_tk():
     """Neither K5 body sizes anything by Tk: one plan takes every call."""
-    assert fa.k5_fwd_plan() == fa.k5_fwd_plan()
+    assert fa.k5_fwd_plan(64) == fa.k5_fwd_plan(64)
     assert fa.k5_grid(2, 16, 12288) == (16, 2, 96)
-    assert fa.f32_fwd_grid(2, 16, 12288) == (16, 2, 96)
+    assert fa.f32_fwd_grid(2, 16, 12288, 64) == (16, 2, 96)
     w = fa.k5_walks(0, 12288, 12288, 12288, False)
     assert w == (192, 192, 192)
 

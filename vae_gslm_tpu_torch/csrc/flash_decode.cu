@@ -18,7 +18,8 @@
 // Bound.  The kernel is bound by HBM bytes: per call it must read the
 // B*H*(pos+1) valid cache rows (int8 K and V, 2*D bytes, plus two float32
 // scales) and q, and write the output: B*H*((pos+1)*(2*D + 8) + 8*D)
-// bytes.  At the per-layer path's B = 128, 16 heads of 64, that is about
+// bytes.  At the per-layer path's B = 128, 16 heads of 64 (8 of 128 and
+// 32 of 32 move the same bytes at equal H * D), that is about
 // 113 MB at pos 400, 34 us at the H100's published 3.35 TB/s; the
 // 500-step rollout launches it once per layer per step, 8000 times per
 // request batch.
@@ -27,13 +28,16 @@
 // time-minor DMA slices and its double-buffered VMEM answer Mosaic's
 // constraints; here one 256-thread block takes one (batch, head) row
 // (2048 blocks at the path's B = 128), so the blocks alone fill the
-// card's SMs.  Over the head-major cache, four threads take one key row
-// of 64 bytes with 16-byte loads (a warp reads 512 contiguous bytes), sum
-// their quarter of q . k and meet through two shuffles; the block's 256
-// logits go to shared memory, a block reduction gives the max and the
-// sum of the online softmax, and P.V runs in the same key-row layout,
-// each thread keeping 16 output channels across the blocks, reduced over
-// the block at the end.  Splitting
+// card's SMs.  Over the head-major cache, D / 16 threads take one key
+// row of D bytes with 16-byte loads (a warp reads 512 contiguous bytes),
+// sum their 16 channels of q . k and meet through log2(D / 16) shuffles;
+// the block's 256 logits go to shared memory, a block reduction gives the
+// max and the sum of the online softmax, and P.V runs in the same
+// key-row layout, each thread keeping 16 output channels across the
+// blocks, reduced over the block at the end.  D is a template parameter,
+// instantiated at 32, 64 and 128 (the launcher dispatches on head_dim and
+// refuses any other): at D = 64 four threads a row, 64 rows a pass, at
+// 32 two and 128, at 128 eight and 32.  Splitting
 // the keys over more blocks (flash-decoding) and cp.async/TMA double
 // buffering are later work.
 
@@ -47,7 +51,6 @@ namespace {
 constexpr int BLK = 256;   // keys per block of the online softmax
 constexpr int NT = 256;    // threads per thread block
 constexpr int NWARP = NT / 32;
-constexpr int D = 64;      // head_dim
 constexpr float NEG_INF = -1e30f;
 
 struct Args {
@@ -76,7 +79,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+template <int D>
 __global__ void __launch_bounds__(NT) flash_decode_kernel(Args a) {
+  constexpr int TPR = D / 16;        // threads a key row, 16 channels each
+  constexpr int ROWS = NT / TPR;     // key rows a pass
   __shared__ float qs[D];
   __shared__ float logit[BLK];
   __shared__ float p[BLK];
@@ -101,7 +107,7 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(Args a) {
   const float slope = a.slopes[h];
   const int nblk = (a.pos + BLK) / BLK;
   // channels [part * 16, part * 16 + 16) of this thread's keys
-  const int part = tid & 3;
+  const int part = tid % TPR;
   float acc[16];
 #pragma unroll
   for (int j = 0; j < 16; ++j) acc[j] = 0.f;
@@ -112,16 +118,17 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(Args a) {
     const int t0 = blk * BLK;
     // q . k of the block's 256 keys into shared memory
 #pragma unroll
-    for (int pass = 0; pass < BLK / 64; ++pass) {
-      const int key = pass * 64 + (tid >> 2);
+    for (int pass = 0; pass < BLK / ROWS; ++pass) {
+      const int key = pass * ROWS + tid / TPR;
       const int4 raw = *reinterpret_cast<const int4*>(
           kp + (size_t)(t0 + key) * D + part * 16);
       const int8_t* kb = reinterpret_cast<const int8_t*>(&raw);
       float dot = 0.f;
 #pragma unroll
       for (int j = 0; j < 16; ++j) dot = fmaf(qs[part * 16 + j], (float)kb[j], dot);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-      dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+#pragma unroll
+      for (int o = 1; o < TPR; o <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
       if (part == 0) logit[key] = dot;
     }
     __syncthreads();
@@ -153,8 +160,8 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < 16; ++j) acc[j] *= corr;
 #pragma unroll
-    for (int pass = 0; pass < BLK / 64; ++pass) {
-      const int key = pass * 64 + (tid >> 2);
+    for (int pass = 0; pass < BLK / ROWS; ++pass) {
+      const int key = pass * ROWS + tid / TPR;
       const float pk = p[key];
       const int4 raw = *reinterpret_cast<const int4*>(
           vp + (size_t)(t0 + key) * D + part * 16);
@@ -165,16 +172,16 @@ __global__ void __launch_bounds__(NT) flash_decode_kernel(Args a) {
     __syncthreads();   // logit, p and the reductions are rewritten next
   }
 
-  // lanes with the same tid % 4 hold the same channels
+  // lanes with the same tid % TPR hold the same channels
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     float y = acc[j];
-    y += __shfl_xor_sync(0xffffffffu, y, 4);
-    y += __shfl_xor_sync(0xffffffffu, y, 8);
-    y += __shfl_xor_sync(0xffffffffu, y, 16);
+#pragma unroll
+    for (int o = TPR; o < 32; o <<= 1)
+      y += __shfl_xor_sync(0xffffffffu, y, o);
     acc[j] = y;
   }
-  if (lane < 4) {
+  if (lane < TPR) {
 #pragma unroll
     for (int j = 0; j < 16; ++j) part_acc[warp][lane * 16 + j] = acc[j];
   }
@@ -195,7 +202,7 @@ extern "C" int flash_decode_int8_launch(
     const void* v, const void* k_scale, const void* v_scale,
     const void* slopes, void* out, int B, int H, int T, int head_dim, int pos,
     float scale, void* stream) {
-  if (head_dim != D || T % BLK || pos < 0 || pos >= T || B <= 0 || H <= 0)
+  if (T % BLK || pos < 0 || pos >= T || B <= 0 || H <= 0)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -211,6 +218,19 @@ extern "C" int flash_decode_int8_launch(
   a.T = T;
   a.pos = pos;
   a.scale = scale;
-  flash_decode_kernel<<<B * H, NT, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32:
+      flash_decode_kernel<32><<<B * H, NT, 0, st>>>(a);
+      break;
+    case 64:
+      flash_decode_kernel<64><<<B * H, NT, 0, st>>>(a);
+      break;
+    case 128:
+      flash_decode_kernel<128><<<B * H, NT, 0, st>>>(a);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

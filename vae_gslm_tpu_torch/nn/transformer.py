@@ -543,7 +543,11 @@ class TransformerLayerStack(nn.Module):
     def supports_mega_decode(self) -> bool:
         """JAX's eligibility checks for K2 (int8 projections, no other
         norm than pre-LN RMSNorm with eps 1e-6, ALiBi, GELU, ffd = 4 dim,
-        dim a multiple of 256), plus the port kernel's head_dim of 64."""
+        dim a multiple of 256), plus one of the port's own: K2 is built
+        for head_dim 64 alone (``ops/mega_step.HEAD_DIM``), where JAX's
+        takes any width, so a trunk of other heads samples on the hybrid
+        route (K1 takes every width; the flash kernels and K6 take 32, 64
+        and 128)."""
         if not self.supports_stacked_decode():
             return False
         d = self.dim

@@ -50,10 +50,14 @@ the route of every self-attention layer under a data-parallel process
 group (``parallel/tp.py``): ``backward_route`` picks K4 with ``lse`` and
 K4b, K4/K5 and K5b, or K5 and the dense recompute.  On CPU tensors every
 wrapper runs its plain version; on CUDA tensors it launches its kernel or
-raises (head_dim 64, float32/bfloat16 only).  K3 and K4 in bfloat16 run
-a Hopper kernel (TMA tensor maps built from the operands' strides,
-``wgmma``) whose dynamic shared memory the wrapper plans
-(``fwd_smem_plan``) and the launcher checks; so do K3b, K4b and K5b in
+raises (head_dim 32, 64 or 128, ``HEAD_DIMS``: every body is a template
+on the head width, instantiated at those three; float32/bfloat16 only).
+Every plan below is a function of the head width ``d``.  K3 and K4 in
+bfloat16 run a Hopper kernel (TMA tensor maps built from the operands'
+strides, ``wgmma``) whose dynamic shared memory the wrapper plans
+(``fwd_smem_plan``: K resident, or at D = 128 past 704 keys streamed
+through K5's body, which then writes lse) and the launcher checks; so do
+K3b, K4b and K5b in
 bfloat16 (``bwd_smem_plan``: two launches, dq then dk/dv, K5b's row
 statistics folded into the dq kernel).  K5 in bfloat16 runs a Hopper
 kernel of its own (two passes over K streamed through a TMA ring, two
@@ -80,7 +84,7 @@ NEG_INF = -1e30
 MAX_T = 1024          # K3/K4 envelope (JAX's _FWD_FULL_MAX_T)
 MAX_TK = 8192         # K5b's key walk (JAX's _BWD_BLOCKWISE_MAX_TK); K5
 #                       walks any Tk
-HEAD_DIM = 64
+HEAD_DIMS = (32, 64, 128)   # the kernels' instantiations (csrc templates)
 TILE = 64             # the kernels' query and key rows per tile
 V_STAGES = 2          # the bf16 K3/K4 forward's ring of V tiles
 BWD_STAGES = 2        # the bf16 K3b/K4b/K5b backward's rings
@@ -89,11 +93,29 @@ K5B_BF16_KERNELS = 2  # kernels per bf16 K5b call: dq (statistics folded
 K5B_F32_KERNELS = 2   # the same in float32
 K5_Q_ROWS = 128       # the bf16 K5 forward's query rows per block
 K5_STAGES = 4         # its K/V ring
-F32_Q_TILE = 128      # the float32 forward's query rows per block (and
-#                       the float32 backward's resident rows)
-F32_STAGES = 2        # its K/V ring (and the backward's)
-F32_PITCH = HEAD_DIM + 4   # floats per shared row of its Q, K and P tiles
+F32_STAGES = 2        # the float32 bodies' K/V ring (and the backward's)
+F32_P_PITCH = TILE + 4   # floats per shared row of their P/dS tiles
 SMEM_LIMIT = 232448   # the most dynamic shared memory an H100 block takes
+
+
+def f32_q_tile(d: int) -> int:
+    """The float32 forward's query rows per block (and the float32
+    backward's resident rows) at head width ``d``: 64 at 128 (so that the
+    plans fit a block), else 128 (``F32<D>::FQ``)."""
+    return 64 if d == 128 else 128
+
+
+def f32_pitch(d: int) -> int:
+    """Floats per shared row of the float32 bodies' Q, K and dO tiles
+    (``F32<D>::FP``): the row and 16 bytes, so that sixteen rows read
+    along D fall in different banks."""
+    return d + 4
+
+
+def tile_bytes(d: int) -> int:
+    """Bytes of one 64-row bf16 tile of head width ``d``
+    (``Tile<D>::BYTES``)."""
+    return TILE * d * 2
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -255,16 +277,16 @@ def _launchers():
         lib = load("flash_attention")
         p, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_float)
-        lib.flash_fwd_packed_launch.argtypes = [p] * 7 + [ll] * 8 + [i] * 5 \
+        lib.flash_fwd_packed_launch.argtypes = [p] * 7 + [ll] * 8 + [i] * 6 \
             + [f] + [i] * 3 + [p]
         lib.flash_bwd_packed_launch.argtypes = [p] * 11 + [ll] * 14 \
-            + [i] * 5 + [f] + [i] * 2 + [p]
-        lib.flash_fwd_full_launch.argtypes = [p] * 7 + [ll] * 12 + [i] * 5 \
+            + [i] * 6 + [f] + [i] * 2 + [p]
+        lib.flash_fwd_full_launch.argtypes = [p] * 7 + [ll] * 12 + [i] * 6 \
             + [f] + [i] * 3 + [p]
         lib.flash_fwd_tiled_launch.argtypes = [p] * 6 + [ll] * 12 \
-            + [i] * 6 + [f] + [i] * 3 + [p]
+            + [i] * 7 + [f] + [i] * 3 + [p]
         lib.flash_bwd_bhtd_launch.argtypes = [i] + [p] * 12 + [ll] * 21 \
-            + [i] * 6 + [f] + [i] * 2 + [p]
+            + [i] * 7 + [f] + [i] * 2 + [p]
         for fn in (lib.flash_fwd_packed_launch, lib.flash_bwd_packed_launch,
                    lib.flash_fwd_full_launch, lib.flash_fwd_tiled_launch,
                    lib.flash_bwd_bhtd_launch):
@@ -275,25 +297,45 @@ def _launchers():
 
 class FwdPlan(NamedTuple):
     """The dynamic shared memory of one bf16 K3/K4 forward launch."""
-    tiles: int        # resident key tiles: the most any query tile walks
-    stages: int       # V ring stages
+    tiles: int        # resident key tiles (the most any query tile
+    #                   walks), or 0: K streamed (``k5_fwd_plan``'s body)
+    stages: int       # V ring stages (streamed: K/V ring stages)
     bytes: int        # alignment slack, Q, K, V stages and mbarriers
 
 
-def fwd_smem_plan(t: int) -> FwdPlan:
+def resident_plan_bytes(tiles: int, d: int) -> int:
+    """The resident plan's bytes (``plan_bytes<D>``): Q, ``tiles`` key
+    tiles kept for both softmax passes and ``V_STAGES`` V tiles of 64
+    rows at head width ``d``, 1024 bytes of alignment slack, one 8-byte
+    mbarrier for Q, each key tile and each stage's full and empty."""
+    return (1024 + (1 + tiles + V_STAGES) * tile_bytes(d)
+            + 8 * (1 + tiles + 2 * V_STAGES))
+
+
+def resident_tiles(d: int) -> int:
+    """The most key tiles K3/K4's bf16 forward keeps resident at head
+    width ``d`` (``resident_tiles<D>``): 16 (T <= 1024) at 32 and 64, 11
+    (T <= 704) at 128."""
+    n = -(-MAX_T // TILE)
+    while n > 0 and resident_plan_bytes(n, d) > SMEM_LIMIT:
+        n -= 1
+    return n
+
+
+def fwd_smem_plan(t: int, d: int) -> FwdPlan:
     """The shared-memory plan of the bf16 K3/K4 forward over T = Tq = Tk
-    (``fwd_wgmma`` in ``csrc/flash_attention.cu``, whose ``plan_bytes``
-    is the same sum): Q, every key tile a query tile can walk (kept for
-    both softmax passes) and ``V_STAGES`` V tiles of 64 x 64 bf16, 1024
-    bytes of alignment slack, one 8-byte mbarrier for Q, each key tile
-    and each stage's full and empty.  A row of length 0 walks all
-    ceil(T / 64) key tiles (the kernels' ``key_tiles``), causal or not,
-    so the plan holds them all."""
+    at head width ``d`` (``fwd_wgmma`` in ``csrc/flash_attention.cu``):
+    every key tile a query tile can walk resident (``resident_plan_bytes``;
+    a row of length 0 walks all ceil(T / 64) key tiles, the kernels'
+    ``key_tiles``, causal or not, so the plan holds them all), or, where
+    they do not fit (``resident_tiles``: D = 128 past 704 keys), 0 tiles
+    and ``k5_fwd_plan``'s stages and bytes: the launcher then runs K5's
+    streaming body, which writes lse, under K3's or K4's name."""
     tiles = -(-t // TILE)
-    tile_bytes = TILE * HEAD_DIM * 2
-    nbytes = (1024 + (1 + tiles + V_STAGES) * tile_bytes
-              + 8 * (1 + tiles + 2 * V_STAGES))
-    return FwdPlan(tiles, V_STAGES, nbytes)
+    if tiles > resident_tiles(d):
+        plan = k5_fwd_plan(d)
+        return FwdPlan(0, plan.stages, plan.bytes)
+    return FwdPlan(tiles, V_STAGES, resident_plan_bytes(tiles, d))
 
 
 class BwdPlan(NamedTuple):
@@ -303,27 +345,27 @@ class BwdPlan(NamedTuple):
     bytes: int        # alignment slack, tiles, query rows and mbarriers
 
 
-def bwd_smem_plan() -> BwdPlan:
-    """The shared-memory plan of the bf16 K3b/K4b/K5b backward
-    (``bwd_wgmma`` in ``csrc/flash_attention.cu``, whose
-    ``bwd_plan_bytes`` is the same sum), one plan for both kernels: 1024
-    bytes of alignment slack; two resident 64 x 64 bf16 tiles (K and V
-    in the dk/dv kernel, Q and dO in the dq kernel) and two per ring
+def bwd_smem_plan(d: int) -> BwdPlan:
+    """The shared-memory plan of the bf16 K3b/K4b/K5b backward at head
+    width ``d`` (``bwd_wgmma`` in ``csrc/flash_attention.cu``, whose
+    ``bwd_plan_bytes<D>`` is the same sum), one plan for both kernels:
+    1024 bytes of alignment slack; two resident 64-row bf16 tiles (K and
+    V in the dk/dv kernel, Q and dO in the dq kernel) and two per ring
     stage (Q and dO, or K and V); each stage's float32 query rows (lse or
     m, l, 1/l, delta: 4 x 64); one 8-byte mbarrier for the resident
     tiles and each stage's full and empty.  Nothing grows with T (every
     walk streams), so every Tq and Tk the wrappers admit take it."""
-    tile_bytes = TILE * HEAD_DIM * 2
-    nbytes = (1024 + (2 + 2 * BWD_STAGES) * tile_bytes
+    nbytes = (1024 + (2 + 2 * BWD_STAGES) * tile_bytes(d)
               + BWD_STAGES * 4 * TILE * 4 + 8 * (1 + 2 * BWD_STAGES))
     return BwdPlan(BWD_STAGES, nbytes)
 
 
-def bwd_plan_args(q: torch.Tensor) -> Tuple[int, int]:
-    """(smem bytes, ring stages) of a backward launch: ``bwd_smem_plan``
-    for bf16 and ``f32_bwd_plan`` for float32 (K3b, K4b and K5b
-    alike)."""
-    plan = bwd_smem_plan() if q.dtype == torch.bfloat16 else f32_bwd_plan()
+def bwd_plan_args(q: torch.Tensor, d: int) -> Tuple[int, int]:
+    """(smem bytes, ring stages) of a backward launch at head width
+    ``d``: ``bwd_smem_plan`` for bf16 and ``f32_bwd_plan`` for float32
+    (K3b, K4b and K5b alike)."""
+    plan = (bwd_smem_plan(d) if q.dtype == torch.bfloat16
+            else f32_bwd_plan(d))
     return (plan.bytes, plan.stages)
 
 
@@ -336,14 +378,14 @@ class K5Plan(NamedTuple):
     bytes: int        # alignment slack, Q, the stages and mbarriers
 
 
-def k5_fwd_plan() -> K5Plan:
-    """The bf16 K5 forward's plan: 1024 bytes of alignment slack, the
-    block's 128 query rows as two 64 x 64 bf16 tiles, ``K5_STAGES`` ring
-    stages of a K and a V tile (both passes stream K, the second V too,
-    so nothing grows with Tq or Tk: one plan takes every call, at any
-    Tk), one 8-byte mbarrier for Q and each stage's full and empty."""
-    tile_bytes = TILE * HEAD_DIM * 2
-    nbytes = (1024 + (K5_Q_ROWS // TILE + 2 * K5_STAGES) * tile_bytes
+def k5_fwd_plan(d: int) -> K5Plan:
+    """The bf16 K5 forward's plan at head width ``d``
+    (``k5_plan_bytes<D>``): 1024 bytes of alignment slack, the block's
+    128 query rows as two 64-row bf16 tiles, ``K5_STAGES`` ring stages of
+    a K and a V tile (both passes stream K, the second V too, so nothing
+    grows with Tq or Tk: one plan takes every call, at any Tk), one
+    8-byte mbarrier for Q and each stage's full and empty."""
+    nbytes = (1024 + (K5_Q_ROWS // TILE + 2 * K5_STAGES) * tile_bytes(d)
               + 8 * (1 + 2 * K5_STAGES))
     return K5Plan(K5_Q_ROWS, K5_STAGES, nbytes)
 
@@ -387,29 +429,32 @@ class F32BwdPlan(NamedTuple):
     bytes: int        # the resident rows, the P/dS tile and the stages
 
 
-def f32_bwd_plan() -> F32BwdPlan:
-    """The float32 backward's plan, one for both kernels: three tiles of
-    128 rows at ``F32_PITCH`` floats (Q and dO, or K and V, resident, and
-    the warps' P or dS rows) and ``F32_STAGES`` stages of two streamed
-    64-row tiles (K and V, or Q and dO) with the dk/dv walk's three
-    float32 rows of query statistics (lse or m, l, and delta).  Nothing
-    grows with Tq or Tk."""
-    floats = (3 * F32_Q_TILE * F32_PITCH
-              + F32_STAGES * (2 * TILE * F32_PITCH + 3 * TILE))
-    return F32BwdPlan(F32_Q_TILE, TILE, F32_STAGES, 4 * floats)
+def f32_bwd_plan(d: int) -> F32BwdPlan:
+    """The float32 backward's plan at head width ``d``
+    (``F32<D>::BWD_SMEM``), one for both kernels: two resident tiles of
+    ``f32_q_tile(d)`` rows at ``f32_pitch(d)`` floats (Q and dO, or K and
+    V), the warps' P or dS rows (that many rows of 64 at
+    ``F32_P_PITCH``) and ``F32_STAGES`` stages of two streamed 64-row
+    tiles (K and V, or Q and dO) with the dk/dv walk's three float32 rows
+    of query statistics (lse or m, l, and delta).  Nothing grows with Tq
+    or Tk."""
+    rows, fp = f32_q_tile(d), f32_pitch(d)
+    floats = (2 * rows * fp + rows * F32_P_PITCH
+              + F32_STAGES * (2 * TILE * fp + 3 * TILE))
+    return F32BwdPlan(rows, TILE, F32_STAGES, 4 * floats)
 
 
 def f32_bwd_walk(kind: str, i: int, tq: int, length: int, tk: int,
-                 causal: bool) -> range:
-    """The tiles block ``i`` of the float32 backward walks: ``kind``
-    "dq" (128-query tile ``i``, aligned to end at ``tq`` as the float32
-    forward's: its 64-key tiles, the forward's ``f32_key_tiles``) or
-    "dkv" (128-key tile ``i``: the 64-query tiles from the first that
-    can see it)."""
+                 causal: bool, d: int) -> range:
+    """The tiles block ``i`` of the float32 backward walks at head width
+    ``d``: ``kind`` "dq" (query tile ``i`` of ``f32_q_tile(d)`` rows,
+    aligned to end at ``tq`` as the float32 forward's: its 64-key tiles,
+    the forward's ``f32_key_tiles``) or "dkv" (key tile ``i`` of as many
+    rows: the 64-query tiles from the first that can see it)."""
     if kind == "dq":
-        return range(f32_key_tiles(i, tq, length, tk, causal))
+        return range(f32_key_tiles(i, tq, length, tk, causal, d))
     nq = -(-tq // TILE)
-    k0 = i * F32_Q_TILE
+    k0 = i * f32_q_tile(d)
     begin = 0
     if length >= 1:
         if k0 >= length:
@@ -429,21 +474,24 @@ class F32Plan(NamedTuple):
     bytes: int        # Q, the K and V stages and P
 
 
-def f32_fwd_plan() -> F32Plan:
-    """The float32 forward's plan: a 128-query tile of Q and its P tile
-    (padded rows of ``F32_PITCH`` floats), ``F32_STAGES`` 64-key K tiles
-    (padded) and V tiles (64 floats a row), float32.  Nothing grows with
-    Tq or Tk (every walk streams), so one plan takes every call."""
-    q_rows = F32_Q_TILE * F32_PITCH
-    floats = (2 * q_rows + F32_STAGES * TILE * F32_PITCH
-              + F32_STAGES * TILE * HEAD_DIM)
-    return F32Plan(F32_Q_TILE, TILE, F32_STAGES, 4 * floats)
+def f32_fwd_plan(d: int) -> F32Plan:
+    """The float32 forward's plan at head width ``d``
+    (``F32<D>::FWD_SMEM``): a query tile of ``f32_q_tile(d)`` rows of Q
+    (padded rows of ``f32_pitch(d)`` floats) and its P tile (64 keys a
+    row at ``F32_P_PITCH``), ``F32_STAGES`` 64-key K tiles (padded) and V
+    tiles (``d`` floats a row), float32.  Nothing grows with Tq or Tk
+    (every walk streams), so one plan takes every call."""
+    rows, fp = f32_q_tile(d), f32_pitch(d)
+    floats = (rows * fp + rows * F32_P_PITCH + F32_STAGES * TILE * fp
+              + F32_STAGES * TILE * d)
+    return F32Plan(rows, TILE, F32_STAGES, 4 * floats)
 
 
-def f32_fwd_grid(b: int, h: int, tq: int) -> Tuple[int, int, int]:
+def f32_fwd_grid(b: int, h: int, tq: int, d: int
+                 ) -> Tuple[int, int, int]:
     """The float32 forward's grid (x, y, z): heads, batch rows and query
     tiles, the tiles in the slowest axis."""
-    return (h, b, -(-tq // F32_Q_TILE))
+    return (h, b, -(-tq // f32_q_tile(d)))
 
 
 def f32_block_tile(x: int, y: int, z: int, nz: int) -> Tuple[int, int, int]:
@@ -453,16 +501,18 @@ def f32_block_tile(x: int, y: int, z: int, nz: int) -> Tuple[int, int, int]:
     return (nz - 1 - z, x, y)
 
 
-def f32_tile_rows(qt: int, tq: int) -> range:
-    """The query rows of tile ``qt``: the tiles are aligned to end at
-    ``tq``, so a ragged tile is the first (its rows before 0 are not
-    computed into the output) and no row past ``tq`` is walked."""
-    q0 = qt * F32_Q_TILE - (-(-tq // F32_Q_TILE) * F32_Q_TILE - tq)
-    return range(max(q0, 0), q0 + F32_Q_TILE)
+def f32_tile_rows(qt: int, tq: int, d: int) -> range:
+    """The query rows of tile ``qt`` (``f32_q_tile(d)`` rows): the tiles
+    are aligned to end at ``tq``, so a ragged tile is the first (its rows
+    before 0 are not computed into the output) and no row past ``tq`` is
+    walked."""
+    fq = f32_q_tile(d)
+    q0 = qt * fq - (-(-tq // fq) * fq - tq)
+    return range(max(q0, 0), q0 + fq)
 
 
 def f32_key_tiles(qt: int, tq: int, length: int, tk: int,
-                  causal: bool) -> int:
+                  causal: bool, d: int) -> int:
     """The key tiles [0, n) that query tile ``qt`` of the float32 forward
     walks (the kernel's ``key_tiles_f32``): every tile for a row of
     length 0, else up to the length and, causal, to the tile's last
@@ -471,26 +521,27 @@ def f32_key_tiles(qt: int, tq: int, length: int, tk: int,
     if length >= 1:
         end = min(end, -(-length // TILE))
         if causal:
-            end = min(end, (f32_tile_rows(qt, tq)[-1]) // TILE + 1)
+            end = min(end, (f32_tile_rows(qt, tq, d)[-1]) // TILE + 1)
     return end
 
 
-def _plan_args(q: torch.Tensor, t: int) -> Tuple[int, ...]:
+def _plan_args(q: torch.Tensor, t: int, d: int) -> Tuple[int, ...]:
     """(smem bytes, key tiles, V stages) for the launcher: the plan for
     bf16, zeros for float32 (whose kernels take none)."""
     if q.dtype != torch.bfloat16:
         return (0, 0, 0)
-    plan = fwd_smem_plan(t)
+    plan = fwd_smem_plan(t, d)
     return (plan.bytes, plan.tiles, plan.stages)
 
 
-def _fwd_args(q: torch.Tensor, t: int) -> Tuple[int, ...]:
-    """The plan a K3/K4 forward launch takes: ``_plan_args`` for
-    bfloat16, and for float32 ``f32_fwd_plan`` as (smem bytes, query rows
-    per tile, stages), which K5's float32 launch takes too."""
+def _fwd_args(q: torch.Tensor, t: int, d: int) -> Tuple[int, ...]:
+    """The plan a K3/K4 forward launch takes at head width ``d``:
+    ``_plan_args`` for bfloat16, and for float32 ``f32_fwd_plan`` as
+    (smem bytes, query rows per tile, stages), which K5's float32 launch
+    takes too."""
     if q.dtype == torch.bfloat16:
-        return _plan_args(q, t)
-    plan = f32_fwd_plan()
+        return _plan_args(q, t, d)
+    plan = f32_fwd_plan(d)
     return (plan.bytes, plan.q_tile, plan.stages)
 
 
@@ -521,15 +572,16 @@ def packed_eligible(q: torch.Tensor, k: torch.Tensor, nheads: int) -> bool:
     return hpb > 0 and nheads % hpb == 0 and k.shape[1] == t and t <= MAX_T
 
 
-def _check_kernel(what: str, q, lengths, slopes, nheads: int) -> None:
-    """The kernels' head_dim and dtypes, and the lengths/slopes they
-    read; raises naming what is missing."""
+def _check_kernel(what: str, q, lengths, slopes, nheads: int) -> int:
+    """The kernels' head widths and dtypes, and the lengths/slopes they
+    read; raises naming what is missing.  Returns the head width."""
     d = q.shape[-1] if q.dim() == 4 else q.shape[-1] // nheads
-    if d != HEAD_DIM or q.dtype not in (torch.float32, torch.bfloat16):
+    if d not in HEAD_DIMS or q.dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(
-            f"{what} on CUDA takes head_dim {HEAD_DIM} and float32/bfloat16; "
-            f"got head_dim {d} in {q.dtype} (q {tuple(q.shape)}, {nheads} "
-            "heads).  Other head widths are not ported (ROADMAP.md)")
+            f"{what} on CUDA takes head_dim 32, 64 or 128 and "
+            f"float32/bfloat16; got head_dim {d} in {q.dtype} (q "
+            f"{tuple(q.shape)}, {nheads} heads).  Other head widths are not "
+            "ported (ROADMAP.md)")
     if lengths.dtype != torch.int32 or lengths.shape != (q.shape[0],) \
             or lengths.device != q.device or not lengths.is_contiguous():
         raise ValueError("lengths must be a contiguous (B,) int32 tensor on "
@@ -540,6 +592,7 @@ def _check_kernel(what: str, q, lengths, slopes, nheads: int) -> None:
                                or not slopes.is_contiguous()):
         raise ValueError("slopes must be a contiguous (H,) float32 tensor "
                          "on q's device")
+    return d
 
 
 def _strides(name: str, x: torch.Tensor, shape, dtype, device,
@@ -575,8 +628,8 @@ def _check_packed(q, k, v, lengths, slopes, nheads: int):
             f"grouping and T <= {MAX_T}; got q {tuple(q.shape)} with "
             f"{nheads} heads, k {tuple(k.shape)} (flash_attention_packed "
             "takes K4/K5 there)")
-    _check_kernel("K3/K3b (packed flash attention)", q, lengths, slopes,
-                  nheads)
+    return _check_kernel("K3/K3b (packed flash attention)", q, lengths,
+                         slopes, nheads)
 
 
 def flash_forward_packed(q, k, v, lengths, slopes, causal: bool,
@@ -588,8 +641,22 @@ def flash_forward_packed(q, k, v, lengths, slopes, causal: bool,
                                           nheads)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention for {q.device}")
-    _check_packed(q, k, v, lengths, slopes, nheads)
-    b, t, hd = q.shape
+    out = _packed_forward(q, k, v, lengths, slopes, causal, nheads,
+                          _stream(q.device))
+    flash_forward_packed.launches += 1
+    return out
+
+
+flash_forward_packed.launches = 0
+
+
+def _packed_forward(q, k, v, lengths, slopes, causal: bool, nheads: int,
+                    stream: int):
+    """K3's checks and its launch on ``stream``: the head width, the
+    operands' strides (the tensor maps' 16-byte rule), then
+    ``flash_fwd_packed_launch`` with ``_fwd_args``."""
+    d = _check_packed(q, k, v, lengths, slopes, nheads)
+    b, t, _ = q.shape
     dev = q.device
     seqs = [_strides(n, x, q.shape, q.dtype, dev, aligned=True)
             for n, x in (("q", q), ("k", k), ("v", v))]
@@ -600,16 +667,11 @@ def flash_forward_packed(q, k, v, lengths, slopes, causal: bool,
         lse.data_ptr(), lengths.data_ptr(),
         slopes.data_ptr() if slopes is not None else None,
         *seqs[0], *seqs[1], *seqs[2], *o.stride()[:2],
-        b, t, nheads, int(q.dtype == torch.bfloat16), int(causal),
-        1.0 / math.sqrt(hd // nheads), *_fwd_args(q, t),
-        torch.cuda.current_stream(dev).cuda_stream)
+        b, t, nheads, d, int(q.dtype == torch.bfloat16), int(causal),
+        1.0 / math.sqrt(d), *_fwd_args(q, t, d), stream)
     if err != 0:
         raise _launch_error("flash attention forward", err)
-    flash_forward_packed.launches += 1
     return o, lse
-
-
-flash_forward_packed.launches = 0
 
 
 def flash_backward_packed(q, k, v, o, g, lse, lengths, slopes,
@@ -643,8 +705,8 @@ def _packed_backward(q, k, v, o, g, lse, lengths, slopes, causal: bool,
     """K3b's checks and its launch on ``stream``: the operands' strides
     (the tensor maps' 16-byte rule), lse's layout, delta, then
     ``flash_bwd_packed_launch`` with ``bwd_plan_args``."""
-    _check_packed(q, k, v, lengths, slopes, nheads)
-    b, t, hd = q.shape
+    d = _check_packed(q, k, v, lengths, slopes, nheads)
+    b, t, _ = q.shape
     dev = q.device
     seqs = [_strides(n, x, q.shape, q.dtype, dev, aligned=True)
             for n, x in (("q", q), ("k", k), ("v", v), ("dO", g))]
@@ -662,8 +724,8 @@ def _packed_backward(q, k, v, o, g, lse, lengths, slopes, causal: bool,
         *(x.data_ptr() for x in grads),
         *seqs[0], *seqs[1], *seqs[2], *seqs[3],
         *(s for x in grads for s in x.stride()[:2]),
-        b, t, nheads, int(q.dtype == torch.bfloat16), int(causal),
-        1.0 / math.sqrt(hd // nheads), *bwd_plan_args(q), stream)
+        b, t, nheads, d, int(q.dtype == torch.bfloat16), int(causal),
+        1.0 / math.sqrt(d), *bwd_plan_args(q, d), stream)
     if err != 0:
         raise _launch_error("flash attention backward", err)
     return tuple(grads)
@@ -698,17 +760,17 @@ def _bhtd_launch(kind: str, q, k, v, lengths, slopes, causal: bool,
         err = lib.flash_fwd_full_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr() if lse is not None else None, lengths.data_ptr(),
-            slope_ptr, *common, b, tq, h, *tail[:3],
-            *_fwd_args(q, tq), tail[3])
+            slope_ptr, *common, b, tq, h, d, *tail[:3],
+            *_fwd_args(q, tq, d), tail[3])
     else:
         if q.dtype == torch.float32:
-            plan = _fwd_args(q, tq)
+            plan = _fwd_args(q, tq, d)
         else:
-            p5 = k5_fwd_plan()
+            p5 = k5_fwd_plan(d)
             plan = (p5.bytes, p5.q_rows, p5.stages)
         err = lib.flash_fwd_tiled_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lengths.data_ptr(), slope_ptr, *common, b, tq, tk, h,
+            lengths.data_ptr(), slope_ptr, *common, b, tq, tk, h, d,
             *tail[:3], *plan, tail[3])
     if err != 0:
         raise _launch_error(what, err)
@@ -800,8 +862,8 @@ def _bhtd_backward(kind: str, q, k, v, o, g, lengths, slopes, causal: bool,
         rowa.data_ptr(), rowl.data_ptr() if rowl is not None else None,
         delta.data_ptr(), lengths.data_ptr(), slope_ptr,
         *(x.data_ptr() for x in grads), *(s_ for x in st for s_ in x),
-        b, tq, tk, h, int(bf16), int(causal), scale, *bwd_plan_args(q),
-        stream)
+        b, tq, tk, h, d, int(bf16), int(causal), scale,
+        *bwd_plan_args(q, d), stream)
     if err != 0:
         raise _launch_error(what, err)
     return tuple(grads)

@@ -16,7 +16,9 @@ What it computes (float32; q is not quantized): for each of the
 ``s = (q . k) / sqrt(D) * k_scale + slope * |t - pos|`` masked to
 ``t <= pos``, an online softmax (running max ``m``, sum ``l``), and
 ``acc += (e * v_scale) . v``; the result is ``acc / l``.  T must be a
-multiple of 256.
+multiple of 256.  The kernel is a template on the head width D,
+instantiated at 32, 64 and 128 (``HEAD_DIMS``); the scale stays
+``1 / sqrt(D)``.
 
 On a CPU tensor a wrapper computes ``flash_decode_int8_plain``, the same
 math in torch ops summed block by block; on a CUDA tensor it launches the
@@ -30,7 +32,7 @@ import math
 import torch
 
 BLK = 256
-HEAD_DIM = 64
+HEAD_DIMS = (32, 64, 128)   # the kernel's instantiations
 NEG_INF = -1e30
 
 
@@ -112,8 +114,10 @@ def flash_decode_int8(q, k, v, k_scale, v_scale, pos: int,
     if q.device.type != "cuda":
         raise ValueError(f"no flash_decode_int8 for {q.device}")
     dev = q.device
-    if d != HEAD_DIM:
-        raise ValueError(f"head_dim {d}: the kernel takes {HEAD_DIM}")
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"head_dim {d}: the kernel takes head_dim 32, 64 or 128 "
+            "(other widths are not ported: ROADMAP.md)")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q: dtype {q.dtype}, expected float32/bfloat16")
     if q.stride()[1:] != (d, 1):
