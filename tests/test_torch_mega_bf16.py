@@ -5,8 +5,9 @@ version.
 
 Imports only torch, numpy and the port, so that it runs on a machine
 with a card and no JAX model stack.  Inputs are made here from a seed: a
-two-layer trunk of dim 256 (4 heads of 64) with int8 weights and column
-scales, a random three-tier cache, at the ``(flushed, pos)`` cases of
+two-layer trunk of dim 256 (4 heads of 64; 8 of 32 and 2 of 128 for the
+other head widths) with int8 weights and column scales, a random
+three-tier cache, at the ``(flushed, pos)`` cases of
 ``tests/test_torch_mega_step.py`` (``CASES``), the last a full tail with
 an empty stage.  The designs' premises and the kernels' shared-memory
 plans are held on the CPU there; these cases skip without a card."""
@@ -25,12 +26,13 @@ CASES = [(0, 0), (0, 5), (0, 40), (128, 140), (256, 300), (256, 384)]
 D, H, L, NB = 256, 4, 2, 2
 
 
-def _inputs(b, dev, seed=0, d=D, nl=L):
+def _inputs(b, dev, seed=0, d=D, nl=L, h=None):
     """x, int8 weights with column scales, a three-tier cache of NB cold
     blocks, ALiBi slopes: numpy draws from ``seed``, moved to ``dev``; a
-    trunk of ``nl`` layers of dim ``d`` (heads of 64)."""
+    trunk of ``nl`` layers of dim ``d`` and ``h`` heads (heads of 64 by
+    default)."""
     rng = np.random.RandomState(seed)
-    D, L, H = d, nl, d // tmega.HEAD_DIM
+    D, L, H = d, nl, h or d // 64
     dh = D // H
 
     def i8(*shape):
@@ -176,3 +178,29 @@ def test_cuda_bf16_step_is_one_launch(cuda_device):
     one_launch(lambda: tmega.fused_trunk_step(x, w, cache, 300, slopes, 256,
                                               a8=False),
                "k2_bf16_step_kernel")
+
+
+# (heads, B, a8) at dim 256: head widths 32 and 128, the a8 branch at B 1,
+# 2 and 8 (the serving default's batches) and the bf16 branch at B 17 and
+# 32 (the CLI's chunks)
+WIDTH_CASES = [(h, b, b <= 8) for h in (8, 2) for b in (1, 2, 8, 17, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flushed,pos", CASES)
+@pytest.mark.parametrize("h,b,a8", WIDTH_CASES)
+def test_cuda_step_matches_plain_at_head_widths(cuda_device, flushed, pos,
+                                                h, b, a8):
+    """K2's instantiations at head widths 32 (8 heads) and 128 (2 heads;
+    one K/V buffer an attention group) against the plain version, one
+    launch a call under its branch's count; the band is the JAX test's."""
+    x, w, cache, slopes = _inputs(b, cuda_device, seed=b + h, h=h)
+    args = (x, w, cache, pos, slopes, flushed)
+    k2 = tmega.fused_trunk_step
+    before = (k2.launches, k2.launches_bf16)
+    got = k2(*args, a8=a8)
+    want = tmega.fused_trunk_step_plain(*args, a8=a8)
+    torch.cuda.synchronize()
+    assert (k2.launches, k2.launches_bf16) == (before[0] + a8,
+                                               before[1] + (not a8))
+    _hold(got, want)

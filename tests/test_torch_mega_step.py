@@ -58,18 +58,20 @@ CASES = [(0, 0), (0, 5), (0, 40), (128, 140), (256, 300), (256, 384)]
 B = 8
 
 
-def mega_hp_dict():
+def mega_hp_dict(nheads=4):
     d = JHparams.from_yaml(TINY_YAML).to_dict()
     d["transformer"]["layer"]["dim"] = 256
     d["transformer"]["layer"]["ffd_size"] = 1024
+    d["transformer"]["layer"]["self_attn"]["nheads"] = nheads
     return d
 
 
-def mega_lvtr_pair(seed=0):
-    """A JAX LVTR that K2 can take once quantized (dim 256, 4 heads of
-    64, ffd 1024, ALiBi, RMSNorm, GELU, no bias) and the port's LVTR
-    loaded from its export, both float32 on the CPU."""
-    d = mega_hp_dict()
+def mega_lvtr_pair(seed=0, nheads=4):
+    """A JAX LVTR that K2 can take once quantized (dim 256, ``nheads``
+    heads (4 of 64 by default), ffd 1024, ALiBi, RMSNorm, GELU, no bias)
+    and the port's LVTR loaded from its export, both float32 on the
+    CPU."""
+    d = mega_hp_dict(nheads)
     jm = JLVTR(JHparams.from_dict(d), input_dim=N_MELS, rngs=nnx.Rngs(seed))
     tm = LVTR(Hparams.from_dict(d), input_dim=N_MELS, device="cpu")
     load_reference_lvtr(tm, export_torch_lvtr(jm))
@@ -385,7 +387,7 @@ def test_bf16_step_plan_covers_every_column(b):
         plan = tmega.bf16_step_plan(b, d, h, n_sm)
         assert plan.bytes <= tmega.SMEM_LIMIT
         assert plan.slot % 1024 == 0 and plan.rows >= 4 * b
-        assert plan.region >= tmega.STEP_GROUPS * tmega.GROUP_SMEM
+        assert plan.region >= tmega.STEP_GROUPS * tmega.group_smem(d // h)
         assert tmega.bf16_step_plan(b, d, h, n_sm, occupancy=2).grid == \
             2 * n_sm
         for occ in (1, 2):
@@ -428,7 +430,7 @@ def test_bf16_step_fits_at_the_plan_limits(b, d, n_sm, slot, fits):
     so wider dims or fewer SMs outgrow the 232,448 bytes a block may use
     (the sampler then routes such batches to the hybrid path), and the
     wrapper refuses such a call before it reaches the card."""
-    h = d // tmega.HEAD_DIM
+    h = d // 64
     plan = tmega.bf16_step_plan(b, d, h, n_sm)
     assert plan.slot == slot
     assert tmega.bf16_step_fits(b, d, h, n_sm) is fits
@@ -453,12 +455,13 @@ def test_workspace_holds_every_partial(d, h, group):
     acc = 0 if group else 4 * d
     terms = 0
     for p in range(4):
-        n, k, gsz = tmega.i8_geom(p, d, group)
+        n, k, gsz = tmega.i8_geom(p, d, group, d // h)
         if not gsz:
             continue
         plan = tmega.i8_step_plan(b, d, h, 132, group)
         groups = set()
-        for col, row, rows in tmega.i8_tiles(p, d, group, plan.splits[p]):
+        for col, row, rows in tmega.i8_tiles(p, d, group, d // h,
+                                             plan.splits[p]):
             halves = (0, k // 2) if group else (0,)
             for off in halves:
                 groups.update(range((off + row) // gsz,
@@ -471,19 +474,20 @@ def test_workspace_holds_every_partial(d, h, group):
     assert tmega.i8_workspace_bytes(b, d, h, group) >= need
 
 
-def _tile_cover(p, d, group, plan, n_sm):
+def _tile_cover(p, d, group, plan, n_sm, dh=64):
     """Each stored row of each output column of product ``p``, and the
     tiles and pieces each block takes, as ``i8_issue`` walks them."""
-    n, k, gsz = tmega.i8_geom(p, d, group)
+    n, k, gsz = tmega.i8_geom(p, d, group, dh)
     kst = k // 2 if group else k
-    tiles = tmega.i8_tiles(p, d, group, plan.splits[p])
+    tiles = tmega.i8_tiles(p, d, group, dh, plan.splits[p])
     cover = np.zeros((kst, n), np.int32)
     for col, row, rows in tiles:
         assert rows % tmega.I8_CHUNK == 0
         if gsz:                       # whole fold groups in every tile
             assert row % gsz == 0 and rows % gsz == 0
         cover[row:row + rows, col:col + tmega.I8_TILE] += 1
-        assert tmega.i8_tile_bytes(p, d, group, plan.bp, rows) <= plan.region
+        assert tmega.i8_tile_bytes(p, d, group, dh, plan.bp,
+                                   rows) <= plan.region
     for blk in range(n_sm):
         mine = tiles[blk::n_sm]
         for i in range(0, len(mine), plan.tp[p]):
@@ -507,10 +511,10 @@ def test_i8_step_plan_covers_every_column(b, group):
         if group and d % (2 * group):
             continue
         for n_sm in (114, 132):
-            plan = tmega.i8_step_plan(b, d, d // tmega.HEAD_DIM, n_sm, group)
+            plan = tmega.i8_step_plan(b, d, d // 64, n_sm, group)
             assert plan.bytes <= tmega.SMEM_LIMIT
             assert plan.slot % 1024 == 0 and plan.bp % 8 == 0 >= b - plan.bp
-            assert plan.region >= tmega.STEP_GROUPS * tmega.GROUP_SMEM
+            assert plan.region >= tmega.STEP_GROUPS * tmega.group_smem(64)
             assert plan.region >= 20 * d + 4 * plan.nxs + 64
             for p in range(4):
                 cover = _tile_cover(p, d, group, plan, n_sm)
@@ -529,9 +533,9 @@ def test_i8_step_fits_at_the_plan_limits(d, n_sm, group):
     one-SM card takes them: a block's tiles then stream through the two
     slots in pieces."""
     for b in range(1, 33):
-        plan = tmega.i8_step_plan(b, d, d // tmega.HEAD_DIM, n_sm, group)
+        plan = tmega.i8_step_plan(b, d, d // 64, n_sm, group)
         assert plan.bytes <= tmega.SMEM_LIMIT
-    plan = tmega.i8_step_plan(8, d, d // tmega.HEAD_DIM, 1, group)
+    plan = tmega.i8_step_plan(8, d, d // 64, 1, group)
     assert plan.bytes <= tmega.SMEM_LIMIT and max(plan.tp) >= 1
 
 
@@ -601,7 +605,7 @@ def test_i8_split_sums_equal_the_plain_version(monkeypatch, kind):
     _, (x, w, cache, slopes) = _inputs()
     a8 = kind == "a8"
     if not a8:
-        w = pack_mega_w4(w, int(kind.split("_")[1]), tmega.HEAD_DIM)
+        w = pack_mega_w4(w, int(kind.split("_")[1]), D // H)
     want = tmega.fused_trunk_step_plain(x, w, cache, 300, slopes, 256, a8=a8)
     mm, mm_w4 = _emulated_mm(np.random.RandomState(len(kind)))
     monkeypatch.setattr(tmega, "_mm", mm)

@@ -31,9 +31,9 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _w4_inputs(b, group, dev, seed=3):
-    x, w, cache, slopes = _inputs(b, dev, seed=seed)
-    return x, pack_mega_w4(w, group, tmega.HEAD_DIM), cache, slopes
+def _w4_inputs(b, group, dev, seed=3, h=4):
+    x, w, cache, slopes = _inputs(b, dev, seed=seed, h=h)
+    return x, pack_mega_w4(w, group, 256 // h), cache, slopes
 
 
 @pytest.mark.cuda
@@ -85,9 +85,27 @@ def test_cuda_i8_step_at_wide_dims(cuda_device, d, group):
     for b in (8, 32):
         x, w, cache, slopes = _inputs(b, cuda_device, seed=d + b, d=d, nl=1)
         if group:
-            w = pack_mega_w4(w, group, tmega.HEAD_DIM)
+            w = pack_mega_w4(w, group, 64)
         args = (x, w, cache, 140, slopes, 128)
         got = tmega.fused_trunk_step(*args, a8=not group)
         want = tmega.fused_trunk_step_plain(*args, a8=not group)
         torch.cuda.synchronize()
         _hold(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flushed,pos", CASES)
+@pytest.mark.parametrize("h,group", [(2, 128), (8, 64), (8, 128)])
+@pytest.mark.parametrize("b", [8, 32])
+def test_cuda_w4_step_matches_plain_at_head_widths(cuda_device, flushed,
+                                                   pos, h, group, b):
+    """K2-w4 at head width 128 (2 heads: group 128 only, a multiple of the
+    width) and 32 (8 heads: groups 64 and 128), one launch a call."""
+    x, w, cache, slopes = _w4_inputs(b, group, cuda_device, seed=b + h, h=h)
+    args = (x, w, cache, pos, slopes, flushed)
+    before = tmega.fused_trunk_step.launches_w4
+    got = tmega.fused_trunk_step(*args)
+    want = tmega.fused_trunk_step_plain(*args)
+    torch.cuda.synchronize()
+    assert tmega.fused_trunk_step.launches_w4 == before + 1
+    _hold(got, want)

@@ -134,8 +134,10 @@ namespace {
 
 constexpr int BLK = 128;        // positions per cold block and in the tail
 constexpr int STAGE = 8;        // bf16 stage rows
-constexpr int DH = 64;          // head_dim
 constexpr int AT = 128;         // attention threads: one per block row
+// The head width DH is a template parameter of the attention code and of
+// the kernels, instantiated at 32, 64 and 128 (ops/mega_step.HEAD_DIMS);
+// the launchers take D / H and dispatch.
 constexpr float NEG_INF = -1e30f;
 constexpr int RT = 256;         // the RMS sum's width: rms_rows adds a row's
                                 // squares as RT threads (k = t, t + RT, ..)
@@ -204,7 +206,7 @@ __host__ __device__ __forceinline__ int chunk_pos(int k) {
 // ------------------------------------------------------- attention
 struct AttnArgs {
   const float* qkv;            // (B, 3D)
-  const int8_t* k_cold;        // this layer's (NB, H, B, DH, BLK)
+  const int8_t* k_cold;        // this layer's (NB, H, B, DH, BLK), DH = D/H
   const int8_t* v_cold;
   const float* kc_scale;       // this layer's (NB, H, B, BLK)
   const float* vc_scale;
@@ -243,7 +245,6 @@ constexpr int BROWS = 16;               // batch rows per tile (an M tile)
 constexpr int BTP = 2;                  // batch tiles per pass
 constexpr int PF = 2;                   // activation chunks loaded ahead
 constexpr int SMEM_LIMIT = 232448;      // a block's most on an H100
-constexpr int GROUP_SMEM = 17680;       // sizeof(GroupSmem)
 constexpr double I8_MAGIC = 4503599627370624.0;   // 2^52 + 128
 
 __host__ __device__ __forceinline__ int cdiv(int a, int b) {
@@ -268,6 +269,20 @@ __host__ __device__ __forceinline__ int imin(int a, int b) {
 struct StepPlan {
   int slot, part, region, rows, bytes;
 };
+
+// The cache-block buffers of an attention group: K and V apart at widths
+// up to 64; at 128 one buffer takes a block's K, then (once every logit
+// is read) its V, so that four groups' scratch stays within the bf16
+// step's block at d1024 / 8 x 128 (two buffers of 16 KB each would not).
+__host__ __device__ constexpr int kv_buffers(int dh) { return dh > 64 ? 1 : 2; }
+// sizeof(GroupSmem<dh>) (below; static_asserts hold each instantiation to
+// it), mirrored by ops/mega_step.py's group_smem.
+__host__ __device__ constexpr int group_smem(int dh) {
+  return (4 * 3 * dh + 4 * (AT / dh > 1 ? (AT / dh - 1) * dh : 4) + 8 * 4 +
+          4 * 4 + 4 * STAGE + dh + AT + kv_buffers(dh) * BLK * dh + 15) /
+         16 * 16;
+}
+
 __host__ __device__ inline StepPlan step_plan(int B, int D, int H, int G) {
   const int pn[4] = {3 * D, D, 4 * D, D}, pk[4] = {D, D, D, 4 * D};
   int slot = 0;
@@ -278,7 +293,7 @@ __host__ __device__ inline StepPlan step_plan(int B, int D, int H, int G) {
   const int sums = ks * btp * BROWS * UPP * UW * 8;
   const int heads = H * btp * BROWS * imin(cdiv(D / UW, G), UPP) * UW * 4;
   const int part = cdiv(imax(sums, heads), 16) * 16;
-  const int region = imax(part + 4 * D, PGROUPS * GROUP_SMEM);
+  const int region = imax(part + 4 * D, PGROUPS * group_smem(D / H));
   const int rows = cdiv(B, 4) * 16;
   return {slot, part, region, rows,
           1024 + 2 * slot + region + rows + 16};
@@ -302,15 +317,16 @@ struct StepArgs {
 // Layer li's attention arguments from layer 0's.
 __host__ __device__ inline AttnArgs attn_layer(AttnArgs a, int li,
                                                int nb_cap) {
-  const size_t hbd = (size_t)a.H * a.B * DH;
+  const size_t dh = a.D / a.H;
+  const size_t hbd = (size_t)a.H * a.B * dh;
   const size_t cold = (size_t)nb_cap * a.H * a.B * BLK;
   const size_t tail = (size_t)a.H * a.B * BLK;
-  a.k_cold += li * cold * DH;
-  a.v_cold += li * cold * DH;
+  a.k_cold += li * cold * dh;
+  a.v_cold += li * cold * dh;
   a.kc_scale += li * cold;
   a.vc_scale += li * cold;
-  a.k_tail += li * tail * DH;
-  a.v_tail += li * tail * DH;
+  a.k_tail += li * tail * dh;
+  a.v_tail += li * tail * dh;
   a.kt_scale += li * tail;
   a.vt_scale += li * tail;
   a.k_stage += li * STAGE * hbd;
@@ -386,21 +402,30 @@ __device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
 }
 
 // ---- attention: (h, b) items, one per group of AT threads
-// A group's shared scratch: the item's q, k and v rows, its reductions,
-// and the K and V of the block
-// being merged (a cold block's (DH, BLK) planes or the tail's (BLK, DH)
-// rows), 8 KB each.
+// A group's shared scratch: the item's q, k and v rows, its reductions
+// (avred: the int32 P.V sums of parts 1 .. NP - 1, a part being DH of a
+// block's 128 positions), and the K and V of the block being merged (a
+// cold block's (DH, BLK) planes or the tail's (BLK, DH) rows), in two
+// buffers or, at DH = 128, one (kv_buffers).
+template <int DH>
 struct __align__(16) GroupSmem {
+  static constexpr int NP = AT / DH;     // P.V parts: 4, 2 or 1
+  static constexpr bool ONE = kv_buffers(DH) == 1;
   float qf[DH], kc[DH], vc[DH];
-  int avred[DH];
+  int avred[NP > 1 ? (NP - 1) * DH : 4];
   double dred[AT / 32];
   float fred[AT / 32];
   float s_st[STAGE];
   int8_t q8[DH];
   int8_t u8[AT];
-  int8_t k[BLK * DH], v[BLK * DH];
+  int8_t kv[kv_buffers(DH) * BLK * DH];
+  __device__ int8_t* k() { return kv; }
+  __device__ int8_t* v() { return ONE ? kv : kv + BLK * DH; }
 };
-static_assert(sizeof(GroupSmem) == GROUP_SMEM, "bf16_step_plan mirrors it");
+static_assert(sizeof(GroupSmem<32>) == group_smem(32), "group_smem mirrors it");
+static_assert(sizeof(GroupSmem<64>) == group_smem(64), "group_smem mirrors it");
+static_assert(sizeof(GroupSmem<128>) == group_smem(128),
+              "group_smem mirrors it");
 
 // block_max / block_sum over one group (named barrier `id`)
 __device__ __forceinline__ void group_bar(int id) {
@@ -428,8 +453,9 @@ __device__ __forceinline__ double group_sum(double v, double* red, int id) {
 
 // group_sum(v) and group_max(w) (into wmax) over one group in one round
 // of barriers: the same sums and maxima in the same order.
+template <int DH>
 __device__ __forceinline__ double group_sum_max(double v, float w,
-                                                GroupSmem& g, int id,
+                                                GroupSmem<DH>& g, int id,
                                                 float& wmax) {
   for (int o = 16; o > 0; o >>= 1) {
     v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -452,16 +478,18 @@ __device__ __forceinline__ double group_sum_max(double v, float w,
 }
 
 // Block i of an item's walk (cold blocks 0..nblk-1, then the tail):
-// thread tid's four 16-byte pieces tid, tid + AT, .. of its K and of its
-// V (8 KB each, a (DH, BLK) plane or (BLK, DH) rows: a warp reads 512
-// contiguous bytes a load), and row tid's K and V scales.
+// thread tid's DH / 16 16-byte pieces tid, tid + AT, .. of its K and of
+// its V (128 DH bytes each, a (DH, BLK) plane or (BLK, DH) rows: a warp
+// reads 512 contiguous bytes a load), and row tid's K and V scales.
+template <int DH>
 struct KVBlock {
-  int4 k[4], v[4];
+  int4 k[DH / 16], v[DH / 16];
   float ks, vs;
 };
-__device__ __forceinline__ KVBlock kv_load(const AttnArgs& a, size_t hb,
-                                           int i, int tid) {
-  KVBlock r;
+template <int DH>
+__device__ __forceinline__ KVBlock<DH> kv_load(const AttnArgs& a, size_t hb,
+                                               int i, int tid) {
+  KVBlock<DH> r;
   const int8_t *kp, *vp;
   if (i < a.nblk) {
     const size_t plane = (size_t)i * a.H * a.B + hb;
@@ -476,11 +504,86 @@ __device__ __forceinline__ KVBlock kv_load(const AttnArgs& a, size_t hb,
     r.vs = a.vt_scale[hb * BLK + tid];
   }
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  for (int j = 0; j < DH / 16; ++j) {
     r.k[j] = reinterpret_cast<const int4*>(kp)[j * AT + tid];
     r.v[j] = reinterpret_cast<const int4*>(vp)[j * AT + tid];
   }
   return r;
+}
+
+// A block's K (or V) pieces from a thread's registers into the buffer.
+template <int DH>
+__device__ __forceinline__ void kv_put(int8_t* dst, const int4 (&src)[DH / 16],
+                                       int tid) {
+#pragma unroll
+  for (int j = 0; j < DH / 16; ++j)
+    reinterpret_cast<int4*>(dst)[j * AT + tid] = src[j];
+}
+
+// Row tid's logit dot: q8 . column tid of a cold K plane, or . row tid of
+// the tail's K rows (int32, exact).
+template <int DH>
+__device__ __forceinline__ int k_dot(const int8_t* k, const int* q8p,
+                                     bool cold, int tid) {
+  int acc = 0;
+  if (cold) {
+#pragma unroll
+    for (int d4 = 0; d4 < DH / 4; ++d4) {
+      const uint8_t* p =
+          reinterpret_cast<const uint8_t*>(k) + 4 * d4 * BLK + tid;
+      const int packed = (int)p[0] | ((int)p[BLK] << 8) |
+                         ((int)p[2 * BLK] << 16) | ((int)p[3 * BLK] << 24);
+      acc = __dp4a(q8p[d4], packed, acc);
+    }
+  } else {
+    const int4* kr = reinterpret_cast<const int4*>(k) + DH / 16 * tid;
+#pragma unroll
+    for (int j = 0; j < DH / 16; ++j) {
+      const int4 v = kr[j];
+      acc = __dp4a(q8p[4 * j], v.x, acc);
+      acc = __dp4a(q8p[4 * j + 1], v.y, acc);
+      acc = __dp4a(q8p[4 * j + 2], v.z, acc);
+      acc = __dp4a(q8p[4 * j + 3], v.w, acc);
+    }
+  }
+  return acc;
+}
+
+// Channel d's P.V over part `part` (positions part DH .. part DH + DH - 1)
+// of a block: the int8 probabilities u8 . row d of a cold V plane, or .
+// column d of the tail's V rows; then the parts added in part order into
+// part 0's threads (int32, exact).  Its barrier (NP > 1) leaves avred to
+// the caller's next one.
+template <int DH>
+__device__ __forceinline__ int pv_dot(GroupSmem<DH>& g, bool cold, int d,
+                                      int part, int id) {
+  const int8_t* v = g.v();
+  int av = 0;
+  if (cold) {
+    const int4* r = reinterpret_cast<const int4*>(v + d * BLK + part * DH);
+    const int* up = reinterpret_cast<const int*>(g.u8 + part * DH);
+#pragma unroll
+    for (int j = 0; j < DH / 16; ++j) {
+      const int4 vv = r[j];
+      av = __dp4a(up[4 * j], vv.x, av);
+      av = __dp4a(up[4 * j + 1], vv.y, av);
+      av = __dp4a(up[4 * j + 2], vv.z, av);
+      av = __dp4a(up[4 * j + 3], vv.w, av);
+    }
+  } else {
+#pragma unroll 16
+    for (int t2 = part * DH; t2 < (part + 1) * DH; ++t2)
+      av += (int)g.u8[t2] * (int)v[t2 * DH + d];
+  }
+  constexpr int NP = GroupSmem<DH>::NP;
+  if (NP > 1) {
+    if (part > 0) g.avred[(part - 1) * DH + d] = av;
+    group_bar(id);
+    if (part == 0)
+#pragma unroll
+      for (int q = 1; q < NP; ++q) av += g.avred[(q - 1) * DH + d];
+  }
+  return av;
 }
 
 // The sum, in group order from 0.0, of output (b, n)'s fold terms.
@@ -580,6 +683,7 @@ struct StagePre {
   const float* v;
 };
 // by one group's thread tid, its share
+template <int DH>
 __device__ __forceinline__ void stage_load(const AttnArgs& a, size_t hb,
                                            int tid, float* k, float* v) {
 #pragma unroll
@@ -593,10 +697,10 @@ __device__ __forceinline__ void stage_load(const AttnArgs& a, size_t hb,
 // The end of an item's attention, after its cold blocks and tail: the
 // stage rows (loaded here, or ahead with PRE), the current token, acc / l,
 // and the output (attn_group's).
-template <bool I8, bool PRE = false>
+template <int DH, bool I8, bool PRE = false>
 __device__ __forceinline__ void attn_finish(const AttnArgs& a,
                                             uint32_t* outh, int h, int b,
-                                            GroupSmem& g, int id,
+                                            GroupSmem<DH>& g, int id,
                                             const I8Fin& f, AttnState& st,
                                             const StagePre& pre = {}) {
   const int tid = threadIdx.x % AT;
@@ -604,16 +708,17 @@ __device__ __forceinline__ void attn_finish(const AttnArgs& a,
   const float slope = a.slopes[h];
   const int stage_base = a.pos - (a.pos - a.flushed) % STAGE;
   // ---- stage: STAGE bf16 rows, valid at stage_base <= j < pos.  Warp w
-  // takes rows w and w + 4; the dot is summed in float64.
+  // takes rows w and w + 4, lane l channels l, l + 32, ..; the dot is
+  // summed in float64.
   {
     const int warp = tid / 32, lane = tid % 32;
     for (int j = warp; j < STAGE; j += AT / 32) {
       const __nv_bfloat16* kr = a.k_stage + ((size_t)j * a.H * a.B + hb) * DH;
-      const float k0 = PRE ? pre.k[j * DH + lane] : __bfloat162float(kr[lane]);
-      const float k1 =
-          PRE ? pre.k[j * DH + lane + 32] : __bfloat162float(kr[lane + 32]);
-      double dot = (double)__fmul_rn(g.qf[lane], k0) +
-                   (double)__fmul_rn(g.qf[lane + 32], k1);
+      double dot = 0.0;
+#pragma unroll
+      for (int c = lane; c < DH; c += 32)
+        dot += (double)__fmul_rn(
+            g.qf[c], PRE ? pre.k[j * DH + c] : __bfloat162float(kr[c]));
       for (int o = 16; o > 0; o >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, o);
       if (lane == 0) {
@@ -678,14 +783,16 @@ __device__ __forceinline__ void attn_finish(const AttnArgs& a,
 // bf16 branch) or, with I8, quantized per head (scale max|o| / 127) into
 // a.out8 in chunk_pos order and a.asx (stride f.nxs); with I8 its q, k and
 // v are QKV's sums, finalized here (i8_fin).  Each
-// block's K and V are copied into g.k and g.v by 16-byte loads, and block
-// i + 1's copy is in flight while block i merges, so the walk waits on
+// block's K and V are copied into g's buffers by 16-byte loads, and block
+// i + 1's copy is in flight while block i merges (at DH = 128, where K and
+// V share one buffer, while its softmax and P.V run), so the walk waits on
 // device memory once, not twice a block.
-template <bool I8, bool W4 = false>
+template <int DH, bool I8, bool W4 = false>
 __device__ __forceinline__ void attn_group(const AttnArgs& a,
                                            uint32_t* outh, int h, int b,
-                                           GroupSmem& g, int id,
+                                           GroupSmem<DH>& g, int id,
                                            const I8Fin& f) {
+  constexpr bool ONE = GroupSmem<DH>::ONE;
   const int tid = threadIdx.x % AT;
   const size_t hb = (size_t)h * a.B + b;
   const float slope = a.slopes[h];
@@ -705,7 +812,7 @@ __device__ __forceinline__ void attn_group(const AttnArgs& a,
     a.k_new[hb * DH + tid] = __float2bfloat16_rn(g.kc[tid]);
     a.v_new[hb * DH + tid] = __float2bfloat16_rn(g.vc[tid]);
   }
-  KVBlock cur = kv_load(a, hb, 0, tid);
+  KVBlock<DH> cur = kv_load<DH>(a, hb, 0, tid);
   group_bar(id);
   const float q_scale = qscale(
       group_max(tid < DH ? fabsf(g.qf[tid]) : 0.f, g.fred, id), 1e-8f);
@@ -717,44 +824,27 @@ __device__ __forceinline__ void attn_group(const AttnArgs& a,
   const int d = tid % DH, part = tid / DH;
   AttnState st{NEG_INF, 0.f, 0.f};
 
-  // ---- cold blocks, then the tail (valid below stage_base)
+  // ---- cold blocks, then the tail (valid below stage_base).  With two
+  // buffers block i + 1's loads are issued before block i's logits; with
+  // one, once its V is in the buffer.
   for (int i = 0; i <= a.nblk; ++i) {
     const bool cold = i < a.nblk;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      reinterpret_cast<int4*>(g.k)[j * AT + tid] = cur.k[j];
-      reinterpret_cast<int4*>(g.v)[j * AT + tid] = cur.v[j];
-    }
+    kv_put<DH>(g.k(), cur.k, tid);
+    if (!ONE) kv_put<DH>(g.v(), cur.v, tid);
     const float ks = cur.ks, vs = cur.vs;
-    if (cold) cur = kv_load(a, hb, i + 1, tid);   // the next block
+    if (!ONE && cold) cur = kv_load<DH>(a, hb, i + 1, tid);   // the next
     group_bar(id);
-    int acc = 0;
-    if (cold) {                          // column tid of the K plane
-#pragma unroll
-      for (int d4 = 0; d4 < DH / 4; ++d4) {
-        const uint8_t* p =
-            reinterpret_cast<const uint8_t*>(g.k) + 4 * d4 * BLK + tid;
-        const int packed = (int)p[0] | ((int)p[BLK] << 8) |
-                           ((int)p[2 * BLK] << 16) | ((int)p[3 * BLK] << 24);
-        acc = __dp4a(q8p[d4], packed, acc);
-      }
-    } else {                             // row tid of the tail's K
-      const int4* kr = reinterpret_cast<const int4*>(g.k) + 4 * tid;
-#pragma unroll
-      for (int j = 0; j < DH / 16; ++j) {
-        const int4 v = kr[j];
-        acc = __dp4a(q8p[4 * j], v.x, acc);
-        acc = __dp4a(q8p[4 * j + 1], v.y, acc);
-        acc = __dp4a(q8p[4 * j + 2], v.z, acc);
-        acc = __dp4a(q8p[4 * j + 3], v.w, acc);
-      }
-    }
+    const int acc = k_dot<DH>(g.k(), q8p, cold, tid);
     const int t = cold ? i * BLK + tid : a.flushed + tid;
     float s = __fmul_rn(__fmul_rn((float)acc, qs), ks);
     s = __fadd_rn(s, __fmul_rn(slope, (float)abs(t - a.pos)));
     if (!cold) s = t < stage_base ? s : NEG_INF;
     // merge the block (the sum of e and the max of e * vs in one round)
     const float m_new = fmaxf(st.m, group_max(s, g.fred, id));
+    if (ONE) {            // every logit is read: V into the one buffer
+      kv_put<DH>(g.v(), cur.v, tid);
+      if (cold) cur = kv_load<DH>(a, hb, i + 1, tid);
+    }
     const float corr = expf(__fsub_rn(st.m, m_new));
     const float e = expf(__fsub_rn(s, m_new));
     const float u = __fmul_rn(e, vs);
@@ -765,33 +855,15 @@ __device__ __forceinline__ void attn_group(const AttnArgs& a,
     const float u_scale = qscale(umax, 1e-20f);
     g.u8[tid] = quant(u, u_scale);
     group_bar(id);
-    int av = 0;
-    if (cold) {                          // row d of the V plane
-      const int4* r = reinterpret_cast<const int4*>(g.v + d * BLK + part * DH);
-      const int* up = reinterpret_cast<const int*>(g.u8 + part * DH);
-#pragma unroll
-      for (int j = 0; j < DH / 16; ++j) {
-        const int4 vv = r[j];
-        av = __dp4a(up[4 * j], vv.x, av);
-        av = __dp4a(up[4 * j + 1], vv.y, av);
-        av = __dp4a(up[4 * j + 2], vv.z, av);
-        av = __dp4a(up[4 * j + 3], vv.w, av);
-      }
-    } else {                             // column d of the tail's V
-#pragma unroll 16
-      for (int t2 = part * DH; t2 < (part + 1) * DH; ++t2)
-        av += (int)g.u8[t2] * (int)g.v[t2 * DH + d];
-    }
-    if (part == 1) g.avred[d] = av;
-    group_bar(id);
+    const int av = pv_dot<DH>(g, cold, d, part, id);
     if (part == 0)
       st.acc = __fadd_rn(__fmul_rn(st.acc, corr),
-                         __fmul_rn(__int2float_rn(av + g.avred[d]), u_scale));
+                         __fmul_rn(__int2float_rn(av), u_scale));
     st.m = m_new;
     group_bar(id);                       // u8 / avred / k / v are rewritten
   }
 
-  attn_finish<I8>(a, outh, h, b, g, id, f, st);
+  attn_finish<DH, I8>(a, outh, h, b, g, id, f, st);
   group_bar(id);                         // g is rewritten by the next item
 }
 
@@ -806,14 +878,16 @@ __device__ __forceinline__ void attn_group(const AttnArgs& a,
 // in block order (corr = exp(m_{i-1} - m_i); l = l corr + esum_i; acc =
 // acc corr + av_i u_scale_i), the same operations on the same values, so
 // the same bits, and finishes as attn_group (the stage rows loaded ahead
-// by the last group).  `xs` is scratch of 268 bytes a cache block and
-// 4112 more (a weight slot no product reads now).
+// by the last group).  `xs` is scratch of coop_bytes(DH) a cache block
+// and 16 + 2 STAGE DH 4 more (a weight slot no product reads now).
+template <int DH>
 __device__ void attn_coop_i8(const AttnArgs& a, int h, int b,
-                             GroupSmem* groups, const I8Fin& f,
+                             GroupSmem<DH>* groups, const I8Fin& f,
                              uint8_t* xs) {
+  constexpr bool ONE = GroupSmem<DH>::ONE;
   const int tid = threadIdx.x % AT, grp = threadIdx.x / AT, id = 1 + grp;
-  GroupSmem& g = groups[grp];
-  GroupSmem& g0 = groups[0];
+  GroupSmem<DH>& g = groups[grp];
+  GroupSmem<DH>& g0 = groups[0];
   const size_t hb = (size_t)h * a.B + b;
   const int nb1 = a.nblk + 1;
   float* mx = reinterpret_cast<float*>(xs);            // [nb1] block maxima
@@ -823,7 +897,7 @@ __device__ void attn_coop_i8(const AttnArgs& a, int h, int b,
   float* qsp = reinterpret_cast<float*>(avs + nb1 * DH);  // qs
   float* stk = qsp + 4;                               // [STAGE][DH] K, V
   float* stv = stk + STAGE * DH;
-  if (grp == PGROUPS - 1) stage_load(a, hb, tid, stk, stv);   // ahead
+  if (grp == PGROUPS - 1) stage_load<DH>(a, hb, tid, stk, stv);   // ahead
   if (grp == 0 && tid < DH) {
     float y[3];
     i8_fin<false>(f, b, h * DH + tid, a.D, y);
@@ -833,8 +907,8 @@ __device__ void attn_coop_i8(const AttnArgs& a, int h, int b,
     a.k_new[hb * DH + tid] = __float2bfloat16_rn(g0.kc[tid]);
     a.v_new[hb * DH + tid] = __float2bfloat16_rn(g0.vc[tid]);
   }
-  KVBlock cur;
-  if (grp < nb1) cur = kv_load(a, hb, grp, tid);   // the first round's
+  KVBlock<DH> cur;
+  if (grp < nb1) cur = kv_load<DH>(a, hb, grp, tid);   // the first round's
   if (grp == 0) {
     group_bar(id);
     const float q_scale = qscale(
@@ -847,37 +921,15 @@ __device__ void attn_coop_i8(const AttnArgs& a, int h, int b,
   const int* q8p = reinterpret_cast<const int*>(g0.q8);
   const int stage_base = a.pos - (a.pos - a.flushed) % STAGE;
   const int d = tid % DH, part = tid / DH;
-  const bool one = nb1 <= PGROUPS;        // each group keeps its K and V
-  // cache block i's K and V into g, and row tid's logit
-  const auto logit = [&](int i, const KVBlock& kv) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      reinterpret_cast<int4*>(g.k)[j * AT + tid] = kv.k[j];
-      reinterpret_cast<int4*>(g.v)[j * AT + tid] = kv.v[j];
-    }
+  const bool one = nb1 <= PGROUPS;        // each group keeps its block
+  // cache block i's K (and, with two buffers, V) into g, and row tid's
+  // logit
+  const auto logit = [&](int i, const KVBlock<DH>& kv) {
+    kv_put<DH>(g.k(), kv.k, tid);
+    if (!ONE) kv_put<DH>(g.v(), kv.v, tid);
     group_bar(id);
     const bool cold = i < a.nblk;
-    int acc = 0;
-    if (cold) {
-#pragma unroll
-      for (int d4 = 0; d4 < DH / 4; ++d4) {
-        const uint8_t* p =
-            reinterpret_cast<const uint8_t*>(g.k) + 4 * d4 * BLK + tid;
-        const int packed = (int)p[0] | ((int)p[BLK] << 8) |
-                           ((int)p[2 * BLK] << 16) | ((int)p[3 * BLK] << 24);
-        acc = __dp4a(q8p[d4], packed, acc);
-      }
-    } else {
-      const int4* kr = reinterpret_cast<const int4*>(g.k) + 4 * tid;
-#pragma unroll
-      for (int j = 0; j < DH / 16; ++j) {
-        const int4 v = kr[j];
-        acc = __dp4a(q8p[4 * j], v.x, acc);
-        acc = __dp4a(q8p[4 * j + 1], v.y, acc);
-        acc = __dp4a(q8p[4 * j + 2], v.z, acc);
-        acc = __dp4a(q8p[4 * j + 3], v.w, acc);
-      }
-    }
+    const int acc = k_dot<DH>(g.k(), q8p, cold, tid);
     const int t = cold ? i * BLK + tid : a.flushed + tid;
     float s = __fmul_rn(__fmul_rn((float)acc, qs), kv.ks);
     s = __fadd_rn(s, __fmul_rn(slope, (float)abs(t - a.pos)));
@@ -887,7 +939,7 @@ __device__ void attn_coop_i8(const AttnArgs& a, int h, int b,
   // pass 1: each cache block's maximum
   float s0 = NEG_INF;
   for (int i = grp; i < nb1; i += PGROUPS) {
-    if (i > grp) cur = kv_load(a, hb, i, tid);
+    if (i > grp) cur = kv_load<DH>(a, hb, i, tid);
     const float s = logit(i, cur);
     if (i == grp) s0 = s;
     const float m = group_max(s, g.fred, id);
@@ -899,14 +951,19 @@ __device__ void attn_coop_i8(const AttnArgs& a, int h, int b,
   for (int i = grp; i < nb1; i += PGROUPS) {
     float m_i = mx[0];
     for (int j = 1; j <= i; ++j) m_i = fmaxf(m_i, mx[j]);
-    KVBlock kv;
+    KVBlock<DH> kv;
     float s = s0, vs;
     if (one) {
       vs = cur.vs;
+      if (ONE) kv_put<DH>(g.v(), cur.v, tid);   // pass 1 left K there
     } else {
-      kv = kv_load(a, hb, i, tid);
+      kv = kv_load<DH>(a, hb, i, tid);
       s = logit(i, kv);
       vs = kv.vs;
+      if (ONE) {                         // every logit is read: V in
+        group_bar(id);
+        kv_put<DH>(g.v(), kv.v, tid);
+      }
     }
     const float e = expf(__fsub_rn(s, m_i));
     const float u = __fmul_rn(e, vs);
@@ -916,26 +973,8 @@ __device__ void attn_coop_i8(const AttnArgs& a, int h, int b,
     const float u_scale = qscale(umax, 1e-20f);
     g.u8[tid] = quant(u, u_scale);
     group_bar(id);
-    int av = 0;
-    if (i < a.nblk) {
-      const int4* r = reinterpret_cast<const int4*>(g.v + d * BLK + part * DH);
-      const int* up = reinterpret_cast<const int*>(g.u8 + part * DH);
-#pragma unroll
-      for (int j = 0; j < DH / 16; ++j) {
-        const int4 vv = r[j];
-        av = __dp4a(up[4 * j], vv.x, av);
-        av = __dp4a(up[4 * j + 1], vv.y, av);
-        av = __dp4a(up[4 * j + 2], vv.z, av);
-        av = __dp4a(up[4 * j + 3], vv.w, av);
-      }
-    } else {
-#pragma unroll 16
-      for (int t2 = part * DH; t2 < (part + 1) * DH; ++t2)
-        av += (int)g.u8[t2] * (int)g.v[t2 * DH + d];
-    }
-    if (part == 1) g.avred[d] = av;
-    group_bar(id);
-    if (part == 0) avs[i * DH + d] = av + g.avred[d];
+    const int av = pv_dot<DH>(g, i < a.nblk, d, part, id);
+    if (part == 0) avs[i * DH + d] = av;
     if (tid == 0) {
       es[i] = esum;
       us[i] = u_scale;
@@ -954,7 +993,8 @@ __device__ void attn_coop_i8(const AttnArgs& a, int h, int b,
                          __fmul_rn(__int2float_rn(avs[i * DH + d]), us[i]));
     st.m = m_new;
   }
-  attn_finish<true, true>(a, nullptr, h, b, g0, id, f, st, StagePre{stk, stv});
+  attn_finish<DH, true, true>(a, nullptr, h, b, g0, id, f, st,
+                              StagePre{stk, stv});
 }
 
 // ---- the products
@@ -1082,10 +1122,10 @@ __device__ __forceinline__ void step_store(int op, float y, int b, int n,
 // (ks = w / btp, KS = 16 / btp) and writes its
 // float64 sums to part[ks][b][col], which the epilogue adds (exact, so
 // in any order).  PER_HEAD (the out-projection): warp ks takes heads ks,
-// ks + KS, .. (4 chunks each), rounds each head's sum to float32 into
-// part[h][b][col], and the epilogue adds the heads in order in float32,
-// then scales: the parent's per-head epilogue.
-template <bool NORM, bool PER_HEAD>
+// ks + KS, .. (DH / 16 chunks each), rounds each head's sum to float32
+// into part[h][b][col], and the epilogue adds the heads in order in
+// float32, then scales: the parent's per-head epilogue.
+template <bool NORM, bool PER_HEAD, int DH>
 __device__ __forceinline__ void dense_phase(
     const uint8_t* w, int K, int N, const DenseIn& in, int B, int H,
     void* part, int op, const float* col, const float* bias,
@@ -1095,6 +1135,7 @@ __device__ __forceinline__ void dense_phase(
       (int)blockIdx.x < n_units ? cdiv(n_units - blockIdx.x, G) : 0;
   const int wi = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int nbt = cdiv(B, BROWS), nch = K / 16;
+  constexpr int HC = DH / 16;            // PER_HEAD: a head's chunks
   for (int j0 = 0; j0 < U; j0 += UPP) {
     const int nu = imin(UPP, U - j0), cols = nu * UW;
     const int reps = UPP / nu;           // accumulators per unit
@@ -1112,13 +1153,13 @@ __device__ __forceinline__ void dense_phase(
       const float rr[2] = {NORM && row < B ? in.r[row] : 0.f,
                            NORM && row + 8 < B ? in.r[row + 8] : 0.f};
       if (ks < nks) {
-        // the warp's items: PER_HEAD, chunk i % 4 of head ks + (i / 4)
+        // the warp's items: PER_HEAD, chunk i % HC of head ks + (i / HC)
         // nks; else chunk ks + i nks.  Their activations are loaded PF
         // items ahead.
-        const int n_items = PER_HEAD ? 4 * cdiv(H - ks, nks)
+        const int n_items = PER_HEAD ? HC * cdiv(H - ks, nks)
                                      : cdiv(nch - ks, nks);
         const auto chunk = [&](int i) {
-          return PER_HEAD ? 4 * (ks + (i >> 2) * nks) + (i & 3)
+          return PER_HEAD ? HC * (ks + (i / HC) * nks) + (i % HC)
                           : ks + i * nks;
         };
         double acc[UPP][4] = {};
@@ -1168,7 +1209,7 @@ __device__ __forceinline__ void dense_phase(
               double a[8];
               a_frag<NORM>(a, cur[j], in, chunk(i), t, rr);
               chunk_mma(acc, wrow, nu, i % reps, chunk(i), a);
-              if (PER_HEAD && (i & 3) == 3) store(ks + (i >> 2) * nks);
+              if (PER_HEAD && i % HC == HC - 1) store(ks + (i / HC) * nks);
             }
           }
 #pragma unroll
@@ -1259,6 +1300,7 @@ __device__ void load_units(const CUtensorMap* map, int li, int K, int N,
               (blockIdx.x + j * G) * UW / UC * UC, kb, li);
 }
 
+template <int DH>
 __global__ void __launch_bounds__(PT, 1)
 k2_bf16_step_kernel(const __grid_constant__ CUtensorMap mq,
                     const __grid_constant__ CUtensorMap mo,
@@ -1276,7 +1318,7 @@ k2_bf16_step_kernel(const __grid_constant__ CUtensorMap mq,
   uint8_t* region = gbase + 2 * pl.slot;
   void* part = region;
   float* nrm_s = reinterpret_cast<float*>(region + pl.part);
-  GroupSmem* groups = reinterpret_cast<GroupSmem*>(region);
+  GroupSmem<DH>* groups = reinterpret_cast<GroupSmem<DH>*>(region);
   float* r_s = reinterpret_cast<float*>(region + pl.region);
   const uint32_t bars = base + 2 * pl.slot + pl.region + pl.rows;
   const int tid = threadIdx.x, G = gridDim.x;
@@ -1323,7 +1365,7 @@ k2_bf16_step_kernel(const __grid_constant__ CUtensorMap mq,
     for (int k = tid; k < D; k += PT) nrm_s[k] = a.n1[(size_t)li * D + k];
     __syncthreads();
     begin(4 * li);
-    dense_phase<true, false>(slot[0], D, 3 * D,
+    dense_phase<true, false, DH>(slot[0], D, 3 * D,
                              DenseIn{xin, r_s, nrm_s, nullptr}, B, H,
                              part, OP_QKV, a.sq + (size_t)li * 3 * D,
                              a.bq + (size_t)li * 3 * D, nullptr, a.qkv,
@@ -1334,13 +1376,13 @@ k2_bf16_step_kernel(const __grid_constant__ CUtensorMap mq,
     const AttnArgs at = attn_layer(a.att, li, a.nb_cap);
     for (int it = blockIdx.x * PGROUPS + grp; it < H * B;
          it += G * PGROUPS)
-      attn_group<false>(at, a.ah, it / B, it % B, groups[grp], 1 + grp,
-                        I8Fin{});
+      attn_group<DH, false>(at, a.ah, it / B, it % B, groups[grp], 1 + grp,
+                            I8Fin{});
     grid_sync(a.bar, arrivals);
     mark();
     // out-projection by head, residual
     begin(4 * li + 1);
-    dense_phase<false, true>(slot[1], D, D,
+    dense_phase<false, true, DH>(slot[1], D, D,
                              DenseIn{nullptr, nullptr, nullptr, a.ah}, B, H,
                              part, OP_OUT, a.so + (size_t)li * D,
                              a.bo + (size_t)li * D, xin, a.xo, nullptr);
@@ -1351,7 +1393,7 @@ k2_bf16_step_kernel(const __grid_constant__ CUtensorMap mq,
     for (int k = tid; k < D; k += PT) nrm_s[k] = a.n3[(size_t)li * D + k];
     __syncthreads();
     begin(4 * li + 2);
-    dense_phase<true, false>(slot[0], D, 4 * D,
+    dense_phase<true, false, DH>(slot[0], D, 4 * D,
                              DenseIn{a.xo, r_s, nrm_s, nullptr}, B, H,
                              part, OP_UP, a.s1 + (size_t)li * 4 * D,
                              a.b1 + (size_t)li * 4 * D, nullptr, nullptr,
@@ -1360,7 +1402,7 @@ k2_bf16_step_kernel(const __grid_constant__ CUtensorMap mq,
     mark();
     // FFN down, residual
     begin(4 * li + 3);
-    dense_phase<false, false>(slot[1], 4 * D, D,
+    dense_phase<false, false, DH>(slot[1], 4 * D, D,
                               DenseIn{nullptr, nullptr, nullptr, a.gh}, B,
                               H, part, OP_DOWN, a.s2 + (size_t)li * D,
                               a.b2 + (size_t)li * D, a.xo, a.xo, nullptr);
@@ -1400,17 +1442,19 @@ constexpr int TM = TW / 16;             // the strip's 16-column M tiles
 constexpr int IK = 32;                  // logical k per chunk: the mma's K
 constexpr int IROWS = 32;               // batch rows per pass: 4 N tiles
 constexpr int IPAD = 32;                // bytes past each activation row
-constexpr int COOP_BYTES = 12 + 4 * DH;  // attn_coop_i8's scratch a block
+// attn_coop_i8's scratch a cache block
+__host__ __device__ constexpr int coop_bytes(int dh) { return 12 + 4 * dh; }
 enum RowsKind { RA = 0, RB = 1, RC = 2, RF = 3 };
 
-// Product p (0 QKV, 1 out-projection, 2 FFN up, 3 FFN down): its output
-// columns N, its inputs K and its fold group gsz in logical inputs (the
-// heads for the out-projection, w4's scale group, or 0: a8's one dot).
-__host__ __device__ inline void i8_geom(int p, int D, int group, int& N,
-                                        int& K, int& gsz) {
+// Product p (0 QKV, 1 out-projection, 2 FFN up, 3 FFN down) at head width
+// dh: its output columns N, its inputs K and its fold group gsz in logical
+// inputs (a head of dh for the out-projection, w4's scale group, or 0:
+// a8's one dot).
+__host__ __device__ inline void i8_geom(int p, int D, int group, int dh,
+                                        int& N, int& K, int& gsz) {
   N = p == 0 ? 3 * D : p == 2 ? 4 * D : D;
   K = p == 3 ? 4 * D : D;
-  gsz = p == 1 ? DH : group;
+  gsz = p == 1 ? dh : group;
 }
 
 // The tiles, scratch and shared memory of one a8/w4 step for G blocks.
@@ -1438,10 +1482,10 @@ constexpr int TILE_COST = 256;          // a tile's overhead, in rows
 // Product p's tile of TR stored rows: its int8 rows and, after them, its
 // scratch (a8: int32 sums [bp][64]; grouped: the scales of its fold
 // groups, [groups][bp] and [groups][64]), in bytes.
-__host__ __device__ inline int i8_tile_bytes(int p, int D, int group, int bp,
-                                             int tr) {
+__host__ __device__ inline int i8_tile_bytes(int p, int D, int group, int dh,
+                                             int bp, int tr) {
   int N, K, gsz;
-  i8_geom(p, D, group, N, K, gsz);
+  i8_geom(p, D, group, dh, N, K, gsz);
   const int ngt = gsz ? (group ? 2 : 1) * tr / gsz : 0;
   return bp * ((group ? 2 : 1) * tr + IPAD) +
          (gsz ? ngt * (bp + TW) * 4 : bp * TW * 4);
@@ -1450,22 +1494,23 @@ __host__ __device__ inline int i8_tile_bytes(int p, int D, int group, int bp,
 __host__ __device__ inline I8Plan i8_plan(int B, int D, int H, int G,
                                           int group) {
   I8Plan pl{};
+  const int dh = D / H;
   pl.bp = cdiv(B, 8) * 8;
   pl.nxs = cdiv(imax(H, group ? 4 * D / group : 1), 4) * 4;
-  pl.region = cdiv(imax(PGROUPS * GROUP_SMEM, 20 * D + 4 * pl.nxs + 64), 16) *
-              16;
+  pl.region =
+      cdiv(imax(PGROUPS * group_smem(dh), 20 * D + 4 * pl.nxs + 64), 16) * 16;
   const int budget = (SMEM_LIMIT - 1024 - pl.region - 16) / 2 / 1024 * 1024;
   bool ok = true;
   for (int p = 0; p < 4; ++p) {
     int N, K, gsz;
-    i8_geom(p, D, group, N, K, gsz);
+    i8_geom(p, D, group, dh, N, K, gsz);
     const int kst = group ? K / 2 : K, ns = N / TW;
     const int gst = imax(IK, gsz);      // stored rows per fold group
     int best = -1, bs = 0;
     for (int S = 1; S <= kst / gst; ++S) {
       const int tr = kst / S;
       if (kst % S || tr % gst || tr * TW > budget ||
-          i8_tile_bytes(p, D, group, pl.bp, tr) > pl.region)
+          i8_tile_bytes(p, D, group, dh, pl.bp, tr) > pl.region)
         continue;
       const int cost = cdiv(ns * S, G) * (tr + TILE_COST);
       if (best < 0 || cost < best) best = cost, bs = S;
@@ -1541,9 +1586,8 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
 
 // The pieces of product p every block takes.
 __host__ __device__ inline int i8_pieces(const I8Plan& pl, int p, int D,
-                                         int group, int G) {
-  int N, K, gsz;
-  i8_geom(p, D, group, N, K, gsz);
+                                         int G) {
+  const int N = p == 0 ? 3 * D : p == 2 ? 4 * D : D;
   return cdiv(cdiv(N / TW * pl.splits[p], G), pl.tp[p]);
 }
 
@@ -1553,7 +1597,7 @@ __host__ __device__ inline int i8_pieces(const I8Plan& pl, int p, int D,
 // wait for the data.
 __device__ void i8_issue(const I8Args& a, int li, int p, int i, uint32_t dst) {
   int N, K, gsz;
-  i8_geom(p, a.att.D, a.group, N, K, gsz);
+  i8_geom(p, a.att.D, a.group, a.att.D / a.att.H, N, K, gsz);
   const int G = gridDim.x, ns = N / TW, S = a.plan.splits[p];
   const int kst = a.group ? K / 2 : K, tr = kst / S, nt = ns * S;
   const int mine =
@@ -1573,7 +1617,7 @@ __device__ void i8_issue(const I8Args& a, int li, int p, int i, uint32_t dst) {
 }
 
 __device__ __forceinline__ void ring_next(Ring& r, const I8Args& a) {
-  if (++r.i < i8_pieces(a.plan, r.p, a.att.D, a.group, gridDim.x)) return;
+  if (++r.i < i8_pieces(a.plan, r.p, a.att.D, gridDim.x)) return;
   r.i = 0;
   if (++r.p < 4) return;
   r.p = 0;
@@ -1612,7 +1656,7 @@ __device__ __noinline__ void i8_product(const I8Args& a, uint32_t slots, uint8_t
   const int B = a.att.B, D = a.att.D, group = a.group;
   const I8Plan& pl = a.plan;
   int N, K, gsz;
-  i8_geom(p, D, group, N, K, gsz);
+  i8_geom(p, D, group, D / a.att.H, N, K, gsz);
   const int ns = N / TW, S = pl.splits[p], kst = W4 ? K / 2 : K;
   const int tr = kst / S, nt = ns * S, bp = pl.bp;
   const int mine =
@@ -1632,7 +1676,7 @@ __device__ __noinline__ void i8_product(const I8Args& a, uint32_t slots, uint8_t
   int* tacc = reinterpret_cast<int*>(region + (size_t)bp * astride);
   float* tsx = reinterpret_cast<float*>(tacc);            // [ngt][bp]
   float* tgs = tsx + ngt * bp;                            // [ngt][TW]
-  const int tp = pl.tp[p], npieces = i8_pieces(pl, p, D, group, G);
+  const int tp = pl.tp[p], npieces = i8_pieces(pl, p, D, G);
   // a tile's fold group gl: hi (or a8) groups, then lo ones
   const auto group_of = [&](int s, int gl) {
     return ((gl / nseg) * (K / 2) + s * tr + gl % nseg * gsz) / gsz;
@@ -1819,7 +1863,7 @@ __device__ __noinline__ void i8_rows(const I8Args& a, int li, int kind, uint8_t*
       const int pp = kind == RB ? 1 : kind == RC ? 2 : 3;
       const int lp = kind == RB || kind == RC ? li : li - 1;  // its layer
       int N, K, gsz;
-      i8_geom(pp, D, group, N, K, gsz);
+      i8_geom(pp, D, group, D / a.att.H, N, K, gsz);
       const int ng = gsz ? K / gsz : 0;
       const float* cs = pp == 1 ? a.so : pp == 2 ? a.s1 : a.s2;
       const float* bias = pp == 1 ? a.bo : pp == 2 ? a.b1 : a.b2;
@@ -1951,7 +1995,7 @@ __device__ __noinline__ void i8_rows(const I8Args& a, int li, int kind, uint8_t*
   }
 }
 
-template <bool W4>
+template <bool W4, int DH>
 __global__ void __launch_bounds__(PT, 1)
 k2_i8_step_kernel(const __grid_constant__ I8Args a) {
   extern __shared__ uint8_t smem_raw[];
@@ -1960,7 +2004,7 @@ k2_i8_step_kernel(const __grid_constant__ I8Args a) {
   uint8_t* gbase = smem_raw + (base - raw);
   const I8Plan& pl = a.plan;
   uint8_t* region = gbase + 2 * pl.slot;
-  GroupSmem* groups = reinterpret_cast<GroupSmem*>(region);
+  GroupSmem<DH>* groups = reinterpret_cast<GroupSmem<DH>*>(region);
   const int tid = threadIdx.x, G = gridDim.x;
   const int B = a.att.B, D = a.att.D, H = a.att.H, L = a.L;
 
@@ -2003,14 +2047,15 @@ k2_i8_step_kernel(const __grid_constant__ I8Args a) {
     // are no more items than blocks (w4, the CLI's B = 32 chunks, keeps
     // its kernel's code small: it would not take this path there)
     if (!W4 && H * B <= G &&
-        (a.nb_cap + 1) * COOP_BYTES + 16 + 2 * STAGE * DH * 4 <= pl.slot) {
+        (a.nb_cap + 1) * coop_bytes(DH) + 16 + 2 * STAGE * DH * 4 <= pl.slot) {
       if ((int)blockIdx.x < H * B)       // a block per item
-        attn_coop_i8(at, blockIdx.x / B, blockIdx.x % B, groups, fin, spare);
+        attn_coop_i8<DH>(at, blockIdx.x / B, blockIdx.x % B, groups, fin,
+                         spare);
     } else {
       for (int it = blockIdx.x * PGROUPS + grp; it < H * B;
            it += G * PGROUPS)
-        attn_group<true, W4>(at, nullptr, it / B, it % B, groups[grp],
-                             1 + grp, fin);
+        attn_group<DH, true, W4>(at, nullptr, it / B, it % B, groups[grp],
+                                 1 + grp, fin);
     }
     phase_end();
     i8_product<W4>(a, base, region, ring, li, 1);
@@ -2097,19 +2142,41 @@ int coop_grid(const void* fn, int smem, int* grid) {
   return 0;
 }
 
+// The kernels' instantiations at head width dh (32, 64 or 128), or null.
+const void* bf16_kernel(int dh) {
+  return dh == 32    ? (const void*)k2_bf16_step_kernel<32>
+         : dh == 64  ? (const void*)k2_bf16_step_kernel<64>
+         : dh == 128 ? (const void*)k2_bf16_step_kernel<128>
+                     : nullptr;
+}
+template <bool W4>
+const void* i8_kernel_at(int dh) {
+  return dh == 32    ? (const void*)k2_i8_step_kernel<W4, 32>
+         : dh == 64  ? (const void*)k2_i8_step_kernel<W4, 64>
+         : dh == 128 ? (const void*)k2_i8_step_kernel<W4, 128>
+                     : nullptr;
+}
+const void* i8_kernel(bool w4, int dh) {
+  return w4 ? i8_kernel_at<true>(dh) : i8_kernel_at<false>(dh);
+}
+
 }  // namespace
 
-// The bf16 branch's grid for a dynamic shared memory of `smem` bytes
-// (the wrapper's bf16_step_plan): occupancy x the SM count, into *grid.
-extern "C" int fused_trunk_step_bf16_grid(int smem, int* grid) {
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  return coop_grid((const void*)k2_bf16_step_kernel, smem, grid);
+// The bf16 branch's grid at head width `head_dim` for a dynamic shared
+// memory of `smem` bytes (the wrapper's bf16_step_plan): occupancy x the
+// SM count, into *grid.
+extern "C" int fused_trunk_step_bf16_grid(int head_dim, int smem,
+                                          int* grid) {
+  const void* fn = bf16_kernel(head_dim);
+  if (fn == nullptr || smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  return coop_grid(fn, smem, grid);
 }
 
 // One trunk step for all L layers on the bf16 branch (bf16 activations x
 // int8 weights): one cooperative launch of k2_bf16_step_kernel.  Shapes
 // and layouts as in the wrapper (vae_gslm_tpu_torch/ops/mega_step.py;
-// head_dim 64, D a multiple of 256); `work` holds qkv (B, 3D)
+// head_dim D / H of 32, 64 or 128, the instantiation launched; D a
+// multiple of 256); `work` holds qkv (B, 3D)
 // float32 and the attention and GELU rows (B, D) and (B, 4D) as bf16
 // high words, then the grid barrier's word, zeroed here
 // (bf16_workspace_bytes(B, D)); `trace` null or 1 + 5 L words for block
@@ -2126,7 +2193,8 @@ extern "C" int fused_trunk_step_bf16_launch(
     const void* k_stage, const void* v_stage, void* k_new, void* v_new,
     void* work, void* trace, int L, int B, int D, int H,
     int nb_cap, int pos, int flushed, float scale, int smem, void* stream) {
-  if (B < 1 || D % 256 || H * DH != D) return (int)cudaErrorInvalidValue;
+  const void* fn = H > 0 && D % H == 0 ? bf16_kernel(D / H) : nullptr;
+  if (B < 1 || D % 256 || fn == nullptr) return (int)cudaErrorInvalidValue;
   int dev, nsm;
   int err = (int)cudaGetDevice(&dev);
   if (!err)
@@ -2137,7 +2205,7 @@ extern "C" int fused_trunk_step_bf16_launch(
   if (smem < plan.bytes || smem > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   int grid;
-  err = coop_grid((const void*)k2_bf16_step_kernel, smem, &grid);
+  err = coop_grid(fn, smem, &grid);
   if (err) return err;
   CUtensorMap mq, mo, m1, m2;
   err = weight_map(&mq, wq, L, D, 3 * D);
@@ -2171,8 +2239,7 @@ extern "C" int fused_trunk_step_bf16_launch(
                 qkv, ah, gh, bar,
                 static_cast<unsigned long long*>(trace), L, nb_cap, plan};
   void* params[] = {&mq, &mo, &m1, &m2, &args};
-  return (int)cudaLaunchCooperativeKernel((const void*)k2_bf16_step_kernel,
-                                          dim3(grid), dim3(PT), params,
+  return (int)cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(PT), params,
                                           (size_t)smem,
                                           static_cast<cudaStream_t>(stream));
 }
@@ -2205,15 +2272,16 @@ extern "C" int fused_trunk_step_i8_grid(int B, int D, int H, int group,
     err = (int)cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount,
                                       dev);
   if (err) return err;
+  const void* fn =
+      H > 0 && D % H == 0 ? i8_kernel(group != 0, D / H) : nullptr;
+  if (fn == nullptr || smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   *bytes = i8_plan(B, D, H, nsm, group).bytes;
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-  return coop_grid(group ? (const void*)k2_i8_step_kernel<true>
-                         : (const void*)k2_i8_step_kernel<false>,
-                   smem, grid);
+  return coop_grid(fn, smem, grid);
 }
 
 // One trunk step for all L layers on the a8 branch (group 0: int8 weights,
-// s8 x s8 products) or the w4 branch (group 64 or 128, dividing D / 2:
+// s8 x s8 products) or the w4 branch (group 64 or 128, dividing D / 2 and
+// a multiple of the head width:
 // wq/wo/w1/w2 nibble-packed, gq/go/g1/g2 their group scales; sq/so/s1/s2
 // then not read): one cooperative launch of k2_i8_step_kernel.  Shapes and
 // layouts as fused_trunk_step_bf16_launch's; `work` holds the grid
@@ -2236,9 +2304,11 @@ extern "C" int fused_trunk_step_i8_launch(
     void* work, const void* gq, const void* go, const void* g1,
     const void* g2, void* trace, int L, int B, int D, int H, int nb_cap,
     int pos, int flushed, int group, float scale, int smem, void* stream) {
-  if (B < 1 || D % 256 || H * DH != D ||
+  const void* fn =
+      H > 0 && D % H == 0 ? i8_kernel(group != 0, D / H) : nullptr;
+  if (B < 1 || D % 256 || fn == nullptr ||
       (group != 0 && group != 64 && group != 128) ||
-      (group && D % (2 * group)))
+      (group && (D % (2 * group) || group % (D / H))))
     return (int)cudaErrorInvalidValue;
   int dev, nsm;
   int err = (int)cudaGetDevice(&dev);
@@ -2249,8 +2319,6 @@ extern "C" int fused_trunk_step_i8_launch(
   const I8Plan plan = i8_plan(B, D, H, nsm, group);
   if (smem < plan.bytes || smem > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
-  const void* fn = group ? (const void*)k2_i8_step_kernel<true>
-                         : (const void*)k2_i8_step_kernel<false>;
   int grid;
   err = coop_grid(fn, smem, &grid);
   if (err) return err;
@@ -2259,7 +2327,7 @@ extern "C" int fused_trunk_step_i8_launch(
   size_t terms_n = 0;                    // the largest grouped product's
   for (int p = 0; p < 4; ++p) {
     int N, K, gsz;
-    i8_geom(p, D, group, N, K, gsz);
+    i8_geom(p, D, group, D / H, N, K, gsz);
     if (gsz) terms_n = imax((int)terms_n, N * (K / gsz));
   }
   const size_t acc_n = group ? 0 : (size_t)4 * D;

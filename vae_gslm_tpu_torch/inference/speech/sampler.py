@@ -14,8 +14,10 @@ package's segmented ``lax.scan``), then decodes by diffusion.  Routes:
 | any | float (None, bf16, f32) | any | per-layer float |
 | any | any, with ``return_attn`` | any | per-layer, one full-window segment |
 
-  * **mega** (``quantize_weights=True`` and a K2-eligible trunk, B <=
-    ``mega_max_batch``): a stacked int8 prefill, converted to the
+  * **mega** (``quantize_weights=True`` and a K2-eligible trunk,
+    JAX's ``supports_mega_decode``, B <= ``mega_max_batch``; on a card
+    K2 is built for head widths 32, 64 and 128, the shipped 8 x 128,
+    16 x 64 and 32 x 32 trunks): a stacked int8 prefill, converted to the
     three-tier mega cache; each step is one ``LVTR.step_mega`` (the whole
     trunk as one K2 call); every 8 steps the bf16 stage merges into the
     int8 tail and every 128 the tail moves to a cold block.  With

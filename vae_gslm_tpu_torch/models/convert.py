@@ -18,8 +18,10 @@ reads).  ``mega_weights_from_numpy`` carries the int8 K2 weights of a JAX
 ``build_mega_decode()`` dict across as they are, and
 ``layer_cache_from_numpy`` a JAX per-layer KV cache.
 
-``to_flat`` / ``load_flat`` map an LVTR, a DiscreteAR, a HuBERT decoder
-or a HiFi-GAN generator to and from the JAX package's compact checkpoint contract: a flat dict of
+``to_flat`` / ``load_flat`` map an LVTR, a DiscreteAR, a HuBERT decoder,
+a SoundStream (its quantizer's codebooks; BestRQ's frozen projection and
+codebooks, ``nnx.Variable`` buffers in JAX, buffers in the port) or a
+HiFi-GAN generator to and from the JAX package's compact checkpoint contract: a flat dict of
 numpy arrays keyed by the flax attribute paths joined by ``/``
 (``nnx.to_pure_dict``, list indices included), in the JAX layouts
 (dense kernels (in, out), conv kernels (k, in, out), transposed-conv
@@ -370,8 +372,8 @@ def load_hfgan_flat(generator: nn.Module, discriminators: nn.Module,
 
 def to_flat(model: nn.Module) -> Dict[str, np.ndarray]:
     """The JAX compact-checkpoint dict of an LVTR, a DiscreteAR, a HuBERT
-    decoder or a HiFi-GAN generator, weight-normed or folded (float32
-    numpy arrays keyed by flax paths)."""
+    decoder, a SoundStream or a HiFi-GAN generator, weight-normed or
+    folded (float32 numpy arrays keyed by flax paths)."""
     if _is_wn_model(model):
         return _wn_to_flat(model)
     sd = {k: v.detach().float().cpu().numpy()
@@ -392,8 +394,8 @@ def _strict_keys(what: str, want, got) -> None:
 
 def load_flat(model: nn.Module, flat: Mapping) -> None:
     """Strictly load a JAX compact-checkpoint dict (``to_flat``'s
-    contract) into an LVTR, a DiscreteAR, a HuBERT decoder or a HiFi-GAN
-    generator; the non-parameter
+    contract) into an LVTR, a DiscreteAR, a HuBERT decoder, a SoundStream
+    or a HiFi-GAN generator; the non-parameter
     variables must equal the port's (to 1e-6)."""
     flat = {k: np.asarray(v) for k, v in flat.items()}
     if _is_wn_model(model):

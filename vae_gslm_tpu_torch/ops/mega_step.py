@@ -51,10 +51,12 @@ Every sum whose order the kernel cannot match cheaply (RMS, the stage
 and current-token dots, the softmax denominators, the stage P.V) is
 taken in float64 and rounded once, in the kernel and here.
 
-On a CPU tensor the wrapper computes ``fused_trunk_step_plain``; on a
-CUDA tensor it launches the kernel or raises.  Every branch is one
-cooperative launch a step (grid barriers between the phases): the bf16
-branch (``a8=False`` on int8 weights) ``k2_bf16_step_kernel``, products
+On a CPU tensor the wrapper computes ``fused_trunk_step_plain`` (any
+head width); on a CUDA tensor it launches the kernel's instantiation at
+the head width D / H, one of ``HEAD_DIMS`` (32, 64 or 128), or raises.
+Every branch is one cooperative launch a step (grid barriers between
+the phases): the bf16 branch (``a8=False`` on int8 weights)
+``k2_bf16_step_kernel``, products
 on the FP64 tensor cores, weights streamed by TMA, shared memory laid out
 by ``bf16_step_plan``; the a8 and w4 branches ``k2_i8_step_kernel``, 8
 phases a layer (each input row quantized once by a rows phase, each
@@ -78,7 +80,7 @@ BLK = 128
 TAIL = 128
 STAGE = 8
 NEG_INF = -1e30
-HEAD_DIM = 64          # the CUDA kernel's head width (the flagship's)
+HEAD_DIMS = (32, 64, 128)   # the CUDA kernel's head widths (instantiations)
 WEIGHT_KEYS = ("wq", "wo", "w1", "w2", "sq", "so", "s1", "s2", "n1", "n3",
                "bq", "bo", "b1", "b2")
 W4_KEYS = ("gq", "go", "g1", "g2")        # K2-w4's folded group scales
@@ -190,9 +192,12 @@ def _av_i8(e, vs, v8, equation: str):
 
 def fused_trunk_step_plain(x, weights: dict, cache: dict, pos: int,
                            slopes, flushed: int, a8: bool = False):
-    """Plain PyTorch version of the kernel's math.  Per-head tensors are
-    (H, B, ...).  Returns (x (B, D) float32, k_new, v_new (L, H, B, Dh)
-    bfloat16)."""
+    """Plain PyTorch version of the kernel's math, at any head width.
+    Per-head tensors are (H, B, ...).  The softmax scale 1/sqrt(Dh), a
+    power of two only at Dh = 64, multiplies after each dot in the
+    kernel's (and JAX's) order: ``(float(dot) * (q_scale * scale)) *
+    k_scale`` and ``float(dot) * scale``.  Returns (x (B, D) float32,
+    k_new, v_new (L, H, B, Dh) bfloat16)."""
     w4 = "gq" in weights
     b, d = x.shape
     nl = weights["wq"].shape[0]
@@ -337,8 +342,8 @@ def i8_workspace_bytes(b: int, d: int, h: int, group: int) -> int:
     4D); two arrays of activation scales (B, nxs) float32.  Nothing is
     kept per layer."""
     nxs = _cdiv(max(h, 4 * d // group if group else 1), 4) * 4
-    terms = max(n * (k // gsz)
-                for n, k, gsz in (i8_geom(p, d, group) for p in range(4))
+    terms = max(n * (k // gsz) for n, k, gsz in
+                (i8_geom(p, d, group, head_dim(d, h)) for p in range(4))
                 if gsz)
     acc = 0 if group else 4 * d
     return 16 + 4 * b * acc + 4 * b * terms + 4 * b * d + 2 * 4 * b * nxs
@@ -355,15 +360,46 @@ def bf16_workspace_bytes(b: int, d: int) -> int:
 # The persistent bf16 step (``k2_bf16_step_kernel``): its block, units
 # and shared-memory layout, as ``csrc/mega_step.cu`` defines them.
 STEP_THREADS = 512        # 16 warps; 4 attention groups of 128
+ATTN_THREADS = 128        # an attention group: one thread per cache row
 STEP_WARPS = STEP_THREADS // 32
-STEP_GROUPS = STEP_THREADS // 128
+STEP_GROUPS = STEP_THREADS // ATTN_THREADS
 UNIT_COLS = 8             # output columns per unit (an M tile)
 STRIP_COLS = 16           # columns per weight strip (a TMA box's 16 bytes)
 UNITS_PER_PASS = 4
 TILE_ROWS = 16            # batch rows per tile (the products' M)
 TILES_PER_PASS = 2
-GROUP_SMEM = 17680        # sizeof(GroupSmem): an attention group's scratch
 SMEM_LIMIT = 232448       # a block's most on an H100
+
+
+def head_dim(d: int, h: int) -> int:
+    """The head width of dim ``d`` over ``h`` heads; raises unless the
+    kernel is instantiated at it (``HEAD_DIMS``)."""
+    dh = d // h
+    if dh * h != d or dh not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"dim {d} / {h} heads: K2 takes head_dim 32, 64 or 128")
+    return dh
+
+
+def kv_buffers(dh: int) -> int:
+    """The cache-block buffers of an attention group: K and V apart at
+    widths up to 64; one buffer at 128 that holds a block's K, then its V
+    (two would outgrow the bf16 step's block at d1024 / 8 x 128)."""
+    return 1 if dh > 64 else 2
+
+
+def group_smem(dh: int) -> int:
+    """``sizeof(GroupSmem<dh>)`` of ``csrc/mega_step.cu``, an attention
+    group's scratch: q, k and v rows (float32), the P.V parts' int32 sums
+    (``ATTN_THREADS / dh - 1`` parts past the first, or 4 ints), the
+    float64 and float32 reductions, the stage logits, the int8 q and
+    probabilities, and ``kv_buffers(dh)`` int8 blocks of 128 x dh; a
+    multiple of 16 bytes."""
+    parts = ATTN_THREADS // dh
+    avred = (parts - 1) * dh if parts > 1 else 4
+    n = (4 * 3 * dh + 4 * avred + 8 * 4 + 4 * 4 + 4 * STAGE + dh
+         + ATTN_THREADS + kv_buffers(dh) * BLK * dh)
+    return _cdiv(n, 16) * 16
 
 
 class StepPlan(NamedTuple):
@@ -416,7 +452,7 @@ def bf16_step_plan(b: int, d: int, h: int, n_sm: int,
              * min(_cdiv(d // UNIT_COLS, n_sm), UNITS_PER_PASS)
              * UNIT_COLS * 4)
     part = _cdiv(max(sums, heads), 16) * 16
-    region = max(part + 4 * d, STEP_GROUPS * GROUP_SMEM)
+    region = max(part + 4 * d, STEP_GROUPS * group_smem(head_dim(d, h)))
     rows = _cdiv(b, 4) * 16
     nbytes = 1024 + 2 * slot + region + rows + 16
     return StepPlan(occupancy * n_sm, slot, part, region, rows, nbytes)
@@ -453,34 +489,35 @@ class I8Plan(NamedTuple):
     bytes: int       # the whole dynamic shared memory (I8_NO_FIT: none)
 
 
-def i8_geom(p: int, d: int, group: int) -> Tuple[int, int, int]:
+def i8_geom(p: int, d: int, group: int, dh: int) -> Tuple[int, int, int]:
     """Product ``p`` (0 QKV, 1 out-projection, 2 FFN up, 3 FFN down) of the
-    a8/w4 step: its output columns N, inputs K and fold group in logical
-    inputs (the heads for the out-projection, w4's scale group, or 0: a8's
-    one dot)."""
+    a8/w4 step at head width ``dh``: its output columns N, inputs K and
+    fold group in logical inputs (a head of ``dh`` for the out-projection,
+    w4's scale group, or 0: a8's one dot)."""
     n = 3 * d if p == 0 else 4 * d if p == 2 else d
     k = 4 * d if p == 3 else d
-    return n, k, HEAD_DIM if p == 1 else group
+    return n, k, dh if p == 1 else group
 
 
-def i8_tiles(p: int, d: int, group: int, splits: int):
+def i8_tiles(p: int, d: int, group: int, dh: int, splits: int):
     """Product ``p``'s tiles in order: (first column, first stored row,
     stored rows).  Tile t is strip t mod NS (64 columns) of K range t // NS
     (K, or K / 2 packed rows for w4, in ``splits`` equal ranges); block j
     of a grid of G takes tiles j, j + G, .. (``i8_issue``)."""
-    n, k, _ = i8_geom(p, d, group)
+    n, k, _ = i8_geom(p, d, group, dh)
     kst = k // 2 if group else k
     ns, tr = n // I8_TILE, kst // splits
     return [((t % ns) * I8_TILE, (t // ns) * tr, tr)
             for t in range(ns * splits)]
 
 
-def i8_tile_bytes(p: int, d: int, group: int, bp: int, tr: int) -> int:
+def i8_tile_bytes(p: int, d: int, group: int, dh: int, bp: int,
+                  tr: int) -> int:
     """Product ``p``'s tile of ``tr`` stored rows in shared memory: its int8
     rows (w4: both nibble halves, ``I8_PAD`` bytes past each) and its
     scratch: a8's int32 sums (bp x 64) or the scales of its fold groups
     ((bp + 64) float32 a group)."""
-    _, _, gsz = i8_geom(p, d, group)
+    _, _, gsz = i8_geom(p, d, group, dh)
     ngt = (2 if group else 1) * tr // gsz if gsz else 0
     return (bp * ((2 if group else 1) * tr + I8_PAD)
             + (ngt * (bp + I8_TILE) * 4 if gsz else bp * I8_TILE * 4))
@@ -489,7 +526,8 @@ def i8_tile_bytes(p: int, d: int, group: int, bp: int, tr: int) -> int:
 @functools.lru_cache(maxsize=None)
 def i8_step_plan(b: int, d: int, h: int, n_sm: int, group: int = 0) -> I8Plan:
     """``i8_plan`` of ``csrc/mega_step.cu`` at B = b rows, dim d, h heads,
-    ``group`` 0 (a8) or w4's scale group, laid out for one block per SM.
+    ``group`` 0 (a8) or w4's scale group, laid out for one block per SM
+    (the head width ``d / h`` one of ``HEAD_DIMS``).
     The region holds the attention groups' scratch or a rows phase's row
     (4D float32), its maxima, 1/rms and norm scale (D float32), and a tile's int8 rows and
     scratch (``i8_tile_bytes``) must fit it; each of the two weight slots is what the block has left, rounded
@@ -498,22 +536,23 @@ def i8_step_plan(b: int, d: int, h: int, n_sm: int, group: int = 0) -> I8Plan:
     group) and that costs the busiest block least, at its stored rows +
     ``I8_TILE_COST`` a tile; a piece is as many of a block's tiles as a
     slot holds."""
+    dh = head_dim(d, h)
     bp = _cdiv(b, 8) * 8
     nxs = _cdiv(max(h, 4 * d // group if group else 1), 4) * 4
-    region = _cdiv(max(STEP_GROUPS * GROUP_SMEM, 20 * d + 4 * nxs + 64),
+    region = _cdiv(max(STEP_GROUPS * group_smem(dh), 20 * d + 4 * nxs + 64),
                    16) * 16
     budget = (SMEM_LIMIT - 1024 - region - 16) // 2 // 1024 * 1024
     ok = True
     slot, splits, tps = 0, [], []
     for p in range(4):
-        n, k, gsz = i8_geom(p, d, group)
+        n, k, gsz = i8_geom(p, d, group, dh)
         kst = k // 2 if group else k
         ns, gst = n // I8_TILE, max(I8_CHUNK, gsz)
         best, bs = -1, 0
         for sp in range(1, kst // gst + 1):
             tr = kst // sp
             if (kst % sp or tr % gst or tr * I8_TILE > budget
-                    or i8_tile_bytes(p, d, group, bp, tr) > region):
+                    or i8_tile_bytes(p, d, group, dh, bp, tr) > region):
                 continue
             cost = _cdiv(ns * sp, n_sm) * (tr + I8_TILE_COST)
             if best < 0 or cost < best:
@@ -576,7 +615,7 @@ def _lib():
             [i] * 5 + [ctypes.POINTER(i)] * 2)
         lib.fused_trunk_step_bf16_launch.argtypes = (
             [p] * 31 + [i] * 7 + [ctypes.c_float, i, p])
-        lib.fused_trunk_step_bf16_grid.argtypes = [i, ctypes.POINTER(i)]
+        lib.fused_trunk_step_bf16_grid.argtypes = [i, i, ctypes.POINTER(i)]
         lib.k2_barrier_probe_launch.argtypes = [p, i, i, p]
         for fn in (lib.fused_trunk_step_i8_launch,
                    lib.fused_trunk_step_i8_grid,
@@ -603,8 +642,9 @@ def _error(what: str, err: int) -> RuntimeError:
 @functools.lru_cache(maxsize=None)
 def step_plan_for(b: int, d: int, h: int, dev: torch.device,
                   a8: bool = False, group: int = 0):
-    """The plan of the step branch that a call at B = b takes on ``dev``'s
-    card (bf16, or with ``a8`` or a w4 ``group`` the a8/w4 step), and the
+    """The plan of the step branch that a call at B = b, dim d, h heads
+    (head width d / h) takes on ``dev``'s card (bf16, or with ``a8`` or a
+    w4 ``group`` the a8/w4 step), and the
     grid the launcher will size (occupancy x SMs) for its shared memory.
     The a8/w4 plan is held against the library's ``i8_plan`` and raises
     unless it fits a block; kept per shape and card, so the wrapper takes
@@ -625,7 +665,7 @@ def step_plan_for(b: int, d: int, h: int, dev: torch.device,
                                f"bytes on the card, {plan.bytes} here")
     else:
         plan = bf16_step_plan(b, d, h, sm_count(dev))
-        err = _lib().fused_trunk_step_bf16_grid(plan.bytes,
+        err = _lib().fused_trunk_step_bf16_grid(head_dim(d, h), plan.bytes,
                                                 ctypes.byref(grid))
     if err != 0:
         raise _error("fused_trunk_step occupancy", err)
@@ -648,10 +688,11 @@ def barrier_probe(n: int, b: int, d: int, h: int, dev: torch.device
 def fused_trunk_step(x, weights: dict, cache: dict, pos: int, slopes,
                      flushed: int, a8: bool = False, trace=None):
     """x (B, D) float32; ``weights`` and ``cache`` as in the module
-    docstring; ``pos`` and ``flushed`` host ints (flushed a multiple of
-    128, ``flushed <= pos <= flushed + 128``: a full tail with an empty
-    stage is taken, as JAX's kernel takes it); slopes (H,) negative ALiBi
-    slopes.  Returns (x (B, D) float32, k_new, v_new (L, H, B, Dh)
+    docstring (Dh = D / H one of ``HEAD_DIMS``: any other width raises
+    NotImplementedError on a CUDA tensor); ``pos`` and ``flushed`` host
+    ints (flushed a multiple of 128, ``flushed <= pos <= flushed + 128``:
+    a full tail with an empty stage is taken, as JAX's kernel takes it);
+    slopes (H,) negative ALiBi slopes.  Returns (x (B, D) float32, k_new, v_new (L, H, B, Dh)
     bfloat16).  ``trace`` (see ``step_phases``) is None or an int64 CUDA
     tensor for the kernel's phase-end times (1 + 5 L words for the bf16
     branch, 2 + 8 L for the a8 and w4 branches).  Each call is one
@@ -668,11 +709,10 @@ def fused_trunk_step(x, weights: dict, cache: dict, pos: int, slopes,
     dev = x.device
     nl = weights["wq"].shape[0]
     h = cache["k_tail"].shape[1]
-    dh = d // h
+    dh = head_dim(d, h)
     nb = cache["k_cold"].shape[1]
-    if dh != HEAD_DIM or d % 256:
-        raise ValueError(f"dim {d} / {h} heads: the kernel needs head_dim "
-                         f"{HEAD_DIM} and dim a multiple of 256")
+    if d % 256:
+        raise ValueError(f"dim {d}: the kernel needs a multiple of 256")
     if flushed % BLK or not 0 <= flushed <= nb * BLK:
         raise ValueError(f"flushed={flushed} must be a multiple of {BLK} "
                          f"within the {nb}-block cold cache")
@@ -683,6 +723,9 @@ def fused_trunk_step(x, weights: dict, cache: dict, pos: int, slopes,
     _check("x", x, f32, (b, d), dev)
     w4 = "gq" in weights
     group = w4_group(weights, d) if w4 else 0
+    if group % dh:
+        raise ValueError(f"w4 group {group} is not a multiple of head_dim "
+                         f"{dh}")
     for name, g, din, dout in (("wq", "gq", d, 3 * d), ("wo", "go", d, d),
                                ("w1", "g1", d, 4 * d), ("w2", "g2", 4 * d, d)):
         _check(name, weights[name], i8,
