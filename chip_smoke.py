@@ -31,7 +31,7 @@ Phases (any failure ends the run with a non-zero exit, no result):
      |diff| <= 2e-3 |want| + 2e-4, each call counted once under its
      branch and, at B = 8 and 32, one call one launch in a profiler
      window; then K2-a8's times at B = 8 and K2-bf16's at B = 32 (the
-     CLI's chunks) over the rollout's positions (kernel by profiler,
+     CLI's chunks) at the rollout's position 351 (kernel by profiler,
      wrapper by CUDA events, plain, bytes bound), their phase lines by
      batch (block 0's global timer: B = 1, 8 and 1, 17, 32), and one of
      their grid barriers alone (a probe launch of 1000);
@@ -42,7 +42,7 @@ Phases (any failure ends the run with a non-zero exit, no result):
      setting), at K2's tolerance (the weights packed by the port's
      ``pack_mega_w4`` on the card from K2's int8 weights, bitwise equal to
      the same packing on the CPU); one call one launch;
-     its times at B = 32 with group 128 over the CLI's positions and its
+     its times at B = 32 with group 128 at position 351 and its
      phase lines at B = 9, 17 and 32;
   4c. ``k2_widths``: K2's instantiations at head widths 128 (8 heads)
      and 32 (32 heads) at d1024 against their plain version over
@@ -164,10 +164,11 @@ Phases (any failure ends the run with a non-zero exit, no result):
          K2 launches and no K1 launch per run (B = 64 runs in phase 11);
      then, for each path, a profile of 64 AR steps: the device busy
      share and the kernels that take it;
-  8b. the per-layer paths at that width and B = 128 (past the mega
+  8b. the per-layer paths at that width, ``CUT_L`` = 8 layers (cut from
+     16 for the time limit), and B = 128 (past the mega
      batches), same prompts, stages and checks: int8 weights and an
      int8 cache through JAX's route (``decode_attention``; no K1, K2 or
-     K6 launch), then with ``flash_decode=True`` (exactly 16 x 500 K6
+     K6 launch), then with ``flash_decode=True`` (exactly 8 x 500 K6
      launches, no K1 or K2), the two routes' token agreement and latent
      difference reported, each with its real-time factor, stage times,
      ms per AR step and peak memory, and a profile of 32 AR steps of
@@ -223,7 +224,8 @@ Phases (any failure ends the run with a non-zero exit, no result):
      launch; then with
      ``VAE_GSLM_MEGA_W4=1``, exactly 1000 K2-w4 launches and no K2 or K1
      launch; then one batch of 128 over 128 such WAVs (``data.batch_size``
-     128, the per-layer int8 route: no K1, K2, K2-w4 or K6 launch).  Each
+     128, the per-layer int8 route: no K1, K2, K2-w4 or K6 launch) on a
+     copy of the checkpoint at ``CUT_L`` layers.  Each
      run writes exactly one finite 16 kHz WAV per input, none longer than
      the 3 s prompt + 10 s; the real-time factor over the whole ``main``
      call (n x 10 s over its wall time: model build, data, sampling,
@@ -252,12 +254,13 @@ Phases (any failure ends the run with a non-zero exit, no result):
      shipped training config with, overridden in memory, a 3-layer
      ``ResNet`` encoder, Rotary trunk positions, a 4-layer spline flow
      and a ``ConditionalUNet`` denoiser with GroupNorm
-     (``options_config``): one ``LVTRTrainer.run_step`` at B 8 x 640,
-     16-mixed, accumulation 2 (exactly 32 K3 and 32 K3b launches with no
+     (``options_config``) at ``CUT_L`` = 8 layers: one
+     ``LVTRTrainer.run_step`` at B 8 x 640,
+     16-mixed, accumulation 2 (exactly 16 K3 and 16 K3b launches with no
      slopes), a B = 8 continuation of 500 per-layer int8 steps through
-     ``decode_attention`` and then through K6 (exactly 8000 launches,
+     ``decode_attention`` and then through K6 (exactly 4000 launches,
      zero slopes) with DDIM-100 and the HiFi-GAN, one float32 scoring
-     batch of 4 x 1100 frames (exactly 16 K5 launches); one call of each
+     batch of 4 x 1100 frames (exactly 8 K5 launches); one call of each
      of these kernels held against its plain version and timed at its
      path's shape; then the same configuration at 2 layers and convs of
      64/256 on the card against the CPU (loss terms, gradients, scores
@@ -281,10 +284,11 @@ Phases (any failure ends the run with a non-zero exit, no result):
      (K3) and 1100 (K5), and one ``DiscreteARTrainer`` step (K3/K3b,
      float32: CE and every gradient);
   16. ``discrete_train``: ``scripts/train.py`` -> ``DiscreteARTrainer.fit``
-     at full width (the shipped trunk without its flow, single-VQ over
+     at full width and ``CUT_L`` = 8 layers (phases 16, 18 and 19 share
+     the checkpoint; the shipped trunk without its flow, single-VQ over
      200 tokens, the full-width HuBERT codec and the 80-bin vocoder on
      random weights), 16-mixed, B 8 x accumulation 2 x 640 tokens on a
-     synthetic 48 x 13 s corpus, 4 steps with exactly 32 K3 and 32 K3b
+     synthetic 48 x 13 s corpus, 4 steps with exactly 16 K3 and 16 K3b
      launches each (plain versions refused); step times, peak memory;
   17. ``hubert_decoder_fit``: ``HuBERTDecoderTrainer`` at full width (a
      3-layer 512/2048 ``ResNet`` embed encoder, the shipped 6-layer
@@ -292,13 +296,13 @@ Phases (any failure ends the run with a non-zero exit, no result):
      kernel), then ``save_checkpoint`` read back by
      ``HuBERTIO.from_pretrained``;
   18. ``discrete_serve``: ``DiscreteARSampler(kv_dtype=torch.int8)`` at B
-     8, 150 -> 500 tokens, bf16 weights (exactly 8000 K1 launches, no
+     8, 150 -> 500 tokens, bf16 weights (exactly 4000 K1 launches, no
      other kernel), then ``scripts/infer.py`` with
      ``inference.speech.hubert.SpeechInferer`` on 8 utterances (the
      per-layer float32 route, HuBERT DDIM-100, HiFi-GAN): 8 continuations
      and 8 decoded prompts, finite and of the right lengths;
   19. ``discrete_score``: ``LikelihoodEstimator`` (the token LM branch),
-     float32, one batch under 1024 tokens (16 K3) and one past it (16
+     float32, one batch under 1024 tokens (8 K3) and one past it (8
      K5), plain versions refused;
   20. ``head_widths``: every templated flash body and K6 at head widths
      32 and 128 against its plain version at the D = 64 gates
@@ -311,10 +315,11 @@ Phases (any failure ends the run with a non-zero exit, no result):
      block edges; the bodies the wide paths do not launch timed, K4/K4b
      and K5b bf16 among them, beside SDPA and the bound);
   21. ``wide_heads_8`` and ``wide_heads_32``: the shipped LVTR with 8
-     heads of 128, then 32 of 32, on the port's entry points
-     (``phase_wide_heads``): three ``LVTRTrainer`` steps (32 K3 + 32 K3b
-     each), ``LikelihoodEstimator`` over a batch under 1024 frames (16 K3
-     float32) and one past it (16 K5), a B 8 continuation on the hybrid
+     heads of 128, then 32 of 32, at ``CUT_L`` = 8 layers, on the port's
+     entry points (``phase_wide_heads``): a warm-up and one timed
+     ``LVTRTrainer`` step (16 K3 + 16 K3b each),
+     ``LikelihoodEstimator`` over a batch under 1024 frames (8 K3
+     float32) and one past it (8 K5), a B 8 continuation on the hybrid
      route with bf16 weights (K1 at the width), int8-weight
      continuations on K2 at the width (B 8 on K2-a8, B 32 on K2-bf16 and
      on K2-w4: exactly 500 launches of the branch, no K1) and per layer
@@ -326,7 +331,33 @@ Phases (any failure ends the run with a non-zero exit, no result):
      on a config derived from the shipped encoder block (VQ of 1024 x
      512), float32 with TF32 off, 4 steps at B 8 x 2 x 640 frames over
      synthetic WAVs (no K1-K7 launch), the compact checkpoint resumed by
-     a fresh trainer, equal.
+     a fresh trainer, equal;
+  23. ``reconstruction`` (run beside phase 11, on its checkpoint):
+     ``ReconstructionEvaluator.run`` with tasks ``f0mse`` and ``mcd`` on
+     8 synthetic WAVs of 2-3 s at batch 8, float32, DDIM-100 (no K1-K7
+     launch), finite scores, utterances/s;
+  24. ``tts_small``: a small LVTTS (the JAX trainer test's sizes, its
+     trunk d128 with 4 heads of 32) card against CPU on the forward's loss
+     terms and one backward (K3/K3b on the card), then on the card the
+     TTS sampler's stacked route against its per-layer route at
+     temperature 0 and the ``return_attn`` maps summing to 1;
+  25. ``tts_fit``: ``scripts/train.py`` -> ``LVTTSTrainer.fit`` on a
+     TTS config derived from ``configs/train/speech/vae-gslm.yaml``
+     (``tts_model_config``: the shipped 16-layer d1024 trunk with
+     cross-attention of 16 heads, a 6-layer d512 text encoder, the eos
+     head and a speaker encoder), 16-mixed, B 8 x accumulation 2 x 640
+     frames on 32 synthetic 12 s WAVs with character texts: a warm-up and
+     three timed steps, exactly 32 K3 and 32 K3b launches each (the text
+     encoder and the cross-attention dense), one profiled step, the
+     compact checkpoint with ``symbols.json`` resumed by a fresh trainer,
+     equal; 26. ``tts_serve``: ``scripts/infer.py`` -> ``TTSInferer.run``
+     on that checkpoint, B 8, at most 10 s (at least 1 s), temperature
+     1.0, EOS threshold 0.5, DDIM-100 at eta 0.5: the stacked route, no
+     K1-K7 launch, 8 finite ``N.wav``/``N_c.wav`` and ``N.txt``; the
+     per-layer route with ``return_attn`` over 50 steps; both routes
+     against each other over 50 steps at temperature 0 (float32: lengths
+     equal, frames within rtol 1e-3 / atol 1e-4; 16-mixed: the band
+     logged).
 Output: one line per measurement, then the ``{"kernels": [...]}`` line
 (an entry time that CUDA events took, where the profiler recorded no
 device operation at all, carries ``ms_source``, ``plain_ms_source`` or
@@ -348,6 +379,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 L, H, D = 16, 16, 64              # flagship trunk: 16 layers, 16 x 64
 PROMPT, LENGTH = 150, 500         # 3 s -> 10 s at 50 frames/s
+# the trunk depth of the earlier paths cut to keep the whole run inside
+# its time limit (the per-layer serving at B 128 and its CLI run, the
+# options LVTR, the wide-heads trunks, the token LM); the main serving,
+# training, scoring and TTS paths keep the shipped 16 layers
+CUT_L = 8
 HBM_BYTES_PER_S = 3.35e12         # H100 SXM (NVIDIA data sheet)
 INT8_OPS_PER_S = 1.979e15
 BF16_FLOPS = 0.989e15
@@ -868,10 +904,11 @@ def k2_one_launch(where: str, fn, kernel: str) -> None:
 
 def k2_times(where: str, dev, b: int, weights, x, cache, slopes, a8: bool,
              group: int, kernel: str, h: int = H,
-             positions=range(PROMPT + 1, PROMPT + 1 + LENGTH, 100)) -> tuple:
+             positions=(PROMPT + 1 + 200,)) -> tuple:
     """Kernel, wrapper, plain and bound times over ``positions`` (by
-    default the main path's, 151 to 551 by 100: the 150 -> 650
-    rollout's).  Returns the means (ms)."""
+    default position 351, the middle of the 150 -> 650 rollout: on an
+    H100 each branch's mean over the five positions 151-551 read within
+    2.1 % of it, and was cut for time).  Returns the means (ms)."""
     from vae_gslm_tpu_torch.ops.mega_step import (
         fused_trunk_step as k2, fused_trunk_step_plain as plain)
 
@@ -892,7 +929,8 @@ def k2_times(where: str, dev, b: int, weights, x, cache, slopes, a8: bool,
             f"{calls[-1] * 1e3:.1f} us per call with the wrapper, plain "
             f"{ps[-1] * 1e3:.1f} us, bound {bs[-1] * 1e3:.1f} us ({nbytes / 1e6:.1f} MB)")
     out = tuple(statistics.mean(v) for v in (ks, calls, ps, bs))
-    log(f"{where} mean over the rollout (B={b}): kernel {out[0] * 1e3:.1f} "
+    log(f"{where} mean over {len(ks)} position(s) (B={b}): kernel "
+        f"{out[0] * 1e3:.1f} "
         f"us, {out[1] * 1e3:.1f} us per call with the wrapper, plain "
         f"{out[2] * 1e3:.1f} us, bound {out[3] * 1e3:.1f} us")
     return out
@@ -926,7 +964,7 @@ def phase_k2(dev):
     call; B = 17 and 32 with bf16 products, the other persistent kernel)
     over the rollout's cache states and a full tail; one call of each
     branch one launch (torch.profiler); the a8 times at B = 8 and the
-    bf16 times at B = 32 (the CLI's chunks) over the rollout's positions,
+    bf16 times at B = 32 (the CLI's chunks) at the rollout's position 351,
     beside the bytes bound (and, for bf16, the FP64 tensor cores' rate for
     its exact float64 sums); the phase lines by batch; one grid barrier
     alone.  Returns the K2-a8 and K2-bf16 entries."""
@@ -945,7 +983,7 @@ def phase_k2(dev):
                                            256, a8=a8)),
                 "k2_i8_step_kernel" if a8 else "k2_bf16_step_kernel")
         del x, weights, cache
-    # K2-a8 at B = 8 over the main path's positions
+    # K2-a8 at B = 8 at the main path's position 351
     x, weights, cache, slopes = k2_inputs(8, dev, seed=1)
     ms, call_ms, plain_ms, bound = k2_times(
         "K2-a8", dev, 8, weights, x, cache, slopes, True, 0,
@@ -1000,7 +1038,7 @@ def phase_k2_w4(dev):
     port's ``pack_mega_w4`` on the card from ``k2_inputs``' int8 weights
     and held bitwise equal to the same build on the CPU.
     Then one call one launch, its times at B = 32, group 128 over the
-    CLI's positions (151 to 551), and the phase lines at B = 9, 17, 32."""
+    CLI's position 351, and the phase lines at B = 9, 17, 32."""
     import torch
 
     from vae_gslm_tpu_torch.nn.transformer import pack_mega_w4
@@ -1034,7 +1072,7 @@ def phase_k2_w4(dev):
             k2_one_launch("K2-w4 B=32", lambda i: mega_step.fused_trunk_step(
                 x, w4, cache, 351, slopes, 256), "k2_i8_step_kernel")
         del x, w4, cache
-    # the CLI's calls: B = 32, group 128, over its positions
+    # the CLI's calls: B = 32, group 128, at position 351
     x, weights, cache, slopes = k2_inputs(32, dev, seed=32)
     w4 = pack_mega_w4(weights, 128, D)
     del weights
@@ -2244,7 +2282,8 @@ def phase_train(dev, gpu: str, seed: int = 0):
 
 
 # --------------------------------------------------------- main paths
-def build_pipeline(dev, quantize: bool, kv_dtype="int8", nheads: int = 0):
+def build_pipeline(dev, quantize: bool, kv_dtype="int8", nheads: int = 0,
+                   layers: int = 0):
     """The full-width LVTR of ``configs/train/speech/vae-gslm.yaml``
     (weights from seed 0, the utterance encoder left out), its sampler
     with an int8 KV cache (``kv_dtype`` None: a cache in the compute
@@ -2252,7 +2291,8 @@ def build_pipeline(dev, quantize: bool, kv_dtype="int8", nheads: int = 0):
     quantized to int8 from the float32 weights; the remaining float
     parameters are then cast to bf16.  ``nheads`` replaces the config's
     16 heads (K2 takes head widths 32, 64 and 128, so an int8-weight trunk
-    of 8, 16 or 32 heads serves on the mega route)."""
+    of 8, 16 or 32 heads serves on the mega route), ``layers`` the
+    config's 16 layers."""
     import torch
 
     from vae_gslm_tpu_torch.core import precision
@@ -2266,6 +2306,8 @@ def build_pipeline(dev, quantize: bool, kv_dtype="int8", nheads: int = 0):
     del hp.model.__dict__["utterance_encoder"]
     if nheads:
         hp.model.transformer.layer.self_attn.nheads = nheads
+    if layers:
+        hp.model.transformer.num_layers = layers
     voc_hp = Hparams.from_yamlfile(os.path.join(
         ROOT, "configs", "train", "vocoder",
         "hfgan_16k_50hz_librispeech.yaml"))
@@ -2385,12 +2427,13 @@ PL_B = 128                          # past the mega batches: per layer
 
 
 def phase_per_layer(dev, gpu: str) -> int:
-    """The per-layer serving paths at full width, B = 128 synthetic
+    """The per-layer serving paths at full width and ``CUT_L`` layers (cut
+    from 16 for time), B = 128 synthetic
     150-frame prompts, 500 AR steps, DDIM-100, HiFi-GAN, each run with
     the decode kernels' counts set to 0 just before and read just after:
     int8 weights and an int8 cache through JAX's route
     (``decode_attention``; no K1, K2 or K6 launch), then the same prompts
-    and seed with ``flash_decode=True`` (exactly 16 x 500 K6 launches and
+    and seed with ``flash_decode=True`` (exactly CUT_L x 500 K6 launches and
     no K1 or K2); the two routes' token agreement and latent difference
     (reported, not gated); then bf16 weights with a bf16 cache
     (``kv_dtype`` None; no kernel launch on the AR loop).  Real-time
@@ -2419,7 +2462,8 @@ def phase_per_layer(dev, gpu: str) -> int:
         if counts != want:
             raise AssertionError(f"{name}: launches (K1, K2, K6) = {counts}"
                                  f", expected {want}")
-        log(f"per-layer B={PL_B} ({name}): K1 {counts[0]}, K2 {counts[1]}, "
+        log(f"per-layer B={PL_B} ({CUT_L} layers, {name}): K1 {counts[0]}, "
+            f"K2 {counts[1]}, "
             f"K6 {counts[2]} launches; " + ", ".join(
                 f"{k} {v:.3f} s" for k, v in timings.items())
             + f"; {timings['ar_loop'] / LENGTH * 1e3:.2f} ms per AR step; "
@@ -2427,13 +2471,13 @@ def phase_per_layer(dev, gpu: str) -> int:
             f"memory {peak / 2 ** 30:.2f} GiB ({gpu})")
         return out["frames"].value[:, PROMPT:].float().cpu().numpy(), counts
 
-    sampler, vocoder = build_pipeline(dev, quantize=True)
+    sampler, vocoder = build_pipeline(dev, quantize=True, layers=CUT_L)
     k6_sampler = ARTRSampler(sampler.model, kv_dtype=torch.int8,
                              flash_decode=True, device=dev)
     ref, _ = run("int8 weights, int8 cache, JAX's route", sampler, vocoder,
                  (0, 0, 0))
     got, counts = run("int8 weights, int8 cache, K6", k6_sampler, vocoder,
-                      (0, 0, L * LENGTH))
+                      (0, 0, CUT_L * LENGTH))
     same = float((ref[..., 0] == got[..., 0]).mean())
     log(f"per-layer B={PL_B}: K6 route against JAX's route, same prompts and "
         f"seed: tokens equal at {same:.1%} of the steps, latent max |diff| "
@@ -2444,7 +2488,8 @@ def phase_per_layer(dev, gpu: str) -> int:
         profile_ar_loop(s, prior, dev, gpu, kw, path, steps=32)
     del sampler, k6_sampler, vocoder
     gc.collect()
-    sampler, vocoder = build_pipeline(dev, quantize=False, kv_dtype=None)
+    sampler, vocoder = build_pipeline(dev, quantize=False, kv_dtype=None,
+                                      layers=CUT_L)
     run("bf16 weights, bf16 cache", sampler, vocoder, (0, 0, 0))
     del sampler, vocoder
     gc.collect()
@@ -2690,15 +2735,16 @@ trainer: {{distributed: false}}
 """
 
 
-def write_flagship(root: str, dev, seed: int = 0, nheads: int = 0):
+def write_flagship(root: str, dev, seed: int = 0, nheads: int = 0,
+                   layers: int = 0):
     """The checkpoint directory of the full-width LVTR of
     ``configs/train/speech/vae-gslm.yaml`` with its utterance encoder
     (weights from ``seed``, float32, saved by the port's ``save_compact``
     with the train config as ``hp.yaml``) and a HiFi-GAN directory of
     the 80-bin vocoder config (weights from seed 1, ``save_pretrained``),
     written once under ``root`` for the scoring and the CLI phases
-    (``nheads``: the trunk's heads instead of the config's 16).
-    Returns (checkpoint directory, vocoder directory)."""
+    (``nheads``: the trunk's heads instead of the config's 16; ``layers``
+    its layers).  Returns (checkpoint directory, vocoder directory)."""
     import torch
 
     from vae_gslm_tpu_torch.hparams.hp import Hparams
@@ -2716,6 +2762,8 @@ def write_flagship(root: str, dev, seed: int = 0, nheads: int = 0):
     hp.vocoder.path = voc
     if nheads:
         hp.model.transformer.layer.self_attn.nheads = nheads
+    if layers:
+        hp.model.transformer.num_layers = layers
     model = LVTR(hp.model, input_dim=80, device=dev,
                  generator=torch.Generator(dev).manual_seed(seed))
     nparams = sum(p.numel() for p in model.parameters())
@@ -3573,8 +3621,10 @@ def run_ranks(args: dict, work: str, timeout: float):
     return out
 
 
-def _refuse_plain(where: str):
-    """Make every plain attention version raise (the kernels must run);
+def _refuse_plain(where: str, dense: bool = True):
+    """Make every plain attention version raise (the kernels must run),
+    and with ``dense`` the dense attention too (a path whose non-causal or
+    cross-attention runs it, as the text-to-speech trunk's, passes False);
     returns a callable that undoes it."""
     from vae_gslm_tpu_torch.nn import attention as attn_mod
     from vae_gslm_tpu_torch.ops import flash_attention as fa
@@ -3593,7 +3643,8 @@ def _refuse_plain(where: str):
 
     for n in names:
         setattr(fa, n, refuse(n))
-    attn_mod.attend = refuse("the dense attention")
+    if dense:
+        attn_mod.attend = refuse("the dense attention")
 
     def undo():
         for n, f in saved.items():
@@ -4780,22 +4831,23 @@ def phase_lvtr_options_small(dev) -> None:
 
 
 def phase_lvtr_options(dev, gpu: str) -> dict:
-    """The options at full width (``options_config``: 16 layers, d1024,
+    """The options at full width (``options_config``: ``CUT_L`` layers, cut
+    from 16 for time, d1024,
     Rotary, ResNet encoder, spline flow, ConditionalUNet with GroupNorm),
     weights from seed 0, each run with every kernel count set to 0 just
     before and read just after:
       (a) ``LVTRTrainer.run_step`` at B 8 x 640 frames, 16-mixed,
-          accumulation 2, after one warm-up step: exactly 32 K3 and 32 K3b
-          launches (bf16, ``slopes=None``) and no other kernel; the loss
+          accumulation 2, after one warm-up step: exactly 2 CUT_L K3 and
+          2 CUT_L K3b launches (bf16, ``slopes=None``) and no other kernel; the loss
           terms and every gradient finite;
       (b) ``ARTRSampler`` at B 8: a 3 s prompt, 500 AR steps on the
           per-layer route over the int8 cache, once through
           ``decode_attention`` (no kernel) and once with
-          ``flash_decode=True`` (exactly 16 x 500 K6 launches, zero
+          ``flash_decode=True`` (exactly CUT_L x 500 K6 launches, zero
           slopes), DDIM-100 at eta 0.5, the seed-1 HiFi-GAN (bf16
           weights), outputs checked as the serving phases check them;
       (c) one ``LVTR.likelihood`` batch, float32 with TF32 off, 4 x 1100
-          frames: exactly 16 K5 launches.
+          frames: exactly CUT_L K5 launches.
     One call of each kernel on the path (K3 and K3b from the step, K6 at
     position 400 of the flash rollout, K5 from the scores) is held against
     its plain version on the same inputs, then timed at those shapes
@@ -4818,7 +4870,7 @@ def phase_lvtr_options(dev, gpu: str) -> dict:
     from vae_gslm_tpu_torch.ops import flash_attention as fa
     from vae_gslm_tpu_torch.trainers.speech.lvtr import LVTRTrainer
 
-    cfg = options_config()
+    cfg = options_config(layers=CUT_L)
     launches = {}
 
     # (a) the training step
@@ -4846,7 +4898,7 @@ def phase_lvtr_options(dev, gpu: str) -> dict:
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    want = L * TRAIN_ACCUM
+    want = CUT_L * TRAIN_ACCUM
     launches.update(expect_counts("options step", {
         "flash_forward_packed": want, "flash_backward_packed": want}))
     terms = {k: float(metrics[k]) for k in ("rec_loss", "kld", "token_kld",
@@ -4857,8 +4909,9 @@ def phase_lvtr_options(dev, gpu: str) -> dict:
         raise AssertionError(f"options step: non-finite loss or gradients "
                              f"{terms}")
     tokens = TRAIN_B * TRAIN_ACCUM * TRAIN_T
-    log(f"options train step (Rotary, ResNet encoder, spline flow, "
-        f"ConditionalUNet + GroupNorm; {nparams / 1e6:.1f} M parameters, "
+    log(f"options train step ({CUT_L} layers, Rotary, ResNet encoder, "
+        f"spline flow, ConditionalUNet + GroupNorm; "
+        f"{nparams / 1e6:.1f} M parameters, "
         f"built in {build_s:.1f} s) B={TRAIN_B} x accumulation "
         f"{TRAIN_ACCUM} x T={TRAIN_T}, 16-mixed: {step_s * 1e3:.1f} ms "
         f"({tokens / step_s:.0f} tokens/s), peak memory "
@@ -4872,7 +4925,7 @@ def phase_lvtr_options(dev, gpu: str) -> dict:
     gc.collect()
 
     # (b) the continuation
-    model_cfg = options_config()["model"]
+    model_cfg = options_config(layers=CUT_L)["model"]
     del model_cfg["utterance_encoder"]       # as the serving phases
     voc_hp = Hparams.from_yamlfile(VOCODER_YAML)
     prior = make_prior(OPT_PROMPT_B, dev)
@@ -4910,8 +4963,8 @@ def phase_lvtr_options(dev, gpu: str) -> dict:
                                               kw)
             peak = torch.cuda.max_memory_allocated()
             got = expect_counts(f"options continuation ({name})",
-                                {"flash_decode_int8": L * LENGTH if flash
-                                 else 0})
+                                {"flash_decode_int8": CUT_L * LENGTH
+                                 if flash else 0})
             if flash:
                 launches["flash_decode_int8"] = got["flash_decode_int8"]
                 k6_args = c6.args
@@ -4957,7 +5010,7 @@ def phase_lvtr_options(dev, gpu: str) -> dict:
             score_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
     launches.update({k: v for k, v in expect_counts(
-        "options scores", {"flash_forward_tiled": L}).items() if v})
+        "options scores", {"flash_forward_tiled": CUT_L}).items() if v})
     if tuple(scores.shape) != (OPT_SCORE_B,) or not bool(
             torch.isfinite(scores).all()):
         raise AssertionError(f"options scores {scores}")
@@ -4965,7 +5018,7 @@ def phase_lvtr_options(dev, gpu: str) -> dict:
     log(f"options scores B={OPT_SCORE_B} x T={OPT_SCORE_T} (float32, TF32 "
         f"off): {score_s * 1e3:.1f} ms ({audio / score_s:.0f} s of audio "
         f"per second), peak memory {peak / 2 ** 30:.2f} GiB; K5 launches "
-        f"{L}; scores {[round(float(s), 4) for s in scores]} ({gpu})")
+        f"{CUT_L}; scores {[round(float(s), 4) for s in scores]} ({gpu})")
     if c5.args[4] is not None:
         raise AssertionError("the Rotary trunk handed K5 slopes")
     timings.update(call_k5_times(dev, gpu, "options at the scores' call "
@@ -5489,29 +5542,30 @@ def call_k6_times(gpu: str, where: str, args, d: int):
 
 
 def phase_wide_heads(dev, gpu: str, nheads: int, worst: dict):
-    """The shipped LVTR (``configs/train/speech/vae-gslm.yaml``: 16
-    layers, d1024, FFN 4096, ALiBi, RMSNorm, the 4-layer conditional
-    flow) with ``transformer.layer.self_attn.nheads`` set to ``nheads``
-    (8: head_dim 128; 32: head_dim 32), nothing else changed, on the
+    """The shipped LVTR (``configs/train/speech/vae-gslm.yaml``: d1024,
+    FFN 4096, ALiBi, RMSNorm, the 4-layer conditional flow) with
+    ``transformer.layer.self_attn.nheads`` set to ``nheads`` (8: head_dim
+    128; 32: head_dim 32) and ``CUT_L`` layers (cut from 16 for time), on
+    the
     port's entry points, each run with every kernel count set to 0 just
     before and read just after (no other kernel may launch):
       (a) ``LVTRTrainer.run_step`` at B 8 x 640 frames, 16-mixed,
-          accumulation 2, utterance encoder: a warm-up and three timed
-          steps, exactly 32 K3 and 32 K3b launches each, the plain
+          accumulation 2, utterance encoder: a warm-up and one timed
+          step, exactly 2 CUT_L K3 and 2 CUT_L K3b launches each, the plain
           versions and the dense attention refused;
       (b) ``LikelihoodEstimator.run``, float32 with TF32 off, on the
           model saved by ``save_compact`` (weights from seed 0) and 16
           synthetic WAVs at batch 8: a batch padded to 1000 frames
-          (exactly 16 K3) and one to 1100 (exactly 16 K5), the plain
+          (exactly CUT_L K3) and one to 1100 (exactly CUT_L K5), the plain
           versions refused;
       (c) ``ARTRSampler`` (a 3 s prompt, int8 KV cache, DDIM-100 at eta
           0.5, the seed-1 HiFi-GAN): 500 AR steps at B 8 on the hybrid
-          route with bf16 weights (exactly 16 x 500 K1 launches), then
+          route with bf16 weights (exactly CUT_L x 500 K1 launches), then
           with int8 weights on the mega route at this width: B 8 on
           K2-a8, B 32 on K2-bf16 and B 32 on K2-w4 (group 128), exactly
           500 launches of that branch each and no K1; then
           ``WIDE_PL_STEPS`` per-layer steps with ``flash_decode=True``
-          (exactly 16 per step K6 launches).
+          (exactly CUT_L per step K6 launches).
     One call of each flash kernel on the path (K3/K3b from the step, K3
     and K5 from the scoring batches, K6 at position 250) is held against
     its plain version and timed beside the plain version, SDPA and the
@@ -5550,6 +5604,7 @@ def phase_wide_heads(dev, gpu: str, nheads: int, worst: dict):
         hp = Hparams.from_yamlfile(TRAIN_YAML)
         hp.vocoder.path = vocoder_dir(tmp)
         hp.model.transformer.layer.self_attn.nheads = nheads
+        hp.model.transformer.num_layers = CUT_L
         t0 = time.perf_counter()
         trainer = LVTRTrainer(hp, seed=0, device=dev)
     nparams = sum(p.numel() for p in trainer.params)
@@ -5558,7 +5613,7 @@ def phase_wide_heads(dev, gpu: str, nheads: int, worst: dict):
         hp.model.tokens.vocab_size))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    want = L * TRAIN_ACCUM
+    want = CUT_L * TRAIN_ACCUM
     saved = (fa.flash_forward_packed_plain, fa.flash_backward_packed_plain,
              attn_mod.attend)
     steps = []
@@ -5567,7 +5622,7 @@ def phase_wide_heads(dev, gpu: str, nheads: int, worst: dict):
          attn_mod.attend) = (refuse("the plain K3"), refuse("the plain K3b"),
                              refuse("the dense attention"))
         torch.cuda.reset_peak_memory_stats()
-        for i in range(4):
+        for i in range(2):
             zero_kernel_counts()
             with Capture(fa, "flash_forward_packed") as cf, \
                     Capture(fa, "flash_backward_packed") as cb:
@@ -5601,8 +5656,8 @@ def phase_wide_heads(dev, gpu: str, nheads: int, worst: dict):
         f"{len(steps)} steps (range {min(steps) * 1e3:.1f}-"
         f"{max(steps) * 1e3:.1f}), {tokens / med:.0f} tokens/s, peak memory "
         f"{peak / 2 ** 30:.2f} GiB ({gpu})")
-    launches["K3 bf16"] = 4 * want
-    launches["K3b bf16"] = 4 * want
+    launches["K3 bf16"] = 2 * want           # the warm-up and the timed step
+    launches["K3b bf16"] = 2 * want
     del trainer, metrics, batch
     gc.collect()
     for k, x in call_k3_times(dev, gpu, f"{tag} at the training call",
@@ -5615,7 +5670,7 @@ def phase_wide_heads(dev, gpu: str, nheads: int, worst: dict):
     root = tempfile.mkdtemp(prefix="wide_")
     try:
         with precision.policy_scope(precision.Policy()):
-            ckpt, _ = write_flagship(root, dev, nheads=nheads)
+            ckpt, _ = write_flagship(root, dev, nheads=nheads, layers=CUT_L)
             corpus = os.path.join(root, "corpus")
             os.makedirs(corpus)
             audio_s = write_wav_corpus(corpus, WIDE_SCORE_FRAMES,
@@ -5666,11 +5721,11 @@ def phase_wide_heads(dev, gpu: str, nheads: int, worst: dict):
                 name = "flash_forward_packed" if t <= fa.MAX_T else \
                     "flash_forward_tiled"
                 bad = {k: x for k, x in counts.items()
-                       if x != (L if k == name else 0)}
+                       if x != (CUT_L if k == name else 0)}
                 if bad:
                     raise AssertionError(f"{tag}: scoring batch of {t} "
                                          f"frames launched {bad}, expected "
-                                         f"{L} {name} and no other")
+                                         f"{CUT_L} {name} and no other")
             n = len(WIDE_SCORE_FRAMES)
             if scores.shape != (n,) or not np.isfinite(scores).all() \
                     or not (scores <= 0).all():
@@ -5679,10 +5734,10 @@ def phase_wide_heads(dev, gpu: str, nheads: int, worst: dict):
                 f"{WIDE_SCORE_B}, batches padded to {padded} frames): "
                 f"{n} utterances ({audio_s:.1f} s of audio) in {wall:.3f} s, "
                 f"{n / wall:.2f} utterances/s; model {timings['model']:.3f} "
-                f"s; K3 {L} and K5 {L} launches; scores mean "
+                f"s; K3 {CUT_L} and K5 {CUT_L} launches; scores mean "
                 f"{scores.mean():.4f} ({gpu})")
-            launches["K3 f32"] = L
-            launches["K5 f32"] = L
+            launches["K3 f32"] = CUT_L
+            launches["K5 f32"] = CUT_L
             del est
             gc.collect()
             for k, x in call_k3_times(dev, gpu, f"{tag} at the scoring call",
@@ -5700,7 +5755,8 @@ def phase_wide_heads(dev, gpu: str, nheads: int, worst: dict):
     # weights on K2 at this width (a8 at B 8, bf16 and w4 at B 32)
     prior = make_prior(8, dev)
     kw = dict(temperature=0.85, token_temperature=0.85)
-    sampler, vocoder = build_pipeline(dev, False, nheads=nheads)
+    sampler, vocoder = build_pipeline(dev, False, nheads=nheads,
+                                      layers=CUT_L)
     if sampler.route(8) != "hybrid":
         raise AssertionError(f"{tag}: B = 8 with bf16 weights takes the "
                              f"{sampler.route(8)} route")
@@ -5711,12 +5767,12 @@ def phase_wide_heads(dev, gpu: str, nheads: int, worst: dict):
                  when=lambda a: a[9] == PROMPT + LENGTH // 2) as c1:
         run_t, _, _ = run_once(sampler, vocoder, prior, dev, 1, kw)
     expect_counts(f"{tag} serving (bf16 weights)",
-                  {"fused_decode_attention": L * LENGTH})
-    k1_launches = L * LENGTH
+                  {"fused_decode_attention": CUT_L * LENGTH})
+    k1_launches = CUT_L * LENGTH
     hybrid_step = run_t["ar_loop"] / LENGTH * 1e3
     hybrid_rtf = 8 * LENGTH / 50.0 / sum(run_t.values())
     log(f"{tag} serving B=8 (bf16 weights, hybrid route): K1 launches "
-        f"{L * LENGTH}; " + ", ".join(
+        f"{CUT_L * LENGTH}; " + ", ".join(
             f"{k} {x:.3f} s" for k, x in run_t.items())
         + f"; {hybrid_step:.2f} ms per AR step; real-time factor "
         f"{hybrid_rtf:.2f}x ({gpu})")
@@ -5724,7 +5780,8 @@ def phase_wide_heads(dev, gpu: str, nheads: int, worst: dict):
     del sampler
     gc.collect()
     from vae_gslm_tpu_torch.ops.mega_step import fused_trunk_step
-    sampler, vocoder = build_pipeline(dev, True, nheads=nheads)
+    sampler, vocoder = build_pipeline(dev, True, nheads=nheads,
+                                      layers=CUT_L)
     k2_launches = {}
     for b, w4, branch, counter in ((8, 0, "a8", "launches"),
                                    (32, 0, "bf16", "launches_bf16"),
@@ -5769,7 +5826,7 @@ def phase_wide_heads(dev, gpu: str, nheads: int, worst: dict):
         raise AssertionError(f"{tag}: K1 disagrees with its plain version "
                              f"({k1_err:.3e})")
     k1_ms = device_ms(lambda i: tr_mod.fused_decode_attention(
-        qa, *cache_a, pos, i % L, sl1, ka, va, flushed), n=200,
+        qa, *cache_a, pos, i % CUT_L, sl1, ka, va, flushed), n=200,
         only=("fused_decode_kernel",), per_call=1)
     nb = 8 * nheads * pos * (2 * d + 8) + 3 * 8 * nheads * d * 2 \
         + 8 * nheads * d * 4 + nheads * 4
@@ -5794,10 +5851,10 @@ def phase_wide_heads(dev, gpu: str, nheads: int, worst: dict):
         run_t, _, _ = run_once(sampler, vocoder, prior, dev, 1, kw,
                                length=WIDE_PL_STEPS)
     expect_counts(f"{tag} per-layer serving (K6)",
-                  {"flash_decode_int8": L * WIDE_PL_STEPS})
-    launches["K6"] = L * WIDE_PL_STEPS
+                  {"flash_decode_int8": CUT_L * WIDE_PL_STEPS})
+    launches["K6"] = CUT_L * WIDE_PL_STEPS
     log(f"{tag} serving B=8 (per-layer int8 cache, K6, bf16 weights, "
-        f"{WIDE_PL_STEPS} steps): K6 launches {L * WIDE_PL_STEPS}; "
+        f"{WIDE_PL_STEPS} steps): K6 launches {CUT_L * WIDE_PL_STEPS}; "
         + ", ".join(f"{k} {x:.3f} s" for k, x in run_t.items())
         + f"; {run_t['ar_loop'] / WIDE_PL_STEPS * 1e3:.2f} ms per AR step "
         f"({gpu})")
@@ -6109,7 +6166,8 @@ def token_lm_dirs(root: str, dev):
     """Under ``root``: the 80-bin vocoder (seed 1), the full-width codec
     (``HuBERTIO.save_pretrained``, seed 2), a 48-utterance corpus of
     13 s each from seed 5 (WAVs and 200-token ids at 50 Hz), and the
-    full-width token LM's checkpoint directory (``save_compact``, seed 0,
+    full-width token LM's checkpoint directory (``CUT_L`` layers,
+    ``save_compact``, seed 0,
     its training config as ``hp.yaml``).  Returns their paths."""
     import torch
 
@@ -6131,7 +6189,7 @@ def token_lm_dirs(root: str, dev):
     codec.save_pretrained(paths["codec"])
     # one length, so that the micro-batches' audio rows stack
     write_train_corpus(paths["corpus"], None, 48, 13.0, 13.0, seed=5)
-    hp = token_lm_config(paths["codec"], paths["corpus"])
+    hp = token_lm_config(paths["codec"], paths["corpus"], layers=CUT_L)
     model = DiscreteAR(hp.model, codec.hp_vq, input_dim=80, device=dev,
                        generator=torch.Generator(dev).manual_seed(0))
     save_compact(model, os.path.join(paths["ckpt"], "last-cpt.npz"))
@@ -6332,8 +6390,9 @@ def phase_discrete_train(dev, gpu: str, paths: dict):
     AdamW, accumulation 2) on ``paths``' corpus: B 8 x 640 tokens, mels
     computed by the dataset on the card, ``DAR_STEPS`` optimizer steps,
     each step's kernel counts set to 0 just before ``run_step`` and read
-    just after (exactly 32 K3 and 32 K3b launches: 16 layers x 2
-    micro-batches; the plain attention versions refused), then the final
+    just after (exactly 2 CUT_L K3 and 2 CUT_L K3b launches: ``CUT_L``
+    layers, cut from 16 for time, x 2 micro-batches; the plain attention
+    versions refused), then the final
     validation and checkpoint.  Returns the last step's (K3, K3b)."""
     import torch
     import yaml
@@ -6342,7 +6401,8 @@ def phase_discrete_train(dev, gpu: str, paths: dict):
     from vae_gslm_tpu_torch.scripts import train as train_cli
     from vae_gslm_tpu_torch.trainers.speech.discrete import DiscreteARTrainer
 
-    cfg = token_lm_config(paths["codec"], paths["corpus"]).to_dict()
+    cfg = token_lm_config(paths["codec"], paths["corpus"],
+                          layers=CUT_L).to_dict()
     cfg["logging"]["log_dir"] = os.path.join(paths["corpus"], "..", "logs")
     config = os.path.join(paths["ckpt"], "..", "train_lm.yaml")
     with open(config, "w") as f:
@@ -6496,7 +6556,7 @@ trainer: {{distributed: false}}
 def phase_discrete_serve(dev, gpu: str, paths: dict) -> int:
     """The token LM's serving at full width, bf16 weights: first
     ``DiscreteARSampler(kv_dtype=torch.int8)`` at B 8 on 150-token prompts
-    for 500 tokens, the hybrid route (exactly 16 x 500 K1 launches, no
+    for 500 tokens, the hybrid route (exactly CUT_L x 500 K1 launches, no
     other kernel), its ms per AR step; then ``scripts/infer.py`` with the
     token-LM ``SpeechInferer`` (``inference/speech/hubert.py``) on 8 of the
     corpus's utterances at B 8: the per-layer float32 route (no kernel on
@@ -6605,8 +6665,8 @@ def phase_discrete_serve(dev, gpu: str, paths: dict) -> int:
 def phase_discrete_score(dev, gpu: str, paths: dict):
     """``LikelihoodEstimator`` (the token LM branch) at full width,
     float32, on 8 utterances at batch 4: one batch of 10-20 s (padded to
-    <= 1024 tokens: exactly 16 K3 launches) and one of 22-25 s (past
-    1024: exactly 16 K5 launches), the plain versions refused; finite
+    <= 1024 tokens: exactly CUT_L K3 launches) and one of 22-25 s (past
+    1024: exactly CUT_L K5 launches), the plain versions refused; finite
     scores <= 0.  Returns (K3, K5) launches."""
     import shutil
 
@@ -6795,6 +6855,694 @@ def phase_soundstream(dev, gpu: str, root: str) -> None:
         f"checkpoint resumed by a fresh trainer, equal ({gpu})")
 
 
+# ---------------------------------------------------- text-to-speech
+TTS_STEPS = 4                     # fit's optimizer steps: a warm-up and three
+TTS_UTTERANCES = 32               # 12 s WAVs: two steps of B 8 x 2 an epoch
+TTS_SERVE_B = 8                   # the inferer's batch
+TTS_MAX_S, TTS_MIN_S = 10.0, 1.0  # at most 500 frames, an EOS after 50
+TTS_ROUTE_STEPS = 50              # the per-layer timing and the route check
+TTS_SMALL_T = 40                  # frames of the small card-against-CPU step
+RECON_UTTERANCES = 8              # 2-3 s WAVs, one batch
+TTS_CHARS = "abcdefghijklmnopqrstuvwxyz_"
+
+
+def tts_model_config(layers=None) -> dict:
+    """The LVTTS model derived from ``TRAIN_YAML`` (no TTS config ships):
+    the shipped ``latent_dim``, encoder, decoder and trunk (``layers``
+    layers, 16 unless given) with ``cross_attn: {nheads: 16}`` in each
+    trunk layer, no tokens and no utterance encoder (TTS batches carry
+    neither); ``text``: a 512-wide embedding and a 6-layer d512 encoder (8
+    heads, FFN 2048, RMSNorm, GELU, ALiBi maxpos 1024, non-causal, no
+    bias); ``eos``: one GELU/LayerNorm block of 1024; ``spkr``: the shipped
+    utterance encoder's channels and strides (64 -> 128/256/512, rates -2,
+    kernel 4) as a ``BottleNeckResNet`` with hidden channels 4x its out
+    channels and the shipped encoder's block (k 7, causal, InstanceNorm,
+    ReLU), to a 512-wide embedding."""
+    import copy
+
+    import yaml
+
+    with open(TRAIN_YAML) as f:
+        shipped = yaml.safe_load(f)["model"]
+    m = {k: copy.deepcopy(shipped[k]) for k in ("latent_dim", "encoder",
+                                                "decoder", "transformer")}
+    m["transformer"]["layer"]["cross_attn"] = {"nheads": 16}
+    if layers:
+        m["transformer"]["num_layers"] = layers
+    rms = {"identifier": "RMSNorm", "eps": 1e-6}
+    m["text"] = {"embedding_dim": 512, "encoder": {
+        "num_layers": 6, "bias": False,
+        "rpe": {"identifier": "ALiBi", "maxpos": 1024},
+        "layer": {"dim": 512, "ffd_size": 2048, "norm": rms,
+                  "activation": {"identifier": "GELU"},
+                  "self_attn": {"nheads": 8, "causal": False}}}}
+    m["eos"] = {"num_layers": 1, "layer": {
+        "hidden_dim": 1024, "activation": {"identifier": "GELU"},
+        "norm": {"identifier": "LayerNorm", "eps": 1e-6}}}
+    utt = shipped["utterance_encoder"]
+    m["spkr"] = {"embedding_dim": 512, "num_layers": utt["num_layers"],
+                 "init_channel": utt["init_channel"],
+                 "out_channels": list(utt["out_channels"]),
+                 "hidden_channels": [4 * c for c in utt["out_channels"]],
+                 "resample_rates": list(utt["resample_rates"]),
+                 "resample_ksize": list(utt["resample_ksize"]),
+                 "layer": copy.deepcopy(shipped["encoder"]["layer"])}
+    return m
+
+
+def tts_data(metadata: str, corpus: str, shuffle: bool, b: int = 8) -> dict:
+    """The TTS data settings: character symbols, texts padded to 256
+    symbols, mels post-padded to 12.8 s (640 frames), a 2-3 s speaker
+    crop, batch ``b``."""
+    return {"path": metadata, "wavdir": corpus, "sample_rate": 16000,
+            "with_text": True, "delimiter": " ", "batch_size": b,
+            "num_workers": 4, "pad_text": {"length": 256},
+            "post_pad": {"text": {"length": 256}, "mel": {"length": 12.8}},
+            "random_crop_mel": {"min_seg_sec": 2.0, "max_seg_sec": 3.0},
+            "sampler": {"type": "standard", "shuffle": shuffle}}
+
+
+def tts_config(voc: str, corpus: str, log_dir: str) -> dict:
+    """The LVTTS training config: ``tts_model_config`` and the shipped
+    training block (AdamW, accumulation 2, the mel rescale), 16-mixed, B 8
+    on ``corpus``'s ``text.txt``; validation on one batch of it, no audio
+    samples."""
+    import copy
+
+    import yaml
+
+    with open(TRAIN_YAML) as f:
+        shipped = yaml.safe_load(f)
+    meta = os.path.join(corpus, "text.txt")
+    return {
+        "trainer": {"identifier": "trainers.tts.lvtts.LVTTSTrainer",
+                    "total_steps": shipped["trainer"]["total_steps"],
+                    "precision": "16-mixed", "distributed": False,
+                    "limit_val_batches": 1, "val_check_interval": None},
+        "logging": {"log_dir": log_dir, "num_samples": 0, "temperature": 1.0,
+                    "max_sample_length": TTS_MAX_S,
+                    "min_sample_length": TTS_MIN_S, "plot_attn": False},
+        "vocoder": {"path": voc},
+        "model": tts_model_config(),
+        "training": copy.deepcopy(shipped["training"]),
+        "data": {"train": tts_data(meta, corpus, True),
+                 "val": tts_data(meta, corpus, False)}}
+
+
+def write_tts_corpus(root: str, n: int, seed: int) -> float:
+    """``n`` WAVs of 12 s (the training corpus writer; one length, so that
+    the micro-batches' audio rows stack) and a ``text.txt`` of
+    ``name|-|text`` lines: 60-180 random characters of ``TTS_CHARS``
+    (``_`` for a space), space-delimited.  Returns the seconds of
+    audio."""
+    import numpy as np
+
+    audio_s = write_train_corpus(root, None, n, 12.0, 12.0, seed)
+    rng = np.random.RandomState(seed + 1)
+    lines = []
+    with open(os.path.join(root, "tokens.txt")) as f:
+        for line in f:
+            name = line.strip().split("|", 1)[0]
+            text = " ".join(rng.choice(list(TTS_CHARS),
+                                       size=rng.randint(60, 181)))
+            lines.append(f"{name}|-|{text}")
+    with open(os.path.join(root, "text.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return audio_s
+
+
+def tts_small_config() -> dict:
+    """The LVTTS of the JAX trainer test (``tests/test_trainers.py::
+    _tts_hp``: latent 4, a 1-layer d16 text encoder, the eos head, the
+    speaker encoder, the bottleneck encoder and denoiser), its trunk
+    widened to d128 with 4 heads of 32 (the flash kernels take head widths
+    32, 64 and 128, and K3 packs heads into 128 columns)."""
+    inorm = {"identifier": "InstanceNorm", "eps": 1e-6}
+    rms = {"identifier": "RMSNorm", "eps": 1e-6}
+
+    def bottleneck(rates, ksize, causal=True):
+        return {"num_layers": 1, "resample_rates": rates,
+                "resample_ksize": ksize, "init_channel": 16,
+                "out_channels": [16], "hidden_channels": [32],
+                "layer": {"kernel_size": 3, "causal_padding": causal,
+                          "norm": inorm,
+                          "activation": {"identifier": "ReLU"}}}
+
+    enc = dict(bottleneck([1], [1]), identifier="BottleNeckResNet",
+               final_norm=True)
+    unet = dict(bottleneck([1], [1]), condition_dim=8, conditional=[True],
+                final_norm=True)
+    unet["layer"] = dict(unet["layer"], condition_type="concat",
+                         activation={"identifier": "SiLU"})
+    return {
+        "latent_dim": 4,
+        "text": {"embedding_dim": 8, "encoder": {
+            "bias": False, "num_layers": 1,
+            "rpe": {"identifier": "ALiBi", "maxpos": 64},
+            "layer": {"ffd_size": 32, "dim": 16, "norm": rms,
+                      "activation": {"identifier": "GELU"},
+                      "self_attn": {"nheads": 4, "causal": False}}}},
+        "eos": {"num_layers": 1, "layer": {
+            "hidden_dim": 16, "activation": {"identifier": "GELU"},
+            "norm": {"identifier": "LayerNorm", "eps": 1e-6}}},
+        "spkr": dict(bottleneck([-2], [4], causal=False), embedding_dim=8),
+        "encoder": enc,
+        "decoder": {"diffusion": {
+            "timesteps": 8, "sampling_timesteps": 3, "loss_type": "l1",
+            "input_scale": 5.0, "objective": "pred_noise",
+            "ddim_sampling_eta": 0.0, "clamp_range": [-3.0, 1.2],
+            "beta_schedule": {"identifier": "cosine"},
+            "identifier": "ConditionalBottleNeckUNet"},
+            "cond_unet": {"unet": unet, "time_embedding": {
+                "dim": 16, "maxpos": 8,
+                "activation": {"identifier": "SiLU"}}}},
+        "transformer": {
+            "bias": False, "rpe": {"identifier": "ALiBi", "maxpos": 64},
+            "num_layers": 1,
+            "layer": {"ffd_size": 256, "dim": 128, "norm": rms,
+                      "activation": {"identifier": "GELU"},
+                      "self_attn": {"nheads": 4, "causal": True},
+                      "cross_attn": {"nheads": 4}}}}
+
+
+def _tts_inputs(rng, b: int, t: int, tt: int, ts: int, n_mels: int,
+                num_symbols: int, dev):
+    """(mel, text, speaker crop) ``Masked`` of random values on ``dev``,
+    ragged lengths."""
+    import torch
+
+    from vae_gslm_tpu_torch.core.masked import Masked
+
+    def masked(x, lengths):
+        return Masked.from_lengths(torch.from_numpy(x).to(dev), lengths)
+
+    mel = masked(rng.randn(b, t, n_mels).astype("float32"),
+                 [t] + [t * 2 // 3] * (b - 1))
+    text = masked(rng.randint(2, num_symbols, (b, tt)).astype("int64"),
+                  [tt] + [tt // 2] * (b - 1))
+    spkr = masked(rng.randn(b, ts, n_mels).astype("float32"),
+                  [ts] + [ts * 3 // 4] * (b - 1))
+    return mel, text, spkr
+
+
+def tts_route_pair(sampler, text, spkr, generator_seed: int, steps: int,
+                   min_frames: int, dev):
+    """The stacked and the per-layer route of ``sampler`` on the same
+    inputs and seed at temperature 0 (the deterministic protocol: the
+    initial state is the first draw of each run's generator, the prior
+    sample its mean): their outputs."""
+    import torch
+
+    kw = dict(max_frames=steps, min_frames=min_frames, temperature=0.0,
+              eos_threshold=0.5)
+    b = text.value.shape[0]
+    if sampler.route(b) != "stacked":
+        raise AssertionError(f"B = {b} takes the {sampler.route(b)} route")
+    stacked = sampler(text, spkr, torch.Generator(dev).manual_seed(
+        generator_seed), **kw)
+    sampler.route = lambda batch, return_attn=False: "per_layer"
+    try:
+        per_layer = sampler(text, spkr, torch.Generator(dev).manual_seed(
+            generator_seed), **kw)
+    finally:
+        del sampler.route
+    return stacked, per_layer
+
+
+def check_maps(where: str, out, text_lengths) -> float:
+    """Every row of the returned maps sums to 1 (within the bfloat16
+    rounding of each step's row; the text encoder's float32); returns the
+    largest deviation."""
+    import torch
+
+    worst = 0.0
+    for name, tol in (("self_attn", 2e-2), ("cross_attn", 2e-2),
+                      ("text_self_attn", 1e-5)):
+        rows = out[name].sum(-1)
+        if name == "text_self_attn":
+            valid = (torch.arange(rows.shape[-1], device=rows.device)
+                     < text_lengths[:, None])[:, None, None]
+            rows = torch.where(valid, rows, torch.ones_like(rows))
+        dev_ = (rows - 1).abs().max().item()
+        worst = max(worst, dev_)
+        if not math.isfinite(dev_) or dev_ > tol:
+            raise AssertionError(f"{where}: {name} rows sum to 1 within "
+                                 f"{dev_:.3e}, not {tol}")
+    return worst
+
+
+def phase_tts_small(dev) -> None:
+    """The small LVTTS (``tts_small_config``) on the card and on the CPU
+    from the same weights, inputs and draws, float32 with TF32 off: the
+    forward's loss terms (rec, KLD, EOS BCE) within 1e-4 relative and one
+    backward's every gradient within 1e-3 x its max |g| (the trunk's
+    self-attention through K3/K3b on the card, its plain versions on the
+    CPU; the text encoder and the cross-attention dense on both); then on
+    the card ``ARTRTTSSampler``'s stacked route against its per-layer
+    route under the deterministic protocol (lengths equal, frames within
+    rtol 1e-4 / atol 1e-5), again with the eos head's output bias raised
+    so that every row ends at its first step past ``min_frames`` (the
+    frames after it zero), and the ``return_attn`` maps summing to 1."""
+    import numpy as np
+    import torch
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.core.losses import eos_loss, masked_loss
+    from vae_gslm_tpu_torch.data.symbols import Symbols
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.inference.tts.sampler import ARTRTTSSampler
+    from vae_gslm_tpu_torch.models.tts.lvtr import LVTTS
+
+    symbols = Symbols(set(TTS_CHARS), " ")
+    hp = Hparams.from_dict(tts_small_config())
+    b, t = 3, TTS_SMALL_T
+    with precision.policy_scope(precision.Policy()):
+        cpu = LVTTS(hp, symbols, input_dim=80, device="cpu",
+                    generator=torch.Generator().manual_seed(3))
+        card = LVTTS(hp, symbols, input_dim=80, device=dev)
+        card.load_state_dict(cpu.state_dict())
+        rng = np.random.RandomState(4)
+        inputs = _tts_inputs(rng, b, t, 12, 24, 80, symbols.num_symbols,
+                             "cpu")
+        draws = {"posterior": rng.randn(b, t, 4), "prior": rng.randn(b, t, 4),
+                 "initial": rng.uniform(-1, 1, (b, 1, 4)),
+                 "t": rng.randint(0, 8, (b,)), "noise": rng.randn(b, t, 80)}
+        draws = {k: torch.from_numpy(np.asarray(
+            v, np.int64 if k == "t" else np.float32)) for k, v in
+            draws.items()}
+
+        def loss_terms(model, where):
+            moved = [type(x)(x.value.to(where), x.lengths.to(where),
+                             x.time_axis) for x in inputs]
+            out = model(moved[0], None, text=moved[1], spkr=moved[2],
+                        draws={k: v.to(where) for k, v in draws.items()})
+            terms = [out["rec_loss"], masked_loss(
+                out["log_q"], out["log_p"], fn=lambda x, y: x - y),
+                eos_loss(out["eos"])]
+            sum(terms).backward()
+            return [float(x.detach()) for x in terms]
+
+        want = loss_terms(cpu, "cpu")
+        zero_kernel_counts()
+        got = loss_terms(card, dev)
+        torch.cuda.synchronize()
+        nl = len(card.transformer.layers)
+        expect_counts("tts_small step", {"flash_forward_packed": nl,
+                                         "flash_backward_packed": nl})
+        worst_m = max(abs(g - w) / max(abs(w), 1e-12)
+                      for g, w in zip(got, want))
+        if not worst_m <= 1e-4:
+            raise AssertionError(f"tts_small: loss terms {got} against the "
+                                 f"CPU's {want}")
+        worst_g = 0.0
+        for (name, pg), pc in zip(card.named_parameters(), cpu.parameters()):
+            if pc.grad is None:
+                if pg.grad is not None and bool(pg.grad.any()):
+                    raise AssertionError(f"tts_small: {name} has a card "
+                                         "gradient and no CPU gradient")
+                continue
+            gg, gc_ = pg.grad.double().cpu(), pc.grad.double()
+            err = (gg - gc_).abs().max().item()
+            scale = gc_.abs().max().item()
+            if not err <= 1e-3 * scale + 1e-30:
+                raise AssertionError(f"tts_small: gradient of {name} differs "
+                                     f"by {err:.3e} (max |g| {scale:.3e})")
+            worst_g = max(worst_g, err / max(scale, 1e-30))
+        # the sampler's routes on the card
+        card.zero_grad(set_to_none=True)
+        _, text, spkr = _tts_inputs(np.random.RandomState(5), 2, t, 12, 24,
+                                    80, symbols.num_symbols, dev)
+        sampler = ARTRTTSSampler(card, device=dev)
+        zero_kernel_counts()
+        a, p = tts_route_pair(sampler, text, spkr, 7, 30, 3, dev)
+        expect_counts("tts_small sampling", {})
+        la, lp = a["lengths"].cpu(), p["lengths"].cpu()
+        fa_, fp = a["frames"].value.cpu(), p["frames"].value.cpu()
+        if not torch.equal(la, lp) or not torch.allclose(
+                fa_, fp, rtol=1e-4, atol=1e-5):
+            raise AssertionError(
+                f"tts_small: stacked route lengths {la.tolist()}, per-layer "
+                f"{lp.tolist()}, frames max |diff| "
+                f"{(fa_ - fp).abs().max().item():.3e}")
+        # the eos head's output bias raised: every row ends at its first
+        # step past min_frames on both routes, its frames zero after it
+        bias = card.eos_head.out_linear.bias
+        saved_bias = bias.detach().clone()
+        with torch.no_grad():
+            bias.fill_(30.0)
+        a, p = tts_route_pair(sampler, text, spkr, 7, 30, 3, dev)
+        with torch.no_grad():
+            bias.copy_(saved_bias)
+        le, fe = a["lengths"].cpu(), a["frames"].value.cpu()
+        if (le.tolist() != [4, 4] or not torch.equal(le, p["lengths"].cpu())
+                or fe[:, 4:].any() or not torch.allclose(
+                    fe, p["frames"].value.cpu(), rtol=1e-4, atol=1e-5)):
+            raise AssertionError(
+                f"tts_small: with every row ending, lengths {le.tolist()} "
+                f"and {p['lengths'].tolist()}, frames past them nonzero or "
+                "apart")
+        maps = sampler(text, spkr, torch.Generator(dev).manual_seed(7),
+                       max_frames=30, min_frames=3, temperature=0.0,
+                       return_attn=True)
+        map_err = check_maps("tts_small", maps, text.lengths)
+    log(f"tts_small (LVTTS of the JAX test's sizes, trunk d128 with 4 "
+        f"heads of 32; card against CPU, float32): loss terms max rel err "
+        f"{worst_m:.2e}, gradients max err {worst_g:.2e} x max|g|, K3/K3b "
+        f"{nl}/{nl}; the stacked route against the per-layer route over 30 "
+        f"steps: lengths {la.tolist()} both, frames max |diff| "
+        f"{(fa_ - fp).abs().max().item():.2e}; with the eos bias raised "
+        f"lengths {le.tolist()} both; return_attn rows sum to 1 "
+        f"within {map_err:.2e}")
+
+
+def phase_tts_fit(dev, gpu: str, root: str):
+    """``scripts/train.py`` -> ``LVTTSTrainer.fit`` on ``tts_config`` at
+    full width and depth (the 16-layer d1024 trunk with cross-attention,
+    16-mixed, AdamW, accumulation 2, B 8) for ``TTS_STEPS`` optimizer
+    steps (a warm-up and three timed) over ``TTS_UTTERANCES`` synthetic
+    12 s WAVs with character texts (seed 9) and the seed-1 HiFi-GAN
+    saved under ``root``; each step's kernel counts set to 0 just before
+    ``run_step`` and read just after (exactly 32 K3 and 32 K3b launches: 16
+    causal trunk layers x 2 micro-batches; the text encoder and the
+    cross-attention dense, no other kernel; the plain flash versions
+    refused), and the rest of the CLI after the last step counted too
+    (the final validation batch: exactly 16 K3, nothing else); the fit's
+    launches are the steps' and the validation's summed; one more step
+    under torch.profiler, its K3 and K3b kernels
+    counted; then the compact checkpoint that ``fit`` saved, with
+    ``hp.yaml`` and ``symbols.json``, resumed by a fresh trainer (seed 5):
+    its parameters equal the fitted trainer's.  Logs ms a step, the
+    parameter count and peak memory.  Returns (K3, K3b launches of the
+    fit, the run's checkpoint directory, the corpus)."""
+    import torch
+    import yaml
+
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.models.vocoder.vocoder import HiFiGAN
+    from vae_gslm_tpu_torch.scripts import train as train_cli
+    from vae_gslm_tpu_torch.trainers.tts.lvtts import LVTTSTrainer
+
+    voc, corpus = os.path.join(root, "voc"), os.path.join(root, "corpus")
+    os.makedirs(corpus)
+    HiFiGAN(Hparams.from_yamlfile(VOCODER_YAML), device=dev,
+            generator=torch.Generator(dev).manual_seed(1)
+            ).save_pretrained(voc)
+    audio_s = write_tts_corpus(corpus, TTS_UTTERANCES, seed=9)
+    cfg = tts_config(voc, corpus, os.path.join(root, "logs"))
+    config = os.path.join(root, "tts.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    accum = cfg["training"]["gradient_accumulation"]
+    nl = cfg["model"]["transformer"]["num_layers"]
+    want = nl * accum
+    run_step = LVTTSTrainer.run_step
+    steps, trainers, last = [], [], []
+    fit_counts = {"flash_forward_packed": 0, "flash_backward_packed": 0}
+
+    def timed(self, stacked):
+        # nothing launched since the CLI started or the last step ended
+        expect_counts(f"tts before step {len(steps)}", {})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_step(self, stacked)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+        expect_counts(f"tts step {len(steps) - 1}", {
+            "flash_forward_packed": want, "flash_backward_packed": want})
+        for k in fit_counts:
+            fit_counts[k] += want
+        zero_kernel_counts()
+        terms = {k: float(out[k]) for k in ("rec_loss", "kld", "eos_loss")}
+        if not all(math.isfinite(x) for x in terms.values()):
+            raise AssertionError(f"tts: non-finite metrics {terms}")
+        if self not in trainers:
+            trainers.append(self)
+        last[:] = [stacked]
+        log(f"tts step {len(steps) - 1}"
+            f"{' (warm-up)' if len(steps) == 1 else ''}: "
+            f"{steps[-1] * 1e3:.1f} ms; K3 {want}, K3b {want}; " + ", ".join(
+                f"{k} {x:.4f}" for k, x in terms.items()))
+        return out
+
+    undo = _refuse_plain("tts_fit", dense=False)
+    LVTTSTrainer.run_step = timed
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero_kernel_counts()
+        t0 = time.perf_counter()
+        train_cli.main(["-c", config, "--max_steps", str(TTS_STEPS),
+                        "-n", "run"])
+        wall = time.perf_counter() - t0
+        # the CLI after the last step: the final validation batch's
+        expect_counts("tts fit (after the last step)", {
+            "flash_forward_packed": nl})
+        fit_counts["flash_forward_packed"] += nl
+    finally:
+        LVTTSTrainer.run_step = run_step
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+    if len(steps) != TTS_STEPS or len(trainers) != 1:
+        raise AssertionError(f"tts: {len(steps)} steps by {len(trainers)} "
+                             "trainers")
+    trainer = trainers[0]
+    ckpt = os.path.join(root, "logs", "run", "ckpt", "version_0")
+    missing = {"last-cpt.npz", "hp.yaml", "symbols.json"} - set(
+        os.listdir(ckpt))
+    if missing:
+        raise AssertionError(f"tts: the checkpoint directory lacks {missing}")
+    again = LVTTSTrainer(Hparams.from_dict(cfg), seed=5, device=dev)
+    again.resume(os.path.join(ckpt, "last-cpt.npz"))
+    saved = dict(zip(trainer.names, [p.detach().clone()
+                                     for p in trainer.params]))
+    for name, p in zip(again.names, again.params):
+        if not torch.equal(p, saved[name]):
+            raise AssertionError(f"tts: {name} resumed from the compact "
+                                 "checkpoint differs")
+    del again, saved
+    batch = trainer.prepare_batch(last[0])
+    ev = _profiled(lambda i: trainer.run_step(batch), 1,
+                   only=("k3_fwd", "k3b_dq", "k3b_dkv"))
+    prof = {_kernel_name(k): c for k, _, c in ev}
+    nparams = sum(p.numel() for p in trainer.params)
+    med = statistics.median(steps[1:])
+    frames = 8 * accum * 640
+    log(f"tts fit (scripts/train.py -> LVTTSTrainer.fit, LVTTS "
+        f"{nparams / 1e6:.1f} M parameters, {nl} x d1024 trunk with "
+        f"cross-attention, B=8 x accumulation {accum} x 640 frames, "
+        f"16-mixed; {TTS_UTTERANCES} WAVs, {audio_s:.0f} s of audio): median "
+        f"step {med * 1e3:.1f} ms over {len(steps) - 1} steps after a "
+        f"warm-up (range {min(steps[1:]) * 1e3:.1f}-"
+        f"{max(steps[1:]) * 1e3:.1f}), {frames / med:.0f} frames/s; the "
+        f"whole CLI {wall:.1f} s; peak memory {peak / 2 ** 30:.2f} GiB; K3/"
+        f"K3b per step {want}/{want}, in the whole fit "
+        f"{fit_counts['flash_forward_packed']}/"
+        f"{fit_counts['flash_backward_packed']} ({TTS_STEPS} steps and "
+        f"the validation's {nl} K3); one "
+        f"profiled step's kernels {prof}; the compact checkpoint with "
+        f"symbols.json resumed by a fresh trainer, equal ({gpu})")
+    del trainer, trainers, batch, last
+    gc.collect()
+    return (fit_counts["flash_forward_packed"],
+            fit_counts["flash_backward_packed"], ckpt, corpus)
+
+
+def phase_tts_serve(dev, gpu: str, root: str, ckpt: str,
+                    corpus: str) -> None:
+    """Text-to-speech serving at full width on ``phase_tts_fit``'s
+    checkpoint: ``scripts/infer.py -v 0`` -> ``TTSInferer.run`` on the
+    first ``TTS_SERVE_B`` utterances of the corpus at B 8 (16-mixed,
+    ``max_sample_length`` 10 s, ``min_sample_length`` 1 s, temperature
+    1.0, ``eos_threshold`` 0.5, DDIM-100 at eta 0.5 as
+    ``configs/infer/speech/vae-gslm.yaml``), the stacked route, no K1-K7
+    launch; 8 finite ``N.wav``, ``N_c.wav`` and ``N.txt``.  Then on the
+    same checkpoint and batch: the per-layer route with ``return_attn``
+    over ``TTS_ROUTE_STEPS`` steps (its rows summing to 1), and the two
+    routes against each other over ``TTS_ROUTE_STEPS`` steps under the
+    deterministic protocol, at 16-mixed (the band reported) and float32
+    (lengths equal, frames within rtol 1e-3 / atol 1e-4).  Logs ms per AR
+    step, the steps run and the real-time factor of each."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.core.masked import Masked
+    from vae_gslm_tpu_torch.data import audio
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.inference.tts.inferer import TTSInferer
+    from vae_gslm_tpu_torch.inference.tts.sampler import ARTRTTSSampler
+    from vae_gslm_tpu_torch.scripts import infer as infer_cli
+
+    with open(os.path.join(corpus, "text.txt")) as f:
+        lines = f.read().splitlines()[:TTS_SERVE_B]
+    meta = os.path.join(root, "serve.txt")
+    with open(meta, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(INFER_YAML) as f:
+        shipped = yaml.safe_load(f)
+    out_dir = os.path.join(root, "tts_out")
+    cfg = {"identifier": "inference.tts.inferer.TTSInferer",
+           "exp_dir": os.path.dirname(os.path.dirname(ckpt)),
+           "output_dir": out_dir,
+           "model": {"identifier": "models.tts.lvtr.LVTTS"},
+           "precision": shipped["precision"],
+           "max_sample_length": TTS_MAX_S, "min_sample_length": TTS_MIN_S,
+           "temperature": 1.0, "eos_threshold": 0.5,
+           "diffusion": shipped["diffusion"],
+           "data": tts_data(meta, corpus, False, TTS_SERVE_B),
+           "trainer": {"distributed": False}}
+    config = os.path.join(root, "tts_infer.yaml")
+    with open(config, "w") as f:
+        yaml.safe_dump(cfg, f)
+    routes = []
+    call = ARTRTTSSampler.__call__
+
+    def spy(self, text, spkr, *a, **kw):
+        routes.append(self.route(text.value.shape[0],
+                                 kw.get("return_attn", False)))
+        return call(self, text, spkr, *a, **kw)
+
+    timings = {}
+    ARTRTTSSampler.__call__ = spy
+    try:
+        zero_kernel_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = infer_cli.main(["-c", config, "-v", "0", "--max_batches", "1"],
+                           timings=timings)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_counts("tts serving (scripts/infer.py)", {})
+    finally:
+        ARTRTTSSampler.__call__ = call
+    if routes != ["stacked"] or n != TTS_SERVE_B:
+        raise AssertionError(f"tts serving: routes {routes}, {n} rows")
+    gen = 0
+    for i in range(1, n + 1):
+        for name in (f"{i}.wav", f"{i}_c.wav"):
+            wave, sr = audio.load_audio(os.path.join(out_dir, name))
+            if sr != 16000 or not 0 < len(wave) <= TTS_MAX_S * 16000 * 1.3 \
+                    or not np.isfinite(wave).all():
+                raise AssertionError(f"tts serving {name}: {len(wave)} "
+                                     f"samples at {sr} Hz")
+            if name.endswith("_c.wav"):
+                continue
+            gen += len(wave) / 16000.0
+        with open(os.path.join(out_dir, f"{i}.txt")) as f:
+            if not f.read():
+                raise AssertionError(f"tts serving {i}.txt is empty")
+    ar_steps = int(timings["ar_steps"])
+    log(f"tts serving (scripts/infer.py -> TTSInferer.run, B={n}, stacked "
+        f"route, 16-mixed, DDIM-{shipped['diffusion']['sampling_timesteps']}"
+        f"): {ar_steps} AR steps run (at most {int(TTS_MAX_S * 50)}); "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()
+                    if k != "ar_steps")
+        + f"; {timings['ar_loop'] / ar_steps * 1e3:.2f} ms per AR step; "
+        f"{gen:.1f} s of speech in {wall:.2f} s of main, real-time factor "
+        f"{gen / wall:.2f}x ({gen / sum(v for k, v in timings.items() if k != 'ar_steps'):.2f}x "
+        f"over the timed stages); no K1-K7 launch ({gpu})")
+    # the routes on the checkpoint and the same batch
+    inf = TTSInferer(Hparams.from_dict(dict(cfg, ckpt_path=ckpt)),
+                     device=dev)
+    batch = next(iter(inf.test_dataloader()))
+    text, spkr = inf._rows(batch, "text"), inf._rows(batch, "cropped_mel")
+    sampler = inf.sampler
+    zero_kernel_counts()
+    with precision.policy_scope(precision.bf16_mixed()):
+        sampler(text, spkr, torch.Generator(dev).manual_seed(3),
+                max_frames=8, return_attn=True)             # warm-up
+        t_pl = {}
+        out = sampler(text, spkr, torch.Generator(dev).manual_seed(3),
+                      max_frames=TTS_ROUTE_STEPS, min_frames=1,
+                      temperature=1.0, return_attn=True, timings=t_pl)
+        map_err = check_maps("tts serving", out, text.lengths)
+    log(f"tts serving per-layer route (return_attn, B={n}, "
+        f"{TTS_ROUTE_STEPS} steps, 16-mixed): " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in t_pl.items() if k != "ar_steps")
+        + f"; {t_pl['ar_loop'] / t_pl['ar_steps'] * 1e3:.2f} ms per AR "
+        f"step; maps (B, L, H, Q, KV) {tuple(out['self_attn'].shape)}, "
+        f"cross {tuple(out['cross_attn'].shape)}, text "
+        f"{tuple(out['text_self_attn'].shape)}, rows sum to 1 within "
+        f"{map_err:.2e} ({gpu})")
+    del out
+    for policy, name in ((precision.bf16_mixed(), "16-mixed"),
+                         (precision.Policy(), "float32")):
+        with precision.policy_scope(policy):
+            a, p = tts_route_pair(sampler, text, spkr, 11, TTS_ROUTE_STEPS,
+                                  1, dev)
+        la, lp = a["lengths"].cpu(), p["lengths"].cpu()
+        diff = (a["frames"].value - p["frames"].value).abs()
+        rel = (diff / (1e-4 + p["frames"].value.abs())).max().item()
+        log(f"tts serving routes at full width ({name}, B={n}, "
+            f"{TTS_ROUTE_STEPS} steps, temperature 0): lengths stacked "
+            f"{la.tolist()}, per-layer {lp.tolist()}; frames max |diff| "
+            f"{diff.max().item():.3e}, max |diff| / (1e-4 + |frame|) "
+            f"{rel:.3e} ({gpu})")
+        if name == "float32" and (not torch.equal(la, lp) or not
+                                  torch.allclose(a["frames"].value,
+                                                 p["frames"].value,
+                                                 rtol=1e-3, atol=1e-4)):
+            raise AssertionError("tts serving: the stacked and the "
+                                 "per-layer routes disagree at float32")
+    expect_counts("tts serving routes", {})
+    del inf, sampler, a, p, batch
+    gc.collect()
+
+
+def phase_reconstruction(dev, gpu: str, ckpt: str, root: str) -> None:
+    """Resynthesis evaluation (``ReconstructionEvaluator.run``, tasks
+    ``f0mse`` and ``mcd``) on the flagship checkpoint (with tokens and the
+    utterance encoder, float32, TF32 off) over ``RECON_UTTERANCES``
+    synthetic WAVs of 2-3 s from the scoring corpus's writer (seed 4; the
+    scoring corpus's 192 utterances of 5-35 s would take the numpy
+    metrics most of an hour), at batch 8 with the infer config's DDIM
+    settings: no K1-K7 launch (the encoder, the diffusion decoder and the
+    vocoder are convolutions); the scores finite.  Logs utterances/s with
+    the model's and the metrics' seconds."""
+    import numpy as np
+    import yaml
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.inference.speech.reconstruction import \
+        ReconstructionEvaluator
+
+    corpus = os.path.join(root, "recon_corpus")
+    os.makedirs(corpus)
+    rng = np.random.RandomState(4)
+    audio_s = write_wav_corpus(corpus, rng.randint(100, 151,
+                                                   RECON_UTTERANCES), rng)
+    cfg = yaml.safe_load(SCORE_INFER_YAML.format(ckpt=ckpt, corpus=corpus))
+    with open(INFER_YAML) as f:
+        diffusion = yaml.safe_load(f)["diffusion"]
+    cfg.update(identifier="inference.speech.reconstruction."
+               "ReconstructionEvaluator", tasks=["f0mse", "mcd"],
+               diffusion=diffusion)
+    cfg["data"].update(batch_size=RECON_UTTERANCES, min_audio_length=1.0,
+                       num_workers=2)
+    with precision.policy_scope(precision.Policy()):
+        ev = ReconstructionEvaluator(Hparams.from_dict(cfg), device=dev)
+        zero_kernel_counts()
+        timings = {}
+        t0 = time.perf_counter()
+        scores = ev.run(seed=0, timings=timings)
+        wall = time.perf_counter() - t0
+    expect_counts("reconstruction", {})
+    if "mcd" not in scores or not all(math.isfinite(v)
+                                      for v in scores.values()):
+        raise AssertionError(f"reconstruction: scores {scores}")
+    n = timings["utterances"]
+    if n != RECON_UTTERANCES:
+        raise AssertionError(f"reconstruction scored {n} utterances")
+    log(f"reconstruction (ReconstructionEvaluator.run on the flagship "
+        f"checkpoint, float32, DDIM-{diffusion['sampling_timesteps']}, "
+        f"{n} utterances, {audio_s:.1f} s of audio): {n / wall:.2f} "
+        f"utterances/s over {wall:.2f} s (model {timings['model']:.2f} s, "
+        f"the numpy metrics {timings['score']:.2f} s on the host); scores "
+        + ", ".join(f"{k} {v:.4f}" for k, v in scores.items())
+        + f"; no K1-K7 launch ({gpu})")
+
+
 def main() -> int:
     # keep CUPTI set up between profiler windows (torch's own workaround
     # for its re-initialisation, which has left windows with no kernel)
@@ -6904,8 +7652,13 @@ def main() -> int:
                                    w4=False)
         k2w4["launches"] = timed("cli_w4", phase_cli, dev, gpu, config,
                                  w4=True)
+        # the per-layer CLI run on a CUT_L-layer copy of the checkpoint
+        cut = os.path.join(flagship, "cut")
+        timed("flagship_cut", write_flagship, cut, dev, layers=CUT_L)
         timed("cli_per_layer", phase_cli, dev, gpu,
-              write_cli_corpus(flagship, n=PL_B), n_wavs=PL_B)
+              write_cli_corpus(cut, n=PL_B), n_wavs=PL_B)
+        timed("reconstruction", phase_reconstruction, dev, gpu, ckpt,
+              flagship)
     finally:
         shutil.rmtree(flagship, ignore_errors=True)
     # the token-LM baseline (slice 16) and K5 past 8192 keys
@@ -6946,6 +7699,18 @@ def main() -> int:
         timed("soundstream", phase_soundstream, dev, gpu, ss_root)
     finally:
         shutil.rmtree(ss_root, ignore_errors=True)
+    # text-to-speech (Queue 1 item 8): K3/K3b on the training path
+    timed("tts_small", phase_tts_small, dev)
+    tts_root = tempfile.mkdtemp(prefix="tts_")
+    try:
+        tts_k3, tts_k3b, tts_ckpt, tts_corpus = timed(
+            "tts_fit", phase_tts_fit, dev, gpu, tts_root)
+        timed("tts_serve", phase_tts_serve, dev, gpu, tts_root, tts_ckpt,
+              tts_corpus)
+    finally:
+        shutil.rmtree(tts_root, ignore_errors=True)
+    k3["launches"] += tts_k3
+    k3b["launches"] += tts_k3b
     log("phase seconds: " + ", ".join(spent))
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": mark_event_times(

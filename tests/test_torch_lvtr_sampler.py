@@ -21,6 +21,7 @@ from flax import nnx
 
 from tests.test_models import HFG_HP
 from tests.test_torch_layers import _reference_generator_sd
+from tests.test_torch_per_layer import one_torch_thread  # noqa: F401
 from tests.test_torch_trunk import N_MELS, lvtr_pair
 from vae_gslm_tpu.core.masked import Masked as JMasked
 from vae_gslm_tpu.inference.speech.sampler import ARTRSampler as JSampler

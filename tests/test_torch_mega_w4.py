@@ -27,6 +27,7 @@ from tests.test_mega_step import D, L, _cache, _stack
 from tests.test_torch_mega_sampler import (TP, _first_token_disagreement,
                                            _pin_initial_state, _run_both)
 from tests.test_torch_mega_step import cache_to_torch, mega_lvtr_pair, t
+from tests.test_torch_per_layer import one_torch_thread  # noqa: F401
 from vae_gslm_tpu.ops import mega_step as jmega
 from vae_gslm_tpu_torch.inference.speech.sampler import ARTRSampler
 from vae_gslm_tpu_torch.models.convert import mega_weights_from_numpy

@@ -154,8 +154,10 @@ def test_stack_decode_matches_jax(kind, preln):
     jh, jcs, ja = jdecode(js, jnp.asarray(x), jcs, jnp.asarray(0))
     th, tcs, ta = ts.decode(torch.from_numpy(x), tcs, 0, return_attn=True)
     _close(th, jh, "prefill", atol=1e-4, rtol=1e-3)
-    assert tuple(ta.shape) == (2, B, 4, 8, 20)
-    _close(ta, ja["self_attn"], "prefill maps", atol=1e-5, rtol=0)
+    assert sorted(ta) == ["self_attn"]
+    assert tuple(ta["self_attn"].shape) == (2, B, 4, 8, 20)
+    _close(ta["self_attn"], ja["self_attn"], "prefill maps", atol=1e-5,
+           rtol=0)
     for pos in range(8, 13):
         x1 = rng.randn(B, 1, 16).astype(np.float32)
         jh, jcs, ja = jdecode(js, jnp.asarray(x1), jcs, jnp.asarray(pos),
@@ -163,7 +165,8 @@ def test_stack_decode_matches_jax(kind, preln):
         th, tcs, ta = ts.decode(torch.from_numpy(x1), tcs, pos, window=16,
                                 return_attn=True)
         _close(th, jh, f"step {pos}", atol=5e-4, rtol=1e-3)
-        _close(ta, ja["self_attn"], f"maps {pos}", atol=1e-5, rtol=0)
+        _close(ta["self_attn"], ja["self_attn"], f"maps {pos}", atol=1e-5,
+               rtol=0)
     for tc, jc in zip(tcs, jcs):
         _assert_cache_close(tc, jc)
 

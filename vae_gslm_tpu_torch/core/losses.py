@@ -59,3 +59,16 @@ def masked_ce_loss(logits: Masked, labels: Masked,
     if reduction == "none":
         return nll
     raise ValueError(f"unknown reduction {reduction}")
+
+
+def eos_loss(logits: Masked, pos_weight: float = 25.0) -> Tensor:
+    """BCE-with-logits end-of-speech loss (B, T) logits, positive at each
+    row's last valid frame, summed over the valid frames (the reference's
+    ``training_lib/losses.py:218-230``, torch's ``pos_weight``)."""
+    t = logits.value.shape[1]
+    pos = torch.arange(t, device=logits.value.device)[None, :]
+    labels = (pos == (logits.lengths[:, None] - 1)).float()
+    x = logits.value.float()
+    loss = -(pos_weight * labels * F.logsigmoid(x)
+             + (1.0 - labels) * F.logsigmoid(-x))
+    return torch.where(logits.mask(), loss, torch.zeros_like(loss)).sum()

@@ -250,7 +250,7 @@ class DiscreteAR(nn.Module):
                                           project=False)
             h, caches = res[:2]
             if return_attn:
-                attn = res[2]
+                attn = res[2]["self_attn"]
         out = self._sample_from_hidden(h, generator, temperature)
         return (out, caches, attn) if return_attn else (out, caches)
 

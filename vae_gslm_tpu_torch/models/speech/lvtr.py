@@ -177,8 +177,9 @@ class LVTR(nn.Module):
 
     def init_cache(self, batch: int, max_len: int, dtype=None,
                    stacked: bool = False):
-        """The stacked cache (``stacked``; the port's is int8 only) or one
-        per-layer cache per layer (``dtype`` None: the compute dtype)."""
+        """The stacked cache (``stacked``: int8, or float32 for ``dtype``
+        None, as JAX's) or one per-layer cache per layer (``dtype`` None:
+        the compute dtype)."""
         if stacked:
             return self.transformer.init_stacked_cache(batch, max_len, dtype)
         return self.transformer.init_cache(batch, max_len, dtype)
@@ -388,7 +389,7 @@ class LVTR(nn.Module):
                                           flash=flash_decode, memory=memory)
             h, cache = res[:2]
             if return_attn:
-                attn = res[2]
+                attn = res[2]["self_attn"]
         out = self._sample_next(h, generator, temperature, token_temperature,
                                 truncated_norm)
         return (out, cache, attn) if return_attn else (out, cache)

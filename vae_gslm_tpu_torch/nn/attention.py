@@ -180,16 +180,21 @@ class SelfAttention(nn.Module):
         return q, k, v
 
     def forward(self, x: Masked, rpe=None,
-                bias: Optional[torch.Tensor] = None) -> Masked:
+                bias: Optional[torch.Tensor] = None,
+                return_attn: bool = False):
         """x: (B, T, C) frames; ``rpe`` the stack's shared position module
         or None; ``bias`` a (H, T, T) logit bias computed once for the
         stack (the T5 table's; computed here when a T5 ``rpe`` comes
-        without it).  Returns the masked output (B, T, C)."""
+        without it).  Returns the masked output (B, T, C), with
+        ``return_attn`` also the float32 weights (B, H, T, T), which bar
+        the fused branch as in JAX."""
         q, k, v = self._qkv(x.value, rpe)
         t = q.shape[1]
         if isinstance(rpe, T5RPE) and bias is None:
             bias = rpe(t, t)
-        if self.use_flash and self.causal and bias is None:
+        attn = None
+        if (self.use_flash and self.causal and bias is None
+                and not return_attn):
             slopes = rpe.slopes if isinstance(rpe, ALiBi) else None
             if tp.active_flash_mesh():
                 b, t, _ = q.shape
@@ -210,11 +215,15 @@ class SelfAttention(nn.Module):
                 mask = mask.expand(q.shape[0], 1, t, t)
             if isinstance(rpe, ALiBi):
                 bias = rpe.bias(pos, pos)
-            out = merge_heads(attend(split_heads(q, self.nheads),
-                                     split_heads(k, self.nheads),
-                                     split_heads(v, self.nheads), bias,
-                                     mask))
-        return Masked(self.out_proj(out), x.lengths, 1).apply_mask()
+            out = attend(split_heads(q, self.nheads),
+                         split_heads(k, self.nheads),
+                         split_heads(v, self.nheads), bias, mask,
+                         return_attn=return_attn)
+            if return_attn:
+                out, attn = out
+            out = merge_heads(out)
+        out = Masked(self.out_proj(out), x.lengths, 1).apply_mask()
+        return (out, attn) if return_attn else out
 
     # -- per-layer static-cache decode -------------------------------------
     def init_cache(self, batch: int, max_len: int,

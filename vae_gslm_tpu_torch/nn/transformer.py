@@ -42,6 +42,7 @@ for its f0 head and applies the output layer itself).
 """
 from __future__ import annotations
 
+import math
 from operator import attrgetter
 from typing import List, Optional
 
@@ -54,8 +55,8 @@ from ..hparams.hp import Hparams
 from ..ops import mega_step as mega
 from ..ops.fused_decode import BLK, TAIL, fused_decode_attention
 from .activations import gelu, get_activation
-from .attention import (CrossAttention, LayerKVCache, SelfAttention, attend,
-                        merge_heads, quantize_i8, split_heads)
+from .attention import (NEG_INF, CrossAttention, LayerKVCache, SelfAttention,
+                        attend, merge_heads, quantize_i8, split_heads)
 from .linear import Dense
 from .norms import RMSNorm, get_norm
 from .positions import T5RPE, get_positional_encoding
@@ -119,31 +120,42 @@ class TransformerLayer(nn.Module):
         return self.linear2(self.activation(self.linear1(x)))
 
     def forward(self, tgt: Masked, memory: Optional[Masked] = None,
-                rpe=None, bias: Optional[torch.Tensor] = None) -> Masked:
+                rpe=None, bias: Optional[torch.Tensor] = None,
+                return_attn: bool = False):
         """Pre-LN (default) or post-LN: self-attention (``rpe`` and
         ``bias`` as in ``SelfAttention.forward``), cross-attention over
-        ``memory`` where the layer has it, then the FFN."""
+        ``memory`` where the layer has it, then the FFN.  With
+        ``return_attn`` also ``{"self_attn": (B, H, T, T)[, "cross_attn":
+        (B, H, T, Tm)]}`` (the self-attention then dense, as in JAX)."""
         lengths = tgt.lengths
+        attn = {}
         if self.preln:
             n_tgt = Masked(self.norm1(tgt.value), lengths, 1).apply_mask()
         else:
             n_tgt = tgt
-        x = tgt.value + self.self_attn(n_tgt, rpe, bias).value
+        sa = self.self_attn(n_tgt, rpe, bias, return_attn=return_attn)
+        if return_attn:
+            sa, attn["self_attn"] = sa
+        x = tgt.value + sa.value
         if not self.preln:
             x = self.norm1(x)
         if self.cross_attn is not None:
             if memory is None:
                 raise ValueError("a cross-attention layer needs a memory")
             n_x = self.norm2(x) if self.preln else x
-            x = x + self.cross_attn(Masked(n_x, lengths, 1).apply_mask(),
-                                    memory).value
+            ca = self.cross_attn(Masked(n_x, lengths, 1).apply_mask(),
+                                 memory, return_attn=return_attn)
+            if return_attn:
+                ca, attn["cross_attn"] = ca
+            x = x + ca.value
             if not self.preln:
                 x = self.norm2(x)
         n_x = self.norm3(x) if self.preln else x
         x = x + self._ffn(n_x)
         if not self.preln:
             x = self.norm3(x)
-        return Masked(x, lengths, 1).apply_mask()
+        out = Masked(x, lengths, 1).apply_mask()
+        return (out, attn) if return_attn else out
 
     def decode(self, xv: torch.Tensor, cache: LayerKVCache, pos: int,
                rpe=None, window: Optional[int] = None,
@@ -153,28 +165,37 @@ class TransformerLayer(nn.Module):
         over this layer's cache (no masking: decode positions are all
         valid); with ``memory`` a cross-attention layer attends over all
         of it (without, it is skipped, as in JAX).  Returns ``(x,
-        cache)``, with ``return_attn`` also the self-attention weights
-        (B, H, S, maxT)."""
+        cache)``, with ``return_attn`` also ``{"self_attn": (B, H, S,
+        maxT)[, "cross_attn": (B, H, S, Tm)]}``."""
+        attn = {}
+
+        def cross(x):
+            ca = self.cross_attn(Masked.full(x), memory,
+                                 return_attn=return_attn)
+            if return_attn:
+                ca, attn["cross_attn"] = ca
+            return ca.value
+
         n_x = self.norm1(xv) if self.preln else xv
         res = self.self_attn.decode_step(n_x, cache, pos, rpe=rpe,
                                          window=window,
                                          return_attn=return_attn,
                                          flash=flash)
         h = res[0]
-        cross = self.cross_attn is not None and memory is not None
+        if return_attn:
+            attn["self_attn"] = res[2]
+        has_cross = self.cross_attn is not None and memory is not None
         if self.preln:
             x = xv + h
-            if cross:
-                x = x + self.cross_attn(Masked.full(self.norm2(x)),
-                                        memory).value
+            if has_cross:
+                x = x + cross(self.norm2(x))
             x = x + self._ffn(self.norm3(x))
         else:
             x = self.norm1(xv + h)
-            if cross:
-                x = self.norm2(x + self.cross_attn(Masked.full(x),
-                                                   memory).value)
+            if has_cross:
+                x = self.norm2(x + cross(x))
             x = self.norm3(x + self._ffn(x))
-        return (x,) + tuple(res[1:])
+        return (x, res[1], attn) if return_attn else (x, res[1])
 
 
 class TransformerLayerStack(nn.Module):
@@ -225,13 +246,16 @@ class TransformerLayerStack(nn.Module):
         return memory
 
     # -- full-sequence (training) call -----------------------------------
-    def run(self, tgt: Masked, memory: Optional[Masked] = None) -> dict:
+    def run(self, tgt: Masked, memory: Optional[Masked] = None,
+            return_attn: bool = False) -> dict:
         """All layers over (B, T, C) frames, cross-attention layers over
         ``memory`` (B, Tm, memory_dim or C): ``{"output": Masked,
-        "layers": [per-layer outputs, then the final norm's]}``.  With
-        ``remat: true`` each layer's activations are recomputed in the
-        backward (``torch.utils.checkpoint``, as JAX's
-        ``jax.checkpoint``)."""
+        "layers": [per-layer outputs, then the final norm's]}``, with
+        ``return_attn`` also the per-layer weights ``"self_attn"`` (and
+        ``"cross_attn"`` in a cross-attention stack), lists of (B, H, T,
+        T or Tm).  With ``remat: true`` each layer's activations are
+        recomputed in the backward (``torch.utils.checkpoint``, as JAX's
+        ``jax.checkpoint``), unless the maps are asked for."""
         lengths = tgt.lengths
         out = tgt
         if self.linear is not None:
@@ -244,13 +268,21 @@ class TransformerLayerStack(nn.Module):
         if isinstance(self.rpe, T5RPE):
             bias = self.rpe(out.value.shape[1], out.value.shape[1])
         layers = []
+        maps = {"self_attn": []}
+        if self.is_cross_attn:
+            maps["cross_attn"] = []
         for layer in self.layers:
-            if self.remat and torch.is_grad_enabled():
+            if self.remat and torch.is_grad_enabled() and not return_attn:
                 value = torch.utils.checkpoint.checkpoint(
                     lambda v, la=layer: la(Masked(v, lengths, 1), memory,
                                            self.rpe, bias).value,
                     out.value, use_reentrant=False)
                 out = Masked(value, lengths, 1)
+            elif return_attn:
+                out, attn = layer(out, memory, self.rpe, bias,
+                                  return_attn=True)
+                for k, v in attn.items():
+                    maps[k].append(v)
             else:
                 out = layer(out, memory, self.rpe, bias)
             layers.append(out)
@@ -259,33 +291,48 @@ class TransformerLayerStack(nn.Module):
             layers.append(out)
         if self.out is not None:
             out = Masked(self.out(out.value), lengths, 1).apply_mask()
-        return {"output": out, "layers": layers}
+        res = {"output": out, "layers": layers}
+        if return_attn:
+            res.update(maps)
+        return res
 
     def forward(self, tgt: Masked, memory: Optional[Masked] = None
                 ) -> Masked:
         return self.run(tgt, memory)["output"]
 
     # -- shared pieces of the stacked paths -----------------------------
-    def supports_stacked_decode(self) -> bool:
-        """JAX's rule for its stacked paths: ALiBi or no positions, no
-        cross-attention, pre-LN RMSNorm layers; other trunks take the
-        per-layer ``decode``."""
-        return self.rpe_id in (None, "ALiBi") and all(
-            la.preln and la.cross_attn is None
-            and isinstance(la.norm1, RMSNorm)
-            and isinstance(la.norm3, RMSNorm) for la in self.layers)
+    def supports_stacked_decode(self, allow_cross: bool = False) -> bool:
+        """JAX's rule for its stacked paths: ALiBi or no positions,
+        pre-LN RMSNorm layers and, with ``allow_cross`` (the TTS trunk's
+        single-token step over ``build_stacked_memory``), cross-attention
+        layers without positions of their own and with an RMSNorm
+        ``norm2``; other trunks take the per-layer ``decode``."""
+        if self.rpe_id not in (None, "ALiBi"):
+            return False
+        for la in self.layers:
+            if not (la.preln and isinstance(la.norm1, RMSNorm)
+                    and isinstance(la.norm3, RMSNorm)):
+                return False
+            if la.cross_attn is not None and not (
+                    allow_cross and la.cross_attn.rpe is None
+                    and isinstance(la.norm2, RMSNorm)):
+                return False
+        return True
 
-    def build_stacked_decode(self) -> dict:
+    def build_stacked_decode(self, allow_cross: bool = False) -> dict:
         """Per-layer weights stacked on a leading L axis, ``w`` as
         (L, in, out) in the compute dtype, ``x @ w`` like the JAX
         package; int8 weights stay int8 beside their ``scale`` (L, 1,
-        out) in the compute dtype.  Build once per sampling call."""
+        out) in the compute dtype.  With ``allow_cross`` a cross-attention
+        trunk also stacks ``n2`` and the cross-attention's ``cq`` and
+        ``cout``.  Build once per sampling call."""
         from ..core.precision import get_policy
 
-        if not self.supports_stacked_decode():
+        if not self.supports_stacked_decode(allow_cross):
             raise NotImplementedError(
-                "the stacked decode needs pre-LN RMSNorm layers without "
-                "cross-attention and ALiBi or no positions")
+                "the stacked decode needs pre-LN RMSNorm layers, ALiBi or "
+                "no positions, and cross-attention only with allow_cross "
+                "(no cross positions, an RMSNorm norm2)")
         dt = get_policy().compute_dtype
 
         def dense(getter):
@@ -301,7 +348,7 @@ class TransformerLayerStack(nn.Module):
             return entry
 
         with torch.no_grad():
-            return {
+            out = {
                 "n1": torch.stack([la.norm1.scale for la in self.layers]),
                 "n3": torch.stack([la.norm3.scale for la in self.layers]),
                 "qkv": dense(lambda la: la.self_attn.in_proj),
@@ -309,6 +356,33 @@ class TransformerLayerStack(nn.Module):
                 "ffn1": dense(lambda la: la.linear1),
                 "ffn2": dense(lambda la: la.linear2),
             }
+            if self.is_cross_attn and allow_cross:
+                out["n2"] = torch.stack([la.norm2.scale
+                                         for la in self.layers])
+                out["cq"] = dense(lambda la: la.cross_attn.q_proj)
+                out["cout"] = dense(lambda la: la.cross_attn.out_proj)
+        return out
+
+    @torch.no_grad()
+    def build_stacked_memory(self, memory: Masked) -> dict:
+        """The cross-attention K/V of every layer over the (static, already
+        ``project_memory``-ed) memory, computed once per sampling call
+        (JAX's ``build_stacked_memory``): ``{"mk", "mv": (L, B, H, Tm, Dh)
+        in the compute dtype, "mask": (B, Tm) bool}``."""
+        from ..core.precision import get_policy
+
+        dt = get_policy().compute_dtype
+        ks, vs = [], []
+        for la in self.layers:
+            k, v = la.cross_attn.kv_proj(memory.value).chunk(2, dim=-1)
+            nh = la.cross_attn.nheads
+            ks.append(split_heads(k, nh).transpose(1, 2))
+            vs.append(split_heads(v, nh).transpose(1, 2))
+        tm = memory.value.shape[1]
+        mask = (torch.arange(tm, device=memory.value.device)[None, :]
+                < memory.lengths[:, None])
+        return {"mk": torch.stack(ks).to(dt), "mv": torch.stack(vs).to(dt),
+                "mask": mask}
 
     def _rms(self, x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -371,7 +445,8 @@ class TransformerLayerStack(nn.Module):
         (``window`` and ``flash`` as in ``SelfAttention.decode_step``);
         ``memory`` has been through ``project_memory`` once.  Returns the
         final hidden (B, S, C) and the caches, with ``return_attn`` also
-        the per-layer weights stacked, (L, B, H, S, maxT)."""
+        the per-layer weights stacked, ``{"self_attn": (L, B, H, S,
+        maxT)[, "cross_attn": (L, B, H, S, Tm)]}``."""
         xv = self._project_in(xv)
         attns = []
         for layer, cache in zip(self.layers, caches):
@@ -383,19 +458,24 @@ class TransformerLayerStack(nn.Module):
                 attns.append(res[2])
         xv = self._project_out(xv, project)
         if return_attn:
-            return xv, caches, torch.stack(attns)
+            return xv, caches, {k: torch.stack([a[k] for a in attns])
+                                for k in attns[0]}
         return xv, caches
 
-    # -- stacked int8 cache and prefill ----------------------------------
+    # -- stacked cache, prefill and the float single-token step -----------
     def init_stacked_cache(self, batch: int, max_len: int,
                            dtype=torch.int8) -> LayerKVCache:
-        """One int8 KV cache for the whole stack: ``(L, B, H, maxT, D)``."""
-        if dtype != torch.int8:
-            raise NotImplementedError(
-                "the port's stacked cache is int8 only (ROADMAP.md)")
+        """One KV cache for the whole stack, ``(L, B, H, maxT, D)``: int8
+        with float32 per-row scales (the prefill's), or a float cache
+        (``dtype`` None: float32, as JAX's ``init_stacked_cache`` makes it
+        for its single-token step)."""
         la = self.layers[0].self_attn
         dev = la.in_proj.weight.device
         shape = (len(self.layers), batch, la.nheads, max_len, la.head_dim)
+        if dtype != torch.int8:
+            dtype = torch.float32 if dtype is None else dtype
+            return LayerKVCache(torch.zeros(shape, dtype=dtype, device=dev),
+                                torch.zeros(shape, dtype=dtype, device=dev))
         return LayerKVCache(
             torch.zeros(shape, dtype=torch.int8, device=dev),
             torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -404,17 +484,29 @@ class TransformerLayerStack(nn.Module):
 
     @torch.no_grad()
     def decode_stacked(self, xv: torch.Tensor, stacked: dict,
-                       cache: LayerKVCache, pos: int, project: bool = True):
-        """Prefill: frames ``xv`` (B, S, C) at positions [pos, pos+S)
-        through all layers, writing their int8 K/V rows into ``cache``.
-        Returns the final hidden (B, S, C) and the cache."""
+                       cache: LayerKVCache, pos: int, project: bool = True,
+                       memory_kv: Optional[dict] = None):
+        """Frames ``xv`` (B, S, C) at positions [pos, pos+S) through all
+        layers: a prefill (S > 1) into the int8 ``cache``, or one token
+        over a float ``cache`` (JAX's ``_decode_stacked_step``; with
+        ``memory_kv`` from ``build_stacked_memory`` the layers also
+        cross-attend).  Returns the final hidden (B, S, C) and the
+        cache."""
         xv = self._project_in(xv)
         b, s, _ = xv.shape
         if s == 1:
+            if cache.quantized:
+                raise NotImplementedError(
+                    "the stacked single-token step takes a float cache; "
+                    "int8 steps run through decode_hybrid, decode_mega or "
+                    "the per-layer decode (no JAX route runs JAX's int8 "
+                    "stacked step)")
+            x = self._decode_stacked_step(xv, stacked, cache, pos,
+                                          memory_kv)
+            return self._project_out(x, project), cache
+        if not cache.quantized or memory_kv is not None:
             raise NotImplementedError(
-                "single-token steps run through decode_hybrid, decode_mega "
-                "or the per-layer decode; JAX's stacked single-token step "
-                "is not ported (ROADMAP.md, Queue 1)")
+                "the stacked prefill takes the int8 cache and no memory")
         nheads = self.layers[0].self_attn.nheads
         win = cache.k.shape[-2]
         dev = xv.device
@@ -445,6 +537,68 @@ class TransformerLayerStack(nn.Module):
             x = x + self._matmul(merge_heads(out), stacked["out"], li)
             x = self._ffn(x, stacked, li)
         return self._project_out(x, project), cache
+
+    def _decode_stacked_step(self, x: torch.Tensor, stacked: dict,
+                             cache: LayerKVCache, pos: int,
+                             memory_kv: Optional[dict]) -> torch.Tensor:
+        """One token (B, 1, C) over the float stacked cache, JAX's float
+        branch: the cached rows attend under a strict ``k_pos < pos`` mask
+        with ALiBi, the current token enters as an extra logit with no
+        ALiBi term, logits are float32 with 1/sqrt(Dh) applied after the
+        dot; cross-attention (``memory_kv``) over the padded memory; every
+        layer's new K/V row is written after the layer loop."""
+        b, _, d = x.shape
+        dev = x.device
+        nheads = self.layers[0].self_attn.nheads
+        dh = d // nheads
+        win = cache.k.shape[-2]
+        k_pos = torch.arange(win, device=dev)
+        old = (k_pos < pos)[None, None]
+        alibi = (self._slopes(dev).float()[None, :, None]
+                 * (k_pos - pos).abs().float())
+        neg = torch.tensor(NEG_INF, device=dev)
+        scale = 1.0 / math.sqrt(dh)
+        if memory_kv is not None:
+            nh_c = self.layers[0].cross_attn.nheads
+            dh_c = d // nh_c
+            scale_c = 1.0 / math.sqrt(dh_c)
+            cmask = memory_kv["mask"][:, None, :]             # (B, 1, Tm)
+        k_rows, v_rows = [], []
+        for li in range(len(self.layers)):
+            h = self._rms(x, stacked["n1"][li])
+            q, k, v = self._matmul(h, stacked["qkv"], li).chunk(3, dim=-1)
+            qh = q[:, 0].reshape(b, nheads, dh).float()
+            kh = k[:, 0].reshape(b, nheads, dh)
+            vh = v[:, 0].reshape(b, nheads, dh)
+            k_l, v_l = cache.k[li], cache.v[li]               # (B, H, T, D)
+            logits = torch.einsum("bhd,bhtd->bht", qh, k_l.float()) * scale
+            logits = torch.where(old, logits + alibi, neg)
+            l_self = (qh * kh.float()).sum(-1, keepdim=True) * scale
+            w = torch.softmax(torch.cat([logits, l_self], -1), dim=-1)
+            out = torch.einsum("bht,bhtd->bhd",
+                               w[..., :-1].to(v_l.dtype).float(),
+                               v_l.float())
+            out = out + w[..., -1:] * vh.float()
+            out = out.to(x.dtype).reshape(b, 1, d)
+            x = x + self._matmul(out, stacked["out"], li)
+            if memory_kv is not None:
+                hc = self._rms(x, stacked["n2"][li])
+                qc = self._matmul(hc, stacked["cq"], li)[:, 0].reshape(
+                    b, nh_c, dh_c)
+                mk, mv = memory_kv["mk"][li], memory_kv["mv"][li]
+                cl = torch.einsum("bhd,bhtd->bht", qc.float(), mk.float())
+                wc = torch.softmax(torch.where(cmask, cl * scale_c, neg),
+                                   dim=-1)
+                oc = torch.einsum("bht,bhtd->bhd",
+                                  wc.to(mv.dtype).float(), mv.float())
+                x = x + self._matmul(oc.to(x.dtype).reshape(b, 1, d),
+                                     stacked["cout"], li)
+            x = self._ffn(x, stacked, li)
+            k_rows.append(kh)
+            v_rows.append(vh)
+        cache.k[:, :, :, pos] = torch.stack(k_rows).to(cache.k.dtype)
+        cache.v[:, :, :, pos] = torch.stack(v_rows).to(cache.v.dtype)
+        return x
 
     # -- hybrid cold/tail cache ------------------------------------------
     @staticmethod

@@ -61,8 +61,11 @@ def init_weights(model: nn.Module, init_std: float = 1.0,
 
 
 def stack_batches(batches: Sequence[Batch]) -> Batch:
-    """Micro-batches stacked on a new leading accumulation axis."""
-    return {k: Masked.stack([b[k] for b in batches]) for k in batches[0]}
+    """Micro-batches' ``Masked`` entries stacked on a new leading
+    accumulation axis (the others, such as a text batch's written forms,
+    reach no step and are dropped)."""
+    return {k: Masked.stack([b[k] for b in batches]) for k, v in
+            batches[0].items() if isinstance(v, Masked)}
 
 
 def fuse_microbatches(stacked: Batch) -> Batch:
