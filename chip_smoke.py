@@ -357,7 +357,25 @@ Phases (any failure ends the run with a non-zero exit, no result):
      per-layer route with ``return_attn`` over 50 steps; both routes
      against each other over 50 steps at temperature 0 (float32: lengths
      equal, frames within rtol 1e-3 / atol 1e-4; 16-mixed: the band
-     logged).
+     logged);
+  27. ``parallel_modes`` (run after ``dp_fit_long``): the trainer's
+     parallel modes on two gloo ranks sharing the card, on the shipped
+     training config at full width (B 8 x 640 x accumulation 2): the
+     model axis with sequence parallelism, FSDP at world 2, and the GPipe
+     pipeline of 2 stages and 4 microbatches; each mode's float32 step
+     against the single-process step (metrics 1e-4 relative, whole
+     gradients 1e-3 x max|g|), three timed 16-mixed steps (ms, the
+     collectives' share, the rank's peak memory), exactly the K4/K4b
+     launches per rank per step the mode implies (32, 32 and 64); K4 and
+     K4b held and timed at each mode's per-rank call (``phase_parallel_
+     modes``);
+  28. ``tokenizer``: the HuBERT + k-means CLI (``scripts/hubert_kmeans.py``)
+     on a random hubert-large written as a local HF directory, over 32
+     synthetic 16 kHz WAVs of 2-8 s: mode A (k-means of 200 trained on
+     the card), mode B writing mode A's lines, ``--bf16``; the encoder's
+     card features against the CPU's within HUBERT_PARITY.md's budget;
+     seconds of audio encoded per second, k-means seconds, the encoder's
+     peak memory (no kernel on this path).
 Output: one line per measurement, then the ``{"kernels": [...]}`` line
 (an entry time that CUDA events took, where the profiler recorded no
 device operation at all, carries ``ms_source``, ``plain_ms_source`` or
@@ -2182,10 +2200,10 @@ def phase_train(dev, gpu: str, seed: int = 0):
     attn_mod.attend = refuse("the dense attention")
     opt_step, opt_s = trainer.opt.step, []
 
-    def timed_opt_step(grads):
+    def timed_opt_step(grads, **kw):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        opt_step(grads)
+        opt_step(grads, **kw)
         torch.cuda.synchronize()
         opt_s.append(time.perf_counter() - t1)
 
@@ -3739,10 +3757,10 @@ def _dp_fit_rank(args: dict, rank: int) -> dict:
             "metrics": {k: float(v) for k, v in metrics.items()}})
         return metrics
 
-    def timed_reduce(tensors):
+    def timed_reduce(tensors, group=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        all_reduce(tensors)
+        all_reduce(tensors, group=group)
         torch.cuda.synchronize()
         reduce_s.append(time.perf_counter() - t0)
 
@@ -3779,6 +3797,7 @@ def dp_worker(args_path: str) -> int:
         args = json.load(f)
     rank = int(os.environ["VAE_GSLM_PROCESS_ID"])
     out = (_dp_small_rank(args, rank) if args["mode"] == "small"
+           else _modes_rank(args, rank) if args["mode"] == "modes"
            else _dp_fit_rank(args, rank))
     with open(os.path.join(args["work"], f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -7543,6 +7562,604 @@ def phase_reconstruction(dev, gpu: str, ckpt: str, root: str) -> None:
         + f"; no K1-K7 launch ({gpu})")
 
 
+# -------------------------------------------------- tokenizer (slice 21)
+TOK_WAVS = 32                     # 2-8 s, 16 kHz
+TOK_VOCAB = 200                   # the reference's vocabulary
+
+
+def write_hubert_large(path: str, dev, seed: int = 0) -> int:
+    """A random hubert-large (``HubertConfig.large()``: 24 layers, d 1024,
+    16 heads, FFN 4096, 7 x 512 conv stack, a positional conv of 128 in
+    16 groups) as a local HF directory: ``config.json`` and
+    ``model.safetensors`` under HF ``HubertModel``'s keys, the positional
+    conv's weight norm in the ``parametrizations`` form.  Weights from a
+    CUDA generator seeded ``seed``: dense and conv weights normal with
+    std 1/sqrt(fan in), norm gains 1 + 0.1 N, biases 0.02 N.  Returns the
+    parameter count."""
+    import dataclasses
+
+    import torch
+
+    from vae_gslm_tpu_torch.models.ssl.hubert import (HubertConfig,
+                                                       write_safetensors)
+
+    cfg = HubertConfig.large()
+    g = torch.Generator(dev).manual_seed(seed)
+    sd = {}
+
+    def put(name, *shape, std=None):
+        fan = 1
+        for s in shape[1:]:
+            fan *= s
+        s = std if std is not None else fan ** -0.5
+        sd[name] = (s * torch.randn(shape, generator=g, device=dev)
+                    ).cpu().numpy()
+
+    def gain(name, n):
+        sd[name] = (1 + 0.1 * torch.randn(n, generator=g, device=dev)
+                    ).cpu().numpy()
+
+    in_ch = 1
+    for i, (dim, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
+        pre = f"feature_extractor.conv_layers.{i}"
+        put(f"{pre}.conv.weight", dim, in_ch, k)
+        put(f"{pre}.conv.bias", dim, std=0.02)
+        gain(f"{pre}.layer_norm.weight", dim)
+        put(f"{pre}.layer_norm.bias", dim, std=0.02)
+        in_ch = dim
+    d, c, ffd = cfg.hidden_size, cfg.conv_dim[-1], cfg.intermediate_size
+    gain("feature_projection.layer_norm.weight", c)
+    put("feature_projection.layer_norm.bias", c, std=0.02)
+    put("feature_projection.projection.weight", d, c)
+    put("feature_projection.projection.bias", d, std=0.02)
+    k, grp = cfg.num_conv_pos_embeddings, cfg.num_conv_pos_embedding_groups
+    pc = "encoder.pos_conv_embed.conv"
+    put(f"{pc}.parametrizations.weight.original1", d, d // grp, k)
+    sd[f"{pc}.parametrizations.weight.original0"] = (1 + 0.1 * torch.rand(
+        (1, 1, k), generator=g, device=dev)).cpu().numpy()
+    put(f"{pc}.bias", d, std=0.02)
+    gain("encoder.layer_norm.weight", d)
+    put("encoder.layer_norm.bias", d, std=0.02)
+    for i in range(cfg.num_hidden_layers):
+        pre = f"encoder.layers.{i}"
+        for name, dout, din in (("attention.q_proj", d, d),
+                                ("attention.k_proj", d, d),
+                                ("attention.v_proj", d, d),
+                                ("attention.out_proj", d, d),
+                                ("feed_forward.intermediate_dense", ffd, d),
+                                ("feed_forward.output_dense", d, ffd)):
+            put(f"{pre}.{name}.weight", dout, din)
+            put(f"{pre}.{name}.bias", dout, std=0.02)
+        for ln in ("layer_norm", "final_layer_norm"):
+            gain(f"{pre}.{ln}.weight", d)
+            put(f"{pre}.{ln}.bias", d, std=0.02)
+    os.makedirs(path, exist_ok=True)
+    conf = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    conf.update(conv_dim=list(cfg.conv_dim),
+                conv_kernel=list(cfg.conv_kernel),
+                conv_stride=list(cfg.conv_stride), model_type="hubert",
+                architectures=["HubertModel"])
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(conf, f)
+    write_safetensors(os.path.join(path, "model.safetensors"), sd)
+    return sum(v.size for v in sd.values())
+
+
+def phase_tokenizer(dev, gpu: str) -> None:
+    """The HuBERT + k-means tokenizer (Queue 1 item 10) at hubert-large
+    width on the card: a random hubert-large written as an HF directory,
+    then ``scripts/hubert_kmeans.py``'s ``main`` over 32 synthetic 16 kHz
+    WAVs of 2-8 s: mode A (``-v 200 -p 1.0``: every file encoded, k-means
+    of 20 iterations trained on the card, ``kmeans_v200.npy`` saved),
+    mode B with those centroids (its lines must equal mode A's) and mode
+    B with ``--bf16`` (the same files and token counts).  The features of
+    the utterance nearest 4.5 s, card (float32, TF32 off) against the port's
+    CPU encoder, within HUBERT_PARITY.md's budget: max |diff| <= 2e-3 x
+    max(rms, 1) and <= 1e-3 x rms, and >= 99.9 % of the frames' nearest
+    centroids equal.  No port kernel runs on this path (the JAX package
+    runs it as plain XLA)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vae_gslm_tpu_torch.core.precision import Policy, policy_scope
+    from vae_gslm_tpu_torch.data import audio as audio_lib
+    from vae_gslm_tpu_torch.models.ssl import hubert
+    from vae_gslm_tpu_torch.ops import kmeans
+    from vae_gslm_tpu_torch.scripts import hubert_kmeans as cli
+
+    root = tempfile.mkdtemp(prefix="tokenizer_")
+    try:
+        model_dir = os.path.join(root, "hubert_large")
+        t0 = time.perf_counter()
+        n_params = write_hubert_large(model_dir, dev)
+        log(f"tokenizer: random hubert-large ({n_params / 1e6:.1f} M "
+            f"parameters) written as config.json + model.safetensors in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rng = np.random.RandomState(0)
+        wavdir = os.path.join(root, "wavs")
+        os.makedirs(wavdir)
+        secs, lines = rng.uniform(2.0, 8.0, TOK_WAVS), []
+        for i, s in enumerate(secs):
+            n = int(s * 16000)
+            t = np.arange(n) / 16000.0
+            wave = (0.3 * np.sin(2 * np.pi * (120 + 40 * (i % 7)) * t
+                                 * (1 + 0.1 * np.sin(2 * np.pi * 0.5 * t)))
+                    + 0.05 * rng.randn(n)).astype(np.float32)
+            audio_lib.save_wav(os.path.join(wavdir, f"u{i}.wav"), wave,
+                               16000)
+            lines.append(f"u{i}.wav|utterance {i}")
+        meta = os.path.join(root, "metadata.txt")
+        with open(meta, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        out_a, out_b, out_bf = (os.path.join(root, n) for n in
+                                ("a.txt", "b.txt", "bf16.txt"))
+        cents = os.path.join(root, f"kmeans_v{TOK_VOCAB}.npy")
+        base = ["-i", meta, "-w", wavdir, "-m", model_dir, "-v",
+                str(TOK_VOCAB), "-b", "8", "-s", "60", "--device", "cuda"]
+        ta, tb, tbf = {}, {}, {}
+        t0 = time.perf_counter()
+        n_a = cli.main(base + ["-o", out_a, "-p", "1.0"], timings=ta)
+        wall_a = time.perf_counter() - t0
+        c = np.load(cents)
+        if c.shape != (TOK_VOCAB, 1024) or not np.isfinite(c).all():
+            raise AssertionError(f"tokenizer: centroids {c.shape}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        n_b = cli.main(base + ["-o", out_b, "-c", cents], timings=tb)
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_bf = cli.main(base + ["-o", out_bf, "-c", cents, "--bf16"],
+                        timings=tbf)
+        text_a, text_b = (open(p).read() for p in (out_a, out_b))
+        if not n_a == n_b == n_bf == TOK_WAVS or text_a != text_b:
+            raise AssertionError(f"tokenizer: mode B wrote other lines than "
+                                 f"mode A ({n_a}, {n_b}, {n_bf} lines)")
+        enc = hubert.from_hf_pretrained(model_dir, device=dev).eval()
+        lines_bf = open(out_bf).read().splitlines()
+        for i, (la, lb) in enumerate(zip(text_a.splitlines(), lines_bf)):
+            ta_, tb_ = la.split("|")[-1].split(), lb.split("|")[-1].split()
+            want = enc.frame_count(int(secs[i] * 16000))
+            if not (len(ta_) == len(tb_) == want and all(
+                    0 <= int(x) < TOK_VOCAB for x in ta_ + tb_)):
+                raise AssertionError(f"tokenizer: line {i} has {len(ta_)} / "
+                                     f"{len(tb_)} tokens, {want} frames")
+        agree_bf = np.mean([x == y for la, lb in zip(text_a.splitlines(),
+                                                     lines_bf)
+                            for x, y in zip(la.split("|")[-1].split(),
+                                            lb.split("|")[-1].split())])
+        # card against CPU on the utterance nearest 4.5 s, float32
+        i = int(np.argmin(np.abs(secs - 4.5)))
+        wave, _ = audio_lib.load_audio(os.path.join(wavdir, f"u{i}.wav"))
+        x = torch.from_numpy(hubert.normalize_input(wave))[None]
+        cpu = hubert.from_hf_pretrained(model_dir, device="cpu").eval()
+        with policy_scope(Policy()), torch.no_grad():
+            got = enc(x.to(dev))[0].cpu().numpy()
+            want = cpu(x)[0].numpy()
+        del cpu
+        rms = float(np.sqrt(np.mean(want ** 2)))
+        err = float(np.abs(got - want).max())
+        tok_g = kmeans.assign(got, c, device=dev)
+        tok_c = kmeans.assign(want, c, device="cpu")
+        agree = float(np.mean(tok_g == tok_c))
+        log(f"tokenizer card vs CPU (float32, TF32 off, {want.shape[0]} "
+            f"frames of the {secs[i]:.2f} s utterance): max abs "
+            f"{err:.3e}, rms {rms:.3e} (abs/rms {err / rms:.2e}), nearest "
+            f"centroid equal on {agree:.2%} of frames")
+        if not (err <= 2e-3 * max(rms, 1.0) and err <= 1e-3 * rms
+                and agree >= 0.999):
+            raise AssertionError("tokenizer: the card's features leave "
+                                 "HUBERT_PARITY.md's budget")
+        audio = float(np.sum(np.floor(secs * 16000))) / 16000.0
+        log(f"tokenizer mode A (-v {TOK_VOCAB} -p 1.0, niter 20, B 8): "
+            f"{n_a} files, {audio:.1f} s of audio, wall {wall_a:.1f} s; "
+            f"encoder float32 {ta['audio_s'] / ta['encode_s']:.1f} s of "
+            f"audio per s (two passes, {ta['encode_s']:.2f} s encoding), "
+            f"k-means training {ta['kmeans_s']:.2f} s ({gpu})")
+        log(f"tokenizer mode B: lines equal mode A's; encoder float32 "
+            f"{tb['audio_s'] / tb['encode_s']:.1f} s of audio per s, bf16 "
+            f"{tbf['audio_s'] / tbf['encode_s']:.1f} s of audio per s "
+            f"(bf16 tokens equal float32's on {agree_bf:.2%}); encoder peak "
+            f"memory {peak / 2 ** 30:.2f} GiB ({gpu})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ------------------------------------------- parallel modes (slice 21)
+PM_STEPS = 3                      # timed 16-mixed steps of each mode
+PM_MODES = (
+    # name, trainer settings, K4/K4b launches per rank per step
+    ("model_parallel", {"model_parallel": 2, "sequence_parallel": True},
+     L * TRAIN_ACCUM),
+    ("fsdp", {"fsdp": True}, L * TRAIN_ACCUM),
+    ("pipeline", {"pipeline_parallel": 2, "pipeline_microbatches": 4},
+     L // 2 * 4 * TRAIN_ACCUM))
+# each mode's per-rank call of K4/K4b: (B, heads, lengths)
+PM_CALLS = {"model_parallel": (TRAIN_B, H // 2, TRAIN_LENGTHS),
+            "fsdp": (TRAIN_B // 2, H, TRAIN_LENGTHS[:TRAIN_B // 2]),
+            "pipeline": (TRAIN_B // 4, H, TRAIN_LENGTHS[:TRAIN_B // 4])}
+PM_COLLECTIVES = ("all_reduce_sum", "all_gather_dim", "reduce_scatter_dim",
+                  "all_reduce_in", "broadcast_from", "send", "recv")
+
+
+def pm_config(vdir: str, mode: dict) -> dict:
+    """The shipped training config at full width with a mode's trainer
+    settings (float32; the timed steps switch to 16-mixed)."""
+    import yaml
+
+    with open(TRAIN_YAML) as f:
+        cfg = yaml.safe_load(f)
+    cfg["vocoder"]["path"] = vdir
+    cfg["trainer"].update(mode)
+    cfg["trainer"]["precision"] = "32"
+    return cfg
+
+
+def _modes_rank(args: dict, rank: int) -> dict:
+    """One rank of ``phase_parallel_modes``: for each mode, the trainer
+    of its config with the shared weights, one float32 step on its data
+    row's rows and draws (the whole reduced gradients compared on rank 0
+    with the single-process step's), then a warm-up and ``PM_STEPS``
+    16-mixed steps, each with the K4/K4b counts set to 0 just before and
+    read just after, the collectives' host seconds summed and the rank's
+    peak memory."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vae_gslm_tpu_torch.core.masked import Masked
+    from vae_gslm_tpu_torch.core.precision import bf16_mixed
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+    from vae_gslm_tpu_torch.parallel import mesh
+    from vae_gslm_tpu_torch.trainers.speech.lvtr import LVTRTrainer
+
+    mesh.init_distributed("gloo")
+    coll = []
+    saved = {n: getattr(mesh, n) for n in PM_COLLECTIVES}
+
+    def timed(fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            coll.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    try:
+        dev = mesh.rank_device()
+        work = args["work"]
+        data = torch.load(os.path.join(work, "batch.pt"))
+        ref = torch.load(os.path.join(work, "ref_grads.pt"),
+                         map_location=dev)
+        for n in PM_COLLECTIVES:
+            setattr(mesh, n, timed(saved[n]))
+        results = {}
+        for name, mode, _ in PM_MODES:
+            tr = LVTRTrainer(Hparams.from_dict(pm_config(args["vocoder"],
+                                                         mode)),
+                             seed=3, device=dev)
+            with tr.gathered():
+                tr.model.load_state_dict(torch.load(
+                    os.path.join(work, "model.pt"), map_location=dev))
+            tr.global_step = args["step"]
+            b = TRAIN_B // tr.n_data
+            lo, hi = tr.data_index * b, (tr.data_index + 1) * b
+            batch = {k: Masked(data[k][:, lo:hi], data[k + ".len"][:, lo:hi],
+                               1) for k in ("mel", "tokens",
+                                            "cropped_mel_utt")}
+            draws = [{k[len(f"draw{i}."):]: v[lo:hi] for k, v in data.items()
+                      if k.startswith(f"draw{i}.")}
+                     for i in range(TRAIN_ACCUM)]
+            took, step = [], tr.opt.step
+            tr.opt.step = lambda grads, **kw: (took.extend(grads),
+                                               step(grads, **kw))
+            undo = _refuse_plain(f"the {name} step")
+            try:
+                with tr.parallel_context():
+                    m32 = tr.run_step(batch, draws=draws)
+                torch.cuda.synchronize()
+                leaves = {}     # name: (err / max|g|, max|g|, rel. L2)
+                for i, (n, g) in enumerate(zip(tr.names, took)):
+                    full = tr.full_tensor(g, i)
+                    if rank == 0:
+                        r = ref[n].double()
+                        diff = full.double() - r
+                        scale = r.abs().max().item()
+                        leaves[n] = (diff.abs().max().item()
+                                     / max(scale, 1e-30), scale,
+                                     (diff.norm() / r.norm().clamp_min(
+                                         1e-30)).item())
+                tr.opt.step = step
+                took.clear()
+                tr.policy = bf16_mixed()
+                torch.cuda.reset_peak_memory_stats(dev)
+                steps = []
+                for s in range(1 + PM_STEPS):
+                    for n in DP_FLASH:
+                        getattr(fa, n).launches = 0
+                    coll.clear()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with tr.parallel_context():
+                        m16 = tr.run_step(batch)
+                    torch.cuda.synchronize()
+                    tr.global_step += 1
+                    steps.append({
+                        "sec": time.perf_counter() - t0,
+                        "coll_sec": sum(coll), "n_coll": len(coll),
+                        "counts": {n: getattr(fa, n).launches
+                                   for n in DP_FLASH},
+                        "finite": all(math.isfinite(float(v))
+                                      for v in m16.values())})
+                peak = torch.cuda.max_memory_allocated(dev)
+            finally:
+                undo()
+            with tr.gathered():
+                digest = _param_digest(tr.params)
+            results[name] = {
+                "metrics": {k: float(v) for k, v in m32.items()},
+                "leaves": leaves,
+                "steps": steps, "peak": peak, "digest": digest, "rows": b}
+            del tr, took
+            gc.collect()
+            torch.cuda.empty_cache()
+            dist.barrier()
+        return results
+    finally:
+        for n, f in saved.items():
+            setattr(mesh, n, f)
+        dist.destroy_process_group()
+
+
+def pm_kernel_entries(dev, counts: dict) -> list:
+    """K4 and K4b (bf16, the 16-mixed path's type) at each mode's per-rank
+    call, held against their plain versions at phase_k45b's tolerances
+    (o 1e-2 x max|ref| with the bf16 element checks, lse 1e-5, dq/dk/dv
+    2e-2), with their times: kernels (profiler), plain, SDPA (float mask;
+    K4b: its backward alone) and the bound; ``counts[mode]`` is the
+    mode's K4 (= K4b) launches per rank per step."""
+    import torch
+    import torch.nn.functional as F
+
+    from vae_gslm_tpu_torch.nn.positions import alibi_slopes
+    from vae_gslm_tpu_torch.ops import flash_attention as fa
+
+    out = []
+    dtype = torch.bfloat16
+    for mode, (b, h, lens) in PM_CALLS.items():
+        t = TRAIN_T
+        q, k, v = bhtd_inputs(dtype, dev, b, t, t, h, seed=7)
+        do = bhtd_grad(dtype, dev, b, t, h, seed=8)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        slopes = -torch.tensor(alibi_slopes(H)[:h] if mode ==
+                               "model_parallel" else alibi_slopes(h),
+                               device=dev)
+        where = f"K4/K4b B={b} T={t} H={h} bf16 ({mode} rank)"
+        o, lse = fa.flash_forward_full(q, k, v, lengths, slopes, True,
+                                       with_stats=True)
+        o_ref, lse_ref = fa.flash_forward_full_plain(
+            q, k, v, lengths, slopes, True, with_stats=True)
+        e_o, t_o = hold(where, "o", o, o_ref, 1e-2, 0.0, True)
+        _, t_l = hold(where, "lse", lse, lse_ref, 1e-5, 1.0, True)
+        got = fa.flash_backward_full(q, k, v, o, do, lse, lengths, slopes,
+                                     True)
+        want = fa.flash_backward_full_plain(q, k, v, o, do, lse, lengths,
+                                            slopes, True)
+        e_b, texts = 0.0, []
+        for n, g_, r_ in zip(("dq", "dk", "dv"), got, want):
+            err, text = hold(where, n, g_, r_, 2e-2, 0.0, True)
+            e_b = max(e_b, err)
+            texts.append(text)
+        log(f"{where}: max_abs_err {t_o}, {t_l}; " + ", ".join(texts))
+        del o_ref, lse_ref, got, want
+        mask = sdpa_mask(lengths, slopes, dtype, dev, t, t, True)
+
+        def fwd(i):
+            return fa.flash_forward_full(q, k, v, lengths, slopes, True,
+                                         with_stats=True)
+
+        def sdpa(i):
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask)
+
+        kf = device_ms(fwd, n=20, only=("k4_fwd",), per_call=1)
+        pf = device_ms(lambda i: fa.flash_forward_full_plain(
+            q, k, v, lengths, slopes, True, with_stats=True), n=3)
+        lf = library_ms(sdpa, n=20)
+        kb = device_ms(lambda i: fa.flash_backward_full(
+            q, k, v, o, do, lse, lengths, slopes, True), n=20,
+            only=("k4b_",), per_call=2)
+        pb = device_ms(lambda i: fa.flash_backward_full_plain(
+            q, k, v, o, do, lse, lengths, slopes, True), n=3)
+        lb = sdpa_bwd_ms(q, k, v, do, mask)
+        del mask
+        nf, ff = bhtd_bytes_ops(b, t, t, h, lens, True, 2)
+        nf += b * h * t * 4                                # lse written
+        nb, fb = bwd_bytes_ops(b, t, t, h, lens, True, 2, 2)
+        for name, fn, line, ms, pms, lms, nbytes, flops, err in (
+                ("K4", "flash_forward_full", 406, kf, pf, lf, nf, ff, e_o),
+                ("K4b", "flash_backward_full", 735, kb, pb, lb, nb, fb,
+                 e_b)):
+            t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+            bound = max(t_b, t_f) * 1e3
+            by = "bytes" if t_b > t_f else "operations"
+            log(f"{name} time at the {mode} rank's call B={b} T={t} H={h} "
+                f"bf16: kernel {ms:.4f} ms, plain {pms:.4f} ms, SDPA "
+                f"{'forward' if name == 'K4' else 'backward alone'} "
+                f"{lms:.4f} ms, bound {bound:.4f} ms ({by}; "
+                f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+            out.append({
+                "name": f"{fn} ({mode} rank: B {b} x {h} heads x T {t})",
+                "route": "cuda",
+                "source": "vae_gslm_tpu_torch/csrc/flash_attention.cu",
+                "replaces": f"vae_gslm_tpu/ops/flash_attention.py:{line}",
+                "launches": counts[mode], "max_abs_err": err, "ms": ms,
+                "plain_ms": pms, "bound_ms": bound, "bound_by": by,
+                "library_ms": lms})
+        del q, k, v, do, o, lse
+    return out
+
+
+def phase_parallel_modes(dev, gpu: str) -> list:
+    """The trainer's parallel modes (Queue 1 item 11) on two gloo ranks
+    that share the card, on the shipped training config at full width
+    (d 1024, 16 layers, 16 x 64 heads, ALiBi; B 8 x 640 frames x
+    accumulation 2): (a) ``model_parallel: 2`` with
+    ``sequence_parallel``, (b) ``fsdp`` at world 2 (4 rows a rank), (c)
+    ``pipeline_parallel: 2`` with 4 microbatches.  The single-process
+    float32 step on the card over the whole batch with pinned draws is
+    the reference for each mode's float32 step: metrics within 1e-4
+    relative; every whole reduced gradient within max(1e-3, 4 x its
+    noise floor) x its max |g|, the noise floor being how far the same
+    single-process step lies from itself taken as 4 micro-batches of 4
+    rows (the same sum, FSDP's GEMM shapes: other roundings).  A mode
+    rounds differently too (other GEMM shapes, the model ranks' partial
+    sums, the data ranks' sum), and an input of the token head's ReLU
+    near 0 then flips, which moves the leaves behind it
+    (``token_spliter``) by about 3e-3 x max|g| in any split, the
+    single-process one included; other leaves stay near 1e-4.
+    Then each mode's warm-up and three 16-mixed steps: ms per step, the
+    collectives' host seconds and share, the rank's peak memory, and
+    exactly the K4/K4b launches per rank per step that the mode implies
+    (no K3/K3b, the plain versions refused); the ranks' whole parameters
+    equal after the steps.  Both ranks share one card,
+    so these times say nothing of scaling.  Returns K4/K4b entries at
+    each mode's per-rank call."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vae_gslm_tpu_torch.core import precision
+    from vae_gslm_tpu_torch.hparams.hp import Hparams
+    from vae_gslm_tpu_torch.trainers.speech.lvtr import LVTRTrainer
+
+    work = tempfile.mkdtemp(prefix="parallel_modes_")
+    try:
+        with precision.policy_scope(precision.Policy()):
+            vdir = vocoder_dir(work)
+            single = LVTRTrainer(Hparams.from_dict(pm_config(vdir, {})),
+                                 seed=3, device=dev)
+            torch.save(single.model.state_dict(),
+                       os.path.join(work, "model.pt"))
+            rng = np.random.RandomState(5)
+            batch = train_batches(rng, TRAIN_B, TRAIN_T, TRAIN_LENGTHS,
+                                  200, 200)
+            draws = [train_draws(rng, TRAIN_B, TRAIN_T, 4, 64,
+                                 single.model.decoder.num_timesteps)
+                     for _ in range(TRAIN_ACCUM)]
+            data = {}
+            for k, v in batch.items():
+                data[k], data[k + ".len"] = v.value, v.lengths
+            for i, d in enumerate(draws):
+                data.update({f"draw{i}.{k}": x for k, x in d.items()})
+            torch.save(data, os.path.join(work, "batch.pt"))
+            step = 40000                           # past the KLD warm-up
+            single.global_step = step
+            want = single.run_step(batch, draws=draws)
+            torch.cuda.synchronize()
+            ref = {n: p.grad.clone() for n, p in zip(single.names,
+                                                     single.params)}
+            torch.save(ref, os.path.join(work, "ref_grads.pt"))
+            want = {k: float(v) for k, v in want.items()}
+            # the same step over the same rows as 4 micro-batches of 4: the
+            # same sum, other GEMM shapes (FSDP's), so other roundings;
+            # a ReLU input near 0 flips, and the leaves behind the
+            # token head's ReLU move by far more than a rounding: the
+            # noise floor of any change of the batch's split
+            single.model.load_state_dict(torch.load(
+                os.path.join(work, "model.pt")))
+            single.global_step = step
+            half = TRAIN_B // 2
+            single.run_step(
+                {k: type(v)(v.value.reshape((2 * TRAIN_ACCUM, half)
+                                            + v.value.shape[2:]),
+                            v.lengths.reshape(2 * TRAIN_ACCUM, half),
+                            v.time_axis) for k, v in batch.items()},
+                draws=[{k: x[j * half:(j + 1) * half] for k, x in d.items()}
+                       for d in draws for j in range(2)])
+            noise = {}
+            for n, p in zip(single.names, single.params):
+                r = ref[n].double()
+                noise[n] = ((p.grad.double() - r).abs().max().item()
+                            / max(r.abs().max().item(), 1e-30))
+            del ref
+        del single
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_ranks({"mode": "modes", "work": work, "vocoder": vdir,
+                           "step": step}, work, timeout=900)
+        sec = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    counts, errors = {}, []
+    for name, mode, per_step in PM_MODES:
+        res = [r[name] for r in ranks]
+        worst_m = max(abs(r["metrics"][k] - want[k]) / max(abs(want[k]),
+                                                           1e-12)
+                      for r in res for k in ("rec_loss", "kld", "token_kld",
+                                             "log_p", "log_q", "grad_norm"))
+        leaves = res[0]["leaves"]
+        worst_g = max(e for e, _, _ in leaves.values())
+        # a leaf passes within 1e-3 x max|g| or within 4 x its noise
+        # floor (the 4 x 4 split step's distance, also x max|g|)
+        ratio = sorted(((e / max(1e-3, 4 * noise[n]), n, e, noise[n], s, l2)
+                        for n, (e, s, l2) in leaves.items()), reverse=True)
+        log(f"parallel mode {name}: whole float32 gradients against the "
+            f"single process, the worst leaves (err / max(1e-3, 4 x "
+            f"noise); err and the split step's noise x max|g|; max|g|; "
+            f"relative L2): " + "; ".join(
+                f"{n} {q:.2f}; {e:.2e}, {z:.2e}; {s:.2e}; {l2:.2e}"
+                for q, n, e, z, s, l2 in ratio[:6])
+            + f"; largest relative L2 of any leaf "
+            f"{max(x[2] for x in leaves.values()):.2e}")
+        if not (worst_m <= 1e-4 and ratio[0][0] <= 1.0):
+            errors.append(f"{name}: the float32 step differs from the "
+                          f"single process (metrics {worst_m:.3e} "
+                          f"relative, gradients {worst_g:.3e} x max|g|)")
+        if res[0]["digest"] != res[1]["digest"]:
+            errors.append(f"{name}: the ranks' whole parameters differ "
+                          "after the steps")
+        for r, rr in enumerate(res):
+            for s in rr["steps"]:
+                c = s["counts"]
+                got = (c["flash_forward_full"], c["flash_backward_full"],
+                       c["flash_forward_packed"], c["flash_backward_packed"],
+                       c["flash_forward_tiled"])
+                if got != (per_step, per_step, 0, 0, 0) or not s["finite"]:
+                    errors.append(
+                        f"{name} rank {r}: launches {c} (finite metrics "
+                        f"{s['finite']}), expected {per_step} K4 and K4b")
+        lines = []
+        for r, rr in enumerate(res):
+            timed = rr["steps"][1:]
+            ms = statistics.median(s["sec"] for s in timed) * 1e3
+            cs = statistics.median(s["coll_sec"] for s in timed) * 1e3
+            lines.append(f"rank {r}: {ms:.1f} ms per step (median of "
+                         f"{len(timed)}), collectives {cs:.1f} ms "
+                         f"({cs / ms:.1%}; {timed[-1]['n_coll']} calls), "
+                         f"peak {rr['peak'] / 2 ** 30:.2f} GiB")
+        log(f"parallel mode {name} ({mode}; {res[0]['rows']} rows a rank): "
+            f"float32 step vs single process: metrics max rel err "
+            f"{worst_m:.2e}, whole gradients max err "
+            f"{worst_g:.2e} x max|g|; K4/K4b {per_step} per "
+            f"rank per step; 16-mixed " + "; ".join(lines)
+            + f" ({gpu}; two ranks on one card: no scaling number)")
+        counts[name] = per_step
+    log(f"parallel modes: {len(PM_MODES)} modes on two ranks in {sec:.1f} s "
+        "with the ranks' start")
+    if errors:
+        raise AssertionError("; ".join(errors))
+    return pm_kernel_entries(dev, counts)
+
+
 def main() -> int:
     # keep CUPTI set up between profiler windows (torch's own workaround
     # for its re-initialisation, which has left windows with no kernel)
@@ -7632,6 +8249,8 @@ def main() -> int:
     long_counts = timed("dp_fit_long", phase_dp_fit, dev, gpu, long=True)
     k5bf16["launches"] = long_counts["flash_forward_tiled"]
     k5b["launches"] = long_counts["flash_backward_blockwise"]
+    # the trainer's parallel modes (slice 21): K4/K4b at each per-rank call
+    pm_entries = timed("parallel_modes", phase_parallel_modes, dev, gpu)
     timed("hfgan_small", phase_hfgan_small, dev)
     timed("hfgan_fit", phase_hfgan_fit, dev, gpu)
     opt = timed("lvtr_options", phase_lvtr_options, dev, gpu)
@@ -7711,11 +8330,13 @@ def main() -> int:
         shutil.rmtree(tts_root, ignore_errors=True)
     k3["launches"] += tts_k3
     k3b["launches"] += tts_k3b
+    # the HuBERT + k-means tokenizer (Queue 1 item 10): no kernel on its path
+    timed("tokenizer", phase_tokenizer, dev, gpu)
     log("phase seconds: " + ", ".join(spent))
     log(f"total smoke time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": mark_event_times(
         [k1, k2, k2bf16, k2w4, k3, k3b, k4, k4b, k5, k5bf16, k5b, bwdf32, k6,
-         k7] + wide)}))
+         k7] + wide + pm_entries)}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

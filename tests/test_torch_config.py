@@ -3,7 +3,9 @@
   * every YAML under ``configs/`` parses to the same dict through the
     port's own ``Hparams`` copy as through the JAX package's;
   * no ``.py`` file of ``vae_gslm_tpu_torch/``, and not ``chip_smoke.py``,
-    imports ``jax``, ``flax`` or ``vae_gslm_tpu``;
+    imports ``jax``, ``flax`` or ``vae_gslm_tpu``; the tokenizer's and the
+    parallel modes' modules import no ``transformers`` or ``safetensors``
+    either (the card's machine has neither);
   * the builders, the sampler and the trainer run on CUDA by default
     and raise on a machine without it unless the caller passes
     ``device="cpu"``."""
@@ -78,6 +80,25 @@ def test_import_guard_covers_training_slice(path):
     files and import no JAX."""
     assert path in PORT_FILES
     test_port_imports_no_jax(path)
+
+
+@pytest.mark.parametrize("path", [
+    "vae_gslm_tpu_torch/models/ssl/hubert.py",
+    "vae_gslm_tpu_torch/ops/kmeans.py",
+    "vae_gslm_tpu_torch/scripts/hubert_kmeans.py",
+    "vae_gslm_tpu_torch/parallel/fsdp.py",
+    "vae_gslm_tpu_torch/parallel/pp.py",
+    "vae_gslm_tpu_torch/training/trainer.py", "chip_smoke.py"])
+def test_import_guard_covers_tokenizer_and_parallel_modes(path):
+    """The tokenizer's and the parallel modes' modules are among the
+    guarded files and import no JAX, flax, JAX package, transformers or
+    safetensors."""
+    assert path in PORT_FILES
+    with open(os.path.join(ROOT, path)) as f:
+        tree = ast.parse(f.read(), filename=path)
+    bad = sorted(set(_imported_roots(tree))
+                 & set(FORBIDDEN + ("transformers", "safetensors")))
+    assert not bad, f"{path} imports {bad}"
 
 
 def _tiny_lvtr(**kw):

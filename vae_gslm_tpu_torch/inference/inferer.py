@@ -6,9 +6,9 @@ at inference; the model class comes from the inference config's dotted
 ``model.identifier`` (``scripts/registry.py``); its weights from
 ``{ckpt_path}/last-cpt.npz`` (the JAX compact contract, loaded strictly)
 or, failing that, the newest ``*-cpt.*`` there, where a ``.ckpt`` is a
-reference torch state dict (the released artifacts) of an LVTR or a
-DiscreteAR.  Entry points run
-on CUDA unless the caller passes ``device="cpu"``.
+reference torch state dict (the released artifacts) of an LVTTS, an
+LVTR or a DiscreteAR (LVTTS tested first: it subclasses LVTR).  Entry
+points run on CUDA unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -20,9 +20,11 @@ import torch
 from ..core.device import resolve_device
 from ..data.loader import DataLoader, get_dataloader
 from ..hparams.hp import Hparams
-from ..models.convert import load_reference_discrete_ar, load_reference_lvtr
+from ..models.convert import (load_reference_discrete_ar,
+                              load_reference_lvtr, load_reference_lvtts)
 from ..models.speech.discrete import DiscreteAR
 from ..models.speech.lvtr import LVTR
+from ..models.tts.lvtr import LVTTS
 from ..models.vocoder.vocoder import load_torch_state_dict
 from ..parallel.mesh import process_count, process_index
 from ..scripts.registry import resolve
@@ -48,6 +50,8 @@ class BaseInferer:
             ckpt = get_last_ckpt(self.hp.ckpt_path)
         if ckpt.endswith(".npz"):
             load_compact(model, ckpt)
+        elif isinstance(model, LVTTS):
+            load_reference_lvtts(model, load_torch_state_dict(ckpt))
         elif isinstance(model, LVTR):
             load_reference_lvtr(model, load_torch_state_dict(ckpt))
         elif isinstance(model, DiscreteAR):

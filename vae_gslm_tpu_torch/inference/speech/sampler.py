@@ -444,7 +444,9 @@ class DiscreteARSampler:
         with a tail -> cold flush every 256 positions;
       * **per-layer** (otherwise): one ``LayerKVCache`` per layer of
         ``per_layer_kv_dtype`` (float32 for ``kv_dtype`` None at B <= 32,
-        where JAX takes its stacked float step, which is not ported),
+        where JAX takes its stacked float step: the port has that step,
+        ``TransformerLayerStack.decode_stacked`` on a float cache, and
+        this sampler keeps the per-layer route; ROADMAP Queue 1 item 2),
         prefilled, then the windowed segments of ``ARTRSampler``'s
         per-layer scan at JAX's default cap of 8 segments.
 

@@ -11,12 +11,16 @@ weight-norm form (``weight_g``/``weight_v`` or
 ``parametrizations.weight.original0/1``) or with weight norm removed
 (``weight``: then v = weight and g = ||weight||, as JAX loads it), into
 a weight-normed generator (``HiFiGAN.from_pretrained`` folds it after).
+``load_reference_lvtts`` takes a reference LVTTS state dict: the LVTR's
+keys plus the text encoder, the eos head, the speaker encoder and
+``spkr_film``, renamed as JAX's ``load_torch_lvtts`` reads them.
 ``load_reference_hubert_decoder`` and ``load_reference_discrete_ar``
 take the reference's token->mel decoder and token LM state dicts (JAX's
 ``export_torch_hubert_decoder`` and what ``load_torch_discrete_ar``
 reads).  ``mega_weights_from_numpy`` carries the int8 K2 weights of a JAX
 ``build_mega_decode()`` dict across as they are, and
-``layer_cache_from_numpy`` a JAX per-layer KV cache.
+``layer_cache_from_numpy`` a JAX per-layer KV cache;
+``load_hubert_flat`` carries the JAX tokenizer encoder's parameters.
 
 ``to_flat`` / ``load_flat`` map an LVTR, a DiscreteAR, a HuBERT decoder,
 a SoundStream (its quantizer's codebooks; BestRQ's frozen projection and
@@ -79,6 +83,21 @@ def load_reference_lvtr(model: nn.Module, sd: Mapping) -> None:
                   "; the JAX exporter drops a ConditionalUNet denoiser: "
                   "carry the model through its compact checkpoint and "
                   "load_flat instead")
+
+
+# the reference LVTTS's extra top-level prefixes (JAX's load_torch_lvtts)
+_LVTTS_PREFIXES = _LVTR_PREFIXES + (
+    ("text_encoder.0.", "text_embedding."),
+    ("text_encoder.1.", "text_encoder."),
+    ("spkr_encoder.0.", "spkr_encoder."))
+
+
+def load_reference_lvtts(model: nn.Module, sd: Mapping) -> None:
+    """Strictly load a reference-keyed LVTTS state dict: the LVTR's
+    renames, then the text embedding (``text_encoder.0``), the text stack
+    (``text_encoder.1``) and the speaker encoder (``spkr_encoder.0``);
+    ``eos_head`` and the time-first ``spkr_film`` keep their names."""
+    _load_renamed("LVTTS", model, sd, _LVTTS_PREFIXES)
 
 
 def _load_renamed(what: str, model: nn.Module, sd: Mapping, prefixes,
@@ -421,3 +440,33 @@ def load_flat(model: nn.Module, flat: Mapping) -> None:
                              f"port's {tuple(sd[key].shape)}")
         out[key] = torch.from_numpy(np.array(a)).to(sd[key].dtype)
     model.load_state_dict(out, strict=True)
+
+
+def _hubert_path(name: str) -> str:
+    return name.replace(".", "/")
+
+
+def _is_hubert_conv(name: str) -> bool:
+    return name == "pos_conv_w" or name.startswith("feature_encoder.conv_w.")
+
+
+def load_hubert_flat(model: nn.Module, flat: Mapping) -> None:
+    """Strictly load the JAX ``HubertEncoder``'s parameters, a flat dict
+    of numpy arrays keyed by the flax paths joined by ``/``
+    (``feature_encoder/conv_w/0``, ``layers/3/q/w``, ...), into the
+    port's ``models/ssl/hubert.py::HubertEncoder``: the names are the
+    same, dense weights keep JAX's (in, out), and the conv kernels go
+    from JAX's (k, in, out) to torch's (out, in, k)."""
+    params = dict(model.named_parameters())
+    want = {_hubert_path(n): n for n in params}
+    _strict_keys("HuBERT encoder", list(want), flat)
+    with torch.no_grad():
+        for path, name in want.items():
+            a = np.asarray(flat[path], np.float32)
+            if _is_hubert_conv(name):
+                a = a.transpose(2, 1, 0)
+            p = params[name]
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"{path}: shape {a.shape}, the port's "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.from_numpy(np.array(a)))

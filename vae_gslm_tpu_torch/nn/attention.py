@@ -150,7 +150,8 @@ class SelfAttention(nn.Module):
     ``flash_attention_packed`` over the packed projections, on the card
     K3/K3b inside the packed envelope and K4 (T <= 1024, unpackable heads)
     or K5 (T > 1024) outside it.  Inside ``parallel/tp.py::flash_mesh`` of
-    more than one rank (JAX's mesh branch, :288-302) it takes
+    more than one data rank, or of model ranks that divide the heads
+    (JAX's mesh branch, :288-302), it takes
     ``flash_attention_bhtd`` on (B, H, T, D) views of the projection
     instead: K4 and K4b at T <= 1024, K4/K5 and K5b past it.  Otherwise
     the dense ``attend`` with the ALiBi or T5 bias and the masks."""
@@ -168,6 +169,7 @@ class SelfAttention(nn.Module):
         bias = bool(hp.get("bias", None))
         self.in_proj = Dense(dim, dim * 3, bias=bias)
         self.out_proj = Dense(dim, dim, bias=bias)
+        self.tp_shard = None    # parallel/tp.py::shard_layers sets it
 
     def _qkv(self, xv: torch.Tensor, rpe, offset: int = 0):
         """The projections; Rotary/SinCos act on q and k at positions
@@ -187,42 +189,60 @@ class SelfAttention(nn.Module):
         stack (the T5 table's; computed here when a T5 ``rpe`` comes
         without it).  Returns the masked output (B, T, C), with
         ``return_attn`` also the float32 weights (B, H, T, T), which bar
-        the fused branch as in JAX."""
-        q, k, v = self._qkv(x.value, rpe)
-        t = q.shape[1]
+        the fused branch as in JAX.  A model-parallel layer (``tp_shard``
+        set by ``parallel/tp.py::shard_layers``) holds its heads' slice of
+        the projections: its input enters the column-parallel
+        ``in_proj``, its heads attend (their ALiBi slopes, their rows of a
+        bias), and the row-parallel ``out_proj`` sums over the model
+        ranks."""
+        info = self.tp_shard
+        xv, lengths = x.value, x.lengths
+        if info is not None:
+            if return_attn:
+                raise NotImplementedError(
+                    "a model-parallel layer returns no attention maps")
+            xv = tp.column_in(xv, info)
+            lengths = tp.full_lengths(lengths)
+        q, k, v = self._qkv(xv, rpe)
+        b, t, _ = q.shape
+        nh = q.shape[-1] // self.head_dim          # this rank's heads
+        h0 = info.index * nh if info is not None else 0
         if isinstance(rpe, T5RPE) and bias is None:
             bias = rpe(t, t)
+        if bias is not None:
+            bias = bias[h0:h0 + nh]
         attn = None
         if (self.use_flash and self.causal and bias is None
                 and not return_attn):
-            slopes = rpe.slopes if isinstance(rpe, ALiBi) else None
-            if tp.active_flash_mesh():
-                b, t, _ = q.shape
-                qh, kh, vh = (y.view(b, t, self.nheads, self.head_dim)
+            slopes = (rpe.slopes[h0:h0 + nh] if isinstance(rpe, ALiBi)
+                      else None)
+            if tp.active_flash_mesh(self.nheads):
+                qh, kh, vh = (y.view(b, t, nh, self.head_dim)
                               .transpose(1, 2) for y in (q, k, v))
-                out = flash_attention_bhtd(qh, kh, vh, x.lengths, slopes,
+                out = flash_attention_bhtd(qh, kh, vh, lengths, slopes,
                                            True).transpose(1, 2).reshape(
-                                               b, t, self.dim)
+                                               b, t, nh * self.head_dim)
             else:
-                out = flash_attention_packed(q, k, v, x.lengths, slopes,
-                                             True, self.nheads)
+                out = flash_attention_packed(q, k, v, lengths, slopes,
+                                             True, nh)
         else:
             pos = torch.arange(t, device=q.device)
-            mask = (pos[None, :] < x.lengths[:, None])[:, None, None, :]
+            mask = (pos[None, :] < lengths[:, None])[:, None, None, :]
             if self.causal:
                 mask = mask & (pos[None, :] <= pos[:, None])[None, None]
             else:
                 mask = mask.expand(q.shape[0], 1, t, t)
             if isinstance(rpe, ALiBi):
-                bias = rpe.bias(pos, pos)
-            out = attend(split_heads(q, self.nheads),
-                         split_heads(k, self.nheads),
-                         split_heads(v, self.nheads), bias, mask,
+                bias = rpe.bias(pos, pos)[h0:h0 + nh]
+            out = attend(split_heads(q, nh), split_heads(k, nh),
+                         split_heads(v, nh), bias, mask,
                          return_attn=return_attn)
             if return_attn:
                 out, attn = out
             out = merge_heads(out)
-        out = Masked(self.out_proj(out), x.lengths, 1).apply_mask()
+        out = (self.out_proj(out) if info is None
+               else tp.row_product(out, self.out_proj, info))
+        out = Masked(out, x.lengths, 1).apply_mask()
         return (out, attn) if return_attn else out
 
     # -- per-layer static-cache decode -------------------------------------

@@ -42,9 +42,10 @@ for its f0 head and applies the output layer itself).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from operator import attrgetter
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.utils.checkpoint
@@ -54,6 +55,7 @@ from ..core.masked import Masked
 from ..hparams.hp import Hparams
 from ..ops import mega_step as mega
 from ..ops.fused_decode import BLK, TAIL, fused_decode_attention
+from ..parallel import pp, tp
 from .activations import gelu, get_activation
 from .attention import (NEG_INF, CrossAttention, LayerKVCache, SelfAttention,
                         attend, merge_heads, quantize_i8, split_heads)
@@ -115,8 +117,11 @@ class TransformerLayer(nn.Module):
         self.norm1 = get_norm(hp.dim, hp.norm)
         self.norm3 = get_norm(hp.dim, hp.norm)
         self.activation = get_activation(hp.activation)
+        self.ffn_shard = None   # parallel/tp.py::shard_layers sets it
 
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
+        if self.ffn_shard is not None:
+            return tp.ffn(self, x)
         return self.linear2(self.activation(self.linear1(x)))
 
     def forward(self, tgt: Masked, memory: Optional[Masked] = None,
@@ -126,11 +131,15 @@ class TransformerLayer(nn.Module):
         ``bias`` as in ``SelfAttention.forward``), cross-attention over
         ``memory`` where the layer has it, then the FFN.  With
         ``return_attn`` also ``{"self_attn": (B, H, T, T)[, "cross_attn":
-        (B, H, T, Tm)]}`` (the self-attention then dense, as in JAX)."""
+        (B, H, T, Tm)]}`` (the self-attention then dense, as in JAX).
+        Inside a sequence-parallel stack ``tgt`` is this rank's T slice
+        and the norms run through ``parallel/tp.py::seq_norm``."""
         lengths = tgt.lengths
         attn = {}
+        norm = tp.seq_norm
         if self.preln:
-            n_tgt = Masked(self.norm1(tgt.value), lengths, 1).apply_mask()
+            n_tgt = Masked(norm(self.norm1, tgt.value), lengths,
+                           1).apply_mask()
         else:
             n_tgt = tgt
         sa = self.self_attn(n_tgt, rpe, bias, return_attn=return_attn)
@@ -138,7 +147,7 @@ class TransformerLayer(nn.Module):
             sa, attn["self_attn"] = sa
         x = tgt.value + sa.value
         if not self.preln:
-            x = self.norm1(x)
+            x = norm(self.norm1, x)
         if self.cross_attn is not None:
             if memory is None:
                 raise ValueError("a cross-attention layer needs a memory")
@@ -150,10 +159,10 @@ class TransformerLayer(nn.Module):
             x = x + ca.value
             if not self.preln:
                 x = self.norm2(x)
-        n_x = self.norm3(x) if self.preln else x
+        n_x = norm(self.norm3, x) if self.preln else x
         x = x + self._ffn(n_x)
         if not self.preln:
-            x = self.norm3(x)
+            x = norm(self.norm3, x)
         out = Masked(x, lengths, 1).apply_mask()
         return (out, attn) if return_attn else out
 
@@ -231,6 +240,10 @@ class TransformerLayerStack(nn.Module):
     def dim(self) -> int:
         return self.hp.layer.dim
 
+    @property
+    def num_layers(self) -> int:
+        return len(self.layers)
+
     def set_uniform(self, std: float, generator=None) -> None:
         """Re-draw a learned T5 bias table uniform +-std, as JAX does;
         the other positions hold no table."""
@@ -264,6 +277,11 @@ class TransformerLayerStack(nn.Module):
             out = Masked(self.first_norm(out.value), lengths,
                          1).apply_mask()
         memory = self.project_memory(memory)
+        if pp.eligible(self, out.value.shape[0], memory, return_attn):
+            # GPipe over the pipe ranks (parallel/pp.py), JAX :243-266
+            out = Masked(pp.pipeline_apply(self, out.value, lengths),
+                         lengths, 1).apply_mask()
+            return self._finish(out, [out])
         bias = None
         if isinstance(self.rpe, T5RPE):
             bias = self.rpe(out.value.shape[1], out.value.shape[1])
@@ -271,30 +289,48 @@ class TransformerLayerStack(nn.Module):
         maps = {"self_attn": []}
         if self.is_cross_attn:
             maps["cross_attn"] = []
-        for layer in self.layers:
-            if self.remat and torch.is_grad_enabled() and not return_attn:
-                value = torch.utils.checkpoint.checkpoint(
-                    lambda v, la=layer: la(Masked(v, lengths, 1), memory,
-                                           self.rpe, bias).value,
-                    out.value, use_reentrant=False)
-                out = Masked(value, lengths, 1)
-            elif return_attn:
-                out, attn = layer(out, memory, self.rpe, bias,
-                                  return_attn=True)
-                for k, v in attn.items():
-                    maps[k].append(v)
-            else:
-                out = layer(out, memory, self.rpe, bias)
-            layers.append(out)
+        # sequence parallelism (parallel/tp.py): the layers run on this
+        # rank's T slice; the per-layer entries of "layers" are slices
+        seq = None if return_attn else tp.seq_info(self, out.value.shape[1])
+        span, run_lengths = contextlib.nullcontext(), lengths
+        if seq is not None:
+            value, run_lengths = tp.split_seq(out.value, lengths, seq)
+            out = Masked(value, run_lengths, 1)
+            span = tp.seq_sharded(lengths, seq)
+        with span:
+            for layer in self.layers:
+                if (self.remat and torch.is_grad_enabled()
+                        and not return_attn):
+                    value = torch.utils.checkpoint.checkpoint(
+                        lambda v, la=layer: la(
+                            Masked(v, run_lengths, 1), memory, self.rpe,
+                            bias).value,
+                        out.value, use_reentrant=False)
+                    out = Masked(value, run_lengths, 1)
+                elif return_attn:
+                    out, attn = layer(out, memory, self.rpe, bias,
+                                      return_attn=True)
+                    for k, v in attn.items():
+                        maps[k].append(v)
+                else:
+                    out = layer(out, memory, self.rpe, bias)
+                layers.append(out)
+        if seq is not None:
+            out = Masked(tp.join_seq(out.value, seq), lengths, 1)
+        res = self._finish(out, layers)
+        if return_attn:
+            res.update(maps)
+        return res
+
+    def _finish(self, out: Masked, layers: list) -> dict:
+        """The final norm and the output layer after the trunk."""
+        lengths = out.lengths
         if self.final_norm is not None:
             out = Masked(self.final_norm(out.value), lengths, 1)
             layers.append(out)
         if self.out is not None:
             out = Masked(self.out(out.value), lengths, 1).apply_mask()
-        res = {"output": out, "layers": layers}
-        if return_attn:
-            res.update(maps)
-        return res
+        return {"output": out, "layers": layers}
 
     def forward(self, tgt: Masked, memory: Optional[Masked] = None
                 ) -> Masked:
@@ -319,13 +355,18 @@ class TransformerLayerStack(nn.Module):
                 return False
         return True
 
-    def build_stacked_decode(self, allow_cross: bool = False) -> dict:
+    def build_stacked_decode(self, allow_cross: bool = False,
+                             layers: Optional[Sequence[int]] = None,
+                             grad: bool = False) -> dict:
         """Per-layer weights stacked on a leading L axis, ``w`` as
         (L, in, out) in the compute dtype, ``x @ w`` like the JAX
         package; int8 weights stay int8 beside their ``scale`` (L, 1,
         out) in the compute dtype.  With ``allow_cross`` a cross-attention
         trunk also stacks ``n2`` and the cross-attention's ``cq`` and
-        ``cout``.  Build once per sampling call."""
+        ``cout``.  Build once per sampling call.  ``layers`` picks the
+        layers to stack (a pipeline stage's); ``grad`` keeps the stack
+        differentiable in the parameters (the pipeline's training
+        forward)."""
         from ..core.precision import get_policy
 
         if not self.supports_stacked_decode(allow_cross):
@@ -334,9 +375,11 @@ class TransformerLayerStack(nn.Module):
                 "no positions, and cross-attention only with allow_cross "
                 "(no cross positions, an RMSNorm norm2)")
         dt = get_policy().compute_dtype
+        picked = [self.layers[i] for i in (
+            range(len(self.layers)) if layers is None else layers)]
 
         def dense(getter):
-            mods = [getter(la) for la in self.layers]
+            mods = [getter(la) for la in picked]
             w = torch.stack([m.weight.t() for m in mods])
             if w.dtype == torch.int8:
                 entry = {"w": w, "scale": torch.stack(
@@ -347,10 +390,10 @@ class TransformerLayerStack(nn.Module):
                 entry["b"] = torch.stack([m.bias for m in mods]).to(dt)
             return entry
 
-        with torch.no_grad():
+        with contextlib.nullcontext() if grad else torch.no_grad():
             out = {
-                "n1": torch.stack([la.norm1.scale for la in self.layers]),
-                "n3": torch.stack([la.norm3.scale for la in self.layers]),
+                "n1": torch.stack([la.norm1.scale for la in picked]),
+                "n3": torch.stack([la.norm3.scale for la in picked]),
                 "qkv": dense(lambda la: la.self_attn.in_proj),
                 "out": dense(lambda la: la.self_attn.out_proj),
                 "ffn1": dense(lambda la: la.linear1),
@@ -358,7 +401,7 @@ class TransformerLayerStack(nn.Module):
             }
             if self.is_cross_attn and allow_cross:
                 out["n2"] = torch.stack([la.norm2.scale
-                                         for la in self.layers])
+                                         for la in picked])
                 out["cq"] = dense(lambda la: la.cross_attn.q_proj)
                 out["cout"] = dense(lambda la: la.cross_attn.out_proj)
         return out

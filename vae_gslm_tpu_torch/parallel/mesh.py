@@ -12,12 +12,23 @@ the backend: ``"nccl"`` when every rank has a card of its own,
 broadcasts and all-reduces CUDA tensors through the host).  Nothing
 switches it silently.  JAX's ``VAE_GSLM_AUTO_DISTRIBUTED`` reads TPU pod
 metadata and has no meaning here (ROADMAP.md).
+
+JAX's 2-D meshes, (data, model) for tensor parallelism and (data, pipe)
+for the pipeline, become a ``Grid`` of ranks, the inner axis innermost
+(rank = data * n_inner + inner), with a process sub-group along each
+axis.  The collectives along an axis (``all_gather_dim``,
+``reduce_scatter_dim``, ``send``/``recv``, ``broadcast_from``) copy a
+CUDA tensor through host memory themselves when the group's backend is
+gloo (ranks that share one card): gloo's send, recv and reduce-scatter
+take host tensors.  That copy is the call's one route on such a group,
+not a fallback.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import os
-from typing import Iterable, List, Optional
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -86,16 +97,182 @@ def replicate(tensors: Iterable[torch.Tensor]) -> None:
             dist.broadcast(t, 0)
 
 
-def all_reduce_sum(tensors: List[torch.Tensor]) -> None:
-    """Sum the tensors (one dtype, one device) over the ranks in place,
-    in one all-reduce of one flat buffer."""
-    if process_count() == 1 or not tensors:
+def all_reduce_sum(tensors: List[torch.Tensor], group=None) -> None:
+    """Sum the tensors (one dtype, one device) over the ranks (of
+    ``group``, every rank by default) in place, in one all-reduce of one
+    flat buffer.  A ``group`` of None is every rank here (the axis
+    collectives below take None as an axis of one rank)."""
+    if process_count() == 1 or not tensors or (
+            group is not None and _size(group) == 1):
         return
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     with torch.no_grad():
         offset = 0
         for t in tensors:
             n = t.numel()
             t.copy_(flat[offset:offset + n].view_as(t))
             offset += n
+
+
+# ----------------------------------------------------------------- grid
+def _size(group) -> int:
+    """The ranks of an axis group; None is an axis of one rank."""
+    if group is None or not dist.is_initialized():
+        return 1
+    return dist.get_world_size(group)
+
+
+@dataclasses.dataclass
+class Grid:
+    """The ranks as a (data, ``inner``) grid, ``inner`` innermost: rank =
+    data * n_inner + inner.  ``groups[axis]`` is this rank's sub-group
+    along ``axis`` (None where the axis has one rank); JAX's
+    ``create_mesh_2d`` (inner "model") and ``create_mesh_pipe`` (inner
+    "pipe") in one process per rank."""
+    inner: str
+    n_data: int
+    n_inner: int
+    data_index: int
+    inner_index: int
+    groups: Dict[str, Optional[object]]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.n_data, self.inner: self.n_inner}
+
+    def size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        return self.data_index if axis == "data" else (
+            self.inner_index if axis == self.inner else 0)
+
+    def group(self, axis: str):
+        return self.groups.get(axis)
+
+
+def create_grid(inner: str, n_inner: int, n_data: Optional[int] = None
+                ) -> Grid:
+    """The grid of this process group; every rank must call it (the
+    sub-groups are created collectively, in one order).  ``n_data``
+    defaults to world // n_inner; their product must be the world."""
+    world, rank = process_count(), process_index()
+    if n_data is None:
+        if world % n_inner:
+            raise ValueError(f"{n_inner} {inner} ranks do not divide the "
+                             f"process group's {world}")
+        n_data = world // n_inner
+    if n_data * n_inner != world:
+        raise ValueError(f"a {n_data} x {n_inner} (data, {inner}) grid "
+                         f"needs {n_data * n_inner} ranks; the process "
+                         f"group has {world}")
+    groups: Dict[str, Optional[object]] = {"data": None, inner: None}
+    if world > 1 and n_inner == 1:                    # data only
+        groups["data"] = dist.group.WORLD
+    elif world > 1:
+        for i in range(n_inner):                      # data groups
+            ranks = [d * n_inner + i for d in range(n_data)]
+            g = dist.new_group(ranks) if n_data > 1 else None
+            if rank in ranks:
+                groups["data"] = g
+        for d in range(n_data):                       # inner groups
+            ranks = [d * n_inner + i for i in range(n_inner)]
+            g = dist.new_group(ranks) if n_inner > 1 else None
+            if rank in ranks:
+                groups[inner] = g
+    return Grid(inner, n_data, n_inner, rank // n_inner, rank % n_inner,
+                groups)
+
+
+def _staged(group, t: torch.Tensor) -> bool:
+    """Whether a collective on ``group`` copies ``t`` through the host:
+    a CUDA tensor on a gloo group."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's tensors (one shape) concatenated along ``dim`` in rank
+    order."""
+    n = _size(group)
+    if n == 1:
+        return x
+    src = x.detach().contiguous()
+    host = _staged(group, src)
+    if host:
+        src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim)
+    return out.to(x.device) if host else out
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over the group of ``x``, cut in group-size chunks along
+    ``dim``: this rank's chunk."""
+    n = _size(group)
+    if n == 1:
+        return x
+    src = x.detach()
+    host = _staged(group, src)
+    if host:
+        src = src.cpu()
+    chunks = [c.contiguous() for c in src.chunk(n, dim)]
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=group)
+    return out.to(x.device) if host else out
+
+
+def all_reduce_in(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the group (a new tensor)."""
+    if _size(group) == 1:
+        return x
+    out = x.detach().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def broadcast_from(x: torch.Tensor, src: int, group) -> torch.Tensor:
+    """Group rank ``src``'s ``x`` on every rank of the group (a new
+    tensor on the others; ``x`` supplies the shape and dtype)."""
+    if _size(group) == 1:
+        return x
+    buf = x.detach().contiguous().clone()
+    host = _staged(group, buf)
+    if host:
+        buf = buf.cpu()
+    dist.broadcast(buf, dist.get_global_rank(group, src), group=group)
+    return buf.to(x.device) if host else buf
+
+
+def broadcast_list(tensors: List[torch.Tensor], src: int, group) -> None:
+    """Overwrite the tensors (one dtype, one device) in place with group
+    rank ``src``'s, in one broadcast of one flat buffer."""
+    if _size(group) == 1 or not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    flat = broadcast_from(flat, src, group)
+    with torch.no_grad():
+        offset = 0
+        for t in tensors:
+            n = t.numel()
+            t.copy_(flat[offset:offset + n].view_as(t))
+            offset += n
+
+
+def send(x: torch.Tensor, dst: int, group) -> None:
+    """Send ``x`` to group rank ``dst``."""
+    buf = x.detach().contiguous()
+    if _staged(group, buf):
+        buf = buf.cpu()
+    dist.send(buf, dist.get_global_rank(group, dst), group=group)
+
+
+def recv(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device,
+         src: int, group) -> torch.Tensor:
+    """Receive a tensor of ``shape`` from group rank ``src``."""
+    host = device.type == "cuda" and dist.get_backend(group) == "gloo"
+    buf = torch.empty(shape, dtype=dtype,
+                      device="cpu" if host else device)
+    dist.recv(buf, dist.get_global_rank(group, src), group=group)
+    return buf.to(device) if host else buf

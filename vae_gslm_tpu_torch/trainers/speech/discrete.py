@@ -31,7 +31,6 @@ from ...hparams.hp import Hparams
 from ...inference.speech.sampler import DiscreteARSampler
 from ...models.speech.discrete import DiscreteAR
 from ...models.vocoder.vocoder import HuBERTIO
-from ...parallel import mesh
 from ...training.optimizer import create_optimizer
 from ...training.trainer import (RANK_SEED_STRIDE, BaseTrainer,
                                  fuse_microbatches, init_weights)
@@ -65,7 +64,7 @@ class DiscreteARTrainer(BaseTrainer):
         self.token_key = "dedup_tokens" if self.deduplicate else "tokens"
         self.sampler = DiscreteARSampler(self.model, device=self.device)
         self.names, self.params = zip(*self.model.named_parameters())
-        mesh.replicate(self.params)
+        self.place_params()
         self.opt, self.lr_schedule = create_optimizer(
             hp.training, hp.trainer.total_steps, self.params)
         self.policy = policy_for_precision(hp.trainer.get("precision",
@@ -73,7 +72,7 @@ class DiscreteARTrainer(BaseTrainer):
         self.fuse_accumulation = bool(hp.training.get("fuse_accumulation",
                                                       False))
         self.rng = torch.Generator(self.device).manual_seed(
-            seed + 1 + RANK_SEED_STRIDE * self.rank)
+            seed + 1 + RANK_SEED_STRIDE * self.data_index)
 
     # --------------------------------------------------------------- data
     def _make_dataset(self, hp_data: Hparams, name: str):

@@ -14,15 +14,18 @@ takes one optimizer step under the policy of ``trainer.precision``.
 Like the JAX ``run_step`` it leaves ``global_step`` to the caller
 (``fit``).
 
-Over ``W`` ranks each rank runs the step on its own rows.  JAX's loss is
-a token sum over the global batch, so the gradient is the SUM over the
-ranks of each rank's summed micro-batch gradients, in one all-reduce
-after accumulation (not the mean ``DistributedDataParallel`` takes);
+Over ``W`` ranks each data row of ranks runs the step on its own rows.
+JAX's loss is a token sum over the global batch, so the gradient is the
+SUM over the data ranks of each row's summed micro-batch gradients, in
+one all-reduce after accumulation (not the mean
+``DistributedDataParallel`` takes; ``BaseTrainer.reduce_grads``, which
+also sums the pipeline stages and reduce-scatters FSDP slices);
 clipping, ``grad_norm`` and AdamW act on that sum, identically on every
-rank.  The metrics are reduced the same way (token sums summed, the
-others weighted by the global valid length), so every rank logs the same
-numbers.  Each rank draws its noise from a generator seeded by the seed
-and the rank.
+rank of a slice.  The metrics are reduced the same way (token sums
+summed, the others weighted by the global valid length), so every rank
+logs the same numbers.  Each data row draws its noise from a generator
+seeded by the seed and its data index, so its model and pipe ranks draw
+alike.
 """
 from __future__ import annotations
 
@@ -41,9 +44,8 @@ from ...hparams.hp import Hparams
 from ...inference.speech.sampler import ARTRSampler
 from ...models.speech.lvtr import LVTR
 from ...models.vocoder.vocoder import HiFiGAN
-from ...parallel import mesh
 from ...training.checkpoint import load_compact
-from ...training.optimizer import create_optimizer, global_norm
+from ...training.optimizer import create_optimizer
 from ...training.trainer import (RANK_SEED_STRIDE, BaseTrainer,
                                  bucket_pad_batch, fuse_microbatches,
                                  init_weights)
@@ -112,14 +114,14 @@ class LVTRTrainer(BaseTrainer):
             load_compact(self.model, init_from)
             self.freeze_encoder = True
         self.names, self.params = zip(*self.model.named_parameters())
-        mesh.replicate(self.params)
+        self.place_params()
         self.opt, self.lr_schedule = create_optimizer(
             tr, hp.trainer.total_steps, self.params)
         self.policy = policy_for_precision(hp.trainer.get("precision",
                                                           "32"))
         self.fuse_accumulation = bool(tr.get("fuse_accumulation", False))
         self.rng = torch.Generator(self.device).manual_seed(
-            seed + 1 + RANK_SEED_STRIDE * self.rank)
+            seed + 1 + RANK_SEED_STRIDE * self.data_index)
 
     @property
     def vocoder(self) -> HiFiGAN:
@@ -237,21 +239,18 @@ class LVTRTrainer(BaseTrainer):
             v = torch.stack([m[k] for m in per_mb])
             metrics[k] = (v.sum(0) if k in _SUM_KEYS
                           else (v * n_mb).sum(0) / n_mb.sum())
-        grads = [p.grad for p in self.params]
+        grads = self.step_grads()
         if self.world_size > 1:
-            grads = [torch.zeros_like(p) if g is None else g
-                     for p, g in zip(self.params, grads)]
-            mesh.all_reduce_sum(grads)
+            grads = self.reduce_grads(grads)
             metrics = self._reduce_metrics(metrics)
         if self.freeze_encoder:
             for name, g in zip(self.names, grads):
                 if g is not None and name.startswith(_FROZEN):
                     g.zero_()
         metrics["kld_weight"] = kld_weight
-        metrics["grad_norm"] = global_norm(
-            [g for g in grads if g is not None])
+        metrics["grad_norm"] = self.grad_norm(grads)
         metrics["lr"] = self.lr_schedule(self.global_step)
-        self.opt.step(grads)
+        self.opt.step(grads, norm_fn=self.grad_norm)
         return metrics
 
     def prepare_batch(self, stacked: Dict[str, Any]) -> Dict[str, Masked]:

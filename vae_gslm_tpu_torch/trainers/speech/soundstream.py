@@ -27,7 +27,6 @@ from ...data.dataset import MelSpecDataset
 from ...hparams.hp import Hparams
 from ...models.speech.soundstream import SoundStream
 from ...models.vocoder.vocoder import HiFiGAN
-from ...parallel import mesh
 from ...training.optimizer import create_optimizer
 from ...training.trainer import BaseTrainer, init_weights
 
@@ -54,7 +53,7 @@ class SoundStreamTrainer(BaseTrainer):
         init_weights(self.model, hp.training.get("init_std", 1.0),
                      torch.Generator(self.device).manual_seed(seed))
         self.names, self.params = zip(*self.model.named_parameters())
-        mesh.replicate(self.params)
+        self.place_params()
         self.opt, self.lr_schedule = create_optimizer(
             hp.training, hp.trainer.total_steps, self.params)
         self.policy = policy_for_precision(hp.trainer.get("precision",

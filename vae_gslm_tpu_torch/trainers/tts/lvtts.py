@@ -36,7 +36,6 @@ from ...inference.tts.sampler import ARTRTTSSampler
 from ...models.tts.lvtr import LVTTS
 from ...models.vocoder.vocoder import HiFiGAN
 from ...nn.contrastive import InfoNCE
-from ...parallel import mesh
 from ...training.checkpoint import save_compact
 from ...training.optimizer import create_optimizer
 from ...training.trainer import (RANK_SEED_STRIDE, BaseTrainer,
@@ -90,14 +89,14 @@ class LVTTSTrainer(BaseTrainer):
         self.rec_loss_scale = tr.get("rec_loss_scale", 1.0)
         self.sampler = ARTRTTSSampler(self.model, device=self.device)
         self.names, self.params = zip(*self.model.named_parameters())
-        mesh.replicate(self.params)
+        self.place_params()
         self.opt, self.lr_schedule = create_optimizer(
             tr, hp.trainer.total_steps, self.params)
         self.policy = policy_for_precision(hp.trainer.get("precision",
                                                           "32"))
         self.fuse_accumulation = bool(tr.get("fuse_accumulation", False))
         self.rng = torch.Generator(self.device).manual_seed(
-            seed + 1 + RANK_SEED_STRIDE * self.rank)
+            seed + 1 + RANK_SEED_STRIDE * self.data_index)
 
     @property
     def vocoder(self) -> HiFiGAN:

@@ -83,6 +83,9 @@ class HiFiGANTrainer(BaseTrainer):
     """Runs on CUDA unless ``device="cpu"``; a rank of a process group
     passes its own device (``parallel/mesh.py::rank_device``)."""
 
+    # the GAN step takes its own collectives: data parallel only
+    parallel_modes = False
+
     def __init__(self, hp: Hparams, seed: int = 0,
                  device: Union[str, torch.device] = "cuda"):
         super().__init__(hp)

@@ -27,7 +27,6 @@ from ...data.dataset import DiscreteTokenDataset
 from ...hparams.hp import Hparams
 from ...models.vocoder.hubert import HuBERT
 from ...models.vocoder.vocoder import HiFiGAN
-from ...parallel import mesh
 from ...training.optimizer import create_optimizer
 from ...training.trainer import RANK_SEED_STRIDE, BaseTrainer, init_weights
 
@@ -60,13 +59,13 @@ class HuBERTDecoderTrainer(BaseTrainer):
                      torch.Generator(self.device).manual_seed(seed))
         self.deduplicate = hp.model.hubert.deduplicate
         self.names, self.params = zip(*self.model.named_parameters())
-        mesh.replicate(self.params)
+        self.place_params()
         self.opt, self.lr_schedule = create_optimizer(
             hp.training, hp.trainer.total_steps, self.params)
         self.policy = policy_for_precision(hp.trainer.get("precision",
                                                           "32"))
         self.rng = torch.Generator(self.device).manual_seed(
-            seed + 1 + RANK_SEED_STRIDE * self.rank)
+            seed + 1 + RANK_SEED_STRIDE * self.data_index)
 
     def _make_dataset(self, hp_data: Hparams, name: str):
         return DiscreteTokenDataset(hp_data, self.vocoder.hp,

@@ -71,7 +71,9 @@ def make_schedule(hp: Hparams, total_steps: int, base_lr: float
 class AdamOptimizer:
     """Adam with optax's moment and bias-correction arithmetic, updating
     ``params`` in place.  ``step`` takes one gradient per parameter
-    (None counts as zeros) and consumes one learning-rate step."""
+    (None counts as zeros) and consumes one learning-rate step; its
+    ``norm_fn`` gives the clipping norm of the gradients (``global_norm``
+    by default; a trainer whose ranks hold slices passes its own)."""
 
     def __init__(self, params: Sequence[torch.Tensor],
                  schedule: Callable[[int], float], b1: float, b2: float,
@@ -95,11 +97,12 @@ class AdamOptimizer:
             torch._foreach_add_(ups, ps, alpha=self.weight_decay)
 
     @torch.no_grad()
-    def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
+    def step(self, grads: Sequence[Optional[torch.Tensor]],
+             norm_fn: Optional[Callable] = None) -> None:
         g = [torch.zeros_like(p) if x is None else x.detach().clone()
              for p, x in zip(self.params, grads)]
         if self.clip_norm is not None:
-            norm = float(global_norm(g))
+            norm = float((norm_fn or global_norm)(g))
             if not norm < self.clip_norm:
                 torch._foreach_div_(g, norm)
                 torch._foreach_mul_(g, self.clip_norm)

@@ -3,15 +3,25 @@ reference weight init, micro-batch stacking for gradient accumulation,
 and ``BaseTrainer``: data wiring, the ``fit`` loop, checkpoints, full
 state and the SIGTERM flag.
 
-JAX jits one step over a ``data`` mesh and lets XLA insert the gradient
-all-reduce.  The port runs one process per rank (``parallel/mesh.py``):
-each rank loads its own rows through the distributed sampler, runs the
-step on its device, and the task trainer sums the gradients over the
-ranks in one all-reduce per optimizer step.  The model axis, pipeline
-and FSDP modes are not ported (ROADMAP.md, Queue 1 item 11).
+JAX jits one step over a device mesh and lets XLA insert the
+collectives.  The port runs one process per rank (``parallel/mesh.py``)
+on a grid of ranks built as JAX builds its mesh (:136-170): (data,
+model) with ``trainer.model_parallel``, (data, pipe) with
+``trainer.pipeline_parallel`` (and ``pipeline_microbatches``), data
+only otherwise.  Each data row of ranks loads its own rows through the
+distributed sampler (the model and pipe ranks of a row read the same
+rows and draw the same noise); the task trainer sums the gradients over
+the data ranks once per optimizer step.  ``place_params`` cuts the
+trunk layers over the model ranks (``parallel/tp.py``) and, with
+``trainer.fsdp``, every large parameter and its AdamW moments over the
+data ranks (``parallel/fsdp.py``); ``parallel_context`` makes the
+flash-attention routing, sequence parallelism and the pipeline ambient
+for a step, as JAX's does (:177-192).  Checkpoints gather the full
+tensors for rank 0 (``gathered``).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import os
@@ -28,8 +38,10 @@ from ..hparams.hp import Hparams
 from ..nn.attention import CrossAttention, SelfAttention
 from ..nn.linear import Dense, Embedding, uniform_
 from ..nn.transformer import TransformerLayerStack
-from ..parallel import mesh, tp
+from ..parallel import mesh, pp, tp
+from ..parallel.fsdp import DEFAULT_MIN_SIZE, FSDP, placed_fsdp_spec
 from .logging import ExperimentLogger
+from .optimizer import global_norm
 
 log = logging.getLogger(__name__)
 
@@ -100,10 +112,6 @@ def bucket_pad_batch(batch: Dict[str, Any], bucket: int = 256
     return out
 
 
-_UNPORTED_MODES = ("model_parallel", "pipeline_parallel", "fsdp",
-                   "sequence_parallel")
-
-
 class BaseTrainer:
     """Owns the rank's view of the process group, the data, the logger
     and the step loop.  Task trainers implement ``train_dataloader`` and
@@ -114,7 +122,12 @@ class BaseTrainer:
     ``run_step`` sums ``_preempted`` over the ranks in its all-reduce and
     stores whether any rank saw SIGTERM in ``_stop_agreed``
     (``all_reduce_metrics``).  ``step_micro_batches`` is such a step for
-    a trainer whose metrics are the last micro-batch's."""
+    a trainer whose metrics are the last micro-batch's.  A trainer calls
+    ``place_params`` on its ``model``/``names``/``params`` before it
+    builds its optimizer; one whose step takes collectives of its own sets
+    ``parallel_modes = False`` and the modes are refused for it."""
+
+    parallel_modes = True
 
     def __init__(self, hp: Hparams):
         hp.check_arg_in_hparams("model", "data")
@@ -123,15 +136,29 @@ class BaseTrainer:
         if hp.has("training") and hp.training.has("gradient_accumulation"):
             self.gradient_update_step = hp.training.gradient_accumulation
         hp_tr = hp.get("trainer", None)
-        for mode in _UNPORTED_MODES:
-            val = hp_tr.get(mode, None) if hp_tr is not None else None
-            if val and not (isinstance(val, int) and not isinstance(
-                    val, bool) and val <= 1):
-                raise NotImplementedError(
-                    f"trainer.{mode} is not ported; the port trains data "
-                    "parallel only (ROADMAP.md, Queue 1 item 11)")
+
+        def get(key, default=None):
+            return hp_tr.get(key, default) if hp_tr is not None else default
+
+        mp = int(get("model_parallel", None) or 1)
+        pp_n = int(get("pipeline_parallel", None) or 1)
+        self._pp_micro = int(get("pipeline_microbatches", pp_n) or pp_n)
+        self._fsdp = bool(get("fsdp", False))
+        self._fsdp_min_size = int(get("fsdp_min_size", DEFAULT_MIN_SIZE))
+        self._seq_parallel = bool(get("sequence_parallel", False))
+        if not self.parallel_modes and (mp > 1 or pp_n > 1 or self._fsdp
+                                        or self._seq_parallel):
+            raise NotImplementedError(
+                f"{type(self).__name__} trains data parallel only: its step "
+                "takes its own collectives (ROADMAP.md)")
         self.world_size = mesh.process_count()
         self.rank = mesh.process_index()
+        # JAX: pipe wins over model when both are set (:140-151)
+        self.grid = (pp.create_mesh_pipe(pp_n) if pp_n > 1
+                     else mesh.create_grid("model", mp))
+        self.n_data, self.data_index = self.grid.n_data, self.grid.data_index
+        self._tp_shards: Dict[Any, Any] = {}
+        self._fsdp_state: Optional[FSDP] = None
         self.global_step = 0
         self.logger: Optional[ExperimentLogger] = None
         # rank 0 owns every artifact write (scalars, checkpoints)
@@ -140,14 +167,95 @@ class BaseTrainer:
         self._stop_agreed = False     # some rank had, at the last all-reduce
 
     def parallel_context(self):
-        """The ambient parallelism of a step: attention routed as JAX
-        routes it under a data mesh of ``world_size`` devices."""
-        return tp.flash_mesh(self.world_size)
+        """The ambient parallelism of a step (JAX :177-192): attention
+        routed as JAX routes it on this grid, sequence parallelism when
+        configured, the pipeline on a pipe grid."""
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(tp.flash_mesh(self.n_data,
+                                        self.grid.size("model")))
+        if self._seq_parallel:
+            ctx.enter_context(tp.sequence_parallel(True))
+        if self.grid.size("pipe") > 1:
+            ctx.enter_context(pp.pipeline(self.grid, self._pp_micro))
+        return ctx
+
+    # ------------------------------------------------------ placement
+    def place_params(self) -> None:
+        """Rank 0's parameters on every rank, then this rank's slices:
+        the trunk layers' over the model ranks, and with ``trainer.fsdp``
+        every parameter that ``fsdp_spec`` shards over the data ranks (on
+        top of the tensor-parallel spec, as JAX's ``shard_params``)."""
+        mesh.replicate(self.params)
+        n_model = self.grid.size("model")
+        self._tp_shards = tp.shard_layers(self.model, self.grid)
+        if not self._fsdp:
+            return
+        axes = []
+        for name, p in zip(self.names, self.params):
+            ps = self._tp_shards.get(p)
+            full = list(p.shape)
+            if ps is not None:
+                full[1 if ps.kind == "cols" else 0] *= n_model
+            spec = placed_fsdp_spec(self.model, name, full, self.n_data,
+                                    n_model, self._fsdp_min_size)
+            axes.append(spec.index("data") if "data" in spec else None)
+        self._fsdp_state = FSDP(self.params, axes, self.grid)
+        self._fsdp_state.shard()
+
+    def _sharded(self) -> bool:
+        return bool(self._tp_shards) or (
+            self._fsdp_state is not None and self._fsdp_state.sharded)
+
+    def full_tensor(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """The whole tensor of parameter ``i``'s shape from this rank's
+        slice ``t`` of it (the parameter, a moment or a gradient):
+        gathered over the data ranks, then over the model ranks
+        (collectives: every rank calls it)."""
+        fs = self._fsdp_state
+        if fs is not None:
+            t = fs.gather(t, i)
+        ps = self._tp_shards.get(self.params[i])
+        return t if ps is None else tp.gather_full(t, ps)
+
+    def local_tensor(self, t: torch.Tensor, i: int) -> torch.Tensor:
+        """This rank's slice of parameter ``i``'s whole tensor ``t``."""
+        ps = self._tp_shards.get(self.params[i])
+        if ps is not None:
+            t = tp.cut(t, ps)
+        fs = self._fsdp_state
+        return t if fs is None else fs.cut(t, i)
+
+    @contextlib.contextmanager
+    def gathered(self):
+        """Every parameter and AdamW moment whole on every rank inside
+        (collectives: every rank enters), this rank's slices again of
+        whatever they then hold on exit (a checkpoint saved or loaded
+        inside)."""
+        if not self._sharded():
+            yield
+            return
+        opt = getattr(self, "opt", None)
+
+        def each(fn):
+            with torch.no_grad():
+                for i, p in enumerate(self.params):
+                    p.data = fn(p.data, i)
+                    if opt is not None:
+                        opt.mu[i] = fn(opt.mu[i], i)
+                        opt.nu[i] = fn(opt.nu[i], i)
+
+        each(self.full_tensor)
+        try:
+            yield
+        finally:
+            each(self.local_tensor)
 
     # ---------------------------------------------------------------- data
     def _world(self):
+        """The distributed sampler's world and rank: the data axis's (the
+        model and pipe ranks of one data row read the same rows)."""
         if self.hp.trainer.get("distributed", False):
-            return self.world_size, self.rank
+            return self.n_data, self.data_index
         return None, None
 
     def get_dataloader(self, hp: Hparams, dataset) -> DataLoader:
@@ -195,20 +303,108 @@ class BaseTrainer:
     def backward_micro_batches(self, stacked: Batch,
                                loss_fn: Callable) -> List[Dict[str, Any]]:
         """``loss_fn(mb, i)``'s gradients summed over the stacked
-        micro-batches into ``params``' ``.grad`` (cleared first); each
+        micro-batches into ``params``' ``.grad`` (cleared first; under
+        FSDP the full weights are gathered before each micro-batch and
+        its gradients collected after, ``step_grads``); each
         micro-batch's metrics."""
         for p in self.params:
             p.grad = None
+        fs = self._fsdp_state
         metrics = []
         for i in range(next(iter(stacked.values())).value.shape[0]):
-            loss, m = loss_fn({k: v.micro(i) for k, v in stacked.items()}, i)
-            loss.backward()
+            if fs is not None:
+                fs.gather_params()
+            try:
+                loss, m = loss_fn({k: v.micro(i)
+                                   for k, v in stacked.items()}, i)
+                loss.backward()
+            finally:
+                if fs is not None:
+                    fs.collect_grads()
+                    fs.release_params()
             metrics.append(m)
         return metrics
 
+    def step_grads(self) -> List[Optional[torch.Tensor]]:
+        """This step's gradient of each parameter (None where there is
+        none; under FSDP the full-size sums of the sharded ones)."""
+        grads = [p.grad for p in self.params]
+        if self._fsdp_state is not None:
+            grads = self._fsdp_state.step_grads(grads)
+        return grads
+
+    def reduce_grads(self, grads: List[Optional[torch.Tensor]]
+                     ) -> List[torch.Tensor]:
+        """The step's gradients as AdamW takes them: the pipeline stages'
+        summed over the pipe ranks; the gradients of parameters that every
+        model or pipe rank of a data row holds whole taken from the row's
+        first rank (the ranks compute them alike, but a card's
+        non-deterministic kernels, a convolution's weight gradient, can
+        part them in the last bits, and the replicas would drift); then
+        every gradient summed over the data ranks (JAX's loss is a sum
+        over the global batch), the FSDP-sharded ones reduce-scattered to
+        this rank's slice."""
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(self.params, grads)]
+        pend = pp.take_pending()
+        inner = self.grid.inner
+        if pend:
+            idx = [i for i, p in enumerate(self.params) if p in pend]
+            for i in idx:
+                grads[i] = grads[i] + pend[self.params[i]]
+            mesh.all_reduce_sum([grads[i] for i in idx],
+                                group=self.grid.group(inner))
+        if self.grid.n_inner > 1:
+            whole = [grads[i] for i, p in enumerate(self.params)
+                     if p not in pend and p not in self._tp_shards]
+            mesh.broadcast_list(whole, 0, self.grid.group(inner))
+        if self.n_data > 1:
+            fs = self._fsdp_state
+            if fs is not None:
+                grads = fs.reduce_scatter(grads)
+            whole = [i for i in range(len(grads))
+                     if fs is None or fs.axes[i] is None]
+            mesh.all_reduce_sum([grads[i] for i in whole],
+                                group=self.grid.group("data"))
+        return grads
+
+    def grad_norm(self, grads: Sequence[Optional[torch.Tensor]]
+                  ) -> torch.Tensor:
+        """The global norm of the step's whole gradient from this rank's
+        slices: squares of the slices cut over the model ranks summed
+        over them, those cut over the data ranks over those, the whole
+        ones once."""
+        if not self._sharded():
+            return global_norm([g for g in grads if g is not None])
+        fs = self._fsdp_state
+        sums = {}
+        for i, g in enumerate(grads):
+            if g is None:
+                continue
+            key = (self.params[i] in self._tp_shards,
+                   fs is not None and fs.axes[i] is not None)
+            sums[key] = sums.get(key, 0) + g.float().square().sum()
+        groups = {(False, False): None,
+                  (True, False): self.grid.group("model"),
+                  (False, True): self.grid.group("data"),
+                  (True, True): "world"}
+        total = torch.zeros((), device=grads[0].device)
+        for key, v in sums.items():
+            v = v.reshape(1)
+            if groups[key] == "world":
+                mesh.all_reduce_sum([v])
+            elif groups[key] is not None:
+                mesh.all_reduce_sum([v], group=groups[key])
+            total = total + v[0]
+        return torch.sqrt(total)
+
     def all_reduce_metrics(self, vals: torch.Tensor) -> torch.Tensor:
-        """``vals`` summed over the ranks in one all-reduce that also
-        sums the ranks' SIGTERM flags into ``_stop_agreed``."""
+        """``vals`` summed over the data rows in one all-reduce over
+        every rank (the model and pipe ranks of a row hold the same
+        values: only the row's first rank adds them) that also sums all
+        ranks' SIGTERM flags into ``_stop_agreed``."""
+        if self.grid.inner_index:
+            vals = torch.zeros_like(vals)
         both = torch.cat([vals, vals.new_tensor([float(self._preempted)])])
         mesh.all_reduce_sum([both])
         self._stop_agreed = bool(both[-1] > 0)
@@ -222,16 +418,16 @@ class BaseTrainer:
         the metrics those of the last micro-batch (JAX's ``m[-1]``),
         summed over the ranks."""
         metrics = dict(self.backward_micro_batches(stacked, loss_fn)[-1])
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in self.params]
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(self.params, self.step_grads())]
         if self.world_size > 1:
-            mesh.all_reduce_sum(grads)
+            grads = self.reduce_grads(grads)
             keys = list(metrics)
             vals = self.all_reduce_metrics(
                 torch.stack([metrics[k].float() for k in keys]))
             metrics.update(zip(keys, vals))
         metrics["lr"] = self.lr_schedule(self.global_step)
-        self.opt.step(grads)
+        self.opt.step(grads, norm_fn=self.grad_norm)
         return metrics
 
     def resume(self, path: str) -> None:
@@ -241,13 +437,15 @@ class BaseTrainer:
         from .checkpoint import load_compact
         from .optimizer import create_optimizer
 
+        with self.gathered():
+            if path.endswith(".npz"):
+                load_compact(self.model, path)
+            else:
+                self.restore_full_state(path)
+            mesh.replicate(self.params)
         if path.endswith(".npz"):
-            load_compact(self.model, path)
             self.opt, self.lr_schedule = create_optimizer(
                 self.hp.training, self.hp.trainer.total_steps, self.params)
-        else:
-            self.restore_full_state(path)
-        mesh.replicate(self.params)
 
     # ----------------------------------------------- full-state resume
     # the default full state is that of one optimizer (``self.opt``, an
@@ -429,14 +627,19 @@ class BaseTrainer:
 
     def checkpoint(self) -> None:
         """Rank 0 writes ``step=N-cpt.npz``, ``last-cpt.npz`` and the full
-        state ``full_state.pt`` into the logger's checkpoint directory."""
-        if self.logger is None or not self._is_main:
+        state ``full_state.pt`` into the logger's checkpoint directory
+        (sharded parameters and moments gathered whole first: every rank
+        takes part)."""
+        if self.logger is None:
             return
-        ckpt = self.logger.ckpt_path
-        self.save_checkpoint(os.path.join(
-            ckpt, f"step={self.global_step}-cpt.npz"))
-        self.save_checkpoint(os.path.join(ckpt, "last-cpt.npz"))
-        self.save_full_state(os.path.join(ckpt, FULL_STATE))
+        with self.gathered():
+            if not self._is_main:
+                return
+            ckpt = self.logger.ckpt_path
+            self.save_checkpoint(os.path.join(
+                ckpt, f"step={self.global_step}-cpt.npz"))
+            self.save_checkpoint(os.path.join(ckpt, "last-cpt.npz"))
+            self.save_full_state(os.path.join(ckpt, FULL_STATE))
 
 
 FULL_STATE = "full_state.pt"
